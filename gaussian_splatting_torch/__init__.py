@@ -7,12 +7,17 @@ beside a plain torch version of the same function. It imports no JAX and
 nothing of the JAX package, which stays as the reference the tests hold
 this package to.
 
-So far the render path is ported: PLY model -> `activate` -> `rasterize`
-(preprocess, tile binning, the compositing kernel).
+Ported so far: the render path (PLY model -> `activate` -> `rasterize`:
+preprocess, tile binning, the compositing kernel) and the train step
+(`init_train_state` -> `train_step`: render, L1 + SSIM loss, the
+compositing backward and gradient-routing kernels, masked Adam, the
+densification statistics).
 """
 
 __version__ = "0.1.0"
 
 from gaussian_splatting_torch.ops.rasterize import RasterizerConfig, mark_visible, rasterize  # noqa: F401
 from gaussian_splatting_torch.scene.cameras import Camera  # noqa: F401
-from gaussian_splatting_torch.training import eval_render  # noqa: F401
+from gaussian_splatting_torch.training import (  # noqa: F401
+    OptimizationConfig, TrainState, eval_render, init_train_state, train_step,
+)

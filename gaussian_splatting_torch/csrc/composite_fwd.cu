@@ -7,7 +7,8 @@
 // is gaussian_splatting_torch/ops/composite.py::composite_fwd_torch.
 //
 // Semantics, per pixel (global integer pixel coordinates), entries front
-// to back:
+// to back (the per-pair arithmetic is blend.cuh's, shared with the
+// backward kernel so that it replays these decisions exactly):
 //   d = mean2d - pixel
 //   power = -0.5 (a dx^2 + c dy^2) - b dx dy       skip if power > 0
 //   alpha = min(0.99, opacity * exp(power))         skip unless alpha >= 1/255
@@ -43,13 +44,12 @@
 
 #include <cuda_runtime.h>
 
+#include "blend.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBatch = kThreads;  // entries staged per round: one per thread
-constexpr float kAlphaMax = 0.99f;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kTEps = 1e-4f;
 
 template <int TILE_W, int TILE_H>
 __global__ void __launch_bounds__(kThreads)
@@ -116,19 +116,15 @@ composite_fwd_kernel(const int* __restrict__ gauss_id,
 #pragma unroll
       for (int k = 0; k < kPix; ++k) {
         if (done[k]) continue;
-        const float dx = m.x - px[k];
-        const float dy = m.y - py[k];
-        const float power = -0.5f * (co.x * dx * dx + co.z * dy * dy) - co.y * dx * dy;
-        if (power > 0.0f) continue;
-        const float alpha = fminf(kAlphaMax, co.w * expf(power));
-        if (!(alpha >= kAlphaMin)) continue;  // also skips a NaN alpha
-        const float test = T[k] * (1.0f - alpha);
-        if (test < kTEps) {
+        gs::Pair r;
+        if (!gs::pair_alpha(m.x, m.y, co.x, co.y, co.z, co.w, px[k], py[k], r)) continue;
+        const float test = gs::transmit(T[k], r.alpha);
+        if (test < gs::kTEps) {
           done[k] = true;
           continue;
         }
         const float4 c = s_rgb[j];
-        const float w = alpha * T[k];
+        const float w = r.alpha * T[k];
         C[k][0] += c.x * w;
         C[k][1] += c.y * w;
         C[k][2] += c.z * w;

@@ -14,6 +14,13 @@ patterns order like the floats, and a stable sort on the int64 key gives
 exactly the order of the JAX package's stable (tile, depth) sort, ties
 included.
 
+Besides the sorted lists, `TileLists` carries what the backward needs to
+route per-entry gradients to Gaussians without a second sort: the emission
+index of each sorted entry (`entry_src`, the sort's permutation) and each
+Gaussian's run of emission indices (`gauss_offset`, `gauss_count`).
+Emission runs are contiguous by Gaussian id, so the entries of Gaussian g
+are emission rows [gauss_offset[g], gauss_offset[g] + gauss_count[g]).
+
 The entry list has a static capacity K (`RasterizerConfig.capacity`). On
 overflow, whole trailing Gaussians are dropped (a rect that does not fit in
 the remaining capacity emits nothing) and `total` still reports the true
@@ -34,6 +41,9 @@ class TileLists(NamedTuple):
     tile_start: torch.Tensor  # (num_tiles,) int32 range start in the sorted list
     tile_stop: torch.Tensor  # (num_tiles,) int32 range end (exclusive)
     total: torch.Tensor  # () int64: true number of entries (> K means overflow)
+    entry_src: torch.Tensor  # (K,) int32: emission index of each sorted entry
+    gauss_offset: torch.Tensor  # (P,) int32: first emission index of each Gaussian's run
+    gauss_count: torch.Tensor  # (P,) int32: entries kept for each Gaussian (0 if dropped)
 
 
 def _tile_ranges(s_tile: torch.Tensor, num_tiles: int):
@@ -93,4 +103,7 @@ def build_tile_lists(
         tile_start=tile_start,
         tile_stop=tile_stop,
         total=total,
+        entry_src=order.to(torch.int32),
+        gauss_offset=torch.clamp_max(offsets, capacity).to(torch.int32),
+        gauss_count=counts.to(torch.int32),
     )

@@ -10,13 +10,19 @@ reference's `forward.cu::renderCUDA` (forward.cu:331-485). Blending rules
     C += rgb * alpha * T ; T = T*(1-alpha)
     image = C + T * bg, final_t = T
 
-Two functions:
-  - `composite_fwd_torch`: the plain version of the CUDA kernel in
+Functions:
+  - `composite_fwd_torch`: the plain version of the compositing kernel in
     `ops/composite_cuda.py`, with the same signature. It walks every
     tile's sorted list one entry position at a time, vectorised over all
     tiles and their pixels, in linear transmittance with the kernel's order
     of operations, so kernel and plain version agree to rounding. The
     CPU path and the tests use it; on the card only the kernel check calls it.
+  - `composite_bwd_torch`: the plain version of the backward kernel, the
+    VJP of the blend; one row of 9 gradients per entry. It walks the same
+    entry positions with the same arithmetic (`_pair`), so it takes the
+    forward's decisions.
+  - `route_grads_torch`: the plain version of the routing kernel, the sum
+    of each Gaussian's entry rows.
   - `render_bruteforce`: the oracle ("reference" backend). It composites
     every visible Gaussian against every pixel in global depth order, with
     the same rect-overlap rule as the tiled path. Small scenes only.
@@ -41,60 +47,82 @@ class CompositeOut(NamedTuple):
     final_t: torch.Tensor  # (H, W) final transmittance
 
 
+def _tile_pixels(width: int, height: int, tile_w: int, tile_h: int, dev):
+    """Global pixel coordinates of every tile's pixels, (T, TPX) float32
+    each, and the mask of those outside the image."""
+    grid_x = (width + tile_w - 1) // tile_w
+    grid_y = (height + tile_h - 1) // tile_h
+    tiles = torch.arange(grid_x * grid_y, device=dev)
+    pix = torch.arange(tile_w * tile_h, device=dev)
+    x = ((tiles % grid_x) * tile_w)[:, None] + (pix % tile_w)[None, :]
+    y = ((tiles // grid_x) * tile_h)[:, None] + (pix // tile_w)[None, :]
+    return x.to(torch.float32), y.to(torch.float32), (x >= width) | (y >= height)
+
+
+def _pair(gid, means2d, conic, opacity, px, py, trans):
+    """The per-(entry, pixel) blend arithmetic, in the kernels' order of
+    operations (csrc/blend.cuh, which rounds three of them as FMAs): d,
+    G = exp(power), the unclamped alpha `raw`, alpha, whether the entry is
+    taken (not skipped) and the transmittance test."""
+    dx = means2d[gid, 0][:, None] - px
+    dy = means2d[gid, 1][:, None] - py
+    a = conic[gid, 0][:, None]
+    b = conic[gid, 1][:, None]
+    c = conic[gid, 2][:, None]
+    power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
+    g = torch.exp(power)
+    raw = opacity[gid][:, None] * g
+    alpha = torch.clamp_max(raw, ALPHA_MAX)
+    # `alpha >= ALPHA_MIN` is false for NaN, so a NaN alpha is skipped.
+    taken = ~(power > 0.0) & (alpha >= ALPHA_MIN)
+    test = trans * (1.0 - alpha)
+    return dx, dy, g, raw, alpha, taken, test
+
+
+def _entry_positions(gauss_id, tile_start, tile_stop):
+    """Yields, for each entry position j of the longest tile list, the
+    tiles that have an entry there (T,) bool, that entry's sorted index
+    (T,) int64 and its Gaussian id (T,) int64 (0 where the tile has none)."""
+    start = tile_start.to(torch.int64)
+    count = (tile_stop - tile_start).to(torch.int64)
+    longest = int(count.max()) if count.numel() else 0
+    last = max(gauss_id.shape[0] - 1, 0)
+    for j in range(longest):
+        has = count > j
+        s = torch.clamp(start + j, max=last)
+        gid = torch.where(has, gauss_id[s].to(torch.int64), 0)
+        yield j, has, s, gid
+
+
 def _blend_tiles(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
                  width: int, height: int, tile_w: int, tile_h: int):
     """Per-tile blend. Returns acc (T, TPX, 3) before background, final
-    transmittance (T, TPX), and the number of entries evaluated per pixel
-    (T, TPX) int64: those up to and including the one it stopped at."""
+    transmittance (T, TPX), the number of entries evaluated per pixel
+    (T, TPX) int64: those up to and including the one it stopped at, and
+    the number of entries blended per pixel (T, TPX) int64."""
     dev = means2d.device
-    f32 = torch.float32
-    grid_x = (width + tile_w - 1) // tile_w
-    grid_y = (height + tile_h - 1) // tile_h
-    num_tiles = grid_x * grid_y
-    tpx = tile_w * tile_h
+    px, py, done = _tile_pixels(width, height, tile_w, tile_h, dev)
+    trans = torch.ones(px.shape, dtype=torch.float32, device=dev)
+    acc = torch.zeros(px.shape + (3,), dtype=torch.float32, device=dev)
+    n_eval = torch.zeros(px.shape, dtype=torch.int64, device=dev)
+    n_blend = torch.zeros(px.shape, dtype=torch.int64, device=dev)
 
-    tiles = torch.arange(num_tiles, device=dev)
-    pix = torch.arange(tpx, device=dev)
-    x = ((tiles % grid_x) * tile_w)[:, None] + (pix % tile_w)[None, :]
-    y = ((tiles // grid_x) * tile_h)[:, None] + (pix // tile_w)[None, :]
-    done = (x >= width) | (y >= height)  # pixels outside the image start done
-    px, py = x.to(f32), y.to(f32)
-
-    trans = torch.ones((num_tiles, tpx), dtype=f32, device=dev)
-    acc = torch.zeros((num_tiles, tpx, 3), dtype=f32, device=dev)
-    n_eval = torch.zeros((num_tiles, tpx), dtype=torch.int64, device=dev)
-    start = tile_start.to(torch.int64)
-    count = (tile_stop - tile_start).to(torch.int64)
-    longest = int(count.max()) if num_tiles else 0
-    last = max(gauss_id.shape[0] - 1, 0)
-
-    for j in range(longest):
-        has = count > j  # (T,) tile still has an entry at position j
+    for j, has, _, gid in _entry_positions(gauss_id, tile_start, tile_stop):
         # Leave once no pixel of any tile with entries left is still open.
         if j % 32 == 0 and not bool((has[:, None] & ~done).any()):
             break
-        gid = gauss_id[torch.clamp(start + j, max=last)].to(torch.int64)
-        gid = torch.where(has, gid, torch.zeros_like(gid))
         live = has[:, None] & ~done
         n_eval = n_eval + live
-
-        dx = means2d[gid, 0][:, None] - px
-        dy = means2d[gid, 1][:, None] - py
-        a = conic[gid, 0][:, None]
-        b = conic[gid, 1][:, None]
-        c = conic[gid, 2][:, None]
-        power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
-        alpha = torch.clamp_max(opacity[gid][:, None] * torch.exp(power), ALPHA_MAX)
-        # `alpha >= ALPHA_MIN` is false for NaN, so a NaN alpha is skipped.
-        live = live & ~(power > 0.0) & (alpha >= ALPHA_MIN)
-        test = trans * (1.0 - alpha)
+        _, _, _, _, alpha, taken, test = _pair(gid, means2d, conic, opacity, px, py, trans)
+        live = live & taken
         stop = live & (test < T_EPS)
         done = done | stop
         live = live & ~stop
+        n_blend = n_blend + live
         w = torch.where(live, alpha * trans, torch.zeros_like(trans))
         acc = acc + rgb[gid][:, None, :] * w[..., None]
         trans = torch.where(live, test, trans)
-    return acc, trans, n_eval
+    return acc, trans, n_eval, n_blend
 
 
 def _untile(x: torch.Tensor, width: int, height: int, tile_w: int, tile_h: int):
@@ -107,6 +135,18 @@ def _untile(x: torch.Tensor, width: int, height: int, tile_w: int, tile_h: int):
     return x[:height, :width]
 
 
+def _to_tiles(x: torch.Tensor, width: int, height: int, tile_w: int, tile_h: int):
+    """(H, W, ...) image -> (num_tiles, TPX, ...) tile-major pixels, zero
+    outside the image; the inverse of `_untile`."""
+    grid_x = (width + tile_w - 1) // tile_w
+    grid_y = (height + tile_h - 1) // tile_h
+    rest = x.shape[2:]
+    padded = x.new_zeros((grid_y * tile_h, grid_x * tile_w) + rest)
+    padded[:height, :width] = x
+    padded = padded.reshape((grid_y, tile_h, grid_x, tile_w) + rest).transpose(1, 2)
+    return padded.reshape((grid_x * grid_y, tile_w * tile_h) + rest)
+
+
 def composite_fwd_torch(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
                         bg, width: int, height: int, tile_w: int, tile_h: int) -> CompositeOut:
     """Plain version of the compositing kernel (`composite_cuda.composite_fwd`).
@@ -115,8 +155,8 @@ def composite_fwd_torch(gauss_id, tile_start, tile_stop, means2d, conic, rgb, op
     means2d (P,2), conic (P,3), rgb (P,3), opacity (P,), bg (3,) float32.
     Returns image (H, W, 3) and final_t (H, W).
     """
-    acc, trans, _ = _blend_tiles(gauss_id, tile_start, tile_stop, means2d, conic, rgb,
-                                 opacity, width, height, tile_w, tile_h)
+    acc, trans, _, _ = _blend_tiles(gauss_id, tile_start, tile_stop, means2d, conic, rgb,
+                                    opacity, width, height, tile_w, tile_h)
     out = acc + trans[..., None] * bg
     return CompositeOut(
         image=_untile(out, width, height, tile_w, tile_h),
@@ -124,14 +164,98 @@ def composite_fwd_torch(gauss_id, tile_start, tile_stop, means2d, conic, rgb, op
     )
 
 
-def blend_pair_count(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
-                     width: int, height: int, tile_w: int, tile_h: int) -> int:
-    """(pixel, entry) pairs the blend evaluates on these inputs: for every
-    pixel, its tile's entries up to and including the one it stopped at.
-    This is the work that bounds the compositing kernel."""
-    _, _, n_eval = _blend_tiles(gauss_id, tile_start, tile_stop, means2d, conic, rgb,
-                                opacity, width, height, tile_w, tile_h)
-    return int(n_eval.sum())
+def blend_pair_counts(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
+                      width: int, height: int, tile_w: int, tile_h: int) -> tuple:
+    """(pixel, entry) pairs the blend evaluates on these inputs (for every
+    pixel, its tile's entries up to and including the one it stopped at)
+    and, of those, the pairs it blends. This is the work that bounds the
+    compositing kernels."""
+    _, _, n_eval, n_blend = _blend_tiles(gauss_id, tile_start, tile_stop, means2d, conic,
+                                         rgb, opacity, width, height, tile_w, tile_h)
+    return int(n_eval.sum()), int(n_blend.sum())
+
+
+def composite_bwd_torch(gauss_id, tile_start, tile_stop, entry_src, means2d, conic, rgb,
+                        opacity, image, final_t, g_image, g_final_t,
+                        width: int, height: int, tile_w: int, tile_h: int) -> torch.Tensor:
+    """Plain version of the compositing backward kernel
+    (`composite_cuda.composite_bwd`): the VJP of `composite_fwd_torch`.
+
+    image (H, W, 3) and final_t (H, W) are the forward's outputs (the image
+    with background); g_image / g_final_t their cotangents. Returns one row
+    of 9 gradients per entry, (K, 9) float32, at row `entry_src[s]` for
+    sorted entry s: d mean2d (2), d conic a, b, c (3), d rgb (3),
+    d opacity (1). Rows of entries that blend nowhere are zero.
+
+    It replays the forward entry by entry in forward order, with its
+    decisions, and writes the suffix colour term as TOTAL - prefix:
+      TOTAL    = sum_c g_c image_c + g_ft T_final        (per pixel)
+      prefix_i = sum_{j <= i} cg_j alpha_j T_j,  cg_i = sum_c g_c rgb_ic
+      dL/dalpha_i = T_i cg_i - (TOTAL - prefix_i) / (1 - alpha_i)
+    The alpha clamp's gradient is gated: no alpha-path gradient where the
+    unclamped op * G >= 0.99, while d rgb still flows.
+    """
+    dev = means2d.device
+    f32 = torch.float32
+    px, py, done = _tile_pixels(width, height, tile_w, tile_h, dev)
+    g = _to_tiles(g_image, width, height, tile_w, tile_h)  # (T, TPX, 3)
+    img = _to_tiles(image, width, height, tile_w, tile_h)
+    total = ((g[..., 0] * img[..., 0] + g[..., 1] * img[..., 1] + g[..., 2] * img[..., 2])
+             + _to_tiles(g_final_t, width, height, tile_w, tile_h)
+             * _to_tiles(final_t, width, height, tile_w, tile_h))
+    trans = torch.ones(px.shape, dtype=f32, device=dev)
+    pfx = torch.zeros(px.shape, dtype=f32, device=dev)
+    rows = torch.zeros((gauss_id.shape[0], 9), dtype=f32, device=dev)
+    zero = torch.zeros_like(trans)
+
+    for j, has, s, gid in _entry_positions(gauss_id, tile_start, tile_stop):
+        if j % 32 == 0 and not bool((has[:, None] & ~done).any()):
+            break
+        live = has[:, None] & ~done
+        dx, dy, gs, raw, alpha, taken, test = _pair(gid, means2d, conic, opacity, px, py, trans)
+        live = live & taken
+        stop = live & (test < T_EPS)
+        done = done | stop
+        live = live & ~stop
+
+        e_rgb = rgb[gid][:, None, :]
+        cg = g[..., 0] * e_rgb[..., 0] + g[..., 1] * e_rgb[..., 1] + g[..., 2] * e_rgb[..., 2]
+        w = torch.where(live, alpha * trans, zero)
+        pfx = pfx + cg * w
+        dalpha = trans * cg - (total - pfx) / (1.0 - alpha)
+        gate = live & (raw < ALPHA_MAX)
+        dpower = torch.where(gate, dalpha * raw, zero)
+        a = conic[gid, 0][:, None]
+        b = conic[gid, 1][:, None]
+        c = conic[gid, 2][:, None]
+        terms = torch.stack([
+            -(a * dx + b * dy) * dpower,
+            -(c * dy + b * dx) * dpower,
+            -0.5 * dx * dx * dpower,
+            -dx * dy * dpower,
+            -0.5 * dy * dy * dpower,
+            g[..., 0] * w,
+            g[..., 1] * w,
+            g[..., 2] * w,
+            torch.where(gate, dalpha * gs, zero),
+        ], dim=-1)  # (T, TPX, 9)
+        rows[entry_src[s[has]].to(torch.int64)] = terms.sum(dim=1)[has]
+        trans = torch.where(live, test, trans)
+    return rows
+
+
+def route_grads_torch(rows, gauss_offset, gauss_count, num_points: int) -> torch.Tensor:
+    """Plain version of the gradient-routing kernel (`composite_cuda.route_grads`):
+    the sum of each Gaussian's entry rows, (P, 9) float32. Gaussian g owns
+    rows [gauss_offset[g], gauss_offset[g] + gauss_count[g]) of `rows`."""
+    dev = rows.device
+    count = gauss_count.to(torch.int64)
+    n = int(count.sum())
+    seg = torch.repeat_interleave(torch.arange(num_points, device=dev), count, output_size=n)
+    first = torch.cumsum(count, 0) - count
+    src = gauss_offset.to(torch.int64)[seg] + (torch.arange(n, device=dev) - first[seg])
+    out = torch.zeros((num_points, rows.shape[1]), dtype=rows.dtype, device=dev)
+    return out.index_add_(0, seg, rows[src])
 
 
 def render_bruteforce(prep, width: int, height: int, tile_w: int, tile_h: int,

@@ -3,10 +3,17 @@
 The counterpart of `gaussian_splatting_tpu/ops/rasterize.py`: preprocess
 (`projection.py`) -> tile binning (`binning.py`) -> compositing.
 
+`rasterize` is differentiable. Gradients reach means3d, scales, quats,
+opacities, shs, mean2d_bias, colors_precomp, cov3d_precomp and bg: through
+torch autograd of `preprocess`, and through the compositing op's
+hand-written backward (`composite_cuda.composite_fwd`). Depths and tile
+rects only order and bin the entries and take no gradient.
+
 Backends:
-  - "auto": the CUDA compositing kernel for CUDA tensors, its plain torch
-    version for CPU tensors (`composite_cuda.composite_fwd`). On CUDA it
-    launches the kernel or raises; it never falls back.
+  - "auto": the CUDA compositing kernels (forward, backward, gradient
+    routing) for CUDA tensors, their plain torch versions for CPU tensors
+    (`composite_cuda.composite_fwd`). On CUDA it launches the kernels or
+    raises; it never falls back.
   - "reference": the brute-force oracle (`composite.render_bruteforce`;
     tests, small scenes).
 """
@@ -123,8 +130,8 @@ def rasterize(
             grid_x, grid_y, config.capacity(P),
         )
         out = composite_fwd(
-            lists.gauss_id, lists.tile_start, lists.tile_stop, prep.means2d, prep.conic,
-            prep.rgb, prep.opacity, bg, width, height, config.tile_w, config.tile_h,
+            lists, prep.means2d, prep.conic, prep.rgb, prep.opacity, bg,
+            width, height, config.tile_w, config.tile_h,
         )
         num_entries = lists.total
 

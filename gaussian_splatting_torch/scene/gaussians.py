@@ -13,7 +13,7 @@ Parameter semantics match the reference (scene/gaussian_model.py):
 - rotation: unnormalized quaternion wxyz (normalized in build_cov3d)
 - opacity: logit (sigmoid activation)
 
-`create_from_pcd` needs a KNN and comes with the training slice.
+`create_from_pcd` needs a KNN and is not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -110,12 +110,14 @@ def params_from_numpy(params_np: Mapping[str, np.ndarray], alive=None,
     """Numpy parameters (the JAX package's `GaussianParams` fields, or the
     dict `load_gaussians_ply` returns) -> the port's `GaussianParams`."""
     dev = require_device(device)
+    # Copies (torch.tensor), never views of the numpy input: training
+    # updates the parameters in place.
     tensors = {
-        k: torch.as_tensor(np.asarray(params_np[k], np.float32), device=dev)
+        k: torch.tensor(np.asarray(params_np[k], np.float32), device=dev)
         for k in PARAM_NAMES
     }
     if alive is not None:
-        alive = torch.as_tensor(np.asarray(alive, bool), device=dev)
+        alive = torch.tensor(np.asarray(alive, bool), device=dev)
     return GaussianParams(**tensors, alive=alive)
 
 

@@ -43,14 +43,17 @@ def fake_nvcc(tmp_path, monkeypatch):
 
 def test_builds_each_source_once_and_reuses_it(fake_nvcc):
     calls = fake_nvcc()
-    assert cuda_build.sources() == ["composite_fwd"]
+    names = ["composite_bwd", "composite_fwd", "route_grads"]
+    assert cuda_build.sources() == names
     logs = cuda_build.build()
-    assert "Used 42 registers" in logs["composite_fwd"]
-    path = cuda_build.library_path("composite_fwd")
-    assert path.exists() and path.parent == cuda_build.BUILD_DIR
-    assert not list(path.parent.glob("*.tmp.so"))
+    assert sorted(logs) == names
+    assert "Used 42 registers" in logs["composite_bwd"]
+    for name in names:
+        path = cuda_build.library_path(name)
+        assert path.exists() and path.parent == cuda_build.BUILD_DIR
+    assert not list(cuda_build.BUILD_DIR.glob("*.tmp.so"))
     cuda_build.build()  # already built: no second nvcc
-    assert calls.read_text().count("call") == 1
+    assert calls.read_text().count("call") == len(names)
 
 
 def test_failed_build_raises_with_the_log(fake_nvcc):
@@ -66,3 +69,16 @@ def test_missing_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_build.build()
+
+
+def test_shared_header_is_part_of_every_key(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for p in cuda_build.CSRC.iterdir():
+        (csrc / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(cuda_build, "CSRC", csrc)
+    before = {name: cuda_build.library_path(name) for name in cuda_build.sources()}
+    with open(csrc / "blend.cuh", "a") as f:
+        f.write("// changed\n")
+    after = {name: cuda_build.library_path(name) for name in cuda_build.sources()}
+    assert all(before[name] != after[name] for name in before)

@@ -102,7 +102,7 @@ def test_pair_count_stops_at_saturation():
     _, prep, lists, _ = setup(W, H, tile, P=300, seed=9, spread=0.3, scale_mu=-1.8)
     args = (lists.gauss_id, lists.tile_start, lists.tile_stop, prep.means2d, prep.conic,
             prep.rgb, prep.opacity, W, H, *tile)
-    pairs = composite.blend_pair_count(*args)
+    pairs, _ = composite.blend_pair_counts(*args)
     counts = (lists.tile_stop - lists.tile_start).numpy()
     upper = int((counts * tile[0] * tile[1]).sum())  # every pixel x every entry
     assert 0 < pairs < upper  # saturated pixels stop early
@@ -114,7 +114,7 @@ def test_wrapper_uses_plain_version_on_cpu():
     args = (lists.gauss_id, lists.tile_start, lists.tile_stop, prep.means2d, prep.conic,
             prep.rgb, prep.opacity, torch.from_numpy(BG), W, H, *tile)
     before = composite_fwd.launches
-    out = composite_fwd(*args)
+    out = composite_fwd(lists, *args[3:])
     ref = composite.composite_fwd_torch(*args)
     np.testing.assert_array_equal(out.image.numpy(), ref.image.numpy())
     assert composite_fwd.launches == before  # no kernel launch on the CPU

@@ -1,13 +1,19 @@
-"""The CUDA compositing kernel against its plain version, on the card.
+"""The CUDA compositing kernels against their plain versions, on the card,
+and one train step through them.
 
 Marked `gpu`; each test skips itself where there is no CUDA. Imports no
 JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
-The kernel may contract multiplies and adds into FMAs, which can flip an
-alpha >= 1/255 or T >= 1e-4 decision at the ulp level on a few pixels;
-so at least 99.9% of pixels agree within 1e-5 and every pixel within 1e-2.
+Forward: the kernels round three steps as FMAs (csrc/blend.cuh), which
+can flip an alpha >= 1/255 or T >= 1e-4 decision on a few pixels; so at
+least 99.9% of pixels agree within 1e-5 and every pixel within 1e-2.
+Backward and routing (per gradient field): relative L2 error <= 1e-4, and
+at least 99.9% of rows within 1e-3 x the field's max |grad| (the same few
+flipped pixels, and float32 sums in other orders). The backward's replay
+of the forward is exact: its final transmittance equals the forward's bit
+for bit, and two runs give the same bits.
 """
 
 import math
@@ -16,13 +22,20 @@ import numpy as np
 import pytest
 import torch
 
+from gaussian_splatting_torch import OptimizationConfig, init_train_state, train_step
 from gaussian_splatting_torch.ops import binning
-from gaussian_splatting_torch.ops.composite import composite_fwd_torch
+from gaussian_splatting_torch.ops.composite import (
+    composite_bwd_torch, composite_fwd_torch, route_grads_torch,
+)
 from gaussian_splatting_torch.ops.composite_cuda import (
-    TILE_GEOMETRIES, composite_fwd, composite_fwd_cuda,
+    TILE_GEOMETRIES, composite_bwd, composite_bwd_cuda, composite_fwd, composite_fwd_cuda,
+    route_grads, route_grads_cuda,
 )
 from gaussian_splatting_torch.ops.projection import preprocess
+from gaussian_splatting_torch.ops.rasterize import RasterizerConfig
 from gaussian_splatting_torch.scene.cameras import Camera
+from gaussian_splatting_torch.scene.gaussians import params_from_numpy
+from gaussian_splatting_torch.training import eval_render
 
 pytestmark = pytest.mark.gpu
 
@@ -33,7 +46,7 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def kernel_inputs(dev, W, H, tile, P=1500, seed=0):
+def random_scene(P, seed):
     rng = np.random.default_rng(seed)
     means = rng.normal(0, 1, (P, 3))
     scales = np.exp(rng.normal(-2.5, 0.3, (P, 3)))
@@ -41,15 +54,26 @@ def kernel_inputs(dev, W, H, tile, P=1500, seed=0):
     ops = 1 / (1 + np.exp(-rng.normal(0.5, 1, (P,))))
     shs = rng.normal(0, 0.2, (P, 16, 3))
     shs[:, 0, :] += 1.0
-    scene = [torch.tensor(x, dtype=torch.float32, device=dev)
-             for x in (means, scales, quats, ops, shs)]
-    cam = Camera(uid=0, colmap_id=0, R=np.eye(3), T=np.array([0.0, 0.0, 4.0]),
-                 fovx=math.radians(60), fovy=math.radians(60), image=None,
-                 image_name="gpu", width=W, height=H).arrays(device=dev)
-    prep = preprocess(*scene, 3, cam, W, H, *tile)
+    return means, scales, quats, ops, shs
+
+
+def camera(W, H, dev):
+    return Camera(uid=0, colmap_id=0, R=np.eye(3), T=np.array([0.0, 0.0, 4.0]),
+                  fovx=math.radians(60), fovy=math.radians(60), image=None,
+                  image_name="gpu", width=W, height=H).arrays(device=dev)
+
+
+def sorted_lists(dev, W, H, tile, P=1500, seed=0):
+    scene = [torch.tensor(x, dtype=torch.float32, device=dev) for x in random_scene(P, seed)]
+    prep = preprocess(*scene, 3, camera(W, H, dev), W, H, *tile)
     lists = binning.build_tile_lists(prep.rect_min, prep.rect_max, prep.depths,
                                      prep.tiles_touched, -(-W // tile[0]), -(-H // tile[1]),
                                      int(prep.tiles_touched.sum()) + 256)
+    return prep, lists
+
+
+def kernel_inputs(dev, W, H, tile, P=1500, seed=0):
+    prep, lists = sorted_lists(dev, W, H, tile, P, seed)
     bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
     return [lists.gauss_id, lists.tile_start, lists.tile_stop, prep.means2d, prep.conic,
             prep.rgb, prep.opacity, bg, W, H, *tile]
@@ -66,9 +90,12 @@ def assert_close(out, ref):
 @pytest.mark.parametrize("tile", TILE_GEOMETRIES)
 @pytest.mark.parametrize("W,H", [(128, 128), (333, 197)])
 def test_kernel_matches_plain(W, H, tile):
-    args = kernel_inputs(cuda_device(), W, H, tile)
+    prep, lists = sorted_lists(cuda_device(), W, H, tile)
+    args = [lists.gauss_id, lists.tile_start, lists.tile_stop, prep.means2d, prep.conic,
+            prep.rgb, prep.opacity, torch.tensor([0.1, 0.2, 0.3], device=prep.means2d.device),
+            W, H, *tile]
     before = composite_fwd.launches
-    out = composite_fwd(*args)
+    out = composite_fwd(lists, *args[3:])
     torch.cuda.synchronize()
     assert composite_fwd.launches == before + 1
     assert_close(out, composite_fwd_torch(*args))
@@ -94,9 +121,70 @@ def test_bad_inputs_raise():
         composite_fwd_cuda(*bad)
 
 
-def test_backward_is_not_written_yet():
-    args = kernel_inputs(cuda_device(), 64, 48, (32, 32))
-    args[5] = args[5].clone().requires_grad_(True)
-    out = composite_fwd(*args)
-    with pytest.raises(NotImplementedError, match="_bwd_kernel"):
-        out.image.sum().backward()
+def assert_grads_close(a, b):
+    """Per field (column): relative L2 error <= 1e-4, and >= 99.9% of rows
+    within 1e-3 x the field's max |grad|."""
+    assert bool(torch.isfinite(a).all())
+    for f in range(b.shape[1]):
+        d = (a[:, f] - b[:, f]).double()
+        ref = b[:, f].double()
+        assert float(d.norm()) <= 1e-4 * max(float(ref.norm()), 1e-30), f
+        assert float((d.abs() > 1e-3 * float(ref.abs().max())).double().mean()) <= 1e-3, f
+
+
+@pytest.mark.parametrize("tile", TILE_GEOMETRIES)
+@pytest.mark.parametrize("W,H", [(128, 128), (333, 197)])
+def test_backward_kernels_match_plain(W, H, tile):
+    dev = cuda_device()
+    prep, lists = sorted_lists(dev, W, H, tile)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+    fwd = composite_fwd_cuda(lists.gauss_id, lists.tile_start, lists.tile_stop, prep.means2d,
+                             prep.conic, prep.rgb, prep.opacity, bg, W, H, *tile)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    g_img = torch.randn((H, W, 3), generator=gen, device=dev)
+    g_ft = torch.randn((H, W), generator=gen, device=dev)
+    args = (lists.gauss_id, lists.tile_start, lists.tile_stop, lists.entry_src, prep.means2d,
+            prep.conic, prep.rgb, prep.opacity, fwd.image, fwd.final_t, g_img, g_ft, W, H, *tile)
+    replay_t = torch.full((H, W), -1.0, device=dev)
+    before = (composite_bwd.launches, route_grads.launches)
+    rows = composite_bwd_cuda(*args, replay_t=replay_t)
+    rows_again = composite_bwd(*args)
+    P = prep.means2d.shape[0]
+    sums = route_grads(rows, lists.gauss_offset, lists.gauss_count, P)
+    torch.cuda.synchronize()
+    assert (composite_bwd.launches, route_grads.launches) == (before[0] + 2, before[1] + 1)
+    assert torch.equal(replay_t, fwd.final_t)  # the forward's decisions, replayed
+    n = int(lists.total)  # rows past the kept entries are padding, never written or read
+    assert torch.equal(rows[:n], rows_again[:n])  # deterministic
+    rows_ref = composite_bwd_torch(*args)
+    assert_grads_close(rows[:n], rows_ref[:n])
+    assert_grads_close(sums, route_grads_torch(rows_ref, lists.gauss_offset,
+                                               lists.gauss_count, P))
+    assert_grads_close(route_grads_cuda(rows, lists.gauss_offset, lists.gauss_count, P),
+                       route_grads_torch(rows, lists.gauss_offset, lists.gauss_count, P))
+
+
+def test_train_step_on_the_card():
+    dev = cuda_device()
+    W, H, P = 160, 120, 1500
+    means, scales, quats, ops, shs = random_scene(P, seed=3)
+    raw = {"xyz": means, "features_dc": shs[:, :1], "features_rest": shs[:, 1:],
+           "scaling": np.log(scales), "rotation": quats, "opacity": np.log(ops / (1 - ops))[:, None]}
+    cam = camera(W, H, dev)
+    cfg = RasterizerConfig(capacity_mult=16)
+    target = eval_render(params_from_numpy(dict(raw, xyz=raw["xyz"] + 0.05), device=dev),
+                         cam, [0.0, 0.0, 0.0], 3, W, H, cfg)[0].clamp(0, 1)
+    state = init_train_state(params_from_numpy(raw, device=dev))
+    xyz0 = state.params.xyz.detach().clone()
+    before = (composite_fwd.launches, composite_bwd.launches, route_grads.launches)
+    losses = []
+    for it in (1, 2):
+        m = train_step(state, cam, target, torch.zeros(3, device=dev), it, 3, W, H, cfg,
+                       OptimizationConfig(), spatial_lr_scale=1.0)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    after = (composite_fwd.launches, composite_bwd.launches, route_grads.launches)
+    assert after == tuple(b + 2 for b in before)
+    assert all(math.isfinite(x) for x in losses) and int(m["num_visible"]) > 100
+    assert state.adam.step == 2 and not torch.equal(state.params.xyz, xyz0)
+    assert float(state.denom.max()) == 2.0
