@@ -26,6 +26,13 @@ Phases (any failure exits non-zero; none is caught and passed over):
      backward, Gaussians for the routing) within 1e-3 x the field's max
      |grad|. The backward's replayed final T must equal the forward's
      final_t bit for bit, and two runs of it must give the same bits.
+     The transpose (`relayout_to_rows`) at (9, K) and (16, K) for K =
+     1,900,544 (the profiler's capacity) and an odd K = 1,339,001 must be
+     bit-equal to its plain version: it is a copy. The column sums
+     (`consume_rows`, `consume_t`) on seeded (K, 16) tables: per column
+     |result - float64 sum| <= 1e-5 x sum |x| for the kernel and for the
+     plain version (float32 partials summed in another order), and two runs
+     of each kernel give the same bits.
   4. render path: the trained model through the user entry points
      (params_from_ply -> eval_render) at 1920x1080 with 32x32 tiles; 50
      frames after a warm-up; the forward kernel's launch counter must rise
@@ -43,9 +50,20 @@ Phases (any failure exits non-zero; none is caught and passed over):
      each stage's stream time, the device busy share and top kernels, and
      the backward and routing kernels' times beside their bounds, their
      plain versions' times and, for routing, `index_add_`'s time.
-  6. the kernels line, then the result line.
+  6. profiler path: `tools/profile_stages.run` at the JAX tool's defaults
+     (P = 262,144 random Gaussians, 1920x1080, 32x16 tiles, 10 calls a
+     line, best of 3) over every ported stage; prints the stage table, the
+     header counts and the sat and roofline tables. Every time must be
+     finite; the launch counter of every kernel must rise by exactly the
+     calls the stages report making; the entry count must equal this
+     script's own preprocess of the profiler's scene. Then the three
+     kernels only this path runs are timed at its shapes beside their
+     bound, their plain versions and the one PyTorch call that computes
+     the same (`x.t().contiguous()`, `x.sum(0)`).
+  7. the kernels line, then the result line.
 
-Scenes are made with numpy from fixed seeds. Imports no JAX.
+Each phase's wall time is printed. Scenes are made with numpy from fixed
+seeds. Imports no JAX.
 """
 
 import json
@@ -71,10 +89,19 @@ from gaussian_splatting_torch.ops.composite_cuda import (
 )
 from gaussian_splatting_torch.ops.projection import preprocess
 from gaussian_splatting_torch.ops.rasterize import entry_bucket_capacity
+from gaussian_splatting_torch.ops.relayout import (
+    relayout_to_rows, relayout_to_rows_cuda, relayout_to_rows_torch,
+)
 from gaussian_splatting_torch.scene.cameras import Camera
 from gaussian_splatting_torch.scene.gaussians import PARAM_NAMES, activate, params_from_ply
 from gaussian_splatting_torch.scene.optim import adam_update
+from gaussian_splatting_torch.tools import profile_stages
+from gaussian_splatting_torch.tools.consumers import (
+    consume_rows, consume_rows_cuda, consume_rows_torch, consume_t, consume_t_cuda,
+    consume_t_torch,
+)
 from gaussian_splatting_torch.utils import cuda_build
+from gaussian_splatting_torch.utils.roofline import OPS_PER_BLENDED_BWD, OPS_PER_PAIR, bound_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TRAINED_PLY = os.path.join(ROOT, "assets", "trained_r5.ply")
@@ -83,18 +110,10 @@ W_MAIN, H_MAIN = 1920, 1080
 FRAMES = 50  # p80 has 10 frames beyond it
 STEPS, TIMED_STEPS = 20, 15  # train steps; latency over the last 15 (p80 has 3 beyond it)
 
-# H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_PER_S = 67e12
-# Per evaluated (pixel, entry) pair: dx, dy, 5 products and 2 sums for the
-# quadratic form, the -0.5 scale, the power > 0 test (12 FP32 ops) and one
-# exp; pairs that blend add more, which this lower bound leaves out.
-OPS_PER_PAIR = 13
-# The backward repeats those per evaluated pair and adds, per blended pair:
-# cg = g.rgb (5), w = alpha T (1), prefix += cg w (2), dL/dalpha (5), the
-# clamp gate (1), dpower (1), d mean2d (2 x 6), d conic (3 x 4), d opacity
-# (2), d rgb (3 x 2): 47 operations.
-OPS_PER_BLENDED_BWD = 47
+SUM_K = (1_900_544, 1_339_001)  # the profiler's capacity at its defaults, and an odd K
+LAUNCH_COUNTERS = {"composite_fwd": composite_fwd, "composite_bwd": composite_bwd,
+                   "route_grads": route_grads, "relayout_to_rows": relayout_to_rows,
+                   "consume_rows": consume_rows, "consume_t": consume_t}
 
 LOOSE, SHARE = 1e-2, 1e-3  # every pixel within LOOSE; at most SHARE over the tight bound
 GRAD_L2, GRAD_ROW, GRAD_SHARE = 1e-4, 1e-3, 1e-3  # backward / routing rule, see phase 3
@@ -331,16 +350,56 @@ def train_stage_times_ms(state, cam, gt, bg, cfg, opt, steps=5):
     return {n: float(np.median(t)) for n, t in times.items()}
 
 
-def bound_ms(nbytes, ops):
-    """The least time for `nbytes` moved and `ops` FP32 operations at the
-    H100's peaks: (ms, what bounds it, a printable line)."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_PER_S * 1e3
-    by = "operations" if t_ops >= t_bytes else "bytes"
-    return max(t_bytes, t_ops), by, (f"bound {max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f} ms, "
-                                      f"operations {t_ops:.4f} ms)")
+def reset_launches():
+    for counter in LAUNCH_COUNTERS.values():
+        counter.launches = 0
+
+
+def check_transpose_and_sums(dev):
+    """The transpose bit-equal to its plain version; the column sums within
+    1e-5 x sum |x| of a float64 sum per column, kernel and plain version
+    alike, and each kernel bit-identical across two runs. Returns the max
+    abs errors of the three kernels against their plain versions."""
+    gen = torch.Generator(device=dev).manual_seed(30)
+    err = {"relayout_to_rows": 0.0, "consume_rows": 0.0, "consume_t": 0.0}
+    for K in SUM_K:
+        for R in (9, 16):
+            x = torch.randn((R, K), generator=gen, device=dev)
+            got, ref = relayout_to_rows_cuda(x), relayout_to_rows_torch(x)
+            torch.cuda.synchronize()
+            if got.shape != (K, R) or not torch.equal(got, ref):
+                fail(f"relayout_to_rows ({R}, {K}) is not bit-equal to x.t().contiguous()")
+            print(f"  relayout_to_rows ({R}, {K}) bit-equal to its plain version")
+        x = torch.randn((K, 16), generator=gen, device=dev)
+        exact = x.double().sum(0)
+        tol = 1e-5 * x.double().abs().sum(0)
+        for name, kern, plain in (("consume_rows", consume_rows_cuda, consume_rows_torch),
+                                  ("consume_t", consume_t_cuda, consume_t_torch)):
+            a, b, ref = kern(x), kern(x), plain(x)
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                fail(f"{name} ({K}, 16): two runs differ")
+            worst = 0.0
+            for what, v in (("kernel", a), ("plain", ref)):
+                d = (v.double().reshape(16) - exact).abs()
+                worst = max(worst, float((d / tol).max()))
+                if not bool((d <= tol).all()):
+                    fail(f"{name} ({K}, 16): {what} off the float64 sum by {float(d.max()):.3e}")
+            e = float((a - ref).abs().max())
+            err[name] = max(err[name], e)
+            print(f"  {name} ({K}, 16) max_abs_err vs plain {e:.3e}; worst column "
+                  f"{worst:.2e} x its 1e-5 sum|x| limit; two runs bit-identical")
+    return err
 
 
 def main():
+    phase_t0 = [time.perf_counter()]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        print(f"phase {name}: {now - phase_t0[0]:.1f} s wall", flush=True)
+        phase_t0[0] = now
+
     # ---- 1. device ----------------------------------------------------
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False; this script runs on a GPU only")
@@ -357,6 +416,7 @@ def main():
     print(smi.stdout.strip().splitlines()[0])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    phase_done("1 device")
 
     # ---- 2. build -----------------------------------------------------
     t0 = time.perf_counter()
@@ -366,6 +426,7 @@ def main():
         for line in log.splitlines():
             if any(k in line for k in ("registers", "spill", "smem", "Compiling entry")):
                 print(f"  ptxas[{name}]: {line.strip()}")
+    phase_done("2 build")
 
     # ---- 3. kernels vs plain ------------------------------------------
     print("kernels vs plain:")
@@ -417,6 +478,8 @@ def main():
     fixture = CompositeOut(*(torch.from_numpy(np.load(os.path.join(FIXTURES, f)))
                              for f in ("golden_render_128.npy", "golden_final_t_128.npy")))
     compare("golden 128x128 vs fixture", CompositeOut(img.cpu(), aux["final_t"].cpu()), fixture, 2e-5)
+    max_err.update(check_transpose_and_sums(dev))
+    phase_done("3 kernels vs plain")
 
     # ---- 4. render path -----------------------------------------------
     cam = cams[0].arrays()
@@ -431,7 +494,7 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     frame_times = []
-    composite_fwd.launches = composite_bwd.launches = route_grads.launches = 0
+    reset_launches()
     for _ in range(FRAMES):
         t0 = time.perf_counter()
         img, aux = eval_render(params, cam, bg0, 3, W_MAIN, H_MAIN, cfg)
@@ -472,6 +535,7 @@ def main():
     fwd_bound = bound_ms(nbytes, OPS_PER_PAIR * pairs)
     print(f"  kernel {fwd_ms:.4f} ms, plain {fwd_plain_ms:.2f} ms; pairs {pairs}, "
           f"bytes {nbytes}: {fwd_bound[2]}")
+    phase_done("4 render path")
 
     # ---- 5. train path ------------------------------------------------
     opt = OptimizationConfig()
@@ -488,7 +552,7 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_times, step_losses, step_entries = [], [], []
-    composite_fwd.launches = composite_bwd.launches = route_grads.launches = 0
+    reset_launches()
     for it in range(1, STEPS + 1):
         t0 = time.perf_counter()
         m = train_step(state, cam, gt, bg0, it, 3, W_MAIN, H_MAIN, tcfg, opt, spatial_lr_scale=1.0)
@@ -567,22 +631,72 @@ def main():
           f"blended {blended}, bytes {bwd_bytes}: {bwd_bound[2]}")
     print(f"  routing kernel {route_ms:.4f} ms, plain {route_plain_ms:.3f} ms, index_add_ "
           f"{index_add_ms:.4f} ms; bytes {route_bytes}: {route_bound[2]}")
+    phase_done("5 train path")
 
-    # ---- 6. result ----------------------------------------------------
-    def entry(name, replaces, ms, plain, bound, library):
-        return {"name": name, "route": "cuda", "source": f"gaussian_splatting_torch/csrc/{name}.cu",
-                "replaces": replaces, "launches": train_launches[name], "max_abs_err": max_err[name],
+    # ---- 6. profiler path ---------------------------------------------
+    reset_launches()
+    prof = profile_stages.run(profile_stages.STAGES)  # the tool's defaults, on the card
+    prof_launches = {name: c.launches for name, c in LAUNCH_COUNTERS.items()}
+    print(f"profiler path: P={prof['P']} entries={prof['entries']} capacity={prof['capacity']} "
+          f"tiles={prof['tiles']} on {prof['device']}; launches {prof_launches}")
+    bad = {k: v for k, v in prof["ms"].items() if not math.isfinite(v)}
+    if bad:
+        fail(f"profiler times not finite: {bad}")
+    if prof_launches != {name: prof["calls"].get(name, 0) for name in LAUNCH_COUNTERS}:
+        fail(f"profiler launches {prof_launches} differ from the calls it reports {prof['calls']}")
+    sc = profile_stages.make_scene(prof["P"], W_MAIN, H_MAIN, (32, 16))
+    with torch.no_grad():
+        own_entries = int(preprocess(*sc.acts, 3, sc.cam, W_MAIN, H_MAIN, 32, 16).tiles_touched.sum())
+    del sc
+    if prof["entries"] != own_entries:
+        fail(f"profiler entry count {prof['entries']} vs {own_entries} from this script's preprocess")
+    print(f"  entry count {own_entries} recomputed here; {len(prof['ms'])} lines, all finite")
+
+    # The three kernels of this path at its shapes: (16, K) and (K, 16), K the capacity.
+    K = prof["capacity"]
+    gen = torch.Generator(device=dev).manual_seed(31)
+    xt = torch.randn((16, K), generator=gen, device=dev)
+    xs = torch.randn((K, 16), generator=gen, device=dev)
+    tp_ms = cuda_time_ms(lambda: relayout_to_rows_cuda(xt), 50)
+    tp_plain_ms = cuda_time_ms(lambda: relayout_to_rows_torch(xt), 50)
+    tp_lib_ms = cuda_time_ms(lambda: xt.t().contiguous(), 50)
+    tp_bound = bound_ms(2 * 64 * K, 0)  # 64 B read and 64 B written per column
+    cr_ms = cuda_time_ms(lambda: consume_rows_cuda(xs), 50)
+    cr_plain_ms = cuda_time_ms(lambda: consume_rows_torch(xs), 50)
+    ct_ms = cuda_time_ms(lambda: consume_t_cuda(xs), 50)
+    ct_plain_ms = cuda_time_ms(lambda: consume_t_torch(xs), 50)
+    sum_lib_ms = cuda_time_ms(lambda: xs.sum(0), 50)
+    sum_bound = bound_ms(64 * K + 64, 16 * K)  # the table read once, 16 sums written; one add per element
+    print(f"  relayout_to_rows (16, {K}) {tp_ms:.4f} ms, plain {tp_plain_ms:.4f} ms, "
+          f"x.t().contiguous() {tp_lib_ms:.4f} ms; {tp_bound[2]}")
+    print(f"  consume_rows ({K}, 16) {cr_ms:.4f} ms, plain {cr_plain_ms:.4f} ms; consume_t {ct_ms:.4f} ms, "
+          f"plain {ct_plain_ms:.4f} ms; x.sum(0) {sum_lib_ms:.4f} ms; {sum_bound[2]}")
+    phase_done("6 profiler path")
+
+    # ---- 7. result ----------------------------------------------------
+    def entry(name, source, replaces, launches, ms, plain, bound, library):
+        return {"name": name, "route": "cuda", "source": f"gaussian_splatting_torch/csrc/{source}.cu",
+                "replaces": replaces, "launches": launches, "max_abs_err": max_err[name],
                 "ms": ms, "plain_ms": plain, "bound_ms": bound[0], "bound_by": bound[1],
                 "library_ms": library}
 
     print(json.dumps({"kernels": [
-        entry("composite_fwd", "gaussian_splatting_tpu/ops/composite_pallas.py:376",  # _fwd_kernel
-              fwd_ms, fwd_plain_ms, fwd_bound, None),
-        entry("composite_bwd", "gaussian_splatting_tpu/ops/composite_pallas.py:427",  # _bwd_kernel
-              bwd_ms, bwd_plain_ms, bwd_bound, None),
-        entry("route_grads", "gaussian_splatting_tpu/ops/relayout.py:50",  # _to_rows_kernel
-              route_ms, route_plain_ms, route_bound, index_add_ms),
+        entry("composite_fwd", "composite_fwd", "gaussian_splatting_tpu/ops/composite_pallas.py:376",
+              train_launches["composite_fwd"], fwd_ms, fwd_plain_ms, fwd_bound, None),  # _fwd_kernel
+        entry("composite_bwd", "composite_bwd", "gaussian_splatting_tpu/ops/composite_pallas.py:427",
+              train_launches["composite_bwd"], bwd_ms, bwd_plain_ms, bwd_bound, None),  # _bwd_kernel
+        # _to_rows_kernel's one call site: the routing sums
+        entry("route_grads", "route_grads", "gaussian_splatting_tpu/ops/relayout.py:50",
+              train_launches["route_grads"], route_ms, route_plain_ms, route_bound, index_add_ms),
+        # tkern, and the function of _to_rows_kernel (gaussian_splatting_tpu/ops/relayout.py:50)
+        entry("relayout_to_rows", "relayout", "tools/profile_stages.py:231",
+              prof_launches["relayout_to_rows"], tp_ms, tp_plain_ms, tp_bound, tp_lib_ms),
+        entry("consume_rows", "consume", "tools/profile_stages.py:427",  # _sum_rows_kernel
+              prof_launches["consume_rows"], cr_ms, cr_plain_ms, sum_bound, sum_lib_ms),
+        entry("consume_t", "consume", "tools/profile_stages.py:451",  # _sum_t_kernel
+              prof_launches["consume_t"], ct_ms, ct_plain_ms, sum_bound, sum_lib_ms),
     ]}))
+    phase_done("7 result")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 
 

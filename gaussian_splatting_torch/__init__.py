@@ -11,7 +11,10 @@ Ported so far: the render path (PLY model -> `activate` -> `rasterize`:
 preprocess, tile binning, the compositing kernel) and the train step
 (`init_train_state` -> `train_step`: render, L1 + SSIM loss, the
 compositing backward and gradient-routing kernels, masked Adam, the
-densification statistics).
+densification statistics), and the per-stage profiler
+(`python -m gaussian_splatting_torch.tools.profile_stages`) with the JAX
+tool's probe kernels: the transpose (`ops/relayout.py`) and the column
+sums (`tools/consumers.py`).
 """
 
 __version__ = "0.1.0"

@@ -6,7 +6,9 @@
 // routing's prefix sums (composite_pallas.py:701-749). What that call site
 // computes is the sum of each Gaussian's 9 gradient columns over its
 // entries, and that is what this kernel computes; the plain torch version
-// is gaussian_splatting_torch/ops/composite.py::route_grads_torch.
+// is gaussian_splatting_torch/ops/composite.py::route_grads_torch. The
+// transpose itself, the function _to_rows_kernel computes, has its own
+// counterpart in csrc/relayout.cu, which the routing does not need.
 //
 // composite_bwd.cu writes each entry's row at its emission index, and
 // emission runs are contiguous by Gaussian id, so Gaussian g owns rows

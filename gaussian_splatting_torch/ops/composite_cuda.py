@@ -9,7 +9,8 @@ first use and called through ctypes on PyTorch's current stream:
     the blend's VJP, one row of 9 gradients per entry.
   - `csrc/route_grads.cu` replaces `ops/relayout.py::_to_rows_kernel` at
     its one call site, the gradient routing: the per-Gaussian sums of
-    those rows.
+    those rows. The function of that kernel, the transpose, has its own
+    counterpart: `csrc/relayout.cu` (`ops/relayout.py`).
 Each source's header comment says what bounds it and how its design
 answers that.
 
@@ -23,8 +24,6 @@ run can show that it went through the kernels.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Optional
 
 import torch
@@ -36,31 +35,16 @@ from gaussian_splatting_torch.ops.composite import (
 from gaussian_splatting_torch.utils import cuda_build
 
 TILE_GEOMETRIES = ((32, 32), (32, 16), (16, 16))
-_ptr, _int = ctypes.c_void_p, ctypes.c_int
-
-
-@functools.cache
-def _kernel(name: str):
-    """The C entry point `gs_<name>` of `csrc/<name>.cu`, and its library's
-    error-string function."""
-    lib = cuda_build.load(name)
-    fn = getattr(lib, f"gs_{name}")
-    fn.argtypes = {
-        "composite_fwd": [_ptr] * 10 + [_int] * 5 + [_ptr],
-        "composite_bwd": [_ptr] * 14 + [_int] * 5 + [_ptr],
-        "route_grads": [_ptr] * 4 + [_int] * 2 + [_ptr],
-    }[name]
-    fn.restype = _int
-    lib.gs_error_string.argtypes = [_int]
-    lib.gs_error_string.restype = ctypes.c_char_p
-    return fn, lib.gs_error_string
+_ptr, _int = cuda_build.PTR, cuda_build.INT
+_ARGTYPES = {  # the C signature of each kernel's entry point `gs_<name>`
+    "composite_fwd": (_ptr,) * 10 + (_int,) * 5 + (_ptr,),
+    "composite_bwd": (_ptr,) * 14 + (_int,) * 5 + (_ptr,),
+    "route_grads": (_ptr,) * 4 + (_int,) * 2 + (_ptr,),
+}
 
 
 def _launch(name: str, *args):
-    fn, err_str = _kernel(name)
-    err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: {err_str(err).decode()} ({err})")
+    cuda_build.launch(name, f"gs_{name}", _ARGTYPES[name], *args)
 
 
 def _check(name, t, dtype, shape, device):

@@ -10,6 +10,9 @@ failed build raises; nothing falls back to another implementation.
 `nvcc -Xptxas -v` reports each kernel's registers, shared memory and
 spills; the report is kept beside the library (`<library>.log`) and
 returned by `build`.
+
+Every entry point returns a cudaError_t; `launch` calls one and raises on
+anything but 0, with the library's `gs_error_string`.
 """
 
 from __future__ import annotations
@@ -85,3 +88,28 @@ def load(name: str) -> ctypes.CDLL:
     """The built library of `csrc/<name>.cu`, building it if needed."""
     build([name])
     return ctypes.CDLL(str(library_path(name)))
+
+
+# ctypes argument types: device pointers and streams, C ints, C long longs.
+PTR, INT, LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+@functools.cache
+def _entry(source: str, function: str, argtypes: tuple):
+    lib = load(source)
+    fn = getattr(lib, function)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    lib.gs_error_string.argtypes = [ctypes.c_int]
+    lib.gs_error_string.restype = ctypes.c_char_p
+    return fn, lib.gs_error_string
+
+
+def launch(source: str, function: str, argtypes: tuple, *args) -> None:
+    """Call the C entry point `function` of `csrc/<source>.cu` (built at
+    first use) with `args` typed as `argtypes`; raise if it returns a
+    cudaError_t other than 0."""
+    fn, err_str = _entry(source, function, argtypes)
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{function} kernel launch failed: {err_str(err).decode()} ({err})")

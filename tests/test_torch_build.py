@@ -43,7 +43,7 @@ def fake_nvcc(tmp_path, monkeypatch):
 
 def test_builds_each_source_once_and_reuses_it(fake_nvcc):
     calls = fake_nvcc()
-    names = ["composite_bwd", "composite_fwd", "route_grads"]
+    names = ["composite_bwd", "composite_fwd", "consume", "relayout", "route_grads"]
     assert cuda_build.sources() == names
     logs = cuda_build.build()
     assert sorted(logs) == names

@@ -1,5 +1,5 @@
-"""The CUDA compositing kernels against their plain versions, on the card,
-and one train step through them.
+"""The CUDA kernels against their plain versions, on the card, and one
+train step through them.
 
 Marked `gpu`; each test skips itself where there is no CUDA. Imports no
 JAX, so it runs on a machine without it:
@@ -14,6 +14,9 @@ at least 99.9% of rows within 1e-3 x the field's max |grad| (the same few
 flipped pixels, and float32 sums in other orders). The backward's replay
 of the forward is exact: its final transmittance equals the forward's bit
 for bit, and two runs give the same bits.
+The transpose is a copy: bit-equal to its plain version. The column sums
+take float32 partials in another order than a float64 sum: per column
+within 1e-5 x the sum of |x|, and two runs give the same bits.
 """
 
 import math
@@ -33,8 +36,15 @@ from gaussian_splatting_torch.ops.composite_cuda import (
 )
 from gaussian_splatting_torch.ops.projection import preprocess
 from gaussian_splatting_torch.ops.rasterize import RasterizerConfig
+from gaussian_splatting_torch.ops.relayout import (
+    relayout_to_rows, relayout_to_rows_cuda, relayout_to_rows_torch,
+)
 from gaussian_splatting_torch.scene.cameras import Camera
 from gaussian_splatting_torch.scene.gaussians import params_from_numpy
+from gaussian_splatting_torch.tools.consumers import (
+    consume_rows, consume_rows_cuda, consume_rows_torch, consume_t, consume_t_cuda,
+    consume_t_torch,
+)
 from gaussian_splatting_torch.training import eval_render
 
 pytestmark = pytest.mark.gpu
@@ -188,3 +198,41 @@ def test_train_step_on_the_card():
     assert all(math.isfinite(x) for x in losses) and int(m["num_visible"]) > 100
     assert state.adam.step == 2 and not torch.equal(state.params.xyz, xyz0)
     assert float(state.denom.max()) == 2.0
+
+
+@pytest.mark.parametrize("R", [1, 9, 16, 32])
+@pytest.mark.parametrize("K", [0, 255, 4097, 1_339_001])
+def test_transpose_is_bit_equal(R, K):
+    dev = cuda_device()
+    x = torch.randn((R, K), generator=torch.Generator(device=dev).manual_seed(K + R), device=dev)
+    before = relayout_to_rows.launches
+    out = relayout_to_rows(x)
+    torch.cuda.synchronize()
+    assert relayout_to_rows.launches == before + (K > 0)
+    assert out.shape == (K, R) and torch.equal(out, relayout_to_rows_torch(x))
+
+
+def test_transpose_rejects_what_the_kernel_does_not_take():
+    dev = cuda_device()
+    with pytest.raises(ValueError, match="1 <= R <= 32"):
+        relayout_to_rows_cuda(torch.zeros((33, 8), device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        relayout_to_rows_cuda(torch.zeros((8, 9), device=dev).t())
+
+
+@pytest.mark.parametrize("R", [1, 9, 16, 32])
+@pytest.mark.parametrize("K", [0, 1, 2047, 2 * 16384, 1_339_001])
+def test_column_sums_match_and_repeat(R, K):
+    dev = cuda_device()
+    x = torch.randn((K, R), generator=torch.Generator(device=dev).manual_seed(K + R), device=dev)
+    ref = x.double().sum(0)
+    tol = 1e-5 * x.double().abs().sum(0)
+    before = (consume_rows.launches, consume_t.launches)
+    for fn, cuda_fn, plain, shape in ((consume_rows, consume_rows_cuda, consume_rows_torch, (1, R)),
+                                      (consume_t, consume_t_cuda, consume_t_torch, (R, 1))):
+        a, b = fn(x), cuda_fn(x)
+        torch.cuda.synchronize()
+        assert a.shape == shape and torch.equal(a, b)  # two runs, the same bits
+        assert bool(((a.double().reshape(R) - ref).abs() <= tol).all())
+        assert bool(((plain(x).double().reshape(R) - ref).abs() <= tol).all())
+    assert (consume_rows.launches, consume_t.launches) == (before[0] + 2, before[1] + 2)
