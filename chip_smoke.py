@@ -49,7 +49,10 @@ Phases (any failure exits non-zero; none is caught and passed over):
      Prints step latency (median, p80 of the last 15), peak device memory,
      each stage's stream time, the device busy share and top kernels, and
      the backward and routing kernels' times beside their bounds, their
-     plain versions' times and, for routing, `index_add_`'s time.
+     plain versions' times and, for routing, `index_add_`'s time; the
+     backward's (entry, warp band) reductions (pairs of an entry and a warp
+     in which some pixel blended it), registers per thread and resident
+     blocks per SM.
   6. profiler path: `tools/profile_stages.run` at the JAX tool's defaults
      (P = 262,144 random Gaussians, 1920x1080, 32x16 tiles, 10 calls a
      line, best of 3) over every ported stage; prints the stage table, the
@@ -59,7 +62,8 @@ Phases (any failure exits non-zero; none is caught and passed over):
      script's own preprocess of the profiler's scene. Then the three
      kernels only this path runs are timed at its shapes beside their
      bound, their plain versions and the one PyTorch call that computes
-     the same (`x.t().contiguous()`, `x.sum(0)`).
+     the same (`x.t().contiguous()`, `x.sum(0)`), and `consume_t`'s
+     registers per thread and resident blocks per SM.
   7. the kernels line, then the result line.
 
 Each phase's wall time is printed. Scenes are made with numpy from fixed
@@ -84,24 +88,26 @@ from gaussian_splatting_torch.ops.composite import (
     CompositeOut, blend_pair_counts, composite_bwd_torch, composite_fwd_torch, route_grads_torch,
 )
 from gaussian_splatting_torch.ops.composite_cuda import (
-    TILE_GEOMETRIES, composite_bwd, composite_bwd_cuda, composite_fwd, composite_fwd_cuda,
-    route_grads, route_grads_cuda,
+    TILE_GEOMETRIES, composite_bwd, composite_bwd_cuda, composite_bwd_occupancy, composite_fwd,
+    composite_fwd_cuda, route_grads, route_grads_cuda,
 )
 from gaussian_splatting_torch.ops.projection import preprocess
 from gaussian_splatting_torch.ops.rasterize import entry_bucket_capacity
 from gaussian_splatting_torch.ops.relayout import (
     relayout_to_rows, relayout_to_rows_cuda, relayout_to_rows_torch,
 )
-from gaussian_splatting_torch.scene.cameras import Camera
+from gaussian_splatting_torch.scene.cameras import orbit_camera
 from gaussian_splatting_torch.scene.gaussians import PARAM_NAMES, activate, params_from_ply
 from gaussian_splatting_torch.scene.optim import adam_update
 from gaussian_splatting_torch.tools import profile_stages
 from gaussian_splatting_torch.tools.consumers import (
     consume_rows, consume_rows_cuda, consume_rows_torch, consume_t, consume_t_cuda,
-    consume_t_torch,
+    consume_t_occupancy, consume_t_torch,
 )
 from gaussian_splatting_torch.utils import cuda_build
-from gaussian_splatting_torch.utils.roofline import OPS_PER_BLENDED_BWD, OPS_PER_PAIR, bound_ms
+from gaussian_splatting_torch.utils.roofline import (
+    OPS_PER_BLENDED_BWD, OPS_PER_PAIR, bound_ms, pair_ops,
+)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TRAINED_PLY = os.path.join(ROOT, "assets", "trained_r5.ply")
@@ -134,18 +140,6 @@ def make_gaussians(P, seed, spread=1.0, scale_mu=-2.5):
     shs = rng.normal(0, 0.2, (P, 16, 3)).astype(np.float32)
     shs[:, 0, :] += 1.0
     return means, scales, quats, opacities, shs
-
-
-def orbit_camera(center, dist, angle, W, H, fovx_deg, fovy_deg):
-    """Camera on a circle around `center` in the xz plane, looking at it."""
-    c, s = math.cos(angle), math.sin(angle)
-    cam_pos = np.asarray(center, np.float64) + np.array([dist * s, 0.0, -dist * c])
-    forward = (np.asarray(center) - cam_pos) / dist
-    right = np.cross([0.0, 1.0, 0.0], forward)
-    right /= np.linalg.norm(right)
-    R = np.stack([right, np.cross(forward, right), forward], axis=1)  # C2W
-    return Camera(uid=0, colmap_id=0, R=R, T=-R.T @ cam_pos, fovx=math.radians(fovx_deg),
-                  fovy=math.radians(fovy_deg), image=None, image_name="smoke", width=W, height=H)
 
 
 def sorted_inputs(acts, cam, W, H, tile):
@@ -527,14 +521,16 @@ def main():
 
     fwd_ms = cuda_time_ms(lambda: composite_fwd_cuda(*main_args, bg0, W_MAIN, H_MAIN, 32, 32), 20)
     fwd_plain_ms = cuda_time_ms(lambda: composite_fwd_torch(*main_args, bg0, W_MAIN, H_MAIN, 32, 32), 2)
-    pairs, _ = blend_pair_counts(*main_args, W_MAIN, H_MAIN, 32, 32)
+    fcounts = blend_pair_counts(*main_args, W_MAIN, H_MAIN, 32, 32)
     P, T = params.num_points, main_args[1].shape[0]
     # each input read once (ids, 9 float fields per Gaussian, tile ranges, bg),
     # each output written once (image + final_t)
     nbytes = 4 * n_entries + 36 * P + 8 * T + 12 + 16 * W_MAIN * H_MAIN
-    fwd_bound = bound_ms(nbytes, OPS_PER_PAIR * pairs)
-    print(f"  kernel {fwd_ms:.4f} ms, plain {fwd_plain_ms:.2f} ms; pairs {pairs}, "
-          f"bytes {nbytes}: {fwd_bound[2]}")
+    fwd_bound = bound_ms(nbytes, pair_ops(fcounts.pairs, fcounts.taken))
+    fwd_every_pair = bound_ms(nbytes, OPS_PER_PAIR * fcounts.pairs)[0]
+    print(f"  kernel {fwd_ms:.4f} ms, plain {fwd_plain_ms:.2f} ms; pairs {fcounts.pairs}, taken "
+          f"{fcounts.taken}, bytes {nbytes}: {fwd_bound[2]}; {fwd_every_pair:.4f} ms with every "
+          f"evaluated pair at {OPS_PER_PAIR} operations")
     phase_done("4 render path")
 
     # ---- 5. train path ------------------------------------------------
@@ -617,18 +613,25 @@ def main():
     out9 = torch.zeros((P, 9), device=dev)
     index_add_ms = cuda_time_ms(lambda: out9.zero_().index_add_(0, seg, src), 50)
 
-    pairs, blended = blend_pair_counts(*args, W_MAIN, H_MAIN, 32, 32)
+    bwd_occ = composite_bwd_occupancy(32, 32, dev.index)
+    counts = blend_pair_counts(*args, W_MAIN, H_MAIN, 32, 32, warps=bwd_occ["threads"] // 32)
+    pairs, taken, blended = counts.pairs, counts.taken, counts.blended
     T = args[1].shape[0]
     # each input read once: ids and emission indices of the kept entries,
     # 9 float fields per Gaussian, tile ranges, image + final_t + their
     # cotangents per pixel; each output written once: 9 floats per entry
     bwd_bytes = 8 * n_kept + 36 * P + 8 * T + 32 * W_MAIN * H_MAIN + 36 * n_kept
-    bwd_bound = bound_ms(bwd_bytes, OPS_PER_PAIR * pairs + OPS_PER_BLENDED_BWD * blended)
+    bwd_bound = bound_ms(bwd_bytes, pair_ops(pairs, taken) + OPS_PER_BLENDED_BWD * blended)
+    bwd_every_pair = bound_ms(bwd_bytes, OPS_PER_PAIR * pairs + OPS_PER_BLENDED_BWD * blended)[0]
     # rows of the kept entries read once, run bounds read, sums written; 9 adds per entry
     route_bytes = 36 * n_kept + 8 * P + 36 * P
     route_bound = bound_ms(route_bytes, 9 * n_kept)
     print(f"  backward kernel {bwd_ms:.4f} ms, plain {bwd_plain_ms:.2f} ms; K={n_kept}, pairs {pairs}, "
-          f"blended {blended}, bytes {bwd_bytes}: {bwd_bound[2]}")
+          f"taken {taken}, blended {blended}, bytes {bwd_bytes}: {bwd_bound[2]}; "
+          f"{bwd_every_pair:.4f} ms with every evaluated pair at {OPS_PER_PAIR} operations")
+    print(f"  backward kernel at 32x32: {counts.band_entries} (entry, warp band) reductions, "
+          f"{bwd_occ['registers']} registers per thread, {bwd_occ['threads']} threads per block, "
+          f"{bwd_occ['blocks_per_sm']} resident blocks per SM")
     print(f"  routing kernel {route_ms:.4f} ms, plain {route_plain_ms:.3f} ms, index_add_ "
           f"{index_add_ms:.4f} ms; bytes {route_bytes}: {route_bound[2]}")
     phase_done("5 train path")
@@ -669,8 +672,11 @@ def main():
     sum_bound = bound_ms(64 * K + 64, 16 * K)  # the table read once, 16 sums written; one add per element
     print(f"  relayout_to_rows (16, {K}) {tp_ms:.4f} ms, plain {tp_plain_ms:.4f} ms, "
           f"x.t().contiguous() {tp_lib_ms:.4f} ms; {tp_bound[2]}")
+    ct_occ = consume_t_occupancy(16, dev.index)
     print(f"  consume_rows ({K}, 16) {cr_ms:.4f} ms, plain {cr_plain_ms:.4f} ms; consume_t {ct_ms:.4f} ms, "
           f"plain {ct_plain_ms:.4f} ms; x.sum(0) {sum_lib_ms:.4f} ms; {sum_bound[2]}")
+    print(f"  consume_t first pass at R=16: {ct_occ['registers']} registers per thread, "
+          f"{ct_occ['threads']} threads per block, {ct_occ['blocks_per_sm']} resident blocks per SM")
     phase_done("6 profiler path")
 
     # ---- 7. result ----------------------------------------------------

@@ -28,23 +28,67 @@
 //   d mx = -(a dx + b dy) dpower, d my = -(c dy + b dx) dpower
 //   d rgb = g * alpha_i T_i
 //
-// What bounds it on an H100: as the forward, FP32 instruction throughput
-// (about 13 operations and an exp per evaluated pair, some 40 more per
-// blended pair) against 36 B written per entry and 32 B read per pixel;
-// and here also the per-entry sums over the tile's pixels.
+// Layout. One CTA of 256 threads per tile; each thread owns
+// TILE_W*TILE_H/256 pixels and keeps their T, prefix, TOTAL and cotangent
+// in registers. Warp w owns a band of whole rows (rows 4w..4w+3 at 32x32),
+// cut into 32-pixel units (8 x 4 blocks at 32x32, unit_pixel). Entries are
+// staged in shared memory 128 at a time with their fields and a box
+// (reach). Every row of every tile range is written exactly once; entries
+// past the block's exit (every pixel done) get zero rows. Fixed reduction
+// orders and no atomics: two runs give the same bits.
 //
-// What the design does about it. One CTA of 256 threads per tile; each
-// thread owns TILE_W*TILE_H/256 pixels, laid out so that a warp covers a
-// compact band of rows (at 32x32, warp w owns rows 4w..4w+3), and keeps
-// their T, prefix, TOTAL and cotangent in registers. Entries are staged in
-// shared memory 256 at a time, as in the forward. For each entry a thread
-// sums its pixels' 9 terms; a warp then reduces them with shuffles, unless
-// no lane of the warp blended the entry (a warp vote skips the shuffles,
-// which is common for splats smaller than a tile). Per-warp partials go to
-// shared memory and, every 32 entries, are summed in warp order and
-// written out. Fixed reduction orders and no atomics: two runs give the
-// same bits. Entries past the block's exit (every pixel done) get zero
-// rows, so every row of every tile range is written exactly once.
+// What bounds it on an H100. The pair work is the forward's (about 13
+// operations and an exp per pair that can be taken, a box test for the
+// others, two thirds of those evaluated on the trained model) plus some
+// 47 per blended pair, against 36 B written per entry and 32 B read per
+// pixel: FP32 issue, not bytes. But the card issues per warp: a unit costs its whole pair
+// arithmetic when any one of its 32 pixels is open (not stopped), and on
+// the trained model most pixels stop early and not together. On top of it
+// each entry needs, per warp band in which any lane blended it, a sum of 9
+// fields over 32 lanes (the SM retires one warp-wide shuffle per clock
+// against four FP32 instructions), and the warps' sums are added up.
+//
+// What the earlier form lost, at the train path's inputs (copies of it
+// with those lines changed, timed on an NVIDIA H100 80GB HBM3 at 700 W;
+// PERF.md): of its 1.44 ms, about 0.45 ms went to 9 separate shfl_down
+// trees per (entry, band), 45 shuffles, and to flushing the warps'
+// partials every 32 entries between two barriers; about 0.13 ms to the
+// IEEE division; 101 registers held it to 2 blocks per SM. Its units were
+// 32-pixel rows, which open and blended pixels leave partly idle more
+// often than compact blocks.
+//
+// What this form does about it (each choice timed against its alternative
+// in the same way; PERF.md):
+//   - 8 x 4 units, which a tile's open and blended pixels fill better than
+//     rows.
+//   - A box cull: pixels outside the box where alpha >= 1/255 can hold
+//     are not open, and one vote skips a unit with no open pixel; the rest
+//     of the pixel loop is branch-free (selects), measured faster than a
+//     branch at each skip or stop.
+//   - A transpose-reduce: the 9 per-lane sums are folded by recursive
+//     halving with __shfl_xor_sync. At each level a lane keeps half of its
+//     values and receives its partner's copy of that half, so 9 values
+//     take 5 + 3 + 2 + 1 + 1 = 12 shuffles and end spread over 9 fixed
+//     lanes (field_of_lane), which store them with one instruction. The
+//     warp vote still skips bands that blended nothing.
+//   - Moments of dpower per pixel (5 sums); the entry's conic turns them
+//     into d mean2d and d conic once per entry, in the flush.
+//   - The partials of a whole batch are flushed at the next batch's two
+//     barriers, so the flush adds none. The flush runs beside the staging
+//     of the next batch, so the conic it reads is double-buffered.
+//   - __fdividef for the division (1 - alpha >= 0.01) and
+//     __launch_bounds__ for 3 blocks per SM (at most 80 registers).
+// Tried and slower: 128 threads (4 bands, 8 pixels a thread), 2 or 4
+// blocks per SM, and skipping warps whose pixels all stopped every 32
+// entries (a vote that costs more than it saves once units are compact).
+//
+// Not used, and why:
+//   - Tensor cores. The per-entry sums reduce nonlinear per-pair terms;
+//     there is no product with reuse. An mma against a ones operand would
+//     need 3xTF32 splits to keep float32 accuracy, and fragment shuffles
+//     that cost what they save.
+//   - TMA. Entries are gathered by id as 4-16-byte scattered loads, not
+//     tiles, and a tile of the trained model has about 5 batches of 128.
 //
 // The TPU kernel's means (visits, MXU triangular-matmul prefix scans and
 // moment matmuls, bf16 operand splits, log-space T) are not carried over.
@@ -56,19 +100,122 @@
 namespace {
 
 constexpr int kThreads = 256;
+// Resident blocks per SM: at most 80 registers a thread (65,536 / 768 is
+// 85, rounded down to the allocation unit of 8).
+constexpr int kMinBlocks = 3;
 constexpr int kWarps = kThreads / 32;
-constexpr int kBatch = kThreads;  // entries staged per round: one per thread
-constexpr int kSub = 32;          // entries per flush of the per-warp partials
+constexpr int kBatch = 128;  // entries staged per round; their partials fill s_part
 constexpr int kFields = 9;
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float warp_sum(float v) {
+// One level of the transpose-reduce: of the pair (lo, hi) a lower lane
+// keeps lo and an upper lane (lane & mask) keeps hi, each adding the
+// partner's copy of the value it keeps.
+__device__ __forceinline__ float fold(bool upper, float lo, float hi, int mask) {
+  return (upper ? hi : lo) + __shfl_xor_sync(kFull, upper ? lo : hi, mask);
+}
+
+// Sums each of the 9 fields over the warp in 12 shuffles. Returns, in
+// every lane, the warp's sum of field field_of_lane(lane); lanes for which
+// that is -1 return a sum of padding.
+__device__ __forceinline__ float warp_sum9(const float (&a)[kFields], int lane) {
+  static_assert(kFields == 9, "the halving schedule is written for 9 fields");
+  float v5[5], v3[3], v2[2];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;  // complete in lane 0
+  for (int i = 0; i < 5; ++i) v5[i] = fold(lane & 16, a[i], i + 5 < 9 ? a[i + 5] : 0.0f, 16);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) v3[i] = fold(lane & 8, v5[i], i + 3 < 5 ? v5[i + 3] : 0.0f, 8);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) v2[i] = fold(lane & 4, v3[i], i + 2 < 3 ? v3[i + 2] : 0.0f, 4);
+  const float v = fold(lane & 2, v2[0], v2[1], 2);
+  return v + __shfl_xor_sync(kFull, v, 1);
+}
+
+// The field whose warp sum warp_sum9 leaves in `lane`, or -1: the halving
+// levels read backwards (sizes 9, 5, 3, 2 at masks 16, 8, 4, 2; an upper
+// lane keeps the second half). Odd lanes repeat their even neighbour and
+// are given -1, so exactly one lane owns each field.
+__device__ __forceinline__ int field_of_lane(int lane) {
+  if (lane & 1) return -1;
+  const int sizes[4] = {9, 5, 3, 2};
+  int pos = 0;
+#pragma unroll
+  for (int level = 3; level >= 0; --level) {
+    if (lane & (16 >> level)) {
+      pos += (sizes[level] + 1) / 2;
+      if (pos >= sizes[level]) return -1;
+    }
+  }
+  return pos;
+}
+
+// Half-width and half-height, in pixels, of the box outside which an entry
+// cannot be taken: where |px - mx| > reach.x or |py - my| > reach.y,
+// pair_alpha skips the pixel, so leaving the pair out changes nothing.
+// Taken needs op exp(-Q / 2) >= 1/255 with Q = a dx^2 + 2 b dx dy + c dy^2,
+// so Q <= t = 2 ln(255 op), and the ellipse Q <= t spans |dx| <= sqrt(t c /
+// det), |dy| <= sqrt(t a / det), det = a c - b^2. Widened for pair_alpha's
+// float rounding: its Q is off by less than 8 u kappa relative (u = 2^-24,
+// kappa <= (a + c)^2 / det bounds the conic's condition), here 16 u kappa +
+// 1e-3, plus 1e-3 on t and 0.01 pixel. A conic that is not positive
+// definite or not finite culls nothing (+inf); op below 1/255 culls every
+// pixel (-1).
+__device__ __forceinline__ float2 reach(float a, float b, float c, float op) {
+  const double da = a, dc = c;
+  const double det = da * dc - static_cast<double>(b) * b;
+  if (!(a > 0.0f) || !(det > 0.0) || !(det < INFINITY)) return make_float2(INFINITY, INFINITY);
+  const double t = 2.0 * log(255.0 * static_cast<double>(op));
+  if (!(t > -1e-3)) return make_float2(-1.0f, -1.0f);  // also a NaN opacity, never taken
+  const double kappa = (da + dc) * (da + dc) / det;
+  const double tq = fmax(t, 0.0) * (1.0 + 1e-3 + 16.0 * 5.9604645e-8 * kappa) + 1e-3;
+  return make_float2(static_cast<float>(sqrt(tq * dc / det)) + 0.01f,
+                     static_cast<float>(sqrt(tq * da / det)) + 0.01f);
+}
+
+// The pixel (x, y inside the tile) of `lane` in unit k of `warp`. Warp w
+// owns the band of R = 32 / kUnitW rows from w R (the band the per-entry
+// reduction sums over); its unit k is the kUnitW x R block at column
+// k kUnitW (8 x 4 at 32x32), so that a unit is compact: a splat's box
+// misses it, or its pixels are all done, more often than a 32-pixel row's.
+template <int TILE_W, int kPix>
+__device__ __forceinline__ int2 unit_pixel(int warp, int k, int lane) {
+  constexpr int kUnitW = TILE_W / kPix;
+  static_assert(TILE_W % kPix == 0 && 32 % kUnitW == 0, "a unit must be 32 pixels of whole rows");
+  return make_int2(k * kUnitW + lane % kUnitW, warp * (32 / kUnitW) + lane / kUnitW);
+}
+
+// Writes the rows of entries base .. base + n - 1 of the sorted list from
+// the warps' partials, summed in warp order. Fields 0-4 of a partial are
+// moments of dpower (sum dpower dx, dpower dy, dpower dx^2, dpower dx dy,
+// dpower dy^2); the entry's conic (a, b, c) turns them into d mean2d and
+// d conic here, once per entry instead of once per pixel.
+__device__ __forceinline__ void flush(const float (&part)[kBatch][kWarps][kFields],
+                                      const float4* __restrict__ conic_op, int base, int n,
+                                      const int* __restrict__ entry_src,
+                                      float* __restrict__ rows) {
+  for (int t = threadIdx.x; t < n * kFields; t += kThreads) {
+    const int j = t / kFields;
+    const int f = t % kFields;
+    float s = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += part[j][w][f];
+    float v = s;  // d rgb, d opacity
+    if (f < 2) {  // d mean2d needs both first moments
+      float s_other = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) s_other += part[j][w][1 - f];
+      const float4 co = conic_op[j];
+      v = f == 0 ? -(co.x * s + co.y * s_other)   // d mx = -(a Sx + b Sy)
+                 : -(co.z * s + co.y * s_other);  // d my = -(c Sy + b Sx)
+    }
+    if (f == 2 || f == 4) v = -0.5f * s;  // d a, d c
+    if (f == 3) v = -s;                   // d b
+    rows[static_cast<long long>(entry_src[base + j]) * kFields + f] = v;
+  }
 }
 
 template <int TILE_W, int TILE_H>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 composite_bwd_kernel(const int* __restrict__ gauss_id,
                      const int* __restrict__ tile_start,
                      const int* __restrict__ tile_stop,
@@ -85,15 +232,22 @@ composite_bwd_kernel(const int* __restrict__ gauss_id,
                      float* __restrict__ replay_t,  // may be null
                      int width, int height, int grid_x) {
   static_assert((TILE_W * TILE_H) % kThreads == 0, "tile must split evenly over the block");
+  static_assert(kBatch <= kThreads, "one thread stages each entry of a batch");
   constexpr int kPix = TILE_W * TILE_H / kThreads;  // pixels per thread
 
   __shared__ float2 s_mean[kBatch];
-  __shared__ float4 s_conic_op[kBatch];  // a, b, c, opacity
-  __shared__ float4 s_rgb[kBatch];       // r, g, b, unused
-  __shared__ float s_part[kSub][kWarps][kFields];
+  // a, b, c, opacity, of two batches by parity: the flush of one batch
+  // reads its conics while the next batch's are staged.
+  __shared__ float4 s_conic_op[2][kBatch];
+  __shared__ float4 s_rgb[kBatch];    // r, g, b, unused
+  __shared__ float2 s_reach[kBatch];  // reach of each entry
+  // Each warp's sums of the batch's entries, flushed at the next batch's
+  // barriers: the flush needs none of its own.
+  __shared__ float s_part[kBatch][kWarps][kFields];
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const int my_field = field_of_lane(lane);
   const int tile = blockIdx.x;
   const int x0 = (tile % grid_x) * TILE_W;
   const int y0 = (tile / grid_x) * TILE_H;
@@ -104,9 +258,9 @@ composite_bwd_kernel(const int* __restrict__ gauss_id,
   bool done[kPix];
 #pragma unroll
   for (int k = 0; k < kPix; ++k) {
-    const int p = (warp * kPix + k) * 32 + lane;  // row-major inside the tile
-    const int x = x0 + p % TILE_W;
-    const int y = y0 + p / TILE_W;
+    const int2 q = unit_pixel<TILE_W, kPix>(warp, k, lane);
+    const int x = x0 + q.x;
+    const int y = y0 + q.y;
     px[k] = static_cast<float>(x);
     py[k] = static_cast<float>(y);
     T[k] = 1.0f;
@@ -125,88 +279,85 @@ composite_bwd_kernel(const int* __restrict__ gauss_id,
   }
 
   int next = start;  // first entry of the tile not yet given a row
+  int pending = 0;   // entries of the previous batch whose partials s_part holds
+  int cur = 0;       // the half of s_conic_op this batch is staged in
   for (int base = start; base < stop; base += kBatch) {
     bool all_done = true;
 #pragma unroll
     for (int k = 0; k < kPix; ++k) all_done = all_done && done[k];
-    // Also the barrier that keeps the previous batch's shared memory alive
-    // until every thread has finished reading it.
+    // Also the barrier after which the previous batch's staged entries and
+    // partials are complete and no longer read by the pair loop.
     if (__syncthreads_count(all_done) == kThreads) break;
+    // Reads s_part and the previous batch's half of s_conic_op; the staging
+    // below writes only the other half.
+    flush(s_part, s_conic_op[cur ^ 1], next - pending, pending, entry_src, rows);
 
     const int e = base + threadIdx.x;
-    if (e < stop) {
+    if (threadIdx.x < kBatch && e < stop) {
       const int gid = gauss_id[e];
       s_mean[threadIdx.x] = means2d[gid];
-      s_conic_op[threadIdx.x] =
-          make_float4(conic[3 * gid], conic[3 * gid + 1], conic[3 * gid + 2], opacity[gid]);
+      const float4 co = make_float4(conic[3 * gid], conic[3 * gid + 1], conic[3 * gid + 2],
+                                    opacity[gid]);
+      s_conic_op[cur][threadIdx.x] = co;
       s_rgb[threadIdx.x] = make_float4(rgb[3 * gid], rgb[3 * gid + 1], rgb[3 * gid + 2], 0.0f);
+      s_reach[threadIdx.x] = reach(co.x, co.y, co.z, co.w);
     }
-    __syncthreads();
+    __syncthreads();  // staged, and the flush's reads of s_part are over
 
     const int n = min(kBatch, stop - base);
-    for (int j0 = 0; j0 < n; j0 += kSub) {
-      const int m = min(kSub, n - j0);
-      for (int jj = 0; jj < m; ++jj) {
-        const int j = j0 + jj;
-        const float2 mean = s_mean[j];
-        const float4 co = s_conic_op[j];
-        const float4 c = s_rgb[j];
-        float acc[kFields];
+    for (int j = 0; j < n; ++j) {
+      const float2 mean = s_mean[j];
+      const float4 co = s_conic_op[cur][j];
+      const float4 c = s_rgb[j];
+      const float2 box = s_reach[j];
+      float acc[kFields];  // moments of dpower (see flush), d rgb, d opacity
 #pragma unroll
-        for (int f = 0; f < kFields; ++f) acc[f] = 0.0f;
-        bool any = false;
+      for (int f = 0; f < kFields; ++f) acc[f] = 0.0f;
+      bool any = false;
+      // Branch-free but for one vote per unit: a unit with no open pixel
+      // (stopped or outside the box) is skipped; in the others every lane
+      // runs the pair and keeps what a blended pair adds.
 #pragma unroll
-        for (int k = 0; k < kPix; ++k) {
-          if (done[k]) continue;
-          gs::Pair r;
-          if (!gs::pair_alpha(mean.x, mean.y, co.x, co.y, co.z, co.w, px[k], py[k], r)) continue;
-          const float test = gs::transmit(T[k], r.alpha);
-          if (test < gs::kTEps) {
-            done[k] = true;
-            continue;
-          }
-          any = true;
-          const float cg = g[k][0] * c.x + g[k][1] * c.y + g[k][2] * c.z;
-          const float w = r.alpha * T[k];
-          pfx[k] += cg * w;
-          const float dalpha = T[k] * cg - (total[k] - pfx[k]) / (1.0f - r.alpha);
-          if (r.raw < gs::kAlphaMax) {  // the gated clamp
-            const float dpower = dalpha * r.raw;
-            acc[0] += -(co.x * r.dx + co.y * r.dy) * dpower;
-            acc[1] += -(co.z * r.dy + co.y * r.dx) * dpower;
-            acc[2] += -0.5f * r.dx * r.dx * dpower;
-            acc[3] += -r.dx * r.dy * dpower;
-            acc[4] += -0.5f * r.dy * r.dy * dpower;
-            acc[8] += dalpha * r.g;
-          }
-          acc[5] += g[k][0] * w;
-          acc[6] += g[k][1] * w;
-          acc[7] += g[k][2] * w;
-          T[k] = test;
-        }
-        if (__any_sync(0xffffffffu, any)) {
-#pragma unroll
-          for (int f = 0; f < kFields; ++f) acc[f] = warp_sum(acc[f]);
-        }
-        if (lane == 0) {  // zeros where the warp blended nothing
-#pragma unroll
-          for (int f = 0; f < kFields; ++f) s_part[jj][warp][f] = acc[f];
-        }
+      for (int k = 0; k < kPix; ++k) {
+        const bool open = !(done[k] || fabsf(px[k] - mean.x) > box.x || fabsf(py[k] - mean.y) > box.y);
+        if (!__any_sync(kFull, open)) continue;
+        gs::Pair r;
+        const bool taken =
+            gs::pair_alpha(mean.x, mean.y, co.x, co.y, co.z, co.w, px[k], py[k], r) & open;
+        const float test = gs::transmit(T[k], r.alpha);
+        const bool stops = taken & (test < gs::kTEps);
+        const bool blend = taken & !stops;
+        done[k] = done[k] | stops;
+        any = any | blend;
+        const float cg = g[k][0] * c.x + g[k][1] * c.y + g[k][2] * c.z;
+        const float w = blend ? r.alpha * T[k] : 0.0f;
+        pfx[k] = blend ? pfx[k] + cg * w : pfx[k];
+        // 1 - alpha >= 0.01: the approximate reciprocal rounds, decides nothing
+        const float dalpha = T[k] * cg - __fdividef(total[k] - pfx[k], 1.0f - r.alpha);
+        const bool gate = blend & (r.raw < gs::kAlphaMax);  // the gated clamp
+        const float dpower = gate ? dalpha * r.raw : 0.0f;
+        const float tx = dpower * r.dx, ty = dpower * r.dy;
+        acc[0] += tx;
+        acc[1] += ty;
+        acc[2] += tx * r.dx;
+        acc[3] += tx * r.dy;
+        acc[4] += ty * r.dy;
+        acc[5] += g[k][0] * w;
+        acc[6] += g[k][1] * w;
+        acc[7] += g[k][2] * w;
+        acc[8] += gate ? dalpha * r.g : 0.0f;
+        T[k] = blend ? test : T[k];
       }
-      __syncthreads();
-      // m * 9 sums over the warps, in warp order, one per thread
-      for (int t = threadIdx.x; t < m * kFields; t += kThreads) {
-        const int jj = t / kFields;
-        const int f = t % kFields;
-        float s = 0.0f;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) s += s_part[jj][w][f];
-        rows[static_cast<long long>(entry_src[base + j0 + jj]) * kFields + f] = s;
-      }
-      __syncthreads();  // s_part is rewritten by the next kSub entries
+      // zeros where no lane of the warp blended the entry
+      const float v = __any_sync(kFull, any) ? warp_sum9(acc, lane) : 0.0f;
+      if (my_field >= 0) s_part[j][warp][my_field] = v;
     }
+    pending = n;
     next = base + n;
+    cur ^= 1;
   }
+  __syncthreads();  // the last batch's partials are complete
+  flush(s_part, s_conic_op[cur ^ 1], next - pending, pending, entry_src, rows);
 
   // Entries after the block's exit: every pixel was done, zero rows.
   for (int t = threadIdx.x; t < (stop - next) * kFields; t += kThreads) {
@@ -216,9 +367,9 @@ composite_bwd_kernel(const int* __restrict__ gauss_id,
   if (replay_t != nullptr) {
 #pragma unroll
     for (int k = 0; k < kPix; ++k) {
-      const int p = (warp * kPix + k) * 32 + lane;
-      const int x = x0 + p % TILE_W;
-      const int y = y0 + p / TILE_W;
+      const int2 q = unit_pixel<TILE_W, kPix>(warp, k, lane);
+      const int x = x0 + q.x;
+      const int y = y0 + q.y;
       if (x < width && y < height) replay_t[static_cast<long long>(y) * width + x] = T[k];
     }
   }
@@ -238,6 +389,20 @@ cudaError_t launch(const void* const* in, void* rows, void* replay_t, int width,
       static_cast<const float*>(in[10]), static_cast<const float*>(in[11]),
       static_cast<float*>(rows), static_cast<float*>(replay_t), width, height, grid_x);
   return cudaGetLastError();
+}
+
+template <int TILE_W, int TILE_H>
+cudaError_t occupancy(int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, composite_bwd_kernel<TILE_W, TILE_H>);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, composite_bwd_kernel<TILE_W, TILE_H>, kThreads, 0);
+  out[0] = attr.numRegs;
+  out[1] = kThreads;
+  out[2] = blocks;
+  return err;
 }
 
 }  // namespace
@@ -266,6 +431,18 @@ extern "C" int gs_composite_bwd(const void* gauss_id, const void* tile_start,
   if (tile_w == 32 && tile_h == 32) return launch<32, 32>(in, rows, replay_t, width, height, s);
   if (tile_w == 32 && tile_h == 16) return launch<32, 16>(in, rows, replay_t, width, height, s);
   if (tile_w == 16 && tile_h == 16) return launch<16, 16>(in, rows, replay_t, width, height, s);
+  return cudaErrorInvalidValue;
+}
+
+// Fills out[0..2] with the kernel's registers per thread, threads per
+// block and resident blocks per SM on device `device`, for a tile geometry
+// as above; returns the cudaError_t.
+extern "C" int gs_composite_bwd_occupancy(int tile_w, int tile_h, int device, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (tile_w == 32 && tile_h == 32) return occupancy<32, 32>(out);
+  if (tile_w == 32 && tile_h == 16) return occupancy<32, 16>(out);
+  if (tile_w == 16 && tile_h == 16) return occupancy<16, 16>(out);
   return cudaErrorInvalidValue;
 }
 

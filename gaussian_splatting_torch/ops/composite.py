@@ -33,7 +33,7 @@ the two agree to ~2e-5 on a [0, 1.2] image.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -95,34 +95,42 @@ def _entry_positions(gauss_id, tile_start, tile_stop):
 
 
 def _blend_tiles(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
-                 width: int, height: int, tile_w: int, tile_h: int):
+                 width: int, height: int, tile_w: int, tile_h: int,
+                 warps: Optional[int] = None):
     """Per-tile blend. Returns acc (T, TPX, 3) before background, final
-    transmittance (T, TPX), the number of entries evaluated per pixel
-    (T, TPX) int64: those up to and including the one it stopped at, and
-    the number of entries blended per pixel (T, TPX) int64."""
+    transmittance (T, TPX), and () int64 counts of the work: the (pixel,
+    entry) pairs evaluated (for each pixel, those up to and including the
+    one it stopped at), of those the pairs taken (alpha >= 1/255) and the
+    pairs blended, and, given the backward kernel's `warps`, the (entry,
+    warp band) pairs in which some pixel of the band (a tile's pixels in
+    row-major order cut into `warps` equal runs) blended the entry."""
     dev = means2d.device
     px, py, done = _tile_pixels(width, height, tile_w, tile_h, dev)
     trans = torch.ones(px.shape, dtype=torch.float32, device=dev)
     acc = torch.zeros(px.shape + (3,), dtype=torch.float32, device=dev)
-    n_eval = torch.zeros(px.shape, dtype=torch.int64, device=dev)
-    n_blend = torch.zeros(px.shape, dtype=torch.int64, device=dev)
+    n_eval, n_taken, n_blend, band = (torch.zeros((), dtype=torch.int64, device=dev)
+                                      for _ in range(4))
+    T = px.shape[0]
 
     for j, has, _, gid in _entry_positions(gauss_id, tile_start, tile_stop):
         # Leave once no pixel of any tile with entries left is still open.
         if j % 32 == 0 and not bool((has[:, None] & ~done).any()):
             break
         live = has[:, None] & ~done
-        n_eval = n_eval + live
+        n_eval += live.sum()
         _, _, _, _, alpha, taken, test = _pair(gid, means2d, conic, opacity, px, py, trans)
         live = live & taken
+        n_taken += live.sum()
         stop = live & (test < T_EPS)
         done = done | stop
         live = live & ~stop
-        n_blend = n_blend + live
+        n_blend += live.sum()
+        if warps is not None:
+            band += live.reshape(T, warps, -1).any(dim=-1).sum()
         w = torch.where(live, alpha * trans, torch.zeros_like(trans))
         acc = acc + rgb[gid][:, None, :] * w[..., None]
         trans = torch.where(live, test, trans)
-    return acc, trans, n_eval, n_blend
+    return acc, trans, n_eval, n_taken, n_blend, band
 
 
 def _untile(x: torch.Tensor, width: int, height: int, tile_w: int, tile_h: int):
@@ -155,8 +163,8 @@ def composite_fwd_torch(gauss_id, tile_start, tile_stop, means2d, conic, rgb, op
     means2d (P,2), conic (P,3), rgb (P,3), opacity (P,), bg (3,) float32.
     Returns image (H, W, 3) and final_t (H, W).
     """
-    acc, trans, _, _ = _blend_tiles(gauss_id, tile_start, tile_stop, means2d, conic, rgb,
-                                    opacity, width, height, tile_w, tile_h)
+    acc, trans = _blend_tiles(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
+                              width, height, tile_w, tile_h)[:2]
     out = acc + trans[..., None] * bg
     return CompositeOut(
         image=_untile(out, width, height, tile_w, tile_h),
@@ -164,15 +172,26 @@ def composite_fwd_torch(gauss_id, tile_start, tile_stop, means2d, conic, rgb, op
     )
 
 
+class PairCounts(NamedTuple):
+    pairs: int  # (pixel, entry) pairs evaluated
+    taken: int  # of those, the pairs with alpha >= 1/255 (blended, or the one a pixel stops at)
+    blended: int  # of those, the pairs blended
+    band_entries: int  # (entry, warp band) pairs in which some pixel blended the entry
+
+
 def blend_pair_counts(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
-                      width: int, height: int, tile_w: int, tile_h: int) -> tuple:
-    """(pixel, entry) pairs the blend evaluates on these inputs (for every
-    pixel, its tile's entries up to and including the one it stopped at)
-    and, of those, the pairs it blends. This is the work that bounds the
-    compositing kernels."""
-    _, _, n_eval, n_blend = _blend_tiles(gauss_id, tile_start, tile_stop, means2d, conic,
-                                         rgb, opacity, width, height, tile_w, tile_h)
-    return int(n_eval.sum()), int(n_blend.sum())
+                      width: int, height: int, tile_w: int, tile_h: int,
+                      warps: int = 8) -> PairCounts:
+    """The work that bounds the compositing kernels, on these inputs: the
+    (pixel, entry) pairs the blend evaluates (for every pixel, its tile's
+    entries up to and including the one it stopped at), the pairs it takes
+    and the pairs it blends, and the (entry, warp band) pairs in which at
+    least one pixel blended the entry, where a tile's pixels in row-major
+    order are split evenly over `warps` warps as the backward kernel splits
+    them (each is one per-entry reduction over a warp in that kernel)."""
+    counts = _blend_tiles(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
+                          width, height, tile_w, tile_h, warps=warps)[2:]
+    return PairCounts(*(int(c) for c in counts))
 
 
 def composite_bwd_torch(gauss_id, tile_start, tile_stop, entry_src, means2d, conic, rgb,

@@ -150,6 +150,13 @@ def route_grads_cuda(rows, gauss_offset, gauss_count, num_points: int) -> torch.
     return out
 
 
+def composite_bwd_occupancy(tile_w: int, tile_h: int, device: int = 0) -> dict:
+    """The backward kernel's registers per thread, threads per block and
+    resident blocks per SM for a tile geometry, on CUDA device `device`."""
+    return cuda_build.occupancy("composite_bwd", "gs_composite_bwd_occupancy", tile_w, tile_h,
+                                device)
+
+
 def _on(dev: torch.device) -> str:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"compositing runs on CUDA or CPU tensors, not {dev}")

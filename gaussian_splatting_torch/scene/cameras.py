@@ -160,3 +160,18 @@ class MiniCam:
 
     def arrays(self, device="cuda") -> CameraArrays:
         return _camera_arrays(self, device)
+
+
+def orbit_camera(center, dist: float, angle: float, width: int, height: int,
+                 fovx_deg: float, fovy_deg: float) -> Camera:
+    """A camera on a circle of radius `dist` around `center` in the xz
+    plane, at `angle` radians, looking at `center`."""
+    c, s = math.cos(angle), math.sin(angle)
+    cam_pos = np.asarray(center, np.float64) + np.array([dist * s, 0.0, -dist * c])
+    forward = (np.asarray(center) - cam_pos) / dist
+    right = np.cross([0.0, 1.0, 0.0], forward)
+    right /= np.linalg.norm(right)
+    R = np.stack([right, np.cross(forward, right), forward], axis=1)  # C2W
+    return Camera(uid=0, colmap_id=0, R=R, T=-R.T @ cam_pos, fovx=math.radians(fovx_deg),
+                  fovy=math.radians(fovy_deg), image=None, image_name="orbit", width=width,
+                  height=height)

@@ -5,8 +5,9 @@ stage, which asked what a gathered (K, 16) table costs its consumer in each
 memory form (`tools/profile_stages.py:396-491`):
   - `consume_rows` (`_sum_rows_kernel`): the column sums, (K, R) -> (1, R),
     reading row-major blocks;
-  - `consume_t` (`_sum_t_kernel`): the same sums, (K, R) -> (R, 1), each
-    block staged through shared memory as (R, rows) first.
+  - `consume_t` (`_sum_t_kernel`): the same sums, (K, R) -> (R, 1); the
+    TPU kernel's in-kernel transpose of each block is applied here to each
+    block's per-thread partial sums, after the row-major reads.
 Both are `csrc/consume.cu`: two launches per call (per-block partials, then
 each column's partials summed in a fixed order), no atomics, so two runs
 give the same bits; any K, 1 <= R <= 32.
@@ -75,6 +76,13 @@ def consume_t_cuda(x: torch.Tensor) -> torch.Tensor:
     out = _launch("gs_consume_t", x, (x.shape[1], 1))
     consume_t.launches += 1
     return out
+
+
+def consume_t_occupancy(r: int, device: int = 0) -> dict:
+    """Registers per thread, threads per block and resident blocks per SM
+    of `consume_t`'s first pass as it runs for r columns of an aligned
+    table, on CUDA device `device`."""
+    return cuda_build.occupancy("consume", "gs_consume_t_occupancy", r, device)
 
 
 def _on(x: torch.Tensor) -> str:

@@ -84,7 +84,7 @@ from gaussian_splatting_torch.tools.consumers import consume_rows, consume_t
 from gaussian_splatting_torch.training import OptimizationConfig, init_train_state, train_step
 from gaussian_splatting_torch.utils.device import require_device
 from gaussian_splatting_torch.utils.roofline import (
-    OPS_PER_PAIR, PEAK_BYTES_PER_S, PEAK_FP32_PER_S, bound_ms,
+    PEAK_BYTES_PER_S, PEAK_FP32_PER_S, bound_ms, pair_ops,
 )
 
 STAGES = ("pre", "emit", "render", "grad", "train", "sat", "micro", "emitparts", "gforms",
@@ -566,8 +566,9 @@ def stage_roofline(t: _Timer, sc: Scene, out: dict):
     t_full = t("full render (rasterize)", lambda: _render(sc), sc.acts, FWD)
 
     K = int(lists.total)
-    pairs, _ = blend_pair_counts(lists.gauss_id, lists.tile_start, lists.tile_stop, prep.means2d,
-                                 prep.conic, prep.rgb, prep.opacity, W, H, *sc.tile)
+    counts = blend_pair_counts(lists.gauss_id, lists.tile_start, lists.tile_stop, prep.means2d,
+                               prep.conic, prep.rgb, prep.opacity, W, H, *sc.tile)
+    pairs = counts.pairs
     # binning reads 24 B per Gaussian (rects, depth, tiles touched) and
     # writes 13 B per list slot (id, tile, valid, source), the tile ranges
     # and 8 B of routing runs per Gaussian; it does integer work only.
@@ -577,7 +578,7 @@ def stage_roofline(t: _Timer, sc: Scene, out: dict):
     kern_bytes = 4 * K + 36 * P + 8 * T + 12 + 16 * W * H
     rows = [("preprocess", t_pre, bound_ms(PRE_BYTES_PER_GAUSSIAN * P, PRE_OPS_PER_GAUSSIAN * P)),
             ("binning", t_bin, bound_ms(bin_bytes, 0)),
-            ("compositing kernel", t_kern, bound_ms(kern_bytes, OPS_PER_PAIR * pairs))]
+            ("compositing kernel", t_kern, bound_ms(kern_bytes, pair_ops(pairs, counts.taken)))]
     print(f"\n  {'stage':20s} {'measured':>11s} {'bound':>11s} {'bound by':>11s} {'of bound':>9s}")
     total_bound = 0.0
     table = []

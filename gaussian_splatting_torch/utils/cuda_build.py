@@ -113,3 +113,13 @@ def launch(source: str, function: str, argtypes: tuple, *args) -> None:
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{function} kernel launch failed: {err_str(err).decode()} ({err})")
+
+
+def occupancy(source: str, function: str, *args: int) -> dict:
+    """Call the C query `function` of `csrc/<source>.cu`, which takes `args`
+    (C ints) and fills an int[3] with a kernel's registers per thread,
+    threads per block and resident blocks per SM (`cudaFuncGetAttributes`,
+    `cudaOccupancyMaxActiveBlocksPerMultiprocessor`); raise as `launch`."""
+    out = (ctypes.c_int * 3)()
+    launch(source, function, (INT,) * len(args) + (PTR,), *args, ctypes.addressof(out))
+    return {"registers": out[0], "threads": out[1], "blocks_per_sm": out[2]}

@@ -102,10 +102,35 @@ def test_pair_count_stops_at_saturation():
     _, prep, lists, _ = setup(W, H, tile, P=300, seed=9, spread=0.3, scale_mu=-1.8)
     args = (lists.gauss_id, lists.tile_start, lists.tile_stop, prep.means2d, prep.conic,
             prep.rgb, prep.opacity, W, H, *tile)
-    pairs, _ = composite.blend_pair_counts(*args)
+    pairs = composite.blend_pair_counts(*args).pairs
     counts = (lists.tile_stop - lists.tile_start).numpy()
     upper = int((counts * tile[0] * tile[1]).sum())  # every pixel x every entry
     assert 0 < pairs < upper  # saturated pixels stop early
+
+
+def test_band_counts_grow_with_the_bands():
+    W, H, tile = 64, 48, (16, 16)
+    _, prep, lists, _ = setup(W, H, tile, P=300, seed=9, spread=0.3, scale_mu=-1.8)
+    args = (lists.gauss_id, lists.tile_start, lists.tile_stop, prep.means2d, prep.conic,
+            prep.rgb, prep.opacity, W, H, *tile)
+    by_warps = {w: composite.blend_pair_counts(*args, warps=w) for w in (1, 4, 8)}
+    c = by_warps[8]
+    assert all(x[:3] == c[:3] for x in by_warps.values())  # the bands change no decision
+    # one band is the whole tile: each entry counts once if any pixel blended it
+    assert 0 < by_warps[1].band_entries <= by_warps[4].band_entries <= c.band_entries
+    assert by_warps[1].band_entries <= int(lists.total) and c.band_entries <= c.blended
+
+
+@pytest.mark.parametrize("opaque", [False, True])
+def test_taken_pairs_are_the_blended_ones_and_the_stops(opaque):
+    W, H, tile = 64, 48, (16, 16)
+    scene = dict(P=300, seed=9, spread=0.3, scale_mu=-1.8) if opaque else dict(P=12, seed=3)
+    _, prep, lists, _ = setup(W, H, tile, **scene)
+    c = composite.blend_pair_counts(lists.gauss_id, lists.tile_start, lists.tile_stop,
+                                    prep.means2d, prep.conic, prep.rgb, prep.opacity, W, H, *tile)
+    assert 0 < c.blended <= c.taken < c.pairs
+    stopped = c.taken - c.blended  # each pixel stops at one taken entry at most
+    assert (0 < stopped <= W * H) if opaque else stopped == 0
 
 
 def test_wrapper_uses_plain_version_on_cpu():

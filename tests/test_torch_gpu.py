@@ -31,8 +31,8 @@ from gaussian_splatting_torch.ops.composite import (
     composite_bwd_torch, composite_fwd_torch, route_grads_torch,
 )
 from gaussian_splatting_torch.ops.composite_cuda import (
-    TILE_GEOMETRIES, composite_bwd, composite_bwd_cuda, composite_fwd, composite_fwd_cuda,
-    route_grads, route_grads_cuda,
+    TILE_GEOMETRIES, composite_bwd, composite_bwd_cuda, composite_bwd_occupancy, composite_fwd,
+    composite_fwd_cuda, route_grads, route_grads_cuda,
 )
 from gaussian_splatting_torch.ops.projection import preprocess
 from gaussian_splatting_torch.ops.rasterize import RasterizerConfig
@@ -43,7 +43,7 @@ from gaussian_splatting_torch.scene.cameras import Camera
 from gaussian_splatting_torch.scene.gaussians import params_from_numpy
 from gaussian_splatting_torch.tools.consumers import (
     consume_rows, consume_rows_cuda, consume_rows_torch, consume_t, consume_t_cuda,
-    consume_t_torch,
+    consume_t_occupancy, consume_t_torch,
 )
 from gaussian_splatting_torch.training import eval_render
 
@@ -174,6 +174,101 @@ def test_backward_kernels_match_plain(W, H, tile):
                        route_grads_torch(rows, lists.gauss_offset, lists.gauss_count, P))
 
 
+# Entries per tile, each with the Gaussians' opacity and size in pixels:
+# counts that are not multiples of the kernel's 128-entry batch (whose
+# partials are flushed at the next batch's barriers), of the reduction's 9
+# fields or of 256, an empty tile, faint lists that never saturate (no
+# block exit) and opaque ones that do.
+RAGGED_TILES = ((0, 0.5, 4.0), (513, 0.95, 20.0), (1, 0.6, 6.0), (31, 0.3, 5.0),
+                (257, 0.03, 6.0), (33, 0.2, 3.0), (300, 0.9, 12.0), (65, 0.5, 2.0))
+DEEP = 384  # entries of a 513-entry list from here on come after every pixel stopped
+
+
+def ragged_scene(dev, W, H, tile, seed=0):
+    """Hand-made tile lists: tile t gets RAGGED_TILES[t % 8]'s count of
+    entries, each its own Gaussian, centred near the tile with a random
+    anisotropic footprint; emission order is a random permutation."""
+    rng = np.random.default_rng(seed)
+    gx, gy = -(-W // tile[0]), -(-H // tile[1])
+    counts, ops, sizes = zip(*(RAGGED_TILES[t % len(RAGGED_TILES)] for t in range(gx * gy)))
+    counts = np.array(counts)
+    K = int(counts.sum())
+    tile_of = np.repeat(np.arange(gx * gy), counts)
+    corner = np.stack([tile_of % gx * tile[0], tile_of // gx * tile[1]], axis=1)
+    means = corner + rng.uniform(-4, np.array(tile) + 4, (K, 2))
+    sigma = np.repeat(np.array(sizes), counts)[:, None] * rng.uniform(0.5, 1.5, (K, 2))
+    rho = rng.uniform(-0.6, 0.6, K)
+    det = (sigma[:, 0] * sigma[:, 1]) ** 2 * (1 - rho ** 2)
+    conic = np.stack([sigma[:, 1] ** 2, -rho * sigma[:, 0] * sigma[:, 1], sigma[:, 0] ** 2], 1)
+    opacity = np.repeat(np.array(ops), counts) * rng.uniform(0.8, 1.0, K)
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    stop = np.cumsum(counts)
+    return (torch.arange(K, **i32), torch.tensor(stop - counts, **i32), torch.tensor(stop, **i32),
+            torch.tensor(rng.permutation(K), **i32), torch.tensor(means, **f32),
+            torch.tensor(conic / det[:, None], **f32), torch.tensor(rng.uniform(0, 1, (K, 3)), **f32),
+            torch.tensor(opacity, **f32))
+
+
+@pytest.mark.parametrize("tile", TILE_GEOMETRIES)
+def test_backward_on_ragged_tiles(tile):
+    dev = cuda_device()
+    W, H = 75, 53  # a multiple of no tile side
+    ids, start, stop, src, means2d, conic, rgb, opacity = ragged_scene(dev, W, H, tile)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+    fwd = composite_fwd_cuda(ids, start, stop, means2d, conic, rgb, opacity, bg, W, H, *tile)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    args = (ids, start, stop, src, means2d, conic, rgb, opacity, fwd.image, fwd.final_t,
+            torch.randn((H, W, 3), generator=gen, device=dev),
+            torch.randn((H, W), generator=gen, device=dev), W, H, *tile)
+    replay_t = torch.full((H, W), -1.0, device=dev)
+    rows = composite_bwd_cuda(*args, replay_t=replay_t)
+    rows_again = composite_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(replay_t, fwd.final_t)
+    assert float(fwd.final_t.min()) < 1e-3  # the opaque lists saturate: some blocks exit early
+    assert torch.equal(rows, rows_again)
+    ref = composite_bwd_torch(*args)
+    assert_grads_close(rows, ref)
+    counts = (stop - start).cpu()
+    deep = torch.cat([torch.arange(int(a) + DEEP, int(b)) for a, b, n in
+                      zip(start.cpu(), stop.cpu(), counts) if n == 513]).to(dev)
+    deep_rows = src[deep].long()
+    assert deep.numel() > 0 and bool((ref[deep_rows] == 0).all())  # past the block's exit
+    assert bool((rows[deep_rows] == 0).all())
+
+
+@pytest.mark.parametrize("tile", TILE_GEOMETRIES)
+def test_backward_on_ragged_tiles_repeats_bit_for_bit(tile):
+    # Each batch's flush shares the block with the staging of the next
+    # batch; a race between them would show as rows that change from run
+    # to run.
+    dev = cuda_device()
+    W, H = 75, 53
+    ids, start, stop, src, means2d, conic, rgb, opacity = ragged_scene(dev, W, H, tile, seed=5)
+    bg = torch.zeros(3, device=dev)
+    fwd = composite_fwd_cuda(ids, start, stop, means2d, conic, rgb, opacity, bg, W, H, *tile)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    args = (ids, start, stop, src, means2d, conic, rgb, opacity, fwd.image, fwd.final_t,
+            torch.randn((H, W, 3), generator=gen, device=dev),
+            torch.randn((H, W), generator=gen, device=dev), W, H, *tile)
+    first = composite_bwd_cuda(*args)
+    runs = [composite_bwd_cuda(*args) for _ in range(200)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(first, rows) for rows in runs)
+    assert_grads_close(first, composite_bwd_torch(*args))
+
+
+def test_occupancy_queries():
+    dev = cuda_device()
+    for tile in TILE_GEOMETRIES:
+        occ = composite_bwd_occupancy(*tile, dev.index)
+        assert occ["registers"] > 0 and occ["threads"] % 32 == 0 and occ["blocks_per_sm"] >= 1
+    for r in (1, 3, 16, 32):
+        occ = consume_t_occupancy(r, dev.index)
+        assert occ["registers"] > 0 and occ["threads"] == 256 and occ["blocks_per_sm"] >= 1
+
+
 def test_train_step_on_the_card():
     dev = cuda_device()
     W, H, P = 160, 120, 1500
@@ -220,8 +315,8 @@ def test_transpose_rejects_what_the_kernel_does_not_take():
         relayout_to_rows_cuda(torch.zeros((8, 9), device=dev).t())
 
 
-@pytest.mark.parametrize("R", [1, 9, 16, 32])
-@pytest.mark.parametrize("K", [0, 1, 2047, 2 * 16384, 1_339_001])
+@pytest.mark.parametrize("R", [1, 3, 9, 12, 16, 32])
+@pytest.mark.parametrize("K", [0, 1, 2047, 2049, 2 * 16384, 1_339_001])
 def test_column_sums_match_and_repeat(R, K):
     dev = cuda_device()
     x = torch.randn((K, R), generator=torch.Generator(device=dev).manual_seed(K + R), device=dev)
@@ -236,3 +331,18 @@ def test_column_sums_match_and_repeat(R, K):
         assert bool(((a.double().reshape(R) - ref).abs() <= tol).all())
         assert bool(((plain(x).double().reshape(R) - ref).abs() <= tol).all())
     assert (consume_rows.launches, consume_t.launches) == (before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.parametrize("R", [4, 16])
+def test_column_sums_of_an_unaligned_table(R):
+    dev = cuda_device()
+    K = 5001
+    flat = torch.randn(K * R + 1, generator=torch.Generator(device=dev).manual_seed(R), device=dev)
+    x = flat[1:].view(K, R)  # 4 bytes past a 16-byte boundary: the transposed form reads floats
+    assert x.data_ptr() % 16 == 4
+    ref = x.double().sum(0)
+    tol = 1e-5 * x.double().abs().sum(0)
+    a, b = consume_t_cuda(x), consume_t_cuda(x)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert bool(((a.double().reshape(R) - ref).abs() <= tol).all())
