@@ -25,7 +25,10 @@ Phases (any failure exits non-zero; none is caught and passed over):
      field: relative L2 error <= 1e-4, and >= 99.9% of rows (entries for the
      backward, Gaussians for the routing) within 1e-3 x the field's max
      |grad|. The backward's replayed final T must equal the forward's
-     final_t bit for bit, and two runs of it must give the same bits.
+     final_t bit for bit, and two runs of the backward, and of the routing,
+     must give the same bits. On every forward input the forward must give
+     the bits of its form with the box cull off (`reach` boxes infinite):
+     the cull may leave out only pairs the blend skips.
      The transpose (`relayout_to_rows`) at (9, K) and (16, K) for K =
      1,900,544 (the profiler's capacity) and an odd K = 1,339,001 must be
      bit-equal to its plain version: it is a copy. The column sums
@@ -39,7 +42,9 @@ Phases (any failure exits non-zero; none is caught and passed over):
      by exactly 50. Prints the entry count, frame latency (median, p80),
      peak device memory, each stage's stream time (CUDA events), the device
      busy share and top kernels (torch.profiler), the kernel's time (CUDA
-     events) beside its bound, and the plain version's time.
+     events) beside its bound, and the plain version's time; the (entry,
+     32-pixel unit) pairs it evaluates, registers per thread, threads per
+     block and resident blocks per SM.
   5. train path: params_from_ply -> init_train_state -> 20 train_steps of
      the trained model at 1920x1080 (camera angle 0, 32x32 tiles, black
      background, SH degree 3, OptimizationConfig() defaults) toward the
@@ -49,10 +54,11 @@ Phases (any failure exits non-zero; none is caught and passed over):
      Prints step latency (median, p80 of the last 15), peak device memory,
      each stage's stream time, the device busy share and top kernels, and
      the backward and routing kernels' times beside their bounds, their
-     plain versions' times and, for routing, `index_add_`'s time; the
+     plain versions' times and, for routing, `index_add_`'s time and the
+     run lengths (max and p99.9 of the entries per Gaussian); the
      backward's (entry, warp band) reductions (pairs of an entry and a warp
-     in which some pixel blended it), registers per thread and resident
-     blocks per SM.
+     in which some pixel blended it), its (entry, unit) pairs, registers
+     per thread and resident blocks per SM.
   6. profiler path: `tools/profile_stages.run` at the JAX tool's defaults
      (P = 262,144 random Gaussians, 1920x1080, 32x16 tiles, 10 calls a
      line, best of 3) over every ported stage; prints the stage table, the
@@ -89,7 +95,8 @@ from gaussian_splatting_torch.ops.composite import (
 )
 from gaussian_splatting_torch.ops.composite_cuda import (
     TILE_GEOMETRIES, composite_bwd, composite_bwd_cuda, composite_bwd_occupancy, composite_fwd,
-    composite_fwd_cuda, route_grads, route_grads_cuda,
+    composite_fwd_cuda, composite_fwd_occupancy, composite_fwd_unculled_cuda, route_grads,
+    route_grads_cuda,
 )
 from gaussian_splatting_torch.ops.projection import preprocess
 from gaussian_splatting_torch.ops.rasterize import entry_bucket_capacity
@@ -178,6 +185,18 @@ def compare(name, out, ref, tight):
     return max(errs)
 
 
+def check_cull(name, out, args, bg, W, H, tile):
+    """The forward kernel's outputs must be the bits of its form with the
+    box cull off: the cull may leave out only pairs the blend skips."""
+    full = composite_fwd_unculled_cuda(*args, bg, W, H, *tile)
+    torch.cuda.synchronize()
+    for field in ("image", "final_t"):
+        a, b = getattr(out, field), getattr(full, field)
+        if not torch.equal(a, b):
+            fail(f"{name}: the box cull changes {field} at {int((a != b).sum())} elements")
+    print(f"  {name:34s} image and final_t bit-equal with the box cull off")
+
+
 def compare_grads(name, got, ref):
     """Check (N, 9) gradient rows against a reference, field by field;
     returns the max abs error."""
@@ -202,8 +221,8 @@ def compare_grads(name, got, ref):
 def check_backward(name, args, lists, bg, W, H, tile, seed):
     """Backward and routing kernels vs their plain versions on the forward
     kernel's outputs and seeded random cotangents; the replayed final T must
-    be the forward's, and two runs the same bits. Returns the max abs
-    errors of the backward's rows and of the routing's sums."""
+    be the forward's, and two runs of each kernel the same bits. Returns
+    the max abs errors of the backward's rows and of the routing's sums."""
     dev = bg.device
     fwd = composite_fwd_cuda(*args, bg, W, H, *tile)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -224,6 +243,8 @@ def check_backward(name, args, lists, bg, W, H, tile, seed):
     err_rows = compare_grads(f"{name} backward rows", rows[:n], rows_ref[:n])
     off, cnt = lists.gauss_offset, lists.gauss_count
     sums = route_grads_cuda(rows, off, cnt, P)
+    if not torch.equal(sums, route_grads_cuda(rows, off, cnt, P)):
+        fail(f"{name}: two runs of the routing kernel differ")
     err_route = compare_grads(f"{name} routing", sums, route_grads_torch(rows, off, cnt, P))
     compare_grads(f"{name} backward+routing", sums, route_grads_torch(rows_ref, off, cnt, P))
     return err_rows, err_route
@@ -441,6 +462,7 @@ def main():
             ref = composite_fwd_torch(*args, bg, W, H, *tile)
             torch.cuda.synchronize()
             max_err["composite_fwd"] = max(max_err["composite_fwd"], compare(name, out, ref, 1e-5))
+            check_cull(name, out, args, bg, W, H, tile)
             note_bwd(check_backward(name, args, lists, bg, W, H, tile, seed=10 + seed))
 
     params = params_from_ply(TRAINED_PLY)  # device defaults to the card
@@ -461,6 +483,7 @@ def main():
             torch.cuda.synchronize()
             max_err["composite_fwd"] = max(max_err["composite_fwd"],
                                            compare(f"{name} K={total}", out, ref, 1e-5))
+            check_cull(name, out, args, bg0, W_MAIN, H_MAIN, (32, 32))
             if i == 0:
                 main_args = args
                 note_bwd(check_backward(name, args, lists, bg0, W_MAIN, H_MAIN, (32, 32), seed=20))
@@ -528,9 +551,13 @@ def main():
     nbytes = 4 * n_entries + 36 * P + 8 * T + 12 + 16 * W_MAIN * H_MAIN
     fwd_bound = bound_ms(nbytes, pair_ops(fcounts.pairs, fcounts.taken))
     fwd_every_pair = bound_ms(nbytes, OPS_PER_PAIR * fcounts.pairs)[0]
+    fwd_occ = composite_fwd_occupancy(32, 32, dev.index)
     print(f"  kernel {fwd_ms:.4f} ms, plain {fwd_plain_ms:.2f} ms; pairs {fcounts.pairs}, taken "
           f"{fcounts.taken}, bytes {nbytes}: {fwd_bound[2]}; {fwd_every_pair:.4f} ms with every "
           f"evaluated pair at {OPS_PER_PAIR} operations")
+    print(f"  kernel at 32x32: {fcounts.units} (entry, 32-pixel unit) pairs with an open pixel "
+          f"in the entry's box, {fwd_occ['registers']} registers per thread, "
+          f"{fwd_occ['threads']} threads per block, {fwd_occ['blocks_per_sm']} resident blocks per SM")
     phase_done("4 render path")
 
     # ---- 5. train path ------------------------------------------------
@@ -630,10 +657,13 @@ def main():
           f"taken {taken}, blended {blended}, bytes {bwd_bytes}: {bwd_bound[2]}; "
           f"{bwd_every_pair:.4f} ms with every evaluated pair at {OPS_PER_PAIR} operations")
     print(f"  backward kernel at 32x32: {counts.band_entries} (entry, warp band) reductions, "
+          f"{counts.units} (entry, 32-pixel unit) pairs with an open pixel in the entry's box, "
           f"{bwd_occ['registers']} registers per thread, {bwd_occ['threads']} threads per block, "
           f"{bwd_occ['blocks_per_sm']} resident blocks per SM")
+    runs = cnt.cpu().numpy()
     print(f"  routing kernel {route_ms:.4f} ms, plain {route_plain_ms:.3f} ms, index_add_ "
-          f"{index_add_ms:.4f} ms; bytes {route_bytes}: {route_bound[2]}")
+          f"{index_add_ms:.4f} ms; bytes {route_bytes}: {route_bound[2]}; entries per Gaussian: "
+          f"max {runs.max()}, p99.9 {np.percentile(runs, 99.9):.1f}, median {np.median(runs):.0f}")
     phase_done("5 train path")
 
     # ---- 6. profiler path ---------------------------------------------

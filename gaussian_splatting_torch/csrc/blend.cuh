@@ -1,5 +1,7 @@
 // The per-(pixel, entry) blend arithmetic, shared by the forward kernel
-// (composite_fwd.cu) and the backward kernel (composite_bwd.cu).
+// (composite_fwd.cu) and the backward kernel (composite_bwd.cu), with the
+// two pieces of their layout that must agree: the entry's box (reach) and
+// the pixel a lane owns (unit_pixel).
 //
 // The backward replays the forward's decisions (skip, stop) from the same
 // inputs, so both must compute them from bit-identical values. nvcc would
@@ -51,5 +53,42 @@ __device__ __forceinline__ bool pair_alpha(float mx, float my, float a, float b,
 // The transmittance after blending a taken entry, T (1 - alpha); the pixel
 // stops, before blending the entry, if it is below kTEps.
 __device__ __forceinline__ float transmit(float T, float alpha) { return fmaf(-T, alpha, T); }
+
+// Half-width and half-height, in pixels, of the box outside which an entry
+// cannot be taken: where |px - mx| > reach.x or |py - my| > reach.y,
+// pair_alpha skips the pixel, so leaving the pair out changes nothing.
+// Taken needs op exp(-Q / 2) >= 1/255 with Q = a dx^2 + 2 b dx dy + c dy^2,
+// so Q <= t = 2 ln(255 op), and the ellipse Q <= t spans |dx| <= sqrt(t c /
+// det), |dy| <= sqrt(t a / det), det = a c - b^2. Widened for pair_alpha's
+// float rounding: its Q is off by less than 8 u kappa relative (u = 2^-24,
+// kappa <= (a + c)^2 / det bounds the conic's condition), here 16 u kappa +
+// 1e-3, plus 1e-3 on t and 0.01 pixel. A conic that is not positive
+// definite or not finite culls nothing (+inf); op below 1/255 culls every
+// pixel (-1). The plain twin is ops/composite.py::reach_box.
+__device__ __forceinline__ float2 reach(float a, float b, float c, float op) {
+  const double da = a, dc = c;
+  const double det = da * dc - static_cast<double>(b) * b;
+  if (!(a > 0.0f) || !(det > 0.0) || !(det < INFINITY)) return make_float2(INFINITY, INFINITY);
+  const double t = 2.0 * log(255.0 * static_cast<double>(op));
+  if (!(t > -1e-3)) return make_float2(-1.0f, -1.0f);  // also a NaN opacity, never taken
+  const double kappa = (da + dc) * (da + dc) / det;
+  const double tq = fmax(t, 0.0) * (1.0 + 1e-3 + 16.0 * 5.9604645e-8 * kappa) + 1e-3;
+  return make_float2(static_cast<float>(sqrt(tq * dc / det)) + 0.01f,
+                     static_cast<float>(sqrt(tq * da / det)) + 0.01f);
+}
+
+// The pixel (x, y inside the tile) of `lane` in unit k of `warp`, for a
+// block of 256 threads, each with kPix pixels. Warp w owns the band of
+// R = 32 / kUnitW rows from w R; its unit k is the kUnitW x R block at
+// column k kUnitW (8 x 4 at 32x32, 16 x 2 at 32x16 and 16x16), so that a
+// unit is compact: a splat's box misses it, or its pixels are all done,
+// more often than a 32-pixel row's. The plain twin is
+// ops/composite.py::unit_of_pixel.
+template <int TILE_W, int kPix>
+__device__ __forceinline__ int2 unit_pixel(int warp, int k, int lane) {
+  constexpr int kUnitW = TILE_W / kPix;
+  static_assert(TILE_W % kPix == 0 && 32 % kUnitW == 0, "a unit must be 32 pixels of whole rows");
+  return make_int2(k * kUnitW + lane % kUnitW, warp * (32 / kUnitW) + lane / kUnitW);
+}
 
 }  // namespace gs

@@ -31,11 +31,12 @@
 // Layout. One CTA of 256 threads per tile; each thread owns
 // TILE_W*TILE_H/256 pixels and keeps their T, prefix, TOTAL and cotangent
 // in registers. Warp w owns a band of whole rows (rows 4w..4w+3 at 32x32),
-// cut into 32-pixel units (8 x 4 blocks at 32x32, unit_pixel). Entries are
-// staged in shared memory 128 at a time with their fields and a box
-// (reach). Every row of every tile range is written exactly once; entries
-// past the block's exit (every pixel done) get zero rows. Fixed reduction
-// orders and no atomics: two runs give the same bits.
+// cut into 32-pixel units (8 x 4 blocks at 32x32, blend.cuh's unit_pixel,
+// as in the forward). Entries are staged in shared memory 128 at a time
+// with their fields and a box (blend.cuh's reach). Every row of every tile
+// range is written exactly once; entries past the block's exit (every
+// pixel done) get zero rows. Fixed reduction orders and no atomics: two
+// runs give the same bits.
 //
 // What bounds it on an H100. The pair work is the forward's (about 13
 // operations and an exp per pair that can be taken, a box test for the
@@ -65,12 +66,11 @@
 //     are not open, and one vote skips a unit with no open pixel; the rest
 //     of the pixel loop is branch-free (selects), measured faster than a
 //     branch at each skip or stop.
-//   - A transpose-reduce: the 9 per-lane sums are folded by recursive
-//     halving with __shfl_xor_sync. At each level a lane keeps half of its
-//     values and receives its partner's copy of that half, so 9 values
-//     take 5 + 3 + 2 + 1 + 1 = 12 shuffles and end spread over 9 fixed
-//     lanes (field_of_lane), which store them with one instruction. The
-//     warp vote still skips bands that blended nothing.
+//   - A transpose-reduce (warp_sum.cuh, shared with the routing kernel):
+//     the 9 per-lane sums are folded by recursive halving with
+//     __shfl_xor_sync in 12 shuffles, and end spread over 9 fixed lanes,
+//     which store them with one instruction. The warp vote still skips
+//     bands that blended nothing.
 //   - Moments of dpower per pixel (5 sums); the entry's conic turns them
 //     into d mean2d and d conic once per entry, in the flush.
 //   - The partials of a whole batch are flushed at the next batch's two
@@ -96,6 +96,7 @@
 #include <cuda_runtime.h>
 
 #include "blend.cuh"
+#include "warp_sum.cuh"
 
 namespace {
 
@@ -105,84 +106,7 @@ constexpr int kThreads = 256;
 constexpr int kMinBlocks = 3;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBatch = 128;  // entries staged per round; their partials fill s_part
-constexpr int kFields = 9;
-constexpr unsigned kFull = 0xffffffffu;
-
-// One level of the transpose-reduce: of the pair (lo, hi) a lower lane
-// keeps lo and an upper lane (lane & mask) keeps hi, each adding the
-// partner's copy of the value it keeps.
-__device__ __forceinline__ float fold(bool upper, float lo, float hi, int mask) {
-  return (upper ? hi : lo) + __shfl_xor_sync(kFull, upper ? lo : hi, mask);
-}
-
-// Sums each of the 9 fields over the warp in 12 shuffles. Returns, in
-// every lane, the warp's sum of field field_of_lane(lane); lanes for which
-// that is -1 return a sum of padding.
-__device__ __forceinline__ float warp_sum9(const float (&a)[kFields], int lane) {
-  static_assert(kFields == 9, "the halving schedule is written for 9 fields");
-  float v5[5], v3[3], v2[2];
-#pragma unroll
-  for (int i = 0; i < 5; ++i) v5[i] = fold(lane & 16, a[i], i + 5 < 9 ? a[i + 5] : 0.0f, 16);
-#pragma unroll
-  for (int i = 0; i < 3; ++i) v3[i] = fold(lane & 8, v5[i], i + 3 < 5 ? v5[i + 3] : 0.0f, 8);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) v2[i] = fold(lane & 4, v3[i], i + 2 < 3 ? v3[i + 2] : 0.0f, 4);
-  const float v = fold(lane & 2, v2[0], v2[1], 2);
-  return v + __shfl_xor_sync(kFull, v, 1);
-}
-
-// The field whose warp sum warp_sum9 leaves in `lane`, or -1: the halving
-// levels read backwards (sizes 9, 5, 3, 2 at masks 16, 8, 4, 2; an upper
-// lane keeps the second half). Odd lanes repeat their even neighbour and
-// are given -1, so exactly one lane owns each field.
-__device__ __forceinline__ int field_of_lane(int lane) {
-  if (lane & 1) return -1;
-  const int sizes[4] = {9, 5, 3, 2};
-  int pos = 0;
-#pragma unroll
-  for (int level = 3; level >= 0; --level) {
-    if (lane & (16 >> level)) {
-      pos += (sizes[level] + 1) / 2;
-      if (pos >= sizes[level]) return -1;
-    }
-  }
-  return pos;
-}
-
-// Half-width and half-height, in pixels, of the box outside which an entry
-// cannot be taken: where |px - mx| > reach.x or |py - my| > reach.y,
-// pair_alpha skips the pixel, so leaving the pair out changes nothing.
-// Taken needs op exp(-Q / 2) >= 1/255 with Q = a dx^2 + 2 b dx dy + c dy^2,
-// so Q <= t = 2 ln(255 op), and the ellipse Q <= t spans |dx| <= sqrt(t c /
-// det), |dy| <= sqrt(t a / det), det = a c - b^2. Widened for pair_alpha's
-// float rounding: its Q is off by less than 8 u kappa relative (u = 2^-24,
-// kappa <= (a + c)^2 / det bounds the conic's condition), here 16 u kappa +
-// 1e-3, plus 1e-3 on t and 0.01 pixel. A conic that is not positive
-// definite or not finite culls nothing (+inf); op below 1/255 culls every
-// pixel (-1).
-__device__ __forceinline__ float2 reach(float a, float b, float c, float op) {
-  const double da = a, dc = c;
-  const double det = da * dc - static_cast<double>(b) * b;
-  if (!(a > 0.0f) || !(det > 0.0) || !(det < INFINITY)) return make_float2(INFINITY, INFINITY);
-  const double t = 2.0 * log(255.0 * static_cast<double>(op));
-  if (!(t > -1e-3)) return make_float2(-1.0f, -1.0f);  // also a NaN opacity, never taken
-  const double kappa = (da + dc) * (da + dc) / det;
-  const double tq = fmax(t, 0.0) * (1.0 + 1e-3 + 16.0 * 5.9604645e-8 * kappa) + 1e-3;
-  return make_float2(static_cast<float>(sqrt(tq * dc / det)) + 0.01f,
-                     static_cast<float>(sqrt(tq * da / det)) + 0.01f);
-}
-
-// The pixel (x, y inside the tile) of `lane` in unit k of `warp`. Warp w
-// owns the band of R = 32 / kUnitW rows from w R (the band the per-entry
-// reduction sums over); its unit k is the kUnitW x R block at column
-// k kUnitW (8 x 4 at 32x32), so that a unit is compact: a splat's box
-// misses it, or its pixels are all done, more often than a 32-pixel row's.
-template <int TILE_W, int kPix>
-__device__ __forceinline__ int2 unit_pixel(int warp, int k, int lane) {
-  constexpr int kUnitW = TILE_W / kPix;
-  static_assert(TILE_W % kPix == 0 && 32 % kUnitW == 0, "a unit must be 32 pixels of whole rows");
-  return make_int2(k * kUnitW + lane % kUnitW, warp * (32 / kUnitW) + lane / kUnitW);
-}
+using gs::kFields;
 
 // Writes the rows of entries base .. base + n - 1 of the sorted list from
 // the warps' partials, summed in warp order. Fields 0-4 of a partial are
@@ -247,7 +171,7 @@ composite_bwd_kernel(const int* __restrict__ gauss_id,
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int my_field = field_of_lane(lane);
+  const int my_field = gs::field_of_lane(lane);
   const int tile = blockIdx.x;
   const int x0 = (tile % grid_x) * TILE_W;
   const int y0 = (tile / grid_x) * TILE_H;
@@ -258,7 +182,7 @@ composite_bwd_kernel(const int* __restrict__ gauss_id,
   bool done[kPix];
 #pragma unroll
   for (int k = 0; k < kPix; ++k) {
-    const int2 q = unit_pixel<TILE_W, kPix>(warp, k, lane);
+    const int2 q = gs::unit_pixel<TILE_W, kPix>(warp, k, lane);
     const int x = x0 + q.x;
     const int y = y0 + q.y;
     px[k] = static_cast<float>(x);
@@ -300,7 +224,7 @@ composite_bwd_kernel(const int* __restrict__ gauss_id,
                                     opacity[gid]);
       s_conic_op[cur][threadIdx.x] = co;
       s_rgb[threadIdx.x] = make_float4(rgb[3 * gid], rgb[3 * gid + 1], rgb[3 * gid + 2], 0.0f);
-      s_reach[threadIdx.x] = reach(co.x, co.y, co.z, co.w);
+      s_reach[threadIdx.x] = gs::reach(co.x, co.y, co.z, co.w);
     }
     __syncthreads();  // staged, and the flush's reads of s_part are over
 
@@ -320,7 +244,7 @@ composite_bwd_kernel(const int* __restrict__ gauss_id,
 #pragma unroll
       for (int k = 0; k < kPix; ++k) {
         const bool open = !(done[k] || fabsf(px[k] - mean.x) > box.x || fabsf(py[k] - mean.y) > box.y);
-        if (!__any_sync(kFull, open)) continue;
+        if (!__any_sync(gs::kFullMask, open)) continue;
         gs::Pair r;
         const bool taken =
             gs::pair_alpha(mean.x, mean.y, co.x, co.y, co.z, co.w, px[k], py[k], r) & open;
@@ -349,7 +273,7 @@ composite_bwd_kernel(const int* __restrict__ gauss_id,
         T[k] = blend ? test : T[k];
       }
       // zeros where no lane of the warp blended the entry
-      const float v = __any_sync(kFull, any) ? warp_sum9(acc, lane) : 0.0f;
+      const float v = __any_sync(gs::kFullMask, any) ? gs::warp_sum9(acc, lane) : 0.0f;
       if (my_field >= 0) s_part[j][warp][my_field] = v;
     }
     pending = n;
@@ -367,7 +291,7 @@ composite_bwd_kernel(const int* __restrict__ gauss_id,
   if (replay_t != nullptr) {
 #pragma unroll
     for (int k = 0; k < kPix; ++k) {
-      const int2 q = unit_pixel<TILE_W, kPix>(warp, k, lane);
+      const int2 q = gs::unit_pixel<TILE_W, kPix>(warp, k, lane);
       const int x = x0 + q.x;
       const int y = y0 + q.y;
       if (x < width && y < height) replay_t[static_cast<long long>(y) * width + x] = T[k];

@@ -19,24 +19,51 @@
 // empty tile gives bg and 1; pixels of edge tiles outside the image start
 // done and are not written, so any image size works.
 //
-// What bounds it on an H100: per evaluated (pixel, entry) pair about a
-// dozen FP32 operations and one exp (SFU), against ~40 B read per entry
-// (id + 9 fields) and 16 B written per pixel. At 67 TFLOP/s and 3.35 TB/s
-// an entry's bytes cost as much as ~60 pairs' operations, and each entry
-// is evaluated by up to all 1024 pixels of its 32x32 tile, so the kernel
-// is bound by FP32 instruction throughput and the SFU, not by bytes.
+// What bounds it on an H100: not bytes. Against ~40 B read per entry (id
+// + 9 fields) and 16 B written per pixel, each evaluated pair runs a few
+// dozen instructions (the quadratic form, an accurate expf, the alpha,
+// stop and blend tests, 3 FMAs, the vote) and one MUFU. The card issues
+// per warp, so a unit of 32 pixels costs all of it when any one of its
+// pixels is open (not done, inside the entry's box). Everything else
+// (staging, box tests, votes, barriers) takes 0.069 of its 0.378 ms (the
+// pair work taken out); the rest is about 74 issue slots per open unit at
+// the published boost clock, about twice its instructions: it waits on
+// each unit's chain of dependent operations, the exp among them, not on
+// issue, and not on the block's barriers (warps that stage their own
+// entries, with no barrier, were no faster).
 //
 // What the design does about it. One CTA of 256 threads per tile; each
-// thread owns TILE_W*TILE_H/256 pixels (4 at 32x32) and keeps their colour
-// and transmittance in registers, so every entry staged in shared memory is
-// loaded once per thread and reused for all of its pixels. Entries are
-// gathered by sorted id (one per thread, 256 per batch) into shared memory;
-// all threads then read the same entry (a broadcast, no bank conflicts).
-// Each pixel stops on its own, and the block leaves the loop once
-// __syncthreads_count shows every thread's pixels done, which is where a
-// trained scene saves most of its work. No atomics; every output element
-// is written once. Making it fast (fewer wasted lanes after divergence,
-// cheaper exp, batch culling) is later work.
+// thread owns TILE_W*TILE_H/256 pixels and keeps their colour and
+// transmittance in registers. The backward's layout (composite_bwd.cu),
+// through the same blend.cuh helpers: warp w owns a band of whole rows
+// (rows 4w..4w+3 at 32x32) cut into 32-pixel units (8 x 4 at 32x32,
+// unit_pixel), which a splat's box misses, or whose pixels are all done,
+// more often than 32-pixel rows. Entries are staged in shared memory 128
+// at a time with their box (reach); one warp vote skips a unit with no
+// open pixel, and the rest of the pixel loop is branch-free (selects). A
+// done pixel carries px = NaN, so the box test is its only test before
+// the vote and no flag is kept beside it, and the box test's dx is
+// pair_alpha's own. The cull skips only pairs that pair_alpha would skip,
+// and every pixel adds its entries in the same order with the same
+// arithmetic, so the outputs are the bits of the earlier row-per-warp
+// form. The block leaves once __syncthreads_count shows every pixel done.
+// No atomics; every output element is written once.
+//
+// Timed against its alternatives at the render path's inputs (scratch
+// copies of this file, not kept; NVIDIA H100 80GB HBM3, 700 W; PERF.md):
+// the earlier form (32-pixel rows, no cull) 0.574 ms; units, box cull and
+// votes with done flags and 256 entries a batch 0.447; this form 0.378.
+// Tried and lost: no box cull (units voted on done pixels only) 0.516; a
+// band test per (entry, warp) before the units 0.463 (a branch around the
+// unit loop); per-warp lists of the entries whose box meets the band
+// 0.400; one vote per entry for all 4 units 0.400; warps staging their own
+// 32 or 64 entries 0.391-0.392; 5 resident blocks asked of
+// __launch_bounds__ (51 registers) 0.402; reach in float32 0.391; 256 or 64
+// entries a batch, 2 to 4 blocks, two entries unrolled, w = 0 for pairs not
+// blended: 0.376-0.386.
+//
+// gs_composite_fwd_unculled runs the same kernel with every entry's box
+// infinite (no cull): a check, on no path, that the cull changes no bit.
 //
 // The TPU kernel's means (pixels on sublanes, MXU triangular-matmul prefix
 // scans, bf16 operand splits, log-space transmittance, the visit grid) are
@@ -45,13 +72,15 @@
 #include <cuda_runtime.h>
 
 #include "blend.cuh"
+#include "warp_sum.cuh"  // gs::kFullMask
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBatch = kThreads;  // entries staged per round: one per thread
+constexpr int kBatch = 128;  // entries staged per round
 
-template <int TILE_W, int TILE_H>
+// kCull false stages an infinite box for every entry: the same blend with no cull.
+template <int TILE_W, int TILE_H, bool kCull>
 __global__ void __launch_bounds__(kThreads)
 composite_fwd_kernel(const int* __restrict__ gauss_id,
                      const int* __restrict__ tile_start,
@@ -65,70 +94,83 @@ composite_fwd_kernel(const int* __restrict__ gauss_id,
                      float* __restrict__ final_t,
                      int width, int height, int grid_x) {
   static_assert((TILE_W * TILE_H) % kThreads == 0, "tile must split evenly over the block");
+  static_assert(kBatch <= kThreads, "one thread stages each entry of a batch");
   constexpr int kPix = TILE_W * TILE_H / kThreads;  // pixels per thread
 
   __shared__ float2 s_mean[kBatch];
   __shared__ float4 s_conic_op[kBatch];  // a, b, c, opacity
   __shared__ float4 s_rgb[kBatch];       // r, g, b, unused
+  __shared__ float2 s_reach[kBatch];     // reach of each entry
 
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
   const int tile = blockIdx.x;
   const int x0 = (tile % grid_x) * TILE_W;
   const int y0 = (tile / grid_x) * TILE_H;
   const int start = tile_start[tile];
   const int stop = tile_stop[tile];
 
+  // A pixel that is done (stopped, or outside the image) has px = NaN:
+  // its box test then fails, so no flag needs to be kept beside it.
   float px[kPix], py[kPix], T[kPix], C[kPix][3];
-  bool done[kPix];
 #pragma unroll
   for (int k = 0; k < kPix; ++k) {
-    const int p = threadIdx.x + k * kThreads;  // row-major inside the tile
-    const int x = x0 + p % TILE_W;
-    const int y = y0 + p / TILE_W;
-    px[k] = static_cast<float>(x);
+    const int2 q = gs::unit_pixel<TILE_W, kPix>(warp, k, lane);
+    const int x = x0 + q.x;
+    const int y = y0 + q.y;
+    px[k] = x >= width || y >= height ? NAN : static_cast<float>(x);
     py[k] = static_cast<float>(y);
     T[k] = 1.0f;
     C[k][0] = C[k][1] = C[k][2] = 0.0f;
-    done[k] = x >= width || y >= height;
   }
 
   for (int base = start; base < stop; base += kBatch) {
     bool all_done = true;
 #pragma unroll
-    for (int k = 0; k < kPix; ++k) all_done = all_done && done[k];
+    for (int k = 0; k < kPix; ++k) all_done = all_done && isnan(px[k]);
     // Also the barrier that keeps the previous batch's shared memory alive
     // until every thread has finished reading it.
     if (__syncthreads_count(all_done) == kThreads) break;
 
     const int e = base + threadIdx.x;
-    if (e < stop) {
+    if (threadIdx.x < kBatch && e < stop) {
       const int g = gauss_id[e];
       s_mean[threadIdx.x] = means2d[g];
-      s_conic_op[threadIdx.x] =
-          make_float4(conic[3 * g], conic[3 * g + 1], conic[3 * g + 2], opacity[g]);
+      const float4 co = make_float4(conic[3 * g], conic[3 * g + 1], conic[3 * g + 2], opacity[g]);
+      s_conic_op[threadIdx.x] = co;
       s_rgb[threadIdx.x] = make_float4(rgb[3 * g], rgb[3 * g + 1], rgb[3 * g + 2], 0.0f);
+      s_reach[threadIdx.x] = kCull ? gs::reach(co.x, co.y, co.z, co.w)
+                                   : make_float2(INFINITY, INFINITY);
     }
     __syncthreads();
 
     const int n = min(kBatch, stop - base);
     for (int j = 0; j < n; ++j) {
-      const float2 m = s_mean[j];
+      const float2 mean = s_mean[j];
       const float4 co = s_conic_op[j];
+      const float4 c = s_rgb[j];
+      const float2 box = s_reach[j];
+      // Branch-free but for one vote per unit: a unit with no open pixel
+      // (stopped or outside the box) is skipped; in the others every lane
+      // runs the pair and keeps what a blended pair adds.
 #pragma unroll
       for (int k = 0; k < kPix; ++k) {
-        if (done[k]) continue;
+        // pair_alpha's own dx, dy: not open where px is NaN (done)
+        const bool open = fabsf(__fsub_rn(mean.x, px[k])) <= box.x &&
+                          fabsf(__fsub_rn(mean.y, py[k])) <= box.y;
+        if (!__any_sync(gs::kFullMask, open)) continue;
         gs::Pair r;
-        if (!gs::pair_alpha(m.x, m.y, co.x, co.y, co.z, co.w, px[k], py[k], r)) continue;
+        const bool taken =
+            gs::pair_alpha(mean.x, mean.y, co.x, co.y, co.z, co.w, px[k], py[k], r) & open;
         const float test = gs::transmit(T[k], r.alpha);
-        if (test < gs::kTEps) {
-          done[k] = true;
-          continue;
-        }
-        const float4 c = s_rgb[j];
+        const bool stops = taken & (test < gs::kTEps);
+        const bool blend = taken & !stops;
+        px[k] = stops ? NAN : px[k];
         const float w = r.alpha * T[k];
-        C[k][0] += c.x * w;
-        C[k][1] += c.y * w;
-        C[k][2] += c.z * w;
-        T[k] = test;
+        C[k][0] = blend ? C[k][0] + c.x * w : C[k][0];
+        C[k][1] = blend ? C[k][1] + c.y * w : C[k][1];
+        C[k][2] = blend ? C[k][2] + c.z * w : C[k][2];
+        T[k] = blend ? test : T[k];
       }
     }
   }
@@ -136,9 +178,9 @@ composite_fwd_kernel(const int* __restrict__ gauss_id,
   const float b0 = bg[0], b1 = bg[1], b2 = bg[2];
 #pragma unroll
   for (int k = 0; k < kPix; ++k) {
-    const int p = threadIdx.x + k * kThreads;
-    const int x = x0 + p % TILE_W;
-    const int y = y0 + p / TILE_W;
+    const int2 q = gs::unit_pixel<TILE_W, kPix>(warp, k, lane);
+    const int x = x0 + q.x;
+    const int y = y0 + q.y;
     if (x >= width || y >= height) continue;
     const long long pix = static_cast<long long>(y) * width + x;
     image[3 * pix + 0] = C[k][0] + T[k] * b0;
@@ -148,20 +190,55 @@ composite_fwd_kernel(const int* __restrict__ gauss_id,
   }
 }
 
-template <int TILE_W, int TILE_H>
+template <int TILE_W, int TILE_H, bool kCull>
 cudaError_t launch(const void* gauss_id, const void* tile_start, const void* tile_stop,
                    const void* means2d, const void* conic, const void* rgb,
                    const void* opacity, const void* bg, void* image, void* final_t,
                    int width, int height, cudaStream_t stream) {
   const int grid_x = (width + TILE_W - 1) / TILE_W;
   const int grid_y = (height + TILE_H - 1) / TILE_H;
-  composite_fwd_kernel<TILE_W, TILE_H><<<grid_x * grid_y, kThreads, 0, stream>>>(
+  composite_fwd_kernel<TILE_W, TILE_H, kCull><<<grid_x * grid_y, kThreads, 0, stream>>>(
       static_cast<const int*>(gauss_id), static_cast<const int*>(tile_start),
       static_cast<const int*>(tile_stop), static_cast<const float2*>(means2d),
       static_cast<const float*>(conic), static_cast<const float*>(rgb),
       static_cast<const float*>(opacity), static_cast<const float*>(bg),
       static_cast<float*>(image), static_cast<float*>(final_t), width, height, grid_x);
   return cudaGetLastError();
+}
+
+template <int TILE_W, int TILE_H>
+cudaError_t occupancy(int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, composite_fwd_kernel<TILE_W, TILE_H, true>);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, composite_fwd_kernel<TILE_W, TILE_H, true>, kThreads, 0);
+  out[0] = attr.numRegs;
+  out[1] = kThreads;
+  out[2] = blocks;
+  return err;
+}
+
+template <bool kCull>
+int launch_geometry(const void* gauss_id, const void* tile_start, const void* tile_stop,
+                    const void* means2d, const void* conic, const void* rgb, const void* opacity,
+                    const void* bg, void* image, void* final_t, int width, int height,
+                    int tile_w, int tile_h, int device, void* stream) {
+  if (width <= 0 || height <= 0) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (tile_w == 32 && tile_h == 32)
+    return launch<32, 32, kCull>(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
+                                 bg, image, final_t, width, height, s);
+  if (tile_w == 32 && tile_h == 16)
+    return launch<32, 16, kCull>(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
+                                 bg, image, final_t, width, height, s);
+  if (tile_w == 16 && tile_h == 16)
+    return launch<16, 16, kCull>(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
+                                 bg, image, final_t, width, height, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -178,19 +255,31 @@ extern "C" int gs_composite_fwd(const void* gauss_id, const void* tile_start,
                                 const void* bg, void* image, void* final_t, int width,
                                 int height, int tile_w, int tile_h, int device,
                                 void* stream) {
-  if (width <= 0 || height <= 0) return cudaErrorInvalidValue;
+  return launch_geometry<true>(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity, bg,
+                               image, final_t, width, height, tile_w, tile_h, device, stream);
+}
+
+// The same with no box cull, arguments as gs_composite_fwd: its outputs
+// must equal gs_composite_fwd's bit for bit.
+extern "C" int gs_composite_fwd_unculled(const void* gauss_id, const void* tile_start,
+                                         const void* tile_stop, const void* means2d,
+                                         const void* conic, const void* rgb,
+                                         const void* opacity, const void* bg, void* image,
+                                         void* final_t, int width, int height, int tile_w,
+                                         int tile_h, int device, void* stream) {
+  return launch_geometry<false>(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
+                                bg, image, final_t, width, height, tile_w, tile_h, device, stream);
+}
+
+// Fills out[0..2] with the kernel's registers per thread, threads per
+// block and resident blocks per SM on device `device`, for a tile geometry
+// as above; returns the cudaError_t.
+extern "C" int gs_composite_fwd_occupancy(int tile_w, int tile_h, int device, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (tile_w == 32 && tile_h == 32)
-    return launch<32, 32>(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity, bg,
-                          image, final_t, width, height, s);
-  if (tile_w == 32 && tile_h == 16)
-    return launch<32, 16>(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity, bg,
-                          image, final_t, width, height, s);
-  if (tile_w == 16 && tile_h == 16)
-    return launch<16, 16>(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity, bg,
-                          image, final_t, width, height, s);
+  if (tile_w == 32 && tile_h == 32) return occupancy<32, 32>(out);
+  if (tile_w == 32 && tile_h == 16) return occupancy<32, 16>(out);
+  if (tile_w == 16 && tile_h == 16) return occupancy<16, 16>(out);
   return cudaErrorInvalidValue;
 }
 

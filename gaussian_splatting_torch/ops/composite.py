@@ -23,6 +23,9 @@ Functions:
     forward's decisions.
   - `route_grads_torch`: the plain version of the routing kernel, the sum
     of each Gaussian's entry rows.
+  - `reach_box`, `unit_of_pixel`: the plain twins of the kernels' entry box
+    and pixel units (csrc/blend.cuh), and `blend_pair_counts`, the work
+    the kernels do on given inputs.
   - `render_bruteforce`: the oracle ("reference" backend). It composites
     every visible Gaussian against every pixel in global depth order, with
     the same rect-overlap rule as the tiled path. Small scenes only.
@@ -79,6 +82,43 @@ def _pair(gid, means2d, conic, opacity, px, py, trans):
     return dx, dy, g, raw, alpha, taken, test
 
 
+def reach_box(conic: torch.Tensor, opacity: torch.Tensor) -> torch.Tensor:
+    """The plain twin of the kernels' `reach` (csrc/blend.cuh), in float64:
+    per Gaussian, (N, 2) float32 half-width and half-height in pixels of the
+    box outside which the blend cannot take it (op exp(-Q/2) >= 1/255 needs
+    Q <= t = 2 ln(255 op); the ellipse Q <= t spans |dx| <= sqrt(t c / det),
+    |dy| <= sqrt(t a / det)). Widened for the float32 rounding of the pair
+    arithmetic by 16 u kappa + 1e-3 on t (kappa = (a + c)^2 / det), 1e-3
+    and 0.01 pixel. +inf where the conic is not positive definite or not
+    finite (no cull); -1 where op < 1/255 (every pixel culled)."""
+    a32 = conic[:, 0]
+    a, b, c = (conic[:, i].double() for i in range(3))
+    det = a * c - b * b
+    t = 2.0 * torch.log(255.0 * opacity.double())
+    kappa = (a + c) * (a + c) / det
+    tq = torch.clamp_min(t, 0.0) * (1.0 + 1e-3 + 16.0 * 5.9604645e-8 * kappa) + 1e-3
+    box = torch.stack([torch.sqrt(tq * c / det), torch.sqrt(tq * a / det)], 1).float() + 0.01
+    box = torch.where(~(t > -1e-3)[:, None], torch.full_like(box, -1.0), box)
+    no_cull = ~(a32 > 0.0) | ~(det > 0.0) | ~(det < float("inf"))
+    return torch.where(no_cull[:, None], torch.full_like(box, float("inf")), box)
+
+
+def unit_of_pixel(tile_w: int, tile_h: int, threads: int = 256) -> torch.Tensor:
+    """The plain twin of the kernels' `unit_pixel` (csrc/blend.cuh): for
+    each pixel of a tile in row-major order, (tile_w * tile_h,) int64, the
+    32-pixel unit it belongs to, numbered warp * kPix + k. A block of
+    `threads` threads gives each kPix pixels; warp w owns rows w R .. w R +
+    R - 1 (R = 32 / kUnitW, kUnitW = tile_w / kPix), and its unit k is the
+    kUnitW x R block at column k kUnitW."""
+    k_pix = tile_w * tile_h // threads
+    unit_w = tile_w // k_pix
+    if k_pix * threads != tile_w * tile_h or unit_w * k_pix != tile_w or 32 % unit_w:
+        raise ValueError(f"a {tile_w}x{tile_h} tile does not cut into 32-pixel units")
+    p = torch.arange(tile_w * tile_h)
+    x, y = p % tile_w, p // tile_w
+    return (y // (32 // unit_w)) * k_pix + x // unit_w
+
+
 def _entry_positions(gauss_id, tile_start, tile_stop):
     """Yields, for each entry position j of the longest tile list, the
     tiles that have an entry there (T,) bool, that entry's sorted index
@@ -98,39 +138,48 @@ def _blend_tiles(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
                  width: int, height: int, tile_w: int, tile_h: int,
                  warps: Optional[int] = None):
     """Per-tile blend. Returns acc (T, TPX, 3) before background, final
-    transmittance (T, TPX), and () int64 counts of the work: the (pixel,
-    entry) pairs evaluated (for each pixel, those up to and including the
-    one it stopped at), of those the pairs taken (alpha >= 1/255) and the
-    pairs blended, and, given the backward kernel's `warps`, the (entry,
-    warp band) pairs in which some pixel of the band (a tile's pixels in
-    row-major order cut into `warps` equal runs) blended the entry."""
+    transmittance (T, TPX), and (5,) int64 counts of the work, zero unless
+    the backward kernel's `warps` is given: the (pixel, entry) pairs
+    evaluated (for each pixel, those up to and including the one it
+    stopped at), of those the pairs taken (alpha >= 1/255) and the pairs
+    blended; the (entry, warp
+    band) pairs in which some pixel of the band (a tile's pixels in
+    row-major order cut into `warps` equal runs) blended the entry; and the
+    (entry, unit) pairs in which some pixel of the 32-pixel unit
+    (`unit_of_pixel`) was open: not done and inside the entry's box
+    (`reach_box`), the units the kernels evaluate."""
     dev = means2d.device
     px, py, done = _tile_pixels(width, height, tile_w, tile_h, dev)
     trans = torch.ones(px.shape, dtype=torch.float32, device=dev)
     acc = torch.zeros(px.shape + (3,), dtype=torch.float32, device=dev)
-    n_eval, n_taken, n_blend, band = (torch.zeros((), dtype=torch.int64, device=dev)
-                                      for _ in range(4))
+    counts = torch.zeros(5, dtype=torch.int64, device=dev)
     T = px.shape[0]
+    if warps is not None:
+        box = reach_box(conic, opacity)
+        by_unit = torch.argsort(unit_of_pixel(tile_w, tile_h), stable=True).to(dev)
 
     for j, has, _, gid in _entry_positions(gauss_id, tile_start, tile_stop):
         # Leave once no pixel of any tile with entries left is still open.
         if j % 32 == 0 and not bool((has[:, None] & ~done).any()):
             break
         live = has[:, None] & ~done
-        n_eval += live.sum()
-        _, _, _, _, alpha, taken, test = _pair(gid, means2d, conic, opacity, px, py, trans)
+        dx, dy, _, _, alpha, taken, test = _pair(gid, means2d, conic, opacity, px, py, trans)
+        if warps is not None:
+            inside = (dx.abs() <= box[gid, 0][:, None]) & (dy.abs() <= box[gid, 1][:, None])
+            counts[0] += live.sum()
+            counts[1] += (live & taken).sum()
+            counts[4] += (live & inside)[:, by_unit].reshape(T, -1, 32).any(dim=-1).sum()
         live = live & taken
-        n_taken += live.sum()
         stop = live & (test < T_EPS)
         done = done | stop
         live = live & ~stop
-        n_blend += live.sum()
         if warps is not None:
-            band += live.reshape(T, warps, -1).any(dim=-1).sum()
+            counts[2] += live.sum()
+            counts[3] += live.reshape(T, warps, -1).any(dim=-1).sum()
         w = torch.where(live, alpha * trans, torch.zeros_like(trans))
         acc = acc + rgb[gid][:, None, :] * w[..., None]
         trans = torch.where(live, test, trans)
-    return acc, trans, n_eval, n_taken, n_blend, band
+    return acc, trans, counts
 
 
 def _untile(x: torch.Tensor, width: int, height: int, tile_w: int, tile_h: int):
@@ -163,8 +212,8 @@ def composite_fwd_torch(gauss_id, tile_start, tile_stop, means2d, conic, rgb, op
     means2d (P,2), conic (P,3), rgb (P,3), opacity (P,), bg (3,) float32.
     Returns image (H, W, 3) and final_t (H, W).
     """
-    acc, trans = _blend_tiles(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
-                              width, height, tile_w, tile_h)[:2]
+    acc, trans, _ = _blend_tiles(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
+                                 width, height, tile_w, tile_h)
     out = acc + trans[..., None] * bg
     return CompositeOut(
         image=_untile(out, width, height, tile_w, tile_h),
@@ -177,6 +226,7 @@ class PairCounts(NamedTuple):
     taken: int  # of those, the pairs with alpha >= 1/255 (blended, or the one a pixel stops at)
     blended: int  # of those, the pairs blended
     band_entries: int  # (entry, warp band) pairs in which some pixel blended the entry
+    units: int  # (entry, 32-pixel unit) pairs with an open pixel inside the entry's box
 
 
 def blend_pair_counts(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
@@ -185,12 +235,15 @@ def blend_pair_counts(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opac
     """The work that bounds the compositing kernels, on these inputs: the
     (pixel, entry) pairs the blend evaluates (for every pixel, its tile's
     entries up to and including the one it stopped at), the pairs it takes
-    and the pairs it blends, and the (entry, warp band) pairs in which at
-    least one pixel blended the entry, where a tile's pixels in row-major
-    order are split evenly over `warps` warps as the backward kernel splits
-    them (each is one per-entry reduction over a warp in that kernel)."""
+    and the pairs it blends; the (entry, warp band) pairs in which at least
+    one pixel blended the entry, where a tile's pixels in row-major order
+    are split evenly over `warps` warps as the backward kernel splits them
+    (each is one per-entry reduction over a warp in that kernel); and the
+    (entry, unit) pairs that both kernels evaluate: the 32-pixel units of
+    `unit_of_pixel` with a pixel that is not done and lies inside the
+    entry's `reach_box` (a unit without one is skipped by a warp vote)."""
     counts = _blend_tiles(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
-                          width, height, tile_w, tile_h, warps=warps)[2:]
+                          width, height, tile_w, tile_h, warps=warps)[2]
     return PairCounts(*(int(c) for c in counts))
 
 

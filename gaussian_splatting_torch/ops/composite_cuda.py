@@ -87,9 +87,8 @@ def _check_scene(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
     return dev
 
 
-def composite_fwd_cuda(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
-                       bg, width: int, height: int, tile_w: int, tile_h: int) -> CompositeOut:
-    """Launch the forward kernel on CUDA tensors; arguments as `composite_fwd_torch`."""
+def _fwd_launch(function, gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity, bg,
+                width, height, tile_w, tile_h) -> CompositeOut:
     dev = _check_scene(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
                        width, height, tile_w, tile_h)
     _check("bg", bg, torch.float32, (3,), dev)
@@ -97,10 +96,30 @@ def composite_fwd_cuda(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opa
     final_t = torch.empty((height, width), dtype=torch.float32, device=dev)
     ptrs = [t.data_ptr() for t in (gauss_id, tile_start, tile_stop, means2d, conic, rgb,
                                    opacity, bg, image, final_t)]
-    _launch("composite_fwd", *ptrs, width, height, tile_w, tile_h, dev.index,
-            torch.cuda.current_stream(dev).cuda_stream)
-    composite_fwd.launches += 1
+    cuda_build.launch("composite_fwd", function, _ARGTYPES["composite_fwd"], *ptrs, width,
+                      height, tile_w, tile_h, dev.index, torch.cuda.current_stream(dev).cuda_stream)
     return CompositeOut(image=image, final_t=final_t)
+
+
+def composite_fwd_cuda(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
+                       bg, width: int, height: int, tile_w: int, tile_h: int) -> CompositeOut:
+    """Launch the forward kernel on CUDA tensors; arguments as `composite_fwd_torch`."""
+    out = _fwd_launch("gs_composite_fwd", gauss_id, tile_start, tile_stop, means2d, conic, rgb,
+                      opacity, bg, width, height, tile_w, tile_h)
+    composite_fwd.launches += 1
+    return out
+
+
+def composite_fwd_unculled_cuda(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
+                                bg, width: int, height: int, tile_w: int,
+                                tile_h: int) -> CompositeOut:
+    """The forward kernel with its box cull off (every entry's box
+    infinite), on CUDA tensors; arguments as `composite_fwd_torch`. A check
+    of the cull, which may leave out only pairs the blend skips: the outputs
+    must equal `composite_fwd_cuda`'s bit for bit. No path runs it, so it
+    counts no launch."""
+    return _fwd_launch("gs_composite_fwd_unculled", gauss_id, tile_start, tile_stop, means2d,
+                       conic, rgb, opacity, bg, width, height, tile_w, tile_h)
 
 
 def composite_bwd_cuda(gauss_id, tile_start, tile_stop, entry_src, means2d, conic, rgb,
@@ -148,6 +167,13 @@ def route_grads_cuda(rows, gauss_offset, gauss_count, num_points: int) -> torch.
             out.data_ptr(), num_points, dev.index, torch.cuda.current_stream(dev).cuda_stream)
     route_grads.launches += 1
     return out
+
+
+def composite_fwd_occupancy(tile_w: int, tile_h: int, device: int = 0) -> dict:
+    """The forward kernel's registers per thread, threads per block and
+    resident blocks per SM for a tile geometry, on CUDA device `device`."""
+    return cuda_build.occupancy("composite_fwd", "gs_composite_fwd_occupancy", tile_w, tile_h,
+                                device)
 
 
 def composite_bwd_occupancy(tile_w: int, tile_h: int, device: int = 0) -> dict:

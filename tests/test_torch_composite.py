@@ -147,3 +147,103 @@ def test_wrapper_uses_plain_version_on_cpu():
         composite_fwd_cuda(*args)
     with pytest.raises(ValueError, match="unsupported"):
         composite_fwd_cuda(*args[:-2], 8, 8)
+
+
+def assert_taken_inside_box(gid, means2d, conic, opacity, px, py):
+    """Every pair the blend takes lies inside its Gaussian's `reach_box`:
+    the kernels' cull leaves out only pairs the blend would skip."""
+    box = composite.reach_box(conic, opacity)
+    dx, dy, _, _, _, taken, _ = composite._pair(gid, means2d, conic, opacity, px, py,
+                                                torch.ones(()))
+    inside = (dx.abs() <= box[gid, 0][:, None]) & (dy.abs() <= box[gid, 1][:, None])
+    assert bool((inside | ~taken).all())
+    return int(taken.sum())
+
+
+@pytest.mark.parametrize("tile", [(32, 32), (32, 16), (16, 16)])
+def test_taken_pairs_lie_inside_their_box(tile):
+    W, H = 64, 48
+    _, prep, lists, _ = setup(W, H, tile, P=300, seed=9, spread=0.3, scale_mu=-1.8)
+    px, py, _ = composite._tile_pixels(W, H, *tile, "cpu")
+    n_taken = 0
+    for _, has, _, gid in composite._entry_positions(lists.gauss_id, lists.tile_start,
+                                                    lists.tile_stop):
+        n_taken += assert_taken_inside_box(gid[has], prep.means2d, prep.conic, prep.opacity,
+                                           px[has], py[has])
+    assert n_taken > 10_000
+
+
+def test_taken_pairs_of_near_singular_conics_lie_inside_their_box():
+    # Splats thin as a line (correlation up to 1 - 1e-7, where the float32
+    # conic's determinant is all rounding), against every pixel of the image.
+    rng = np.random.default_rng(4)
+    N, W, H = 240, 64, 48
+    sigma = rng.uniform(0.5, 15.0, (N, 2))
+    rho = rng.choice([0.9, -0.999, 0.99999, -0.9999999], N)
+    det = (sigma[:, 0] * sigma[:, 1]) ** 2 * (1 - rho ** 2)
+    conic = np.stack([sigma[:, 1] ** 2, -rho * sigma[:, 0] * sigma[:, 1], sigma[:, 0] ** 2], 1)
+    means2d = torch.tensor(rng.uniform([-4, -4], [W + 4, H + 4], (N, 2)), dtype=torch.float32)
+    conic = torch.tensor(conic / det[:, None], dtype=torch.float32)
+    opacity = torch.tensor(rng.uniform(0.02, 1.0, N), dtype=torch.float32)
+    y, x = torch.meshgrid(torch.arange(H, dtype=torch.float32),
+                          torch.arange(W, dtype=torch.float32), indexing="ij")
+    gid = torch.arange(N)
+    assert assert_taken_inside_box(gid, means2d, conic, opacity, x.reshape(1, -1),
+                                   y.reshape(1, -1)) > 1_000
+    box = composite.reach_box(conic, opacity)
+    assert bool(torch.isfinite(box).any()) and bool((box[:, 0] < W / 2).any())  # some cull
+
+
+@pytest.mark.parametrize("tile", [(32, 32), (32, 16), (16, 16)])
+def test_units_are_compact_blocks_of_32(tile):
+    unit = composite.unit_of_pixel(*tile)
+    k_pix = tile[0] * tile[1] // 256
+    assert sorted(torch.bincount(unit).tolist()) == [32] * (8 * k_pix)
+    p = torch.arange(tile[0] * tile[1])
+    x, y = p % tile[0], p // tile[0]
+    for u in range(8 * k_pix):
+        xs, ys = x[unit == u], y[unit == u]
+        w, h = int(xs.max() - xs.min()) + 1, int(ys.max() - ys.min()) + 1
+        assert w * h == 32 and w == tile[0] // k_pix  # a full kUnitW x R block
+
+
+def brute_force_units(prep, lists, W, H, tile):
+    """(entry, unit) pairs with an open pixel inside the entry's box, and
+    those with any open pixel, tile by tile and entry by entry, with the
+    units taken from the kernels' unit_pixel formula lane by lane."""
+    px, py, outside = composite._tile_pixels(W, H, *tile, "cpu")
+    box = composite.reach_box(prep.conic, prep.opacity)
+    k_pix = tile[0] * tile[1] // 256
+    unit_w = tile[0] // k_pix
+    units = [[(w * (32 // unit_w) + lane // unit_w) * tile[0] + k * unit_w + lane % unit_w
+              for lane in range(32)] for w in range(8) for k in range(k_pix)]
+    in_box = any_open = 0
+    for t in range(px.shape[0]):
+        done, trans = outside[t].clone(), torch.ones(px.shape[1])
+        for s in range(int(lists.tile_start[t]), int(lists.tile_stop[t])):
+            g = lists.gauss_id[s:s + 1].long()
+            dx, dy, _, _, _, taken, test = composite._pair(
+                g, prep.means2d, prep.conic, prep.opacity, px[t:t + 1], py[t:t + 1], trans[None])
+            inside = (dx[0].abs() <= box[g, 0]) & (dy[0].abs() <= box[g, 1])
+            for u in units:
+                in_box += bool((~done[u] & inside[u]).any())
+                any_open += bool((~done[u]).any())
+            live = ~done & taken[0]
+            stop = live & (test[0] < composite.T_EPS)
+            done = done | stop
+            trans = torch.where(live & ~stop, test[0], trans)
+    return in_box, any_open
+
+
+@pytest.mark.parametrize("W,H,tile,scene", [
+    (64, 48, (16, 16), dict(P=300, seed=9, spread=0.3, scale_mu=-1.8)),
+    (61, 47, (32, 32), dict(P=200, seed=0)),
+    (64, 48, (32, 16), dict(P=300, seed=9, spread=0.3, scale_mu=-1.8)),
+])
+def test_unit_counts_match_a_brute_force(W, H, tile, scene):
+    _, prep, lists, _ = setup(W, H, tile, **scene)
+    c = composite.blend_pair_counts(lists.gauss_id, lists.tile_start, lists.tile_stop,
+                                    prep.means2d, prep.conic, prep.rgb, prep.opacity, W, H, *tile)
+    in_box, any_open = brute_force_units(prep, lists, W, H, tile)
+    assert c.units == in_box
+    assert 0 < c.units < any_open  # the box culls some units that have open pixels

@@ -32,7 +32,8 @@ from gaussian_splatting_torch.ops.composite import (
 )
 from gaussian_splatting_torch.ops.composite_cuda import (
     TILE_GEOMETRIES, composite_bwd, composite_bwd_cuda, composite_bwd_occupancy, composite_fwd,
-    composite_fwd_cuda, route_grads, route_grads_cuda,
+    composite_fwd_cuda, composite_fwd_occupancy, composite_fwd_unculled_cuda, route_grads,
+    route_grads_cuda,
 )
 from gaussian_splatting_torch.ops.projection import preprocess
 from gaussian_splatting_torch.ops.rasterize import RasterizerConfig
@@ -259,11 +260,125 @@ def test_backward_on_ragged_tiles_repeats_bit_for_bit(tile):
     assert_grads_close(first, composite_bwd_torch(*args))
 
 
+@pytest.mark.parametrize("tile", TILE_GEOMETRIES)
+def test_forward_on_ragged_tiles_repeats_bit_for_bit(tile):
+    # Units of 8x4 or 16x2 pixels, the box cull and the block exit on
+    # ragged lists; edge pixels outside the 75x53 image start done and are
+    # not written.
+    dev = cuda_device()
+    W, H = 75, 53
+    ids, start, stop, _, means2d, conic, rgb, opacity = ragged_scene(dev, W, H, tile, seed=7)
+    args = (ids, start, stop, means2d, conic, rgb, opacity,
+            torch.tensor([0.1, 0.2, 0.3], device=dev), W, H, *tile)
+    first = composite_fwd_cuda(*args)
+    runs = [composite_fwd_cuda(*args) for _ in range(200)]
+    torch.cuda.synchronize()
+    assert float(first.final_t.min()) < 1e-3  # the opaque lists saturate: some blocks exit early
+    assert all(torch.equal(first.image, r.image) and torch.equal(first.final_t, r.final_t)
+               for r in runs)
+    assert_close(first, composite_fwd_torch(*args))
+
+
+def thin_splats_everywhere(dev, W, H, tile, seed):
+    """Every tile lists the same N splats, thin as a line (correlation up to
+    1 - 1e-7, where the float32 conic's determinant is all rounding), of
+    every opacity from 1/255 up: the box cull at its edge cases."""
+    rng = np.random.default_rng(seed)
+    N = 160
+    sigma = rng.uniform(0.5, 15.0, (N, 2))
+    rho = rng.choice([0.0, 0.9, -0.999, 0.99999, -0.9999999], N)
+    det = (sigma[:, 0] * sigma[:, 1]) ** 2 * (1 - rho ** 2)
+    conic = np.stack([sigma[:, 1] ** 2, -rho * sigma[:, 0] * sigma[:, 1], sigma[:, 0] ** 2], 1)
+    num_tiles = -(-W // tile[0]) * -(-H // tile[1])
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    return (torch.arange(N, **i32).repeat(num_tiles), torch.arange(num_tiles, **i32) * N,
+            torch.arange(1, num_tiles + 1, **i32) * N,
+            torch.tensor(rng.uniform([-4, -4], [W + 4, H + 4], (N, 2)), **f32),
+            torch.tensor(conic / det[:, None], **f32), torch.tensor(rng.uniform(0, 1, (N, 3)), **f32),
+            torch.tensor(rng.uniform(1 / 255, 1.0, N), **f32))
+
+
+@pytest.mark.parametrize("tile", TILE_GEOMETRIES)
+@pytest.mark.parametrize("scene", ["ragged", "thin splats"])
+def test_forward_box_cull_changes_no_bit(tile, scene):
+    # The cull may leave out only pairs the blend skips, so the forward with
+    # every box infinite gives the same bits.
+    dev = cuda_device()
+    W, H = 75, 53
+    if scene == "ragged":
+        ids, start, stop, _, *rest = ragged_scene(dev, W, H, tile, seed=5)
+    else:
+        ids, start, stop, *rest = thin_splats_everywhere(dev, W, H, tile, seed=6)
+    args = (ids, start, stop, *rest, torch.tensor([0.1, 0.2, 0.3], device=dev), W, H, *tile)
+    before = composite_fwd.launches
+    out, full = composite_fwd_cuda(*args), composite_fwd_unculled_cuda(*args)
+    torch.cuda.synchronize()
+    assert composite_fwd.launches == before + 1  # the check's launch is not counted
+    assert torch.equal(out.image, full.image) and torch.equal(out.final_t, full.final_t)
+    assert float(out.final_t.min()) < 0.5  # the splats blend
+    if scene == "ragged":
+        # Not for the thin splats: the conic's condition number scales the
+        # rounding gap between the kernel's FMAs and the plain version's
+        # separate roundings, which then flips decisions past the tolerance.
+        assert_close(out, composite_fwd_torch(*args))
+
+
+def route_layout(dev, case):
+    """Hostile run layouts for the routing kernel: (rows, offset, count).
+    Rows outside every run are NaN, so a kernel that reads the capacity's
+    padding or a neighbour's rows shows it."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    if case == "one long run":
+        counts = rng.integers(0, 12, 64)
+        counts[17] = 1_000_000
+    elif case == "all counts zero":
+        counts = np.zeros(300, np.int64)
+    elif case == "runs across every chunk edge":
+        counts = rng.integers(1, 3000, 80)  # crosses multiples of 32, 256, 1024, ...
+    elif case.startswith("K % 4 == "):
+        counts = rng.integers(0, 40, 501)
+        counts[-1] += (int(case[-1]) - counts.sum()) % 4
+    else:  # trailing Gaussians dropped at capacity
+        counts = rng.integers(0, 40, 400)
+        counts[-50:] = 0
+    n = int(counts.sum())
+    offset = np.cumsum(counts) - counts
+    capacity = {"all counts zero": 64, "trailing dropped at capacity": n + 1000}.get(case, n)
+    if case == "trailing dropped at capacity":
+        offset[-50:] = capacity  # as build_tile_lists leaves them
+    rows = torch.full((capacity, 9), float("nan"), device=dev)
+    rows[:n] = torch.randn((n, 9), generator=torch.Generator(device=dev).manual_seed(n), device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    return rows, torch.tensor(offset, **i32), torch.tensor(counts, **i32)
+
+
+@pytest.mark.parametrize("case", ["one long run", "all counts zero", "runs across every chunk edge",
+                                  "K % 4 == 1", "K % 4 == 2", "K % 4 == 3",
+                                  "trailing dropped at capacity"])
+def test_routing_on_hostile_layouts(case):
+    dev = cuda_device()
+    rows, offset, count = route_layout(dev, case)
+    P = count.shape[0]
+    if case.startswith("K % 4"):
+        assert rows.shape[0] % 4 == int(case[-1])
+    before = route_grads.launches
+    sums = route_grads(rows, offset, count, P)
+    again = route_grads_cuda(rows, offset, count, P)
+    torch.cuda.synchronize()
+    assert route_grads.launches == before + 2
+    assert torch.equal(sums, again)  # two runs, the same bits
+    assert bool(torch.isfinite(sums).all())  # no NaN row outside a run was read
+    assert bool((sums[count == 0] == 0).all())
+    assert_grads_close(sums, route_grads_torch(rows, offset, count, P))
+
+
 def test_occupancy_queries():
     dev = cuda_device()
     for tile in TILE_GEOMETRIES:
-        occ = composite_bwd_occupancy(*tile, dev.index)
-        assert occ["registers"] > 0 and occ["threads"] % 32 == 0 and occ["blocks_per_sm"] >= 1
+        for query in (composite_fwd_occupancy, composite_bwd_occupancy):
+            occ = query(*tile, dev.index)
+            assert occ["registers"] > 0 and occ["threads"] % 32 == 0 and occ["blocks_per_sm"] >= 1
     for r in (1, 3, 16, 32):
         occ = consume_t_occupancy(r, dev.index)
         assert occ["registers"] > 0 and occ["threads"] == 256 and occ["blocks_per_sm"] >= 1
