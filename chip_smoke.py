@@ -59,6 +59,34 @@ Phases (any failure exits non-zero; none is caught and passed over):
      backward's (entry, warp band) reductions (pairs of an entry and a warp
      in which some pixel blended it), its (entry, unit) pairs, registers
      per thread and resident blocks per SM.
+  5b. trainer path: `Trainer` from a point cloud, at full width: the
+     122,535 points of assets/trained_r5.ply with colours from its DC
+     coefficients, written and read back through the point-cloud PLY
+     functions; 8 orbit cameras at 1920x1080 (fov 70 degrees) whose targets
+     are the trained model's renders; `init_from_pcd` (the Morton KNN on
+     the card), then 300 steps at `OptimizationConfig()` defaults but the
+     cadence (densify every 5 steps from 10 to 295, opacity reset at 200), 32x32
+     tiles, auto capacity, seed 0. Fails unless every loss is finite, the
+     mean of the last 20 losses is below the first 20's, a densify took the
+     device path and one the host path with a capacity growth, every live
+     opacity is <= 0.01 after the reset, every step's entry count fit the
+     capacity it ran at or the capacity grew right after it, the three
+     kernels' counters rose by exactly the step count, a checkpoint
+     reloaded into a fresh `Trainer` and saved again holds bit-equal live
+     rows, moments, step and statistics and the trainer steps on, the live rows saved as a PLY
+     model and reloaded render within the forward's rule of the trainer's
+     own render. The three train-path kernels are held to their plain
+     versions, by phase 3's rules, at two of the trainer's states: the one
+     just after the opacity reset (every opacity <= 0.01, so T never
+     saturates and nearly every pair blends) and the final one, after the
+     device densifies that followed the reset's compaction, each at
+     its own preprocess and binning (live rows, SH degree, entry capacity)
+     from a trainer camera. Prints the step latency (median, p80) over the
+     steps after the first epoch that run no maintenance beside phase 5's,
+     each densify (path, counts, live rows, rows, ms), reset, probe,
+     `create_from_pcd` and checkpoint times, the KNN's times (Morton at
+     122,535 points, exact at 20,000), first and last loss and PSNR, the
+     final live count and peak device memory.
   6. profiler path: `tools/profile_stages.run` at the JAX tool's defaults
      (P = 262,144 random Gaussians, 1920x1080, 32x16 tiles, 10 calls a
      line, best of 3) over every ported stage; prints the stage table, the
@@ -70,7 +98,10 @@ Phases (any failure exits non-zero; none is caught and passed over):
      bound, their plain versions and the one PyTorch call that computes
      the same (`x.t().contiguous()`, `x.sum(0)`), and `consume_t`'s
      registers per thread and resident blocks per SM.
-  7. the kernels line, then the result line.
+  7. the kernels line, then the result line. Each kernel's `launches` is
+     the sum of `launches_by_path`: each path's own count, read after its
+     own reset (train and trainer for the compositing kernels and the
+     routing, profiler for the other three).
 
 Each phase's wall time is printed. Scenes are made with numpy from fixed
 seeds. Imports no JAX.
@@ -79,20 +110,25 @@ seeds. Imports no JAX.
 import json
 import math
 import os
+import pickle
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from gaussian_splatting_torch import (
-    OptimizationConfig, RasterizerConfig, eval_render, init_train_state, rasterize, train_step,
+    OptimizationConfig, RasterizerConfig, Trainer, eval_render, init_train_state, rasterize,
+    train_step,
 )
-from gaussian_splatting_torch.ops import binning, losses
+from gaussian_splatting_torch.ops import binning, gsmath, losses
 from gaussian_splatting_torch.ops.composite import (
     CompositeOut, blend_pair_counts, composite_bwd_torch, composite_fwd_torch, route_grads_torch,
 )
+from gaussian_splatting_torch.ops.knn import mean_knn_dist2_exact, mean_knn_dist2_morton
 from gaussian_splatting_torch.ops.composite_cuda import (
     TILE_GEOMETRIES, composite_bwd, composite_bwd_cuda, composite_bwd_occupancy, composite_fwd,
     composite_fwd_cuda, composite_fwd_occupancy, composite_fwd_unculled_cuda, route_grads,
@@ -104,7 +140,12 @@ from gaussian_splatting_torch.ops.relayout import (
     relayout_to_rows, relayout_to_rows_cuda, relayout_to_rows_torch,
 )
 from gaussian_splatting_torch.scene.cameras import orbit_camera
-from gaussian_splatting_torch.scene.gaussians import PARAM_NAMES, activate, params_from_ply
+from gaussian_splatting_torch.scene.gaussians import (
+    PARAM_NAMES, activate, capacity_bucket, params_from_ply,
+)
+from gaussian_splatting_torch.scene.ply import (
+    load_gaussians_ply, load_point_cloud_ply, save_gaussians_ply, save_point_cloud_ply,
+)
 from gaussian_splatting_torch.scene.optim import adam_update
 from gaussian_splatting_torch.tools import profile_stages
 from gaussian_splatting_torch.tools.consumers import (
@@ -122,6 +163,14 @@ FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 W_MAIN, H_MAIN = 1920, 1080
 FRAMES = 50  # p80 has 10 frames beyond it
 STEPS, TIMED_STEPS = 20, 15  # train steps; latency over the last 15 (p80 has 3 beyond it)
+
+TRAINER_STEPS, TRAINER_CAMERAS = 300, 8
+# A densify every 5 steps: at 122,535 points one densify adds a few hundred
+# rows, and the run must exhaust the 8,537 free rows of the first capacity
+# (131,072) to take the host path once (at a 50-step interval no densify
+# of the 300 steps overflowed).
+TRAINER_OPT = OptimizationConfig(densify_from_iter=5, densification_interval=5,
+                                 densify_until_iter=300, opacity_reset_interval=200)
 
 SUM_K = (1_900_544, 1_339_001)  # the profiler's capacity at its defaults, and an odd K
 LAUNCH_COUNTERS = {"composite_fwd": composite_fwd, "composite_bwd": composite_bwd,
@@ -149,14 +198,17 @@ def make_gaussians(P, seed, spread=1.0, scale_mu=-2.5):
     return means, scales, quats, opacities, shs
 
 
-def sorted_inputs(acts, cam, W, H, tile):
-    """Preprocess + binning once; the kernels' inputs at exactly this size.
-    Returns the forward kernel's scene arguments, the tile lists and the
-    entry count."""
+def sorted_inputs(acts, cam, W, H, tile, sh=3, alive=None, capacity=None):
+    """Preprocess + binning once; the kernels' inputs at exactly this size
+    (rows outside `alive` culled, as the train step does; the entry
+    capacity `capacity`, or the exact entry count when that is None or
+    smaller). Returns the forward kernel's scene arguments, the tile lists
+    and the entry count."""
     P = acts[0].shape[0]
-    prep = preprocess(*acts, 3, cam, W, H, *tile)
+    prep = preprocess(*acts, sh, cam, W, H, *tile, alive=alive)
     gx, gy = -(-W // tile[0]), -(-H // tile[1])
-    capacity = RasterizerConfig(capacity_exact=int(prep.tiles_touched.sum())).capacity(P)
+    capacity = max(capacity or 0, int(prep.tiles_touched.sum()))
+    capacity = RasterizerConfig(capacity_exact=capacity).capacity(P)
     lists = binning.build_tile_lists(prep.rect_min, prep.rect_max, prep.depths,
                                      prep.tiles_touched, gx, gy, capacity)
     if int(lists.total) > capacity:
@@ -248,6 +300,26 @@ def check_backward(name, args, lists, bg, W, H, tile, seed):
     err_route = compare_grads(f"{name} routing", sums, route_grads_torch(rows, off, cnt, P))
     compare_grads(f"{name} backward+routing", sums, route_grads_torch(rows_ref, off, cnt, P))
     return err_rows, err_route
+
+
+def check_state(name, params, sh, cam, bg, capacity, tile, seed):
+    """The three train-path kernels against their plain versions at a
+    training state's own preprocess and binning (its live rows, its SH
+    degree and entry capacity): the forward within the forward's rule and
+    bit-equal to its unculled form, then check_backward. Returns the max
+    abs errors of the forward, the backward's rows and the routing."""
+    with torch.no_grad():
+        args, lists, total = sorted_inputs(tuple(activate(params)), cam, W_MAIN, H_MAIN, tile,
+                                           sh=sh, alive=params.alive, capacity=capacity)
+        out = composite_fwd_cuda(*args, bg, W_MAIN, H_MAIN, *tile)
+        ref = composite_fwd_torch(*args, bg, W_MAIN, H_MAIN, *tile)
+    torch.cuda.synchronize()
+    counts = blend_pair_counts(*args, W_MAIN, H_MAIN, *tile)
+    print(f"  {name}: K={total} entries, pairs {counts.pairs}, taken {counts.taken}, blended "
+          f"{counts.blended} ({counts.blended / max(counts.pairs, 1):.1%} of the evaluated pairs)")
+    err_fwd = compare(f"{name} K={total}", out, ref, 1e-5)
+    check_cull(name, out, args, bg, W_MAIN, H_MAIN, tile)
+    return (err_fwd, *check_backward(name, args, lists, bg, W_MAIN, H_MAIN, tile, seed))
 
 
 def cuda_time_ms(fn, reps):
@@ -405,6 +477,206 @@ def check_transpose_and_sums(dev):
             print(f"  {name} ({K}, 16) max_abs_err vs plain {e:.3e}; worst column "
                   f"{worst:.2e} x its 1e-5 sum|x| limit; two runs bit-identical")
     return err
+
+
+def trainer_phase(dev, bare_step_ms):
+    """Phase 5b: the host training loop from a point cloud at 1920x1080.
+    Returns the three train-path kernels' launches and their max abs errors
+    against their plain versions at the trainer's states."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    try:
+        return _trainer_phase(dev, bare_step_ms, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def synced_ms(fn, *args):
+    """fn(*args) on the host clock between two device waits; (out, ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _trainer_phase(dev, bare_step_ms, tmp):
+    bg0 = torch.zeros(3, device=dev)
+    # The point cloud: the trained model's centres, coloured by its DC term,
+    # through the point-cloud PLY functions.
+    model = load_gaussians_ply(TRAINED_PLY)
+    colors = np.clip(0.5 + gsmath.SH_C0 * model["features_dc"][:, 0, :], 0.0, 1.0)
+    save_point_cloud_ply(os.path.join(tmp, "points3d.ply"), model["xyz"], colors)
+    pts, cols, _ = load_point_cloud_ply(os.path.join(tmp, "points3d.ply"))
+    if not np.array_equal(pts, model["xyz"]) or float(np.abs(cols - colors).max()) > 1 / 255:
+        fail("trainer path: the point cloud did not survive its PLY round trip")
+
+    # Cameras, and their targets: the trained model's renders.
+    trained = params_from_ply(TRAINED_PLY)
+    center = pts.mean(axis=0)
+    dist = 2.5 * float(np.quantile(np.linalg.norm(pts - center, axis=1), 0.95))
+    cams = [orbit_camera(center, dist, 2 * math.pi * i / TRAINER_CAMERAS, W_MAIN, H_MAIN, 70.0,
+                         70.0 * H_MAIN / W_MAIN) for i in range(TRAINER_CAMERAS)]
+    with torch.no_grad():
+        acts = tuple(activate(trained))
+        for cam in cams:
+            arr = cam.arrays()
+            n = int(preprocess(*acts, 3, arr, W_MAIN, H_MAIN, 32, 32).tiles_touched.sum())
+            img = eval_render(trained, arr, bg0, 3, W_MAIN, H_MAIN,
+                              RasterizerConfig(capacity_exact=entry_bucket_capacity(n, 16, 1.2)))[0]
+            cam.image = img.clamp(0.0, 1.0).permute(2, 0, 1).cpu().numpy()
+    del trained, acts
+    centers = np.stack([c.camera_center for c in cams]).astype(np.float64)
+    extent = 1.1 * float(np.linalg.norm(centers - centers.mean(axis=0), axis=1).max())
+
+    def new_trainer(raster_cfg=RasterizerConfig(tile_w=32, tile_h=32)):
+        return Trainer(cameras=cams, opt=TRAINER_OPT, raster_cfg=raster_cfg, sh_degree=3,
+                       cameras_extent=extent, spatial_lr_scale=extent, seed=0)
+
+    # The KNN's two forms on the card.
+    pts_t = torch.from_numpy(pts).to(dev)
+    morton_ms = cuda_time_ms(lambda: mean_knn_dist2_morton(pts_t), 5)
+    exact_ms = cuda_time_ms(lambda: mean_knn_dist2_exact(pts_t[:20_000]), 3)
+    del pts_t
+
+    tr = new_trainer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, init_ms = synced_ms(tr.init_from_pcd, pts, cols)
+    if tr.state.params.num_points != capacity_bucket(pts.shape[0]) or tr.num_live != pts.shape[0]:
+        fail(f"trainer path: init gave {tr.num_live} live rows of {tr.state.params.num_points}")
+
+    def probe(cam):  # the first step's entry probe: a preprocess-only count of the live rows
+        with torch.no_grad():
+            p = tr.state.params
+            return int(preprocess(*activate(p), tr.active_sh_degree, cam.arrays(), W_MAIN, H_MAIN,
+                                  32, 32, alive=p.alive).tiles_touched.sum())
+
+    probe(cams[0])
+    probe_n, probe_ms = synced_ms(probe, cams[0])
+
+    max_err = {"composite_fwd": 0.0, "composite_bwd": 0.0, "route_grads": 0.0}
+
+    def check_kernels(name, seed):  # the kernels at the state the next step renders
+        p = tr.state.params
+        errs = check_state(name, p, tr.active_sh_degree, cams[seed % TRAINER_CAMERAS].arrays(),
+                           tr.background, tr.raster_cfg.capacity(p.num_points), (32, 32), seed)
+        for k, e in zip(max_err, errs):
+            max_err[k] = max(max_err[k], e)
+
+    reset_at = TRAINER_OPT.opacity_reset_interval
+    reset_launches()
+    step_ms, post_ms, rows_before = {}, {}, {}
+    for _ in range(TRAINER_STEPS):
+        cfg_before = tr.raster_cfg
+        rows = tr.state.params.num_points
+        m, ms = synced_ms(tr.step, True)
+        step_ms[tr.iteration] = ms
+        # the first step ran at the capacity its probe set, which a growth
+        # right after it replaced: the rule below then reads `after` twice
+        ran_at = (cfg_before if cfg_before.capacity_exact is not None else tr.raster_cfg).capacity(rows)
+        after = tr.raster_cfg.capacity(rows)
+        entries = int(m["num_entries"])
+        if not (entries <= ran_at or after >= entries):
+            fail(f"trainer path: step {tr.iteration} had {entries} entries at capacity {ran_at} "
+                 f"and the capacity did not grow to hold them ({after})")
+        rows_before[tr.iteration] = tr.state.params.num_points
+        post_ms[tr.iteration] = synced_ms(tr.post_step)[1]
+        if tr.iteration == reset_at:
+            p = tr.state.params
+            top = float(torch.sigmoid(p.opacity.detach()[p.alive]).max())
+            if top > 0.01:
+                fail(f"trainer path: a live opacity of {top} after the reset")
+            # opacities <= 0.01: T never saturates and nearly every pair blends
+            launches_so_far = {k: LAUNCH_COUNTERS[k].launches for k in max_err}
+            check_kernels(f"trainer after the reset at {reset_at}", 41)
+            for k, n in launches_so_far.items():  # the check's launches are not the path's
+                LAUNCH_COUNTERS[k].launches = n
+    torch.cuda.synchronize()
+    launches = {k: LAUNCH_COUNTERS[k].launches for k in max_err}
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    hist = tr.history
+    step_losses = [h["loss"] for h in hist]
+    first20, last20 = float(np.mean(step_losses[:20])), float(np.mean(step_losses[-20:]))
+    densified = {d["iteration"]: d for d in tr.densify_history}
+    maintenance = set(densified) | set(range(reset_at, TRAINER_STEPS + 1, reset_at))
+    quiet = [ms for it, ms in step_ms.items() if it > TRAINER_CAMERAS and it not in maintenance]
+    print(f"trainer path: {pts.shape[0]} points from their PLY at {W_MAIN}x{H_MAIN}, "
+          f"{TRAINER_CAMERAS} cameras, extent {extent:.4f}, {TRAINER_STEPS} steps; "
+          f"launches {launches}; peak device memory {peak_mib:.1f} MiB")
+    print(f"  loss {step_losses[0]:.6f} -> {step_losses[-1]:.6f} (mean of the first 20 {first20:.6f}, "
+          f"last 20 {last20:.6f}), psnr {hist[0]['psnr']:.3f} -> {hist[-1]['psnr']:.3f} dB; "
+          f"live {tr.num_live} of {tr.state.params.num_points} rows; entries "
+          f"{int(hist[0]['num_entries'])} -> {int(hist[-1]['num_entries'])}, entry capacity "
+          f"{tr.raster_cfg.capacity_exact}")
+    print(f"  step latency median {np.median(quiet):.3f} ms, p80 {np.percentile(quiet, 80):.3f} ms "
+          f"({len(quiet)} steps after the first epoch that ran no maintenance, host clock, each "
+          f"ending in a synchronize); phase 5's bare train_step median {bare_step_ms:.3f} ms")
+    for d in tr.densify_history:
+        print(f"  densify at {d['iteration']}: {d['path']}, cloned {d['n_cloned']}, split "
+              f"{d['n_split']}, pruned {d['n_pruned']}, live {d['live_before']} -> "
+              f"{d['live_after']}, rows {d['rows_before']} -> {d['capacity']}, {d['ms']:.3f} ms")
+    reset_ms = post_ms[reset_at] - (densified[reset_at]["ms"] if reset_at in densified else 0.0)
+    print(f"  reset {reset_ms:.3f} ms (post_step at {reset_at} {post_ms[reset_at]:.3f} ms less its "
+          f"densify); probe {probe_ms:.3f} ms ({probe_n} entries, camera 0); create_from_pcd "
+          f"{init_ms:.3f} ms; KNN Morton at {pts.shape[0]} points {morton_ms:.3f} ms, exact at "
+          f"20000 {exact_ms:.3f} ms")
+
+    if any(n != TRAINER_STEPS for n in launches.values()):
+        fail(f"trainer path launches {launches} for {TRAINER_STEPS} steps")
+    if not all(math.isfinite(x) for x in step_losses):
+        fail("trainer path: a loss is not finite")
+    if not last20 < first20:
+        fail(f"trainer path: the loss did not fall (first 20 {first20}, last 20 {last20})")
+    paths = [d["path"] for d in tr.densify_history]
+    grew = [d for d in tr.densify_history if d["path"] == "host" and d["capacity"] > d["rows_before"]]
+    if "device" not in paths or not grew:
+        fail(f"trainer path: densify paths {paths}; a device densify and a host densify that "
+             f"grew the capacity are both needed")
+    p = tr.state.params
+    dead_inside = int((~p.alive[: int(torch.nonzero(p.alive).max()) + 1]).sum())
+    print(f"  final state: {dead_inside} dead rows among the live ones")
+    check_kernels("trainer final state", 42)
+
+    # A checkpoint saved on the card, loaded into a fresh trainer and saved
+    # again: the two files hold the same live rows, moments, step and
+    # statistics, bit for bit.
+    ckpt, ckpt2 = os.path.join(tmp, "ckpt.pkl"), os.path.join(tmp, "ckpt2.pkl")
+    _, save_ms = synced_ms(tr.save_checkpoint, ckpt)
+    tr2 = new_trainer(tr.raster_cfg)
+    _, load_ms = synced_ms(tr2.load_checkpoint, ckpt)
+    tr2.save_checkpoint(ckpt2)
+    with open(ckpt, "rb") as f:  # this run's own files
+        mine = pickle.load(f)
+    with open(ckpt2, "rb") as f:
+        theirs = pickle.load(f)
+    for what in ("params", "adam_m", "adam_v", "stats"):
+        for k in mine[what]:
+            if not np.array_equal(mine[what][k], theirs[what][k]):
+                fail(f"trainer path: checkpoint {what}[{k}] differs after the reload")
+    if mine["adam_step"] != theirs["adam_step"] or tr2.iteration != tr.iteration:
+        fail("trainer path: checkpoint step or iteration differs after the reload")
+    more = tr2.step()
+    if not math.isfinite(more["loss"]):
+        fail("trainer path: the reloaded trainer's step is not finite")
+    print(f"  checkpoint of {tr.num_live} rows: save {save_ms:.1f} ms, load {load_ms:.1f} ms, "
+          f"{os.path.getsize(ckpt) / 2**20:.1f} MiB; bit-equal after the reload; one more step, "
+          f"loss {more['loss']:.6f}")
+    del tr2
+
+    # The trained live rows as a PLY model, reloaded and rendered.
+    save_gaussians_ply(os.path.join(tmp, "model.ply"), mine["params"])
+    reloaded = params_from_ply(os.path.join(tmp, "model.ply"))
+    arr = cams[0].arrays()
+    with torch.no_grad():
+        n = int(preprocess(*activate(tr.state.params), 3, arr, W_MAIN, H_MAIN, 32, 32,
+                           alive=tr.state.params.alive).tiles_touched.sum())
+    cfg = RasterizerConfig(capacity_exact=entry_bucket_capacity(n, 16, 1.2))
+    ours = eval_render(tr.state.params, arr, bg0, 3, W_MAIN, H_MAIN, cfg)
+    back = eval_render(reloaded, arr, bg0, 3, W_MAIN, H_MAIN, cfg)
+    torch.cuda.synchronize()
+    compare("trainer PLY reload vs trainer", CompositeOut(back[0], back[1]["final_t"]),
+            CompositeOut(ours[0], ours[1]["final_t"]), 1e-5)
+    return launches, max_err
 
 
 def main():
@@ -666,6 +938,12 @@ def main():
           f"max {runs.max()}, p99.9 {np.percentile(runs, 99.9):.1f}, median {np.median(runs):.0f}")
     phase_done("5 train path")
 
+    # ---- 5b. trainer path ---------------------------------------------
+    trainer_launches, trainer_err = trainer_phase(dev, step_ms)
+    for k, e in trainer_err.items():
+        max_err[k] = max(max_err[k], e)
+    phase_done("5b trainer path")
+
     # ---- 6. profiler path ---------------------------------------------
     reset_launches()
     prof = profile_stages.run(profile_stages.STAGES)  # the tool's defaults, on the card
@@ -710,27 +988,32 @@ def main():
     phase_done("6 profiler path")
 
     # ---- 7. result ----------------------------------------------------
-    def entry(name, source, replaces, launches, ms, plain, bound, library):
+    def entry(name, source, replaces, by_path, ms, plain, bound, library):
         return {"name": name, "route": "cuda", "source": f"gaussian_splatting_torch/csrc/{source}.cu",
-                "replaces": replaces, "launches": launches, "max_abs_err": max_err[name],
-                "ms": ms, "plain_ms": plain, "bound_ms": bound[0], "bound_by": bound[1],
-                "library_ms": library}
+                "replaces": replaces, "launches": sum(by_path.values()), "launches_by_path": by_path,
+                "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain, "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": library}
+
+    def by_path(name):  # each path's own count, read after its own reset
+        if name in train_launches:
+            return {"train": train_launches[name], "trainer": trainer_launches[name]}
+        return {"profiler": prof_launches[name]}
 
     print(json.dumps({"kernels": [
         entry("composite_fwd", "composite_fwd", "gaussian_splatting_tpu/ops/composite_pallas.py:376",
-              train_launches["composite_fwd"], fwd_ms, fwd_plain_ms, fwd_bound, None),  # _fwd_kernel
+              by_path("composite_fwd"), fwd_ms, fwd_plain_ms, fwd_bound, None),  # _fwd_kernel
         entry("composite_bwd", "composite_bwd", "gaussian_splatting_tpu/ops/composite_pallas.py:427",
-              train_launches["composite_bwd"], bwd_ms, bwd_plain_ms, bwd_bound, None),  # _bwd_kernel
+              by_path("composite_bwd"), bwd_ms, bwd_plain_ms, bwd_bound, None),  # _bwd_kernel
         # _to_rows_kernel's one call site: the routing sums
         entry("route_grads", "route_grads", "gaussian_splatting_tpu/ops/relayout.py:50",
-              train_launches["route_grads"], route_ms, route_plain_ms, route_bound, index_add_ms),
+              by_path("route_grads"), route_ms, route_plain_ms, route_bound, index_add_ms),
         # tkern, and the function of _to_rows_kernel (gaussian_splatting_tpu/ops/relayout.py:50)
         entry("relayout_to_rows", "relayout", "tools/profile_stages.py:231",
-              prof_launches["relayout_to_rows"], tp_ms, tp_plain_ms, tp_bound, tp_lib_ms),
+              by_path("relayout_to_rows"), tp_ms, tp_plain_ms, tp_bound, tp_lib_ms),
         entry("consume_rows", "consume", "tools/profile_stages.py:427",  # _sum_rows_kernel
-              prof_launches["consume_rows"], cr_ms, cr_plain_ms, sum_bound, sum_lib_ms),
+              by_path("consume_rows"), cr_ms, cr_plain_ms, sum_bound, sum_lib_ms),
         entry("consume_t", "consume", "tools/profile_stages.py:451",  # _sum_t_kernel
-              prof_launches["consume_t"], ct_ms, ct_plain_ms, sum_bound, sum_lib_ms),
+              by_path("consume_t"), ct_ms, ct_plain_ms, sum_bound, sum_lib_ms),
     ]}))
     phase_done("7 result")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -11,7 +11,10 @@ Ported so far: the render path (PLY model -> `activate` -> `rasterize`:
 preprocess, tile binning, the compositing kernel) and the train step
 (`init_train_state` -> `train_step`: render, L1 + SSIM loss, the
 compositing backward and gradient-routing kernels, masked Adam, the
-densification statistics), and the per-stage profiler
+densification statistics), the host training loop from a point cloud
+(`create_from_pcd` with its KNN -> `Trainer`: camera sampling, SH warm-up,
+the entry-capacity probe and growth, densification on the device or the
+host, opacity reset, checkpoints), and the per-stage profiler
 (`python -m gaussian_splatting_torch.tools.profile_stages`) with the JAX
 tool's probe kernels: the transpose (`ops/relayout.py`) and the column
 sums (`tools/consumers.py`).
@@ -21,6 +24,8 @@ __version__ = "0.1.0"
 
 from gaussian_splatting_torch.ops.rasterize import RasterizerConfig, mark_visible, rasterize  # noqa: F401
 from gaussian_splatting_torch.scene.cameras import Camera  # noqa: F401
+from gaussian_splatting_torch.scene.gaussians import create_from_pcd  # noqa: F401
+from gaussian_splatting_torch.trainer import Trainer  # noqa: F401
 from gaussian_splatting_torch.training import (  # noqa: F401
     OptimizationConfig, TrainState, eval_render, init_train_state, train_step,
 )

@@ -12,8 +12,6 @@ Parameter semantics match the reference (scene/gaussian_model.py):
 - scaling: log-scale (exp activation)
 - rotation: unnormalized quaternion wxyz (normalized in build_cov3d)
 - opacity: logit (sigmoid activation)
-
-`create_from_pcd` needs a KNN and is not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -24,6 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from gaussian_splatting_torch.ops import gsmath, knn
 from gaussian_splatting_torch.scene.ply import load_gaussians_ply
 from gaussian_splatting_torch.utils.device import require_device
 
@@ -86,6 +85,46 @@ def capacity_bucket(n: int, minimum: int = 1024) -> int:
     return cap
 
 
+# Values of the rows past the live ones: log-scale and opacity logit -10
+# make a dead row tiny and transparent.
+PAD_FILLS = dict(xyz=0.0, features_dc=0.0, features_rest=0.0, scaling=-10.0, rotation=0.0,
+                 opacity=-10.0)
+
+
+@torch.no_grad()
+def create_from_pcd(points: np.ndarray, colors: np.ndarray, sh_degree: int,
+                    capacity: Optional[int] = None, device="cuda") -> GaussianParams:
+    """Gaussians from a point cloud (the reference's gaussian_model.py:144-228),
+    padded to `capacity` rows (default: `capacity_bucket(P)`) on `device`:
+    - DC SH from the RGB colours in [0, 1], the other coefficients zero;
+    - isotropic log-scale log(sqrt(d2)), d2 the mean squared distance to
+      the 3 nearest neighbours clamped at 1e-7 (`ops/knn.py`);
+    - identity rotation, opacity logit log(0.1 / 0.9).
+    The returned module's `alive` marks the P point rows.
+    """
+    dev = require_device(device)
+    P = points.shape[0]
+    cap = capacity or capacity_bucket(P)
+    K = num_sh_coeffs(sh_degree)
+    dist2 = torch.clamp_min(knn.mean_knn_dist2(points, device=dev), 1e-7)
+    live = {
+        "xyz": torch.as_tensor(np.asarray(points, np.float32), device=dev),
+        "features_dc": gsmath.rgb_to_sh(
+            torch.as_tensor(np.asarray(colors, np.float32), device=dev))[:, None, :],
+        "features_rest": torch.zeros((P, K - 1, 3), device=dev),
+        "scaling": torch.log(torch.sqrt(dist2))[:, None].repeat(1, 3),
+        "rotation": torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev).repeat(P, 1),
+        "opacity": torch.full((P, 1), float(np.log(0.1 / 0.9)), device=dev),
+    }
+    rows = {}
+    for k in PARAM_NAMES:
+        rows[k] = torch.full((cap,) + live[k].shape[1:], PAD_FILLS[k], device=dev)
+        rows[k][:P] = live[k]
+    alive = torch.zeros((cap,), dtype=torch.bool, device=dev)
+    alive[:P] = True
+    return GaussianParams(**rows, alive=alive)
+
+
 def repad(params_np: dict, alive_np: np.ndarray, capacity: int):
     """Re-pad a host-side numpy param dict to a (possibly larger) capacity."""
     n = alive_np.shape[0]
@@ -97,9 +136,7 @@ def repad(params_np: dict, alive_np: np.ndarray, capacity: int):
         out[:n] = x
         return out
 
-    fills = dict(xyz=0.0, features_dc=0.0, features_rest=0.0, scaling=-10.0,
-                 rotation=0.0, opacity=-10.0)
-    out = {k: pad(v, fills[k]) for k, v in params_np.items()}
+    out = {k: pad(v, PAD_FILLS[k]) for k, v in params_np.items()}
     alive = np.zeros((capacity,), bool)
     alive[:n] = alive_np
     return out, alive

@@ -1,10 +1,12 @@
-"""PLY serialization of Gaussian models — the ecosystem interchange format.
+"""PLY serialization of Gaussian models and point clouds.
 
 The attribute layout matches gaussian_model.py:277-308 byte-for-byte
 (x,y,z, nx,ny,nz, f_dc_*, f_rest_*, opacity, scale_*, rot_* — all float32,
 raw pre-activation values, f_rest flattened channel-major), so models saved
 here load in SIBR / web viewers and reference checkpoints load here.
-Self-contained binary_little_endian reader/writer (no plyfile dependency).
+Point clouds (the datasets' input.ply: xyz, normals, uint8 colours) have
+their own pair of functions. Self-contained binary_little_endian
+reader/writer (no plyfile dependency).
 
 Numpy only: the port keeps its own copy of the JAX package's module,
 because importing anything from that package imports JAX.
@@ -13,7 +15,7 @@ because importing anything from that package imports JAX.
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -135,3 +137,51 @@ def load_gaussians_ply(path: str, sh_degree: int = 3) -> Dict[str, np.ndarray]:
         "scaling": np.stack([cols[k] for k in scale_names], axis=1).astype(np.float32),
         "rotation": np.stack([cols[k] for k in rot_names], axis=1).astype(np.float32),
     }
+
+
+def save_point_cloud_ply(path: str, points: np.ndarray, colors: np.ndarray, normals=None):
+    """input.ply-style point cloud: float32 xyz and normals, uint8 colours
+    (float colours in [0, 1] are scaled by 255 and truncated)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    n = points.shape[0]
+    normals = np.zeros_like(points) if normals is None else normals
+    header = [
+        "ply", "format binary_little_endian 1.0", f"element vertex {n}",
+        "property float x", "property float y", "property float z",
+        "property float nx", "property float ny", "property float nz",
+        "property uchar red", "property uchar green", "property uchar blue",
+        "end_header",
+    ]
+    dtype = np.dtype(
+        [(k, "<f4") for k in ("x", "y", "z", "nx", "ny", "nz")]
+        + [(k, "u1") for k in ("red", "green", "blue")]
+    )
+    rec = np.empty(n, dtype)
+    for i, k in enumerate(("x", "y", "z")):
+        rec[k] = points[:, i]
+        rec["n" + k] = normals[:, i]
+    rgb = colors
+    if rgb.dtype != np.uint8:
+        rgb = np.clip(rgb * 255.0, 0, 255).astype(np.uint8)
+    for i, k in enumerate(("red", "green", "blue")):
+        rec[k] = rgb[:, i]
+    with open(path, "wb") as f:
+        f.write(("\n".join(header) + "\n").encode("ascii"))
+        f.write(rec.tobytes())
+
+
+def load_point_cloud_ply(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(points, colors in [0, 1], normals), each (P, 3) float32; grey
+    colours and zero normals where the file has none."""
+    cols = read_ply_vertex_table(path)
+    points = np.stack([cols["x"], cols["y"], cols["z"]], axis=1).astype(np.float32)
+    if "red" in cols:
+        colors = np.stack([cols["red"], cols["green"], cols["blue"]], axis=1)
+        colors = colors.astype(np.float32) / 255.0 if colors.max() > 1 else colors.astype(np.float32)
+    else:
+        colors = np.full_like(points, 0.5)
+    if "nx" in cols:
+        normals = np.stack([cols["nx"], cols["ny"], cols["nz"]], axis=1).astype(np.float32)
+    else:
+        normals = np.zeros_like(points)
+    return points, colors, normals

@@ -11,8 +11,7 @@ package.
 
 Unlike the JAX step, which is a pure function of its state, `train_step`
 updates the state in place (parameters, moments, statistics), PyTorch's
-idiom; the host training loop, densification and checkpoints are not
-ported yet.
+idiom. The host loop around it is `trainer.Trainer`.
 """
 
 from __future__ import annotations

@@ -17,6 +17,11 @@ for bit, and two runs give the same bits.
 The transpose is a copy: bit-equal to its plain version. The column sums
 take float32 partials in another order than a float64 sum: per column
 within 1e-5 x the sum of |x|, and two runs give the same bits.
+The KNN on the card: within rtol 1e-6 of the same function on the CPU.
+The device densify on the card: the counts, `alive` and every value its
+random draws do not reach equal to the same edit on the CPU; the split
+children's scales within rtol 1e-6 (exp and log of two libraries), so
+their log-scales within 1e-6 absolute.
 """
 
 import math
@@ -26,7 +31,7 @@ import pytest
 import torch
 
 from gaussian_splatting_torch import OptimizationConfig, init_train_state, train_step
-from gaussian_splatting_torch.ops import binning
+from gaussian_splatting_torch.ops import binning, knn
 from gaussian_splatting_torch.ops.composite import (
     composite_bwd_torch, composite_fwd_torch, route_grads_torch,
 )
@@ -40,13 +45,14 @@ from gaussian_splatting_torch.ops.rasterize import RasterizerConfig
 from gaussian_splatting_torch.ops.relayout import (
     relayout_to_rows, relayout_to_rows_cuda, relayout_to_rows_torch,
 )
+from gaussian_splatting_torch.scene import densify
 from gaussian_splatting_torch.scene.cameras import Camera
-from gaussian_splatting_torch.scene.gaussians import params_from_numpy
+from gaussian_splatting_torch.scene.gaussians import PARAM_NAMES, params_from_numpy
 from gaussian_splatting_torch.tools.consumers import (
     consume_rows, consume_rows_cuda, consume_rows_torch, consume_t, consume_t_cuda,
     consume_t_occupancy, consume_t_torch,
 )
-from gaussian_splatting_torch.training import eval_render
+from gaussian_splatting_torch.training import eval_render, train_state_from_numpy
 
 pytestmark = pytest.mark.gpu
 
@@ -461,3 +467,69 @@ def test_column_sums_of_an_unaligned_table(R):
     torch.cuda.synchronize()
     assert torch.equal(a, b)
     assert bool(((a.double().reshape(R) - ref).abs() <= tol).all())
+
+
+def test_knn_on_the_card_matches_the_cpu():
+    dev = cuda_device()
+    pts = np.random.default_rng(7).normal(size=(30_000, 3)).astype(np.float32)
+    got = knn.mean_knn_dist2(pts, device=dev)  # the Morton form above 20,000 points
+    want = knn.mean_knn_dist2(pts, device="cpu")
+    assert got.device.type == "cuda"
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-6, atol=0)
+
+
+def densify_state(dev, cap=8192, live=3000, seed=2):
+    """Live rows on which clone, split, the opacity prune and the size prune
+    all fire (threshold 0.5, extent 1, percent_dense 0.01), on `dev`."""
+    rng = np.random.default_rng(seed)
+    shapes = {"xyz": (3,), "features_dc": (1, 3), "features_rest": (15, 3), "scaling": (3,),
+              "rotation": (4,), "opacity": (1,)}
+    pad = lambda a: np.concatenate([a, np.zeros((cap - live,) + a.shape[1:], a.dtype)])  # noqa: E731
+    params = {k: rng.normal(size=(live,) + sh).astype(np.float32) for k, sh in shapes.items()}
+    params["scaling"] = rng.normal(np.log(0.01), 1.0, (live, 3)).astype(np.float32)
+    params["scaling"][:50] = 0.5
+    params["opacity"] *= 3.0
+    m = {k: rng.normal(size=x.shape).astype(np.float32) for k, x in params.items()}
+    v = {k: rng.uniform(size=x.shape).astype(np.float32) for k, x in params.items()}
+    accum = rng.uniform(0, 2, live).astype(np.float32)
+    denom = rng.integers(0, 3, live).astype(np.float32)
+    return train_state_from_numpy(
+        {k: pad(x) for k, x in params.items()}, {k: pad(x) for k, x in m.items()},
+        {k: pad(x) for k, x in v.items()}, 5, np.arange(cap) < live,
+        pad(np.zeros(live, np.float32)), pad(accum), pad(denom), device=dev)
+
+
+@pytest.mark.parametrize("use_size_prune", [False, True])
+def test_device_densify_on_the_card_matches_the_cpu(use_size_prune):
+    dev = cuda_device()
+    kw = dict(max_grad=0.5, min_opacity=0.005, extent=1.0, percent_dense=0.01,
+              use_size_prune=use_size_prune)
+    edited = []
+    for d in (dev, torch.device("cpu")):
+        state = densify_state(d)
+        before = state.params.scaling.detach().clone()
+        counts = densify.densify_and_prune_device(
+            state, torch.Generator(device=d).manual_seed(3), **kw)
+        edited.append((counts, state, before))
+    (got_counts, got, _), (want_counts, want, before) = edited
+    assert got_counts == want_counts and want_counts["overflow"] == 0
+    assert want_counts["n_cloned"] > 0 and want_counts["n_split"] > 0
+    alive = want.params.alive
+    assert torch.equal(got.params.alive.cpu(), alive)
+    # slots that took a split child: alive, with a new log-scale
+    child = alive & (want.params.scaling.detach() != before).any(dim=1)
+    assert int(child.sum()) > 0
+    for k in PARAM_NAMES:
+        a, b = getattr(got.params, k).detach().cpu(), getattr(want.params, k).detach()
+        if k in ("xyz", "scaling"):
+            assert torch.equal(a[~child], b[~child]), k
+        else:
+            assert torch.equal(a, b), k
+        assert torch.equal(got.adam.m[k].cpu(), want.adam.m[k]), k
+        assert torch.equal(got.adam.v[k].cpu(), want.adam.v[k]), k
+    # the children's scales within rtol 1e-6, so their logs within 1e-6
+    # absolute (a log has no relative bound near 0)
+    got_log = got.params.scaling.detach().cpu()[child].numpy()
+    want_log = want.params.scaling.detach()[child].numpy()
+    np.testing.assert_allclose(np.exp(got_log), np.exp(want_log), rtol=1e-6, atol=0)
+    np.testing.assert_allclose(got_log, want_log, rtol=0, atol=1e-6)
