@@ -87,6 +87,45 @@ Phases (any failure exits non-zero; none is caught and passed over):
      `create_from_pcd` and checkpoint times, the KNN's times (Morton at
      122,535 points, exact at 20,000), first and last loss and PSNR, the
      final live count and peak device memory.
+  5c. CLI path: the user's entry path, in process on the card at full
+     width. A COLMAP dataset in a temporary directory, written with the
+     port's writers: one PINHOLE camera (1920x1080, fov 70 degrees), 16
+     orbit views around trained_r5 (world-to-camera quaternion and
+     translation), its 122,535 centres coloured clip(0.5 + C0 f_dc) * 255
+     as uint8, and each view's `eval_render` of trained_r5 quantised
+     clip * 255 + 0.5 as a PNG. The port's readers must give back every
+     camera (R, T within 1e-12) and every pixel, and a copy of the first
+     view's pixels as a PNG whose rows cycle through all five row filters
+     (the Average and Paeth rows of PIL- or libpng-written datasets take
+     the reader's anti-diagonal path) must decode bit-equal. Then
+     `cli.train.main`
+     (-r 1 --eval, 200 iterations, reports at 100 and 200, a PLY at 100 and
+     200, a checkpoint at 200, a densify every 20 steps from 40 to 140, the
+     opacity reset at 120; 14 train and 2 test views): the files must
+     exist, the run reach 200, a densify run, the mean of the last 20
+     losses be below the first 20's, and the PLY at 200, reloaded, render
+     the bits of the trainer's final state. At that state (its padded
+     rows, the dead rows the reset and the prunes left, its entry
+     capacity) and the first test camera, the forward, the backward and
+     the routing are held to their plain versions by phase 3's rules
+     (`check_state`; these launches are not the path's).
+     `cli.render.main(["-m", M])`:
+     14 + 2 renders and ground truths, each ground truth bit-equal to the
+     dataset's PNG, the first test render bit-equal to `eval_render` of the
+     reloaded PLY quantised the same way. `cli.metrics.main(["-m", M])`:
+     `ours_200` with a finite SSIM and PSNR and a null LPIPS, the PSNR within
+     1e-4 dB of a float64 one from the PNGs. The compositing kernels'
+     counters must equal the schedule: per train-CLI step one launch of
+     each, per report one forward for each of the 2 test views and 5 train
+     views; one forward per render-CLI view. Prints the PNG encode and
+     decode ms at 1080p (the decode of the port's Sub-filtered files and
+     of the five-filter file), one 1920 -> 1600 resize, the train CLI's
+     wall time and step median (from the `iter_time_ms` it records in
+     each history entry), the time of tensorboard's image panels where
+     tensorboard imports and which optional packages import, the render
+     CLI's ms per view, the metrics CLI's ms, the phase's peak device
+     memory and wall time. `sys.stdout`, which each CLI's `safe_state`
+     replaces, is restored after each.
   6. profiler path: `tools/profile_stages.run` at the JAX tool's defaults
      (P = 262,144 random Gaussians, 1920x1080, 32x16 tiles, 10 calls a
      line, best of 3) over every ported stage; prints the stage table, the
@@ -100,22 +139,25 @@ Phases (any failure exits non-zero; none is caught and passed over):
      registers per thread and resident blocks per SM.
   7. the kernels line, then the result line. Each kernel's `launches` is
      the sum of `launches_by_path`: each path's own count, read after its
-     own reset (train and trainer for the compositing kernels and the
-     routing, profiler for the other three).
+     own reset (train, trainer, cli_train and cli_render for the
+     compositing kernels and the routing, profiler for the other three).
 
 Each phase's wall time is printed. Scenes are made with numpy from fixed
 seeds. Imports no JAX.
 """
 
+import importlib.util
 import json
 import math
 import os
 import pickle
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -124,6 +166,9 @@ from gaussian_splatting_torch import (
     OptimizationConfig, RasterizerConfig, Trainer, eval_render, init_train_state, rasterize,
     train_step,
 )
+from gaussian_splatting_torch.cli import metrics as metrics_cli
+from gaussian_splatting_torch.cli import render as render_cli
+from gaussian_splatting_torch.cli import train as train_cli
 from gaussian_splatting_torch.ops import binning, gsmath, losses
 from gaussian_splatting_torch.ops.composite import (
     CompositeOut, blend_pair_counts, composite_bwd_torch, composite_fwd_torch, route_grads_torch,
@@ -140,6 +185,9 @@ from gaussian_splatting_torch.ops.relayout import (
     relayout_to_rows, relayout_to_rows_cuda, relayout_to_rows_torch,
 )
 from gaussian_splatting_torch.scene.cameras import orbit_camera
+from gaussian_splatting_torch.scene.dataset_readers import (
+    load_camera, read_colmap_scene, write_colmap_scene,
+)
 from gaussian_splatting_torch.scene.gaussians import (
     PARAM_NAMES, activate, capacity_bucket, params_from_ply,
 )
@@ -152,7 +200,7 @@ from gaussian_splatting_torch.tools.consumers import (
     consume_rows, consume_rows_cuda, consume_rows_torch, consume_t, consume_t_cuda,
     consume_t_occupancy, consume_t_torch,
 )
-from gaussian_splatting_torch.utils import cuda_build
+from gaussian_splatting_torch.utils import cuda_build, image_io
 from gaussian_splatting_torch.utils.roofline import (
     OPS_PER_BLENDED_BWD, OPS_PER_PAIR, bound_ms, pair_ops,
 )
@@ -171,6 +219,13 @@ TRAINER_STEPS, TRAINER_CAMERAS = 300, 8
 # of the 300 steps overflowed).
 TRAINER_OPT = OptimizationConfig(densify_from_iter=5, densification_interval=5,
                                  densify_until_iter=300, opacity_reset_interval=200)
+
+CLI_VIEWS, CLI_STEPS, CLI_REPORTS, CLI_SAVE = 16, 200, (100, 200), 100
+CLI_TRAIN = ["-r", "1", "--eval", "--iterations", str(CLI_STEPS),
+             "--test_iterations", *map(str, CLI_REPORTS), "--save_iterations", str(CLI_SAVE),
+             "--checkpoint_iterations", str(CLI_STEPS), "--densify_from_iter", "20",
+             "--densification_interval", "20", "--densify_until_iter", "160",
+             "--opacity_reset_interval", "120", "--disable_viewer", "--quiet"]
 
 SUM_K = (1_900_544, 1_339_001)  # the profiler's capacity at its defaults, and an odd K
 LAUNCH_COUNTERS = {"composite_fwd": composite_fwd, "composite_bwd": composite_bwd,
@@ -679,6 +734,278 @@ def _trainer_phase(dev, bare_step_ms, tmp):
     return launches, max_err
 
 
+def quantize(img):
+    """(H, W, 3) image on the card -> uint8, as the render CLI writes it."""
+    return render_cli.quantize(img.cpu().numpy())
+
+
+def png_every_filter(a):
+    """PNG bytes of uint8 pixels a (H, W, C) whose rows cycle through the
+    five row filters (None, Sub, Up, Average, Paeth), as adaptive encoders
+    such as libpng's mix them; filtered by the PNG specification's
+    formulas, compressed at zlib's default level."""
+    H, W, C = a.shape
+    x = a.astype(np.int16).reshape(H, W * C)
+    up = np.concatenate([np.zeros((1, W * C), np.int16), x[:-1]])
+    left = np.pad(x, ((0, 0), (C, 0)))[:, :-C]
+    upleft = np.pad(up, ((0, 0), (C, 0)))[:, :-C]
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    filters = np.arange(H) % 5
+    pred = np.stack([np.zeros_like(x), left, up, (left + up) >> 1, paeth])[filters, np.arange(H)]
+    rows = np.concatenate([filters[:, None].astype(np.uint8), ((x - pred) & 255).astype(np.uint8)],
+                          axis=1)
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    header = struct.pack(">IIBBBBB", W, H, 8, {1: 0, 2: 4, 3: 2, 4: 6}[C], 0, 0, 0)
+    return (image_io.PNG_SIGNATURE + chunk(b"IHDR", header)
+            + chunk(b"IDAT", zlib.compress(rows.tobytes())) + chunk(b"IEND", b""))
+
+
+class PanelTimer:
+    """Host time of tensorboard's `SummaryWriter.add_images` while patched
+    (`with`), where tensorboard imports: the train CLI's reports log their
+    views as image panels, as the reference's training_report does."""
+
+    def __init__(self):
+        self.ms = []
+
+    def __enter__(self):
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            self.owner = None
+            return self
+        self.owner, self.fn = SummaryWriter, SummaryWriter.add_images
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return self.fn(*args, **kw)
+            finally:
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+        SummaryWriter.add_images = timed
+        return self
+
+    def __exit__(self, *exc):
+        if self.owner is not None:
+            self.owner.add_images = self.fn
+
+
+def in_process(main, *args, **kw):
+    """A CLI's main(); safe_state replaces sys.stdout (and drops every line
+    with --quiet), so it is restored afterwards."""
+    stdout = sys.stdout
+    try:
+        return main(*args, **kw)
+    finally:
+        sys.stdout = stdout
+
+
+def cli_phase(dev):
+    """Phase 5c: the user's entry path, the train, render and metrics CLIs
+    in process on a COLMAP dataset at 1920x1080. Returns the compositing
+    kernels' launches in the train and render CLIs and the max abs errors
+    of the forward, the backward and the routing against their plain
+    versions at the train CLI's final state."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        return _cli_phase(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _cli_phase(dev, tmp):
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    data, model_dir = os.path.join(tmp, "data"), os.path.join(tmp, "model")
+    bg0 = torch.zeros(3, device=dev)
+
+    # The dataset: trained_r5's renders from 16 orbit views, its centres
+    # coloured by the DC term, through the port's COLMAP and PNG writers.
+    model = load_gaussians_ply(TRAINED_PLY)
+    colors = (np.clip(0.5 + gsmath.SH_C0 * model["features_dc"][:, 0, :], 0.0, 1.0) * 255
+              ).astype(np.uint8)
+    trained = params_from_ply(TRAINED_PLY)
+    center = model["xyz"].mean(axis=0)
+    dist = 2.5 * float(np.quantile(np.linalg.norm(model["xyz"] - center, axis=1), 0.95))
+    cams, images = [], []
+    with torch.no_grad():
+        acts = tuple(activate(trained))
+        for i in range(CLI_VIEWS):
+            cam = orbit_camera(center, dist, 2 * math.pi * i / CLI_VIEWS, W_MAIN, H_MAIN, 70.0,
+                               70.0 * H_MAIN / W_MAIN)
+            cam.image_name = f"view_{i:02d}"
+            arr = cam.arrays()
+            n = int(preprocess(*acts, 3, arr, W_MAIN, H_MAIN, 32, 32).tiles_touched.sum())
+            img = eval_render(trained, arr, bg0, 3, W_MAIN, H_MAIN,
+                              RasterizerConfig(capacity_exact=entry_bucket_capacity(n, 16, 1.2)))[0]
+            cams.append(cam)
+            images.append(quantize(img))
+    del trained, acts
+    t0 = time.perf_counter()
+    write_colmap_scene(data, cams, images, model["xyz"], colors)
+    write_ms = (time.perf_counter() - t0) * 1e3
+    encode_ms = []
+    for px in images[:4]:
+        _, ms = synced_ms(image_io.write_png, os.path.join(tmp, "encode.png"), px)
+        encode_ms.append(ms)
+    _, resize_ms = synced_ms(image_io.resize, images[0], (1600, 900))
+
+    # The port's readers give back every camera and every pixel.
+    info = read_colmap_scene(data, None, eval_split=False)
+    by_name = {c.image_name: c for c in info.train_cameras}
+    decode_ms = []
+    for cam, px in zip(cams, images):
+        got = by_name[cam.image_name]
+        if float(np.abs(got.R - cam.R).max()) > 1e-12 or float(np.abs(got.T - cam.T).max()) > 1e-12:
+            fail(f"cli path: camera {cam.image_name} did not survive the COLMAP files")
+        back, ms = synced_ms(image_io.read_png, got.image_path)
+        decode_ms.append(ms)
+        if not np.array_equal(back, px):
+            fail(f"cli path: image {cam.image_name} did not survive its PNG")
+    if not np.array_equal(info.points, model["xyz"]):
+        fail("cli path: the points did not survive points3D.bin")
+    print(f"cli path: a COLMAP dataset of {CLI_VIEWS} views at {W_MAIN}x{H_MAIN} and "
+          f"{len(info.points)} points written in {write_ms:.1f} ms; cameras within 1e-12 and "
+          f"pixels bit-equal through the port's readers")
+    # A file as PIL or libpng writes one: Average and Paeth rows, which the
+    # reader decodes by anti-diagonals (the cost of a real dataset).
+    mixed = os.path.join(tmp, "every_filter.png")
+    with open(mixed, "wb") as f:
+        f.write(png_every_filter(images[0]))
+    mixed_ms = []
+    for _ in range(3):
+        back, ms = synced_ms(image_io.read_png, mixed)
+        mixed_ms.append(ms)
+        if not np.array_equal(back, images[0]):
+            fail("cli path: the PNG with every row filter did not decode to its pixels")
+    print(f"  PNG at {W_MAIN}x{H_MAIN} RGB: encode {np.median(encode_ms):.1f} ms, decode "
+          f"{np.median(decode_ms):.1f} ms (the port's Sub-filtered files), decode "
+          f"{np.median(mixed_ms):.1f} ms (rows cycling through all five filters, as a real "
+          f"dataset's; bit-equal) (median, host clock); resize {W_MAIN}x{H_MAIN} -> 1600x900 "
+          f"{resize_ms:.1f} ms")
+
+    # Train. Each step's host time is the CLI's own iter_time_ms (the step
+    # ends in a copy of its metrics to the host).
+    reset_launches()
+    with PanelTimer() as panels:
+        t0 = time.perf_counter()
+        scene, tr = in_process(train_cli.main, ["-s", data, "-m", model_dir, *CLI_TRAIN])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    step_ms = [h["iter_time_ms"] for h in tr.history]
+    train_launches = {k: LAUNCH_COUNTERS[k].launches for k in ("composite_fwd", "composite_bwd",
+                                                               "route_grads")}
+    n_train, n_test = CLI_VIEWS - CLI_VIEWS // 8, CLI_VIEWS // 8  # llffhold=8
+    reports = len(CLI_REPORTS) * (n_test + 5)  # each report: the test views and 5 train views
+    want = {"composite_fwd": CLI_STEPS + reports, "composite_bwd": CLI_STEPS,
+            "route_grads": CLI_STEPS}
+    losses_ = [h["loss"] for h in tr.history]
+    first20, last20 = float(np.mean(losses_[:20])), float(np.mean(losses_[-20:]))
+    print(f"  train CLI: {CLI_STEPS} steps, {n_train} train and {n_test} test views, wall "
+          f"{train_s:.2f} s, step median {np.median(step_ms):.3f} ms, p80 "
+          f"{np.percentile(step_ms, 80):.3f} ms (its iter_time_ms, host clock, deferred "
+          f"maintenance excluded); loss first 20 {first20:.6f}, last 20 {last20:.6f}; "
+          f"{len(tr.densify_history)} densifies ({[d['path'] for d in tr.densify_history]}); live "
+          f"{tr.num_live}; launches {train_launches}")
+    optional = {m: importlib.util.find_spec(m) is not None for m in ("tensorboard", "tqdm", "PIL")}
+    print(f"  train CLI: tensorboard image panels {sum(panels.ms):.1f} ms ({len(panels.ms)} "
+          f"add_images calls); importable here: {optional}")
+    for f in ("cfg_args", "cameras.json", "input.ply", f"point_cloud/iteration_{CLI_SAVE}/point_cloud.ply",
+              f"point_cloud/iteration_{CLI_STEPS}/point_cloud.ply", f"chkpnt{CLI_STEPS}.pth"):
+        if not os.path.exists(os.path.join(model_dir, f)):
+            fail(f"cli path: the train CLI wrote no {f}")
+    if tr.iteration != CLI_STEPS or len(step_ms) != CLI_STEPS:
+        fail(f"cli path: the train CLI stopped at iteration {tr.iteration}")
+    if not tr.densify_history:
+        fail("cli path: no densify ran")
+    if not all(math.isfinite(x) for x in losses_) or not last20 < first20:
+        fail(f"cli path: the loss did not fall (first 20 {first20}, last 20 {last20})")
+    if train_launches != want:
+        fail(f"cli path: train CLI launches {train_launches}, the schedule gives {want}")
+
+    # The three train-path kernels at the train CLI's final state (its
+    # padded rows, the dead ones the reset and prunes left, its capacity)
+    # and a test camera, by phase 3's rules; their launches are not the
+    # path's (the counters are reset before the render CLI).
+    p = tr.state.params
+    test_view = scene.get_test_cameras()[0]
+    errs = check_state("train CLI final state", p, tr.active_sh_degree, test_view.arrays(device=dev),
+                       tr.background, tr.raster_cfg.capacity(p.num_points),
+                       (tr.raster_cfg.tile_w, tr.raster_cfg.tile_h), 43)
+
+    # The final PLY, reloaded, renders the bits of the trainer's own state.
+    ply_path = os.path.join(model_dir, f"point_cloud/iteration_{CLI_STEPS}/point_cloud.ply")
+    saved = params_from_ply(ply_path)
+    arr = cams[0].arrays()
+    with torch.no_grad():
+        n = int(preprocess(*activate(saved), 3, arr, W_MAIN, H_MAIN, 32, 32).tiles_touched.sum())
+    cfg = RasterizerConfig(capacity_exact=entry_bucket_capacity(n, 16, 1.2))
+    ours = eval_render(tr.state.params, arr, bg0, 3, W_MAIN, H_MAIN, cfg)
+    back = eval_render(saved, arr, bg0, 3, W_MAIN, H_MAIN, cfg)
+    if not (torch.equal(ours[0], back[0]) and torch.equal(ours[1]["final_t"], back[1]["final_t"])):
+        fail("cli path: the PLY at the last iteration does not render the trainer's bits")
+    del scene, tr, p, ours, back
+
+    # Render.
+    reset_launches()
+    _, render_ms = synced_ms(in_process, render_cli.main, ["-m", model_dir])
+    render_launches = {k: LAUNCH_COUNTERS[k].launches for k in train_launches}
+    if render_launches != {"composite_fwd": CLI_VIEWS, "composite_bwd": 0, "route_grads": 0}:
+        fail(f"cli path: render CLI launches {render_launches} for {CLI_VIEWS} views")
+    names = sorted(c.image_name for c in cams)
+    splits = {"test": names[::8], "train": [n for i, n in enumerate(names) if i % 8]}
+    for split, split_names in splits.items():
+        out = os.path.join(model_dir, split, f"ours_{CLI_STEPS}")
+        for kind in ("renders", "gt"):
+            if sorted(os.listdir(os.path.join(out, kind))) != [f"{i:05d}.png" for i in range(len(split_names))]:
+                fail(f"cli path: {split}/{kind} holds {os.listdir(os.path.join(out, kind))}")
+        for i, name in enumerate(split_names):
+            gt = image_io.read_png(os.path.join(out, "gt", f"{i:05d}.png"))
+            if not np.array_equal(gt, image_io.read_png(os.path.join(data, "images", name + ".png"))):
+                fail(f"cli path: {split} gt {i} is not the dataset's {name}")
+    # the render CLI's cameras: the ones its reader gives (R within 1e-12 of the orbit's)
+    views = [load_camera(by_name[name], 1) for name in names]
+    test_cam = views[names.index(splits["test"][0])]
+    rcfg = RasterizerConfig(capacity_exact=render_cli.auto_capacity(saved, views, RasterizerConfig(), 3))
+    want_png = quantize(eval_render(saved, test_cam.arrays(), bg0, 3, W_MAIN, H_MAIN, rcfg)[0])
+    got_png = image_io.read_png(os.path.join(model_dir, "test", f"ours_{CLI_STEPS}", "renders", "00000.png"))
+    if not np.array_equal(got_png, want_png):
+        fail(f"cli path: the render CLI's test view differs from eval_render's at "
+             f"{int((got_png != want_png).any(-1).sum())} pixels")
+    print(f"  render CLI: {CLI_VIEWS} views in {render_ms / 1e3:.2f} s wall, "
+          f"{render_ms / CLI_VIEWS:.1f} ms per view (scene load, render, two PNGs); launches "
+          f"{render_launches}; gt PNGs bit-equal to the dataset's, test view 0 bit-equal to "
+          f"eval_render of the reloaded PLY")
+
+    # Metrics.
+    _, metrics_ms = synced_ms(in_process, metrics_cli.main, ["-m", model_dir])
+    with open(os.path.join(model_dir, "results.json")) as f:
+        result = json.load(f).get(f"ours_{CLI_STEPS}", {})
+    if not (math.isfinite(result.get("SSIM", math.nan)) and math.isfinite(result.get("PSNR", math.nan))
+            and "LPIPS" in result and result["LPIPS"] is None):
+        fail(f"cli path: results.json holds {result}")
+    psnrs = []
+    for i in range(n_test):
+        out = os.path.join(model_dir, "test", f"ours_{CLI_STEPS}")
+        r = image_io.read_png(os.path.join(out, "renders", f"{i:05d}.png")).astype(np.float64) / 255
+        g = image_io.read_png(os.path.join(out, "gt", f"{i:05d}.png")).astype(np.float64) / 255
+        psnrs.append(20 * math.log10(1 / math.sqrt(float(np.mean((r - g) ** 2)))))
+    if abs(float(np.mean(psnrs)) - result["PSNR"]) > 1e-4:
+        fail(f"cli path: PSNR {result['PSNR']} vs {np.mean(psnrs)} recomputed from the PNGs")
+    print(f"  metrics CLI: {metrics_ms:.1f} ms for {n_test} views; SSIM {result['SSIM']:.6f}, PSNR "
+          f"{result['PSNR']:.6f} dB (float64 from the PNGs {np.mean(psnrs):.6f}), LPIPS null")
+
+    print(f"  phase peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
+          f"wall {time.perf_counter() - t_phase:.1f} s")
+    return train_launches, render_launches, errs
+
+
 def main():
     phase_t0 = [time.perf_counter()]
 
@@ -944,6 +1271,12 @@ def main():
         max_err[k] = max(max_err[k], e)
     phase_done("5b trainer path")
 
+    # ---- 5c. CLI path -------------------------------------------------
+    cli_train_launches, cli_render_launches, cli_errs = cli_phase(dev)
+    for k, e in zip(("composite_fwd", "composite_bwd", "route_grads"), cli_errs):
+        max_err[k] = max(max_err[k], e)
+    phase_done("5c CLI path")
+
     # ---- 6. profiler path ---------------------------------------------
     reset_launches()
     prof = profile_stages.run(profile_stages.STAGES)  # the tool's defaults, on the card
@@ -996,7 +1329,8 @@ def main():
 
     def by_path(name):  # each path's own count, read after its own reset
         if name in train_launches:
-            return {"train": train_launches[name], "trainer": trainer_launches[name]}
+            return {"train": train_launches[name], "trainer": trainer_launches[name],
+                    "cli_train": cli_train_launches[name], "cli_render": cli_render_launches[name]}
         return {"profiler": prof_launches[name]}
 
     print(json.dumps({"kernels": [

@@ -14,10 +14,15 @@ compositing backward and gradient-routing kernels, masked Adam, the
 densification statistics), the host training loop from a point cloud
 (`create_from_pcd` with its KNN -> `Trainer`: camera sampling, SH warm-up,
 the entry-capacity probe and growth, densification on the device or the
-host, opacity reset, checkpoints), and the per-stage profiler
+host, opacity reset, checkpoints), the per-stage profiler
 (`python -m gaussian_splatting_torch.tools.profile_stages`) with the JAX
 tool's probe kernels: the transpose (`ops/relayout.py`) and the column
-sums (`tools/consumers.py`).
+sums (`tools/consumers.py`), and the user's entry path: scene IO
+(`scene/colmap.py`, `scene/dataset_readers.py`, `scene/scene.py`, PNG
+reading and writing and PIL's resize in `utils/image_io.py`), the flag
+groups (`config.py`), the CLIs (`python -m gaussian_splatting_torch.cli.
+{train,render,metrics,full_eval,convert}`) and the live-viewer bridge
+(`viewer/network_gui.py`).
 """
 
 __version__ = "0.1.0"

@@ -533,3 +533,72 @@ def test_device_densify_on_the_card_matches_the_cpu(use_size_prune):
     want_log = want.params.scaling.detach()[child].numpy()
     np.testing.assert_allclose(np.exp(got_log), np.exp(want_log), rtol=1e-6, atol=0)
     np.testing.assert_allclose(got_log, want_log, rtol=0, atol=1e-6)
+
+
+def test_cli_round_trip_on_the_card(tmp_path, monkeypatch):
+    """The train, render and metrics CLIs on the card at 128x72 on a COLMAP
+    dataset written by the port: the files, a falling loss, the ground
+    truths bit-equal to the dataset's PNGs, each render within the
+    forward's rule (every pixel within one level, at most 0.1 % off) of
+    the plain version's render of the saved PLY on the CPU, and finite
+    metrics."""
+    import json
+    import os
+    import sys
+
+    from gaussian_splatting_torch.cli import metrics, render, train
+    from gaussian_splatting_torch.scene.dataset_readers import write_colmap_scene
+    from gaussian_splatting_torch.scene.gaussians import params_from_ply
+    from gaussian_splatting_torch.utils.image_io import read_png
+
+    dev = cuda_device()
+    monkeypatch.setattr(sys, "stdout", sys.stdout)  # safe_state replaces it
+    W, H, n_views = 128, 72, 9
+    rng = np.random.default_rng(0)
+    means, scales, quats, ops, shs = random_scene(400, seed=4)
+    cams, images = [], []
+    for i in range(n_views):
+        a = 2 * math.pi * i / n_views
+        pos = np.array([4 * math.sin(a), 0.0, -4 * math.cos(a)])
+        fwd = -pos / 4
+        right = np.cross([0.0, 1.0, 0.0], fwd)
+        R = np.stack([right, np.cross(fwd, right), fwd], axis=1)
+        cam = Camera(uid=0, colmap_id=0, R=R, T=-R.T @ pos, fovx=math.radians(60),
+                     fovy=math.radians(60) * H / W, image=None, image_name=f"v{i}", width=W, height=H)
+        with torch.no_grad():
+            img = eval_render(params_from_numpy({
+                "xyz": means, "features_dc": shs[:, :1], "features_rest": shs[:, 1:],
+                "scaling": np.log(scales), "rotation": quats,
+                "opacity": np.log(ops / (1 - ops))[:, None]}, device=dev),
+                cam.arrays(device=dev), torch.zeros(3, device=dev), 3, W, H)[0]
+        cams.append(cam)
+        images.append(render.quantize(img.cpu().numpy()))
+    data, model = str(tmp_path / "data"), str(tmp_path / "model")
+    colors = rng.integers(0, 256, (400, 3)).astype(np.uint8)
+    write_colmap_scene(data, cams, images, means + rng.normal(0, 0.1, means.shape), colors)
+
+    _, tr = train.main(["-s", data, "-m", model, "--eval", "--iterations", "30",
+                        "--test_iterations", "30", "--densify_from_iter", "10",
+                        "--densification_interval", "10", "--disable_viewer", "--quiet"])
+    assert tr.iteration == 30 and tr.densify_history
+    assert np.mean([h["loss"] for h in tr.history[-5:]]) < np.mean([h["loss"] for h in tr.history[:5]])
+    render.main(["-m", model, "--quiet"])
+    metrics.main(["-m", model])
+    with open(os.path.join(model, "results.json")) as f:
+        m = json.load(f)["ours_30"]
+    assert math.isfinite(m["SSIM"]) and math.isfinite(m["PSNR"]) and m["LPIPS"] is None
+
+    saved = params_from_ply(os.path.join(model, "point_cloud/iteration_30/point_cloud.ply"),
+                            device="cpu")
+    names = sorted(c.image_name for c in cams)
+    for split, split_names in (("test", names[::8]), ("train", [n for i, n in enumerate(names) if i % 8])):
+        out = os.path.join(model, split, "ours_30")
+        for i, name in enumerate(split_names):
+            gt = read_png(os.path.join(out, "gt", f"{i:05d}.png"))
+            np.testing.assert_array_equal(gt, images[int(name[1:])])
+            cam = cams[int(name[1:])]
+            with torch.no_grad():
+                cpu = eval_render(saved, cam.arrays(device="cpu"), torch.zeros(3), 3, W, H)[0]
+            diff = np.abs(read_png(os.path.join(out, "renders", f"{i:05d}.png")).astype(int)
+                          - render.quantize(cpu.numpy()).astype(int)).max(-1)
+            assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3, (split, name)
