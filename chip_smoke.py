@@ -112,9 +112,14 @@ Phases (any failure exits non-zero; none is caught and passed over):
      `cli.render.main(["-m", M])`:
      14 + 2 renders and ground truths, each ground truth bit-equal to the
      dataset's PNG, the first test render bit-equal to `eval_render` of the
-     reloaded PLY quantised the same way. `cli.metrics.main(["-m", M])`:
-     `ours_200` with a finite SSIM and PSNR and a null LPIPS, the PSNR within
-     1e-4 dB of a float64 one from the PNGs. The compositing kernels'
+     reloaded PLY quantised the same way. Before it, LPIPS: a seeded
+     random-weight .npz of all three backbones (the shapes of the weight
+     generators in tests/test_lpips.py) named by GS_TPU_LPIPS_WEIGHTS; each
+     backbone's LPIPS of two 1080p renders of trained_r5 (angles 0 and 0.2)
+     in float32 within rel 1e-4 of float64, and its ms per pair.
+     `cli.metrics.main(["-m", M])`: `ours_200` with a finite SSIM, PSNR and
+     LPIPS, the PSNR within 1e-4 dB of a float64 one from the PNGs, the
+     LPIPS within rel 1e-4 of `lpips` on the PNG pairs. The compositing kernels'
      counters must equal the schedule: per train-CLI step one launch of
      each, per report one forward for each of the 2 test views and 5 train
      views; one forward per render-CLI view. Prints the PNG encode and
@@ -126,10 +131,42 @@ Phases (any failure exits non-zero; none is caught and passed over):
      CLI's ms per view, the metrics CLI's ms, the phase's peak device
      memory and wall time. `sys.stdout`, which each CLI's `safe_state`
      replaces, is restored after each.
+  5d. sharded path (`parallel/sharding.py`), on the one card:
+     - the kernels at a row origin: trained_r5 at 1920x1080 with 32x32
+       tiles cut into 2 and into 4 strips of tile rows; each strip's
+       clipped lists through the forward and the backward at its origin,
+       held to the plain versions at the same origin by phase 3's rules
+       (the cull and the replayed T included); the stitched image and
+       final T bit-equal to the full frame's kernel output.
+     - 2 ranks on the card over gloo (spawned processes, both on cuda:0,
+       host-staged collectives): phase 5's 20 steps sharded, from the
+       model padded with dead rows to a multiple of 4; every loss within
+       rtol 1e-5 of phase 5's, each rank's rows after step 1 within atol
+       2e-5, step 1's num_visible and num_entries equal, one launch of each
+       train-path kernel per step and rank. Later steps' counts within 1e-5
+       relative and denom after step 20 equal but on at most 1e-5 of the
+       rows, by at most 1: a Gaussian in two strips has its gradient summed
+       per strip, then over the ranks, which rounds otherwise than the one
+       sum of a single device, and a few rects flip from step 2 on.
+       Then `Trainer(mesh=...)` for 60 steps from 65,472 of trained_r5's
+       centres at phase 5b's cameras (a densify every 5 steps from 10, the
+       reset at 40): finite losses whose last 20 average below the first
+       20, equal live counts on both ranks, a device densify and a host
+       densify that doubled the rows, every live opacity <= 0.01 after the
+       reset, one launch of each kernel per step and rank, step 1 within
+       rtol 1e-5 of a single-device Trainer's, and rank 0's checkpoint in a
+       single-device Trainer rendering within the forward's rule of rank
+       0's render of the gathered state.
+     - a one-rank NCCL group in this process: the 20 steps, with every
+       step's counts and denom equal (one strip: the single-device sums).
+     Prints the sharded step's median beside phase 5's (2 ranks on one
+     card: not a scaling figure), peak memory per rank, the phase's wall.
   6. profiler path: `tools/profile_stages.run` at the JAX tool's defaults
      (P = 262,144 random Gaussians, 1920x1080, 32x16 tiles, 10 calls a
-     line, best of 3) over every ported stage; prints the stage table, the
-     header counts and the sat and roofline tables. Every time must be
+     line, best of 3) over every ported stage, `comm` last with NVLink 4's
+     published 450 GB/s per direction as its link rate (a specification,
+     not a measurement) and the run's train step; prints the stage table,
+     the header counts and the sat, roofline and comm tables. Every time must be
      finite; the launch counter of every kernel must rise by exactly the
      calls the stages report making; the entry count must equal this
      script's own preprocess of the profiler's scene. Then the three
@@ -139,8 +176,9 @@ Phases (any failure exits non-zero; none is caught and passed over):
      registers per thread and resident blocks per SM.
   7. the kernels line, then the result line. Each kernel's `launches` is
      the sum of `launches_by_path`: each path's own count, read after its
-     own reset (train, trainer, cli_train and cli_render for the
-     compositing kernels and the routing, profiler for the other three).
+     own reset (train, trainer, cli_train, cli_render, sharded_2rank and
+     sharded_trainer (both ranks' sums), sharded_nccl1 for the compositing
+     kernels and the routing, profiler for the other three).
 
 Each phase's wall time is printed. Scenes are made with numpy from fixed
 seeds. Imports no JAX.
@@ -152,6 +190,7 @@ import math
 import os
 import pickle
 import shutil
+import socket
 import struct
 import subprocess
 import sys
@@ -161,6 +200,8 @@ import zlib
 
 import numpy as np
 import torch
+import torch.distributed as torch_dist
+import torch.multiprocessing as mp
 
 from gaussian_splatting_torch import (
     OptimizationConfig, RasterizerConfig, Trainer, eval_render, init_train_state, rasterize,
@@ -170,6 +211,7 @@ from gaussian_splatting_torch.cli import metrics as metrics_cli
 from gaussian_splatting_torch.cli import render as render_cli
 from gaussian_splatting_torch.cli import train as train_cli
 from gaussian_splatting_torch.ops import binning, gsmath, losses
+from gaussian_splatting_torch.ops import lpips as lpips_mod
 from gaussian_splatting_torch.ops.composite import (
     CompositeOut, blend_pair_counts, composite_bwd_torch, composite_fwd_torch, route_grads_torch,
 )
@@ -184,12 +226,13 @@ from gaussian_splatting_torch.ops.rasterize import entry_bucket_capacity
 from gaussian_splatting_torch.ops.relayout import (
     relayout_to_rows, relayout_to_rows_cuda, relayout_to_rows_torch,
 )
+from gaussian_splatting_torch.parallel import sharding
 from gaussian_splatting_torch.scene.cameras import orbit_camera
 from gaussian_splatting_torch.scene.dataset_readers import (
     load_camera, read_colmap_scene, write_colmap_scene,
 )
 from gaussian_splatting_torch.scene.gaussians import (
-    PARAM_NAMES, activate, capacity_bucket, params_from_ply,
+    PARAM_NAMES, activate, capacity_bucket, params_from_numpy, params_from_ply, repad,
 )
 from gaussian_splatting_torch.scene.ply import (
     load_gaussians_ply, load_point_cloud_ply, save_gaussians_ply, save_point_cloud_ply,
@@ -231,6 +274,7 @@ SUM_K = (1_900_544, 1_339_001)  # the profiler's capacity at its defaults, and a
 LAUNCH_COUNTERS = {"composite_fwd": composite_fwd, "composite_bwd": composite_bwd,
                    "route_grads": route_grads, "relayout_to_rows": relayout_to_rows,
                    "consume_rows": consume_rows, "consume_t": consume_t}
+TRAIN_KERNELS = ("composite_fwd", "composite_bwd", "route_grads")
 
 LOOSE, SHARE = 1e-2, 1e-3  # every pixel within LOOSE; at most SHARE over the tight bound
 GRAD_L2, GRAD_ROW, GRAD_SHARE = 1e-4, 1e-3, 1e-3  # backward / routing rule, see phase 3
@@ -292,10 +336,10 @@ def compare(name, out, ref, tight):
     return max(errs)
 
 
-def check_cull(name, out, args, bg, W, H, tile):
+def check_cull(name, out, args, bg, W, H, tile, origin_y=0):
     """The forward kernel's outputs must be the bits of its form with the
     box cull off: the cull may leave out only pairs the blend skips."""
-    full = composite_fwd_unculled_cuda(*args, bg, W, H, *tile)
+    full = composite_fwd_unculled_cuda(*args, bg, W, H, *tile, origin_y=origin_y)
     torch.cuda.synchronize()
     for field in ("image", "final_t"):
         a, b = getattr(out, field), getattr(full, field)
@@ -325,20 +369,20 @@ def compare_grads(name, got, ref):
     return mx
 
 
-def check_backward(name, args, lists, bg, W, H, tile, seed):
+def check_backward(name, args, lists, bg, W, H, tile, seed, origin_y=0):
     """Backward and routing kernels vs their plain versions on the forward
     kernel's outputs and seeded random cotangents; the replayed final T must
     be the forward's, and two runs of each kernel the same bits. Returns
     the max abs errors of the backward's rows and of the routing's sums."""
     dev = bg.device
-    fwd = composite_fwd_cuda(*args, bg, W, H, *tile)
+    fwd = composite_fwd_cuda(*args, bg, W, H, *tile, origin_y=origin_y)
     gen = torch.Generator(device=dev).manual_seed(seed)
     g_img = torch.randn((H, W, 3), generator=gen, device=dev)
     g_ft = torch.randn((H, W), generator=gen, device=dev)
     bargs = (*args[:3], lists.entry_src, *args[3:], fwd.image, fwd.final_t, g_img, g_ft, W, H, *tile)
     replay_t = torch.full((H, W), -1.0, device=dev)
-    rows = composite_bwd_cuda(*bargs, replay_t=replay_t)
-    rows_again = composite_bwd_cuda(*bargs)
+    rows = composite_bwd_cuda(*bargs, origin_y=origin_y, replay_t=replay_t)
+    rows_again = composite_bwd_cuda(*bargs, origin_y=origin_y)
     torch.cuda.synchronize()
     if not torch.equal(replay_t, fwd.final_t):
         n_diff = int((replay_t != fwd.final_t).sum())
@@ -346,7 +390,7 @@ def check_backward(name, args, lists, bg, W, H, tile, seed):
     n, P = int(lists.total), args[3].shape[0]  # rows past n: padding, never written or read
     if not torch.equal(rows[:n], rows_again[:n]):
         fail(f"{name}: two runs of the backward kernel differ")
-    rows_ref = composite_bwd_torch(*bargs)
+    rows_ref = composite_bwd_torch(*bargs, origin_y=origin_y)
     err_rows = compare_grads(f"{name} backward rows", rows[:n], rows_ref[:n])
     off, cnt = lists.gauss_offset, lists.gauss_count
     sums = route_grads_cuda(rows, off, cnt, P)
@@ -534,6 +578,29 @@ def check_transpose_and_sums(dev):
     return err
 
 
+def trainer_cameras(pts):
+    """Phase 5b's cameras: TRAINER_CAMERAS orbit views at 1920x1080 around
+    the trained model's centres `pts`, each with the model's render as its
+    target; and their extent."""
+    trained = params_from_ply(TRAINED_PLY)
+    bg0 = torch.zeros(3, device=trained.xyz.device)
+    center = pts.mean(axis=0)
+    dist = 2.5 * float(np.quantile(np.linalg.norm(pts - center, axis=1), 0.95))
+    cams = [orbit_camera(center, dist, 2 * math.pi * i / TRAINER_CAMERAS, W_MAIN, H_MAIN, 70.0,
+                         70.0 * H_MAIN / W_MAIN) for i in range(TRAINER_CAMERAS)]
+    with torch.no_grad():
+        acts = tuple(activate(trained))
+        for cam in cams:
+            arr = cam.arrays()
+            n = int(preprocess(*acts, 3, arr, W_MAIN, H_MAIN, 32, 32).tiles_touched.sum())
+            img = eval_render(trained, arr, bg0, 3, W_MAIN, H_MAIN,
+                              RasterizerConfig(capacity_exact=entry_bucket_capacity(n, 16, 1.2)))[0]
+            cam.image = img.clamp(0.0, 1.0).permute(2, 0, 1).cpu().numpy()
+    centers = np.stack([c.camera_center for c in cams]).astype(np.float64)
+    extent = 1.1 * float(np.linalg.norm(centers - centers.mean(axis=0), axis=1).max())
+    return cams, extent
+
+
 def trainer_phase(dev, bare_step_ms):
     """Phase 5b: the host training loop from a point cloud at 1920x1080.
     Returns the three train-path kernels' launches and their max abs errors
@@ -565,23 +632,7 @@ def _trainer_phase(dev, bare_step_ms, tmp):
     if not np.array_equal(pts, model["xyz"]) or float(np.abs(cols - colors).max()) > 1 / 255:
         fail("trainer path: the point cloud did not survive its PLY round trip")
 
-    # Cameras, and their targets: the trained model's renders.
-    trained = params_from_ply(TRAINED_PLY)
-    center = pts.mean(axis=0)
-    dist = 2.5 * float(np.quantile(np.linalg.norm(pts - center, axis=1), 0.95))
-    cams = [orbit_camera(center, dist, 2 * math.pi * i / TRAINER_CAMERAS, W_MAIN, H_MAIN, 70.0,
-                         70.0 * H_MAIN / W_MAIN) for i in range(TRAINER_CAMERAS)]
-    with torch.no_grad():
-        acts = tuple(activate(trained))
-        for cam in cams:
-            arr = cam.arrays()
-            n = int(preprocess(*acts, 3, arr, W_MAIN, H_MAIN, 32, 32).tiles_touched.sum())
-            img = eval_render(trained, arr, bg0, 3, W_MAIN, H_MAIN,
-                              RasterizerConfig(capacity_exact=entry_bucket_capacity(n, 16, 1.2)))[0]
-            cam.image = img.clamp(0.0, 1.0).permute(2, 0, 1).cpu().numpy()
-    del trained, acts
-    centers = np.stack([c.camera_center for c in cams]).astype(np.float64)
-    extent = 1.1 * float(np.linalg.norm(centers - centers.mean(axis=0), axis=1).max())
+    cams, extent = trainer_cameras(pts)
 
     def new_trainer(raster_cfg=RasterizerConfig(tile_w=32, tile_h=32)):
         return Trainer(cameras=cams, opt=TRAINER_OPT, raster_cfg=raster_cfg, sh_degree=3,
@@ -987,23 +1038,421 @@ def _cli_phase(dev, tmp):
     _, metrics_ms = synced_ms(in_process, metrics_cli.main, ["-m", model_dir])
     with open(os.path.join(model_dir, "results.json")) as f:
         result = json.load(f).get(f"ours_{CLI_STEPS}", {})
-    if not (math.isfinite(result.get("SSIM", math.nan)) and math.isfinite(result.get("PSNR", math.nan))
-            and "LPIPS" in result and result["LPIPS"] is None):
+    if not all(math.isfinite(result.get(k) or math.nan) for k in ("SSIM", "PSNR", "LPIPS")):
         fail(f"cli path: results.json holds {result}")
-    psnrs = []
+    psnrs, lpipss = [], []
     for i in range(n_test):
         out = os.path.join(model_dir, "test", f"ours_{CLI_STEPS}")
         r = image_io.read_png(os.path.join(out, "renders", f"{i:05d}.png")).astype(np.float64) / 255
         g = image_io.read_png(os.path.join(out, "gt", f"{i:05d}.png")).astype(np.float64) / 255
         psnrs.append(20 * math.log10(1 / math.sqrt(float(np.mean((r - g) ** 2)))))
+        lpipss.append(float(lpips_mod.lpips(torch.tensor(r, dtype=torch.float32, device=dev),
+                                            torch.tensor(g, dtype=torch.float32, device=dev))))
     if abs(float(np.mean(psnrs)) - result["PSNR"]) > 1e-4:
         fail(f"cli path: PSNR {result['PSNR']} vs {np.mean(psnrs)} recomputed from the PNGs")
+    if abs(float(np.mean(lpipss)) - result["LPIPS"]) > 1e-4 * abs(float(np.mean(lpipss))):
+        fail(f"cli path: LPIPS {result['LPIPS']} vs {np.mean(lpipss)} from the PNGs")
     print(f"  metrics CLI: {metrics_ms:.1f} ms for {n_test} views; SSIM {result['SSIM']:.6f}, PSNR "
-          f"{result['PSNR']:.6f} dB (float64 from the PNGs {np.mean(psnrs):.6f}), LPIPS null")
+          f"{result['PSNR']:.6f} dB (float64 from the PNGs {np.mean(psnrs):.6f}), LPIPS (vgg, "
+          f"seeded random weights) {result['LPIPS']:.7f} (lpips on the PNGs {np.mean(lpipss):.7f})")
 
     print(f"  phase peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
           f"wall {time.perf_counter() - t_phase:.1f} s")
     return train_launches, render_launches, errs
+
+
+# ---- phase 5d: the sharded path -------------------------------------------
+
+SHARD_STRIPS = (2, 4)  # strips of the in-process kernel check at an origin
+RANKS = 2  # ranks of the gloo run, both on the one card
+RANK_TIMEOUT = 600  # seconds for the two ranks' processes together
+SHARDED_TRAINER_STEPS = 60
+# A random subset of trained_r5's centres that leaves 64 free rows of its
+# 65,536: the first densify that adds more takes the host path and doubles
+# the rows; the rest run on the device. The reset at 40.
+SHARDED_TRAINER_POINTS = 65_472
+SHARDED_TRAINER_OPT = OptimizationConfig(densify_from_iter=5, densification_interval=5,
+                                         densify_until_iter=SHARDED_TRAINER_STEPS,
+                                         opacity_reset_interval=40)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def strip_inputs(prep, n, r, W, H, tile):
+    """Rank r's strip of n: the forward kernel's scene arguments on the
+    strip's clipped tile lists, the lists, the entry count, its height and
+    its row origin."""
+    geo = sharding.StripGeometry.of(W, H, *tile, n)
+    lo = r * geo.rows_per
+    rmin, rmax, tiles = sharding.strip_rects(prep.rect_min, prep.rect_max, prep.visible, lo,
+                                             geo.rows_per)
+    capacity = RasterizerConfig(capacity_exact=max(int(tiles.sum()), 1)).capacity(tiles.shape[0])
+    lists = binning.build_tile_lists(rmin, rmax, prep.depths, tiles, geo.grid_x, geo.rows_per,
+                                     capacity)
+    args = (lists.gauss_id, lists.tile_start, lists.tile_stop, prep.means2d, prep.conic,
+            prep.rgb, prep.opacity)
+    return args, lists, int(lists.total), geo.strip_h, lo * tile[1]
+
+
+def check_strips(acts, cam, bg, full):
+    """The compositing kernels on trained_r5's strips at their row origins
+    (SHARD_STRIPS strips of 32x32 tile rows at 1920x1080), by phase 3's
+    rules against their plain versions at the same origin, the cull
+    included; the stitched image and final T bit-equal to the full frame's
+    kernel output `full`. Returns the max abs errors of the forward, the
+    backward and the routing."""
+    err = [0.0, 0.0, 0.0]
+    with torch.no_grad():
+        prep = preprocess(*acts, 3, cam, W_MAIN, H_MAIN, 32, 32)
+    for n in SHARD_STRIPS:
+        images, final_ts = [], []
+        for r in range(n):
+            args, lists, total, Hs, oy = strip_inputs(prep, n, r, W_MAIN, H_MAIN, (32, 32))
+            name = f"strip {r} of {n} (origin_y {oy}, K={total})"
+            with torch.no_grad():
+                out = composite_fwd_cuda(*args, bg, W_MAIN, Hs, 32, 32, origin_y=oy)
+                ref = composite_fwd_torch(*args, bg, W_MAIN, Hs, 32, 32, origin_y=oy)
+            torch.cuda.synchronize()
+            err[0] = max(err[0], compare(name, out, ref, 1e-5))
+            check_cull(name, out, args, bg, W_MAIN, Hs, (32, 32), origin_y=oy)
+            e_rows, e_route = check_backward(name, args, lists, bg, W_MAIN, Hs, (32, 32),
+                                             seed=50 + r, origin_y=oy)
+            err[1], err[2] = max(err[1], e_rows), max(err[2], e_route)
+            images.append(out.image)
+            final_ts.append(out.final_t)
+        for field, got, want in (("image", torch.cat(images)[:H_MAIN], full.image),
+                                 ("final_t", torch.cat(final_ts)[:H_MAIN], full.final_t)):
+            if not torch.equal(got, want):
+                fail(f"{n} strips: the stitched {field} differs from the full frame's at "
+                     f"{int((got != want).sum())} elements")
+        print(f"  {n} strips stitched: image and final_t bit-equal to the full frame's kernel")
+    return err
+
+
+def sharded_steps(mesh, gt, cam, capacity):
+    """STEPS sharded train steps of trained_r5 from its PLY, as phase 5's
+    single-device steps (same camera, target, capacity, optimizer). Returns
+    this rank's metrics per step, its rows after step 1 and its statistics
+    after the last, its host-clock step times, launches and peak memory."""
+    model = load_gaussians_ply(TRAINED_PLY)
+    n = len(model["xyz"])  # padded with dead rows to a multiple of every rank count
+    padded, alive = repad(model, np.ones(n, bool), -(-n // 4) * 4)
+    state = sharding.shard_train_state(init_train_state(params_from_numpy(padded, alive)), mesh)
+    rows = state.params.num_points
+    step = sharding.make_sharded_train_step(mesh, 3, W_MAIN, H_MAIN,
+                                            RasterizerConfig(capacity_exact=capacity),
+                                            OptimizationConfig(), 1.0)
+    bg0 = torch.zeros(3, device=gt.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out = {k: [] for k in ("loss", "num_visible", "num_entries", "max_strip_entries", "ms")}
+    for it in range(1, STEPS + 1):
+        t0 = time.perf_counter()
+        m = step(state, cam, gt, bg0, it)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        for k in ("loss", "num_visible", "num_entries", "max_strip_entries"):
+            out[k].append(float(m[k]))
+        if it == 1:
+            out["step1"] = {k: getattr(state.params, k).detach().cpu().clone() for k in PARAM_NAMES}
+    out["launches"] = {k: LAUNCH_COUNTERS[k].launches for k in TRAIN_KERNELS}
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    out["denom"] = state.denom.cpu()
+    out["rows"] = (mesh.rank * rows, (mesh.rank + 1) * rows)
+    return out
+
+
+def check_sharded(name, ranks, ref, exact):
+    """Each rank's sharded steps against phase 5's single-device steps:
+    every loss within rtol 1e-5, the rows after step 1 within atol 2e-5,
+    one launch of each train-path kernel per step and rank, and the entry
+    and visible counts of step 1 equal. With `exact` (one rank: one strip,
+    the single-device sums) every step's counts and denom after the last
+    are equal too. Over several strips a Gaussian's gradient is summed per
+    strip and then over the ranks, which rounds otherwise than one sum, so
+    from step 2 on a few rects can flip: the counts within 1e-5 of
+    single-device's, and denom equal but on at most 1e-5 of the rows, by
+    at most 1."""
+    for r, got in enumerate(ranks):
+        lo, hi = got["rows"]
+        live = min(hi, len(ref["denom"])) - lo  # the rows past the model's are padding
+        for it, (a, b) in enumerate(zip(got["loss"], ref["loss"]), 1):
+            if not (math.isfinite(a) and abs(a - b) <= 1e-5 * abs(b)):
+                fail(f"{name} rank {r}: step {it} loss {a} vs single-device {b}")
+        apart = {}
+        for k in ("num_visible", "num_entries"):
+            d = [abs(a - b) for a, b in zip(got[k], ref[k])]
+            apart[k] = max(d)
+            if d[0] or (exact and any(d)) or any(x > 1e-5 * b for x, b in zip(d, ref[k])):
+                fail(f"{name} rank {r}: {k} {got[k]} vs single-device {ref[k]}")
+        worst = max(float((got["step1"][k][:live] - ref["step1"][k][lo:hi]).abs().max())
+                    for k in PARAM_NAMES)
+        if worst > 2e-5:
+            fail(f"{name} rank {r}: parameters after step 1 off by {worst:.3e}")
+        dd = (got["denom"][:live] - ref["denom"][lo:hi]).abs()
+        n_diff = int((dd > 0).sum())
+        if (exact and n_diff) or n_diff > 1e-5 * live or float(dd.max()) > 1:
+            fail(f"{name} rank {r}: denom differs on {n_diff} rows (by up to {float(dd.max())})")
+        if any(n != STEPS for n in got["launches"].values()):
+            fail(f"{name} rank {r}: launches {got['launches']} for {STEPS} steps")
+        print(f"  {name} rank {r} (rows {lo}..{hi}): {STEPS} losses within rtol 1e-5 of the "
+              f"single-device steps ({got['loss'][0]:.6f} -> {got['loss'][-1]:.6f}); step 1's "
+              f"counts equal, later ones at most {apart['num_entries']:.0f} entries and "
+              f"{apart['num_visible']:.0f} visible apart; rows after step 1 within {worst:.2e}; "
+              f"denom differs on {n_diff} rows; launches {got['launches']}; largest strip "
+              f"{int(max(got['max_strip_entries']))} entries; peak device memory "
+              f"{got['peak_mib']:.1f} MiB")
+    return {k: sum(g["launches"][k] for g in ranks) for k in TRAIN_KERNELS}
+
+
+def sharded_trainer_cloud():
+    """SHARDED_TRAINER_POINTS of trained_r5's centres (a seeded random
+    subset), coloured by the DC term; phase 5b's cameras and extent."""
+    model = load_gaussians_ply(TRAINED_PLY)
+    keep = np.sort(np.random.default_rng(0).permutation(len(model["xyz"]))[:SHARDED_TRAINER_POINTS])
+    colors = np.clip(0.5 + gsmath.SH_C0 * model["features_dc"][:, 0, :], 0.0, 1.0)
+    cams, extent = trainer_cameras(model["xyz"])
+    return model["xyz"][keep], colors[keep].astype(np.float32), cams, extent
+
+
+def new_sharded_trainer(cams, extent, mesh=None):
+    return Trainer(cameras=cams, opt=SHARDED_TRAINER_OPT,
+                   raster_cfg=RasterizerConfig(tile_w=32, tile_h=32), sh_degree=3,
+                   cameras_extent=extent, spatial_lr_scale=extent, seed=0, mesh=mesh)
+
+
+def sharded_trainer(mesh, tmp):
+    """Trainer(mesh=...) for SHARDED_TRAINER_STEPS steps from the subset
+    cloud. Returns its history, maintenance, live counts and launches; rank
+    0 writes a checkpoint and renders camera 0 of the gathered state."""
+    pts, cols, cams, extent = sharded_trainer_cloud()
+    tr = new_sharded_trainer(cams, extent, mesh)
+    tr.init_from_pcd(pts, cols)
+    reset_launches()
+    top_after_reset = None
+    for _ in range(SHARDED_TRAINER_STEPS):
+        tr.step()
+        if tr.iteration == SHARDED_TRAINER_OPT.opacity_reset_interval:
+            p = tr.state.params
+            local = torch.sigmoid(p.opacity.detach()[:, 0]).masked_fill(~p.alive, 0).max()
+            top_after_reset = float(sharding.gather_rows(local[None], mesh).max())
+    launches = {k: LAUNCH_COUNTERS[k].launches for k in TRAIN_KERNELS}
+    out = {"loss": [h["loss"] for h in tr.history], "densify": tr.densify_history,
+           "num_live": tr.num_live, "local_live": int(tr.state.params.alive.sum()),
+           "rows": tr.num_rows, "launches": launches, "top_after_reset": top_after_reset}
+    whole = sharding.gather_train_state(tr.state, mesh)
+    tr.save_checkpoint(os.path.join(tmp, "sharded.pkl"))  # every rank calls; rank 0 writes
+    if mesh.rank == 0:
+        arr, p = cams[0].arrays(), whole.params
+        with torch.no_grad():
+            n = int(preprocess(*activate(p), 3, arr, W_MAIN, H_MAIN, 32, 32,
+                               alive=p.alive).tiles_touched.sum())
+        cap = entry_bucket_capacity(n, 16, 1.2)
+        img, aux = eval_render(p, arr, tr.background, 3, W_MAIN, H_MAIN,
+                               RasterizerConfig(capacity_exact=cap))
+        out["render"] = (img.cpu(), aux["final_t"].cpu(), cap)
+    return out
+
+
+def rank_main(rank, world, port, tmp, capacity):
+    """One rank of the gloo run (a spawned process; both ranks on cuda:0):
+    phase 5's steps sharded, then the sharded Trainer. Writes its results
+    to tmp/rank<r>.pt."""
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sharding.initialize_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo")
+    try:
+        mesh = sharding.make_mesh(world)
+        gt, center, dist_ = torch.load(os.path.join(tmp, "target.pt"), weights_only=False)
+        cam = orbit_camera(center, dist_, 0.0, W_MAIN, H_MAIN, 70.0, 70.0 * H_MAIN / W_MAIN).arrays()
+        res = {"steps": sharded_steps(mesh, gt.to(dev), cam, capacity),
+               "trainer": sharded_trainer(mesh, tmp)}
+        torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        torch_dist.destroy_process_group()
+
+
+def sharded_phase(dev, gt, center, dist_, capacity, ref, bare_step_ms):
+    """Phase 5d: the kernels at a row origin; phase 5's steps on 2 ranks of
+    one card (gloo) and on a one-rank NCCL group; the sharded Trainer on the
+    2 ranks. Returns the launches of each path and the max abs errors of
+    the three kernels at the strips."""
+    t_phase = time.perf_counter()
+    bg0 = torch.zeros(3, device=dev)
+    cam = orbit_camera(center, dist_, 0.0, W_MAIN, H_MAIN, 70.0, 70.0 * H_MAIN / W_MAIN).arrays()
+    with torch.no_grad():
+        acts = tuple(activate(params_from_ply(TRAINED_PLY)))
+        args, _, _ = sorted_inputs(acts, cam, W_MAIN, H_MAIN, (32, 32))
+        full = composite_fwd_cuda(*args, bg0, W_MAIN, H_MAIN, 32, 32)
+    errs = check_strips(acts, cam, bg0, full)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        torch.save((gt.cpu(), center, dist_), os.path.join(tmp, "target.pt"))
+        ctx = mp.get_context("spawn")
+        port = free_port()
+        procs = [ctx.Process(target=rank_main, args=(r, RANKS, port, tmp, capacity))
+                 for r in range(RANKS)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = t0 + RANK_TIMEOUT
+        for p in procs:
+            p.join(max(deadline - time.perf_counter(), 1.0))
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.terminate()
+            p.join(10)
+        if alive or any(p.exitcode != 0 for p in procs):
+            fail(f"sharded path: rank processes exited {[p.exitcode for p in procs]}"
+                 f"{' (timed out)' if alive else ''}")
+        ranks_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(RANKS)]
+        print(f"sharded path: {RANKS} ranks on one card over gloo (host-staged), each its own "
+              f"process, {ranks_s:.1f} s wall for both runs")
+        launches_2 = check_sharded("2 ranks, gloo", [r["steps"] for r in ranks], ref, False)
+        med = [float(np.median(r["steps"]["ms"][-TIMED_STEPS:])) for r in ranks]
+        print(f"  sharded step median {', '.join(f'{m:.3f}' for m in med)} ms (ranks 0, 1; last "
+              f"{TIMED_STEPS} steps, host clock) beside phase 5's single-device {bare_step_ms:.3f} ms: "
+              f"2 ranks on one card, host-staged gloo; not a scaling figure")
+        launches_trainer = check_sharded_trainer([r["trainer"] for r in ranks], tmp, dev)
+
+        # The same steps on a one-rank NCCL group, in this process.
+        sharding.initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+        try:
+            one = sharded_steps(sharding.make_mesh(1), gt, cam, capacity)
+        finally:
+            torch_dist.destroy_process_group()
+        launches_1 = check_sharded("1 rank, NCCL", [one], ref, True)
+        print(f"  one-rank NCCL step median {np.median(one['ms'][-TIMED_STEPS:]):.3f} ms (last "
+              f"{TIMED_STEPS} steps, host clock) beside phase 5's single-device {bare_step_ms:.3f} ms")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"sharded_2rank": launches_2, "sharded_trainer": launches_trainer,
+            "sharded_nccl1": launches_1}, errs
+
+
+def check_sharded_trainer(ranks, tmp, dev):
+    """The sharded Trainer's run: finite losses that fall, equal live counts
+    on every rank, a device densify and a host densify that grew the rows,
+    the reset, one launch of each kernel per step and rank; step 1 equal to
+    the single-device Trainer's; rank 0's checkpoint in a single-device
+    Trainer renders within the forward's rule of rank 0's own render."""
+    r0 = ranks[0]
+    losses_ = r0["loss"]
+    first20, last20 = float(np.mean(losses_[:20])), float(np.mean(losses_[-20:]))
+    if not all(math.isfinite(x) for x in losses_) or not last20 < first20:
+        fail(f"sharded trainer: losses first 20 {first20}, last 20 {last20}")
+    if len({r["num_live"] for r in ranks}) != 1 or sum(r["local_live"] for r in ranks) != r0["num_live"]:
+        fail(f"sharded trainer: live counts {[(r['num_live'], r['local_live']) for r in ranks]}")
+    paths = [d["path"] for d in r0["densify"]]
+    grew = [d for d in r0["densify"] if d["path"] == "host" and d["capacity"] > d["rows_before"]]
+    if "device" not in paths or not grew:
+        fail(f"sharded trainer: densify paths {paths}; a device densify and a host densify that "
+             f"grew the rows are both needed")
+    if r0["top_after_reset"] is None or r0["top_after_reset"] > 0.01:
+        fail(f"sharded trainer: a live opacity of {r0['top_after_reset']} after the reset")
+    for r, got in enumerate(ranks):
+        if any(n != SHARDED_TRAINER_STEPS for n in got["launches"].values()):
+            fail(f"sharded trainer rank {r}: launches {got['launches']}")
+
+    pts, cols, cams, extent = sharded_trainer_cloud()
+    one = new_sharded_trainer(cams, extent)
+    one.init_from_pcd(pts, cols)
+    saved = {k: LAUNCH_COUNTERS[k].launches for k in TRAIN_KERNELS}
+    first = one.step()["loss"]
+    if abs(first - losses_[0]) > 1e-5 * abs(first):
+        fail(f"sharded trainer: step 1 loss {losses_[0]} vs the single-device Trainer's {first}")
+    back = new_sharded_trainer(cams, extent)
+    back.load_checkpoint(os.path.join(tmp, "sharded.pkl"))
+    if back.num_live != r0["num_live"] or back.iteration != SHARDED_TRAINER_STEPS:
+        fail(f"sharded trainer: the checkpoint gave {back.num_live} live rows at {back.iteration}")
+    img, final_t, cap = r0["render"]
+    mine = eval_render(back.state.params, cams[0].arrays(), back.background, 3, W_MAIN, H_MAIN,
+                       RasterizerConfig(capacity_exact=cap))
+    torch.cuda.synchronize()
+    compare("sharded trainer checkpoint, single device", CompositeOut(mine[0].cpu(),
+            mine[1]["final_t"].cpu()), CompositeOut(img, final_t), 1e-5)
+    for k, n in saved.items():  # these launches are not the path's
+        LAUNCH_COUNTERS[k].launches = n
+    print(f"  sharded trainer: {SHARDED_TRAINER_STEPS} steps on {len(ranks)} ranks from "
+          f"{len(pts)} points, loss {losses_[0]:.6f} -> {losses_[-1]:.6f} (first 20 {first20:.6f}, "
+          f"last 20 {last20:.6f}); step 1 within rtol 1e-5 of the single-device Trainer's "
+          f"({first:.6f}); live {r0['num_live']} of {r0['rows']} rows on every rank "
+          f"({[r['local_live'] for r in ranks]} per shard); densifies {paths} (host at "
+          f"{[d['iteration'] for d in grew]}, rows {grew[0]['rows_before']} -> "
+          f"{grew[0]['capacity']}); max opacity after the reset {r0['top_after_reset']:.5f}; "
+          f"launches per rank {[r['launches'] for r in ranks]}; rank 0's checkpoint renders "
+          f"within the forward's rule in a single-device Trainer")
+    return {k: sum(r["launches"][k] for r in ranks) for k in TRAIN_KERNELS}
+
+
+# ---- LPIPS ---------------------------------------------------------------
+
+LPIPS_NETS = ("vgg", "alex", "squeeze")
+_VGG_STAGES = [(64, 2), (128, 2), (256, 3), (512, 3), (512, 3)]
+_ALEX_CONVS = [(3, 64, 11), (64, 192, 5), (192, 384, 3), (384, 256, 3), (256, 256, 3)]
+_SQ_FIRES = [(64, 16, 64), (128, 16, 64), (128, 32, 128), (256, 32, 128),
+             (256, 48, 192), (384, 48, 192), (384, 64, 256), (512, 64, 256)]
+_SQ_CH = [64, 128, 256, 384, 384, 512, 512]
+
+
+def lpips_random_weights(seed=11):
+    """Seeded random weights of all three backbones, with the shapes of
+    tests/test_lpips.py::make_random_weights and its alex and squeeze
+    analogs (He-scaled convs, small biases, heads uniform in [0, 0.2])."""
+    rng = np.random.default_rng(seed)
+
+    def conv(ic, oc, k):
+        return (rng.normal(0, np.sqrt(2.0 / (ic * k * k)), (oc, ic, k, k)).astype(np.float32),
+                rng.normal(0, 0.02, oc).astype(np.float32))
+
+    out, in_c, ci = {}, 3, 0
+    for out_c, n_convs in _VGG_STAGES:
+        for _ in range(n_convs):
+            out[f"conv{ci}_w"], out[f"conv{ci}_b"] = conv(in_c, out_c, 3)
+            in_c, ci = out_c, ci + 1
+    for j, (out_c, _) in enumerate(_VGG_STAGES):
+        out[f"lin{j}_w"] = rng.uniform(0.0, 0.2, out_c).astype(np.float32)
+    for i, (ic, oc, k) in enumerate(_ALEX_CONVS):
+        out[f"alex_conv{i}_w"], out[f"alex_conv{i}_b"] = conv(ic, oc, k)
+        out[f"alex_lin{i}_w"] = rng.uniform(0.0, 0.2, oc).astype(np.float32)
+    out["sq_conv0_w"], out["sq_conv0_b"] = conv(3, 64, 3)
+    for f, (ic, sq, e) in enumerate(_SQ_FIRES):
+        out[f"sq{f}_s_w"], out[f"sq{f}_s_b"] = conv(ic, sq, 1)
+        out[f"sq{f}_e1_w"], out[f"sq{f}_e1_b"] = conv(sq, e, 1)
+        out[f"sq{f}_e3_w"], out[f"sq{f}_e3_b"] = conv(sq, e, 3)
+    for j, c in enumerate(_SQ_CH):
+        out[f"sq_lin{j}_w"] = rng.uniform(0.0, 0.2, c).astype(np.float32)
+    return out
+
+
+def lpips_phase(img_a, img_b):
+    """LPIPS of two 1080p renders of trained_r5 on the card, per backbone:
+    float32 within rel 1e-4 of float64 (weights of the .npz named by
+    GS_TPU_LPIPS_WEIGHTS); ms per pair in float32 (CUDA events)."""
+    for net in LPIPS_NETS:
+        if not lpips_mod.lpips_available(net):
+            fail(f"lpips: no {net} weights")
+        d32 = float(lpips_mod.lpips(img_a, img_b, net))
+        d64 = float(lpips_mod.lpips(img_a.double(), img_b.double(), net))
+        torch.cuda.synchronize()
+        if not (math.isfinite(d32) and abs(d32 - d64) <= 1e-4 * abs(d64) and d64 > 0):
+            fail(f"lpips {net}: float32 {d32} vs float64 {d64}")
+        ms = cuda_time_ms(lambda: lpips_mod.lpips(img_a, img_b, net), 3)
+        print(f"  lpips {net} (seeded random weights) at {W_MAIN}x{H_MAIN}: {d32:.7f}, float64 "
+              f"{d64:.7f} (rel {abs(d32 - d64) / d64:.2e}); {ms:.2f} ms per pair in float32 "
+              f"(CUDA events, TF32 off)")
+    lpips_mod._load_weights.cache_clear()  # free the float64 copies on the card
 
 
 def main():
@@ -1117,6 +1566,7 @@ def main():
         torch.cuda.synchronize()
         frame_times.append((time.perf_counter() - t0) * 1e3)
     launches = composite_fwd.launches
+    render0 = img.clamp(0.0, 1.0)  # for phase 5c's LPIPS
     frame_ms, frame_p80 = np.median(frame_times), np.percentile(frame_times, 80)
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     if launches != FRAMES or composite_bwd.launches or route_grads.launches:
@@ -1173,7 +1623,7 @@ def main():
     state = init_train_state(params_from_ply(TRAINED_PLY))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    step_times, step_losses, step_entries = [], [], []
+    step_times, step_losses, step_entries, step_visible = [], [], [], []
     reset_launches()
     for it in range(1, STEPS + 1):
         t0 = time.perf_counter()
@@ -1182,6 +1632,13 @@ def main():
         step_times.append((time.perf_counter() - t0) * 1e3)
         step_losses.append(float(m["loss"]))
         step_entries.append(int(m["num_entries"]))
+        step_visible.append(int(m["num_visible"]))
+        if it == 1:  # phase 5d's reference
+            step1 = {k: getattr(state.params, k).detach().cpu().clone() for k in PARAM_NAMES}
+    # phase 5d holds the sharded steps to these
+    single_ref = {"loss": step_losses, "num_entries": [float(x) for x in step_entries],
+                  "num_visible": [float(x) for x in step_visible], "step1": step1,
+                  "denom": state.denom.cpu().clone()}
     train_launches = {"composite_fwd": composite_fwd.launches,
                       "composite_bwd": composite_bwd.launches, "route_grads": route_grads.launches}
     train_peak_mib = torch.cuda.max_memory_allocated() / 2**20
@@ -1271,15 +1728,39 @@ def main():
         max_err[k] = max(max_err[k], e)
     phase_done("5b trainer path")
 
-    # ---- 5c. CLI path -------------------------------------------------
-    cli_train_launches, cli_render_launches, cli_errs = cli_phase(dev)
+    # ---- 5c. CLI path, with LPIPS on seeded random weights -------------
+    lpips_dir = tempfile.mkdtemp(prefix="chip_smoke_lpips_")
+    try:
+        np.savez(os.path.join(lpips_dir, "lpips.npz"), **lpips_random_weights())
+        os.environ["GS_TPU_LPIPS_WEIGHTS"] = os.path.join(lpips_dir, "lpips.npz")
+        lpips_mod._load_weights.cache_clear()
+        print("lpips:")
+        lpips_phase(render0, gt)
+        cli_train_launches, cli_render_launches, cli_errs = cli_phase(dev)
+    finally:
+        os.environ.pop("GS_TPU_LPIPS_WEIGHTS", None)
+        lpips_mod._load_weights.cache_clear()
+        shutil.rmtree(lpips_dir, ignore_errors=True)
     for k, e in zip(("composite_fwd", "composite_bwd", "route_grads"), cli_errs):
         max_err[k] = max(max_err[k], e)
     phase_done("5c CLI path")
 
+    # ---- 5d. sharded path ---------------------------------------------
+    sharded_launches, strip_errs = sharded_phase(dev, gt, center, dist, train_capacity,
+                                                 single_ref, step_ms)
+    for k, e in zip(TRAIN_KERNELS, strip_errs):
+        max_err[k] = max(max_err[k], e)
+    phase_done("5d sharded path")
+
     # ---- 6. profiler path ---------------------------------------------
     reset_launches()
-    prof = profile_stages.run(profile_stages.STAGES)  # the tool's defaults, on the card
+    # comm's link rate: NVLink 4's published 450 GB/s per direction (H100 SXM
+    # data sheet), a specification, not a measurement
+    os.environ["GS_LINK_GBPS"] = "450"
+    try:
+        prof = profile_stages.run(profile_stages.STAGES)  # the tool's defaults, on the card
+    finally:
+        os.environ.pop("GS_LINK_GBPS")
     prof_launches = {name: c.launches for name, c in LAUNCH_COUNTERS.items()}
     print(f"profiler path: P={prof['P']} entries={prof['entries']} capacity={prof['capacity']} "
           f"tiles={prof['tiles']} on {prof['device']}; launches {prof_launches}")
@@ -1295,6 +1776,13 @@ def main():
     if prof["entries"] != own_entries:
         fail(f"profiler entry count {prof['entries']} vs {own_entries} from this script's preprocess")
     print(f"  entry count {own_entries} recomputed here; {len(prof['ms'])} lines, all finite")
+    comm = prof["comm"]
+    if comm["step_ms"] is None or not all(r["efficiency"] is not None and 0 < r["efficiency"] < 1
+                                          for r in comm["rows"]):
+        fail(f"comm: no efficiency table ({comm['step_ms']})")
+    print(f"  comm: link rate {comm['link_bytes_per_s'] / 1e9:g} GB/s per direction is NVLink 4's "
+          f"published figure (a specification, not a measurement); step {comm['step_ms']:.4f} ms "
+          f"from this run's train stage; {len(comm['rows'])} rows")
 
     # The three kernels of this path at its shapes: (16, K) and (K, 16), K the capacity.
     K = prof["capacity"]
@@ -1330,7 +1818,8 @@ def main():
     def by_path(name):  # each path's own count, read after its own reset
         if name in train_launches:
             return {"train": train_launches[name], "trainer": trainer_launches[name],
-                    "cli_train": cli_train_launches[name], "cli_render": cli_render_launches[name]}
+                    "cli_train": cli_train_launches[name], "cli_render": cli_render_launches[name],
+                    **{path: counts[name] for path, counts in sharded_launches.items()}}
         return {"profiler": prof_launches[name]}
 
     print(json.dumps({"kernels": [

@@ -22,7 +22,10 @@ sums (`tools/consumers.py`), and the user's entry path: scene IO
 reading and writing and PIL's resize in `utils/image_io.py`), the flag
 groups (`config.py`), the CLIs (`python -m gaussian_splatting_torch.cli.
 {train,render,metrics,full_eval,convert}`) and the live-viewer bridge
-(`viewer/network_gui.py`).
+(`viewer/network_gui.py`), LPIPS (`ops/lpips.py`, in the metrics CLI), and
+training on several devices (`parallel/sharding.py` on torch.distributed:
+Gaussian rows sharded over the ranks, each rank's strip of tile rows
+composited at its row origin; `Trainer(mesh=...)`).
 """
 
 __version__ = "0.1.0"

@@ -2,11 +2,11 @@
 
 The counterpart of `gaussian_splatting_tpu/cli/metrics.py` (the reference's
 metrics.py:36-103): walks <model>/test/ours_<iter>/{renders,gt}, writes
-results.json and per_view.json. SSIM and PSNR are `ops/losses.py`'s on the
-card (an in-process caller may pass `main(argv, device="cpu")`), with
-cuDNN's TF32 off for the SSIM convolutions. LPIPS is reported as null, as
-the JAX CLI reports it without weights: the port's LPIPS (`ops/lpips.py`)
-is not written yet. `--lpips_net` is accepted for that.
+results.json and per_view.json. SSIM, PSNR and LPIPS (`ops/losses.py`,
+`ops/lpips.py`) run on the card (an in-process caller may pass
+`main(argv, device="cpu")`), with cuDNN's TF32 off for the convolutions.
+LPIPS uses the `--lpips_net` backbone when $GS_TPU_LPIPS_WEIGHTS holds its
+weights, and is reported as null otherwise, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from gaussian_splatting_torch.ops import losses
+from gaussian_splatting_torch.ops.lpips import lpips, lpips_available
 from gaussian_splatting_torch.utils.device import require_device
 from gaussian_splatting_torch.utils.image_io import read_png
 
@@ -52,22 +53,27 @@ def evaluate(model_paths, lpips_net="vgg", device="cuda"):
                     print("Method:", method)
                     method_dir = test_dir / method
                     renders, gts, names = read_images(method_dir / "renders", method_dir / "gt")
-                    ssims, psnrs = [], []
+                    ssims, psnrs, lpipss = [], [], []
+                    use_lpips = lpips_available(lpips_net)
                     for r, g in zip(renders, gts):
                         rt, gt = torch.from_numpy(r).to(dev), torch.from_numpy(g).to(dev)
                         ssims.append(float(losses.ssim(rt, gt)))
                         psnrs.append(float(losses.psnr(rt, gt)))
+                        if use_lpips:
+                            lpipss.append(float(lpips(rt, gt, lpips_net)))
                     print(f"  SSIM : {np.mean(ssims):.7f}")
                     print(f"  PSNR : {np.mean(psnrs):.7f}")
+                    if use_lpips:
+                        print(f"  LPIPS: {np.mean(lpipss):.7f}")
                     full_dict[scene_dir][method] = {
                         "SSIM": float(np.mean(ssims)),
                         "PSNR": float(np.mean(psnrs)),
-                        "LPIPS": None,
+                        "LPIPS": float(np.mean(lpipss)) if use_lpips else None,
                     }
                     per_view_dict[scene_dir][method] = {
                         "SSIM": dict(zip(names, map(float, ssims))),
                         "PSNR": dict(zip(names, map(float, psnrs))),
-                        "LPIPS": {},
+                        "LPIPS": dict(zip(names, map(float, lpipss))) if use_lpips else {},
                     }
                 with open(scene_dir + "/results.json", "w") as fp:
                     json.dump(full_dict[scene_dir], fp, indent=True)
@@ -87,8 +93,7 @@ def main(argv=None, device="cuda"):
     )
     parser.add_argument(
         "--lpips_net", choices=["vgg", "alex", "squeeze"], default="vgg",
-        help="LPIPS backbone (the reference's metrics.py uses vgg); LPIPS is "
-             "reported as null until the port has it",
+        help="LPIPS backbone (the reference's metrics.py uses vgg)",
     )
     args = parser.parse_args(argv)
     return evaluate(args.model_paths, lpips_net=args.lpips_net, device=device)

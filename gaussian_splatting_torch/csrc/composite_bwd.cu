@@ -6,7 +6,9 @@
 //
 // Inputs: the forward's sorted entries and per-Gaussian fields, its image
 // (with background, (H, W, 3)) and final transmittance (H, W), and their
-// cotangents g (H, W, 3) and g_ft (H, W). Output: one row of 9 gradients
+// cotangents g (H, W, 3) and g_ft (H, W); origin_y, the global pixel row of
+// the image's first row, as in the forward (a strip of the multi-device
+// step; 0 for a whole frame). Output: one row of 9 gradients
 // per entry, (K, 9) float32: d mean2d x, y; d conic a, b, c; d rgb r, g, b;
 // d opacity. The row of sorted entry s goes to row entry_src[s], its
 // emission index, so each Gaussian's rows end up contiguous for the
@@ -154,7 +156,7 @@ composite_bwd_kernel(const int* __restrict__ gauss_id,
                      const float* __restrict__ g_final_t,
                      float* __restrict__ rows,
                      float* __restrict__ replay_t,  // may be null
-                     int width, int height, int grid_x) {
+                     int width, int height, int grid_x, int origin_y) {
   static_assert((TILE_W * TILE_H) % kThreads == 0, "tile must split evenly over the block");
   static_assert(kBatch <= kThreads, "one thread stages each entry of a batch");
   constexpr int kPix = TILE_W * TILE_H / kThreads;  // pixels per thread
@@ -186,7 +188,7 @@ composite_bwd_kernel(const int* __restrict__ gauss_id,
     const int x = x0 + q.x;
     const int y = y0 + q.y;
     px[k] = static_cast<float>(x);
-    py[k] = static_cast<float>(y);
+    py[k] = static_cast<float>(origin_y + y);
     T[k] = 1.0f;
     pfx[k] = 0.0f;
     done[k] = x >= width || y >= height;
@@ -301,7 +303,7 @@ composite_bwd_kernel(const int* __restrict__ gauss_id,
 
 template <int TILE_W, int TILE_H>
 cudaError_t launch(const void* const* in, void* rows, void* replay_t, int width, int height,
-                   cudaStream_t stream) {
+                   int origin_y, cudaStream_t stream) {
   const int grid_x = (width + TILE_W - 1) / TILE_W;
   const int grid_y = (height + TILE_H - 1) / TILE_H;
   composite_bwd_kernel<TILE_W, TILE_H><<<grid_x * grid_y, kThreads, 0, stream>>>(
@@ -311,7 +313,7 @@ cudaError_t launch(const void* const* in, void* rows, void* replay_t, int width,
       static_cast<const float*>(in[6]), static_cast<const float*>(in[7]),
       static_cast<const float*>(in[8]), static_cast<const float*>(in[9]),
       static_cast<const float*>(in[10]), static_cast<const float*>(in[11]),
-      static_cast<float*>(rows), static_cast<float*>(replay_t), width, height, grid_x);
+      static_cast<float*>(rows), static_cast<float*>(replay_t), width, height, grid_x, origin_y);
   return cudaGetLastError();
 }
 
@@ -338,23 +340,27 @@ cudaError_t occupancy(int* out) {
 // entry_src (K,) int32; tile_start/tile_stop (num_tiles,) int32; means2d
 // (P,2), conic (P,3), rgb (P,3), opacity (P,) float32; image, g_image
 // (H,W,3), final_t, g_final_t (H,W) float32; out rows (K,9) float32 and
-// replay_t (H,W) float32 or null.
+// replay_t (H,W) float32 or null. origin_y: the global pixel row of the
+// image's first row (0: a whole frame).
 extern "C" int gs_composite_bwd(const void* gauss_id, const void* tile_start,
                                 const void* tile_stop, const void* entry_src,
                                 const void* means2d, const void* conic, const void* rgb,
                                 const void* opacity, const void* image, const void* final_t,
                                 const void* g_image, const void* g_final_t, void* rows,
                                 void* replay_t, int width, int height, int tile_w, int tile_h,
-                                int device, void* stream) {
+                                int origin_y, int device, void* stream) {
   if (width <= 0 || height <= 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const void* in[12] = {gauss_id, tile_start, tile_stop, entry_src, means2d, conic,
                         rgb,      opacity,    image,     final_t,   g_image, g_final_t};
   const auto s = static_cast<cudaStream_t>(stream);
-  if (tile_w == 32 && tile_h == 32) return launch<32, 32>(in, rows, replay_t, width, height, s);
-  if (tile_w == 32 && tile_h == 16) return launch<32, 16>(in, rows, replay_t, width, height, s);
-  if (tile_w == 16 && tile_h == 16) return launch<16, 16>(in, rows, replay_t, width, height, s);
+  if (tile_w == 32 && tile_h == 32)
+    return launch<32, 32>(in, rows, replay_t, width, height, origin_y, s);
+  if (tile_w == 32 && tile_h == 16)
+    return launch<32, 16>(in, rows, replay_t, width, height, origin_y, s);
+  if (tile_w == 16 && tile_h == 16)
+    return launch<16, 16>(in, rows, replay_t, width, height, origin_y, s);
   return cudaErrorInvalidValue;
 }
 

@@ -17,7 +17,11 @@
 //   C += rgb * (alpha T); T = test
 // Output image = C + T bg and final_t = T in (H, W, 3) / (H, W) layout. An
 // empty tile gives bg and 1; pixels of edge tiles outside the image start
-// done and are not written, so any image size works.
+// done and are not written, so any image size works. The image may be a
+// strip of a larger frame (the multi-device step, parallel/sharding.py):
+// its first row is global pixel row origin_y, so a pixel's y coordinate is
+// origin_y + its row in the strip, while the output rows and the y >= height
+// test are the strip's own. origin_y = 0 is a whole frame.
 //
 // What bounds it on an H100: not bytes. Against ~40 B read per entry (id
 // + 9 fields) and 16 B written per pixel, each evaluated pair runs a few
@@ -92,7 +96,7 @@ composite_fwd_kernel(const int* __restrict__ gauss_id,
                      const float* __restrict__ bg,
                      float* __restrict__ image,
                      float* __restrict__ final_t,
-                     int width, int height, int grid_x) {
+                     int width, int height, int grid_x, int origin_y) {
   static_assert((TILE_W * TILE_H) % kThreads == 0, "tile must split evenly over the block");
   static_assert(kBatch <= kThreads, "one thread stages each entry of a batch");
   constexpr int kPix = TILE_W * TILE_H / kThreads;  // pixels per thread
@@ -119,7 +123,7 @@ composite_fwd_kernel(const int* __restrict__ gauss_id,
     const int x = x0 + q.x;
     const int y = y0 + q.y;
     px[k] = x >= width || y >= height ? NAN : static_cast<float>(x);
-    py[k] = static_cast<float>(y);
+    py[k] = static_cast<float>(origin_y + y);
     T[k] = 1.0f;
     C[k][0] = C[k][1] = C[k][2] = 0.0f;
   }
@@ -194,7 +198,7 @@ template <int TILE_W, int TILE_H, bool kCull>
 cudaError_t launch(const void* gauss_id, const void* tile_start, const void* tile_stop,
                    const void* means2d, const void* conic, const void* rgb,
                    const void* opacity, const void* bg, void* image, void* final_t,
-                   int width, int height, cudaStream_t stream) {
+                   int width, int height, int origin_y, cudaStream_t stream) {
   const int grid_x = (width + TILE_W - 1) / TILE_W;
   const int grid_y = (height + TILE_H - 1) / TILE_H;
   composite_fwd_kernel<TILE_W, TILE_H, kCull><<<grid_x * grid_y, kThreads, 0, stream>>>(
@@ -202,7 +206,7 @@ cudaError_t launch(const void* gauss_id, const void* tile_start, const void* til
       static_cast<const int*>(tile_stop), static_cast<const float2*>(means2d),
       static_cast<const float*>(conic), static_cast<const float*>(rgb),
       static_cast<const float*>(opacity), static_cast<const float*>(bg),
-      static_cast<float*>(image), static_cast<float*>(final_t), width, height, grid_x);
+      static_cast<float*>(image), static_cast<float*>(final_t), width, height, grid_x, origin_y);
   return cudaGetLastError();
 }
 
@@ -224,20 +228,20 @@ template <bool kCull>
 int launch_geometry(const void* gauss_id, const void* tile_start, const void* tile_stop,
                     const void* means2d, const void* conic, const void* rgb, const void* opacity,
                     const void* bg, void* image, void* final_t, int width, int height,
-                    int tile_w, int tile_h, int device, void* stream) {
+                    int tile_w, int tile_h, int origin_y, int device, void* stream) {
   if (width <= 0 || height <= 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const auto s = static_cast<cudaStream_t>(stream);
   if (tile_w == 32 && tile_h == 32)
     return launch<32, 32, kCull>(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
-                                 bg, image, final_t, width, height, s);
+                                 bg, image, final_t, width, height, origin_y, s);
   if (tile_w == 32 && tile_h == 16)
     return launch<32, 16, kCull>(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
-                                 bg, image, final_t, width, height, s);
+                                 bg, image, final_t, width, height, origin_y, s);
   if (tile_w == 16 && tile_h == 16)
     return launch<16, 16, kCull>(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
-                                 bg, image, final_t, width, height, s);
+                                 bg, image, final_t, width, height, origin_y, s);
   return cudaErrorInvalidValue;
 }
 
@@ -249,14 +253,16 @@ int launch_geometry(const void* gauss_id, const void* tile_start, const void* ti
 // All pointers are device pointers to contiguous arrays: gauss_id (K,) int32,
 // tile_start/tile_stop (num_tiles,) int32, means2d (P,2), conic (P,3),
 // rgb (P,3), opacity (P,), bg (3,) float32; image (H,W,3), final_t (H,W).
+// origin_y: the global pixel row of the image's first row (0: a whole frame).
 extern "C" int gs_composite_fwd(const void* gauss_id, const void* tile_start,
                                 const void* tile_stop, const void* means2d,
                                 const void* conic, const void* rgb, const void* opacity,
                                 const void* bg, void* image, void* final_t, int width,
-                                int height, int tile_w, int tile_h, int device,
+                                int height, int tile_w, int tile_h, int origin_y, int device,
                                 void* stream) {
   return launch_geometry<true>(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity, bg,
-                               image, final_t, width, height, tile_w, tile_h, device, stream);
+                               image, final_t, width, height, tile_w, tile_h, origin_y, device,
+                               stream);
 }
 
 // The same with no box cull, arguments as gs_composite_fwd: its outputs
@@ -266,9 +272,10 @@ extern "C" int gs_composite_fwd_unculled(const void* gauss_id, const void* tile_
                                          const void* conic, const void* rgb,
                                          const void* opacity, const void* bg, void* image,
                                          void* final_t, int width, int height, int tile_w,
-                                         int tile_h, int device, void* stream) {
+                                         int tile_h, int origin_y, int device, void* stream) {
   return launch_geometry<false>(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
-                                bg, image, final_t, width, height, tile_w, tile_h, device, stream);
+                                bg, image, final_t, width, height, tile_w, tile_h, origin_y,
+                                device, stream);
 }
 
 // Fills out[0..2] with the kernel's registers per thread, threads per

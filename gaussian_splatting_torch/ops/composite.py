@@ -50,16 +50,19 @@ class CompositeOut(NamedTuple):
     final_t: torch.Tensor  # (H, W) final transmittance
 
 
-def _tile_pixels(width: int, height: int, tile_w: int, tile_h: int, dev):
+def _tile_pixels(width: int, height: int, tile_w: int, tile_h: int, dev, origin_y: int = 0):
     """Global pixel coordinates of every tile's pixels, (T, TPX) float32
-    each, and the mask of those outside the image."""
+    each, and the mask of those outside the image. The image is a strip
+    whose first row is global pixel row `origin_y` (0 for a whole frame):
+    the y coordinate is global, the mask is the strip's own."""
     grid_x = (width + tile_w - 1) // tile_w
     grid_y = (height + tile_h - 1) // tile_h
     tiles = torch.arange(grid_x * grid_y, device=dev)
     pix = torch.arange(tile_w * tile_h, device=dev)
     x = ((tiles % grid_x) * tile_w)[:, None] + (pix % tile_w)[None, :]
     y = ((tiles // grid_x) * tile_h)[:, None] + (pix // tile_w)[None, :]
-    return x.to(torch.float32), y.to(torch.float32), (x >= width) | (y >= height)
+    return (x.to(torch.float32), (y + origin_y).to(torch.float32),
+            (x >= width) | (y >= height))
 
 
 def _pair(gid, means2d, conic, opacity, px, py, trans):
@@ -136,7 +139,7 @@ def _entry_positions(gauss_id, tile_start, tile_stop):
 
 def _blend_tiles(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
                  width: int, height: int, tile_w: int, tile_h: int,
-                 warps: Optional[int] = None):
+                 warps: Optional[int] = None, origin_y: int = 0):
     """Per-tile blend. Returns acc (T, TPX, 3) before background, final
     transmittance (T, TPX), and (5,) int64 counts of the work, zero unless
     the backward kernel's `warps` is given: the (pixel, entry) pairs
@@ -149,7 +152,7 @@ def _blend_tiles(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
     (`unit_of_pixel`) was open: not done and inside the entry's box
     (`reach_box`), the units the kernels evaluate."""
     dev = means2d.device
-    px, py, done = _tile_pixels(width, height, tile_w, tile_h, dev)
+    px, py, done = _tile_pixels(width, height, tile_w, tile_h, dev, origin_y)
     trans = torch.ones(px.shape, dtype=torch.float32, device=dev)
     acc = torch.zeros(px.shape + (3,), dtype=torch.float32, device=dev)
     counts = torch.zeros(5, dtype=torch.int64, device=dev)
@@ -205,15 +208,18 @@ def _to_tiles(x: torch.Tensor, width: int, height: int, tile_w: int, tile_h: int
 
 
 def composite_fwd_torch(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
-                        bg, width: int, height: int, tile_w: int, tile_h: int) -> CompositeOut:
+                        bg, width: int, height: int, tile_w: int, tile_h: int,
+                        origin_y: int = 0) -> CompositeOut:
     """Plain version of the compositing kernel (`composite_cuda.composite_fwd`).
 
     gauss_id (K,) int32 sorted entries; tile_start/tile_stop (T,) int32;
     means2d (P,2), conic (P,3), rgb (P,3), opacity (P,), bg (3,) float32.
-    Returns image (H, W, 3) and final_t (H, W).
+    Returns image (H, W, 3) and final_t (H, W). With `origin_y`, the image
+    is a strip of H rows whose first row is global pixel row origin_y: the
+    tiles' pixels sit there (the multi-device step's strips).
     """
     acc, trans, _ = _blend_tiles(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
-                                 width, height, tile_w, tile_h)
+                                 width, height, tile_w, tile_h, origin_y=origin_y)
     out = acc + trans[..., None] * bg
     return CompositeOut(
         image=_untile(out, width, height, tile_w, tile_h),
@@ -249,7 +255,8 @@ def blend_pair_counts(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opac
 
 def composite_bwd_torch(gauss_id, tile_start, tile_stop, entry_src, means2d, conic, rgb,
                         opacity, image, final_t, g_image, g_final_t,
-                        width: int, height: int, tile_w: int, tile_h: int) -> torch.Tensor:
+                        width: int, height: int, tile_w: int, tile_h: int,
+                        origin_y: int = 0) -> torch.Tensor:
     """Plain version of the compositing backward kernel
     (`composite_cuda.composite_bwd`): the VJP of `composite_fwd_torch`.
 
@@ -257,7 +264,8 @@ def composite_bwd_torch(gauss_id, tile_start, tile_stop, entry_src, means2d, con
     with background); g_image / g_final_t their cotangents. Returns one row
     of 9 gradients per entry, (K, 9) float32, at row `entry_src[s]` for
     sorted entry s: d mean2d (2), d conic a, b, c (3), d rgb (3),
-    d opacity (1). Rows of entries that blend nowhere are zero.
+    d opacity (1). Rows of entries that blend nowhere are zero. `origin_y`
+    as in `composite_fwd_torch`.
 
     It replays the forward entry by entry in forward order, with its
     decisions, and writes the suffix colour term as TOTAL - prefix:
@@ -269,7 +277,7 @@ def composite_bwd_torch(gauss_id, tile_start, tile_stop, entry_src, means2d, con
     """
     dev = means2d.device
     f32 = torch.float32
-    px, py, done = _tile_pixels(width, height, tile_w, tile_h, dev)
+    px, py, done = _tile_pixels(width, height, tile_w, tile_h, dev, origin_y)
     g = _to_tiles(g_image, width, height, tile_w, tile_h)  # (T, TPX, 3)
     img = _to_tiles(image, width, height, tile_w, tile_h)
     total = ((g[..., 0] * img[..., 0] + g[..., 1] * img[..., 1] + g[..., 2] * img[..., 2])

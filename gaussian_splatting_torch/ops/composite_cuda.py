@@ -12,7 +12,10 @@ first use and called through ctypes on PyTorch's current stream:
     those rows. The function of that kernel, the transpose, has its own
     counterpart: `csrc/relayout.cu` (`ops/relayout.py`).
 Each source's header comment says what bounds it and how its design
-answers that.
+answers that. The forward and the backward take the Pallas kernels'
+`origin_y`: the global pixel row of the image's first row, so that a strip
+of tile rows (the multi-device step, `parallel/sharding.py`) composites at
+its place in the frame; 0 is a whole frame.
 
 `composite_fwd` is the differentiable op the rasterizer calls; its
 backward runs `composite_bwd` and then `route_grads`. Each of the three
@@ -37,8 +40,8 @@ from gaussian_splatting_torch.utils import cuda_build
 TILE_GEOMETRIES = ((32, 32), (32, 16), (16, 16))
 _ptr, _int = cuda_build.PTR, cuda_build.INT
 _ARGTYPES = {  # the C signature of each kernel's entry point `gs_<name>`
-    "composite_fwd": (_ptr,) * 10 + (_int,) * 5 + (_ptr,),
-    "composite_bwd": (_ptr,) * 14 + (_int,) * 5 + (_ptr,),
+    "composite_fwd": (_ptr,) * 10 + (_int,) * 6 + (_ptr,),
+    "composite_bwd": (_ptr,) * 14 + (_int,) * 6 + (_ptr,),
     "route_grads": (_ptr,) * 4 + (_int,) * 2 + (_ptr,),
 }
 
@@ -88,7 +91,7 @@ def _check_scene(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
 
 
 def _fwd_launch(function, gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity, bg,
-                width, height, tile_w, tile_h) -> CompositeOut:
+                width, height, tile_w, tile_h, origin_y) -> CompositeOut:
     dev = _check_scene(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
                        width, height, tile_w, tile_h)
     _check("bg", bg, torch.float32, (3,), dev)
@@ -97,35 +100,37 @@ def _fwd_launch(function, gauss_id, tile_start, tile_stop, means2d, conic, rgb, 
     ptrs = [t.data_ptr() for t in (gauss_id, tile_start, tile_stop, means2d, conic, rgb,
                                    opacity, bg, image, final_t)]
     cuda_build.launch("composite_fwd", function, _ARGTYPES["composite_fwd"], *ptrs, width,
-                      height, tile_w, tile_h, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+                      height, tile_w, tile_h, origin_y, dev.index,
+                      torch.cuda.current_stream(dev).cuda_stream)
     return CompositeOut(image=image, final_t=final_t)
 
 
 def composite_fwd_cuda(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
-                       bg, width: int, height: int, tile_w: int, tile_h: int) -> CompositeOut:
+                       bg, width: int, height: int, tile_w: int, tile_h: int,
+                       origin_y: int = 0) -> CompositeOut:
     """Launch the forward kernel on CUDA tensors; arguments as `composite_fwd_torch`."""
     out = _fwd_launch("gs_composite_fwd", gauss_id, tile_start, tile_stop, means2d, conic, rgb,
-                      opacity, bg, width, height, tile_w, tile_h)
+                      opacity, bg, width, height, tile_w, tile_h, origin_y)
     composite_fwd.launches += 1
     return out
 
 
 def composite_fwd_unculled_cuda(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
-                                bg, width: int, height: int, tile_w: int,
-                                tile_h: int) -> CompositeOut:
+                                bg, width: int, height: int, tile_w: int, tile_h: int,
+                                origin_y: int = 0) -> CompositeOut:
     """The forward kernel with its box cull off (every entry's box
     infinite), on CUDA tensors; arguments as `composite_fwd_torch`. A check
     of the cull, which may leave out only pairs the blend skips: the outputs
     must equal `composite_fwd_cuda`'s bit for bit. No path runs it, so it
     counts no launch."""
     return _fwd_launch("gs_composite_fwd_unculled", gauss_id, tile_start, tile_stop, means2d,
-                       conic, rgb, opacity, bg, width, height, tile_w, tile_h)
+                       conic, rgb, opacity, bg, width, height, tile_w, tile_h, origin_y)
 
 
 def composite_bwd_cuda(gauss_id, tile_start, tile_stop, entry_src, means2d, conic, rgb,
                        opacity, image, final_t, g_image, g_final_t,
                        width: int, height: int, tile_w: int, tile_h: int,
-                       replay_t: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       origin_y: int = 0, replay_t: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the backward kernel on CUDA tensors; arguments and result as
     `composite_bwd_torch`. `replay_t`, if given, is an (H, W) float32 tensor
     the kernel fills with the final transmittance of its replay of the
@@ -146,7 +151,8 @@ def composite_bwd_cuda(gauss_id, tile_start, tile_stop, entry_src, means2d, coni
     ptrs = [t.data_ptr() for t in (gauss_id, tile_start, tile_stop, entry_src, means2d, conic,
                                    rgb, opacity, image, final_t, g_image, g_final_t, rows)]
     _launch("composite_bwd", *ptrs, None if replay_t is None else replay_t.data_ptr(),
-            width, height, tile_w, tile_h, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+            width, height, tile_w, tile_h, origin_y, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
     composite_bwd.launches += 1
     return rows
 
@@ -213,9 +219,9 @@ class _Composite(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, means2d, conic, rgb, opacity, bg, lists: TileLists,
-                width, height, tile_w, tile_h):
+                width, height, tile_w, tile_h, origin_y):
         args = (lists.gauss_id, lists.tile_start, lists.tile_stop, means2d, conic, rgb,
-                opacity, bg, width, height, tile_w, tile_h)
+                opacity, bg, width, height, tile_w, tile_h, origin_y)
         if _on(means2d.device) == "cpu":
             out = composite_fwd_torch(*args)
         else:
@@ -223,7 +229,7 @@ class _Composite(torch.autograd.Function):
         ctx.save_for_backward(means2d, conic, rgb, opacity, out.image, out.final_t,
                               lists.gauss_id, lists.tile_start, lists.tile_stop,
                               lists.entry_src, lists.gauss_offset, lists.gauss_count)
-        ctx.geometry = (width, height, tile_w, tile_h)
+        ctx.geometry = (width, height, tile_w, tile_h, origin_y)
         return out.image, out.final_t
 
     @staticmethod
@@ -238,16 +244,19 @@ class _Composite(torch.autograd.Function):
         sums = route_grads(rows, gauss_offset, gauss_count, means2d.shape[0])
         d_bg = (g_image * final_t[..., None]).sum(dim=(0, 1))
         return (sums[:, 0:2], sums[:, 2:5], sums[:, 5:8], sums[:, 8], d_bg,
-                None, None, None, None, None)
+                None, None, None, None, None, None)
 
 
 def composite_fwd(lists: TileLists, means2d, conic, rgb, opacity, bg,
-                  width: int, height: int, tile_w: int, tile_h: int) -> CompositeOut:
+                  width: int, height: int, tile_w: int, tile_h: int,
+                  origin_y: int = 0) -> CompositeOut:
     """Composite sorted tile entries into (image (H,W,3), final_t (H,W)),
     differentiably. CUDA tensors go through the kernels, CPU tensors
-    through their plain versions; anything else raises."""
+    through their plain versions; anything else raises. With `origin_y` the
+    image is a strip whose first row is global pixel row origin_y
+    (`composite_fwd_torch`)."""
     image, final_t = _Composite.apply(means2d, conic, rgb, opacity, bg, lists,
-                                      width, height, tile_w, tile_h)
+                                      width, height, tile_w, tile_h, origin_y)
     return CompositeOut(image=image, final_t=final_t)
 
 

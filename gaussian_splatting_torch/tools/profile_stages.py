@@ -39,14 +39,19 @@ Stages (the JAX tool's names):
              and `index_add_` on the same rows
   roofline   HBM calibration, and preprocess, binning and the compositing
              kernel against their bounds
+  comm       the bytes the sharded train step (`parallel/sharding.py`)
+             all-reduces per step at the scene's P (and 4x, 16x) and image
+             size, on 2, 4 and 8 ranks, and, given a link rate
+             (GS_LINK_GBPS, GB/s per rank and direction; no default) and a
+             single-card step time (this run's `train` stage, else
+             GS_STEP_MS), the time on the wire and the efficiency of ideal
+             1/n compute with no overlap: a model, not a measurement
 
 Not ported (asking for one raises, and the CLI exits non-zero):
   gather   the port has no record gather before the compositing kernel,
            which gathers each entry's fields by id into shared memory.
   visits   the port has no visit-pair grid; that grid is a TPU layout
            (ROADMAP's rules).
-  comm     it accounts for the sharded step's collectives, which wait for
-           the multi-device slice (ROADMAP section 1, item 7).
 
 Where the port differs from the JAX tool: it renders and bins at the run's
 tile geometry throughout, where the JAX tool renders at its rasterizer's
@@ -54,9 +59,9 @@ default 32x32 and, in `sat`, bins at 16x16 but indexes tiles on the 32x16
 grid; and `sat` has no real-visit line (no visit grid).
 
 `run` returns the header counts, each line's time, the `sat` statistics,
-the `roofline` rows and the number of calls the stages made to each kernel
-wrapper (each a launch on the card), so a caller can hold the wrappers'
-launch counters to it.
+the `roofline` rows, the `comm` table and the number of calls the stages
+made to each kernel wrapper (each a launch on the card), so a caller can
+hold the wrappers' launch counters to it.
 """
 
 from __future__ import annotations
@@ -78,6 +83,7 @@ from gaussian_splatting_torch.ops.composite_cuda import composite_fwd, route_gra
 from gaussian_splatting_torch.ops.projection import preprocess
 from gaussian_splatting_torch.ops.rasterize import RasterizerConfig, rasterize
 from gaussian_splatting_torch.ops.relayout import relayout_to_rows
+from gaussian_splatting_torch.parallel.sharding import ring_wire_bytes, step_collectives
 from gaussian_splatting_torch.scene.cameras import Camera
 from gaussian_splatting_torch.scene.gaussians import GaussianParams
 from gaussian_splatting_torch.tools.consumers import consume_rows, consume_t
@@ -88,15 +94,15 @@ from gaussian_splatting_torch.utils.roofline import (
 )
 
 STAGES = ("pre", "emit", "render", "grad", "train", "sat", "micro", "emitparts", "gforms",
-          "routing", "roofline")
+          "routing", "roofline", "comm")
 DEFAULT_STAGES = ("pre", "emit", "render", "sat")
 NOT_PORTED = {
     "gather": "the port has no record gather before the compositing kernel, which gathers "
               "each entry's fields by id into shared memory",
     "visits": "the port has no visit-pair grid, a TPU layout that ROADMAP's rules exclude",
-    "comm": "it accounts for the sharded step's collectives, which wait for the "
-            "multi-device slice (ROADMAP section 1, item 7)",
 }
+COMM_RANKS = (2, 4, 8)  # the cards of one host joined by NVLink
+COMM_P_SCALES = (1, 4, 16)
 L2_BYTES = 50 * 10**6  # H100 L2 cache
 STREAM_BYTES = 512 * 2**20  # the roofline's memory calibration
 # Preprocess's FP32 work per Gaussian: view and projection transforms, the
@@ -593,10 +599,57 @@ def stage_roofline(t: _Timer, sc: Scene, out: dict):
                        "hbm_calibrated_bytes_per_s": hbm, "pairs": pairs}
 
 
+def _or_dash(x, spec: str) -> str:
+    return "-".rjust(len(format(0.0, spec))) if x is None else format(x, spec)
+
+
+def stage_comm(t: _Timer, sc: Scene, out: dict):
+    """The sharded step's collectives per step (`sharding.step_collectives`,
+    the all_reduces of its own record, image and count tensors), at P, 4P
+    and 16P rows and n = 2, 4, 8 ranks: tensor bytes and each rank's ring
+    wire bytes (2 (n - 1) / n of them). With a link rate (GS_LINK_GBPS) and
+    a single-card step time (this run's `train` line, else GS_STEP_MS), the
+    wire time and the efficiency comp / (comp + comm) of ideal 1/n compute
+    (compute taken as linear in P), with no overlap: lower bounds."""
+    link = os.environ.get("GS_LINK_GBPS")
+    link = float(link) * 1e9 if link else None
+    step_ms = t.ms.get("train: full train step")
+    source = "this run's train stage"
+    if step_ms is None and os.environ.get("GS_STEP_MS"):
+        step_ms, source = float(os.environ["GS_STEP_MS"]), "GS_STEP_MS"
+    P, (tw, th) = sc.num_points, sc.tile
+    print(f"  link rate: {'not given (GS_LINK_GBPS)' if link is None else f'{link / 1e9:g} GB/s'}"
+          f" per rank and direction; single-card step: "
+          f"{'not given' if step_ms is None else f'{step_ms:.4f} ms ({source})'}; a model of "
+          f"ring all_reduces with no overlap")
+    print(f"  {'P':>10s} {'n':>3s} {'tensor MB':>10s} {'wire MB':>9s} {'comm ms':>9s} "
+          f"{'comp ms':>9s} {'effic':>7s}")
+    rows = []
+    for scale in COMM_P_SCALES:
+        for n in COMM_RANKS:
+            coll = step_collectives(P * scale, sc.width, sc.height, tw, th, n)
+            tensor = sum(b for _, b in coll)
+            wire = sum(ring_wire_bytes(b, n) for _, b in coll)
+            comm_ms = wire / link * 1e3 if link else None
+            comp_ms = step_ms * scale / n if step_ms is not None else None
+            eff = None
+            if comm_ms is not None and comp_ms is not None:
+                eff = comp_ms / (comp_ms + comm_ms)
+            rows.append({"P": P * scale, "n": n, "collectives": coll, "tensor_bytes": tensor,
+                         "wire_bytes": wire, "comm_ms": comm_ms, "comp_ms": comp_ms,
+                         "efficiency": eff})
+            print(f"  {P * scale:10d} {n:3d} {tensor / 1e6:10.2f} {wire / 1e6:9.2f} "
+                  f"{_or_dash(comm_ms, '9.4f')} {_or_dash(comp_ms, '9.4f')} "
+                  f"{_or_dash(None if eff is None else 100 * eff, '6.1f')}%")
+    for what, b in rows[0]["collectives"]:
+        print(f"    per step at P={P}, n={COMM_RANKS[0]}: all_reduce of {what}, {b} B")
+    out["comm"] = {"link_bytes_per_s": link, "step_ms": step_ms, "rows": rows}
+
+
 _STAGE_FUNCS = {"pre": stage_pre, "emit": stage_emit, "render": stage_render, "grad": stage_grad,
                 "train": stage_train, "sat": stage_sat, "micro": stage_micro,
                 "emitparts": stage_emitparts, "gforms": stage_gforms, "routing": stage_routing,
-                "roofline": stage_roofline}
+                "roofline": stage_roofline, "comm": stage_comm}
 
 
 def check_stages(stages) -> list:
@@ -617,8 +670,8 @@ def run(stages=DEFAULT_STAGES, P: int = 262_144, width: int = 1920, height: int 
 
     Returns {"P", "entries", "capacity", "tiles": the header counts,
     "device": where it ran, "ms": {"<stage>: <label>": per-call ms},
-    "calls": {kernel wrapper: calls made}, and "sat" / "roofline" when those
-    stages ran}."""
+    "calls": {kernel wrapper: calls made}, and "sat" / "roofline" / "comm"
+    when those stages ran}."""
     stages = check_stages(stages)
     dev = require_device(device)
     sc = make_scene(P, width, height, tile, bucket_bits, dev)

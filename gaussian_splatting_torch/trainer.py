@@ -19,8 +19,15 @@ Checkpoints are the JAX package's pickle (live rows as numpy arrays), so a
 run moves between the two packages in either direction. Load only
 checkpoints this program or the JAX package wrote: unpickling runs code.
 
-Left out (they wait for the port's multi-device layer): the JAX trainer's
-`mesh` field and its sharded step.
+With `mesh` (`parallel/sharding.py`), every rank of the process group runs
+this loop from the same seed on the same cameras, so the camera, background
+and SH schedules agree; `state` holds the rank's rows and each step is the
+sharded step. Maintenance (densify on the device or the host, the opacity
+reset) and checkpoints work on the state gathered from every rank, which is
+then sharded again, so each rank's rows are the single-device loop's (the
+device densify's generator is seeded alike on every rank). The entry probe
+sums every rank's count. Only rank 0 writes a checkpoint, in the
+single-device format.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from __future__ import annotations
 import math
 import pickle
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass, field, replace
 from typing import Callable, List, Optional
 
@@ -35,6 +43,7 @@ import numpy as np
 import torch
 
 from gaussian_splatting_torch.ops.projection import preprocess
+from gaussian_splatting_torch.parallel import sharding
 from gaussian_splatting_torch.ops.rasterize import RasterizerConfig, entry_bucket_capacity
 from gaussian_splatting_torch.scene import densify as densify_mod
 from gaussian_splatting_torch.scene.cameras import Camera
@@ -116,6 +125,9 @@ class Trainer:
     debug_dump_path: str = "snapshot_step.dump"
     debug: bool = False
     device: str = "cuda"
+    # A `parallel.sharding.Mesh`: rows sharded over its ranks, the image's
+    # tile rows in strips (see the module docstring). None: one device.
+    mesh: Optional[sharding.Mesh] = None
 
     def __post_init__(self):
         self._dev = require_device(self.device)
@@ -136,12 +148,36 @@ class Trainer:
         # each camera's (CameraArrays, (H, W, 3) target) on the device, made
         # at its first use: the targets are uploaded once, not every step
         self._views = {}
+        self._sharded_steps = {}
+        self._state_is_shard = False
+
+    def _place(self, state: TrainState) -> TrainState:
+        """A (re)built whole state as this rank's shard, with a mesh."""
+        if self.mesh is None:
+            return state
+        shard = sharding.shard_train_state(state, self.mesh)
+        self._state_is_shard = True
+        return shard
+
+    @contextmanager
+    def _whole_state(self):
+        """With a mesh, `state` is the whole state gathered from every rank
+        inside the block, and this rank's shard of it again after."""
+        if not self._state_is_shard:
+            yield
+            return
+        self.state = sharding.gather_train_state(self.state, self.mesh)
+        self._state_is_shard = False
+        try:
+            yield
+        finally:
+            self.state = self._place(self.state)
 
     # ---- setup ----
     def init_from_pcd(self, points: np.ndarray, colors: np.ndarray):
         cap = capacity_bucket(points.shape[0], self.min_capacity)
         params = create_from_pcd(points, colors, self.sh_degree, capacity=cap, device=self._dev)
-        self.state = init_train_state(params)
+        self.state = self._place(init_train_state(params))
 
     def _pop_camera(self) -> int:
         """Index into `cameras` of the next training view: a random pop from
@@ -157,9 +193,19 @@ class Trainer:
             self._views[i] = (cam.arrays(device=self._dev), gt.permute(1, 2, 0).contiguous())
         return self._views[i]
 
+    def _global_sum(self, x: torch.Tensor) -> int:
+        """x summed over the ranks while `state` is a shard."""
+        return int(sharding.all_sum(x) if self._state_is_shard else x)
+
     @property
     def num_live(self) -> int:
-        return int(self.state.params.alive.sum())
+        return self._global_sum(self.state.params.alive.sum())
+
+    @property
+    def num_rows(self) -> int:
+        """Rows of the whole state (the capacity), on every rank."""
+        n = self.state.params.num_points
+        return n * self.mesh.size if self._state_is_shard else n
 
     # ---- entry-driven capacity (see auto_capacity above) ----
     def _entry_capacity(self, n_entries: int) -> int:
@@ -177,7 +223,15 @@ class Trainer:
         prep = preprocess(acts.xyz, acts.scales, acts.quats, acts.opacities, acts.shs,
                           self.active_sh_degree, cam_arrays, width, height,
                           self.raster_cfg.tile_w, self.raster_cfg.tile_h, alive=p.alive)
-        return int(prep.tiles_touched.sum())
+        return self._global_sum(prep.tiles_touched.sum())
+
+    def _sharded_step(self, width: int, height: int, densify_stats: bool):
+        key = (self.active_sh_degree, width, height, self.raster_cfg, densify_stats)
+        if key not in self._sharded_steps:
+            self._sharded_steps[key] = sharding.make_sharded_train_step(
+                self.mesh, self.active_sh_degree, width, height, self.raster_cfg, self.opt,
+                self.spatial_lr_scale, update_densify_stats=densify_stats)
+        return self._sharded_steps[key]
 
     # ---- the loop ----
     def train(self, iterations: Optional[int] = None, progress: bool = False):
@@ -215,25 +269,32 @@ class Trainer:
         if self.auto_capacity and self.raster_cfg.capacity_exact is None:
             n0 = self._probe_entries(cam_arrays, camera.width, camera.height)
             self._set_capacity(self._entry_capacity(n0))
+        in_densify_window = it < self.opt.densify_until_iter
+        names = METRIC_NAMES
         try:
-            metrics = train_step(
-                self.state, cam_arrays, gt, bg, it,
-                active_sh_degree=self.active_sh_degree,
-                width=camera.width,
-                height=camera.height,
-                raster_cfg=self.raster_cfg,
-                opt=self.opt,
-                spatial_lr_scale=self.spatial_lr_scale,
-                update_densify_stats=it < self.opt.densify_until_iter,
-            )
+            if self.mesh is None:
+                metrics = train_step(
+                    self.state, cam_arrays, gt, bg, it,
+                    active_sh_degree=self.active_sh_degree,
+                    width=camera.width,
+                    height=camera.height,
+                    raster_cfg=self.raster_cfg,
+                    opt=self.opt,
+                    spatial_lr_scale=self.spatial_lr_scale,
+                    update_densify_stats=in_densify_window,
+                )
+            else:
+                names = METRIC_NAMES + ("max_strip_entries",)
+                step_fn = self._sharded_step(camera.width, camera.height, in_densify_window)
+                metrics = step_fn(self.state, cam_arrays, gt, bg, it)
             # one wait for the device: every metric in one copy
-            values = torch.stack([metrics[k].to(torch.float64) for k in METRIC_NAMES]).tolist()
+            values = torch.stack([metrics[k].to(torch.float64) for k in names]).tolist()
         except Exception:
             if self.debug:
                 self._dump_snapshot(it, camera, {"error": "step exception"})
                 print(f"step raised; snapshot written to {self.debug_dump_path}")
             raise
-        m = dict(zip(METRIC_NAMES, values))
+        m = dict(zip(names, values))
         m["iteration"] = it
         self.history.append(m)
 
@@ -245,10 +306,13 @@ class Trainer:
             )
 
         # Grow the entry budget at once if the tile list overflowed (the
-        # reference reallocates its arena, rasterize_points.cu:28-36).
-        need = int(m["num_entries"])
+        # reference reallocates its arena, rasterize_points.cu:28-36). With
+        # a mesh the largest strip is held to its 1/n share as well: a
+        # skewed strip can overflow while the summed count fits.
+        n_ranks = 1 if self.mesh is None else self.mesh.size
+        need = max(int(m["num_entries"]), int(m.get("max_strip_entries", 0)) * n_ranks)
         self._entry_window_max = max(self._entry_window_max, need)
-        n_rows = self.state.params.num_points
+        n_rows = self.num_rows
         if need > self.raster_cfg.capacity(n_rows):
             if self.auto_capacity or self.raster_cfg.capacity_exact is not None:
                 self._set_capacity(self._entry_capacity(need))
@@ -266,7 +330,7 @@ class Trainer:
         """Pickle the step's inputs for offline repro: the JAX package's
         snapshot (iteration, camera uid, `extra`, and the live rows'
         parameters, moments and statistics when the device can still be
-        read)."""
+        read; with a mesh, this rank's rows)."""
         payload = dict(iteration=it, camera_uid=camera.uid, **extra)
         try:
             params, am, av, stats, _step = _state_to_host(self.state)
@@ -279,8 +343,15 @@ class Trainer:
     def post_step(self):
         """The densification cadence (train.py:151-169); see step()."""
         it = self.iteration
-        if it < self.opt.densify_until_iter:
-            if it > self.opt.densify_from_iter and it % self.opt.densification_interval == 0:
+        if it >= self.opt.densify_until_iter:
+            return
+        densify = it > self.opt.densify_from_iter and it % self.opt.densification_interval == 0
+        reset = it % self.opt.opacity_reset_interval == 0 or (
+            self.white_background and it == self.opt.densify_from_iter)
+        if not (densify or reset):
+            return
+        with self._whole_state():
+            if densify:
                 size_threshold = 20 if it > self.opt.opacity_reset_interval else None
                 live_before = max(self.num_live, 1)
                 self._densify_and_prune(size_threshold)
@@ -292,9 +363,7 @@ class Trainer:
                     target = self._entry_window_max * self.num_live / live_before
                     self._set_capacity(self._entry_capacity(int(target)))
                     self._entry_window_max = 0
-            if it % self.opt.opacity_reset_interval == 0 or (
-                self.white_background and it == self.opt.densify_from_iter
-            ):
+            if reset:
                 self._reset_opacity()
 
     # ---- density control ----
@@ -361,7 +430,12 @@ class Trainer:
 
     # ---- checkpoints (train.py:178-180, gaussian_model.py:80-112) ----
     def save_checkpoint(self, path: str):
-        params, m, v, stats, step = _state_to_host(self.state)
+        """Pickle the live rows and the loop's scalars; with a mesh every rank
+        must call it, and rank 0 writes the whole state."""
+        with self._whole_state():
+            params, m, v, stats, step = _state_to_host(self.state)
+        if self.mesh is not None and self.mesh.rank != 0:
+            return
         payload = dict(
             iteration=self.iteration,
             active_sh_degree=self.active_sh_degree,
@@ -386,6 +460,6 @@ class Trainer:
         self.spatial_lr_scale = payload["spatial_lr_scale"]
         self.cameras_extent = payload["cameras_extent"]
         self.state = None
-        self.state = _state_from_host(
+        self.state = self._place(_state_from_host(
             payload["params"], payload["adam_m"], payload["adam_v"], payload["adam_step"],
-            0, self.min_capacity, self._dev, stats=payload["stats"])
+            0, self.min_capacity, self._dev, stats=payload["stats"]))

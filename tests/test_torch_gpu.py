@@ -14,6 +14,8 @@ at least 99.9% of rows within 1e-3 x the field's max |grad| (the same few
 flipped pixels, and float32 sums in other orders). The backward's replay
 of the forward is exact: its final transmittance equals the forward's bit
 for bit, and two runs give the same bits.
+At a row origin (a strip of the multi-device step) the same rules hold,
+and the strips stitch into the full frame's outputs bit for bit.
 The transpose is a copy: bit-equal to its plain version. The column sums
 take float32 partials in another order than a float64 sum: per column
 within 1e-5 x the sum of |x|, and two runs give the same bits.
@@ -45,6 +47,7 @@ from gaussian_splatting_torch.ops.rasterize import RasterizerConfig
 from gaussian_splatting_torch.ops.relayout import (
     relayout_to_rows, relayout_to_rows_cuda, relayout_to_rows_torch,
 )
+from gaussian_splatting_torch.parallel.sharding import StripGeometry, strip_rects
 from gaussian_splatting_torch.scene import densify
 from gaussian_splatting_torch.scene.cameras import Camera
 from gaussian_splatting_torch.scene.gaussians import PARAM_NAMES, params_from_numpy
@@ -179,6 +182,58 @@ def test_backward_kernels_match_plain(W, H, tile):
                                                lists.gauss_count, P))
     assert_grads_close(route_grads_cuda(rows, lists.gauss_offset, lists.gauss_count, P),
                        route_grads_torch(rows, lists.gauss_offset, lists.gauss_count, P))
+
+
+@pytest.mark.parametrize("tile", TILE_GEOMETRIES)
+@pytest.mark.parametrize("strips", ["one", "one tile row each", "three"])
+def test_kernels_at_a_row_origin(tile, strips):
+    """Both compositing kernels on each strip's clipped lists at its row
+    origin (the multi-device step's strips of 333x197: origin 0 alone;
+    origins 0, tile_h, 2 tile_h, ...; and three strips, the last running past
+    the image), against their plain versions at the same origin; the cull
+    bit-equal at each origin, the backward's replay bit-equal to the
+    forward's final T; the strips stitched bit-equal to the full frame."""
+    dev = cuda_device()
+    W, H = 333, 197
+    prep, full_lists = sorted_lists(dev, W, H, tile)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+    fields = (prep.means2d, prep.conic, prep.rgb, prep.opacity)
+    full = composite_fwd_cuda(full_lists.gauss_id, full_lists.tile_start, full_lists.tile_stop,
+                              *fields, bg, W, H, *tile)
+    grid_y = -(-H // tile[1])
+    n = {"one": 1, "one tile row each": grid_y, "three": 3}[strips]
+    geo = StripGeometry.of(W, H, *tile, n)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    images, final_ts = [], []
+    for r in range(n):
+        lo = r * geo.rows_per
+        origin = lo * tile[1]
+        rmin, rmax, tiles = strip_rects(prep.rect_min, prep.rect_max, prep.visible, lo,
+                                        geo.rows_per)
+        lists = binning.build_tile_lists(rmin, rmax, prep.depths, tiles, geo.grid_x,
+                                         geo.rows_per, int(prep.tiles_touched.sum()) + 256)
+        ids = (lists.gauss_id, lists.tile_start, lists.tile_stop)
+        Hs = geo.strip_h
+        out = composite_fwd_cuda(*ids, *fields, bg, W, Hs, *tile, origin_y=origin)
+        unculled = composite_fwd_unculled_cuda(*ids, *fields, bg, W, Hs, *tile, origin_y=origin)
+        assert_close(out, composite_fwd_torch(*ids, *fields, bg, W, Hs, *tile, origin_y=origin))
+        assert torch.equal(out.image, unculled.image)
+        assert torch.equal(out.final_t, unculled.final_t)
+        images.append(out.image)
+        final_ts.append(out.final_t)
+
+        g_img = torch.randn((Hs, W, 3), generator=gen, device=dev)
+        g_ft = torch.randn((Hs, W), generator=gen, device=dev)
+        args = (*ids, lists.entry_src, *fields, out.image, out.final_t, g_img, g_ft, W, Hs, *tile)
+        replay_t = torch.full((Hs, W), -1.0, device=dev)
+        rows = composite_bwd_cuda(*args, origin_y=origin, replay_t=replay_t)
+        torch.cuda.synchronize()
+        assert torch.equal(replay_t, out.final_t)
+        k = int(lists.total)
+        if k:
+            assert_grads_close(rows[:k], composite_bwd_torch(*args, origin_y=origin)[:k])
+    assert torch.equal(torch.cat(images)[:H], full.image)
+    assert torch.equal(torch.cat(final_ts)[:H], full.final_t)
 
 
 # Entries per tile, each with the Gaussians' opacity and size in pixels:

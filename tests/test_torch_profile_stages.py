@@ -69,7 +69,7 @@ def jax_tool():
 def test_every_stage_gives_a_finite_time(result):
     assert result["device"] == "cpu"
     for stage in ps.STAGES:
-        if stage != "sat":  # sat reports statistics, not times
+        if stage not in ("sat", "comm"):  # sat reports statistics, comm a model
             assert any(k.startswith(f"{stage}: ") for k in result["ms"]), stage
     assert all(math.isfinite(ms) and ms > 0 for ms in result["ms"].values()), result["ms"]
     assert all(math.isfinite(r["bound_ms"]) for r in result["roofline"]["rows"])
@@ -118,7 +118,7 @@ def test_cpu_lines_say_they_are_host_clock(capsys):
     assert lines and all("host clock on the CPU" in ln for ln in lines)
 
 
-@pytest.mark.parametrize("stage", ["gather", "visits", "comm"])
+@pytest.mark.parametrize("stage", ["gather", "visits"])
 def test_unported_stages_are_refused_with_the_reason(stage, capsys):
     with pytest.raises(ValueError, match=f"{stage!r} is not ported"):
         ps.run([stage], device="cpu")
@@ -136,3 +136,38 @@ def test_the_card_is_the_default_device():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="is_available"):
         ps.run(["pre"], P=P, width=W, height=H)
+
+
+def test_comm_counts_the_sharded_steps_collectives(tmp_path, monkeypatch):
+    """The bytes `comm` counts per step are the sizes of the tensors that a
+    2-rank sharded step all-reduces (recorded in the ranks, on the scene of
+    tests/test_torch_sharding.py: 128 rows at 64x48, 32x32 tiles); with a
+    link rate and GS_STEP_MS, the ring's wire time and the efficiency."""
+    from test_torch_sharding import H as SH
+    from test_torch_sharding import W as SW
+    from test_torch_sharding import jax_scene, run_ranks, step_inputs
+
+    from helpers import make_camera
+
+    params, alive, gt = jax_scene(0, 40, 128)
+    rank = run_ranks("step", 2, step_inputs(params, alive, gt, make_camera(SW, SH), 2), tmp_path)[0]
+    monkeypatch.setenv("GS_LINK_GBPS", "100")
+    monkeypatch.setenv("GS_STEP_MS", "10")
+    out = ps.run(["comm"], P=128, width=SW, height=SH, tile=(32, 32), iters=1, reps=1,
+                 device="cpu")["comm"]
+    row = next(r for r in out["rows"] if r["P"] == 128 and r["n"] == 2)
+    assert [b for _, b in row["collectives"]] == rank["all_reduce_bytes"].tolist()
+    assert row["tensor_bytes"] == int(rank["all_reduce_bytes"].sum())
+    assert row["wire_bytes"] == row["tensor_bytes"]  # 2 (n - 1) / n = 1 at n = 2
+    assert row["comm_ms"] == pytest.approx(row["wire_bytes"] / 100e9 * 1e3)
+    assert row["comp_ms"] == 5.0 and 0 < row["efficiency"] < 1
+    assert [(r["P"], r["n"]) for r in out["rows"]] == [
+        (128 * s, n) for s in ps.COMM_P_SCALES for n in ps.COMM_RANKS]
+
+
+def test_comm_without_a_link_rate_counts_bytes_only(monkeypatch):
+    monkeypatch.delenv("GS_LINK_GBPS", raising=False)
+    monkeypatch.delenv("GS_STEP_MS", raising=False)
+    out = ps.run(["comm"], P=P, width=W, height=H, tile=TILE, iters=1, reps=1, device="cpu")
+    assert all(r["comm_ms"] is None and r["efficiency"] is None for r in out["comm"]["rows"])
+    assert all(r["wire_bytes"] > 0 for r in out["comm"]["rows"])
