@@ -9,7 +9,8 @@ Phases (any failure exits non-zero; none is caught and passed over):
      `nvidia-smi --query-gpu=name,power.limit` line.
   2. build: compile every kernel under gaussian_splatting_torch/csrc with
      nvcc (one process per source, all at once) and print ptxas's
-     register / shared-memory / spill report.
+     register / shared-memory / spill report; beside them the host JPEG
+     decoder (csrc/jpeg_decode.cc, host C++, `c++`), with its build time.
   3. kernels vs plain: preprocess and bin a scene once, feed the same sorted
      lists to each CUDA kernel and to its plain torch version. Random scenes
      at 128x128 and 333x197 for every supported tile geometry, and the
@@ -17,8 +18,9 @@ Phases (any failure exits non-zero; none is caught and passed over):
      the forward, angle 0 for the backward).
      Forward tolerance: >= 99.9% of pixels within 1e-5 and every pixel
      within 1e-2 on the image and on final_t (the kernels round three
-     steps as FMAs, csrc/blend.cuh, which can flip an alpha >= 1/255 or
-     T >= 1e-4 decision). The golden scene of tests/test_golden_render.py,
+     steps as FMAs, csrc/blend.cuh, which the plain version rounds alike
+     on the card, through float64; where a tie rounds otherwise, an alpha
+     >= 1/255 or T >= 1e-4 decision can flip). The golden scene of tests/test_golden_render.py,
      rendered through `rasterize`, is held to its fixture with the same rule
      at 2e-5.
      Backward and routing, with seeded random cotangents, per gradient
@@ -93,11 +95,19 @@ Phases (any failure exits non-zero; none is caught and passed over):
      orbit views around trained_r5 (world-to-camera quaternion and
      translation), its 122,535 centres coloured clip(0.5 + C0 f_dc) * 255
      as uint8, and each view's `eval_render` of trained_r5 quantised
-     clip * 255 + 0.5 as a PNG. The port's readers must give back every
-     camera (R, T within 1e-12) and every pixel, and a copy of the first
+     clip * 255 + 0.5: the 14 train views as baseline JPEG (4:2:0, q95,
+     this script's encoder: a float DCT, the Annex K tables scaled by
+     quality, the standard Huffman tables; view_01 with a restart marker
+     every MCU row), named so in images.bin, the 2 test views as PNG. The
+     port's readers must give back every camera (R, T within 1e-12), every
+     PNG pixel and each JPEG view within 30 dB PSNR of its render, and a
+     copy of the first
      view's pixels as a PNG whose rows cycle through all five row filters
      (the Average and Paeth rows of PIL- or libpng-written datasets take
-     the reader's anti-diagonal path) must decode bit-equal. Then
+     the reader's anti-diagonal path) must decode bit-equal. The compiled
+     JPEG decoder must equal the plain one (utils/jpeg.py) bit for bit on
+     view_01 and on every file of tests/fixtures/torch_jpeg, and PIL's
+     pixels committed beside each. Then
      `cli.train.main`
      (-r 1 --eval, 200 iterations, reports at 100 and 200, a PLY at 100 and
      200, a checkpoint at 200, a densify every 20 steps from 40 to 140, the
@@ -111,7 +121,7 @@ Phases (any failure exits non-zero; none is caught and passed over):
      (`check_state`; these launches are not the path's).
      `cli.render.main(["-m", M])`:
      14 + 2 renders and ground truths, each ground truth bit-equal to the
-     dataset's PNG, the first test render bit-equal to `eval_render` of the
+     dataset's image (`image_io.read_image`: JPEG or PNG), the first test render bit-equal to `eval_render` of the
      reloaded PLY quantised the same way. Before it, LPIPS: a seeded
      random-weight .npz of all three backbones (the shapes of the weight
      generators in tests/test_lpips.py) named by GS_TPU_LPIPS_WEIGHTS; each
@@ -124,8 +134,9 @@ Phases (any failure exits non-zero; none is caught and passed over):
      each, per report one forward for each of the 2 test views and 5 train
      views; one forward per render-CLI view. Prints the PNG encode and
      decode ms at 1080p (the decode of the port's Sub-filtered files and
-     of the five-filter file), one 1920 -> 1600 resize, the train CLI's
-     wall time and step median (from the `iter_time_ms` it records in
+     of the five-filter file), the JPEG decode ms (compiled at 1080p,
+     plain on view_01, both on the 1237x822 fixtures), one 1920 -> 1600
+     resize, the train CLI's wall time, its scene load and step median (from the `iter_time_ms` it records in
      each history entry), the time of tensorboard's image panels where
      tensorboard imports and which optional packages import, the render
      CLI's ms per view, the metrics CLI's ms, the phase's peak device
@@ -197,6 +208,7 @@ import sys
 import tempfile
 import time
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -243,7 +255,8 @@ from gaussian_splatting_torch.tools.consumers import (
     consume_rows, consume_rows_cuda, consume_rows_torch, consume_t, consume_t_cuda,
     consume_t_occupancy, consume_t_torch,
 )
-from gaussian_splatting_torch.utils import cuda_build, image_io
+from gaussian_splatting_torch.scene import colmap
+from gaussian_splatting_torch.utils import cuda_build, image_io, jpeg
 from gaussian_splatting_torch.utils.roofline import (
     OPS_PER_BLENDED_BWD, OPS_PER_PAIR, bound_ms, pair_ops,
 )
@@ -251,6 +264,7 @@ from gaussian_splatting_torch.utils.roofline import (
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TRAINED_PLY = os.path.join(ROOT, "assets", "trained_r5.ply")
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
+JPEG_FIXTURES = os.path.join(FIXTURES, "torch_jpeg")
 W_MAIN, H_MAIN = 1920, 1080
 FRAMES = 50  # p80 has 10 frames beyond it
 STEPS, TIMED_STEPS = 20, 15  # train steps; latency over the last 15 (p80 has 3 beyond it)
@@ -264,6 +278,7 @@ TRAINER_OPT = OptimizationConfig(densify_from_iter=5, densification_interval=5,
                                  densify_until_iter=300, opacity_reset_interval=200)
 
 CLI_VIEWS, CLI_STEPS, CLI_REPORTS, CLI_SAVE = 16, 200, (100, 200), 100
+CLI_JPEG_QUALITY, CLI_RESTART_VIEW = 95, 1  # the train view with a restart marker every MCU row
 CLI_TRAIN = ["-r", "1", "--eval", "--iterations", str(CLI_STEPS),
              "--test_iterations", *map(str, CLI_REPORTS), "--save_iterations", str(CLI_SAVE),
              "--checkpoint_iterations", str(CLI_STEPS), "--densify_from_iter", "20",
@@ -816,6 +831,186 @@ def png_every_filter(a):
             + chunk(b"IDAT", zlib.compress(rows.tobytes())) + chunk(b"IEND", b""))
 
 
+# ---- a baseline JPEG encoder, for the CLI phase's dataset ----
+# The port reads JPEG but writes none (the JAX package writes no JPEG), so
+# this script keeps its own encoder; tests/test_torch_jpeg.py copies it.
+
+ENC_ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
+# JPEG Annex K: the example quantisation tables (K.1, K.2; natural order) and
+# Huffman tables (K.3 to K.6): code counts per length, then symbols. The AC
+# tables list a few symbols by hand, then every other (run, size) in order.
+Q_LUMA = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
+Q_CHROMA = np.full(64, 99)
+Q_CHROMA[[0, 1, 2, 3, 8, 9, 10, 11, 16, 17, 18, 24, 25]] = [17, 18, 24, 47, 18, 21, 26, 66, 24, 26, 56,
+                                                         47, 66]
+_AC_SYMBOLS = [0x00, 0xF0] + [r << 4 | s for r in range(16) for s in range(1, 11)]
+
+
+def _ac_symbols(head_hex):
+    head = list(bytes.fromhex(head_hex))
+    return head + sorted(set(_AC_SYMBOLS) - set(head))
+
+
+HUFFMAN = {  # (class, table id): (counts of lengths 1..16, symbols)
+    (0, 0): ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0], list(range(12))),
+    (0, 1): ([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0], list(range(12))),
+    (1, 0): ([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125], _ac_symbols(
+        "01020300041105122131410613516107227114328191a108234" "2b1c11552d1f02433627282090a16")),
+    (1, 1): ([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119], _ac_symbols(
+        "000102031104052131061241510761711322328108144291a1b1c109233352f0156272d10a162434e125f1")),
+}
+
+
+def _scaled(table, quality):
+    """libjpeg's jpeg_quality_scaling and jpeg_add_quant_table (baseline)."""
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return np.clip((table * scale + 50) // 100, 1, 255)
+
+
+def _codes(counts, symbols):
+    """Canonical Huffman codes: code and length per symbol (256 entries)."""
+    code, length = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    c, p = 0, 0
+    for n in range(1, 17):
+        for _ in range(counts[n - 1]):
+            code[symbols[p]], length[symbols[p]] = c, n
+            c, p = c + 1, p + 1
+        c <<= 1
+    return code, length
+
+
+def _pack(values, lengths):
+    """Bits (each value's `length` low bits, most significant first) as
+    bytes, the last byte padded with ones; every value <= 32 bits."""
+    ends = np.cumsum(lengths)
+    starts = ends - lengths
+    nbits = int(ends[-1]) if len(ends) else 0
+    word, off = starts // 32, starts % 32
+    window = values.astype(np.uint64) << (64 - off - lengths).astype(np.uint64)
+    hi = (window >> np.uint64(32)).astype(np.float64)
+    lo = (window & np.uint64(0xFFFFFFFF)).astype(np.float64)
+    n_words = nbits // 32 + 2
+    words = (np.bincount(word, hi, n_words) + np.bincount(word + 1, lo, n_words)).astype(np.uint64)
+    data = bytearray(words.astype(">u4").tobytes()[:(nbits + 7) // 8])
+    if nbits % 8:
+        data[-1] |= (1 << (8 - nbits % 8)) - 1
+    return bytes(data).replace(b"\xff", b"\xff\x00")
+
+
+def _entropy(coefs, comp, tables):
+    """Huffman-code quantised blocks (B, 64, zig-zag order) of one
+    restart segment, `comp` the component of each block (0 luma, 1 and 2
+    chroma): DC differences per component, AC as (run, size) symbols with
+    ZRL and EOB; the luma tables for component 0, the chroma ones else."""
+    B = len(coefs)
+    dc = coefs[:, 0]
+    diff = np.empty(B, np.int64)
+    for c in np.unique(comp):
+        idx = np.nonzero(comp == c)[0]
+        diff[idx] = np.diff(dc[idx], prepend=0)
+    comp = np.minimum(comp, 1)
+    b_idx, k = np.nonzero(coefs[:, 1:])
+    k = k + 1
+    first = np.ones(len(k), bool)
+    first[1:] = b_idx[1:] != b_idx[:-1]
+    prev = np.where(first, 0, np.roll(k, 1))
+    run = k - prev - 1
+    last = np.zeros(B, np.int64)
+    last[b_idx] = k  # the last nonzero index of each block (0: none)
+    eob_blocks = np.nonzero(last < 63)[0]
+    zrl_of = np.repeat(np.arange(len(k)), run // 16)
+
+    def size(x):
+        return np.where(x == 0, 0, np.floor(np.log2(np.maximum(np.abs(x), 1))).astype(np.int64) + 1)
+
+    def extra(x, s):
+        return np.where(x < 0, x + (1 << s) - 1, x)
+
+    s_dc = size(diff)
+    ac_val = coefs[b_idx, k]
+    s_ac = size(ac_val)
+    sym = (run % 16) << 4 | s_ac
+    dc_code, dc_len = (np.array([t[0][i] for t in tables]) for i in range(2))  # (2, 256) each
+    ac_code, ac_len = (np.array([t[1][i] for t in tables]) for i in range(2))
+    cb = comp[b_idx]
+    keys = np.concatenate([np.arange(B) * 130, b_idx[zrl_of] * 130 + 2 * k[zrl_of] - 1,
+                           b_idx * 130 + 2 * k, eob_blocks * 130 + 129])
+    ce, cz = comp[eob_blocks], comp[b_idx[zrl_of]]
+    values = np.concatenate([
+        (dc_code[comp, s_dc] << s_dc) | extra(diff, s_dc), ac_code[cz, 0xF0],
+        (ac_code[cb, sym] << s_ac) | extra(ac_val, s_ac), ac_code[ce, 0x00]])
+    lengths = np.concatenate([dc_len[comp, s_dc] + s_dc, ac_len[cz, 0xF0], ac_len[cb, sym] + s_ac, ac_len[ce, 0x00]])
+    order = np.argsort(keys, kind="stable")
+    return _pack(values[order], lengths[order])
+
+
+def encode_jpeg(pixels, quality=95, sampling=(2, 2), restart_interval=0):
+    """Baseline JFIF bytes of (H, W, 3) or (H, W[, 1]) uint8 `pixels`: the
+    luma sampled (h, v) = `sampling` times the chroma's (3 channels), a
+    float DCT, the Annex K tables at libjpeg's `quality` scaling, and
+    `restart_interval` MCUs between restart markers (0: none)."""
+    a = np.asarray(pixels, np.float64)
+    a = a[..., None] if a.ndim == 2 else a
+    H, W, C = a.shape
+    grey = C == 1
+    hs, vs = (1, 1) if grey else sampling
+    mcux, mcuy = -(-W // (8 * hs)), -(-H // (8 * vs))
+    a = np.pad(a, ((0, mcuy * 8 * vs - H), (0, mcux * 8 * hs - W), (0, 0)), mode="edge")
+    if grey:
+        planes = [a[..., 0]]
+    else:
+        r, g, b = a[..., 0], a[..., 1], a[..., 2]
+        y = 0.299 * r + 0.587 * g + 0.114 * b
+        cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128
+        cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128
+        planes = [y] + [p.reshape(mcuy * 8, vs, mcux * 8, hs).mean(axis=(1, 3)) for p in (cb, cr)]
+    qts = [_scaled(Q_LUMA, quality), _scaled(Q_CHROMA, quality)]
+    x = np.arange(8)
+    M = np.sqrt(np.where(x[:, None] == 0, 1 / 8, 2 / 8)) * np.cos((2 * x[None, :] + 1) * x[:, None] * np.pi / 16)
+    blocks = []
+    for i, p in enumerate(planes):
+        rows, cols = p.shape[0] // 8, p.shape[1] // 8
+        t = (p - 128).reshape(rows, 8, cols, 8).transpose(0, 2, 1, 3)
+        f = M @ t @ M.T
+        q = np.round(f.reshape(rows, cols, 64) / qts[min(i, 1)]).astype(np.int64)[..., ENC_ZIGZAG]
+        h, v = (hs, vs) if i == 0 else (1, 1)
+        blocks.append(q.reshape(mcuy, v, mcux, h, 64).transpose(0, 2, 1, 3, 4).reshape(mcuy * mcux, h * v, 64))
+    mcu = np.concatenate(blocks, axis=1)  # (MCUs, blocks per MCU, 64) in scan order
+    comp = np.array([0] * hs * vs + ([] if grey else [1, 2]))
+    tables = [((_codes(*HUFFMAN[0, t])), _codes(*HUFFMAN[1, t])) for t in range(2)]
+    per = restart_interval or len(mcu)
+    segs = [_entropy(mcu[s:s + per].reshape(-1, 64), np.tile(comp, len(mcu[s:s + per])), tables)
+            for s in range(0, len(mcu), per)]
+    scan = b"".join(seg + (bytes([0xFF, 0xD0 + i % 8]) if i < len(segs) - 1 else b"")
+                    for i, seg in enumerate(segs))
+
+    def segment(marker, body):
+        return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+    ncomp = 1 if grey else 3
+    sof = struct.pack(">BHHB", 8, H, W, ncomp) + bytes([1, hs << 4 | vs, 0])
+    sos = bytes([ncomp, 1, 0x00])
+    if not grey:
+        sof += bytes([2, 0x11, 1, 3, 0x11, 1])
+        sos += bytes([2, 0x11, 3, 0x11])
+    dqt = b"".join(bytes([t]) + qts[t][ENC_ZIGZAG].astype(np.uint8).tobytes() for t in range(1 if grey else 2))
+    dht = b"".join(bytes([c << 4 | t]) + bytes(HUFFMAN[c, t][0]) + bytes(HUFFMAN[c, t][1])
+                   for c in range(2) for t in range(1 if grey else 2))
+    out = (b"\xff\xd8" + segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+           + segment(0xDB, dqt) + segment(0xC0, sof) + segment(0xC4, dht)
+           + (segment(0xDD, struct.pack(">H", restart_interval)) if restart_interval else b"")
+           + segment(0xDA, sos + bytes([0, 63, 0])) + scan + b"\xff\xd9")
+    return out
+
+
 class PanelTimer:
     """Host time of tensorboard's `SummaryWriter.add_images` while patched
     (`with`), where tensorboard imports: the train CLI's reports log their
@@ -844,6 +1039,86 @@ class PanelTimer:
     def __exit__(self, *exc):
         if self.owner is not None:
             self.owner.add_images = self.fn
+
+
+def jpeg_train_views(data, cams, images, test_names):
+    """Rewrite the COLMAP dataset's views outside `test_names` as baseline
+    JPEG (`encode_jpeg`: 4:2:0, CLI_JPEG_QUALITY; view CLI_RESTART_VIEW
+    with a restart marker every MCU row) and images.bin to name them; the
+    test views stay PNG. Returns each view's file name and the encode ms."""
+    images_bin = os.path.join(data, "sparse", "0", "images.bin")
+    records = colmap.read_images_binary(images_bin)
+    files, encode_ms = {}, []
+    for i, (cam, px) in enumerate(zip(cams, images)):
+        files[cam.image_name] = f"{cam.image_name}.png"
+        if cam.image_name in test_names:
+            continue
+        restart = -(-W_MAIN // 16) if i == CLI_RESTART_VIEW else 0  # MCUs in a row
+        t0 = time.perf_counter()
+        body = encode_jpeg(px, CLI_JPEG_QUALITY, (2, 2), restart)
+        encode_ms.append((time.perf_counter() - t0) * 1e3)
+        os.remove(os.path.join(data, "images", files[cam.image_name]))
+        files[cam.image_name] = f"{cam.image_name}.jpg"
+        with open(os.path.join(data, "images", files[cam.image_name]), "wb") as f:
+            f.write(body)
+    for rec in records.values():
+        rec.name = files[os.path.splitext(rec.name)[0]]
+    colmap.write_images_binary(records, images_bin)
+    return files, encode_ms
+
+
+def check_jpeg_decoders(view_path):
+    """The compiled JPEG decoder against the plain one on one 1080p view,
+    and against both the plain one and PIL's pixels (committed beside each
+    file) on every fixture of tests/fixtures/torch_jpeg. Returns the plain
+    decoder's ms on the view and {fixture: (compiled ms, plain ms)} for the
+    1237x822 ones."""
+    got = image_io.read_image(view_path)
+    plain, plain_ms = synced_ms(jpeg.read_jpeg, view_path, True)
+    if not np.array_equal(got, plain):
+        fail(f"cli path: the compiled JPEG decoder differs from the plain one on {view_path} at "
+             f"{int((got != plain).any(-1).sum())} pixels")
+    names = sorted(f[:-4] for f in os.listdir(JPEG_FIXTURES) if f.endswith(".jpg"))
+    if not names:
+        fail(f"cli path: no JPEG fixtures in {JPEG_FIXTURES}")
+    times = {}
+    for name in names:
+        with open(os.path.join(JPEG_FIXTURES, f"{name}.jpg"), "rb") as f:
+            body = f.read()
+        want = np.load(os.path.join(JPEG_FIXTURES, f"{name}.npz"))["pixels"]
+        want = want[..., None] if want.ndim == 2 else want
+        got, c_ms = synced_ms(jpeg.decode_jpeg, body, name)
+        plain, p_ms = synced_ms(jpeg.decode_jpeg, body, name, True)
+        if not (np.array_equal(got, plain) and np.array_equal(got, want)):
+            fail(f"cli path: fixture {name}: compiled == plain {np.array_equal(got, plain)}, "
+                 f"compiled == PIL's pixels {np.array_equal(got, want)}")
+        if want.shape[:2] == (822, 1237):
+            times[name] = (c_ms, p_ms)
+    print(f"  JPEG fixtures: {len(names)} files, the compiled decoder bit-equal to the plain one "
+          f"and to PIL's committed pixels on each")
+    return plain_ms, times
+
+
+class SceneLoadTimer:
+    """Wall time of the train CLI's `Scene(...)` (the dataset read, every
+    view decoded and converted, input.ply and cameras.json written) while
+    patched (`with`)."""
+
+    def __enter__(self):
+        self.cls, self.s = train_cli.Scene, None
+        timer = self
+
+        class Timed(self.cls):
+            def __init__(self, *args, **kw):
+                t0 = time.perf_counter()
+                super().__init__(*args, **kw)
+                timer.s = time.perf_counter() - t0
+
+        train_cli.Scene = Timed
+        return self
+
+    def __exit__(self, *exc):
+        train_cli.Scene = self.cls
 
 
 def in_process(main, *args, **kw):
@@ -877,7 +1152,8 @@ def _cli_phase(dev, tmp):
     bg0 = torch.zeros(3, device=dev)
 
     # The dataset: trained_r5's renders from 16 orbit views, its centres
-    # coloured by the DC term, through the port's COLMAP and PNG writers.
+    # coloured by the DC term, through the port's COLMAP and PNG writers;
+    # then the train views rewritten as JPEG by this script's encoder.
     model = load_gaussians_ply(TRAINED_PLY)
     colors = (np.clip(0.5 + gsmath.SH_C0 * model["features_dc"][:, 0, :], 0.0, 1.0) * 255
               ).astype(np.uint8)
@@ -898,8 +1174,11 @@ def _cli_phase(dev, tmp):
             cams.append(cam)
             images.append(quantize(img))
     del trained, acts
+    names = sorted(c.image_name for c in cams)
+    test_names = set(names[::8])  # llffhold=8: the views the train CLI holds out
     t0 = time.perf_counter()
     write_colmap_scene(data, cams, images, model["xyz"], colors)
+    files, jpeg_encode_ms = jpeg_train_views(data, cams, images, test_names)
     write_ms = (time.perf_counter() - t0) * 1e3
     encode_ms = []
     for px in images[:4]:
@@ -907,23 +1186,45 @@ def _cli_phase(dev, tmp):
         encode_ms.append(ms)
     _, resize_ms = synced_ms(image_io.resize, images[0], (1600, 900))
 
-    # The port's readers give back every camera and every pixel.
+    # The port's readers give back every camera, every PNG pixel and every
+    # JPEG view close to its render (a lossy encode).
     info = read_colmap_scene(data, None, eval_split=False)
     by_name = {c.image_name: c for c in info.train_cameras}
-    decode_ms = []
+    decode_ms, jpeg_ms, psnr = [], [], []
     for cam, px in zip(cams, images):
         got = by_name[cam.image_name]
         if float(np.abs(got.R - cam.R).max()) > 1e-12 or float(np.abs(got.T - cam.T).max()) > 1e-12:
             fail(f"cli path: camera {cam.image_name} did not survive the COLMAP files")
-        back, ms = synced_ms(image_io.read_png, got.image_path)
-        decode_ms.append(ms)
-        if not np.array_equal(back, px):
-            fail(f"cli path: image {cam.image_name} did not survive its PNG")
+        if os.path.basename(got.image_path) != files[cam.image_name]:
+            fail(f"cli path: images.bin names {got.image_path} for {cam.image_name}")
+        if cam.image_name in test_names:
+            back, ms = synced_ms(image_io.read_png, got.image_path)
+            decode_ms.append(ms)
+            if not np.array_equal(back, px):
+                fail(f"cli path: image {cam.image_name} did not survive its PNG")
+            continue
+        back, ms = synced_ms(image_io.read_image, got.image_path)
+        jpeg_ms.append(ms)
+        mse = float(np.mean((back.astype(np.float64) - px) ** 2)) if back.shape == px.shape else math.inf
+        psnr.append(10 * math.log10(255 ** 2 / max(mse, 1e-12)))
+        if not psnr[-1] >= 30.0:
+            fail(f"cli path: JPEG view {cam.image_name} decodes {back.shape} at {psnr[-1]:.2f} dB "
+                 f"PSNR from its render")
     if not np.array_equal(info.points, model["xyz"]):
         fail("cli path: the points did not survive points3D.bin")
     print(f"cli path: a COLMAP dataset of {CLI_VIEWS} views at {W_MAIN}x{H_MAIN} and "
-          f"{len(info.points)} points written in {write_ms:.1f} ms; cameras within 1e-12 and "
-          f"pixels bit-equal through the port's readers")
+          f"{len(info.points)} points written in {write_ms:.1f} ms: {len(jpeg_ms)} train views "
+          f"as baseline JPEG 4:2:0 q{CLI_JPEG_QUALITY} (this script's encoder, "
+          f"{np.median(jpeg_encode_ms):.1f} ms a view; {files[names[CLI_RESTART_VIEW]]} with a "
+          f"restart marker every MCU row), {len(decode_ms)} test views as PNG; cameras within "
+          f"1e-12, PNG pixels bit-equal, JPEG views {min(psnr):.2f}-{max(psnr):.2f} dB PSNR "
+          f"from their renders through the port's readers")
+    plain_ms, fixture_ms = check_jpeg_decoders(os.path.join(data, "images", files[names[CLI_RESTART_VIEW]]))
+    print(f"  JPEG decode at {W_MAIN}x{H_MAIN} (baseline 4:2:0 q{CLI_JPEG_QUALITY}): compiled "
+          f"{np.median(jpeg_ms):.2f} ms (median of {len(jpeg_ms)} views), plain "
+          f"{plain_ms:.1f} ms ({files[names[CLI_RESTART_VIEW]]}, bit-equal); at 1237x822 "
+          + ", ".join(f"{k} compiled {c:.2f} ms, plain {p:.1f} ms" for k, (c, p) in fixture_ms.items())
+          + " (host clock)")
     # A file as PIL or libpng writes one: Average and Paeth rows, which the
     # reader decodes by anti-diagonals (the cost of a real dataset).
     mixed = os.path.join(tmp, "every_filter.png")
@@ -944,7 +1245,7 @@ def _cli_phase(dev, tmp):
     # Train. Each step's host time is the CLI's own iter_time_ms (the step
     # ends in a copy of its metrics to the host).
     reset_launches()
-    with PanelTimer() as panels:
+    with PanelTimer() as panels, SceneLoadTimer() as scene_load:
         t0 = time.perf_counter()
         scene, tr = in_process(train_cli.main, ["-s", data, "-m", model_dir, *CLI_TRAIN])
         torch.cuda.synchronize()
@@ -958,8 +1259,11 @@ def _cli_phase(dev, tmp):
             "route_grads": CLI_STEPS}
     losses_ = [h["loss"] for h in tr.history]
     first20, last20 = float(np.mean(losses_[:20])), float(np.mean(losses_[-20:]))
+    if scene_load.s is None:
+        fail("cli path: the train CLI made no Scene")
     print(f"  train CLI: {CLI_STEPS} steps, {n_train} train and {n_test} test views, wall "
-          f"{train_s:.2f} s, step median {np.median(step_ms):.3f} ms, p80 "
+          f"{train_s:.2f} s (scene load {scene_load.s:.2f} s: {n_train} JPEG and {n_test} PNG "
+          f"views decoded), step median {np.median(step_ms):.3f} ms, p80 "
           f"{np.percentile(step_ms, 80):.3f} ms (its iter_time_ms, host clock, deferred "
           f"maintenance excluded); loss first 20 {first20:.6f}, last 20 {last20:.6f}; "
           f"{len(tr.densify_history)} densifies ({[d['path'] for d in tr.densify_history]}); live "
@@ -1009,7 +1313,6 @@ def _cli_phase(dev, tmp):
     render_launches = {k: LAUNCH_COUNTERS[k].launches for k in train_launches}
     if render_launches != {"composite_fwd": CLI_VIEWS, "composite_bwd": 0, "route_grads": 0}:
         fail(f"cli path: render CLI launches {render_launches} for {CLI_VIEWS} views")
-    names = sorted(c.image_name for c in cams)
     splits = {"test": names[::8], "train": [n for i, n in enumerate(names) if i % 8]}
     for split, split_names in splits.items():
         out = os.path.join(model_dir, split, f"ours_{CLI_STEPS}")
@@ -1018,7 +1321,7 @@ def _cli_phase(dev, tmp):
                 fail(f"cli path: {split}/{kind} holds {os.listdir(os.path.join(out, kind))}")
         for i, name in enumerate(split_names):
             gt = image_io.read_png(os.path.join(out, "gt", f"{i:05d}.png"))
-            if not np.array_equal(gt, image_io.read_png(os.path.join(data, "images", name + ".png"))):
+            if not np.array_equal(gt, image_io.read_image(os.path.join(data, "images", files[name]))):
                 fail(f"cli path: {split} gt {i} is not the dataset's {name}")
     # the render CLI's cameras: the ones its reader gives (R within 1e-12 of the orbit's)
     views = [load_camera(by_name[name], 1) for name in names]
@@ -1031,7 +1334,7 @@ def _cli_phase(dev, tmp):
              f"{int((got_png != want_png).any(-1).sum())} pixels")
     print(f"  render CLI: {CLI_VIEWS} views in {render_ms / 1e3:.2f} s wall, "
           f"{render_ms / CLI_VIEWS:.1f} ms per view (scene load, render, two PNGs); launches "
-          f"{render_launches}; gt PNGs bit-equal to the dataset's, test view 0 bit-equal to "
+          f"{render_launches}; gt PNGs bit-equal to the dataset's JPEG and PNG images, test view 0 bit-equal to "
           f"eval_render of the reloaded PLY")
 
     # Metrics.
@@ -1483,8 +1786,16 @@ def main():
 
     # ---- 2. build -----------------------------------------------------
     t0 = time.perf_counter()
-    logs = cuda_build.build()
-    print(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
+
+    def build_host():
+        cuda_build.build_host()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(1) as pool:  # the host decoder beside the kernels' nvccs
+        host_s = pool.submit(build_host)
+        logs = cuda_build.build()
+        print(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f} s; host decoder "
+              f"{cuda_build.host_sources()} (c++) in {host_s.result():.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
             if any(k in line for k in ("registers", "spill", "smem", "Compiling entry")):

@@ -19,7 +19,9 @@ host, opacity reset, checkpoints), the per-stage profiler
 tool's probe kernels: the transpose (`ops/relayout.py`) and the column
 sums (`tools/consumers.py`), and the user's entry path: scene IO
 (`scene/colmap.py`, `scene/dataset_readers.py`, `scene/scene.py`, PNG
-reading and writing and PIL's resize in `utils/image_io.py`), the flag
+and JPEG reading (PIL's pixels; the JPEG decoder is host C++,
+`csrc/jpeg_decode.cc`, beside its plain version `utils/jpeg.py`), PNG
+writing and PIL's resize in `utils/image_io.py`), the flag
 groups (`config.py`), the CLIs (`python -m gaussian_splatting_torch.cli.
 {train,render,metrics,full_eval,convert}`) and the live-viewer bridge
 (`viewer/network_gui.py`), LPIPS (`ops/lpips.py`, in the metrics CLI), and

@@ -7,7 +7,8 @@ to the port's train / render / metrics CLIs (full_eval.py:15-75), with the
 paper's per-dataset resolution policy (outdoor images_4, indoor images_2,
 full-res for T&T/DB). `--backend` takes the port's backends (and the JAX
 package's names, which map to "auto"). The paper's datasets are JPEG, which
-the port does not read yet (`utils/image_io.py`).
+the port reads as the JAX package does through PIL, bit for bit
+(`utils/image_io.read_image`, `utils/jpeg.py`).
 """
 
 from __future__ import annotations

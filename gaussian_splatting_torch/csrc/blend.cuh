@@ -10,9 +10,11 @@
 // pinned: fmaf where a contraction saves an instruction, the
 // round-to-nearest intrinsics (never contracted) elsewhere. Both kernels
 // therefore round identically. The plain torch version
-// (ops/composite.py::_pair) rounds every operation on its own, so it can
-// differ from the kernels by an FMA's rounding, and expf from the CPU's
-// exp by an ulp; that flips a threshold decision on a few pixels.
+// (ops/composite.py::_pair) rounds the same FMAs once (through float64) on
+// CUDA tensors, where it is the kernels' reference, so there it differs
+// only where a float64 sum meets a float32 tie; on the CPU it rounds every
+// operation on its own, and the CPU's exp differs from expf by an ulp.
+// Either can flip a threshold decision on a pixel.
 
 #pragma once
 

@@ -65,23 +65,52 @@ def _tile_pixels(width: int, height: int, tile_w: int, tile_h: int, dev, origin_
             (x >= width) | (y >= height))
 
 
+def fma_rn(x, y, z):
+    """fmaf(x, y, z) of float32 tensors, x y + z rounded once to float32,
+    through float64: the product is exact there, and the float64 sum,
+    rounded again to float32, differs from one rounding only where it lands
+    exactly on a float32 tie."""
+    return (x.double() * y.double() + z.double()).float()
+
+
+def _power(a, b, c, dx, dy):
+    """power = -0.5 (a dx^2 + c dy^2) - b dx dy. On CUDA tensors, where
+    the plain version is the kernels' reference, rounded as csrc/blend.cuh's
+    pair_alpha: the quadratic form is one FMA, and its second FMA, -0.5 quad
+    - b dx dy, equals the float32 subtraction (the product by -0.5 is
+    exact). On the CPU every step rounds on its own, the arithmetic the CPU
+    tests hold to the JAX package's."""
+    if dx.is_cuda:
+        return -0.5 * fma_rn(a * dx, dx, c * dy * dy) - b * dx * dy
+    return -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
+
+
+def _transmit(trans, alpha):
+    """T (1 - alpha): on CUDA tensors rounded as csrc/blend.cuh's transmit,
+    fmaf(-T, alpha, T); on the CPU as two steps."""
+    if trans.is_cuda:
+        return fma_rn(-trans, alpha, trans)
+    return trans * (1.0 - alpha)
+
+
 def _pair(gid, means2d, conic, opacity, px, py, trans):
-    """The per-(entry, pixel) blend arithmetic, in the kernels' order of
-    operations (csrc/blend.cuh, which rounds three of them as FMAs): d,
-    G = exp(power), the unclamped alpha `raw`, alpha, whether the entry is
-    taken (not skipped) and the transmittance test."""
+    """The per-(entry, pixel) blend arithmetic in the kernels' order of
+    operations (csrc/blend.cuh; on CUDA tensors also with their FMAs'
+    rounding, `_power`, `_transmit`): d, G = exp(power), the unclamped
+    alpha `raw`, alpha, whether the entry is taken (not skipped) and the
+    transmittance test."""
     dx = means2d[gid, 0][:, None] - px
     dy = means2d[gid, 1][:, None] - py
     a = conic[gid, 0][:, None]
     b = conic[gid, 1][:, None]
     c = conic[gid, 2][:, None]
-    power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
+    power = _power(a, b, c, dx, dy)
     g = torch.exp(power)
     raw = opacity[gid][:, None] * g
     alpha = torch.clamp_max(raw, ALPHA_MAX)
     # `alpha >= ALPHA_MIN` is false for NaN, so a NaN alpha is skipped.
     taken = ~(power > 0.0) & (alpha >= ALPHA_MIN)
-    test = trans * (1.0 - alpha)
+    test = _transmit(trans, alpha)
     return dx, dy, g, raw, alpha, taken, test
 
 
@@ -365,10 +394,10 @@ def render_bruteforce(prep, width: int, height: int, tile_w: int, tile_h: int,
         dx = prep.means2d[g, 0] - ix
         dy = prep.means2d[g, 1] - iy
         a, b, c = prep.conic[g]
-        power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
+        power = _power(a, b, c, dx, dy)
         alpha = torch.clamp_max(prep.opacity[g] * torch.exp(power), ALPHA_MAX)
         live = in_rect & ~done & ~(power > 0.0) & (alpha >= ALPHA_MIN)
-        test = trans * (1.0 - alpha)
+        test = _transmit(trans, alpha)
         stop = live & (test < T_EPS)
         done = done | stop
         live = live & ~stop

@@ -15,9 +15,11 @@ behaviour:
 - resolution policy: -r in {1,2,4,8} divisors, else a width cap at 1600 px
   (utils/camera_utils.py:22-39)
 
-Images are read with the port's PNG reader and resized with its copy of
-PIL's default resize (`utils/image_io.py`), so `CameraInfo.image` holds
-uint8 pixels rather than a PIL image. Only PNG files are read.
+Images are read with the port's reader (`utils/image_io.read_image`: PNG
+and JPEG, PIL's pixels bit for bit) and resized with its copy of PIL's
+default resize, so `CameraInfo.image` holds uint8 pixels rather than a PIL
+image. An image that cannot be read raises a `ValueError` naming it as the
+dataset lists it (`images.bin` / `images.txt`, or the transforms file).
 `write_colmap_scene` writes a COLMAP dataset from cameras and pixels, the
 inverse of `read_colmap_scene`.
 """
@@ -49,6 +51,7 @@ class CameraInfo:
     width: int
     height: int
     image: Optional[np.ndarray] = None  # (H, W, C) uint8; read from image_path when None
+    listed_as: str = ""  # where the dataset names the image, for errors: "'name' in <file>"
 
 
 @dataclass
@@ -78,10 +81,12 @@ def read_colmap_scene(path: str, images_dir: Optional[str], eval_split: bool, ll
     if not os.path.isdir(sparse):
         sparse = os.path.join(path, "sparse")
     try:
-        extr = colmap.read_images_binary(os.path.join(sparse, "images.bin"))
+        images_file = os.path.join(sparse, "images.bin")
+        extr = colmap.read_images_binary(images_file)
         intr = colmap.read_cameras_binary(os.path.join(sparse, "cameras.bin"))
     except FileNotFoundError:
-        extr = colmap.read_images_text(os.path.join(sparse, "images.txt"))
+        images_file = os.path.join(sparse, "images.txt")
+        extr = colmap.read_images_text(images_file)
         intr = colmap.read_cameras_text(os.path.join(sparse, "cameras.txt"))
 
     reading_dir = images_dir if images_dir else "images"
@@ -107,7 +112,7 @@ def read_colmap_scene(path: str, images_dir: Optional[str], eval_split: bool, ll
             CameraInfo(
                 uid=c.id, R=R, T=T, fovx=fovx, fovy=fovy, image_path=image_path,
                 image_name=os.path.basename(image_path).split(".")[0],
-                width=c.width, height=c.height,
+                width=c.width, height=c.height, listed_as=f"{e.name!r} in {images_file}",
             )
         )
     cam_infos.sort(key=lambda x: x.image_name)
@@ -136,6 +141,17 @@ def read_colmap_scene(path: str, images_dir: Optional[str], eval_split: bool, ll
     )
 
 
+def _read(path: str, listed_as: str) -> np.ndarray:
+    """`image_io.read_image(path)`; an error names the image as the dataset
+    lists it."""
+    try:
+        return image_io.read_image(path)
+    except (OSError, ValueError) as err:
+        if not listed_as:
+            raise
+        raise ValueError(f"the image listed as {listed_as}: {err}") from err
+
+
 def _to_rgba(pixels: np.ndarray) -> np.ndarray:
     """PIL's convert("RGBA") of (H, W, C) uint8 pixels (L, LA, RGB, RGBA)."""
     C = pixels.shape[2]
@@ -159,7 +175,8 @@ def _read_transforms(path: str, fname: str, white_background: bool, extension=".
         R = w2c[:3, :3].T
         T = w2c[:3, 3]
 
-        im_data = np.array(_to_rgba(image_io.read_png(cam_name)), dtype=np.float32) / 255.0
+        pixels = _read(cam_name, f"{file_path!r} in {os.path.join(path, fname)}")
+        im_data = np.array(_to_rgba(pixels), dtype=np.float32) / 255.0
         bg = np.ones(3) if white_background else np.zeros(3)
         # float32 products, then float64 with bg, truncated as the reference does
         rgb = im_data[..., :3] * im_data[..., 3:4] + bg * (1 - im_data[..., 3:4])
@@ -216,7 +233,7 @@ def load_camera(cam_info: CameraInfo, resolution: int, resolution_scale: float =
     """
     pixels = cam_info.image
     if pixels is None:
-        pixels = image_io.read_png(cam_info.image_path)
+        pixels = _read(cam_info.image_path, cam_info.listed_as)
     orig_h, orig_w = pixels.shape[:2]
     if resolution in (1, 2, 4, 8):
         target = (

@@ -7,6 +7,10 @@ and flags, so a changed source rebuilds and an unchanged one is reused.
 The build uses nothing but the repo's sources and the CUDA toolkit. A
 failed build raises; nothing falls back to another implementation.
 
+Each host source `csrc/<name>.cc` (host code, no kernel: the JPEG
+decoder) is built the same way by the host C++ compiler (`$CXX`, else
+`c++`; `build_host`, `load_host`).
+
 `nvcc -Xptxas -v` reports each kernel's registers, shared memory and
 spills; the report is kept beside the library (`<library>.log`) and
 returned by `build`.
@@ -33,9 +37,17 @@ NVCC_FLAGS = (
 )
 
 
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+
+
 def sources() -> list[str]:
     """Names of the kernel sources (`csrc/<name>.cu`)."""
     return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def host_sources() -> list[str]:
+    """Names of the host sources (`csrc/<name>.cc`)."""
+    return sorted(p.stem for p in CSRC.glob("*.cc"))
 
 
 def _nvcc() -> str:
@@ -54,33 +66,67 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names=None) -> dict[str, str]:
-    """Compile the named sources (default: all), one nvcc per source, all
-    started together; sources already built are reused. Returns each
-    source's ptxas report. Raises if any build fails."""
-    names = sources() if names is None else list(names)
-    todo = [name for name in names if not library_path(name).exists()]
+def _cxx() -> str:
+    cxx = os.environ.get("CXX") or "c++"
+    path = shutil.which(cxx)
+    if path is None:
+        raise RuntimeError(f"host C++ compiler {cxx!r} not found (set CXX or put c++ on PATH)")
+    return path
+
+
+def host_library_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h.update((CSRC / f"{name}.cc").read_bytes())
+    return BUILD_DIR / f"{name}-host-{h.hexdigest()[:16]}.so"
+
+
+def _compile(names, path_of, command, suffix) -> dict[str, str]:
+    """One compiler process per source not yet built (`path_of(name)`
+    missing), all started together; `command(out, source)` is its argv.
+    Returns each source's compiler output; raises if any build fails."""
+    todo = [name for name in names if not path_of(name).exists()]
     if todo:
-        nvcc = _nvcc()  # before starting any process, so a missing nvcc orphans none
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
     running = []
     for name in todo:
-        out = library_path(name)
+        out = path_of(name)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        proc = subprocess.Popen(command(tmp, CSRC / f"{name}{suffix}"), stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
         running.append((name, proc, tmp, out))
     failed = []
-    for name, proc, tmp, out in running:  # wait for every nvcc before raising
+    for name, proc, tmp, out in running:  # wait for every compiler before raising
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
+            failed.append(f"{command(tmp, '')[0]} failed for {name}{suffix} (exit {proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
             continue
         out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
-    return {name: library_path(name).with_suffix(".log").read_text() for name in names}
+    return {name: path_of(name).with_suffix(".log").read_text() for name in names}
+
+
+def build(names=None) -> dict[str, str]:
+    """Compile the named sources (default: all), one nvcc per source, all
+    started together; sources already built are reused. Returns each
+    source's ptxas report. Raises if any build fails."""
+    names = sources() if names is None else list(names)
+    if any(not library_path(name).exists() for name in names):
+        nvcc = _nvcc()  # before starting any process, so a missing nvcc orphans none
+    return _compile(names, library_path,
+                    lambda out, src: [nvcc, *NVCC_FLAGS, "-o", str(out), str(src)], ".cu")
+
+
+def build_host(names=None) -> dict[str, str]:
+    """Compile the named host sources (default: all) with the host C++
+    compiler, as `build` does the kernels. Returns its output per source."""
+    names = host_sources() if names is None else list(names)
+    if any(not host_library_path(name).exists() for name in names):
+        cxx = _cxx()
+    return _compile(names, host_library_path,
+                    lambda out, src: [cxx, *CXX_FLAGS, "-o", str(out), str(src)], ".cc")
 
 
 @functools.cache
@@ -88,6 +134,13 @@ def load(name: str) -> ctypes.CDLL:
     """The built library of `csrc/<name>.cu`, building it if needed."""
     build([name])
     return ctypes.CDLL(str(library_path(name)))
+
+
+@functools.cache
+def load_host(name: str) -> ctypes.CDLL:
+    """The built library of `csrc/<name>.cc`, building it if needed."""
+    build_host([name])
+    return ctypes.CDLL(str(host_library_path(name)))
 
 
 # ctypes argument types: device pointers and streams, C ints, C long longs.

@@ -1,9 +1,13 @@
-"""PNG reading and writing, and PIL's default resize, on zlib and numpy.
+"""Image reading, PNG writing, and PIL's default resize, on zlib and numpy.
 
 The JAX package reads every image with PIL and writes and reads its PNGs
 with imageio. Neither is installed where the port runs, so the port keeps
 its own:
 
+- `read_image(path)`: the dataset readers' entry. It reads the file's
+  signature: a PNG goes to `read_png`, a JPEG to the compiled JPEG
+  decoder (`utils/jpeg.py`, PIL's bits); anything else raises a
+  `ValueError` naming the file.
 - `read_png(path)`: 8-bit greyscale, grey + alpha, RGB and RGBA PNGs
   without interlacing, all five row filters; (H, W, C) uint8 with C = 1,
   2, 3 or 4, the pixels PIL gives. Any other file (16-bit, palette,
@@ -26,6 +30,8 @@ import zlib
 
 import numpy as np
 
+from gaussian_splatting_torch.utils import jpeg
+
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # PNG colour type -> channels, for 8-bit samples (0 grey, 2 RGB, 4 grey +
 # alpha, 6 RGBA; 3 is palette, refused)
@@ -38,9 +44,25 @@ def _refuse(path, what: str):
                      f"RGBA PNGs without interlacing only")
 
 
+JPEG_SIGNATURE = b"\xff\xd8\xff"  # SOI and the first marker's 0xFF, as PIL sniffs it
+
+
+def read_image(path) -> np.ndarray:
+    """(H, W, C) uint8 pixels of a PNG (C = 1 to 4) or a JPEG (C = 1 or 3),
+    the pixels PIL gives. A JPEG is decoded by the compiled decoder, built
+    at first use; if it cannot be built this raises."""
+    with open(path, "rb") as f:
+        head = f.read(len(PNG_SIGNATURE))
+    if head.startswith(PNG_SIGNATURE):
+        return read_png(path)
+    if head.startswith(JPEG_SIGNATURE):
+        return jpeg.read_jpeg(path)
+    raise ValueError(f"{path}: neither a PNG nor a JPEG file; the port reads PNG and JPEG images")
+
+
 def _sniff(head: bytes) -> str:
-    if head.startswith(b"\xff\xd8\xff"):
-        return "a JPEG file"
+    if head.startswith(JPEG_SIGNATURE):
+        return "a JPEG file (read_image reads it)"
     return "not a PNG file (no PNG signature)"
 
 

@@ -106,6 +106,23 @@ def test_train_render_metrics(scene_dir, tmp_path, env):
     assert 0.0 < m["SSIM"] <= 1.0 and m["PSNR"] > 5.0 and m["LPIPS"] is None
 
 
+def test_train_cli_on_jpeg_colmap_dataset(tmp_path, env):
+    """The train CLI on COLMAP files whose images are JPEG (4:2:0, grey,
+    progressive): a few CPU steps, trained toward PIL's pixels."""
+    from PIL import Image
+    from test_torch_scene import write_jpeg_colmap_dataset
+
+    src = str(tmp_path / "data")
+    write_jpeg_colmap_dataset(src, n_views=9, width=64, height=48, n_points=300)
+    scene, trainer = train.main(["-s", src, "-m", str(tmp_path / "model"), *TRAIN_FLAGS], device="cpu")
+    assert trainer.iteration == 5 and all(np.isfinite(h["loss"]) for h in trainer.history)
+    cams = scene.get_train_cameras() + scene.get_test_cameras()
+    assert len(cams) == 9
+    for cam in cams:
+        pil = Image.open(os.path.join(src, "images", f"{cam.image_name}.jpg")).convert("RGB")
+        np.testing.assert_array_equal(cam.image, (np.asarray(pil, np.float32) / 255.0).transpose(2, 0, 1))
+
+
 def covariances(p):
     q = p["rotation"].astype(np.float64)
     w, x, y, z = (q / np.linalg.norm(q, axis=1, keepdims=True)).T

@@ -247,3 +247,43 @@ def test_unit_counts_match_a_brute_force(W, H, tile, scene):
     in_box, any_open = brute_force_units(prep, lists, W, H, tile)
     assert c.units == in_box
     assert 0 < c.units < any_open  # the box culls some units that have open pixels
+
+
+def _round_to_float32(v):
+    """The float32 nearest the rational v, ties to even (v normal-ranged)."""
+    from fractions import Fraction
+
+    if v == 0:
+        return 0.0
+    sign, v = (-1 if v < 0 else 1), abs(v)
+    e = v.numerator.bit_length() - v.denominator.bit_length()
+    while Fraction(2) ** e > v:
+        e -= 1
+    while Fraction(2) ** (e + 1) <= v:
+        e += 1
+    scale = Fraction(2) ** (e - 23)  # 24 significant bits
+    m = v / scale
+    q, r = divmod(m.numerator, m.denominator)
+    if 2 * r > m.denominator or (2 * r == m.denominator and q % 2):
+        q += 1
+    return float(sign * q * scale)
+
+
+def test_fma_rn_rounds_once():
+    """`fma_rn` (the plain version's fmaf on the card) is x y + z rounded
+    once to float32: equal to the exact rational sum's nearest float32 on
+    random triples, near-cancelling ones among them, where the two-step
+    rounding of the CPU path differs."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(11)
+    x = rng.normal(0, 10, 4000).astype(np.float32)
+    y = rng.normal(0, 10, 4000).astype(np.float32)
+    z = rng.normal(0, 100, 4000).astype(np.float32)
+    z[:2000] = -(x[:2000] * y[:2000])  # near cancellation: x y rounded, negated
+    got = composite.fma_rn(*(torch.from_numpy(a) for a in (x, y, z))).numpy()
+    want = np.array([_round_to_float32(Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c)))
+                     for a, b, c in zip(x, y, z)], np.float32)
+    np.testing.assert_array_equal(got, want)
+    assert (got != x * y + z).any()  # the two roundings of the CPU path differ
+

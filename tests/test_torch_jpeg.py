@@ -1,0 +1,563 @@
+"""The port's JPEG decoders (`utils/jpeg.py`, plain; `csrc/jpeg_decode.cc`,
+compiled) against PIL, which the JAX package reads its images with.
+
+Tolerances: every comparison is bit-equal, to `np.asarray(Image.open(f))`
+(PIL 12 with libjpeg-turbo here). Each refused form raises a `ValueError`
+that names the file and the form, the same message from both decoders.
+
+The compiled decoder is built here with the host's `c++`; its tests skip,
+with the reason, only where no C++ compiler exists. `encode_jpeg` below is
+a copy of chip_smoke.py's baseline encoder (PIL cannot write 4:4:0, the
+1x2 chroma ratio).
+"""
+
+import io
+import os
+import shutil
+import stat
+import struct
+from pathlib import Path
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from gaussian_splatting_torch.utils import cuda_build, image_io, jpeg
+
+FIXTURES = Path(__file__).parent / "fixtures" / "torch_jpeg"
+
+
+# ---- chip_smoke.py's baseline encoder, copied ----
+
+ENC_ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
+# JPEG Annex K: the example quantisation tables (K.1, K.2; natural order) and
+# Huffman tables (K.3 to K.6): code counts per length, then symbols. The AC
+# tables list a few symbols by hand, then every other (run, size) in order.
+Q_LUMA = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
+Q_CHROMA = np.full(64, 99)
+Q_CHROMA[[0, 1, 2, 3, 8, 9, 10, 11, 16, 17, 18, 24, 25]] = [17, 18, 24, 47, 18, 21, 26, 66, 24, 26, 56,
+                                                         47, 66]
+_AC_SYMBOLS = [0x00, 0xF0] + [r << 4 | s for r in range(16) for s in range(1, 11)]
+
+
+def _ac_symbols(head_hex):
+    head = list(bytes.fromhex(head_hex))
+    return head + sorted(set(_AC_SYMBOLS) - set(head))
+
+
+HUFFMAN = {  # (class, table id): (counts of lengths 1..16, symbols)
+    (0, 0): ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0], list(range(12))),
+    (0, 1): ([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0], list(range(12))),
+    (1, 0): ([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125], _ac_symbols(
+        "01020300041105122131410613516107227114328191a108234" "2b1c11552d1f02433627282090a16")),
+    (1, 1): ([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119], _ac_symbols(
+        "000102031104052131061241510761711322328108144291a1b1c109233352f0156272d10a162434e125f1")),
+}
+
+
+def _scaled(table, quality):
+    """libjpeg's jpeg_quality_scaling and jpeg_add_quant_table (baseline)."""
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return np.clip((table * scale + 50) // 100, 1, 255)
+
+
+def _codes(counts, symbols):
+    """Canonical Huffman codes: code and length per symbol (256 entries)."""
+    code, length = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    c, p = 0, 0
+    for n in range(1, 17):
+        for _ in range(counts[n - 1]):
+            code[symbols[p]], length[symbols[p]] = c, n
+            c, p = c + 1, p + 1
+        c <<= 1
+    return code, length
+
+
+def _pack(values, lengths):
+    """Bits (each value's `length` low bits, most significant first) as
+    bytes, the last byte padded with ones; every value <= 32 bits."""
+    ends = np.cumsum(lengths)
+    starts = ends - lengths
+    nbits = int(ends[-1]) if len(ends) else 0
+    word, off = starts // 32, starts % 32
+    window = values.astype(np.uint64) << (64 - off - lengths).astype(np.uint64)
+    hi = (window >> np.uint64(32)).astype(np.float64)
+    lo = (window & np.uint64(0xFFFFFFFF)).astype(np.float64)
+    n_words = nbits // 32 + 2
+    words = (np.bincount(word, hi, n_words) + np.bincount(word + 1, lo, n_words)).astype(np.uint64)
+    data = bytearray(words.astype(">u4").tobytes()[:(nbits + 7) // 8])
+    if nbits % 8:
+        data[-1] |= (1 << (8 - nbits % 8)) - 1
+    return bytes(data).replace(b"\xff", b"\xff\x00")
+
+
+def _entropy(coefs, comp, tables):
+    """Huffman-code quantised blocks (B, 64, zig-zag order) of one
+    restart segment, `comp` the component of each block (0 luma, 1 and 2
+    chroma): DC differences per component, AC as (run, size) symbols with
+    ZRL and EOB; the luma tables for component 0, the chroma ones else."""
+    B = len(coefs)
+    dc = coefs[:, 0]
+    diff = np.empty(B, np.int64)
+    for c in np.unique(comp):
+        idx = np.nonzero(comp == c)[0]
+        diff[idx] = np.diff(dc[idx], prepend=0)
+    comp = np.minimum(comp, 1)
+    b_idx, k = np.nonzero(coefs[:, 1:])
+    k = k + 1
+    first = np.ones(len(k), bool)
+    first[1:] = b_idx[1:] != b_idx[:-1]
+    prev = np.where(first, 0, np.roll(k, 1))
+    run = k - prev - 1
+    last = np.zeros(B, np.int64)
+    last[b_idx] = k  # the last nonzero index of each block (0: none)
+    eob_blocks = np.nonzero(last < 63)[0]
+    zrl_of = np.repeat(np.arange(len(k)), run // 16)
+
+    def size(x):
+        return np.where(x == 0, 0, np.floor(np.log2(np.maximum(np.abs(x), 1))).astype(np.int64) + 1)
+
+    def extra(x, s):
+        return np.where(x < 0, x + (1 << s) - 1, x)
+
+    s_dc = size(diff)
+    ac_val = coefs[b_idx, k]
+    s_ac = size(ac_val)
+    sym = (run % 16) << 4 | s_ac
+    dc_code, dc_len = (np.array([t[0][i] for t in tables]) for i in range(2))  # (2, 256) each
+    ac_code, ac_len = (np.array([t[1][i] for t in tables]) for i in range(2))
+    cb = comp[b_idx]
+    keys = np.concatenate([np.arange(B) * 130, b_idx[zrl_of] * 130 + 2 * k[zrl_of] - 1,
+                           b_idx * 130 + 2 * k, eob_blocks * 130 + 129])
+    ce, cz = comp[eob_blocks], comp[b_idx[zrl_of]]
+    values = np.concatenate([
+        (dc_code[comp, s_dc] << s_dc) | extra(diff, s_dc), ac_code[cz, 0xF0],
+        (ac_code[cb, sym] << s_ac) | extra(ac_val, s_ac), ac_code[ce, 0x00]])
+    lengths = np.concatenate([dc_len[comp, s_dc] + s_dc, ac_len[cz, 0xF0], ac_len[cb, sym] + s_ac, ac_len[ce, 0x00]])
+    order = np.argsort(keys, kind="stable")
+    return _pack(values[order], lengths[order])
+
+
+def encode_jpeg(pixels, quality=95, sampling=(2, 2), restart_interval=0):
+    """Baseline JFIF bytes of (H, W, 3) or (H, W[, 1]) uint8 `pixels`: the
+    luma sampled (h, v) = `sampling` times the chroma's (3 channels), a
+    float DCT, the Annex K tables at libjpeg's `quality` scaling, and
+    `restart_interval` MCUs between restart markers (0: none)."""
+    a = np.asarray(pixels, np.float64)
+    a = a[..., None] if a.ndim == 2 else a
+    H, W, C = a.shape
+    grey = C == 1
+    hs, vs = (1, 1) if grey else sampling
+    mcux, mcuy = -(-W // (8 * hs)), -(-H // (8 * vs))
+    a = np.pad(a, ((0, mcuy * 8 * vs - H), (0, mcux * 8 * hs - W), (0, 0)), mode="edge")
+    if grey:
+        planes = [a[..., 0]]
+    else:
+        r, g, b = a[..., 0], a[..., 1], a[..., 2]
+        y = 0.299 * r + 0.587 * g + 0.114 * b
+        cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128
+        cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128
+        planes = [y] + [p.reshape(mcuy * 8, vs, mcux * 8, hs).mean(axis=(1, 3)) for p in (cb, cr)]
+    qts = [_scaled(Q_LUMA, quality), _scaled(Q_CHROMA, quality)]
+    x = np.arange(8)
+    M = np.sqrt(np.where(x[:, None] == 0, 1 / 8, 2 / 8)) * np.cos((2 * x[None, :] + 1) * x[:, None] * np.pi / 16)
+    blocks = []
+    for i, p in enumerate(planes):
+        rows, cols = p.shape[0] // 8, p.shape[1] // 8
+        t = (p - 128).reshape(rows, 8, cols, 8).transpose(0, 2, 1, 3)
+        f = M @ t @ M.T
+        q = np.round(f.reshape(rows, cols, 64) / qts[min(i, 1)]).astype(np.int64)[..., ENC_ZIGZAG]
+        h, v = (hs, vs) if i == 0 else (1, 1)
+        blocks.append(q.reshape(mcuy, v, mcux, h, 64).transpose(0, 2, 1, 3, 4).reshape(mcuy * mcux, h * v, 64))
+    mcu = np.concatenate(blocks, axis=1)  # (MCUs, blocks per MCU, 64) in scan order
+    comp = np.array([0] * hs * vs + ([] if grey else [1, 2]))
+    tables = [((_codes(*HUFFMAN[0, t])), _codes(*HUFFMAN[1, t])) for t in range(2)]
+    per = restart_interval or len(mcu)
+    segs = [_entropy(mcu[s:s + per].reshape(-1, 64), np.tile(comp, len(mcu[s:s + per])), tables)
+            for s in range(0, len(mcu), per)]
+    scan = b"".join(seg + (bytes([0xFF, 0xD0 + i % 8]) if i < len(segs) - 1 else b"")
+                    for i, seg in enumerate(segs))
+
+    def segment(marker, body):
+        return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+    ncomp = 1 if grey else 3
+    sof = struct.pack(">BHHB", 8, H, W, ncomp) + bytes([1, hs << 4 | vs, 0])
+    sos = bytes([ncomp, 1, 0x00])
+    if not grey:
+        sof += bytes([2, 0x11, 1, 3, 0x11, 1])
+        sos += bytes([2, 0x11, 3, 0x11])
+    dqt = b"".join(bytes([t]) + qts[t][ENC_ZIGZAG].astype(np.uint8).tobytes() for t in range(1 if grey else 2))
+    dht = b"".join(bytes([c << 4 | t]) + bytes(HUFFMAN[c, t][0]) + bytes(HUFFMAN[c, t][1])
+                   for c in range(2) for t in range(1 if grey else 2))
+    out = (b"\xff\xd8" + segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+           + segment(0xDB, dqt) + segment(0xC0, sof) + segment(0xC4, dht)
+           + (segment(0xDD, struct.pack(">H", restart_interval)) if restart_interval else b"")
+           + segment(0xDA, sos + bytes([0, 63, 0])) + scan + b"\xff\xd9")
+    return out
+
+
+# ---- helpers ----
+
+def content(h, w, channels, kind, seed=0):
+    """uint8 (h, w, channels): smooth gradients and waves, or uniform noise."""
+    rng = np.random.default_rng(seed)
+    if kind == "noisy":
+        return rng.integers(0, 256, (h, w, channels), dtype=np.uint8)
+    yy, xx = np.mgrid[0:h, 0:w]
+    a = np.stack([128 + 100 * np.sin(xx / (4 + 2 * i) + yy / (7 + i)) for i in range(channels)], -1)
+    return np.clip(a, 0, 255).astype(np.uint8)
+
+
+def pil_jpeg(a, **options) -> bytes:
+    buf = io.BytesIO()
+    Image.fromarray(a[..., 0] if a.shape[2] == 1 else a).save(buf, "JPEG", **options)
+    return buf.getvalue()
+
+
+def pil_pixels(data: bytes) -> np.ndarray:
+    """(H, W, C) uint8: PIL's pixels with a grey image's channel axis kept."""
+    a = np.asarray(Image.open(io.BytesIO(data)))
+    return a[..., None] if a.ndim == 2 else a
+
+
+def have_cxx() -> bool:
+    return shutil.which(os.environ.get("CXX") or "c++") is not None
+
+
+@pytest.fixture(params=["plain", "compiled"])
+def decode(request):
+    """decode(data, name) by the plain or the compiled decoder."""
+    if request.param == "plain":
+        return lambda data, name="<bytes>": jpeg.decode_jpeg(data, name, plain=True)
+    if not have_cxx():
+        pytest.skip("no host C++ compiler to build csrc/jpeg_decode.cc")
+    return lambda data, name="<bytes>": jpeg.decode_jpeg(data, name)
+
+
+@pytest.fixture
+def compiled():
+    if not have_cxx():
+        pytest.skip("no host C++ compiler to build csrc/jpeg_decode.cc")
+    return lambda data, name="<bytes>": jpeg.decode_jpeg(data, name)
+
+
+# ---- PIL's pixels ----
+
+SUBSAMPLING = ["4:4:4", "4:2:2", "4:2:0", "grey"]
+MODES = {"baseline": {}, "progressive": {"progressive": True}, "optimized": {"optimize": True},
+         "restart_blocks": {"restart_marker_blocks": 3}, "restart_rows": {"restart_marker_rows": 1}}
+SIZES = [(1, 1), (7, 5), (16, 16), (67, 45), (129, 97)]  # (width, height)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("quality", [50, 95, 100])
+@pytest.mark.parametrize("subsampling", SUBSAMPLING)
+def test_decoder_gives_pils_pixels(decode, subsampling, quality, mode):
+    """Every size, on smooth and on noisy content, bit-equal to PIL."""
+    options = dict(quality=quality, **MODES[mode])
+    if subsampling != "grey":
+        options["subsampling"] = subsampling
+    for w, h in SIZES:
+        for seed, kind in enumerate(("smooth", "noisy")):
+            a = content(h, w, 1 if subsampling == "grey" else 3, kind, seed)
+            data = pil_jpeg(a, **options)
+            got = decode(data)
+            assert got.dtype == np.uint8
+            np.testing.assert_array_equal(got, pil_pixels(data), err_msg=f"{w}x{h} {kind}")
+
+
+@pytest.mark.parametrize("sampling", [(1, 1), (2, 1), (2, 2), (1, 2)])
+def test_baseline_encoder_files_give_pils_pixels(decode, sampling):
+    """Files of the copied encoder: the 1x2 ratio (h1v2 upsampling, which
+    PIL cannot write), the others beside it, with and without restart
+    markers, and grey (a non-interleaved baseline scan)."""
+    for w, h in SIZES + [(3, 2), (2, 3)]:
+        a = content(h, w, 3, "smooth", 3)
+        a = np.clip(a.astype(int) + np.random.default_rng(4).integers(-20, 21, a.shape), 0, 255)
+        for restart in (0, 1, 5):
+            for px in (a, a[..., :1]):
+                data = encode_jpeg(px.astype(np.uint8), 90, sampling, restart)
+                np.testing.assert_array_equal(decode(data), pil_pixels(data),
+                                              err_msg=f"{w}x{h} restart {restart} C={px.shape[2]}")
+
+
+@pytest.mark.parametrize("quality", [1, 100])
+def test_saturated_edges_reach_the_range_limit(decode, quality, monkeypatch):
+    """Black and white noise: IDCT outputs past the sample range go through
+    the range-limit table's saturated entries, as PIL's do."""
+    reach = [0]
+    descale = jpeg._descale
+
+    def spy(x, n):
+        out = descale(x, n)
+        if n == jpeg.CONST_BITS + jpeg.PASS1_BITS + 3:
+            reach[0] = max(reach[0], int(np.abs(out).max()))
+        return out
+
+    monkeypatch.setattr(jpeg, "_descale", spy)
+    for seed in range(4):
+        a = (np.random.default_rng(seed).integers(0, 2, (40, 56, 3)) * 255).astype(np.uint8)
+        for subsampling in ("4:4:4", "4:2:0"):
+            data = pil_jpeg(a, quality=quality, subsampling=subsampling)
+            np.testing.assert_array_equal(decode(data), pil_pixels(data))
+    jpeg.decode_jpeg(pil_jpeg(a, quality=quality), plain=True)
+    assert 128 < reach[0] <= 511  # saturated, and inside the range both IDCTs agree on
+
+
+def coefficient_jpeg(dc: int) -> bytes:
+    """A grey 8x8 baseline JPEG of one block whose only coefficient is the
+    DC `dc`, every quantisation step 16: each sample before the range limit
+    is 2 dc (its inverse DCT is dc x 16 / 8)."""
+    tables = [(_codes(*HUFFMAN[0, 0]), _codes(*HUFFMAN[1, 0]))] * 2
+    block = np.zeros((1, 64), np.int64)
+    block[0, 0] = dc
+    scan = _entropy(block, np.array([0]), tables)
+
+    def segment(marker, body):
+        return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+    dht = b"".join(bytes([c << 4]) + bytes(HUFFMAN[c, 0][0]) + bytes(HUFFMAN[c, 0][1]) for c in range(2))
+    return (b"\xff\xd8" + segment(0xDB, bytes([0] + [16] * 64))
+            + segment(0xC0, struct.pack(">BHHB", 8, 8, 8, 1) + bytes([1, 0x11, 0]))
+            + segment(0xC4, dht) + segment(0xDA, bytes([1, 1, 0, 0, 63, 0])) + scan + b"\xff\xd9")
+
+
+@pytest.mark.parametrize("sample", [254, 510, 560, 1040])
+def test_idct_beyond_the_agreed_range_is_refused(decode, sample):
+    """Inside -512..511 the range-limit table and PIL agree (a saturating
+    clamp). Beyond it PIL, whose libjpeg-turbo runs the SIMD IDCT, gives
+    neither the C code's table nor a clamp, and the port refuses."""
+    data = coefficient_jpeg(sample // 2)
+    pil = int(pil_pixels(data)[0, 0, 0])
+    table = int(jpeg.RANGE_LIMIT[sample & 1023])
+    if sample <= 511:
+        assert pil == table == 255
+        np.testing.assert_array_equal(decode(data), pil_pixels(data))
+        return
+    assert pil != table  # 560: PIL 255, the table 0; 1040: PIL 0, the table 144
+    with pytest.raises(ValueError, match=r"an inverse DCT sample outside -512\.\.511"):
+        decode(data, "block.jpg")
+
+
+# ---- refusals ----
+
+def patched(data: bytes, offset_of, value: bytes) -> bytes:
+    at = offset_of(data)
+    return data[:at] + value + data[at + len(value):]
+
+
+def sof_at(data: bytes) -> int:
+    """Offset of the first start-of-frame marker's second byte."""
+    for m in (b"\xff\xc0", b"\xff\xc1", b"\xff\xc2"):
+        if m in data:
+            return data.index(m) + 1
+    raise AssertionError("no SOF0-2")
+
+
+def with_sof(data: bytes, precision: int, comps) -> bytes:
+    """`data` with its frame header replaced by one of `comps` (id, h, v)."""
+    at = sof_at(data) - 1
+    length = struct.unpack(">H", data[at + 2:at + 4])[0]
+    H, W = struct.unpack(">HH", data[at + 5:at + 9])
+    body = struct.pack(">BHHB", precision, H, W, len(comps)) + b"".join(
+        bytes([cid, h << 4 | v, 0]) for cid, h, v in comps)
+    return data[:at + 2] + struct.pack(">H", len(body) + 2) + body + data[at + 2 + length:]
+
+
+def progressive_without_last_scan(data: bytes) -> bytes:
+    """A progressive file cut before its last scan (the last refinement)."""
+    last = data.rindex(b"\xff\xda")
+    return data[:last] + b"\xff\xd9"
+
+
+def refusal_cases():
+    a = content(24, 40, 3, "smooth")
+    rgb = pil_jpeg(a, quality=90)
+    cmyk = io.BytesIO()
+    Image.fromarray(a).convert("CMYK").save(cmyk, "JPEG")
+    sof = sof_at(rgb)
+    return {  # name: (data, what the message names, whether PIL reads the file)
+        "arithmetic": (patched(rgb, lambda d: sof, b"\xc9"), r"arithmetic coding \(SOF9\)", False),
+        "lossless": (patched(rgb, lambda d: sof, b"\xc3"), r"lossless JPEG \(SOF3\)", False),
+        "hierarchical": (patched(rgb, lambda d: sof, b"\xc5"), r"hierarchical JPEG \(SOF5\)", False),
+        "12-bit": (patched(rgb, lambda d: sof + 3, b"\x0c"), r"12-bit samples", False),
+        "cmyk": (cmyk.getvalue(), r"4 colour components \(CMYK or YCCK\)", True),
+        "two components": (with_sof(rgb, 8, [(1, 1, 1), (2, 1, 1)]), r"2 colour components", False),
+        "dnl height": (patched(rgb, lambda d: sof + 4, b"\x00\x00"), r"a DNL height", False),
+        "4x1 ratio": (with_sof(rgb, 8, [(1, 4, 1), (2, 1, 1), (3, 1, 1)]),
+                      r"a 4x1 chroma subsampling ratio \(component 1\)", False),
+        "fractional ratio": (with_sof(rgb, 8, [(1, 3, 1), (2, 2, 1), (3, 1, 1)]),
+                             r"component 1's sampling factors 2x1 \(a fractional chroma ratio\)", False),
+        "truncated": (rgb[:len(rgb) // 2], r"truncated data", False),
+        "bits left out": (progressive_without_last_scan(pil_jpeg(a, quality=90, progressive=True)),
+                          r"a progressive file whose scans leave coefficient bits out", True),
+        "not a JPEG": (b"\x89PNG\r\n\x1a\n" + bytes(32), r"not a JPEG file", False),
+    }
+
+
+@pytest.mark.parametrize("case", list(refusal_cases()))
+def test_refusals_name_the_file_and_the_form(tmp_path, case):
+    data, match, pil_reads = refusal_cases()[case]
+    if pil_reads:
+        Image.open(io.BytesIO(data)).load()
+    if case == "truncated":
+        with pytest.raises(OSError, match="(?i)truncated"):
+            Image.open(io.BytesIO(data)).load()  # PIL refuses it too
+    path = tmp_path / f"{case}.jpg"
+    path.write_bytes(data)
+    messages = []
+    for plain in (False, True) if have_cxx() else (True,):
+        with pytest.raises(ValueError, match=match) as err:
+            jpeg.read_jpeg(path, plain=plain)
+        assert str(path) in str(err.value)
+        messages.append(str(err.value))
+    assert len(set(messages)) == 1, messages
+
+
+@pytest.mark.parametrize("base", ["baseline_restarts", "progressive"])
+def test_decoders_agree_on_corrupted_files(compiled, base):
+    """Seeded byte flips in a small file: the compiled decoder gives the
+    plain one's pixels or its error message, whichever that is."""
+    a = content(21, 35, 3, "noisy", 5)
+    options = {"restart_marker_blocks": 2} if base == "baseline_restarts" else {"progressive": True}
+    data = bytearray(pil_jpeg(a, quality=75, subsampling="4:2:0", **options))
+    rng = np.random.default_rng(6)
+    for _ in range(150):
+        bad = bytearray(data)
+        for at in rng.integers(2, len(bad), rng.integers(1, 4)):
+            bad[at] = int(rng.integers(0, 256))
+        results = []
+        for decoder in (lambda d: jpeg.decode_jpeg(d, plain=True), compiled):
+            try:
+                results.append(decoder(bytes(bad)))
+            except ValueError as err:
+                results.append(str(err))
+        if isinstance(results[0], str) or isinstance(results[1], str):
+            assert results[0] == results[1]
+        else:
+            np.testing.assert_array_equal(results[0], results[1])
+
+
+# ---- the committed fixtures ----
+
+FIXTURE_NAMES = sorted(p.stem for p in FIXTURES.glob("*.jpg"))
+
+
+def test_fixtures_are_committed_in_pairs():
+    assert len(FIXTURE_NAMES) >= 15
+    assert sorted(p.stem for p in FIXTURES.glob("*.npz")) == FIXTURE_NAMES
+    assert sum(p.stat().st_size for p in FIXTURES.iterdir()) < 1.5 * 2**20
+    assert max(p.stat().st_size for p in FIXTURES.iterdir()) <= 400 * 2**10
+
+
+@pytest.mark.parametrize("name", FIXTURE_NAMES)
+def test_fixture_pixels_are_pils(decode, name):
+    """PIL's decode of each committed file equals the pixels committed
+    beside it (which chip_smoke.py holds the decoders to on the card's
+    machine, where there is no PIL), and so does the decoder's."""
+    data = (FIXTURES / f"{name}.jpg").read_bytes()
+    want = np.load(FIXTURES / f"{name}.npz")["pixels"]
+    np.testing.assert_array_equal(np.asarray(Image.open(io.BytesIO(data))), want)
+    got = decode(data, name)
+    np.testing.assert_array_equal(got[..., 0] if want.ndim == 2 else got, want)
+
+
+# ---- read_image ----
+
+def test_read_image_dispatches_on_the_signature(tmp_path, compiled, monkeypatch):
+    a = content(20, 30, 3, "smooth")
+    png, jpg, other = tmp_path / "a.png", tmp_path / "a.jpg", tmp_path / "a.bmp"
+    image_io.write_png(png, a)
+    jpg.write_bytes(pil_jpeg(a, quality=90))
+    other.write_bytes(b"BM" + bytes(64))
+
+    def no_plain(*args):
+        raise AssertionError("read_image reached the plain decoder")
+
+    monkeypatch.setattr(jpeg, "_Decoder", no_plain)
+    np.testing.assert_array_equal(image_io.read_image(png), a)
+    np.testing.assert_array_equal(image_io.read_image(jpg), pil_pixels(jpg.read_bytes()))
+    with pytest.raises(ValueError, match="neither a PNG nor a JPEG") as err:
+        image_io.read_image(other)
+    assert str(other) in str(err.value)
+    with pytest.raises(ValueError, match="JPEG"):
+        image_io.read_png(jpg)  # read_png still refuses JPEG
+
+
+# ---- the host build ----
+
+FAKE_CXX = """#!/bin/sh
+# stand-in host compiler: count the calls, then fail or run the real one
+echo call >> "{calls}"
+[ "{fail}" = "1" ] && {{ echo "error: bad source"; exit 2; }}
+exec "{real}" "$@"
+"""
+
+
+@pytest.fixture
+def fake_cxx(tmp_path, monkeypatch):
+    """Install a stand-in `c++` (on PATH, or named by CXX) and a fresh
+    build directory; the loaded library is forgotten before and after."""
+    def install(fail, via="PATH"):
+        bindir = tmp_path / "bin"
+        bindir.mkdir(exist_ok=True)
+        cxx = bindir / "c++"
+        cxx.write_text(FAKE_CXX.format(calls=tmp_path / "calls", fail=int(fail),
+                                       real=shutil.which("c++") or "/bin/false"))
+        cxx.chmod(cxx.stat().st_mode | stat.S_IEXEC)
+        if via == "PATH":
+            monkeypatch.delenv("CXX", raising=False)
+            monkeypatch.setenv("PATH", f"{bindir}{os.pathsep}{os.environ['PATH']}")
+        else:
+            monkeypatch.setenv("CXX", str(cxx))
+        monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+        cuda_build.load_host.cache_clear()
+        return tmp_path / "calls"
+
+    yield install
+    cuda_build.load_host.cache_clear()
+
+
+@pytest.mark.parametrize("via", ["PATH", "CXX"])
+def test_failed_host_build_raises_and_nothing_falls_back(tmp_path, fake_cxx, via):
+    fake_cxx(fail=True, via=via)
+    path = tmp_path / "a.jpg"
+    path.write_bytes(pil_jpeg(content(8, 8, 3, "smooth"), quality=90))
+    with pytest.raises(RuntimeError, match="bad source"):
+        image_io.read_image(path)
+    assert not cuda_build.host_library_path("jpeg_decode").exists()
+    assert not list(cuda_build.BUILD_DIR.glob("*.tmp.so"))
+
+
+def test_missing_host_compiler_raises(tmp_path, monkeypatch):
+    monkeypatch.delenv("CXX", raising=False)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="host C\\+\\+ compiler 'c\\+\\+' not found"):
+        cuda_build.build_host()
+
+
+def test_host_build_and_its_reuse(fake_cxx):
+    """The real compiler behind a counting stand-in: one build, then reuse;
+    the .cu sources stay the kernels' list."""
+    if shutil.which("c++") is None:
+        pytest.skip("no host C++ compiler (c++) on this machine")
+    calls = fake_cxx(fail=False)
+    assert cuda_build.host_sources() == ["jpeg_decode"]
+    assert "jpeg_decode" not in cuda_build.sources()
+    cuda_build.build_host()
+    path = cuda_build.host_library_path("jpeg_decode")
+    assert path.exists() and path.parent == cuda_build.BUILD_DIR
+    cuda_build.build_host()
+    data = pil_jpeg(content(9, 13, 3, "noisy"), quality=80)
+    np.testing.assert_array_equal(jpeg.decode_jpeg(data), pil_pixels(data))
+    assert calls.read_text().count("call") == 1

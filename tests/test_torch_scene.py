@@ -7,7 +7,8 @@ must give, exactly: the camera names in the same (shuffled) order, R, T,
 fov, sizes, `cameras_extent`, `cameras.json`, the bytes of `input.ply`,
 the random Blender init, and the ground-truth images of `load_camera`
 bit for bit at -r 1, 2 and the 1600-pixel width cap (PIL's resize and the
-port's `utils/image_io.resize`).
+port's `utils/image_io.resize`), from PNG and from JPEG files (PIL's
+decoder and the port's compiled one, `utils/jpeg.py`).
 """
 
 import json
@@ -18,6 +19,7 @@ import sys
 import imageio.v2 as imageio
 import numpy as np
 import pytest
+from PIL import Image
 
 from gaussian_splatting_tpu.scene import colmap as jcolmap
 from gaussian_splatting_tpu.scene import dataset_readers as jreaders
@@ -67,6 +69,42 @@ def write_colmap_dataset(d, n_views=9, width=64, height=48, seed=0):
     n = 500
     jcolmap.write_points3d_binary(rng.normal(size=(n, 3)), rng.integers(0, 256, (n, 3)),
                                   rng.uniform(size=n), os.path.join(d, "sparse/0/points3D.bin"))
+
+
+def jpeg_views(n_views, width, height, seed):
+    """(name, PIL save options, pixels) of `n_views` smooth noisy views, as
+    JPEG: RGB 4:2:0 baseline, grey, RGB 4:2:0 progressive in turn."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:height, 0:width]
+    for i in range(n_views):
+        waves = np.stack([128 + 90 * np.sin(xx / (9 + c + i) + yy / (5 + c)) for c in range(3)], -1)
+        px = np.clip(waves + rng.normal(0, 12, waves.shape), 0, 255).astype(np.uint8)
+        kind = i % 3
+        options = dict(quality=90, subsampling="4:2:0", progressive=kind == 2)
+        yield f"view_{(7 * i) % n_views:02d}.jpg", options, px[..., :1] if kind == 1 else px
+
+
+def write_jpeg_colmap_dataset(d, n_views=9, width=1640, height=36, seed=1, n_points=500):
+    """A COLMAP dataset whose images are JPEG written by PIL (`jpeg_views`),
+    with the JAX package's COLMAP writers, one PINHOLE camera."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(d, "sparse", "0"))
+    os.makedirs(os.path.join(d, "images"))
+    fx = width / (2 * np.tan(np.radians(60) / 2))
+    cams = {1: jcolmap.ColmapCamera(id=1, model="PINHOLE", width=width, height=height,
+                                    params=np.array([fx, fx, width / 2, height / 2]))}
+    images = {}
+    for i, (name, options, px) in enumerate(jpeg_views(n_views, width, height, seed)):
+        R, T = orbit(i, n_views, width, height)
+        images[i + 1] = jcolmap.ColmapImage(
+            id=i + 1, qvec=jcolmap.rotmat2qvec(R.T), tvec=T, camera_id=1, name=name,
+            xys=np.zeros((0, 2)), point3d_ids=np.zeros((0,), np.int64))
+        Image.fromarray(px[..., 0] if px.shape[2] == 1 else px).save(
+            os.path.join(d, "images", name), "JPEG", **options)
+    jcolmap.write_cameras_binary(cams, os.path.join(d, "sparse/0/cameras.bin"))
+    jcolmap.write_images_binary(images, os.path.join(d, "sparse/0/images.bin"))
+    jcolmap.write_points3d_binary(rng.normal(size=(n_points, 3)), rng.integers(0, 256, (n_points, 3)),
+                                  rng.uniform(size=n_points), os.path.join(d, "sparse/0/points3D.bin"))
 
 
 @pytest.fixture(scope="module")
@@ -130,6 +168,54 @@ def test_colmap_scene_matches_jax(tmp_path, monkeypatch, colmap_dir, resolution)
         np.testing.assert_array_equal(a, b)
     names = [c.image_name for c in scene.get_train_cameras()]
     assert names != sorted(names), "the train cameras were not shuffled"
+
+
+@pytest.mark.parametrize("resolution", [1, 2, -1])
+def test_jpeg_colmap_scene_matches_jax(tmp_path, monkeypatch, resolution):
+    """JPEG views (4:2:0, grey, progressive) 1640 wide: the port's compiled
+    decoder and resize give the JAX package's images bit for bit at -r 1,
+    -r 2, and -r -1, which scales them to the 1600-pixel cap."""
+    src = str(tmp_path / "jpeg_colmap")
+    write_jpeg_colmap_dataset(src)
+    jscene, scene = both_scenes(tmp_path, monkeypatch, src, eval_split=True, resolution=resolution)
+    assert_same_cameras(scene.get_train_cameras(), jscene.get_train_cameras())
+    assert_same_cameras(scene.get_test_cameras(), jscene.get_test_cameras())
+    width = {1: 1640, 2: 820, -1: 1600}[resolution]
+    assert {c.width for c in scene.get_train_cameras() + scene.get_test_cameras()} == {width}
+
+
+def test_blender_jpeg_frames_match_jax(tmp_path):
+    """The Blender reader on .jpg frames (`extension=".jpg"`, as a
+    transforms file without extensions asks): RGB and grey frames, then
+    load_camera at -r 2."""
+    d = tmp_path / "scene"
+    (d / "train").mkdir(parents=True)
+    frames = []
+    for i, (_, options, px) in enumerate(jpeg_views(3, 40, 24, seed=5)):
+        Image.fromarray(px[..., 0] if px.shape[2] == 1 else px).save(d / "train" / f"r_{i}.jpg", "JPEG",
+                                                                     **options)
+        c2w = np.eye(4)
+        c2w[:3, 3] = [0.0, 0.0, 4.0 + i]
+        frames.append({"file_path": f"./train/r_{i}", "transform_matrix": c2w.tolist()})
+    (d / "transforms_train.json").write_text(json.dumps({"camera_angle_x": 0.8, "frames": frames}))
+    got = dataset_readers._read_transforms(str(d), "transforms_train.json", False, ".jpg")
+    want = jreaders._read_transforms(str(d), "transforms_train.json", False, ".jpg")
+    assert len(got) == 3
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.image, np.asarray(w.image))
+        assert (g.width, g.height, g.image_path) == (w.width, w.height, w.image_path)
+        assert_same_cameras([dataset_readers.load_camera(g, 2)], [jreaders.load_camera(w, 2)])
+
+
+def test_unreadable_image_names_the_listing(tmp_path):
+    """An image the port cannot read raises naming it as images.bin lists it."""
+    src = str(tmp_path / "data")
+    write_jpeg_colmap_dataset(src, n_views=2, width=32, height=16)
+    (tmp_path / "data" / "images" / "view_00.jpg").write_bytes(b"GIF89a" + bytes(16))
+    info = dataset_readers.read_colmap_scene(src, None, eval_split=False)
+    bad = [c for c in info.train_cameras if c.image_name == "view_00"][0]
+    with pytest.raises(ValueError, match=r"'view_00.jpg' in .*images\.bin: .*view_00\.jpg: neither a PNG nor a JPEG"):
+        dataset_readers.load_camera(bad, 1)
 
 
 def test_blender_scene_matches_jax(tmp_path, monkeypatch, blender_dir):
