@@ -98,9 +98,14 @@ Phases (any failure exits non-zero; none is caught and passed over):
      clip * 255 + 0.5: the 14 train views as baseline JPEG (4:2:0, q95,
      this script's encoder: a float DCT, the Annex K tables scaled by
      quality, the standard Huffman tables; view_01 with a restart marker
-     every MCU row), named so in images.bin, the 2 test views as PNG. The
-     port's readers must give back every camera (R, T within 1e-12), every
-     PNG pixel and each JPEG view within 30 dB PSNR of its render, and a
+     every MCU row and one flipped bit of entropy-coded data, view_02
+     with extraneous bytes before its DQT and SOS markers, both of which
+     libjpeg only warns about), named so in images.bin, the 2 test views
+     as PNG. The port's readers must give back every camera (R, T within
+     1e-12), every PNG pixel and each JPEG view within 30 dB PSNR of its
+     render; the two damaged views decoded by the compiled decoder (the
+     one the train CLI's Scene runs) bit-equal to the plain one, their
+     PSNR printed; and a
      copy of the first
      view's pixels as a PNG whose rows cycle through all five row filters
      (the Average and Paeth rows of PIL- or libpng-written datasets take
@@ -142,6 +147,41 @@ Phases (any failure exits non-zero; none is caught and passed over):
      CLI's ms per view, the metrics CLI's ms, the phase's peak device
      memory and wall time. `sys.stdout`, which each CLI's `safe_state`
      replaces, is restored after each.
+  5e. Blender path: the NeRF-synthetic user's entry, in process on the
+     card at NeRF-synthetic's width. A dataset in nerf_synthetic/lego's
+     layout (transforms_train.json, transforms_test.json, train/r_<i>.png,
+     test/r_<i>.png, camera_angle_x 0.6911112070083618): 16 train and 4
+     test frames at 800x800, renders of trained_r5 from an orbit at lego's
+     camera distance 4.0311 (the scene scaled so trained_r5's
+     95th-percentile radius is 1), alpha 1 - the forward's final T, the
+     colour straight (C / alpha where alpha >= 1/255, else 0). Train
+     frames 1, 3, 5, 7, 9 are written by this script's own PNG writer as
+     16-bit RGBA, palette + tRNS, Adam7 RGBA, 8-bit grey + alpha and 8-bit
+     RGB with a tRNS colour; the others 8-bit RGBA. Every frame's
+     `image_io.open_image` + `to_rgba` must equal, bit for bit, the RGBA
+     this script derives by PIL's rules (high bytes, palette colours and
+     tRNS alphas, grey spread, alpha 0 on the tRNS colour); the ms per
+     form is printed. Then `cli.train.main` (-s -m --white_background
+     --eval, 300 iterations, reports at 150 and 300, a PLY at 300, a
+     densify every 30 steps from 30 to 240, the reset at 180) from the
+     default 100,000 random points (np.random seeded by the script): the
+     run reaches 300 with finite losses whose last 20 average below the
+     first 20, the init cloud holds 100,000 points in [-1.3, 1.3]^3, the
+     background is white, and the compositing kernels' counters equal
+     the schedule (one launch of each per step, one forward per report
+     view: the 4 test and 5 train views). At the run's final state (grown
+     from the random cloud, then pruned; its capacity), the first test
+     camera at 800x800 and the white background, the forward, the
+     backward and the routing are held to their plain versions by phase
+     3's rules (`check_state`; these launches are not the path's, and
+     their errors join the kernels line's max_abs_err). `cli.render.main` on both
+     splits: one forward per view, every render and ground-truth PNG
+     written, and in every render the darkest 8x8 corner averages >= 0.8
+     of white; `cli.metrics.main`: a finite SSIM, PSNR and LPIPS (the
+     seeded random LPIPS weights of 5c). Prints the scene load, the
+     Morton KNN's ms at 100,000 points, the train CLI's wall and step
+     median, the render CLI's ms per view, the metrics, the phase's peak
+     device memory and wall time.
   5d. sharded path (`parallel/sharding.py`), on the one card:
      - the kernels at a row origin: trained_r5 at 1920x1080 with 32x32
        tiles cut into 2 and into 4 strips of tile rows; each strip's
@@ -187,7 +227,8 @@ Phases (any failure exits non-zero; none is caught and passed over):
      registers per thread and resident blocks per SM.
   7. the kernels line, then the result line. Each kernel's `launches` is
      the sum of `launches_by_path`: each path's own count, read after its
-     own reset (train, trainer, cli_train, cli_render, sharded_2rank and
+     own reset (train, trainer, cli_train, cli_render, cli_blender (its
+     train and render CLIs together), sharded_2rank and
      sharded_trainer (both ranks' sums), sharded_nccl1 for the compositing
      kernels and the routing, profiler for the other three).
 
@@ -279,11 +320,32 @@ TRAINER_OPT = OptimizationConfig(densify_from_iter=5, densification_interval=5,
 
 CLI_VIEWS, CLI_STEPS, CLI_REPORTS, CLI_SAVE = 16, 200, (100, 200), 100
 CLI_JPEG_QUALITY, CLI_RESTART_VIEW = 95, 1  # the train view with a restart marker every MCU row
+# train views damaged where libjpeg warns and carries on: a flipped
+# entropy-coded byte in the restart view (its damage ends at the next
+# restart marker), extraneous bytes before two markers in another
+CLI_FLIPPED_VIEW, CLI_EXTRANEOUS_VIEW = CLI_RESTART_VIEW, 2
 CLI_TRAIN = ["-r", "1", "--eval", "--iterations", str(CLI_STEPS),
              "--test_iterations", *map(str, CLI_REPORTS), "--save_iterations", str(CLI_SAVE),
              "--checkpoint_iterations", str(CLI_STEPS), "--densify_from_iter", "20",
              "--densification_interval", "20", "--densify_until_iter", "160",
              "--opacity_reset_interval", "120", "--disable_viewer", "--quiet"]
+
+# Phase 5e: nerf_synthetic/lego's layout and camera_angle_x, frames at its
+# 800x800, cameras at its distance from the origin (the scene scaled so
+# trained_r5's 95th-percentile radius is 1); 16 of its 100 train and 4 of
+# its 200 test views, 300 of 30,000 iterations, the densify and reset
+# window scaled down as phase 5c's.
+BLENDER_W, BLENDER_TRAIN, BLENDER_TEST = 800, 16, 4
+BLENDER_ANGLE_X, BLENDER_DIST = 0.6911112070083618, 4.0311
+BLENDER_STEPS, BLENDER_REPORTS = 300, (150, 300)
+BLENDER_FLAGS = ["--white_background", "--eval", "--iterations", str(BLENDER_STEPS),
+                 "--test_iterations", *map(str, BLENDER_REPORTS), "--save_iterations", str(BLENDER_STEPS),
+                 "--densify_from_iter", "30", "--densification_interval", "30",
+                 "--densify_until_iter", "240", "--opacity_reset_interval", "180",
+                 "--disable_viewer", "--quiet"]
+# train frame -> its PNG form; the others are 8-bit RGBA, as NeRF-synthetic ships
+BLENDER_FORMS = {1: "16-bit RGBA", 3: "palette + tRNS", 5: "Adam7 RGBA", 7: "grey + alpha",
+                 9: "RGB + tRNS colour"}
 
 SUM_K = (1_900_544, 1_339_001)  # the profiler's capacity at its defaults, and an odd K
 LAUNCH_COUNTERS = {"composite_fwd": composite_fwd, "composite_bwd": composite_bwd,
@@ -416,24 +478,25 @@ def check_backward(name, args, lists, bg, W, H, tile, seed, origin_y=0):
     return err_rows, err_route
 
 
-def check_state(name, params, sh, cam, bg, capacity, tile, seed):
+def check_state(name, params, sh, cam, bg, capacity, tile, seed, W=W_MAIN, H=H_MAIN):
     """The three train-path kernels against their plain versions at a
     training state's own preprocess and binning (its live rows, its SH
-    degree and entry capacity): the forward within the forward's rule and
-    bit-equal to its unculled form, then check_backward. Returns the max
-    abs errors of the forward, the backward's rows and the routing."""
+    degree and entry capacity) and a W x H camera: the forward within the
+    forward's rule and bit-equal to its unculled form, then check_backward.
+    Returns the max abs errors of the forward, the backward's rows and the
+    routing."""
     with torch.no_grad():
-        args, lists, total = sorted_inputs(tuple(activate(params)), cam, W_MAIN, H_MAIN, tile,
+        args, lists, total = sorted_inputs(tuple(activate(params)), cam, W, H, tile,
                                            sh=sh, alive=params.alive, capacity=capacity)
-        out = composite_fwd_cuda(*args, bg, W_MAIN, H_MAIN, *tile)
-        ref = composite_fwd_torch(*args, bg, W_MAIN, H_MAIN, *tile)
+        out = composite_fwd_cuda(*args, bg, W, H, *tile)
+        ref = composite_fwd_torch(*args, bg, W, H, *tile)
     torch.cuda.synchronize()
-    counts = blend_pair_counts(*args, W_MAIN, H_MAIN, *tile)
-    print(f"  {name}: K={total} entries, pairs {counts.pairs}, taken {counts.taken}, blended "
+    counts = blend_pair_counts(*args, W, H, *tile)
+    print(f"  {name}: {W}x{H}, K={total} entries, pairs {counts.pairs}, taken {counts.taken}, blended "
           f"{counts.blended} ({counts.blended / max(counts.pairs, 1):.1%} of the evaluated pairs)")
     err_fwd = compare(f"{name} K={total}", out, ref, 1e-5)
-    check_cull(name, out, args, bg, W_MAIN, H_MAIN, tile)
-    return (err_fwd, *check_backward(name, args, lists, bg, W_MAIN, H_MAIN, tile, seed))
+    check_cull(name, out, args, bg, W, H, tile)
+    return (err_fwd, *check_backward(name, args, lists, bg, W, H, tile, seed))
 
 
 def cuda_time_ms(fn, reps):
@@ -805,30 +868,43 @@ def quantize(img):
     return render_cli.quantize(img.cpu().numpy())
 
 
-def png_every_filter(a):
-    """PNG bytes of uint8 pixels a (H, W, C) whose rows cycle through the
-    five row filters (None, Sub, Up, Average, Paeth), as adaptive encoders
-    such as libpng's mix them; filtered by the PNG specification's
-    formulas, compressed at zlib's default level."""
-    H, W, C = a.shape
-    x = a.astype(np.int16).reshape(H, W * C)
-    up = np.concatenate([np.zeros((1, W * C), np.int16), x[:-1]])
-    left = np.pad(x, ((0, 0), (C, 0)))[:, :-C]
-    upleft = np.pad(up, ((0, 0), (C, 0)))[:, :-C]
-    p = left + up - upleft
-    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
-    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
-    filters = np.arange(H) % 5
-    pred = np.stack([np.zeros_like(x), left, up, (left + up) >> 1, paeth])[filters, np.arange(H)]
-    rows = np.concatenate([filters[:, None].astype(np.uint8), ((x - pred) & 255).astype(np.uint8)],
-                          axis=1)
+def png_form(samples, depth, color, interlace=False, plte=None, trns=None, filters=(1,)) -> bytes:
+    """PNG bytes of integer samples (H, W, spp) at 8 or 16 bits in PNG
+    colour type `color` (Adam7 when `interlace`d), with PLTE and tRNS
+    chunks; row i of each pass takes row filter filters[i % len(filters)]
+    (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth), by the PNG specification's
+    formulas, compressed at zlib's default level. This script's writer for
+    what image_io.write_png does not write: the forms PIL reads, and rows
+    mixed as adaptive encoders such as libpng's mix them."""
+    bpp = samples.shape[2] * depth // 8
+
+    def rows(a):
+        h = a.shape[0]
+        x = (a.astype(">u2").view(np.uint8) if depth == 16 else a.astype(np.uint8)).reshape(h, -1)
+        x = x.astype(np.int16)
+        up = np.concatenate([np.zeros_like(x[:1]), x[:-1]])
+        left = np.pad(x, ((0, 0), (bpp, 0)))[:, :-bpp]
+        upleft = np.pad(up, ((0, 0), (bpp, 0)))[:, :-bpp]
+        p = left + up - upleft
+        pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+        paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+        kind = np.asarray(filters)[np.arange(h) % len(filters)]
+        pred = np.stack([np.zeros_like(x), left, up, (left + up) >> 1, paeth])[kind, np.arange(h)]
+        return np.concatenate([kind[:, None].astype(np.uint8), ((x - pred) & 255).astype(np.uint8)],
+                              axis=1).tobytes()
+
+    passes = image_io.ADAM7 if interlace else ((0, 0, 1, 1),)
+    data = b"".join(rows(samples[y0::dy, x0::dx]) for x0, y0, dx, dy in passes
+                    if samples[y0::dy, x0::dx].size)
 
     def chunk(kind, body):
         return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
 
-    header = struct.pack(">IIBBBBB", W, H, 8, {1: 0, 2: 4, 3: 2, 4: 6}[C], 0, 0, 0)
-    return (image_io.PNG_SIGNATURE + chunk(b"IHDR", header)
-            + chunk(b"IDAT", zlib.compress(rows.tobytes())) + chunk(b"IEND", b""))
+    h, w = samples.shape[:2]
+    header = struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, int(interlace))
+    return (image_io.PNG_SIGNATURE + chunk(b"IHDR", header) + (chunk(b"PLTE", plte) if plte else b"")
+            + (chunk(b"tRNS", trns) if trns else b"") + chunk(b"IDAT", zlib.compress(data))
+            + chunk(b"IEND", b""))
 
 
 # ---- a baseline JPEG encoder, for the CLI phase's dataset ----
@@ -1057,6 +1133,11 @@ def jpeg_train_views(data, cams, images, test_names):
         t0 = time.perf_counter()
         body = encode_jpeg(px, CLI_JPEG_QUALITY, (2, 2), restart)
         encode_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == CLI_FLIPPED_VIEW:
+            body = flip_entropy_byte(body)
+        elif i == CLI_EXTRANEOUS_VIEW:
+            sos, dqt = body.index(b"\xff\xda"), body.index(b"\xff\xdb")
+            body = body[:dqt] + b"\x00\xff\x00\x55" + body[dqt:sos] + b"\x12\x34" + body[sos:]
         os.remove(os.path.join(data, "images", files[cam.image_name]))
         files[cam.image_name] = f"{cam.image_name}.jpg"
         with open(os.path.join(data, "images", files[cam.image_name]), "wb") as f:
@@ -1065,6 +1146,18 @@ def jpeg_train_views(data, cams, images, test_names):
         rec.name = files[os.path.splitext(rec.name)[0]]
     colmap.write_images_binary(records, images_bin)
     return files, encode_ms
+
+
+def flip_entropy_byte(body: bytes) -> bytes:
+    """`body` with one bit flipped in a byte of entropy-coded data at the
+    middle of the file, where neither the byte nor its neighbours are 0xFF
+    (so no marker or stuffing is made or unmade)."""
+    b = bytearray(body)
+    at = len(b) // 2
+    while 0xFF in b[at - 1:at + 2] or b[at] ^ 0x08 == 0xFF:
+        at += 1
+    b[at] ^= 0x08
+    return bytes(b)
 
 
 def check_jpeg_decoders(view_path):
@@ -1190,7 +1283,7 @@ def _cli_phase(dev, tmp):
     # JPEG view close to its render (a lossy encode).
     info = read_colmap_scene(data, None, eval_split=False)
     by_name = {c.image_name: c for c in info.train_cameras}
-    decode_ms, jpeg_ms, psnr = [], [], []
+    decode_ms, jpeg_ms, psnr, damaged = [], [], [], {}
     for cam, px in zip(cams, images):
         got = by_name[cam.image_name]
         if float(np.abs(got.R - cam.R).max()) > 1e-12 or float(np.abs(got.T - cam.T).max()) > 1e-12:
@@ -1206,7 +1299,14 @@ def _cli_phase(dev, tmp):
         back, ms = synced_ms(image_io.read_image, got.image_path)
         jpeg_ms.append(ms)
         mse = float(np.mean((back.astype(np.float64) - px) ** 2)) if back.shape == px.shape else math.inf
-        psnr.append(10 * math.log10(255 ** 2 / max(mse, 1e-12)))
+        view_psnr = 10 * math.log10(255 ** 2 / max(mse, 1e-12))
+        if cam.image_name in (names[CLI_FLIPPED_VIEW], names[CLI_EXTRANEOUS_VIEW]):
+            plain = jpeg.read_jpeg(got.image_path, plain=True)
+            if not np.array_equal(back, plain):
+                fail(f"cli path: the compiled JPEG decoder differs from the plain one on the damaged "
+                     f"view {cam.image_name} at {int((back != plain).any(-1).sum())} pixels")
+            damaged[cam.image_name] = view_psnr
+        psnr.append(view_psnr)
         if not psnr[-1] >= 30.0:
             fail(f"cli path: JPEG view {cam.image_name} decodes {back.shape} at {psnr[-1]:.2f} dB "
                  f"PSNR from its render")
@@ -1219,6 +1319,11 @@ def _cli_phase(dev, tmp):
           f"restart marker every MCU row), {len(decode_ms)} test views as PNG; cameras within "
           f"1e-12, PNG pixels bit-equal, JPEG views {min(psnr):.2f}-{max(psnr):.2f} dB PSNR "
           f"from their renders through the port's readers")
+    print(f"  damaged train views, decoded by the compiled decoder bit-equal to the plain one: "
+          f"{names[CLI_FLIPPED_VIEW]} (one flipped entropy-coded bit) "
+          f"{damaged[names[CLI_FLIPPED_VIEW]]:.2f} dB PSNR from its render, "
+          f"{names[CLI_EXTRANEOUS_VIEW]} (extraneous bytes before DQT and SOS) "
+          f"{damaged[names[CLI_EXTRANEOUS_VIEW]]:.2f} dB")
     plain_ms, fixture_ms = check_jpeg_decoders(os.path.join(data, "images", files[names[CLI_RESTART_VIEW]]))
     print(f"  JPEG decode at {W_MAIN}x{H_MAIN} (baseline 4:2:0 q{CLI_JPEG_QUALITY}): compiled "
           f"{np.median(jpeg_ms):.2f} ms (median of {len(jpeg_ms)} views), plain "
@@ -1229,7 +1334,7 @@ def _cli_phase(dev, tmp):
     # reader decodes by anti-diagonals (the cost of a real dataset).
     mixed = os.path.join(tmp, "every_filter.png")
     with open(mixed, "wb") as f:
-        f.write(png_every_filter(images[0]))
+        f.write(png_form(images[0], 8, 2, filters=(0, 1, 2, 3, 4)))
     mixed_ms = []
     for _ in range(3):
         back, ms = synced_ms(image_io.read_png, mixed)
@@ -1362,6 +1467,204 @@ def _cli_phase(dev, tmp):
     print(f"  phase peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
           f"wall {time.perf_counter() - t_phase:.1f} s")
     return train_launches, render_launches, errs
+
+
+# ---- phase 5e: the Blender (NeRF-synthetic) path ----------------------------
+
+def blender_frame(rgba, form, seed):
+    """PNG bytes of an 8-bit RGBA frame in one of BLENDER_FORMS (or plain
+    8-bit RGBA), and the RGBA that PIL's convert("RGBA") gives for them by
+    PIL's rules: a 16-bit file's high bytes, a palette entry's colour and
+    tRNS alpha, grey spread to RGB, alpha 0 on a tRNS colour."""
+    if form is None:
+        return None, rgba
+    if form == "16-bit RGBA":
+        low = np.random.default_rng(seed).integers(0, 256, rgba.shape)
+        return png_form((rgba.astype(np.int64) << 8) | low, 16, 6), rgba
+    if form == "palette + tRNS":  # 4 levels per channel and alpha: 256 entries
+        q = rgba >> 6
+        index = (q[..., 0] << 6) | (q[..., 1] << 4) | (q[..., 2] << 2) | q[..., 3]
+        levels = np.arange(256)
+        entries = np.stack([(levels >> 6) & 3, (levels >> 4) & 3, (levels >> 2) & 3, levels & 3], -1) * 85
+        data = png_form(index[..., None], 8, 3, plte=entries[:, :3].astype(np.uint8).tobytes(),
+                        trns=entries[:, 3].astype(np.uint8).tobytes())
+        return data, (q * 85).astype(np.uint8)
+    if form == "Adam7 RGBA":
+        return png_form(rgba, 8, 6, interlace=True), rgba
+    if form == "grey + alpha":
+        lum = ((rgba[..., :3].astype(np.int64) * [299, 587, 114]).sum(-1) + 500) // 1000
+        la = np.stack([lum, rgba[..., 3]], -1)
+        return png_form(la, 8, 4), np.concatenate([la[..., :1].repeat(3, -1), la[..., 1:]], -1).astype(np.uint8)
+    # RGB + tRNS colour: the background black, which the tRNS chunk makes clear
+    rgb = np.where(rgba[..., 3:] >= 128, rgba[..., :3], 0).astype(np.uint8)
+    black = (rgb == 0).all(-1)
+    rgb[black & (rgba[..., 3] >= 128)] = (0, 0, 1)
+    alpha = np.where((rgb == 0).all(-1), 0, 255).astype(np.uint8)
+    return png_form(rgb, 8, 2, trns=bytes(6)), np.concatenate([rgb, alpha[..., None]], -1)
+
+
+def write_blender_dataset(data, dev):
+    """nerf_synthetic/lego's layout at its width: renders of trained_r5 from
+    an orbit at BLENDER_DIST (the scene scaled so its 95th-percentile radius
+    is 1), alpha 1 - final T, the colour straight (C / alpha where alpha >=
+    1/255, else 0). Returns {frame path: (form, the RGBA PIL would read)}."""
+    model = load_gaussians_ply(TRAINED_PLY)
+    center = model["xyz"].mean(axis=0)
+    scale = float(np.quantile(np.linalg.norm(model["xyz"] - center, axis=1), 0.95))
+    trained = params_from_ply(TRAINED_PLY)
+    fov = math.degrees(BLENDER_ANGLE_X)
+    views = BLENDER_TRAIN + BLENDER_TEST
+    test_views = set(range(0, views, views // BLENDER_TEST))
+    frames, expected = {"train": [], "test": []}, {}
+    os.makedirs(os.path.join(data, "train"))
+    os.makedirs(os.path.join(data, "test"))
+    with torch.no_grad():
+        acts = tuple(activate(trained))
+        for i in range(views):
+            cam = orbit_camera(center, BLENDER_DIST * scale, 2 * math.pi * (i + 0.5) / views,
+                               BLENDER_W, BLENDER_W, fov, fov)
+            arr = cam.arrays()
+            n = int(preprocess(*acts, 3, arr, BLENDER_W, BLENDER_W, 32, 32).tiles_touched.sum())
+            img, aux = eval_render(trained, arr, torch.zeros(3, device=dev), 3, BLENDER_W, BLENDER_W,
+                                   RasterizerConfig(capacity_exact=entry_bucket_capacity(n, 16, 1.2)))
+            alpha = 1.0 - aux["final_t"]
+            straight = torch.where(alpha[..., None] >= 1 / 255, img / alpha.clamp_min(1 / 255)[..., None], 0.0)
+            rgba = render_cli.quantize(torch.cat([straight, alpha[..., None]], -1).cpu().numpy())
+            split = "test" if i in test_views else "train"
+            k = len(frames[split])
+            form = BLENDER_FORMS.get(k) if split == "train" else None
+            path = os.path.join(data, split, f"r_{k}.png")
+            body, want = blender_frame(rgba, form, seed=i)
+            if body is None:
+                image_io.write_png(path, rgba)
+            else:
+                with open(path, "wb") as f:
+                    f.write(body)
+            expected[path] = (form or "8-bit RGBA", want)
+            c2w = np.eye(4)
+            c2w[:3, :3] = cam.R
+            c2w[:3, 3] = (-cam.R @ cam.T - center) / scale
+            c2w[:3, 1:3] *= -1  # COLMAP (y down, z forward) -> Blender / OpenGL
+            frames[split].append({"file_path": f"./{split}/r_{k}", "rotation": 2 * math.pi / views,
+                                  "transform_matrix": c2w.tolist()})
+    for split in ("train", "test"):
+        with open(os.path.join(data, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": BLENDER_ANGLE_X, "frames": frames[split]}, f, indent=1)
+    return expected
+
+
+def blender_phase(dev):
+    """Phase 5e: the NeRF-synthetic user's path. Returns the compositing
+    kernels' launches in its train and render CLIs together, and the max
+    abs errors of check_state at the train CLI's final state."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_blender_")
+    try:
+        return _blender_phase(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _blender_phase(dev, tmp):
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    data, model_dir = os.path.join(tmp, "lego"), os.path.join(tmp, "model")
+    expected = write_blender_dataset(data, dev)
+
+    # Every frame as the reader returns it, held to PIL's rules.
+    read_ms = {}
+    for path, (form, want) in expected.items():
+        got, ms = synced_ms(lambda p: image_io.to_rgba(image_io.open_image(p)), path)
+        if not np.array_equal(got, want):
+            fail(f"blender path: {path} ({form}) reads otherwise than PIL's rules give at "
+                 f"{int((got != want).any(-1).sum())} pixels")
+        read_ms.setdefault(form, []).append(ms)
+    print(f"blender path: nerf_synthetic/lego's layout, {BLENDER_TRAIN} train and {BLENDER_TEST} test "
+          f"frames of trained_r5 at {BLENDER_W}x{BLENDER_W} (camera_angle_x {BLENDER_ANGLE_X}); "
+          f"every frame's open_image + to_rgba bit-equal to PIL's rules; ms per frame (host clock): "
+          + ", ".join(f"{form} {np.median(ms):.1f}" for form, ms in read_ms.items()))
+
+    # Train from the default 100,000 random points.
+    os.environ.pop("GS_TPU_BLENDER_INIT_POINTS", None)
+    np.random.seed(0)
+    reset_launches()
+    with SceneLoadTimer() as scene_load:
+        t0 = time.perf_counter()
+        scene, tr = in_process(train_cli.main, ["-s", data, "-m", model_dir, *BLENDER_FLAGS])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    train_launches = {k: LAUNCH_COUNTERS[k].launches for k in TRAIN_KERNELS}
+    reports = len(BLENDER_REPORTS) * (BLENDER_TEST + 5)  # each report: the test views and 5 train views
+    want = {"composite_fwd": BLENDER_STEPS + reports, "composite_bwd": BLENDER_STEPS,
+            "route_grads": BLENDER_STEPS}
+    if train_launches != want:
+        fail(f"blender path: train CLI launches {train_launches}, the schedule gives {want}")
+    step_ms = [h["iter_time_ms"] for h in tr.history]
+    losses_ = [h["loss"] for h in tr.history]
+    first20, last20 = float(np.mean(losses_[:20])), float(np.mean(losses_[-20:]))
+    if tr.iteration != BLENDER_STEPS or not all(math.isfinite(x) for x in losses_) or not last20 < first20:
+        fail(f"blender path: the run stopped at {tr.iteration} or the loss did not fall "
+             f"(first 20 {first20}, last 20 {last20})")
+    init = load_point_cloud_ply(os.path.join(data, "points3d.ply"))[0]
+    if init.shape != (100_000, 3) or float(np.abs(init).max()) > 1.3 + 1e-6:
+        fail(f"blender path: the init cloud is {init.shape}, max |x| {np.abs(init).max()}")
+    if not (white := bool(torch.equal(tr.background.cpu(), torch.ones(3)))):
+        fail(f"blender path: the trainer's background is {tr.background}, not white")
+    pts = torch.from_numpy(init).to(dev)
+    knn_ms = cuda_time_ms(lambda: mean_knn_dist2_morton(pts), 5)
+    print(f"  train CLI: {BLENDER_STEPS} steps from {len(init)} random points in [-1.3, 1.3]^3, white "
+          f"background {white}, wall {train_s:.2f} s (scene load {scene_load.s:.2f} s: "
+          f"{BLENDER_TRAIN + BLENDER_TEST} PNG frames decoded and composited), step median "
+          f"{np.median(step_ms):.3f} ms, p80 {np.percentile(step_ms, 80):.3f} ms (its iter_time_ms, "
+          f"host clock); loss first 20 {first20:.6f}, last 20 {last20:.6f}; "
+          f"{len(tr.densify_history)} densifies; live {tr.num_live}; launches {train_launches}")
+    print(f"  Morton KNN at {len(init)} points: {knn_ms:.3f} ms (CUDA events)")
+
+    # The three train-path kernels at this run's final state (grown from
+    # the random cloud, then pruned), a test camera at 800x800 and the white
+    # background, by phase 3's rules; their launches are not the path's
+    # (the counters are reset before the render CLI).
+    p = tr.state.params
+    test_view = scene.get_test_cameras()[0]
+    if (test_view.width, test_view.height) != (BLENDER_W, BLENDER_W):
+        fail(f"blender path: a test camera of {test_view.width}x{test_view.height}")
+    errs = check_state("blender train CLI final state", p, tr.active_sh_degree,
+                       test_view.arrays(device=dev), tr.background, tr.raster_cfg.capacity(p.num_points),
+                       (tr.raster_cfg.tile_w, tr.raster_cfg.tile_h), 47, W=BLENDER_W, H=BLENDER_W)
+    del scene, tr, pts, p
+
+    # Render both splits, then the metrics.
+    reset_launches()
+    _, render_ms = synced_ms(in_process, render_cli.main, ["-m", model_dir])
+    render_launches = {k: LAUNCH_COUNTERS[k].launches for k in TRAIN_KERNELS}
+    views = BLENDER_TRAIN + BLENDER_TEST
+    if render_launches != {"composite_fwd": views, "composite_bwd": 0, "route_grads": 0}:
+        fail(f"blender path: render CLI launches {render_launches} for {views} views")
+    corners = []
+    for split, n in (("train", BLENDER_TRAIN), ("test", BLENDER_TEST)):
+        out = os.path.join(model_dir, split, f"ours_{BLENDER_STEPS}")
+        for kind in ("renders", "gt"):
+            if sorted(os.listdir(os.path.join(out, kind))) != [f"{i:05d}.png" for i in range(n)]:
+                fail(f"blender path: {split}/{kind} holds {os.listdir(os.path.join(out, kind))}")
+        for i in range(n):
+            r = image_io.read_png(os.path.join(out, "renders", f"{i:05d}.png"))
+            patches = [r[:8, :8], r[:8, -8:], r[-8:, :8], r[-8:, -8:]]
+            corners.append(min(float(p.mean()) for p in patches) / 255)
+    if min(corners) < 0.8:
+        fail(f"blender path: a render's background corner averages {min(corners):.3f}, not white")
+    _, metrics_ms = synced_ms(in_process, metrics_cli.main, ["-m", model_dir])
+    with open(os.path.join(model_dir, "results.json")) as f:
+        result = json.load(f).get(f"ours_{BLENDER_STEPS}", {})
+    if not all(math.isfinite(result.get(k) or math.nan) for k in ("SSIM", "PSNR", "LPIPS")):
+        fail(f"blender path: results.json holds {result}")
+    print(f"  render CLI: {views} views in {render_ms / 1e3:.2f} s wall, {render_ms / views:.1f} ms per "
+          f"view; launches {render_launches}; every PNG written; render corners (8x8, darkest of four) "
+          f"{min(corners):.3f}-{max(corners):.3f} of white")
+    print(f"  metrics CLI: {metrics_ms:.1f} ms; test SSIM {result['SSIM']:.6f}, PSNR {result['PSNR']:.4f} dB, "
+          f"LPIPS (vgg, seeded random weights) {result['LPIPS']:.6f}")
+    print(f"  phase peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
+          f"wall {time.perf_counter() - t_phase:.1f} s")
+    return {k: train_launches[k] + render_launches[k] for k in TRAIN_KERNELS}, errs
 
 
 # ---- phase 5d: the sharded path -------------------------------------------
@@ -2048,13 +2351,16 @@ def main():
         print("lpips:")
         lpips_phase(render0, gt)
         cli_train_launches, cli_render_launches, cli_errs = cli_phase(dev)
+        phase_done("5c CLI path")
+        # ---- 5e. Blender path (the metrics CLI's LPIPS on the same weights)
+        blender_launches, blender_errs = blender_phase(dev)
     finally:
         os.environ.pop("GS_TPU_LPIPS_WEIGHTS", None)
         lpips_mod._load_weights.cache_clear()
         shutil.rmtree(lpips_dir, ignore_errors=True)
-    for k, e in zip(("composite_fwd", "composite_bwd", "route_grads"), cli_errs):
+    for k, e in (*zip(TRAIN_KERNELS, cli_errs), *zip(TRAIN_KERNELS, blender_errs)):
         max_err[k] = max(max_err[k], e)
-    phase_done("5c CLI path")
+    phase_done("5e Blender path")
 
     # ---- 5d. sharded path ---------------------------------------------
     sharded_launches, strip_errs = sharded_phase(dev, gt, center, dist, train_capacity,
@@ -2130,6 +2436,7 @@ def main():
         if name in train_launches:
             return {"train": train_launches[name], "trainer": trainer_launches[name],
                     "cli_train": cli_train_launches[name], "cli_render": cli_render_launches[name],
+                    "cli_blender": blender_launches[name],
                     **{path: counts[name] for path, counts in sharded_launches.items()}}
         return {"profiler": prof_launches[name]}
 

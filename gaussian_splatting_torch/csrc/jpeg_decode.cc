@@ -3,12 +3,18 @@
 //
 // The same decoder as the plain version in utils/jpeg.py, step for step:
 // the same checks in the same order with the same messages, the same bits
-// out (PIL's: libjpeg-turbo's C code at its defaults). Huffman-coded 8-bit
-// baseline, extended and progressive frames with 1 or 3 components;
-// restart intervals; the "islow" IDCT (jidctint.c) with its range-limit
-// table; fancy upsampling at chroma ratios 2x1, 2x2 and 1x2 (replication
-// for h2v1 / h2v2 on components 2 or fewer samples wide); jdcolor.c's
-// fixed-point YCbCr -> RGB. Everything else is refused by name.
+// out (PIL's: libjpeg-turbo 3's C code at its defaults). Huffman-coded
+// 8-bit baseline, extended and progressive frames with 1 or 3 components;
+// restart intervals with jpeg_resync_to_restart's recovery; libjpeg's
+// recovery from corrupt entropy-coded data (bad codes decode as 0, runs
+// past coefficient 63 land on the padded natural order, data that ends
+// early reads as zeros and leaves the rest of its restart interval zero);
+// the "islow" IDCT in the 16-bit arithmetic of its SIMD form; block
+// smoothing of progressive files with coefficient bits left out; fancy
+// upsampling at chroma ratios 2x1, 2x2 and 1x2, replication at other
+// integral ratios and for h2v1 / h2v2 on components 2 or fewer samples
+// wide; jdcolor.c's fixed-point YCbCr -> RGB. Everything else is refused
+// by name, where PIL raises.
 //
 // Interface (plain C; every entry returns 0 or an error, whose message
 // gs_jpeg_error gives for the calling thread):
@@ -18,6 +24,7 @@
 #include <algorithm>
 #include <cstdint>
 #include <cstdio>
+#include <cstdlib>
 #include <cstring>
 #include <string>
 #include <vector>
@@ -32,6 +39,7 @@ struct Refused {
 
 [[noreturn]] void refuse(const std::string& msg) { throw Refused{msg}; }
 [[noreturn]] void corrupt(const std::string& what) { throw Refused{"corrupt data: " + what}; }
+[[noreturn]] void truncated() { refuse("truncated data"); }
 
 std::string fmt(const char* f, int a, int b = 0, int c = 0) {
   char buf[256];
@@ -45,8 +53,14 @@ const int kZigzag[64] = {
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
 
-const int kMaxDimension = 65500;   // JPEG_MAX_DIMENSION
-const int kMaxBlocksInMcu = 10;    // D_MAX_BLOCKS_IN_MCU
+// jutils.c's jpeg_natural_order: 16 extra entries of 63 for corrupt runs
+int natural(int k) { return k < 64 ? kZigzag[k] : 63; }
+
+const int kMaxDimension = 65500;           // JPEG_MAX_DIMENSION
+const int64_t kMaxPixels = 2 * 89478485LL;  // PIL's DecompressionBombError limit
+const int kMaxBlocksInMcu = 10;            // D_MAX_BLOCKS_IN_MCU
+
+inline int16_t s16(int64_t x) { return static_cast<int16_t>(static_cast<uint16_t>(x & 0xFFFF)); }
 
 bool refusal(int sof, std::string* msg) {
   if (sof == 3) {
@@ -62,7 +76,8 @@ bool refusal(int sof, std::string* msg) {
 }
 
 // jpeg_make_d_derived_tbl as a 16-bit lookup: (length << 8) | symbol for
-// every 16-bit window that starts with a code, 0 where none does.
+// every 16-bit window that starts with a code, 0 where none does (a bad
+// code: libjpeg reads 17 bits and decodes 0).
 struct HuffSpec {
   bool defined = false;
   int counts[16];
@@ -94,53 +109,113 @@ std::vector<uint16_t> huffman_lut(const HuffSpec& t, bool is_dc) {
   return lut;
 }
 
+// jstdhuff.c's tables (JPEG Annex K.3 to K.6), put in Huffman slots 0 and 1
+// that no DHT has filled by the first sequential scan.
+void std_table(int kind, int slot, HuffSpec* t) {
+  static const int counts[4][16] = {
+      {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0},
+      {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0},
+      {0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125},
+      {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119}};
+  static const char* heads[2] = {
+      "010203000411051221314106135161072271143281" "91a1082342b1c11552d1f02433627282090a16",
+      "000102031104052131061241510761711322328108144291a1b1c109233352f0156272d10a162434e125f1"};
+  const int* c = counts[kind * 2 + slot];
+  std::copy(c, c + 16, t->counts);
+  t->symbols.clear();
+  if (kind == 0) {
+    for (int s = 0; s < 12; ++s) t->symbols.push_back(static_cast<uint8_t>(s));
+  } else {
+    bool used[256] = {false};
+    const char* h = heads[slot];
+    for (size_t i = 0; i + 1 < std::strlen(h); i += 2) {
+      int b = static_cast<int>(std::strtol(std::string(h + i, 2).c_str(), nullptr, 16));
+      t->symbols.push_back(static_cast<uint8_t>(b));
+      used[b] = true;
+    }
+    for (int b = 0; b < 256; ++b) {
+      bool valid = b == 0x00 || b == 0xF0 || ((b & 15) >= 1 && (b & 15) <= 10);
+      if (valid && !used[b]) t->symbols.push_back(static_cast<uint8_t>(b));
+    }
+  }
+  t->defined = true;
+}
+
 struct Component {
-  int index, id, h, v, tq;
+  int index = 0, id = 0, h = 1, v = 1, tq = 0;
   bool latched = false;
-  int64_t quant[64];  // natural order, wrapped to 16 bits as ISLOW_MULT_TYPE
-  int bw, bh, nbx, nby, stride, rows;
-  std::vector<int32_t> coef;
-  int bits[64];
-  bool scanned = false;
+  int64_t quant[64] = {};  // natural order, as the DQT gave it (UINT16)
+  int bw = 0, bh = 0, nbx = 0, nby = 0, stride = 0, rows = 0;
+  std::vector<int16_t> coef;  // JCOEF
+  int bits[64] = {}, prev_bits[64] = {};
 };
 
-// Bits of one entropy-coded segment, most significant first, in 32-bit
-// words; zeros past the end. A refill past the data's words and one word
-// of zeros is corrupt, as is a decode that reads past the data (check_end).
+// Bits of one stretch of entropy-coded data, most significant first, in
+// 32-bit words; zeros past the end, as libjpeg stuffs them after a marker.
+// `tracked` adds libjpeg-turbo's slow-path bit buffer, for data that runs to
+// the end of the file: a fill that reaches it is PIL's truncation.
 struct Bits {
   const uint8_t* seg;
-  int64_t size, limit, w = 0;
+  int64_t size, w = 0;
   uint64_t acc = 0;
   int n = 0;
+  bool insufficient = false, tracked = false;
+  int64_t used = 0, read = 0;
 
-  Bits(const std::vector<uint8_t>& s) : seg(s.data()), size(static_cast<int64_t>(s.size())) {
-    limit = (size + 3) / 4 + 1;
-  }
+  explicit Bits(const std::vector<uint8_t>& s) : seg(s.data()), size(static_cast<int64_t>(s.size())) {}
   uint32_t word(int64_t i) const {
     uint32_t x = 0;
     for (int64_t b = 4 * i; b < 4 * i + 4; ++b) x = (x << 8) | (b < size ? seg[b] : 0u);
     return x;
   }
   void refill() {
-    if (w >= limit) corrupt("entropy-coded data shorter than its blocks");
     acc = ((acc & ((uint64_t(1) << n) - 1)) << 32) | word(w);
     ++w;
     n += 32;
   }
+  void need(int k) {
+    if (8 * read - used < k) {
+      read = (used + 64) / 8;
+      if (read > size) truncated();
+    }
+  }
   int bits(int s) {
+    if (tracked) {
+      need(s);
+      used += s;
+    }
     if (n < s) refill();
     n -= s;
     return static_cast<int>((acc >> n) & ((uint64_t(1) << s) - 1));
   }
   int huff(const uint16_t* lut) {
-    if (n < 16) refill();
+    if (n < 17) refill();
     uint16_t e = lut[(acc >> (n - 16)) & 0xFFFF];
-    if (!e) corrupt("a bad Huffman code");
+    if (tracked) {  // HUFF_DECODE's lookahead, then jpeg_huff_decode's bits
+      need(8);
+      int length = e ? e >> 8 : 17;
+      if (length <= 8) {
+        used += length;
+      } else {
+        need(9);
+        used += 9;
+        for (int i = 9; i < length; ++i) {
+          need(1);
+          used += 1;
+        }
+      }
+    }
+    if (!e) {
+      n -= 17;
+      return 0;
+    }
     n -= e >> 8;
     return e & 255;
   }
-  void check_end() const {
-    if (w * 32 - n > 8 * size) corrupt("entropy-coded data shorter than its blocks");
+  // Whether the MCU just decoded read past the data (insufficient_data).
+  bool done_mcu() {
+    insufficient = !tracked && w * 32 - n > 8 * size;
+    return insufficient;
   }
 };
 
@@ -152,79 +227,138 @@ const int64_t F_0_298 = 2446, F_0_390 = 3196, F_0_541 = 4433, F_0_765 = 6270, F_
               F_1_175 = 9633, F_1_501 = 12299, F_1_847 = 15137, F_1_961 = 16069,
               F_2_053 = 16819, F_2_562 = 20995, F_3_072 = 25172;
 
-// jidctint.c's butterfly: in[0..7] at stride `is`, outputs before descale.
-inline void idct_1d(const int64_t* s, int is, int64_t* o) {
-  int64_t z2 = s[2 * is], z3 = s[6 * is];
-  int64_t z1 = (z2 + z3) * F_0_541;
-  int64_t tmp2 = z1 - z3 * F_1_847;
-  int64_t tmp3 = z1 + z2 * F_0_765;
-  int64_t tmp0 = (s[0] + s[4 * is]) * (int64_t(1) << 13);
-  int64_t tmp1 = (s[0] - s[4 * is]) * (int64_t(1) << 13);
+inline int64_t i16(int64_t x) { return s16(x); }
+
+// (x + half) >> n of a 32-bit lane: the sum wraps to 32 bits first.
+inline int64_t descale32(int64_t x, int n) {
+  int32_t v = static_cast<int32_t>(static_cast<uint32_t>((x + (int64_t(1) << (n - 1))) & 0xFFFFFFFF));
+  return v >> n;
+}
+
+// One pass of libjpeg-turbo's SIMD islow IDCT (jidctint-avx2.asm) on the
+// int16 inputs s[0..7] at stride `is`: products in 32 bits (pmaddwd), the
+// sums in0 +- in4, in7 + in3 and in5 + in1 in 16 bits, the rest in 32
+// bits, each output descaled and saturated to 16 bits (packssdw).
+inline void idct_pass(const int64_t* s, int is, int descale, int64_t* o) {
+  int64_t i0 = s[0], i1 = s[is], i2 = s[2 * is], i3 = s[3 * is], i4 = s[4 * is], i5 = s[5 * is],
+          i6 = s[6 * is], i7 = s[7 * is];
+  int64_t tmp3 = i2 * (F_0_541 + F_0_765) + i6 * F_0_541;
+  int64_t tmp2 = i2 * F_0_541 + i6 * (F_0_541 - F_1_847);
+  int64_t tmp0 = i16(i0 + i4) * 8192, tmp1 = i16(i0 - i4) * 8192;
   int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-  int64_t t0 = s[7 * is], t1 = s[5 * is], t2 = s[3 * is], t3 = s[1 * is];
-  z1 = t0 + t3;
-  z2 = t1 + t2;
-  z3 = t0 + t2;
-  int64_t z4 = t1 + t3;
-  int64_t z5 = (z3 + z4) * F_1_175;
-  t0 *= F_0_298;
-  t1 *= F_2_053;
-  t2 *= F_3_072;
-  t3 *= F_1_501;
-  z1 *= -F_0_899;
-  z2 *= -F_2_562;
-  z3 = z3 * -F_1_961 + z5;
-  z4 = z4 * -F_0_390 + z5;
-  t0 += z1 + z3;
-  t1 += z2 + z4;
-  t2 += z2 + z3;
-  t3 += z1 + z4;
-  o[0] = tmp10 + t3;
-  o[1] = tmp11 + t2;
-  o[2] = tmp12 + t1;
-  o[3] = tmp13 + t0;
-  o[4] = tmp13 - t0;
-  o[5] = tmp12 - t1;
-  o[6] = tmp11 - t2;
-  o[7] = tmp10 - t3;
+  int64_t z3 = i16(i7 + i3), z4 = i16(i5 + i1);
+  int64_t z3p = z3 * (F_1_175 - F_1_961) + z4 * F_1_175;
+  int64_t z4p = z3 * F_1_175 + z4 * (F_1_175 - F_0_390);
+  int64_t t0 = i7 * (F_0_298 - F_0_899) - i1 * F_0_899 + z3p;
+  int64_t t3 = i1 * (F_1_501 - F_0_899) - i7 * F_0_899 + z4p;
+  int64_t t1 = i5 * (F_2_053 - F_2_562) - i3 * F_2_562 + z4p;
+  int64_t t2 = i3 * (F_3_072 - F_2_562) - i5 * F_2_562 + z3p;
+  int64_t outs[8] = {tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
+                     tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3};
+  for (int k = 0; k < 8; ++k) o[k] = std::min<int64_t>(std::max<int64_t>(descale32(outs[k], descale), -32768), 32767);
 }
 
-// jdmaster.c's IDCT_range_limit (sample_range_limit + CENTERJSAMPLE) for
-// indexes 0..1023 (RANGE_MASK): x + 128 below 128, 255 to 511, 0 from 512,
-// x - 896 from 896.
-struct RangeLimit {
-  uint8_t v[1024];
-  RangeLimit() {
-    for (int x = 0; x < 1024; ++x)
-      v[x] = static_cast<uint8_t>(x < 128 ? x + 128 : x < 512 ? 255 : x < 896 ? 0 : x - 896);
+// jsimd_idct_islow of one block (natural order, row = vertical frequency)
+// with the wrapped steps q -> 8x8 samples at `out`: 16-bit dequantisation
+// (pmullw); a block whose rows 1..7 are zero takes the column pass's
+// shortcut, DC << 2 in 16 bits; the outputs saturate to -128..127 + 128.
+void idct_islow(const int16_t* coef, const int64_t* q, uint8_t* out, int64_t stride) {
+  int64_t deq[64], ws[64], col[8], row[8];
+  bool dc_only = true;
+  for (int i = 0; i < 64; ++i) {
+    deq[i] = i16(int64_t(coef[i]) * q[i]);
+    if (i >= 8 && coef[i]) dc_only = false;
   }
-};
-
-const uint8_t* range_limit() {
-  static const RangeLimit table;
-  return table.v;
-}
-
-// One dequantised block (row = vertical frequency) -> 8x8 samples at `out`.
-// The range-limit table equals a clamp on -512..511; PIL's build (the SIMD
-// IDCT) gives neither beyond it, so a sample there is refused.
-void idct_islow(const int32_t* coef, const int64_t* q, uint8_t* out, int64_t stride) {
-  const uint8_t* limit = range_limit();
-  int64_t in[64], ws[64], col[8], row[8];
-  for (int i = 0; i < 64; ++i) in[i] = int64_t(coef[i]) * q[i];
-  for (int c = 0; c < 8; ++c) {
-    idct_1d(in + c, 8, col);
-    for (int r = 0; r < 8; ++r) ws[r * 8 + c] = (col[r] + (int64_t(1) << 10)) >> 11;
-  }
-  for (int r = 0; r < 8; ++r) {
-    idct_1d(ws + r * 8, 1, row);
+  if (dc_only) {
+    for (int r = 0; r < 8; ++r)
+      for (int c = 0; c < 8; ++c) ws[r * 8 + c] = i16(deq[c] * 4);
+  } else {
     for (int c = 0; c < 8; ++c) {
-      int64_t v = (row[c] + (int64_t(1) << 17)) >> 18;
-      if (v < -512 || v > 511)
-        refuse("an inverse DCT sample outside -512..511 (where libjpeg-turbo's SIMD and C IDCTs differ)");
-      out[r * stride + c] = limit[v & 1023];
+      idct_pass(deq + c, 8, 11, col);
+      for (int r = 0; r < 8; ++r) ws[r * 8 + c] = col[r];
     }
   }
+  for (int r = 0; r < 8; ++r) {
+    idct_pass(ws + r * 8, 1, 18, row);
+    for (int c = 0; c < 8; ++c)
+      out[r * stride + c] = static_cast<uint8_t>(std::min<int64_t>(std::max<int64_t>(row[c], -128), 127) + 128);
+  }
+}
+
+// jdcoefct.c decompress_smooth_data's estimates: coefficients 1..9 in
+// zig-zag order at their natural positions, and the 5x5 DC kernels (rows
+// above to below, columns left to right) that estimate each; the first five
+// where the component has AC data, the nine (and the DC) where it has none.
+const int kSmoothPos[9] = {1, 8, 16, 9, 2, 3, 10, 17, 24};
+const int kAc[5][25] = {
+    {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -7, 50, 0, -50, 7, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0},
+    {0, 0, -7, 0, 0, 0, 0, 50, 0, 0, 0, 0, 0, 0, 0, 0, 0, -50, 0, 0, 0, 0, 7, 0, 0},
+    {0, 0, -1, 0, 0, 0, 0, 13, 0, 0, 0, 0, -24, 0, 0, 0, 0, 13, 0, 0, 0, 0, -1, 0, 0},
+    {0, -1, 0, 1, 0, -1, 10, 0, -10, 1, 0, 0, 0, 0, 0, 1, -10, 0, 10, -1, 0, 1, 0, -1, 0},
+    {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 13, -24, 13, -1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0}};
+const int kDc[9][25] = {
+    {-1, -1, 0, 1, 1, -3, 13, 0, -13, 3, -3, 38, 0, -38, 3, -3, 13, 0, -13, 3, -1, -1, 0, 1, 1},
+    {-1, -3, -3, -3, -1, -1, 13, 38, 13, -1, 0, 0, 0, 0, 0, 1, -13, -38, -13, 1, 1, 3, 3, 3, 1},
+    {0, 0, 1, 0, 0, 0, 2, 7, 2, 0, 0, -5, -14, -5, 0, 0, 2, 7, 2, 0, 0, 0, 1, 0, 0},
+    {-1, 0, 0, 0, 1, 0, 9, 0, -9, 0, 0, 0, 0, 0, 0, 0, -9, 0, 9, 0, 1, 0, 0, 0, -1},
+    {0, 0, 0, 0, 0, 0, 2, -5, 2, 0, 1, 7, -14, 7, 1, 0, 2, -5, 2, 0, 0, 0, 0, 0, 0},
+    {0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, 2, 0, -2, 0, 0, 1, 0, -1, 0, 0, 0, 0, 0, 0},
+    {0, 0, 0, 0, 0, 0, 1, -3, 1, 0, 0, 0, 0, 0, 0, 0, -1, 3, -1, 0, 0, 0, 0, 0, 0},
+    {0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, -3, 0, 3, 0, 0, 1, 0, -1, 0, 0, 0, 0, 0, 0},
+    {0, 0, 0, 0, 0, 0, 1, 2, 1, 0, 0, 0, 0, 0, 0, 0, -1, -2, -1, 0, 0, 0, 0, 0, 0}};
+const int kDc00[25] = {-2, -6, -8, -6, -2, -6, 6, 42, 6, -6, -8, 42, 152, 42, -8,
+                       -6, 6, 42, 6, -6, -2, -6, -8, -6, -2};
+
+int64_t smooth_pred(int64_t num, int64_t q, int al) {
+  int64_t pred = ((q << 7) + (num < 0 ? -num : num)) / (q << 8);
+  if (al > 0 && pred >= (int64_t(1) << al)) pred = (int64_t(1) << al) - 1;
+  return num < 0 ? -pred : pred;
+}
+
+// The smoothed coefficients of a component's real blocks (a copy). The
+// neighbours: the edge block where one is off the image. Rows are placed as
+// decompress_smooth_data places them, at iMCU row i, block row b as
+// i * block_rows + b of block_rows * n_imcu (block_rows: the real rows of
+// row i), so a row two below may be padding, and a short last iMCU row
+// counts them off.
+std::vector<int16_t> smooth(const Component& c, int n_imcu, int last_good, int scans) {
+  std::vector<int16_t> out(c.coef);
+  int prev[64];
+  for (int k = 0; k < 64; ++k) prev[k] = scans > 1 ? c.prev_bits[k] : -1;
+  auto dc = [&](int r, int b) { return int64_t(c.coef[(int64_t(r) * c.stride + b) * 64]); };
+  int last = n_imcu - 1;
+  for (int r = 0; r < c.nby; ++r) {
+    int imcu = r / c.v, b = r % c.v;
+    int block_rows = imcu < last ? c.v : (c.nby % c.v ? c.nby % c.v : c.v);
+    int at = imcu * block_rows + b, count = block_rows * n_imcu;
+    int p = at > 0 ? r - 1 : r, pp = at > 1 ? r - 2 : p;
+    int nx = at < count - 1 ? r + 1 : r;
+    int src_rows[5] = {pp, p, r, nx, at < count - 2 ? r + 2 : nx};
+    const int* bits = r / c.v > last_good ? prev : c.bits;
+    bool change_dc = true;
+    for (int k = 1; k <= 9; ++k) change_dc = change_dc && bits[k] == -1;
+    int nk = change_dc ? 9 : 5;
+    for (int b = 0; b < c.nbx; ++b) {
+      int64_t g[25];
+      for (int i = 0; i < 5; ++i)
+        for (int j = 0; j < 5; ++j) g[i * 5 + j] = dc(src_rows[i], std::min(std::max(b + j - 2, 0), c.nbx - 1));
+      int16_t* w = out.data() + (int64_t(r) * c.stride + b) * 64;
+      for (int k = 0; k < nk; ++k) {
+        int al = bits[k + 1], pos = kSmoothPos[k];
+        if (al == 0) continue;
+        const int* kern = change_dc ? kDc[k] : kAc[k];
+        int64_t sum = 0;
+        for (int i = 0; i < 25; ++i) sum += kern[i] * g[i];
+        if (w[pos] == 0) w[pos] = s16(smooth_pred(c.quant[0] * sum, c.quant[pos], al));
+      }
+      if (change_dc) {
+        int64_t sum = 0;
+        for (int i = 0; i < 25; ++i) sum += kDc00[i] * g[i];
+        w[0] = s16(smooth_pred(c.quant[0] * sum, c.quant[0], 0));
+      }
+    }
+  }
+  return out;
 }
 
 // libjpeg-turbo's upsampling of a component's real samples (bh x bw, row
@@ -235,9 +369,10 @@ void upsample(const uint8_t* in, int64_t ps, int bw, int bh, int hr, int vr, uin
     for (int y = 0; y < H; ++y) std::memcpy(out + int64_t(y) * W, in + y * ps, W);
     return;
   }
-  if (hr == 2 && bw <= 2) {  // replication
+  bool fancy = (hr == 1 && vr == 2) || (((hr == 2 && vr == 1) || (hr == 2 && vr == 2)) && bw > 2);
+  if (!fancy) {  // replication (int_upsample, h2v1_upsample, h2v2_upsample)
     for (int y = 0; y < H; ++y)
-      for (int x = 0; x < W; ++x) out[int64_t(y) * W + x] = in[(y / vr) * ps + x / 2];
+      for (int x = 0; x < W; ++x) out[int64_t(y) * W + x] = in[(y / vr) * ps + x / hr];
     return;
   }
   std::vector<int> cols(bw);
@@ -280,6 +415,14 @@ const int M_SOF0 = 0xC0, M_SOF1 = 0xC1, M_SOF2 = 0xC2, M_DHT = 0xC4, M_DAC = 0xC
           M_EOI = 0xD9, M_SOS = 0xDA, M_DQT = 0xDB, M_DNL = 0xDC, M_DRI = 0xDD, M_DHP = 0xDE,
           M_EXP = 0xDF, M_APP0 = 0xE0, M_APP14 = 0xEE, M_COM = 0xFE;
 
+// A marker found by libjpeg's next_marker: the 0xFF run starts at `start`,
+// the code follows, the segment goes on at `end`.
+struct Marker {
+  bool found = false;
+  int64_t start = 0, end = 0;
+  int code = 0;
+};
+
 struct Decoder {
   const uint8_t* data;
   int64_t size;
@@ -288,39 +431,102 @@ struct Decoder {
   int64_t qt[4][64];
   HuffSpec huff[2][4];
   int restart_interval = 0;
-  bool have_frame = false, progressive = false, jfif = false;
+  bool have_frame = false, progressive = false, jfif = false, multi = false, image_done = false;
   int adobe = -1;
-  int width = 0, height = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0, scans = 0;
+  int width = 0, height = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0, scans = 0, last_good = 0;
   std::vector<Component> comps;
 
   Decoder(const uint8_t* d, int64_t n, bool header) : data(d), size(n), header_only(header) {}
 
-  int64_t next_marker(int64_t pos, int* marker) {
-    if (pos >= size) refuse("truncated data");
-    if (data[pos] != 0xFF) corrupt(fmt("a byte 0x%02x where a marker belongs", data[pos]));
-    while (pos < size && data[pos] == 0xFF) ++pos;
-    if (pos >= size) refuse("truncated data");
-    *marker = data[pos];
-    return pos + 1;
+  // The first 0xFF run from `pos` followed by a byte that is neither 0 nor
+  // 0xFF (what lies before it is skipped, as extraneous data).
+  Marker find_marker(int64_t pos) const {
+    Marker m;
+    for (int64_t i = pos; i < size; ++i) {
+      if (data[i] != 0xFF) continue;
+      int64_t j = i;
+      while (j < size && data[j] == 0xFF) ++j;
+      if (j >= size) break;
+      if (data[j] != 0) {
+        m.found = true;
+        m.start = i;
+        m.code = data[j];
+        m.end = j + 1;
+        return m;
+      }
+      i = j;
+    }
+    return m;
+  }
+  Marker marker_at(int64_t pos) const {
+    Marker m = find_marker(pos);
+    if (!m.found) truncated();
+    return m;
+  }
+  // The marker that ends the entropy-coded data from `pos`; none is
+  // truncation in a multi-scan file, the end of the file in a single-scan one.
+  Marker stretch_end(int64_t pos) const {
+    Marker m = find_marker(pos);
+    if (!m.found && multi) truncated();
+    return m;
+  }
+  // Entropy-coded bytes from `from` to `to`, stuffing (0xFF+ 0x00) undone.
+  std::vector<uint8_t> unstuff(int64_t from, int64_t to) const {
+    std::vector<uint8_t> seg;
+    seg.reserve(static_cast<size_t>(std::max<int64_t>(to - from, 0)));
+    for (int64_t i = from; i < to;) {
+      if (data[i] != 0xFF) {
+        seg.push_back(data[i++]);
+        continue;
+      }
+      while (i < to && data[i] == 0xFF) ++i;
+      seg.push_back(0xFF);  // a 0x00 follows inside a stretch
+      ++i;
+    }
+    return seg;
+  }
+
+  void run() {
+    try {
+      markers();
+    } catch (const Refused& r) {
+      // PIL ends a single-scan file once its rows are out: running out of
+      // data while reading the markers after them is not an error
+      if (r.msg != "truncated data" || !image_done) throw;
+    }
   }
 
   // The markers in order; a header-only run stops after the frame header.
-  void run() {
-    if (size < 2 || data[0] != 0xFF || data[1] != 0xD8) refuse("not a JPEG file (no SOI marker)");
+  void markers() {
+    if (size < 3 || data[0] != 0xFF || data[1] != 0xD8 || data[2] != 0xFF)
+      refuse("not a JPEG file (no SOI marker)");
     int64_t pos = 2;
+    int marker = -1;
     for (;;) {
-      int marker;
-      pos = next_marker(pos, &marker);
+      if (marker < 0) {
+        Marker m = marker_at(pos);
+        pos = m.end;
+        marker = m.code;
+      }
       if (marker == M_EOI) break;
-      if ((marker >= 0xD0 && marker <= 0xD7) || marker == 0x01) continue;
+      if (scans == 0 && marker < 0xC0) corrupt(fmt("an unknown marker 0x%02x", marker));
+      if ((marker >= 0xD0 && marker <= 0xD7) || marker == 0x01) {
+        marker = -1;
+        continue;
+      }
       if (marker == M_SOI) corrupt("a second SOI marker");
-      if (pos + 2 > size) refuse("truncated data");
-      int length = (data[pos] << 8) | data[pos + 1];
-      if (length < 2) corrupt(fmt("a marker segment of length %d", length));
-      if (pos + length > size) refuse("truncated data");
-      const uint8_t* body = data + pos + 2;
-      int blen = length - 2;
-      pos += length;
+      const uint8_t* body = nullptr;
+      int blen = 0;
+      if (marker == M_SOF0 || marker == M_SOF1 || marker == M_SOF2 || marker == M_DHT || marker == M_DQT ||
+          marker == M_DRI || marker == M_SOS || marker == M_DAC) {
+        if (pos + 2 > size) truncated();
+        int length = (data[pos] << 8) | data[pos + 1];
+        if (length < 2) corrupt(fmt("a marker segment of length %d", length));
+        if (pos + length > size) truncated();
+        body = data + pos + 2;
+        blen = length - 2;
+        pos += length;
+      }
       std::string why;
       if (marker == M_SOF0 || marker == M_SOF1 || marker == M_SOF2) {
         sof(marker, body, blen);
@@ -339,14 +545,30 @@ struct Decoder {
         if (blen != 2) corrupt("a DRI segment whose length is not 4");
         restart_interval = (body[0] << 8) | body[1];
       } else if (marker == M_SOS) {
-        pos = sos(body, blen, pos);
-      } else if (marker == M_APP0) {
-        if (blen >= 14 && std::memcmp(body, "JFIF\0", 5) == 0) jfif = true;
-      } else if (marker == M_APP14) {
-        if (blen >= 12 && std::memcmp(body, "Adobe", 5) == 0) adobe = body[11];
-      } else if (!((marker >= 0xE0 && marker <= 0xEF) || marker == M_COM || marker == M_DNL)) {
+        pos = sos(body, blen, pos, &marker);
+        image_done = !multi;
+        continue;
+      } else if ((marker >= 0xE0 && marker <= 0xEF) || marker == M_COM || marker == M_DNL) {
+        // skipped; a length below 2 skips nothing past it
+        if (pos + 2 > size) truncated();
+        int length = std::max((data[pos] << 8) | data[pos + 1], 2);
+        if (pos + length > size) truncated();
+        const uint8_t* b = data + pos + 2;
+        int n = length - 2;
+        pos += length;
+        if (marker == M_APP0 && n >= 14 && std::memcmp(b, "JFIF\0", 5) == 0) {
+          jfif = true;
+        } else if (marker == M_APP14 && n >= 12 && std::memcmp(b, "Adobe", 5) == 0) {
+          adobe = b[11];
+        }
+        if (scans == 0 && n < 7 &&
+            ((marker == M_APP0 && n >= 4 && std::memcmp(b, "JFIF", 4) == 0) ||
+             (marker == M_APP14 && n >= 5 && std::memcmp(b, "Adobe", 5) == 0)))
+          corrupt("a short JFIF or Adobe segment");
+      } else {
         corrupt(fmt("an unknown marker 0x%02x", marker));
       }
+      marker = -1;
     }
     if (!have_frame || scans == 0) corrupt("no image data before EOI");
   }
@@ -364,6 +586,8 @@ struct Decoder {
     if (height == 0) refuse("a DNL height (0 in the frame header)");
     if (width == 0) corrupt("an image 0 samples wide");
     if (std::max(width, height) > kMaxDimension) refuse(fmt("an image dimension over %d", kMaxDimension));
+    if (int64_t(width) * height > kMaxPixels)
+      refuse("an image of more than " + std::to_string(kMaxPixels) + " pixels (PIL's decompression bomb limit)");
     for (int i = 0; i < nc; ++i) {
       Component c;
       c.index = i;
@@ -371,23 +595,16 @@ struct Decoder {
       c.h = b[7 + 3 * i] >> 4;
       c.v = b[7 + 3 * i] & 15;
       c.tq = b[8 + 3 * i];
-      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3)
-        corrupt(fmt("component %d's sampling factors or quantisation table", i));
-      for (const Component& o : comps)
-        if (o.id == c.id) corrupt("two components with one id");
+      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4) corrupt(fmt("component %d's sampling factors", i));
       comps.push_back(c);
     }
     for (const Component& c : comps) {
       hmax = std::max(hmax, c.h);
       vmax = std::max(vmax, c.v);
     }
-    for (const Component& c : comps) {
+    for (const Component& c : comps)
       if (hmax % c.h || vmax % c.v)
         refuse(fmt("component %d's sampling factors %dx%d (a fractional chroma ratio)", c.index, c.h, c.v));
-      int hr = hmax / c.h, vr = vmax / c.v;
-      if (!((hr == 1 && vr == 1) || (hr == 2 && vr == 1) || (hr == 2 && vr == 2) || (hr == 1 && vr == 2)))
-        refuse(fmt("a %dx%d chroma subsampling ratio (component %d)", hr, vr, c.index));
-    }
     have_frame = true;
     progressive = marker == M_SOF2;
     mcux = (width + 8 * hmax - 1) / (8 * hmax);
@@ -402,6 +619,7 @@ struct Decoder {
       c.rows = mcuy * c.v;
       c.coef.assign(int64_t(c.stride) * c.rows * 64, 0);
       std::fill(c.bits, c.bits + 64, -1);
+      std::fill(c.prev_bits, c.prev_bits + 64, -1);
     }
   }
 
@@ -427,8 +645,8 @@ struct Decoder {
     int p = 0;
     while (p < n) {
       int pq = b[p] >> 4, tq = b[p] & 15;
-      int sz = pq ? 128 : 64;
-      if (tq > 3 || pq > 1 || p + 1 + sz > n) corrupt("a quantisation table");
+      int sz = pq ? 128 : 64;  // any nonzero precision reads 16-bit entries
+      if (tq > 3 || p + 1 + sz > n) corrupt("a quantisation table");
       for (int k = 0; k < 64; ++k)
         qt[tq][kZigzag[k]] = pq ? (b[p + 1 + 2 * k] << 8) | b[p + 2 + 2 * k] : b[p + 1 + k];
       have_qt[tq] = true;
@@ -436,40 +654,10 @@ struct Decoder {
     }
   }
 
-  // The scan's entropy-coded data from `pos` to the next marker that is not
-  // RSTn, split at its restart markers, stuffing undone. Returns the end.
-  int64_t entropy_segments(int64_t pos, std::vector<std::vector<uint8_t>>* segments) {
-    segments->emplace_back();
-    int expect = 0;
-    int64_t i = pos;
-    while (i < size) {
-      uint8_t b = data[i];
-      if (b != 0xFF) {
-        segments->back().push_back(b);
-        ++i;
-        continue;
-      }
-      int64_t j = i;
-      while (j < size && data[j] == 0xFF) ++j;
-      if (j >= size) break;
-      int m = data[j];
-      if (m == 0) {
-        segments->back().push_back(0xFF);
-        i = j + 1;
-      } else if (m >= 0xD0 && m <= 0xD7) {
-        if (!restart_interval) corrupt("a restart marker without a restart interval");
-        if (m != 0xD0 + expect) corrupt("a restart marker out of sequence");
-        expect = (expect + 1) & 7;
-        segments->emplace_back();
-        i = j + 1;
-      } else {
-        return i;
-      }
-    }
-    refuse("truncated data");
-  }
-
-  int64_t sos(const uint8_t* b, int n, int64_t pos) {
+  // One scan: its header, then its entropy-coded data as libjpeg reads it.
+  // Returns the position the marker reader goes on from, with the marker
+  // that ended the data in *next (-1 where the data ran to the file's end).
+  int64_t sos(const uint8_t* b, int n, int64_t pos, int* next) {
     if (!have_frame) corrupt("a scan before the frame header");
     if (n < 1 || n != 4 + 2 * b[0] || b[0] < 1 || b[0] > 4) corrupt("a scan header");
     int ns = b[0];
@@ -477,9 +665,14 @@ struct Decoder {
     int td[4], ta[4];
     for (int i = 0; i < ns; ++i) {
       int cid = b[1 + 2 * i], t = b[2 + 2 * i];
+      // get_sos's lookup: the first component with this id whose index is
+      // not below the scan slot
       Component* match = nullptr;
       for (Component& c : comps)
-        if (c.id == cid) match = &c;
+        if (c.id == cid && c.index >= i) {
+          match = &c;
+          break;
+        }
       if (!match || std::find(sc.begin(), sc.end(), match) != sc.end())
         corrupt(fmt("a scan of component id %d", cid));
       sc.push_back(match);
@@ -487,6 +680,15 @@ struct Decoder {
       ta[i] = t & 15;
     }
     int ss = b[1 + 2 * ns], se = b[2 + 2 * ns], ah = b[3 + 2 * ns] >> 4, al = b[3 + 2 * ns] & 15;
+    if (scans == 0) {
+      multi = progressive || ns < static_cast<int>(comps.size());
+      if (!progressive)
+        for (int kind = 0; kind < 2; ++kind)
+          for (int slot = 0; slot < 2; ++slot)
+            if (!huff[kind][slot].defined) std_table(kind, slot, &huff[kind][slot]);
+    } else if (!multi) {
+      corrupt("a second scan in a single-scan file");
+    }
     if (ns > 1) {
       int blocks = 0;
       for (Component* c : sc) blocks += c->h * c->v;
@@ -494,59 +696,88 @@ struct Decoder {
     }
     for (Component* c : sc) {
       if (!c->latched) {
-        if (!have_qt[c->tq]) corrupt(fmt("component %d has no quantisation table", c->index));
-        for (int k = 0; k < 64; ++k) c->quant[k] = static_cast<int16_t>(static_cast<uint16_t>(qt[c->tq][k]));
+        if (c->tq > 3 || !have_qt[c->tq]) corrupt(fmt("component %d has no quantisation table", c->index));
+        std::copy(qt[c->tq], qt[c->tq] + 64, c->quant);
         c->latched = true;
       }
     }
-    if (progressive) {
-      check_progression(sc, ss, se, ah, al);
-    } else if (ss != 0 || se != 63 || ah != 0 || al != 0) {
-      corrupt("a sequential scan that is not 0..63 at full precision");
-    } else {
-      for (Component* c : sc)
-        if (c->scanned) corrupt("a component in two sequential scans");
-    }
-    for (Component* c : sc) c->scanned = true;
-    std::vector<std::vector<uint8_t>> segments;
-    int64_t end = entropy_segments(pos, &segments);
-
-    int64_t per_mcu, n_mcu;
-    if (ns == 1) {
-      per_mcu = 1;
-      n_mcu = int64_t(sc[0]->nbx) * sc[0]->nby;
-    } else {
-      per_mcu = 0;
-      for (Component* c : sc) per_mcu += c->h * c->v;
-      n_mcu = int64_t(mcux) * mcuy;
-    }
-    int64_t ri = restart_interval;
-    int64_t n_seg = ri ? (n_mcu + ri - 1) / ri : 1;
-    bool extra = false;
-    for (size_t s = static_cast<size_t>(n_seg); s < segments.size(); ++s) extra |= !segments[s].empty();
-    if (static_cast<int64_t>(segments.size()) < n_seg || extra)
-      corrupt("restart markers that do not match the restart interval");
+    ++scans;
+    if (progressive) check_progression(sc, ss, se, ah, al);
 
     auto lut = [&](int kind, int slot) {
       if (slot > 3 || !huff[kind][slot].defined) corrupt(fmt("a scan uses an undefined Huffman table %d/%d", kind, slot));
       return huffman_lut(huff[kind][slot], kind == 0);
     };
     std::vector<std::vector<uint16_t>> dc, ac;
-    if (!progressive || (ss == 0 && ah == 0))
-      for (int i = 0; i < ns; ++i) dc.push_back(lut(0, td[i]));
     if (!progressive) {
-      for (int i = 0; i < ns; ++i) ac.push_back(lut(1, ta[i]));
+      for (int i = 0; i < ns; ++i) {
+        dc.push_back(lut(0, td[i]));
+        ac.push_back(lut(1, ta[i]));
+      }
+    } else if (ss == 0 && ah == 0) {
+      for (int i = 0; i < ns; ++i) dc.push_back(lut(0, td[i]));
     } else if (ss > 0) {
       ac.push_back(lut(1, ta[0]));
     }
 
-    int64_t mcus_per_seg = ri ? ri : n_mcu;
-    for (int64_t s = 0; s < n_seg; ++s) {
-      Bits bits(segments[s]);
+    int64_t n_mcu = ns == 1 ? int64_t(sc[0]->nbx) * sc[0]->nby : int64_t(mcux) * mcuy;
+    auto mcu_row = [&](int64_t m) -> int {
+      return ns == 1 ? static_cast<int>((m / sc[0]->nbx) / sc[0]->v) : static_cast<int>(m / mcux);
+    };
+    int64_t ri = restart_interval;
+    int64_t span = ri ? ri : n_mcu;
+
+    Marker m = stretch_end(pos);
+    bool pending = false, insufficient = false;
+    int expect = 0;
+    for (int64_t first = 0, s = 0; first < n_mcu; first += span, ++s) {
+      bool flag = insufficient;
+      if (s) {  // process_restart: read_restart_marker, jpeg_resync_to_restart
+        if (!m.found) truncated();
+        int action;
+        for (;;) {
+          int mk = m.code;
+          if (mk == 0xD0 + expect) {
+            action = 1;
+          } else if (mk < 0xC0) {
+            action = 2;
+          } else if (mk < 0xD0 || mk > 0xD7) {
+            action = 3;
+          } else if (mk == 0xD0 + ((expect + 1) & 7) || mk == 0xD0 + ((expect + 2) & 7)) {
+            action = 3;
+          } else if (mk == 0xD0 + ((expect - 1) & 7) || mk == 0xD0 + ((expect - 2) & 7)) {
+            action = 2;
+          } else {
+            action = 1;
+          }
+          if (action != 2) break;
+          m = marker_at(m.end);
+        }
+        if (action == 1) {
+          pos = m.end;
+          pending = false;
+          m = stretch_end(pos);
+          insufficient = false;
+        } else {
+          pending = true;
+        }
+        expect = (expect + 1) & 7;
+      }
+      int64_t last = std::min(n_mcu, first + span);
+      std::vector<uint8_t> seg;
+      if (!m.found) {  // a single-scan file whose data runs to its end
+        int64_t to = size;
+        while (to > pos && data[to - 1] == 0xFF) --to;
+        seg = unstuff(pos, to);
+      } else if (!pending) {
+        seg = unstuff(pos, m.start);
+      }
+      Bits bits(seg);
+      bits.tracked = !m.found;
       int preds[4] = {0, 0, 0, 0};
       int eobrun = 0;
-      int64_t m_end = std::min(n_mcu, (s + 1) * mcus_per_seg);
-      for (int64_t m = s * mcus_per_seg; m < m_end; ++m) {
+      int64_t done = 0;
+      for (int64_t mc = first; mc < last && !insufficient; ++mc) {
         for (int i = 0; i < ns; ++i) {
           Component* c = sc[i];
           int bh = ns == 1 ? 1 : c->v, bwid = ns == 1 ? 1 : c->h;
@@ -554,20 +785,20 @@ struct Decoder {
             for (int bx = 0; bx < bwid; ++bx) {
               int64_t block;
               if (ns == 1) {
-                block = (m / c->nbx) * c->stride + m % c->nbx;
+                block = (mc / c->nbx) * c->stride + mc % c->nbx;
               } else {
-                int64_t my = m / mcux, mx = m % mcux;
+                int64_t my = mc / mcux, mx = mc % mcux;
                 block = (my * c->v + by) * c->stride + mx * c->h + bx;
               }
-              int32_t* co = c->coef.data() + block * 64;
+              int16_t* co = c->coef.data() + block * 64;
               if (!progressive) {
                 sequential_block(bits, co, dc[i].data(), ac[i].data(), &preds[i]);
               } else if (ss == 0 && ah == 0) {
                 int t = bits.huff(dc[i].data());
                 if (t) preds[i] += extend(bits.bits(t), t);
-                co[0] = preds[i] * (1 << al);
+                co[0] = s16(int64_t(preds[i]) * (int64_t(1) << al));
               } else if (ss == 0) {
-                if (bits.bits(1)) co[0] |= 1 << al;
+                if (bits.bits(1)) co[0] = s16(co[0] | (1 << al));
               } else if (ah == 0) {
                 ac_first_block(bits, co, ac[0].data(), ss, se, al, &eobrun);
               } else {
@@ -576,39 +807,50 @@ struct Decoder {
             }
           }
         }
+        ++done;
+        insufficient = bits.done_mcu();
       }
-      bits.check_end();
+      if (!m.found) continue;
+      // consume_data sets last_good_iMCU_row before each MCU it starts with
+      // data left: the interval's first by the flag as it was before the
+      // restart, the others while decoding went on
+      if (done >= 2) {
+        last_good = mcu_row(first + done - 1);
+      } else if (!flag) {
+        last_good = mcu_row(first);
+      }
     }
-    ++scans;
-    return end;
+    if (!m.found) {
+      *next = -1;
+      return size;
+    }
+    *next = m.code;
+    return m.end;
   }
 
+  // jdphuff.c's start_pass: a bad band or successive-approximation pair is
+  // an error; a scan out of order is decoded as it stands.
   void check_progression(const std::vector<Component*>& sc, int ss, int se, int ah, int al) {
     int ns = static_cast<int>(sc.size());
     if ((ss == 0 && se != 0) || (ss > 0 && (ss > se || se > 63 || ns != 1)))
       corrupt(fmt("a progressive scan %d..%d of %d components", ss, se, ns));
     if ((ah && al != ah - 1) || al > 13) corrupt(fmt("a progressive scan with Ah %d, Al %d", ah, al));
     for (Component* c : sc) {
-      if (ss > 0 && c->bits[0] < 0) corrupt("an AC scan before the component's DC scan");
-      for (int k = ss; k <= se; ++k) {
-        if (ah != std::max(c->bits[k], 0)) corrupt("a progressive scan out of order");
-        c->bits[k] = al;
-      }
+      for (int k = std::min(ss, 1); k <= std::max(se, 9); ++k) c->prev_bits[k] = scans > 1 ? c->bits[k] : 0;
+      for (int k = ss; k <= se; ++k) c->bits[k] = al;
     }
   }
 
-  static void sequential_block(Bits& bits, int32_t* co, const uint16_t* dc, const uint16_t* ac,
-                               int* pred) {
+  static void sequential_block(Bits& bits, int16_t* co, const uint16_t* dc, const uint16_t* ac, int* pred) {
     int s = bits.huff(dc);
     if (s) *pred += extend(bits.bits(s), s);
-    co[0] = *pred;
+    co[0] = s16(*pred);
     for (int k = 1; k < 64;) {
       int rs = bits.huff(ac);
       int t = rs & 15;
       if (t) {
         k += rs >> 4;
-        if (k > 63) corrupt("a coefficient index over 63");
-        co[kZigzag[k]] = extend(bits.bits(t), t);
+        co[natural(k)] = static_cast<int16_t>(extend(bits.bits(t), t));
         ++k;
       } else if (rs == 0xF0) {
         k += 16;
@@ -618,8 +860,7 @@ struct Decoder {
     }
   }
 
-  static void ac_first_block(Bits& bits, int32_t* co, const uint16_t* lut, int ss, int se, int al,
-                             int* eobrun) {
+  static void ac_first_block(Bits& bits, int16_t* co, const uint16_t* lut, int ss, int se, int al, int* eobrun) {
     if (*eobrun) {
       --*eobrun;
       return;
@@ -629,8 +870,7 @@ struct Decoder {
       int run = rs >> 4, s = rs & 15;
       if (s) {
         k += run;
-        if (k > se) corrupt("a coefficient index past the scan's band");
-        co[kZigzag[k]] = extend(bits.bits(s), s) * (1 << al);
+        co[natural(k)] = s16(int64_t(extend(bits.bits(s), s)) * (int64_t(1) << al));
       } else if (run == 15) {
         k += 15;
       } else {
@@ -641,8 +881,9 @@ struct Decoder {
     }
   }
 
-  // jdphuff.c decode_mcu_AC_refine.
-  static void ac_refine_block(Bits& bits, int32_t* co, const uint16_t* lut, int ss, int se, int al,
+  // jdphuff.c decode_mcu_AC_refine (a new coefficient's size other than 1
+  // is only a warning there).
+  static void ac_refine_block(Bits& bits, int16_t* co, const uint16_t* lut, int ss, int se, int al,
                               int* eobrun) {
     int p1 = 1 << al, m1 = -(1 << al);
     int k = ss;
@@ -651,7 +892,6 @@ struct Decoder {
         int rs = bits.huff(lut);
         int run = rs >> 4, s = rs & 15;
         if (s) {
-          if (s != 1) corrupt("a refinement coefficient of size over 1");
           s = bits.bits(1) ? p1 : m1;
         } else if (run != 15) {
           *eobrun = 1 << run;
@@ -659,23 +899,20 @@ struct Decoder {
           break;
         }
         for (; k <= se; ++k) {
-          int32_t* c = co + kZigzag[k];
+          int16_t* c = co + natural(k);
           if (*c) {
-            if (bits.bits(1) && !(*c & p1)) *c += *c >= 0 ? p1 : m1;
+            if (bits.bits(1) && !(*c & p1)) *c = s16(*c + (*c >= 0 ? p1 : m1));
           } else if (--run < 0) {
             break;
           }
         }
-        if (s) {
-          if (k > se) corrupt("a coefficient index past the scan's band");
-          co[kZigzag[k]] = s;
-        }
+        if (s) co[natural(k)] = static_cast<int16_t>(s);
       }
     }
     if (*eobrun) {
       for (; k <= se; ++k) {
-        int32_t* c = co + kZigzag[k];
-        if (*c && bits.bits(1) && !(*c & p1)) *c += *c >= 0 ? p1 : m1;
+        int16_t* c = co + natural(k);
+        if (*c && bits.bits(1) && !(*c & p1)) *c = s16(*c + (*c >= 0 ? p1 : m1));
       }
       --*eobrun;
     }
@@ -683,23 +920,38 @@ struct Decoder {
 
   int channels() const { return static_cast<int>(comps.size()); }
 
+  // jdcoefct.c smoothing_ok
+  bool smoothing_ok() const {
+    if (!progressive) return false;
+    bool useful = false;
+    for (const Component& c : comps) {
+      if (!c.latched || c.quant[0] == 0 || c.bits[0] < 0) return false;
+      for (int k = 0; k < 9; ++k)
+        if (c.quant[kSmoothPos[k]] == 0) return false;
+      for (int k = 1; k <= 9; ++k) useful = useful || c.bits[k] != 0;
+    }
+    return useful;
+  }
+
   void finish(uint8_t* out) {
-    if (progressive)
-      for (const Component& c : comps)
-        for (int k = 0; k < 64; ++k)
-          if (c.bits[k] != 0) refuse("a progressive file whose scans leave coefficient bits out");
-    for (const Component& c : comps)
-      if (!c.latched) corrupt(fmt("component %d has no scan", c.index));
     int64_t npx = int64_t(width) * height;
+    bool smooth_on = smoothing_ok();
     std::vector<std::vector<uint8_t>> planes(comps.size());
     for (size_t ci = 0; ci < comps.size(); ++ci) {
       const Component& c = comps[ci];
+      int64_t q[64];  // ISLOW_MULT_TYPE: the steps wrapped to 16 bits; zero where no scan latched them
+      for (int k = 0; k < 64; ++k) q[k] = c.latched ? i16(c.quant[k]) : 0;
+      std::vector<int16_t> smoothed;
+      const int16_t* coef = c.coef.data();
+      if (smooth_on) {
+        smoothed = smooth(c, mcuy, last_good, scans);
+        coef = smoothed.data();
+      }
       int64_t ps = int64_t(c.stride) * 8;
       std::vector<uint8_t> padded(ps * c.rows * 8);
       for (int64_t by = 0; by < c.rows; ++by)
         for (int64_t bx = 0; bx < c.stride; ++bx)
-          idct_islow(c.coef.data() + (by * c.stride + bx) * 64, c.quant,
-                     padded.data() + by * 8 * ps + bx * 8, ps);
+          idct_islow(coef + (by * c.stride + bx) * 64, q, padded.data() + by * 8 * ps + bx * 8, ps);
       planes[ci].resize(npx);
       upsample(padded.data(), ps, c.bw, c.bh, hmax / c.h, vmax / c.v, planes[ci].data(), width, height);
     }

@@ -15,11 +15,19 @@ behaviour:
 - resolution policy: -r in {1,2,4,8} divisors, else a width cap at 1600 px
   (utils/camera_utils.py:22-39)
 
-Images are read with the port's reader (`utils/image_io.read_image`: PNG
-and JPEG, PIL's pixels bit for bit) and resized with its copy of PIL's
-default resize, so `CameraInfo.image` holds uint8 pixels rather than a PIL
-image. An image that cannot be read raises a `ValueError` naming it as the
-dataset lists it (`images.bin` / `images.txt`, or the transforms file).
+Images are read with the port's reader (`utils/image_io.open_image`: every
+PNG and JPEG form PIL reads, PIL's pixels and mode bit for bit) and resized
+with its copy of PIL's default resize, so `CameraInfo.image` holds uint8
+pixels rather than a PIL image. The Blender reader takes PIL's
+`convert("RGBA")` of every mode (`image_io.to_rgba`). The COLMAP path
+trains, as the JAX package does, on `np.asarray` of the resized image,
+which is the picture for modes L, LA, RGB and RGBA (16-bit RGB and RGBA
+read as their high bytes, a tRNS chunk ignored). For three modes that array
+is not the picture, and the port refuses them, naming the file, where the
+JAX package trains on it: "P" (palette indices as grey), "1" (0 or 1/255)
+and "I;16" (16-bit grey over 255, clipped to 1). An image that cannot be
+read raises a `ValueError` naming it as the dataset lists it (`images.bin`
+/ `images.txt`, or the transforms file).
 `write_colmap_scene` writes a COLMAP dataset from cameras and pixels, the
 inverse of `read_colmap_scene`.
 """
@@ -141,23 +149,24 @@ def read_colmap_scene(path: str, images_dir: Optional[str], eval_split: bool, ll
     )
 
 
-def _read(path: str, listed_as: str) -> np.ndarray:
-    """`image_io.read_image(path)`; an error names the image as the dataset
+def _read(path: str, listed_as: str) -> image_io.Picture:
+    """`image_io.open_image(path)`; an error names the image as the dataset
     lists it."""
     try:
-        return image_io.read_image(path)
+        return image_io.open_image(path)
     except (OSError, ValueError) as err:
         if not listed_as:
             raise
         raise ValueError(f"the image listed as {listed_as}: {err}") from err
 
 
-def _to_rgba(pixels: np.ndarray) -> np.ndarray:
-    """PIL's convert("RGBA") of (H, W, C) uint8 pixels (L, LA, RGB, RGBA)."""
-    C = pixels.shape[2]
-    rgb = pixels[..., :1].repeat(3, axis=2) if C in (1, 2) else pixels[..., :3]
-    alpha = pixels[..., -1:] if C in (2, 4) else np.full_like(pixels[..., :1], 255)
-    return np.concatenate([rgb, alpha], axis=2)
+# modes whose np.asarray is not the picture: what the JAX package's COLMAP
+# path would train on instead
+_NOT_THE_PICTURE = {
+    "P": "a palette image (mode P), whose pixels PIL's np.asarray gives as palette indices",
+    "1": "a 1-bit image (mode 1), whose pixels PIL's np.asarray gives as 0 or 1",
+    "I;16": "a 16-bit grey image (mode I;16), whose pixels PIL's np.asarray gives as 0..65535",
+}
 
 
 def _read_transforms(path: str, fname: str, white_background: bool, extension=".png") -> List[CameraInfo]:
@@ -175,8 +184,8 @@ def _read_transforms(path: str, fname: str, white_background: bool, extension=".
         R = w2c[:3, :3].T
         T = w2c[:3, 3]
 
-        pixels = _read(cam_name, f"{file_path!r} in {os.path.join(path, fname)}")
-        im_data = np.array(_to_rgba(pixels), dtype=np.float32) / 255.0
+        picture = _read(cam_name, f"{file_path!r} in {os.path.join(path, fname)}")
+        im_data = np.array(image_io.to_rgba(picture), dtype=np.float32) / 255.0
         bg = np.ones(3) if white_background else np.zeros(3)
         # float32 products, then float64 with bg, truncated as the reference does
         rgb = im_data[..., :3] * im_data[..., 3:4] + bg * (1 - im_data[..., 3:4])
@@ -233,7 +242,13 @@ def load_camera(cam_info: CameraInfo, resolution: int, resolution_scale: float =
     """
     pixels = cam_info.image
     if pixels is None:
-        pixels = _read(cam_info.image_path, cam_info.listed_as)
+        picture = _read(cam_info.image_path, cam_info.listed_as)
+        if picture.mode in _NOT_THE_PICTURE:
+            raise ValueError(
+                f"the image listed as {cam_info.listed_as or cam_info.image_path}: "
+                f"{cam_info.image_path}: {_NOT_THE_PICTURE[picture.mode]}; the JAX package "
+                f"trains on those numbers, the port refuses them (convert it to L, RGB or RGBA)")
+        pixels = picture.pixels
     orig_h, orig_w = pixels.shape[:2]
     if resolution in (1, 2, 4, 8):
         target = (

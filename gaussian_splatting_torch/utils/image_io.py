@@ -4,15 +4,21 @@ The JAX package reads every image with PIL and writes and reads its PNGs
 with imageio. Neither is installed where the port runs, so the port keeps
 its own:
 
-- `read_image(path)`: the dataset readers' entry. It reads the file's
-  signature: a PNG goes to `read_png`, a JPEG to the compiled JPEG
+- `open_image(path)`: the dataset readers' entry. It reads the file's
+  signature: a PNG goes to `open_png`, a JPEG to the compiled JPEG
   decoder (`utils/jpeg.py`, PIL's bits); anything else raises a
-  `ValueError` naming the file.
-- `read_png(path)`: 8-bit greyscale, grey + alpha, RGB and RGBA PNGs
-  without interlacing, all five row filters; (H, W, C) uint8 with C = 1,
-  2, 3 or 4, the pixels PIL gives. Any other file (16-bit, palette,
-  bit depths below 8, interlaced, a transparency chunk, JPEG or any
-  non-PNG) raises a `ValueError` naming the file and what it cannot read.
+  `ValueError` naming the file. It returns a `Picture`: the pixels as
+  `np.asarray(Image.open(f))` gives them, with PIL's mode, palette and
+  transparency, which `to_rgba` turns into PIL's `convert("RGBA")`.
+  `read_image(path)` is its pixels.
+- `open_png(path)` / `read_png(path)`: every PNG PIL reads, in PIL's
+  modes: grey at 1 bit ("1"), 2, 4 and 8 bits ("L", scaled to 0..255),
+  16 bits ("I;16"); RGB at 8 and 16 bits ("RGB", the high byte);
+  palette at 1, 2, 4 and 8 bits ("P"); grey + alpha at 8 bits ("LA") and
+  16 bits ("RGBA", the high bytes); RGBA at 8 and 16 bits ("RGBA");
+  Adam7 interlacing; a tRNS chunk kept as PIL's `info["transparency"]`.
+  All five row filters. A file that is not a PNG, or is damaged, raises a
+  `ValueError` naming the file and what is wrong.
 - `write_png(path, array)`: 8-bit PNGs, every row with the Sub filter.
 - `resize(array, (w, h))`: `PIL.Image.resize(size)` at its default, bit
   for bit: bicubic (a = -0.5) with its support widened by the downscale
@@ -25,39 +31,80 @@ its own:
 
 from __future__ import annotations
 
+import re
 import struct
 import zlib
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 
 from gaussian_splatting_torch.utils import jpeg
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# PNG colour type -> channels, for 8-bit samples (0 grey, 2 RGB, 4 grey +
-# alpha, 6 RGBA; 3 is palette, refused)
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
-_COLOR_TYPE = {c: t for t, c in _CHANNELS.items()}
+# 8-bit channels -> PNG colour type (0 grey, 4 grey + alpha, 2 RGB, 6 RGBA),
+# for the writer
+_COLOR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}
+# PNG colour type -> samples per pixel
+_SAMPLES = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# (bit depth, colour type) -> PIL's mode (PngImagePlugin._MODES)
+PNG_MODES = {
+    (1, 0): "1", (2, 0): "L", (4, 0): "L", (8, 0): "L", (16, 0): "I;16",
+    (8, 2): "RGB", (16, 2): "RGB",
+    (1, 3): "P", (2, 3): "P", (4, 3): "P", (8, 3): "P",
+    (8, 4): "LA", (16, 4): "RGBA",
+    (8, 6): "RGBA", (16, 6): "RGBA",
+}
+# Adam7's passes: first column and row, column and row steps
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+_SIMPLE_PALETTE = re.compile(rb"^\xff*\x00\xff*$")
+
+
+class Picture(NamedTuple):
+    """A decoded image as PIL holds it.
+
+    pixels: (H, W, C) as `np.asarray(Image.open(f))` gives them, with a
+      channel axis kept for one channel: uint8 for "L", "LA", "RGB",
+      "RGBA" and "P" (palette indices), bool for "1", uint16 for "I;16".
+    mode: PIL's mode.
+    palette: mode "P": (N, 3) uint8, the PLTE entries.
+    transparency: PIL's `info["transparency"]`: an int for "1" (0 or
+      255), "L" and "I;16" (the tRNS value) and for "P" whose tRNS clears
+      one entry only (its index); an (r, g, b) tuple for "RGB"; the tRNS
+      bytes (alpha per palette entry) for other "P" files; None without a
+      tRNS chunk.
+    """
+    pixels: np.ndarray
+    mode: str
+    palette: Optional[np.ndarray] = None
+    transparency: Any = None
 
 
 def _refuse(path, what: str):
-    raise ValueError(f"{path}: {what}; the port reads 8-bit grey, grey + alpha, RGB and "
-                     f"RGBA PNGs without interlacing only")
+    raise ValueError(f"{path}: {what}; the port reads PNG files of every colour type and bit "
+                     f"depth PIL reads")
 
 
 JPEG_SIGNATURE = b"\xff\xd8\xff"  # SOI and the first marker's 0xFF, as PIL sniffs it
 
 
-def read_image(path) -> np.ndarray:
-    """(H, W, C) uint8 pixels of a PNG (C = 1 to 4) or a JPEG (C = 1 or 3),
-    the pixels PIL gives. A JPEG is decoded by the compiled decoder, built
+def open_image(path) -> Picture:
+    """The `Picture` of a PNG or a JPEG file (a JPEG's mode is "L" or
+    "RGB"), PIL's pixels. A JPEG is decoded by the compiled decoder, built
     at first use; if it cannot be built this raises."""
     with open(path, "rb") as f:
         head = f.read(len(PNG_SIGNATURE))
     if head.startswith(PNG_SIGNATURE):
-        return read_png(path)
+        return open_png(path)
     if head.startswith(JPEG_SIGNATURE):
-        return jpeg.read_jpeg(path)
+        pixels = jpeg.read_jpeg(path)
+        return Picture(pixels, "L" if pixels.shape[2] == 1 else "RGB")
     raise ValueError(f"{path}: neither a PNG nor a JPEG file; the port reads PNG and JPEG images")
+
+
+def read_image(path) -> np.ndarray:
+    """`np.asarray(Image.open(path))` of a PNG or a JPEG, with a channel
+    axis kept (`open_image(path).pixels`)."""
+    return open_image(path).pixels
 
 
 def _sniff(head: bytes) -> str:
@@ -67,12 +114,18 @@ def _sniff(head: bytes) -> str:
 
 
 def read_png(path) -> np.ndarray:
-    """(H, W, C) uint8 pixels of an 8-bit PNG, C = 1, 2, 3 or 4."""
+    """`np.asarray(Image.open(path))` of a PNG, with a channel axis kept."""
+    return open_png(path).pixels
+
+
+def open_png(path) -> Picture:
+    """The `Picture` of a PNG file, in PIL's mode for its colour type and
+    bit depth."""
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(PNG_SIGNATURE):
         _refuse(path, _sniff(data[:8]))
-    pos, header, idat = len(PNG_SIGNATURE), None, []
+    pos, header, idat, plte, trns = len(PNG_SIGNATURE), None, [], None, None
     while pos + 8 <= len(data):
         (n,), kind = struct.unpack(">I", data[pos:pos + 4]), data[pos + 4:pos + 8]
         body = data[pos + 8:pos + 8 + n]
@@ -83,34 +136,132 @@ def read_png(path) -> np.ndarray:
             raise ValueError(f"{path}: bad CRC in PNG chunk {kind!r}")
         pos += 12 + n
         if kind == b"IHDR":
+            if n != 13:
+                raise ValueError(f"{path}: a PNG header of {n} bytes")
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"IDAT":
             idat.append(body)
+        elif kind == b"PLTE":
+            plte = body
         elif kind == b"tRNS":
-            _refuse(path, "a transparency chunk (tRNS)")
+            trns = body
         elif kind == b"IEND":
             break
     if header is None or not idat:
         raise ValueError(f"{path}: PNG without IHDR or IDAT")
     width, height, depth, color, _compression, _filter, interlace = header
-    if color == 3:
-        _refuse(path, "a palette image (PNG colour type 3)")
-    if color not in _CHANNELS:
-        raise ValueError(f"{path}: unknown PNG colour type {color}")
-    if depth != 8:
-        _refuse(path, f"{depth}-bit samples")
-    if interlace:
-        _refuse(path, "an interlaced (Adam7) image")
-    channels = _CHANNELS[color]
-    stride = width * channels
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size < height * (stride + 1):
-        raise ValueError(f"{path}: PNG image data too short")
-    rows = raw[:height * (stride + 1)].reshape(height, stride + 1)
-    filters = rows[:, 0]
-    if int(filters.max(initial=0)) > 4:
-        raise ValueError(f"{path}: unknown PNG row filter {int(filters.max())}")
-    return _unfilter(rows[:, 1:].reshape(height, width, channels), filters)
+    mode = PNG_MODES.get((depth, color))
+    if mode is None:
+        raise ValueError(f"{path}: no PNG has colour type {color} at {depth} bits")
+    if width == 0 or height == 0 or interlace > 1:
+        raise ValueError(f"{path}: a PNG header of {width}x{height} pixels, interlace method {interlace}")
+    samples = _decode_samples(path, zlib.decompress(b"".join(idat)), width, height, depth,
+                              _SAMPLES[color], interlace)
+    return _to_mode(path, samples, depth, color, mode, plte, trns)
+
+
+def _decode_samples(path, raw, width, height, depth, spp, interlace) -> np.ndarray:
+    """(H, W, spp) integer samples of a PNG's inflated image data: each
+    pass (the whole image, or Adam7's seven) unfiltered on its own and its
+    samples unpacked (bit depths below 8 packed most significant first,
+    16 bits big-endian)."""
+    out = np.zeros((height, width, spp), np.uint16 if depth == 16 else np.uint8)
+    bpp = max(1, spp * depth // 8)  # the filters' byte distance to the pixel on the left
+    pos = 0
+    for x0, y0, dx, dy in ADAM7 if interlace else ((0, 0, 1, 1),):
+        pw, ph = -(-(width - x0) // dx), -(-(height - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue
+        stride = -(-(pw * spp * depth) // 8)
+        size = ph * (stride + 1)
+        if len(raw) < pos + size:
+            raise ValueError(f"{path}: PNG image data too short")
+        rows = np.frombuffer(raw, np.uint8, size, pos).reshape(ph, stride + 1)
+        pos += size
+        filters = rows[:, 0]
+        if int(filters.max(initial=0)) > 4:
+            raise ValueError(f"{path}: unknown PNG row filter {int(filters.max())}")
+        body = _unfilter(rows[:, 1:].reshape(ph, stride // bpp, bpp), filters).reshape(ph, stride)
+        if depth == 16:
+            values = (body[:, 0::2].astype(np.uint16) << 8) | body[:, 1::2]
+        elif depth == 8:
+            values = body
+        else:
+            shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+            values = ((body[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(ph, -1)
+        out[y0::dy, x0::dx] = values[:, :pw * spp].reshape(ph, pw, spp)
+    return out
+
+
+def _to_mode(path, samples, depth, color, mode, plte, trns) -> Picture:
+    """A PNG's samples in PIL's mode, as its unpacker gives them."""
+    palette = transparency = None
+    if mode == "1":
+        pixels = samples != 0
+        if trns is not None:
+            transparency = 255 if _u16(trns, 0) else 0
+    elif mode == "L":
+        pixels = samples * (255 // ((1 << depth) - 1))  # L;2 and L;4 scale to 0..255
+        if trns is not None:
+            transparency = _u16(trns, 0)
+    elif mode == "I;16":
+        pixels = samples
+        if trns is not None:
+            transparency = _u16(trns, 0)
+    elif mode == "P":
+        if plte is None:
+            raise ValueError(f"{path}: a palette PNG without a PLTE chunk")
+        pixels = samples
+        palette = np.frombuffer(plte[:len(plte) // 3 * 3], np.uint8).reshape(-1, 3)
+        if trns is not None:
+            transparency = trns.index(b"\x00") if _SIMPLE_PALETTE.match(trns) else bytes(trns)
+    else:
+        pixels = (samples >> 8).astype(np.uint8) if depth == 16 else samples
+        if color == 4 and depth == 16:  # LA;16B: PIL reads it as RGBA
+            pixels = np.concatenate([pixels[..., :1].repeat(3, axis=2), pixels[..., 1:]], axis=2)
+        if mode == "RGB" and trns is not None:
+            transparency = tuple(_u16(trns, 2 * i) for i in range(3))
+    return Picture(pixels, mode, palette, transparency)
+
+
+def _u16(data: bytes, at: int) -> int:
+    return int.from_bytes(data[at:at + 2].ljust(2, b"\x00"), "big")
+
+
+def to_rgba(picture: Picture) -> np.ndarray:
+    """PIL's `convert("RGBA")` of a `Picture`: (H, W, 4) uint8. Grey
+    ("1" as 0 / 255, "L", "I;16" clipped at 255) and RGB take alpha 0 where
+    the colour equals the transparency's low byte(s), 255 elsewhere; a
+    palette image takes its entries' colours (black past the PLTE) and the
+    tRNS alphas (255 past them); "LA" spreads its grey."""
+    px, mode, t = picture.pixels, picture.mode, picture.transparency
+    if mode == "RGBA":
+        return px.copy()
+    if mode == "LA":
+        return np.concatenate([px[..., :1].repeat(3, axis=2), px[..., 1:]], axis=2)
+    if mode == "P":
+        table = np.zeros((256, 4), np.uint8)
+        table[:, 3] = 255
+        table[:len(picture.palette), :3] = picture.palette
+        if isinstance(t, int):
+            table[t, 3] = 0
+        elif t is not None:
+            table[:len(t), 3] = np.frombuffer(t[:256], np.uint8)
+        return table[px[..., 0]]
+    if mode == "RGB":
+        rgb, key = px, None if t is None else np.array([v & 0xFF for v in t], np.uint8)
+    else:
+        if mode == "1":
+            grey = np.where(px, 255, 0).astype(np.uint8)
+        elif mode == "I;16":
+            grey = np.minimum(px, 255).astype(np.uint8)
+        else:
+            grey = px
+        rgb, key = grey.repeat(3, axis=2), None if t is None else np.full(3, t & 0xFF, np.uint8)
+    alpha = np.full(rgb.shape[:2] + (1,), 255, np.uint8)
+    if key is not None:
+        alpha[(rgb == key).all(axis=2)] = 0
+    return np.concatenate([rgb, alpha], axis=2)
 
 
 def _unfilter(raw: np.ndarray, filters: np.ndarray) -> np.ndarray:

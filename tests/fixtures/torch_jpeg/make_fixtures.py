@@ -13,11 +13,16 @@ PIL, so the decoders are held to these there.
   4:4:4 / 4:2:2 / 4:2:0 / grey, quality 50 to 100, baseline and
   progressive, optimised tables, restart markers every few blocks and
   every row, sizes 1x1 to 129x97, and black-and-white edges at q100 (IDCT
-  outputs past the sample range).
+  outputs past the sample range);
+- 64x48 crops of the close view damaged where libjpeg only warns and PIL
+  still returns an image (`damaged`): extraneous bytes before markers, a
+  flipped entropy-coded byte, a restart marker out of sequence and one
+  missing, progressive files cut before their last scan and their last two
+  (block smoothing), and progressive scans out of order.
 
 Run from the repo root:  python tests/fixtures/torch_jpeg/make_fixtures.py
-(about two minutes on a CPU). The files are checked in; regenerate only
-if the cases change.
+(about two minutes on a CPU), or with `damaged` to write only the damaged
+set. The files are checked in; regenerate only if the cases change.
 """
 
 import io
@@ -56,20 +61,66 @@ def render(model, distance: float) -> np.ndarray:
     return (np.clip(img.numpy(), 0.0, 1.0) * 255 + 0.5).astype(np.uint8)
 
 
-def save(name: str, pixels: np.ndarray, **options):
+def encode(pixels: np.ndarray, **options) -> bytes:
     image = Image.fromarray(pixels[..., 0] if pixels.shape[2] == 1 else pixels)
     buf = io.BytesIO()
     image.save(buf, "JPEG", **options)
-    data = buf.getvalue()
+    return buf.getvalue()
+
+
+def save(name: str, pixels: np.ndarray, **options):
+    write(name, encode(pixels, **options), pixels.shape)
+
+
+def write(name: str, data: bytes, shape):
     with open(os.path.join(HERE, f"{name}.jpg"), "wb") as f:
         f.write(data)
     np.savez_compressed(os.path.join(HERE, f"{name}.npz"),
                         pixels=np.asarray(Image.open(io.BytesIO(data))))
-    print(f"{name}: {pixels.shape[1]}x{pixels.shape[0]}, {len(data)} bytes")
+    print(f"{name}: {shape[1]}x{shape[0]}, {len(data)} bytes")
+
+
+def scan_starts(data: bytes) -> list:
+    out, i = [], data.find(b"\xff\xda")
+    while i >= 0:
+        out.append(i)
+        i = data.find(b"\xff\xda", i + 2)
+    return out
+
+
+def damaged(patch: np.ndarray):
+    """Files libjpeg only warns about, each of a 64x48 `patch`, which PIL
+    decodes (the .npz holds its pixels)."""
+    base = encode(patch, quality=90, subsampling="4:2:0")
+    sos, dqt = base.index(b"\xff\xda"), base.index(b"\xff\xdb")
+    write("damaged_extraneous_q90_420_64x48",
+          base[:dqt] + b"\x00\xff\x00\x55" + base[dqt:sos] + b"\x12\x34" + base[sos:], patch.shape)
+    start = sos + 2 + int.from_bytes(base[sos + 2:sos + 4], "big")
+    flipped = bytearray(base)
+    flipped[start + 200] ^= 0x10
+    write("damaged_flipped_byte_q90_420_64x48", bytes(flipped), patch.shape)
+    restarts = encode(patch, quality=90, subsampling="4:2:0", restart_marker_blocks=2)
+    rst = [i for i in range(len(restarts) - 1) if restarts[i] == 0xFF and 0xD0 <= restarts[i + 1] <= 0xD7]
+    write("damaged_restart_out_of_sequence_q90_420_64x48",
+          restarts[:rst[1] + 1] + b"\xd6" + restarts[rst[1] + 2:], patch.shape)
+    write("damaged_restart_missing_q90_420_64x48", restarts[:rst[2]] + restarts[rst[2] + 2:], patch.shape)
+    progressive = encode(patch, quality=90, subsampling="4:2:0", progressive=True)
+    scans = scan_starts(progressive)
+    write("damaged_progressive_cut_last_q90_420_64x48", progressive[:scans[-1]] + b"\xff\xd9", patch.shape)
+    write("damaged_progressive_cut_last_two_q90_420_64x48", progressive[:scans[-2]] + b"\xff\xd9",
+          patch.shape)
+    parts = [progressive[scans[j]:(scans[j + 1] if j + 1 < len(scans) else len(progressive) - 2)]
+             for j in range(len(scans))]
+    order = [0, 1, 2, 3, 4, 5, 9, 7, 8, 6]  # the last luma refinement before the ones it refines
+    write("damaged_progressive_out_of_order_q90_420_64x48",
+          progressive[:scans[0]] + b"".join(parts[j] for j in order) + b"\xff\xd9", patch.shape)
 
 
 def main():
     model = load_gaussians_ply(os.path.join(ROOT, "assets", "trained_r5.ply"))
+    if sys.argv[1:] == ["damaged"]:
+        damaged(render(model, 2.5)[330:378, 530:594])
+        return
     far = render(model, 6.0)
     save("images4_q95_420", far, quality=95, subsampling="4:2:0")
     save("images4_q95_420_progressive", far, quality=95, subsampling="4:2:0", progressive=True)
@@ -99,6 +150,7 @@ def main():
     patch = crop[:45, :67]
     edges = np.where(patch > np.median(patch, axis=(0, 1)), 255, 0).astype(np.uint8)  # saturated
     save("edges_q100_444_67x45", edges, quality=100, subsampling="4:4:4")
+    damaged(close[330:378, 530:594])
 
 
 if __name__ == "__main__":

@@ -177,13 +177,136 @@ def test_resize_upscales_like_pil():
         np.testing.assert_array_equal(image_io.resize(a, size), np.asarray(pil_image(a).resize(size)))
 
 
+def pack_rows(samples, depth, filters):
+    """PNG rows of integer samples (h, w, spp) at `depth` bits: packed
+    most significant first (16 bits big-endian), row y filtered with
+    filters[y % len(filters)] by the specification's formulas."""
+    h, w, spp = samples.shape
+    if depth == 16:
+        body = samples.astype(">u2").view(np.uint8).reshape(h, w * spp * 2)
+    elif depth == 8:
+        body = samples.astype(np.uint8).reshape(h, w * spp)
+    else:
+        per = 8 // depth
+        flat = samples.reshape(h, w * spp).astype(np.uint8)
+        flat = np.pad(flat, ((0, 0), (0, -flat.shape[1] % per)))
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        body = (flat.reshape(h, -1, per) << shifts).sum(axis=2).astype(np.uint8)
+    bpp = max(1, spp * depth // 8)
+    x = body.astype(np.int64)
+    out = []
+    for y in range(h):
+        cur, prev = x[y], x[y - 1] if y else np.zeros_like(x[y])
+        left = np.concatenate([np.zeros(bpp, np.int64), cur[:-bpp]])
+        upleft = np.concatenate([np.zeros(bpp, np.int64), prev[:-bpp]])
+        f = filters[y % len(filters)]
+        if f == 0:
+            pred = 0
+        elif f == 1:
+            pred = left
+        elif f == 2:
+            pred = prev
+        elif f == 3:
+            pred = (left + prev) // 2
+        else:
+            q = left + prev - upleft
+            pa, pb, pc = np.abs(q - left), np.abs(q - prev), np.abs(q - upleft)
+            pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prev, upleft))
+        out.append(bytes([f]) + ((cur - pred) & 255).astype(np.uint8).tobytes())
+    return b"".join(out)
+
+
+def png_form(samples, depth, color, interlace=False, plte=None, trns=None, filters=(0, 1, 2, 3, 4)):
+    """A PNG of integer samples (h, w, spp) in any colour type and bit
+    depth, Adam7-interlaced if asked, with PLTE and tRNS chunks."""
+    h, w, _ = samples.shape
+    if interlace:
+        raw = b"".join(pack_rows(samples[y0::dy, x0::dx], depth, filters)
+                       for x0, y0, dx, dy in image_io.ADAM7 if samples[y0::dy, x0::dx].size)
+    else:
+        raw = pack_rows(samples, depth, filters)
+    header = struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, int(interlace))
+    return (image_io.PNG_SIGNATURE + chunk(b"IHDR", header)
+            + (chunk(b"PLTE", plte) if plte is not None else b"")
+            + (chunk(b"tRNS", trns) if trns is not None else b"")
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def form_cases():
+    """name: PNG bytes of every form PIL reads, 13x11 (odd, so Adam7's
+    passes and the packed bytes end part-way), random samples."""
+    rng = np.random.default_rng(5)
+    h, w = 11, 13
+
+    def samples(spp, depth):
+        return rng.integers(0, 1 << depth, (h, w, spp), dtype=np.int64)
+
+    cases = {}
+    for depth in (1, 2, 4, 8):
+        n = min(1 << depth, 7 if depth > 2 else 1 << depth)  # some indices past a short PLTE
+        plte = rng.integers(0, 256, 3 * n, dtype=np.uint8).tobytes()
+        idx = samples(1, depth)
+        cases[f"palette {depth}-bit"] = png_form(idx, depth, 3, plte=plte)
+        cases[f"palette {depth}-bit tRNS"] = png_form(idx, depth, 3, plte=plte,
+                                                      trns=rng.integers(0, 256, max(n - 1, 1), dtype=np.uint8).tobytes())
+        cases[f"palette {depth}-bit tRNS one clear"] = png_form(idx, depth, 3, plte=plte, trns=b"\xff\x00")
+    for depth in (1, 2, 4, 8, 16):
+        grey = samples(1, depth)
+        cases[f"grey {depth}-bit"] = png_form(grey, depth, 0)
+        value = int(grey[0, 0, 0])
+        cases[f"grey {depth}-bit tRNS"] = png_form(grey, depth, 0, trns=struct.pack(">H", value))
+    cases["grey 16-bit tRNS 255"] = png_form(np.minimum(samples(1, 16), 600), 16, 0, trns=struct.pack(">H", 255))
+    for depth in (8, 16):
+        rgb = samples(3, depth)
+        cases[f"RGB {depth}-bit"] = png_form(rgb, depth, 2)
+        key = rgb[1, 2] if depth == 8 else (rgb[1, 2] >> 8) * 257  # a pixel's colour, in PIL's compare
+        cases[f"RGB {depth}-bit tRNS"] = png_form(rgb, depth, 2, trns=struct.pack(">3H", *key))
+        cases[f"grey + alpha {depth}-bit"] = png_form(samples(2, depth), depth, 4)
+        cases[f"RGBA {depth}-bit"] = png_form(samples(4, depth), depth, 6)
+    for name in ["palette 4-bit tRNS", "grey 2-bit", "grey 16-bit", "RGB 8-bit tRNS", "grey + alpha 16-bit",
+                 "RGBA 8-bit", "RGB 16-bit"]:
+        depth = int(name.split()[-2 if name.endswith("tRNS") else -1].split("-")[0])
+        spp, color = {"palette": (1, 3), "grey": (1, 0), "RGB": (3, 2), "grey + alpha": (2, 4),
+                      "RGBA": (4, 6)}[name.rsplit(" ", 2 if name.endswith("tRNS") else 1)[0]]
+        rng2 = np.random.default_rng(len(name))
+        a = rng2.integers(0, 1 << depth, (h, w, spp), dtype=np.int64)
+        extra = {}
+        if color == 3:
+            extra = dict(plte=bytes(range(48)), trns=bytes([0, 50, 100, 150]))
+        elif name.endswith("tRNS"):
+            extra = dict(trns=struct.pack(">3H", *a[0, 0]))
+        cases[f"Adam7 {name}"] = png_form(a, depth, color, interlace=True, **extra)
+    return cases
+
+
+FORMS = form_cases()
+
+
+@pytest.mark.parametrize("name", list(FORMS))
+def test_every_png_form_reads_as_pil(tmp_path, name):
+    """read_image gives np.asarray(Image.open(f)) (a channel axis kept)
+    and open_image PIL's mode and transparency; to_rgba gives PIL's
+    convert("RGBA"), bit for bit."""
+    path = tmp_path / "form.png"
+    path.write_bytes(FORMS[name])
+    im = Image.open(path)
+    picture = image_io.open_image(path)
+    assert picture.mode == im.mode
+    assert picture.transparency == im.info.get("transparency")
+    np.testing.assert_array_equal(image_io.read_image(path), pil_pixels(path))
+    assert image_io.read_image(path).dtype == pil_pixels(path).dtype
+    np.testing.assert_array_equal(image_io.to_rgba(picture), np.asarray(Image.open(path).convert("RGBA")))
+
+
 @pytest.mark.parametrize("case,match", [
     ("16-bit", "16-bit"), ("palette", "palette"), ("interlaced", "interlaced"),
     ("jpeg", "JPEG"), ("text", "not a PNG"), ("2-bit", "2-bit"), ("trns", "tRNS"),
 ])
 def test_reader_refuses_what_it_cannot_read(tmp_path, case, match):
-    """The port refuses each of these, naming the file and the feature;
-    PIL reads the 16-bit, palette and JPEG files."""
+    """The port refuses what PIL's PNG reader refuses, naming the file and
+    the feature: a JPEG (read_image reads it) and a file that is no image.
+    The 16-bit, palette, interlaced, 2-bit and tRNS files, once refused,
+    read as PIL reads them: the same pixels, mode and convert("RGBA")."""
     path = tmp_path / f"{case}.img"
     a = pixels(8, 8, 3, seed=1)
     if case == "16-bit":
@@ -191,7 +314,7 @@ def test_reader_refuses_what_it_cannot_read(tmp_path, case, match):
     elif case == "palette":
         pil_image(a).convert("P").save(path, format="PNG")
     elif case == "interlaced":
-        path.write_bytes(png_bytes(a, [0] * 8, interlace=1))
+        path.write_bytes(png_form(a.astype(np.int64), 8, 2, interlace=True))
     elif case == "jpeg":
         pil_image(a).save(path, format="JPEG")
     elif case == "text":
@@ -200,11 +323,17 @@ def test_reader_refuses_what_it_cannot_read(tmp_path, case, match):
         path.write_bytes(png_bytes(a[..., :1] // 64, [0] * 8, depth=2))
     else:
         path.write_bytes(png_bytes(a, [0] * 8, extra=chunk(b"tRNS", b"\x00\x00\x00\x00\x00\x00")))
-    if case not in ("interlaced", "text", "2-bit", "trns"):
-        Image.open(path).load()  # PIL reads it
-    with pytest.raises(ValueError, match=match) as err:
-        image_io.read_png(path)
-    assert str(path) in str(err.value)
+    if case in ("jpeg", "text"):
+        if case == "jpeg":
+            Image.open(path).load()  # PIL reads it
+        with pytest.raises(ValueError, match=match) as err:
+            image_io.read_png(path)
+        assert str(path) in str(err.value)
+        return
+    np.testing.assert_array_equal(image_io.read_png(path), pil_pixels(path))
+    assert image_io.open_png(path).mode == Image.open(path).mode
+    np.testing.assert_array_equal(image_io.to_rgba(image_io.open_png(path)),
+                                  np.asarray(Image.open(path).convert("RGBA")))
 
 
 def test_reader_checks_crc(tmp_path):

@@ -13,6 +13,7 @@ decoder and the port's compiled one, `utils/jpeg.py`).
 
 import json
 import os
+import re
 import shutil
 import sys
 
@@ -232,6 +233,108 @@ def test_blender_scene_matches_jax(tmp_path, monkeypatch, blender_dir):
     assert_same_model_dirs(tmp_path)
     with open(tmp_path / "port/model/cameras.json") as f:
         assert len(json.load(f)) == 5
+
+
+def orbit_frames(n):
+    out = []
+    for i in range(n):
+        c2w = np.eye(4)
+        c2w[:3, 3] = [0.3 * np.sin(i), 0.0, 4.0 + 0.1 * i]
+        out.append(c2w.tolist())
+    return out
+
+
+@pytest.mark.parametrize("white_background", [False, True])
+def test_blender_every_png_form_matches_jax(tmp_path, monkeypatch, white_background):
+    """read_blender_scene on a dataset whose frames take every PNG form PIL
+    reads (palette at 1 to 8 bits with and without tRNS, grey at 1 to 16
+    bits, 16-bit RGB, RGBA and grey + alpha, tRNS on grey and RGB, Adam7):
+    PIL's convert("RGBA") through the composite, bit for bit, then
+    load_camera at -r 2 for each."""
+    from test_torch_image_io import form_cases
+
+    forms = form_cases()
+    d = tmp_path / "scene"
+    (d / "train").mkdir(parents=True)
+    frames = []
+    for i, (name, data) in enumerate(forms.items()):
+        (d / "train" / f"r_{i}.png").write_bytes(data)
+        frames.append({"file_path": f"./train/r_{i}", "transform_matrix": orbit_frames(len(forms))[i]})
+    (d / "transforms_train.json").write_text(json.dumps({"camera_angle_x": 0.69, "frames": frames}))
+    monkeypatch.setenv("GS_TPU_BLENDER_INIT_POINTS", "50")
+    infos = []
+    for pkg, name in ((jreaders, "jax"), (dataset_readers, "port")):
+        shutil.copytree(d, tmp_path / name)
+        np.random.seed(3)
+        infos.append(pkg.read_blender_scene(str(tmp_path / name), white_background, eval_split=False))
+    want, got = infos
+    assert len(got.train_cameras) == len(forms)
+    np.testing.assert_array_equal(got.points, want.points)
+    for name, g, w in zip(forms, got.train_cameras, want.train_cameras):
+        np.testing.assert_array_equal(g.image, np.asarray(w.image), err_msg=name)
+        assert (g.width, g.height, g.fovx, g.fovy) == (w.width, w.height, w.fovx, w.fovy), name
+        assert_same_cameras([dataset_readers.load_camera(g, 2)], [jreaders.load_camera(w, 2)])
+
+
+def write_png_colmap_dataset(d, views):
+    """A COLMAP dataset of `views` (name -> PNG bytes) with the JAX
+    package's writers, one PINHOLE camera."""
+    os.makedirs(os.path.join(d, "sparse", "0"))
+    os.makedirs(os.path.join(d, "images"))
+    width, height = 13, 11
+    cams = {1: jcolmap.ColmapCamera(id=1, model="PINHOLE", width=width, height=height,
+                                    params=np.array([12.0, 12.0, width / 2, height / 2]))}
+    images = {}
+    for i, (name, data) in enumerate(views.items()):
+        R, T = orbit(i, len(views), width, height)
+        images[i + 1] = jcolmap.ColmapImage(
+            id=i + 1, qvec=jcolmap.rotmat2qvec(R.T), tvec=T, camera_id=1, name=f"{name}.png",
+            xys=np.zeros((0, 2)), point3d_ids=np.zeros((0,), np.int64))
+        with open(os.path.join(d, "images", f"{name}.png"), "wb") as f:
+            f.write(data)
+    jcolmap.write_cameras_binary(cams, os.path.join(d, "sparse/0/cameras.bin"))
+    jcolmap.write_images_binary(images, os.path.join(d, "sparse/0/images.bin"))
+    rng = np.random.default_rng(2)
+    jcolmap.write_points3d_binary(rng.normal(size=(50, 3)), rng.integers(0, 256, (50, 3)),
+                                  rng.uniform(size=50), os.path.join(d, "sparse/0/points3D.bin"))
+
+
+@pytest.mark.parametrize("resolution", [1, 2])
+def test_colmap_png_forms_match_jax(tmp_path, monkeypatch, resolution):
+    """COLMAP views in the forms whose np.asarray is the picture: 16-bit
+    RGB, RGBA and grey + alpha (their high bytes), Adam7 and tRNS (which
+    the path ignores): the Scene's cameras equal the JAX package's."""
+    from test_torch_image_io import form_cases
+
+    forms = form_cases()
+    keep = ["RGB 16-bit", "RGBA 16-bit", "grey + alpha 16-bit", "RGB 8-bit tRNS", "RGB 16-bit tRNS",
+            "grey 8-bit tRNS", "Adam7 RGB 16-bit", "Adam7 RGBA 8-bit", "Adam7 grey 2-bit",
+            "Adam7 RGB 8-bit tRNS", "grey 4-bit"]
+    src = str(tmp_path / "png_colmap")
+    write_png_colmap_dataset(src, {k.replace(" ", "_").replace("+", "p"): forms[k] for k in keep})
+    jscene, scene = both_scenes(tmp_path, monkeypatch, src, eval_split=True, resolution=resolution)
+    assert len(scene.get_train_cameras()) + len(scene.get_test_cameras()) == len(keep)
+    assert_same_cameras(scene.get_train_cameras(), jscene.get_train_cameras())
+    assert_same_cameras(scene.get_test_cameras(), jscene.get_test_cameras())
+
+
+@pytest.mark.parametrize("form,mode", [("palette 8-bit", "P"), ("grey 1-bit", "1"), ("grey 16-bit", "I;16")])
+def test_colmap_refuses_modes_that_are_not_the_picture(tmp_path, form, mode):
+    """The JAX package's COLMAP path trains on np.asarray of the resized
+    image, which for these modes is palette indices, 0 or 1, or 16-bit
+    values: not the picture. The port refuses them, naming the file."""
+    from test_torch_image_io import form_cases
+
+    src = str(tmp_path / "data")
+    write_png_colmap_dataset(src, {"view": form_cases()[form]})
+    path = os.path.join(src, "images", "view.png")
+    assert Image.open(path).mode == mode
+    info = dataset_readers.read_colmap_scene(src, None, eval_split=False)
+    with pytest.raises(ValueError, match=rf"images\.bin: .*view\.png: .*\(mode {re.escape(mode)}\)"):
+        dataset_readers.load_camera(info.train_cameras[0], 1)
+    jinfo = jreaders.read_colmap_scene(src, None, eval_split=False)
+    gt = np.asarray(jreaders.load_camera(jinfo.train_cameras[0], 1).image)
+    assert gt.max() <= 1.0  # the JAX package trains on these numbers
 
 
 @pytest.mark.parametrize("white_background", [False, True])
