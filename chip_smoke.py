@@ -13,7 +13,12 @@ Phases (any failure exits non-zero; none is caught and passed over):
      decoder (csrc/jpeg_decode.cc, host C++, `c++`), with its build time.
   3. kernels vs plain: preprocess and bin a scene once, feed the same sorted
      lists to each CUDA kernel and to its plain torch version. Random scenes
-     at 128x128 and 333x197 for every supported tile geometry, and the
+     at 128x128 and 333x197 for the three compiled tile geometries (32x32,
+     32x16, 16x16) and five runtime ones (8x8, 16x8, 8x16, 24x20, 64x64:
+     fewer pixels than 256 threads, non-square, 480 pixels, the largest);
+     at each of these geometries, 160 thin splats (near-singular conics,
+     tests/test_torch_gpu.py's) in every tile of 75x53 through the forward
+     only; and the
      trained model (assets/trained_r5.ply) at 1920x1080 (3 camera angles for
      the forward, angle 0 for the backward).
      Forward tolerance: >= 99.9% of pixels within 1e-5 and every pixel
@@ -212,6 +217,22 @@ Phases (any failure exits non-zero; none is caught and passed over):
        step's counts and denom equal (one strip: the single-device sums).
      Prints the sharded step's median beside phase 5's (2 ranks on one
      card: not a scaling figure), peak memory per rank, the phase's wall.
+  5f. bench path: `python3 bench_torch.py` (the port's bench.py) as a
+     subprocess, as a user runs it, GS_BENCH_ITERS=5: render on the
+     trained model (the default scene), train on it, render on `cloud`
+     (262,144 random Gaussians, the early-exit worst case), and render on
+     the trained model with 8x8 tiles. Each must exit 0 and print a last
+     line that parses, names its metric (`render_fps_1920x1080_P122535_
+     cuda_ply`, ...) and holds a finite value > 0. The same four runs in
+     process (`cli.bench.main`): each kernel's counter must rise by
+     exactly 4 x ITERS a run (one warm-up and three timed chains; the
+     forward in both modes, the backward and the routing in train only).
+     At the bench's own inputs (the trained model at 1920x1080), 32x32 and
+     8x8 tiles: the forward at its render camera by the forward's rule and
+     bit-equal to its unculled form, and the three train-path kernels at
+     its train state and camera (`check_state`); the forward's and the
+     backward's times at both geometries (CUDA events). Prints each run's
+     value and frame median and the phase's wall time.
   6. profiler path: `tools/profile_stages.run` at the JAX tool's defaults
      (P = 262,144 random Gaussians, 1920x1080, 32x16 tiles, 10 calls a
      line, best of 3) over every ported stage, `comm` last with NVLink 4's
@@ -229,14 +250,17 @@ Phases (any failure exits non-zero; none is caught and passed over):
      the sum of `launches_by_path`: each path's own count, read after its
      own reset (train, trainer, cli_train, cli_render, cli_blender (its
      train and render CLIs together), sharded_2rank and
-     sharded_trainer (both ranks' sums), sharded_nccl1 for the compositing
-     kernels and the routing, profiler for the other three).
+     sharded_trainer (both ranks' sums), sharded_nccl1, bench (the four
+     in-process runs of 5f) for the compositing kernels and the routing,
+     profiler for the other three).
 
 Each phase's wall time is printed. Scenes are made with numpy from fixed
 seeds. Imports no JAX.
 """
 
+import contextlib
 import importlib.util
+import io
 import json
 import math
 import os
@@ -265,12 +289,14 @@ from gaussian_splatting_torch.cli import render as render_cli
 from gaussian_splatting_torch.cli import train as train_cli
 from gaussian_splatting_torch.ops import binning, gsmath, losses
 from gaussian_splatting_torch.ops import lpips as lpips_mod
+from gaussian_splatting_torch.cli import bench as bench_cli
 from gaussian_splatting_torch.ops.composite import (
-    CompositeOut, blend_pair_counts, composite_bwd_torch, composite_fwd_torch, route_grads_torch,
+    COMPILED_TILE_GEOMETRIES, CompositeOut, blend_pair_counts, composite_bwd_torch,
+    composite_fwd_torch, route_grads_torch,
 )
 from gaussian_splatting_torch.ops.knn import mean_knn_dist2_exact, mean_knn_dist2_morton
 from gaussian_splatting_torch.ops.composite_cuda import (
-    TILE_GEOMETRIES, composite_bwd, composite_bwd_cuda, composite_bwd_occupancy, composite_fwd,
+    composite_bwd, composite_bwd_cuda, composite_bwd_occupancy, composite_fwd,
     composite_fwd_cuda, composite_fwd_occupancy, composite_fwd_unculled_cuda, route_grads,
     route_grads_cuda,
 )
@@ -353,6 +379,20 @@ LAUNCH_COUNTERS = {"composite_fwd": composite_fwd, "composite_bwd": composite_bw
                    "consume_rows": consume_rows, "consume_t": consume_t}
 TRAIN_KERNELS = ("composite_fwd", "composite_bwd", "route_grads")
 
+# phase 3's tile geometries: the compiled ones, then runtime ones (fewer
+# pixels than a block of 256 threads, non-square, 480 pixels, the largest)
+TILE_GEOMETRIES = COMPILED_TILE_GEOMETRIES + ((8, 8), (16, 8), (8, 16), (24, 20), (64, 64))
+
+# Phase 5f: bench_torch.py's runs, (name, GS_BENCH_* settings), each with
+# GS_BENCH_ITERS = BENCH_ITERS; a run launches each of its kernels 4 x
+# BENCH_ITERS times (one warm-up and three timed chains)
+BENCH_ITERS = 5
+BENCH_RUNS = (("render ply", {"GS_BENCH_MODE": "render"}),
+              ("train ply", {"GS_BENCH_MODE": "train"}),
+              ("render cloud", {"GS_BENCH_MODE": "render", "GS_BENCH_SCENE": "cloud"}),
+              ("render ply 8x8", {"GS_BENCH_MODE": "render", "GS_BENCH_TILE_W": "8",
+                                  "GS_BENCH_TILE_H": "8"}))
+
 LOOSE, SHARE = 1e-2, 1e-3  # every pixel within LOOSE; at most SHARE over the tight bound
 GRAD_L2, GRAD_ROW, GRAD_SHARE = 1e-4, 1e-3, 1e-3  # backward / routing rule, see phase 3
 
@@ -372,6 +412,29 @@ def make_gaussians(P, seed, spread=1.0, scale_mu=-2.5):
     shs = rng.normal(0, 0.2, (P, 16, 3)).astype(np.float32)
     shs[:, 0, :] += 1.0
     return means, scales, quats, opacities, shs
+
+
+def thin_splats_everywhere(dev, W, H, tile, seed):
+    """Every tile lists the same 160 splats, thin as a line (correlation up
+    to 1 - 1e-7, where the float32 conic's determinant is all rounding), of
+    every opacity from 1/255 up: the box cull at its edge cases, and
+    decisions that the conic's condition number puts at the mercy of
+    rounding (tests/test_torch_gpu.py's generator). Returns the forward
+    kernel's scene arguments."""
+    rng = np.random.default_rng(seed)
+    N = 160
+    sigma = rng.uniform(0.5, 15.0, (N, 2))
+    rho = rng.choice([0.0, 0.9, -0.999, 0.99999, -0.9999999], N)
+    det = (sigma[:, 0] * sigma[:, 1]) ** 2 * (1 - rho ** 2)
+    conic = np.stack([sigma[:, 1] ** 2, -rho * sigma[:, 0] * sigma[:, 1], sigma[:, 0] ** 2], 1)
+    num_tiles = -(-W // tile[0]) * -(-H // tile[1])
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    return (torch.arange(N, **i32).repeat(num_tiles), torch.arange(num_tiles, **i32) * N,
+            torch.arange(1, num_tiles + 1, **i32) * N,
+            torch.tensor(rng.uniform([-4, -4], [W + 4, H + 4], (N, 2)), **f32),
+            torch.tensor(conic / det[:, None], **f32), torch.tensor(rng.uniform(0, 1, (N, 3)), **f32),
+            torch.tensor(rng.uniform(1 / 255, 1.0, N), **f32))
 
 
 def sorted_inputs(acts, cam, W, H, tile, sh=3, alive=None, capacity=None):
@@ -2002,6 +2065,130 @@ def check_sharded_trainer(ranks, tmp, dev):
     return {k: sum(r["launches"][k] for r in ranks) for k in TRAIN_KERNELS}
 
 
+# ---- phase 5f: the bench ----------------------------------------------------
+
+def bench_metric(mode, env):
+    """The metric bench_torch.py must name for a run of BENCH_RUNS."""
+    scene = env.get("GS_BENCH_SCENE", "ply")
+    P = 262_144 if scene == "cloud" else 122_535
+    kind = "train_its" if mode == "train" else "render_fps"
+    return f"{kind}_{W_MAIN}x{H_MAIN}_P{P}_cuda" + ("" if scene == "cloud" else f"_{scene}")
+
+
+def bench_env(env):
+    """This process's environment with no GS_BENCH_* but `env`'s and
+    GS_BENCH_ITERS = BENCH_ITERS."""
+    out = {k: v for k, v in os.environ.items() if not k.startswith("GS_BENCH_")}
+    return {**out, **env, "GS_BENCH_ITERS": str(BENCH_ITERS)}
+
+
+def bench_in_process(env):
+    """`cli.bench.main` in this process with `env`'s settings (its JSON line
+    kept out of this script's output); returns its result and each
+    train-path kernel's launches, read after a reset."""
+    saved = {k: v for k, v in os.environ.items() if k.startswith("GS_BENCH_")}
+    for k in saved:
+        del os.environ[k]
+    os.environ.update(env, GS_BENCH_ITERS=str(BENCH_ITERS))
+    try:
+        reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            result = bench_cli.main([])
+        return result, {k: LAUNCH_COUNTERS[k].launches for k in TRAIN_KERNELS}
+    finally:
+        for k in [k for k in os.environ if k.startswith("GS_BENCH_")]:
+            del os.environ[k]
+        os.environ.update(saved)
+
+
+def bench_phase(dev):
+    """Phase 5f (module docstring). Returns the launches of the in-process
+    runs summed per kernel and the max abs errors of the three train-path
+    kernels at the bench's inputs."""
+    t_phase = time.perf_counter()
+    print("bench path:")
+    for name, env in BENCH_RUNS:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.join(ROOT, "bench_torch.py")], cwd=ROOT,
+                              env=bench_env(env), capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"bench_torch.py {name} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+        lines = proc.stdout.strip().splitlines()
+        try:
+            result = json.loads(lines[-1])
+        except (IndexError, json.JSONDecodeError):
+            fail(f"bench_torch.py {name}: last line {lines[-1:]} is not JSON")
+        want = bench_metric(env["GS_BENCH_MODE"], env)
+        if result.get("metric") != want:
+            fail(f"bench_torch.py {name}: metric {result.get('metric')!r}, expected {want!r}")
+        value = result.get("value")
+        if not isinstance(value, (int, float)) or not math.isfinite(value) or value <= 0:
+            fail(f"bench_torch.py {name}: value {value!r}")
+        info = [ln for ln in proc.stderr.splitlines() if ln.startswith("# ")]
+        print(f"  bench_torch.py {name}: {result['metric']} = {value} {result['unit']} "
+              f"(vs_baseline {result['vs_baseline']}), frame median {result['frame_ms_median']:.3f} "
+              f"ms, p80 {result['frame_ms_p80']:.3f} ms; process wall {wall:.1f} s; {info[-1:]}")
+
+    launches = {k: 0 for k in TRAIN_KERNELS}
+    for name, env in BENCH_RUNS:
+        result, counts = bench_in_process(env)
+        per_chain = 4 * BENCH_ITERS
+        want = {k: per_chain if env["GS_BENCH_MODE"] == "train" or k == "composite_fwd" else 0
+                for k in TRAIN_KERNELS}
+        if counts != want:
+            fail(f"bench in process {name}: launches {counts}, expected {want}")
+        for k in TRAIN_KERNELS:
+            launches[k] += counts[k]
+        print(f"  in process {name}: {result['value']} {result['unit']}, launches {counts}")
+
+    # The kernels at the bench's own inputs: the trained model at 1080p, its
+    # render camera (the forward) and its train state and camera (all three).
+    sc = bench_cli.bench_scene("ply", 0, None)
+    acts = tuple(torch.as_tensor(x, device=dev) for x in sc[:5])
+    rcam = bench_cli.bench_camera(W_MAIN, H_MAIN, sc.cam_dist, dev)
+    tcam = bench_cli.bench_camera(W_MAIN, H_MAIN, 4.0, dev)
+    params = bench_cli.bench_train_params(sc, dev)
+    bg = torch.zeros(3, device=dev)
+    gt = torch.as_tensor(np.random.default_rng(1).uniform(size=(H_MAIN, W_MAIN, 3)),
+                         dtype=torch.float32, device=dev)
+    errs = {k: 0.0 for k in TRAIN_KERNELS}
+    for tile in ((32, 32), (8, 8)):
+        name = f"bench {tile[0]}x{tile[1]}"
+        capacity, _ = bench_cli.bench_capacity(acts, rcam, W_MAIN, H_MAIN, *tile)
+        with torch.no_grad():
+            args, _, total = sorted_inputs(acts, rcam, W_MAIN, H_MAIN, tile, capacity=capacity)
+            out = composite_fwd_cuda(*args, bg, W_MAIN, H_MAIN, *tile)
+            ref = composite_fwd_torch(*args, bg, W_MAIN, H_MAIN, *tile)
+        torch.cuda.synchronize()
+        errs["composite_fwd"] = max(errs["composite_fwd"],
+                                    compare(f"{name} render K={total}", out, ref, 1e-5))
+        check_cull(f"{name} render", out, args, bg, W_MAIN, H_MAIN, tile)
+        fwd_ms = cuda_time_ms(lambda: composite_fwd_cuda(*args, bg, W_MAIN, H_MAIN, *tile), 20)
+        for k, e in zip(TRAIN_KERNELS, check_state(f"{name} train state", params, 3, tcam, bg,
+                                                    capacity, tile, seed=40)):
+            errs[k] = max(errs[k], e)
+        # the backward at the train state's first step: the loss's cotangent
+        with torch.no_grad():
+            targs, tlists, _ = sorted_inputs(tuple(activate(params)), tcam, W_MAIN, H_MAIN, tile,
+                                             capacity=capacity)
+            fwd = composite_fwd_cuda(*targs, bg, W_MAIN, H_MAIN, *tile)
+        img = fwd.image.clone().requires_grad_(True)
+        loss = 0.8 * losses.l1_loss(img, gt) + 0.2 * (1 - losses.ssim(img, gt))
+        (g_img,) = torch.autograd.grad(loss, [img])
+        bargs = (*targs[:3], tlists.entry_src, *targs[3:], fwd.image, fwd.final_t, g_img,
+                 torch.zeros_like(fwd.final_t), W_MAIN, H_MAIN, *tile)
+        bwd_ms = cuda_time_ms(lambda: composite_bwd_cuda(*bargs), 20)
+        occ = composite_fwd_occupancy(*tile, dev.index), composite_bwd_occupancy(*tile, dev.index)
+        print(f"  {name}: forward {fwd_ms:.4f} ms at the render camera (K={total}), backward "
+              f"{bwd_ms:.4f} ms at the train state (K={int(tlists.total)}); registers / threads / "
+              f"blocks per SM: forward {occ[0]['registers']} / {occ[0]['threads']} / "
+              f"{occ[0]['blocks_per_sm']}, backward {occ[1]['registers']} / {occ[1]['threads']} / "
+              f"{occ[1]['blocks_per_sm']}")
+    print(f"  phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches, errs
+
+
 # ---- LPIPS ---------------------------------------------------------------
 
 LPIPS_NETS = ("vgg", "alex", "squeeze")
@@ -2126,6 +2313,15 @@ def main():
             max_err["composite_fwd"] = max(max_err["composite_fwd"], compare(name, out, ref, 1e-5))
             check_cull(name, out, args, bg, W, H, tile)
             note_bwd(check_backward(name, args, lists, bg, W, H, tile, seed=10 + seed))
+    for tile in TILE_GEOMETRIES:  # near-singular conics, 75x53 (a multiple of no tile side)
+        name = f"thin splats 75x53 tile {tile[0]}x{tile[1]}"
+        args = thin_splats_everywhere(dev, 75, 53, tile, seed=6)
+        bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+        out = composite_fwd_cuda(*args, bg, 75, 53, *tile)
+        ref = composite_fwd_torch(*args, bg, 75, 53, *tile)
+        torch.cuda.synchronize()
+        max_err["composite_fwd"] = max(max_err["composite_fwd"], compare(name, out, ref, 1e-5))
+        check_cull(name, out, args, bg, 75, 53, tile)
 
     params = params_from_ply(TRAINED_PLY)  # device defaults to the card
     with torch.no_grad():
@@ -2369,6 +2565,12 @@ def main():
         max_err[k] = max(max_err[k], e)
     phase_done("5d sharded path")
 
+    # ---- 5f. bench path -----------------------------------------------
+    bench_launches, bench_errs = bench_phase(dev)
+    for k, e in bench_errs.items():
+        max_err[k] = max(max_err[k], e)
+    phase_done("5f bench path")
+
     # ---- 6. profiler path ---------------------------------------------
     reset_launches()
     # comm's link rate: NVLink 4's published 450 GB/s per direction (H100 SXM
@@ -2437,7 +2639,8 @@ def main():
             return {"train": train_launches[name], "trainer": trainer_launches[name],
                     "cli_train": cli_train_launches[name], "cli_render": cli_render_launches[name],
                     "cli_blender": blender_launches[name],
-                    **{path: counts[name] for path, counts in sharded_launches.items()}}
+                    **{path: counts[name] for path, counts in sharded_launches.items()},
+                    "bench": bench_launches[name]}
         return {"profiler": prof_launches[name]}
 
     print(json.dumps({"kernels": [

@@ -23,7 +23,9 @@ and JPEG reading (PIL's pixels; the JPEG decoder is host C++,
 `csrc/jpeg_decode.cc`, beside its plain version `utils/jpeg.py`), PNG
 writing and PIL's resize in `utils/image_io.py`), the flag
 groups (`config.py`), the CLIs (`python -m gaussian_splatting_torch.cli.
-{train,render,metrics,full_eval,convert}`) and the live-viewer bridge
+{train,render,metrics,full_eval,convert}`), the bench (`cli/bench.py`,
+run as the repo root's `bench_torch.py`: the port's `bench.py`) and the
+live-viewer bridge
 (`viewer/network_gui.py`), LPIPS (`ops/lpips.py`, in the metrics CLI), and
 training on several devices (`parallel/sharding.py` on torch.distributed:
 Gaussian rows sharded over the ranks, each rank's strip of tile rows

@@ -14,6 +14,8 @@ so argparse itself says whether they were given (in any spelling it
 takes, such as --tile_size=16 or the abbreviation --tile_size_ of
 --tile_size_y), and the tiles are then this command line's alone:
 --tile_size (32 if absent) by --tile_size_y (0 or absent: the same).
+Explicit tiles of more than 4096 pixels are refused before anything loads
+(`config.check_tile_flags`), as the train CLI refuses them.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 from gaussian_splatting_torch.config import (
     ModelParams,
     PipelineParams,
+    check_tile_flags,
     get_combined_args,
     resolve_backend,
 )
@@ -151,6 +154,8 @@ def main(argv=None, device="cuda"):
     argv = sys.argv[1:] if argv is None else argv
     cmdline = parser.parse_args(argv)
     explicit_tiles = cmdline.tile_size is not None or cmdline.tile_size_y is not None
+    if explicit_tiles:
+        check_tile_flags(parser, cmdline.tile_size or 32, cmdline.tile_size_y or 0)
     args = get_combined_args(parser, argv)
     dev = require_device(device)
     print("Rendering " + args.model_path)

@@ -8,6 +8,10 @@ report, the PLY save, `post_step` (densify, opacity reset), the
 checkpoint. It trains on the card; without one it raises. An in-process
 caller may pass `main(argv, device="cpu")`; there is no flag for it.
 
+A tile (--tile_size x --tile_size_y) of more than 4096 pixels is refused
+before anything loads (`config.check_tile_flags`): the CUDA kernels take
+every smaller one.
+
 `--detect_anomaly` turns on torch's anomaly detection, and
 `--profile_iteration N` writes a `torch.profiler` trace of the steps from
 N to N + 5 into <model>/profile. Tensorboard logging and the tqdm progress
@@ -28,6 +32,7 @@ from gaussian_splatting_torch.config import (
     ModelParams,
     OptimizationParams,
     PipelineParams,
+    check_tile_flags,
     resolve_backend,
     write_cfg_args,
 )
@@ -292,6 +297,7 @@ def main(argv=None, device="cuda"):
              "five after it (into <model>/profile)",
     )
     args = parser.parse_args(sys.argv[1:] if argv is None else argv)
+    check_tile_flags(parser, args.tile_size, args.tile_size_y)
     args.save_iterations.append(args.iterations)
     dev = require_device(device)
 

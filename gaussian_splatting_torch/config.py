@@ -22,6 +22,7 @@ import sys
 from argparse import ArgumentParser, Namespace
 from dataclasses import dataclass, fields
 
+from gaussian_splatting_torch.ops.composite import check_tile_geometry
 from gaussian_splatting_torch.ops.rasterize import BACKENDS
 
 # the JAX package's rasterizer backends; a cfg_args it wrote renders here
@@ -85,7 +86,8 @@ class PipelineParams(ParamGroup):
     debug: bool = False
     backend: str = "auto"  # "auto" | "reference"; the JAX names map to "auto"
     # Tile shape; tile_size_y = 0 means "same as tile_size". The CUDA
-    # kernels take 32x32, 32x16 and 16x16.
+    # kernels take any tile of at most 4096 pixels; the train and render
+    # CLIs refuse larger ones before loading anything (check_tile_flags).
     tile_size: int = 32
     tile_size_y: int = 32
     capacity_mult: int = 8
@@ -157,6 +159,19 @@ def write_cfg_args(model_path: str, args: Namespace):
     os.makedirs(model_path, exist_ok=True)
     with open(os.path.join(model_path, "cfg_args"), "w") as f:
         f.write(str(Namespace(**vars(args))))
+
+
+def check_tile_flags(parser: ArgumentParser, tile_size: int, tile_size_y: int) -> None:
+    """Refuse, through `parser.error` (exit 2) and naming the flags, a tile
+    of --tile_size x --tile_size_y (0: the same as --tile_size) that the
+    CUDA kernels do not take: more than 4096 pixels, or a side below 1
+    (`composite.check_tile_geometry`). The CLIs call it before loading
+    anything, so a run that would fail on the card fails at once, on any
+    device."""
+    try:
+        check_tile_geometry(tile_size, tile_size_y or tile_size)
+    except ValueError as err:
+        parser.error(f"--tile_size {tile_size} --tile_size_y {tile_size_y}: {err}")
 
 
 def resolve_backend(backend: str) -> str:

@@ -38,7 +38,12 @@
 // with their fields and a box (blend.cuh's reach). Every row of every tile
 // range is written exactly once; entries past the block's exit (every
 // pixel done) get zero rows. Fixed reduction orders and no atomics: two
-// runs give the same bits.
+// runs give the same bits. Those are the compiled geometries (32x32,
+// 32x16, 16x16); any other tile of up to 4096 pixels runs the same code in
+// a block sized to it (blend.cuh's block_shape: 64 threads at 8x8), with
+// units of 32 consecutive pixels, slots past the tile done from the start,
+// and the flush summing the warps the block has. Every warp is whole, so
+// the warp votes and sums see 32 lanes.
 //
 // What bounds it on an H100. The pair work is the forward's (about 13
 // operations and an exp per pair that can be taken, a box test for the
@@ -102,34 +107,35 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = gs::kMaxThreads;  // threads per block at a compiled geometry
 // Resident blocks per SM: at most 80 registers a thread (65,536 / 768 is
-// 85, rounded down to the allocation unit of 8).
+// 85, rounded down to the allocation unit of 8). Not asked of the larger
+// runtime geometries (8 or 16 pixels a thread), which would spill.
 constexpr int kMinBlocks = 3;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBatch = 128;  // entries staged per round; their partials fill s_part
 using gs::kFields;
 
 // Writes the rows of entries base .. base + n - 1 of the sorted list from
-// the warps' partials, summed in warp order. Fields 0-4 of a partial are
-// moments of dpower (sum dpower dx, dpower dy, dpower dx^2, dpower dx dy,
-// dpower dy^2); the entry's conic (a, b, c) turns them into d mean2d and
-// d conic here, once per entry instead of once per pixel.
+// the partials of the block's `warps` warps, summed in warp order. Fields
+// 0-4 of a partial are moments of dpower (sum dpower dx, dpower dy, dpower
+// dx^2, dpower dx dy, dpower dy^2); the entry's conic (a, b, c) turns them
+// into d mean2d and d conic here, once per entry instead of once per pixel.
 __device__ __forceinline__ void flush(const float (&part)[kBatch][kWarps][kFields],
                                       const float4* __restrict__ conic_op, int base, int n,
                                       const int* __restrict__ entry_src,
-                                      float* __restrict__ rows) {
-  for (int t = threadIdx.x; t < n * kFields; t += kThreads) {
+                                      float* __restrict__ rows, int threads, int warps) {
+  for (int t = threadIdx.x; t < n * kFields; t += threads) {
     const int j = t / kFields;
     const int f = t % kFields;
     float s = 0.0f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += part[j][w][f];
+    for (int w = 0; w < warps; ++w) s += part[j][w][f];
     float v = s;  // d rgb, d opacity
     if (f < 2) {  // d mean2d needs both first moments
       float s_other = 0.0f;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) s_other += part[j][w][1 - f];
+      for (int w = 0; w < warps; ++w) s_other += part[j][w][1 - f];
       const float4 co = conic_op[j];
       v = f == 0 ? -(co.x * s + co.y * s_other)   // d mx = -(a Sx + b Sy)
                  : -(co.z * s + co.y * s_other);  // d my = -(c Sy + b Sx)
@@ -140,8 +146,11 @@ __device__ __forceinline__ void flush(const float (&part)[kBatch][kWarps][kField
   }
 }
 
-template <int TILE_W, int TILE_H>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+// TILE_W, TILE_H > 0: a compiled geometry (256 threads, units of whole
+// rows); 0: the geometry tile_w x tile_h of the arguments, in blocks of
+// blockDim.x threads (blend.cuh's block_shape), as the forward.
+template <int TILE_W, int TILE_H, int kPix>
+__global__ void __launch_bounds__(kThreads, TILE_W > 0 || kPix <= 4 ? kMinBlocks : 1)
 composite_bwd_kernel(const int* __restrict__ gauss_id,
                      const int* __restrict__ tile_start,
                      const int* __restrict__ tile_stop,
@@ -156,10 +165,15 @@ composite_bwd_kernel(const int* __restrict__ gauss_id,
                      const float* __restrict__ g_final_t,
                      float* __restrict__ rows,
                      float* __restrict__ replay_t,  // may be null
-                     int width, int height, int grid_x, int origin_y) {
-  static_assert((TILE_W * TILE_H) % kThreads == 0, "tile must split evenly over the block");
+                     int width, int height, int grid_x, int origin_y, int tile_w, int tile_h) {
+  constexpr bool kCompiled = TILE_W > 0;
+  static_assert(!kCompiled || TILE_W * TILE_H == kThreads * kPix,
+                "tile must split evenly over the block");
   static_assert(kBatch <= kThreads, "one thread stages each entry of a batch");
-  constexpr int kPix = TILE_W * TILE_H / kThreads;  // pixels per thread
+  const int threads = kCompiled ? kThreads : blockDim.x;
+  const int warps = kCompiled ? kWarps : threads / 32;
+  const int tw = kCompiled ? TILE_W : tile_w;
+  const int th = kCompiled ? TILE_H : tile_h;
 
   __shared__ float2 s_mean[kBatch];
   // a, b, c, opacity, of two batches by parity: the flush of one batch
@@ -175,8 +189,8 @@ composite_bwd_kernel(const int* __restrict__ gauss_id,
   const int lane = threadIdx.x % 32;
   const int my_field = gs::field_of_lane(lane);
   const int tile = blockIdx.x;
-  const int x0 = (tile % grid_x) * TILE_W;
-  const int y0 = (tile / grid_x) * TILE_H;
+  const int x0 = (tile % grid_x) * tw;
+  const int y0 = (tile / grid_x) * th;
   const int start = tile_start[tile];
   const int stop = tile_stop[tile];
 
@@ -184,14 +198,14 @@ composite_bwd_kernel(const int* __restrict__ gauss_id,
   bool done[kPix];
 #pragma unroll
   for (int k = 0; k < kPix; ++k) {
-    const int2 q = gs::unit_pixel<TILE_W, kPix>(warp, k, lane);
+    const int2 q = gs::unit_pixel<TILE_W, kPix>(warp, k, lane, tw);
     const int x = x0 + q.x;
     const int y = y0 + q.y;
     px[k] = static_cast<float>(x);
     py[k] = static_cast<float>(origin_y + y);
     T[k] = 1.0f;
     pfx[k] = 0.0f;
-    done[k] = x >= width || y >= height;
+    done[k] = x >= width || y >= height || (!kCompiled && q.y >= th);
     if (done[k]) {
       total[k] = g[k][0] = g[k][1] = g[k][2] = 0.0f;
     } else {
@@ -207,26 +221,33 @@ composite_bwd_kernel(const int* __restrict__ gauss_id,
   int next = start;  // first entry of the tile not yet given a row
   int pending = 0;   // entries of the previous batch whose partials s_part holds
   int cur = 0;       // the half of s_conic_op this batch is staged in
+  // Stages entry base + i of the tile's list into slot i of the batch.
+  const auto stage = [&](int i, int base) {
+    const int e = base + i;
+    if (e >= stop) return;
+    const int gid = gauss_id[e];
+    s_mean[i] = means2d[gid];
+    const float4 co = make_float4(conic[3 * gid], conic[3 * gid + 1], conic[3 * gid + 2],
+                                  opacity[gid]);
+    s_conic_op[cur][i] = co;
+    s_rgb[i] = make_float4(rgb[3 * gid], rgb[3 * gid + 1], rgb[3 * gid + 2], 0.0f);
+    s_reach[i] = gs::reach(co.x, co.y, co.z, co.w);
+  };
   for (int base = start; base < stop; base += kBatch) {
     bool all_done = true;
 #pragma unroll
     for (int k = 0; k < kPix; ++k) all_done = all_done && done[k];
     // Also the barrier after which the previous batch's staged entries and
     // partials are complete and no longer read by the pair loop.
-    if (__syncthreads_count(all_done) == kThreads) break;
+    if (__syncthreads_count(all_done) == threads) break;
     // Reads s_part and the previous batch's half of s_conic_op; the staging
     // below writes only the other half.
-    flush(s_part, s_conic_op[cur ^ 1], next - pending, pending, entry_src, rows);
+    flush(s_part, s_conic_op[cur ^ 1], next - pending, pending, entry_src, rows, threads, warps);
 
-    const int e = base + threadIdx.x;
-    if (threadIdx.x < kBatch && e < stop) {
-      const int gid = gauss_id[e];
-      s_mean[threadIdx.x] = means2d[gid];
-      const float4 co = make_float4(conic[3 * gid], conic[3 * gid + 1], conic[3 * gid + 2],
-                                    opacity[gid]);
-      s_conic_op[cur][threadIdx.x] = co;
-      s_rgb[threadIdx.x] = make_float4(rgb[3 * gid], rgb[3 * gid + 1], rgb[3 * gid + 2], 0.0f);
-      s_reach[threadIdx.x] = gs::reach(co.x, co.y, co.z, co.w);
+    if constexpr (kCompiled) {
+      if (threadIdx.x < kBatch) stage(threadIdx.x, base);
+    } else {  // a block may have fewer threads than a batch has entries
+      for (int i = threadIdx.x; i < kBatch; i += threads) stage(i, base);
     }
     __syncthreads();  // staged, and the flush's reads of s_part are over
 
@@ -283,65 +304,71 @@ composite_bwd_kernel(const int* __restrict__ gauss_id,
     cur ^= 1;
   }
   __syncthreads();  // the last batch's partials are complete
-  flush(s_part, s_conic_op[cur ^ 1], next - pending, pending, entry_src, rows);
+  flush(s_part, s_conic_op[cur ^ 1], next - pending, pending, entry_src, rows, threads, warps);
 
   // Entries after the block's exit: every pixel was done, zero rows.
-  for (int t = threadIdx.x; t < (stop - next) * kFields; t += kThreads) {
+  for (int t = threadIdx.x; t < (stop - next) * kFields; t += threads) {
     rows[static_cast<long long>(entry_src[next + t / kFields]) * kFields + t % kFields] = 0.0f;
   }
 
   if (replay_t != nullptr) {
 #pragma unroll
     for (int k = 0; k < kPix; ++k) {
-      const int2 q = gs::unit_pixel<TILE_W, kPix>(warp, k, lane);
+      const int2 q = gs::unit_pixel<TILE_W, kPix>(warp, k, lane, tw);
       const int x = x0 + q.x;
       const int y = y0 + q.y;
-      if (x < width && y < height) replay_t[static_cast<long long>(y) * width + x] = T[k];
+      if (x < width && y < height && (kCompiled || q.y < th))
+        replay_t[static_cast<long long>(y) * width + x] = T[k];
     }
   }
 }
 
-template <int TILE_W, int TILE_H>
-cudaError_t launch(const void* const* in, void* rows, void* replay_t, int width, int height,
-                   int origin_y, cudaStream_t stream) {
-  const int grid_x = (width + TILE_W - 1) / TILE_W;
-  const int grid_y = (height + TILE_H - 1) / TILE_H;
-  composite_bwd_kernel<TILE_W, TILE_H><<<grid_x * grid_y, kThreads, 0, stream>>>(
-      static_cast<const int*>(in[0]), static_cast<const int*>(in[1]),
-      static_cast<const int*>(in[2]), static_cast<const int*>(in[3]),
-      static_cast<const float2*>(in[4]), static_cast<const float*>(in[5]),
-      static_cast<const float*>(in[6]), static_cast<const float*>(in[7]),
-      static_cast<const float*>(in[8]), static_cast<const float*>(in[9]),
-      static_cast<const float*>(in[10]), static_cast<const float*>(in[11]),
-      static_cast<float*>(rows), static_cast<float*>(replay_t), width, height, grid_x, origin_y);
-  return cudaGetLastError();
-}
+struct Args {
+  const void* in[12];  // gauss_id .. g_final_t, in the entry point's order
+  void *rows, *replay_t;
+  int width, height, tile_w, tile_h, origin_y;
+};
 
-template <int TILE_W, int TILE_H>
-cudaError_t occupancy(int* out) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, composite_bwd_kernel<TILE_W, TILE_H>);
-  if (err != cudaSuccess) return err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, composite_bwd_kernel<TILE_W, TILE_H>, kThreads, 0);
-  out[0] = attr.numRegs;
-  out[1] = kThreads;
-  out[2] = blocks;
-  return err;
-}
+struct Launch {
+  const Args& a;
+  cudaStream_t stream;
+  template <int TILE_W, int TILE_H, int kPix>
+  cudaError_t run(int threads) const {
+    const int grid_x = (a.width + a.tile_w - 1) / a.tile_w;
+    const int grid_y = (a.height + a.tile_h - 1) / a.tile_h;
+    const void* const* in = a.in;
+    composite_bwd_kernel<TILE_W, TILE_H, kPix><<<grid_x * grid_y, threads, 0, stream>>>(
+        static_cast<const int*>(in[0]), static_cast<const int*>(in[1]),
+        static_cast<const int*>(in[2]), static_cast<const int*>(in[3]),
+        static_cast<const float2*>(in[4]), static_cast<const float*>(in[5]),
+        static_cast<const float*>(in[6]), static_cast<const float*>(in[7]),
+        static_cast<const float*>(in[8]), static_cast<const float*>(in[9]),
+        static_cast<const float*>(in[10]), static_cast<const float*>(in[11]),
+        static_cast<float*>(a.rows), static_cast<float*>(a.replay_t), a.width, a.height, grid_x,
+        a.origin_y, a.tile_w, a.tile_h);
+    return cudaGetLastError();
+  }
+};
+
+struct Occupancy {
+  int* out;
+  template <int TILE_W, int TILE_H, int kPix>
+  cudaError_t run(int threads) const {
+    return gs::occupancy(composite_bwd_kernel<TILE_W, TILE_H, kPix>, threads, out);
+  }
+};
 
 }  // namespace
 
 // Launches the kernel on `stream` (a cudaStream_t) of device `device` and
-// returns the cudaError_t of the launch (0 on success). Supported tile
-// geometries: 32x32, 32x16, 16x16; any other returns cudaErrorInvalidValue.
-// All pointers are device pointers to contiguous arrays: gauss_id,
-// entry_src (K,) int32; tile_start/tile_stop (num_tiles,) int32; means2d
-// (P,2), conic (P,3), rgb (P,3), opacity (P,) float32; image, g_image
-// (H,W,3), final_t, g_final_t (H,W) float32; out rows (K,9) float32 and
-// replay_t (H,W) float32 or null. origin_y: the global pixel row of the
-// image's first row (0: a whole frame).
+// returns the cudaError_t of the launch (0 on success). Tile geometries:
+// tile_w, tile_h >= 1 with tile_w * tile_h <= 4096 (blend.cuh); any other
+// returns cudaErrorInvalidValue. All pointers are device pointers to
+// contiguous arrays: gauss_id, entry_src (K,) int32; tile_start/tile_stop
+// (num_tiles,) int32; means2d (P,2), conic (P,3), rgb (P,3), opacity (P,)
+// float32; image, g_image (H,W,3), final_t, g_final_t (H,W) float32; out
+// rows (K,9) float32 and replay_t (H,W) float32 or null. origin_y: the
+// global pixel row of the image's first row (0: a whole frame).
 extern "C" int gs_composite_bwd(const void* gauss_id, const void* tile_start,
                                 const void* tile_stop, const void* entry_src,
                                 const void* means2d, const void* conic, const void* rgb,
@@ -352,16 +379,10 @@ extern "C" int gs_composite_bwd(const void* gauss_id, const void* tile_start,
   if (width <= 0 || height <= 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const void* in[12] = {gauss_id, tile_start, tile_stop, entry_src, means2d, conic,
-                        rgb,      opacity,    image,     final_t,   g_image, g_final_t};
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (tile_w == 32 && tile_h == 32)
-    return launch<32, 32>(in, rows, replay_t, width, height, origin_y, s);
-  if (tile_w == 32 && tile_h == 16)
-    return launch<32, 16>(in, rows, replay_t, width, height, origin_y, s);
-  if (tile_w == 16 && tile_h == 16)
-    return launch<16, 16>(in, rows, replay_t, width, height, origin_y, s);
-  return cudaErrorInvalidValue;
+  const Args a{{gauss_id, tile_start, tile_stop, entry_src, means2d, conic, rgb, opacity, image,
+                final_t, g_image, g_final_t},
+               rows, replay_t, width, height, tile_w, tile_h, origin_y};
+  return gs::dispatch(tile_w, tile_h, Launch{a, static_cast<cudaStream_t>(stream)});
 }
 
 // Fills out[0..2] with the kernel's registers per thread, threads per
@@ -370,10 +391,7 @@ extern "C" int gs_composite_bwd(const void* gauss_id, const void* tile_start,
 extern "C" int gs_composite_bwd_occupancy(int tile_w, int tile_h, int device, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (tile_w == 32 && tile_h == 32) return occupancy<32, 32>(out);
-  if (tile_w == 32 && tile_h == 16) return occupancy<32, 16>(out);
-  if (tile_w == 16 && tile_h == 16) return occupancy<16, 16>(out);
-  return cudaErrorInvalidValue;
+  return gs::dispatch(tile_w, tile_h, Occupancy{out});
 }
 
 extern "C" const char* gs_error_string(int err) {

@@ -38,7 +38,11 @@
 //
 // What the design does about it. One CTA of 256 threads per tile; each
 // thread owns TILE_W*TILE_H/256 pixels and keeps their colour and
-// transmittance in registers. The backward's layout (composite_bwd.cu),
+// transmittance in registers. (That is the compiled geometries, 32x32,
+// 32x16 and 16x16. Any other tile of up to 4096 pixels runs the same code
+// in a block sized to it, 32-pixel units of consecutive pixels, with
+// slots past the tile done from the start: blend.cuh's block_shape.)
+// The backward's layout (composite_bwd.cu),
 // through the same blend.cuh helpers: warp w owns a band of whole rows
 // (rows 4w..4w+3 at 32x32) cut into 32-pixel units (8 x 4 at 32x32,
 // unit_pixel), which a splat's box misses, or whose pixels are all done,
@@ -80,11 +84,14 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBatch = 128;  // entries staged per round
+constexpr int kThreads = gs::kMaxThreads;  // threads per block at a compiled geometry
+constexpr int kBatch = 128;                // entries staged per round
 
-// kCull false stages an infinite box for every entry: the same blend with no cull.
-template <int TILE_W, int TILE_H, bool kCull>
+// TILE_W, TILE_H > 0: a compiled geometry (256 threads, units of whole
+// rows); 0: the geometry tile_w x tile_h of the arguments, in blocks of
+// blockDim.x threads (blend.cuh's block_shape). kCull false stages an
+// infinite box for every entry: the same blend with no cull.
+template <int TILE_W, int TILE_H, int kPix, bool kCull>
 __global__ void __launch_bounds__(kThreads)
 composite_fwd_kernel(const int* __restrict__ gauss_id,
                      const int* __restrict__ tile_start,
@@ -96,10 +103,14 @@ composite_fwd_kernel(const int* __restrict__ gauss_id,
                      const float* __restrict__ bg,
                      float* __restrict__ image,
                      float* __restrict__ final_t,
-                     int width, int height, int grid_x, int origin_y) {
-  static_assert((TILE_W * TILE_H) % kThreads == 0, "tile must split evenly over the block");
+                     int width, int height, int grid_x, int origin_y, int tile_w, int tile_h) {
+  constexpr bool kCompiled = TILE_W > 0;
+  static_assert(!kCompiled || TILE_W * TILE_H == kThreads * kPix,
+                "tile must split evenly over the block");
   static_assert(kBatch <= kThreads, "one thread stages each entry of a batch");
-  constexpr int kPix = TILE_W * TILE_H / kThreads;  // pixels per thread
+  const int threads = kCompiled ? kThreads : blockDim.x;
+  const int tw = kCompiled ? TILE_W : tile_w;
+  const int th = kCompiled ? TILE_H : tile_h;
 
   __shared__ float2 s_mean[kBatch];
   __shared__ float4 s_conic_op[kBatch];  // a, b, c, opacity
@@ -109,24 +120,37 @@ composite_fwd_kernel(const int* __restrict__ gauss_id,
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int tile = blockIdx.x;
-  const int x0 = (tile % grid_x) * TILE_W;
-  const int y0 = (tile / grid_x) * TILE_H;
+  const int x0 = (tile % grid_x) * tw;
+  const int y0 = (tile / grid_x) * th;
   const int start = tile_start[tile];
   const int stop = tile_stop[tile];
 
-  // A pixel that is done (stopped, or outside the image) has px = NaN:
-  // its box test then fails, so no flag needs to be kept beside it.
+  // A pixel that is done (stopped, outside the image, or a slot past the
+  // tile) has px = NaN: its box test then fails, so no flag needs to be
+  // kept beside it.
   float px[kPix], py[kPix], T[kPix], C[kPix][3];
 #pragma unroll
   for (int k = 0; k < kPix; ++k) {
-    const int2 q = gs::unit_pixel<TILE_W, kPix>(warp, k, lane);
+    const int2 q = gs::unit_pixel<TILE_W, kPix>(warp, k, lane, tw);
     const int x = x0 + q.x;
     const int y = y0 + q.y;
-    px[k] = x >= width || y >= height ? NAN : static_cast<float>(x);
+    px[k] = x >= width || y >= height || (!kCompiled && q.y >= th) ? NAN : static_cast<float>(x);
     py[k] = static_cast<float>(origin_y + y);
     T[k] = 1.0f;
     C[k][0] = C[k][1] = C[k][2] = 0.0f;
   }
+
+  // Stages entry base + i of the tile's list into slot i of the batch.
+  const auto stage = [&](int i, int base) {
+    const int e = base + i;
+    if (e >= stop) return;
+    const int g = gauss_id[e];
+    s_mean[i] = means2d[g];
+    const float4 co = make_float4(conic[3 * g], conic[3 * g + 1], conic[3 * g + 2], opacity[g]);
+    s_conic_op[i] = co;
+    s_rgb[i] = make_float4(rgb[3 * g], rgb[3 * g + 1], rgb[3 * g + 2], 0.0f);
+    s_reach[i] = kCull ? gs::reach(co.x, co.y, co.z, co.w) : make_float2(INFINITY, INFINITY);
+  };
 
   for (int base = start; base < stop; base += kBatch) {
     bool all_done = true;
@@ -134,17 +158,12 @@ composite_fwd_kernel(const int* __restrict__ gauss_id,
     for (int k = 0; k < kPix; ++k) all_done = all_done && isnan(px[k]);
     // Also the barrier that keeps the previous batch's shared memory alive
     // until every thread has finished reading it.
-    if (__syncthreads_count(all_done) == kThreads) break;
+    if (__syncthreads_count(all_done) == threads) break;
 
-    const int e = base + threadIdx.x;
-    if (threadIdx.x < kBatch && e < stop) {
-      const int g = gauss_id[e];
-      s_mean[threadIdx.x] = means2d[g];
-      const float4 co = make_float4(conic[3 * g], conic[3 * g + 1], conic[3 * g + 2], opacity[g]);
-      s_conic_op[threadIdx.x] = co;
-      s_rgb[threadIdx.x] = make_float4(rgb[3 * g], rgb[3 * g + 1], rgb[3 * g + 2], 0.0f);
-      s_reach[threadIdx.x] = kCull ? gs::reach(co.x, co.y, co.z, co.w)
-                                   : make_float2(INFINITY, INFINITY);
+    if constexpr (kCompiled) {
+      if (threadIdx.x < kBatch) stage(threadIdx.x, base);
+    } else {  // a block may have fewer threads than a batch has entries
+      for (int i = threadIdx.x; i < kBatch; i += threads) stage(i, base);
     }
     __syncthreads();
 
@@ -182,10 +201,10 @@ composite_fwd_kernel(const int* __restrict__ gauss_id,
   const float b0 = bg[0], b1 = bg[1], b2 = bg[2];
 #pragma unroll
   for (int k = 0; k < kPix; ++k) {
-    const int2 q = gs::unit_pixel<TILE_W, kPix>(warp, k, lane);
+    const int2 q = gs::unit_pixel<TILE_W, kPix>(warp, k, lane, tw);
     const int x = x0 + q.x;
     const int y = y0 + q.y;
-    if (x >= width || y >= height) continue;
+    if (x >= width || y >= height || (!kCompiled && q.y >= th)) continue;
     const long long pix = static_cast<long long>(y) * width + x;
     image[3 * pix + 0] = C[k][0] + T[k] * b0;
     image[3 * pix + 1] = C[k][1] + T[k] * b1;
@@ -194,75 +213,66 @@ composite_fwd_kernel(const int* __restrict__ gauss_id,
   }
 }
 
-template <int TILE_W, int TILE_H, bool kCull>
-cudaError_t launch(const void* gauss_id, const void* tile_start, const void* tile_stop,
-                   const void* means2d, const void* conic, const void* rgb,
-                   const void* opacity, const void* bg, void* image, void* final_t,
-                   int width, int height, int origin_y, cudaStream_t stream) {
-  const int grid_x = (width + TILE_W - 1) / TILE_W;
-  const int grid_y = (height + TILE_H - 1) / TILE_H;
-  composite_fwd_kernel<TILE_W, TILE_H, kCull><<<grid_x * grid_y, kThreads, 0, stream>>>(
-      static_cast<const int*>(gauss_id), static_cast<const int*>(tile_start),
-      static_cast<const int*>(tile_stop), static_cast<const float2*>(means2d),
-      static_cast<const float*>(conic), static_cast<const float*>(rgb),
-      static_cast<const float*>(opacity), static_cast<const float*>(bg),
-      static_cast<float*>(image), static_cast<float*>(final_t), width, height, grid_x, origin_y);
-  return cudaGetLastError();
-}
-
-template <int TILE_W, int TILE_H>
-cudaError_t occupancy(int* out) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, composite_fwd_kernel<TILE_W, TILE_H, true>);
-  if (err != cudaSuccess) return err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, composite_fwd_kernel<TILE_W, TILE_H, true>, kThreads, 0);
-  out[0] = attr.numRegs;
-  out[1] = kThreads;
-  out[2] = blocks;
-  return err;
-}
+struct Args {
+  const void *gauss_id, *tile_start, *tile_stop, *means2d, *conic, *rgb, *opacity, *bg;
+  void *image, *final_t;
+  int width, height, tile_w, tile_h, origin_y;
+};
 
 template <bool kCull>
-int launch_geometry(const void* gauss_id, const void* tile_start, const void* tile_stop,
-                    const void* means2d, const void* conic, const void* rgb, const void* opacity,
-                    const void* bg, void* image, void* final_t, int width, int height,
-                    int tile_w, int tile_h, int origin_y, int device, void* stream) {
-  if (width <= 0 || height <= 0) return cudaErrorInvalidValue;
+struct Launch {
+  const Args& a;
+  cudaStream_t stream;
+  template <int TILE_W, int TILE_H, int kPix>
+  cudaError_t run(int threads) const {
+    const int grid_x = (a.width + a.tile_w - 1) / a.tile_w;
+    const int grid_y = (a.height + a.tile_h - 1) / a.tile_h;
+    composite_fwd_kernel<TILE_W, TILE_H, kPix, kCull><<<grid_x * grid_y, threads, 0, stream>>>(
+        static_cast<const int*>(a.gauss_id), static_cast<const int*>(a.tile_start),
+        static_cast<const int*>(a.tile_stop), static_cast<const float2*>(a.means2d),
+        static_cast<const float*>(a.conic), static_cast<const float*>(a.rgb),
+        static_cast<const float*>(a.opacity), static_cast<const float*>(a.bg),
+        static_cast<float*>(a.image), static_cast<float*>(a.final_t), a.width, a.height, grid_x,
+        a.origin_y, a.tile_w, a.tile_h);
+    return cudaGetLastError();
+  }
+};
+
+struct Occupancy {
+  int* out;
+  template <int TILE_W, int TILE_H, int kPix>
+  cudaError_t run(int threads) const {
+    return gs::occupancy(composite_fwd_kernel<TILE_W, TILE_H, kPix, true>, threads, out);
+  }
+};
+
+template <bool kCull>
+int launch_geometry(const Args& a, int device, void* stream) {
+  if (a.width <= 0 || a.height <= 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (tile_w == 32 && tile_h == 32)
-    return launch<32, 32, kCull>(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
-                                 bg, image, final_t, width, height, origin_y, s);
-  if (tile_w == 32 && tile_h == 16)
-    return launch<32, 16, kCull>(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
-                                 bg, image, final_t, width, height, origin_y, s);
-  if (tile_w == 16 && tile_h == 16)
-    return launch<16, 16, kCull>(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
-                                 bg, image, final_t, width, height, origin_y, s);
-  return cudaErrorInvalidValue;
+  return gs::dispatch(a.tile_w, a.tile_h, Launch<kCull>{a, static_cast<cudaStream_t>(stream)});
 }
 
 }  // namespace
 
 // Launches the kernel on `stream` (a cudaStream_t) of device `device` and
-// returns the cudaError_t of the launch (0 on success). Supported tile
-// geometries: 32x32, 32x16, 16x16; any other returns cudaErrorInvalidValue.
-// All pointers are device pointers to contiguous arrays: gauss_id (K,) int32,
-// tile_start/tile_stop (num_tiles,) int32, means2d (P,2), conic (P,3),
-// rgb (P,3), opacity (P,), bg (3,) float32; image (H,W,3), final_t (H,W).
-// origin_y: the global pixel row of the image's first row (0: a whole frame).
+// returns the cudaError_t of the launch (0 on success). Tile geometries:
+// tile_w, tile_h >= 1 with tile_w * tile_h <= 4096 (blend.cuh); any other
+// returns cudaErrorInvalidValue. All pointers are device pointers to
+// contiguous arrays: gauss_id (K,) int32, tile_start/tile_stop (num_tiles,)
+// int32, means2d (P,2), conic (P,3), rgb (P,3), opacity (P,), bg (3,)
+// float32; image (H,W,3), final_t (H,W). origin_y: the global pixel row of
+// the image's first row (0: a whole frame).
 extern "C" int gs_composite_fwd(const void* gauss_id, const void* tile_start,
                                 const void* tile_stop, const void* means2d,
                                 const void* conic, const void* rgb, const void* opacity,
                                 const void* bg, void* image, void* final_t, int width,
                                 int height, int tile_w, int tile_h, int origin_y, int device,
                                 void* stream) {
-  return launch_geometry<true>(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity, bg,
-                               image, final_t, width, height, tile_w, tile_h, origin_y, device,
-                               stream);
+  return launch_geometry<true>({gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
+                                bg, image, final_t, width, height, tile_w, tile_h, origin_y},
+                               device, stream);
 }
 
 // The same with no box cull, arguments as gs_composite_fwd: its outputs
@@ -273,8 +283,8 @@ extern "C" int gs_composite_fwd_unculled(const void* gauss_id, const void* tile_
                                          const void* opacity, const void* bg, void* image,
                                          void* final_t, int width, int height, int tile_w,
                                          int tile_h, int origin_y, int device, void* stream) {
-  return launch_geometry<false>(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
-                                bg, image, final_t, width, height, tile_w, tile_h, origin_y,
+  return launch_geometry<false>({gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
+                                 bg, image, final_t, width, height, tile_w, tile_h, origin_y},
                                 device, stream);
 }
 
@@ -284,10 +294,7 @@ extern "C" int gs_composite_fwd_unculled(const void* gauss_id, const void* tile_
 extern "C" int gs_composite_fwd_occupancy(int tile_w, int tile_h, int device, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (tile_w == 32 && tile_h == 32) return occupancy<32, 32>(out);
-  if (tile_w == 32 && tile_h == 16) return occupancy<32, 16>(out);
-  if (tile_w == 16 && tile_h == 16) return occupancy<16, 16>(out);
-  return cudaErrorInvalidValue;
+  return gs::dispatch(tile_w, tile_h, Occupancy{out});
 }
 
 extern "C" const char* gs_error_string(int err) {

@@ -23,9 +23,11 @@ Functions:
     forward's decisions.
   - `route_grads_torch`: the plain version of the routing kernel, the sum
     of each Gaussian's entry rows.
-  - `reach_box`, `unit_of_pixel`: the plain twins of the kernels' entry box
-    and pixel units (csrc/blend.cuh), and `blend_pair_counts`, the work
-    the kernels do on given inputs.
+  - `reach_box`, `unit_of_pixel`, `block_shape`: the plain twins of the
+    kernels' entry box, pixel units and block size (csrc/blend.cuh);
+    `check_tile_geometry`, the tiles the kernels take (any tile_w x tile_h
+    of at most 4096 pixels); and `blend_pair_counts`, the work the kernels
+    do on given inputs.
   - `render_bruteforce`: the oracle ("reference" backend). It composites
     every visible Gaussian against every pixel in global depth order, with
     the same rect-overlap rule as the tiled path. Small scenes only.
@@ -135,20 +137,61 @@ def reach_box(conic: torch.Tensor, opacity: torch.Tensor) -> torch.Tensor:
     return torch.where(no_cull[:, None], torch.full_like(box, float("inf")), box)
 
 
-def unit_of_pixel(tile_w: int, tile_h: int, threads: int = 256) -> torch.Tensor:
+# Tile geometries with compile-time instantiations of the kernels (256
+# threads, units of whole rows); every other one up to MAX_TILE_PIXELS runs
+# their runtime-geometry instantiation (csrc/blend.cuh).
+COMPILED_TILE_GEOMETRIES = ((32, 32), (32, 16), (16, 16))
+MAX_TILE_PIXELS = 4096
+_MAX_THREADS = 256
+
+
+def check_tile_geometry(tile_w: int, tile_h: int) -> None:
+    """Raise a ValueError naming the geometry unless the compositing
+    kernels take it: tile_w, tile_h >= 1 and tile_w * tile_h <= 4096."""
+    if not (tile_w >= 1 and tile_h >= 1 and tile_w * tile_h <= MAX_TILE_PIXELS):
+        raise ValueError(f"tile {tile_w}x{tile_h} unsupported: the compositing kernels take "
+                         f"tile_w, tile_h >= 1 with at most {MAX_TILE_PIXELS} pixels a tile")
+
+
+def block_shape(tile_w: int, tile_h: int) -> tuple:
+    """The plain twin of the kernels' `block_shape` (csrc/blend.cuh):
+    (pixels per thread, threads per block) for a tile geometry. kPix is
+    the least of 1, 2, 4, 8, 16 with tile_w tile_h <= 256 kPix; the block
+    has tile_w tile_h / kPix threads rounded up to whole warps."""
+    check_tile_geometry(tile_w, tile_h)
+    tpx = tile_w * tile_h
+    pix = 1
+    while tpx > _MAX_THREADS * pix:
+        pix *= 2
+    threads = -(-tpx // pix)
+    return pix, -(-threads // 32) * 32
+
+
+def unit_of_pixel(tile_w: int, tile_h: int) -> torch.Tensor:
     """The plain twin of the kernels' `unit_pixel` (csrc/blend.cuh): for
     each pixel of a tile in row-major order, (tile_w * tile_h,) int64, the
-    32-pixel unit it belongs to, numbered warp * kPix + k. A block of
-    `threads` threads gives each kPix pixels; warp w owns rows w R .. w R +
-    R - 1 (R = 32 / kUnitW, kUnitW = tile_w / kPix), and its unit k is the
-    kUnitW x R block at column k kUnitW."""
-    k_pix = tile_w * tile_h // threads
-    unit_w = tile_w // k_pix
-    if k_pix * threads != tile_w * tile_h or unit_w * k_pix != tile_w or 32 % unit_w:
-        raise ValueError(f"a {tile_w}x{tile_h} tile does not cut into 32-pixel units")
+    32-pixel unit it belongs to, numbered warp * kPix + k. At a compiled
+    geometry (`COMPILED_TILE_GEOMETRIES`) a block of 256 threads gives each
+    kPix pixels; warp w owns rows w R .. w R + R - 1 (R = 32 / kUnitW,
+    kUnitW = tile_w / kPix), and its unit k is the kUnitW x R block at
+    column k kUnitW. At any other geometry unit u is the 32 pixels 32 u ..
+    32 u + 31 in row-major order (the last one short where the tile's
+    pixels are not a multiple of 32)."""
+    if (tile_w, tile_h) not in COMPILED_TILE_GEOMETRIES:
+        check_tile_geometry(tile_w, tile_h)
+        return torch.arange(tile_w * tile_h) // 32
     p = torch.arange(tile_w * tile_h)
+    k_pix = tile_w * tile_h // _MAX_THREADS
+    unit_w = tile_w // k_pix
     x, y = p % tile_w, p // tile_w
     return (y // (32 // unit_w)) * k_pix + x // unit_w
+
+
+def _slots(n: int, size: int, dev) -> torch.Tensor:
+    """(ceil(n / size), size) indices that cut 0 .. n - 1 into runs of
+    `size`, the last one short: n marks a slot past the end."""
+    idx = torch.arange(-(-n // size) * size, device=dev)
+    return torch.where(idx < n, idx, n).reshape(-1, size)
 
 
 def _entry_positions(gauss_id, tile_start, tile_stop):
@@ -176,7 +219,8 @@ def _blend_tiles(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
     stopped at), of those the pairs taken (alpha >= 1/255) and the pairs
     blended; the (entry, warp
     band) pairs in which some pixel of the band (a tile's pixels in
-    row-major order cut into `warps` equal runs) blended the entry; and the
+    row-major order cut into `warps` runs of ceil(TPX / warps)) blended the
+    entry; and the
     (entry, unit) pairs in which some pixel of the 32-pixel unit
     (`unit_of_pixel`) was open: not done and inside the entry's box
     (`reach_box`), the units the kernels evaluate."""
@@ -188,7 +232,15 @@ def _blend_tiles(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
     T = px.shape[0]
     if warps is not None:
         box = reach_box(conic, opacity)
-        by_unit = torch.argsort(unit_of_pixel(tile_w, tile_h), stable=True).to(dev)
+        # (unit, lane) -> the unit's pixels in order, the pad column where it is short
+        unit = unit_of_pixel(tile_w, tile_h)
+        order = torch.argsort(unit, stable=True)
+        lane = torch.arange(unit.numel()) - torch.searchsorted(unit[order], unit[order])
+        by_unit = torch.full((int(unit.max()) + 1, 32), unit.numel(), dtype=torch.int64)
+        by_unit[unit[order], lane] = order
+        by_unit = by_unit.to(dev)
+        by_band = _slots(px.shape[1], -(-px.shape[1] // warps), dev)
+        pad = torch.zeros((T, 1), dtype=torch.bool, device=dev)
 
     for j, has, _, gid in _entry_positions(gauss_id, tile_start, tile_stop):
         # Leave once no pixel of any tile with entries left is still open.
@@ -200,14 +252,14 @@ def _blend_tiles(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opacity,
             inside = (dx.abs() <= box[gid, 0][:, None]) & (dy.abs() <= box[gid, 1][:, None])
             counts[0] += live.sum()
             counts[1] += (live & taken).sum()
-            counts[4] += (live & inside)[:, by_unit].reshape(T, -1, 32).any(dim=-1).sum()
+            counts[4] += torch.cat([live & inside, pad], 1)[:, by_unit].any(dim=-1).sum()
         live = live & taken
         stop = live & (test < T_EPS)
         done = done | stop
         live = live & ~stop
         if warps is not None:
             counts[2] += live.sum()
-            counts[3] += live.reshape(T, warps, -1).any(dim=-1).sum()
+            counts[3] += torch.cat([live, pad], 1)[:, by_band].any(dim=-1).sum()
         w = torch.where(live, alpha * trans, torch.zeros_like(trans))
         acc = acc + rgb[gid][:, None, :] * w[..., None]
         trans = torch.where(live, test, trans)
@@ -272,8 +324,9 @@ def blend_pair_counts(gauss_id, tile_start, tile_stop, means2d, conic, rgb, opac
     entries up to and including the one it stopped at), the pairs it takes
     and the pairs it blends; the (entry, warp band) pairs in which at least
     one pixel blended the entry, where a tile's pixels in row-major order
-    are split evenly over `warps` warps as the backward kernel splits them
-    (each is one per-entry reduction over a warp in that kernel); and the
+    are cut into `warps` runs of ceil(TPX / warps), as the backward kernel
+    splits them over its 8 warps at a compiled geometry (each is one
+    per-entry reduction over a warp in that kernel); and the
     (entry, unit) pairs that both kernels evaluate: the 32-pixel units of
     `unit_of_pixel` with a pixel that is not done and lies inside the
     entry's `reach_box` (a unit without one is skipped by a warp vote)."""

@@ -12,7 +12,12 @@ first use and called through ctypes on PyTorch's current stream:
     those rows. The function of that kernel, the transpose, has its own
     counterpart: `csrc/relayout.cu` (`ops/relayout.py`).
 Each source's header comment says what bounds it and how its design
-answers that. The forward and the backward take the Pallas kernels'
+answers that. The two compositing kernels take every tile geometry of at
+most 4096 pixels (`ops/composite.check_tile_geometry`): the three of
+`ops/composite.COMPILED_TILE_GEOMETRIES` through their own compile-time
+instantiations, every other one through an instantiation for its pixels
+per thread, in a block sized to the tile (csrc/blend.cuh). The forward and
+the backward take the Pallas kernels'
 `origin_y`: the global pixel row of the image's first row, so that a strip
 of tile rows (the multi-device step, `parallel/sharding.py`) composites at
 its place in the frame; 0 is a whole frame.
@@ -33,11 +38,11 @@ import torch
 
 from gaussian_splatting_torch.ops.binning import TileLists
 from gaussian_splatting_torch.ops.composite import (
-    CompositeOut, composite_bwd_torch, composite_fwd_torch, route_grads_torch,
+    CompositeOut, check_tile_geometry, composite_bwd_torch, composite_fwd_torch,
+    route_grads_torch,
 )
 from gaussian_splatting_torch.utils import cuda_build
 
-TILE_GEOMETRIES = ((32, 32), (32, 16), (16, 16))
 _ptr, _int = cuda_build.PTR, cuda_build.INT
 _ARGTYPES = {  # the C signature of each kernel's entry point `gs_<name>`
     "composite_fwd": (_ptr,) * 10 + (_int,) * 6 + (_ptr,),
@@ -64,8 +69,7 @@ def _check(name, t, dtype, shape, device):
 
 
 def _check_geometry(means2d, width, height, tile_w, tile_h):
-    if (tile_w, tile_h) not in TILE_GEOMETRIES:
-        raise ValueError(f"tile {tile_w}x{tile_h} unsupported; use one of {TILE_GEOMETRIES}")
+    check_tile_geometry(tile_w, tile_h)
     if width <= 0 or height <= 0:
         raise ValueError(f"image size {width}x{height} must be positive")
     if means2d.device.type != "cuda":

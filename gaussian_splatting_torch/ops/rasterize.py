@@ -37,8 +37,8 @@ BACKENDS = ("auto", "reference")
 class RasterizerConfig:
     """Static rasterizer configuration.
 
-    tile_w/tile_h: screen tile size; the CUDA kernel takes 32x32 (default),
-      32x16 and 16x16.
+    tile_w/tile_h: screen tile size, 32x32 by default; the CUDA kernels take
+      any tile of at most 4096 pixels (`composite.check_tile_geometry`).
     capacity_mult: tile-list capacity as a multiple of P. The true entry
       count comes back in aux["num_entries"]; past the capacity, whole
       trailing Gaussians are dropped from the image.

@@ -21,11 +21,13 @@ with its copy of PIL's default resize, so `CameraInfo.image` holds uint8
 pixels rather than a PIL image. The Blender reader takes PIL's
 `convert("RGBA")` of every mode (`image_io.to_rgba`). The COLMAP path
 trains, as the JAX package does, on `np.asarray` of the resized image,
-which is the picture for modes L, LA, RGB and RGBA (16-bit RGB and RGBA
-read as their high bytes, a tRNS chunk ignored). For three modes that array
-is not the picture, and the port refuses them, naming the file, where the
-JAX package trains on it: "P" (palette indices as grey), "1" (0 or 1/255)
-and "I;16" (16-bit grey over 255, clipped to 1). An image that cannot be
+which is the picture for modes L, RGB and RGBA (16-bit RGB and RGBA read
+as their high bytes, 16-bit grey + alpha as RGBA, a tRNS chunk ignored).
+For four modes that array is not the picture, and the port refuses them,
+naming the file, where the JAX package trains on it: "P" (palette indices
+as grey), "1" (0 or 1/255), "I;16" (16-bit grey over 255, clipped to 1)
+and "LA" (8-bit grey + alpha, a 2-channel ground truth that the first
+step's loss cannot take). An image that cannot be
 read raises a `ValueError` naming it as the dataset lists it (`images.bin`
 / `images.txt`, or the transforms file).
 `write_colmap_scene` writes a COLMAP dataset from cameras and pixels, the
@@ -166,6 +168,8 @@ _NOT_THE_PICTURE = {
     "P": "a palette image (mode P), whose pixels PIL's np.asarray gives as palette indices",
     "1": "a 1-bit image (mode 1), whose pixels PIL's np.asarray gives as 0 or 1",
     "I;16": "a 16-bit grey image (mode I;16), whose pixels PIL's np.asarray gives as 0..65535",
+    "LA": "a grey + alpha image (mode LA), whose pixels PIL's np.asarray gives as two channels, "
+          "grey and alpha, which the path would take for a 2-channel picture",
 }
 
 

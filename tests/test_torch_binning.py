@@ -19,6 +19,7 @@ from gaussian_splatting_torch.ops.rasterize import RasterizerConfig, rasterize
 from gaussian_splatting_torch.scene.cameras import Camera
 
 from helpers import make_camera, make_gaussians
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 CAM_FIELDS = ("uid", "colmap_id", "R", "T", "fovx", "fovy", "image", "image_name", "width", "height")
 

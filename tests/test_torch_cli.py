@@ -35,6 +35,7 @@ from gaussian_splatting_tpu.cli import train as jtrain
 from gaussian_splatting_torch.cli import convert, full_eval, metrics, render, train
 from gaussian_splatting_torch.scene import ply
 from gaussian_splatting_torch.utils.image_io import read_png
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 sys.path.insert(0, os.path.dirname(__file__))
 
@@ -133,10 +134,9 @@ def covariances(p):
     return M @ M.transpose(0, 2, 1)
 
 
-def test_train_cli_matches_jax(scene_dir, jax_model, tmp_path, env):
-    src = copy_of(scene_dir, tmp_path / "scene")
-    model = str(tmp_path / "model")
-    train.main(["-s", src, "-m", model] + TRAIN_FLAGS, device="cpu")
+def assert_same_model(model, jax_model):
+    """The port's and the JAX train CLI's models after 5 iterations, by the
+    module docstring's rules."""
     rel = "point_cloud/iteration_5/point_cloud.ply"
     got = ply.load_gaussians_ply(os.path.join(model, rel))
     want = ply.load_gaussians_ply(os.path.join(jax_model, rel))
@@ -149,6 +149,48 @@ def test_train_cli_matches_jax(scene_dir, jax_model, tmp_path, env):
     assert err.max() <= 1e-4, err.max()
     for f in ("input.ply", "cameras.json"):
         assert open(os.path.join(model, f), "rb").read() == open(os.path.join(jax_model, f), "rb").read()
+
+
+def test_train_cli_matches_jax(scene_dir, jax_model, tmp_path, env):
+    src = copy_of(scene_dir, tmp_path / "scene")
+    model = str(tmp_path / "model")
+    train.main(["-s", src, "-m", model] + TRAIN_FLAGS, device="cpu")
+    assert_same_model(model, jax_model)
+
+
+@pytest.mark.parametrize("tiles,tile", [
+    (["--tile_size", "8"], (8, 32)),  # --tile_size_y defaults to 32 in both packages
+    (["--tile_size", "8", "--tile_size_y", "8"], (8, 8)),
+    (["--tile_size", "16", "--tile_size_y", "8"], (16, 8)),
+])
+def test_train_cli_matches_jax_at_other_tiles(scene_dir, tmp_path, env, tiles, tile):
+    """Tiles the compositing kernels take since they take any geometry of
+    at most 4096 pixels (8x8: fewer pixels than a block of 256 threads;
+    8x32 and 16x8: not square), through both train CLIs."""
+    jax_model = str(tmp_path / "jax_model")
+    jtrain.main(["-s", copy_of(scene_dir, tmp_path / "jax_scene"), "-m", jax_model]
+                + TRAIN_FLAGS + tiles)
+    model = str(tmp_path / "model")
+    scene, trainer = train.main(["-s", copy_of(scene_dir, tmp_path / "scene"), "-m", model]
+                                + TRAIN_FLAGS + tiles, device="cpu")
+    assert (trainer.raster_cfg.tile_w, trainer.raster_cfg.tile_h) == tile
+    assert_same_model(model, jax_model)
+
+
+@pytest.mark.parametrize("flags", [["--tile_size", "129"], ["--tile_size", "64", "--tile_size_y", "65"],
+                                   ["--tile_size", "-8"], ["--tile_size_y", "4097"]])
+def test_clis_refuse_tiles_the_kernels_do_not_take(tmp_path, capsys, flags):
+    """More than 4096 pixels, or a side below 1: refused at parse time,
+    naming the flags, before the dataset or model (here missing) loads."""
+    for main, argv in ((train.main, ["-s", str(tmp_path / "missing"), "-m", str(tmp_path / "out")]),
+                       (render.main, ["-m", str(tmp_path / "missing")])):
+        if main is train.main and flags[0] == "--tile_size_y":
+            argv += ["--tile_size", "1"]  # the train CLI's --tile_size defaults to 32
+        with pytest.raises(SystemExit) as exc:
+            main(argv + flags, device="cpu")
+        assert exc.value.code == 2
+        assert "--tile_size" in capsys.readouterr().err
+    assert not os.path.exists(tmp_path / "out")
 
 
 def test_render_cli_on_a_jax_model(jax_model, tmp_path, env):

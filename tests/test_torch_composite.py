@@ -21,6 +21,7 @@ from gaussian_splatting_torch.ops.composite_cuda import composite_fwd, composite
 from gaussian_splatting_torch.ops.projection import PreprocessOut
 
 from helpers import make_camera, make_gaussians
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 ATOL = 2e-5
 BG = np.array([0.1, 0.2, 0.3], np.float32)
@@ -145,8 +146,9 @@ def test_wrapper_uses_plain_version_on_cpu():
     assert composite_fwd.launches == before  # no kernel launch on the CPU
     with pytest.raises(ValueError, match="CUDA"):
         composite_fwd_cuda(*args)
-    with pytest.raises(ValueError, match="unsupported"):
-        composite_fwd_cuda(*args[:-2], 8, 8)
+    for tile in ((128, 64), (0, 8)):  # more than 4096 pixels; a side below 1
+        with pytest.raises(ValueError, match=f"tile {tile[0]}x{tile[1]} unsupported"):
+            composite_fwd_cuda(*args[:-2], *tile)
 
 
 def assert_taken_inside_box(gid, means2d, conic, opacity, px, py):
@@ -207,16 +209,46 @@ def test_units_are_compact_blocks_of_32(tile):
         assert w * h == 32 and w == tile[0] // k_pix  # a full kUnitW x R block
 
 
+@pytest.mark.parametrize("tile", [(8, 8), (16, 8), (8, 16), (24, 20), (64, 64), (7, 7), (1, 1)])
+def test_other_geometries_cut_into_runs_of_32(tile):
+    """A geometry with no compiled instantiation: unit u is the 32 pixels
+    32 u .. 32 u + 31 in row-major order, and the block gives each thread
+    kPix (a power of two up to 16) pixels in whole warps of at most 256
+    threads, with fewer than one warp's kPix slots to spare."""
+    tpx = tile[0] * tile[1]
+    unit = composite.unit_of_pixel(*tile)
+    np.testing.assert_array_equal(unit.numpy(), np.arange(tpx) // 32)
+    pix, threads = composite.block_shape(*tile)
+    assert pix in (1, 2, 4, 8, 16) and threads % 32 == 0 and threads <= 256
+    assert threads * pix >= tpx > threads * pix - 32 * pix
+    assert (pix == 1) or tpx > 256 * pix // 2  # the least kPix that fits
+
+
+@pytest.mark.parametrize("tile", [(4097, 1), (65, 64), (0, 16), (16, -1)])
+def test_geometries_the_kernels_do_not_take_raise(tile):
+    with pytest.raises(ValueError, match=f"tile {tile[0]}x{tile[1]} unsupported"):
+        composite.check_tile_geometry(*tile)
+    with pytest.raises(ValueError, match="unsupported"):
+        composite.unit_of_pixel(*tile)
+
+
 def brute_force_units(prep, lists, W, H, tile):
     """(entry, unit) pairs with an open pixel inside the entry's box, and
     those with any open pixel, tile by tile and entry by entry, with the
     units taken from the kernels' unit_pixel formula lane by lane."""
     px, py, outside = composite._tile_pixels(W, H, *tile, "cpu")
     box = composite.reach_box(prep.conic, prep.opacity)
-    k_pix = tile[0] * tile[1] // 256
-    unit_w = tile[0] // k_pix
-    units = [[(w * (32 // unit_w) + lane // unit_w) * tile[0] + k * unit_w + lane % unit_w
-              for lane in range(32)] for w in range(8) for k in range(k_pix)]
+    tpx = tile[0] * tile[1]
+    if tile in composite.COMPILED_TILE_GEOMETRIES:
+        k_pix = tpx // 256
+        unit_w = tile[0] // k_pix
+        units = [[(w * (32 // unit_w) + lane // unit_w) * tile[0] + k * unit_w + lane % unit_w
+                  for lane in range(32)] for w in range(8) for k in range(k_pix)]
+    else:  # lane of unit k of warp w: pixel (w kPix + k) 32 + lane, if inside the tile
+        k_pix, threads = composite.block_shape(*tile)
+        units = [[p for p in ((w * k_pix + k) * 32 + lane for lane in range(32)) if p < tpx]
+                 for w in range(threads // 32) for k in range(k_pix)]
+        units = [u for u in units if u]
     in_box = any_open = 0
     for t in range(px.shape[0]):
         done, trans = outside[t].clone(), torch.ones(px.shape[1])
@@ -239,6 +271,8 @@ def brute_force_units(prep, lists, W, H, tile):
     (64, 48, (16, 16), dict(P=300, seed=9, spread=0.3, scale_mu=-1.8)),
     (61, 47, (32, 32), dict(P=200, seed=0)),
     (64, 48, (32, 16), dict(P=300, seed=9, spread=0.3, scale_mu=-1.8)),
+    (61, 47, (8, 8), dict(P=200, seed=0)),
+    (64, 48, (24, 20), dict(P=300, seed=9, spread=0.3, scale_mu=-1.8)),
 ])
 def test_unit_counts_match_a_brute_force(W, H, tile, scene):
     _, prep, lists, _ = setup(W, H, tile, **scene)

@@ -38,10 +38,11 @@ import torch
 from gaussian_splatting_torch import OptimizationConfig, init_train_state, train_step
 from gaussian_splatting_torch.ops import binning, knn
 from gaussian_splatting_torch.ops.composite import (
-    composite_bwd_torch, composite_fwd_torch, route_grads_torch,
+    COMPILED_TILE_GEOMETRIES, block_shape, composite_bwd_torch, composite_fwd_torch,
+    route_grads_torch,
 )
 from gaussian_splatting_torch.ops.composite_cuda import (
-    TILE_GEOMETRIES, composite_bwd, composite_bwd_cuda, composite_bwd_occupancy, composite_fwd,
+    composite_bwd, composite_bwd_cuda, composite_bwd_occupancy, composite_fwd,
     composite_fwd_cuda, composite_fwd_occupancy, composite_fwd_unculled_cuda, route_grads,
     route_grads_cuda,
 )
@@ -61,6 +62,12 @@ from gaussian_splatting_torch.tools.consumers import (
 from gaussian_splatting_torch.training import eval_render, train_state_from_numpy
 
 pytestmark = pytest.mark.gpu
+
+# The compiled geometries, then runtime ones: fewer pixels than 256 threads
+# (8x8: a 64-thread block), non-square both ways, a tile that is a multiple
+# of neither 32 nor 256 pixels (24x20: 480 in a block of 256 with 2 pixels
+# each, 32 slots past the tile), and the largest (64x64, 16 pixels each).
+TILE_GEOMETRIES = COMPILED_TILE_GEOMETRIES + ((8, 8), (16, 8), (8, 16), (24, 20), (64, 64))
 
 
 def cuda_device():
@@ -381,11 +388,10 @@ def test_forward_box_cull_changes_no_bit(tile, scene):
     assert composite_fwd.launches == before + 1  # the check's launch is not counted
     assert torch.equal(out.image, full.image) and torch.equal(out.final_t, full.final_t)
     assert float(out.final_t.min()) < 0.5  # the splats blend
-    if scene == "ragged":
-        # Not for the thin splats: the conic's condition number scales the
-        # rounding gap between the kernel's FMAs and the plain version's
-        # separate roundings, which then flips decisions past the tolerance.
-        assert_close(out, composite_fwd_torch(*args))
+    # The thin splats too: on CUDA tensors the plain version rounds the
+    # kernels' FMAs once (ops/composite.py::_power, _transmit), so their
+    # near-singular conics no longer flip decisions between the two.
+    assert_close(out, composite_fwd_torch(*args))
 
 
 @pytest.mark.parametrize("tile", TILE_GEOMETRIES)
@@ -457,7 +463,10 @@ def test_routing_on_hostile_layouts(case):
     assert torch.equal(sums, again)  # two runs, the same bits
     assert bool(torch.isfinite(sums).all())  # no NaN row outside a run was read
     assert bool((sums[count == 0] == 0).all())
-    assert_grads_close(sums, route_grads_torch(rows, offset, count, P))
+    # The plain version in float64: in float32 on the card its index_add_
+    # sums a run of a million rows by atomics, in an order that changes
+    # from run to run, and alone strays up to 1e-4 of a field's norm.
+    assert_grads_close(sums, route_grads_torch(rows.double(), offset, count, P))
 
 
 def test_occupancy_queries():
@@ -465,7 +474,8 @@ def test_occupancy_queries():
     for tile in TILE_GEOMETRIES:
         for query in (composite_fwd_occupancy, composite_bwd_occupancy):
             occ = query(*tile, dev.index)
-            assert occ["registers"] > 0 and occ["threads"] % 32 == 0 and occ["blocks_per_sm"] >= 1
+            assert occ["registers"] > 0 and occ["blocks_per_sm"] >= 1
+            assert occ["threads"] == block_shape(*tile)[1]  # the plain twin's block size
     for r in (1, 3, 16, 32):
         occ = consume_t_occupancy(r, dev.index)
         assert occ["registers"] > 0 and occ["threads"] == 256 and occ["blocks_per_sm"] >= 1

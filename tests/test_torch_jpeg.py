@@ -23,6 +23,7 @@ import pytest
 from PIL import Image
 
 from gaussian_splatting_torch.utils import cuda_build, image_io, jpeg
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 FIXTURES = Path(__file__).parent / "fixtures" / "torch_jpeg"
 

@@ -24,6 +24,7 @@ from gaussian_splatting_torch.utils.image_io import write_png
 from test_lpips import (
     make_random_alex_weights, make_random_squeeze_weights, make_random_weights,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 MAKERS = {"vgg": make_random_weights, "alex": make_random_alex_weights,
           "squeeze": make_random_squeeze_weights}

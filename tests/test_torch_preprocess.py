@@ -17,6 +17,7 @@ from gaussian_splatting_torch.ops.projection import PreprocessOut, preprocess
 from gaussian_splatting_torch.scene.cameras import Camera
 
 from helpers import make_camera, make_gaussians
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 INT_FIELDS = ("radii", "rect_min", "rect_max", "tiles_touched", "visible")
 CAM_FIELDS = ("uid", "colmap_id", "R", "T", "fovx", "fovy", "image", "image_name", "width", "height")

@@ -25,6 +25,7 @@ from gaussian_splatting_tpu.ops.rasterize import RasterizerConfig as JaxConfig
 from gaussian_splatting_tpu.ops.rasterize import rasterize as jax_rasterize
 from gaussian_splatting_tpu.scene.cameras import Camera as JaxCamera
 from gaussian_splatting_torch.tools import profile_stages as ps
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 P, W, H, TILE = 300, 128, 96, (32, 16)
 

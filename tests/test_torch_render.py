@@ -23,6 +23,7 @@ from gaussian_splatting_torch.scene.cameras import Camera
 from gaussian_splatting_torch.scene.gaussians import params_from_numpy, params_from_ply
 
 from helpers import make_camera, make_gaussians
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 FIXTURE_DIR = os.path.join(os.path.dirname(__file__), "fixtures")
 ATOL = 2e-5

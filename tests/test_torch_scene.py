@@ -318,11 +318,15 @@ def test_colmap_png_forms_match_jax(tmp_path, monkeypatch, resolution):
     assert_same_cameras(scene.get_test_cameras(), jscene.get_test_cameras())
 
 
-@pytest.mark.parametrize("form,mode", [("palette 8-bit", "P"), ("grey 1-bit", "1"), ("grey 16-bit", "I;16")])
+@pytest.mark.parametrize("form,mode", [("palette 8-bit", "P"), ("grey 1-bit", "1"), ("grey 16-bit", "I;16"),
+                                       ("grey + alpha 8-bit", "LA")])
 def test_colmap_refuses_modes_that_are_not_the_picture(tmp_path, form, mode):
     """The JAX package's COLMAP path trains on np.asarray of the resized
-    image, which for these modes is palette indices, 0 or 1, or 16-bit
-    values: not the picture. The port refuses them, naming the file."""
+    image, which for these modes is palette indices, 0 or 1, 16-bit
+    values, or grey and alpha as two channels: not the picture. The port
+    refuses them, naming the file. A 16-bit grey + alpha PNG is mode RGBA
+    in PIL (grey repeated to RGB), the picture: both packages train on it,
+    and it stays in test_colmap_png_forms_match_jax."""
     from test_torch_image_io import form_cases
 
     src = str(tmp_path / "data")

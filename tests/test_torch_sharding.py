@@ -36,6 +36,7 @@ from gaussian_splatting_torch.parallel import sharding
 from gaussian_splatting_torch.scene.cameras import Camera
 from gaussian_splatting_torch.scene.gaussians import PARAM_NAMES, params_from_numpy
 from gaussian_splatting_torch.training import init_train_state, train_step
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)

@@ -48,6 +48,7 @@ from gaussian_splatting_torch.scene.optim import adam_update, expon_lr
 from gaussian_splatting_torch.training import loss_and_grads, train_state_from_numpy
 
 from helpers import make_camera, make_gaussians
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 CAM_FIELDS = ("uid", "colmap_id", "R", "T", "fovx", "fovy", "image", "image_name", "width", "height")
 BG = np.array([0.1, 0.2, 0.3], np.float32)
@@ -184,6 +185,8 @@ def grads_both(W, H, tile, P, seed, **scene_kw):
     (64, 48, (32, 32), 200, 0, {}),
     (61, 47, (16, 16), 200, 4, {}),
     (64, 48, (32, 16), 300, 9, dict(spread=0.3, scale_mu=-1.8)),  # saturated
+    (61, 47, (8, 8), 200, 4, {}),  # a geometry the kernels run at runtime
+    (64, 48, (24, 20), 300, 9, dict(spread=0.3, scale_mu=-1.8)),
 ])
 def test_rasterize_gradients_match_jax(W, H, tile, P, seed, kw):
     got, ref = grads_both(W, H, tile, P, seed, **kw)

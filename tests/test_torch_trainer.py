@@ -43,6 +43,7 @@ from gaussian_splatting_torch.scene.cameras import Camera
 from gaussian_splatting_torch.scene.gaussians import PARAM_NAMES
 
 from helpers import make_camera, make_gaussians
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 W, H = 64, 48
 CAM_FIELDS = ("uid", "colmap_id", "R", "T", "fovx", "fovy", "image", "image_name", "width", "height")
