@@ -9,8 +9,9 @@ Phases (any failure exits non-zero; none is caught and passed over):
      `nvidia-smi --query-gpu=name,power.limit` line.
   2. build: compile every kernel under gaussian_splatting_torch/csrc with
      nvcc (one process per source, all at once) and print ptxas's
-     register / shared-memory / spill report; beside them the host JPEG
-     decoder (csrc/jpeg_decode.cc, host C++, `c++`), with its build time.
+     register / shared-memory / spill report; beside them the host sources
+     (csrc/jpeg_decode.cc, the JPEG decoder, and csrc/image_codecs.cc, TIFF's
+     LZW and PackBits and BMP's RLE; host C++, `c++`), with their build time.
   3. kernels vs plain: preprocess and bin a scene once, feed the same sorted
      lists to each CUDA kernel and to its plain torch version. Random scenes
      at 128x128 and 333x197 for the three compiled tile geometries (32x32,
@@ -105,9 +106,11 @@ Phases (any failure exits non-zero; none is caught and passed over):
      quality, the standard Huffman tables; view_01 with a restart marker
      every MCU row and one flipped bit of entropy-coded data, view_02
      with extraneous bytes before its DQT and SOS markers, both of which
-     libjpeg only warns about), named so in images.bin, the 2 test views
-     as PNG. The port's readers must give back every camera (R, T within
-     1e-12), every PNG pixel and each JPEG view within 30 dB PSNR of its
+     libjpeg only warns about), but view_03 as a 16-bit RGB TIFF (LZW with
+     Predictor 2, the render in each sample's high byte) and view_04 as a
+     24-bit BMP, named so in images.bin, the 2 test views as PNG. The port's
+     readers must give back every camera (R, T within 1e-12), every PNG,
+     TIFF and BMP pixel and each JPEG view within 30 dB PSNR of its
      render; the two damaged views decoded by the compiled decoder (the
      one the train CLI's Scene runs) bit-equal to the plain one, their
      PSNR printed; and a
@@ -117,7 +120,14 @@ Phases (any failure exits non-zero; none is caught and passed over):
      the reader's anti-diagonal path) must decode bit-equal. The compiled
      JPEG decoder must equal the plain one (utils/jpeg.py) bit for bit on
      view_01 and on every file of tests/fixtures/torch_jpeg, and PIL's
-     pixels committed beside each. Then
+     pixels committed beside each. One view's pixels at 1920x1080 in
+     each form beyond PNG and 3-component JPEG (TIFF raw 8- and 16-bit,
+     PackBits, LZW + Predictor 2 at 16 bits, deflate + Predictor 2; BMP
+     24-bit and RLE8; CMYK and YCCK JPEG) through `image_io.open_image`:
+     the lossless ones bit-equal to what was written, the JPEGs mode CMYK
+     within 30 dB PSNR and `to_rgba` PIL's cmyk2rgb of what they give; and
+     every file of tests/fixtures/torch_images (BMP, TIFF, CMYK and YCCK
+     JPEG) must give PIL's mode, pixels and RGBA committed beside it. Then
      `cli.train.main`
      (-r 1 --eval, 200 iterations, reports at 100 and 200, a PLY at 100 and
      200, a checkpoint at 200, a densify every 20 steps from 40 to 140, the
@@ -145,7 +155,8 @@ Phases (any failure exits non-zero; none is caught and passed over):
      views; one forward per render-CLI view. Prints the PNG encode and
      decode ms at 1080p (the decode of the port's Sub-filtered files and
      of the five-filter file), the JPEG decode ms (compiled at 1080p,
-     plain on view_01, both on the 1237x822 fixtures), one 1920 -> 1600
+     plain on view_01, both on the 1237x822 fixtures), the TIFF and BMP
+     views' and each 1080p form's decode ms, one 1920 -> 1600
      resize, the train CLI's wall time, its scene load and step median (from the `iter_time_ms` it records in
      each history entry), the time of tensorboard's image panels where
      tensorboard imports and which optional packages import, the render
@@ -162,12 +173,17 @@ Phases (any failure exits non-zero; none is caught and passed over):
      colour straight (C / alpha where alpha >= 1/255, else 0). Train
      frames 1, 3, 5, 7, 9 are written by this script's own PNG writer as
      16-bit RGBA, palette + tRNS, Adam7 RGBA, 8-bit grey + alpha and 8-bit
-     RGB with a tRNS colour; the others 8-bit RGBA. Every frame's
+     RGB with a tRNS colour, frame 11 as a CMYK JPEG (Adobe transform 0,
+     the frame composited on white) and frame 13 as a 32-bit BI_BITFIELDS
+     BMP with an alpha mask, each file named r_<i>.png as the transforms
+     file lists it; the others 8-bit RGBA. Every lossless frame's
      `image_io.open_image` + `to_rgba` must equal, bit for bit, the RGBA
      this script derives by PIL's rules (high bytes, palette colours and
-     tRNS alphas, grey spread, alpha 0 on the tRNS colour); the ms per
-     form is printed. Then `cli.train.main` (-s -m --white_background
-     --eval, 300 iterations, reports at 150 and 300, a PLY at 300, a
+     tRNS alphas, grey spread, alpha 0 on the tRNS colour, a BMP's BGRA
+     under its masks); the CMYK JPEG must read as mode CMYK within 30 dB
+     PSNR of the CMYK written, and its `to_rgba` be PIL's cmyk2rgb of
+     those pixels; the ms per form is printed. Then `cli.train.main`
+     (-s -m --white_background --eval, 300 iterations, reports at 150 and 300, a PLY at 300, a
      densify every 30 steps from 30 to 240, the reset at 180) from the
      default 100,000 random points (np.random seeded by the script): the
      run reaches 300 with finite losses whose last 20 average below the
@@ -332,6 +348,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 TRAINED_PLY = os.path.join(ROOT, "assets", "trained_r5.ply")
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 JPEG_FIXTURES = os.path.join(FIXTURES, "torch_jpeg")
+IMAGE_FIXTURES = os.path.join(FIXTURES, "torch_images")
 W_MAIN, H_MAIN = 1920, 1080
 FRAMES = 50  # p80 has 10 frames beyond it
 STEPS, TIMED_STEPS = 20, 15  # train steps; latency over the last 15 (p80 has 3 beyond it)
@@ -350,6 +367,10 @@ CLI_JPEG_QUALITY, CLI_RESTART_VIEW = 95, 1  # the train view with a restart mark
 # entropy-coded byte in the restart view (its damage ends at the next
 # restart marker), extraneous bytes before two markers in another
 CLI_FLIPPED_VIEW, CLI_EXTRANEOUS_VIEW = CLI_RESTART_VIEW, 2
+# two train views in the other forms capture tools write: a 16-bit RGB TIFF
+# (LZW with Predictor 2; each sample the render's value in its high byte)
+# and a 24-bit BMP
+CLI_TIFF_VIEW, CLI_BMP_VIEW = 3, 4
 CLI_TRAIN = ["-r", "1", "--eval", "--iterations", str(CLI_STEPS),
              "--test_iterations", *map(str, CLI_REPORTS), "--save_iterations", str(CLI_SAVE),
              "--checkpoint_iterations", str(CLI_STEPS), "--densify_from_iter", "20",
@@ -369,9 +390,11 @@ BLENDER_FLAGS = ["--white_background", "--eval", "--iterations", str(BLENDER_STE
                  "--densify_from_iter", "30", "--densification_interval", "30",
                  "--densify_until_iter", "240", "--opacity_reset_interval", "180",
                  "--disable_viewer", "--quiet"]
-# train frame -> its PNG form; the others are 8-bit RGBA, as NeRF-synthetic ships
+# train frame -> its form (PNG unless named; each file named r_<i>.png, as
+# the transforms file lists it, read by its signature); the others are
+# 8-bit RGBA PNG, as NeRF-synthetic ships
 BLENDER_FORMS = {1: "16-bit RGBA", 3: "palette + tRNS", 5: "Adam7 RGBA", 7: "grey + alpha",
-                 9: "RGB + tRNS colour"}
+                 9: "RGB + tRNS colour", 11: "CMYK JPEG", 13: "32-bit BMP with alpha"}
 
 SUM_K = (1_900_544, 1_339_001)  # the profiler's capacity at its defaults, and an odd K
 LAUNCH_COUNTERS = {"composite_fwd": composite_fwd, "composite_bwd": composite_bwd,
@@ -1044,18 +1067,23 @@ def _pack(values, lengths):
     return bytes(data).replace(b"\xff", b"\xff\x00")
 
 
+# the table (quantisation and Huffman) of each component: luma for Y (or
+# C) and K, chroma for the other two
+TABLE_OF = np.array([0, 1, 1, 0])
+
+
 def _entropy(coefs, comp, tables):
     """Huffman-code quantised blocks (B, 64, zig-zag order) of one
-    restart segment, `comp` the component of each block (0 luma, 1 and 2
-    chroma): DC differences per component, AC as (run, size) symbols with
-    ZRL and EOB; the luma tables for component 0, the chroma ones else."""
+    restart segment, `comp` the component of each block: DC differences
+    per component, AC as (run, size) symbols with ZRL and EOB; each
+    component's tables by TABLE_OF."""
     B = len(coefs)
     dc = coefs[:, 0]
     diff = np.empty(B, np.int64)
     for c in np.unique(comp):
         idx = np.nonzero(comp == c)[0]
         diff[idx] = np.diff(dc[idx], prepend=0)
-    comp = np.minimum(comp, 1)
+    comp = TABLE_OF[comp]
     b_idx, k = np.nonzero(coefs[:, 1:])
     k = k + 1
     first = np.ones(len(k), bool)
@@ -1091,11 +1119,18 @@ def _entropy(coefs, comp, tables):
     return _pack(values[order], lengths[order])
 
 
-def encode_jpeg(pixels, quality=95, sampling=(2, 2), restart_interval=0):
-    """Baseline JFIF bytes of (H, W, 3) or (H, W[, 1]) uint8 `pixels`: the
-    luma sampled (h, v) = `sampling` times the chroma's (3 channels), a
-    float DCT, the Annex K tables at libjpeg's `quality` scaling, and
-    `restart_interval` MCUs between restart markers (0: none)."""
+def encode_jpeg(pixels, quality=95, sampling=(2, 2), restart_interval=0, adobe=None, k_sampled=False):
+    """Baseline bytes of (H, W, 3), (H, W[, 1]) or (H, W, 4) uint8 `pixels`:
+    the first component sampled (h, v) = `sampling` times the second and
+    third's, a float DCT, the Annex K tables at libjpeg's `quality`
+    scaling, and `restart_interval` MCUs between restart markers (0: none).
+    3 channels are RGB, written as YCbCr under a JFIF marker. 4 channels
+    are CMYK as libjpeg takes it (the samples the file stores for CMYK):
+    with `adobe` 2 written as YCCK (libjpeg's cmyk_ycck_convert: YCbCr of
+    255 - C, 255 - M, 255 - Y, K kept) under an Adobe marker of transform
+    2, else as stored, under an Adobe marker of transform `adobe` (0) or
+    none (None); K sampled as the first component, or as the second and
+    third where `k_sampled`."""
     a = np.asarray(pixels, np.float64)
     a = a[..., None] if a.ndim == 2 else a
     H, W, C = a.shape
@@ -1103,14 +1138,20 @@ def encode_jpeg(pixels, quality=95, sampling=(2, 2), restart_interval=0):
     hs, vs = (1, 1) if grey else sampling
     mcux, mcuy = -(-W // (8 * hs)), -(-H // (8 * vs))
     a = np.pad(a, ((0, mcuy * 8 * vs - H), (0, mcux * 8 * hs - W), (0, 0)), mode="edge")
+    factors = [(hs, vs)] + [(1, 1)] * min(C - 1, 2) + ([(1, 1) if k_sampled else (hs, vs)] if C == 4 else [])
     if grey:
         planes = [a[..., 0]]
     else:
-        r, g, b = a[..., 0], a[..., 1], a[..., 2]
-        y = 0.299 * r + 0.587 * g + 0.114 * b
-        cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128
-        cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128
-        planes = [y] + [p.reshape(mcuy * 8, vs, mcux * 8, hs).mean(axis=(1, 3)) for p in (cb, cr)]
+        if C == 4 and adobe != 2:
+            planes = [a[..., i] for i in range(4)]
+        else:
+            r, g, b = (255 - a[..., i] if C == 4 else a[..., i] for i in range(3))
+            y = 0.299 * r + 0.587 * g + 0.114 * b
+            cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128
+            cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128
+            planes = [y, cb, cr] + ([a[..., 3]] if C == 4 else [])
+        planes = [p if f == (hs, vs) else p.reshape(mcuy * 8, vs, mcux * 8, hs).mean(axis=(1, 3))
+                  for p, f in zip(planes, factors)]
     qts = [_scaled(Q_LUMA, quality), _scaled(Q_CHROMA, quality)]
     x = np.arange(8)
     M = np.sqrt(np.where(x[:, None] == 0, 1 / 8, 2 / 8)) * np.cos((2 * x[None, :] + 1) * x[:, None] * np.pi / 16)
@@ -1119,11 +1160,11 @@ def encode_jpeg(pixels, quality=95, sampling=(2, 2), restart_interval=0):
         rows, cols = p.shape[0] // 8, p.shape[1] // 8
         t = (p - 128).reshape(rows, 8, cols, 8).transpose(0, 2, 1, 3)
         f = M @ t @ M.T
-        q = np.round(f.reshape(rows, cols, 64) / qts[min(i, 1)]).astype(np.int64)[..., ENC_ZIGZAG]
-        h, v = (hs, vs) if i == 0 else (1, 1)
+        q = np.round(f.reshape(rows, cols, 64) / qts[TABLE_OF[i]]).astype(np.int64)[..., ENC_ZIGZAG]
+        h, v = factors[i]
         blocks.append(q.reshape(mcuy, v, mcux, h, 64).transpose(0, 2, 1, 3, 4).reshape(mcuy * mcux, h * v, 64))
     mcu = np.concatenate(blocks, axis=1)  # (MCUs, blocks per MCU, 64) in scan order
-    comp = np.array([0] * hs * vs + ([] if grey else [1, 2]))
+    comp = np.array([i for i, (h, v) in enumerate(factors) for _ in range(h * v)])
     tables = [((_codes(*HUFFMAN[0, t])), _codes(*HUFFMAN[1, t])) for t in range(2)]
     per = restart_interval or len(mcu)
     segs = [_entropy(mcu[s:s + per].reshape(-1, 64), np.tile(comp, len(mcu[s:s + per])), tables)
@@ -1134,21 +1175,194 @@ def encode_jpeg(pixels, quality=95, sampling=(2, 2), restart_interval=0):
     def segment(marker, body):
         return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
 
-    ncomp = 1 if grey else 3
-    sof = struct.pack(">BHHB", 8, H, W, ncomp) + bytes([1, hs << 4 | vs, 0])
-    sos = bytes([ncomp, 1, 0x00])
-    if not grey:
-        sof += bytes([2, 0x11, 1, 3, 0x11, 1])
-        sos += bytes([2, 0x11, 3, 0x11])
+    sof = struct.pack(">BHHB", 8, H, W, C) + b"".join(
+        bytes([i + 1, h << 4 | v, TABLE_OF[i]]) for i, (h, v) in enumerate(factors))
+    sos = bytes([C]) + b"".join(bytes([i + 1, TABLE_OF[i] * 0x11]) for i in range(C))
     dqt = b"".join(bytes([t]) + qts[t][ENC_ZIGZAG].astype(np.uint8).tobytes() for t in range(1 if grey else 2))
     dht = b"".join(bytes([c << 4 | t]) + bytes(HUFFMAN[c, t][0]) + bytes(HUFFMAN[c, t][1])
                    for c in range(2) for t in range(1 if grey else 2))
-    out = (b"\xff\xd8" + segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    if C == 4:
+        app = segment(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, adobe)) if adobe is not None else b""
+    else:
+        app = segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    out = (b"\xff\xd8" + app
            + segment(0xDB, dqt) + segment(0xC0, sof) + segment(0xC4, dht)
            + (segment(0xDD, struct.pack(">H", restart_interval)) if restart_interval else b"")
            + segment(0xDA, sos + bytes([0, 63, 0])) + scan + b"\xff\xd9")
     return out
 
+
+
+# ---- TIFF and BMP writers, for the CLI phase's dataset and decode times ----
+# The port writes neither (the JAX package writes neither); the files are
+# built from the formats' specifications, as tests/torch_image_writers.py
+# builds its own.
+
+def lzw_encode(data: bytes) -> bytes:
+    """TIFF LZW as libtiff's LZWEncode writes it: a Clear first, 9 to
+    12-bit codes most significant bit first, the width grown when the next
+    entry would not fit, a Clear when the table reaches 4094 entries."""
+    codes, widths = [256], [9]
+    nbits, free, table = 9, 258, {}
+
+    def grow():
+        nonlocal nbits, free, table
+        free += 1
+        if free == 4094:
+            codes.append(256), widths.append(nbits)
+            nbits, free, table = 9, 258, {}
+        elif free > (1 << nbits) - 1:
+            nbits += 1
+
+    w = data[0]
+    for b in data[1:]:
+        c = table.get((w << 8) | b)
+        if c is not None:
+            w = c
+            continue
+        codes.append(w), widths.append(nbits)
+        table[(w << 8) | b] = free
+        grow()
+        w = b
+    codes.append(w), widths.append(nbits)
+    grow()
+    codes.append(257), widths.append(nbits)
+    c, wd = np.asarray(codes, np.int64), np.asarray(widths)
+    bits = (c[:, None] >> (11 - np.arange(12))) & 1
+    return np.packbits(bits[np.arange(12)[None, :] >= 12 - wd[:, None]].astype(np.uint8)).tobytes()
+
+
+def packbits_encode(data: bytes) -> bytes:
+    """PackBits: runs of 2 to 128 equal bytes, literals of up to 128."""
+    a = np.frombuffer(data, np.uint8)
+    starts = np.flatnonzero(np.concatenate([[True], a[1:] != a[:-1]]))
+    ends = np.concatenate([starts[1:], [len(a)]])
+    out, literal = bytearray(), bytearray()
+
+    def flush():
+        for i in range(0, len(literal), 128):
+            out.extend(bytes([len(literal[i:i + 128]) - 1]) + literal[i:i + 128])
+        literal.clear()
+
+    for s, e in zip(starts.tolist(), ends.tolist()):
+        if e - s == 1:
+            literal.append(int(a[s]))
+            continue
+        flush()
+        for i in range(s, e, 128):
+            n = min(128, e - i)
+            out.extend(bytes([257 - n, int(a[s])]) if n > 1 else bytes([0, int(a[s])]))
+    flush()
+    return bytes(out)
+
+
+def tiff_form(rgb, depth, compression=1, predictor=None, rows_per_strip=16) -> bytes:
+    """A little-endian RGB TIFF of (H, W, 3) samples at 8 or 16 bits, in
+    strips of `rows_per_strip` rows: uncompressed (1), LZW (5), deflate (8)
+    or PackBits (32773), with Predictor 2 (each sample less its left
+    neighbour's, in its own unsigned type) where asked."""
+    H, W, _ = rgb.shape
+    dt = "<u2" if depth == 16 else "u1"
+    bodies = []
+    for y in range(0, H, rows_per_strip):
+        strip = rgb[y:y + rows_per_strip].astype(dt)
+        if predictor == 2:
+            strip = np.concatenate([strip[:, :1], strip[:, 1:] - strip[:, :-1]], axis=1)
+        raw = strip.tobytes()
+        bodies.append({1: lambda b: b, 5: lzw_encode, 8: lambda b: zlib.compress(b, 6),
+                       32773: packbits_encode}[compression](raw))
+    tags = [(256, 4, [W]), (257, 4, [H]), (258, 3, [depth] * 3), (259, 3, [compression]), (262, 3, [2]),
+            (273, 4, [0] * len(bodies)), (277, 3, [3]), (278, 3, [rows_per_strip]),
+            (279, 4, [len(b) for b in bodies])] + ([(317, 3, [predictor])] if predictor else [])
+    data_at = 8 + 2 + 12 * len(tags) + 4
+    blobs, entries = b"", []
+    strips_at = data_at + sum(-(-len(v) * (2 if t == 3 else 4) // 2) * 2 for _, t, v in tags
+                              if len(v) * (2 if t == 3 else 4) > 4)
+    offsets = np.concatenate([[0], np.cumsum([len(b) for b in bodies])[:-1]]) + strips_at
+    for tag, typ, vals in tags:
+        vals = offsets.tolist() if tag == 273 else vals
+        raw = struct.pack("<" + ("H" if typ == 3 else "I") * len(vals), *vals)
+        if len(raw) <= 4:
+            entries.append(struct.pack("<HHI", tag, typ, len(vals)) + raw.ljust(4, b"\0"))
+        else:
+            entries.append(struct.pack("<HHII", tag, typ, len(vals), data_at + len(blobs)))
+            blobs += raw + b"\0" * (len(raw) % 2)
+    return (b"II*\0" + struct.pack("<IH", 8, len(tags)) + b"".join(entries) + struct.pack("<I", 0) + blobs
+            + b"".join(bodies))
+
+
+def rle8_encode(indices) -> bytes:
+    """BMP RLE8 of (H, W) palette indices, bottom row first: runs of 3 to
+    255 equal indices in encoded mode, the rest in absolute runs of 3 to
+    254 (word-padded) or encoded runs of one, end of line after each row,
+    end of bitmap last."""
+    out = bytearray()
+    for row in indices[::-1]:
+        starts = np.flatnonzero(np.concatenate([[True], row[1:] != row[:-1]]))
+        ends = np.concatenate([starts[1:], [len(row)]])
+        literal = []
+
+        def flush():
+            for i in range(0, len(literal), 254):
+                part = literal[i:i + 254]
+                if len(part) >= 3:
+                    out.extend(bytes([0, len(part)]) + bytes(part) + b"\0" * (len(part) % 2))
+                else:
+                    out.extend(b"".join(bytes([1, v]) for v in part))
+            literal.clear()
+
+        for s, e in zip(starts.tolist(), ends.tolist()):
+            if e - s < 3:
+                literal.extend([int(row[s])] * (e - s))
+                continue
+            flush()
+            for i in range(s, e, 255):
+                out.extend(bytes([min(255, e - i), int(row[s])]))
+        flush()
+        out.extend(b"\0\0")
+    return bytes(out + b"\0\1")
+
+
+def bmp_form(body: bytes, W, H, bits, compression=0, palette=None, masks=None) -> bytes:
+    """A BMP: BITMAPINFOHEADER, or a V5 header carrying `masks` (r, g, b,
+    a) for BI_BITFIELDS; a palette of (N, 3) RGB entries; `body` the pixel
+    data as stored (rows bottom-up, padded to 4 bytes, unless RLE)."""
+    size = 40 if masks is None else 124
+    header = struct.pack("<IiiHHIIiiII", size, W, H, 1, bits, compression, len(body), 2835, 2835,
+                         0 if palette is None else len(palette), 0)
+    if masks is not None:
+        header = (header + struct.pack("<4I", *masks)).ljust(size, b"\0")
+    table = b"" if palette is None else np.concatenate(
+        [np.asarray(palette, np.uint8)[:, ::-1], np.zeros((len(palette), 1), np.uint8)], 1).tobytes()
+    offset = 14 + len(header) + len(table)
+    return b"BM" + struct.pack("<IHHI", offset + len(body), 0, 0, offset) + header + table + body
+
+
+def bmp_rows(row_bytes) -> bytes:
+    """(H, n) row bytes as a BMP stores them: bottom-up, padded to 4."""
+    H, n = row_bytes.shape
+    out = np.zeros((H, -(-n // 4) * 4), np.uint8)
+    out[:, :n] = row_bytes
+    return out[::-1].tobytes()
+
+
+def cmyk_of(rgb):
+    """PIL-convention CMYK (H, W, 4) uint8 whose cmyk2rgb is close to `rgb`
+    (K from the brightest channel), and the samples a CMYK JPEG stores for
+    them (PIL reads them inverted)."""
+    top = rgb.max(axis=-1, keepdims=True).astype(np.int64)
+    cmy = 255 - (rgb.astype(np.int64) * 255 + top // 2) // np.maximum(top, 1)
+    pil = np.concatenate([np.where(top > 0, cmy, 0), 255 - top], -1).astype(np.uint8)
+    return pil, 255 - pil
+
+
+def cmyk_to_rgba(cmyk):
+    """PIL's cmyk2rgb: each colour (255 - k) - c (255 - k) / 255, PIL's
+    rounded division; alpha 255."""
+    nk = 255 - cmyk[..., 3:].astype(np.int64)
+    t = cmyk[..., :3].astype(np.int64) * nk + 128
+    rgb = nk - (((t >> 8) + t) >> 8)
+    return np.concatenate([rgb, np.full_like(nk, 255)], -1).astype(np.uint8)
 
 class PanelTimer:
     """Host time of tensorboard's `SummaryWriter.add_images` while patched
@@ -1180,11 +1394,21 @@ class PanelTimer:
             self.owner.add_images = self.fn
 
 
-def jpeg_train_views(data, cams, images, test_names):
+def wide_samples(px):
+    """16-bit samples whose high bytes are `px` and whose low bytes are a
+    fixed ramp, as a scanner's or a raw converter's 16-bit output."""
+    H, W = px.shape[:2]
+    yy, xx = np.mgrid[0:H, 0:W]
+    return (px.astype(np.int64) << 8) | (((7 * xx + 13 * yy)[..., None] + 50 * np.arange(px.shape[2])) & 255)
+
+
+def train_view_files(data, cams, images, test_names):
     """Rewrite the COLMAP dataset's views outside `test_names` as baseline
     JPEG (`encode_jpeg`: 4:2:0, CLI_JPEG_QUALITY; view CLI_RESTART_VIEW
-    with a restart marker every MCU row) and images.bin to name them; the
-    test views stay PNG. Returns each view's file name and the encode ms."""
+    with a restart marker every MCU row), but view CLI_TIFF_VIEW as a 16-bit
+    RGB TIFF (LZW, Predictor 2) and CLI_BMP_VIEW as a 24-bit BMP, and
+    images.bin to name them; the test views stay PNG. Returns each view's
+    file name and the JPEG encode ms."""
     images_bin = os.path.join(data, "sparse", "0", "images.bin")
     records = colmap.read_images_binary(images_bin)
     files, encode_ms = {}, []
@@ -1192,18 +1416,25 @@ def jpeg_train_views(data, cams, images, test_names):
         files[cam.image_name] = f"{cam.image_name}.png"
         if cam.image_name in test_names:
             continue
-        restart = -(-W_MAIN // 16) if i == CLI_RESTART_VIEW else 0  # MCUs in a row
-        t0 = time.perf_counter()
-        body = encode_jpeg(px, CLI_JPEG_QUALITY, (2, 2), restart)
-        encode_ms.append((time.perf_counter() - t0) * 1e3)
-        if i == CLI_FLIPPED_VIEW:
-            body = flip_entropy_byte(body)
-        elif i == CLI_EXTRANEOUS_VIEW:
-            sos, dqt = body.index(b"\xff\xda"), body.index(b"\xff\xdb")
-            body = body[:dqt] + b"\x00\xff\x00\x55" + body[dqt:sos] + b"\x12\x34" + body[sos:]
+        if i == CLI_TIFF_VIEW:
+            name, body = f"{cam.image_name}.tif", tiff_form(wide_samples(px), 16, 5, 2)
+        elif i == CLI_BMP_VIEW:
+            name, body = f"{cam.image_name}.bmp", bmp_form(bmp_rows(px[..., ::-1].reshape(len(px), -1)),
+                                                            px.shape[1], px.shape[0], 24)
+        else:
+            restart = -(-W_MAIN // 16) if i == CLI_RESTART_VIEW else 0  # MCUs in a row
+            t0 = time.perf_counter()
+            body = encode_jpeg(px, CLI_JPEG_QUALITY, (2, 2), restart)
+            encode_ms.append((time.perf_counter() - t0) * 1e3)
+            if i == CLI_FLIPPED_VIEW:
+                body = flip_entropy_byte(body)
+            elif i == CLI_EXTRANEOUS_VIEW:
+                sos, dqt = body.index(b"\xff\xda"), body.index(b"\xff\xdb")
+                body = body[:dqt] + b"\x00\xff\x00\x55" + body[dqt:sos] + b"\x12\x34" + body[sos:]
+            name = f"{cam.image_name}.jpg"
         os.remove(os.path.join(data, "images", files[cam.image_name]))
-        files[cam.image_name] = f"{cam.image_name}.jpg"
-        with open(os.path.join(data, "images", files[cam.image_name]), "wb") as f:
+        files[cam.image_name] = name
+        with open(os.path.join(data, "images", name), "wb") as f:
             f.write(body)
     for rec in records.values():
         rec.name = files[os.path.splitext(rec.name)[0]]
@@ -1253,6 +1484,70 @@ def check_jpeg_decoders(view_path):
     print(f"  JPEG fixtures: {len(names)} files, the compiled decoder bit-equal to the plain one "
           f"and to PIL's committed pixels on each")
     return plain_ms, times
+
+
+def check_image_forms(tmp, px):
+    """The BMP, TIFF and 4-component JPEG forms at full width: one view's
+    pixels `px` written in each (the CMYK JPEGs from `cmyk_of`), each
+    decoded by `image_io.open_image` three times. The lossless forms must
+    give back the pixels written (a 16-bit TIFF its high bytes, the RLE8
+    BMP its indices); the JPEGs mode CMYK within 30 dB PSNR of PIL's CMYK
+    for the samples written, and `to_rgba` this script's cmyk2rgb of them.
+    Then every file of tests/fixtures/torch_images must give PIL's mode,
+    pixels and convert("RGBA") committed beside it. Prints the median
+    decode ms per form."""
+    H, W = px.shape[:2]
+    idx = (px[..., 0] // 43) * 36 + (px[..., 1] // 43) * 6 + px[..., 2] // 43
+    levels = np.stack(np.meshgrid(*[np.arange(6)] * 3, indexing="ij"), -1).reshape(-1, 3) * 51
+    pil_cmyk, stored = cmyk_of(px)
+    forms = {  # name: (file bytes, the pixels they hold; None: PIL's CMYK for the samples written)
+        "TIFF raw 8-bit": (tiff_form(px, 8), px),
+        "TIFF raw 16-bit": (tiff_form(wide_samples(px), 16), px),
+        "TIFF PackBits 8-bit": (tiff_form(px, 8, 32773), px),
+        "TIFF LZW + predictor 16-bit": (tiff_form(wide_samples(px), 16, 5, 2), px),
+        "TIFF deflate + predictor 8-bit": (tiff_form(px, 8, 8, 2), px),
+        "BMP 24-bit": (bmp_form(bmp_rows(px[..., ::-1].reshape(H, -1)), W, H, 24), px),
+        "BMP RLE8": (bmp_form(rle8_encode(idx), W, H, 8, 1, palette=levels), idx[..., None]),
+        "JPEG CMYK": (encode_jpeg(stored, CLI_JPEG_QUALITY, (2, 2), 0, adobe=0), None),
+        "JPEG YCCK": (encode_jpeg(stored, CLI_JPEG_QUALITY, (2, 2), 0, adobe=2), None),
+    }
+    times, cmyk_psnr = {}, {}
+    path = os.path.join(tmp, "form")
+    for name, (body, want) in forms.items():
+        with open(path, "wb") as f:
+            f.write(body)
+        ms = []
+        for _ in range(3):
+            pic, t = synced_ms(image_io.open_image, path)
+            ms.append(t)
+        times[name] = float(np.median(ms))
+        if want is not None:
+            if not np.array_equal(pic.pixels, want):
+                fail(f"cli path: the {name} file decodes to other pixels than it holds "
+                     f"({pic.pixels.shape} {pic.mode})")
+            continue
+        if pic.mode != "CMYK" or pic.pixels.shape != pil_cmyk.shape:
+            fail(f"cli path: the {name} file decodes as {pic.mode} {pic.pixels.shape}")
+        mse = float(np.mean((pic.pixels.astype(np.float64) - pil_cmyk) ** 2))
+        cmyk_psnr[name] = 10 * math.log10(255 ** 2 / max(mse, 1e-12))
+        if not cmyk_psnr[name] >= 30.0 or not np.array_equal(image_io.to_rgba(pic), cmyk_to_rgba(pic.pixels)):
+            fail(f"cli path: the {name} file: {cmyk_psnr[name]:.2f} dB PSNR, to_rgba == cmyk2rgb "
+                 f"{np.array_equal(image_io.to_rgba(pic), cmyk_to_rgba(pic.pixels))}")
+    names = sorted(f for f in os.listdir(IMAGE_FIXTURES) if not f.endswith((".npz", ".py")))
+    if not names:
+        fail(f"cli path: no image fixtures in {IMAGE_FIXTURES}")
+    for name in names:
+        want = np.load(os.path.join(IMAGE_FIXTURES, os.path.splitext(name)[0] + ".npz"))
+        pic = image_io.open_image(os.path.join(IMAGE_FIXTURES, name))
+        if not (pic.mode == str(want["mode"]) and np.array_equal(pic.pixels, want["pixels"])
+                and np.array_equal(image_io.to_rgba(pic), want["rgba"])):
+            fail(f"cli path: image fixture {name} reads as {pic.mode}, not PIL's {want['mode']} and its pixels")
+    print(f"  image forms at {W}x{H}, decode ms (median of 3, host clock): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in times.items())
+          + f"; lossless forms bit-equal, CMYK / YCCK JPEG (q{CLI_JPEG_QUALITY} 4:2:0) "
+          + ", ".join(f"{v:.2f}" for v in cmyk_psnr.values())
+          + f" dB PSNR from PIL's CMYK of the samples written; {len(names)} tests/fixtures/torch_images files "
+          f"(BMP, TIFF, CMYK and YCCK JPEG) give PIL's committed mode, pixels and RGBA")
 
 
 class SceneLoadTimer:
@@ -1334,7 +1629,7 @@ def _cli_phase(dev, tmp):
     test_names = set(names[::8])  # llffhold=8: the views the train CLI holds out
     t0 = time.perf_counter()
     write_colmap_scene(data, cams, images, model["xyz"], colors)
-    files, jpeg_encode_ms = jpeg_train_views(data, cams, images, test_names)
+    files, jpeg_encode_ms = train_view_files(data, cams, images, test_names)
     write_ms = (time.perf_counter() - t0) * 1e3
     encode_ms = []
     for px in images[:4]:
@@ -1346,7 +1641,7 @@ def _cli_phase(dev, tmp):
     # JPEG view close to its render (a lossy encode).
     info = read_colmap_scene(data, None, eval_split=False)
     by_name = {c.image_name: c for c in info.train_cameras}
-    decode_ms, jpeg_ms, psnr, damaged = [], [], [], {}
+    decode_ms, jpeg_ms, psnr, damaged, lossless_ms = [], [], [], {}, {}
     for cam, px in zip(cams, images):
         got = by_name[cam.image_name]
         if float(np.abs(got.R - cam.R).max()) > 1e-12 or float(np.abs(got.T - cam.T).max()) > 1e-12:
@@ -1358,6 +1653,12 @@ def _cli_phase(dev, tmp):
             decode_ms.append(ms)
             if not np.array_equal(back, px):
                 fail(f"cli path: image {cam.image_name} did not survive its PNG")
+            continue
+        if not got.image_path.endswith(".jpg"):  # the TIFF and BMP views, lossless
+            back, ms = synced_ms(image_io.read_image, got.image_path)
+            lossless_ms[os.path.basename(got.image_path)] = ms
+            if not np.array_equal(back, px):
+                fail(f"cli path: image {got.image_path} did not survive its file")
             continue
         back, ms = synced_ms(image_io.read_image, got.image_path)
         jpeg_ms.append(ms)
@@ -1379,9 +1680,12 @@ def _cli_phase(dev, tmp):
           f"{len(info.points)} points written in {write_ms:.1f} ms: {len(jpeg_ms)} train views "
           f"as baseline JPEG 4:2:0 q{CLI_JPEG_QUALITY} (this script's encoder, "
           f"{np.median(jpeg_encode_ms):.1f} ms a view; {files[names[CLI_RESTART_VIEW]]} with a "
-          f"restart marker every MCU row), {len(decode_ms)} test views as PNG; cameras within "
-          f"1e-12, PNG pixels bit-equal, JPEG views {min(psnr):.2f}-{max(psnr):.2f} dB PSNR "
-          f"from their renders through the port's readers")
+          f"restart marker every MCU row), {files[names[CLI_TIFF_VIEW]]} as 16-bit RGB TIFF (LZW, "
+          f"Predictor 2), {files[names[CLI_BMP_VIEW]]} as 24-bit BMP, {len(decode_ms)} test views as PNG; "
+          f"cameras within 1e-12, PNG, TIFF and BMP pixels bit-equal (decode "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in lossless_ms.items())
+          + f"), JPEG views {min(psnr):.2f}-{max(psnr):.2f} dB PSNR from their renders through the port's "
+          f"readers")
     print(f"  damaged train views, decoded by the compiled decoder bit-equal to the plain one: "
           f"{names[CLI_FLIPPED_VIEW]} (one flipped entropy-coded bit) "
           f"{damaged[names[CLI_FLIPPED_VIEW]]:.2f} dB PSNR from its render, "
@@ -1393,6 +1697,7 @@ def _cli_phase(dev, tmp):
           f"{plain_ms:.1f} ms ({files[names[CLI_RESTART_VIEW]]}, bit-equal); at 1237x822 "
           + ", ".join(f"{k} compiled {c:.2f} ms, plain {p:.1f} ms" for k, (c, p) in fixture_ms.items())
           + " (host clock)")
+    check_image_forms(tmp, images[0])
     # A file as PIL or libpng writes one: Average and Paeth rows, which the
     # reader decodes by anti-diagonals (the cost of a real dataset).
     mixed = os.path.join(tmp, "every_filter.png")
@@ -1430,8 +1735,8 @@ def _cli_phase(dev, tmp):
     if scene_load.s is None:
         fail("cli path: the train CLI made no Scene")
     print(f"  train CLI: {CLI_STEPS} steps, {n_train} train and {n_test} test views, wall "
-          f"{train_s:.2f} s (scene load {scene_load.s:.2f} s: {n_train} JPEG and {n_test} PNG "
-          f"views decoded), step median {np.median(step_ms):.3f} ms, p80 "
+          f"{train_s:.2f} s (scene load {scene_load.s:.2f} s: {n_train - 2} JPEG, 1 TIFF, 1 BMP and "
+          f"{n_test} PNG views decoded), step median {np.median(step_ms):.3f} ms, p80 "
           f"{np.percentile(step_ms, 80):.3f} ms (its iter_time_ms, host clock, deferred "
           f"maintenance excluded); loss first 20 {first20:.6f}, last 20 {last20:.6f}; "
           f"{len(tr.densify_history)} densifies ({[d['path'] for d in tr.densify_history]}); live "
@@ -1502,7 +1807,8 @@ def _cli_phase(dev, tmp):
              f"{int((got_png != want_png).any(-1).sum())} pixels")
     print(f"  render CLI: {CLI_VIEWS} views in {render_ms / 1e3:.2f} s wall, "
           f"{render_ms / CLI_VIEWS:.1f} ms per view (scene load, render, two PNGs); launches "
-          f"{render_launches}; gt PNGs bit-equal to the dataset's JPEG and PNG images, test view 0 bit-equal to "
+          f"{render_launches}; gt PNGs bit-equal to the dataset's JPEG, TIFF, BMP and PNG images, test view 0 "
+          f"bit-equal to "
           f"eval_render of the reloaded PLY")
 
     # Metrics.
@@ -1535,12 +1841,24 @@ def _cli_phase(dev, tmp):
 # ---- phase 5e: the Blender (NeRF-synthetic) path ----------------------------
 
 def blender_frame(rgba, form, seed):
-    """PNG bytes of an 8-bit RGBA frame in one of BLENDER_FORMS (or plain
-    8-bit RGBA), and the RGBA that PIL's convert("RGBA") gives for them by
-    PIL's rules: a 16-bit file's high bytes, a palette entry's colour and
-    tRNS alpha, grey spread to RGB, alpha 0 on a tRNS colour."""
+    """File bytes of an 8-bit RGBA frame in one of BLENDER_FORMS (or plain
+    8-bit RGBA PNG), and the RGBA that PIL's convert("RGBA") gives for them
+    by PIL's rules: a 16-bit file's high bytes, a palette entry's colour and
+    tRNS alpha, grey spread to RGB, alpha 0 on a tRNS colour, a BMP's BGRA
+    bytes under its alpha mask. A CMYK JPEG (Adobe transform 0, of the
+    frame composited on white, which it has no alpha for) is lossy: for it
+    the second value is PIL's CMYK of the samples written (`cmyk_of`)."""
     if form is None:
         return None, rgba
+    if form == "CMYK JPEG":
+        a = rgba[..., 3:].astype(np.int64)
+        on_white = ((rgba[..., :3] * a + 255 * (255 - a) + 127) // 255).astype(np.uint8)
+        pil_cmyk, stored = cmyk_of(on_white)
+        return encode_jpeg(stored, CLI_JPEG_QUALITY, (2, 2), 0, adobe=0), pil_cmyk
+    if form == "32-bit BMP with alpha":
+        H, W = rgba.shape[:2]
+        return bmp_form(bmp_rows(rgba[..., [2, 1, 0, 3]].reshape(H, -1)), W, H, 32, 3,
+                        masks=(0xFF0000, 0xFF00, 0xFF, 0xFF000000)), rgba
     if form == "16-bit RGBA":
         low = np.random.default_rng(seed).integers(0, 256, rgba.shape)
         return png_form((rgba.astype(np.int64) << 8) | low, 16, 6), rgba
@@ -1637,6 +1955,17 @@ def _blender_phase(dev, tmp):
     # Every frame as the reader returns it, held to PIL's rules.
     read_ms = {}
     for path, (form, want) in expected.items():
+        if form == "CMYK JPEG":  # lossy: PIL's cmyk2rgb of what the decoder gives, close to the written CMYK
+            pic, ms = synced_ms(image_io.open_image, path)
+            mse = float(np.mean((pic.pixels.astype(np.float64) - want) ** 2)) if pic.pixels.shape == want.shape \
+                else math.inf
+            psnr_ = 10 * math.log10(255 ** 2 / max(mse, 1e-12))
+            if pic.mode != "CMYK" or not psnr_ >= 30.0 or not np.array_equal(image_io.to_rgba(pic),
+                                                                             cmyk_to_rgba(pic.pixels)):
+                fail(f"blender path: {path} ({form}) reads as {pic.mode}, {psnr_:.2f} dB PSNR from the CMYK "
+                     f"written, or to_rgba is not PIL's cmyk2rgb")
+            read_ms.setdefault(f"{form} ({psnr_:.2f} dB)", []).append(ms)
+            continue
         got, ms = synced_ms(lambda p: image_io.to_rgba(image_io.open_image(p)), path)
         if not np.array_equal(got, want):
             fail(f"blender path: {path} ({form}) reads otherwise than PIL's rules give at "
@@ -1677,7 +2006,8 @@ def _blender_phase(dev, tmp):
     knn_ms = cuda_time_ms(lambda: mean_knn_dist2_morton(pts), 5)
     print(f"  train CLI: {BLENDER_STEPS} steps from {len(init)} random points in [-1.3, 1.3]^3, white "
           f"background {white}, wall {train_s:.2f} s (scene load {scene_load.s:.2f} s: "
-          f"{BLENDER_TRAIN + BLENDER_TEST} PNG frames decoded and composited), step median "
+          f"{BLENDER_TRAIN + BLENDER_TEST} frames decoded (PNG, a CMYK JPEG, a BMP) and composited), "
+          f"step median "
           f"{np.median(step_ms):.3f} ms, p80 {np.percentile(step_ms, 80):.3f} ms (its iter_time_ms, "
           f"host clock); loss first 20 {first20:.6f}, last 20 {last20:.6f}; "
           f"{len(tr.densify_history)} densifies; live {tr.num_live}; launches {train_launches}")
@@ -2281,10 +2611,10 @@ def main():
         cuda_build.build_host()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(1) as pool:  # the host decoder beside the kernels' nvccs
+    with ThreadPoolExecutor(1) as pool:  # the host sources beside the kernels' nvccs
         host_s = pool.submit(build_host)
         logs = cuda_build.build()
-        print(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f} s; host decoder "
+        print(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f} s; host sources "
               f"{cuda_build.host_sources()} (c++) in {host_s.result():.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():

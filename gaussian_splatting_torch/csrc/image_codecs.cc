@@ -1,0 +1,210 @@
+// The byte loops of the BMP and TIFF readers: host C++, built with the host
+// compiler by utils/cuda_build.py at first use and loaded with ctypes
+// (utils/image_codecs.py). Each decoder runs per code or per byte, which
+// Python cannot do at 1080p; everything else of the two formats (headers,
+// IFDs, unpacking, the predictor, palettes) is numpy in utils/bmp.py and
+// utils/tiff.py.
+//
+// - gs_lzw_decode: TIFF's LZW as libtiff 4's LZWDecode reads it (new style,
+//   codes most significant bit first, 9 to 12 bits, the width growing one
+//   code early: at 511, 1023 and 2047 entries); a strip or tile into
+//   exactly `size` bytes.
+// - gs_packbits_decode: TIFF's PackBits as libtiff's PackBitsDecode (runs
+//   past the end cut, -128 a no-op).
+// - gs_bmp_rle_decode: BMP's RLE8 and RLE4 as PIL's BmpRleDecoder
+//   (BmpImagePlugin.py) reads them, quirks included: a run in encoded mode
+//   is cut at the end of its row, an absolute run is not; an RLE4 absolute
+//   run of n pixels reads n / 2 bytes (an odd n loses its last pixel but
+//   still advances x by n); the word padding after an absolute run follows
+//   the position in the file; a delta escape skips two bytes and takes
+//   its right and up counts from the two after them.
+//
+// Interface (plain C; every entry returns 0 or 1, the message of a 1 in
+// gs_codec_error for the calling thread):
+//   gs_lzw_decode(in, n, out, size)
+//   gs_packbits_decode(in, n, out, size)
+//   gs_bmp_rle_decode(file, file_size, start, rle4, width, want, out, produced)
+
+#include <cstdint>
+#include <cstring>
+#include <string>
+#include <vector>
+
+namespace {
+
+thread_local std::string g_error;
+
+int fail(const std::string& msg) {
+  g_error = msg;
+  return 1;
+}
+
+const int kClear = 256, kEoi = 257, kFirst = 258, kBitsMin = 9, kBitsMax = 12;
+const int kTableSize = (1 << kBitsMax) + 1024;  // libtiff's CSIZE
+
+struct Entry {
+  int next;  // the entry this one extends (-1: none)
+  int length;
+  uint8_t value, firstchar;
+};
+
+}  // namespace
+
+extern "C" {
+
+const char* gs_codec_error() { return g_error.c_str(); }
+
+int gs_lzw_decode(const uint8_t* in, long long n, uint8_t* out, long long size) {
+  if (n >= 2 && in[0] == 0 && (in[1] & 1))
+    return fail("old-style LZW (codes least significant bit first)");
+  std::vector<Entry> table(kTableSize, Entry{-1, 0, 0, 0});
+  for (int c = 0; c < 256; ++c) table[c] = Entry{-1, 1, static_cast<uint8_t>(c), static_cast<uint8_t>(c)};
+  // libtiff starts a strip with no table: its first code must be a Clear
+  int nbits = kBitsMin, mask = (1 << nbits) - 1, free_ent = -1, max_ent = mask - 1;
+  int old = kClear;
+  uint64_t acc = 0;
+  int64_t left = 8 * static_cast<int64_t>(n), pos = 0;
+  int have = 0;
+  long long op = 0;
+  // the next code; data that runs out reads as EOI (libtiff: a strip "not
+  // terminated with EOI code")
+  auto next_code = [&]() {
+    if (left < nbits) return kEoi;
+    while (have < nbits) {
+      acc = (acc << 8) | in[pos++];
+      have += 8;
+    }
+    have -= nbits;
+    left -= nbits;
+    return static_cast<int>((acc >> have) & mask);
+  };
+  while (op < size) {
+    int code = next_code();
+    if (code == kEoi) break;
+    if (code == kClear) {
+      nbits = kBitsMin;
+      mask = (1 << nbits) - 1;
+      max_ent = mask - 1;
+      free_ent = kFirst;
+      do {
+        code = next_code();
+      } while (code == kClear);
+      if (code == kEoi) break;
+      if (code > kClear) return fail("corrupt LZW data (a code after Clear that is not a byte)");
+      out[op++] = static_cast<uint8_t>(code);
+      old = code;
+      continue;
+    }
+    if (free_ent < kFirst) return fail("corrupt LZW data (no Clear code before the first string)");
+    if (code > free_ent) return fail("corrupt LZW data (a code past the table)");
+    Entry& e = table[free_ent];
+    e.next = old;
+    e.firstchar = table[old].firstchar;
+    e.length = table[old].length + 1;
+    e.value = code < free_ent ? table[code].firstchar : e.firstchar;
+    if (++free_ent > max_ent) {
+      if (++nbits > kBitsMax) nbits = kBitsMax;
+      mask = (1 << nbits) - 1;
+      max_ent = mask - 1;
+      if (free_ent >= kTableSize) free_ent = -1;  // only a Clear or EOI may follow
+    }
+    old = code;
+    const Entry& s = table[code];
+    if (code < 256) {
+      out[op++] = s.value;
+      continue;
+    }
+    if (s.length == 0) return fail("corrupt LZW data (a string of length 0)");
+    // the string from its last byte back; a string longer than the room
+    // left keeps its first bytes
+    long long len = s.length, keep = len < size - op ? len : size - op;
+    int c = code;
+    for (long long i = len - 1; i >= 0; --i) {
+      if (i < keep) out[op + i] = table[c].value;
+      c = table[c].next;
+    }
+    op += keep;
+  }
+  if (op < size)
+    return fail("LZW data ends " + std::to_string(size - op) + " bytes short of its strip or tile");
+  return 0;
+}
+
+int gs_packbits_decode(const uint8_t* in, long long n, uint8_t* out, long long size) {
+  long long ip = 0, op = 0;
+  while (ip < n && op < size) {
+    int count = static_cast<int8_t>(in[ip++]);
+    if (count < 0) {
+      if (count == -128) continue;
+      long long run = -count + 1;
+      if (run > size - op) run = size - op;
+      if (ip >= n) break;
+      std::memset(out + op, in[ip++], run);
+      op += run;
+    } else {
+      long long run = count + 1;
+      if (run > size - op) run = size - op;
+      if (run > n - ip) break;
+      std::memcpy(out + op, in + ip, run);
+      op += run;
+      ip += run;
+    }
+  }
+  if (op < size)
+    return fail("PackBits data ends " + std::to_string(size - op) + " bytes short of its strip or tile");
+  return 0;
+}
+
+// `out` takes the first `want` bytes of the decoded rows (one byte a pixel,
+// the file's row order); *produced is how many the data gave, which may be
+// fewer (PIL then raises).
+int gs_bmp_rle_decode(const uint8_t* file, long long file_size, long long start, int rle4, int width,
+                      long long want, uint8_t* out, long long* produced) {
+  long long pos = start, len = 0, x = 0;
+  auto emit = [&](uint8_t v) {
+    if (len < want) out[len] = v;
+    ++len;
+  };
+  while (len < want && width > 0) {
+    if (pos + 1 >= file_size) break;  // the count or its byte is missing
+    int count = file[pos], byte = file[pos + 1];
+    pos += 2;
+    if (count) {  // encoded mode, cut at the end of the row
+      if (x + count > width) count = static_cast<int>(width - x > 0 ? width - x : 0);
+      for (int i = 0; i < count; ++i) emit(static_cast<uint8_t>(rle4 ? (i % 2 ? byte & 15 : byte >> 4) : byte));
+      x += count;
+    } else if (byte == 0) {  // end of line
+      while (len % width) emit(0);
+      x = 0;
+    } else if (byte == 1) {  // end of bitmap
+      break;
+    } else if (byte == 2) {  // delta, as PIL reads it
+      if (pos + 2 > file_size) break;
+      pos += 2;
+      if (pos + 2 > file_size) return fail("a BMP RLE delta escape without its offsets");
+      long long right = file[pos], up = file[pos + 1];
+      pos += 2;
+      for (long long i = 0, m = right + up * width; i < m; ++i) emit(0);
+      x = len % width;
+    } else {  // absolute mode
+      long long need = rle4 ? byte / 2 : byte;
+      long long got = need < file_size - pos ? need : (file_size - pos > 0 ? file_size - pos : 0);
+      for (long long i = 0; i < got; ++i) {
+        if (rle4) {
+          emit(file[pos + i] >> 4);
+          emit(file[pos + i] & 15);
+        } else {
+          emit(file[pos + i]);
+        }
+      }
+      pos += got;
+      if (got < need) break;
+      x += byte;
+      if (pos % 2) ++pos;  // word padding, by the position in the file
+    }
+  }
+  *produced = len < want ? len : want;
+  return 0;
+}
+
+}  // extern "C"

@@ -3,8 +3,10 @@
 //
 // The same decoder as the plain version in utils/jpeg.py, step for step:
 // the same checks in the same order with the same messages, the same bits
-// out (PIL's: libjpeg-turbo 3's C code at its defaults). Huffman-coded
-// 8-bit baseline, extended and progressive frames with 1 or 3 components;
+// out (PIL's: libjpeg-turbo 3's C code at its defaults), and beyond it
+// 4-component (CMYK and YCCK) files, which the plain version refuses.
+// Huffman-coded 8-bit baseline, extended and progressive frames with 1, 3
+// or 4 components;
 // restart intervals with jpeg_resync_to_restart's recovery; libjpeg's
 // recovery from corrupt entropy-coded data (bad codes decode as 0, runs
 // past coefficient 63 land on the padded natural order, data that ends
@@ -13,8 +15,11 @@
 // smoothing of progressive files with coefficient bits left out; fancy
 // upsampling at chroma ratios 2x1, 2x2 and 1x2, replication at other
 // integral ratios and for h2v1 / h2v2 on components 2 or fewer samples
-// wide; jdcolor.c's fixed-point YCbCr -> RGB. Everything else is refused
-// by name, where PIL raises.
+// wide; jdcolor.c's fixed-point YCbCr -> RGB; for 4 components
+// jdapimin.c's rule (YCCK under an Adobe marker whose transform is not 0,
+// else CMYK as stored), jdcolor.c's ycck_cmyk_convert on the same tables,
+// and PIL's "CMYK;I" unpacking, which inverts every sample. Everything
+// else is refused by name, where PIL raises.
 //
 // Interface (plain C; every entry returns 0 or an error, whose message
 // gs_jpeg_error gives for the calling thread):
@@ -582,7 +587,7 @@ struct Decoder {
     int nc = b[5];
     if (precision != 8) refuse(fmt("%d-bit samples", precision));
     if (n != 6 + 3 * nc) corrupt("a frame header whose length does not match its components");
-    if (nc != 1 && nc != 3) refuse(fmt("%d colour components", nc) + (nc == 4 ? " (CMYK or YCCK)" : ""));
+    if (nc != 1 && nc != 3 && nc != 4) refuse(fmt("%d colour components", nc));
     if (height == 0) refuse("a DNL height (0 in the frame header)");
     if (width == 0) corrupt("an image 0 samples wide");
     if (std::max(width, height) > kMaxDimension) refuse(fmt("an image dimension over %d", kMaxDimension));
@@ -959,8 +964,15 @@ struct Decoder {
       std::memcpy(out, planes[0].data(), npx);
       return;
     }
+    if (comps.size() == 4 && adobe <= 0) {  // CMYK as stored, inverted as PIL's "CMYK;I" unpacks it
+      for (int64_t i = 0; i < npx; ++i)
+        for (int k = 0; k < 4; ++k) out[4 * i + k] = static_cast<uint8_t>(255 - planes[k][i]);
+      return;
+    }
     bool rgb;
-    if (jfif) {
+    if (comps.size() == 4) {
+      rgb = false;
+    } else if (jfif) {
       rgb = false;
     } else if (adobe >= 0) {
       rgb = adobe == 0;
@@ -972,7 +984,10 @@ struct Decoder {
         for (int k = 0; k < 3; ++k) out[3 * i + k] = planes[k][i];
       return;
     }
-    // jdcolor.c's build_ycc_rgb_table and ycc_rgb_convert (SCALEBITS 16)
+    // jdcolor.c's build_ycc_rgb_table and ycc_rgb_convert (SCALEBITS 16);
+    // ycck_cmyk_convert gives 255 minus the same sums through the range
+    // limit, which PIL's inversion turns back into the clamped sums, K
+    // inverted
     int64_t cr_r[256], cb_b[256], cr_g[256], cb_g[256];
     const int64_t half = int64_t(1) << 15;
     for (int i = 0; i < 256; ++i) {
@@ -983,10 +998,12 @@ struct Decoder {
       cb_g[i] = -fix16(0.34414) * x + half;
     }
     const uint8_t *y = planes[0].data(), *cb = planes[1].data(), *cr = planes[2].data();
+    const int64_t c = static_cast<int64_t>(comps.size());
     for (int64_t i = 0; i < npx; ++i) {
-      out[3 * i] = clamp255(y[i] + cr_r[cr[i]]);
-      out[3 * i + 1] = clamp255(y[i] + ((cb_g[cb[i]] + cr_g[cr[i]]) >> 16));
-      out[3 * i + 2] = clamp255(y[i] + cb_b[cb[i]]);
+      out[c * i] = clamp255(y[i] + cr_r[cr[i]]);
+      out[c * i + 1] = clamp255(y[i] + ((cb_g[cb[i]] + cr_g[cr[i]]) >> 16));
+      out[c * i + 2] = clamp255(y[i] + cb_b[cb[i]]);
+      if (c == 4) out[c * i + 3] = static_cast<uint8_t>(255 - planes[3][i]);
     }
   }
 };

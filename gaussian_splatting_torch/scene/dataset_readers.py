@@ -16,20 +16,23 @@ behaviour:
   (utils/camera_utils.py:22-39)
 
 Images are read with the port's reader (`utils/image_io.open_image`: every
-PNG and JPEG form PIL reads, PIL's pixels and mode bit for bit) and resized
+PNG and JPEG form PIL reads, BMP and TIFF in the forms of `utils/bmp.py`
+and `utils/tiff.py`, PIL's pixels and mode bit for bit) and resized
 with its copy of PIL's default resize, so `CameraInfo.image` holds uint8
 pixels rather than a PIL image. The Blender reader takes PIL's
 `convert("RGBA")` of every mode (`image_io.to_rgba`). The COLMAP path
 trains, as the JAX package does, on `np.asarray` of the resized image,
 which is the picture for modes L, RGB and RGBA (16-bit RGB and RGBA read
 as their high bytes, 16-bit grey + alpha as RGBA, a tRNS chunk ignored).
-For four modes that array is not the picture, and the port refuses them,
-naming the file, where the JAX package trains on it: "P" (palette indices
-as grey), "1" (0 or 1/255), "I;16" (16-bit grey over 255, clipped to 1)
-and "LA" (8-bit grey + alpha, a 2-channel ground truth that the first
-step's loss cannot take). An image that cannot be
-read raises a `ValueError` naming it as the dataset lists it (`images.bin`
-/ `images.txt`, or the transforms file).
+For the other modes that array is not the picture, and the port refuses
+them, naming the file, where the JAX package trains on it: "P" (palette
+indices as grey), "1" (0 or 1/255), "I;16" and "I;16B" (16-bit grey over
+255, clipped to 1), "LA" (8-bit grey + alpha, a 2-channel ground truth
+that the first step's loss cannot take), "CMYK" (C, M and Y taken for
+RGB and multiplied by K as if it were alpha), and "I" / "F" (32-bit
+integers or floats; no form the port reads gives them). An image that
+cannot be read raises a `ValueError` naming it as the dataset lists it
+(`images.bin` / `images.txt`, or the transforms file).
 `write_colmap_scene` writes a COLMAP dataset from cameras and pixels, the
 inverse of `read_colmap_scene`.
 """
@@ -170,6 +173,11 @@ _NOT_THE_PICTURE = {
     "I;16": "a 16-bit grey image (mode I;16), whose pixels PIL's np.asarray gives as 0..65535",
     "LA": "a grey + alpha image (mode LA), whose pixels PIL's np.asarray gives as two channels, "
           "grey and alpha, which the path would take for a 2-channel picture",
+    "CMYK": "a CMYK image (mode CMYK), whose pixels PIL's np.asarray gives as C, M, Y and K, which the "
+            "path would take for R, G and B times K as alpha",
+    "I;16B": "a 16-bit grey image (mode I;16B), whose pixels PIL's np.asarray gives as 0..65535",
+    "I": "a 32-bit integer image (mode I), whose pixels PIL's np.asarray gives as 32-bit integers",
+    "F": "a floating-point image (mode F), whose pixels PIL's np.asarray gives as 32-bit floats",
 }
 
 

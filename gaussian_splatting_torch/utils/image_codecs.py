@@ -1,0 +1,70 @@
+"""The compiled byte loops of the BMP and TIFF readers (`csrc/image_codecs.cc`).
+
+LZW and PackBits (TIFF) and RLE8 / RLE4 (BMP) run per code or per byte,
+so they are host C++, built by `cuda_build.build_host` at first use and
+loaded with ctypes. Nothing falls back to another implementation: if the
+library cannot be built, the read raises, naming the file.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+
+from gaussian_splatting_torch.utils import cuda_build
+
+
+def _library(name: str):
+    try:
+        lib = cuda_build.load_host("image_codecs")
+    except RuntimeError as err:
+        raise RuntimeError(f"{name}: the image codecs (csrc/image_codecs.cc) could not be built: "
+                           f"{err}") from err
+    if not hasattr(lib, "_gs_typed"):
+        buf = (ctypes.c_char_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong)
+        for fn in (lib.gs_lzw_decode, lib.gs_packbits_decode):
+            fn.argtypes, fn.restype = list(buf), ctypes.c_int
+        lib.gs_bmp_rle_decode.argtypes = [ctypes.c_char_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                                          ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+        lib.gs_bmp_rle_decode.restype = ctypes.c_int
+        lib.gs_codec_error.argtypes, lib.gs_codec_error.restype = [], ctypes.c_char_p
+        lib._gs_typed = True
+    return lib
+
+
+def _stream(fn_name: str, data: bytes, size: int, name: str) -> np.ndarray:
+    lib = _library(name)
+    out = np.empty(size, np.uint8)
+    if getattr(lib, fn_name)(data, len(data), out.ctypes.data, size):
+        raise ValueError(f"{name}: {lib.gs_codec_error().decode()}")
+    return out
+
+
+def lzw_decode(data: bytes, size: int, name: str) -> np.ndarray:
+    """The `size` bytes of one TIFF strip or tile coded in LZW (libtiff's
+    new style); raises a `ValueError` naming `name` on old-style, corrupt
+    or short data."""
+    return _stream("gs_lzw_decode", data, size, name)
+
+
+def packbits_decode(data: bytes, size: int, name: str) -> np.ndarray:
+    """The `size` bytes of one TIFF strip or tile coded in PackBits."""
+    return _stream("gs_packbits_decode", data, size, name)
+
+
+def bmp_rle_decode(data: bytes, start: int, rle4: bool, width: int, height: int, name: str) -> np.ndarray:
+    """(height, width) uint8, one byte a pixel in the file's row order: the
+    RLE8 or RLE4 bitmap of a BMP file `data` from byte `start`, as PIL's
+    BmpRleDecoder reads it; raises where PIL raises (a delta escape cut
+    short, fewer pixels than the image holds)."""
+    lib = _library(name)
+    out = np.zeros((height, width), np.uint8)
+    produced = ctypes.c_longlong(0)
+    if lib.gs_bmp_rle_decode(data, len(data), start, int(rle4), width, out.size, out.ctypes.data,
+                             ctypes.addressof(produced)):
+        raise ValueError(f"{name}: {lib.gs_codec_error().decode()}")
+    if produced.value < out.size:
+        raise ValueError(f"{name}: the BMP's RLE data gives {produced.value} of its {out.size} pixels "
+                         f"(PIL: not enough image data)")
+    return out

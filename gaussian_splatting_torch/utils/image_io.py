@@ -6,8 +6,10 @@ its own:
 
 - `open_image(path)`: the dataset readers' entry. It reads the file's
   signature: a PNG goes to `open_png`, a JPEG to the compiled JPEG
-  decoder (`utils/jpeg.py`, PIL's bits); anything else raises a
-  `ValueError` naming the file. It returns a `Picture`: the pixels as
+  decoder (`utils/jpeg.py`, PIL's bits: grey, RGB, and CMYK from CMYK and
+  YCCK files), a BMP to `utils/bmp.py`, a TIFF to `utils/tiff.py`;
+  anything else raises a `ValueError` naming the file and the four
+  formats. It returns a `Picture`: the pixels as
   `np.asarray(Image.open(f))` gives them, with PIL's mode, palette and
   transparency, which `to_rgba` turns into PIL's `convert("RGBA")`.
   `read_image(path)` is its pixels.
@@ -38,7 +40,7 @@ from typing import Any, NamedTuple, Optional
 
 import numpy as np
 
-from gaussian_splatting_torch.utils import jpeg
+from gaussian_splatting_torch.utils import bmp, jpeg, tiff
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # 8-bit channels -> PNG colour type (0 grey, 4 grey + alpha, 2 RGB, 6 RGBA),
@@ -64,9 +66,12 @@ class Picture(NamedTuple):
 
     pixels: (H, W, C) as `np.asarray(Image.open(f))` gives them, with a
       channel axis kept for one channel: uint8 for "L", "LA", "RGB",
-      "RGBA" and "P" (palette indices), bool for "1", uint16 for "I;16".
+      "RGBA", "CMYK" (PIL's inverted CMYK JPEG samples, a TIFF's as
+      stored) and "P" (palette indices), bool for "1", uint16 for "I;16"
+      (little endian) and "I;16B" (big endian, as PIL's array).
     mode: PIL's mode.
-    palette: mode "P": (N, 3) uint8, the PLTE entries.
+    palette: mode "P": (N, 3) uint8, the palette's entries (PNG's PLTE,
+      a BMP's colour table, a TIFF's ColorMap).
     transparency: PIL's `info["transparency"]`: an int for "1" (0 or
       255), "L" and "I;16" (the tRNS value) and for "P" whose tRNS clears
       one entry only (its index); an (r, g, b) tuple for "RGB"; the tRNS
@@ -85,25 +90,31 @@ def _refuse(path, what: str):
 
 
 JPEG_SIGNATURE = b"\xff\xd8\xff"  # SOI and the first marker's 0xFF, as PIL sniffs it
+BMP_SIGNATURE = b"BM"
 
 
 def open_image(path) -> Picture:
-    """The `Picture` of a PNG or a JPEG file (a JPEG's mode is "L" or
-    "RGB"), PIL's pixels. A JPEG is decoded by the compiled decoder, built
-    at first use; if it cannot be built this raises."""
+    """The `Picture` of a PNG, JPEG, BMP or TIFF file, PIL's pixels and
+    mode. JPEG (mode "L", "RGB" or "CMYK") is decoded by the compiled
+    decoder, and BMP's RLE and TIFF's LZW and PackBits by the compiled
+    codecs, each built at first use; if one cannot be built this raises."""
     with open(path, "rb") as f:
         head = f.read(len(PNG_SIGNATURE))
     if head.startswith(PNG_SIGNATURE):
         return open_png(path)
     if head.startswith(JPEG_SIGNATURE):
         pixels = jpeg.read_jpeg(path)
-        return Picture(pixels, "L" if pixels.shape[2] == 1 else "RGB")
-    raise ValueError(f"{path}: neither a PNG nor a JPEG file; the port reads PNG and JPEG images")
+        return Picture(pixels, {1: "L", 3: "RGB", 4: "CMYK"}[pixels.shape[2]])
+    if head.startswith(BMP_SIGNATURE):
+        return bmp.open_bmp(path)
+    if head.startswith(tiff.SIGNATURES):
+        return tiff.open_tiff(path)
+    raise ValueError(f"{path}: not a PNG, JPEG, BMP or TIFF file; the port reads those four image formats")
 
 
 def read_image(path) -> np.ndarray:
-    """`np.asarray(Image.open(path))` of a PNG or a JPEG, with a channel
-    axis kept (`open_image(path).pixels`)."""
+    """`np.asarray(Image.open(path))` of a PNG, JPEG, BMP or TIFF, with a
+    channel axis kept (`open_image(path).pixels`)."""
     return open_image(path).pixels
 
 
@@ -230,15 +241,21 @@ def _u16(data: bytes, at: int) -> int:
 
 def to_rgba(picture: Picture) -> np.ndarray:
     """PIL's `convert("RGBA")` of a `Picture`: (H, W, 4) uint8. Grey
-    ("1" as 0 / 255, "L", "I;16" clipped at 255) and RGB take alpha 0 where
-    the colour equals the transparency's low byte(s), 255 elsewhere; a
-    palette image takes its entries' colours (black past the PLTE) and the
-    tRNS alphas (255 past them); "LA" spreads its grey."""
+    ("1" as 0 / 255, "L", "I;16" and "I;16B" clipped at 255) and RGB take
+    alpha 0 where the colour equals the transparency's low byte(s), 255
+    elsewhere; a palette image takes its entries' colours (black past the
+    palette) and the tRNS alphas (255 past them); "LA" spreads its grey;
+    "CMYK" is PIL's cmyk2rgb, each colour (255 - k) - c (255 - k) / 255
+    in PIL's rounded division. Any other mode raises, naming it."""
     px, mode, t = picture.pixels, picture.mode, picture.transparency
     if mode == "RGBA":
         return px.copy()
     if mode == "LA":
         return np.concatenate([px[..., :1].repeat(3, axis=2), px[..., 1:]], axis=2)
+    if mode == "CMYK":
+        nk = 255 - px[..., 3:].astype(np.int64)
+        rgb = nk - _muldiv255(px[..., :3], nk)
+        return np.concatenate([rgb, np.full_like(nk, 255)], axis=2).astype(np.uint8)
     if mode == "P":
         table = np.zeros((256, 4), np.uint8)
         table[:, 3] = 255
@@ -250,14 +267,16 @@ def to_rgba(picture: Picture) -> np.ndarray:
         return table[px[..., 0]]
     if mode == "RGB":
         rgb, key = px, None if t is None else np.array([v & 0xFF for v in t], np.uint8)
-    else:
+    elif mode in ("1", "L", "I;16", "I;16B"):
         if mode == "1":
             grey = np.where(px, 255, 0).astype(np.uint8)
-        elif mode == "I;16":
+        elif mode.startswith("I;16"):
             grey = np.minimum(px, 255).astype(np.uint8)
         else:
             grey = px
         rgb, key = grey.repeat(3, axis=2), None if t is None else np.full(3, t & 0xFF, np.uint8)
+    else:
+        raise ValueError(f"to_rgba: no conversion of mode {mode!r} to RGBA")
     alpha = np.full(rgb.shape[:2] + (1,), 255, np.uint8)
     if key is not None:
         alpha[(rgb == key).all(axis=2)] = 0

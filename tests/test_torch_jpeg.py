@@ -100,18 +100,23 @@ def _pack(values, lengths):
     return bytes(data).replace(b"\xff", b"\xff\x00")
 
 
+# the table (quantisation and Huffman) of each component: luma for Y (or
+# C) and K, chroma for the other two
+TABLE_OF = np.array([0, 1, 1, 0])
+
+
 def _entropy(coefs, comp, tables):
     """Huffman-code quantised blocks (B, 64, zig-zag order) of one
-    restart segment, `comp` the component of each block (0 luma, 1 and 2
-    chroma): DC differences per component, AC as (run, size) symbols with
-    ZRL and EOB; the luma tables for component 0, the chroma ones else."""
+    restart segment, `comp` the component of each block: DC differences
+    per component, AC as (run, size) symbols with ZRL and EOB; each
+    component's tables by TABLE_OF."""
     B = len(coefs)
     dc = coefs[:, 0]
     diff = np.empty(B, np.int64)
     for c in np.unique(comp):
         idx = np.nonzero(comp == c)[0]
         diff[idx] = np.diff(dc[idx], prepend=0)
-    comp = np.minimum(comp, 1)
+    comp = TABLE_OF[comp]
     b_idx, k = np.nonzero(coefs[:, 1:])
     k = k + 1
     first = np.ones(len(k), bool)
@@ -147,11 +152,18 @@ def _entropy(coefs, comp, tables):
     return _pack(values[order], lengths[order])
 
 
-def encode_jpeg(pixels, quality=95, sampling=(2, 2), restart_interval=0):
-    """Baseline JFIF bytes of (H, W, 3) or (H, W[, 1]) uint8 `pixels`: the
-    luma sampled (h, v) = `sampling` times the chroma's (3 channels), a
-    float DCT, the Annex K tables at libjpeg's `quality` scaling, and
-    `restart_interval` MCUs between restart markers (0: none)."""
+def encode_jpeg(pixels, quality=95, sampling=(2, 2), restart_interval=0, adobe=None, k_sampled=False):
+    """Baseline bytes of (H, W, 3), (H, W[, 1]) or (H, W, 4) uint8 `pixels`:
+    the first component sampled (h, v) = `sampling` times the second and
+    third's, a float DCT, the Annex K tables at libjpeg's `quality`
+    scaling, and `restart_interval` MCUs between restart markers (0: none).
+    3 channels are RGB, written as YCbCr under a JFIF marker. 4 channels
+    are CMYK as libjpeg takes it (the samples the file stores for CMYK):
+    with `adobe` 2 written as YCCK (libjpeg's cmyk_ycck_convert: YCbCr of
+    255 - C, 255 - M, 255 - Y, K kept) under an Adobe marker of transform
+    2, else as stored, under an Adobe marker of transform `adobe` (0) or
+    none (None); K sampled as the first component, or as the second and
+    third where `k_sampled`."""
     a = np.asarray(pixels, np.float64)
     a = a[..., None] if a.ndim == 2 else a
     H, W, C = a.shape
@@ -159,14 +171,20 @@ def encode_jpeg(pixels, quality=95, sampling=(2, 2), restart_interval=0):
     hs, vs = (1, 1) if grey else sampling
     mcux, mcuy = -(-W // (8 * hs)), -(-H // (8 * vs))
     a = np.pad(a, ((0, mcuy * 8 * vs - H), (0, mcux * 8 * hs - W), (0, 0)), mode="edge")
+    factors = [(hs, vs)] + [(1, 1)] * min(C - 1, 2) + ([(1, 1) if k_sampled else (hs, vs)] if C == 4 else [])
     if grey:
         planes = [a[..., 0]]
     else:
-        r, g, b = a[..., 0], a[..., 1], a[..., 2]
-        y = 0.299 * r + 0.587 * g + 0.114 * b
-        cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128
-        cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128
-        planes = [y] + [p.reshape(mcuy * 8, vs, mcux * 8, hs).mean(axis=(1, 3)) for p in (cb, cr)]
+        if C == 4 and adobe != 2:
+            planes = [a[..., i] for i in range(4)]
+        else:
+            r, g, b = (255 - a[..., i] if C == 4 else a[..., i] for i in range(3))
+            y = 0.299 * r + 0.587 * g + 0.114 * b
+            cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128
+            cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128
+            planes = [y, cb, cr] + ([a[..., 3]] if C == 4 else [])
+        planes = [p if f == (hs, vs) else p.reshape(mcuy * 8, vs, mcux * 8, hs).mean(axis=(1, 3))
+                  for p, f in zip(planes, factors)]
     qts = [_scaled(Q_LUMA, quality), _scaled(Q_CHROMA, quality)]
     x = np.arange(8)
     M = np.sqrt(np.where(x[:, None] == 0, 1 / 8, 2 / 8)) * np.cos((2 * x[None, :] + 1) * x[:, None] * np.pi / 16)
@@ -175,11 +193,11 @@ def encode_jpeg(pixels, quality=95, sampling=(2, 2), restart_interval=0):
         rows, cols = p.shape[0] // 8, p.shape[1] // 8
         t = (p - 128).reshape(rows, 8, cols, 8).transpose(0, 2, 1, 3)
         f = M @ t @ M.T
-        q = np.round(f.reshape(rows, cols, 64) / qts[min(i, 1)]).astype(np.int64)[..., ENC_ZIGZAG]
-        h, v = (hs, vs) if i == 0 else (1, 1)
+        q = np.round(f.reshape(rows, cols, 64) / qts[TABLE_OF[i]]).astype(np.int64)[..., ENC_ZIGZAG]
+        h, v = factors[i]
         blocks.append(q.reshape(mcuy, v, mcux, h, 64).transpose(0, 2, 1, 3, 4).reshape(mcuy * mcux, h * v, 64))
     mcu = np.concatenate(blocks, axis=1)  # (MCUs, blocks per MCU, 64) in scan order
-    comp = np.array([0] * hs * vs + ([] if grey else [1, 2]))
+    comp = np.array([i for i, (h, v) in enumerate(factors) for _ in range(h * v)])
     tables = [((_codes(*HUFFMAN[0, t])), _codes(*HUFFMAN[1, t])) for t in range(2)]
     per = restart_interval or len(mcu)
     segs = [_entropy(mcu[s:s + per].reshape(-1, 64), np.tile(comp, len(mcu[s:s + per])), tables)
@@ -190,16 +208,17 @@ def encode_jpeg(pixels, quality=95, sampling=(2, 2), restart_interval=0):
     def segment(marker, body):
         return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
 
-    ncomp = 1 if grey else 3
-    sof = struct.pack(">BHHB", 8, H, W, ncomp) + bytes([1, hs << 4 | vs, 0])
-    sos = bytes([ncomp, 1, 0x00])
-    if not grey:
-        sof += bytes([2, 0x11, 1, 3, 0x11, 1])
-        sos += bytes([2, 0x11, 3, 0x11])
+    sof = struct.pack(">BHHB", 8, H, W, C) + b"".join(
+        bytes([i + 1, h << 4 | v, TABLE_OF[i]]) for i, (h, v) in enumerate(factors))
+    sos = bytes([C]) + b"".join(bytes([i + 1, TABLE_OF[i] * 0x11]) for i in range(C))
     dqt = b"".join(bytes([t]) + qts[t][ENC_ZIGZAG].astype(np.uint8).tobytes() for t in range(1 if grey else 2))
     dht = b"".join(bytes([c << 4 | t]) + bytes(HUFFMAN[c, t][0]) + bytes(HUFFMAN[c, t][1])
                    for c in range(2) for t in range(1 if grey else 2))
-    out = (b"\xff\xd8" + segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    if C == 4:
+        app = segment(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, adobe)) if adobe is not None else b""
+    else:
+        app = segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    out = (b"\xff\xd8" + app
            + segment(0xDB, dqt) + segment(0xC0, sof) + segment(0xC4, dht)
            + (segment(0xDD, struct.pack(">H", restart_interval)) if restart_interval else b"")
            + segment(0xDA, sos + bytes([0, 63, 0])) + scan + b"\xff\xd9")
@@ -451,7 +470,7 @@ def refusal_cases():
         "lossless": (patched(rgb, lambda d: sof, b"\xc3"), r"lossless JPEG \(SOF3\)", False),
         "hierarchical": (patched(rgb, lambda d: sof, b"\xc5"), r"hierarchical JPEG \(SOF5\)", False),
         "12-bit": (patched(rgb, lambda d: sof + 3, b"\x0c"), r"12-bit samples", False),
-        "cmyk": (cmyk.getvalue(), r"4 colour components \(CMYK or YCCK\)", True),
+        "cmyk": (cmyk.getvalue(), None, True),  # decoded now by the compiled decoder
         "two components": (with_sof(rgb, 8, [(1, 1, 1), (2, 1, 1)]), r"2 colour components", False),
         "dnl height": (patched(rgb, lambda d: sof + 4, b"\x00\x00"), r"a DNL height", False),
         "4x1 ratio": (with_sof(rgb, 8, [(1, 4, 1), (2, 1, 1), (3, 1, 1)]),
@@ -465,15 +484,26 @@ def refusal_cases():
     }
 
 
+# The forms the compiled decoder reads and the plain one, frozen, refuses,
+# by the words of its refusal
+PLAIN_REFUSES = {"cmyk": r"4 colour components \(CMYK or YCCK\)"}
+
+
 @pytest.mark.parametrize("case", list(refusal_cases()))
 def test_refusals_name_the_file_and_the_form(tmp_path, case):
     """Each form the decoders refuse raises, naming the file and the form;
-    a case whose form is read now (no message) gives PIL's pixels."""
+    a case whose form is read now (no message) gives PIL's pixels (a
+    4-component file from the compiled decoder only: the plain one refuses
+    it, naming it)."""
     data, match, pil_reads = refusal_cases()[case]
     if pil_reads:
         Image.open(io.BytesIO(data)).load()
     if match is None:
         for plain in (False, True) if have_cxx() else (True,):
+            if plain and case in PLAIN_REFUSES:
+                with pytest.raises(ValueError, match=PLAIN_REFUSES[case]):
+                    jpeg.decode_jpeg(data, case, plain=True)
+                continue
             np.testing.assert_array_equal(jpeg.decode_jpeg(data, case, plain=plain), pil_pixels(data))
         return
     if case == "truncated":
@@ -492,7 +522,10 @@ def test_refusals_name_the_file_and_the_form(tmp_path, case):
 
 # What PIL reads and the decoders still refuse, by the words of the refusal
 # (ROADMAP.md section 1); a seeded flip that lands on one is counted here.
-STILL_REFUSED = ("arithmetic coding", "lossless JPEG", "hierarchical JPEG", "CMYK or YCCK")
+STILL_REFUSED = ("arithmetic coding", "lossless JPEG", "hierarchical JPEG")
+# What PIL and the compiled decoder read and the plain one, frozen,
+# refuses; a seeded flip that lands on it is counted by this name.
+PLAIN_ONLY_REFUSED = "CMYK or YCCK"
 
 
 def pil_or_error(data: bytes):
@@ -507,7 +540,8 @@ def test_decoders_agree_on_corrupted_files(compiled, base):
     """Seeded byte flips in a small file: the compiled decoder gives the
     plain one's pixels or its error message, whichever that is, and both
     give PIL's pixels where PIL returns an image and raise where PIL
-    raises. The only exceptions allowed are forms still refused, counted
+    raises. The only exceptions allowed are forms still refused, and
+    4-component files that only the plain decoder refuses, each counted
     by name (none at these seeds)."""
     if base == "grey_restart_rows":  # flips that wipe the AC table's DHT leave libjpeg's standard one
         data = bytearray(pil_jpeg(content(21, 35, 1, "noisy", 5), quality=75, restart_marker_rows=1))
@@ -526,20 +560,24 @@ def test_decoders_agree_on_corrupted_files(compiled, base):
                 results.append(decoder(bytes(bad)))
             except ValueError as err:
                 results.append(str(err))
-        if isinstance(results[0], str) or isinstance(results[1], str):
-            assert results[0] == results[1]
+        got = results[0]
+        if isinstance(got, str) and PLAIN_ONLY_REFUSED in got and not isinstance(results[1], str):
+            exceptions[PLAIN_ONLY_REFUSED] = exceptions.get(PLAIN_ONLY_REFUSED, 0) + 1
+            got = results[1]  # held to PIL below
+        elif isinstance(got, str) or isinstance(results[1], str):
+            assert got == results[1]
         else:
-            np.testing.assert_array_equal(results[0], results[1])
+            np.testing.assert_array_equal(got, results[1])
         want = pil_or_error(bytes(bad))
-        if isinstance(want, str) and isinstance(results[0], str):
+        if isinstance(want, str) and isinstance(got, str):
             outcomes["raise"] += 1
-        elif isinstance(results[0], str):
-            form = [f for f in STILL_REFUSED if f in results[0]]
-            assert form, f"PIL reads a file the decoders refuse: {results[0]}"
+        elif isinstance(got, str):
+            form = [f for f in STILL_REFUSED if f in got]
+            assert form, f"PIL reads a file the decoders refuse: {got}"
             exceptions[form[0]] = exceptions.get(form[0], 0) + 1
         else:
             assert not isinstance(want, str), f"the decoders read a file PIL refuses ({want})"
-            np.testing.assert_array_equal(results[0], want)
+            np.testing.assert_array_equal(got, want)
             outcomes["pixels"] += 1
     assert exceptions == {}
     assert min(outcomes.values()) >= 20, outcomes  # both outcomes well exercised
@@ -712,10 +750,11 @@ def test_fixture_pixels_are_pils(decode, name):
 
 def test_read_image_dispatches_on_the_signature(tmp_path, compiled, monkeypatch):
     a = content(20, 30, 3, "smooth")
-    png, jpg, other = tmp_path / "a.png", tmp_path / "a.jpg", tmp_path / "a.bmp"
+    png, jpg, junk_bmp, other = (tmp_path / n for n in ("a.png", "a.jpg", "a.bmp", "a.gif"))
     image_io.write_png(png, a)
     jpg.write_bytes(pil_jpeg(a, quality=90))
-    other.write_bytes(b"BM" + bytes(64))
+    junk_bmp.write_bytes(b"BM" + bytes(64))
+    other.write_bytes(b"GIF89a" + bytes(64))
 
     def no_plain(*args):
         raise AssertionError("read_image reached the plain decoder")
@@ -723,7 +762,10 @@ def test_read_image_dispatches_on_the_signature(tmp_path, compiled, monkeypatch)
     monkeypatch.setattr(jpeg, "_Decoder", no_plain)
     np.testing.assert_array_equal(image_io.read_image(png), a)
     np.testing.assert_array_equal(image_io.read_image(jpg), pil_pixels(jpg.read_bytes()))
-    with pytest.raises(ValueError, match="neither a PNG nor a JPEG") as err:
+    with pytest.raises(ValueError, match="a BMP header of 0 bytes") as err:
+        image_io.read_image(junk_bmp)  # the BMP reader's refusal
+    assert str(junk_bmp) in str(err.value)
+    with pytest.raises(ValueError, match="not a PNG, JPEG, BMP or TIFF file") as err:
         image_io.read_image(other)
     assert str(other) in str(err.value)
     with pytest.raises(ValueError, match="JPEG"):
@@ -785,16 +827,16 @@ def test_missing_host_compiler_raises(tmp_path, monkeypatch):
 
 def test_host_build_and_its_reuse(fake_cxx):
     """The real compiler behind a counting stand-in: one build, then reuse;
-    the .cu sources stay the kernels' list."""
+    the .cu sources stay the kernels' list; one build per host source."""
     if shutil.which("c++") is None:
         pytest.skip("no host C++ compiler (c++) on this machine")
     calls = fake_cxx(fail=False)
-    assert cuda_build.host_sources() == ["jpeg_decode"]
-    assert "jpeg_decode" not in cuda_build.sources()
+    assert cuda_build.host_sources() == ["image_codecs", "jpeg_decode"]
+    assert not {"image_codecs", "jpeg_decode"} & set(cuda_build.sources())
     cuda_build.build_host()
     path = cuda_build.host_library_path("jpeg_decode")
     assert path.exists() and path.parent == cuda_build.BUILD_DIR
     cuda_build.build_host()
     data = pil_jpeg(content(9, 13, 3, "noisy"), quality=80)
     np.testing.assert_array_equal(jpeg.decode_jpeg(data), pil_pixels(data))
-    assert calls.read_text().count("call") == 1
+    assert calls.read_text().count("call") == 2

@@ -215,7 +215,7 @@ def test_unreadable_image_names_the_listing(tmp_path):
     (tmp_path / "data" / "images" / "view_00.jpg").write_bytes(b"GIF89a" + bytes(16))
     info = dataset_readers.read_colmap_scene(src, None, eval_split=False)
     bad = [c for c in info.train_cameras if c.image_name == "view_00"][0]
-    with pytest.raises(ValueError, match=r"'view_00.jpg' in .*images\.bin: .*view_00\.jpg: neither a PNG nor a JPEG"):
+    with pytest.raises(ValueError, match=r"'view_00.jpg' in .*images\.bin: .*view_00\.jpg: not a PNG, JPEG, BMP or TIFF file"):
         dataset_readers.load_camera(bad, 1)
 
 
