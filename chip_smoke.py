@@ -10,8 +10,9 @@ Phases (any failure exits non-zero; none is caught and passed over):
   2. build: compile every kernel under gaussian_splatting_torch/csrc with
      nvcc (one process per source, all at once) and print ptxas's
      register / shared-memory / spill report; beside them the host sources
-     (csrc/jpeg_decode.cc, the JPEG decoder, and csrc/image_codecs.cc, TIFF's
-     LZW and PackBits and BMP's RLE; host C++, `c++`), with their build time.
+     (csrc/jpeg_decode.cc, the JPEG decoder, csrc/webp_decode.cc, the WebP
+     decoder, and csrc/image_codecs.cc, TIFF's LZW and PackBits, BMP's RLE
+     and GIF's LZW; host C++, `c++`), with their build time.
   3. kernels vs plain: preprocess and bin a scene once, feed the same sorted
      lists to each CUDA kernel and to its plain torch version. Random scenes
      at 128x128 and 333x197 for the three compiled tile geometries (32x32,
@@ -107,10 +108,12 @@ Phases (any failure exits non-zero; none is caught and passed over):
      every MCU row and one flipped bit of entropy-coded data, view_02
      with extraneous bytes before its DQT and SOS markers, both of which
      libjpeg only warns about), but view_03 as a 16-bit RGB TIFF (LZW with
-     Predictor 2, the render in each sample's high byte) and view_04 as a
-     24-bit BMP, named so in images.bin, the 2 test views as PNG. The port's
-     readers must give back every camera (R, T within 1e-12), every PNG,
-     TIFF and BMP pixel and each JPEG view within 30 dB PSNR of its
+     Predictor 2, the render in each sample's high byte), view_04 as a
+     24-bit BMP and view_05 as a lossless WebP (this script's VP8L writer:
+     literal prefix codes, no transforms), named so in images.bin, the 2
+     test views as PNG. The port's readers must give back every camera
+     (R, T within 1e-12), every PNG, TIFF, BMP and WebP pixel and each
+     JPEG view within 30 dB PSNR of its
      render; the two damaged views decoded by the compiled decoder (the
      one the train CLI's Scene runs) bit-equal to the plain one, their
      PSNR printed; and a
@@ -123,11 +126,17 @@ Phases (any failure exits non-zero; none is caught and passed over):
      pixels committed beside each. One view's pixels at 1920x1080 in
      each form beyond PNG and 3-component JPEG (TIFF raw 8- and 16-bit,
      PackBits, LZW + Predictor 2 at 16 bits, deflate + Predictor 2; BMP
-     24-bit and RLE8; CMYK and YCCK JPEG) through `image_io.open_image`:
-     the lossless ones bit-equal to what was written, the JPEGs mode CMYK
-     within 30 dB PSNR and `to_rgba` PIL's cmyk2rgb of what they give; and
-     every file of tests/fixtures/torch_images (BMP, TIFF, CMYK and YCCK
-     JPEG) must give PIL's mode, pixels and RGBA committed beside it. Then
+     24-bit and RLE8; CMYK and YCCK JPEG; WebP VP8L; an interlaced GIF of
+     palette indices from this script's writer) through
+     `image_io.open_image`: the lossless ones bit-equal to what was written
+     (the GIF its indices), the JPEGs mode CMYK within 30 dB PSNR and
+     `to_rgba` PIL's cmyk2rgb of what they give; the three 1920x1080 WebP
+     files of tests/fixtures/torch_webp (lossy q90, lossy with alpha,
+     lossless) the mode, shape and SHA-256 of PIL's pixels committed
+     beside them; and every file of tests/fixtures/torch_images (BMP,
+     TIFF, CMYK and YCCK JPEG, WebP lossy, with alpha, lossless and
+     animated, GIF) must give PIL's mode, pixels and RGBA committed beside
+     it. Then
      `cli.train.main`
      (-r 1 --eval, 200 iterations, reports at 100 and 200, a PLY at 100 and
      200, a checkpoint at 200, a densify every 20 steps from 40 to 140, the
@@ -155,8 +164,8 @@ Phases (any failure exits non-zero; none is caught and passed over):
      views; one forward per render-CLI view. Prints the PNG encode and
      decode ms at 1080p (the decode of the port's Sub-filtered files and
      of the five-filter file), the JPEG decode ms (compiled at 1080p,
-     plain on view_01, both on the 1237x822 fixtures), the TIFF and BMP
-     views' and each 1080p form's decode ms, one 1920 -> 1600
+     plain on view_01, both on the 1237x822 fixtures), the TIFF, BMP and
+     WebP views' and each 1080p form's decode ms, one 1920 -> 1600
      resize, the train CLI's wall time, its scene load and step median (from the `iter_time_ms` it records in
      each history entry), the time of tensorboard's image panels where
      tensorboard imports and which optional packages import, the render
@@ -174,13 +183,16 @@ Phases (any failure exits non-zero; none is caught and passed over):
      frames 1, 3, 5, 7, 9 are written by this script's own PNG writer as
      16-bit RGBA, palette + tRNS, Adam7 RGBA, 8-bit grey + alpha and 8-bit
      RGB with a tRNS colour, frame 11 as a CMYK JPEG (Adobe transform 0,
-     the frame composited on white) and frame 13 as a 32-bit BI_BITFIELDS
-     BMP with an alpha mask, each file named r_<i>.png as the transforms
+     the frame composited on white), frame 13 as a 32-bit BI_BITFIELDS
+     BMP with an alpha mask and frame 15 as an interlaced palette GIF (4
+     levels a channel, alpha below 128 the transparency index), each file
+     named r_<i>.png as the transforms
      file lists it; the others 8-bit RGBA. Every lossless frame's
      `image_io.open_image` + `to_rgba` must equal, bit for bit, the RGBA
      this script derives by PIL's rules (high bytes, palette colours and
      tRNS alphas, grey spread, alpha 0 on the tRNS colour, a BMP's BGRA
-     under its masks); the CMYK JPEG must read as mode CMYK within 30 dB
+     under its masks, a GIF's palette colours, alpha 0 on its transparency
+     index); the CMYK JPEG must read as mode CMYK within 30 dB
      PSNR of the CMYK written, and its `to_rgba` be PIL's cmyk2rgb of
      those pixels; the ms per form is printed. Then `cli.train.main`
      (-s -m --white_background --eval, 300 iterations, reports at 150 and 300, a PLY at 300, a
@@ -275,6 +287,7 @@ seeds. Imports no JAX.
 """
 
 import contextlib
+import hashlib
 import importlib.util
 import io
 import json
@@ -367,10 +380,11 @@ CLI_JPEG_QUALITY, CLI_RESTART_VIEW = 95, 1  # the train view with a restart mark
 # entropy-coded byte in the restart view (its damage ends at the next
 # restart marker), extraneous bytes before two markers in another
 CLI_FLIPPED_VIEW, CLI_EXTRANEOUS_VIEW = CLI_RESTART_VIEW, 2
-# two train views in the other forms capture tools write: a 16-bit RGB TIFF
-# (LZW with Predictor 2; each sample the render's value in its high byte)
-# and a 24-bit BMP
-CLI_TIFF_VIEW, CLI_BMP_VIEW = 3, 4
+# three train views in the other forms capture tools and web hosts write: a
+# 16-bit RGB TIFF (LZW with Predictor 2; each sample the render's value in
+# its high byte), a 24-bit BMP and a lossless WebP (this script's VP8L writer)
+CLI_TIFF_VIEW, CLI_BMP_VIEW, CLI_WEBP_VIEW = 3, 4, 5
+WEBP_FIXTURES = os.path.join(FIXTURES, "torch_webp")  # 1080p files and the SHA-256 of PIL's pixels
 CLI_TRAIN = ["-r", "1", "--eval", "--iterations", str(CLI_STEPS),
              "--test_iterations", *map(str, CLI_REPORTS), "--save_iterations", str(CLI_SAVE),
              "--checkpoint_iterations", str(CLI_STEPS), "--densify_from_iter", "20",
@@ -394,7 +408,8 @@ BLENDER_FLAGS = ["--white_background", "--eval", "--iterations", str(BLENDER_STE
 # the transforms file lists it, read by its signature); the others are
 # 8-bit RGBA PNG, as NeRF-synthetic ships
 BLENDER_FORMS = {1: "16-bit RGBA", 3: "palette + tRNS", 5: "Adam7 RGBA", 7: "grey + alpha",
-                 9: "RGB + tRNS colour", 11: "CMYK JPEG", 13: "32-bit BMP with alpha"}
+                 9: "RGB + tRNS colour", 11: "CMYK JPEG", 13: "32-bit BMP with alpha",
+                 15: "palette GIF + transparency"}
 
 SUM_K = (1_900_544, 1_339_001)  # the profiler's capacity at its defaults, and an odd K
 LAUNCH_COUNTERS = {"composite_fwd": composite_fwd, "composite_bwd": composite_bwd,
@@ -1346,6 +1361,68 @@ def bmp_rows(row_bytes) -> bytes:
     return out[::-1].tobytes()
 
 
+# ---- WebP and GIF writers, for the CLI and Blender phases ----
+# The port writes neither (the JAX package writes neither): each is the
+# plainest file of its format, built from the specification.
+
+REVERSED_BYTE = np.array([int(f"{v:08b}"[::-1], 2) for v in range(256)], np.uint8)
+
+
+def vp8l_form(rgb) -> bytes:
+    """A lossless WebP (RIFF, one VP8L chunk) of (H, W, 3) uint8 pixels: no
+    transform, no colour cache, no meta prefix codes; the green (with its
+    24 length codes unused), red, blue and alpha prefix codes give each of
+    the 256 byte values length 8, so a value's code is the value itself; the
+    distance code has one symbol. Every pixel is four 8-bit literals (alpha
+    255, the header's alpha bit clear: PIL reads mode RGB)."""
+    H, W = rgb.shape[:2]
+    head = []  # (value, bits), least significant bit first
+
+    def put(value, n):
+        head.extend((value >> i) & 1 for i in range(n))
+
+    put(0x2F, 8), put(W - 1, 14), put(H - 1, 14), put(0, 1), put(0, 3)
+    put(0, 1), put(0, 1), put(0, 1)  # no transform, no colour cache, no meta prefix codes
+    for alphabet in (280, 256, 256, 256):
+        put(0, 1), put(12 - 4, 4)  # a normal code; 12 code-length code lengths, in RFC 9649's order:
+        for symbol in (17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8):  # lengths 0 and 8, one bit each
+            put(1 if symbol in (0, 8) else 0, 3)
+        put(0, 1)  # a length for every symbol: 8 (code 1) for the bytes, 0 (code 0) past them
+        head.extend([1] * 256 + [0] * (alphabet - 256))
+    put(1, 1), put(0, 1), put(0, 1), put(0, 1)  # distance: a simple code of the one symbol 0
+    px = np.concatenate([rgb[..., 1:2], rgb[..., :1], rgb[..., 2:3], np.full((H, W, 1), 255, np.uint8)], -1)
+    # a code is read most significant bit first from a stream packed least significant bit first
+    pixel_bits = np.unpackbits(REVERSED_BYTE[px].reshape(-1), bitorder="little")
+    body = np.packbits(np.concatenate([np.array(head, np.uint8), pixel_bits]), bitorder="little").tobytes()
+    chunk = b"VP8L" + struct.pack("<I", len(body)) + body + b"\0" * (len(body) & 1)
+    return b"RIFF" + struct.pack("<I", 4 + len(chunk)) + b"WEBP" + chunk
+
+
+def gif_form(indices, palette, transparency=None, interlace=False) -> bytes:
+    """A GIF89a of (H, W) indices into `palette` ((2^k, 3) uint8, k >= 1): a
+    global palette, a graphic-control extension with the transparency index
+    if one is given, one frame (its rows in the four interlaced passes if
+    `interlace`). LZW at minimum code size 8 with only literal codes: a
+    Clear before every 254 indices keeps the decoder's table below 512
+    entries, so every code is 9 bits."""
+    H, W = indices.shape
+    rows = np.concatenate([np.arange(s, H, step) for s, step in ((0, 8), (4, 8), (2, 4), (1, 2))]) \
+        if interlace else np.arange(H)
+    flat = indices[rows].reshape(-1).astype(np.int64)
+    runs = np.arange(0, len(flat), 254)
+    codes = np.concatenate([np.insert(flat, runs, 256), [257]])  # Clear before each run, End last
+    data = np.packbits(((codes[:, None] >> np.arange(9)) & 1).astype(np.uint8).reshape(-1),
+                       bitorder="little")
+    blocks = b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255].tobytes() for i in range(0, len(data), 255))
+    n = len(palette)
+    out = b"GIF89a" + struct.pack("<HHBBB", W, H, 0x80 | (n.bit_length() - 2), 0, 0)
+    out += np.asarray(palette, np.uint8).tobytes()
+    if transparency is not None:
+        out += b"!\xf9\x04\x01\x00\x00" + bytes([transparency]) + b"\x00"
+    out += b"," + struct.pack("<HHHHB", 0, 0, W, H, 0x40 if interlace else 0)
+    return out + b"\x08" + blocks + b"\x00;"
+
+
 def cmyk_of(rgb):
     """PIL-convention CMYK (H, W, 4) uint8 whose cmyk2rgb is close to `rgb`
     (K from the brightest channel), and the samples a CMYK JPEG stores for
@@ -1406,9 +1483,9 @@ def train_view_files(data, cams, images, test_names):
     """Rewrite the COLMAP dataset's views outside `test_names` as baseline
     JPEG (`encode_jpeg`: 4:2:0, CLI_JPEG_QUALITY; view CLI_RESTART_VIEW
     with a restart marker every MCU row), but view CLI_TIFF_VIEW as a 16-bit
-    RGB TIFF (LZW, Predictor 2) and CLI_BMP_VIEW as a 24-bit BMP, and
-    images.bin to name them; the test views stay PNG. Returns each view's
-    file name and the JPEG encode ms."""
+    RGB TIFF (LZW, Predictor 2), CLI_BMP_VIEW as a 24-bit BMP and
+    CLI_WEBP_VIEW as a lossless WebP, and images.bin to name them; the test
+    views stay PNG. Returns each view's file name and the JPEG encode ms."""
     images_bin = os.path.join(data, "sparse", "0", "images.bin")
     records = colmap.read_images_binary(images_bin)
     files, encode_ms = {}, []
@@ -1421,6 +1498,8 @@ def train_view_files(data, cams, images, test_names):
         elif i == CLI_BMP_VIEW:
             name, body = f"{cam.image_name}.bmp", bmp_form(bmp_rows(px[..., ::-1].reshape(len(px), -1)),
                                                             px.shape[1], px.shape[0], 24)
+        elif i == CLI_WEBP_VIEW:
+            name, body = f"{cam.image_name}.webp", vp8l_form(px)
         else:
             restart = -(-W_MAIN // 16) if i == CLI_RESTART_VIEW else 0  # MCUs in a row
             t0 = time.perf_counter()
@@ -1487,15 +1566,19 @@ def check_jpeg_decoders(view_path):
 
 
 def check_image_forms(tmp, px):
-    """The BMP, TIFF and 4-component JPEG forms at full width: one view's
-    pixels `px` written in each (the CMYK JPEGs from `cmyk_of`), each
-    decoded by `image_io.open_image` three times. The lossless forms must
-    give back the pixels written (a 16-bit TIFF its high bytes, the RLE8
-    BMP its indices); the JPEGs mode CMYK within 30 dB PSNR of PIL's CMYK
+    """The BMP, TIFF, 4-component JPEG, WebP and GIF forms at full width:
+    one view's pixels `px` written in each (the CMYK JPEGs from `cmyk_of`,
+    the WebP by `vp8l_form`, the GIF by `gif_form`), each decoded by
+    `image_io.open_image` three times. The lossless forms must give back
+    the pixels written (a 16-bit TIFF its high bytes, the RLE8 BMP and the
+    GIF their indices); the JPEGs mode CMYK within 30 dB PSNR of PIL's CMYK
     for the samples written, and `to_rgba` this script's cmyk2rgb of them.
-    Then every file of tests/fixtures/torch_images must give PIL's mode,
-    pixels and convert("RGBA") committed beside it. Prints the median
-    decode ms per form."""
+    The 1920x1080 WebP files of tests/fixtures/torch_webp (lossy, lossy
+    with alpha, lossless), each decoded three times, must give the mode,
+    shape and SHA-256 of PIL's pixels committed beside them. Then every
+    file of tests/fixtures/torch_images must give PIL's mode, pixels and
+    convert("RGBA") committed beside it. Prints the median decode ms per
+    form."""
     H, W = px.shape[:2]
     idx = (px[..., 0] // 43) * 36 + (px[..., 1] // 43) * 6 + px[..., 2] // 43
     levels = np.stack(np.meshgrid(*[np.arange(6)] * 3, indexing="ij"), -1).reshape(-1, 3) * 51
@@ -1510,6 +1593,9 @@ def check_image_forms(tmp, px):
         "BMP RLE8": (bmp_form(rle8_encode(idx), W, H, 8, 1, palette=levels), idx[..., None]),
         "JPEG CMYK": (encode_jpeg(stored, CLI_JPEG_QUALITY, (2, 2), 0, adobe=0), None),
         "JPEG YCCK": (encode_jpeg(stored, CLI_JPEG_QUALITY, (2, 2), 0, adobe=2), None),
+        "WebP VP8L (literal codes)": (vp8l_form(px), px),
+        "GIF interlaced (literal LZW)": (gif_form(idx, np.concatenate([levels, np.zeros((40, 3), int)]),
+                                                 interlace=True), idx[..., None]),
     }
     times, cmyk_psnr = {}, {}
     path = os.path.join(tmp, "form")
@@ -1533,6 +1619,18 @@ def check_image_forms(tmp, px):
         if not cmyk_psnr[name] >= 30.0 or not np.array_equal(image_io.to_rgba(pic), cmyk_to_rgba(pic.pixels)):
             fail(f"cli path: the {name} file: {cmyk_psnr[name]:.2f} dB PSNR, to_rgba == cmyk2rgb "
                  f"{np.array_equal(image_io.to_rgba(pic), cmyk_to_rgba(pic.pixels))}")
+    with open(os.path.join(WEBP_FIXTURES, "sha256.json")) as f:
+        readings = json.load(f)
+    for name, want in readings.items():
+        ms = []
+        for _ in range(3):
+            pic, t = synced_ms(image_io.open_image, os.path.join(WEBP_FIXTURES, name))
+            ms.append(t)
+        times[f"{name} (PIL's committed hash)"] = float(np.median(ms))
+        digest = hashlib.sha256(np.ascontiguousarray(pic.pixels).tobytes()).hexdigest()
+        if (pic.mode, list(pic.pixels.shape), digest) != (want["mode"], want["shape"], want["sha256"]):
+            fail(f"cli path: {name} reads as {pic.mode} {pic.pixels.shape} with SHA-256 {digest}, not PIL's "
+                 f"{want['mode']} {want['shape']} {want['sha256']}")
     names = sorted(f for f in os.listdir(IMAGE_FIXTURES) if not f.endswith((".npz", ".py")))
     if not names:
         fail(f"cli path: no image fixtures in {IMAGE_FIXTURES}")
@@ -1546,8 +1644,9 @@ def check_image_forms(tmp, px):
           + ", ".join(f"{k} {v:.2f}" for k, v in times.items())
           + f"; lossless forms bit-equal, CMYK / YCCK JPEG (q{CLI_JPEG_QUALITY} 4:2:0) "
           + ", ".join(f"{v:.2f}" for v in cmyk_psnr.values())
-          + f" dB PSNR from PIL's CMYK of the samples written; {len(names)} tests/fixtures/torch_images files "
-          f"(BMP, TIFF, CMYK and YCCK JPEG) give PIL's committed mode, pixels and RGBA")
+          + f" dB PSNR from PIL's CMYK of the samples written; {len(readings)} 1080p WebP files give PIL's "
+          f"committed SHA-256; {len(names)} tests/fixtures/torch_images files (BMP, TIFF, CMYK and YCCK JPEG, "
+          f"WebP, GIF) give PIL's committed mode, pixels and RGBA")
 
 
 class SceneLoadTimer:
@@ -1654,7 +1753,7 @@ def _cli_phase(dev, tmp):
             if not np.array_equal(back, px):
                 fail(f"cli path: image {cam.image_name} did not survive its PNG")
             continue
-        if not got.image_path.endswith(".jpg"):  # the TIFF and BMP views, lossless
+        if not got.image_path.endswith(".jpg"):  # the TIFF, BMP and WebP views, lossless
             back, ms = synced_ms(image_io.read_image, got.image_path)
             lossless_ms[os.path.basename(got.image_path)] = ms
             if not np.array_equal(back, px):
@@ -1681,8 +1780,9 @@ def _cli_phase(dev, tmp):
           f"as baseline JPEG 4:2:0 q{CLI_JPEG_QUALITY} (this script's encoder, "
           f"{np.median(jpeg_encode_ms):.1f} ms a view; {files[names[CLI_RESTART_VIEW]]} with a "
           f"restart marker every MCU row), {files[names[CLI_TIFF_VIEW]]} as 16-bit RGB TIFF (LZW, "
-          f"Predictor 2), {files[names[CLI_BMP_VIEW]]} as 24-bit BMP, {len(decode_ms)} test views as PNG; "
-          f"cameras within 1e-12, PNG, TIFF and BMP pixels bit-equal (decode "
+          f"Predictor 2), {files[names[CLI_BMP_VIEW]]} as 24-bit BMP, {files[names[CLI_WEBP_VIEW]]} as "
+          f"lossless WebP (this script's VP8L writer), {len(decode_ms)} test views as PNG; "
+          f"cameras within 1e-12, PNG, TIFF, BMP and WebP pixels bit-equal (decode "
           + ", ".join(f"{k} {v:.1f} ms" for k, v in lossless_ms.items())
           + f"), JPEG views {min(psnr):.2f}-{max(psnr):.2f} dB PSNR from their renders through the port's "
           f"readers")
@@ -1735,7 +1835,7 @@ def _cli_phase(dev, tmp):
     if scene_load.s is None:
         fail("cli path: the train CLI made no Scene")
     print(f"  train CLI: {CLI_STEPS} steps, {n_train} train and {n_test} test views, wall "
-          f"{train_s:.2f} s (scene load {scene_load.s:.2f} s: {n_train - 2} JPEG, 1 TIFF, 1 BMP and "
+          f"{train_s:.2f} s (scene load {scene_load.s:.2f} s: {n_train - 3} JPEG, 1 TIFF, 1 BMP, 1 WebP and "
           f"{n_test} PNG views decoded), step median {np.median(step_ms):.3f} ms, p80 "
           f"{np.percentile(step_ms, 80):.3f} ms (its iter_time_ms, host clock, deferred "
           f"maintenance excluded); loss first 20 {first20:.6f}, last 20 {last20:.6f}; "
@@ -1807,7 +1907,7 @@ def _cli_phase(dev, tmp):
              f"{int((got_png != want_png).any(-1).sum())} pixels")
     print(f"  render CLI: {CLI_VIEWS} views in {render_ms / 1e3:.2f} s wall, "
           f"{render_ms / CLI_VIEWS:.1f} ms per view (scene load, render, two PNGs); launches "
-          f"{render_launches}; gt PNGs bit-equal to the dataset's JPEG, TIFF, BMP and PNG images, test view 0 "
+          f"{render_launches}; gt PNGs bit-equal to the dataset's JPEG, TIFF, BMP, WebP and PNG images, test view 0 "
           f"bit-equal to "
           f"eval_render of the reloaded PLY")
 
@@ -1845,7 +1945,8 @@ def blender_frame(rgba, form, seed):
     8-bit RGBA PNG), and the RGBA that PIL's convert("RGBA") gives for them
     by PIL's rules: a 16-bit file's high bytes, a palette entry's colour and
     tRNS alpha, grey spread to RGB, alpha 0 on a tRNS colour, a BMP's BGRA
-    bytes under its alpha mask. A CMYK JPEG (Adobe transform 0, of the
+    bytes under its alpha mask, a GIF's palette colour with alpha 0 on its
+    transparency index. A CMYK JPEG (Adobe transform 0, of the
     frame composited on white, which it has no alpha for) is lossy: for it
     the second value is PIL's CMYK of the samples written (`cmyk_of`)."""
     if form is None:
@@ -1872,6 +1973,14 @@ def blender_frame(rgba, form, seed):
         return data, (q * 85).astype(np.uint8)
     if form == "Adam7 RGBA":
         return png_form(rgba, 8, 6, interlace=True), rgba
+    if form == "palette GIF + transparency":  # 4 levels per channel; alpha < 128 the transparent entry 64
+        q = rgba[..., :3] >> 6
+        index = np.where(rgba[..., 3] >= 128, (q[..., 0] << 4) | (q[..., 1] << 2) | q[..., 2], 64)
+        levels = np.arange(64)
+        entries = np.zeros((128, 3), np.int64)
+        entries[:64] = np.stack([(levels >> 4) & 3, (levels >> 2) & 3, levels & 3], -1) * 85
+        want = np.concatenate([entries[index], np.where(index == 64, 0, 255)[..., None]], -1)
+        return gif_form(index.astype(np.uint8), entries, transparency=64, interlace=True), want.astype(np.uint8)
     if form == "grey + alpha":
         lum = ((rgba[..., :3].astype(np.int64) * [299, 587, 114]).sum(-1) + 500) // 1000
         la = np.stack([lum, rgba[..., 3]], -1)
@@ -2006,7 +2115,7 @@ def _blender_phase(dev, tmp):
     knn_ms = cuda_time_ms(lambda: mean_knn_dist2_morton(pts), 5)
     print(f"  train CLI: {BLENDER_STEPS} steps from {len(init)} random points in [-1.3, 1.3]^3, white "
           f"background {white}, wall {train_s:.2f} s (scene load {scene_load.s:.2f} s: "
-          f"{BLENDER_TRAIN + BLENDER_TEST} frames decoded (PNG, a CMYK JPEG, a BMP) and composited), "
+          f"{BLENDER_TRAIN + BLENDER_TEST} frames decoded (PNG, a CMYK JPEG, a BMP, a GIF) and composited), "
           f"step median "
           f"{np.median(step_ms):.3f} ms, p80 {np.percentile(step_ms, 80):.3f} ms (its iter_time_ms, "
           f"host clock); loss first 20 {first20:.6f}, last 20 {last20:.6f}; "

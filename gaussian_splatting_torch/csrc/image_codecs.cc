@@ -1,9 +1,9 @@
-// The byte loops of the BMP and TIFF readers: host C++, built with the host
-// compiler by utils/cuda_build.py at first use and loaded with ctypes
+// The byte loops of the BMP, TIFF and GIF readers: host C++, built with the
+// host compiler by utils/cuda_build.py at first use and loaded with ctypes
 // (utils/image_codecs.py). Each decoder runs per code or per byte, which
-// Python cannot do at 1080p; everything else of the two formats (headers,
-// IFDs, unpacking, the predictor, palettes) is numpy in utils/bmp.py and
-// utils/tiff.py.
+// Python cannot do at 1080p; everything else of the three formats
+// (headers, IFDs, blocks, unpacking, the predictor, palettes) is numpy and
+// Python in utils/bmp.py, utils/tiff.py and utils/gif.py.
 //
 // - gs_lzw_decode: TIFF's LZW as libtiff 4's LZWDecode reads it (new style,
 //   codes most significant bit first, 9 to 12 bits, the width growing one
@@ -18,12 +18,25 @@
 //   still advances x by n); the word padding after an absolute run follows
 //   the position in the file; a delta escape skips two bytes and takes
 //   its right and up counts from the two after them.
+// - gs_gif_lzw_decode: one GIF frame's image data as PIL's GifDecode.c
+//   reads it: sub-blocks (decoded only once whole), variable-width LZW
+//   codes least significant bit first from min_code_size + 1 bits up to
+//   12, the width growing when the next free entry reaches it, Clear and
+//   End codes, a first code after Clear that may not be a string, a full
+//   table kept until the next Clear; rows in order or in the four
+//   interlaced passes. It stops when the frame is full. PIL hands the
+//   decoder the file in reads of `chunk` bytes: a sub-block is decoded only
+//   once all of it has been read, and an End code before the frame is full
+//   returns for another read, after which decoding goes on past the End
+//   code. Where no read is left (the file's end), or at a code past the
+//   table, it fails.
 //
 // Interface (plain C; every entry returns 0 or 1, the message of a 1 in
 // gs_codec_error for the calling thread):
 //   gs_lzw_decode(in, n, out, size)
 //   gs_packbits_decode(in, n, out, size)
 //   gs_bmp_rle_decode(file, file_size, start, rle4, width, want, out, produced)
+//   gs_gif_lzw_decode(in, n, chunk, min_code_size, interlace, out, stride, width, height)
 
 #include <cstdint>
 #include <cstring>
@@ -204,6 +217,116 @@ int gs_bmp_rle_decode(const uint8_t* file, long long file_size, long long start,
     }
   }
   *produced = len < want ? len : want;
+  return 0;
+}
+
+// `in` is the file from the byte after the minimum code size to its end;
+// `out` the frame's first pixel on the canvas, rows `stride` bytes apart.
+int gs_gif_lzw_decode(const uint8_t* in, long long n, long long chunk, int bits, int interlace, uint8_t* out,
+                      long long stride, int width, int height) {
+  if (bits < 0 || bits > 12) return fail("a GIF LZW minimum code size of " + std::to_string(bits));
+  const int kGifTable = 4096, clear = 1 << bits, end = clear + 1;
+  int pass = interlace ? 1 : 0, step = interlace ? 8 : 1;
+  long long x = 0, y = 0;
+  uint8_t* row = out;
+  bool full = false;
+  auto put = [&](uint8_t v) {  // PIL's NEWLINE at the end of each row
+    row[x] = v;
+    if (++x < width) return;
+    x = 0;
+    y += step;
+    while (y >= height) {
+      if (pass == 1) {
+        y = 4;
+        pass = 2;
+      } else if (pass == 2) {
+        step = 4;
+        y = 2;
+        pass = 3;
+      } else if (pass == 3) {
+        step = 2;
+        y = 1;
+        pass = 0;
+      } else {
+        full = true;
+        return;
+      }
+    }
+    row = out + y * stride;
+  };
+  std::vector<uint8_t> data(kGifTable), stack(kGifTable);
+  std::vector<int> link(kGifTable);
+  int state = 1, next = 0, codesize = 0, codemask = 0, lastdata = 0, lastcode = 0, blocksize = 0, bitcount = 0;
+  uint32_t bitbuffer = 0;
+  long long pos = 0, read = chunk < n ? chunk : n;  // the bytes PIL has read so far
+  const std::string truncated = "GIF image data ends before the frame is full (PIL: image file is truncated)";
+  auto read_more = [&]() {  // PIL's next read; false at the file's end
+    if (read >= n) return false;
+    read = n - read > chunk ? read + chunk : n;
+    return true;
+  };
+  const std::string broken = "corrupt GIF LZW data (PIL: broken data stream)";
+  while (!full) {
+    if (state == 1) {  // after a Clear: an empty table
+      next = clear + 2;
+      codesize = bits + 1;
+      codemask = (1 << codesize) - 1;
+      state = 2;
+    }
+    while (bitcount < codesize) {
+      if (blocksize > 0) {
+        bitbuffer |= static_cast<uint32_t>(in[pos++]) << bitcount;
+        bitcount += 8;
+        --blocksize;
+      } else if (pos < read && read - pos >= in[pos] + 1LL) {  // a sub-block is decoded once all of it is read
+        blocksize = in[pos++];
+      } else if (!read_more()) {
+        return fail(truncated);
+      }
+    }
+    int c = static_cast<int>(bitbuffer & static_cast<uint32_t>(codemask));
+    bitbuffer >>= codesize;
+    bitcount -= codesize;
+    if (c == clear) {
+      if (state != 2) state = 1;
+      continue;
+    }
+    if (c == end) {  // PIL returns for another read, then decodes on past the End code
+      if (!read_more()) return fail(truncated);
+      continue;
+    }
+    int top = kGifTable;
+    if (state == 2) {  // the first code after a Clear is a byte
+      if (c > clear) return fail(broken);
+      lastdata = lastcode = c;
+      state = 3;
+    } else {
+      const int thiscode = c;
+      if (c > next) return fail(broken);
+      if (c == next) {  // the string being defined: the last one and its first byte
+        stack[--top] = static_cast<uint8_t>(lastdata);
+        c = lastcode;
+      }
+      while (c >= clear) {
+        if (top <= 0 || c >= kGifTable) return fail(broken);
+        stack[--top] = data[c];
+        c = link[c];
+      }
+      lastdata = c;
+      if (next < kGifTable) {  // a full table stays as it is until a Clear
+        data[next] = static_cast<uint8_t>(c);
+        link[next] = lastcode;
+        if (next == codemask && codesize < 12) {
+          ++codesize;
+          codemask = (1 << codesize) - 1;
+        }
+        ++next;
+      }
+      lastcode = thiscode;
+    }
+    put(static_cast<uint8_t>(lastdata));
+    for (int i = top; i < kGifTable && !full; ++i) put(stack[i]);
+  }
   return 0;
 }
 

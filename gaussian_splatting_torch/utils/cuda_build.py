@@ -7,9 +7,9 @@ and flags, so a changed source rebuilds and an unchanged one is reused.
 The build uses nothing but the repo's sources and the CUDA toolkit. A
 failed build raises; nothing falls back to another implementation.
 
-Each host source `csrc/<name>.cc` (host code, no kernel: the JPEG
-decoder) is built the same way by the host C++ compiler (`$CXX`, else
-`c++`; `build_host`, `load_host`).
+Each host source `csrc/<name>.cc` (host code, no kernel: the JPEG and
+WebP decoders, the BMP / TIFF / GIF byte loops) is built the same way by
+the host C++ compiler (`$CXX`, else `c++`; `build_host`, `load_host`).
 
 `nvcc -Xptxas -v` reports each kernel's registers, shared memory and
 spills; the report is kept beside the library (`<library>.log`) and

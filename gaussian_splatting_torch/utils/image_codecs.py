@@ -1,6 +1,6 @@
-"""The compiled byte loops of the BMP and TIFF readers (`csrc/image_codecs.cc`).
+"""The compiled byte loops of the BMP, TIFF and GIF readers (`csrc/image_codecs.cc`).
 
-LZW and PackBits (TIFF) and RLE8 / RLE4 (BMP) run per code or per byte,
+LZW and PackBits (TIFF), RLE8 / RLE4 (BMP) and GIF's LZW run per code or per byte,
 so they are host C++, built by `cuda_build.build_host` at first use and
 loaded with ctypes. Nothing falls back to another implementation: if the
 library cannot be built, the read raises, naming the file.
@@ -28,6 +28,9 @@ def _library(name: str):
         lib.gs_bmp_rle_decode.argtypes = [ctypes.c_char_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
                                           ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
         lib.gs_bmp_rle_decode.restype = ctypes.c_int
+        lib.gs_gif_lzw_decode.argtypes = [ctypes.c_char_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                                          ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+        lib.gs_gif_lzw_decode.restype = ctypes.c_int
         lib.gs_codec_error.argtypes, lib.gs_codec_error.restype = [], ctypes.c_char_p
         lib._gs_typed = True
     return lib
@@ -68,3 +71,19 @@ def bmp_rle_decode(data: bytes, start: int, rle4: bool, width: int, height: int,
         raise ValueError(f"{name}: the BMP's RLE data gives {produced.value} of its {out.size} pixels "
                          f"(PIL: not enough image data)")
     return out
+
+
+PIL_READ = 65536  # PIL's ImageFile.MAXBLOCK: the bytes of each read it hands a decoder
+
+
+def gif_lzw_decode(data: bytes, bits: int, interlace: bool, frame: np.ndarray, name: str) -> None:
+    """Decode one GIF frame's image data into `frame`, a (height, width)
+    uint8 view of the canvas: `data` runs from the byte after the LZW
+    minimum code size `bits` to the end of the file, as PIL's GifDecode
+    reads it in PIL_READ-byte reads; raises a `ValueError` naming `name`
+    where PIL raises (data that ends before the frame is full, a code past
+    the table)."""
+    lib = _library(name)
+    if lib.gs_gif_lzw_decode(data, len(data), PIL_READ, bits, int(interlace), frame.ctypes.data,
+                             frame.strides[0], frame.shape[1], frame.shape[0]):
+        raise ValueError(f"{name}: {lib.gs_codec_error().decode()}")

@@ -7,9 +7,11 @@ its own:
 - `open_image(path)`: the dataset readers' entry. It reads the file's
   signature: a PNG goes to `open_png`, a JPEG to the compiled JPEG
   decoder (`utils/jpeg.py`, PIL's bits: grey, RGB, and CMYK from CMYK and
-  YCCK files), a BMP to `utils/bmp.py`, a TIFF to `utils/tiff.py`;
-  anything else raises a `ValueError` naming the file and the four
-  formats. It returns a `Picture`: the pixels as
+  YCCK files), a BMP to `utils/bmp.py`, a TIFF to `utils/tiff.py`, a
+  WebP to `utils/webp.py` (lossy, lossless, alpha, frame 0 of an
+  animation), a GIF to `utils/gif.py` (frame 0); anything else raises a
+  `ValueError` naming the file and the six formats. It returns a
+  `Picture`: the pixels as
   `np.asarray(Image.open(f))` gives them, with PIL's mode, palette and
   transparency, which `to_rgba` turns into PIL's `convert("RGBA")`.
   `read_image(path)` is its pixels.
@@ -40,7 +42,7 @@ from typing import Any, NamedTuple, Optional
 
 import numpy as np
 
-from gaussian_splatting_torch.utils import bmp, jpeg, tiff
+from gaussian_splatting_torch.utils import bmp, gif, jpeg, tiff, webp
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # 8-bit channels -> PNG colour type (0 grey, 4 grey + alpha, 2 RGB, 6 RGBA),
@@ -71,7 +73,9 @@ class Picture(NamedTuple):
       (little endian) and "I;16B" (big endian, as PIL's array).
     mode: PIL's mode.
     palette: mode "P": (N, 3) uint8, the palette's entries (PNG's PLTE,
-      a BMP's colour table, a TIFF's ColorMap).
+      a BMP's colour table, a TIFF's ColorMap, a GIF's palette); a GIF of
+      mode "L" (a grey-ramp local palette) keeps its global palette here,
+      which PIL's core holds it with and `convert` applies.
     transparency: PIL's `info["transparency"]`: an int for "1" (0 or
       255), "L" and "I;16" (the tRNS value) and for "P" whose tRNS clears
       one entry only (its index); an (r, g, b) tuple for "RGB"; the tRNS
@@ -94,12 +98,13 @@ BMP_SIGNATURE = b"BM"
 
 
 def open_image(path) -> Picture:
-    """The `Picture` of a PNG, JPEG, BMP or TIFF file, PIL's pixels and
-    mode. JPEG (mode "L", "RGB" or "CMYK") is decoded by the compiled
-    decoder, and BMP's RLE and TIFF's LZW and PackBits by the compiled
-    codecs, each built at first use; if one cannot be built this raises."""
+    """The `Picture` of a PNG, JPEG, BMP, TIFF, WebP or GIF file, PIL's
+    pixels and mode. JPEG (mode "L", "RGB" or "CMYK") and WebP ("RGB" or
+    "RGBA") are decoded by compiled decoders, and BMP's RLE, TIFF's LZW and
+    PackBits and GIF's LZW by the compiled codecs, each built at first use;
+    if one cannot be built this raises."""
     with open(path, "rb") as f:
-        head = f.read(len(PNG_SIGNATURE))
+        head = f.read(16)
     if head.startswith(PNG_SIGNATURE):
         return open_png(path)
     if head.startswith(JPEG_SIGNATURE):
@@ -109,12 +114,17 @@ def open_image(path) -> Picture:
         return bmp.open_bmp(path)
     if head.startswith(tiff.SIGNATURES):
         return tiff.open_tiff(path)
-    raise ValueError(f"{path}: not a PNG, JPEG, BMP or TIFF file; the port reads those four image formats")
+    if head.startswith(b"RIFF") and head[8:12] == b"WEBP":
+        return webp.open_webp(path)
+    if head.startswith(gif.SIGNATURES):
+        return gif.open_gif(path)
+    raise ValueError(f"{path}: not a PNG, JPEG, BMP, TIFF, WebP or GIF file; the port reads those six image "
+                     f"formats")
 
 
 def read_image(path) -> np.ndarray:
-    """`np.asarray(Image.open(path))` of a PNG, JPEG, BMP or TIFF, with a
-    channel axis kept (`open_image(path).pixels`)."""
+    """`np.asarray(Image.open(path))` of a PNG, JPEG, BMP, TIFF, WebP or
+    GIF, with a channel axis kept (`open_image(path).pixels`)."""
     return open_image(path).pixels
 
 
@@ -246,7 +256,9 @@ def to_rgba(picture: Picture) -> np.ndarray:
     elsewhere; a palette image takes its entries' colours (black past the
     palette) and the tRNS alphas (255 past them); "LA" spreads its grey;
     "CMYK" is PIL's cmyk2rgb, each colour (255 - k) - c (255 - k) / 255
-    in PIL's rounded division. Any other mode raises, naming it."""
+    in PIL's rounded division; an "L" GIF that keeps its global palette
+    takes the palette's colours (with a transparency index PIL raises, and
+    so does this). Any other mode raises, naming it."""
     px, mode, t = picture.pixels, picture.mode, picture.transparency
     if mode == "RGBA":
         return px.copy()
@@ -256,6 +268,11 @@ def to_rgba(picture: Picture) -> np.ndarray:
         nk = 255 - px[..., 3:].astype(np.int64)
         rgb = nk - _muldiv255(px[..., :3], nk)
         return np.concatenate([rgb, np.full_like(nk, 255)], axis=2).astype(np.uint8)
+    if mode == "L" and picture.palette is not None:
+        if t is not None:  # PIL's core holds the image as "P", which convert_transparent refuses
+            raise ValueError("to_rgba: conversion from P to RGBA not supported in convert_transparent (an L "
+                             "GIF with a global palette and a transparency index)")
+        mode = "P"
     if mode == "P":
         table = np.zeros((256, 4), np.uint8)
         table[:, 3] = 255

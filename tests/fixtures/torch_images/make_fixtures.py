@@ -1,10 +1,11 @@
-"""Generate the BMP, TIFF and 4-component JPEG fixtures of
+"""Generate the BMP, TIFF, 4-component JPEG, WebP and GIF fixtures of
 tests/test_torch_image_forms.py and chip_smoke.py.
 
 Each `<name>.<ext>` is a small image in a form PIL reads beyond PNG and 1-
 or 3-component JPEG, written by PIL where PIL writes the form, else by
-tests/torch_image_writers.py (BMP and TIFF) or test_torch_jpeg.py's copy
-of chip_smoke.py's baseline encoder (YCCK and marker-less CMYK JPEG);
+tests/torch_image_writers.py (BMP, TIFF, a GIF frame on a larger screen)
+or test_torch_jpeg.py's copy of chip_smoke.py's baseline encoder (YCCK
+and marker-less CMYK JPEG);
 `<name>.npz` beside it holds PIL's reading of the file: `mode`, `pixels`
 (`np.asarray(Image.open(f))`, a channel axis kept) and `rgba`
 (`convert("RGBA")`). The machine with the card has no PIL, so the port's
@@ -28,7 +29,7 @@ sys.path.insert(0, TESTS)
 sys.path.insert(0, os.path.dirname(TESTS))
 
 from test_torch_jpeg import encode_jpeg  # noqa: E402
-from torch_image_writers import bmp_bytes, padded_rows, rle_encode, tiff_bytes  # noqa: E402
+from torch_image_writers import bmp_bytes, gif_bytes, padded_rows, rle_encode, tiff_bytes  # noqa: E402
 
 
 def content(h, w, c, seed):
@@ -60,6 +61,10 @@ def cases():
     pairs = np.pad(idx % 16, ((0, 0), (0, 1)))
     nibbles = (pairs[:, 0::2] << 4 | pairs[:, 1::2]).astype(np.uint8)  # 4-bit indices, two a byte
     cmyk_prog = pil_saved(Image.fromarray(b, "CMYK"), "JPEG", quality=90, progressive=True)
+    framed = np.zeros_like(a)  # an opaque box on transparent black: PIL's animation crops frame 0 to it
+    framed[6:38, 9:60] = a[6:38, 9:60] // 16 * 16
+    framed[6:38, 9:60, 3] = 255
+    quantised = Image.fromarray(a[..., :3]).quantize(64)
     at = cmyk_prog.index(b"Adobe") + 11
     return {
         "cmyk_q90_67x45.jpg": pil_saved(Image.fromarray(a, "CMYK"), "JPEG", quality=90),
@@ -91,6 +96,17 @@ def cases():
         "os2_4bit_67x45.bmp": bmp_bytes(padded_rows(nibbles), 67, 45, 4, 12, palette=palette[:16]),
         "top_down_8bit_67x45.bmp": bmp_bytes(padded_rows(idx[::-1].astype(np.uint8)), 67, 45, 8, palette=palette,
                                              colors=256, top_down=True),
+        "lossy_q75_33x23.webp": pil_saved(Image.fromarray(a[:23, :33, :3]), "WEBP", quality=75),
+        "lossy_alpha_33x23.webp": pil_saved(Image.fromarray(b[:23, :33]), "WEBP", quality=80, alpha_quality=60),
+        "lossless_16_colours_67x45.webp": pil_saved(Image.fromarray(palette[idx % 16].astype(np.uint8)), "WEBP",
+                                                    lossless=True),
+        "animated_cropped_67x45.webp": pil_saved(Image.fromarray(framed), "WEBP", save_all=True,
+                                                 append_images=[Image.new("RGBA", (67, 45), (9, 9, 9, 255))],
+                                                 lossless=True),
+        "palette_interlaced_67x45.gif": pil_saved(quantised, "GIF", transparency=5, interlace=True),
+        "grey_67x45.gif": gif_bytes(a[..., 0]),
+        "local_palette_offset_67x45.gif": gif_bytes(idx[3:40, 5:60].astype(np.uint8), local_palette=palette,
+                                                    screen=(67, 45), offset=(5, 3), transparency=9),
     }
 
 

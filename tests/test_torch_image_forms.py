@@ -30,7 +30,7 @@ from gaussian_splatting_tpu.scene import colmap as jcolmap
 from gaussian_splatting_tpu.scene import dataset_readers as jreaders
 from gaussian_splatting_torch.scene import dataset_readers
 from gaussian_splatting_torch.utils import bmp, cuda_build, image_io, tiff
-from test_torch_jpeg import encode_jpeg, fake_cxx, have_cxx  # noqa: F401  (fake_cxx: a fixture)
+from test_torch_jpeg import QOI_4X4, encode_jpeg, fake_cxx, have_cxx  # noqa: F401  (fake_cxx: a fixture)
 from test_torch_scene import assert_same_cameras, orbit, orbit_frames
 from torch_image_writers import bmp_bytes, lzw_encode, padded_rows, rle_encode, tiff_bytes
 
@@ -510,8 +510,8 @@ def test_to_rgba_refuses_a_mode_it_does_not_convert():
 
 
 def test_open_image_sniffs_each_format(tmp_path, cxx):
-    """The four signatures, each file named .img; anything else refused,
-    naming the four formats."""
+    """The BMP and TIFF signatures, each file named .img; forms PIL reads
+    and the port does not (QOI, PPM) refused, naming the six formats."""
     a = smooth(9, 11, 3, 0)
     buf = io.BytesIO()
     Image.fromarray(a).save(buf, "BMP")
@@ -519,8 +519,8 @@ def test_open_image_sniffs_each_format(tmp_path, cxx):
     assert got.mode == "RGB"
     for order in "<>":
         assert_like_pil(tmp_path, tiff_bytes(a, 8, 2, order=order), f"tiff{order}")
-    assert_refused(tmp_path, b"GIF89a" + bytes(40), "not a PNG, JPEG, BMP or TIFF file")
-    assert_refused(tmp_path, b"RIFF\x00\x00\x00\x00WEBPVP8 " + bytes(40), "not a PNG, JPEG, BMP or TIFF file")
+    assert_refused(tmp_path, QOI_4X4, "not a PNG, JPEG, BMP, TIFF, WebP or GIF file")
+    assert_refused(tmp_path, b"P6\n4 4\n255\n" + bytes(48), "not a PNG, JPEG, BMP, TIFF, WebP or GIF file")
 
 
 def test_failed_codec_build_raises_naming_the_file(tmp_path, fake_cxx):

@@ -748,13 +748,17 @@ def test_fixture_pixels_are_pils(decode, name):
 
 # ---- read_image ----
 
+# a 4x4 QOI image of one colour: its header, one QOI_OP_RGB, a run of 15, the end marker
+QOI_4X4 = b"qoif" + (4).to_bytes(4, "big") * 2 + b"\x03\x00\xfe\x10\x20\x30\xce" + bytes(7) + b"\x01"
+
+
 def test_read_image_dispatches_on_the_signature(tmp_path, compiled, monkeypatch):
     a = content(20, 30, 3, "smooth")
-    png, jpg, junk_bmp, other = (tmp_path / n for n in ("a.png", "a.jpg", "a.bmp", "a.gif"))
+    png, jpg, junk_bmp, other = (tmp_path / n for n in ("a.png", "a.jpg", "a.bmp", "a.qoi"))
     image_io.write_png(png, a)
     jpg.write_bytes(pil_jpeg(a, quality=90))
     junk_bmp.write_bytes(b"BM" + bytes(64))
-    other.write_bytes(b"GIF89a" + bytes(64))
+    other.write_bytes(QOI_4X4)  # PIL reads it, the port does not
 
     def no_plain(*args):
         raise AssertionError("read_image reached the plain decoder")
@@ -765,7 +769,7 @@ def test_read_image_dispatches_on_the_signature(tmp_path, compiled, monkeypatch)
     with pytest.raises(ValueError, match="a BMP header of 0 bytes") as err:
         image_io.read_image(junk_bmp)  # the BMP reader's refusal
     assert str(junk_bmp) in str(err.value)
-    with pytest.raises(ValueError, match="not a PNG, JPEG, BMP or TIFF file") as err:
+    with pytest.raises(ValueError, match="not a PNG, JPEG, BMP, TIFF, WebP or GIF file") as err:
         image_io.read_image(other)
     assert str(other) in str(err.value)
     with pytest.raises(ValueError, match="JPEG"):
@@ -831,12 +835,12 @@ def test_host_build_and_its_reuse(fake_cxx):
     if shutil.which("c++") is None:
         pytest.skip("no host C++ compiler (c++) on this machine")
     calls = fake_cxx(fail=False)
-    assert cuda_build.host_sources() == ["image_codecs", "jpeg_decode"]
-    assert not {"image_codecs", "jpeg_decode"} & set(cuda_build.sources())
+    assert cuda_build.host_sources() == ["image_codecs", "jpeg_decode", "webp_decode"]
+    assert not {"image_codecs", "jpeg_decode", "webp_decode"} & set(cuda_build.sources())
     cuda_build.build_host()
     path = cuda_build.host_library_path("jpeg_decode")
     assert path.exists() and path.parent == cuda_build.BUILD_DIR
     cuda_build.build_host()
     data = pil_jpeg(content(9, 13, 3, "noisy"), quality=80)
     np.testing.assert_array_equal(jpeg.decode_jpeg(data), pil_pixels(data))
-    assert calls.read_text().count("call") == 2
+    assert calls.read_text().count("call") == 3

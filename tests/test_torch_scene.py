@@ -212,10 +212,10 @@ def test_unreadable_image_names_the_listing(tmp_path):
     """An image the port cannot read raises naming it as images.bin lists it."""
     src = str(tmp_path / "data")
     write_jpeg_colmap_dataset(src, n_views=2, width=32, height=16)
-    (tmp_path / "data" / "images" / "view_00.jpg").write_bytes(b"GIF89a" + bytes(16))
+    (tmp_path / "data" / "images" / "view_00.jpg").write_bytes(b"P6\n4 4\n255\n" + bytes(48))  # PPM
     info = dataset_readers.read_colmap_scene(src, None, eval_split=False)
     bad = [c for c in info.train_cameras if c.image_name == "view_00"][0]
-    with pytest.raises(ValueError, match=r"'view_00.jpg' in .*images\.bin: .*view_00\.jpg: not a PNG, JPEG, BMP or TIFF file"):
+    with pytest.raises(ValueError, match=r"'view_00.jpg' in .*images\.bin: .*view_00\.jpg: not a PNG, JPEG, BMP, TIFF, WebP or GIF file"):
         dataset_readers.load_camera(bad, 1)
 
 

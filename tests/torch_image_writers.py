@@ -1,8 +1,8 @@
-"""Writers of the BMP and TIFF forms PIL reads but does not write, for the
-tests of `utils/bmp.py` and `utils/tiff.py` and for
-`tests/fixtures/torch_images/make_fixtures.py`. Imports neither JAX nor the
-port: each file is built from the formats' specifications, and PIL's read
-of it is the rule the port is held to.
+"""Writers of the BMP, TIFF, GIF and WebP forms PIL reads but does not
+write, for the tests of `utils/bmp.py`, `utils/tiff.py`, `utils/gif.py` and
+`utils/webp.py` and for `tests/fixtures/torch_images/make_fixtures.py`.
+Imports neither JAX nor the port: each file is built from the formats'
+specifications, and PIL's read of it is the rule the port is held to.
 
 - `tiff_bytes`: classic TIFF in either byte order, strips or tiles,
   compression none / PackBits / LZW (libtiff's new style, its encoder's
@@ -11,8 +11,23 @@ of it is the rule the port is held to.
 - `bmp_bytes`: every header size, bit count and row order, palettes of
   any length, BI_BITFIELDS masks in or after the header, and RLE8 / RLE4
   bitmaps from `rle_encode`, which uses every escape.
+- `gif_bytes`: GIF87a / GIF89a, a global and / or local palette, a
+  graphic-control extension with a transparency index, comment and
+  application extensions, interlaced rows, a frame at an offset on a
+  screen of any size, any LZW minimum code size (`gif_lzw_encode`: codes
+  least significant bit first, the width grown as the decoder grows it, a
+  Clear when the table is full).
+- `webp_vp8x`: an extended WebP (VP8X) around a bitstream PIL wrote, with
+  an ALPH chunk of either compression and any filter (`alph_chunk`, its
+  filters as libwebp's), and ICCP, EXIF, XMP or unknown chunks.
+- `vp8_variant`: a PIL-made VP8 frame coded again with 2, 4 or 8 token
+  partitions, another loop-filter sharpness, type or level, reference and
+  mode filter deltas, or relative segment values (`bool_encode`: RFC
+  6386's boolean encoder).
 """
 
+import os
+import re
 import struct
 import zlib
 
@@ -276,3 +291,479 @@ def padded_rows(row_bytes: np.ndarray) -> bytes:
     out = np.zeros((H, (n + 3) // 4 * 4), np.uint8)
     out[:, :n] = row_bytes
     return out[::-1].tobytes()
+
+
+# ---- GIF ----
+
+def gif_lzw_encode(indices: np.ndarray, bits: int, clear_every: int = 0) -> bytes:
+    """GIF's LZW of the indices (each below 1 << max(bits, 1)) with minimum
+    code size `bits`, in 255-byte sub-blocks and a terminator: a Clear
+    first, the code width grown after the code with which the decoder's
+    table reaches 1 << width entries (up to 12 bits), a Clear when the table
+    is full or, with `clear_every`, after that many codes; End last. Below
+    2 bits the decoder's table never grows its codes: use clear_every=1,
+    which sends every byte as the first code after a Clear."""
+    clear, end = 1 << bits, (1 << bits) + 1
+    codes, widths = [], []
+    width, free, table = bits + 1, clear + 2, {}
+
+    def emit(code):
+        codes.append(code), widths.append(width)
+
+    def reset():
+        nonlocal width, free, table, first
+        emit(clear)
+        width, free, table, first = bits + 1, clear + 2, {}, True
+
+    first = True
+    reset()
+    data = [int(v) for v in np.asarray(indices).reshape(-1)]
+    w, count = data[0], 0
+    for b in data[1:]:
+        c = table.get((w, b))
+        if c is not None:
+            w = c
+            continue
+        emit(w)
+        count += 1
+        # the decoder's table reaches 1 << width with this code (not with
+        # the first after a Clear, which adds no entry)
+        if free == 1 << width and width < 12 and not first:
+            width += 1
+        first = False
+        if free < 4096:
+            table[(w, b)] = free
+            free += 1
+        if free >= 4096 or (clear_every and count % clear_every == 0):
+            reset()
+        w = b
+    emit(w)
+    emit(end)
+    acc = nbits = 0
+    out = bytearray()
+    for c, wd in zip(codes, widths):
+        acc |= c << nbits
+        nbits += wd
+        while nbits >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nbits -= 8
+    if nbits:
+        out.append(acc & 255)
+    blocks = bytearray()
+    for i in range(0, len(out), 255):
+        chunk = out[i:i + 255]
+        blocks += bytes([len(chunk)]) + chunk
+    return bytes(blocks) + b"\x00"
+
+
+def _interlaced_rows(h: int) -> list:
+    return [y for start, step in ((0, 8), (4, 8), (2, 4), (1, 2)) for y in range(start, h, step)]
+
+
+def gif_bytes(indices: np.ndarray, global_palette=None, local_palette=None, transparency=None, interlace=False,
+              version=b"GIF89a", screen=None, offset=(0, 0), bits=None, comment=None, loop=None,
+              clear_every=0, image_data=None) -> bytes:
+    """A one-frame GIF of (h, w) palette indices; palettes are (n, 3) with
+    n a power of two from 2 to 256. `bits` defaults to the palette's bits
+    (at least 2), `screen` to the frame's size; `image_data` replaces the
+    LZW sub-blocks."""
+    h, w = indices.shape
+    sw, sh = screen or (w, h)
+    out = bytearray(version + struct.pack("<HH", sw, sh))
+    if global_palette is not None:
+        n = len(global_palette)
+        out += bytes([0x80 | (n.bit_length() - 2), 0, 0]) + np.asarray(global_palette, np.uint8).tobytes()
+    else:
+        out += b"\x00\x00\x00"
+    if loop is not None:
+        out += b"!\xff\x0bNETSCAPE2.0\x03\x01" + struct.pack("<H", loop) + b"\x00"
+    if comment is not None:
+        out += b"!\xfe" + bytes([len(comment)]) + comment + b"\x00"
+    if transparency is not None:
+        out += b"!\xf9\x04\x01\x00\x00" + bytes([transparency]) + b"\x00"
+    flags = 0x40 if interlace else 0
+    if local_palette is not None:
+        flags |= 0x80 | (len(local_palette).bit_length() - 2)
+    out += b"," + struct.pack("<HHHH", offset[0], offset[1], w, h) + bytes([flags])
+    if local_palette is not None:
+        out += np.asarray(local_palette, np.uint8).tobytes()
+    palette = local_palette if local_palette is not None else global_palette
+    if bits is None:
+        bits = max(2, (len(palette) - 1).bit_length() if palette is not None else 8)
+    rows = indices[_interlaced_rows(h)] if interlace else indices
+    out += bytes([bits]) + (image_data if image_data is not None else gif_lzw_encode(rows, bits, clear_every))
+    return bytes(out) + b";"
+
+
+# ---- WebP ----
+
+def _riff_chunk(fourcc: bytes, payload: bytes) -> bytes:
+    return fourcc + struct.pack("<I", len(payload)) + payload + b"\x00" * (len(payload) & 1)
+
+
+def webp_chunks(data: bytes) -> list:
+    """(fourcc, payload) of each chunk of a RIFF WebP file."""
+    out, pos = [], 12
+    while pos + 8 <= len(data):
+        size = struct.unpack_from("<I", data, pos + 4)[0]
+        out.append((data[pos:pos + 4], data[pos + 8:pos + 8 + size]))
+        pos += 8 + size + (size & 1)
+    return out
+
+
+def alpha_filter(alpha: np.ndarray, method: int) -> np.ndarray:
+    """libwebp's forward alpha filters: 0 none, 1 horizontal, 2 vertical,
+    3 gradient; the first row predicted from the left (its first pixel
+    from 0), the first column from above."""
+    a = alpha.astype(np.int64)
+    pred = np.zeros_like(a)
+    if method == 0:
+        return alpha.copy()
+    pred[0, 1:] = a[0, :-1]
+    pred[1:, 0] = a[:-1, 0]
+    if method == 1:
+        pred[1:, 1:] = a[1:, :-1]
+    elif method == 2:
+        pred[1:, 1:] = a[:-1, 1:]
+    else:
+        pred[1:, 1:] = np.clip(a[1:, :-1] + a[:-1, 1:] - a[:-1, :-1], 0, 255)
+    return ((a - pred) & 255).astype(np.uint8)
+
+
+def alph_chunk(alpha: np.ndarray, method: int, lossless_payload: bytes = None) -> bytes:
+    """An ALPH payload: compression 0 (the filtered plane as it is) or 1
+    (`lossless_payload`: a VP8L stream of the filtered plane in green,
+    without its 5-byte header)."""
+    if lossless_payload is None:
+        return bytes([method << 2]) + alpha_filter(alpha, method).tobytes()
+    return bytes([1 | method << 2]) + lossless_payload
+
+
+def webp_vp8x(image_chunk, width: int, height: int, alph: bytes = None, extra=(), flags: int = None,
+              extra_after=()) -> bytes:
+    """An extended WebP: VP8X, the chunks of `extra`, ALPH (if given), the
+    image chunk (fourcc, payload), then the chunks of `extra_after`.
+    `flags` defaults to the alpha flag where there is an ALPH chunk and
+    the ICCP / EXIF / XMP flags of the chunks given."""
+    named = {b"ICCP": 0x20, b"EXIF": 0x08, b"XMP ": 0x04}
+    if flags is None:
+        flags = (0x10 if alph is not None else 0) | sum(named.get(k, 0) for k, _ in (*extra, *extra_after))
+    body = _riff_chunk(b"VP8X", bytes([flags, 0, 0, 0]) + struct.pack("<I", width - 1)[:3]
+                       + struct.pack("<I", height - 1)[:3])
+    body += b"".join(_riff_chunk(k, v) for k, v in extra)
+    if alph is not None:
+        body += _riff_chunk(b"ALPH", alph)
+    body += _riff_chunk(*image_chunk) + b"".join(_riff_chunk(k, v) for k, v in extra_after)
+    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
+
+
+# ---- VP8 variants: what PIL's encoder options cannot pick ----
+# A PIL-made VP8 frame is parsed into the boolean decisions (bit,
+# probability) of its first partition and of each macroblock row's tokens
+# (RFC 6386's syntax), fixed-length header fields are rewritten or
+# inserted, and the decisions are coded again (RFC 6386 7.3's encoder) into
+# 1, 2, 4 or 8 token partitions. The coefficient and mode probability tables
+# are read from the port's decoder source, which the lossy tests hold to PIL.
+
+_WEBP_DECODER = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                             "gaussian_splatting_torch", "csrc", "webp_decode.cc")
+_BANDS = (0, 1, 2, 3, 6, 4, 5, 6, 6, 6, 6, 6, 6, 6, 6, 7, 0)
+_CAT3456 = ((173, 148, 140), (176, 155, 140, 135), (180, 157, 141, 134, 130),
+            (254, 254, 243, 230, 196, 177, 153, 140, 133, 130, 129))
+
+
+def _vp8_tables():
+    with open(_WEBP_DECODER) as f:
+        src = f.read()
+
+    def table(name, shape):
+        body = re.search(re.escape(name) + r"\[[^=]*=\s*\{(.*?)\};", src, re.S).group(1)
+        return np.array([int(v) for v in re.findall(r"\d+", body)]).reshape(shape)
+
+    return (table("kCoeffsProba0", (4, 8, 3, 11)), table("kCoeffsUpdateProba", (4, 8, 3, 11)),
+            table("kBModesProba", (10, 10, 9)))
+
+
+class _Decisions:
+    """RFC 6386's boolean decoder, keeping every (bit, probability) it reads."""
+
+    def __init__(self, data: bytes):
+        self.data, self.pos, self.log = data, 0, []
+        self.value = (self._byte() << 8) | self._byte()
+        self.range, self.count = 255, 0
+
+    def _byte(self):
+        b = self.data[self.pos] if self.pos < len(self.data) else 0
+        self.pos += 1
+        return b
+
+    def bit(self, prob):
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        bit = int(self.value >= split << 8)
+        if bit:
+            self.range -= split
+            self.value -= split << 8
+        else:
+            self.range = split
+        while self.range < 128:
+            self.value <<= 1
+            self.range <<= 1
+            self.count += 1
+            if self.count == 8:
+                self.count = 0
+                self.value |= self._byte()
+        self.log.append((bit, prob))
+        return bit
+
+    def literal(self, n):
+        v = 0
+        for _ in range(n):
+            v = (v << 1) | self.bit(128)
+        return v
+
+    def signed(self, n):
+        v = self.literal(n)
+        return -v if self.literal(1) else v
+
+
+def bool_encode(decisions) -> bytes:
+    """RFC 6386 7.3's boolean encoder, flushed with its four bytes."""
+    out, rng, bottom, count = bytearray(), 255, 0, 24
+    for bit, prob in decisions:
+        split = 1 + (((rng - 1) * prob) >> 8)
+        if bit:
+            bottom += split
+            rng -= split
+        else:
+            rng = split
+        while rng < 128:
+            rng <<= 1
+            if bottom & (1 << 31):  # carry into the bytes written
+                i = len(out) - 1
+                while out[i] == 255:
+                    out[i] = 0
+                    i -= 1
+                out[i] += 1
+            bottom = (bottom << 1) & 0xFFFFFFFF
+            count -= 1
+            if count == 0:
+                out.append(bottom >> 24)
+                bottom &= (1 << 24) - 1
+                count = 8
+    v = bottom
+    if v & (1 << (32 - count)):
+        i = len(out) - 1
+        while out[i] == 255:
+            out[i] = 0
+            i -= 1
+        out[i] += 1
+    v = (v << (count & 7)) & 0xFFFFFFFF
+    for _ in range(count >> 3):
+        v = (v << 8) & 0xFFFFFFFF
+    for _ in range(4):
+        out.append(v >> 24)
+        v = (v << 8) & 0xFFFFFFFF
+    return bytes(out)
+
+
+def _coefficients(br, probas, ctx, n):
+    """One block's tokens from position n; the position after its last
+    non-zero coefficient."""
+    p = probas[_BANDS[n]][ctx]
+    while n < 16:
+        if not br.bit(p[0]):
+            return n
+        while not br.bit(p[1]):
+            n += 1
+            p = probas[_BANDS[n]][0]
+            if n == 16:
+                return 16
+        nxt = probas[_BANDS[n + 1]]
+        if not br.bit(p[2]):
+            p = nxt[1]
+        else:
+            if not br.bit(p[3]):
+                if br.bit(p[4]):
+                    br.bit(p[5])
+            elif not br.bit(p[6]):
+                if not br.bit(p[7]):
+                    br.bit(159)
+                else:
+                    br.bit(165), br.bit(145)
+            else:
+                bit1 = br.bit(p[8])
+                for prob in _CAT3456[2 * bit1 + br.bit(p[9 + bit1])]:
+                    br.bit(prob)
+            p = nxt[2]
+        br.bit(128)  # the sign
+        n += 1
+    return 16
+
+
+def _vp8_parse(payload: bytes):
+    """The first partition's decisions with the index of each header field
+    of `vp8_variant`, the token decisions of each macroblock row, and the
+    frame's partition count."""
+    proba0, update, bmodes = _vp8_tables()
+    tag = payload[0] | payload[1] << 8 | payload[2] << 16
+    w, h = (payload[6] | payload[7] << 8) & 0x3FFF, (payload[8] | payload[9] << 8) & 0x3FFF
+    mb_w, mb_h = (w + 15) // 16, (h + 15) // 16
+    first = tag >> 5
+    br = _Decisions(payload[10:10 + first])
+    fields = {}
+    br.literal(2)  # colour space, clamping
+    use_segment = br.literal(1)
+    update_map, seg_probs = 0, [255] * 3
+    if use_segment:
+        update_map = br.literal(1)
+        if br.literal(1):
+            fields["absolute_delta"] = len(br.log)
+            br.literal(1)
+            for bits in (7,) * 4 + (6,) * 4:
+                if br.literal(1):
+                    br.signed(bits)
+        if update_map:
+            seg_probs = [br.literal(8) if br.literal(1) else 255 for _ in range(3)]
+    for name, bits in (("simple", 1), ("level", 6), ("sharpness", 3), ("use_lf_delta", 1)):
+        fields[name] = len(br.log)
+        value = br.literal(bits)
+    if value and br.literal(1):
+        for _ in range(8):
+            if br.literal(1):
+                br.signed(6)
+    fields["partitions"] = len(br.log)
+    n_parts = 1 << br.literal(2)
+    br.literal(7)
+    for _ in range(5):
+        if br.literal(1):
+            br.signed(4)
+    br.literal(1)
+    probas = proba0.copy()
+    for idx in np.ndindex(*update.shape):
+        if br.bit(int(update[idx])):
+            probas[idx] = br.literal(8)
+    use_skip = br.literal(1)
+    skip_p = br.literal(8) if use_skip else 0
+    sizes = [int.from_bytes(payload[10 + first + 3 * i:13 + first + 3 * i], "little") for i in range(n_parts - 1)]
+    at = 10 + first + 3 * (n_parts - 1)
+    parts = []
+    for size in sizes + [len(payload) - at - sum(sizes)]:
+        parts.append(_Decisions(payload[at:at + size]))
+        at += size
+    intra_t, nz, nz_dc, rows = [0] * (4 * mb_w), [0] * mb_w, [0] * mb_w, []
+    for mb_y in range(mb_h):
+        intra_l, blocks = [0] * 4, []
+        for mb_x in range(mb_w):
+            if update_map:
+                br.bit(seg_probs[1]) if not br.bit(seg_probs[0]) else br.bit(seg_probs[2])
+            skip = br.bit(skip_p) if use_skip else 0
+            i4x4 = not br.bit(145)
+            top = intra_t[4 * mb_x:4 * mb_x + 4]
+            if not i4x4:
+                ymode = (1 if br.bit(128) else 3) if br.bit(156) else (2 if br.bit(163) else 0)
+                top, intra_l = [ymode] * 4, [ymode] * 4
+            else:
+                for y in range(4):
+                    ymode = intra_l[y]
+                    for x in range(4):
+                        p = bmodes[top[x]][ymode]
+                        if not br.bit(p[0]):
+                            ymode = 0
+                        elif not br.bit(p[1]):
+                            ymode = 1
+                        elif not br.bit(p[2]):
+                            ymode = 2
+                        elif not br.bit(p[3]):
+                            ymode = 3 if not br.bit(p[4]) else (4 if not br.bit(p[5]) else 5)
+                        else:
+                            ymode = 6 if not br.bit(p[6]) else (
+                                7 if not br.bit(p[7]) else (8 if not br.bit(p[8]) else 9))
+                        top[x] = ymode
+                    intra_l[y] = ymode
+            intra_t[4 * mb_x:4 * mb_x + 4] = top
+            if br.bit(142) and br.bit(114):
+                br.bit(183)
+            blocks.append((skip, i4x4))
+        tokens = parts[mb_y & (n_parts - 1)]
+        start, left_nz, left_dc = len(tokens.log), 0, 0
+        for mb_x, (skip, i4x4) in enumerate(blocks):
+            if skip:
+                left_nz = nz[mb_x] = 0
+                if not i4x4:
+                    left_dc = nz_dc[mb_x] = 0
+                continue
+            first_coeff = 0
+            if not i4x4:
+                n = _coefficients(tokens, probas[1], nz_dc[mb_x] + left_dc, 0)
+                left_dc = nz_dc[mb_x] = int(n > 0)
+                first_coeff = 1
+            tnz, lnz = nz[mb_x] & 0x0F, left_nz & 0x0F
+            out_t = out_l = 0
+            for y in range(4):
+                left = (lnz >> y) & 1
+                for x in range(4):
+                    n = _coefficients(tokens, probas[3 if i4x4 else 0], left + ((tnz >> x) & 1), first_coeff)
+                    left = int(n > first_coeff)
+                    tnz = (tnz & ~(1 << x)) | (left << x)
+                out_l |= left << y
+            out_t = tnz
+            for ch in (4, 6):
+                tnz, lnz = (nz[mb_x] >> ch) & 3, (left_nz >> ch) & 3
+                for y in range(2):
+                    left = (lnz >> y) & 1
+                    for x in range(2):
+                        left = int(_coefficients(tokens, probas[2], left + ((tnz >> x) & 1), 0) > 0)
+                        tnz = (tnz & ~(1 << x)) | (left << x)
+                    out_l |= left << (ch + y)
+                out_t |= tnz << ch
+            nz[mb_x], left_nz = out_t, out_l
+        rows.append(tokens.log[start:])
+    return br.log, fields, rows, tag
+
+
+def vp8_variant(payload: bytes, partitions: int = 1, sharpness=None, simple=None, level=None,
+                lf_deltas=None, relative_segments=False) -> bytes:
+    """A VP8 frame payload with the decisions of `payload` (a key frame of
+    one token partition) in `partitions` token partitions (1, 2, 4, 8; rows
+    round-robin) and, where given, the loop filter's sharpness (0-7), type
+    (simple 1 or normal 0) and level (0-63), its reference / mode deltas
+    (`lf_deltas` = (ref_frame_0, mode_0), each -63..63, inserted where the
+    frame has none), or the segment quantizers and filter levels made
+    relative to the frame's (the absolute-delta bit cleared)."""
+    log, fields, rows, tag = _vp8_parse(payload)
+    log = list(log)
+
+    def put(name, bits, value):
+        at = fields[name]
+        log[at:at + bits] = [((value >> (bits - 1 - i)) & 1, 128) for i in range(bits)]
+
+    for name, bits, value in (("sharpness", 3, sharpness), ("simple", 1, simple), ("level", 6, level)):
+        if value is not None:
+            put(name, bits, value)
+    put("partitions", 2, partitions.bit_length() - 1)
+    if relative_segments:
+        put("absolute_delta", 1, 0)
+    if lf_deltas is not None:
+        at = fields["use_lf_delta"]
+        assert log[at][0] == 0, "the frame has loop-filter deltas already"
+        inserted = [(1, 128), (1, 128)]  # use deltas, update them
+        for group in range(2):
+            for i in range(4):
+                value = lf_deltas[group] if i == 0 else 0
+                inserted.append((int(i == 0), 128))
+                if i == 0:
+                    inserted += [((abs(value) >> (5 - b)) & 1, 128) for b in range(6)] + [(int(value < 0), 128)]
+        log[at:at + 1] = inserted
+    first = bool_encode(log)
+    parts = [bool_encode([d for y, row in enumerate(rows) if y % partitions == k for d in row])
+             for k in range(partitions)]
+    head = ((tag & 0x1F) | len(first) << 5).to_bytes(3, "little") + payload[3:10]
+    sizes = b"".join(len(p).to_bytes(3, "little") for p in parts[:-1])
+    return head + first + sizes + b"".join(parts)
+
+
+def webp_simple(fourcc: bytes, payload: bytes) -> bytes:
+    """A simple WebP: RIFF, WEBP and one VP8 or VP8L chunk."""
+    body = _riff_chunk(fourcc, payload)
+    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
