@@ -10,9 +10,10 @@ Phases (any failure exits non-zero; none is caught and passed over):
   2. build: compile every kernel under gaussian_splatting_torch/csrc with
      nvcc (one process per source, all at once) and print ptxas's
      register / shared-memory / spill report; beside them the host sources
-     (csrc/jpeg_decode.cc, the JPEG decoder, csrc/webp_decode.cc, the WebP
-     decoder, and csrc/image_codecs.cc, TIFF's LZW and PackBits, BMP's RLE
-     and GIF's LZW; host C++, `c++`), with their build time.
+     (csrc/jpeg_decode.cc, the JPEG decoder, JPEG-in-TIFF strips
+     included, csrc/webp_decode.cc, the WebP decoder, and
+     csrc/image_codecs.cc, TIFF's LZW and PackBits, BMP's RLE, GIF's LZW
+     and TGA's RLE; host C++, `c++`), with their build time.
   3. kernels vs plain: preprocess and bin a scene once, feed the same sorted
      lists to each CUDA kernel and to its plain torch version. Random scenes
      at 128x128 and 333x197 for the three compiled tile geometries (32x32,
@@ -109,12 +110,14 @@ Phases (any failure exits non-zero; none is caught and passed over):
      with extraneous bytes before its DQT and SOS markers, both of which
      libjpeg only warns about), but view_03 as a 16-bit RGB TIFF (LZW with
      Predictor 2, the render in each sample's high byte), view_04 as a
-     24-bit BMP and view_05 as a lossless WebP (this script's VP8L writer:
-     literal prefix codes, no transforms), named so in images.bin, the 2
-     test views as PNG. The port's readers must give back every camera
-     (R, T within 1e-12), every PNG, TIFF, BMP and WebP pixel and each
-     JPEG view within 30 dB PSNR of its
-     render; the two damaged views decoded by the compiled decoder (the
+     24-bit BMP, view_05 as a lossless WebP (this script's VP8L writer:
+     literal prefix codes, no transforms), view_06 as a binary P6, view_07
+     as a 32-bit RLE TGA (alpha 255) and view_09 as an RGB JPEG-in-TIFF
+     (q95, strips of 16 rows, its tables in the JPEGTables tag), named so
+     in images.bin, the 2 test views as PNG. The port's readers must give
+     back every camera (R, T within 1e-12), every PNG, TIFF, BMP, WebP,
+     PPM and TGA pixel and each JPEG and JPEG-in-TIFF view within 30 dB
+     PSNR of its render; the two damaged views decoded by the compiled decoder (the
      one the train CLI's Scene runs) bit-equal to the plain one, their
      PSNR printed; and a
      copy of the first
@@ -127,16 +130,23 @@ Phases (any failure exits non-zero; none is caught and passed over):
      each form beyond PNG and 3-component JPEG (TIFF raw 8- and 16-bit,
      PackBits, LZW + Predictor 2 at 16 bits, deflate + Predictor 2; BMP
      24-bit and RLE8; CMYK and YCCK JPEG; WebP VP8L; an interlaced GIF of
-     palette indices from this script's writer) through
-     `image_io.open_image`: the lossless ones bit-equal to what was written
-     (the GIF its indices), the JPEGs mode CMYK within 30 dB PSNR and
-     `to_rgba` PIL's cmyk2rgb of what they give; the three 1920x1080 WebP
+     palette indices; P6 at 8 and 16 bits, P5 at 16 bits, plain P3, Pf;
+     TGA raw 24-bit, RLE 32-bit and colour-mapped RLE; JPEG-in-TIFF in
+     strips and in 256x256 tiles; all from this script's writers) through
+     `image_io.open_image`, each timed (median of 3): the lossless ones
+     bit-equal to what was written (the GIF and the colour-mapped TGA
+     their indices, the 16-bit P6 PIL's rounding of its samples), the JPEGs
+     mode CMYK within 30 dB PSNR and `to_rgba` PIL's cmyk2rgb of what they
+     give, the JPEG-in-TIFFs bit-equal to their strips or tiles read alone
+     by the regular decoder and within 30 dB PSNR; the three 1920x1080 WebP
      files of tests/fixtures/torch_webp (lossy q90, lossy with alpha,
-     lossless) the mode, shape and SHA-256 of PIL's pixels committed
-     beside them; and every file of tests/fixtures/torch_images (BMP,
-     TIFF, CMYK and YCCK JPEG, WebP lossy, with alpha, lossless and
-     animated, GIF) must give PIL's mode, pixels and RGBA committed beside
-     it. Then
+     lossless) and the PIL-written 1920x1080 JPEG-in-TIFF of
+     tests/fixtures/torch_tiff_jpeg the mode, shape and SHA-256 of PIL's
+     pixels committed beside them; and every file of
+     tests/fixtures/torch_images (BMP, TIFF, CMYK and YCCK JPEG, WebP lossy,
+     with alpha, lossless and animated, GIF), torch_ppm_tga (PPM, PGM, PBM,
+     PFM, TGA) and torch_tiff_jpeg (small JPEG-in-TIFFs, strips and tiles)
+     must give PIL's mode, pixels and RGBA committed beside it. Then
      `cli.train.main`
      (-r 1 --eval, 200 iterations, reports at 100 and 200, a PLY at 100 and
      200, a checkpoint at 200, a densify every 20 steps from 40 to 140, the
@@ -182,17 +192,19 @@ Phases (any failure exits non-zero; none is caught and passed over):
      colour straight (C / alpha where alpha >= 1/255, else 0). Train
      frames 1, 3, 5, 7, 9 are written by this script's own PNG writer as
      16-bit RGBA, palette + tRNS, Adam7 RGBA, 8-bit grey + alpha and 8-bit
-     RGB with a tRNS colour, frame 11 as a CMYK JPEG (Adobe transform 0,
-     the frame composited on white), frame 13 as a 32-bit BI_BITFIELDS
-     BMP with an alpha mask and frame 15 as an interlaced palette GIF (4
-     levels a channel, alpha below 128 the transparency index), each file
-     named r_<i>.png as the transforms
+     RGB with a tRNS colour, frame 2 as a 32-bit RLE TGA with its alpha,
+     frame 4 as a 16-bit P6 (the straight colour, no alpha), frame 11 as a
+     CMYK JPEG (Adobe transform 0, the frame composited on white), frame 13
+     as a 32-bit BI_BITFIELDS BMP with an alpha mask and frame 15 as an
+     interlaced palette GIF (4 levels a channel, alpha below 128 the
+     transparency index), each file named r_<i>.png as the transforms
      file lists it; the others 8-bit RGBA. Every lossless frame's
      `image_io.open_image` + `to_rgba` must equal, bit for bit, the RGBA
      this script derives by PIL's rules (high bytes, palette colours and
      tRNS alphas, grey spread, alpha 0 on the tRNS colour, a BMP's BGRA
      under its masks, a GIF's palette colours, alpha 0 on its transparency
-     index); the CMYK JPEG must read as mode CMYK within 30 dB
+     index, a TGA's BGRA, a 16-bit P6's rounding to 8 bits, opaque); the
+     CMYK JPEG must read as mode CMYK within 30 dB
      PSNR of the CMYK written, and its `to_rgba` be PIL's cmyk2rgb of
      those pixels; the ms per form is printed. Then `cli.train.main`
      (-s -m --white_background --eval, 300 iterations, reports at 150 and 300, a PLY at 300, a
@@ -384,7 +396,13 @@ CLI_FLIPPED_VIEW, CLI_EXTRANEOUS_VIEW = CLI_RESTART_VIEW, 2
 # 16-bit RGB TIFF (LZW with Predictor 2; each sample the render's value in
 # its high byte), a 24-bit BMP and a lossless WebP (this script's VP8L writer)
 CLI_TIFF_VIEW, CLI_BMP_VIEW, CLI_WEBP_VIEW = 3, 4, 5
+# and three in the forms of scientific and game pipelines and orthophoto
+# tools: a binary P6 (this script's writer), a 32-bit RLE TGA (opaque) and
+# an RGB JPEG-in-TIFF (strips of CLI_JPEG_TIFF_ROWS rows, lossy)
+CLI_PPM_VIEW, CLI_TGA_VIEW, CLI_JPEG_TIFF_VIEW, CLI_JPEG_TIFF_ROWS = 6, 7, 9, 16
 WEBP_FIXTURES = os.path.join(FIXTURES, "torch_webp")  # 1080p files and the SHA-256 of PIL's pixels
+TIFF_JPEG_FIXTURES = os.path.join(FIXTURES, "torch_tiff_jpeg")  # a PIL-written 1080p file and its SHA-256
+PPM_TGA_FIXTURES = os.path.join(FIXTURES, "torch_ppm_tga")
 CLI_TRAIN = ["-r", "1", "--eval", "--iterations", str(CLI_STEPS),
              "--test_iterations", *map(str, CLI_REPORTS), "--save_iterations", str(CLI_SAVE),
              "--checkpoint_iterations", str(CLI_STEPS), "--densify_from_iter", "20",
@@ -407,9 +425,9 @@ BLENDER_FLAGS = ["--white_background", "--eval", "--iterations", str(BLENDER_STE
 # train frame -> its form (PNG unless named; each file named r_<i>.png, as
 # the transforms file lists it, read by its signature); the others are
 # 8-bit RGBA PNG, as NeRF-synthetic ships
-BLENDER_FORMS = {1: "16-bit RGBA", 3: "palette + tRNS", 5: "Adam7 RGBA", 7: "grey + alpha",
-                 9: "RGB + tRNS colour", 11: "CMYK JPEG", 13: "32-bit BMP with alpha",
-                 15: "palette GIF + transparency"}
+BLENDER_FORMS = {1: "16-bit RGBA", 2: "32-bit RLE TGA with alpha", 3: "palette + tRNS", 4: "16-bit P6",
+                 5: "Adam7 RGBA", 7: "grey + alpha", 9: "RGB + tRNS colour", 11: "CMYK JPEG",
+                 13: "32-bit BMP with alpha", 15: "palette GIF + transparency"}
 
 SUM_K = (1_900_544, 1_339_001)  # the profiler's capacity at its defaults, and an odd K
 LAUNCH_COUNTERS = {"composite_fwd": composite_fwd, "composite_bwd": composite_bwd,
@@ -1134,7 +1152,8 @@ def _entropy(coefs, comp, tables):
     return _pack(values[order], lengths[order])
 
 
-def encode_jpeg(pixels, quality=95, sampling=(2, 2), restart_interval=0, adobe=None, k_sampled=False):
+def encode_jpeg(pixels, quality=95, sampling=(2, 2), restart_interval=0, adobe=None, k_sampled=False,
+                raw=False):
     """Baseline bytes of (H, W, 3), (H, W[, 1]) or (H, W, 4) uint8 `pixels`:
     the first component sampled (h, v) = `sampling` times the second and
     third's, a float DCT, the Annex K tables at libjpeg's `quality`
@@ -1145,17 +1164,18 @@ def encode_jpeg(pixels, quality=95, sampling=(2, 2), restart_interval=0, adobe=N
     255 - C, 255 - M, 255 - Y, K kept) under an Adobe marker of transform
     2, else as stored, under an Adobe marker of transform `adobe` (0) or
     none (None); K sampled as the first component, or as the second and
-    third where `k_sampled`."""
+    third where `k_sampled`. `raw`: the channels as components, unsampled,
+    without a JFIF or Adobe marker (what libtiff writes for an RGB TIFF)."""
     a = np.asarray(pixels, np.float64)
     a = a[..., None] if a.ndim == 2 else a
     H, W, C = a.shape
     grey = C == 1
-    hs, vs = (1, 1) if grey else sampling
+    hs, vs = (1, 1) if grey or raw else sampling
     mcux, mcuy = -(-W // (8 * hs)), -(-H // (8 * vs))
     a = np.pad(a, ((0, mcuy * 8 * vs - H), (0, mcux * 8 * hs - W), (0, 0)), mode="edge")
     factors = [(hs, vs)] + [(1, 1)] * min(C - 1, 2) + ([(1, 1) if k_sampled else (hs, vs)] if C == 4 else [])
-    if grey:
-        planes = [a[..., 0]]
+    if grey or raw:
+        planes = [a[..., i] for i in range(C)]
     else:
         if C == 4 and adobe != 2:
             planes = [a[..., i] for i in range(4)]
@@ -1196,7 +1216,9 @@ def encode_jpeg(pixels, quality=95, sampling=(2, 2), restart_interval=0, adobe=N
     dqt = b"".join(bytes([t]) + qts[t][ENC_ZIGZAG].astype(np.uint8).tobytes() for t in range(1 if grey else 2))
     dht = b"".join(bytes([c << 4 | t]) + bytes(HUFFMAN[c, t][0]) + bytes(HUFFMAN[c, t][1])
                    for c in range(2) for t in range(1 if grey else 2))
-    if C == 4:
+    if raw:
+        app = b""
+    elif C == 4:
         app = segment(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, adobe)) if adobe is not None else b""
     else:
         app = segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
@@ -1289,21 +1311,7 @@ def tiff_form(rgb, depth, compression=1, predictor=None, rows_per_strip=16) -> b
     tags = [(256, 4, [W]), (257, 4, [H]), (258, 3, [depth] * 3), (259, 3, [compression]), (262, 3, [2]),
             (273, 4, [0] * len(bodies)), (277, 3, [3]), (278, 3, [rows_per_strip]),
             (279, 4, [len(b) for b in bodies])] + ([(317, 3, [predictor])] if predictor else [])
-    data_at = 8 + 2 + 12 * len(tags) + 4
-    blobs, entries = b"", []
-    strips_at = data_at + sum(-(-len(v) * (2 if t == 3 else 4) // 2) * 2 for _, t, v in tags
-                              if len(v) * (2 if t == 3 else 4) > 4)
-    offsets = np.concatenate([[0], np.cumsum([len(b) for b in bodies])[:-1]]) + strips_at
-    for tag, typ, vals in tags:
-        vals = offsets.tolist() if tag == 273 else vals
-        raw = struct.pack("<" + ("H" if typ == 3 else "I") * len(vals), *vals)
-        if len(raw) <= 4:
-            entries.append(struct.pack("<HHI", tag, typ, len(vals)) + raw.ljust(4, b"\0"))
-        else:
-            entries.append(struct.pack("<HHII", tag, typ, len(vals), data_at + len(blobs)))
-            blobs += raw + b"\0" * (len(raw) % 2)
-    return (b"II*\0" + struct.pack("<IH", 8, len(tags)) + b"".join(entries) + struct.pack("<I", 0) + blobs
-            + b"".join(bodies))
+    return tiff_file(tags, bodies)
 
 
 def rle8_encode(indices) -> bytes:
@@ -1441,6 +1449,158 @@ def cmyk_to_rgba(cmyk):
     rgb = nk - (((t >> 8) + t) >> 8)
     return np.concatenate([rgb, np.full_like(nk, 255)], -1).astype(np.uint8)
 
+# ---- PPM, TGA and JPEG-in-TIFF writers, for the CLI phases' datasets and decode times ----
+# The port writes none of them (the JAX package writes none), so the files
+# are built from the formats' specifications, as
+# tests/torch_image_writers.py builds its own.
+
+_DIGITS = np.zeros((65536, 6), np.uint8)  # each value's decimal digits, right-aligned, and a space
+_DIGITS_USED = np.zeros((65536, 6), bool)
+for _v in range(65536):
+    _t = b"%d " % _v
+    _DIGITS[_v, 6 - len(_t):] = np.frombuffer(_t, np.uint8)
+    _DIGITS_USED[_v, 6 - len(_t):] = True
+
+
+def ppm_form(magic: bytes, samples, maxval=255, plain=False) -> bytes:
+    """A PGM / PPM of (H, W, C) integer samples (binary: one byte a sample
+    at maxval < 256, else two big-endian; `plain`: decimal samples, a line
+    a row) or a grey PFM of (H, W) floats (Pf: rows bottom to top, little
+    endian, scale -1)."""
+    a = np.asarray(samples)
+    H, W = a.shape[:2]
+    head = magic + b"\n%d %d\n" % (W, H)
+    if magic == b"Pf":
+        return head + b"-1.0\n" + np.ascontiguousarray(a[::-1]).astype("<f4").tobytes()
+    head += b"%d\n" % maxval
+    if not plain:
+        return head + np.ascontiguousarray(a).astype(np.uint8 if maxval < 256 else ">u2").tobytes()
+    flat = a.reshape(H, -1).astype(np.int64)
+    text = _DIGITS[flat].copy()
+    text[:, -1, -1] = ord("\n")  # each row's last sample ends its line
+    return head + text[_DIGITS_USED[flat]].tobytes()
+
+
+def tga_rle_encode(px) -> bytes:
+    """TGA RLE of (H, W, C) pixels in file order: runs of 2 to 128 equal
+    pixels within a row as run packets, the other pixels in raw packets of
+    up to 128, which run on across rows (as PIL's reader takes them)."""
+    H, W, C = px.shape
+    flat = np.ascontiguousarray(px).reshape(H * W, C)
+    key = flat.astype(np.int64) @ (256 ** np.arange(C))
+    same = np.zeros(H * W, bool)
+    same[:-1] = key[1:] == key[:-1]
+    same[W - 1::W] = False  # runs end with their row
+    starts = np.flatnonzero(np.concatenate([[True], ~same[:-1]]))
+    lengths = np.diff(np.append(starts, H * W))
+    pieces = -(-lengths // 128)  # runs cut into pieces of at most 128
+    first = np.repeat(np.cumsum(pieces) - pieces, pieces)
+    p_start = np.repeat(starts, pieces) + 128 * (np.arange(pieces.sum()) - first)
+    p_len = np.minimum(128, np.repeat(starts + lengths, pieces) - p_start)
+    single = p_len == 1
+    # single pixels gather into raw packets of up to 128 consecutive ones
+    begin = single & ~np.concatenate([[False], single[:-1]])
+    since = np.arange(len(single)) - np.maximum.accumulate(np.where(begin, np.arange(len(single)), 0))
+    opens = ~single | (single & (since % 128 == 0))
+    packet = np.cumsum(opens) - 1
+    n_packets = packet[-1] + 1
+    count = np.bincount(packet, weights=np.where(single, 1, 0), minlength=n_packets).astype(np.int64)
+    is_run = np.zeros(n_packets, bool)
+    is_run[packet[~single]] = True
+    run_len = np.zeros(n_packets, np.int64)
+    run_len[packet[~single]] = p_len[~single]
+    size = 1 + np.where(is_run, C, C * count)
+    at = np.concatenate([[0], np.cumsum(size)[:-1]])
+    out = np.zeros(int(size.sum()), np.uint8)
+    out[at] = np.where(is_run, 0x80 | (run_len - 1), count - 1)
+    runs = np.flatnonzero(~single)
+    out[(at[packet[runs]] + 1)[:, None] + np.arange(C)] = flat[p_start[runs]]
+    singles = np.flatnonzero(single)
+    slot = singles - np.flatnonzero(opens)[packet[singles]]  # place within its raw packet
+    out[(at[packet[singles]] + 1 + C * slot)[:, None] + np.arange(C)] = flat[p_start[singles]]
+    return out.tobytes()
+
+
+def tga_form(px, image_type, flags=0x20, colormap=None) -> bytes:
+    """A TGA of (H, W, C) pixels (C = 1: grey or colour-map indices; 3: RGB
+    as BGR; 4: RGBA as BGRA), `flags` its descriptor byte (0x20: the first
+    row on top), RLE for image types 9 to 11, a 24-bit colour map ((N, 3)
+    RGB) for types 1 and 9."""
+    H, W, C = px.shape
+    stored = px[..., [2, 1, 0, 3][:C]] if C >= 3 else px
+    rows = stored if flags & 0x20 else stored[::-1]
+    body = tga_rle_encode(rows) if image_type & 8 else np.ascontiguousarray(rows).tobytes()
+    cmap = b"" if colormap is None else np.ascontiguousarray(np.asarray(colormap, np.uint8)[:, ::-1]).tobytes()
+    head = struct.pack("<BBBHHBHHHHBB", 0, int(colormap is not None), image_type, 0, len(cmap) // 3,
+                       24 if colormap is not None else 0, 0, 0, W, H, 8 * C, flags | (8 if C == 4 else 0))
+    return head + cmap + body
+
+
+def jpeg_tables_apart(stream: bytes):
+    """(JPEGTables, abbreviated stream) of one baseline JPEG: its DQT and DHT
+    segments between SOI and EOI, and the stream without them, as libtiff
+    writes a JPEG-in-TIFF's tag and strips."""
+    pos, tables, rest = 2, [], []
+    while stream[pos + 1] != 0xDA:
+        n = struct.unpack(">H", stream[pos + 2:pos + 4])[0]
+        (tables if stream[pos + 1] in (0xDB, 0xC4) else rest).append(stream[pos:pos + 2 + n])
+        pos += 2 + n
+    return b"\xff\xd8" + b"".join(tables) + b"\xff\xd9", b"\xff\xd8" + b"".join(rest) + stream[pos:]
+
+
+def jpeg_tiff_form(rgb, quality, rows_per_strip=16, tile=None):
+    """A little-endian RGB JPEG-in-TIFF (compression 7, photometric RGB) of
+    (H, W, 3) pixels: each strip of `rows_per_strip` rows, or each `tile` =
+    (width, height) (edge-padded where it overhangs), coded by
+    `encode_jpeg(raw=True)` as an abbreviated stream, the tables in the
+    JPEGTables tag. Returns the file and, per strip or tile, the standalone
+    JPEG it is (its tables put back, an Adobe marker of transform 0: RGB as
+    stored), for the regular decoder to read."""
+    H, W, _ = rgb.shape
+    if tile:
+        tw, th = tile
+        across, down = -(-W // tw), -(-H // th)
+        padded = np.pad(rgb, ((0, down * th - H), (0, across * tw - W), (0, 0)), mode="edge")
+        chunks = [padded[r * th:(r + 1) * th, c * tw:(c + 1) * tw] for r in range(down) for c in range(across)]
+    else:
+        chunks = [rgb[y:y + rows_per_strip] for y in range(0, H, rows_per_strip)]
+    bodies, whole, tables = [], [], b""
+    adobe = b"\xff\xee\x00\x0eAdobe" + struct.pack(">HHHB", 100, 0, 0, 0)
+    for chunk in chunks:
+        tables, body = jpeg_tables_apart(encode_jpeg(chunk, quality, raw=True))
+        bodies.append(body)
+        whole.append(b"\xff\xd8" + adobe + tables[2:-2] + body[2:])
+    tags = [(256, 4, [W]), (257, 4, [H]), (258, 3, [8] * 3), (259, 3, [7]), (262, 3, [2]), (277, 3, [3])]
+    if tile:
+        tags += [(322, 3, [tile[0]]), (323, 3, [tile[1]]), (324, 4, [0] * len(bodies)),
+                 (325, 4, [len(b) for b in bodies])]
+    else:
+        tags += [(273, 4, [0] * len(bodies)), (278, 3, [rows_per_strip]), (279, 4, [len(b) for b in bodies])]
+    tags += [(347, 7, list(tables))]
+    return tiff_file(tags, bodies), whole
+
+
+def tiff_file(tags, bodies) -> bytes:
+    """A little-endian classic TIFF of `tags` ((tag, type, values), sorted;
+    3 SHORT, 4 LONG, 7 UNDEFINED) and the strips or tiles `bodies` after
+    them, the offsets tag (273 or 324) filled in."""
+    size = {3: 2, 4: 4, 7: 1}
+    data_at = 8 + 2 + 12 * len(tags) + 4
+    blobs, entries = b"", []
+    strips_at = data_at + sum(-(-len(v) * size[t] // 2) * 2 for _, t, v in tags if len(v) * size[t] > 4)
+    offsets = np.concatenate([[0], np.cumsum([len(b) for b in bodies])[:-1]]) + strips_at
+    for tag, typ, vals in tags:
+        vals = offsets.tolist() if tag in (273, 324) else vals
+        raw = struct.pack("<" + {3: "H", 4: "I", 7: "B"}[typ] * len(vals), *vals)
+        if len(raw) <= 4:
+            entries.append(struct.pack("<HHI", tag, typ, len(vals)) + raw.ljust(4, b"\0"))
+        else:
+            entries.append(struct.pack("<HHII", tag, typ, len(vals), data_at + len(blobs)))
+            blobs += raw + b"\0" * (len(raw) % 2)
+    return (b"II*\0" + struct.pack("<IH", 8, len(tags)) + b"".join(entries) + struct.pack("<I", 0) + blobs
+            + b"".join(bodies))
+
+
 class PanelTimer:
     """Host time of tensorboard's `SummaryWriter.add_images` while patched
     (`with`), where tensorboard imports: the train CLI's reports log their
@@ -1483,9 +1643,11 @@ def train_view_files(data, cams, images, test_names):
     """Rewrite the COLMAP dataset's views outside `test_names` as baseline
     JPEG (`encode_jpeg`: 4:2:0, CLI_JPEG_QUALITY; view CLI_RESTART_VIEW
     with a restart marker every MCU row), but view CLI_TIFF_VIEW as a 16-bit
-    RGB TIFF (LZW, Predictor 2), CLI_BMP_VIEW as a 24-bit BMP and
-    CLI_WEBP_VIEW as a lossless WebP, and images.bin to name them; the test
-    views stay PNG. Returns each view's file name and the JPEG encode ms."""
+    RGB TIFF (LZW, Predictor 2), CLI_BMP_VIEW as a 24-bit BMP,
+    CLI_WEBP_VIEW as a lossless WebP, CLI_PPM_VIEW as a binary P6,
+    CLI_TGA_VIEW as a 32-bit RLE TGA (alpha 255) and CLI_JPEG_TIFF_VIEW as
+    a JPEG-in-TIFF, and images.bin to name them; the test views stay PNG.
+    Returns each view's file name and the JPEG encode ms."""
     images_bin = os.path.join(data, "sparse", "0", "images.bin")
     records = colmap.read_images_binary(images_bin)
     files, encode_ms = {}, []
@@ -1500,6 +1662,13 @@ def train_view_files(data, cams, images, test_names):
                                                             px.shape[1], px.shape[0], 24)
         elif i == CLI_WEBP_VIEW:
             name, body = f"{cam.image_name}.webp", vp8l_form(px)
+        elif i == CLI_PPM_VIEW:
+            name, body = f"{cam.image_name}.ppm", ppm_form(b"P6", px)
+        elif i == CLI_TGA_VIEW:
+            name, body = f"{cam.image_name}.tga", tga_form(opaque(px), 10)
+        elif i == CLI_JPEG_TIFF_VIEW:
+            name = f"{cam.image_name}.tif"
+            body = jpeg_tiff_form(px, CLI_JPEG_QUALITY, CLI_JPEG_TIFF_ROWS)[0]
         else:
             restart = -(-W_MAIN // 16) if i == CLI_RESTART_VIEW else 0  # MCUs in a row
             t0 = time.perf_counter()
@@ -1519,6 +1688,11 @@ def train_view_files(data, cams, images, test_names):
         rec.name = files[os.path.splitext(rec.name)[0]]
     colmap.write_images_binary(records, images_bin)
     return files, encode_ms
+
+
+def opaque(rgb):
+    """(H, W, 4): `rgb` with alpha 255."""
+    return np.concatenate([rgb, np.full(rgb.shape[:2] + (1,), 255, np.uint8)], -1)
 
 
 def flip_entropy_byte(body: bytes) -> bytes:
@@ -1566,23 +1740,37 @@ def check_jpeg_decoders(view_path):
 
 
 def check_image_forms(tmp, px):
-    """The BMP, TIFF, 4-component JPEG, WebP and GIF forms at full width:
-    one view's pixels `px` written in each (the CMYK JPEGs from `cmyk_of`,
-    the WebP by `vp8l_form`, the GIF by `gif_form`), each decoded by
+    """The BMP, TIFF, 4-component JPEG, WebP, GIF, PPM / PGM / PFM, TGA and
+    JPEG-in-TIFF forms at full width: one view's pixels `px` written in
+    each (the CMYK JPEGs from `cmyk_of`, the WebP by `vp8l_form`, the GIF
+    by `gif_form`, the PPMs by `ppm_form`, the TGAs by `tga_form`, the
+    JPEG-in-TIFFs by `jpeg_tiff_form`), each decoded by
     `image_io.open_image` three times. The lossless forms must give back
-    the pixels written (a 16-bit TIFF its high bytes, the RLE8 BMP and the
-    GIF their indices); the JPEGs mode CMYK within 30 dB PSNR of PIL's CMYK
-    for the samples written, and `to_rgba` this script's cmyk2rgb of them.
-    The 1920x1080 WebP files of tests/fixtures/torch_webp (lossy, lossy
-    with alpha, lossless), each decoded three times, must give the mode,
-    shape and SHA-256 of PIL's pixels committed beside them. Then every
-    file of tests/fixtures/torch_images must give PIL's mode, pixels and
-    convert("RGBA") committed beside it. Prints the median decode ms per
-    form."""
+    the pixels written (a 16-bit TIFF its high bytes, a 16-bit P6 the
+    values PIL's round(v / 65535 * 255) gives, which are `px`, a 16-bit P5
+    its values as mode I, the PFM its floats, the RLE8 BMP, the GIF and the
+    colour-mapped TGA their indices); the JPEGs mode CMYK within 30 dB PSNR
+    of PIL's CMYK for the samples written, and `to_rgba` this script's
+    cmyk2rgb of them; the JPEG-in-TIFFs (strips, tiles) the compiled
+    decoder's reading of each strip or tile as a standalone JPEG, within
+    30 dB PSNR of `px`. The 1920x1080 WebP files of tests/fixtures/torch_webp
+    (lossy, lossy with alpha, lossless) and the JPEG-in-TIFF of
+    tests/fixtures/torch_tiff_jpeg, each decoded three times, must give the
+    mode, shape and SHA-256 of PIL's pixels committed beside them. Then
+    every file of tests/fixtures/torch_images, torch_ppm_tga and
+    torch_tiff_jpeg must give PIL's mode, pixels and convert("RGBA")
+    committed beside it. Prints the median decode ms per form."""
     H, W = px.shape[:2]
     idx = (px[..., 0] // 43) * 36 + (px[..., 1] // 43) * 6 + px[..., 2] // 43
     levels = np.stack(np.meshgrid(*[np.arange(6)] * 3, indexing="ij"), -1).reshape(-1, 3) * 51
     pil_cmyk, stored = cmyk_of(px)
+    yy, xx = np.mgrid[0:H, 0:W]
+    low = ((xx + 3 * yy) & 127)[..., None]
+    wide = px.astype(np.int64) * 257 + np.where(px < 255, low, -low)  # round(wide / 65535 * 255) == px
+    grey16 = wide[..., 1:2] // 2 + 100
+    floats = (px[..., 0].astype(np.float32) - 127.5) / 64.0
+    strips, strip_jpegs = jpeg_tiff_form(px, CLI_JPEG_QUALITY, CLI_JPEG_TIFF_ROWS)
+    tiles, tile_jpegs = jpeg_tiff_form(px, CLI_JPEG_QUALITY, tile=(256, 256))
     forms = {  # name: (file bytes, the pixels they hold; None: PIL's CMYK for the samples written)
         "TIFF raw 8-bit": (tiff_form(px, 8), px),
         "TIFF raw 16-bit": (tiff_form(wide_samples(px), 16), px),
@@ -1596,7 +1784,18 @@ def check_image_forms(tmp, px):
         "WebP VP8L (literal codes)": (vp8l_form(px), px),
         "GIF interlaced (literal LZW)": (gif_form(idx, np.concatenate([levels, np.zeros((40, 3), int)]),
                                                  interlace=True), idx[..., None]),
+        "PPM P6 8-bit": (ppm_form(b"P6", px), px),
+        "PPM P6 16-bit (scaled)": (ppm_form(b"P6", wide, 65535), px),
+        "PGM P5 16-bit (mode I)": (ppm_form(b"P5", grey16, 65535), grey16.astype(np.int32)),
+        "PPM P3 plain": (ppm_form(b"P3", px, plain=True), px),
+        "PFM Pf": (ppm_form(b"Pf", floats), floats[..., None]),
+        "TGA raw 24-bit": (tga_form(px, 2, 0x00), px),
+        "TGA RLE 32-bit": (tga_form(opaque(px), 10), opaque(px)),
+        "TGA colour-mapped RLE": (tga_form(idx[..., None].astype(np.uint8), 9, colormap=levels), idx[..., None]),
+        "JPEG-in-TIFF strips": (strips, "strips"),
+        "JPEG-in-TIFF tiles 256x256": (tiles, "tiles"),
     }
+    standalone = {"strips": strip_jpegs, "tiles": tile_jpegs}
     times, cmyk_psnr = {}, {}
     path = os.path.join(tmp, "form")
     for name, (body, want) in forms.items():
@@ -1607,10 +1806,26 @@ def check_image_forms(tmp, px):
             pic, t = synced_ms(image_io.open_image, path)
             ms.append(t)
         times[name] = float(np.median(ms))
+        if isinstance(want, str):  # JPEG-in-TIFF: each strip or tile as the regular decoder reads it alone
+            parts = [jpeg.decode_jpeg(b, f"{name} part {i}") for i, b in enumerate(standalone[want])]
+            if want == "strips":
+                alone = np.concatenate(parts)
+            else:
+                across = -(-W // 256)
+                alone = np.concatenate([np.concatenate(parts[r * across:(r + 1) * across], 1)
+                                        for r in range(len(parts) // across)])[:H, :W]
+            mse = float(np.mean((pic.pixels.astype(np.float64) - px) ** 2)) if pic.pixels.shape == px.shape \
+                else math.inf
+            cmyk_psnr[name] = 10 * math.log10(255 ** 2 / max(mse, 1e-12))
+            if pic.mode != "RGB" or not np.array_equal(pic.pixels, alone) or not cmyk_psnr[name] >= 30.0:
+                fail(f"cli path: the {name} file reads as {pic.mode} {pic.pixels.shape}, equal to its "
+                     f"strips or tiles read alone {np.array_equal(pic.pixels, alone)}, "
+                     f"{cmyk_psnr[name]:.2f} dB PSNR from the pixels written")
+            continue
         if want is not None:
-            if not np.array_equal(pic.pixels, want):
+            if not np.array_equal(pic.pixels, want) or pic.pixels.dtype != want.dtype:
                 fail(f"cli path: the {name} file decodes to other pixels than it holds "
-                     f"({pic.pixels.shape} {pic.mode})")
+                     f"({pic.pixels.shape} {pic.pixels.dtype} {pic.mode})")
             continue
         if pic.mode != "CMYK" or pic.pixels.shape != pil_cmyk.shape:
             fail(f"cli path: the {name} file decodes as {pic.mode} {pic.pixels.shape}")
@@ -1619,34 +1834,45 @@ def check_image_forms(tmp, px):
         if not cmyk_psnr[name] >= 30.0 or not np.array_equal(image_io.to_rgba(pic), cmyk_to_rgba(pic.pixels)):
             fail(f"cli path: the {name} file: {cmyk_psnr[name]:.2f} dB PSNR, to_rgba == cmyk2rgb "
                  f"{np.array_equal(image_io.to_rgba(pic), cmyk_to_rgba(pic.pixels))}")
-    with open(os.path.join(WEBP_FIXTURES, "sha256.json")) as f:
-        readings = json.load(f)
-    for name, want in readings.items():
+    readings = {}
+    for folder in (WEBP_FIXTURES, TIFF_JPEG_FIXTURES):
+        with open(os.path.join(folder, "sha256.json")) as f:
+            readings.update({os.path.join(folder, k): v for k, v in json.load(f).items()})
+    for path, want in readings.items():
+        name = os.path.basename(path)
         ms = []
         for _ in range(3):
-            pic, t = synced_ms(image_io.open_image, os.path.join(WEBP_FIXTURES, name))
+            pic, t = synced_ms(image_io.open_image, path)
             ms.append(t)
         times[f"{name} (PIL's committed hash)"] = float(np.median(ms))
         digest = hashlib.sha256(np.ascontiguousarray(pic.pixels).tobytes()).hexdigest()
         if (pic.mode, list(pic.pixels.shape), digest) != (want["mode"], want["shape"], want["sha256"]):
             fail(f"cli path: {name} reads as {pic.mode} {pic.pixels.shape} with SHA-256 {digest}, not PIL's "
                  f"{want['mode']} {want['shape']} {want['sha256']}")
-    names = sorted(f for f in os.listdir(IMAGE_FIXTURES) if not f.endswith((".npz", ".py")))
-    if not names:
-        fail(f"cli path: no image fixtures in {IMAGE_FIXTURES}")
-    for name in names:
-        want = np.load(os.path.join(IMAGE_FIXTURES, os.path.splitext(name)[0] + ".npz"))
-        pic = image_io.open_image(os.path.join(IMAGE_FIXTURES, name))
-        if not (pic.mode == str(want["mode"]) and np.array_equal(pic.pixels, want["pixels"])
-                and np.array_equal(image_io.to_rgba(pic), want["rgba"])):
-            fail(f"cli path: image fixture {name} reads as {pic.mode}, not PIL's {want['mode']} and its pixels")
+    names = {folder: sorted(f for f in os.listdir(folder) if os.path.exists(
+        os.path.join(folder, os.path.splitext(f)[0] + ".npz")) and not f.endswith(".npz"))
+        for folder in (IMAGE_FIXTURES, PPM_TGA_FIXTURES, TIFF_JPEG_FIXTURES)}
+    for folder, files in names.items():
+        if not files:
+            fail(f"cli path: no image fixtures in {folder}")
+        for name in files:
+            want = np.load(os.path.join(folder, os.path.splitext(name)[0] + ".npz"))
+            pic = image_io.open_image(os.path.join(folder, name))
+            floats = want["pixels"].dtype.kind == "f"  # a PFM's NaN reads as NaN
+            if not (pic.mode == str(want["mode"]) and pic.pixels.dtype == want["pixels"].dtype
+                    and np.array_equal(pic.pixels, want["pixels"], equal_nan=floats)
+                    and np.array_equal(image_io.to_rgba(pic), want["rgba"])):
+                fail(f"cli path: image fixture {name} reads as {pic.mode}, not PIL's {want['mode']} and its "
+                     f"pixels")
     print(f"  image forms at {W}x{H}, decode ms (median of 3, host clock): "
           + ", ".join(f"{k} {v:.2f}" for k, v in times.items())
-          + f"; lossless forms bit-equal, CMYK / YCCK JPEG (q{CLI_JPEG_QUALITY} 4:2:0) "
-          + ", ".join(f"{v:.2f}" for v in cmyk_psnr.values())
-          + f" dB PSNR from PIL's CMYK of the samples written; {len(readings)} 1080p WebP files give PIL's "
-          f"committed SHA-256; {len(names)} tests/fixtures/torch_images files (BMP, TIFF, CMYK and YCCK JPEG, "
-          f"WebP, GIF) give PIL's committed mode, pixels and RGBA")
+          + f"; lossless forms bit-equal, CMYK / YCCK JPEG (q{CLI_JPEG_QUALITY} 4:2:0) and JPEG-in-TIFF "
+          + ", ".join(f"{k} {v:.2f}" for k, v in cmyk_psnr.items())
+          + f" dB PSNR from PIL's CMYK of the samples written and from the view (JPEG-in-TIFF bit-equal to "
+          f"its strips and tiles read alone); {len(readings)} 1080p WebP and JPEG-in-TIFF files give PIL's "
+          f"committed SHA-256; "
+          + ", ".join(f"{len(v)} {os.path.relpath(k, ROOT)}" for k, v in names.items())
+          + " files give PIL's committed mode, pixels and RGBA")
 
 
 class SceneLoadTimer:
@@ -1753,14 +1979,18 @@ def _cli_phase(dev, tmp):
             if not np.array_equal(back, px):
                 fail(f"cli path: image {cam.image_name} did not survive its PNG")
             continue
-        if not got.image_path.endswith(".jpg"):  # the TIFF, BMP and WebP views, lossless
+        lossy = got.image_path.endswith(".jpg") or cam.image_name == names[CLI_JPEG_TIFF_VIEW]
+        if not lossy:  # the TIFF, BMP, WebP, PPM and TGA views
             back, ms = synced_ms(image_io.read_image, got.image_path)
             lossless_ms[os.path.basename(got.image_path)] = ms
-            if not np.array_equal(back, px):
+            if not np.array_equal(back, opaque(px) if cam.image_name == names[CLI_TGA_VIEW] else px):
                 fail(f"cli path: image {got.image_path} did not survive its file")
             continue
         back, ms = synced_ms(image_io.read_image, got.image_path)
-        jpeg_ms.append(ms)
+        if cam.image_name == names[CLI_JPEG_TIFF_VIEW]:
+            jpeg_tiff_ms = ms
+        else:
+            jpeg_ms.append(ms)
         mse = float(np.mean((back.astype(np.float64) - px) ** 2)) if back.shape == px.shape else math.inf
         view_psnr = 10 * math.log10(255 ** 2 / max(mse, 1e-12))
         if cam.image_name in (names[CLI_FLIPPED_VIEW], names[CLI_EXTRANEOUS_VIEW]):
@@ -1773,6 +2003,8 @@ def _cli_phase(dev, tmp):
         if not psnr[-1] >= 30.0:
             fail(f"cli path: JPEG view {cam.image_name} decodes {back.shape} at {psnr[-1]:.2f} dB "
                  f"PSNR from its render")
+        if cam.image_name == names[CLI_JPEG_TIFF_VIEW]:
+            jpeg_tiff_psnr = psnr.pop()
     if not np.array_equal(info.points, model["xyz"]):
         fail("cli path: the points did not survive points3D.bin")
     print(f"cli path: a COLMAP dataset of {CLI_VIEWS} views at {W_MAIN}x{H_MAIN} and "
@@ -1781,8 +2013,11 @@ def _cli_phase(dev, tmp):
           f"{np.median(jpeg_encode_ms):.1f} ms a view; {files[names[CLI_RESTART_VIEW]]} with a "
           f"restart marker every MCU row), {files[names[CLI_TIFF_VIEW]]} as 16-bit RGB TIFF (LZW, "
           f"Predictor 2), {files[names[CLI_BMP_VIEW]]} as 24-bit BMP, {files[names[CLI_WEBP_VIEW]]} as "
-          f"lossless WebP (this script's VP8L writer), {len(decode_ms)} test views as PNG; "
-          f"cameras within 1e-12, PNG, TIFF, BMP and WebP pixels bit-equal (decode "
+          f"lossless WebP (this script's VP8L writer), {files[names[CLI_PPM_VIEW]]} as binary P6, "
+          f"{files[names[CLI_TGA_VIEW]]} as 32-bit RLE TGA, {files[names[CLI_JPEG_TIFF_VIEW]]} as RGB "
+          f"JPEG-in-TIFF (q{CLI_JPEG_QUALITY}, strips of {CLI_JPEG_TIFF_ROWS} rows; {jpeg_tiff_psnr:.2f} dB "
+          f"PSNR from its render, decode {jpeg_tiff_ms:.1f} ms), {len(decode_ms)} test views as PNG; "
+          f"cameras within 1e-12, PNG, TIFF, BMP, WebP, PPM and TGA pixels bit-equal (decode "
           + ", ".join(f"{k} {v:.1f} ms" for k, v in lossless_ms.items())
           + f"), JPEG views {min(psnr):.2f}-{max(psnr):.2f} dB PSNR from their renders through the port's "
           f"readers")
@@ -1835,7 +2070,8 @@ def _cli_phase(dev, tmp):
     if scene_load.s is None:
         fail("cli path: the train CLI made no Scene")
     print(f"  train CLI: {CLI_STEPS} steps, {n_train} train and {n_test} test views, wall "
-          f"{train_s:.2f} s (scene load {scene_load.s:.2f} s: {n_train - 3} JPEG, 1 TIFF, 1 BMP, 1 WebP and "
+          f"{train_s:.2f} s (scene load {scene_load.s:.2f} s: {n_train - 6} JPEG, 1 TIFF, 1 BMP, 1 WebP, 1 P6, "
+          f"1 RLE TGA, 1 JPEG-in-TIFF and "
           f"{n_test} PNG views decoded), step median {np.median(step_ms):.3f} ms, p80 "
           f"{np.percentile(step_ms, 80):.3f} ms (its iter_time_ms, host clock, deferred "
           f"maintenance excluded); loss first 20 {first20:.6f}, last 20 {last20:.6f}; "
@@ -1894,7 +2130,10 @@ def _cli_phase(dev, tmp):
                 fail(f"cli path: {split}/{kind} holds {os.listdir(os.path.join(out, kind))}")
         for i, name in enumerate(split_names):
             gt = image_io.read_png(os.path.join(out, "gt", f"{i:05d}.png"))
-            if not np.array_equal(gt, image_io.read_image(os.path.join(data, "images", files[name]))):
+            view = image_io.read_image(os.path.join(data, "images", files[name]))
+            if view.shape[2] == 4 and (view[..., 3] == 255).all():  # the opaque TGA: its colour
+                view = view[..., :3]
+            if not np.array_equal(gt, view):
                 fail(f"cli path: {split} gt {i} is not the dataset's {name}")
     # the render CLI's cameras: the ones its reader gives (R within 1e-12 of the orbit's)
     views = [load_camera(by_name[name], 1) for name in names]
@@ -1907,9 +2146,8 @@ def _cli_phase(dev, tmp):
              f"{int((got_png != want_png).any(-1).sum())} pixels")
     print(f"  render CLI: {CLI_VIEWS} views in {render_ms / 1e3:.2f} s wall, "
           f"{render_ms / CLI_VIEWS:.1f} ms per view (scene load, render, two PNGs); launches "
-          f"{render_launches}; gt PNGs bit-equal to the dataset's JPEG, TIFF, BMP, WebP and PNG images, test view 0 "
-          f"bit-equal to "
-          f"eval_render of the reloaded PLY")
+          f"{render_launches}; gt PNGs bit-equal to the dataset's JPEG, TIFF, BMP, WebP, PPM, TGA and PNG "
+          f"images, test view 0 bit-equal to eval_render of the reloaded PLY")
 
     # Metrics.
     _, metrics_ms = synced_ms(in_process, metrics_cli.main, ["-m", model_dir])
@@ -1946,7 +2184,8 @@ def blender_frame(rgba, form, seed):
     by PIL's rules: a 16-bit file's high bytes, a palette entry's colour and
     tRNS alpha, grey spread to RGB, alpha 0 on a tRNS colour, a BMP's BGRA
     bytes under its alpha mask, a GIF's palette colour with alpha 0 on its
-    transparency index. A CMYK JPEG (Adobe transform 0, of the
+    transparency index, a TGA's BGRA, a 16-bit P6's round(v / 65535 * 255)
+    (its colour, which has no alpha, opaque). A CMYK JPEG (Adobe transform 0, of the
     frame composited on white, which it has no alpha for) is lossy: for it
     the second value is PIL's CMYK of the samples written (`cmyk_of`)."""
     if form is None:
@@ -1963,6 +2202,12 @@ def blender_frame(rgba, form, seed):
     if form == "16-bit RGBA":
         low = np.random.default_rng(seed).integers(0, 256, rgba.shape)
         return png_form((rgba.astype(np.int64) << 8) | low, 16, 6), rgba
+    if form == "32-bit RLE TGA with alpha":
+        return tga_form(rgba, 10, 0x20), rgba
+    if form == "16-bit P6":  # low bits under half a step: PIL's rounding gives the colour back
+        rgb = rgba[..., :3]
+        low = np.random.default_rng(seed).integers(0, 128, rgb.shape)
+        return ppm_form(b"P6", rgb.astype(np.int64) * 257 + np.where(rgb < 255, low, -low), 65535), opaque(rgb)
     if form == "palette + tRNS":  # 4 levels per channel and alpha: 256 entries
         q = rgba >> 6
         index = (q[..., 0] << 6) | (q[..., 1] << 4) | (q[..., 2] << 2) | q[..., 3]
@@ -2115,8 +2360,8 @@ def _blender_phase(dev, tmp):
     knn_ms = cuda_time_ms(lambda: mean_knn_dist2_morton(pts), 5)
     print(f"  train CLI: {BLENDER_STEPS} steps from {len(init)} random points in [-1.3, 1.3]^3, white "
           f"background {white}, wall {train_s:.2f} s (scene load {scene_load.s:.2f} s: "
-          f"{BLENDER_TRAIN + BLENDER_TEST} frames decoded (PNG, a CMYK JPEG, a BMP, a GIF) and composited), "
-          f"step median "
+          f"{BLENDER_TRAIN + BLENDER_TEST} frames decoded (PNG, a CMYK JPEG, a BMP, a GIF, a TGA, a P6) and "
+          f"composited), step median "
           f"{np.median(step_ms):.3f} ms, p80 {np.percentile(step_ms, 80):.3f} ms (its iter_time_ms, "
           f"host clock); loss first 20 {first20:.6f}, last 20 {last20:.6f}; "
           f"{len(tr.densify_history)} densifies; live {tr.num_live}; launches {train_launches}")

@@ -1,9 +1,10 @@
-// The byte loops of the BMP, TIFF and GIF readers: host C++, built with the
-// host compiler by utils/cuda_build.py at first use and loaded with ctypes
-// (utils/image_codecs.py). Each decoder runs per code or per byte, which
-// Python cannot do at 1080p; everything else of the three formats
-// (headers, IFDs, blocks, unpacking, the predictor, palettes) is numpy and
-// Python in utils/bmp.py, utils/tiff.py and utils/gif.py.
+// The byte loops of the BMP, TIFF, GIF and TGA readers: host C++, built with
+// the host compiler by utils/cuda_build.py at first use and loaded with
+// ctypes (utils/image_codecs.py). Each decoder runs per code, packet or
+// byte, which Python cannot do at 1080p; everything else of the four
+// formats (headers, IFDs, blocks, unpacking, the predictor, palettes) is
+// numpy and Python in utils/bmp.py, utils/tiff.py, utils/gif.py and
+// utils/tga.py.
 //
 // - gs_lzw_decode: TIFF's LZW as libtiff 4's LZWDecode reads it (new style,
 //   codes most significant bit first, 9 to 12 bits, the width growing one
@@ -30,6 +31,12 @@
 //   returns for another read, after which decoding goes on past the End
 //   code. Where no read is left (the file's end), or at a code past the
 //   table, it fails.
+// - gs_tga_rle_decode: TGA's run-length coding as PIL's TgaRleDecode.c
+//   reads it: a packet header, then one pixel repeated (a run, top bit set)
+//   or that many pixels (a raw packet); a raw packet runs on into the next
+//   rows, a run that would cross the end of its row fails (PIL: buffer
+//   overrun); decoding stops at the last row, and data that ends before it
+//   fails (PIL: image file is truncated).
 //
 // Interface (plain C; every entry returns 0 or 1, the message of a 1 in
 // gs_codec_error for the calling thread):
@@ -37,6 +44,7 @@
 //   gs_packbits_decode(in, n, out, size)
 //   gs_bmp_rle_decode(file, file_size, start, rle4, width, want, out, produced)
 //   gs_gif_lzw_decode(in, n, chunk, min_code_size, interlace, out, stride, width, height)
+//   gs_tga_rle_decode(file, file_size, start, depth, row_bytes, rows, out)
 
 #include <cstdint>
 #include <cstring>
@@ -328,6 +336,49 @@ int gs_gif_lzw_decode(const uint8_t* in, long long n, long long chunk, int bits,
     for (int i = top; i < kGifTable && !full; ++i) put(stack[i]);
   }
   return 0;
+}
+
+// `out` takes `rows` rows of `row_bytes` bytes in the file's row order;
+// `depth` is the bytes of a pixel.
+int gs_tga_rle_decode(const uint8_t* in, long long n, long long start, int depth, long long row_bytes,
+                      long long rows, uint8_t* out) {
+  if (depth < 1 || row_bytes < 1 || rows < 1) return fail("a TGA RLE image without pixels");
+  const std::string truncated = "TGA RLE data ends before the last row (PIL: image file is truncated)";
+  long long pos = start, x = 0, y = 0;
+  while (true) {
+    if (pos >= n) return fail(truncated);
+    const int head = in[pos];
+    long long count = static_cast<long long>(depth) * ((head & 0x7F) + 1);
+    if (head & 0x80) {  // a run: one pixel, repeated within its row
+      if (n - pos < 1 + depth) return fail(truncated);
+      if (x + count > row_bytes)
+        return fail("a TGA RLE run that crosses the end of its row at row " + std::to_string(y) +
+                    " (PIL: buffer overrun when reading image file)");
+      uint8_t* row = out + y * row_bytes;
+      for (long long i = 0; i < count; i += depth) std::memcpy(row + x + i, in + pos + 1, depth);
+      pos += 1 + depth;
+      x += count;
+      if (x >= row_bytes) {
+        x = 0;
+        if (++y >= rows) return 0;
+      }
+      continue;
+    }
+    if (n - pos < 1 + count) return fail(truncated);  // a raw packet, read whole
+    const uint8_t* src = in + pos + 1;
+    pos += 1 + count;
+    while (count > 0) {  // it may run on into the rows below
+      long long take = count < row_bytes - x ? count : row_bytes - x;
+      std::memcpy(out + y * row_bytes + x, src, take);
+      src += take;
+      count -= take;
+      x += take;
+      if (x >= row_bytes) {
+        x = 0;
+        if (++y >= rows) return 0;
+      }
+    }
+  }
 }
 
 }  // extern "C"

@@ -21,10 +21,30 @@
 // and PIL's "CMYK;I" unpacking, which inverts every sample. Everything
 // else is refused by name, where PIL raises.
 //
+// The strips and tiles of a JPEG-in-TIFF (compression 7) are read as
+// libtiff's tif_jpeg.c reads them for PIL: the JPEGTables tag's tables-only
+// stream first (its DQT and DHT segments kept for the strip, as libjpeg
+// keeps them across jpeg_read_header; a frame or scan in it is refused,
+// libtiff's "Bogus JPEGTables field"), then the abbreviated stream, whose
+// SOI resets the restart interval and the JFIF / Adobe markers. libtiff
+// reads every photometric but YCbCr with no colour conversion (JCS_UNKNOWN
+// in and out), so the components come out as decoded, 1 to 4 of them. The
+// frame must match the strip or tile: its components the samples per
+// pixel, every sampling factor 1, its size the strip's rows (the tile's)
+// by the width (libtiff's checks; a smaller frame, which libtiff only warns
+// about, leaves rows of PIL's image uninitialised, and is refused). Where a
+// stream's bytes end, libtiff's source manager hands libjpeg a fake EOI
+// marker at every further read, so each stream is read here followed by
+// (0xFF, EOI) pairs, longer than any marker segment: entropy-coded data
+// that ends early stops at that marker (zeros for the rest of its MCU and
+// interval), a segment cut short reads those bytes, as libjpeg does.
+//
 // Interface (plain C; every entry returns 0 or an error, whose message
 // gs_jpeg_error gives for the calling thread):
 //   gs_jpeg_probe(data, size, hwc)        hwc[0..2] = height, width, channels
 //   gs_jpeg_decode(data, size, out, cap)  (H, W, C) uint8 into out (cap bytes)
+//   gs_jpeg_decode_tiff(tables, tables_size, data, size, height, width, channels, out)
+//                                         a JPEG-in-TIFF strip or tile, (H, W, C) uint8
 
 #include <algorithm>
 #include <cstdint>
@@ -437,6 +457,10 @@ struct Decoder {
   HuffSpec huff[2][4];
   int restart_interval = 0;
   bool have_frame = false, progressive = false, jfif = false, multi = false, image_done = false;
+  // a JPEG-in-TIFF stream (libtiff's reading), and the strip's or tile's
+  // height, width and samples per pixel
+  bool tiff = false, tables_only = false;
+  int want_h = 0, want_w = 0, want_c = 0;
   int adobe = -1;
   int width = 0, height = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0, scans = 0, last_good = 0;
   std::vector<Component> comps;
@@ -533,6 +557,9 @@ struct Decoder {
         pos += length;
       }
       std::string why;
+      if (tables_only && (marker == M_SOS || (marker >= 0xC0 && marker <= 0xCF && marker != M_DHT && marker != M_DAC)))
+        refuse(fmt("a JPEGTables stream with a frame or scan marker 0x%02x (libtiff: Bogus JPEGTables field)",
+                   marker));
       if (marker == M_SOF0 || marker == M_SOF1 || marker == M_SOF2) {
         sof(marker, body, blen);
         if (header_only) return;
@@ -575,7 +602,23 @@ struct Decoder {
       }
       marker = -1;
     }
+    if (tables_only) return;
     if (!have_frame || scans == 0) corrupt("no image data before EOI");
+  }
+
+  // libtiff's JPEGTables stream, read before a strip or tile (tables only);
+  // the strip's SOI then resets what get_soi resets.
+  void read_tables(const uint8_t* t, int64_t n, const uint8_t* strip, int64_t strip_size) {
+    data = t;
+    size = n;
+    tables_only = true;
+    markers();
+    tables_only = false;
+    data = strip;
+    size = strip_size;
+    restart_interval = 0;
+    jfif = false;
+    adobe = -1;
   }
 
   void sof(int marker, const uint8_t* b, int n) {
@@ -587,7 +630,18 @@ struct Decoder {
     int nc = b[5];
     if (precision != 8) refuse(fmt("%d-bit samples", precision));
     if (n != 6 + 3 * nc) corrupt("a frame header whose length does not match its components");
-    if (nc != 1 && nc != 3 && nc != 4) refuse(fmt("%d colour components", nc));
+    if (tiff) {
+      if (nc != want_c)
+        refuse(fmt("a JPEG strip or tile of %d components for %d samples a pixel (libtiff: Improper JPEG "
+                   "component count)", nc, want_c));
+      if (width > want_w || height > want_h)
+        refuse(fmt("a JPEG strip or tile of %dx%d, larger than the TIFF's %dx", width, height, want_w) +
+               fmt("%d (libtiff: JPEG strip/tile size exceeds expected dimensions)", want_h));
+      if (width != want_w || height != want_h)
+        refuse(fmt("a JPEG strip or tile of %dx%d, smaller than the TIFF's %dx", width, height, want_w) +
+               fmt("%d (libtiff: JPEG strip/tile size less than expected)", want_h));
+    }
+    if (nc != 1 && nc != 3 && nc != 4 && !(tiff && nc == 2)) refuse(fmt("%d colour components", nc));
     if (height == 0) refuse("a DNL height (0 in the frame header)");
     if (width == 0) corrupt("an image 0 samples wide");
     if (std::max(width, height) > kMaxDimension) refuse(fmt("an image dimension over %d", kMaxDimension));
@@ -601,6 +655,9 @@ struct Decoder {
       c.v = b[7 + 3 * i] & 15;
       c.tq = b[8 + 3 * i];
       if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4) corrupt(fmt("component %d's sampling factors", i));
+      if (tiff && (c.h != 1 || c.v != 1))
+        refuse(fmt("component %d sampled %dx%d in a JPEG strip or tile (libtiff: Improper JPEG sampling "
+                   "factors)", i, c.h, c.v));
       comps.push_back(c);
     }
     for (const Component& c : comps) {
@@ -964,6 +1021,12 @@ struct Decoder {
       std::memcpy(out, planes[0].data(), npx);
       return;
     }
+    if (tiff) {  // libtiff's JCS_UNKNOWN: the components as decoded
+      const int64_t nc = static_cast<int64_t>(comps.size());
+      for (int64_t i = 0; i < npx; ++i)
+        for (int64_t k = 0; k < nc; ++k) out[nc * i + k] = planes[k][i];
+      return;
+    }
     if (comps.size() == 4 && adobe <= 0) {  // CMYK as stored, inverted as PIL's "CMYK;I" unpacks it
       for (int64_t i = 0; i < npx; ++i)
         for (int k = 0; k < 4; ++k) out[4 * i + k] = static_cast<uint8_t>(255 - planes[k][i]);
@@ -1037,6 +1100,39 @@ int gs_jpeg_decode(const uint8_t* data, long long size, uint8_t* out, long long 
     Decoder d(data, size, false);
     d.run();
     if (int64_t(d.width) * d.height * d.channels() > capacity) return fail("output buffer too small");
+    d.finish(out);
+    return 0;
+  } catch (const Refused& r) {
+    return fail(r.msg);
+  } catch (const std::bad_alloc&) {
+    return fail("out of host memory");
+  }
+}
+
+// `out` takes height x width x channels bytes; `tables_size` 0: no
+// JPEGTables tag.
+int gs_jpeg_decode_tiff(const uint8_t* tables, long long tables_size, const uint8_t* data, long long size,
+                        int height, int width, int channels, uint8_t* out) {
+  try {
+    auto with_eoi = [](const uint8_t* p, long long n) {  // libtiff's fake EOI at every read past the end
+      std::vector<uint8_t> v(p, p + n);
+      for (int i = 0; i < 32769; ++i) {
+        v.push_back(0xFF);
+        v.push_back(M_EOI);
+      }
+      return v;
+    };
+    const std::vector<uint8_t> strip = with_eoi(data, size);
+    Decoder d(strip.data(), static_cast<int64_t>(strip.size()), false);
+    d.tiff = true;
+    d.want_h = height;
+    d.want_w = width;
+    d.want_c = channels;
+    if (tables_size > 0) {
+      const std::vector<uint8_t> t = with_eoi(tables, tables_size);
+      d.read_tables(t.data(), static_cast<int64_t>(t.size()), strip.data(), static_cast<int64_t>(strip.size()));
+    }
+    d.run();
     d.finish(out);
     return 0;
   } catch (const Refused& r) {

@@ -16,8 +16,9 @@ behaviour:
   (utils/camera_utils.py:22-39)
 
 Images are read with the port's reader (`utils/image_io.open_image`: every
-PNG and JPEG form PIL reads, BMP and TIFF in the forms of `utils/bmp.py`
-and `utils/tiff.py`, PIL's pixels and mode bit for bit) and resized
+PNG and JPEG form PIL reads, BMP, TIFF (JPEG-in-TIFF included), WebP,
+GIF, PPM / PGM / PBM / PFM and TGA in the forms of their modules in
+`utils/`, PIL's pixels and mode bit for bit) and resized
 with its copy of PIL's default resize, so `CameraInfo.image` holds uint8
 pixels rather than a PIL image. The Blender reader takes PIL's
 `convert("RGBA")` of every mode (`image_io.to_rgba`). The COLMAP path
@@ -29,8 +30,10 @@ them, naming the file, where the JAX package trains on it: "P" (palette
 indices as grey), "1" (0 or 1/255), "I;16" and "I;16B" (16-bit grey over
 255, clipped to 1), "LA" (8-bit grey + alpha, a 2-channel ground truth
 that the first step's loss cannot take), "CMYK" (C, M and Y taken for
-RGB and multiplied by K as if it were alpha), and "I" / "F" (32-bit
-integers or floats; no form the port reads gives them). An image that
+RGB and multiplied by K as if it were alpha), "I" / "F" (32-bit
+integers or floats, from 16-bit PGM and PFM files), and a grey GIF or TGA
+that carries a colour map (PIL holds it as "P": its indices, and PIL's
+resize raises on it). An image that
 cannot be read raises a `ValueError` naming it as the dataset lists it
 (`images.bin` / `images.txt`, or the transforms file).
 `write_colmap_scene` writes a COLMAP dataset from cameras and pixels, the
@@ -255,10 +258,15 @@ def load_camera(cam_info: CameraInfo, resolution: int, resolution_scale: float =
     pixels = cam_info.image
     if pixels is None:
         picture = _read(cam_info.image_path, cam_info.listed_as)
-        if picture.mode in _NOT_THE_PICTURE:
+        why = _NOT_THE_PICTURE.get(picture.mode)
+        if why is None and picture.palette is not None:  # PIL's core holds it as "P" or "PA"
+            why = (f"a grey image with a colour map (mode {picture.mode}), which PIL holds as "
+                   f"{'P' if picture.mode == 'L' else 'PA'}: its np.asarray gives map indices, and PIL's resize "
+                   f"raises on it")
+        if why is not None:
             raise ValueError(
                 f"the image listed as {cam_info.listed_as or cam_info.image_path}: "
-                f"{cam_info.image_path}: {_NOT_THE_PICTURE[picture.mode]}; the JAX package "
+                f"{cam_info.image_path}: {why}; the JAX package "
                 f"trains on those numbers, the port refuses them (convert it to L, RGB or RGBA)")
         pixels = picture.pixels
     orig_h, orig_w = pixels.shape[:2]

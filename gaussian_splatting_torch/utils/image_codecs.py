@@ -1,6 +1,6 @@
-"""The compiled byte loops of the BMP, TIFF and GIF readers (`csrc/image_codecs.cc`).
+"""The compiled byte loops of the BMP, TIFF, GIF and TGA readers (`csrc/image_codecs.cc`).
 
-LZW and PackBits (TIFF), RLE8 / RLE4 (BMP) and GIF's LZW run per code or per byte,
+LZW and PackBits (TIFF), RLE8 / RLE4 (BMP), GIF's LZW and TGA's RLE run per code, packet or byte,
 so they are host C++, built by `cuda_build.build_host` at first use and
 loaded with ctypes. Nothing falls back to another implementation: if the
 library cannot be built, the read raises, naming the file.
@@ -31,6 +31,9 @@ def _library(name: str):
         lib.gs_gif_lzw_decode.argtypes = [ctypes.c_char_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
                                           ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
         lib.gs_gif_lzw_decode.restype = ctypes.c_int
+        lib.gs_tga_rle_decode.argtypes = [ctypes.c_char_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                                          ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+        lib.gs_tga_rle_decode.restype = ctypes.c_int
         lib.gs_codec_error.argtypes, lib.gs_codec_error.restype = [], ctypes.c_char_p
         lib._gs_typed = True
     return lib
@@ -87,3 +90,15 @@ def gif_lzw_decode(data: bytes, bits: int, interlace: bool, frame: np.ndarray, n
     if lib.gs_gif_lzw_decode(data, len(data), PIL_READ, bits, int(interlace), frame.ctypes.data,
                              frame.strides[0], frame.shape[1], frame.shape[0]):
         raise ValueError(f"{name}: {lib.gs_codec_error().decode()}")
+
+
+def tga_rle_decode(data: bytes, start: int, depth: int, row_bytes: int, rows: int, name: str) -> np.ndarray:
+    """(rows, row_bytes) uint8 in the file's row order: the RLE pixel data of
+    a TGA file `data` from byte `start`, `depth` bytes a pixel, as PIL's
+    TgaRleDecode reads it; raises a `ValueError` naming `name` where PIL
+    raises (a run across the end of a row, data that ends early)."""
+    lib = _library(name)
+    out = np.empty((rows, row_bytes), np.uint8)
+    if lib.gs_tga_rle_decode(data, len(data), start, depth, row_bytes, rows, out.ctypes.data):
+        raise ValueError(f"{name}: {lib.gs_codec_error().decode()}")
+    return out

@@ -9,9 +9,12 @@ its own:
   decoder (`utils/jpeg.py`, PIL's bits: grey, RGB, and CMYK from CMYK and
   YCCK files), a BMP to `utils/bmp.py`, a TIFF to `utils/tiff.py`, a
   WebP to `utils/webp.py` (lossy, lossless, alpha, frame 0 of an
-  animation), a GIF to `utils/gif.py` (frame 0); anything else raises a
-  `ValueError` naming the file and the six formats. It returns a
-  `Picture`: the pixels as
+  animation), a GIF to `utils/gif.py` (frame 0), a PPM / PGM / PBM / PFM
+  (PIL's magics: P1 to P6, Pf and its extensions) to `utils/ppm.py`, and
+  last, as PIL tries it last, a file that passes TGA's header checks to
+  `utils/tga.py` (TGA has no signature; none of the formats above can pass
+  them); anything else raises a `ValueError` naming the file and the
+  formats the port reads. It returns a `Picture`: the pixels as
   `np.asarray(Image.open(f))` gives them, with PIL's mode, palette and
   transparency, which `to_rgba` turns into PIL's `convert("RGBA")`.
   `read_image(path)` is its pixels.
@@ -42,7 +45,7 @@ from typing import Any, NamedTuple, Optional
 
 import numpy as np
 
-from gaussian_splatting_torch.utils import bmp, gif, jpeg, tiff, webp
+from gaussian_splatting_torch.utils import bmp, gif, jpeg, ppm, tga, tiff, webp
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # 8-bit channels -> PNG colour type (0 grey, 4 grey + alpha, 2 RGB, 6 RGBA),
@@ -70,12 +73,16 @@ class Picture(NamedTuple):
       channel axis kept for one channel: uint8 for "L", "LA", "RGB",
       "RGBA", "CMYK" (PIL's inverted CMYK JPEG samples, a TIFF's as
       stored) and "P" (palette indices), bool for "1", uint16 for "I;16"
-      (little endian) and "I;16B" (big endian, as PIL's array).
+      (little endian) and "I;16B" (big endian, as PIL's array), int32 for
+      "I" and float32 for "F" (little endian).
     mode: PIL's mode.
     palette: mode "P": (N, 3) uint8, the palette's entries (PNG's PLTE,
-      a BMP's colour table, a TIFF's ColorMap, a GIF's palette); a GIF of
-      mode "L" (a grey-ramp local palette) keeps its global palette here,
-      which PIL's core holds it with and `convert` applies.
+      a BMP's colour table, a TIFF's ColorMap, a GIF's palette, a TGA's
+      colour map), or (N, 4) with each entry's alpha (a TGA's 16-bit
+      map); a GIF of mode "L" (a grey-ramp local palette) keeps its global
+      palette here, and a grey TGA ("L" or "LA") its colour map, which
+      PIL's core holds the image with (as "P" or "PA") and `convert`
+      applies.
     transparency: PIL's `info["transparency"]`: an int for "1" (0 or
       255), "L" and "I;16" (the tRNS value) and for "P" whose tRNS clears
       one entry only (its index); an (r, g, b) tuple for "RGB"; the tRNS
@@ -97,14 +104,18 @@ JPEG_SIGNATURE = b"\xff\xd8\xff"  # SOI and the first marker's 0xFF, as PIL snif
 BMP_SIGNATURE = b"BM"
 
 
+FORMATS = "PNG, JPEG, BMP, TIFF, WebP, GIF, PPM / PGM / PBM / PFM or TGA"
+
+
 def open_image(path) -> Picture:
-    """The `Picture` of a PNG, JPEG, BMP, TIFF, WebP or GIF file, PIL's
-    pixels and mode. JPEG (mode "L", "RGB" or "CMYK") and WebP ("RGB" or
+    """The `Picture` of a PNG, JPEG, BMP, TIFF, WebP, GIF, PPM / PGM / PBM
+    / PFM or TGA file, PIL's pixels and mode. JPEG (mode "L", "RGB" or
+    "CMYK", and the strips and tiles of a JPEG-in-TIFF) and WebP ("RGB" or
     "RGBA") are decoded by compiled decoders, and BMP's RLE, TIFF's LZW and
-    PackBits and GIF's LZW by the compiled codecs, each built at first use;
-    if one cannot be built this raises."""
+    PackBits, GIF's LZW and TGA's RLE by the compiled codecs, each built at
+    first use; if one cannot be built this raises."""
     with open(path, "rb") as f:
-        head = f.read(16)
+        head = f.read(tga.HEADER)
     if head.startswith(PNG_SIGNATURE):
         return open_png(path)
     if head.startswith(JPEG_SIGNATURE):
@@ -118,13 +129,16 @@ def open_image(path) -> Picture:
         return webp.open_webp(path)
     if head.startswith(gif.SIGNATURES):
         return gif.open_gif(path)
-    raise ValueError(f"{path}: not a PNG, JPEG, BMP, TIFF, WebP or GIF file; the port reads those six image "
-                     f"formats")
+    if ppm.accepts(head) or ppm.refused_magic(head):
+        return ppm.open_ppm(path)
+    if tga.looks_like_tga(head):  # no signature: PIL tries TGA after every format above
+        return tga.open_tga(path)
+    raise ValueError(f"{path}: not a {FORMATS} file; the port reads those image formats")
 
 
 def read_image(path) -> np.ndarray:
-    """`np.asarray(Image.open(path))` of a PNG, JPEG, BMP, TIFF, WebP or
-    GIF, with a channel axis kept (`open_image(path).pixels`)."""
+    """`np.asarray(Image.open(path))` of any file `open_image` reads, with
+    a channel axis kept (`open_image(path).pixels`)."""
     return open_image(path).pixels
 
 
@@ -258,10 +272,15 @@ def to_rgba(picture: Picture) -> np.ndarray:
     "CMYK" is PIL's cmyk2rgb, each colour (255 - k) - c (255 - k) / 255
     in PIL's rounded division; an "L" GIF that keeps its global palette
     takes the palette's colours (with a transparency index PIL raises, and
-    so does this). Any other mode raises, naming it."""
+    so does this); a grey TGA with a colour map ("L" or "LA") takes the
+    map's colours, "LA" its own alpha; "I" is clipped to 0..255; "F" is
+    0 at or below 0 (and NaN), 255 at or above 255, else truncated, as
+    PIL's float-to-byte conversion. Any other mode raises, naming it."""
     px, mode, t = picture.pixels, picture.mode, picture.transparency
     if mode == "RGBA":
         return px.copy()
+    if mode == "LA" and picture.palette is not None:  # PIL's core "PA": the map's colours, the image's alpha
+        return np.concatenate([_palette_table(picture.palette)[px[..., 0], :3], px[..., 1:]], axis=2)
     if mode == "LA":
         return np.concatenate([px[..., :1].repeat(3, axis=2), px[..., 1:]], axis=2)
     if mode == "CMYK":
@@ -274,9 +293,7 @@ def to_rgba(picture: Picture) -> np.ndarray:
                              "GIF with a global palette and a transparency index)")
         mode = "P"
     if mode == "P":
-        table = np.zeros((256, 4), np.uint8)
-        table[:, 3] = 255
-        table[:len(picture.palette), :3] = picture.palette
+        table = _palette_table(picture.palette)
         if isinstance(t, int):
             table[t, 3] = 0
         elif t is not None:
@@ -284,11 +301,13 @@ def to_rgba(picture: Picture) -> np.ndarray:
         return table[px[..., 0]]
     if mode == "RGB":
         rgb, key = px, None if t is None else np.array([v & 0xFF for v in t], np.uint8)
-    elif mode in ("1", "L", "I;16", "I;16B"):
+    elif mode in ("1", "L", "I;16", "I;16B", "I", "F"):
         if mode == "1":
             grey = np.where(px, 255, 0).astype(np.uint8)
-        elif mode.startswith("I;16"):
-            grey = np.minimum(px, 255).astype(np.uint8)
+        elif mode.startswith("I"):
+            grey = np.clip(px, 0, 255).astype(np.uint8)
+        elif mode == "F":  # comparisons with NaN fail: 0
+            grey = np.where(px >= 255, 255, np.where(px > 0, px, 0)).astype(np.uint8)
         else:
             grey = px
         rgb, key = grey.repeat(3, axis=2), None if t is None else np.full(3, t & 0xFF, np.uint8)
@@ -298,6 +317,15 @@ def to_rgba(picture: Picture) -> np.ndarray:
     if key is not None:
         alpha[(rgb == key).all(axis=2)] = 0
     return np.concatenate([rgb, alpha], axis=2)
+
+
+def _palette_table(palette: np.ndarray) -> np.ndarray:
+    """(256, 4) RGBA of a palette's entries: black past its end, alpha 255
+    where the palette has none."""
+    table = np.zeros((256, 4), np.uint8)
+    table[:, 3] = 255
+    table[:len(palette), :palette.shape[1]] = palette
+    return table
 
 
 def _unfilter(raw: np.ndarray, filters: np.ndarray) -> np.ndarray:

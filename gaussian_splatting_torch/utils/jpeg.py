@@ -10,6 +10,10 @@ runs, so the port keeps its own decoder in two forms:
   compiled one is held to: `decode_jpeg(data, plain=True)`. Nothing falls
   back to it.
 
+The compiled decoder also reads the strips and tiles of a JPEG-in-TIFF as
+libtiff reads them (`decode_tiff_jpeg`, which `utils/tiff.py` calls): the
+JPEGTables stream first, no colour conversion.
+
 Both follow libjpeg-turbo 3's C code at PIL's defaults: Huffman-coded
 8-bit baseline, extended (SOF1) and progressive (SOF2) frames,
 interleaved and non-interleaved scans, restart intervals; the integer
@@ -1108,6 +1112,9 @@ def _library():
         lib.gs_jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_longlong, ctypes.c_void_p,
                                        ctypes.c_longlong]
         lib.gs_jpeg_decode.restype = ctypes.c_int
+        lib.gs_jpeg_decode_tiff.argtypes = [ctypes.c_char_p, ctypes.c_longlong, ctypes.c_char_p, ctypes.c_longlong,
+                                            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.gs_jpeg_decode_tiff.restype = ctypes.c_int
         lib.gs_jpeg_error.argtypes = []
         lib.gs_jpeg_error.restype = ctypes.c_char_p
         lib._gs_typed = True
@@ -1122,4 +1129,19 @@ def _decode_compiled(data: bytes, name: str) -> np.ndarray:
     out = np.empty(tuple(shape), np.uint8)
     if lib.gs_jpeg_decode(data, len(data), out.ctypes.data, out.nbytes):
         raise ValueError(f"{name}: {lib.gs_jpeg_error().decode()}; {SUPPORTED}")
+    return out
+
+
+def decode_tiff_jpeg(tables: bytes, data: bytes, height: int, width: int, channels: int,
+                     name: str = "<bytes>") -> np.ndarray:
+    """(height, width, channels) uint8: one strip or tile of a JPEG-in-TIFF
+    (compression 7) as libtiff reads it for PIL, by the compiled decoder:
+    the JPEGTables stream `tables` (b"": none) first, then the strip's
+    abbreviated stream `data`, every component as decoded (no colour
+    conversion). A frame that does not match the strip, and every form the
+    decoder refuses, raise a `ValueError` naming `name`."""
+    lib = _library()
+    out = np.empty((height, width, channels), np.uint8)
+    if lib.gs_jpeg_decode_tiff(tables, len(tables), data, len(data), height, width, channels, out.ctypes.data):
+        raise ValueError(f"{name}: {lib.gs_jpeg_error().decode()}")
     return out

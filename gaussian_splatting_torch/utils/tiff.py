@@ -9,10 +9,13 @@ returning an `image_io.Picture`:
 - classic TIFF in either byte order ("II" and "MM"), the first IFD,
   strips (the last one short) and tiles (cropped where they overhang),
   `PlanarConfiguration` 1;
-- compression none (1), PackBits (32773), LZW (5, libtiff's new style) and
-  deflate (8, 32946); `Predictor` 2 (horizontal differencing per sample,
-  8 and 16 bits, in the sample's own unsigned arithmetic) under LZW and
-  deflate, where libtiff applies it;
+- compression none (1), PackBits (32773), LZW (5, libtiff's new style),
+  deflate (8, 32946) and JPEG (7: 8-bit samples, each strip or tile an
+  abbreviated JPEG stream after the JPEGTables tag's tables, decoded by
+  the compiled JPEG decoder as libtiff decodes it, with no colour
+  conversion, `utils/jpeg.decode_tiff_jpeg`); `Predictor` 2 (horizontal
+  differencing per sample, 8 and 16 bits, in the sample's own unsigned
+  arithmetic) under LZW and deflate, where libtiff applies it;
 - photometric WhiteIsZero (0: "1" and "L" inverted; 16 bits "I;16" as
   stored, as PIL reads it), BlackIsZero (1), RGB (2), palette (3, the
   ColorMap's high bytes) and CMYK (5);
@@ -25,10 +28,12 @@ returning an `image_io.Picture`:
 - the Orientation tag (274) applied after decoding, as PIL's TIFF loader
   does (`ImageOps.exif_transpose`).
 
-LZW and PackBits run in compiled host C++ (`utils/image_codecs`), deflate
-in zlib, the rest in numpy. Everything else raises a `ValueError` naming
-the file and the feature: BigTIFF; JPEG (6, 7), CCITT (2, 3, 4), WebP,
-ZSTD, LZMA and the other compressions; old-style LZW; `Predictor` 3;
+LZW and PackBits run in compiled host C++ (`utils/image_codecs`), JPEG in
+the compiled JPEG decoder, deflate in zlib, the rest in numpy. Everything
+else raises a `ValueError` naming the file and the feature: BigTIFF;
+old-style JPEG (6), JPEG in YCbCr (photometric 6, which PIL reads through
+libtiff's YCbCr-to-RGB conversion), CCITT (2, 3, 4), WebP, ZSTD, LZMA and
+the other compressions; old-style LZW; `Predictor` 3;
 `PlanarConfiguration` 2; `FillOrder` 2; signed and floating-point
 samples; YCbCr, CIELab and other photometrics; depths other than 1, 8 and
 16; layouts PIL does not know; corrupt or truncated data (where libtiff
@@ -43,26 +48,27 @@ import zlib
 
 import numpy as np
 
-from gaussian_splatting_torch.utils import image_codecs
+from gaussian_splatting_torch.utils import image_codecs, jpeg
 
 MAX_PIXELS = 2 * 89478485  # PIL raises DecompressionBombError past this
 SIGNATURES = (b"II*\x00", b"MM\x00*", b"II\x00*", b"MM*\x00", b"II+\x00", b"MM\x00+")  # PIL's prefixes
-SUPPORTED = ("the port reads classic TIFF, uncompressed, PackBits, LZW or deflate, 1, 8 or 16 bits, "
-             "grey, RGB(A), palette or CMYK")
+SUPPORTED = ("the port reads classic TIFF, uncompressed, PackBits, LZW, deflate or JPEG (not in YCbCr), 1, 8 "
+             "or 16 bits, grey, RGB(A), palette or CMYK")
 
 # tags
 WIDTH, LENGTH, BITS, COMPRESSION, PHOTOMETRIC, FILL_ORDER, STRIP_OFFSETS = 256, 257, 258, 259, 262, 266, 273
 ORIENTATION, SAMPLES, ROWS_PER_STRIP, STRIP_COUNTS, PLANAR, PREDICTOR = 274, 277, 278, 279, 284, 317
 COLORMAP, TILE_WIDTH, TILE_LENGTH, TILE_OFFSETS, TILE_COUNTS, EXTRA, SAMPLE_FORMAT = (
     320, 322, 323, 324, 325, 338, 339)
+JPEG_TABLES = 347  # UNDEFINED: kept as bytes
 # integer field types: byte, short, long, sbyte, sshort, slong
 _INT_TYPES = {1: "u1", 3: "u2", 4: "u4", 6: "i1", 8: "i2", 9: "i4"}
 
-NONE, LZW, DEFLATE, ADOBE_DEFLATE, PACKBITS = 1, 5, 32946, 8, 32773
+NONE, LZW, JPEG, DEFLATE, ADOBE_DEFLATE, PACKBITS = 1, 5, 7, 32946, 8, 32773
 REFUSED_COMPRESSION = {
     2: "CCITT modified Huffman (compression 2)", 3: "CCITT Group 3 (compression 3)",
     4: "CCITT Group 4 (compression 4)", 6: "old-style JPEG-in-TIFF (compression 6)",
-    7: "JPEG-in-TIFF (compression 7)", 32771: "16-bit padded raw data (compression 32771)",
+    32771: "16-bit padded raw data (compression 32771)",
     32809: "ThunderScan (compression 32809)", 34676: "SGILog (compression 34676)",
     34677: "SGILog24 (compression 34677)", 34925: "LZMA (compression 34925)",
     50000: "ZSTD (compression 50000)", 50001: "WebP (compression 50001)",
@@ -121,7 +127,9 @@ def _tags(data: bytes, name: str):
                                             ("count", order + "u4"), ("value", "V4")]), int(n), at + 2)
     tags = {}
     for tag, typ, count, value in entries.tolist():
-        if typ not in _INT_TYPES or count == 0:
+        if tag == JPEG_TABLES and typ == 7:  # UNDEFINED bytes
+            typ = 1
+        elif typ not in _INT_TYPES or count == 0:
             continue
         size = count * int(_INT_TYPES[typ][1])
         if size <= 4:
@@ -150,9 +158,12 @@ def decode_tiff(data: bytes, name: str = "<bytes>"):
     compression = one(COMPRESSION, NONE)
     if compression in REFUSED_COMPRESSION:
         _refuse(name, REFUSED_COMPRESSION[compression])
-    if compression not in (NONE, LZW, DEFLATE, ADOBE_DEFLATE, PACKBITS):
+    if compression not in (NONE, LZW, JPEG, DEFLATE, ADOBE_DEFLATE, PACKBITS):
         _refuse(name, f"TIFF compression {compression}")
     photo = one(PHOTOMETRIC, 0)
+    if compression == JPEG and photo == 6:
+        _refuse(name, "JPEG-in-TIFF (compression 7) in YCbCr (photometric 6), which PIL reads through libtiff's "
+                      "YCbCr-to-RGB conversion")
     if photo in REFUSED_PHOTOMETRIC or photo not in (0, 1, 2, 3, 5):
         _refuse(name, REFUSED_PHOTOMETRIC.get(photo, f"photometric interpretation {photo}"))
     if one(FILL_ORDER, 1) != 1:
@@ -180,6 +191,8 @@ def decode_tiff(data: bytes, name: str = "<bytes>"):
     if any(b not in (1, 8, 16) for b in bits) or len(set(bits)) > 1:
         _refuse(name, f"{'/'.join(map(str, bits))}-bit samples")
     depth = bits[0]
+    if compression == JPEG and depth != 8:
+        _refuse(name, f"JPEG-in-TIFF at {depth} bits a sample (libtiff reads 8)")
     layout = LAYOUTS.get((photo, bits, extra))
     if layout is None or (depth == 16 and photo == 0 and order == ">"):
         _refuse(name, f"photometric {photo} with {'/'.join(map(str, bits))} bits and extra samples "
@@ -267,6 +280,7 @@ def _samples(data, name, tags, order, compression, predictor, width, height, spp
     if compression == NONE and (cw, ch) == (width, height):
         offsets = offsets[-1:]  # PIL: a strip or tile that covers the image reads from the last offset
     row_bytes = (cw * spp * depth + 7) // 8
+    tables = bytes(tags.get(JPEG_TABLES, ()))
     canvas = np.zeros((down * ch, across * row_bytes), np.uint8)
     for i in range(across * down):
         x, y = i % across, (i // across) * ch
@@ -281,7 +295,11 @@ def _samples(data, name, tags, order, compression, predictor, width, height, spp
             coded = data[off:off + counts[i]]
             if len(coded) < counts[i]:
                 _refuse(name, f"truncated TIFF data (strip or tile {i} lies past the end of the file)")
-            chunk = _decompress(coded, size, compression, f"{name}: strip or tile {i}")
+            where = f"{name}: strip or tile {i}"
+            if compression == JPEG:
+                chunk = jpeg.decode_tiff_jpeg(tables, coded, rows, cw, spp, where).reshape(-1)
+            else:
+                chunk = _decompress(coded, size, compression, where)
         chunk = chunk.reshape(rows, row_bytes)
         if predictor == 2:
             chunk = _undifference(chunk, cw, spp, order + ("u2" if depth == 16 else "u1"))

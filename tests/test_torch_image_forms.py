@@ -1,7 +1,7 @@
 """The image forms PIL reads beyond PNG and 1- or 3-component JPEG, in the
-port (`utils/bmp.py`, `utils/tiff.py`, the compiled `csrc/image_codecs.cc`
-and `csrc/jpeg_decode.cc`), against PIL, which the JAX package opens its
-datasets with.
+port (`utils/bmp.py`, `utils/tiff.py` with JPEG-in-TIFF, the compiled
+`csrc/image_codecs.cc` and `csrc/jpeg_decode.cc`), against PIL, which the
+JAX package opens its datasets with.
 
 Tolerances: every comparison is bit-equal. For each file the port's
 `image_io.open_image` must give PIL's mode and `np.asarray(Image.open(f))`
@@ -60,6 +60,29 @@ def assert_like_pil(tmp_path, data: bytes, name="image", suffix=".img"):
     assert got.pixels.shape == want.shape and got.pixels.dtype.kind == want.dtype.kind, (got.pixels.dtype, want.dtype)
     np.testing.assert_array_equal(got.pixels, want)
     np.testing.assert_array_equal(image_io.to_rgba(got), rgba)
+    return got
+
+
+def assert_follows_pil(tmp_path, data: bytes, label="", suffix=".img"):
+    """The port reads `data` as PIL does (mode, pixels with their dtype and
+    shape, NaN equal to NaN, RGBA) and returns the `Picture`, or raises
+    naming the file where PIL raises and returns None."""
+    try:
+        want = pil_read(data)
+    except Exception:  # noqa: BLE001  (any of PIL's errors: the port must raise too)
+        want = None
+    path = tmp_path / f"view{suffix}"
+    path.write_bytes(data)
+    if want is None:
+        with pytest.raises(ValueError) as err:
+            image_io.open_image(path)
+        assert str(path) in str(err.value), label
+        return None
+    got = image_io.open_image(path)
+    assert got.mode == want[0], (label, got.mode, want[0])
+    assert got.pixels.dtype == want[1].dtype and got.pixels.shape == want[1].shape, (label, got.pixels.dtype)
+    np.testing.assert_array_equal(got.pixels, want[1], err_msg=label)
+    np.testing.assert_array_equal(image_io.to_rgba(got), want[2], err_msg=label)
     return got
 
 
@@ -510,8 +533,9 @@ def test_to_rgba_refuses_a_mode_it_does_not_convert():
 
 
 def test_open_image_sniffs_each_format(tmp_path, cxx):
-    """The BMP and TIFF signatures, each file named .img; forms PIL reads
-    and the port does not (QOI, PPM) refused, naming the six formats."""
+    """The BMP, TIFF and PPM signatures, each file named .img; a form PIL
+    reads and the port does not (QOI) refused, naming the formats the port
+    reads."""
     a = smooth(9, 11, 3, 0)
     buf = io.BytesIO()
     Image.fromarray(a).save(buf, "BMP")
@@ -519,8 +543,9 @@ def test_open_image_sniffs_each_format(tmp_path, cxx):
     assert got.mode == "RGB"
     for order in "<>":
         assert_like_pil(tmp_path, tiff_bytes(a, 8, 2, order=order), f"tiff{order}")
-    assert_refused(tmp_path, QOI_4X4, "not a PNG, JPEG, BMP, TIFF, WebP or GIF file")
-    assert_refused(tmp_path, b"P6\n4 4\n255\n" + bytes(48), "not a PNG, JPEG, BMP, TIFF, WebP or GIF file")
+    assert_refused(tmp_path, QOI_4X4, "not a PNG, JPEG, BMP, TIFF, WebP, GIF, PPM / PGM / PBM / PFM or TGA file")
+    got = assert_like_pil(tmp_path, b"P6\n4 4\n255\n" + bytes(48), "ppm")
+    assert got.mode == "RGB" and got.pixels.shape == (4, 4, 3)
 
 
 def test_failed_codec_build_raises_naming_the_file(tmp_path, fake_cxx):
@@ -734,3 +759,263 @@ def test_blender_cmyk_bmp_and_tiff_frames_match_jax(tmp_path, monkeypatch, cxx, 
         np.testing.assert_array_equal(g.image, np.asarray(wnt.image), err_msg=f"frame {i}")
         assert (g.width, g.height, g.fovx, g.fovy) == (wnt.width, wnt.height, wnt.fovx, wnt.fovy)
         assert_same_cameras([dataset_readers.load_camera(g, 2)], [jreaders.load_camera(wnt, 2)])
+
+
+# ---- JPEG-in-TIFF ----
+
+def pil_jpeg_strip(mode: str, quality: int):
+    """A coder for `tiff_bytes(..., encode=...)`: each strip or tile as the
+    abbreviated JPEG stream libtiff writes for PIL (PIL's own JPEG-in-TIFF
+    of just those samples, one strip), and the JPEGTables bytes it goes
+    with (the same for every strip at one quality and mode)."""
+    def encode(chunk):
+        im = Image.fromarray(np.ascontiguousarray(chunk[..., 0] if chunk.shape[2] == 1 else chunk).astype(np.uint8),
+                             mode)
+        buf = io.BytesIO()
+        im.save(buf, "TIFF", compression="jpeg", quality=quality, strip_size=2**30)
+        tags = Image.open(io.BytesIO(buf.getvalue())).tag_v2
+        return buf.getvalue()[tags[273][0]:tags[273][0] + tags[279][0]], bytes(tags[347])
+    return encode
+
+
+JPEG_MODES = {"RGB": (2, 3, None), "L": (1, 1, None), "RGBA": (2, 4, [2]), "CMYK": (5, 4, None), "LA": (1, 2, [2])}
+
+
+def jpeg_tiff(a, mode, quality, tables=True, coder=None, **kw) -> bytes:
+    """A JPEG-in-TIFF of `a`'s first channels in `mode`, each strip or tile
+    coded by `pil_jpeg_strip` (or by `coder(chunk, encode)`), with the
+    JPEGTables tag unless `tables` is False."""
+    photometric, n, extra = JPEG_MODES[mode]
+    encode = pil_jpeg_strip(mode, quality)
+    table_bytes = encode(a[:8, :8, :n])[1]
+    tags = {347: (7, list(table_bytes))} if tables else {}
+    return tiff_bytes(a[..., :n], 8, photometric, compression=7, extra=extra, tags=tags,
+                      encode=(lambda c: coder(c, encode)) if coder else (lambda c: encode(c)[0]), **kw)
+
+
+
+
+@pytest.mark.parametrize("strip_rows", [None, 8, 16])
+@pytest.mark.parametrize("quality", [75, 90])
+@pytest.mark.parametrize("mode", list(JPEG_MODES))
+def test_pil_written_jpeg_tiff_gives_pils_pixels(tmp_path, cxx, mode, quality, strip_rows):
+    """PIL's own JPEG-in-TIFF (libtiff: abbreviated strips after a
+    JPEGTables tag, the components with no colour conversion): RGB, grey,
+    RGBA, CMYK and grey + alpha, q75 and q90, in strips of 8 or 16 rows or
+    one strip."""
+    a = smooth(45, 67, 4, 60 + quality)
+    im = Image.fromarray(np.ascontiguousarray(a[..., 0] if mode == "L" else a[..., :len(mode)]), mode)
+    buf = io.BytesIO()
+    options = {} if strip_rows is None else {"strip_size": 67 * len(mode) * strip_rows}
+    im.save(buf, "TIFF", compression="jpeg", quality=quality, **options)
+    got = assert_like_pil(tmp_path, buf.getvalue(), mode, ".tif")
+    assert got.mode == mode
+
+
+@pytest.mark.parametrize("order", ["<", ">"])
+@pytest.mark.parametrize("tile", [(16, 16), (32, 16), (48, 40), None])
+@pytest.mark.parametrize("quality", [75, 90])
+@pytest.mark.parametrize("mode", ["RGB", "L", "RGBA"])
+def test_tiled_jpeg_tiff_gives_pils_pixels(tmp_path, cxx, mode, quality, tile, order):
+    """Tiles (which PIL's writer cannot make) and strips of 16 rows, each
+    libtiff's abbreviated stream, tiles cropped where they overhang, in
+    both byte orders."""
+    a = smooth(45, 67, 4, 70)
+    data = jpeg_tiff(a, mode, quality, tile=tile, rows_per_strip=None if tile else 16, order=order)
+    assert assert_follows_pil(tmp_path, data, f"{mode} {tile}", ".tif") is not None
+
+
+def _cut(stream: bytes, keep: float, tail: bytes = b"") -> bytes:
+    return stream[:int(len(stream) * keep)] + tail
+
+
+def _flip(stream: bytes) -> bytes:
+    b = bytearray(stream)
+    at = len(b) // 2
+    while 0xFF in b[at - 1:at + 2] or b[at] ^ 0x10 == 0xFF:
+        at += 1
+    b[at] ^= 0x10
+    return bytes(b)
+
+
+JPEG_TIFF_DAMAGE = {  # what libtiff reads for PIL: pixels, or a raise
+    "strips cut in their data": dict(coder=lambda c, e: _cut(e(c)[0], 0.6)),
+    "strips cut after a 0xFF": dict(coder=lambda c, e: _cut(e(c)[0], 0.6, b"\xff\xff")),
+    "strips cut in their header": dict(coder=lambda c, e: e(c)[0][:12]),
+    "a flipped byte in each strip": dict(coder=lambda c, e: _flip(e(c)[0])),
+    "full streams, no JPEGTables": dict(coder=lambda c, e: e(c)[0][:2] + e(c)[1][2:-2] + e(c)[0][2:], tables=False),
+    "abbreviated streams, no JPEGTables": dict(tables=False),
+    "strips shorter than their rows": dict(coder=lambda c, e: e(c[:8])[0]),
+    "strips narrower than the image": dict(coder=lambda c, e: e(c[:, :40])[0]),
+    "strips taller than their rows": dict(coder=lambda c, e: e(np.concatenate([c, c]))[0]),
+    "grey strips in an RGB image": dict(coder=lambda c, e: pil_jpeg_strip("L", 90)(c[..., :1])[0]),
+}
+
+
+@pytest.mark.parametrize("case", list(JPEG_TIFF_DAMAGE))
+def test_jpeg_tiff_damage_follows_pil(tmp_path, cxx, case):
+    """libtiff hands libjpeg a fake EOI where a strip's bytes end (data cut
+    short reads as zeros, as at any marker), checks each frame against its
+    strip (components, sampling, size), and needs the tables: the port
+    reads what PIL reads and raises where PIL raises. A frame smaller than
+    its strip, which libtiff only warns about, leaves PIL's rows
+    uninitialised: the port refuses it."""
+    a = smooth(45, 67, 4, 80)
+    options = dict(JPEG_TIFF_DAMAGE[case])
+    data = jpeg_tiff(a, "RGB", 90, rows_per_strip=16, **options)
+    got = assert_follows_pil(tmp_path, data, case, ".tif") if "shorter" not in case and "narrower" not in case \
+        else None
+    if got is None:
+        assert_refused(tmp_path, data, "strip or tile 0", ".tif")
+
+
+def test_jpeg_tiff_tables_as_libtiff_reads_them(tmp_path, cxx):
+    """A JPEGTables stream cut short (libtiff's fake EOI fills the rest of
+    its last segment), a restart interval in the tables (the strip's SOI
+    resets it) and a frame in the tables (libtiff: Bogus JPEGTables
+    field)."""
+    a = smooth(45, 67, 4, 90)
+    encode = pil_jpeg_strip("RGB", 90)
+    strips = {}
+    tables = encode(a[:8, :8, :3])[1]
+    dri = tables[:2] + b"\xff\xdd\x00\x04\x00\x01" + tables[2:]
+    full = Image.fromarray(a[:8, :8, :3])
+    buf = io.BytesIO()
+    full.save(buf, "JPEG", quality=90)
+    for name, t in (("cut tables", tables[:-30]), ("a DRI in the tables", dri),
+                    ("a frame in the tables", buf.getvalue())):
+        strips[name] = tiff_bytes(a[..., :3], 8, 2, compression=7, rows_per_strip=16,
+                                  encode=lambda c: encode(c)[0], tags={347: (7, list(t))})
+    assert assert_follows_pil(tmp_path, strips["cut tables"], "cut", ".tif") is not None
+    assert assert_follows_pil(tmp_path, strips["a DRI in the tables"], "dri", ".tif") is not None
+    assert assert_follows_pil(tmp_path, strips["a frame in the tables"], "frame", ".tif") is None
+
+
+def test_jpeg_tiff_refusals_name_the_file(tmp_path, cxx):
+    """YCbCr JPEG-in-TIFF (PIL reads it through libtiff's conversion, the
+    port refuses it by name; PIL cannot write it), a subsampled stream in an
+    RGB TIFF (libtiff: improper sampling factors), 16-bit samples."""
+    a = smooth(45, 67, 4, 95)
+    encode = pil_jpeg_strip("RGB", 90)
+    tables = encode(a[:8, :8, :3])[1]
+    ycbcr = tiff_bytes(a[..., :3], 8, 6, compression=7, rows_per_strip=16, encode=lambda c: encode(c)[0],
+                       tags={347: (7, list(tables))})
+    assert_refused(tmp_path, ycbcr, r"JPEG-in-TIFF \(compression 7\) in YCbCr \(photometric 6\)", ".tif")
+
+    def subsampled(c):
+        buf = io.BytesIO()
+        Image.fromarray(np.ascontiguousarray(c[..., :3]).astype(np.uint8)).save(buf, "JPEG", quality=90)
+        return buf.getvalue()
+
+    data = tiff_bytes(a[..., :3], 8, 2, compression=7, rows_per_strip=16, encode=subsampled)
+    assert assert_follows_pil(tmp_path, data, "subsampled", ".tif") is None
+    assert_refused(tmp_path, data, r"sampled 2x2 in a JPEG strip or tile \(libtiff: Improper JPEG sampling", ".tif")
+    wide = tiff_bytes(a[..., :3].astype(np.int64) * 257, 16, 2, compression=7, encode=lambda c: encode(c // 257)[0],
+                      tags={347: (7, list(tables))})
+    assert_refused(tmp_path, wide, r"JPEG-in-TIFF at 16 bits", ".tif")
+
+
+def test_jpeg_tiff_needs_the_compiled_decoder(tmp_path, fake_cxx):
+    """No fallback: a JPEG-in-TIFF cannot be read when the compiled JPEG
+    decoder cannot be built."""
+    a = smooth(17, 19, 3, 96)
+    buf = io.BytesIO()
+    Image.fromarray(a).save(buf, "TIFF", compression="jpeg")
+    fake_cxx(fail=True)
+    path = tmp_path / "view.tif"
+    path.write_bytes(buf.getvalue())
+    with pytest.raises(RuntimeError):
+        image_io.open_image(path)
+    assert not cuda_build.host_library_path("jpeg_decode").exists()
+
+
+TIFF_JPEG_FIXTURES = os.path.join(os.path.dirname(FIXTURES), "torch_tiff_jpeg")
+TIFF_JPEG_NAMES = sorted(f[:-4] for f in os.listdir(TIFF_JPEG_FIXTURES) if f.endswith(".npz"))
+
+
+@pytest.mark.parametrize("name", TIFF_JPEG_NAMES)
+def test_jpeg_tiff_fixture_pixels_are_pils(tmp_path, cxx, name):
+    """PIL's reading of each small committed JPEG-in-TIFF equals the mode,
+    pixels and RGBA committed beside it (which chip_smoke.py holds the
+    port to on the card's machine), and so does the port's."""
+    path = os.path.join(TIFF_JPEG_FIXTURES, f"{name}.tif")
+    with open(path, "rb") as f:
+        data = f.read()
+    want = np.load(os.path.join(TIFF_JPEG_FIXTURES, f"{name}.npz"))
+    mode, pixels, rgba = pil_read(data)
+    assert mode == str(want["mode"])
+    np.testing.assert_array_equal(pixels, want["pixels"])
+    np.testing.assert_array_equal(rgba, want["rgba"])
+    got = image_io.open_image(path)
+    assert got.mode == mode
+    np.testing.assert_array_equal(got.pixels, want["pixels"])
+    np.testing.assert_array_equal(image_io.to_rgba(got), want["rgba"])
+
+
+def test_1080p_jpeg_tiff_fixture_gives_pils_hash(cxx):
+    """The 1920x1080 JPEG-in-TIFF PIL wrote: PIL's pixels and the port's
+    have the mode, shape and SHA-256 committed in sha256.json, which
+    chip_smoke.py holds the port to on the card's machine."""
+    import hashlib
+
+    with open(os.path.join(TIFF_JPEG_FIXTURES, "sha256.json")) as f:
+        readings = json.load(f)
+    assert len(readings) == 1
+    for name, want in readings.items():
+        path = os.path.join(TIFF_JPEG_FIXTURES, name)
+        assert 100_000 <= os.path.getsize(path) <= 300_000
+        pil = np.asarray(Image.open(path))
+        got = image_io.open_image(path)
+        for mode, px in ((Image.open(path).mode, pil), (got.mode, got.pixels)):
+            assert (mode, list(px.shape), hashlib.sha256(np.ascontiguousarray(px).tobytes()).hexdigest()) == (
+                want["mode"], want["shape"], want["sha256"])
+
+
+def jpeg_tiff_views(w, h):
+    """JPEG-in-TIFF files in every mode PIL writes them (PIL's own strips,
+    and RGB tiles from `jpeg_tiff`)."""
+    a = smooth(h, w, 4, 97)
+    out = {}
+    for mode, q in (("RGB", 90), ("L", 75), ("RGBA", 90), ("CMYK", 75), ("LA", 90)):
+        buf = io.BytesIO()
+        Image.fromarray(np.ascontiguousarray(a[..., 0] if mode == "L" else a[..., :len(mode)]), mode).save(
+            buf, "TIFF", compression="jpeg", quality=q, strip_size=w * len(mode) * 8)
+        out[f"v_jpeg_{mode.lower()}.tif"] = (buf.getvalue(), mode)
+    out["v_jpeg_rgb_tiles.tif"] = (jpeg_tiff(a, "RGB", 75, tile=(16, 16)), "RGB")
+    return out
+
+
+@pytest.mark.parametrize("resolution", [1, 2])
+def test_colmap_jpeg_tiff_views_match_jax(tmp_path, monkeypatch, cxx, resolution):
+    """A COLMAP dataset of JPEG-in-TIFF views in the modes the path trains
+    on (RGB strips and tiles, grey, RGBA): the Scene's cameras equal the
+    JAX package's, images bit for bit; CMYK and grey + alpha ones are
+    refused, naming the file and the mode."""
+    from test_torch_scene import both_scenes
+
+    w, h = 45, 37
+    views = jpeg_tiff_views(w, h)
+    src = str(tmp_path / "forms")
+    write_colmap_dataset_of(src, {n: d for n, (d, m) in views.items() if m not in ("CMYK", "LA")}, w, h)
+    jscene, scene = both_scenes(tmp_path, monkeypatch, src, eval_split=True, resolution=resolution)
+    assert len(scene.get_train_cameras()) + len(scene.get_test_cameras()) == 4
+    assert_same_cameras(scene.get_train_cameras(), jscene.get_train_cameras())
+    assert_same_cameras(scene.get_test_cameras(), jscene.get_test_cameras())
+    for name in ("v_jpeg_cmyk.tif", "v_jpeg_la.tif"):
+        data, mode = views[name]
+        refused = str(tmp_path / f"refused_{mode}")
+        write_colmap_dataset_of(refused, {name: data}, w, h)
+        info = dataset_readers.read_colmap_scene(refused, None, eval_split=False)
+        with pytest.raises(ValueError, match=rf"'{name}' in .*images\.bin: .*{name}: .*\(mode {mode}\)"):
+            dataset_readers.load_camera(info.train_cameras[0], 1)
+
+
+@pytest.mark.parametrize("white_background", [False, True])
+def test_blender_jpeg_tiff_frames_match_jax(tmp_path, monkeypatch, cxx, white_background):
+    """read_blender_scene on JPEG-in-TIFF frames in every mode PIL writes
+    (RGBA and grey + alpha composited on the background): PIL's
+    convert("RGBA"), bit for bit, then load_camera at -r 2."""
+    from test_torch_tga import blender_scenes
+
+    frames = [data for data, _ in jpeg_tiff_views(29, 23).values()]
+    blender_scenes(tmp_path, monkeypatch, frames, white_background, jreaders, dataset_readers)

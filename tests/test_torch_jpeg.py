@@ -769,7 +769,8 @@ def test_read_image_dispatches_on_the_signature(tmp_path, compiled, monkeypatch)
     with pytest.raises(ValueError, match="a BMP header of 0 bytes") as err:
         image_io.read_image(junk_bmp)  # the BMP reader's refusal
     assert str(junk_bmp) in str(err.value)
-    with pytest.raises(ValueError, match="not a PNG, JPEG, BMP, TIFF, WebP or GIF file") as err:
+    with pytest.raises(ValueError, match="not a PNG, JPEG, BMP, TIFF, WebP, GIF, PPM / PGM / PBM / PFM or TGA "
+                                         "file") as err:
         image_io.read_image(other)
     assert str(other) in str(err.value)
     with pytest.raises(ValueError, match="JPEG"):

@@ -1,13 +1,15 @@
-"""Writers of the BMP, TIFF, GIF and WebP forms PIL reads but does not
-write, for the tests of `utils/bmp.py`, `utils/tiff.py`, `utils/gif.py` and
-`utils/webp.py` and for `tests/fixtures/torch_images/make_fixtures.py`.
+"""Writers of the BMP, TIFF, GIF, WebP, PPM and TGA forms PIL reads but
+does not write, for the tests of `utils/bmp.py`, `utils/tiff.py`,
+`utils/gif.py`, `utils/webp.py`, `utils/ppm.py` and `utils/tga.py` and for
+the fixtures' `make_fixtures.py` scripts.
 Imports neither JAX nor the port: each file is built from the formats'
 specifications, and PIL's read of it is the rule the port is held to.
 
 - `tiff_bytes`: classic TIFF in either byte order, strips or tiles,
   compression none / PackBits / LZW (libtiff's new style, its encoder's
-  code-width and table-full rules) / deflate, Predictor 2, any
-  photometric, ExtraSamples, ColorMap, Orientation and raw extra tags.
+  code-width and table-full rules) / deflate, or each strip or tile from
+  a coder the caller gives (JPEG), Predictor 2, any photometric,
+  ExtraSamples, ColorMap, Orientation and raw extra tags.
 - `bmp_bytes`: every header size, bit count and row order, palettes of
   any length, BI_BITFIELDS masks in or after the header, and RLE8 / RLE4
   bitmaps from `rle_encode`, which uses every escape.
@@ -24,6 +26,12 @@ specifications, and PIL's read of it is the rule the port is held to.
   partitions, another loop-filter sharpness, type or level, reference and
   mode filter deltas, or relative segment values (`bool_encode`: RFC
   6386's boolean encoder).
+- `pnm_bytes`: PBM, PGM, PPM and grey PFM and PIL's extension magics,
+  binary or plain (decimal samples, P1's digits packed or spaced), at any
+  maxval, with comments in the header and the data and any line length.
+- `tga_bytes` / `tga_rle`: TGA of every image type, depth and origin, an
+  ID field, 16-, 24- and 32-bit colour maps from any first index, and RLE
+  packets of any length (runs within a row, raw packets across rows).
 """
 
 import os
@@ -125,11 +133,13 @@ COMPRESS = {1: lambda b: b, 5: lzw_encode, 8: lambda b: zlib.compress(b, 6), 329
 
 
 def tiff_bytes(samples, depth, photometric, order="<", compression=1, predictor=None, rows_per_strip=None,
-               tile=None, extra=None, colormap=None, orientation=None, tags=None) -> bytes:
+               tile=None, extra=None, colormap=None, orientation=None, tags=None, encode=None) -> bytes:
     """A classic TIFF of (H, W, spp) integer `samples` at `depth` bits.
     `tile` = (width, height) writes tiles (zero-padded where they
     overhang), else strips of `rows_per_strip` rows; `tags` adds or
-    replaces raw tags {tag: (type, values)} (3 SHORT, 4 LONG)."""
+    replaces raw tags {tag: (type, values)} (1 BYTE, 3 SHORT, 4 LONG, 7
+    UNDEFINED); `encode` (a strip's or tile's samples -> its bytes)
+    replaces the compression's own coder, as JPEG (7) needs."""
     samples = np.asarray(samples)
     H, W, n = samples.shape
     if tile:
@@ -143,7 +153,10 @@ def tiff_bytes(samples, depth, photometric, order="<", compression=1, predictor=
         chunks = [samples[y:y + rps] for y in range(0, H, rps)]
     if predictor == 2:
         chunks = [difference(ch.astype(np.uint16 if depth == 16 else np.uint8)) for ch in chunks]
-    bodies = [COMPRESS[compression](sample_bytes(ch, depth, order).tobytes()) for ch in chunks]
+    if encode is None:
+        bodies = [COMPRESS[compression](sample_bytes(ch, depth, order).tobytes()) for ch in chunks]
+    else:
+        bodies = [encode(ch) for ch in chunks]
     t = {256: (4, [W]), 257: (4, [H]), 258: (3, [depth] * n), 259: (3, [compression]), 262: (3, [photometric]),
          277: (3, [n])}
     if tile:
@@ -169,7 +182,7 @@ def tiff_bytes(samples, depth, photometric, order="<", compression=1, predictor=
     packed = {}
     for tag in sorted(t):
         typ, vals = t[tag]
-        packed[tag] = struct.pack(order + ("H" if typ == 3 else "I") * len(vals), *vals)
+        packed[tag] = struct.pack(order + {1: "B", 3: "H", 4: "I", 7: "B"}[typ] * len(vals), *vals)
     strips_at = data_at + sum(len(v) + len(v) % 2 for v in packed.values() if len(v) > 4)
     offsets, at = [], strips_at
     for b in bodies:
@@ -767,3 +780,92 @@ def webp_simple(fourcc: bytes, payload: bytes) -> bytes:
     """A simple WebP: RIFF, WEBP and one VP8 or VP8L chunk."""
     body = _riff_chunk(fourcc, payload)
     return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
+
+
+# ---- PPM ----
+
+def pnm_bytes(magic: bytes, samples, maxval=None, plain=False, header_comment=b"", data_comment=b"",
+              line=70, packed=False, scale=-1.0) -> bytes:
+    """A PBM / PGM / PPM / PFM file of `magic` holding (H, W[, C]) `samples`
+    (P1 / P4: 1 is black; Pf: floats, rows written bottom to top, little
+    endian under a negative `scale`). Binary samples are one byte at
+    maxval < 256, else two big-endian; plain ones decimal, `line` bytes a
+    line at most, P1's digits without spaces where `packed`.
+    `header_comment` goes after the magic, `data_comment` after the first
+    line of plain data."""
+    a = np.asarray(samples)
+    h, w = a.shape[:2]
+    head = magic + b"\n" + header_comment + b"%d %d\n" % (w, h)
+    if magic == b"Pf":
+        order = "<f4" if scale < 0 else ">f4"
+        return head + (b"%r\n" % scale) + np.ascontiguousarray(a.reshape(h, w)[::-1]).astype(order).tobytes()
+    if maxval is not None:
+        head += b"%d\n" % maxval
+    if magic == b"P4":
+        return head + np.packbits(a.reshape(h, w).astype(np.uint8), axis=1).tobytes()
+    if not plain:
+        return head + a.astype(np.uint8 if maxval < 256 else ">u2").tobytes()
+    tokens = [b"%d" % v for v in a.reshape(-1)]
+    sep = b"" if packed else b" "
+    lines, cur = [], b""
+    for t in tokens:
+        if cur and len(cur) + len(sep) + len(t) > line:
+            lines.append(cur)
+            cur = t
+        else:
+            cur = cur + sep + t if cur else t
+    lines.append(cur)
+    if data_comment:
+        lines.insert(1, data_comment)
+    return head + b"\n".join(lines) + b"\n"
+
+
+# ---- TGA ----
+
+def tga_rle(rows: np.ndarray, depth: int, cross_rows=True) -> bytes:
+    """RLE packets of (H, row bytes) pixel rows in file order, `depth`
+    bytes a pixel: runs of 2 to 128 equal pixels within a row, raw packets
+    of up to 128 pixels for the rest, which run on across rows where
+    `cross_rows` (PIL reads both)."""
+    px = np.ascontiguousarray(rows).reshape(len(rows), -1, depth)
+    out = bytearray()
+    pending = []
+
+    def flush():
+        while pending:
+            take = pending[:128]
+            del pending[:128]
+            out.append(len(take) - 1)
+            out.extend(b"".join(take))
+
+    for row in px:
+        vals = [bytes(p) for p in row]
+        i = 0
+        while i < len(vals):
+            j = i
+            while j + 1 < len(vals) and vals[j + 1] == vals[i] and j + 1 - i < 127:
+                j += 1
+            if j > i:
+                flush()
+                out.append(0x80 | (j - i))
+                out.extend(vals[i])
+            else:
+                pending.append(vals[i])
+            i = j + 1
+        if not cross_rows:
+            flush()
+    flush()
+    return bytes(out)
+
+
+def tga_bytes(rows: np.ndarray, width: int, height: int, image_type: int, depth: int, flags: int = 0x20,
+              colormap: bytes = None, map_depth: int = 24, map_start: int = 0, ident: bytes = b"",
+              rle: bytes = None) -> bytes:
+    """A TGA file: the 18-byte header, the ID field, the colour map (raw
+    entries, `map_depth` bits each, from index `map_start`), then the pixel
+    rows (H, row bytes) in file order, or the RLE packets `rle`."""
+    n_map = 0 if colormap is None else len(colormap) // (map_depth // 8)
+    head = struct.pack("<BBBHHBHHHHBB", len(ident), int(colormap is not None), image_type, map_start, n_map,
+                       map_depth if colormap is not None else 0, 0, 0, width, height, depth, flags)
+    body = rle if rle is not None else np.ascontiguousarray(rows).tobytes()
+    return head + ident + (colormap or b"") + body
