@@ -13,7 +13,8 @@ Phases (any failure exits non-zero; none is caught and passed over):
      (csrc/jpeg_decode.cc, the JPEG decoder, JPEG-in-TIFF strips
      included, csrc/webp_decode.cc, the WebP decoder, and
      csrc/image_codecs.cc, TIFF's LZW and PackBits, BMP's RLE, GIF's LZW
-     and TGA's RLE; host C++, `c++`), with their build time.
+     and TGA's RLE, and csrc/zstd_decode.cc, ZSTD-in-TIFF's Zstandard
+     frames; host C++, `c++`), with their build time.
   3. kernels vs plain: preprocess and bin a scene once, feed the same sorted
      lists to each CUDA kernel and to its plain torch version. Random scenes
      at 128x128 and 333x197 for the three compiled tile geometries (32x32,
@@ -112,9 +113,11 @@ Phases (any failure exits non-zero; none is caught and passed over):
      Predictor 2, the render in each sample's high byte), view_04 as a
      24-bit BMP, view_05 as a lossless WebP (this script's VP8L writer:
      literal prefix codes, no transforms), view_06 as a binary P6, view_07
-     as a 32-bit RLE TGA (alpha 255) and view_09 as an RGB JPEG-in-TIFF
-     (q95, strips of 16 rows, its tables in the JPEGTables tag), named so
-     in images.bin, the 2 test views as PNG. The port's readers must give
+     as a 32-bit RLE TGA (alpha 255), view_09 as an RGB JPEG-in-TIFF
+     (q95, strips of 16 rows, its tables in the JPEGTables tag), view_10
+     as a YCbCr JPEG-in-TIFF (4:2:0 q95, strips of 16, GDAL's
+     PHOTOMETRIC=YCBCR) and view_11 as a BigTIFF of LZMA planes (strips of
+     64 rows), named so in images.bin, the 2 test views as PNG. The port's readers must give
      back every camera (R, T within 1e-12), every PNG, TIFF, BMP, WebP,
      PPM and TGA pixel and each JPEG and JPEG-in-TIFF view within 30 dB
      PSNR of its render; the two damaged views decoded by the compiled decoder (the
@@ -132,7 +135,9 @@ Phases (any failure exits non-zero; none is caught and passed over):
      24-bit and RLE8; CMYK and YCCK JPEG; WebP VP8L; an interlaced GIF of
      palette indices; P6 at 8 and 16 bits, P5 at 16 bits, plain P3, Pf;
      TGA raw 24-bit, RLE 32-bit and colour-mapped RLE; JPEG-in-TIFF in
-     strips and in 256x256 tiles; all from this script's writers) through
+     strips and in 256x256 tiles, and in YCbCr 4:2:0; a planar LZMA
+     BigTIFF, 16-bit planar deflate with Predictor 2, a BigTIFF of deflate
+     strips; all from this script's writers) through
      `image_io.open_image`, each timed (median of 3): the lossless ones
      bit-equal to what was written (the GIF and the colour-mapped TGA
      their indices, the 16-bit P6 PIL's rounding of its samples), the JPEGs
@@ -140,9 +145,14 @@ Phases (any failure exits non-zero; none is caught and passed over):
      give, the JPEG-in-TIFFs bit-equal to their strips or tiles read alone
      by the regular decoder and within 30 dB PSNR; the three 1920x1080 WebP
      files of tests/fixtures/torch_webp (lossy q90, lossy with alpha,
-     lossless) and the PIL-written 1920x1080 JPEG-in-TIFF of
-     tests/fixtures/torch_tiff_jpeg the mode, shape and SHA-256 of PIL's
-     pixels committed beside them; and every file of
+     lossless), the PIL-written 1920x1080 JPEG-in-TIFF of
+     tests/fixtures/torch_tiff_jpeg, the PIL-written ZSTD and LZMA (with
+     Predictor 2) files of tests/fixtures/torch_tiff_forms and the four
+     GIS forms `form_files` writes from an integer-made picture (YCbCr
+     JPEG-in-TIFF, whose bytes must be the committed file's too, planar
+     LZMA BigTIFF, 16-bit planar deflate, BigTIFF deflate) the mode,
+     shape and SHA-256 of PIL's pixels committed beside them (sha256.json);
+     and every file of
      tests/fixtures/torch_images (BMP, TIFF, CMYK and YCCK JPEG, WebP lossy,
      with alpha, lossless and animated, GIF), torch_ppm_tga (PPM, PGM, PBM,
      PFM, TGA) and torch_tiff_jpeg (small JPEG-in-TIFFs, strips and tiles)
@@ -193,6 +203,7 @@ Phases (any failure exits non-zero; none is caught and passed over):
      frames 1, 3, 5, 7, 9 are written by this script's own PNG writer as
      16-bit RGBA, palette + tRNS, Adam7 RGBA, 8-bit grey + alpha and 8-bit
      RGB with a tRNS colour, frame 2 as a 32-bit RLE TGA with its alpha,
+     frame 6 as a 16-bit RGBA TIFF in deflate planes (Predictor 2),
      frame 4 as a 16-bit P6 (the straight colour, no alpha), frame 11 as a
      CMYK JPEG (Adobe transform 0, the frame composited on white), frame 13
      as a 32-bit BI_BITFIELDS BMP with an alpha mask and frame 15 as an
@@ -203,7 +214,8 @@ Phases (any failure exits non-zero; none is caught and passed over):
      this script derives by PIL's rules (high bytes, palette colours and
      tRNS alphas, grey spread, alpha 0 on the tRNS colour, a BMP's BGRA
      under its masks, a GIF's palette colours, alpha 0 on its transparency
-     index, a TGA's BGRA, a 16-bit P6's rounding to 8 bits, opaque); the
+     index, a TGA's BGRA, a 16-bit P6's rounding to 8 bits, opaque, the
+     planar TIFF's high bytes); the
      CMYK JPEG must read as mode CMYK within 30 dB
      PSNR of the CMYK written, and its `to_rgba` be PIL's cmyk2rgb of
      those pixels; the ms per form is printed. Then `cli.train.main`
@@ -303,6 +315,7 @@ import hashlib
 import importlib.util
 import io
 import json
+import lzma
 import math
 import os
 import pickle
@@ -400,6 +413,11 @@ CLI_TIFF_VIEW, CLI_BMP_VIEW, CLI_WEBP_VIEW = 3, 4, 5
 # tools: a binary P6 (this script's writer), a 32-bit RLE TGA (opaque) and
 # an RGB JPEG-in-TIFF (strips of CLI_JPEG_TIFF_ROWS rows, lossy)
 CLI_PPM_VIEW, CLI_TGA_VIEW, CLI_JPEG_TIFF_VIEW, CLI_JPEG_TIFF_ROWS = 6, 7, 9, 16
+# and two in the forms GIS and orthophoto tools write: a YCbCr JPEG-in-TIFF
+# (GDAL's PHOTOMETRIC=YCBCR, 4:2:0, lossy) and a BigTIFF of LZMA planes
+# (INTERLEAVE=BAND, strips of CLI_PLANAR_ROWS rows)
+CLI_YCBCR_VIEW, CLI_PLANAR_VIEW, CLI_PLANAR_ROWS = 10, 11, 64
+TIFF_FORMS_FIXTURES = os.path.join(FIXTURES, "torch_tiff_forms")  # PIL-written ZSTD / LZMA, and PIL's hashes
 WEBP_FIXTURES = os.path.join(FIXTURES, "torch_webp")  # 1080p files and the SHA-256 of PIL's pixels
 TIFF_JPEG_FIXTURES = os.path.join(FIXTURES, "torch_tiff_jpeg")  # a PIL-written 1080p file and its SHA-256
 PPM_TGA_FIXTURES = os.path.join(FIXTURES, "torch_ppm_tga")
@@ -426,7 +444,8 @@ BLENDER_FLAGS = ["--white_background", "--eval", "--iterations", str(BLENDER_STE
 # the transforms file lists it, read by its signature); the others are
 # 8-bit RGBA PNG, as NeRF-synthetic ships
 BLENDER_FORMS = {1: "16-bit RGBA", 2: "32-bit RLE TGA with alpha", 3: "palette + tRNS", 4: "16-bit P6",
-                 5: "Adam7 RGBA", 7: "grey + alpha", 9: "RGB + tRNS colour", 11: "CMYK JPEG",
+                 5: "Adam7 RGBA", 6: "16-bit planar RGBA TIFF", 7: "grey + alpha", 9: "RGB + tRNS colour",
+                 11: "CMYK JPEG",
                  13: "32-bit BMP with alpha", 15: "palette GIF + transparency"}
 
 SUM_K = (1_900_544, 1_339_001)  # the profiler's capacity at its defaults, and an odd K
@@ -1293,25 +1312,32 @@ def packbits_encode(data: bytes) -> bytes:
     return bytes(out)
 
 
-def tiff_form(rgb, depth, compression=1, predictor=None, rows_per_strip=16) -> bytes:
-    """A little-endian RGB TIFF of (H, W, 3) samples at 8 or 16 bits, in
-    strips of `rows_per_strip` rows: uncompressed (1), LZW (5), deflate (8)
-    or PackBits (32773), with Predictor 2 (each sample less its left
-    neighbour's, in its own unsigned type) where asked."""
-    H, W, _ = rgb.shape
+def tiff_form(rgb, depth, compression=1, predictor=None, rows_per_strip=16, planar=False, big=False) -> bytes:
+    """A little-endian RGB TIFF of (H, W, 3) samples, or RGBA of (H, W, 4)
+    (ExtraSamples 2: unassociated alpha), at 8 or 16 bits, in strips of
+    `rows_per_strip` rows: uncompressed (1), LZW (5), deflate (8), PackBits
+    (32773) or LZMA (34925: an .xz stream a strip, as libtiff's LZMA codec
+    writes), with Predictor 2 (each sample less its left neighbour's, in
+    its own unsigned type) where asked; `planar`: each sample's strips in
+    turn (PlanarConfiguration 2); `big`: a BigTIFF."""
+    H, W, n = rgb.shape
     dt = "<u2" if depth == 16 else "u1"
+    planes = [rgb[..., i:i + 1] for i in range(n)] if planar else [rgb]
     bodies = []
-    for y in range(0, H, rows_per_strip):
-        strip = rgb[y:y + rows_per_strip].astype(dt)
-        if predictor == 2:
-            strip = np.concatenate([strip[:, :1], strip[:, 1:] - strip[:, :-1]], axis=1)
-        raw = strip.tobytes()
-        bodies.append({1: lambda b: b, 5: lzw_encode, 8: lambda b: zlib.compress(b, 6),
-                       32773: packbits_encode}[compression](raw))
-    tags = [(256, 4, [W]), (257, 4, [H]), (258, 3, [depth] * 3), (259, 3, [compression]), (262, 3, [2]),
-            (273, 4, [0] * len(bodies)), (277, 3, [3]), (278, 3, [rows_per_strip]),
-            (279, 4, [len(b) for b in bodies])] + ([(317, 3, [predictor])] if predictor else [])
-    return tiff_file(tags, bodies)
+    for plane in planes:
+        for y in range(0, H, rows_per_strip):
+            strip = plane[y:y + rows_per_strip].astype(dt)
+            if predictor == 2:
+                strip = np.concatenate([strip[:, :1], strip[:, 1:] - strip[:, :-1]], axis=1)
+            raw = strip.tobytes()
+            bodies.append({1: lambda b: b, 5: lzw_encode, 8: lambda b: zlib.compress(b, 6), 32773: packbits_encode,
+                           34925: lambda b: lzma.compress(b, lzma.FORMAT_XZ, lzma.CHECK_NONE)}[compression](raw))
+    offsets = 16 if big else 4  # LONG8 in a BigTIFF
+    tags = [(256, 4, [W]), (257, 4, [H]), (258, 3, [depth] * n), (259, 3, [compression]), (262, 3, [2]),
+            (273, offsets, [0] * len(bodies)), (277, 3, [n]), (278, 3, [rows_per_strip]),
+            (279, 4, [len(b) for b in bodies])] + ([(284, 3, [2])] if planar else []) + (
+        [(317, 3, [predictor])] if predictor else []) + ([(338, 3, [2])] if n == 4 else [])
+    return tiff_file(tags, bodies, big)
 
 
 def rle8_encode(indices) -> bytes:
@@ -1580,25 +1606,75 @@ def jpeg_tiff_form(rgb, quality, rows_per_strip=16, tile=None):
     return tiff_file(tags, bodies), whole
 
 
-def tiff_file(tags, bodies) -> bytes:
-    """A little-endian classic TIFF of `tags` ((tag, type, values), sorted;
-    3 SHORT, 4 LONG, 7 UNDEFINED) and the strips or tiles `bodies` after
-    them, the offsets tag (273 or 324) filled in."""
-    size = {3: 2, 4: 4, 7: 1}
-    data_at = 8 + 2 + 12 * len(tags) + 4
+def tiff_file(tags, bodies, big=False) -> bytes:
+    """A little-endian TIFF of `tags` ((tag, type, values), sorted; 3 SHORT,
+    4 LONG, 7 UNDEFINED, 16 LONG8) and the strips or tiles `bodies` after
+    them, the offsets tag (273 or 324) filled in; `big`: a BigTIFF (8-byte
+    counts and offsets, 20-byte entries)."""
+    size, code = {3: 2, 4: 4, 7: 1, 16: 8}, {3: "H", 4: "I", 7: "B", 16: "Q"}
+    entry, inline, word = (20, 8, "Q") if big else (12, 4, "I")
+    head = 16 if big else 8
+    data_at = head + (8 if big else 2) + entry * len(tags) + inline
     blobs, entries = b"", []
-    strips_at = data_at + sum(-(-len(v) * size[t] // 2) * 2 for _, t, v in tags if len(v) * size[t] > 4)
+    strips_at = data_at + sum(-(-len(v) * size[t] // 2) * 2 for _, t, v in tags if len(v) * size[t] > inline)
     offsets = np.concatenate([[0], np.cumsum([len(b) for b in bodies])[:-1]]) + strips_at
     for tag, typ, vals in tags:
         vals = offsets.tolist() if tag in (273, 324) else vals
-        raw = struct.pack("<" + {3: "H", 4: "I", 7: "B"}[typ] * len(vals), *vals)
-        if len(raw) <= 4:
-            entries.append(struct.pack("<HHI", tag, typ, len(vals)) + raw.ljust(4, b"\0"))
+        raw = struct.pack("<" + code[typ] * len(vals), *vals)
+        if len(raw) <= inline:
+            entries.append(struct.pack("<HH" + word, tag, typ, len(vals)) + raw.ljust(inline, b"\0"))
         else:
-            entries.append(struct.pack("<HHII", tag, typ, len(vals), data_at + len(blobs)))
+            entries.append(struct.pack("<HH" + word + word, tag, typ, len(vals), data_at + len(blobs)))
             blobs += raw + b"\0" * (len(raw) % 2)
-    return (b"II*\0" + struct.pack("<IH", 8, len(tags)) + b"".join(entries) + struct.pack("<I", 0) + blobs
-            + b"".join(bodies))
+    start = (b"II+\0" + struct.pack("<HHQQ", 8, 0, head, len(tags))) if big else (
+        b"II*\0" + struct.pack("<IH", head, len(tags)))
+    return start + b"".join(entries) + struct.pack("<" + word, 0) + blobs + b"".join(bodies)
+
+
+def ycbcr_tiff_form(rgb, quality, rows_per_strip=16, sampling=(2, 2)):
+    """A little-endian JPEG-in-TIFF in YCbCr (compression 7, photometric 6,
+    GDAL's PHOTOMETRIC=YCBCR) of (H, W, 3) pixels: each strip of
+    `rows_per_strip` rows `encode_jpeg`'s YCbCr stream with the chroma
+    subsampled `sampling`, abbreviated (its tables in the JPEGTables tag),
+    the YCbCrSubsampling tag `sampling`. Returns the file and, per strip,
+    the standalone JPEG (JFIF, YCbCr) it is, for the regular decoder."""
+    H, W, _ = rgb.shape
+    bodies, whole, tables = [], [], b""
+    for y in range(0, H, rows_per_strip):
+        whole.append(encode_jpeg(rgb[y:y + rows_per_strip], quality, sampling))
+        tables, body = jpeg_tables_apart(whole[-1])
+        bodies.append(body)
+    tags = [(256, 4, [W]), (257, 4, [H]), (258, 3, [8] * 3), (259, 3, [7]), (262, 3, [6]),
+            (273, 4, [0] * len(bodies)), (277, 3, [3]), (278, 3, [rows_per_strip]),
+            (279, 4, [len(b) for b in bodies]), (347, 7, list(tables)), (530, 3, list(sampling))]
+    return tiff_file(tags, bodies), whole
+
+
+def form_picture(h=H_MAIN, w=W_MAIN, seed=15):
+    """(h, w, 3) uint8 made with integers only, the same on every machine:
+    a seeded grid of colours every 40 pixels, bilinearly blended."""
+    rng = np.random.default_rng(seed)
+    grid = rng.integers(0, 256, (h // 40 + 2, w // 40 + 2, 3), dtype=np.int64)
+    yy, xx = np.mgrid[0:h, 0:w]
+    y0, x0, fy, fx = yy // 40, xx // 40, (yy % 40)[..., None], (xx % 40)[..., None]
+    blend = (grid[y0, x0] * (40 - fy) * (40 - fx) + grid[y0 + 1, x0] * fy * (40 - fx)
+             + grid[y0, x0 + 1] * (40 - fy) * fx + grid[y0 + 1, x0 + 1] * fy * fx)
+    return (blend // 1600).astype(np.uint8)
+
+
+def form_files():
+    """The 1080p TIFFs in the GIS and orthophoto forms this script writes
+    itself (tests/fixtures/torch_tiff_forms/sha256.json holds PIL's reading
+    of each and, for the lossy one, the file's SHA-256): YCbCr
+    JPEG-in-TIFF, planar LZMA in a BigTIFF, 16-bit planar deflate with
+    Predictor 2, a BigTIFF of deflate strips."""
+    px = form_picture()
+    return {
+        "chip_smoke: YCbCr JPEG-in-TIFF 4:2:0 q90, strips of 16": ycbcr_tiff_form(px, 90, 16, (2, 2))[0],
+        "chip_smoke: planar LZMA BigTIFF, strips of 64": tiff_form(px, 8, 34925, None, 64, planar=True, big=True),
+        "chip_smoke: planar deflate 16-bit + predictor": tiff_form(wide_samples(px), 16, 8, 2, 32, planar=True),
+        "chip_smoke: BigTIFF deflate + predictor": tiff_form(px, 8, 8, 2, 16, big=True),
+    }
 
 
 class PanelTimer:
@@ -1645,8 +1721,10 @@ def train_view_files(data, cams, images, test_names):
     with a restart marker every MCU row), but view CLI_TIFF_VIEW as a 16-bit
     RGB TIFF (LZW, Predictor 2), CLI_BMP_VIEW as a 24-bit BMP,
     CLI_WEBP_VIEW as a lossless WebP, CLI_PPM_VIEW as a binary P6,
-    CLI_TGA_VIEW as a 32-bit RLE TGA (alpha 255) and CLI_JPEG_TIFF_VIEW as
-    a JPEG-in-TIFF, and images.bin to name them; the test views stay PNG.
+    CLI_TGA_VIEW as a 32-bit RLE TGA (alpha 255), CLI_JPEG_TIFF_VIEW as
+    a JPEG-in-TIFF, CLI_YCBCR_VIEW as a YCbCr JPEG-in-TIFF and
+    CLI_PLANAR_VIEW as a planar LZMA BigTIFF, and images.bin to name them;
+    the test views stay PNG.
     Returns each view's file name and the JPEG encode ms."""
     images_bin = os.path.join(data, "sparse", "0", "images.bin")
     records = colmap.read_images_binary(images_bin)
@@ -1669,6 +1747,11 @@ def train_view_files(data, cams, images, test_names):
         elif i == CLI_JPEG_TIFF_VIEW:
             name = f"{cam.image_name}.tif"
             body = jpeg_tiff_form(px, CLI_JPEG_QUALITY, CLI_JPEG_TIFF_ROWS)[0]
+        elif i == CLI_YCBCR_VIEW:
+            name, body = f"{cam.image_name}.tif", ycbcr_tiff_form(px, CLI_JPEG_QUALITY, CLI_JPEG_TIFF_ROWS)[0]
+        elif i == CLI_PLANAR_VIEW:
+            name = f"{cam.image_name}.tif"
+            body = tiff_form(px, 8, 34925, None, CLI_PLANAR_ROWS, planar=True, big=True)
         else:
             restart = -(-W_MAIN // 16) if i == CLI_RESTART_VIEW else 0  # MCUs in a row
             t0 = time.perf_counter()
@@ -1771,6 +1854,7 @@ def check_image_forms(tmp, px):
     floats = (px[..., 0].astype(np.float32) - 127.5) / 64.0
     strips, strip_jpegs = jpeg_tiff_form(px, CLI_JPEG_QUALITY, CLI_JPEG_TIFF_ROWS)
     tiles, tile_jpegs = jpeg_tiff_form(px, CLI_JPEG_QUALITY, tile=(256, 256))
+    ycbcr, ycbcr_jpegs = ycbcr_tiff_form(px, CLI_JPEG_QUALITY, CLI_JPEG_TIFF_ROWS)
     forms = {  # name: (file bytes, the pixels they hold; None: PIL's CMYK for the samples written)
         "TIFF raw 8-bit": (tiff_form(px, 8), px),
         "TIFF raw 16-bit": (tiff_form(wide_samples(px), 16), px),
@@ -1794,8 +1878,12 @@ def check_image_forms(tmp, px):
         "TGA colour-mapped RLE": (tga_form(idx[..., None].astype(np.uint8), 9, colormap=levels), idx[..., None]),
         "JPEG-in-TIFF strips": (strips, "strips"),
         "JPEG-in-TIFF tiles 256x256": (tiles, "tiles"),
+        "YCbCr JPEG-in-TIFF 4:2:0": (ycbcr, "ycbcr"),
+        "TIFF planar LZMA BigTIFF": (tiff_form(px, 8, 34925, None, CLI_PLANAR_ROWS, planar=True, big=True), px),
+        "TIFF planar deflate + predictor 16-bit": (tiff_form(wide_samples(px), 16, 8, 2, 32, planar=True), px),
+        "BigTIFF deflate + predictor 8-bit": (tiff_form(px, 8, 8, 2, 16, big=True), px),
     }
-    standalone = {"strips": strip_jpegs, "tiles": tile_jpegs}
+    standalone = {"strips": strip_jpegs, "tiles": tile_jpegs, "ycbcr": ycbcr_jpegs}
     times, cmyk_psnr = {}, {}
     path = os.path.join(tmp, "form")
     for name, (body, want) in forms.items():
@@ -1808,7 +1896,7 @@ def check_image_forms(tmp, px):
         times[name] = float(np.median(ms))
         if isinstance(want, str):  # JPEG-in-TIFF: each strip or tile as the regular decoder reads it alone
             parts = [jpeg.decode_jpeg(b, f"{name} part {i}") for i, b in enumerate(standalone[want])]
-            if want == "strips":
+            if want != "tiles":
                 alone = np.concatenate(parts)
             else:
                 across = -(-W // 256)
@@ -1835,11 +1923,19 @@ def check_image_forms(tmp, px):
             fail(f"cli path: the {name} file: {cmyk_psnr[name]:.2f} dB PSNR, to_rgba == cmyk2rgb "
                  f"{np.array_equal(image_io.to_rgba(pic), cmyk_to_rgba(pic.pixels))}")
     readings = {}
-    for folder in (WEBP_FIXTURES, TIFF_JPEG_FIXTURES):
+    for folder in (WEBP_FIXTURES, TIFF_JPEG_FIXTURES, TIFF_FORMS_FIXTURES):
         with open(os.path.join(folder, "sha256.json")) as f:
             readings.update({os.path.join(folder, k): v for k, v in json.load(f).items()})
+    made = form_files()  # the GIS forms this script writes, PIL's reading of each committed
     for path, want in readings.items():
         name = os.path.basename(path)
+        if name in made:
+            if "file_sha256" in want and hashlib.sha256(made[name]).hexdigest() != want["file_sha256"]:
+                fail(f"cli path: this script's writer made other bytes for '{name}' than the file PIL read "
+                     f"(tests/fixtures/torch_tiff_forms/sha256.json)")
+            path = os.path.join(tmp, "made.tif")
+            with open(path, "wb") as f:
+                f.write(made[name])
         ms = []
         for _ in range(3):
             pic, t = synced_ms(image_io.open_image, path)
@@ -1869,8 +1965,8 @@ def check_image_forms(tmp, px):
           + f"; lossless forms bit-equal, CMYK / YCCK JPEG (q{CLI_JPEG_QUALITY} 4:2:0) and JPEG-in-TIFF "
           + ", ".join(f"{k} {v:.2f}" for k, v in cmyk_psnr.items())
           + f" dB PSNR from PIL's CMYK of the samples written and from the view (JPEG-in-TIFF bit-equal to "
-          f"its strips and tiles read alone); {len(readings)} 1080p WebP and JPEG-in-TIFF files give PIL's "
-          f"committed SHA-256; "
+          f"its strips and tiles read alone); {len(readings)} 1080p WebP, JPEG-in-TIFF, ZSTD, LZMA, planar "
+          f"and BigTIFF files give PIL's committed SHA-256; "
           + ", ".join(f"{len(v)} {os.path.relpath(k, ROOT)}" for k, v in names.items())
           + " files give PIL's committed mode, pixels and RGBA")
 
@@ -1979,8 +2075,9 @@ def _cli_phase(dev, tmp):
             if not np.array_equal(back, px):
                 fail(f"cli path: image {cam.image_name} did not survive its PNG")
             continue
-        lossy = got.image_path.endswith(".jpg") or cam.image_name == names[CLI_JPEG_TIFF_VIEW]
-        if not lossy:  # the TIFF, BMP, WebP, PPM and TGA views
+        lossy = got.image_path.endswith(".jpg") or cam.image_name in (names[CLI_JPEG_TIFF_VIEW],
+                                                                      names[CLI_YCBCR_VIEW])
+        if not lossy:  # the TIFF (planar BigTIFF included), BMP, WebP, PPM and TGA views
             back, ms = synced_ms(image_io.read_image, got.image_path)
             lossless_ms[os.path.basename(got.image_path)] = ms
             if not np.array_equal(back, opaque(px) if cam.image_name == names[CLI_TGA_VIEW] else px):
@@ -1989,6 +2086,8 @@ def _cli_phase(dev, tmp):
         back, ms = synced_ms(image_io.read_image, got.image_path)
         if cam.image_name == names[CLI_JPEG_TIFF_VIEW]:
             jpeg_tiff_ms = ms
+        elif cam.image_name == names[CLI_YCBCR_VIEW]:
+            ycbcr_ms = ms
         else:
             jpeg_ms.append(ms)
         mse = float(np.mean((back.astype(np.float64) - px) ** 2)) if back.shape == px.shape else math.inf
@@ -2005,6 +2104,8 @@ def _cli_phase(dev, tmp):
                  f"PSNR from its render")
         if cam.image_name == names[CLI_JPEG_TIFF_VIEW]:
             jpeg_tiff_psnr = psnr.pop()
+        elif cam.image_name == names[CLI_YCBCR_VIEW]:
+            ycbcr_psnr = psnr.pop()
     if not np.array_equal(info.points, model["xyz"]):
         fail("cli path: the points did not survive points3D.bin")
     print(f"cli path: a COLMAP dataset of {CLI_VIEWS} views at {W_MAIN}x{H_MAIN} and "
@@ -2016,7 +2117,9 @@ def _cli_phase(dev, tmp):
           f"lossless WebP (this script's VP8L writer), {files[names[CLI_PPM_VIEW]]} as binary P6, "
           f"{files[names[CLI_TGA_VIEW]]} as 32-bit RLE TGA, {files[names[CLI_JPEG_TIFF_VIEW]]} as RGB "
           f"JPEG-in-TIFF (q{CLI_JPEG_QUALITY}, strips of {CLI_JPEG_TIFF_ROWS} rows; {jpeg_tiff_psnr:.2f} dB "
-          f"PSNR from its render, decode {jpeg_tiff_ms:.1f} ms), {len(decode_ms)} test views as PNG; "
+          f"PSNR from its render, decode {jpeg_tiff_ms:.1f} ms), {files[names[CLI_YCBCR_VIEW]]} as YCbCr "
+          f"JPEG-in-TIFF (4:2:0; {ycbcr_psnr:.2f} dB, decode {ycbcr_ms:.1f} ms), {files[names[CLI_PLANAR_VIEW]]} "
+          f"as a BigTIFF of LZMA planes, {len(decode_ms)} test views as PNG; "
           f"cameras within 1e-12, PNG, TIFF, BMP, WebP, PPM and TGA pixels bit-equal (decode "
           + ", ".join(f"{k} {v:.1f} ms" for k, v in lossless_ms.items())
           + f"), JPEG views {min(psnr):.2f}-{max(psnr):.2f} dB PSNR from their renders through the port's "
@@ -2070,8 +2173,8 @@ def _cli_phase(dev, tmp):
     if scene_load.s is None:
         fail("cli path: the train CLI made no Scene")
     print(f"  train CLI: {CLI_STEPS} steps, {n_train} train and {n_test} test views, wall "
-          f"{train_s:.2f} s (scene load {scene_load.s:.2f} s: {n_train - 6} JPEG, 1 TIFF, 1 BMP, 1 WebP, 1 P6, "
-          f"1 RLE TGA, 1 JPEG-in-TIFF and "
+          f"{train_s:.2f} s (scene load {scene_load.s:.2f} s: {n_train - 8} JPEG, 1 TIFF, 1 BMP, 1 WebP, 1 P6, "
+          f"1 RLE TGA, 1 JPEG-in-TIFF, 1 YCbCr JPEG-in-TIFF, 1 planar LZMA BigTIFF and "
           f"{n_test} PNG views decoded), step median {np.median(step_ms):.3f} ms, p80 "
           f"{np.percentile(step_ms, 80):.3f} ms (its iter_time_ms, host clock, deferred "
           f"maintenance excluded); loss first 20 {first20:.6f}, last 20 {last20:.6f}; "
@@ -2185,7 +2288,8 @@ def blender_frame(rgba, form, seed):
     tRNS alpha, grey spread to RGB, alpha 0 on a tRNS colour, a BMP's BGRA
     bytes under its alpha mask, a GIF's palette colour with alpha 0 on its
     transparency index, a TGA's BGRA, a 16-bit P6's round(v / 65535 * 255)
-    (its colour, which has no alpha, opaque). A CMYK JPEG (Adobe transform 0, of the
+    (its colour, which has no alpha, opaque), a 16-bit planar RGBA TIFF's
+    high bytes. A CMYK JPEG (Adobe transform 0, of the
     frame composited on white, which it has no alpha for) is lossy: for it
     the second value is PIL's CMYK of the samples written (`cmyk_of`)."""
     if form is None:
@@ -2204,6 +2308,8 @@ def blender_frame(rgba, form, seed):
         return png_form((rgba.astype(np.int64) << 8) | low, 16, 6), rgba
     if form == "32-bit RLE TGA with alpha":
         return tga_form(rgba, 10, 0x20), rgba
+    if form == "16-bit planar RGBA TIFF":  # deflate planes with Predictor 2, as GDAL's INTERLEAVE=BAND
+        return tiff_form(wide_samples(rgba), 16, 8, 2, 32, planar=True), rgba
     if form == "16-bit P6":  # low bits under half a step: PIL's rounding gives the colour back
         rgb = rgba[..., :3]
         low = np.random.default_rng(seed).integers(0, 128, rgb.shape)
@@ -2360,7 +2466,8 @@ def _blender_phase(dev, tmp):
     knn_ms = cuda_time_ms(lambda: mean_knn_dist2_morton(pts), 5)
     print(f"  train CLI: {BLENDER_STEPS} steps from {len(init)} random points in [-1.3, 1.3]^3, white "
           f"background {white}, wall {train_s:.2f} s (scene load {scene_load.s:.2f} s: "
-          f"{BLENDER_TRAIN + BLENDER_TEST} frames decoded (PNG, a CMYK JPEG, a BMP, a GIF, a TGA, a P6) and "
+          f"{BLENDER_TRAIN + BLENDER_TEST} frames decoded (PNG, a CMYK JPEG, a BMP, a GIF, a TGA, a P6, a planar "
+          f"TIFF) and "
           f"composited), step median "
           f"{np.median(step_ms):.3f} ms, p80 {np.percentile(step_ms, 80):.3f} ms (its iter_time_ms, "
           f"host clock); loss first 20 {first20:.6f}, last 20 {last20:.6f}; "

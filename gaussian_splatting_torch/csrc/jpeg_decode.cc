@@ -28,11 +28,17 @@
 // libtiff's "Bogus JPEGTables field"), then the abbreviated stream, whose
 // SOI resets the restart interval and the JFIF / Adobe markers. libtiff
 // reads every photometric but YCbCr with no colour conversion (JCS_UNKNOWN
-// in and out), so the components come out as decoded, 1 to 4 of them. The
+// in and out), so the components come out as decoded, 1 to 4 of them,
+// every sampling factor 1. YCbCr (photometric 6) PIL reads with libtiff's
+// JPEGCOLORMODE_RGB: the first component sampled as the YCbCrSubsampling
+// tag says and the others 1x1 (libtiff's "Improper JPEG sampling factors"),
+// converted YCbCr -> RGB whatever the markers say, upsampled as libjpeg
+// upsamples (each strip its own stream: nothing crosses strips). The
 // frame must match the strip or tile: its components the samples per
-// pixel, every sampling factor 1, its size the strip's rows (the tile's)
-// by the width (libtiff's checks; a smaller frame, which libtiff only warns
-// about, leaves rows of PIL's image uninitialised, and is refused). Where a
+// pixel, its size the strip's rows (the tile's) by the width (libtiff's
+// checks; a smaller frame, which libtiff only warns about, leaves rows of
+// PIL's image uninitialised, and is refused; the last strip of an image
+// may be coded taller, of which libtiff reads the rows it needs). Where a
 // stream's bytes end, libtiff's source manager hands libjpeg a fake EOI
 // marker at every further read, so each stream is read here followed by
 // (0xFF, EOI) pairs, longer than any marker segment: entropy-coded data
@@ -43,8 +49,10 @@
 // gs_jpeg_error gives for the calling thread):
 //   gs_jpeg_probe(data, size, hwc)        hwc[0..2] = height, width, channels
 //   gs_jpeg_decode(data, size, out, cap)  (H, W, C) uint8 into out (cap bytes)
-//   gs_jpeg_decode_tiff(tables, tables_size, data, size, height, width, channels, out)
-//                                         a JPEG-in-TIFF strip or tile, (H, W, C) uint8
+//   gs_jpeg_decode_tiff(tables, tables_size, data, size, height, width, channels, ycbcr_h, ycbcr_v,
+//                       last_strip, out)
+//                                         a JPEG-in-TIFF strip or tile, (H, W, C) uint8; ycbcr_h 0:
+//                                         no colour conversion
 
 #include <algorithm>
 #include <cstdint>
@@ -459,8 +467,8 @@ struct Decoder {
   bool have_frame = false, progressive = false, jfif = false, multi = false, image_done = false;
   // a JPEG-in-TIFF stream (libtiff's reading), and the strip's or tile's
   // height, width and samples per pixel
-  bool tiff = false, tables_only = false;
-  int want_h = 0, want_w = 0, want_c = 0;
+  bool tiff = false, tables_only = false, taller_ok = false;
+  int want_h = 0, want_w = 0, want_c = 0, want_hs = 0, want_vs = 0;  // want_hs 0: no YCbCr conversion
   int adobe = -1;
   int width = 0, height = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0, scans = 0, last_good = 0;
   std::vector<Component> comps;
@@ -527,7 +535,9 @@ struct Decoder {
 
   // The markers in order; a header-only run stops after the frame header.
   void markers() {
-    if (size < 3 || data[0] != 0xFF || data[1] != 0xD8 || data[2] != 0xFF)
+    // PIL's JPEG plugin takes FF D8 FF; libjpeg, which libtiff hands a
+    // strip, only FF D8
+    if (size < 2 || data[0] != 0xFF || data[1] != 0xD8 || (!tiff && (size < 3 || data[2] != 0xFF)))
       refuse("not a JPEG file (no SOI marker)");
     int64_t pos = 2;
     int marker = -1;
@@ -579,6 +589,9 @@ struct Decoder {
       } else if (marker == M_SOS) {
         pos = sos(body, blen, pos, &marker);
         image_done = !multi;
+        // libtiff reads a single-scan strip's rows and then finishes it,
+        // ignoring what jpeg_finish_decompress reports of the markers after
+        if (tiff && image_done) return;
         continue;
       } else if ((marker >= 0xE0 && marker <= 0xEF) || marker == M_COM || marker == M_DNL) {
         // skipped; a length below 2 skips nothing past it
@@ -634,10 +647,10 @@ struct Decoder {
       if (nc != want_c)
         refuse(fmt("a JPEG strip or tile of %d components for %d samples a pixel (libtiff: Improper JPEG "
                    "component count)", nc, want_c));
-      if (width > want_w || height > want_h)
+      if ((width > want_w || height > want_h) && !(taller_ok && width == want_w))
         refuse(fmt("a JPEG strip or tile of %dx%d, larger than the TIFF's %dx", width, height, want_w) +
                fmt("%d (libtiff: JPEG strip/tile size exceeds expected dimensions)", want_h));
-      if (width != want_w || height != want_h)
+      if (width != want_w || height < want_h)
         refuse(fmt("a JPEG strip or tile of %dx%d, smaller than the TIFF's %dx", width, height, want_w) +
                fmt("%d (libtiff: JPEG strip/tile size less than expected)", want_h));
     }
@@ -655,9 +668,11 @@ struct Decoder {
       c.v = b[7 + 3 * i] & 15;
       c.tq = b[8 + 3 * i];
       if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4) corrupt(fmt("component %d's sampling factors", i));
-      if (tiff && (c.h != 1 || c.v != 1))
-        refuse(fmt("component %d sampled %dx%d in a JPEG strip or tile (libtiff: Improper JPEG sampling "
-                   "factors)", i, c.h, c.v));
+      const bool luma = tiff && want_hs && i == 0;  // YCbCr: component 0 sampled as the tag says
+      const int want_h_s = luma ? want_hs : 1, want_v_s = luma ? want_vs : 1;
+      if (tiff && (c.h != want_h_s || c.v != want_v_s))
+        refuse(fmt("component %d sampled %dx%d in a JPEG strip or tile (libtiff: Improper JPEG sampling ", i, c.h,
+                   c.v) + fmt("factors; %dx%d expected)", want_h_s, want_v_s));
       comps.push_back(c);
     }
     for (const Component& c : comps) {
@@ -1021,7 +1036,7 @@ struct Decoder {
       std::memcpy(out, planes[0].data(), npx);
       return;
     }
-    if (tiff) {  // libtiff's JCS_UNKNOWN: the components as decoded
+    if (tiff && !want_hs) {  // libtiff's JCS_UNKNOWN: the components as decoded
       const int64_t nc = static_cast<int64_t>(comps.size());
       for (int64_t i = 0; i < npx; ++i)
         for (int64_t k = 0; k < nc; ++k) out[nc * i + k] = planes[k][i];
@@ -1033,7 +1048,9 @@ struct Decoder {
       return;
     }
     bool rgb;
-    if (comps.size() == 4) {
+    if (tiff) {  // YCbCr, libtiff's JCS_YCbCr -> JCS_RGB
+      rgb = false;
+    } else if (comps.size() == 4) {
       rgb = false;
     } else if (jfif) {
       rgb = false;
@@ -1112,7 +1129,8 @@ int gs_jpeg_decode(const uint8_t* data, long long size, uint8_t* out, long long 
 // `out` takes height x width x channels bytes; `tables_size` 0: no
 // JPEGTables tag.
 int gs_jpeg_decode_tiff(const uint8_t* tables, long long tables_size, const uint8_t* data, long long size,
-                        int height, int width, int channels, uint8_t* out) {
+                        int height, int width, int channels, int ycbcr_h, int ycbcr_v, int last_strip,
+                        uint8_t* out) {
   try {
     auto with_eoi = [](const uint8_t* p, long long n) {  // libtiff's fake EOI at every read past the end
       std::vector<uint8_t> v(p, p + n);
@@ -1128,12 +1146,21 @@ int gs_jpeg_decode_tiff(const uint8_t* tables, long long tables_size, const uint
     d.want_h = height;
     d.want_w = width;
     d.want_c = channels;
+    d.want_hs = ycbcr_h;
+    d.want_vs = ycbcr_v;
+    d.taller_ok = last_strip != 0;
     if (tables_size > 0) {
       const std::vector<uint8_t> t = with_eoi(tables, tables_size);
       d.read_tables(t.data(), static_cast<int64_t>(t.size()), strip.data(), static_cast<int64_t>(strip.size()));
     }
     d.run();
-    d.finish(out);
+    if (d.height == height) {
+      d.finish(out);
+    } else {  // the last strip coded taller: its first `height` rows
+      std::vector<uint8_t> frame(int64_t(d.width) * d.height * channels);
+      d.finish(frame.data());
+      std::memcpy(out, frame.data(), int64_t(width) * height * channels);
+    }
     return 0;
   } catch (const Refused& r) {
     return fail(r.msg);

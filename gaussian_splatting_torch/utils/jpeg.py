@@ -1113,7 +1113,8 @@ def _library():
                                        ctypes.c_longlong]
         lib.gs_jpeg_decode.restype = ctypes.c_int
         lib.gs_jpeg_decode_tiff.argtypes = [ctypes.c_char_p, ctypes.c_longlong, ctypes.c_char_p, ctypes.c_longlong,
-                                            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                                            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_int, ctypes.c_void_p]
         lib.gs_jpeg_decode_tiff.restype = ctypes.c_int
         lib.gs_jpeg_error.argtypes = []
         lib.gs_jpeg_error.restype = ctypes.c_char_p
@@ -1133,15 +1134,21 @@ def _decode_compiled(data: bytes, name: str) -> np.ndarray:
 
 
 def decode_tiff_jpeg(tables: bytes, data: bytes, height: int, width: int, channels: int,
-                     name: str = "<bytes>") -> np.ndarray:
+                     name: str = "<bytes>", ycbcr=None, last: bool = False) -> np.ndarray:
     """(height, width, channels) uint8: one strip or tile of a JPEG-in-TIFF
     (compression 7) as libtiff reads it for PIL, by the compiled decoder:
     the JPEGTables stream `tables` (b"": none) first, then the strip's
-    abbreviated stream `data`, every component as decoded (no colour
-    conversion). A frame that does not match the strip, and every form the
-    decoder refuses, raise a `ValueError` naming `name`."""
+    abbreviated stream `data`; every component as decoded (no colour
+    conversion, every component sampled 1x1), or with `ycbcr` = (h, v),
+    a YCbCr frame whose first component is sampled (h, v) and the others
+    1x1, converted to RGB (libtiff's JPEGCOLORMODE_RGB). `last`: the
+    image's last strip, whose frame may be taller than its rows (libtiff
+    reads the rows it needs). A frame that does not match the strip, and
+    every form the decoder refuses, raise a `ValueError` naming `name`."""
     lib = _library()
     out = np.empty((height, width, channels), np.uint8)
-    if lib.gs_jpeg_decode_tiff(tables, len(tables), data, len(data), height, width, channels, out.ctypes.data):
+    h, v = ycbcr or (0, 0)
+    if lib.gs_jpeg_decode_tiff(tables, len(tables), data, len(data), height, width, channels, h, v, int(last),
+                               out.ctypes.data):
         raise ValueError(f"{name}: {lib.gs_jpeg_error().decode()}")
     return out

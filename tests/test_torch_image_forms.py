@@ -18,6 +18,7 @@ need them skip, with the reason, only where no C++ compiler exists.
 
 import io
 import json
+import lzma
 import os
 import shutil
 import struct
@@ -481,21 +482,39 @@ def _replace_strips(data: bytes, strips) -> bytes:
     return bytes(out)
 
 
+def _ycbcr_improper_sampling(s):
+    """A YCbCr JPEG-in-TIFF whose strips are sampled 2x2 under a
+    YCbCrSubsampling tag of 1x1 (libtiff: Improper JPEG sampling factors)."""
+    def strip(c):
+        buf = io.BytesIO()
+        Image.fromarray(np.ascontiguousarray(c).astype(np.uint8)).save(buf, "JPEG", quality=90, subsampling=2)
+        return buf.getvalue()
+    return tiff_bytes(s, 8, 6, compression=7, encode=strip, tags={530: (3, [1, 1])})
+
+
+def _half(stream: bytes) -> bytes:
+    return stream[:len(stream) // 2]
+
+
 def refusal_file(case):
     s = samples((6, 8, 3), 8, 1)
     grey = s[..., :1]
+    big = tiff_bytes(s, 8, 2, big=True)
     return {
-        "BigTIFF": (b"II+\x00\x08\x00\x00\x00" + bytes(16), "BigTIFF"),
+        "BigTIFF": (big[:24 + 20 * struct.unpack("<Q", big[16:24])[0] - 7], "a truncated BigTIFF IFD"),
         "CCITT": (tiff_bytes(grey % 2, 1, 0, tags={259: (3, [3])}), r"CCITT Group 3"),
-        "JPEG-in-TIFF": (tiff_bytes(s, 8, 6, tags={259: (3, [7])}), r"JPEG-in-TIFF \(compression 7\)"),
+        "JPEG-in-TIFF": (_ycbcr_improper_sampling(s), r"libtiff: Improper JPEG sampling factors"),
         "old JPEG": (tiff_bytes(s, 8, 2, tags={259: (3, [6])}), r"old-style JPEG-in-TIFF"),
-        "WebP": (tiff_bytes(s, 8, 2, tags={259: (3, [50001])}), r"WebP"),
-        "ZSTD": (tiff_bytes(s, 8, 2, tags={259: (3, [50000])}), r"ZSTD"),
-        "LZMA": (tiff_bytes(s, 8, 2, tags={259: (3, [34925])}), r"LZMA"),
+        "WebP": (tiff_bytes(s, 8, 2, tags={259: (3, [50001])}), r"WebP \(compression 50001\), which PIL refuses too"),
+        "ZSTD": (tiff_bytes(s, 8, 2, compression=50000, encode=lambda c: b"\x28\xb5\x2f\xfd\x20\x90\x07\x00\x00"),
+                 r"corrupt ZSTD data: a reserved block type"),
+        "LZMA": (tiff_bytes(s, 8, 2, compression=34925, encode=lambda c: _half(lzma.compress(
+            np.ascontiguousarray(c.astype(np.uint8)).tobytes(), lzma.FORMAT_XZ))), r"LZMA data ends short"),
         "old-style LZW": (_replace_strips(tiff_bytes(grey, 8, 1, compression=5), [b"\x00\x01" + bytes(40)]),
                           r"old-style LZW"),
         "Predictor 3": (tiff_bytes(s, 8, 2, compression=5, tags={317: (3, [3])}), r"Predictor 3"),
-        "PlanarConfiguration 2": (tiff_bytes(s, 8, 2, tags={284: (3, [2])}), r"PlanarConfiguration 2"),
+        "PlanarConfiguration 2": (tiff_bytes(s[..., :2], 8, 1, extra=[2], planar=True),
+                                  r"grey \+ alpha in uncompressed planes \(PlanarConfiguration 2"),
         "YCbCr": (tiff_bytes(s, 8, 6), r"YCbCr \(photometric 6\)"),
         "CIELab": (tiff_bytes(s, 8, 8), r"CIELab \(photometric 8\)"),
         "4-bit": (tiff_bytes(grey % 16, 8, 1, tags={258: (3, [4])}), r"4-bit samples"),
@@ -518,10 +537,13 @@ REFUSALS = ["BigTIFF", "CCITT", "JPEG-in-TIFF", "old JPEG", "WebP", "ZSTD", "LZM
 def test_tiff_refusals_name_the_file_and_the_feature(tmp_path, cxx, case):
     """Each out-of-scope form raises a ValueError naming the file and the
     feature (ROADMAP.md section 1 lists them); where PIL raises on the file
-    too (the 16-bit WhiteIsZero "MM" file, corrupt data), so much the
-    more."""
+    too (the 16-bit WhiteIsZero "MM" file, corrupt data, a BigTIFF cut in
+    its IFD, YCbCr strips sampled otherwise than the tag says, a corrupt
+    ZSTD frame, an .xz stream that ends short, grey + alpha in uncompressed
+    planes, WebP-in-TIFF), so much the more."""
     data, match = refusal_file(case)
-    if case in ("16-bit WhiteIsZero big-endian", "truncated LZW", "old-style LZW"):
+    if case in ("16-bit WhiteIsZero big-endian", "truncated LZW", "old-style LZW", "BigTIFF", "JPEG-in-TIFF",
+                "ZSTD", "LZMA", "PlanarConfiguration 2", "WebP"):
         with pytest.raises((OSError, ValueError, SyntaxError)):
             Image.open(io.BytesIO(data)).load()
     assert_refused(tmp_path, data, match, ".tif")
@@ -892,15 +914,22 @@ def test_jpeg_tiff_tables_as_libtiff_reads_them(tmp_path, cxx):
 
 
 def test_jpeg_tiff_refusals_name_the_file(tmp_path, cxx):
-    """YCbCr JPEG-in-TIFF (PIL reads it through libtiff's conversion, the
-    port refuses it by name; PIL cannot write it), a subsampled stream in an
-    RGB TIFF (libtiff: improper sampling factors), 16-bit samples."""
+    """YCbCr JPEG-in-TIFF (PIL cannot write it) is read as PIL reads it
+    through libtiff's conversion (here streams sampled 1x1, which libtiff
+    takes as the first strip's sampling), and refused by name where its
+    strips are sampled otherwise than the YCbCrSubsampling tag says; a
+    subsampled stream in an RGB TIFF (libtiff: improper sampling factors),
+    16-bit samples."""
     a = smooth(45, 67, 4, 95)
     encode = pil_jpeg_strip("RGB", 90)
     tables = encode(a[:8, :8, :3])[1]
     ycbcr = tiff_bytes(a[..., :3], 8, 6, compression=7, rows_per_strip=16, encode=lambda c: encode(c)[0],
                        tags={347: (7, list(tables))})
-    assert_refused(tmp_path, ycbcr, r"JPEG-in-TIFF \(compression 7\) in YCbCr \(photometric 6\)", ".tif")
+    assert assert_follows_pil(tmp_path, ycbcr, "ycbcr", ".tif") is not None
+    improper = tiff_bytes(a[..., :3], 8, 6, compression=7, rows_per_strip=16, encode=lambda c: encode(c)[0],
+                          tags={347: (7, list(tables)), 530: (3, [2, 2])})
+    assert assert_follows_pil(tmp_path, improper, "improper", ".tif") is None
+    assert_refused(tmp_path, improper, r"sampled 1x1 in a JPEG strip or tile \(libtiff: Improper JPEG sampling", ".tif")
 
     def subsampled(c):
         buf = io.BytesIO()

@@ -5,11 +5,14 @@ the fixtures' `make_fixtures.py` scripts.
 Imports neither JAX nor the port: each file is built from the formats'
 specifications, and PIL's read of it is the rule the port is held to.
 
-- `tiff_bytes`: classic TIFF in either byte order, strips or tiles,
-  compression none / PackBits / LZW (libtiff's new style, its encoder's
-  code-width and table-full rules) / deflate, or each strip or tile from
-  a coder the caller gives (JPEG), Predictor 2, any photometric,
-  ExtraSamples, ColorMap, Orientation and raw extra tags.
+- `tiff_bytes`: classic TIFF or BigTIFF in either byte order, strips or
+  tiles, PlanarConfiguration 1 or 2, compression none / PackBits / LZW
+  (libtiff's new style, its encoder's code-width and table-full rules) /
+  deflate / LZMA (an .xz stream, as libtiff's LZMA codec writes), or each
+  strip or tile from a coder the caller gives (JPEG, ZSTD), Predictor 2,
+  any photometric, ExtraSamples, ColorMap, Orientation and raw extra
+  tags; `jpeg_tables_apart` splits a JPEG into the abbreviated stream and
+  the JPEGTables libtiff writes.
 - `bmp_bytes`: every header size, bit count and row order, palettes of
   any length, BI_BITFIELDS masks in or after the header, and RLE8 / RLE4
   bitmaps from `rle_encode`, which uses every escape.
@@ -34,6 +37,7 @@ specifications, and PIL's read of it is the rule the port is held to.
   packets of any length (runs within a row, raw packets across rows).
 """
 
+import lzma
 import os
 import re
 import struct
@@ -129,42 +133,53 @@ def sample_bytes(samples: np.ndarray, depth: int, order: str) -> np.ndarray:
 
 
 COMPRESS = {1: lambda b: b, 5: lzw_encode, 8: lambda b: zlib.compress(b, 6), 32946: lambda b: zlib.compress(b, 1),
-            32773: packbits_encode}
+            32773: packbits_encode, 34925: lambda b: lzma.compress(b, lzma.FORMAT_XZ, lzma.CHECK_NONE)}
+TYPE_CODES = {1: "B", 3: "H", 4: "I", 7: "B", 16: "Q", 17: "q", 18: "Q"}  # ..., LONG8, SLONG8, IFD8
 
 
 def tiff_bytes(samples, depth, photometric, order="<", compression=1, predictor=None, rows_per_strip=None,
-               tile=None, extra=None, colormap=None, orientation=None, tags=None, encode=None) -> bytes:
-    """A classic TIFF of (H, W, spp) integer `samples` at `depth` bits.
+               tile=None, extra=None, colormap=None, orientation=None, tags=None, encode=None, planar=False,
+               big=False) -> bytes:
+    """A TIFF of (H, W, spp) integer `samples` at `depth` bits.
     `tile` = (width, height) writes tiles (zero-padded where they
-    overhang), else strips of `rows_per_strip` rows; `tags` adds or
-    replaces raw tags {tag: (type, values)} (1 BYTE, 3 SHORT, 4 LONG, 7
-    UNDEFINED); `encode` (a strip's or tile's samples -> its bytes)
-    replaces the compression's own coder, as JPEG (7) needs."""
+    overhang), else strips of `rows_per_strip` rows; `planar` writes
+    PlanarConfiguration 2 (each sample's strips or tiles in turn, each
+    chunk one sample); `big` a BigTIFF (20-byte entries, LONG8 offsets);
+    `tags` adds or replaces raw tags {tag: (type, values)} (1 BYTE, 3
+    SHORT, 4 LONG, 7 UNDEFINED, 16 LONG8, 17 SLONG8, 18 IFD8); `encode` (a strip's or tile's
+    samples -> its bytes) replaces the compression's own coder, as JPEG
+    (7) and ZSTD (50000) need."""
     samples = np.asarray(samples)
     H, W, n = samples.shape
+    planes = [samples[..., i:i + 1] for i in range(n)] if planar else [samples]
     if tile:
         tw, th = tile
         across, down = -(-W // tw), -(-H // th)
-        padded = np.zeros((down * th, across * tw, n), samples.dtype)
-        padded[:H, :W] = samples
-        chunks = [padded[r * th:(r + 1) * th, c * tw:(c + 1) * tw] for r in range(down) for c in range(across)]
+        chunks = []
+        for plane in planes:
+            padded = np.zeros((down * th, across * tw, plane.shape[2]), samples.dtype)
+            padded[:H, :W] = plane
+            chunks += [padded[r * th:(r + 1) * th, c * tw:(c + 1) * tw] for r in range(down) for c in range(across)]
     else:
         rps = rows_per_strip or H
-        chunks = [samples[y:y + rps] for y in range(0, H, rps)]
+        chunks = [plane[y:y + rps] for plane in planes for y in range(0, H, rps)]
     if predictor == 2:
         chunks = [difference(ch.astype(np.uint16 if depth == 16 else np.uint8)) for ch in chunks]
     if encode is None:
         bodies = [COMPRESS[compression](sample_bytes(ch, depth, order).tobytes()) for ch in chunks]
     else:
         bodies = [encode(ch) for ch in chunks]
+    offset_type = 16 if big else 4
     t = {256: (4, [W]), 257: (4, [H]), 258: (3, [depth] * n), 259: (3, [compression]), 262: (3, [photometric]),
          277: (3, [n])}
     if tile:
-        t.update({322: (3, [tile[0]]), 323: (3, [tile[1]]), 324: (4, [0] * len(bodies)),
+        t.update({322: (3, [tile[0]]), 323: (3, [tile[1]]), 324: (offset_type, [0] * len(bodies)),
                   325: (4, [len(b) for b in bodies])})
     else:
-        t.update({273: (4, [0] * len(bodies)), 278: (3, [rows_per_strip or H]),
+        t.update({273: (offset_type, [0] * len(bodies)), 278: (3, [rows_per_strip or H]),
                   279: (4, [len(b) for b in bodies])})
+    if planar:
+        t[284] = (3, [2])
     if predictor:
         t[317] = (3, [predictor])
     if extra is not None:
@@ -176,30 +191,46 @@ def tiff_bytes(samples, depth, photometric, order="<", compression=1, predictor=
     t.update(tags or {})
     offsets_tag = 324 if tile else 273
     # the header, the IFD, the tags' own data, then the strips or tiles
-    ifd_at, n_tags = 8, len(t)
-    data_at = ifd_at + 2 + 12 * n_tags + 4
+    entry, inline, count, word = (20, 8, "Q", "Q") if big else (12, 4, "I", "I")
+    ifd_at, n_tags = (16 if big else 8), len(t)
+    data_at = ifd_at + (8 if big else 2) + entry * n_tags + inline
     blobs, entries = b"", []
     packed = {}
     for tag in sorted(t):
         typ, vals = t[tag]
-        packed[tag] = struct.pack(order + {1: "B", 3: "H", 4: "I", 7: "B"}[typ] * len(vals), *vals)
-    strips_at = data_at + sum(len(v) + len(v) % 2 for v in packed.values() if len(v) > 4)
+        packed[tag] = struct.pack(order + TYPE_CODES[typ] * len(vals), *vals)
+    strips_at = data_at + sum(len(v) + len(v) % 2 for v in packed.values() if len(v) > inline)
     offsets, at = [], strips_at
     for b in bodies:
         offsets.append(at)
         at += len(b)
-    packed[offsets_tag] = struct.pack(order + "I" * len(offsets), *offsets)
+    packed[offsets_tag] = struct.pack(order + TYPE_CODES[t[offsets_tag][0]] * len(offsets), *offsets)
     for tag in sorted(t):
         typ, vals = t[tag]
         raw = packed[tag]
-        if len(raw) <= 4:
-            entries.append(struct.pack(order + "HHI", tag, typ, len(vals)) + raw.ljust(4, b"\0"))
+        if len(raw) <= inline:
+            entries.append(struct.pack(order + "HH" + count, tag, typ, len(vals)) + raw.ljust(inline, b"\0"))
         else:
-            entries.append(struct.pack(order + "HHII", tag, typ, len(vals), data_at + len(blobs)))
+            entries.append(struct.pack(order + "HH" + count + word, tag, typ, len(vals), data_at + len(blobs)))
             blobs += raw + b"\0" * (len(raw) % 2)
-    head = (b"II*\0" if order == "<" else b"MM\0*") + struct.pack(order + "I", ifd_at)
-    return (head + struct.pack(order + "H", n_tags) + b"".join(entries) + struct.pack(order + "I", 0) + blobs
-            + b"".join(bodies))
+    if big:
+        head = (b"II+\0" if order == "<" else b"MM\0+") + struct.pack(order + "HHQ", 8, 0, ifd_at)
+    else:
+        head = (b"II*\0" if order == "<" else b"MM\0*") + struct.pack(order + "I", ifd_at)
+    return (head + struct.pack(order + ("Q" if big else "H"), n_tags) + b"".join(entries)
+            + struct.pack(order + word, 0) + blobs + b"".join(bodies))
+
+
+def jpeg_tables_apart(stream: bytes):
+    """(abbreviated stream, JPEGTables) of one JPEG: the stream without its
+    DQT and DHT segments, and those segments between SOI and EOI, as
+    libtiff writes a JPEG-in-TIFF's strips and tag."""
+    pos, tables, rest = 2, [], []
+    while stream[pos + 1] != 0xDA:
+        n = struct.unpack(">H", stream[pos + 2:pos + 4])[0]
+        (tables if stream[pos + 1] in (0xDB, 0xC4) else rest).append(stream[pos:pos + 2 + n])
+        pos += 2 + n
+    return b"\xff\xd8" + b"".join(rest) + stream[pos:], b"\xff\xd8" + b"".join(tables) + b"\xff\xd9"
 
 
 # ---- BMP ----
