@@ -116,8 +116,12 @@ Phases (any failure exits non-zero; none is caught and passed over):
      as a 32-bit RLE TGA (alpha 255), view_09 as an RGB JPEG-in-TIFF
      (q95, strips of 16 rows, its tables in the JPEGTables tag), view_10
      as a YCbCr JPEG-in-TIFF (4:2:0 q95, strips of 16, GDAL's
-     PHOTOMETRIC=YCBCR) and view_11 as a BigTIFF of LZMA planes (strips of
-     64 rows), named so in images.bin, the 2 test views as PNG. The port's readers must give
+     PHOTOMETRIC=YCBCR), view_11 as a BigTIFF of LZMA planes (strips of
+     64 rows) and view_12 as a 1920x1080 JPEG 2000 (the PIL-written
+     tests/fixtures/torch_jp2/ortho_97_rpcl_1920x1080.jp2: 9/7, 512x512
+     tiles, RPCL, 3 layers, precincts; its own picture, not the view's
+     render, which must read as PIL's committed SHA-256), named so in
+     images.bin, the 2 test views as PNG. The port's readers must give
      back every camera (R, T within 1e-12), every PNG, TIFF, BMP, WebP,
      PPM and TGA pixel and each JPEG and JPEG-in-TIFF view within 30 dB
      PSNR of its render; the two damaged views decoded by the compiled decoder (the
@@ -147,12 +151,18 @@ Phases (any failure exits non-zero; none is caught and passed over):
      files of tests/fixtures/torch_webp (lossy q90, lossy with alpha,
      lossless), the PIL-written 1920x1080 JPEG-in-TIFF of
      tests/fixtures/torch_tiff_jpeg, the PIL-written ZSTD and LZMA (with
-     Predictor 2) files of tests/fixtures/torch_tiff_forms and the four
+     Predictor 2) files of tests/fixtures/torch_tiff_forms, the four
      GIS forms `form_files` writes from an integer-made picture (YCbCr
      JPEG-in-TIFF, whose bytes must be the committed file's too, planar
-     LZMA BigTIFF, 16-bit planar deflate, BigTIFF deflate) the mode,
-     shape and SHA-256 of PIL's pixels committed beside them (sha256.json);
-     and every file of
+     LZMA BigTIFF, 16-bit planar deflate, BigTIFF deflate) and the three
+     large JPEG 2000 files of tests/fixtures/torch_jp2 (the 1920x1080 9/7
+     tiled RPCL JP2, the 1920x1080 5/3 lossless codestream, the 800x800
+     RGBA 9/7 frame) the mode, shape and SHA-256 of PIL's pixels committed
+     beside them (sha256.json), and where this machine has PIL, PIL's own
+     decode of those three timed beside the port's (a comparison only);
+     every small file of tests/fixtures/torch_jp2 (each option of PIL's
+     JPEG 2000 writer, box-edited JP2s) PIL's mode, pixel and RGBA
+     SHA-256; and every file of
      tests/fixtures/torch_images (BMP, TIFF, CMYK and YCCK JPEG, WebP lossy,
      with alpha, lossless and animated, GIF), torch_ppm_tga (PPM, PGM, PBM,
      PFM, TGA) and torch_tiff_jpeg (small JPEG-in-TIFFs, strips and tiles)
@@ -205,7 +215,10 @@ Phases (any failure exits non-zero; none is caught and passed over):
      RGB with a tRNS colour, frame 2 as a 32-bit RLE TGA with its alpha,
      frame 6 as a 16-bit RGBA TIFF in deflate planes (Predictor 2),
      frame 4 as a 16-bit P6 (the straight colour, no alpha), frame 11 as a
-     CMYK JPEG (Adobe transform 0, the frame composited on white), frame 13
+     CMYK JPEG (Adobe transform 0, the frame composited on white), frame 8
+     as an RGBA JPEG 2000 (the PIL-written 800x800 9/7 frame of
+     tests/fixtures/torch_jp2, whose RGBA must give PIL's committed
+     SHA-256), frame 13
      as a 32-bit BI_BITFIELDS BMP with an alpha mask and frame 15 as an
      interlaced palette GIF (4 levels a channel, alpha below 128 the
      transparency index), each file named r_<i>.png as the transforms
@@ -311,7 +324,9 @@ seeds. Imports no JAX.
 """
 
 import contextlib
+import functools
 import hashlib
+import importlib.metadata
 import importlib.util
 import io
 import json
@@ -417,7 +432,13 @@ CLI_PPM_VIEW, CLI_TGA_VIEW, CLI_JPEG_TIFF_VIEW, CLI_JPEG_TIFF_ROWS = 6, 7, 9, 16
 # (GDAL's PHOTOMETRIC=YCBCR, 4:2:0, lossy) and a BigTIFF of LZMA planes
 # (INTERLEAVE=BAND, strips of CLI_PLANAR_ROWS rows)
 CLI_YCBCR_VIEW, CLI_PLANAR_VIEW, CLI_PLANAR_ROWS = 10, 11, 64
+# and one in the form orthophoto programmes and satellite archives ship: a
+# JPEG 2000 (the PIL-written 1080p fixture: its own picture, not the render)
+CLI_JP2_VIEW = 12
 TIFF_FORMS_FIXTURES = os.path.join(FIXTURES, "torch_tiff_forms")  # PIL-written ZSTD / LZMA, and PIL's hashes
+JP2_FIXTURES = os.path.join(FIXTURES, "torch_jp2")  # PIL-written JPEG 2000 files and PIL's hashes
+JP2_VIEW, JP2_FRAME = "ortho_97_rpcl_1920x1080.jp2", "frame_rgba_97_800x800.jp2"
+JP2_LARGE = (JP2_VIEW, "ortho_53_1920x1080.j2k", JP2_FRAME)  # decoded and timed at full size
 WEBP_FIXTURES = os.path.join(FIXTURES, "torch_webp")  # 1080p files and the SHA-256 of PIL's pixels
 TIFF_JPEG_FIXTURES = os.path.join(FIXTURES, "torch_tiff_jpeg")  # a PIL-written 1080p file and its SHA-256
 PPM_TGA_FIXTURES = os.path.join(FIXTURES, "torch_ppm_tga")
@@ -444,7 +465,8 @@ BLENDER_FLAGS = ["--white_background", "--eval", "--iterations", str(BLENDER_STE
 # the transforms file lists it, read by its signature); the others are
 # 8-bit RGBA PNG, as NeRF-synthetic ships
 BLENDER_FORMS = {1: "16-bit RGBA", 2: "32-bit RLE TGA with alpha", 3: "palette + tRNS", 4: "16-bit P6",
-                 5: "Adam7 RGBA", 6: "16-bit planar RGBA TIFF", 7: "grey + alpha", 9: "RGB + tRNS colour",
+                 5: "Adam7 RGBA", 6: "16-bit planar RGBA TIFF", 7: "grey + alpha", 8: "RGBA JPEG 2000",
+                 9: "RGB + tRNS colour",
                  11: "CMYK JPEG",
                  13: "32-bit BMP with alpha", 15: "palette GIF + transparency"}
 
@@ -1722,8 +1744,9 @@ def train_view_files(data, cams, images, test_names):
     RGB TIFF (LZW, Predictor 2), CLI_BMP_VIEW as a 24-bit BMP,
     CLI_WEBP_VIEW as a lossless WebP, CLI_PPM_VIEW as a binary P6,
     CLI_TGA_VIEW as a 32-bit RLE TGA (alpha 255), CLI_JPEG_TIFF_VIEW as
-    a JPEG-in-TIFF, CLI_YCBCR_VIEW as a YCbCr JPEG-in-TIFF and
-    CLI_PLANAR_VIEW as a planar LZMA BigTIFF, and images.bin to name them;
+    a JPEG-in-TIFF, CLI_YCBCR_VIEW as a YCbCr JPEG-in-TIFF,
+    CLI_PLANAR_VIEW as a planar LZMA BigTIFF and CLI_JP2_VIEW as the
+    committed 1080p JPEG 2000 fixture, and images.bin to name them;
     the test views stay PNG.
     Returns each view's file name and the JPEG encode ms."""
     images_bin = os.path.join(data, "sparse", "0", "images.bin")
@@ -1752,6 +1775,10 @@ def train_view_files(data, cams, images, test_names):
         elif i == CLI_PLANAR_VIEW:
             name = f"{cam.image_name}.tif"
             body = tiff_form(px, 8, 34925, None, CLI_PLANAR_ROWS, planar=True, big=True)
+        elif i == CLI_JP2_VIEW:
+            name = f"{cam.image_name}.jp2"
+            with open(os.path.join(JP2_FIXTURES, JP2_VIEW), "rb") as f:
+                body = f.read()
         else:
             restart = -(-W_MAIN // 16) if i == CLI_RESTART_VIEW else 0  # MCUs in a row
             t0 = time.perf_counter()
@@ -1771,6 +1798,38 @@ def train_view_files(data, cams, images, test_names):
         rec.name = files[os.path.splitext(rec.name)[0]]
     colmap.write_images_binary(records, images_bin)
     return files, encode_ms
+
+
+def pil_jp2_ms() -> str:
+    """PIL's own decode of the large JPEG 2000 fixtures (OpenJPEG), median
+    of 3 on the host clock, where this machine has PIL: a comparison for
+    the port's decoder only (the port never imports PIL)."""
+    if importlib.util.find_spec("PIL") is None:
+        return "PIL's JPEG 2000 decode not measured (no PIL here)"
+    from PIL import Image, features
+
+    ms = {}
+    for name in JP2_LARGE:
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            with Image.open(os.path.join(JP2_FIXTURES, name)) as im:
+                np.asarray(im)
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[name] = float(np.median(times))
+    return (f"PIL {importlib.metadata.version('pillow')} (OpenJPEG {features.version('jpg_2000')}) decode ms "
+            f"(median of 3, host clock): " + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()))
+
+
+@functools.cache
+def jp2_readings() -> dict:
+    """PIL's reading of each tests/fixtures/torch_jp2 file (sha256.json)."""
+    with open(os.path.join(JP2_FIXTURES, "sha256.json")) as f:
+        return json.load(f)
+
+
+def sha256_of(pixels) -> str:
+    return hashlib.sha256(np.ascontiguousarray(pixels).tobytes()).hexdigest()
 
 
 def opaque(rgb):
@@ -1926,6 +1985,7 @@ def check_image_forms(tmp, px):
     for folder in (WEBP_FIXTURES, TIFF_JPEG_FIXTURES, TIFF_FORMS_FIXTURES):
         with open(os.path.join(folder, "sha256.json")) as f:
             readings.update({os.path.join(folder, k): v for k, v in json.load(f).items()})
+    readings.update({os.path.join(JP2_FIXTURES, k): jp2_readings()[k] for k in JP2_LARGE})
     made = form_files()  # the GIS forms this script writes, PIL's reading of each committed
     for path, want in readings.items():
         name = os.path.basename(path)
@@ -1941,10 +2001,11 @@ def check_image_forms(tmp, px):
             pic, t = synced_ms(image_io.open_image, path)
             ms.append(t)
         times[f"{name} (PIL's committed hash)"] = float(np.median(ms))
-        digest = hashlib.sha256(np.ascontiguousarray(pic.pixels).tobytes()).hexdigest()
+        digest = sha256_of(pic.pixels)
         if (pic.mode, list(pic.pixels.shape), digest) != (want["mode"], want["shape"], want["sha256"]):
             fail(f"cli path: {name} reads as {pic.mode} {pic.pixels.shape} with SHA-256 {digest}, not PIL's "
                  f"{want['mode']} {want['shape']} {want['sha256']}")
+    pil_jp2 = pil_jp2_ms()
     names = {folder: sorted(f for f in os.listdir(folder) if os.path.exists(
         os.path.join(folder, os.path.splitext(f)[0] + ".npz")) and not f.endswith(".npz"))
         for folder in (IMAGE_FIXTURES, PPM_TGA_FIXTURES, TIFF_JPEG_FIXTURES)}
@@ -1960,13 +2021,22 @@ def check_image_forms(tmp, px):
                     and np.array_equal(image_io.to_rgba(pic), want["rgba"])):
                 fail(f"cli path: image fixture {name} reads as {pic.mode}, not PIL's {want['mode']} and its "
                      f"pixels")
+    small_jp2 = sorted(set(jp2_readings()) - set(JP2_LARGE))
+    for name in small_jp2:
+        want, pic = jp2_readings()[name], image_io.open_image(os.path.join(JP2_FIXTURES, name))
+        got = (pic.mode, list(pic.pixels.shape), sha256_of(pic.pixels), sha256_of(image_io.to_rgba(pic)))
+        if got != (want["mode"], want["shape"], want["sha256"], want["rgba_sha256"]):
+            fail(f"cli path: JPEG 2000 fixture {name} reads as {pic.mode} {pic.pixels.shape}, not PIL's "
+                 f"{want['mode']} {want['shape']} and its pixels and RGBA")
     print(f"  image forms at {W}x{H}, decode ms (median of 3, host clock): "
           + ", ".join(f"{k} {v:.2f}" for k, v in times.items())
           + f"; lossless forms bit-equal, CMYK / YCCK JPEG (q{CLI_JPEG_QUALITY} 4:2:0) and JPEG-in-TIFF "
           + ", ".join(f"{k} {v:.2f}" for k, v in cmyk_psnr.items())
           + f" dB PSNR from PIL's CMYK of the samples written and from the view (JPEG-in-TIFF bit-equal to "
-          f"its strips and tiles read alone); {len(readings)} 1080p WebP, JPEG-in-TIFF, ZSTD, LZMA, planar "
-          f"and BigTIFF files give PIL's committed SHA-256; "
+          f"its strips and tiles read alone); {len(readings)} 1080p WebP, JPEG-in-TIFF, ZSTD, LZMA, planar, "
+          f"BigTIFF and JPEG 2000 files (the 800x800 RGBA JPEG 2000 frame too) give PIL's committed SHA-256; "
+          f"{len(small_jp2)} small JPEG 2000 files of {os.path.relpath(JP2_FIXTURES, ROOT)} PIL's mode, "
+          f"pixels and RGBA; {pil_jp2}; "
           + ", ".join(f"{len(v)} {os.path.relpath(k, ROOT)}" for k, v in names.items())
           + " files give PIL's committed mode, pixels and RGBA")
 
@@ -2075,6 +2145,14 @@ def _cli_phase(dev, tmp):
             if not np.array_equal(back, px):
                 fail(f"cli path: image {cam.image_name} did not survive its PNG")
             continue
+        if cam.image_name == names[CLI_JP2_VIEW]:  # the fixture's picture: PIL's committed hash
+            pic, jp2_view_ms = synced_ms(image_io.open_image, got.image_path)
+            want = jp2_readings()[JP2_VIEW]
+            if (pic.mode, list(pic.pixels.shape), sha256_of(pic.pixels)) != (want["mode"], want["shape"],
+                                                                             want["sha256"]):
+                fail(f"cli path: the JPEG 2000 view {got.image_path} reads as {pic.mode} {pic.pixels.shape}, "
+                     f"not PIL's committed {want['mode']} {want['shape']} pixels")
+            continue
         lossy = got.image_path.endswith(".jpg") or cam.image_name in (names[CLI_JPEG_TIFF_VIEW],
                                                                       names[CLI_YCBCR_VIEW])
         if not lossy:  # the TIFF (planar BigTIFF included), BMP, WebP, PPM and TGA views
@@ -2119,7 +2197,8 @@ def _cli_phase(dev, tmp):
           f"JPEG-in-TIFF (q{CLI_JPEG_QUALITY}, strips of {CLI_JPEG_TIFF_ROWS} rows; {jpeg_tiff_psnr:.2f} dB "
           f"PSNR from its render, decode {jpeg_tiff_ms:.1f} ms), {files[names[CLI_YCBCR_VIEW]]} as YCbCr "
           f"JPEG-in-TIFF (4:2:0; {ycbcr_psnr:.2f} dB, decode {ycbcr_ms:.1f} ms), {files[names[CLI_PLANAR_VIEW]]} "
-          f"as a BigTIFF of LZMA planes, {len(decode_ms)} test views as PNG; "
+          f"as a BigTIFF of LZMA planes, {files[names[CLI_JP2_VIEW]]} as a 9/7 tiled RPCL JPEG 2000 (PIL's "
+          f"committed pixels, decode {jp2_view_ms:.1f} ms), {len(decode_ms)} test views as PNG; "
           f"cameras within 1e-12, PNG, TIFF, BMP, WebP, PPM and TGA pixels bit-equal (decode "
           + ", ".join(f"{k} {v:.1f} ms" for k, v in lossless_ms.items())
           + f"), JPEG views {min(psnr):.2f}-{max(psnr):.2f} dB PSNR from their renders through the port's "
@@ -2173,8 +2252,8 @@ def _cli_phase(dev, tmp):
     if scene_load.s is None:
         fail("cli path: the train CLI made no Scene")
     print(f"  train CLI: {CLI_STEPS} steps, {n_train} train and {n_test} test views, wall "
-          f"{train_s:.2f} s (scene load {scene_load.s:.2f} s: {n_train - 8} JPEG, 1 TIFF, 1 BMP, 1 WebP, 1 P6, "
-          f"1 RLE TGA, 1 JPEG-in-TIFF, 1 YCbCr JPEG-in-TIFF, 1 planar LZMA BigTIFF and "
+          f"{train_s:.2f} s (scene load {scene_load.s:.2f} s: {n_train - 9} JPEG, 1 TIFF, 1 BMP, 1 WebP, 1 P6, "
+          f"1 RLE TGA, 1 JPEG-in-TIFF, 1 YCbCr JPEG-in-TIFF, 1 planar LZMA BigTIFF, 1 JPEG 2000 and "
           f"{n_test} PNG views decoded), step median {np.median(step_ms):.3f} ms, p80 "
           f"{np.percentile(step_ms, 80):.3f} ms (its iter_time_ms, host clock, deferred "
           f"maintenance excluded); loss first 20 {first20:.6f}, last 20 {last20:.6f}; "
@@ -2249,7 +2328,8 @@ def _cli_phase(dev, tmp):
              f"{int((got_png != want_png).any(-1).sum())} pixels")
     print(f"  render CLI: {CLI_VIEWS} views in {render_ms / 1e3:.2f} s wall, "
           f"{render_ms / CLI_VIEWS:.1f} ms per view (scene load, render, two PNGs); launches "
-          f"{render_launches}; gt PNGs bit-equal to the dataset's JPEG, TIFF, BMP, WebP, PPM, TGA and PNG "
+          f"{render_launches}; gt PNGs bit-equal to the dataset's JPEG, TIFF, BMP, WebP, PPM, TGA, JPEG 2000 "
+          f"and PNG "
           f"images, test view 0 bit-equal to eval_render of the reloaded PLY")
 
     # Metrics.
@@ -2289,11 +2369,15 @@ def blender_frame(rgba, form, seed):
     bytes under its alpha mask, a GIF's palette colour with alpha 0 on its
     transparency index, a TGA's BGRA, a 16-bit P6's round(v / 65535 * 255)
     (its colour, which has no alpha, opaque), a 16-bit planar RGBA TIFF's
-    high bytes. A CMYK JPEG (Adobe transform 0, of the
+    high bytes. An RGBA JPEG 2000 is the committed 800x800 frame (its RGBA
+    is held to PIL's committed SHA-256: the second value is None). A CMYK JPEG (Adobe transform 0, of the
     frame composited on white, which it has no alpha for) is lossy: for it
     the second value is PIL's CMYK of the samples written (`cmyk_of`)."""
     if form is None:
         return None, rgba
+    if form == "RGBA JPEG 2000":  # the committed frame, its own picture: held to PIL's hash, not to `rgba`
+        with open(os.path.join(JP2_FIXTURES, JP2_FRAME), "rb") as f:
+            return f.read(), None
     if form == "CMYK JPEG":
         a = rgba[..., 3:].astype(np.int64)
         on_white = ((rgba[..., :3] * a + 255 * (255 - a) + 127) // 255).astype(np.uint8)
@@ -2426,6 +2510,13 @@ def _blender_phase(dev, tmp):
                      f"written, or to_rgba is not PIL's cmyk2rgb")
             read_ms.setdefault(f"{form} ({psnr_:.2f} dB)", []).append(ms)
             continue
+        if form == "RGBA JPEG 2000":
+            got, ms = synced_ms(lambda p: image_io.to_rgba(image_io.open_image(p)), path)
+            if (list(got.shape), sha256_of(got)) != (jp2_readings()[JP2_FRAME]["shape"],
+                                                     jp2_readings()[JP2_FRAME]["rgba_sha256"]):
+                fail(f"blender path: {path} ({form}) reads otherwise than PIL's committed RGBA")
+            read_ms.setdefault(form, []).append(ms)
+            continue
         got, ms = synced_ms(lambda p: image_io.to_rgba(image_io.open_image(p)), path)
         if not np.array_equal(got, want):
             fail(f"blender path: {path} ({form}) reads otherwise than PIL's rules give at "
@@ -2467,7 +2558,7 @@ def _blender_phase(dev, tmp):
     print(f"  train CLI: {BLENDER_STEPS} steps from {len(init)} random points in [-1.3, 1.3]^3, white "
           f"background {white}, wall {train_s:.2f} s (scene load {scene_load.s:.2f} s: "
           f"{BLENDER_TRAIN + BLENDER_TEST} frames decoded (PNG, a CMYK JPEG, a BMP, a GIF, a TGA, a P6, a planar "
-          f"TIFF) and "
+          f"TIFF, a JPEG 2000) and "
           f"composited), step median "
           f"{np.median(step_ms):.3f} ms, p80 {np.percentile(step_ms, 80):.3f} ms (its iter_time_ms, "
           f"host clock); loss first 20 {first20:.6f}, last 20 {last20:.6f}; "

@@ -1,0 +1,1445 @@
+// JPEG 2000 Part 1 decoding for the dataset readers: host C++, built with
+// the host compiler by utils/cuda_build.py at first use and loaded with
+// ctypes (utils/jp2.py parses the JP2 boxes and calls it).
+//
+// The rule is the pixels PIL gives: PIL hands the file to OpenJPEG 2.5,
+// which decodes it tile by tile (opj_read_tile_header and
+// opj_decode_tile_data, so no JP2 colour box is applied), and unpacks
+// each tile with its own j2ku_* routines. This decoder follows that path:
+//
+//   - the codestream: SIZ, COD, COC, QCD, QCC, COM, TLM, PLM, PLT, CRG
+//     (skipped), SOT with tile-parts, SOD, EOC, with OpenJPEG's checks in
+//     strict mode (a tile-part running past the file, or a stream without
+//     EOC, fails, as PIL does);
+//   - tier 2: the five progression orders as opj_pi_next_* walk them,
+//     precincts, packet headers (bit stuffing after 0xFF, the inclusion and
+//     zero-bit-plane tag trees, coding passes, Lblock), every layer;
+//   - tier 1: the MQ decoder with OpenJPEG's 0xFF handling and its 0xFFFF
+//     sentinel after each segment, the significance, refinement and
+//     clean-up passes (code-block style 0), magnitudes kept with one extra
+//     bit and the 1/2 reconstruction point;
+//   - dequantisation (the reversible path's value / 2, the irreversible
+//     path's float value times 0.5 * stepsize, OpenJPEG's stepsize with no
+//     band gain), the inverse 5/3 in integers and 9/7 in float with
+//     OpenJPEG's constants, its 2/K high-pass scale and its step order, the
+//     RCT or ICT, the DC level shift with lrintf and the clamp;
+//   - opj_tcd_update_tile_data's packing (1, 2 or 4 bytes a sample) and
+//     PIL's unpackers for its modes L, P, PA, I;16, LA, RGB, RGBA and CMYK.
+//
+// Features no PIL-written file holds are refused by name (the message
+// starts with "refused: "): HTJ2K, code-block styles other than 0, ROI
+// (RGN), POC, PPM / PPT, SOP / EPH, component subsampling, precision above
+// 16 bits, more than 4 components, Part 2 extensions, unknown markers.
+//
+// Floating-point contraction is off for this file: OpenJPEG's 9/7 and ICT
+// arithmetic rounds every multiply and add on its own.
+//
+// Interface (plain C; returns 0, or 1 with gs_jp2_error's message for the
+// calling thread):
+//   gs_jp2_decode(cs, size, mode, colour_space, width, height, ihdr_w, ihdr_h, out)
+//   gs_jp2_segments(cs, size, out, capacity)   code-block data ranges (for tests)
+
+#if defined(__clang__)
+#pragma clang fp contract(off)
+#elif defined(__GNUC__)
+#pragma GCC optimize("fp-contract=off")
+#endif
+
+#include <algorithm>
+#include <cmath>
+#include <cstdint>
+#include <cstdio>
+#include <cstring>
+#include <string>
+#include <vector>
+
+namespace {
+
+thread_local std::string g_error;
+
+struct Error {
+  std::string msg;
+};
+
+[[noreturn]] void fail(const std::string& msg) { throw Error{msg}; }
+[[noreturn]] void refuse(const std::string& what) { throw Error{"refused: " + what}; }
+
+std::string fmt(const char* f, long long a = 0, long long b = 0, long long c = 0) {
+  char buf[256];
+  snprintf(buf, sizeof buf, f, a, b, c);
+  return buf;
+}
+
+inline uint32_t be16(const uint8_t* p) { return uint32_t(p[0]) << 8 | p[1]; }
+inline uint32_t be32(const uint8_t* p) { return be16(p) << 16 | be16(p + 2); }
+inline int64_t ceildiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
+inline int64_t ceildivpow2(int64_t a, int b) { return (a + (int64_t(1) << b) - 1) >> b; }
+inline int64_t floordivpow2(int64_t a, int b) { return a >> b; }
+
+// OpenJPEG's modes of PIL (utils/jp2.py passes the index) and colour spaces
+enum Mode { M_L, M_P, M_PA, M_I16, M_LA, M_RGB, M_RGBA, M_CMYK };
+enum Space { CS_UNKNOWN = -1, CS_UNSPECIFIED = 0, CS_SRGB, CS_GRAY, CS_SYCC, CS_EYCC, CS_CMYK };
+
+enum Marker : uint32_t {
+  SOC = 0xff4f, CAP = 0xff50, SIZ = 0xff51, COD = 0xff52, COC = 0xff53, TLM = 0xff55, PLM = 0xff57,
+  PLT = 0xff58, CPF = 0xff59, QCD = 0xff5c, QCC = 0xff5d, RGN = 0xff5e, POC = 0xff5f, PPM = 0xff60,
+  PPT = 0xff61, CRG = 0xff63, COM = 0xff64, SOT = 0xff90, SOP = 0xff91, EPH = 0xff92, SOD = 0xff93,
+  EOC = 0xffd9,
+};
+
+bool part2_marker(uint32_t m) {  // CBD, MCT, MCC, MCO, NLT, ATK, DCO, ADS...
+  return (m >= 0xff70 && m <= 0xff7f) || m == 0xff5a || m == 0xff5b;
+}
+
+// ---- headers ----
+
+struct StepSize {
+  int expn = 0, mant = 0;
+};
+
+struct Tccp {
+  int csty = 0, numres = 0, cblkw = 0, cblkh = 0, cblksty = 0, qmfbid = 0;
+  int prcw[33] = {}, prch[33] = {};
+  int qntsty = 0, numgbits = 0;
+  StepSize steps[97];
+};
+
+struct Tcp {
+  int csty = 0, prg = 0, numlayers = 0, mct = 0;
+  std::vector<Tccp> tccps;
+  std::vector<uint8_t> data;
+  std::vector<std::pair<int64_t, int64_t>> parts;  // (codestream offset, length) of each tile-part's data
+  int part = -1, nb_parts = 0;
+  bool has_data = false;
+};
+
+struct Comp {
+  int dx, dy, prec, sgnd;
+};
+
+struct Codestream {
+  int64_t x0, y0, x1, y1, tdx, tdy, tx0, ty0;
+  int tw, th;
+  std::vector<Comp> comps;
+  Tcp deflt;
+  std::vector<Tcp> tiles;
+};
+
+void read_siz(Codestream& cs, const uint8_t* s, int64_t len, int64_t ihdr_w, int64_t ihdr_h) {
+  if (len < 36) fail("Error with SIZ marker size");
+  int64_t rem = len - 36;
+  if (rem / 3 > 16384 || rem % 3) fail("Error with SIZ marker size");
+  uint32_t rsiz = be16(s);
+  cs.x1 = be32(s + 2), cs.y1 = be32(s + 6), cs.x0 = be32(s + 10), cs.y0 = be32(s + 14);
+  cs.tdx = be32(s + 18), cs.tdy = be32(s + 22), cs.tx0 = be32(s + 26), cs.ty0 = be32(s + 30);
+  int64_t n = be16(s + 34);
+  if (n > 16384) fail("Error with SIZ marker: number of component is illegal");
+  if (n != rem / 3) fail("Error with SIZ marker: number of component is not compatible with the remaining parameters");
+  if (cs.x0 >= cs.x1 || cs.y0 >= cs.y1) fail("Error with SIZ marker: negative or zero image size");
+  if (cs.tdx == 0 || cs.tdy == 0) fail("Error with SIZ marker: invalid tile size");
+  int64_t tx1 = std::min<int64_t>(cs.tx0 + cs.tdx, 0xffffffffLL), ty1 = std::min<int64_t>(cs.ty0 + cs.tdy, 0xffffffffLL);
+  if (cs.tx0 > cs.x0 || cs.ty0 > cs.y0 || tx1 <= cs.x0 || ty1 <= cs.y0) fail("Error with SIZ marker: illegal tile offset");
+  if (ihdr_w > 0 && ihdr_h > 0 && (ihdr_w != cs.x1 - cs.x0 || ihdr_h != cs.y1 - cs.y0))
+    fail(fmt("Error with SIZ marker: IHDR w(%lld) h(%lld) vs. SIZ", ihdr_w, ihdr_h));
+  for (int64_t i = 0; i < n; i++) {
+    const uint8_t* c = s + 36 + 3 * i;
+    Comp comp{c[1], c[2], (c[0] & 0x7f) + 1, c[0] >> 7};
+    if (comp.dx < 1 || comp.dy < 1) fail(fmt("Invalid values for comp = %lld : dx=%lld dy=%lld", i, comp.dx, comp.dy));
+    if (comp.prec > 31) fail(fmt("Invalid values for comp = %lld : prec=%lld", i, comp.prec));
+    cs.comps.push_back(comp);
+  }
+  int64_t tw = ceildiv(cs.x1 - cs.tx0, cs.tdx), th = ceildiv(cs.y1 - cs.ty0, cs.tdy);
+  if (tw == 0 || th == 0 || tw > 65535 / th) fail("Invalid number of tiles");
+  cs.tw = int(tw), cs.th = int(th);
+  if (rsiz & 0x4000) refuse("HTJ2K (Part 15, Rsiz bit 14)");
+  if (rsiz & 0x8000) refuse("Part 2 extensions (Rsiz bit 15)");
+  if (n > 4) refuse(fmt("more than 4 components (%lld)", n));
+  for (const Comp& c : cs.comps) {
+    if (c.dx != 1 || c.dy != 1) refuse(fmt("component subsampling (%lldx%lld)", c.dx, c.dy));
+    if (c.prec > 16) refuse(fmt("precision above 16 bits (%lld)", c.prec));
+  }
+}
+
+// SPcod / SPcoc into one component's parameters; returns the bytes read
+int read_spcod(Tccp& t, const uint8_t* p, int64_t len) {
+  if (len < 5) fail("Error reading SPCod SPCoc element");
+  t.numres = p[0] + 1;
+  if (t.numres > 33) fail("Invalid value for numresolutions");
+  t.cblkw = p[1] + 2, t.cblkh = p[2] + 2;
+  if (t.cblkw > 10 || t.cblkh > 10 || t.cblkw + t.cblkh > 12)
+    fail("Error reading SPCod SPCoc element, Invalid cblkw/cblkh combination");
+  t.cblksty = p[3];
+  if (t.cblksty & 0x80) fail("Error reading SPCod SPCoc element. Unsupported Mixed HT code-block style found");
+  t.qmfbid = p[4];
+  if (t.qmfbid > 1) fail("Error reading SPCod SPCoc element, Invalid transformation found");
+  if (t.csty & 1) {
+    if (len - 5 < t.numres) fail("Error reading SPCod SPCoc element");
+    for (int i = 0; i < t.numres; i++) {
+      int v = p[5 + i];
+      if (i != 0 && ((v & 0xf) == 0 || (v >> 4) == 0)) fail("Invalid precinct size");
+      t.prcw[i] = v & 0xf, t.prch[i] = v >> 4;
+    }
+    return 5 + t.numres;
+  }
+  for (int i = 0; i < t.numres; i++) t.prcw[i] = t.prch[i] = 15;
+  return 5;
+}
+
+int read_sqcd(Tccp& t, const uint8_t* p, int64_t len) {
+  if (len < 1) fail("Error reading SQcd or SQcc element");
+  t.qntsty = p[0] & 0x1f, t.numgbits = p[0] >> 5;
+  int64_t rest = len - 1, nb;
+  if (t.qntsty == 1) nb = 1;
+  else nb = t.qntsty == 0 ? rest : rest / 2;
+  if (t.qntsty == 0) {
+    for (int64_t b = 0; b < nb; b++)
+      if (b < 97) t.steps[b] = {p[1 + b] >> 3, 0};
+    rest -= nb;
+  } else {
+    if (rest < 2 * nb) fail("Error reading SQcd or SQcc element");
+    for (int64_t b = 0; b < nb; b++) {
+      uint32_t v = be16(p + 1 + 2 * b);
+      if (b < 97) t.steps[b] = {int(v >> 11), int(v & 0x7ff)};
+    }
+    rest -= 2 * nb;
+  }
+  if (t.qntsty == 1)
+    for (int b = 1; b < 97; b++)
+      t.steps[b] = {std::max(0, t.steps[0].expn - (b - 1) / 3), t.steps[0].mant};
+  return int(len - rest);
+}
+
+// One COD / COC / QCD / QCC segment into `tcp` (the main header's or a tile's);
+// `coc_set` / `qcc_set` mark components a COC / QCC of this header set, which a
+// COD / QCD of the same header leaves alone.
+void read_coding(uint32_t m, Tcp& tcp, const uint8_t* p, int64_t len, size_t ncomp, std::vector<char>& coc_set,
+                 std::vector<char>& qcc_set) {
+  if (m == COD) {
+    if (len < 5) fail("Error reading COD marker");
+    tcp.csty = p[0];
+    if (tcp.csty & ~7) fail("Unknown Scod value in COD marker");
+    tcp.prg = p[1];
+    if (tcp.prg > 4) fail("Unknown progression order in COD marker");
+    tcp.numlayers = int(be16(p + 2));
+    if (tcp.numlayers < 1) fail("Invalid number of layers in COD marker");
+    tcp.mct = p[4];
+    if (tcp.mct > 1) fail("Invalid multiple component transformation");
+    Tccp t;
+    t.csty = tcp.csty & 1;
+    if (read_spcod(t, p + 5, len - 5) != len - 5) fail("Error reading COD marker");
+    for (size_t c = 0; c < ncomp; c++) {
+      if (coc_set[c]) continue;
+      Tccp& d = tcp.tccps[c];
+      d.csty = t.csty, d.numres = t.numres, d.cblkw = t.cblkw, d.cblkh = t.cblkh, d.cblksty = t.cblksty;
+      d.qmfbid = t.qmfbid;
+      std::copy(t.prcw, t.prcw + 33, d.prcw), std::copy(t.prch, t.prch + 33, d.prch);
+    }
+  } else if (m == COC || m == QCC) {
+    int room = ncomp <= 256 ? 1 : 2;
+    if (len < room + 1) fail("Error reading COC or QCC marker");
+    size_t c = room == 1 ? p[0] : be16(p);
+    if (c >= ncomp) fail("Error reading COC or QCC marker (bad number of components)");
+    Tccp& d = tcp.tccps[c];
+    if (m == COC) {
+      d.csty = p[room];
+      if (read_spcod(d, p + room + 1, len - room - 1) != len - room - 1) fail("Error reading COC marker");
+      coc_set[c] = 1;
+    } else {
+      if (read_sqcd(d, p + room, len - room) != len - room) fail("Error reading QCC marker");
+      qcc_set[c] = 1;
+    }
+  } else {  // QCD
+    Tccp t;
+    if (read_sqcd(t, p, len) != len) fail("Error reading QCD marker");
+    for (size_t c = 0; c < ncomp; c++) {
+      if (qcc_set[c]) continue;
+      Tccp& d = tcp.tccps[c];
+      d.qntsty = t.qntsty, d.numgbits = t.numgbits;
+      std::copy(t.steps, t.steps + 97, d.steps);
+    }
+  }
+}
+
+void check_coding(const Tcp& tcp) {
+  if (tcp.csty & 2) refuse("SOP markers (Scod bit 1)");
+  if (tcp.csty & 4) refuse("EPH markers (Scod bit 2)");
+  for (const Tccp& t : tcp.tccps) {
+    if (t.cblksty & 0x40) refuse("HTJ2K code-blocks (Part 15)");
+    if (t.cblksty) refuse(fmt("code-block style 0x%02llx (BYPASS, RESET, TERMALL, VSC, PTERM or SEGSYM)", t.cblksty));
+  }
+}
+
+// A marker neither OpenJPEG's main header nor its tile-part header takes
+// where it stands, or one the port refuses.
+void other_marker(uint32_t m, bool main) {
+  switch (m) {
+    case RGN: refuse("region of interest (RGN)");
+    case POC: refuse("progression order changes (POC)");
+    case PPM: refuse("packed packet headers (PPM)");
+    case PPT: refuse("packed packet headers (PPT)");
+    case CAP: refuse("HTJ2K (Part 15, CAP marker)");
+    case CPF: refuse("HTJ2K (Part 15, CPF marker)");
+    default: break;
+  }
+  if (part2_marker(m)) refuse(fmt("Part 2 extensions (marker 0x%04llx)", m));
+  if (m == SIZ || m == SOT || m == SOD || m == EOC || m == SOP || m == EPH || m == SOC || m == TLM || m == PLM ||
+      m == PLT || m == CRG || m == COD || m == COC || m == QCD || m == QCC || m == COM)
+    fail(fmt("Marker is not compliant with its position (0x%04llx in the ", m) + (main ? "main header)" : "tile-part header)"));
+  refuse(fmt("an unknown marker 0x%04llx", m));
+}
+
+Codestream parse(const uint8_t* d, int64_t n, int64_t ihdr_w, int64_t ihdr_h) {
+  Codestream cs;
+  if (n < 4 || be16(d) != SOC) fail("Expected a SOC marker");
+  if (be16(d + 2) != SIZ) fail("The first marker after SOC must be SIZ");
+  int64_t pos = 2;
+  bool has_cod = false, has_qcd = false, has_siz = false;
+  std::vector<char> coc_set, qcc_set;
+  for (;;) {  // main header
+    if (pos + 2 > n) fail("Stream too short");
+    uint32_t m = be16(d + pos);
+    if (m < 0xff00) fail(fmt("We expected read a marker ID (0xff--) instead of %.4llx", m));
+    if (m == SOT) break;
+    if (pos + 4 > n) fail("Stream too short");
+    int64_t len = be16(d + pos + 2);
+    if (len < 2) fail("Inconsistent marker size");
+    if (pos + 2 + len > n) fail("Stream too short");
+    const uint8_t* p = d + pos + 4;
+    if (m == SIZ) {
+      if (has_siz) fail("Marker is not compliant with its position (a second SIZ)");
+      read_siz(cs, p, len - 2, ihdr_w, ihdr_h);
+      has_siz = true;
+      cs.deflt.tccps.resize(cs.comps.size());
+      coc_set.assign(cs.comps.size(), 0), qcc_set.assign(cs.comps.size(), 0);
+    } else if (m == COD || m == COC || m == QCD || m == QCC) {
+      read_coding(m, cs.deflt, p, len - 2, cs.comps.size(), coc_set, qcc_set);
+      has_cod |= m == COD, has_qcd |= m == QCD;
+    } else if (m != COM && m != TLM && m != PLM && m != CRG) {
+      other_marker(m, true);
+    }
+    pos += 2 + len;
+  }
+  if (!has_cod) fail("required COD marker not found in main header");
+  if (!has_qcd) fail("required QCD marker not found in main header");
+  check_coding(cs.deflt);
+  cs.tiles.assign(size_t(cs.tw) * cs.th, Tcp());
+  std::vector<char> first_seen(cs.tiles.size(), 0);
+  bool last_part = false;
+  for (;;) {  // tile-parts
+    if (pos + 2 > n) fail("Stream too short");
+    uint32_t m = be16(d + pos);
+    if (m == EOC) break;
+    if (m != SOT) fail("Stream too short, expected SOT");
+    if (last_part) break;
+    int64_t sot = pos;
+    if (pos + 4 > n || be16(d + pos + 2) != 10 || pos + 12 > n) fail("Error reading SOT marker");
+    uint32_t isot = be16(d + pos + 4), psot = be32(d + pos + 6);
+    int tpsot = d[pos + 10], tnsot = d[pos + 11];
+    if (isot >= cs.tiles.size()) fail(fmt("Tile index %lld > number of tiles", isot));
+    Tcp& tcp = cs.tiles[isot];
+    if (!first_seen[isot]) {
+      tcp = cs.deflt;
+      first_seen[isot] = 1;
+    }
+    if (tcp.part + 1 != tpsot) fail(fmt("Invalid tile part index for tile number %lld. Got %lld, expected %lld", isot, tpsot, tcp.part + 1));
+    tcp.part = tpsot;
+    if (psot != 0 && psot < 14) fail(fmt("Psot value is not correct regards to the JPEG2000 norm: %lld", psot));
+    if (psot == 0) last_part = true;
+    if (tcp.nb_parts && tpsot >= tcp.nb_parts) fail("In SOT marker, TPSot is not valid regards to the previous number of tile-part");
+    if (tnsot) {
+      if (tpsot >= tnsot) fail("In SOT marker, TPSot is not valid regards to the current number of tile-part (header)");
+      tcp.nb_parts = tnsot;
+    }
+    pos += 12;
+    std::vector<char> coc_here(cs.comps.size(), 0), qcc_here(cs.comps.size(), 0);
+    for (;;) {  // tile-part header
+      if (pos + 2 > n) fail("Stream too short");
+      m = be16(d + pos);
+      if (m < 0xff00) fail(fmt("We expected read a marker ID (0xff--) instead of %.4llx", m));
+      if (m == SOD) break;
+      if (pos + 4 > n) fail("Stream too short");
+      int64_t len = be16(d + pos + 2);
+      if (len < 2) fail("Inconsistent marker size");
+      if (pos + 2 + len > n) fail("Stream too short");
+      if (m == COD || m == COC || m == QCD || m == QCC) {
+        read_coding(m, tcp, d + pos + 4, len - 2, cs.comps.size(), coc_here, qcc_here);
+        check_coding(tcp);
+      } else if (m != COM && m != PLT) {
+        other_marker(m, false);
+      }
+      pos += 2 + len;
+    }
+    pos += 2;
+    int64_t size = psot ? int64_t(psot) - (pos - sot) : n - pos - 2;
+    if (size < 0 || size > n - pos) fail("Tile part length size inconsistent with stream length");
+    if (size > 0) {
+      tcp.parts.push_back({pos, size});
+      tcp.data.insert(tcp.data.end(), d + pos, d + pos + size);
+      tcp.has_data = true;
+    }
+    pos += size;
+    if (last_part) break;  // the two bytes left may be anything (OpenJPEG: "Stream does not end with EOC")
+  }
+  return cs;
+}
+
+// ---- tier 2 ----
+
+struct Bio {
+  const uint8_t *start, *end, *bp;
+  uint32_t buf = 0;
+  int ct = 0;
+  Bio(const uint8_t* p, int64_t len) : start(p), end(p + len), bp(p) {}
+  void bytein() {
+    buf = (buf << 8) & 0xffff;
+    ct = buf == 0xff00 ? 7 : 8;
+    if (bp < end) buf |= *bp++;
+  }
+  uint32_t bit() {
+    if (ct == 0) bytein();
+    ct--;
+    return (buf >> ct) & 1;
+  }
+  uint32_t read(int n) {
+    uint32_t v = 0;
+    for (int i = n - 1; i >= 0; i--) v |= bit() << i;
+    return v;
+  }
+  void inalign() {
+    if ((buf & 0xff) == 0xff) bytein();
+    ct = 0;
+  }
+  int64_t numbytes() const { return bp - start; }
+};
+
+struct TagTree {
+  std::vector<int> parent;
+  std::vector<int32_t> value, low;
+  void init(int w, int h) {
+    parent.clear();
+    std::vector<int> lw{w}, lh{h}, first{0};
+    int total = 0;
+    for (;;) {
+      int nodes = lw.back() * lh.back();
+      total += nodes;
+      if (nodes <= 1) break;
+      lw.push_back((lw.back() + 1) / 2), lh.push_back((lh.back() + 1) / 2), first.push_back(total);
+    }
+    parent.assign(total, -1);
+    for (size_t l = 0; l + 1 < lw.size(); l++)
+      for (int j = 0; j < lh[l]; j++)
+        for (int i = 0; i < lw[l]; i++) parent[first[l] + j * lw[l] + i] = first[l + 1] + (j / 2) * lw[l + 1] + i / 2;
+    value.assign(total, 999), low.assign(total, 0);
+  }
+  void reset() {
+    std::fill(value.begin(), value.end(), 999);
+    std::fill(low.begin(), low.end(), 0);
+  }
+  bool decode(Bio& bio, int leaf, int32_t threshold) {
+    int stk[32], depth = 0, node = leaf;
+    while (parent[node] >= 0) stk[depth++] = node, node = parent[node];
+    int32_t lo = 0;
+    for (;;) {
+      if (lo > low[node]) low[node] = lo;
+      else lo = low[node];
+      while (lo < threshold && lo < value[node]) {
+        if (bio.bit()) value[node] = lo;
+        else ++lo;
+      }
+      low[node] = lo;
+      if (depth == 0) break;
+      node = stk[--depth];
+    }
+    return value[node] < threshold;
+  }
+};
+
+struct Seg {
+  int64_t len = 0;
+  uint32_t numpasses = 0, maxpasses = 109, newlen = 0, numnewpasses = 0;
+};
+
+struct Cblk {
+  int64_t x0, y0, x1, y1;
+  int32_t numbps = 0;
+  uint32_t numlenbits = 0, numnewpasses = 0, numsegs = 0;
+  std::vector<Seg> segs;
+  std::vector<uint8_t> data;
+  std::vector<std::pair<int64_t, int64_t>> chunks;  // (offset in the tile's data, length)
+};
+
+struct Precinct {
+  int64_t x0, y0, x1, y1;
+  int cw = 0, ch = 0;
+  std::vector<Cblk> cblks;
+  TagTree incl, imsb;
+};
+
+struct Band {
+  int bandno = 0;
+  int64_t x0, y0, x1, y1;
+  int32_t numbps = 0;
+  float stepsize = 0;
+  std::vector<Precinct> precs;
+  bool empty() const { return x1 - x0 == 0 || y1 - y0 == 0; }
+};
+
+struct Res {
+  int64_t x0, y0, x1, y1;
+  int pw = 0, ph = 0, pdx = 0, pdy = 0, numbands = 0;
+  Band bands[3];
+};
+
+union Sample {
+  int32_t i;
+  float f;
+};
+
+struct TileComp {
+  int64_t x0, y0, x1, y1;
+  int numres = 0;
+  std::vector<Res> res;
+  std::vector<Sample> data;
+};
+
+void init_seg(Cblk& cb, uint32_t index) {
+  if (cb.segs.size() < index + 1) cb.segs.resize(index + 1);
+  cb.segs[index] = Seg();
+}
+
+uint32_t num_passes(Bio& bio) {
+  if (!bio.read(1)) return 1;
+  if (!bio.read(1)) return 2;
+  uint32_t n = bio.read(2);
+  if (n != 3) return 3 + n;
+  n = bio.read(5);
+  if (n != 31) return 6 + n;
+  return 37 + bio.read(7);
+}
+
+int floorlog2(uint32_t a) {
+  int l = 0;
+  while (a > 1) a >>= 1, ++l;
+  return l;
+}
+
+// One packet (opj_t2_read_packet_header, opj_t2_read_packet_data in strict
+// mode); returns the bytes it spans.
+int64_t read_packet(Res& res, int precno, int layno, const uint8_t* src, int64_t max_len, int64_t src_off,
+                    int compno, int resno) {
+  if (layno == 0) {
+    for (int b = 0; b < res.numbands; b++) {
+      Band& band = res.bands[b];
+      if (band.empty()) continue;
+      if (precno >= int(band.precs.size())) fail("Invalid precinct");
+      Precinct& pr = band.precs[precno];
+      pr.incl.reset(), pr.imsb.reset();
+      for (Cblk& cb : pr.cblks) cb.numsegs = 0;
+    }
+  }
+  Bio bio(src, max_len);
+  if (!bio.read(1)) {
+    bio.inalign();
+    return bio.numbytes();
+  }
+  for (int b = 0; b < res.numbands; b++) {
+    Band& band = res.bands[b];
+    if (band.empty()) continue;
+    Precinct& pr = band.precs[precno];
+    for (int k = 0; k < int(pr.cblks.size()); k++) {
+      Cblk& cb = pr.cblks[k];
+      bool included = cb.numsegs == 0 ? pr.incl.decode(bio, k, layno + 1) : bio.read(1) != 0;
+      if (!included) {
+        cb.numnewpasses = 0;
+        continue;
+      }
+      if (cb.numsegs == 0) {
+        int32_t i = 0;
+        while (!pr.imsb.decode(bio, k, i)) ++i;
+        cb.numbps = int32_t(uint32_t(band.numbps) + 1u - uint32_t(i));
+        cb.numlenbits = 3;
+      }
+      cb.numnewpasses = num_passes(bio);
+      uint32_t increment = 0;
+      while (bio.read(1)) ++increment;
+      cb.numlenbits += increment;
+      uint32_t segno = 0;
+      if (cb.numsegs == 0) {
+        init_seg(cb, 0);
+      } else {
+        segno = cb.numsegs - 1;
+        if (cb.segs[segno].numpasses == cb.segs[segno].maxpasses) init_seg(cb, ++segno);
+      }
+      int64_t left = cb.numnewpasses;
+      do {
+        Seg& seg = cb.segs[segno];
+        seg.numnewpasses = uint32_t(std::min<int64_t>(int64_t(seg.maxpasses) - seg.numpasses, left));
+        uint32_t bits = cb.numlenbits + floorlog2(seg.numnewpasses);
+        if (bits > 32) fail(fmt("Invalid bit number %lld in opj_t2_read_packet_header()", bits));
+        seg.newlen = bio.read(int(bits));
+        left -= seg.numnewpasses;
+        if (left > 0) init_seg(cb, ++segno);
+      } while (left > 0);
+    }
+  }
+  bio.inalign();
+  int64_t pos = bio.numbytes();
+  for (int b = 0; b < res.numbands; b++) {  // the packet body
+    Band& band = res.bands[b];
+    if (band.empty()) continue;
+    Precinct& pr = band.precs[precno];
+    for (int k = 0; k < int(pr.cblks.size()); k++) {
+      Cblk& cb = pr.cblks[k];
+      if (!cb.numnewpasses) continue;
+      uint32_t s;
+      if (!cb.numsegs) {
+        s = 0, cb.numsegs = 1;
+      } else {
+        s = cb.numsegs - 1;
+        if (cb.segs[s].numpasses == cb.segs[s].maxpasses) ++s, ++cb.numsegs;
+      }
+      do {
+        Seg& seg = cb.segs[s];
+        if (pos + int64_t(seg.newlen) > max_len)
+          fail(fmt("read: segment too long (%lld) with max (%lld) for codeblock %lld", seg.newlen, max_len, k) +
+               fmt(" (p=%lld, b=%lld, r=%lld", precno, b, resno) + fmt(", c=%lld)", compno));
+        cb.data.insert(cb.data.end(), src + pos, src + pos + seg.newlen);
+        if (seg.newlen) cb.chunks.push_back({src_off + pos, seg.newlen});
+        pos += seg.newlen;
+        seg.len += seg.newlen;
+        seg.numpasses += seg.numnewpasses;
+        cb.numnewpasses -= seg.numnewpasses;
+        if (cb.numnewpasses > 0) ++s, ++cb.numsegs;
+      } while (cb.numnewpasses > 0);
+    }
+  }
+  return pos;
+}
+
+// The tile's geometry (opj_tcd_init_tile, decoding)
+void init_tile(const Codestream& cs, const Tcp& tcp, int tileno, std::vector<TileComp>& comps, int64_t t[4]) {
+  int p = tileno % cs.tw, q = tileno / cs.tw;
+  t[0] = std::max<int64_t>(cs.tx0 + p * cs.tdx, cs.x0), t[1] = std::max<int64_t>(cs.ty0 + q * cs.tdy, cs.y0);
+  t[2] = std::min<int64_t>(cs.tx0 + (p + 1) * cs.tdx, cs.x1), t[3] = std::min<int64_t>(cs.ty0 + (q + 1) * cs.tdy, cs.y1);
+  comps.assign(cs.comps.size(), TileComp());
+  for (size_t c = 0; c < cs.comps.size(); c++) {
+    const Tccp& tccp = tcp.tccps[c];
+    TileComp& tc = comps[c];
+    tc.x0 = ceildiv(t[0], cs.comps[c].dx), tc.y0 = ceildiv(t[1], cs.comps[c].dy);
+    tc.x1 = ceildiv(t[2], cs.comps[c].dx), tc.y1 = ceildiv(t[3], cs.comps[c].dy);
+    tc.numres = tccp.numres;
+    tc.res.assign(tc.numres, Res());
+    int step = 0;
+    for (int r = 0; r < tc.numres; r++) {
+      Res& res = tc.res[r];
+      int level = tc.numres - 1 - r;
+      res.x0 = ceildivpow2(tc.x0, level), res.y0 = ceildivpow2(tc.y0, level);
+      res.x1 = ceildivpow2(tc.x1, level), res.y1 = ceildivpow2(tc.y1, level);
+      int pdx = res.pdx = tccp.prcw[r], pdy = res.pdy = tccp.prch[r];
+      int64_t px0 = floordivpow2(res.x0, pdx) << pdx, py0 = floordivpow2(res.y0, pdy) << pdy;
+      int64_t px1 = ceildivpow2(res.x1, pdx) << pdx, py1 = ceildivpow2(res.y1, pdy) << pdy;
+      res.pw = res.x0 == res.x1 ? 0 : int((px1 - px0) >> pdx);
+      res.ph = res.y0 == res.y1 ? 0 : int((py1 - py0) >> pdy);
+      int64_t cbgx0, cbgy0;
+      int cbgw, cbgh;
+      if (r == 0) {
+        cbgx0 = px0, cbgy0 = py0, cbgw = pdx, cbgh = pdy, res.numbands = 1;
+      } else {
+        cbgx0 = ceildivpow2(px0, 1), cbgy0 = ceildivpow2(py0, 1), cbgw = pdx - 1, cbgh = pdy - 1, res.numbands = 3;
+      }
+      int cbw = std::min(tccp.cblkw, cbgw), cbh = std::min(tccp.cblkh, cbgh);
+      for (int b = 0; b < res.numbands; b++, step++) {
+        Band& band = res.bands[b];
+        if (r == 0) {
+          band.bandno = 0;
+          band.x0 = ceildivpow2(tc.x0, level), band.y0 = ceildivpow2(tc.y0, level);
+          band.x1 = ceildivpow2(tc.x1, level), band.y1 = ceildivpow2(tc.y1, level);
+        } else {
+          band.bandno = b + 1;
+          int64_t xb = band.bandno & 1, yb = band.bandno >> 1;
+          band.x0 = ceildivpow2(tc.x0 - (xb << level), level + 1), band.y0 = ceildivpow2(tc.y0 - (yb << level), level + 1);
+          band.x1 = ceildivpow2(tc.x1 - (xb << level), level + 1), band.y1 = ceildivpow2(tc.y1 - (yb << level), level + 1);
+        }
+        const StepSize& ss = tccp.steps[std::min(step, 96)];
+        int gain = tccp.qmfbid == 0 ? 0 : band.bandno == 0 ? 0 : band.bandno == 3 ? 2 : 1;
+        int rb = cs.comps[c].prec + gain;
+        band.stepsize = float((1.0 + ss.mant / 2048.0) * pow(2.0, double(rb - ss.expn)));
+        band.numbps = ss.expn + tccp.numgbits - 1;
+        if (band.empty()) continue;  // OpenJPEG keeps no precincts of an empty band
+        int64_t nprec = int64_t(res.pw) * res.ph;
+        if (nprec > (1 << 24)) fail("Size of tile data exceeds system limits");
+        band.precs.assign(size_t(nprec), Precinct());
+        for (int64_t k = 0; k < nprec; k++) {
+          Precinct& pr = band.precs[k];
+          int64_t gx0 = cbgx0 + (k % res.pw) * (int64_t(1) << cbgw), gy0 = cbgy0 + (k / res.pw) * (int64_t(1) << cbgh);
+          pr.x0 = std::max(gx0, band.x0), pr.y0 = std::max(gy0, band.y0);
+          pr.x1 = std::min(gx0 + (int64_t(1) << cbgw), band.x1), pr.y1 = std::min(gy0 + (int64_t(1) << cbgh), band.y1);
+          int64_t bx0 = floordivpow2(pr.x0, cbw) << cbw, by0 = floordivpow2(pr.y0, cbh) << cbh;
+          int64_t bx1 = ceildivpow2(pr.x1, cbw) << cbw, by1 = ceildivpow2(pr.y1, cbh) << cbh;
+          pr.cw = int(std::max<int64_t>(0, (bx1 - bx0) >> cbw)), pr.ch = int(std::max<int64_t>(0, (by1 - by0) >> cbh));
+          pr.cblks.assign(size_t(pr.cw) * pr.ch, Cblk());
+          for (int j = 0; j < pr.cw * pr.ch; j++) {
+            Cblk& cb = pr.cblks[j];
+            int64_t x = bx0 + int64_t(j % pr.cw << cbw), y = by0 + int64_t(j / pr.cw << cbh);
+            cb.x0 = std::max(x, pr.x0), cb.y0 = std::max(y, pr.y0);
+            cb.x1 = std::min(x + (int64_t(1) << cbw), pr.x1), cb.y1 = std::min(y + (int64_t(1) << cbh), pr.y1);
+          }
+          if (pr.cw > 0 && pr.ch > 0) pr.incl.init(pr.cw, pr.ch), pr.imsb.init(pr.cw, pr.ch);
+        }
+      }
+    }
+  }
+}
+
+// The packets of one tile in its progression order (opj_pi_next_lrcp,
+// _rlcp, _rpcl, _pcrl, _cprl), each read once.
+void tier2(const Codestream& cs, const Tcp& tcp, std::vector<TileComp>& comps, const int64_t t[4],
+           const uint8_t* data, int64_t len, int64_t data_off) {
+  int ncomp = int(comps.size()), maxres = 0;
+  int64_t maxprec = 0;
+  for (TileComp& tc : comps) {
+    maxres = std::max(maxres, tc.numres);
+    for (Res& r : tc.res) maxprec = std::max(maxprec, int64_t(r.pw) * r.ph);
+  }
+  int64_t step_c = maxprec, step_r = step_c * ncomp, step_l = step_r * maxres;
+  if (step_l * tcp.numlayers > (int64_t(1) << 31)) fail("Size of tile data exceeds system limits");
+  std::vector<uint8_t> include(size_t(step_l * tcp.numlayers), 0);
+  int64_t pos = 0;
+  auto packet = [&](int l, int r, int c, int p) {
+    size_t index = size_t(l * step_l + r * step_r + c * step_c + p);
+    if (include[index]) return;
+    include[index] = 1;
+    pos += read_packet(comps[c].res[r], p, l, data + pos, len - pos, data_off + pos, c, r);
+  };
+  auto position = [&](int c, int r, uint64_t x, uint64_t y, int l_all) {
+    // one precinct of (component, resolution) at reference-grid (x, y), if it starts there
+    const TileComp& tc = comps[c];
+    if (r >= tc.numres) return;
+    const Res& res = tc.res[r];
+    const Comp& comp = cs.comps[c];
+    int level = tc.numres - 1 - r;
+    uint64_t dx = uint64_t(comp.dx) << level, dy = uint64_t(comp.dy) << level;
+    uint64_t trx0 = ceildiv(t[0], dx), try0 = ceildiv(t[1], dy), trx1 = ceildiv(t[2], dx), try1 = ceildiv(t[3], dy);
+    int rpx = res.pdx + level, rpy = res.pdy + level;
+    if (rpx >= 31 || rpy >= 31) return;
+    if (!(y % (uint64_t(comp.dy) << rpy) == 0 || (y == uint64_t(t[1]) && ((try0 << level) % (uint64_t(1) << rpy)))))
+      return;
+    if (!(x % (uint64_t(comp.dx) << rpx) == 0 || (x == uint64_t(t[0]) && ((trx0 << level) % (uint64_t(1) << rpx)))))
+      return;
+    if (res.pw == 0 || res.ph == 0 || trx0 == trx1 || try0 == try1) return;
+    uint64_t prci = (ceildiv(x, dx) >> res.pdx) - (trx0 >> res.pdx);
+    uint64_t prcj = (ceildiv(y, dy) >> res.pdy) - (try0 >> res.pdy);
+    int precno = int(prci + prcj * res.pw);
+    if (precno >= res.pw * res.ph) fail("Invalid access to pi->include");
+    for (int l = 0; l < l_all; l++) packet(l, r, c, precno);
+  };
+  auto steps = [&](int c0, int c1) {  // the smallest precinct step on the grid over components [c0, c1)
+    uint64_t sx = 0, sy = 0;
+    for (int c = c0; c < c1; c++) {
+      const TileComp& tc = comps[c];
+      for (int r = 0; r < tc.numres; r++) {
+        int level = tc.numres - 1 - r;
+        const Res& res = tc.res[r];
+        if (res.pdx + level < 32) {
+          uint64_t d = uint64_t(cs.comps[c].dx) << (res.pdx + level);
+          sx = sx ? std::min(sx, d) : d;
+        }
+        if (res.pdy + level < 32) {
+          uint64_t d = uint64_t(cs.comps[c].dy) << (res.pdy + level);
+          sy = sy ? std::min(sy, d) : d;
+        }
+      }
+    }
+    return std::make_pair(sx, sy);
+  };
+  int L = tcp.numlayers;
+  uint64_t tx0 = t[0], ty0 = t[1], tx1 = t[2], ty1 = t[3];
+  switch (tcp.prg) {
+    case 0:  // LRCP
+      for (int l = 0; l < L; l++)
+        for (int r = 0; r < maxres; r++)
+          for (int c = 0; c < ncomp; c++)
+            if (r < comps[c].numres)
+              for (int p = 0; p < comps[c].res[r].pw * comps[c].res[r].ph; p++) packet(l, r, c, p);
+      break;
+    case 1:  // RLCP
+      for (int r = 0; r < maxres; r++)
+        for (int l = 0; l < L; l++)
+          for (int c = 0; c < ncomp; c++)
+            if (r < comps[c].numres)
+              for (int p = 0; p < comps[c].res[r].pw * comps[c].res[r].ph; p++) packet(l, r, c, p);
+      break;
+    case 2: {  // RPCL
+      auto [sx, sy] = steps(0, ncomp);
+      if (!sx || !sy) break;
+      for (int r = 0; r < maxres; r++)
+        for (uint64_t y = ty0; y < ty1; y += sy - y % sy)
+          for (uint64_t x = tx0; x < tx1; x += sx - x % sx)
+            for (int c = 0; c < ncomp; c++) position(c, r, x, y, L);
+      break;
+    }
+    case 3: {  // PCRL
+      auto [sx, sy] = steps(0, ncomp);
+      if (!sx || !sy) break;
+      for (uint64_t y = ty0; y < ty1; y += sy - y % sy)
+        for (uint64_t x = tx0; x < tx1; x += sx - x % sx)
+          for (int c = 0; c < ncomp; c++)
+            for (int r = 0; r < std::min(maxres, comps[c].numres); r++) position(c, r, x, y, L);
+      break;
+    }
+    default: {  // CPRL
+      for (int c = 0; c < ncomp; c++) {
+        auto [sx, sy] = steps(c, c + 1);
+        if (!sx || !sy) break;
+        for (uint64_t y = ty0; y < ty1; y += sy - y % sy)
+          for (uint64_t x = tx0; x < tx1; x += sx - x % sx)
+            for (int r = 0; r < std::min(maxres, comps[c].numres); r++) position(c, r, x, y, L);
+      }
+    }
+  }
+}
+
+// ---- tier 1 ----
+
+struct MqState {
+  uint16_t qe;
+  uint8_t nmps, nlps, sw;
+};
+
+const MqState MQ_TABLE[47] = {
+    {0x5601, 1, 1, 1},   {0x3401, 2, 6, 0},   {0x1801, 3, 9, 0},   {0x0ac1, 4, 12, 0},  {0x0521, 5, 29, 0},
+    {0x0221, 38, 33, 0}, {0x5601, 7, 6, 1},   {0x5401, 8, 14, 0},  {0x4801, 9, 14, 0},  {0x3801, 10, 14, 0},
+    {0x3001, 11, 17, 0}, {0x2401, 12, 18, 0}, {0x1c01, 13, 20, 0}, {0x1601, 29, 21, 0}, {0x5601, 15, 14, 1},
+    {0x5401, 16, 14, 0}, {0x5101, 17, 15, 0}, {0x4801, 18, 16, 0}, {0x3801, 19, 17, 0}, {0x3401, 20, 18, 0},
+    {0x3001, 21, 19, 0}, {0x2801, 22, 19, 0}, {0x2401, 23, 20, 0}, {0x2201, 24, 21, 0}, {0x1c01, 25, 22, 0},
+    {0x1801, 26, 23, 0}, {0x1601, 27, 24, 0}, {0x1401, 28, 25, 0}, {0x1201, 29, 26, 0}, {0x1101, 30, 27, 0},
+    {0x0ac1, 31, 28, 0}, {0x09c1, 32, 29, 0}, {0x08a1, 33, 30, 0}, {0x0521, 34, 31, 0}, {0x0441, 35, 32, 0},
+    {0x02a1, 36, 33, 0}, {0x0221, 37, 34, 0}, {0x0141, 38, 35, 0}, {0x0111, 39, 36, 0}, {0x0085, 40, 37, 0},
+    {0x0049, 41, 38, 0}, {0x0025, 42, 39, 0}, {0x0015, 43, 40, 0}, {0x0009, 44, 41, 0}, {0x0005, 45, 42, 0},
+    {0x0001, 45, 43, 0}, {0x5601, 46, 46, 0},
+};
+
+enum { CTX_SC = 9, CTX_MAG = 14, CTX_AGG = 17, CTX_UNI = 18, NCTX = 19 };
+
+// The MQ decoder as OpenJPEG's opj_mqc_* macros run it; the segment is
+// followed by 0xFF 0xFF, which stops the byte input.
+struct Mq {
+  const uint8_t* bp;
+  uint32_t a = 0, c = 0;
+  int ct = 0;
+  uint8_t state[NCTX], mps[NCTX];
+  void reset_states() {
+    memset(state, 0, sizeof state), memset(mps, 0, sizeof mps);
+    state[CTX_UNI] = 46, state[CTX_AGG] = 3, state[0] = 4;
+  }
+  void bytein() {
+    if (*bp == 0xff) {
+      if (bp[1] > 0x8f) {
+        c += 0xff00, ct = 8;
+      } else {
+        bp++, c += uint32_t(*bp) << 9, ct = 7;
+      }
+    } else {
+      bp++, c += uint32_t(*bp) << 8, ct = 8;
+    }
+  }
+  void init(const uint8_t* p, int64_t len) {
+    bp = p;
+    c = len == 0 ? 0xffu << 16 : uint32_t(*bp) << 16;
+    bytein();
+    c <<= 7, ct -= 7, a = 0x8000;
+  }
+  void renorm() {
+    do {
+      if (ct == 0) bytein();
+      a <<= 1, c <<= 1, ct--;
+    } while (a < 0x8000);
+  }
+  int decode(int cx) {
+    const MqState& s = MQ_TABLE[state[cx]];
+    int d;
+    a -= s.qe;
+    if ((c >> 16) < s.qe) {
+      if (a < s.qe) {
+        d = mps[cx], state[cx] = s.nmps;
+      } else {
+        d = !mps[cx];
+        if (s.sw) mps[cx] = uint8_t(!mps[cx]);
+        state[cx] = s.nlps;
+      }
+      a = s.qe;
+      renorm();
+    } else {
+      c -= uint32_t(s.qe) << 16;
+      if ((a & 0x8000) == 0) {
+        if (a < s.qe) {
+          d = !mps[cx];
+          if (s.sw) mps[cx] = uint8_t(!mps[cx]);
+          state[cx] = s.nlps;
+        } else {
+          d = mps[cx], state[cx] = s.nmps;
+        }
+        renorm();
+      } else {
+        d = mps[cx];
+      }
+    }
+    return d;
+  }
+};
+
+// per-sample flags: the 8 neighbours' significance, the 4 direct
+// neighbours' signs, the sample's own state
+enum : uint32_t {
+  NB_NW = 1u << 0, NB_N = 1u << 1, NB_NE = 1u << 2, NB_W = 1u << 3, NB_E = 1u << 4, NB_SW = 1u << 5,
+  NB_S = 1u << 6, NB_SE = 1u << 7, NEG_N = 1u << 8, NEG_W = 1u << 9, NEG_E = 1u << 10, NEG_S = 1u << 11,
+  SIG = 1u << 12, VISIT = 1u << 13, REFINED = 1u << 14, NB_ALL = 0xff,
+};
+
+struct Luts {
+  uint8_t zc[4][256];
+  uint8_t sc[256];  // context | xor bit << 7, indexed by the direct neighbours' significance and sign bits
+  Luts() {
+    for (int o = 0; o < 4; o++)
+      for (int f = 0; f < 256; f++) {
+        int h = !!(f & NB_W) + !!(f & NB_E), v = !!(f & NB_N) + !!(f & NB_S);
+        int dg = !!(f & NB_NW) + !!(f & NB_NE) + !!(f & NB_SW) + !!(f & NB_SE);
+        int n;
+        if (o == 3) {
+          int hv = h + v;
+          if (dg >= 3) n = 8;
+          else if (dg == 2) n = hv >= 1 ? 7 : 6;
+          else if (dg == 1) n = hv >= 2 ? 5 : hv == 1 ? 4 : 3;
+          else n = hv >= 2 ? 2 : hv;
+        } else {
+          if (o == 1) std::swap(h, v);  // HL (horizontally high-pass): vertical neighbours lead
+          if (h == 2) n = 8;
+          else if (h == 1) n = v >= 1 ? 7 : dg >= 1 ? 6 : 5;
+          else n = v == 2 ? 4 : v == 1 ? 3 : dg >= 2 ? 2 : dg;
+        }
+        zc[o][f] = uint8_t(n);
+      }
+    for (int f = 0; f < 256; f++) {  // bits: sig N, W, E, S; neg N, W, E, S
+      auto contrib = [&](int sigbit, int negbit) { return (f >> sigbit & 1) ? ((f >> negbit & 1) ? -1 : 1) : 0; };
+      int h = contrib(1, 5) + contrib(2, 6), v = contrib(0, 4) + contrib(3, 7);
+      h = std::max(-1, std::min(1, h)), v = std::max(-1, std::min(1, v));
+      int ctx, x = 0;
+      if (h == 0 && v == 0) ctx = 9;
+      else if (h == 0) ctx = 10, x = v < 0;
+      else ctx = (h * v > 0 ? 13 : h * v < 0 ? 11 : 12), x = h < 0;
+      sc[f] = uint8_t(ctx | x << 7);
+    }
+  }
+};
+
+const Luts LUTS;
+
+inline int sc_index(uint32_t f) {
+  return int(!!(f & NB_N)) | int(!!(f & NB_W)) << 1 | int(!!(f & NB_E)) << 2 | int(!!(f & NB_S)) << 3 |
+         int(!!(f & NEG_N)) << 4 | int(!!(f & NEG_W)) << 5 | int(!!(f & NEG_E)) << 6 | int(!!(f & NEG_S)) << 7;
+}
+
+struct T1 {
+  int w, h, stride;
+  std::vector<uint32_t> flags;
+  std::vector<int32_t> data;
+  const uint8_t* zc;
+  Mq mq;
+
+  void set_sig(int i, int neg) {
+    uint32_t* f = &flags[i];
+    const uint32_t n = neg ? ~0u : 0u;
+    f[0] |= SIG;
+    f[-stride - 1] |= NB_SE, f[-stride] |= NB_S | (NEG_S & n), f[-stride + 1] |= NB_SW;
+    f[-1] |= NB_E | (NEG_E & n), f[1] |= NB_W | (NEG_W & n);
+    f[stride - 1] |= NB_NE, f[stride] |= NB_N | (NEG_N & n), f[stride + 1] |= NB_NW;
+  }
+  int sign(uint32_t f) {
+    uint8_t s = LUTS.sc[sc_index(f)];
+    return mq.decode(s & 0x7f) ^ (s >> 7);
+  }
+  void become_sig(int i, int d, int32_t oneplushalf) {
+    int neg = sign(flags[i]);
+    data[d] = neg ? -oneplushalf : oneplushalf;
+    set_sig(i, neg);
+  }
+  template <class F>
+  void scan(F f) {
+    for (int k = 0; k < h; k += 4)
+      for (int x = 0; x < w; x++)
+        for (int y = k; y < std::min(k + 4, h); y++) f((y + 1) * stride + x + 1, y * w + x);
+  }
+  void sigpass(int bp) {
+    int32_t one = 1 << bp, oph = one | (one >> 1);
+    scan([&](int i, int d) {
+      uint32_t f = flags[i];
+      if (!(f & (SIG | VISIT)) && (f & NB_ALL)) {
+        if (mq.decode(zc[f & NB_ALL])) become_sig(i, d, oph);
+        flags[i] |= VISIT;
+      }
+    });
+  }
+  void refpass(int bp) {
+    int32_t poshalf = (1 << bp) >> 1;
+    scan([&](int i, int d) {
+      uint32_t f = flags[i];
+      if ((f & (SIG | VISIT)) == SIG) {
+        int ctx = (f & REFINED) ? CTX_MAG + 2 : (f & NB_ALL) ? CTX_MAG + 1 : CTX_MAG;
+        int v = mq.decode(ctx);
+        data[d] += (v ^ (data[d] < 0)) ? poshalf : -poshalf;
+        flags[i] |= REFINED;
+      }
+    });
+  }
+  void clnpass(int bp) {
+    int32_t one = 1 << bp, oph = one | (one >> 1);
+    auto step = [&](int i, int d) {
+      uint32_t f = flags[i];
+      if (!(f & (SIG | VISIT)) && mq.decode(zc[f & NB_ALL])) become_sig(i, d, oph);
+    };
+    for (int k = 0; k < h; k += 4)
+      for (int x = 0; x < w; x++) {
+        int i0 = (k + 1) * stride + x + 1, d0 = k * w + x, y0 = 0;
+        if (k + 3 < h) {
+          const uint32_t mask = SIG | VISIT | NB_ALL;
+          if (!(flags[i0] & mask) && !(flags[i0 + stride] & mask) && !(flags[i0 + 2 * stride] & mask) &&
+              !(flags[i0 + 3 * stride] & mask)) {
+            if (!mq.decode(CTX_AGG)) continue;
+            int run = mq.decode(CTX_UNI) << 1;
+            run |= mq.decode(CTX_UNI);
+            become_sig(i0 + run * stride, d0 + run * w, oph);
+            y0 = run + 1;
+          }
+        }
+        for (int y = y0; y < 4 && k + y < h; y++) step(i0 + y * stride, d0 + y * w);
+      }
+    for (uint32_t& f : flags) f &= ~VISIT;
+  }
+  void decode(const Cblk& cb, int orient) {
+    w = int(cb.x1 - cb.x0), h = int(cb.y1 - cb.y0), stride = w + 2;
+    flags.assign(size_t(stride) * (h + 2), 0);
+    data.assign(size_t(w) * h, 0);
+    zc = LUTS.zc[orient];
+    int32_t bp = cb.numbps;
+    if (bp >= 31) fail(fmt("opj_t1_decode_cblk(): unsupported bpno_plus_one = %lld >= 31", bp));
+    mq.reset_states();
+    int passtype = 2;
+    int64_t at = 0;
+    std::vector<uint8_t> seg_data;
+    for (uint32_t s = 0; s < cb.numsegs; s++) {
+      const Seg& seg = cb.segs[s];
+      seg_data.assign(cb.data.begin() + at, cb.data.begin() + at + seg.len);
+      seg_data.push_back(0xff), seg_data.push_back(0xff);
+      at += seg.len;
+      mq.init(seg_data.data(), seg.len);
+      for (uint32_t p = 0; p < seg.numpasses && bp >= 1; p++) {
+        if (passtype == 0) sigpass(bp);
+        else if (passtype == 1) refpass(bp);
+        else clnpass(bp);
+        if (++passtype == 3) passtype = 0, bp--;
+      }
+    }
+  }
+};
+
+// ---- wavelets, colour, output ----
+
+// The 1-D inverse transforms run on `width` lines at once: sample p of
+// line w is x[p * width + w], the samples interleaved (low-pass at the
+// positions of parity `cas`, OpenJPEG's h.cas / v.cas). Each sample takes
+// the same operations in the same order as OpenJPEG's one-line code;
+// the lines only share the loops.
+
+// the rows of a sample's two neighbours, mirrored at the ends (len >= 2)
+inline int before(int p) { return p > 0 ? p - 1 : p + 1; }
+inline int after(int p, int len) { return p + 1 < len ? p + 1 : p - 1; }
+
+void idwt53(int32_t* x, int len, int width, int cas) {
+  if (len == 1) {
+    if (cas)
+      for (int w = 0; w < width; w++) x[w] /= 2;
+    return;
+  }
+  for (int p = cas; p < len; p += 2) {  // wrapping int32 sums, as OpenJPEG's
+    int32_t* c = x + p * width;
+    const int32_t *l = x + before(p) * width, *r = x + after(p, len) * width;
+    for (int w = 0; w < width; w++)
+      c[w] = int32_t(uint32_t(c[w]) - uint32_t(int32_t(uint32_t(l[w]) + uint32_t(r[w]) + 2u) >> 2));
+  }
+  for (int p = 1 - cas; p < len; p += 2) {
+    int32_t* c = x + p * width;
+    const int32_t *l = x + before(p) * width, *r = x + after(p, len) * width;
+    for (int w = 0; w < width; w++)
+      c[w] = int32_t(uint32_t(c[w]) + uint32_t(int32_t(uint32_t(l[w]) + uint32_t(r[w])) >> 1));
+  }
+}
+
+const float K97 = 1.230174105f, TWO_INV_K97 = 1.625732422f;
+const float LIFT97[4] = {-0.443506852f, -0.882911075f, 0.052980118f, 1.586134342f};
+
+void idwt97(float* x, int len, int width, int cas) {
+  int sn = cas ? len / 2 : (len + 1) / 2, dn = len - sn;
+  if (cas == 0 ? !(dn > 0 || sn > 1) : !(sn > 0 || dn > 1)) return;
+  for (int p = 0; p < len; p++) {
+    const float k = (p % 2 == cas) ? K97 : TWO_INV_K97;
+    for (int w = 0; w < width; w++) x[p * width + w] = x[p * width + w] * k;
+  }
+  for (int s = 0; s < 4; s++) {
+    const float k = LIFT97[s];
+    for (int p = (s % 2 == 0) ? cas : 1 - cas; p < len; p += 2) {
+      float* c = x + p * width;
+      const float *l = x + before(p) * width, *r = x + after(p, len) * width;
+      for (int w = 0; w < width; w++) c[w] = c[w] + (l[w] + r[w]) * k;
+    }
+  }
+}
+
+// The inverse DWT of a tile-component: each level's rows, eight at a
+// time, then its columns, all at once.
+void idwt(TileComp& tc, int qmfbid) {
+  const int64_t stride = tc.x1 - tc.x0;
+  const int group = 8;
+  std::vector<Sample> tmp;
+  auto lines = [&](int len, int width, int cas) {
+    static_assert(sizeof(Sample) == 4, "a sample is one int32 or float");
+    if (qmfbid == 1) idwt53(&tmp[0].i, len, width, cas);
+    else idwt97(&tmp[0].f, len, width, cas);
+  };
+  for (int r = 1; r < tc.numres; r++) {
+    const Res &lo = tc.res[r - 1], &res = tc.res[r];
+    const int rw = int(res.x1 - res.x0), rh = int(res.y1 - res.y0);
+    const int snx = int(lo.x1 - lo.x0), sny = int(lo.y1 - lo.y0);
+    const int casx = int(res.x0 % 2), casy = int(res.y0 % 2);
+    // where sample k of the tile's line (low-pass first) goes in the interleaved line
+    auto slot = [](int k, int sn, int cas) { return k < sn ? 2 * k + cas : 2 * (k - sn) + 1 - cas; };
+    tmp.resize(size_t(rw) * group);
+    for (int j = 0; j < rh; j += group) {
+      const int n = std::min(group, rh - j);
+      for (int g = 0; g < n; g++)
+        for (int k = 0; k < rw; k++) tmp[size_t(slot(k, snx, casx)) * n + g] = tc.data[(j + g) * stride + k];
+      lines(rw, n, casx);
+      for (int g = 0; g < n; g++)
+        for (int k = 0; k < rw; k++) tc.data[(j + g) * stride + k] = tmp[size_t(k) * n + g];
+    }
+    tmp.resize(size_t(rh) * rw);
+    for (int k = 0; k < rh; k++)
+      std::copy_n(&tc.data[k * stride], rw, &tmp[size_t(slot(k, sny, casy)) * rw]);
+    lines(rh, rw, casy);
+    for (int k = 0; k < rh; k++) std::copy_n(&tmp[size_t(k) * rw], rw, &tc.data[k * stride]);
+  }
+}
+
+inline uint32_t shifted(uint32_t x, int n) { return n < 0 ? x >> -n : x << n; }
+
+// PIL's ImagingConvertYCbCr2RGB (its fixed-point tables, 6 fraction
+// bits): R = Y + R_Cr[Cr], B = Y + B_Cb[Cb] (each table shifted right by 6
+// already), G = Y + ((G_Cb[Cb] + G_Cr[Cr]) >> 6), each clamped to 0..255.
+// The G tables are one pair of integer tables giving PIL's G for every
+// (Cb, Cr), found from PIL's conversion of all 65536 pairs.
+const int16_t YCC_R_CR[256] = {
+    -180, -179, -177, -176, -174, -173, -172, -170, -169, -167, -166, -165, -163, -162, -160, -159,
+    -158, -156, -155, -153, -152, -150, -149, -148, -146, -145, -143, -142, -141, -139, -138, -136,
+    -135, -134, -132, -131, -129, -128, -127, -125, -124, -122, -121, -120, -118, -117, -115, -114,
+    -113, -111, -110, -108, -107, -106, -104, -103, -101, -100, -99, -97, -96, -94, -93, -92,
+    -90, -89, -87, -86, -85, -83, -82, -80, -79, -78, -76, -75, -73, -72, -71, -69,
+    -68, -66, -65, -64, -62, -61, -59, -58, -57, -55, -54, -52, -51, -50, -48, -47,
+    -45, -44, -43, -41, -40, -38, -37, -36, -34, -33, -31, -30, -29, -27, -26, -24,
+    -23, -22, -20, -19, -17, -16, -14, -13, -12, -10, -9, -7, -6, -5, -3, -2,
+    0, 1, 2, 4, 5, 7, 8, 9, 11, 12, 14, 15, 16, 18, 19, 21,
+    22, 23, 25, 26, 28, 29, 30, 32, 33, 35, 36, 37, 39, 40, 42, 43,
+    44, 46, 47, 49, 50, 51, 53, 54, 56, 57, 58, 60, 61, 63, 64, 65,
+    67, 68, 70, 71, 72, 74, 75, 77, 78, 79, 81, 82, 84, 85, 86, 88,
+    89, 91, 92, 93, 95, 96, 98, 99, 100, 102, 103, 105, 106, 107, 109, 110,
+    112, 113, 114, 116, 117, 119, 120, 121, 123, 124, 126, 127, 128, 130, 131, 133,
+    134, 136, 137, 138, 140, 141, 143, 144, 145, 147, 148, 150, 151, 152, 154, 155,
+    157, 158, 159, 161, 162, 164, 165, 166, 168, 169, 171, 172, 173, 175, 176, 178,
+};
+const int16_t YCC_B_CB[256] = {
+    -227, -226, -224, -222, -220, -218, -217, -215, -213, -211, -210, -208, -206, -204, -202, -201,
+    -199, -197, -195, -194, -192, -190, -188, -187, -185, -183, -181, -179, -178, -176, -174, -172,
+    -171, -169, -167, -165, -164, -162, -160, -158, -156, -155, -153, -151, -149, -148, -146, -144,
+    -142, -140, -139, -137, -135, -133, -132, -130, -128, -126, -125, -123, -121, -119, -117, -116,
+    -114, -112, -110, -109, -107, -105, -103, -101, -100, -98, -96, -94, -93, -91, -89, -87,
+    -86, -84, -82, -80, -78, -77, -75, -73, -71, -70, -68, -66, -64, -62, -61, -59,
+    -57, -55, -54, -52, -50, -48, -47, -45, -43, -41, -39, -38, -36, -34, -32, -31,
+    -29, -27, -25, -24, -22, -20, -18, -16, -15, -13, -11, -9, -8, -6, -4, -2,
+    0, 1, 3, 5, 7, 8, 10, 12, 14, 15, 17, 19, 21, 23, 24, 26,
+    28, 30, 31, 33, 35, 37, 38, 40, 42, 44, 46, 47, 49, 51, 53, 54,
+    56, 58, 60, 62, 63, 65, 67, 69, 70, 72, 74, 76, 77, 79, 81, 83,
+    85, 86, 88, 90, 92, 93, 95, 97, 99, 101, 102, 104, 106, 108, 109, 111,
+    113, 115, 116, 118, 120, 122, 124, 125, 127, 129, 131, 132, 134, 136, 138, 139,
+    141, 143, 145, 147, 148, 150, 152, 154, 155, 157, 159, 161, 163, 164, 166, 168,
+    170, 171, 173, 175, 177, 178, 180, 182, 184, 186, 187, 189, 191, 193, 194, 196,
+    198, 200, 202, 203, 205, 207, 209, 210, 212, 214, 216, 217, 219, 221, 223, 225,
+};
+const int16_t YCC_G_CB[256] = {
+    2817, 2807, 2761, 2753, 2707, 2697, 2687, 2643, 2633, 2621, 2579, 2567, 2557, 2514, 2501, 2493,
+    2448, 2437, 2428, 2382, 2373, 2362, 2318, 2308, 2297, 2254, 2242, 2233, 2187, 2177, 2168, 2121,
+    2113, 2102, 2057, 2048, 2003, 1993, 1982, 1939, 1928, 1917, 1875, 1862, 1853, 1809, 1797, 1789,
+    1743, 1733, 1723, 1678, 1669, 1657, 1614, 1603, 1593, 1549, 1537, 1529, 1483, 1473, 1464, 1417,
+    1409, 1398, 1353, 1344, 1299, 1289, 1277, 1235, 1223, 1213, 1170, 1157, 1149, 1104, 1093, 1084,
+    1038, 1029, 1018, 974, 964, 953, 910, 898, 889, 844, 833, 825, 778, 769, 759, 713,
+    705, 659, 649, 639, 595, 585, 573, 531, 519, 509, 466, 453, 445, 399, 389, 379,
+    334, 325, 313, 270, 259, 249, 205, 193, 185, 139, 129, 120, 73, 65, 54, 9,
+    0, -45, -55, -65, -109, -119, -131, -173, -185, -195, -238, -251, -259, -304, -315, -324,
+    -370, -379, -390, -434, -444, -455, -499, -511, -519, -565, -575, -584, -631, -639, -650, -695,
+    -704, -749, -759, -770, -813, -824, -835, -877, -890, -899, -943, -955, -963, -1009, -1019, -1029,
+    -1074, -1083, -1095, -1138, -1149, -1159, -1203, -1215, -1223, -1269, -1279, -1288, -1335, -1343, -1389, -1399,
+    -1409, -1453, -1463, -1475, -1517, -1529, -1539, -1582, -1595, -1603, -1648, -1659, -1668, -1714, -1723, -1734,
+    -1778, -1788, -1799, -1842, -1854, -1863, -1908, -1919, -1927, -1974, -1983, -1993, -2039, -2047, -2093, -2103,
+    -2113, -2157, -2167, -2179, -2221, -2234, -2243, -2287, -2299, -2307, -2353, -2363, -2373, -2418, -2427, -2439,
+    -2482, -2493, -2503, -2547, -2559, -2567, -2613, -2623, -2632, -2679, -2687, -2698, -2743, -2752, -2797, -2807,
+};
+const int16_t YCC_G_CR[256] = {
+    5869, 5815, 5759, 5703, 5682, 5627, 5571, 5549, 5495, 5439, 5383, 5362, 5307, 5251, 5229, 5175,
+    5119, 5063, 5043, 4987, 4931, 4909, 4855, 4799, 4743, 4723, 4667, 4611, 4589, 4535, 4479, 4423,
+    4403, 4347, 4291, 4270, 4215, 4159, 4103, 4083, 4027, 3971, 3950, 3895, 3839, 3784, 3763, 3707,
+    3651, 3630, 3575, 3519, 3464, 3443, 3387, 3331, 3310, 3255, 3199, 3144, 3123, 3067, 3012, 2990,
+    2935, 2879, 2824, 2803, 2747, 2692, 2670, 2615, 2559, 2504, 2483, 2427, 2372, 2350, 2295, 2240,
+    2184, 2163, 2107, 2052, 2030, 1975, 1920, 1864, 1843, 1787, 1732, 1710, 1655, 1600, 1544, 1523,
+    1468, 1412, 1390, 1335, 1280, 1224, 1203, 1148, 1092, 1070, 1016, 960, 904, 883, 828, 772,
+    750, 696, 640, 584, 563, 508, 452, 430, 376, 320, 264, 244, 188, 132, 110, 56,
+    0, -55, -75, -131, -187, -209, -263, -319, -375, -395, -451, -507, -528, -583, -639, -695,
+    -715, -771, -827, -848, -903, -959, -1015, -1035, -1091, -1147, -1168, -1223, -1279, -1334, -1355, -1411,
+    -1467, -1488, -1543, -1599, -1654, -1675, -1731, -1786, -1808, -1863, -1919, -1974, -1995, -2051, -2106, -2128,
+    -2183, -2239, -2294, -2315, -2371, -2426, -2448, -2503, -2558, -2614, -2635, -2691, -2746, -2768, -2823, -2878,
+    -2934, -2955, -3011, -3066, -3088, -3143, -3198, -3254, -3275, -3330, -3386, -3408, -3463, -3518, -3574, -3595,
+    -3650, -3706, -3728, -3783, -3838, -3894, -3915, -3970, -4026, -4048, -4102, -4158, -4214, -4235, -4290, -4346,
+    -4368, -4422, -4478, -4534, -4554, -4610, -4666, -4688, -4742, -4798, -4854, -4874, -4930, -4986, -5008, -5062,
+    -5118, -5174, -5194, -5250, -5306, -5327, -5382, -5438, -5494, -5514, -5570, -5626, -5647, -5702, -5758, -5780,
+};
+
+void ycbcr_to_rgb(uint8_t* px) {
+  int y = px[0], cb = px[1], cr = px[2];
+  int r = y + YCC_R_CR[cr], g = y + ((YCC_G_CB[cb] + YCC_G_CR[cr]) >> 6), b = y + YCC_B_CB[cb];
+  px[0] = uint8_t(r <= 0 ? 0 : r >= 255 ? 255 : r);
+  px[1] = uint8_t(g <= 0 ? 0 : g >= 255 ? 255 : g);
+  px[2] = uint8_t(b <= 0 ? 0 : b >= 255 ? 255 : b);
+}
+
+struct Output {
+  int kind, width, height, bpp;  // kind: PIL's unpacker (`unpacker`)
+  uint8_t* px;
+};
+
+// PIL's choice of unpacker (Jpeg2KDecode.c's j2k_unpackers): 0 gray_l,
+// 1 gray_i, 2 gray_rgb, 3 graya_la, 4 srgb_rgb, 5 sycc_rgb, 6 srgba_rgba,
+// 7 sycca_rgba
+int unpacker(int mode, int space, int ncomp) {
+  static const int table[][4] = {  // mode, colour space, components, unpacker
+      {M_L, CS_GRAY, 1, 0},     {M_P, CS_SRGB, 1, 0},     {M_PA, CS_SRGB, 2, 3},    {M_I16, CS_GRAY, 1, 1},
+      {M_LA, CS_GRAY, 2, 3},    {M_RGB, CS_GRAY, 1, 2},   {M_RGB, CS_GRAY, 2, 2},   {M_RGB, CS_SRGB, 3, 4},
+      {M_RGB, CS_SYCC, 3, 5},   {M_RGB, CS_SRGB, 4, 4},   {M_RGB, CS_SYCC, 4, 5},   {M_RGBA, CS_GRAY, 1, 2},
+      {M_RGBA, CS_GRAY, 2, 3},  {M_RGBA, CS_SRGB, 3, 4},  {M_RGBA, CS_SYCC, 3, 5},  {M_RGBA, CS_SRGB, 4, 6},
+      {M_RGBA, CS_GRAY, 4, 6},  {M_RGBA, CS_SYCC, 4, 7},  {M_CMYK, CS_CMYK, 4, 6},
+  };
+  if (ncomp < 1 || ncomp > 4 || space == CS_UNKNOWN) fail("broken data stream (components or colour space)");
+  if (space == CS_UNSPECIFIED) space = ncomp <= 2 ? CS_GRAY : CS_SRGB;
+  for (const auto& t : table)
+    if (t[0] == mode && t[1] == space && t[2] == ncomp) return t[3];
+  fail("broken data stream (no unpacker for the mode, colour space and components)");
+}
+
+void unpack_tile(const Codestream& cs, const std::vector<TileComp>& comps, const int64_t t[4], const Output& out) {
+  int64_t x0 = t[0] - cs.x0, y0 = t[1] - cs.y0, w = t[2] - t[0], h = t[3] - t[1];
+  if (t[0] >= t[2] || t[1] >= t[3] || t[0] < cs.x0 || t[1] < cs.y0 || t[2] - cs.x0 > out.width ||
+      t[3] - cs.y0 > out.height)
+    fail("broken data stream (tile outside the image)");
+  size_t n = comps.size();
+  // per component: its samples as the packed bytes read back (UINT8, UINT16 or UINT32)
+  std::vector<std::vector<uint32_t>> word(n);
+  std::vector<int> shift(n), offset(n);
+  int target = out.kind == 1 ? 16 : 8;
+  for (size_t c = 0; c < n; c++) {
+    const Comp& comp = cs.comps[c];
+    int csiz = (comp.prec + 7) >> 3;
+    if (csiz == 3) csiz = 4;
+    uint32_t mask = csiz == 1 ? 0xffu : csiz == 2 ? 0xffffu : 0xffffffffu;
+    word[c].resize(size_t(w * h));
+    const TileComp& tc = comps[c];
+    for (int64_t i = 0; i < w * h; i++) word[c][i] = uint32_t(tc.data[i].i) & mask;
+    shift[c] = target - comp.prec;
+    offset[c] = comp.sgnd ? 1 << (comp.prec - 1) : 0;
+    if (shift[c] < 0) offset[c] += 1 << (-shift[c] - 1);
+  }
+  auto val = [&](size_t c, int64_t i) { return shifted(uint32_t(offset[c]) + word[c][i], shift[c]); };
+  for (int64_t y = 0; y < h; y++)
+    for (int64_t x = 0; x < w; x++) {
+      int64_t i = y * w + x;
+      uint8_t* p = out.px + ((y0 + y) * out.width + x0 + x) * out.bpp;
+      switch (out.kind) {
+        case 0: p[0] = uint8_t(val(0, i)); break;
+        case 1: {
+          uint16_t v = uint16_t(val(0, i));
+          memcpy(p, &v, 2);
+          break;
+        }
+        case 2: p[0] = p[1] = p[2] = uint8_t(val(0, i)), p[3] = 0xff; break;
+        case 3: p[0] = p[1] = p[2] = uint8_t(val(0, i)), p[3] = uint8_t(val(1, i)); break;
+        case 4:
+        case 5:
+          for (int c = 0; c < 3; c++) p[c] = uint8_t(val(c, i));
+          p[3] = 0xff;
+          if (out.kind == 5) ycbcr_to_rgb(p);
+          break;
+        default:
+          for (int c = 0; c < 4; c++) p[c] = uint8_t(val(c, i));
+          if (out.kind == 7) ycbcr_to_rgb(p);
+      }
+    }
+}
+
+// Decodes one tile into its components' samples (after the DC shift and
+// clamp); `ranges` collects its code-blocks' data ranges when not null.
+void decode_tile(const Codestream& cs, const Tcp& tcp, int tileno, std::vector<TileComp>& comps, int64_t t[4],
+                 std::vector<std::pair<int64_t, int64_t>>* ranges) {
+  init_tile(cs, tcp, tileno, comps, t);
+  tier2(cs, tcp, comps, t, tcp.data.data(), int64_t(tcp.data.size()), 0);
+  T1 t1;
+  for (size_t c = 0; c < comps.size(); c++) {
+    TileComp& tc = comps[c];
+    const Tccp& tccp = tcp.tccps[c];
+    int64_t stride = tc.x1 - tc.x0;
+    tc.data.assign(size_t(stride * (tc.y1 - tc.y0)), Sample{0});
+    for (int r = 0; r < tc.numres; r++) {
+      const Res& res = tc.res[r];
+      for (int b = 0; b < res.numbands; b++) {
+        const Band& band = res.bands[b];
+        if (band.empty()) continue;
+        const float step = 0.5f * band.stepsize;
+        for (const Precinct& pr : band.precs)
+          for (const Cblk& cb : pr.cblks) {
+            if (ranges)
+              for (auto [off, len] : cb.chunks) ranges->push_back({off, len});
+            if (cb.x1 <= cb.x0 || cb.y1 <= cb.y0) continue;
+            t1.decode(cb, band.bandno);
+            int64_t x = cb.x0 - band.x0, y = cb.y0 - band.y0;
+            if (band.bandno & 1) x += tc.res[r - 1].x1 - tc.res[r - 1].x0;
+            if (band.bandno & 2) y += tc.res[r - 1].y1 - tc.res[r - 1].y0;
+            for (int j = 0; j < t1.h; j++)
+              for (int i = 0; i < t1.w; i++) {
+                Sample& s = tc.data[(y + j) * stride + x + i];
+                int32_t v = t1.data[j * t1.w + i];
+                if (tccp.qmfbid == 1) s.i = v / 2;
+                else s.f = float(v) * step;
+              }
+          }
+      }
+    }
+    idwt(tc, tccp.qmfbid);
+  }
+  if (tcp.mct) {
+    if (comps.size() >= 3) {
+      for (int c = 1; c < 3; c++)
+        if (comps[c].numres != comps[0].numres || comps[c].x1 - comps[c].x0 != comps[0].x1 - comps[0].x0 ||
+            comps[c].y1 - comps[c].y0 != comps[0].y1 - comps[0].y0)
+          fail("Tiles don't all have the same dimension. Skip the MCT step.");
+      Sample *c0 = comps[0].data.data(), *c1 = comps[1].data.data(), *c2 = comps[2].data.data();
+      size_t n = comps[0].data.size();
+      if (tcp.tccps[0].qmfbid == 1) {
+        for (size_t i = 0; i < n; i++) {
+          int32_t y = c0[i].i, u = c1[i].i, v = c2[i].i;
+          int32_t g = y - ((u + v) >> 2);
+          c0[i].i = v + g, c1[i].i = g, c2[i].i = u + g;
+        }
+      } else {
+        for (size_t i = 0; i < n; i++) {
+          float y = c0[i].f, u = c1[i].f, v = c2[i].f;
+          c0[i].f = y + v * 1.402f;
+          c1[i].f = y - u * 0.34413f - v * 0.71414f;
+          c2[i].f = y + u * 1.772f;
+        }
+      }
+    }
+  }
+  for (size_t c = 0; c < comps.size(); c++) {  // DC level shift and clamp (opj_tcd_dc_level_shift_decode)
+    const Comp& comp = cs.comps[c];
+    int32_t lo = comp.sgnd ? -(1 << (comp.prec - 1)) : 0;
+    int32_t hi = comp.sgnd ? (1 << (comp.prec - 1)) - 1 : int32_t((1u << comp.prec) - 1);
+    int32_t shift = comp.sgnd ? 0 : 1 << (comp.prec - 1);
+    for (Sample& s : comps[c].data) {
+      if (tcp.tccps[c].qmfbid == 1) {
+        s.i = int32_t(std::min<int64_t>(hi, std::max<int64_t>(lo, int64_t(s.i) + shift)));
+      } else {
+        float v = s.f;
+        if (std::isnan(v)) s.i = lo;
+        else if (v > float(INT32_MAX)) s.i = hi;
+        else if (v < float(INT32_MIN)) s.i = lo;
+        else s.i = int32_t(std::min<int64_t>(hi, std::max<int64_t>(lo, int64_t(lrintf(v)) + shift)));
+      }
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* gs_jp2_error() { return g_error.c_str(); }
+
+// Decodes the codestream `cs` (a raw .j2k file, or a JP2's codestream box
+// to the end of the file) as PIL reads it in `mode` (Mode) with OpenJPEG's
+// colour space `space` (Space), into `out`: PIL's image memory of
+// `width` x `height` pixels (1 byte a pixel for L and P, 2 for I;16, 4
+// otherwise), zero-filled by the caller. `ihdr_w` / `ihdr_h`: the JP2
+// header's size, which OpenJPEG requires the codestream to match (0: none).
+int gs_jp2_decode(const uint8_t* cs_data, long long size, int mode, int space, int width, int height,
+                  long long ihdr_w, long long ihdr_h, uint8_t* out) {
+  try {
+    Codestream cs = parse(cs_data, size, ihdr_w, ihdr_h);
+    Output o{unpacker(mode, space, int(cs.comps.size())), width, height,
+             mode == M_L || mode == M_P ? 1 : mode == M_I16 ? 2 : 4, out};
+    std::vector<TileComp> comps;
+    for (size_t k = 0; k < cs.tiles.size(); k++) {
+      if (!cs.tiles[k].has_data) continue;
+      int64_t t[4];
+      decode_tile(cs, cs.tiles[k], int(k), comps, t, nullptr);
+      unpack_tile(cs, comps, t, o);
+    }
+    return 0;
+  } catch (const Error& e) {
+    g_error = e.msg;
+  } catch (const std::bad_alloc&) {
+    g_error = "out of memory";
+  }
+  return 1;
+}
+
+// The code-block data ranges of a codestream (offset from its start,
+// length), into out[2 * i], out[2 * i + 1]; returns how many there are
+// (those past `capacity` are counted, not written), or -1 with
+// gs_jp2_error's message.
+long long gs_jp2_segments(const uint8_t* cs_data, long long size, long long* out, long long capacity) {
+  try {
+    Codestream cs = parse(cs_data, size, 0, 0);
+    std::vector<std::pair<int64_t, int64_t>> ranges;
+    std::vector<TileComp> comps;
+    for (size_t k = 0; k < cs.tiles.size(); k++) {
+      const Tcp& tcp = cs.tiles[k];
+      if (!tcp.has_data) continue;
+      int64_t t[4];
+      size_t first = ranges.size();
+      decode_tile(cs, tcp, int(k), comps, t, &ranges);
+      for (size_t i = first; i < ranges.size(); i++) {  // offsets in the tile's data -> in the codestream
+        int64_t off = ranges[i].first, base = 0;
+        for (auto [at, len] : tcp.parts) {
+          if (off < base + len) {
+            ranges[i].first = at + off - base;
+            break;
+          }
+          base += len;
+        }
+      }
+    }
+    for (size_t i = 0; i < ranges.size() && int64_t(i) < capacity; i++)
+      out[2 * i] = ranges[i].first, out[2 * i + 1] = ranges[i].second;
+    return (long long)ranges.size();
+  } catch (const Error& e) {
+    g_error = e.msg;
+  } catch (const std::bad_alloc&) {
+    g_error = "out of memory";
+  }
+  return -1;
+}
+
+}  // extern "C"

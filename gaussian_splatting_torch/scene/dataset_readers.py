@@ -172,6 +172,8 @@ def _read(path: str, listed_as: str) -> image_io.Picture:
 # path would train on instead
 _NOT_THE_PICTURE = {
     "P": "a palette image (mode P), whose pixels PIL's np.asarray gives as palette indices",
+    "PA": "a palette image with alpha (mode PA), whose pixels PIL's np.asarray gives as two channels, palette "
+          "index and alpha, which the path would take for a 2-channel picture",
     "1": "a 1-bit image (mode 1), whose pixels PIL's np.asarray gives as 0 or 1",
     "I;16": "a 16-bit grey image (mode I;16), whose pixels PIL's np.asarray gives as 0..65535",
     "LA": "a grey + alpha image (mode LA), whose pixels PIL's np.asarray gives as two channels, "

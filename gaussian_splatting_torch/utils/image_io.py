@@ -13,7 +13,8 @@ its own:
   (PIL's magics: P1 to P6, Pf and its extensions) to `utils/ppm.py`, and
   last, as PIL tries it last, a file that passes TGA's header checks to
   `utils/tga.py` (TGA has no signature; none of the formats above can pass
-  them); anything else raises a `ValueError` naming the file and the
+  them), and a JPEG 2000 file (a JP2 / JPX file or a raw codestream) to
+  `utils/jp2.py`; anything else raises a `ValueError` naming the file and the
   formats the port reads. It returns a `Picture`: the pixels as
   `np.asarray(Image.open(f))` gives them, with PIL's mode, palette and
   transparency, which `to_rgba` turns into PIL's `convert("RGBA")`.
@@ -45,7 +46,7 @@ from typing import Any, NamedTuple, Optional
 
 import numpy as np
 
-from gaussian_splatting_torch.utils import bmp, gif, jpeg, ppm, tga, tiff, webp
+from gaussian_splatting_torch.utils import bmp, gif, jp2, jpeg, ppm, tga, tiff, webp
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # 8-bit channels -> PNG colour type (0 grey, 4 grey + alpha, 2 RGB, 6 RGBA),
@@ -104,16 +105,17 @@ JPEG_SIGNATURE = b"\xff\xd8\xff"  # SOI and the first marker's 0xFF, as PIL snif
 BMP_SIGNATURE = b"BM"
 
 
-FORMATS = "PNG, JPEG, BMP, TIFF, WebP, GIF, PPM / PGM / PBM / PFM or TGA"
+FORMATS = "PNG, JPEG, BMP, TIFF, WebP, GIF, PPM / PGM / PBM / PFM, TGA or JPEG 2000"
 
 
 def open_image(path) -> Picture:
     """The `Picture` of a PNG, JPEG, BMP, TIFF, WebP, GIF, PPM / PGM / PBM
-    / PFM or TGA file, PIL's pixels and mode. JPEG (mode "L", "RGB" or
-    "CMYK", and the strips and tiles of a JPEG-in-TIFF) and WebP ("RGB" or
-    "RGBA") are decoded by compiled decoders, and BMP's RLE, TIFF's LZW and
-    PackBits, GIF's LZW and TGA's RLE by the compiled codecs, each built at
-    first use; if one cannot be built this raises."""
+    / PFM, TGA or JPEG 2000 file, PIL's pixels and mode. JPEG (mode "L",
+    "RGB" or "CMYK", and the strips and tiles of a JPEG-in-TIFF), WebP
+    ("RGB" or "RGBA") and JPEG 2000 ("L", "I;16", "LA", "RGB", "RGBA",
+    "CMYK", "P", "PA") are decoded by compiled decoders, and BMP's RLE,
+    TIFF's LZW and PackBits, GIF's LZW and TGA's RLE by the compiled codecs,
+    each built at first use; if one cannot be built this raises."""
     with open(path, "rb") as f:
         head = f.read(tga.HEADER)
     if head.startswith(PNG_SIGNATURE):
@@ -129,6 +131,8 @@ def open_image(path) -> Picture:
         return webp.open_webp(path)
     if head.startswith(gif.SIGNATURES):
         return gif.open_gif(path)
+    if head.startswith(jp2.SIGNATURES):  # PIL's Jpeg2KImagePlugin._accept
+        return jp2.open_jp2(path)
     if ppm.accepts(head) or ppm.refused_magic(head):
         return ppm.open_ppm(path)
     if tga.looks_like_tga(head):  # no signature: PIL tries TGA after every format above
@@ -269,6 +273,7 @@ def to_rgba(picture: Picture) -> np.ndarray:
     alpha 0 where the colour equals the transparency's low byte(s), 255
     elsewhere; a palette image takes its entries' colours (black past the
     palette) and the tRNS alphas (255 past them); "LA" spreads its grey;
+    "PA" takes its palette's colours and its own alpha;
     "CMYK" is PIL's cmyk2rgb, each colour (255 - k) - c (255 - k) / 255
     in PIL's rounded division; an "L" GIF that keeps its global palette
     takes the palette's colours (with a transparency index PIL raises, and
@@ -279,7 +284,7 @@ def to_rgba(picture: Picture) -> np.ndarray:
     px, mode, t = picture.pixels, picture.mode, picture.transparency
     if mode == "RGBA":
         return px.copy()
-    if mode == "LA" and picture.palette is not None:  # PIL's core "PA": the map's colours, the image's alpha
+    if mode == "PA" or (mode == "LA" and picture.palette is not None):  # "PA": the palette's colours, the alpha
         return np.concatenate([_palette_table(picture.palette)[px[..., 0], :3], px[..., 1:]], axis=2)
     if mode == "LA":
         return np.concatenate([px[..., :1].repeat(3, axis=2), px[..., 1:]], axis=2)

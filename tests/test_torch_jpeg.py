@@ -769,8 +769,8 @@ def test_read_image_dispatches_on_the_signature(tmp_path, compiled, monkeypatch)
     with pytest.raises(ValueError, match="a BMP header of 0 bytes") as err:
         image_io.read_image(junk_bmp)  # the BMP reader's refusal
     assert str(junk_bmp) in str(err.value)
-    with pytest.raises(ValueError, match="not a PNG, JPEG, BMP, TIFF, WebP, GIF, PPM / PGM / PBM / PFM or TGA "
-                                         "file") as err:
+    with pytest.raises(ValueError, match="not a PNG, JPEG, BMP, TIFF, WebP, GIF, PPM / PGM / PBM / PFM, TGA or "
+                                         "JPEG 2000 file") as err:
         image_io.read_image(other)
     assert str(other) in str(err.value)
     with pytest.raises(ValueError, match="JPEG"):
@@ -836,12 +836,12 @@ def test_host_build_and_its_reuse(fake_cxx):
     if shutil.which("c++") is None:
         pytest.skip("no host C++ compiler (c++) on this machine")
     calls = fake_cxx(fail=False)
-    assert cuda_build.host_sources() == ["image_codecs", "jpeg_decode", "webp_decode", "zstd_decode"]
-    assert not {"image_codecs", "jpeg_decode", "webp_decode", "zstd_decode"} & set(cuda_build.sources())
+    assert cuda_build.host_sources() == ["image_codecs", "jp2_decode", "jpeg_decode", "webp_decode", "zstd_decode"]
+    assert not {"image_codecs", "jp2_decode", "jpeg_decode", "webp_decode", "zstd_decode"} & set(cuda_build.sources())
     cuda_build.build_host()
     path = cuda_build.host_library_path("jpeg_decode")
     assert path.exists() and path.parent == cuda_build.BUILD_DIR
     cuda_build.build_host()
     data = pil_jpeg(content(9, 13, 3, "noisy"), quality=80)
     np.testing.assert_array_equal(jpeg.decode_jpeg(data), pil_pixels(data))
-    assert calls.read_text().count("call") == 4
+    assert calls.read_text().count("call") == 5

@@ -217,7 +217,7 @@ def test_unreadable_image_names_the_listing(tmp_path):
     info = dataset_readers.read_colmap_scene(src, None, eval_split=False)
     bad = [c for c in info.train_cameras if c.image_name == "view_00"][0]
     with pytest.raises(ValueError, match=r"'view_00.jpg' in .*images\.bin: .*view_00\.jpg: not a PNG, JPEG, BMP, "
-                                         r"TIFF, WebP, GIF, PPM / PGM / PBM / PFM or TGA file"):
+                                         r"TIFF, WebP, GIF, PPM / PGM / PBM / PFM, TGA or JPEG 2000 file"):
         dataset_readers.load_camera(bad, 1)
 
 

@@ -198,8 +198,8 @@ def test_no_other_format_is_taken_for_a_tga(tmp_path, cxx):
         if fmt not in ("PNG", "JPEG", "PPM"):
             path = tmp_path / f"other.{fmt.lower()}"
             path.write_bytes(buf.getvalue())
-            with pytest.raises(ValueError, match="not a PNG, JPEG, BMP, TIFF, WebP, GIF, PPM / PGM / PBM / PFM "
-                                                 "or TGA file"):
+            with pytest.raises(ValueError, match="not a PNG, JPEG, BMP, TIFF, WebP, GIF, PPM / PGM / PBM / PFM, "
+                                                 "TGA or JPEG 2000 file"):
                 image_io.open_image(path)
     assert len(heads) > 30
     assert not any(tga.looks_like_tga(h) for h in heads)

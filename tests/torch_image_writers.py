@@ -35,6 +35,12 @@ specifications, and PIL's read of it is the rule the port is held to.
 - `tga_bytes` / `tga_rle`: TGA of every image type, depth and origin, an
   ID field, 16-, 24- and 32-bit colour maps from any first index, and RLE
   packets of any length (runs within a row, raw packets across rows).
+- `jp2_bytes`: a JP2 (or JPX) file around a raw JPEG 2000 codestream PIL
+  wrote, with any `ihdr`, `colr` (enumerated or an ICC profile), `pclr` +
+  `cmap`, `cdef` and `res ` boxes and any brand; `j2k_markers` /
+  `j2k_join` take a codestream apart into its marker segments and tile-part
+  data and put it together again (tile-parts split, markers added or
+  edited, lengths and Psot recomputed).
 """
 
 import lzma
@@ -900,3 +906,87 @@ def tga_bytes(rows: np.ndarray, width: int, height: int, image_type: int, depth:
                        map_depth if colormap is not None else 0, 0, 0, width, height, depth, flags)
     body = rle if rle is not None else np.ascontiguousarray(rows).tobytes()
     return head + ident + (colormap or b"") + body
+
+
+# ---- JPEG 2000 ----
+
+def jp2_box(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I4s", 8 + len(body), kind) + body
+
+
+def jp2_bytes(codestream: bytes, components: int = None, bpc: int = 7, colr=(1, 16), pclr=None, cdef=None,
+              res=None, brand=b"jp2 ", size=None, after_header=b"", extra_header=b"") -> bytes:
+    """A JP2 file: the signature and file-type boxes, a header box (`ihdr`
+    of the codestream's size and `components`, or `size`; `colr`: (1,
+    enumerated space), or (2, ICC bytes); `pclr`: (entries (N, C) uint8,
+    with a `cmap` mapping component 0 through every column); `cdef`:
+    [(channel, type, association)]; `res `: a capture resolution), then
+    `after_header` boxes and the codestream box."""
+    x1, y1, x0, y0 = struct.unpack_from(">IIII", codestream, 8)
+    if components is None:
+        components = struct.unpack_from(">H", codestream, 40)[0]
+    w, h = size or (x1 - x0, y1 - y0)
+    header = jp2_box(b"ihdr", struct.pack(">IIHBBBB", h, w, components, bpc, 7, 0, 0))
+    if colr is not None:
+        header += jp2_box(b"colr", struct.pack(">BBBI", 1, 0, 0, colr[1]) if colr[0] == 1
+                          else bytes([2, 0, 0]) + colr[1])
+    if pclr is not None:
+        entries = np.asarray(pclr, np.uint8)
+        n, c = entries.shape
+        header += jp2_box(b"pclr", struct.pack(">HB", n, c) + bytes([7] * c) + entries.tobytes())
+        header += jp2_box(b"cmap", b"".join(struct.pack(">HBB", 0, 1, i) for i in range(c)))
+    if cdef is not None:
+        header += jp2_box(b"cdef", struct.pack(">H", len(cdef)) + b"".join(struct.pack(">HHH", *d) for d in cdef))
+    if res is not None:
+        header += jp2_box(b"res ", jp2_box(b"resc", struct.pack(">HHHHBB", res, 1, res, 1, 0, 0)))
+    return (jp2_box(b"jP  ", b"\r\n\x87\n") + jp2_box(b"ftyp", brand + b"\0\0\0\0" + brand)
+            + jp2_box(b"jp2h", header + extra_header) + after_header + jp2_box(b"jp2c", codestream))
+
+
+def j2k_markers(codestream: bytes):
+    """A raw codestream taken apart: (main header segments [(marker,
+    body)] after SOC, tile-parts [(Isot, TPsot, TNsot, [(marker, body)],
+    data)]) from a codestream whose tile-parts give their Psot."""
+    pos, main, parts = 2, [], []
+    while True:
+        marker = struct.unpack_from(">H", codestream, pos)[0]
+        if marker == 0xFF90:
+            break
+        n = struct.unpack_from(">H", codestream, pos + 2)[0]
+        main.append((marker, codestream[pos + 4:pos + 2 + n]))
+        pos += 2 + n
+    while struct.unpack_from(">H", codestream, pos)[0] == 0xFF90:
+        isot, psot, tpsot, tnsot = struct.unpack_from(">HIBB", codestream, pos + 4)
+        end, at, segments = pos + psot, pos + 12, []
+        while struct.unpack_from(">H", codestream, at)[0] != 0xFF93:
+            marker, n = struct.unpack_from(">HH", codestream, at)
+            segments.append((marker, codestream[at + 4:at + 2 + n]))
+            at += 2 + n
+        parts.append((isot, tpsot, tnsot, segments, codestream[at + 2:end]))
+        pos = end
+    return main, parts
+
+
+def j2k_join(main, parts, end=b"\xff\xd9") -> bytes:
+    """The codestream of `j2k_markers`' pieces, lengths and Psot computed."""
+    def segment(marker, body):
+        return struct.pack(">HH", marker, 2 + len(body)) + body
+
+    out = b"\xff\x4f" + b"".join(segment(m, b) for m, b in main)
+    for isot, tpsot, tnsot, segments, data in parts:
+        header = b"".join(segment(m, b) for m, b in segments)
+        out += struct.pack(">HHHIBB", 0xFF90, 10, isot, 12 + len(header) + 2 + len(data), tpsot, tnsot)
+        out += header + b"\xff\x93" + data
+    return out + end
+
+
+def j2k_split_parts(codestream: bytes, pieces: int = 2) -> bytes:
+    """The codestream with each tile's data cut into `pieces` tile-parts
+    (TNsot set), the first keeping the tile-part header's segments."""
+    main, parts = j2k_markers(codestream)
+    out = []
+    for isot, _, _, segments, data in parts:
+        cuts = [len(data) * k // pieces for k in range(pieces + 1)]
+        for k in range(pieces):
+            out.append((isot, k, pieces, segments if k == 0 else [], data[cuts[k]:cuts[k + 1]]))
+    return j2k_join(main, out)
