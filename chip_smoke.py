@@ -157,12 +157,18 @@ Phases (any failure exits non-zero; none is caught and passed over):
      LZMA BigTIFF, 16-bit planar deflate, BigTIFF deflate) and the three
      large JPEG 2000 files of tests/fixtures/torch_jp2 (the 1920x1080 9/7
      tiled RPCL JP2, the 1920x1080 5/3 lossless codestream, the 800x800
-     RGBA 9/7 frame) the mode, shape and SHA-256 of PIL's pixels committed
-     beside them (sha256.json), and where this machine has PIL, PIL's own
-     decode of those three timed beside the port's (a comparison only);
-     every small file of tests/fixtures/torch_jp2 (each option of PIL's
-     JPEG 2000 writer, box-edited JP2s) PIL's mode, pixel and RGBA
-     SHA-256; and every file of
+     RGBA 9/7 frame) and the 1920x1080 Part 1 codestream of
+     tests/fixtures/torch_jp2_part1 (all six code-block styles, SOP, EPH,
+     a two-entry POC, RCT, 2 layers, lossy by truncation: the form
+     `opj_compress -SOP -EPH -M 63 -POC` writes) the mode, shape and
+     SHA-256 of PIL's pixels committed beside them (sha256.json), and where
+     this machine has PIL, PIL's own decode of those four timed beside the
+     port's (a comparison only); every small file of tests/fixtures/torch_jp2
+     (each option of PIL's JPEG 2000 writer, box-edited JP2s) and of
+     tests/fixtures/torch_jp2_part1 (SOP / EPH, PPM, PPT, POC in the main
+     and a tile-part header, each code-block style and all six, RGN, 4:2:0
+     and 4:2:2 sYCC, subsampled alpha, an unknown marker, a JPX file with
+     two codestreams) PIL's mode, pixel and RGBA SHA-256; and every file of
      tests/fixtures/torch_images (BMP, TIFF, CMYK and YCCK JPEG, WebP lossy,
      with alpha, lossless and animated, GIF), torch_ppm_tga (PPM, PGM, PBM,
      PFM, TGA) and torch_tiff_jpeg (small JPEG-in-TIFFs, strips and tiles)
@@ -439,6 +445,9 @@ TIFF_FORMS_FIXTURES = os.path.join(FIXTURES, "torch_tiff_forms")  # PIL-written 
 JP2_FIXTURES = os.path.join(FIXTURES, "torch_jp2")  # PIL-written JPEG 2000 files and PIL's hashes
 JP2_VIEW, JP2_FRAME = "ortho_97_rpcl_1920x1080.jp2", "frame_rgba_97_800x800.jp2"
 JP2_LARGE = (JP2_VIEW, "ortho_53_1920x1080.j2k", JP2_FRAME)  # decoded and timed at full size
+# JPEG 2000 Part 1 features PIL's writer never sets (tests/torch_j2k_writer.py) and PIL's hashes
+JP2_PART1_FIXTURES = os.path.join(FIXTURES, "torch_jp2_part1")
+JP2_PART1_LARGE = "ortho_part1_1920x1080.j2k"  # decoded and timed at full size
 WEBP_FIXTURES = os.path.join(FIXTURES, "torch_webp")  # 1080p files and the SHA-256 of PIL's pixels
 TIFF_JPEG_FIXTURES = os.path.join(FIXTURES, "torch_tiff_jpeg")  # a PIL-written 1080p file and its SHA-256
 PPM_TGA_FIXTURES = os.path.join(FIXTURES, "torch_ppm_tga")
@@ -1809,14 +1818,15 @@ def pil_jp2_ms() -> str:
     from PIL import Image, features
 
     ms = {}
-    for name in JP2_LARGE:
+    for path in [os.path.join(JP2_FIXTURES, name) for name in JP2_LARGE] + [
+            os.path.join(JP2_PART1_FIXTURES, JP2_PART1_LARGE)]:
         times = []
         for _ in range(3):
             t0 = time.perf_counter()
-            with Image.open(os.path.join(JP2_FIXTURES, name)) as im:
+            with Image.open(path) as im:
                 np.asarray(im)
             times.append((time.perf_counter() - t0) * 1e3)
-        ms[name] = float(np.median(times))
+        ms[os.path.basename(path)] = float(np.median(times))
     return (f"PIL {importlib.metadata.version('pillow')} (OpenJPEG {features.version('jpg_2000')}) decode ms "
             f"(median of 3, host clock): " + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()))
 
@@ -1825,6 +1835,13 @@ def pil_jp2_ms() -> str:
 def jp2_readings() -> dict:
     """PIL's reading of each tests/fixtures/torch_jp2 file (sha256.json)."""
     with open(os.path.join(JP2_FIXTURES, "sha256.json")) as f:
+        return json.load(f)
+
+
+@functools.cache
+def jp2_part1_readings() -> dict:
+    """PIL's reading of each tests/fixtures/torch_jp2_part1 file (sha256.json)."""
+    with open(os.path.join(JP2_PART1_FIXTURES, "sha256.json")) as f:
         return json.load(f)
 
 
@@ -1986,6 +2003,7 @@ def check_image_forms(tmp, px):
         with open(os.path.join(folder, "sha256.json")) as f:
             readings.update({os.path.join(folder, k): v for k, v in json.load(f).items()})
     readings.update({os.path.join(JP2_FIXTURES, k): jp2_readings()[k] for k in JP2_LARGE})
+    readings[os.path.join(JP2_PART1_FIXTURES, JP2_PART1_LARGE)] = jp2_part1_readings()[JP2_PART1_LARGE]
     made = form_files()  # the GIS forms this script writes, PIL's reading of each committed
     for path, want in readings.items():
         name = os.path.basename(path)
@@ -2021,22 +2039,26 @@ def check_image_forms(tmp, px):
                     and np.array_equal(image_io.to_rgba(pic), want["rgba"])):
                 fail(f"cli path: image fixture {name} reads as {pic.mode}, not PIL's {want['mode']} and its "
                      f"pixels")
-    small_jp2 = sorted(set(jp2_readings()) - set(JP2_LARGE))
-    for name in small_jp2:
-        want, pic = jp2_readings()[name], image_io.open_image(os.path.join(JP2_FIXTURES, name))
+    small_jp2 = [(JP2_FIXTURES, name, jp2_readings()[name])
+                 for name in sorted(set(jp2_readings()) - set(JP2_LARGE))]
+    small_jp2 += [(JP2_PART1_FIXTURES, name, jp2_part1_readings()[name])
+                  for name in sorted(set(jp2_part1_readings()) - {JP2_PART1_LARGE})]
+    for folder, name, want in small_jp2:
+        pic = image_io.open_image(os.path.join(folder, name))
         got = (pic.mode, list(pic.pixels.shape), sha256_of(pic.pixels), sha256_of(image_io.to_rgba(pic)))
         if got != (want["mode"], want["shape"], want["sha256"], want["rgba_sha256"]):
-            fail(f"cli path: JPEG 2000 fixture {name} reads as {pic.mode} {pic.pixels.shape}, not PIL's "
-                 f"{want['mode']} {want['shape']} and its pixels and RGBA")
+            fail(f"cli path: JPEG 2000 fixture {name} of {os.path.relpath(folder, ROOT)} reads as {pic.mode} "
+                 f"{pic.pixels.shape}, not PIL's {want['mode']} {want['shape']} and its pixels and RGBA")
     print(f"  image forms at {W}x{H}, decode ms (median of 3, host clock): "
           + ", ".join(f"{k} {v:.2f}" for k, v in times.items())
           + f"; lossless forms bit-equal, CMYK / YCCK JPEG (q{CLI_JPEG_QUALITY} 4:2:0) and JPEG-in-TIFF "
           + ", ".join(f"{k} {v:.2f}" for k, v in cmyk_psnr.items())
           + f" dB PSNR from PIL's CMYK of the samples written and from the view (JPEG-in-TIFF bit-equal to "
           f"its strips and tiles read alone); {len(readings)} 1080p WebP, JPEG-in-TIFF, ZSTD, LZMA, planar, "
-          f"BigTIFF and JPEG 2000 files (the 800x800 RGBA JPEG 2000 frame too) give PIL's committed SHA-256; "
-          f"{len(small_jp2)} small JPEG 2000 files of {os.path.relpath(JP2_FIXTURES, ROOT)} PIL's mode, "
-          f"pixels and RGBA; {pil_jp2}; "
+          f"BigTIFF and JPEG 2000 files (the 800x800 RGBA JPEG 2000 frame and the Part 1 codestream with "
+          f"every code-block style, SOP, EPH and a POC too) give PIL's committed SHA-256; "
+          f"{len(small_jp2)} small JPEG 2000 files of {os.path.relpath(JP2_FIXTURES, ROOT)} and "
+          f"{os.path.relpath(JP2_PART1_FIXTURES, ROOT)} PIL's mode, pixels and RGBA; {pil_jp2}; "
           + ", ".join(f"{len(v)} {os.path.relpath(k, ROOT)}" for k, v in names.items())
           + " files give PIL's committed mode, pixels and RGBA")
 

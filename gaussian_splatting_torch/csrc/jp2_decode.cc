@@ -7,29 +7,44 @@
 // opj_decode_tile_data, so no JP2 colour box is applied), and unpacks
 // each tile with its own j2ku_* routines. This decoder follows that path:
 //
-//   - the codestream: SIZ, COD, COC, QCD, QCC, COM, TLM, PLM, PLT, CRG
-//     (skipped), SOT with tile-parts, SOD, EOC, with OpenJPEG's checks in
-//     strict mode (a tile-part running past the file, or a stream without
-//     EOC, fails, as PIL does);
-//   - tier 2: the five progression orders as opj_pi_next_* walk them,
-//     precincts, packet headers (bit stuffing after 0xFF, the inclusion and
-//     zero-bit-plane tag trees, coding passes, Lblock), every layer;
+//   - the codestream: SIZ, COD, COC, QCD, QCC, RGN, POC (a tile's entries
+//     added to the main header's, as opj_j2k_read_poc does), PPM, PPT (merged
+//     as opj_j2k_merge_ppm / _ppt do), COM, TLM, PLM, PLT, CRG (skipped),
+//     unknown main-header markers (opj_j2k_read_unk: skipped two bytes at a
+//     time to the next known marker), SOT with tile-parts, SOD, EOC, with
+//     OpenJPEG's checks in strict mode (a tile-part running past the file,
+//     or a stream without EOC, fails, as PIL does); tiles decoded in the
+//     order their last tile-part completes them;
+//   - tier 2: the five progression orders as opj_pi_next_* walk them, under
+//     a POC list too (its include array: each packet read once, a packet no
+//     entry names never), precincts, packet headers in the packet or packed
+//     in PPM / PPT (bit stuffing after 0xFF, the inclusion and zero-bit-plane
+//     tag trees, coding passes, Lblock, a length per segment as
+//     opj_t2_init_seg bounds segments for each code-block style), SOP
+//     (skipped where present) and EPH (required where signalled), every
+//     layer;
 //   - tier 1: the MQ decoder with OpenJPEG's 0xFF handling and its 0xFFFF
-//     sentinel after each segment, the significance, refinement and
-//     clean-up passes (code-block style 0), magnitudes kept with one extra
-//     bit and the 1/2 reconstruction point;
+//     sentinel after each segment, its raw decoder for BYPASS, the
+//     significance, refinement and clean-up passes with every code-block
+//     style (BYPASS, RESET, TERMALL, VSC, PTERM, SEGSYM), magnitudes kept
+//     with one extra bit and the 1/2 reconstruction point, the RGN maxshift
+//     counted in the bit-planes and scaled down after;
 //   - dequantisation (the reversible path's value / 2, the irreversible
 //     path's float value times 0.5 * stepsize, OpenJPEG's stepsize with no
 //     band gain), the inverse 5/3 in integers and 9/7 in float with
 //     OpenJPEG's constants, its 2/K high-pass scale and its step order, the
 //     RCT or ICT, the DC level shift with lrintf and the clamp;
-//   - opj_tcd_update_tile_data's packing (1, 2 or 4 bytes a sample) and
-//     PIL's unpackers for its modes L, P, PA, I;16, LA, RGB, RGBA and CMYK.
+//   - the inverse transforms up to the highest resolution a packet was read
+//     for (OpenJPEG's resno_decoded), opj_tcd_update_tile_data's packing (1,
+//     2 or 4 bytes a sample, each component at its own size) into PIL's
+//     buffer, zeroed for each tile, and PIL's unpackers for its modes L, P,
+//     PA, I;16, LA, RGB, RGBA and CMYK: subsampled components by PIL's
+//     strides (w / dx, h / dy), sYCC guessed where the colour space is
+//     unspecified and component 1 or 2 is subsampled.
 //
-// Features no PIL-written file holds are refused by name (the message
-// starts with "refused: "): HTJ2K, code-block styles other than 0, ROI
-// (RGN), POC, PPM / PPT, SOP / EPH, component subsampling, precision above
-// 16 bits, more than 4 components, Part 2 extensions, unknown markers.
+// Features PIL reads that the port does not are refused by name (the
+// message starts with "refused: "): HTJ2K, precision above 16 bits, more
+// than 4 components, Part 2 extensions.
 //
 // Floating-point contraction is off for this file: OpenJPEG's 9/7 and ICT
 // arithmetic rounds every multiply and add on its own.
@@ -98,15 +113,36 @@ struct StepSize {
 };
 
 struct Tccp {
-  int csty = 0, numres = 0, cblkw = 0, cblkh = 0, cblksty = 0, qmfbid = 0;
+  int csty = 0, numres = 0, cblkw = 0, cblkh = 0, cblksty = 0, qmfbid = 0, roishift = 0;
   int prcw[33] = {}, prch[33] = {};
   int qntsty = 0, numgbits = 0;
   StepSize steps[97];
 };
 
+struct Poc {
+  int rs, cs, lye, re, ce, prg;
+};
+
+// PPM or PPT segments by their Z index
+struct Packed {
+  std::vector<std::vector<uint8_t>> segs;
+  std::vector<char> set;
+  void add(const uint8_t* p, int64_t len, const char* what) {
+    int z = p[0];
+    if (int(set.size()) <= z) segs.resize(z + 1), set.resize(z + 1, 0);
+    if (set[z]) fail(fmt(what, z));
+    set[z] = 1;
+    segs[z].assign(p + 1, p + len);
+  }
+};
+
 struct Tcp {
   int csty = 0, prg = 0, numlayers = 0, mct = 0;
   std::vector<Tccp> tccps;
+  bool poc = false;
+  std::vector<Poc> pocs;
+  Packed ppt;
+  bool has_ppt = false;
   std::vector<uint8_t> data;
   std::vector<std::pair<int64_t, int64_t>> parts;  // (codestream offset, length) of each tile-part's data
   int part = -1, nb_parts = 0;
@@ -123,6 +159,11 @@ struct Codestream {
   std::vector<Comp> comps;
   Tcp deflt;
   std::vector<Tcp> tiles;
+  std::vector<int> order;  // tiles in decoding order
+  std::vector<char> completed;  // tiles whose last tile-part (by TNsot) was read
+  bool has_ppm = false;
+  Packed ppm;
+  std::vector<uint8_t> ppm_data;  // the packet headers of every tile-part, in order
 };
 
 void read_siz(Codestream& cs, const uint8_t* s, int64_t len, int64_t ihdr_w, int64_t ihdr_h) {
@@ -154,10 +195,8 @@ void read_siz(Codestream& cs, const uint8_t* s, int64_t len, int64_t ihdr_w, int
   if (rsiz & 0x4000) refuse("HTJ2K (Part 15, Rsiz bit 14)");
   if (rsiz & 0x8000) refuse("Part 2 extensions (Rsiz bit 15)");
   if (n > 4) refuse(fmt("more than 4 components (%lld)", n));
-  for (const Comp& c : cs.comps) {
-    if (c.dx != 1 || c.dy != 1) refuse(fmt("component subsampling (%lldx%lld)", c.dx, c.dy));
+  for (const Comp& c : cs.comps)
     if (c.prec > 16) refuse(fmt("precision above 16 bits (%lld)", c.prec));
-  }
 }
 
 // SPcod / SPcoc into one component's parameters; returns the bytes read
@@ -219,7 +258,7 @@ void read_coding(uint32_t m, Tcp& tcp, const uint8_t* p, int64_t len, size_t nco
     tcp.csty = p[0];
     if (tcp.csty & ~7) fail("Unknown Scod value in COD marker");
     tcp.prg = p[1];
-    if (tcp.prg > 4) fail("Unknown progression order in COD marker");
+    if (tcp.prg > 4) tcp.prg = -1;  // OpenJPEG's OPJ_PROG_UNKNOWN: a tile decoded without a POC fails
     tcp.numlayers = int(be16(p + 2));
     if (tcp.numlayers < 1) fail("Invalid number of layers in COD marker");
     tcp.mct = p[4];
@@ -261,31 +300,81 @@ void read_coding(uint32_t m, Tcp& tcp, const uint8_t* p, int64_t len, size_t nco
 }
 
 void check_coding(const Tcp& tcp) {
-  if (tcp.csty & 2) refuse("SOP markers (Scod bit 1)");
-  if (tcp.csty & 4) refuse("EPH markers (Scod bit 2)");
-  for (const Tccp& t : tcp.tccps) {
+  for (const Tccp& t : tcp.tccps)
     if (t.cblksty & 0x40) refuse("HTJ2K code-blocks (Part 15)");
-    if (t.cblksty) refuse(fmt("code-block style 0x%02llx (BYPASS, RESET, TERMALL, VSC, PTERM or SEGSYM)", t.cblksty));
+}
+
+void read_rgn(Tcp& tcp, const uint8_t* p, int64_t len, size_t ncomp) {  // opj_j2k_read_rgn (Srgn is not read)
+  int room = ncomp <= 256 ? 1 : 2;
+  if (len != 2 + room) fail("Error reading RGN marker");
+  size_t c = room == 1 ? p[0] : be16(p);
+  if (c >= ncomp) fail(fmt("bad component number in RGN (%lld when there are only %lld)", c, ncomp));
+  tcp.tccps[c].roishift = p[room + 1];
+}
+
+void read_poc(Tcp& tcp, const uint8_t* p, int64_t len, size_t ncomp) {  // opj_j2k_read_poc
+  int room = ncomp <= 256 ? 1 : 2, chunk = 5 + 2 * room;
+  int64_t nb = len / chunk;
+  if (nb <= 0 || len % chunk) fail("Error reading POC marker");
+  size_t old = tcp.poc ? tcp.pocs.size() : 0;
+  if (int64_t(old) + nb >= 32) fail(fmt("Too many POCs %lld", int64_t(old) + nb));
+  tcp.poc = true;
+  tcp.pocs.resize(old);
+  for (int64_t i = 0; i < nb; i++, p += chunk) {
+    Poc e;
+    e.rs = p[0];
+    e.cs = int(room == 1 ? p[1] : be16(p + 1));
+    e.lye = std::min(int(be16(p + 1 + room)), tcp.numlayers);  // the layers known when it is read
+    e.re = p[3 + room];
+    e.ce = std::min(int(room == 1 ? p[4 + room] : be16(p + 4 + room)), int(ncomp));
+    e.prg = p[4 + 2 * room];
+    tcp.pocs.push_back(e);
   }
 }
 
-// A marker neither OpenJPEG's main header nor its tile-part header takes
-// where it stands, or one the port refuses.
-void other_marker(uint32_t m, bool main) {
-  switch (m) {
-    case RGN: refuse("region of interest (RGN)");
-    case POC: refuse("progression order changes (POC)");
-    case PPM: refuse("packed packet headers (PPM)");
-    case PPT: refuse("packed packet headers (PPT)");
-    case CAP: refuse("HTJ2K (Part 15, CAP marker)");
-    case CPF: refuse("HTJ2K (Part 15, CPF marker)");
-    default: break;
+// opj_j2k_merge_ppm: the Nppm / Ippm pairs of the PPM segments in Zppm
+// order, an Ippm running on into the next segment, into one stream.
+void merge_ppm(Codestream& cs) {
+  int64_t remaining = 0;
+  for (size_t z = 0; z < cs.ppm.segs.size(); z++) {
+    if (!cs.ppm.set[z]) continue;
+    const std::vector<uint8_t>& seg = cs.ppm.segs[z];
+    int64_t size = int64_t(seg.size()), take = std::min(remaining, size), at = take;
+    cs.ppm_data.insert(cs.ppm_data.end(), seg.begin(), seg.begin() + take);
+    remaining -= take;
+    while (at < size) {
+      if (size - at < 4) fail("Not enough bytes to read Nppm");
+      int64_t nppm = be32(&seg[at]);
+      at += 4;
+      take = std::min(nppm, size - at);
+      cs.ppm_data.insert(cs.ppm_data.end(), seg.begin() + at, seg.begin() + at + take);
+      at += take, remaining = nppm - take;
+    }
   }
+  if (remaining) fail("Corrupted PPM markers");
+  if (cs.ppm_data.empty()) fail("Not enough memory to read PPM marker");  // opj_malloc(0) gives NULL
+}
+
+bool known_marker(uint32_t m) {  // OpenJPEG's marker table (j2k_memory_marker_handler_tab)
+  switch (m) {
+    case SOT: case COD: case COC: case RGN: case QCD: case QCC: case POC: case SIZ: case TLM: case PLM:
+    case PLT: case PPM: case PPT: case SOP: case CRG: case COM: case CAP: case CPF:
+    case 0xff74: case 0xff75: case 0xff77: case 0xff78:  // MCT, MCC, MCO, CBD
+      return true;
+    default:
+      return false;
+  }
+}
+
+// Markers the port refuses by name wherever they stand.
+void refused_marker(uint32_t m) {
+  if (m == CAP) refuse("HTJ2K (Part 15, CAP marker)");
+  if (m == CPF) refuse("HTJ2K (Part 15, CPF marker)");
   if (part2_marker(m)) refuse(fmt("Part 2 extensions (marker 0x%04llx)", m));
-  if (m == SIZ || m == SOT || m == SOD || m == EOC || m == SOP || m == EPH || m == SOC || m == TLM || m == PLM ||
-      m == PLT || m == CRG || m == COD || m == COC || m == QCD || m == QCC || m == COM)
-    fail(fmt("Marker is not compliant with its position (0x%04llx in the ", m) + (main ? "main header)" : "tile-part header)"));
-  refuse(fmt("an unknown marker 0x%04llx", m));
+}
+
+[[noreturn]] void misplaced(uint32_t m, bool main) {
+  fail(fmt("Marker is not compliant with its position (0x%04llx in the ", m) + (main ? "main header)" : "tile-part header)"));
 }
 
 Codestream parse(const uint8_t* d, int64_t n, int64_t ihdr_w, int64_t ihdr_h) {
@@ -300,6 +389,17 @@ Codestream parse(const uint8_t* d, int64_t n, int64_t ihdr_w, int64_t ihdr_h) {
     uint32_t m = be16(d + pos);
     if (m < 0xff00) fail(fmt("We expected read a marker ID (0xff--) instead of %.4llx", m));
     if (m == SOT) break;
+    refused_marker(m);
+    if (!known_marker(m)) {  // opj_j2k_read_unk: on to the next known marker, two bytes at a time
+      for (;;) {
+        pos += 2;
+        if (pos + 2 > n) fail("Stream too short");
+        uint32_t next = be16(d + pos);
+        if (next >= 0xff00 && known_marker(next)) break;
+      }
+      continue;
+    }
+    if (m == SOP || m == PLT || m == PPT || (m == SIZ && has_siz)) misplaced(m, true);
     if (pos + 4 > n) fail("Stream too short");
     int64_t len = be16(d + pos + 2);
     if (len < 2) fail("Inconsistent marker size");
@@ -314,23 +414,35 @@ Codestream parse(const uint8_t* d, int64_t n, int64_t ihdr_w, int64_t ihdr_h) {
     } else if (m == COD || m == COC || m == QCD || m == QCC) {
       read_coding(m, cs.deflt, p, len - 2, cs.comps.size(), coc_set, qcc_set);
       has_cod |= m == COD, has_qcd |= m == QCD;
-    } else if (m != COM && m != TLM && m != PLM && m != CRG) {
-      other_marker(m, true);
+    } else if (m == RGN) {
+      read_rgn(cs.deflt, p, len - 2, cs.comps.size());
+    } else if (m == POC) {
+      read_poc(cs.deflt, p, len - 2, cs.comps.size());
+    } else if (m == PPM) {
+      if (len - 2 < 2) fail("Error reading PPM marker");
+      cs.has_ppm = true;
+      cs.ppm.add(p, len - 2, "Zppm %lld already read");
     }
     pos += 2 + len;
   }
   if (!has_cod) fail("required COD marker not found in main header");
   if (!has_qcd) fail("required QCD marker not found in main header");
+  if (cs.has_ppm) merge_ppm(cs);
   check_coding(cs.deflt);
   cs.tiles.assign(size_t(cs.tw) * cs.th, Tcp());
+  cs.completed.assign(cs.tiles.size(), 0);
   std::vector<char> first_seen(cs.tiles.size(), 0);
-  bool last_part = false;
+  bool last_part = false, ended = false;
   for (;;) {  // tile-parts
     if (pos + 2 > n) fail("Stream too short");
     uint32_t m = be16(d + pos);
     if (m == EOC) break;
     if (m != SOT) fail("Stream too short, expected SOT");
     if (last_part) break;
+    if (pos + 2 == n) {  // nothing after the marker: OpenJPEG stops reading there (J2K_STATE_NEOC)
+      ended = true;
+      break;
+    }
     int64_t sot = pos;
     if (pos + 4 > n || be16(d + pos + 2) != 10 || pos + 12 > n) fail("Error reading SOT marker");
     uint32_t isot = be16(d + pos + 4), psot = be32(d + pos + 6);
@@ -355,19 +467,40 @@ Codestream parse(const uint8_t* d, int64_t n, int64_t ihdr_w, int64_t ihdr_h) {
     for (;;) {  // tile-part header
       if (pos + 2 > n) fail("Stream too short");
       m = be16(d + pos);
-      if (m < 0xff00) fail(fmt("We expected read a marker ID (0xff--) instead of %.4llx", m));
       if (m == SOD) break;
+      if (pos + 2 == n) {  // as after SOT
+        ended = true;
+        break;
+      }
+      if (m < 0xff00) fail(fmt("We expected read a marker ID (0xff--) instead of %.4llx", m));
       if (pos + 4 > n) fail("Stream too short");
       int64_t len = be16(d + pos + 2);
       if (len < 2) fail("Inconsistent marker size");
       if (pos + 2 + len > n) fail("Stream too short");
+      const uint8_t* p = d + pos + 4;
+      refused_marker(m);
       if (m == COD || m == COC || m == QCD || m == QCC) {
-        read_coding(m, tcp, d + pos + 4, len - 2, cs.comps.size(), coc_here, qcc_here);
+        read_coding(m, tcp, p, len - 2, cs.comps.size(), coc_here, qcc_here);
         check_coding(tcp);
+      } else if (m == RGN) {
+        read_rgn(tcp, p, len - 2, cs.comps.size());
+      } else if (m == POC) {
+        read_poc(tcp, p, len - 2, cs.comps.size());
+      } else if (m == PPT) {
+        if (len - 2 < 2) fail("Error reading PPT marker");
+        if (cs.has_ppm)
+          fail("Error reading PPT marker: packet header have been previously found in the main header (PPM marker).");
+        tcp.has_ppt = true;
+        tcp.ppt.add(p, len - 2, "Zppt %lld already read");
       } else if (m != COM && m != PLT) {
-        other_marker(m, false);
+        misplaced(m, false);  // OpenJPEG reads no unknown marker in a tile-part header
       }
       pos += 2 + len;
+    }
+    if (ended) {  // the tile this SOT completes is decoded after the stream ends
+      if (tcp.nb_parts && tpsot + 1 == tcp.nb_parts)
+        fail(fmt("Stream too short: tile %lld is decoded after the stream ends", isot));
+      break;
     }
     pos += 2;
     int64_t size = psot ? int64_t(psot) - (pos - sot) : n - pos - 2;
@@ -378,7 +511,16 @@ Codestream parse(const uint8_t* d, int64_t n, int64_t ihdr_w, int64_t ihdr_h) {
       tcp.has_data = true;
     }
     pos += size;
+    if (tcp.nb_parts && tpsot + 1 == tcp.nb_parts && !cs.completed[isot]) {  // the tile is complete: decoded now
+      cs.order.push_back(int(isot));
+      cs.completed[isot] = 1;
+    }
     if (last_part) break;  // the two bytes left may be anything (OpenJPEG: "Stream does not end with EOC")
+  }
+  for (size_t k = 0; k < cs.tiles.size(); k++) {  // then the tiles no tile-part count completed, in index order
+    if (cs.completed[k]) continue;
+    if (ended && cs.tiles[k].has_data) fail(fmt("Stream too short: tile %lld is decoded after the stream ends", k));
+    cs.order.push_back(int(k));
   }
   return cs;
 }
@@ -485,8 +627,8 @@ struct Band {
 };
 
 struct Res {
-  int64_t x0, y0, x1, y1;
-  int pw = 0, ph = 0, pdx = 0, pdy = 0, numbands = 0;
+  int64_t x0, y0, x1, y1, cbgx0 = 0, cbgy0 = 0;
+  int pw = 0, ph = 0, pdx = 0, pdy = 0, numbands = 0, cbgw = 0, cbgh = 0;
   Band bands[3];
 };
 
@@ -502,9 +644,15 @@ struct TileComp {
   std::vector<Sample> data;
 };
 
-void init_seg(Cblk& cb, uint32_t index) {
+// opj_t2_init_seg: a segment's most passes by the code-block style (with
+// BYPASS 10, then 2 and 1 by turns; with TERMALL 1)
+void init_seg(Cblk& cb, uint32_t index, int cblksty, bool first) {
   if (cb.segs.size() < index + 1) cb.segs.resize(index + 1);
-  cb.segs[index] = Seg();
+  uint32_t before = index ? cb.segs[index - 1].maxpasses : 0;
+  Seg& seg = cb.segs[index];
+  seg = Seg();
+  if (cblksty & 4) seg.maxpasses = 1;
+  else if (cblksty & 1) seg.maxpasses = first ? 10 : (before == 1 || before == 10) ? 2 : 1;
 }
 
 uint32_t num_passes(Bio& bio) {
@@ -523,10 +671,17 @@ int floorlog2(uint32_t a) {
   return l;
 }
 
+// Packet headers packed in PPM or PPT segments, and where the next one starts
+struct Headers {
+  const uint8_t* data;
+  int64_t size, pos = 0;
+};
+
 // One packet (opj_t2_read_packet_header, opj_t2_read_packet_data in strict
-// mode); returns the bytes it spans.
+// mode); returns the bytes it spans in the tile's data. Its header is read
+// from `packed` where the headers are packed, else from the data.
 int64_t read_packet(Res& res, int precno, int layno, const uint8_t* src, int64_t max_len, int64_t src_off,
-                    int compno, int resno) {
+                    int compno, int resno, int csty, int cblksty, Headers* packed) {
   if (layno == 0) {
     for (int b = 0; b < res.numbands; b++) {
       Band& band = res.bands[b];
@@ -537,53 +692,65 @@ int64_t read_packet(Res& res, int precno, int layno, const uint8_t* src, int64_t
       for (Cblk& cb : pr.cblks) cb.numsegs = 0;
     }
   }
-  Bio bio(src, max_len);
-  if (!bio.read(1)) {
-    bio.inalign();
-    return bio.numbytes();
-  }
-  for (int b = 0; b < res.numbands; b++) {
-    Band& band = res.bands[b];
-    if (band.empty()) continue;
-    Precinct& pr = band.precs[precno];
-    for (int k = 0; k < int(pr.cblks.size()); k++) {
-      Cblk& cb = pr.cblks[k];
-      bool included = cb.numsegs == 0 ? pr.incl.decode(bio, k, layno + 1) : bio.read(1) != 0;
-      if (!included) {
-        cb.numnewpasses = 0;
-        continue;
+  int64_t pos = 0;
+  // SOP: skipped where it stands (OpenJPEG warns where it does not)
+  if ((csty & 2) && max_len >= 6 && src[0] == 0xff && src[1] == 0x91) pos += 6;
+  const uint8_t* hdr = packed ? packed->data + packed->pos : src + pos;
+  int64_t hdr_room = packed ? packed->size - packed->pos : max_len - pos;
+  Bio bio(hdr, hdr_room);
+  bool present = bio.read(1) != 0;
+  if (present) {
+    for (int b = 0; b < res.numbands; b++) {
+      Band& band = res.bands[b];
+      if (band.empty()) continue;
+      Precinct& pr = band.precs[precno];
+      for (int k = 0; k < int(pr.cblks.size()); k++) {
+        Cblk& cb = pr.cblks[k];
+        bool included = cb.numsegs == 0 ? pr.incl.decode(bio, k, layno + 1) : bio.read(1) != 0;
+        if (!included) {
+          cb.numnewpasses = 0;
+          continue;
+        }
+        if (cb.numsegs == 0) {
+          int32_t i = 0;
+          while (!pr.imsb.decode(bio, k, i)) ++i;
+          cb.numbps = int32_t(uint32_t(band.numbps) + 1u - uint32_t(i));
+          cb.numlenbits = 3;
+        }
+        cb.numnewpasses = num_passes(bio);
+        uint32_t increment = 0;
+        while (bio.read(1)) ++increment;
+        cb.numlenbits += increment;
+        uint32_t segno = 0;
+        if (cb.numsegs == 0) {
+          init_seg(cb, 0, cblksty, true);
+        } else {
+          segno = cb.numsegs - 1;
+          if (cb.segs[segno].numpasses == cb.segs[segno].maxpasses) init_seg(cb, ++segno, cblksty, false);
+        }
+        int64_t left = cb.numnewpasses;
+        do {
+          Seg& seg = cb.segs[segno];
+          seg.numnewpasses = uint32_t(std::min<int64_t>(int64_t(seg.maxpasses) - seg.numpasses, left));
+          uint32_t bits = cb.numlenbits + floorlog2(seg.numnewpasses);
+          if (bits > 32) fail(fmt("Invalid bit number %lld in opj_t2_read_packet_header()", bits));
+          seg.newlen = bio.read(int(bits));
+          left -= seg.numnewpasses;
+          if (left > 0) init_seg(cb, ++segno, cblksty, false);
+        } while (left > 0);
       }
-      if (cb.numsegs == 0) {
-        int32_t i = 0;
-        while (!pr.imsb.decode(bio, k, i)) ++i;
-        cb.numbps = int32_t(uint32_t(band.numbps) + 1u - uint32_t(i));
-        cb.numlenbits = 3;
-      }
-      cb.numnewpasses = num_passes(bio);
-      uint32_t increment = 0;
-      while (bio.read(1)) ++increment;
-      cb.numlenbits += increment;
-      uint32_t segno = 0;
-      if (cb.numsegs == 0) {
-        init_seg(cb, 0);
-      } else {
-        segno = cb.numsegs - 1;
-        if (cb.segs[segno].numpasses == cb.segs[segno].maxpasses) init_seg(cb, ++segno);
-      }
-      int64_t left = cb.numnewpasses;
-      do {
-        Seg& seg = cb.segs[segno];
-        seg.numnewpasses = uint32_t(std::min<int64_t>(int64_t(seg.maxpasses) - seg.numpasses, left));
-        uint32_t bits = cb.numlenbits + floorlog2(seg.numnewpasses);
-        if (bits > 32) fail(fmt("Invalid bit number %lld in opj_t2_read_packet_header()", bits));
-        seg.newlen = bio.read(int(bits));
-        left -= seg.numnewpasses;
-        if (left > 0) init_seg(cb, ++segno);
-      } while (left > 0);
     }
   }
   bio.inalign();
-  int64_t pos = bio.numbytes();
+  int64_t hdr_len = bio.numbytes();
+  if (csty & 4) {  // EPH: strict mode fails where it is missing
+    if (hdr_room - hdr_len < 2) fail("Not enough space for expected EPH marker");
+    if (hdr[hdr_len] != 0xff || hdr[hdr_len + 1] != 0x92) fail("Expected EPH marker");
+    hdr_len += 2;
+  }
+  if (packed) packed->pos += hdr_len;
+  else pos += hdr_len;
+  if (!present) return pos;
   for (int b = 0; b < res.numbands; b++) {  // the packet body
     Band& band = res.bands[b];
     if (band.empty()) continue;
@@ -647,6 +814,7 @@ void init_tile(const Codestream& cs, const Tcp& tcp, int tileno, std::vector<Til
       } else {
         cbgx0 = ceildivpow2(px0, 1), cbgy0 = ceildivpow2(py0, 1), cbgw = pdx - 1, cbgh = pdy - 1, res.numbands = 3;
       }
+      res.cbgx0 = cbgx0, res.cbgy0 = cbgy0, res.cbgw = cbgw, res.cbgh = cbgh;
       int cbw = std::min(tccp.cblkw, cbgw), cbh = std::min(tccp.cblkh, cbgh);
       for (int b = 0; b < res.numbands; b++, step++) {
         Band& band = res.bands[b];
@@ -691,10 +859,40 @@ void init_tile(const Codestream& cs, const Tcp& tcp, int tileno, std::vector<Til
   }
 }
 
+// opj_tcd_is_subband_area_of_interest with the whole image for the window
+// (PIL sets none): whether precinct `p` of band `b` of resolution `r` (its
+// bounds clipped to the band as opj_tcd_init_tile clips them, an empty
+// band's too) meets the tile-component, widened by the filter's margin.
+bool area_of_interest(const TileComp& tc, int r, const Band& band, int p, int qmfbid) {
+  const Res& res = tc.res[r];
+  int64_t gx0 = res.cbgx0 + (p % res.pw) * (int64_t(1) << res.cbgw);
+  int64_t gy0 = res.cbgy0 + (p / res.pw) * (int64_t(1) << res.cbgh);
+  uint64_t px0 = uint64_t(std::max(gx0, band.x0)), py0 = uint64_t(std::max(gy0, band.y0));
+  uint64_t px1 = uint64_t(std::min(gx0 + (int64_t(1) << res.cbgw), band.x1));
+  uint64_t py1 = uint64_t(std::min(gy0 + (int64_t(1) << res.cbgh), band.y1));
+  uint64_t margin = qmfbid == 1 ? 2 : 3;
+  int nb = r == 0 ? tc.numres - 1 : tc.numres - r;
+  auto map = [&](int64_t v, int b) -> uint64_t {
+    if (nb == 0) return uint64_t(v);
+    uint64_t off = (uint64_t(1) << (nb - 1)) * uint64_t(b);
+    return uint64_t(v) <= off ? 0 : uint64_t(ceildivpow2(int64_t(uint64_t(v) - off), nb));
+  };
+  int xb = band.bandno & 1, yb = band.bandno >> 1;
+  uint64_t tbx0 = map(tc.x0, xb), tby0 = map(tc.y0, yb), tbx1 = map(tc.x1, xb) + margin, tby1 = map(tc.y1, yb) + margin;
+  tbx0 = tbx0 < margin ? 0 : tbx0 - margin, tby0 = tby0 < margin ? 0 : tby0 - margin;
+  return px0 < tbx1 && py0 < tby1 && px1 > tbx0 && py1 > tby0;
+}
+
 // The packets of one tile in its progression order (opj_pi_next_lrcp,
-// _rlcp, _rpcl, _pcrl, _cprl), each read once.
+// _rlcp, _rpcl, _pcrl, _cprl), or in the order of its POC entries (each
+// over layers 0 to LYE, OpenJPEG's include array reading a packet once);
+// `resno_decoded` keeps the highest resolution read of each component, as
+// opj_t2_decode_packets keeps it: a packet none of whose precincts is in
+// the area of interest is skipped (its header read; it holds no
+// code-block), and a component whose first packet in a POC entry is
+// skipped while nothing was read of it takes its top resolution.
 void tier2(const Codestream& cs, const Tcp& tcp, std::vector<TileComp>& comps, const int64_t t[4],
-           const uint8_t* data, int64_t len, int64_t data_off) {
+           const uint8_t* data, int64_t len, int64_t data_off, Headers* packed, std::vector<int>& resno_decoded) {
   int ncomp = int(comps.size()), maxres = 0;
   int64_t maxprec = 0;
   for (TileComp& tc : comps) {
@@ -702,29 +900,35 @@ void tier2(const Codestream& cs, const Tcp& tcp, std::vector<TileComp>& comps, c
     for (Res& r : tc.res) maxprec = std::max(maxprec, int64_t(r.pw) * r.ph);
   }
   int64_t step_c = maxprec, step_r = step_c * ncomp, step_l = step_r * maxres;
-  if (step_l * tcp.numlayers > (int64_t(1) << 31)) fail("Size of tile data exceeds system limits");
+  if (step_l * (tcp.numlayers + 1) > (int64_t(1) << 31)) fail("Size of tile data exceeds system limits");
   std::vector<uint8_t> include(size_t(step_l * tcp.numlayers), 0);
   int64_t pos = 0;
+  std::vector<char> first_pass_failed(ncomp);
   auto packet = [&](int l, int r, int c, int p) {
     size_t index = size_t(l * step_l + r * step_r + c * step_c + p);
     if (include[index]) return;
     include[index] = 1;
-    pos += read_packet(comps[c].res[r], p, l, data + pos, len - pos, data_off + pos, c, r);
+    Res& res = comps[c].res[r];
+    bool skipped = true;
+    for (int b = 0; b < res.numbands && skipped; b++)
+      skipped = !area_of_interest(comps[c], r, res.bands[b], p, tcp.tccps[c].qmfbid);
+    pos += read_packet(res, p, l, data + pos, len - pos, data_off + pos, c, r, tcp.csty, tcp.tccps[c].cblksty, packed);
+    if (!skipped) first_pass_failed[c] = 0, resno_decoded[c] = std::max(resno_decoded[c], r);
+    if (first_pass_failed[c] && resno_decoded[c] == 0) resno_decoded[c] = comps[c].numres - 1;
   };
   auto position = [&](int c, int r, uint64_t x, uint64_t y, int l_all) {
     // one precinct of (component, resolution) at reference-grid (x, y), if it starts there
     const TileComp& tc = comps[c];
     if (r >= tc.numres) return;
     const Res& res = tc.res[r];
-    const Comp& comp = cs.comps[c];
-    int level = tc.numres - 1 - r;
-    uint64_t dx = uint64_t(comp.dx) << level, dy = uint64_t(comp.dy) << level;
+    const uint32_t cdx = uint32_t(cs.comps[c].dx), cdy = uint32_t(cs.comps[c].dy);
+    uint32_t level = uint32_t(tc.numres - 1 - r);  // at most 32, the precinct exponents 15: 64-bit tests
+    uint64_t dx = uint64_t(cdx) << level, dy = uint64_t(cdy) << level;
     uint64_t trx0 = ceildiv(t[0], dx), try0 = ceildiv(t[1], dy), trx1 = ceildiv(t[2], dx), try1 = ceildiv(t[3], dy);
-    int rpx = res.pdx + level, rpy = res.pdy + level;
-    if (rpx >= 31 || rpy >= 31) return;
-    if (!(y % (uint64_t(comp.dy) << rpy) == 0 || (y == uint64_t(t[1]) && ((try0 << level) % (uint64_t(1) << rpy)))))
+    uint32_t rpx = uint32_t(res.pdx) + level, rpy = uint32_t(res.pdy) + level;
+    if (!(y % (uint64_t(cdy) << rpy) == 0 || (y == uint64_t(t[1]) && ((try0 << level) % (uint64_t(1) << rpy)))))
       return;
-    if (!(x % (uint64_t(comp.dx) << rpx) == 0 || (x == uint64_t(t[0]) && ((trx0 << level) % (uint64_t(1) << rpx)))))
+    if (!(x % (uint64_t(cdx) << rpx) == 0 || (x == uint64_t(t[0]) && ((trx0 << level) % (uint64_t(1) << rpx)))))
       return;
     if (res.pw == 0 || res.ph == 0 || trx0 == trx1 || try0 == try1) return;
     uint64_t prci = (ceildiv(x, dx) >> res.pdx) - (trx0 >> res.pdx);
@@ -737,63 +941,78 @@ void tier2(const Codestream& cs, const Tcp& tcp, std::vector<TileComp>& comps, c
     uint64_t sx = 0, sy = 0;
     for (int c = c0; c < c1; c++) {
       const TileComp& tc = comps[c];
+      const uint32_t cdx = uint32_t(cs.comps[c].dx), cdy = uint32_t(cs.comps[c].dy);
       for (int r = 0; r < tc.numres; r++) {
         int level = tc.numres - 1 - r;
         const Res& res = tc.res[r];
-        if (res.pdx + level < 32) {
-          uint64_t d = uint64_t(cs.comps[c].dx) << (res.pdx + level);
+        if (res.pdx + level < 32 && cdx <= UINT32_MAX / (1u << (res.pdx + level))) {
+          uint64_t d = uint64_t(cdx) << (res.pdx + level);
           sx = sx ? std::min(sx, d) : d;
         }
-        if (res.pdy + level < 32) {
-          uint64_t d = uint64_t(cs.comps[c].dy) << (res.pdy + level);
+        if (res.pdy + level < 32 && cdy <= UINT32_MAX / (1u << (res.pdy + level))) {
+          uint64_t d = uint64_t(cdy) << (res.pdy + level);
           sy = sy ? std::min(sy, d) : d;
         }
       }
     }
     return std::make_pair(sx, sy);
   };
-  int L = tcp.numlayers;
+  std::vector<Poc> entries;  // opj_pi_update_decode_poc / _not_poc
+  if (tcp.poc) {
+    for (Poc e : tcp.pocs) {
+      e.lye = std::min(e.lye, tcp.numlayers);
+      entries.push_back(e);
+    }
+  } else {
+    if (tcp.prg < 0) fail("Unknown progression order in COD marker");
+    entries.push_back({0, 0, tcp.numlayers, maxres, ncomp, tcp.prg});
+  }
   uint64_t tx0 = t[0], ty0 = t[1], tx1 = t[2], ty1 = t[3];
-  switch (tcp.prg) {
-    case 0:  // LRCP
-      for (int l = 0; l < L; l++)
-        for (int r = 0; r < maxres; r++)
-          for (int c = 0; c < ncomp; c++)
-            if (r < comps[c].numres)
-              for (int p = 0; p < comps[c].res[r].pw * comps[c].res[r].ph; p++) packet(l, r, c, p);
-      break;
-    case 1:  // RLCP
-      for (int r = 0; r < maxres; r++)
+  for (const Poc& e : entries) {
+    int L = e.lye, r0 = e.rs, r1 = e.re, c0 = e.cs, c1 = e.ce;
+    std::fill(first_pass_failed.begin(), first_pass_failed.end(), 1);
+    if (c0 >= ncomp || e.prg > 4) continue;  // opj_pi_next_*: no packet
+    switch (e.prg) {
+      case 0:  // LRCP
         for (int l = 0; l < L; l++)
-          for (int c = 0; c < ncomp; c++)
-            if (r < comps[c].numres)
-              for (int p = 0; p < comps[c].res[r].pw * comps[c].res[r].ph; p++) packet(l, r, c, p);
-      break;
-    case 2: {  // RPCL
-      auto [sx, sy] = steps(0, ncomp);
-      if (!sx || !sy) break;
-      for (int r = 0; r < maxres; r++)
-        for (uint64_t y = ty0; y < ty1; y += sy - y % sy)
-          for (uint64_t x = tx0; x < tx1; x += sx - x % sx)
-            for (int c = 0; c < ncomp; c++) position(c, r, x, y, L);
-      break;
-    }
-    case 3: {  // PCRL
-      auto [sx, sy] = steps(0, ncomp);
-      if (!sx || !sy) break;
-      for (uint64_t y = ty0; y < ty1; y += sy - y % sy)
-        for (uint64_t x = tx0; x < tx1; x += sx - x % sx)
-          for (int c = 0; c < ncomp; c++)
-            for (int r = 0; r < std::min(maxres, comps[c].numres); r++) position(c, r, x, y, L);
-      break;
-    }
-    default: {  // CPRL
-      for (int c = 0; c < ncomp; c++) {
-        auto [sx, sy] = steps(c, c + 1);
+          for (int r = r0; r < r1; r++)
+            for (int c = c0; c < c1; c++)
+              if (r < comps[c].numres)
+                for (int p = 0; p < comps[c].res[r].pw * comps[c].res[r].ph; p++) packet(l, r, c, p);
+        break;
+      case 1:  // RLCP
+        for (int r = r0; r < r1; r++)
+          for (int l = 0; l < L; l++)
+            for (int c = c0; c < c1; c++)
+              if (r < comps[c].numres)
+                for (int p = 0; p < comps[c].res[r].pw * comps[c].res[r].ph; p++) packet(l, r, c, p);
+        break;
+      case 2: {  // RPCL
+        auto [sx, sy] = steps(0, ncomp);
+        if (!sx || !sy) break;
+        for (int r = r0; r < r1; r++)
+          for (uint64_t y = ty0; y < ty1; y += sy - y % sy)
+            for (uint64_t x = tx0; x < tx1; x += sx - x % sx)
+              for (int c = c0; c < c1; c++) position(c, r, x, y, L);
+        break;
+      }
+      case 3: {  // PCRL
+        auto [sx, sy] = steps(0, ncomp);
         if (!sx || !sy) break;
         for (uint64_t y = ty0; y < ty1; y += sy - y % sy)
           for (uint64_t x = tx0; x < tx1; x += sx - x % sx)
-            for (int r = 0; r < std::min(maxres, comps[c].numres); r++) position(c, r, x, y, L);
+            for (int c = c0; c < c1; c++)
+              for (int r = r0; r < std::min(r1, comps[c].numres); r++) position(c, r, x, y, L);
+        break;
+      }
+      default: {  // CPRL
+        for (int c = c0; c < c1; c++) {
+          auto [sx, sy] = steps(c, c + 1);
+          if (!sx || !sy) break;
+          for (uint64_t y = ty0; y < ty1; y += sy - y % sy)
+            for (uint64_t x = tx0; x < tx1; x += sx - x % sx)
+              for (int r = r0; r < std::min(r1, comps[c].numres); r++) position(c, r, x, y, L);
+        }
       }
     }
   }
@@ -821,8 +1040,9 @@ const MqState MQ_TABLE[47] = {
 
 enum { CTX_SC = 9, CTX_MAG = 14, CTX_AGG = 17, CTX_UNI = 18, NCTX = 19 };
 
-// The MQ decoder as OpenJPEG's opj_mqc_* macros run it; the segment is
-// followed by 0xFF 0xFF, which stops the byte input.
+// The MQ decoder as OpenJPEG's opj_mqc_* macros run it, and its raw
+// (bypass) decoder on the same registers, as OpenJPEG's opj_mqc_t holds them;
+// each segment is followed by 0xFF 0xFF, which stops the byte input.
 struct Mq {
   const uint8_t* bp;
   uint32_t a = 0, c = 0;
@@ -848,6 +1068,22 @@ struct Mq {
     c = len == 0 ? 0xffu << 16 : uint32_t(*bp) << 16;
     bytein();
     c <<= 7, ct -= 7, a = 0x8000;
+  }
+  void raw_init(const uint8_t* p) { bp = p, c = 0, ct = 0; }
+  int raw() {  // opj_mqc_raw_decode: 7 bits in the byte after 0xFF; 0xFF 0x90.. repeats the 0xFF
+    if (ct == 0) {
+      if (c == 0xff) {
+        if (*bp > 0x8f) {
+          c = 0xff, ct = 8;
+        } else {
+          c = *bp++, ct = 7;
+        }
+      } else {
+        c = *bp++, ct = 8;
+      }
+    }
+    ct--;
+    return int(c >> ct) & 1;
   }
   void renorm() {
     do {
@@ -939,18 +1175,23 @@ inline int sc_index(uint32_t f) {
          int(!!(f & NEG_N)) << 4 | int(!!(f & NEG_W)) << 5 | int(!!(f & NEG_E)) << 6 | int(!!(f & NEG_S)) << 7;
 }
 
+enum CblkStyle { BYPASS = 1, RESET = 2, TERMALL = 4, VSC = 8, PTERM = 16, SEGSYM = 32 };
+
 struct T1 {
   int w, h, stride;
+  bool vsc = false;
   std::vector<uint32_t> flags;
   std::vector<int32_t> data;
   const uint8_t* zc;
   Mq mq;
 
-  void set_sig(int i, int neg) {
+  // y: the sample's row; with VSC a stripe's first row leaves the row above
+  // unaware of it (opj_t1_update_flags)
+  void set_sig(int i, int y, int neg) {
     uint32_t* f = &flags[i];
     const uint32_t n = neg ? ~0u : 0u;
     f[0] |= SIG;
-    f[-stride - 1] |= NB_SE, f[-stride] |= NB_S | (NEG_S & n), f[-stride + 1] |= NB_SW;
+    if (!(vsc && y % 4 == 0)) f[-stride - 1] |= NB_SE, f[-stride] |= NB_S | (NEG_S & n), f[-stride + 1] |= NB_SW;
     f[-1] |= NB_E | (NEG_E & n), f[1] |= NB_W | (NEG_W & n);
     f[stride - 1] |= NB_NE, f[stride] |= NB_N | (NEG_N & n), f[stride + 1] |= NB_NW;
   }
@@ -958,44 +1199,53 @@ struct T1 {
     uint8_t s = LUTS.sc[sc_index(f)];
     return mq.decode(s & 0x7f) ^ (s >> 7);
   }
-  void become_sig(int i, int d, int32_t oneplushalf) {
+  void become_sig(int i, int d, int y, int32_t oneplushalf) {
     int neg = sign(flags[i]);
     data[d] = neg ? -oneplushalf : oneplushalf;
-    set_sig(i, neg);
+    set_sig(i, y, neg);
   }
   template <class F>
   void scan(F f) {
     for (int k = 0; k < h; k += 4)
       for (int x = 0; x < w; x++)
-        for (int y = k; y < std::min(k + 4, h); y++) f((y + 1) * stride + x + 1, y * w + x);
+        for (int y = k; y < std::min(k + 4, h); y++) f((y + 1) * stride + x + 1, y * w + x, y);
   }
+  template <bool RAW>
   void sigpass(int bp) {
     int32_t one = 1 << bp, oph = one | (one >> 1);
-    scan([&](int i, int d) {
+    scan([&](int i, int d, int y) {
       uint32_t f = flags[i];
       if (!(f & (SIG | VISIT)) && (f & NB_ALL)) {
-        if (mq.decode(zc[f & NB_ALL])) become_sig(i, d, oph);
+        if (RAW) {
+          if (mq.raw()) {
+            int neg = mq.raw();
+            data[d] = neg ? -oph : oph;
+            set_sig(i, y, neg);
+          }
+        } else if (mq.decode(zc[f & NB_ALL])) {
+          become_sig(i, d, y, oph);
+        }
         flags[i] |= VISIT;
       }
     });
   }
+  template <bool RAW>
   void refpass(int bp) {
     int32_t poshalf = (1 << bp) >> 1;
-    scan([&](int i, int d) {
+    scan([&](int i, int d, int) {
       uint32_t f = flags[i];
       if ((f & (SIG | VISIT)) == SIG) {
-        int ctx = (f & REFINED) ? CTX_MAG + 2 : (f & NB_ALL) ? CTX_MAG + 1 : CTX_MAG;
-        int v = mq.decode(ctx);
+        int v = RAW ? mq.raw() : mq.decode((f & REFINED) ? CTX_MAG + 2 : (f & NB_ALL) ? CTX_MAG + 1 : CTX_MAG);
         data[d] += (v ^ (data[d] < 0)) ? poshalf : -poshalf;
         flags[i] |= REFINED;
       }
     });
   }
-  void clnpass(int bp) {
+  void clnpass(int bp, bool segsym) {
     int32_t one = 1 << bp, oph = one | (one >> 1);
-    auto step = [&](int i, int d) {
+    auto step = [&](int i, int d, int y) {
       uint32_t f = flags[i];
-      if (!(f & (SIG | VISIT)) && mq.decode(zc[f & NB_ALL])) become_sig(i, d, oph);
+      if (!(f & (SIG | VISIT)) && mq.decode(zc[f & NB_ALL])) become_sig(i, d, y, oph);
     };
     for (int k = 0; k < h; k += 4)
       for (int x = 0; x < w; x++) {
@@ -1007,20 +1257,25 @@ struct T1 {
             if (!mq.decode(CTX_AGG)) continue;
             int run = mq.decode(CTX_UNI) << 1;
             run |= mq.decode(CTX_UNI);
-            become_sig(i0 + run * stride, d0 + run * w, oph);
+            become_sig(i0 + run * stride, d0 + run * w, k + run, oph);
             y0 = run + 1;
           }
         }
-        for (int y = y0; y < 4 && k + y < h; y++) step(i0 + y * stride, d0 + y * w);
+        for (int y = y0; y < 4 && k + y < h; y++) step(i0 + y * stride, d0 + y * w, k + y);
       }
     for (uint32_t& f : flags) f &= ~VISIT;
+    if (segsym)  // the segmentation symbol: OpenJPEG decodes it and does not check it
+      for (int k = 0; k < 4; k++) mq.decode(CTX_UNI);
   }
-  void decode(const Cblk& cb, int orient) {
+  // opj_t1_decode_cblk: the ROI shift counted in the bit-planes; BYPASS
+  // decides each segment's coder at its first pass
+  void decode(const Cblk& cb, int orient, int cblksty, int roishift) {
     w = int(cb.x1 - cb.x0), h = int(cb.y1 - cb.y0), stride = w + 2;
+    vsc = (cblksty & VSC) != 0;
     flags.assign(size_t(stride) * (h + 2), 0);
     data.assign(size_t(w) * h, 0);
     zc = LUTS.zc[orient];
-    int32_t bp = cb.numbps;
+    int32_t bp = int32_t(uint32_t(roishift) + uint32_t(cb.numbps));
     if (bp >= 31) fail(fmt("opj_t1_decode_cblk(): unsupported bpno_plus_one = %lld >= 31", bp));
     mq.reset_states();
     int passtype = 2;
@@ -1031,12 +1286,25 @@ struct T1 {
       seg_data.assign(cb.data.begin() + at, cb.data.begin() + at + seg.len);
       seg_data.push_back(0xff), seg_data.push_back(0xff);
       at += seg.len;
-      mq.init(seg_data.data(), seg.len);
+      bool raw = (cblksty & BYPASS) && passtype < 2 && int64_t(bp) <= int64_t(cb.numbps) - 4;
+      if (raw) mq.raw_init(seg_data.data());
+      else mq.init(seg_data.data(), seg.len);
       for (uint32_t p = 0; p < seg.numpasses && bp >= 1; p++) {
-        if (passtype == 0) sigpass(bp);
-        else if (passtype == 1) refpass(bp);
-        else clnpass(bp);
+        if (passtype == 0) raw ? sigpass<true>(bp) : sigpass<false>(bp);
+        else if (passtype == 1) raw ? refpass<true>(bp) : refpass<false>(bp);
+        else clnpass(bp, (cblksty & SEGSYM) != 0);
+        if ((cblksty & RESET) && !raw) mq.reset_states();
         if (++passtype == 3) passtype = 0, bp--;
+      }
+    }
+    if (roishift) {  // opj_t1_clbl_decode_processor: magnitudes at or above 1 << roishift scaled down
+      for (int32_t& v : data) {
+        if (roishift >= 31) {
+          v = 0;
+        } else {
+          int32_t mag = v < 0 ? -v : v;
+          if (mag >= (int32_t(1) << roishift)) mag >>= roishift, v = v < 0 ? -mag : mag;
+        }
       }
     }
   }
@@ -1094,9 +1362,9 @@ void idwt97(float* x, int len, int width, int cas) {
   }
 }
 
-// The inverse DWT of a tile-component: each level's rows, eight at a
-// time, then its columns, all at once.
-void idwt(TileComp& tc, int qmfbid) {
+// The inverse DWT of a tile-component up to resolution `top`: each level's
+// rows, eight at a time, then its columns, all at once.
+void idwt(TileComp& tc, int qmfbid, int top) {
   const int64_t stride = tc.x1 - tc.x0;
   const int group = 8;
   std::vector<Sample> tmp;
@@ -1105,7 +1373,7 @@ void idwt(TileComp& tc, int qmfbid) {
     if (qmfbid == 1) idwt53(&tmp[0].i, len, width, cas);
     else idwt97(&tmp[0].f, len, width, cas);
   };
-  for (int r = 1; r < tc.numres; r++) {
+  for (int r = 1; r <= top; r++) {
     const Res &lo = tc.res[r - 1], &res = tc.res[r];
     const int rw = int(res.x1 - res.x0), rh = int(res.y1 - res.y0);
     const int snx = int(lo.x1 - lo.x0), sny = int(lo.y1 - lo.y0);
@@ -1224,8 +1492,10 @@ struct Output {
 
 // PIL's choice of unpacker (Jpeg2KDecode.c's j2k_unpackers): 0 gray_l,
 // 1 gray_i, 2 gray_rgb, 3 graya_la, 4 srgb_rgb, 5 sycc_rgb, 6 srgba_rgba,
-// 7 sycca_rgba
-int unpacker(int mode, int space, int ncomp) {
+// 7 sycca_rgba; only 4 to 7 read subsampled components. Where the colour
+// space is unspecified, PIL takes 1 or 2 components for grey, and 3 or 4
+// for sYCC where component 0 is full size and 1 or 2 subsampled, else sRGB.
+int unpacker(int mode, int space, const std::vector<Comp>& comps) {
   static const int table[][4] = {  // mode, colour space, components, unpacker
       {M_L, CS_GRAY, 1, 0},     {M_P, CS_SRGB, 1, 0},     {M_PA, CS_SRGB, 2, 3},    {M_I16, CS_GRAY, 1, 1},
       {M_LA, CS_GRAY, 2, 3},    {M_RGB, CS_GRAY, 1, 2},   {M_RGB, CS_GRAY, 2, 2},   {M_RGB, CS_SRGB, 3, 4},
@@ -1233,68 +1503,120 @@ int unpacker(int mode, int space, int ncomp) {
       {M_RGBA, CS_GRAY, 2, 3},  {M_RGBA, CS_SRGB, 3, 4},  {M_RGBA, CS_SYCC, 3, 5},  {M_RGBA, CS_SRGB, 4, 6},
       {M_RGBA, CS_GRAY, 4, 6},  {M_RGBA, CS_SYCC, 4, 7},  {M_CMYK, CS_CMYK, 4, 6},
   };
+  int ncomp = int(comps.size());
   if (ncomp < 1 || ncomp > 4 || space == CS_UNKNOWN) fail("broken data stream (components or colour space)");
-  if (space == CS_UNSPECIFIED) space = ncomp <= 2 ? CS_GRAY : CS_SRGB;
+  auto sub = [&](int c) { return comps[c].dx != 1 || comps[c].dy != 1; };
+  bool subsampled = false;
+  for (int c = 0; c < ncomp; c++) subsampled |= sub(c);
+  if (space == CS_UNSPECIFIED)
+    space = ncomp <= 2 ? CS_GRAY : !sub(0) && (sub(1) || sub(2)) ? CS_SYCC : CS_SRGB;
   for (const auto& t : table)
-    if (t[0] == mode && t[1] == space && t[2] == ncomp) return t[3];
+    if (t[0] == mode && t[1] == space && t[2] == ncomp && (t[3] >= 4 || !subsampled)) return t[3];
   fail("broken data stream (no unpacker for the mode, colour space and components)");
 }
 
-void unpack_tile(const Codestream& cs, const std::vector<TileComp>& comps, const int64_t t[4], const Output& out) {
+// PIL's tile buffer: opj_tcd_update_tile_data packs each component at the
+// resolution decoded (1, 2 or 4 bytes a sample), the rest zero; PIL's
+// unpacker then reads it with its own strides (w / dx, h / dy).
+void unpack_tile(const Codestream& cs, const std::vector<TileComp>& comps, const std::vector<int>& resno_decoded,
+                 const int64_t t[4], const Output& out, std::vector<uint8_t>& buf) {
   int64_t x0 = t[0] - cs.x0, y0 = t[1] - cs.y0, w = t[2] - t[0], h = t[3] - t[1];
   if (t[0] >= t[2] || t[1] >= t[3] || t[0] < cs.x0 || t[1] < cs.y0 || t[2] - cs.x0 > out.width ||
       t[3] - cs.y0 > out.height)
     fail("broken data stream (tile outside the image)");
-  size_t n = comps.size();
-  // per component: its samples as the packed bytes read back (UINT8, UINT16 or UINT32)
-  std::vector<std::vector<uint32_t>> word(n);
-  std::vector<int> shift(n), offset(n);
+  size_t n = comps.size();  // at most 4 (unpacker): the per-component values live in local arrays, which the
+  int csiz[4], shift[4], offset[4];  // stores to the image cannot alias
+  int64_t total = 0;
   int target = out.kind == 1 ? 16 : 8;
   for (size_t c = 0; c < n; c++) {
     const Comp& comp = cs.comps[c];
-    int csiz = (comp.prec + 7) >> 3;
-    if (csiz == 3) csiz = 4;
-    uint32_t mask = csiz == 1 ? 0xffu : csiz == 2 ? 0xffffu : 0xffffffffu;
-    word[c].resize(size_t(w * h));
-    const TileComp& tc = comps[c];
-    for (int64_t i = 0; i < w * h; i++) word[c][i] = uint32_t(tc.data[i].i) & mask;
+    csiz[c] = (comp.prec + 7) >> 3;
+    if (csiz[c] == 3) csiz[c] = 4;
+    total += csiz[c] * w * h;
     shift[c] = target - comp.prec;
     offset[c] = comp.sgnd ? 1 << (comp.prec - 1) : 0;
     if (shift[c] < 0) offset[c] += 1 << (-shift[c] - 1);
   }
-  auto val = [&](size_t c, int64_t i) { return shifted(uint32_t(offset[c]) + word[c][i], shift[c]); };
-  for (int64_t y = 0; y < h; y++)
-    for (int64_t x = 0; x < w; x++) {
-      int64_t i = y * w + x;
-      uint8_t* p = out.px + ((y0 + y) * out.width + x0 + x) * out.bpp;
+  buf.assign(size_t(total), 0);
+  int64_t at = 0;
+  for (size_t c = 0; c < n; c++) {  // opj_tcd_update_tile_data
+    const TileComp& tc = comps[c];
+    const Res& res = tc.res[resno_decoded[c]];
+    int64_t rw = res.x1 - res.x0, rh = res.y1 - res.y0, from = tc.x1 - tc.x0;
+    if (at + csiz[c] * rw * rh > total) fail("broken data stream (tile data)");
+    uint8_t* q = &buf[at];
+    for (int64_t y = 0; y < rh; y++) {  // the low bytes, as the host's int8 / int16 / int32 stores
+      const Sample* src = &tc.data[y * from];
+      if (csiz[c] == 1) {
+        for (int64_t x = 0; x < rw; x++) *q++ = uint8_t(src[x].i);
+      } else if (csiz[c] == 2) {
+        for (int64_t x = 0; x < rw; x++, q += 2) {
+          uint16_t v = uint16_t(src[x].i);
+          memcpy(q, &v, 2);
+        }
+      } else {
+        memcpy(q, src, size_t(4 * rw));
+        q += 4 * rw;
+      }
+    }
+    at += csiz[c] * rw * rh;
+  }
+  // where PIL reads component c of pixel (x, y): start[c] + row (y / dy * its stride) + csiz (x / dx);
+  // the unpackers that read no subsampled components take dx = dy = 1
+  bool sub = out.kind >= 4;
+  int64_t start[4] = {}, stride[4], dx[4], dy[4], row[4];
+  const uint8_t* b = buf.data();
+  for (size_t c = 0; c < n; c++) {
+    dx[c] = sub ? cs.comps[c].dx : 1, dy[c] = sub ? cs.comps[c].dy : 1;
+    stride[c] = csiz[c] * (w / dx[c]);
+    if (c + 1 < n) start[c + 1] = start[c] + stride[c] * (h / dy[c]);
+  }
+  auto word = [&](size_t c, int64_t x) {  // the sample PIL reads for column x, shifted
+    const uint8_t* q = b + row[c] + csiz[c] * (dx[c] == 1 ? x : x / dx[c]);
+    uint32_t v;
+    if (csiz[c] == 1) {
+      v = *q;
+    } else if (csiz[c] == 2) {
+      uint16_t u;
+      memcpy(&u, q, 2);
+      v = u;
+    } else {
+      memcpy(&v, q, 4);
+    }
+    return shifted(uint32_t(offset[c]) + v, shift[c]);
+  };
+  int planes = out.kind == 4 || out.kind == 5 ? 3 : out.kind >= 6 ? 4 : out.kind == 3 ? 2 : 1;
+  for (int64_t y = 0; y < h; y++) {
+    for (int c = 0; c < planes; c++) row[c] = start[c] + stride[c] * (y / dy[c]);
+    uint8_t* p = out.px + ((y0 + y) * out.width + x0) * out.bpp;
+    for (int64_t x = 0; x < w; x++, p += out.bpp) {
       switch (out.kind) {
-        case 0: p[0] = uint8_t(val(0, i)); break;
+        case 0: p[0] = uint8_t(word(0, x)); break;
         case 1: {
-          uint16_t v = uint16_t(val(0, i));
+          uint16_t v = uint16_t(word(0, x));
           memcpy(p, &v, 2);
           break;
         }
-        case 2: p[0] = p[1] = p[2] = uint8_t(val(0, i)), p[3] = 0xff; break;
-        case 3: p[0] = p[1] = p[2] = uint8_t(val(0, i)), p[3] = uint8_t(val(1, i)); break;
-        case 4:
-        case 5:
-          for (int c = 0; c < 3; c++) p[c] = uint8_t(val(c, i));
-          p[3] = 0xff;
-          if (out.kind == 5) ycbcr_to_rgb(p);
-          break;
+        case 2: p[0] = p[1] = p[2] = uint8_t(word(0, x)), p[3] = 0xff; break;
+        case 3: p[0] = p[1] = p[2] = uint8_t(word(0, x)), p[3] = uint8_t(word(1, x)); break;
         default:
-          for (int c = 0; c < 4; c++) p[c] = uint8_t(val(c, i));
-          if (out.kind == 7) ycbcr_to_rgb(p);
+          for (int c = 0; c < planes; c++) p[c] = uint8_t(word(c, x));
+          if (planes == 3) p[3] = 0xff;
+          if (out.kind == 5 || out.kind == 7) ycbcr_to_rgb(p);
       }
     }
+  }
 }
 
 // Decodes one tile into its components' samples (after the DC shift and
 // clamp); `ranges` collects its code-blocks' data ranges when not null.
+// `resno_decoded`: each component's highest resolution read in the tile
+// (0 where none is).
 void decode_tile(const Codestream& cs, const Tcp& tcp, int tileno, std::vector<TileComp>& comps, int64_t t[4],
-                 std::vector<std::pair<int64_t, int64_t>>* ranges) {
+                 Headers* packed, std::vector<int>& resno_decoded, std::vector<std::pair<int64_t, int64_t>>* ranges) {
   init_tile(cs, tcp, tileno, comps, t);
-  tier2(cs, tcp, comps, t, tcp.data.data(), int64_t(tcp.data.size()), 0);
+  resno_decoded.assign(comps.size(), 0);
+  tier2(cs, tcp, comps, t, tcp.data.data(), int64_t(tcp.data.size()), 0, packed, resno_decoded);
   T1 t1;
   for (size_t c = 0; c < comps.size(); c++) {
     TileComp& tc = comps[c];
@@ -1312,7 +1634,7 @@ void decode_tile(const Codestream& cs, const Tcp& tcp, int tileno, std::vector<T
             if (ranges)
               for (auto [off, len] : cb.chunks) ranges->push_back({off, len});
             if (cb.x1 <= cb.x0 || cb.y1 <= cb.y0) continue;
-            t1.decode(cb, band.bandno);
+            t1.decode(cb, band.bandno, tccp.cblksty, tccp.roishift);
             int64_t x = cb.x0 - band.x0, y = cb.y0 - band.y0;
             if (band.bandno & 1) x += tc.res[r - 1].x1 - tc.res[r - 1].x0;
             if (band.bandno & 2) y += tc.res[r - 1].y1 - tc.res[r - 1].y0;
@@ -1326,48 +1648,77 @@ void decode_tile(const Codestream& cs, const Tcp& tcp, int tileno, std::vector<T
           }
       }
     }
-    idwt(tc, tccp.qmfbid);
+    idwt(tc, tccp.qmfbid, resno_decoded[c]);
   }
-  if (tcp.mct) {
-    if (comps.size() >= 3) {
-      for (int c = 1; c < 3; c++)
-        if (comps[c].numres != comps[0].numres || comps[c].x1 - comps[c].x0 != comps[0].x1 - comps[0].x0 ||
-            comps[c].y1 - comps[c].y0 != comps[0].y1 - comps[0].y0)
-          fail("Tiles don't all have the same dimension. Skip the MCT step.");
-      Sample *c0 = comps[0].data.data(), *c1 = comps[1].data.data(), *c2 = comps[2].data.data();
-      size_t n = comps[0].data.size();
-      if (tcp.tccps[0].qmfbid == 1) {
-        for (size_t i = 0; i < n; i++) {
-          int32_t y = c0[i].i, u = c1[i].i, v = c2[i].i;
-          int32_t g = y - ((u + v) >> 2);
-          c0[i].i = v + g, c1[i].i = g, c2[i].i = u + g;
-        }
-      } else {
-        for (size_t i = 0; i < n; i++) {
-          float y = c0[i].f, u = c1[i].f, v = c2[i].f;
-          c0[i].f = y + v * 1.402f;
-          c1[i].f = y - u * 0.34413f - v * 0.71414f;
-          c2[i].f = y + u * 1.772f;
-        }
+  if (tcp.mct && comps.size() >= 3) {  // opj_tcd_mct_decode
+    const Res& r0 = comps[0].res[comps[0].numres - 1];
+    int64_t samples = (r0.x1 - r0.x0) * (r0.y1 - r0.y0);
+    for (int c = 1; c < 3; c++) {
+      const Res& rc = comps[c].res[std::min(comps[0].numres, comps[c].numres) - 1];
+      if (comps[c].numres != comps[0].numres || resno_decoded[c] != resno_decoded[0] ||
+          (rc.x1 - rc.x0) * (rc.y1 - rc.y0) != samples)
+        fail("Tiles don't all have the same dimension. Skip the MCT step.");
+    }
+    Sample *c0 = comps[0].data.data(), *c1 = comps[1].data.data(), *c2 = comps[2].data.data();
+    if (tcp.tccps[0].qmfbid == 1) {
+      for (int64_t i = 0; i < samples; i++) {
+        int32_t y = c0[i].i, u = c1[i].i, v = c2[i].i;
+        int32_t g = y - ((u + v) >> 2);
+        c0[i].i = v + g, c1[i].i = g, c2[i].i = u + g;
+      }
+    } else {
+      for (int64_t i = 0; i < samples; i++) {
+        float y = c0[i].f, u = c1[i].f, v = c2[i].f;
+        c0[i].f = y + v * 1.402f;
+        c1[i].f = y - u * 0.34413f - v * 0.71414f;
+        c2[i].f = y + u * 1.772f;
       }
     }
   }
   for (size_t c = 0; c < comps.size(); c++) {  // DC level shift and clamp (opj_tcd_dc_level_shift_decode)
     const Comp& comp = cs.comps[c];
+    const Res& res = comps[c].res[resno_decoded[c]];
+    int64_t rw = res.x1 - res.x0, rh = res.y1 - res.y0, stride = comps[c].x1 - comps[c].x0;
     int32_t lo = comp.sgnd ? -(1 << (comp.prec - 1)) : 0;
     int32_t hi = comp.sgnd ? (1 << (comp.prec - 1)) - 1 : int32_t((1u << comp.prec) - 1);
     int32_t shift = comp.sgnd ? 0 : 1 << (comp.prec - 1);
-    for (Sample& s : comps[c].data) {
-      if (tcp.tccps[c].qmfbid == 1) {
-        s.i = int32_t(std::min<int64_t>(hi, std::max<int64_t>(lo, int64_t(s.i) + shift)));
-      } else {
-        float v = s.f;
-        if (std::isnan(v)) s.i = lo;
-        else if (v > float(INT32_MAX)) s.i = hi;
-        else if (v < float(INT32_MIN)) s.i = lo;
-        else s.i = int32_t(std::min<int64_t>(hi, std::max<int64_t>(lo, int64_t(lrintf(v)) + shift)));
+    for (int64_t y = 0; y < rh; y++)
+      for (int64_t x = 0; x < rw; x++) {
+        Sample& s = comps[c].data[y * stride + x];
+        if (tcp.tccps[c].qmfbid == 1) {
+          s.i = int32_t(std::min<int64_t>(hi, std::max<int64_t>(lo, int64_t(s.i) + shift)));
+        } else {
+          float v = s.f;
+          if (std::isnan(v)) s.i = lo;
+          else if (v > float(INT32_MAX)) s.i = hi;
+          else if (v < float(INT32_MIN)) s.i = lo;
+          else s.i = int32_t(std::min<int64_t>(hi, std::max<int64_t>(lo, int64_t(lrintf(v)) + shift)));
+        }
       }
+  }
+}
+
+// Every tile with data in decoding order (PPM headers run on from tile to
+// tile), handed to `done(tileno, comps, t)`.
+template <class F>
+void decode_tiles(Codestream& cs, std::vector<std::pair<int64_t, int64_t>>* ranges, F done) {
+  std::vector<TileComp> comps;
+  std::vector<int> resno_decoded;
+  Headers ppm{cs.ppm_data.data(), int64_t(cs.ppm_data.size())};
+  for (int k : cs.order) {
+    Tcp& tcp = cs.tiles[k];
+    if (!tcp.has_data) {
+      if (cs.completed[k]) fail(fmt("tile %lld is complete but holds no data (opj_j2k_decode_tile fails)", k));
+      continue;
     }
+    std::vector<uint8_t> ppt_data;  // opj_j2k_merge_ppt: the PPT segments in Zppt order
+    for (size_t z = 0; z < tcp.ppt.segs.size(); z++)
+      if (tcp.ppt.set[z]) ppt_data.insert(ppt_data.end(), tcp.ppt.segs[z].begin(), tcp.ppt.segs[z].end());
+    Headers ppt{ppt_data.data(), int64_t(ppt_data.size())};
+    Headers* packed = cs.has_ppm ? &ppm : tcp.has_ppt ? &ppt : nullptr;
+    int64_t t[4];
+    decode_tile(cs, tcp, k, comps, t, packed, resno_decoded, ranges);
+    done(k, comps, resno_decoded, t);
   }
 }
 
@@ -1387,15 +1738,11 @@ int gs_jp2_decode(const uint8_t* cs_data, long long size, int mode, int space, i
                   long long ihdr_w, long long ihdr_h, uint8_t* out) {
   try {
     Codestream cs = parse(cs_data, size, ihdr_w, ihdr_h);
-    Output o{unpacker(mode, space, int(cs.comps.size())), width, height,
+    Output o{unpacker(mode, space, cs.comps), width, height,
              mode == M_L || mode == M_P ? 1 : mode == M_I16 ? 2 : 4, out};
-    std::vector<TileComp> comps;
-    for (size_t k = 0; k < cs.tiles.size(); k++) {
-      if (!cs.tiles[k].has_data) continue;
-      int64_t t[4];
-      decode_tile(cs, cs.tiles[k], int(k), comps, t, nullptr);
-      unpack_tile(cs, comps, t, o);
-    }
+    std::vector<uint8_t> buf;
+    decode_tiles(cs, nullptr, [&](int, const std::vector<TileComp>& comps, const std::vector<int>& resno_decoded,
+                                  const int64_t* t) { unpack_tile(cs, comps, resno_decoded, t, o, buf); });
     return 0;
   } catch (const Error& e) {
     g_error = e.msg;
@@ -1413,16 +1760,11 @@ long long gs_jp2_segments(const uint8_t* cs_data, long long size, long long* out
   try {
     Codestream cs = parse(cs_data, size, 0, 0);
     std::vector<std::pair<int64_t, int64_t>> ranges;
-    std::vector<TileComp> comps;
-    for (size_t k = 0; k < cs.tiles.size(); k++) {
-      const Tcp& tcp = cs.tiles[k];
-      if (!tcp.has_data) continue;
-      int64_t t[4];
-      size_t first = ranges.size();
-      decode_tile(cs, tcp, int(k), comps, t, &ranges);
+    size_t first = 0;
+    decode_tiles(cs, &ranges, [&](int k, const std::vector<TileComp>&, const std::vector<int>&, const int64_t*) {
       for (size_t i = first; i < ranges.size(); i++) {  // offsets in the tile's data -> in the codestream
         int64_t off = ranges[i].first, base = 0;
-        for (auto [at, len] : tcp.parts) {
+        for (auto [at, len] : cs.tiles[k].parts) {
           if (off < base + len) {
             ranges[i].first = at + off - base;
             break;
@@ -1430,7 +1772,8 @@ long long gs_jp2_segments(const uint8_t* cs_data, long long size, long long* out
           base += len;
         }
       }
-    }
+      first = ranges.size();
+    });
     for (size_t i = 0; i < ranges.size() && int64_t(i) < capacity; i++)
       out[2 * i] = ranges[i].first, out[2 * i + 1] = ranges[i].second;
     return (long long)ranges.size();

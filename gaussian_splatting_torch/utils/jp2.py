@@ -14,14 +14,18 @@ file in two steps, and this module follows both:
   (signature, file type, header, `ihdr`, `colr`, `pclr`, `cmap`, `cdef`),
   takes the colour space from the first `colr` box (enumerated 16 sRGB,
   17 grey, 18 sYCC, 24 e-sYCC, 12 CMYK; anything else unspecified, which
-  PIL reads by the number of components) and applies no palette or channel
-  definition: PIL unpacks the codestream's components as they are, sYCC
-  converted by its own YCbCr tables. The codestream is decoded by the
+  PIL reads by the number of components, or as sYCC where components 1 or
+  2 are subsampled) and applies no palette or channel definition: PIL
+  unpacks the codestream's components as they are, subsampled ones by its
+  own strides, sYCC converted by its own YCbCr tables. A JPX file with
+  several codestreams reads as its first. The codestream is decoded by the
   compiled `csrc/jp2_decode.cc` (host C++, built at first use; no
-  fallback), which also applies PIL's unpackers.
+  fallback), which also applies PIL's unpackers: every JPEG 2000 Part 1
+  feature (SOP / EPH, PPM / PPT, POC, the six code-block styles, RGN,
+  subsampling, unknown markers) as OpenJPEG decodes it for PIL.
 
-Where PIL raises, this raises a `ValueError` naming the file. Features no
-PIL-written file holds are refused by name (`REFUSED`).
+Where PIL raises, this raises a `ValueError` naming the file. Features PIL
+reads that the port does not are refused by name (`REFUSED`).
 """
 
 from __future__ import annotations
@@ -45,10 +49,7 @@ MODES = ("L", "P", "PA", "I;16", "LA", "RGB", "RGBA", "CMYK")
 # the number of components
 COLOUR_SPACES = {16: 1, 17: 2, 18: 3, 24: 4, 12: 5}
 UNSPECIFIED_SPACE = 0
-REFUSED = ("HTJ2K (Part 15)", "code-block styles other than 0 (BYPASS, RESET, TERMALL, VSC, PTERM, SEGSYM)",
-           "region of interest (RGN)", "progression order changes (POC)", "packed packet headers (PPM, PPT)",
-           "SOP / EPH markers", "component subsampling", "precision above 16 bits", "more than 4 components",
-           "Part 2 extensions", "unknown markers", "JPX files with several codestreams")
+REFUSED = ("HTJ2K (Part 15)", "precision above 16 bits", "more than 4 components", "Part 2 extensions")
 
 
 class _Boxes:
@@ -231,8 +232,6 @@ def _opj_boxes(data: bytes):
         if kind == b"jp2c":
             if not state & 4:
                 raise ValueError("bad placed jpeg codestream")
-            if lbox > hlen and pos + lbox < n:
-                _refuse_more_codestreams(data, pos + lbox)
             space = COLOUR_SPACES.get(info["enumcs"], UNSPECIFIED_SPACE)
             return pos + hlen, space, info["ihdr"][0], info["ihdr"][1]
         if lbox == 0:
@@ -260,18 +259,6 @@ def _opj_boxes(data: bytes):
             raise ValueError("Malformed JP2 file format: the first boxes must be the signature and file type")
         pos += lbox
     raise ValueError("no codestream box (Expected a SOC marker)")
-
-
-def _refuse_more_codestreams(data: bytes, pos: int) -> None:
-    while pos + 8 <= len(data):
-        lbox, kind = struct.unpack_from(">I4s", data, pos)
-        if kind == b"jp2c":
-            raise ValueError("refused: JPX files with several codestreams")
-        if lbox == 1 and pos + 16 <= len(data):
-            lbox = struct.unpack_from(">Q", data, pos + 8)[0]
-        if lbox < 8:
-            return
-        pos += lbox
 
 
 def _opj_jp2h(body: bytes, info: dict) -> None:
@@ -388,7 +375,7 @@ def _library(name):
 def _raise(name, what: str):
     if what.startswith("refused: "):
         raise ValueError(f"{name}: {what[len('refused: '):]} is not read by the port (JPEG 2000); the port reads "
-                         f"JPEG 2000 Part 1 files as PIL writes them and refuses: {', '.join(REFUSED)}")
+                         f"JPEG 2000 Part 1 files as PIL reads them and refuses: {', '.join(REFUSED)}")
     raise ValueError(f"{name}: {what} (JPEG 2000: PIL fails on this file)")
 
 

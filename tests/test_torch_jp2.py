@@ -5,11 +5,14 @@ datasets with (PIL 12 through OpenJPEG 2.5).
 Tolerances: every comparison is bit-equal. For each file the port's
 `image_io.open_image` must give PIL's mode and `np.asarray(Image.open(f))`
 (a channel axis kept) and `to_rgba` PIL's `convert("RGBA")`, or raise a
-`ValueError` naming the file where PIL raises. Features no PIL-written
-file holds are refused by name (`jp2.REFUSED`), also where PIL reads the
-file. Files are PIL's own (every option of its writer), JP2 boxes written
-around PIL's codestreams, and PIL codestreams whose markers are edited
-(`tests/torch_image_writers`). Pictures are at most 67x45 here, made from
+`ValueError` naming the file where PIL raises. The features the port does
+not read (HTJ2K, Part 2, precision above 16 bits, more than 4 components)
+are refused by name (`jp2.REFUSED`), also where PIL reads the file. Files
+are PIL's own (every option of its writer), JP2 boxes written around PIL's
+codestreams, PIL codestreams whose markers are edited
+(`tests/torch_image_writers`), and files of the test-side encoder
+`tests/torch_j2k_writer.py` (the Part 1 features PIL's writer never sets;
+`tests/test_torch_jp2_part1.py` holds the port to PIL on each). Pictures are at most 67x45 here, made from
 `np.random.default_rng(seed)`; the committed fixtures
 (`tests/fixtures/torch_jp2`, 1080p ones included) are held to PIL's
 hashes.
@@ -37,6 +40,7 @@ from test_torch_image_forms import (  # noqa: F401  (cxx: a fixture)
 from test_torch_jpeg import fake_cxx  # noqa: F401  (a fixture)
 from test_torch_scene import assert_same_cameras
 from torch_image_writers import j2k_join, j2k_markers, j2k_split_parts, jp2_box, jp2_bytes
+from torch_j2k_writer import ALL_STYLES, BYPASS, TERMALL, encode
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures", "torch_jp2")
 COD, QCD, COM, TLM, SIZ = 0xFF52, 0xFF5C, 0xFF64, 0xFF55, 0xFF51
@@ -232,7 +236,7 @@ def test_codestream_structure_follows_pil(tmp_path, cxx, view):
     assert (got is None) == (view in ("no EOC", "tile-part index skipped", "Psot past the end"))
 
 
-# ---- refused by name ----
+# ---- refused by name, and the views once refused ----
 
 def _edit_cod(cs, offset, value, mask=None):
     main, parts = j2k_markers(cs)
@@ -258,50 +262,61 @@ def refused_views():
     views = {
         "HTJ2K": (with_siz(lambda b: b.__setitem__(0, 0x40)), "HTJ2K"),
         "Part 2": (with_siz(lambda b: b.__setitem__(0, 0x80)), "Part 2"),
-        "subsampling": (with_siz(lambda b: b.__setitem__(36 + 3 + 1, 2)), "subsampling"),
+        "subsampling": (with_siz(lambda b: b.__setitem__(36 + 3 + 1, 2)), None),
         "precision 17": (with_siz(lambda b: b.__setitem__(36, 16)), "precision above 16 bits"),
         "five components": (j2k_join([(SIZ, bytes(extra))] + main[1:], parts), "more than 4 components"),
         "five components, JP2": (jp2_bytes(j2k_join([(SIZ, bytes(extra))] + main[1:], parts), 5),
                                  "more than 4 components"),
-        "SOP": (_edit_cod(cs, 0, 0, mask=2), "SOP"),
-        "EPH": (_edit_cod(cs, 0, 0, mask=4), "EPH"),
-        "RGN": (j2k_join(main + [(0xFF5E, b"\x00\x00\x02")], parts), r"region of interest \(RGN\)"),
-        "POC": (j2k_join(main + [(0xFF5F, b"\x00\x00\x00\x01\x02\x01\x00")], parts), r"\(POC\)"),
-        "PPM": (j2k_join(main + [(0xFF60, b"\x00\x00\x00\x00\x00")], parts), r"\(PPM\)"),
-        "PPT": (j2k_join(main, [p[:3] + ([(0xFF61, b"\x00")] + p[3], p[4]) for p in parts]), r"\(PPT\)"),
+        "SOP": (_edit_cod(cs, 0, 0, mask=2), None),
+        "EPH": (_edit_cod(cs, 0, 0, mask=4), None),
+        "RGN": (j2k_join(main + [(0xFF5E, b"\x00\x00\x02")], parts), None),
+        "POC": (j2k_join(main + [(0xFF5F, b"\x00\x00\x00\x01\x02\x01\x00")], parts), None),
+        "PPM": (j2k_join(main + [(0xFF60, b"\x00\x00\x00\x00\x00")], parts), None),
+        "PPT": (j2k_join(main, [p[:3] + ([(0xFF61, b"\x00")] + p[3], p[4]) for p in parts]), None),
         "CAP": (j2k_join(main + [(0xFF50, b"\x00\x02\x00\x00\x00\x00")], parts), "HTJ2K"),
         "a Part 2 marker": (j2k_join(main + [(0xFF74, b"\x00\x00")], parts), "Part 2"),
-        "an unknown marker": (j2k_join(main + [(0xFF6A, b"\x00\x00")], parts), "unknown marker 0xff6a"),
-        "JPX with two codestreams": (jp2_bytes(cs, 3, brand=b"jpx ") + jp2_box(b"jp2c", cs),
-                                     "JPX files with several codestreams"),
+        "an unknown marker": (j2k_join(main + [(0xFF6A, b"\x00\x00")], parts), None),
+        "JPX with two codestreams": (jp2_bytes(cs, 3, brand=b"jpx ") + jp2_box(b"jp2c", cs), None),
     }
     for bit, style in enumerate(("BYPASS", "RESET", "TERMALL", "VSC", "PTERM", "SEGSYM", "HT")):
-        views[f"code-block style {style}"] = (_edit_cod(cs, 8, 1 << bit), "HTJ2K" if style == "HT" else
-                                              f"code-block style 0x{1 << bit:02x}")
+        views[f"code-block style {style}"] = (_edit_cod(cs, 8, 1 << bit), "HTJ2K" if style == "HT" else None)
     return views
 
 
 @pytest.mark.parametrize("view", list(refused_views()))
 def test_refused_features_are_named(tmp_path, cxx, view):
-    """Each feature no PIL-written file holds raises a ValueError naming
-    the file and the feature, whatever PIL makes of the file."""
+    """Each feature the port does not read (HTJ2K, Part 2, precision above
+    16 bits, more than 4 components) raises a ValueError naming the file
+    and the feature, whatever PIL makes of the file. The views the port
+    once refused (a style bit, SOP / EPH, RGN, POC, PPM / PPT, an unknown
+    marker, subsampling, a second codestream: edits of a PIL file that its
+    data does not follow) give PIL's pixels, or raise where PIL raises."""
     data, match = refused_views()[view]
     suffix = ".jp2" if data.startswith(jp2.JP2_SIGNATURE) else ".j2k"
-    assert_refused(tmp_path, data, f"(?s){match}.* is not read by the port", suffix)
+    if match is None:
+        assert_follows_pil(tmp_path, data, view, suffix)
+    else:
+        assert_refused(tmp_path, data, f"(?s){match}.* is not read by the port", suffix)
 
 
 # ---- damaged files ----
 
 # What PIL reads and the port refuses, by the words of the refusal; a
 # seeded flip that lands on one is counted here (ROADMAP.md section 1).
-STILL_REFUSED = ("unknown marker", "code-block style", "HTJ2K", "Part 2", "SOP", "EPH", "(RGN)", "(POC)",
-                 "(PPM)", "(PPT)", "subsampling", "precision above 16 bits", "more than 4 components")
+STILL_REFUSED = ("HTJ2K", "Part 2", "precision above 16 bits", "more than 4 components")
 
+# (writer, options): PIL's writer, or the test-side encoder's Part 1 forms
 DAMAGED = {
-    "5/3 RGB": dict(mct=1),
-    "9/7 tiles layers": dict(irreversible=True, quality_layers=[30, 10, 3], tile_size=(32, 32)),
-    "9/7 RPCL precincts": dict(progression="RPCL", precinct_size=(32, 32), codeblock_size=(8, 8),
-                               irreversible=True, quality_layers=[20, 5], mct=1),
+    "5/3 RGB": (pil_j2k, dict(mct=1, no_jp2=True)),
+    "9/7 tiles layers": (pil_j2k, dict(irreversible=True, quality_layers=[30, 10, 3], tile_size=(32, 32),
+                                       no_jp2=True)),
+    "9/7 RPCL precincts": (pil_j2k, dict(progression="RPCL", precinct_size=(32, 32), codeblock_size=(8, 8),
+                                         irreversible=True, quality_layers=[20, 5], mct=1, no_jp2=True)),
+    "SOP EPH": (encode, dict(sop=True, eph=True, layers=[4, None], mct=True)),
+    "BYPASS TERMALL": (encode, dict(style=BYPASS | TERMALL, cblk=(4, 4), layers=[6, None])),
+    "PPT": (encode, dict(headers="ppt", tile=(32, 32), tile_parts=2, layers=[3, None])),
+    "POC": (encode, dict(poc=[(0, 0, 1, 6, 3, "RLCP"), (0, 0, 3, 6, 3, "CPRL")], layers=[3, 8, None],
+                         style=ALL_STYLES)),
 }
 
 
@@ -314,8 +329,10 @@ def test_damaged_files_follow_pil(tmp_path, cxx, form):
     first 200 bytes), and seeded
     truncations (which PIL's strict reader refuses). Each outcome is
     counted; where the port refuses a file PIL reads it is by a name in
-    STILL_REFUSED."""
-    data = pil_j2k(smooth(40, 50, 3, 40), no_jp2=True, **DAMAGED[form])
+    STILL_REFUSED. The forms are PIL's, and the test-side encoder's with
+    SOP and EPH, BYPASS and TERMALL, PPT headers, and a POC."""
+    writer, options = DAMAGED[form]
+    data = writer(smooth(40, 50, 3, 40), **options)
     bodies = jp2.segments(data)
     assert sum(n for _, n in bodies) > 0.4 * len(data)
     outcomes = {"body read": 0, "read": 0, "raised": 0, "truncated": 0}
@@ -398,11 +415,15 @@ def test_fixtures_are_small():
 
 def colmap_views(w, h):
     """JP2 and J2K views whose pixels are the picture (RGB and L, 5/3),
-    and a lossy 9/7 one."""
+    a lossy 9/7 one, a 4:2:0 sYCC JP2 and a codestream with all six
+    code-block styles, SOP, EPH and a POC (the test-side encoder)."""
     a = smooth(h, w, 3, 50)
     return {"v_rgb.jp2": pil_j2k(a, mct=1), "v_grey.j2k": pil_j2k(a[..., 1], no_jp2=True),
             "v_tiles.jp2": pil_j2k(a, tile_size=(16, 16), tile_offset=(2, 1), offset=(2, 1)),
-            "v_97.jp2": pil_j2k(a, irreversible=True, mct=1, quality_layers=[20, 5])}
+            "v_97.jp2": pil_j2k(a, irreversible=True, mct=1, quality_layers=[20, 5]),
+            "v_420.jp2": jp2_bytes(encode(a, subsampling=[(1, 1), (2, 2), (2, 2)]), colr=(1, 18)),
+            "v_styles.j2k": encode(a, style=ALL_STYLES, sop=True, eph=True, mct=True, layers=[4, None],
+                                   poc=[(0, 0, 1, 6, 3, "RLCP"), (0, 0, 2, 6, 3, "CPRL")])}
 
 
 @pytest.mark.parametrize("resolution", [1, 2])
@@ -415,7 +436,7 @@ def test_colmap_reads_jp2_views_as_jax(tmp_path, monkeypatch, cxx, resolution):
     src = str(tmp_path / "jp2")
     write_colmap_dataset_of(src, colmap_views(w, h), w, h)
     jscene, scene = both_scenes(tmp_path, monkeypatch, src, eval_split=True, resolution=resolution)
-    assert len(scene.get_train_cameras()) + len(scene.get_test_cameras()) == 4
+    assert len(scene.get_train_cameras()) + len(scene.get_test_cameras()) == 6
     assert_same_cameras(scene.get_train_cameras(), jscene.get_train_cameras())
     assert_same_cameras(scene.get_test_cameras(), jscene.get_test_cameras())
 
@@ -449,7 +470,8 @@ def test_colmap_refuses_jp2_modes_that_are_not_the_picture(tmp_path, cxx, mode):
 @pytest.mark.parametrize("white_background", [False, True])
 def test_blender_reads_jp2_frames_as_jax(tmp_path, monkeypatch, cxx, white_background):
     """read_blender_scene on JPEG 2000 frames: RGBA 9/7 and 5/3, grey +
-    alpha, P and PA with palettes, CMYK, an RGB raw codestream: PIL's
+    alpha, P and PA with palettes, CMYK, an RGB raw codestream, an RGBA
+    JP2 whose alpha is subsampled 2x2 (the test-side encoder): PIL's
     convert("RGBA") composited on the background, bit for bit, then
     load_camera at -r 2."""
     from test_torch_tga import blender_scenes
@@ -463,4 +485,5 @@ def test_blender_reads_jp2_frames_as_jax(tmp_path, monkeypatch, cxx, white_backg
                          pclr=np.random.default_rng(65).integers(0, 256, (200, 3), dtype=np.uint8))
                for k, mode in enumerate(("P", "PA"))]
     frames.append(jp2_bytes(pil_j2k(rgba, no_jp2=True), colr=(1, 12)))
+    frames.append(jp2_bytes(encode(rgba, subsampling=[(1, 1)] * 3 + [(2, 2)], mct=True)))
     blender_scenes(tmp_path, monkeypatch, frames, white_background, jreaders, dataset_readers)
