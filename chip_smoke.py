@@ -120,8 +120,11 @@ Phases (any failure exits non-zero; none is caught and passed over):
      64 rows) and view_12 as a 1920x1080 JPEG 2000 (the PIL-written
      tests/fixtures/torch_jp2/ortho_97_rpcl_1920x1080.jp2: 9/7, 512x512
      tiles, RPCL, 3 layers, precincts; its own picture, not the view's
-     render, which must read as PIL's committed SHA-256), named so in
-     images.bin, the 2 test views as PNG. The port's readers must give
+     render, which must read as PIL's committed SHA-256) and view_13 as a
+     1920x1080 HTJ2K codestream (tests/fixtures/torch_htj2k/
+     ortho_ht_1920x1080.j2k, the test-side encoder's: RPCL, 64x64 HT
+     code-blocks, cleanup passes; its own picture, PIL's committed
+     SHA-256), named so in images.bin, the 2 test views as PNG. The port's readers must give
      back every camera (R, T within 1e-12), every PNG, TIFF, BMP, WebP,
      PPM and TGA pixel and each JPEG and JPEG-in-TIFF view within 30 dB
      PSNR of its render; the two damaged views decoded by the compiled decoder (the
@@ -160,15 +163,21 @@ Phases (any failure exits non-zero; none is caught and passed over):
      RGBA 9/7 frame) and the 1920x1080 Part 1 codestream of
      tests/fixtures/torch_jp2_part1 (all six code-block styles, SOP, EPH,
      a two-entry POC, RCT, 2 layers, lossy by truncation: the form
-     `opj_compress -SOP -EPH -M 63 -POC` writes) the mode, shape and
-     SHA-256 of PIL's pixels committed beside them (sha256.json), and where
-     this machine has PIL, PIL's own decode of those four timed beside the
-     port's (a comparison only); every small file of tests/fixtures/torch_jp2
+     `opj_compress -SOP -EPH -M 63 -POC` writes) and the 1920x1080 HTJ2K
+     codestream the mode, shape and SHA-256 of PIL's pixels committed
+     beside them (sha256.json), and where this machine has PIL, PIL's own
+     decode of those five timed beside the port's (a comparison only);
+     every small file of tests/fixtures/torch_jp2
      (each option of PIL's JPEG 2000 writer, box-edited JP2s) and of
      tests/fixtures/torch_jp2_part1 (SOP / EPH, PPM, PPT, POC in the main
      and a tile-part header, each code-block style and all six, RGN, 4:2:0
      and 4:2:2 sYCC, subsampled alpha, an unknown marker, a JPX file with
-     two codestreams) PIL's mode, pixel and RGBA SHA-256; and every file of
+     two codestreams) and of tests/fixtures/torch_htj2k (HT cleanup,
+     SigProp and MagRef passes, 5/3 and 9/7, grey, I;16, RGBA, tiles with
+     precincts, RPCL and a POC, two layers, 4:2:0 sYCC, CAP / CPF edits,
+     the 800x800 RGBA HT frame) PIL's mode, pixel and RGBA SHA-256, or a
+     raise naming the file where PIL raises (MIXED code-blocks, a CAP in a
+     tile-part header); and every file of
      tests/fixtures/torch_images (BMP, TIFF, CMYK and YCCK JPEG, WebP lossy,
      with alpha, lossless and animated, GIF), torch_ppm_tga (PPM, PGM, PBM,
      PFM, TGA) and torch_tiff_jpeg (small JPEG-in-TIFFs, strips and tiles)
@@ -224,7 +233,8 @@ Phases (any failure exits non-zero; none is caught and passed over):
      CMYK JPEG (Adobe transform 0, the frame composited on white), frame 8
      as an RGBA JPEG 2000 (the PIL-written 800x800 9/7 frame of
      tests/fixtures/torch_jp2, whose RGBA must give PIL's committed
-     SHA-256), frame 13
+     SHA-256), frame 10 as an RGBA HTJ2K JP2 (the 800x800 HT frame of
+     tests/fixtures/torch_htj2k, held the same way), frame 13
      as a 32-bit BI_BITFIELDS BMP with an alpha mask and frame 15 as an
      interlaced palette GIF (4 levels a channel, alpha below 128 the
      transparency index), each file named r_<i>.png as the transforms
@@ -441,6 +451,9 @@ CLI_YCBCR_VIEW, CLI_PLANAR_VIEW, CLI_PLANAR_ROWS = 10, 11, 64
 # and one in the form orthophoto programmes and satellite archives ship: a
 # JPEG 2000 (the PIL-written 1080p fixture: its own picture, not the render)
 CLI_JP2_VIEW = 12
+# and one in the form OpenJPH writes and archives adopt: an HTJ2K codestream
+# (the committed 1080p fixture of the test-side encoder, its own picture)
+CLI_HT_VIEW = 13
 TIFF_FORMS_FIXTURES = os.path.join(FIXTURES, "torch_tiff_forms")  # PIL-written ZSTD / LZMA, and PIL's hashes
 JP2_FIXTURES = os.path.join(FIXTURES, "torch_jp2")  # PIL-written JPEG 2000 files and PIL's hashes
 JP2_VIEW, JP2_FRAME = "ortho_97_rpcl_1920x1080.jp2", "frame_rgba_97_800x800.jp2"
@@ -448,6 +461,9 @@ JP2_LARGE = (JP2_VIEW, "ortho_53_1920x1080.j2k", JP2_FRAME)  # decoded and timed
 # JPEG 2000 Part 1 features PIL's writer never sets (tests/torch_j2k_writer.py) and PIL's hashes
 JP2_PART1_FIXTURES = os.path.join(FIXTURES, "torch_jp2_part1")
 JP2_PART1_LARGE = "ortho_part1_1920x1080.j2k"  # decoded and timed at full size
+# HTJ2K (JPEG 2000 Part 15) files of the test-side encoder, and PIL's readings
+HT_FIXTURES = os.path.join(FIXTURES, "torch_htj2k")
+HT_VIEW, HT_FRAME = "ortho_ht_1920x1080.j2k", "frame_rgba_ht_800x800.jp2"  # the 1080p one decoded and timed
 WEBP_FIXTURES = os.path.join(FIXTURES, "torch_webp")  # 1080p files and the SHA-256 of PIL's pixels
 TIFF_JPEG_FIXTURES = os.path.join(FIXTURES, "torch_tiff_jpeg")  # a PIL-written 1080p file and its SHA-256
 PPM_TGA_FIXTURES = os.path.join(FIXTURES, "torch_ppm_tga")
@@ -475,7 +491,7 @@ BLENDER_FLAGS = ["--white_background", "--eval", "--iterations", str(BLENDER_STE
 # 8-bit RGBA PNG, as NeRF-synthetic ships
 BLENDER_FORMS = {1: "16-bit RGBA", 2: "32-bit RLE TGA with alpha", 3: "palette + tRNS", 4: "16-bit P6",
                  5: "Adam7 RGBA", 6: "16-bit planar RGBA TIFF", 7: "grey + alpha", 8: "RGBA JPEG 2000",
-                 9: "RGB + tRNS colour",
+                 9: "RGB + tRNS colour", 10: "RGBA HTJ2K",
                  11: "CMYK JPEG",
                  13: "32-bit BMP with alpha", 15: "palette GIF + transparency"}
 
@@ -1754,9 +1770,10 @@ def train_view_files(data, cams, images, test_names):
     CLI_WEBP_VIEW as a lossless WebP, CLI_PPM_VIEW as a binary P6,
     CLI_TGA_VIEW as a 32-bit RLE TGA (alpha 255), CLI_JPEG_TIFF_VIEW as
     a JPEG-in-TIFF, CLI_YCBCR_VIEW as a YCbCr JPEG-in-TIFF,
-    CLI_PLANAR_VIEW as a planar LZMA BigTIFF and CLI_JP2_VIEW as the
-    committed 1080p JPEG 2000 fixture, and images.bin to name them;
-    the test views stay PNG.
+    CLI_PLANAR_VIEW as a planar LZMA BigTIFF, CLI_JP2_VIEW as the
+    committed 1080p JPEG 2000 fixture and CLI_HT_VIEW as the committed
+    1080p HTJ2K codestream, and images.bin to name them; the test views
+    stay PNG.
     Returns each view's file name and the JPEG encode ms."""
     images_bin = os.path.join(data, "sparse", "0", "images.bin")
     records = colmap.read_images_binary(images_bin)
@@ -1787,6 +1804,10 @@ def train_view_files(data, cams, images, test_names):
         elif i == CLI_JP2_VIEW:
             name = f"{cam.image_name}.jp2"
             with open(os.path.join(JP2_FIXTURES, JP2_VIEW), "rb") as f:
+                body = f.read()
+        elif i == CLI_HT_VIEW:
+            name = f"{cam.image_name}.j2k"
+            with open(os.path.join(HT_FIXTURES, HT_VIEW), "rb") as f:
                 body = f.read()
         else:
             restart = -(-W_MAIN // 16) if i == CLI_RESTART_VIEW else 0  # MCUs in a row
@@ -1819,7 +1840,7 @@ def pil_jp2_ms() -> str:
 
     ms = {}
     for path in [os.path.join(JP2_FIXTURES, name) for name in JP2_LARGE] + [
-            os.path.join(JP2_PART1_FIXTURES, JP2_PART1_LARGE)]:
+            os.path.join(JP2_PART1_FIXTURES, JP2_PART1_LARGE), os.path.join(HT_FIXTURES, HT_VIEW)]:
         times = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -1842,6 +1863,14 @@ def jp2_readings() -> dict:
 def jp2_part1_readings() -> dict:
     """PIL's reading of each tests/fixtures/torch_jp2_part1 file (sha256.json)."""
     with open(os.path.join(JP2_PART1_FIXTURES, "sha256.json")) as f:
+        return json.load(f)
+
+
+@functools.cache
+def ht_readings() -> dict:
+    """PIL's reading of each tests/fixtures/torch_htj2k file (sha256.json;
+    `raises` where PIL raises)."""
+    with open(os.path.join(HT_FIXTURES, "sha256.json")) as f:
         return json.load(f)
 
 
@@ -2004,6 +2033,7 @@ def check_image_forms(tmp, px):
             readings.update({os.path.join(folder, k): v for k, v in json.load(f).items()})
     readings.update({os.path.join(JP2_FIXTURES, k): jp2_readings()[k] for k in JP2_LARGE})
     readings[os.path.join(JP2_PART1_FIXTURES, JP2_PART1_LARGE)] = jp2_part1_readings()[JP2_PART1_LARGE]
+    readings[os.path.join(HT_FIXTURES, HT_VIEW)] = ht_readings()[HT_VIEW]
     made = form_files()  # the GIS forms this script writes, PIL's reading of each committed
     for path, want in readings.items():
         name = os.path.basename(path)
@@ -2043,7 +2073,16 @@ def check_image_forms(tmp, px):
                  for name in sorted(set(jp2_readings()) - set(JP2_LARGE))]
     small_jp2 += [(JP2_PART1_FIXTURES, name, jp2_part1_readings()[name])
                   for name in sorted(set(jp2_part1_readings()) - {JP2_PART1_LARGE})]
+    small_jp2 += [(HT_FIXTURES, name, ht_readings()[name]) for name in sorted(set(ht_readings()) - {HT_VIEW})]
     for folder, name, want in small_jp2:
+        if want.get("raises"):  # PIL raises: the port raises a ValueError naming the file
+            try:
+                image_io.open_image(os.path.join(folder, name))
+            except ValueError as err:
+                if name not in str(err):
+                    fail(f"cli path: JPEG 2000 fixture {name} raises without naming the file: {err}")
+                continue
+            fail(f"cli path: JPEG 2000 fixture {name} of {os.path.relpath(folder, ROOT)} reads; PIL raises")
         pic = image_io.open_image(os.path.join(folder, name))
         got = (pic.mode, list(pic.pixels.shape), sha256_of(pic.pixels), sha256_of(image_io.to_rgba(pic)))
         if got != (want["mode"], want["shape"], want["sha256"], want["rgba_sha256"]):
@@ -2055,10 +2094,11 @@ def check_image_forms(tmp, px):
           + ", ".join(f"{k} {v:.2f}" for k, v in cmyk_psnr.items())
           + f" dB PSNR from PIL's CMYK of the samples written and from the view (JPEG-in-TIFF bit-equal to "
           f"its strips and tiles read alone); {len(readings)} 1080p WebP, JPEG-in-TIFF, ZSTD, LZMA, planar, "
-          f"BigTIFF and JPEG 2000 files (the 800x800 RGBA JPEG 2000 frame and the Part 1 codestream with "
-          f"every code-block style, SOP, EPH and a POC too) give PIL's committed SHA-256; "
-          f"{len(small_jp2)} small JPEG 2000 files of {os.path.relpath(JP2_FIXTURES, ROOT)} and "
-          f"{os.path.relpath(JP2_PART1_FIXTURES, ROOT)} PIL's mode, pixels and RGBA; {pil_jp2}; "
+          f"BigTIFF and JPEG 2000 files (the 800x800 RGBA JPEG 2000 frame, the Part 1 codestream with "
+          f"every code-block style, SOP, EPH and a POC, and the HTJ2K codestream too) give PIL's committed "
+          f"SHA-256; {len(small_jp2)} small JPEG 2000 files of {os.path.relpath(JP2_FIXTURES, ROOT)}, "
+          f"{os.path.relpath(JP2_PART1_FIXTURES, ROOT)} and {os.path.relpath(HT_FIXTURES, ROOT)} (HTJ2K, "
+          f"the HT frame too) PIL's mode, pixels and RGBA, or a raise where PIL raises; {pil_jp2}; "
           + ", ".join(f"{len(v)} {os.path.relpath(k, ROOT)}" for k, v in names.items())
           + " files give PIL's committed mode, pixels and RGBA")
 
@@ -2175,6 +2215,14 @@ def _cli_phase(dev, tmp):
                 fail(f"cli path: the JPEG 2000 view {got.image_path} reads as {pic.mode} {pic.pixels.shape}, "
                      f"not PIL's committed {want['mode']} {want['shape']} pixels")
             continue
+        if cam.image_name == names[CLI_HT_VIEW]:  # the HTJ2K fixture's picture: PIL's committed hash
+            pic, ht_view_ms = synced_ms(image_io.open_image, got.image_path)
+            want = ht_readings()[HT_VIEW]
+            if (pic.mode, list(pic.pixels.shape), sha256_of(pic.pixels)) != (want["mode"], want["shape"],
+                                                                             want["sha256"]):
+                fail(f"cli path: the HTJ2K view {got.image_path} reads as {pic.mode} {pic.pixels.shape}, "
+                     f"not PIL's committed {want['mode']} {want['shape']} pixels")
+            continue
         lossy = got.image_path.endswith(".jpg") or cam.image_name in (names[CLI_JPEG_TIFF_VIEW],
                                                                       names[CLI_YCBCR_VIEW])
         if not lossy:  # the TIFF (planar BigTIFF included), BMP, WebP, PPM and TGA views
@@ -2220,7 +2268,9 @@ def _cli_phase(dev, tmp):
           f"PSNR from its render, decode {jpeg_tiff_ms:.1f} ms), {files[names[CLI_YCBCR_VIEW]]} as YCbCr "
           f"JPEG-in-TIFF (4:2:0; {ycbcr_psnr:.2f} dB, decode {ycbcr_ms:.1f} ms), {files[names[CLI_PLANAR_VIEW]]} "
           f"as a BigTIFF of LZMA planes, {files[names[CLI_JP2_VIEW]]} as a 9/7 tiled RPCL JPEG 2000 (PIL's "
-          f"committed pixels, decode {jp2_view_ms:.1f} ms), {len(decode_ms)} test views as PNG; "
+          f"committed pixels, decode {jp2_view_ms:.1f} ms), {files[names[CLI_HT_VIEW]]} as an HTJ2K "
+          f"codestream (RPCL, 64x64 HT code-blocks, cleanup passes; PIL's committed pixels, decode "
+          f"{ht_view_ms:.1f} ms), {len(decode_ms)} test views as PNG; "
           f"cameras within 1e-12, PNG, TIFF, BMP, WebP, PPM and TGA pixels bit-equal (decode "
           + ", ".join(f"{k} {v:.1f} ms" for k, v in lossless_ms.items())
           + f"), JPEG views {min(psnr):.2f}-{max(psnr):.2f} dB PSNR from their renders through the port's "
@@ -2274,8 +2324,8 @@ def _cli_phase(dev, tmp):
     if scene_load.s is None:
         fail("cli path: the train CLI made no Scene")
     print(f"  train CLI: {CLI_STEPS} steps, {n_train} train and {n_test} test views, wall "
-          f"{train_s:.2f} s (scene load {scene_load.s:.2f} s: {n_train - 9} JPEG, 1 TIFF, 1 BMP, 1 WebP, 1 P6, "
-          f"1 RLE TGA, 1 JPEG-in-TIFF, 1 YCbCr JPEG-in-TIFF, 1 planar LZMA BigTIFF, 1 JPEG 2000 and "
+          f"{train_s:.2f} s (scene load {scene_load.s:.2f} s: {n_train - 10} JPEG, 1 TIFF, 1 BMP, 1 WebP, 1 P6, "
+          f"1 RLE TGA, 1 JPEG-in-TIFF, 1 YCbCr JPEG-in-TIFF, 1 planar LZMA BigTIFF, 1 JPEG 2000, 1 HTJ2K and "
           f"{n_test} PNG views decoded), step median {np.median(step_ms):.3f} ms, p80 "
           f"{np.percentile(step_ms, 80):.3f} ms (its iter_time_ms, host clock, deferred "
           f"maintenance excluded); loss first 20 {first20:.6f}, last 20 {last20:.6f}; "
@@ -2391,14 +2441,18 @@ def blender_frame(rgba, form, seed):
     bytes under its alpha mask, a GIF's palette colour with alpha 0 on its
     transparency index, a TGA's BGRA, a 16-bit P6's round(v / 65535 * 255)
     (its colour, which has no alpha, opaque), a 16-bit planar RGBA TIFF's
-    high bytes. An RGBA JPEG 2000 is the committed 800x800 frame (its RGBA
-    is held to PIL's committed SHA-256: the second value is None). A CMYK JPEG (Adobe transform 0, of the
+    high bytes. An RGBA JPEG 2000 is the committed 800x800 frame, an RGBA
+    HTJ2K the committed 800x800 HT frame (each one's RGBA is held to PIL's
+    committed SHA-256: the second value is None). A CMYK JPEG (Adobe transform 0, of the
     frame composited on white, which it has no alpha for) is lossy: for it
     the second value is PIL's CMYK of the samples written (`cmyk_of`)."""
     if form is None:
         return None, rgba
     if form == "RGBA JPEG 2000":  # the committed frame, its own picture: held to PIL's hash, not to `rgba`
         with open(os.path.join(JP2_FIXTURES, JP2_FRAME), "rb") as f:
+            return f.read(), None
+    if form == "RGBA HTJ2K":  # the committed HT frame, the same way
+        with open(os.path.join(HT_FIXTURES, HT_FRAME), "rb") as f:
             return f.read(), None
     if form == "CMYK JPEG":
         a = rgba[..., 3:].astype(np.int64)
@@ -2532,10 +2586,10 @@ def _blender_phase(dev, tmp):
                      f"written, or to_rgba is not PIL's cmyk2rgb")
             read_ms.setdefault(f"{form} ({psnr_:.2f} dB)", []).append(ms)
             continue
-        if form == "RGBA JPEG 2000":
+        if form in ("RGBA JPEG 2000", "RGBA HTJ2K"):
             got, ms = synced_ms(lambda p: image_io.to_rgba(image_io.open_image(p)), path)
-            if (list(got.shape), sha256_of(got)) != (jp2_readings()[JP2_FRAME]["shape"],
-                                                     jp2_readings()[JP2_FRAME]["rgba_sha256"]):
+            want = jp2_readings()[JP2_FRAME] if form == "RGBA JPEG 2000" else ht_readings()[HT_FRAME]
+            if (list(got.shape), sha256_of(got)) != (want["shape"], want["rgba_sha256"]):
                 fail(f"blender path: {path} ({form}) reads otherwise than PIL's committed RGBA")
             read_ms.setdefault(form, []).append(ms)
             continue
@@ -2580,7 +2634,7 @@ def _blender_phase(dev, tmp):
     print(f"  train CLI: {BLENDER_STEPS} steps from {len(init)} random points in [-1.3, 1.3]^3, white "
           f"background {white}, wall {train_s:.2f} s (scene load {scene_load.s:.2f} s: "
           f"{BLENDER_TRAIN + BLENDER_TEST} frames decoded (PNG, a CMYK JPEG, a BMP, a GIF, a TGA, a P6, a planar "
-          f"TIFF, a JPEG 2000) and "
+          f"TIFF, a JPEG 2000, an HTJ2K JP2) and "
           f"composited), step median "
           f"{np.median(step_ms):.3f} ms, p80 {np.percentile(step_ms, 80):.3f} ms (its iter_time_ms, "
           f"host clock); loss first 20 {first20:.6f}, last 20 {last20:.6f}; "

@@ -1,13 +1,15 @@
-// JPEG 2000 Part 1 decoding for the dataset readers: host C++, built with
-// the host compiler by utils/cuda_build.py at first use and loaded with
-// ctypes (utils/jp2.py parses the JP2 boxes and calls it).
+// JPEG 2000 Part 1 and HTJ2K (Part 15) decoding for the dataset readers:
+// host C++, built with the host compiler by utils/cuda_build.py at first
+// use and loaded with ctypes (utils/jp2.py parses the JP2 boxes and calls
+// it).
 //
 // The rule is the pixels PIL gives: PIL hands the file to OpenJPEG 2.5,
 // which decodes it tile by tile (opj_read_tile_header and
 // opj_decode_tile_data, so no JP2 colour box is applied), and unpacks
 // each tile with its own j2ku_* routines. This decoder follows that path:
 //
-//   - the codestream: SIZ, COD, COC, QCD, QCC, RGN, POC (a tile's entries
+//   - the codestream: SIZ, CAP and CPF (HTJ2K's: read and ignored, as
+//     OpenJPEG does), COD, COC, QCD, QCC, RGN, POC (a tile's entries
 //     added to the main header's, as opj_j2k_read_poc does), PPM, PPT (merged
 //     as opj_j2k_merge_ppm / _ppt do), COM, TLM, PLM, PLT, CRG (skipped),
 //     unknown main-header markers (opj_j2k_read_unk: skipped two bytes at a
@@ -29,6 +31,13 @@
 //     style (BYPASS, RESET, TERMALL, VSC, PTERM, SEGSYM), magnitudes kept
 //     with one extra bit and the 1/2 reconstruction point, the RGN maxshift
 //     counted in the bit-planes and scaled down after;
+//   - HT code-blocks (JPEG 2000 Part 15, ITU-T T.814: code-block style
+//     0x40): their passes in the packet header as OpenJPEG 2.5 reads them
+//     (the first to the cleanup segment, the rest to the next), and
+//     OpenJPEG's HT decoder (`ht_decode`): the cleanup pass (MEL, the
+//     CxtVLC tables of ht_vlc_tables.h, UVLC, MagSgn), SigProp and MagRef,
+//     its checks and its reading of damaged segments; ROI on HT blocks
+//     fails, as there;
 //   - dequantisation (the reversible path's value / 2, the irreversible
 //     path's float value times 0.5 * stepsize, OpenJPEG's stepsize with no
 //     band gain), the inverse 5/3 in integers and 9/7 in float with
@@ -43,8 +52,8 @@
 //     unspecified and component 1 or 2 is subsampled.
 //
 // Features PIL reads that the port does not are refused by name (the
-// message starts with "refused: "): HTJ2K, precision above 16 bits, more
-// than 4 components, Part 2 extensions.
+// message starts with "refused: "): precision above 16 bits, more than 4
+// components, Part 2 extensions.
 //
 // Floating-point contraction is off for this file: OpenJPEG's 9/7 and ICT
 // arithmetic rounds every multiply and add on its own.
@@ -94,6 +103,8 @@ inline int64_t floordivpow2(int64_t a, int b) { return a >> b; }
 // OpenJPEG's modes of PIL (utils/jp2.py passes the index) and colour spaces
 enum Mode { M_L, M_P, M_PA, M_I16, M_LA, M_RGB, M_RGBA, M_CMYK };
 enum Space { CS_UNKNOWN = -1, CS_UNSPECIFIED = 0, CS_SRGB, CS_GRAY, CS_SYCC, CS_EYCC, CS_CMYK };
+// code-block styles (SPcod): Part 1's six, and HT code-blocks (Part 15)
+enum CblkStyle { BYPASS = 1, RESET = 2, TERMALL = 4, VSC = 8, PTERM = 16, SEGSYM = 32, HT = 64 };
 
 enum Marker : uint32_t {
   SOC = 0xff4f, CAP = 0xff50, SIZ = 0xff51, COD = 0xff52, COC = 0xff53, TLM = 0xff55, PLM = 0xff57,
@@ -192,7 +203,6 @@ void read_siz(Codestream& cs, const uint8_t* s, int64_t len, int64_t ihdr_w, int
   int64_t tw = ceildiv(cs.x1 - cs.tx0, cs.tdx), th = ceildiv(cs.y1 - cs.ty0, cs.tdy);
   if (tw == 0 || th == 0 || tw > 65535 / th) fail("Invalid number of tiles");
   cs.tw = int(tw), cs.th = int(th);
-  if (rsiz & 0x4000) refuse("HTJ2K (Part 15, Rsiz bit 14)");
   if (rsiz & 0x8000) refuse("Part 2 extensions (Rsiz bit 15)");
   if (n > 4) refuse(fmt("more than 4 components (%lld)", n));
   for (const Comp& c : cs.comps)
@@ -299,11 +309,6 @@ void read_coding(uint32_t m, Tcp& tcp, const uint8_t* p, int64_t len, size_t nco
   }
 }
 
-void check_coding(const Tcp& tcp) {
-  for (const Tccp& t : tcp.tccps)
-    if (t.cblksty & 0x40) refuse("HTJ2K code-blocks (Part 15)");
-}
-
 void read_rgn(Tcp& tcp, const uint8_t* p, int64_t len, size_t ncomp) {  // opj_j2k_read_rgn (Srgn is not read)
   int room = ncomp <= 256 ? 1 : 2;
   if (len != 2 + room) fail("Error reading RGN marker");
@@ -366,10 +371,9 @@ bool known_marker(uint32_t m) {  // OpenJPEG's marker table (j2k_memory_marker_h
   }
 }
 
-// Markers the port refuses by name wherever they stand.
+// Markers the port refuses by name wherever they stand. (CAP and CPF, which
+// HTJ2K files carry, OpenJPEG reads and ignores in the main header.)
 void refused_marker(uint32_t m) {
-  if (m == CAP) refuse("HTJ2K (Part 15, CAP marker)");
-  if (m == CPF) refuse("HTJ2K (Part 15, CPF marker)");
   if (part2_marker(m)) refuse(fmt("Part 2 extensions (marker 0x%04llx)", m));
 }
 
@@ -428,7 +432,6 @@ Codestream parse(const uint8_t* d, int64_t n, int64_t ihdr_w, int64_t ihdr_h) {
   if (!has_cod) fail("required COD marker not found in main header");
   if (!has_qcd) fail("required QCD marker not found in main header");
   if (cs.has_ppm) merge_ppm(cs);
-  check_coding(cs.deflt);
   cs.tiles.assign(size_t(cs.tw) * cs.th, Tcp());
   cs.completed.assign(cs.tiles.size(), 0);
   std::vector<char> first_seen(cs.tiles.size(), 0);
@@ -481,7 +484,6 @@ Codestream parse(const uint8_t* d, int64_t n, int64_t ihdr_w, int64_t ihdr_h) {
       refused_marker(m);
       if (m == COD || m == COC || m == QCD || m == QCC) {
         read_coding(m, tcp, p, len - 2, cs.comps.size(), coc_here, qcc_here);
-        check_coding(tcp);
       } else if (m == RGN) {
         read_rgn(tcp, p, len - 2, cs.comps.size());
       } else if (m == POC) {
@@ -603,11 +605,12 @@ struct Seg {
 
 struct Cblk {
   int64_t x0, y0, x1, y1;
-  int32_t numbps = 0;
-  uint32_t numlenbits = 0, numnewpasses = 0, numsegs = 0;
+  int32_t numbps = 0, mb = 0;  // mb: the band's bit-planes when the block was first included (HT's Mb)
+  uint32_t numlenbits = 0, numnewpasses = 0, numsegs = 0, numchunks = 0;  // numchunks: empty ones too
+  int64_t first_chunk = 0;  // where the first chunk starts in the tile's data
   std::vector<Seg> segs;
   std::vector<uint8_t> data;
-  std::vector<std::pair<int64_t, int64_t>> chunks;  // (offset in the tile's data, length)
+  std::vector<std::pair<int64_t, int64_t>> chunks;  // (offset in the tile's data, length), the non-empty ones
 };
 
 struct Precinct {
@@ -714,6 +717,7 @@ int64_t read_packet(Res& res, int precno, int layno, const uint8_t* src, int64_t
         if (cb.numsegs == 0) {
           int32_t i = 0;
           while (!pr.imsb.decode(bio, k, i)) ++i;
+          cb.mb = band.numbps;
           cb.numbps = int32_t(uint32_t(band.numbps) + 1u - uint32_t(i));
           cb.numlenbits = 3;
         }
@@ -731,7 +735,10 @@ int64_t read_packet(Res& res, int precno, int layno, const uint8_t* src, int64_t
         int64_t left = cb.numnewpasses;
         do {
           Seg& seg = cb.segs[segno];
-          seg.numnewpasses = uint32_t(std::min<int64_t>(int64_t(seg.maxpasses) - seg.numpasses, left));
+          if (cblksty & HT)  // the cleanup segment takes one pass, the next segment the rest
+            seg.numnewpasses = segno == 0 ? 1 : uint32_t(left);
+          else
+            seg.numnewpasses = uint32_t(std::min<int64_t>(int64_t(seg.maxpasses) - seg.numpasses, left));
           uint32_t bits = cb.numlenbits + floorlog2(seg.numnewpasses);
           if (bits > 32) fail(fmt("Invalid bit number %lld in opj_t2_read_packet_header()", bits));
           seg.newlen = bio.read(int(bits));
@@ -772,6 +779,7 @@ int64_t read_packet(Res& res, int precno, int layno, const uint8_t* src, int64_t
                fmt(" (p=%lld, b=%lld, r=%lld", precno, b, resno) + fmt(", c=%lld)", compno));
         cb.data.insert(cb.data.end(), src + pos, src + pos + seg.newlen);
         if (seg.newlen) cb.chunks.push_back({src_off + pos, seg.newlen});
+        if (cb.numchunks++ == 0) cb.first_chunk = src_off + pos;
         pos += seg.newlen;
         seg.len += seg.newlen;
         seg.numpasses += seg.numnewpasses;
@@ -1175,8 +1183,6 @@ inline int sc_index(uint32_t f) {
          int(!!(f & NEG_N)) << 4 | int(!!(f & NEG_W)) << 5 | int(!!(f & NEG_E)) << 6 | int(!!(f & NEG_S)) << 7;
 }
 
-enum CblkStyle { BYPASS = 1, RESET = 2, TERMALL = 4, VSC = 8, PTERM = 16, SEGSYM = 32 };
-
 struct T1 {
   int w, h, stride;
   bool vsc = false;
@@ -1309,6 +1315,598 @@ struct T1 {
     }
   }
 };
+
+// ---- the HT block decoder (ITU-T T.814), as OpenJPEG 2.5's ht_dec.c ----
+//
+// The cleanup segment holds MagSgn (read forward from its start), then MEL
+// (forward) and VLC (backward from its end) in its last Scup bytes; the
+// refinement segment SigProp (forward) and MagRef (backward). Each reader
+// takes bytes as OpenJPEG's does (4 at a time after its first 1 to 4,
+// which depend on the address modulo 4: `align` is the data's), with its
+// bit-unstuffing rule; the sample values are sign | magnitude << 1 | the
+// 1/2 point, converted to two's complement at the end.
+
+inline uint32_t le32(const uint8_t* p) {
+  uint32_t v;
+  memcpy(&v, p, 4);
+  return v;  // the hosts this runs on are little-endian, as OpenJPEG's read_le_uint32 assumes
+}
+
+struct Mel {  // dec_mel_t: MEL bits most significant first, runs queued 7 bits each
+  const uint8_t* data;
+  uint64_t tmp = 0, runs = 0;
+  int bits = 0, size = 0, k = 0, num_runs = 0;
+  bool unstuff = false;
+  // false where OpenJPEG's mel_init fails (0xFF then a byte above 0x8F in its first reads)
+  bool init(const uint8_t* buf, int lcup, int scup, int align) {
+    data = buf + lcup - scup, size = scup - 1;
+    int num = 4 - ((align + lcup - scup) & 3);
+    for (int i = 0; i < num; i++) {
+      if (unstuff && data[0] > 0x8f) return false;
+      uint64_t d = size > 0 ? *data : 0xff;
+      if (size == 1) d |= 0xf;
+      data += size-- > 0;
+      int d_bits = 8 - unstuff;
+      tmp = (tmp << d_bits) | d;
+      bits += d_bits;
+      unstuff = (d & 0xff) == 0xff;
+    }
+    tmp <<= (64 - bits);
+    return true;
+  }
+  void read() {
+    if (bits > 32) return;
+    uint32_t val = 0xffffffffu;
+    if (size > 4) {
+      val = le32(data), data += 4, size -= 4;
+    } else if (size > 0) {
+      int i = 0;
+      while (size > 1) {
+        uint32_t v = *data++, m = ~(0xffu << i);
+        val = (val & m) | (v << i);
+        --size, i += 8;
+      }
+      uint32_t v = *data++ | 0xfu, m = ~(0xffu << i);
+      val = (val & m) | (v << i);
+      --size;
+    }
+    int nbits = 32 - unstuff;
+    uint32_t t = val & 0xff;
+    bool u = (val & 0xff) == 0xff;
+    nbits -= u;
+    t <<= 8 - u;
+    t |= (val >> 8) & 0xff;
+    u = ((val >> 8) & 0xff) == 0xff;
+    nbits -= u;
+    t <<= 8 - u;
+    t |= (val >> 16) & 0xff;
+    u = ((val >> 16) & 0xff) == 0xff;
+    nbits -= u;
+    t <<= 8 - u;
+    t |= (val >> 24) & 0xff;
+    unstuff = ((val >> 24) & 0xff) == 0xff;
+    tmp |= uint64_t(t) << (64 - nbits - bits);
+    bits += nbits;
+  }
+  void decode() {
+    static const int exps[13] = {0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 4, 5};
+    if (bits < 6) read();
+    while (bits >= 6 && num_runs < 8) {
+      int eval = exps[k], run;
+      if (tmp & (uint64_t(1) << 63)) {  // a one: 2^eval zero events, not ended
+        run = ((1 << eval) - 1) << 1;
+        k = std::min(k + 1, 12);
+        tmp <<= 1, bits -= 1;
+      } else {  // a zero, then eval bits: that many zero events and a one
+        run = (int(tmp >> (63 - eval)) & ((1 << eval) - 1)) << 1 | 1;
+        k = std::max(k - 1, 0);
+        tmp <<= eval + 1, bits -= eval + 1;
+      }
+      int at = num_runs * 7;
+      runs &= ~(uint64_t(0x3f) << at);
+      runs |= uint64_t(run) << at;
+      num_runs++;
+    }
+  }
+  int get_run() {
+    if (num_runs == 0) decode();
+    int t = int(runs & 0x7f);
+    runs >>= 7, num_runs--;
+    return t;
+  }
+};
+
+struct Rev {  // rev_struct_t: VLC and MagRef, bits least significant first from the end
+  const uint8_t* data;
+  uint64_t tmp = 0;
+  uint32_t bits = 0;
+  int size = 0;
+  bool unstuff = false;
+  static uint32_t take(uint32_t val, bool& unstuff, uint32_t& nbits) {  // the 4 bytes of `val`, high byte first
+    uint32_t t = val >> 24;
+    nbits = 8u - ((unstuff && ((val >> 24) & 0x7f) == 0x7f) ? 1u : 0u);
+    bool u = (val >> 24) > 0x8f;
+    t |= ((val >> 16) & 0xff) << nbits;
+    nbits += 8u - ((u && ((val >> 16) & 0x7f) == 0x7f) ? 1u : 0u);
+    u = ((val >> 16) & 0xff) > 0x8f;
+    t |= ((val >> 8) & 0xff) << nbits;
+    nbits += 8u - ((u && ((val >> 8) & 0x7f) == 0x7f) ? 1u : 0u);
+    u = ((val >> 8) & 0xff) > 0x8f;
+    t |= (val & 0xff) << nbits;
+    nbits += 8u - ((u && (val & 0x7f) == 0x7f) ? 1u : 0u);
+    unstuff = (val & 0xff) > 0x8f;
+    return t;
+  }
+  void read() {
+    if (bits > 32) return;
+    uint32_t val = 0;
+    if (size > 3) {
+      val = le32(data - 3), data -= 4, size -= 4;
+    } else if (size > 0) {
+      int i = 24;
+      while (size > 0) {
+        uint32_t v = *data--;
+        val |= v << i;
+        --size, i -= 8;
+      }
+    }
+    uint32_t nbits;
+    uint32_t t = take(val, unstuff, nbits);
+    tmp |= uint64_t(t) << bits;
+    bits += nbits;
+  }
+  void init_vlc(const uint8_t* buf, int lcup, int scup, int align) {  // rev_init
+    data = buf + lcup - 2, size = scup - 2;
+    uint32_t d = *data--;
+    tmp = d >> 4;
+    bits = 4 - ((tmp & 7) == 7);
+    unstuff = (d | 0xf) > 0x8f;
+    int num = 1 + ((align + lcup - 3) & 3), tnum = std::min(num, size);
+    for (int i = 0; i < tnum; i++) {
+      uint64_t b = *data--;
+      uint32_t d_bits = 8u - ((unstuff && (b & 0x7f) == 0x7f) ? 1u : 0u);
+      tmp |= b << bits;
+      bits += d_bits;
+      unstuff = b > 0x8f;
+    }
+    size -= tnum;
+    read();
+  }
+  void init_mrp(const uint8_t* buf, int lcup, int len2, int align) {  // rev_init_mrp
+    data = buf + lcup + len2 - 1, size = len2, unstuff = true;
+    int num = 1 + ((align + lcup + len2 - 1) & 3);
+    for (int i = 0; i < num; i++) {
+      uint64_t b = (size-- > 0) ? *data-- : 0;
+      uint32_t d_bits = 8u - ((unstuff && (b & 0x7f) == 0x7f) ? 1u : 0u);
+      tmp |= b << bits;
+      bits += d_bits;
+      unstuff = b > 0x8f;
+    }
+    read();
+  }
+  uint32_t fetch() {
+    if (bits < 32) {
+      read();
+      if (bits < 32) read();
+    }
+    return uint32_t(tmp);
+  }
+  uint32_t advance(uint32_t n) {
+    tmp >>= n, bits -= n;
+    return uint32_t(tmp);
+  }
+};
+
+struct Frwd {  // frwd_struct_t: MagSgn and SigProp, bits least significant first; X past the end
+  const uint8_t* data;
+  uint64_t tmp = 0;
+  uint32_t bits = 0, x = 0;
+  int size = 0;
+  bool unstuff = false;
+  void init(const uint8_t* d, int n, uint32_t fill, int align) {
+    data = d, size = n, x = fill;
+    int num = 4 - (align & 3);
+    for (int i = 0; i < num; i++) {
+      uint64_t b = size-- > 0 ? *data++ : x;
+      tmp |= b << bits;
+      bits += 8u - (unstuff ? 1u : 0u);
+      unstuff = (b & 0xff) == 0xff;
+    }
+    read();
+  }
+  void read() {
+    uint32_t val = 0;
+    if (size > 3) {
+      val = le32(data), data += 4, size -= 4;
+    } else if (size > 0) {
+      int i = 0;
+      val = x ? 0xffffffffu : 0;
+      while (size > 0) {
+        uint32_t v = *data++, m = ~(0xffu << i);
+        val = (val & m) | (v << i);
+        --size, i += 8;
+      }
+    } else {
+      val = x ? 0xffffffffu : 0;
+    }
+    uint32_t nbits = 8u - (unstuff ? 1u : 0u), t = val & 0xff;
+    bool u = (val & 0xff) == 0xff;
+    t |= ((val >> 8) & 0xff) << nbits;
+    nbits += 8u - (u ? 1u : 0u);
+    u = ((val >> 8) & 0xff) == 0xff;
+    t |= ((val >> 16) & 0xff) << nbits;
+    nbits += 8u - (u ? 1u : 0u);
+    u = ((val >> 16) & 0xff) == 0xff;
+    t |= ((val >> 24) & 0xff) << nbits;
+    nbits += 8u - (u ? 1u : 0u);
+    unstuff = ((val >> 24) & 0xff) == 0xff;
+    tmp |= uint64_t(t) << bits;
+    bits += nbits;
+  }
+  uint32_t fetch() {
+    if (bits < 32) {
+      read();
+      if (bits < 32) read();
+    }
+    return uint32_t(tmp);
+  }
+  void advance(uint32_t n) { tmp >>= n, bits -= n; }
+};
+
+// decode_init_uvlc / decode_noninit_uvlc: u + kappa (1) of the quad pair
+// by its u_off bits (`mode`; 4: both, with a MEL one in the first line
+// pair); returns the bits used.
+uint32_t decode_uvlc(uint32_t vlc, uint32_t mode, uint32_t* u, bool initial) {
+  // prefix length | suffix length << 2 | prefix value << 5, by the 3 bits xx1, x10, 100, 000
+  static const uint8_t dec[8] = {3 | 5 << 2 | 5 << 5, 1 | 1 << 5, 2 | 2 << 5, 1 | 1 << 5,
+                                 3 | 1 << 2 | 3 << 5, 1 | 1 << 5, 2 | 2 << 5, 1 | 1 << 5};
+  uint32_t used = 0;
+  if (mode == 0) {
+    u[0] = u[1] = 1;
+  } else if (mode <= 2) {
+    uint32_t d = dec[vlc & 7];
+    vlc >>= d & 3, used += d & 3;
+    uint32_t sl = (d >> 2) & 7;
+    used += sl;
+    d = (d >> 5) + (vlc & ((1u << sl) - 1));
+    u[0] = mode == 1 ? d + 1 : 1;
+    u[1] = mode == 1 ? 1 : d + 1;
+  } else if (mode == 3 && initial && (dec[vlc & 7] & 3) > 2) {  // u_q0 above 2: u_q1 in one bit
+    uint32_t d1 = dec[vlc & 7];
+    vlc >>= d1 & 3, used += d1 & 3;
+    u[1] = (vlc & 1) + 1 + 1;
+    ++used, vlc >>= 1;
+    uint32_t sl = (d1 >> 2) & 7;
+    used += sl;
+    u[0] = (d1 >> 5) + (vlc & ((1u << sl) - 1)) + 1;
+  } else if (mode >= 3) {
+    uint32_t d1 = dec[vlc & 7];
+    vlc >>= d1 & 3, used += d1 & 3;
+    uint32_t d2 = dec[vlc & 7];
+    vlc >>= d2 & 3, used += d2 & 3;
+    uint32_t sl = (d1 >> 2) & 7;
+    used += sl;
+    uint32_t add = mode == 4 ? 3 : 1;
+    u[0] = (d1 >> 5) + (vlc & ((1u << sl) - 1)) + add;
+    vlc >>= sl;
+    sl = (d2 >> 2) & 7;
+    used += sl;
+    u[1] = (d2 >> 5) + (vlc & ((1u << sl) - 1)) + add;
+  }
+  return used;
+}
+
+#include "ht_vlc_tables.h"
+
+// opj_t1_ht_decode_cblk: one HT code-block into `out` (w x h, two's
+// complement, the 1/2 point in bit 0 as tier 1 leaves it). `data` holds its
+// chunks back to back, `align` the address modulo 4 OpenJPEG reads them at.
+void ht_decode(const Cblk& cb, int cblksty, int roishift, int w, int h, const uint8_t* data, int align,
+               std::vector<int32_t>& out) {
+  if (roishift != 0) fail("We do not support ROI in decoding HT codeblocks");
+  out.assign(size_t(w) * h, 0);
+  if (cb.mb == 0) return;
+  uint32_t zero_bplanes = (uint32_t(cb.mb) + 1) - uint32_t(cb.numbps);
+  int64_t cblk_len = int64_t(cb.data.size());
+  if (cb.numchunks == 0) return;
+  uint32_t num_passes = cb.numsegs > 0 ? cb.segs[0].numpasses : 0;
+  num_passes += cb.numsegs > 1 ? cb.segs[1].numpasses : 0;
+  int64_t lengths1 = num_passes > 0 ? cb.segs[0].len : 0;
+  int64_t lengths2 = num_passes > 1 ? cb.segs[1].len : 0;
+  if (num_passes > 1 && lengths2 == 0) num_passes = 1;  // OpenJPEG warns
+  if (num_passes > 3)
+    fail(fmt("We do not support more than 3 coding passes in an HT codeblock; This codeblocks has %lld passes.",
+             num_passes));
+  if (cb.mb > 30) fail(fmt("32 bits are not enough to decode this codeblock (%lld bit-planes)", cb.mb));
+  if (zero_bplanes > uint32_t(cb.mb))
+    fail(fmt("Malformed HT codeblock. There are %lld zero bitplanes in %lld bitplanes.", zero_bplanes, cb.mb));
+  if (zero_bplanes == uint32_t(cb.mb) && num_passes > 1) num_passes = 1;  // OpenJPEG warns
+  const uint32_t p = uint32_t(cb.numbps), zero_bplanes_p1 = zero_bplanes + 1;
+  if (lengths1 < 2 || lengths1 > cblk_len || lengths1 + lengths2 > cblk_len)
+    fail("Malformed HT codeblock. Invalid codeblock length values.");
+  const int lcup = int(lengths1);
+  const int scup = (int(data[lcup - 1]) << 4) + (data[lcup - 2] & 0xf);
+  if (scup < 2 || scup > lcup || scup > 4079)
+    fail("Malformed HT codeblock. One of the following condition is not met: 2 <= Scup <= min(Lcup, 4079)");
+  Mel mel;
+  if (!mel.init(data, lcup, scup, align)) fail("Malformed HT codeblock. Incorrect MEL segment sequence.");
+  Rev vlc, magref;
+  vlc.init_vlc(data, lcup, scup, align);
+  Frwd magsgn, sigprop;
+  magsgn.init(data, lcup - scup, 0xff, align);
+  if (num_passes > 1) sigprop.init(data + lengths1, int(lengths2), 0, align + int(lengths1));
+  if (num_passes > 2) magref.init_mrp(data, int(lengths1), int(lengths2), align);
+
+  const bool stripe_causal = (cblksty & VSC) != 0;
+  const int stride = w;
+  uint32_t* decoded = reinterpret_cast<uint32_t*>(out.data());
+  // sigma1, sigma2, mbr1, mbr2 (132 words each: 4 rows x 8 columns a word) and the line state
+  std::vector<uint32_t> flags(4 * 132 + 528 / 4, 0);
+  uint32_t *sigma1 = flags.data(), *sigma2 = sigma1 + 132, *mbr1 = sigma2 + 132, *mbr2 = mbr1 + 132;
+  uint8_t* line_state = reinterpret_cast<uint8_t*>(mbr2 + 132);
+  uint32_t* sip = sigma1;
+  uint32_t sip_shift = 0;
+
+  // one significant sample: its MagSgn bits, the sample, and its exponent (for the line state)
+  auto sample = [&](uint32_t qinf, int n, uint32_t big_u, uint32_t* at) -> uint32_t {
+    uint32_t ms_val = magsgn.fetch();
+    uint32_t m_n = big_u - ((qinf >> (12 + n)) & 1);
+    magsgn.advance(m_n);
+    uint32_t val = ms_val << 31;
+    uint32_t v_n = ms_val & ((1u << m_n) - 1);
+    v_n |= ((qinf >> (8 + n)) & 1) << m_n;
+    v_n |= 1;
+    *at = val | ((v_n + 2) << (p - 1));
+    return v_n;
+  };
+  auto magnitudes = [&](const uint32_t* qinf, const uint32_t* big_u, uint32_t locs, uint8_t*& lsp, uint32_t*& sp) {
+    for (int q = 0; q < 2; q++) {
+      for (int col = 0; col < 2; col++) {
+        int n = 2 * col;
+        if (qinf[q] & (0x10u << n)) sample(qinf[q], n, big_u[q], sp);
+        else if (locs & (1u << (4 * q + n))) sp[0] = 0;
+        if (qinf[q] & (0x20u << n)) {
+          uint32_t v_n = sample(qinf[q], n + 1, big_u[q], sp + stride);
+          uint32_t e = 32 - uint32_t(__builtin_clz(v_n));
+          if (col == 0) {  // max(E^NW, E^N) | sigma
+            uint32_t t = lsp[0] & 0x7f;
+            lsp[0] = uint8_t(0x80 | (t > e ? t : e));
+          } else {
+            lsp[0] = uint8_t(0x80 | e);
+          }
+        } else if (locs & (2u << (4 * q + n))) {
+          sp[stride] = 0;
+        }
+        if (col == 0) ++lsp;
+        ++sp;
+      }
+    }
+  };
+  auto check_locs = [&](const uint32_t* qinf, uint32_t locs) {
+    if ((((qinf[0] & 0xf0) >> 4) | (qinf[1] & 0xf0)) & ~locs)
+      fail("Malformed HT codeblock. VLC code produces significant samples outside the codeblock area.");
+  };
+
+  // the first line pair
+  uint8_t* lsp = line_state;
+  lsp[0] = 0;
+  int run = mel.get_run();
+  uint32_t qinf[2] = {0, 0}, c_q = 0;
+  uint32_t* sp = decoded;
+  for (int x = 0; x < w; x += 4) {
+    uint32_t big_u[2];
+    uint32_t vlc_val = vlc.fetch();
+    qinf[0] = HT_VLC_TABLE0[(c_q << 7) | (vlc_val & 0x7f)];
+    if (c_q == 0) {
+      run -= 2;
+      qinf[0] = run == -1 ? qinf[0] : 0;
+      if (run < 0) run = mel.get_run();
+    }
+    c_q = ((qinf[0] & 0x10) >> 4) | ((qinf[0] & 0xe0) >> 5);
+    vlc_val = vlc.advance(qinf[0] & 7);
+    *sip |= (((qinf[0] & 0x30) >> 4) | ((qinf[0] & 0xc0) >> 2)) << sip_shift;
+    qinf[1] = 0;
+    if (x + 2 < w) {
+      qinf[1] = HT_VLC_TABLE0[(c_q << 7) | (vlc_val & 0x7f)];
+      if (c_q == 0) {
+        run -= 2;
+        qinf[1] = run == -1 ? qinf[1] : 0;
+        if (run < 0) run = mel.get_run();
+      }
+      c_q = ((qinf[1] & 0x10) >> 4) | ((qinf[1] & 0xe0) >> 5);
+      vlc_val = vlc.advance(qinf[1] & 7);
+    }
+    *sip |= ((qinf[1] & 0x30) | ((qinf[1] & 0xc0) << 2)) << (4 + sip_shift);
+    sip += x & 7 ? 1 : 0;
+    sip_shift ^= 0x10;
+    uint32_t mode = ((qinf[0] & 8) >> 3) | ((qinf[1] & 8) >> 2);
+    if (mode == 3) {
+      run -= 2;
+      mode += run == -1 ? 1 : 0;
+      if (run < 0) run = mel.get_run();
+    }
+    uint32_t used = decode_uvlc(vlc_val, mode, big_u, true);
+    if (big_u[0] > zero_bplanes_p1 || big_u[1] > zero_bplanes_p1)
+      fail("Malformed HT codeblock. Decoding this codeblock is stopped. U_q is larger than zero bitplanes + 1");
+    vlc.advance(used);
+    uint32_t locs = 0xff;
+    if (x + 4 > w) locs >>= (x + 4 - w) << 1;
+    locs = h > 1 ? locs : (locs & 0x55);
+    check_locs(qinf, locs);
+    magnitudes(qinf, big_u, locs, lsp, sp);
+  }
+
+  // the other line pairs, and SigProp / MagRef a stripe behind
+  auto magref_stripe = [&](const uint32_t* cur_sig, uint32_t* dpp) {
+    const uint32_t half = 1u << (p - 2);
+    for (int i = 0; i < w; i += 8) {
+      uint32_t cwd = magref.fetch(), sig = *cur_sig++;
+      uint32_t* dp = dpp + i;
+      if (sig)
+        for (int j = 0; j < 8; ++j, dp++)
+          for (int r = 0; r < 4; r++)
+            if (sig & (1u << (4 * j + r))) {
+              uint32_t sym = cwd & 1;
+              dp[r * stride] ^= (1 - sym) << (p - 1);
+              dp[r * stride] |= half;
+              cwd >>= 1;
+            }
+      magref.advance(uint32_t(__builtin_popcount(sig)));
+    }
+  };
+  auto stripe_mbr = [&](const uint32_t* sig, uint32_t* mbr) {  // a stripe's candidates from its own significance
+    uint32_t prev = 0;
+    for (int i = 0; i < w; i += 8, mbr++, sig++) {
+      mbr[0] = sig[0] | prev >> 28 | sig[0] << 4 | sig[0] >> 4 | sig[1] << 28;
+      prev = sig[0];
+      uint32_t t = mbr[0], z = mbr[0];
+      z |= (t & 0x77777777) << 1;
+      z |= (t & 0xeeeeeeee) >> 1;
+      mbr[0] = z & ~sig[0];
+    }
+  };
+  // SigProp of the stripe whose first row is `y0` (rows past the block masked by `pattern`)
+  auto sigprop_stripe = [&](int y0, bool from_next, uint32_t pattern) {
+    uint32_t *cur_sig = y0 & 4 ? sigma2 : sigma1, *cur_mbr = y0 & 4 ? mbr2 : mbr1;
+    uint32_t *nxt_sig = y0 & 4 ? sigma1 : sigma2, *nxt_mbr = y0 & 4 ? mbr1 : mbr2;
+    if (from_next) {
+      uint32_t prev = 0;
+      for (int i = 0, g = 0; i < w; i += 8, g++) {
+        uint32_t t = nxt_sig[g] | prev >> 28 | nxt_sig[g] << 4 | nxt_sig[g] >> 4 | nxt_sig[g + 1] << 28;
+        prev = nxt_sig[g];
+        if (!stripe_causal) cur_mbr[g] |= (t & 0x11111111u) << 3;
+        cur_mbr[g] &= ~cur_sig[g];
+      }
+    }
+    const uint32_t val = 3u << (p - 2);
+    for (int i = 0, g = 0; i < w; i += 8, g++) {
+      uint32_t mbr = cur_mbr[g] & pattern, new_sig = 0;
+      if (mbr) {
+        for (int n = 0; n < 8; n += 4) {
+          uint32_t cwd = sigprop.fetch(), cnt = 0;
+          uint32_t* dp = decoded + y0 * stride + i + n;
+          uint32_t inv_sig = ~cur_sig[g] & pattern;
+          int end = n + 4 + i < w ? n + 4 : w - i;
+          for (int j = n; j < end; ++j)
+            for (int r = 0; r < 4; r++) {
+              uint32_t mask = 1u << (4 * j + r);
+              if (!(mbr & mask)) continue;
+              if (cwd & 1) {
+                static const uint32_t spread[4] = {0x32, 0x74, 0xe8, 0xc0};
+                new_sig |= mask;
+                mbr |= (spread[r] << (j * 4)) & inv_sig;
+              }
+              cwd >>= 1, ++cnt;
+            }
+          if (new_sig & (0xffffu << (4 * n)))
+            for (int j = n; j < end; ++j, ++dp)
+              for (int r = 0; r < 4; r++)
+                if (new_sig & (1u << (4 * j + r))) {
+                  dp[r * stride] |= ((cwd & 1) << 31) | val;
+                  cwd >>= 1, ++cnt;
+                }
+          sigprop.advance(cnt);
+          if (n == 4) {
+            uint32_t t = new_sig >> 28;
+            t |= ((t & 0xe) >> 1) | ((t & 7) << 1);
+            cur_mbr[g + 1] |= t & ~cur_sig[g + 1];
+          }
+        }
+      }
+      new_sig |= cur_sig[g];
+      uint32_t ux = (new_sig & 0x88888888) >> 3, tx = ux | (ux << 4) | (ux >> 4);
+      if (i > 0) nxt_mbr[g - 1] |= (ux << 28) & ~nxt_sig[g - 1];
+      nxt_mbr[g] |= tx & ~nxt_sig[g];
+      nxt_mbr[g + 1] |= (ux >> 28) & ~nxt_sig[g + 1];
+    }
+  };
+
+  for (int y = 2; y < h;) {
+    sip_shift ^= 0x2;
+    sip_shift &= 0xffffffefu;
+    sip = y & 4 ? sigma2 : sigma1;
+    lsp = line_state;
+    uint8_t ls0 = lsp[0];
+    lsp[0] = 0;
+    sp = decoded + y * stride;
+    c_q = 0;
+    for (int x = 0; x < w; x += 4) {
+      uint32_t big_u[2];
+      c_q |= ls0 >> 7;
+      c_q |= (lsp[1] >> 5) & 4;
+      uint32_t vlc_val = vlc.fetch();
+      qinf[0] = HT_VLC_TABLE1[(c_q << 7) | (vlc_val & 0x7f)];
+      if (c_q == 0) {
+        run -= 2;
+        qinf[0] = run == -1 ? qinf[0] : 0;
+        if (run < 0) run = mel.get_run();
+      }
+      c_q = ((qinf[0] & 0x40) >> 5) | ((qinf[0] & 0x80) >> 6);
+      vlc_val = vlc.advance(qinf[0] & 7);
+      *sip |= (((qinf[0] & 0x30) >> 4) | ((qinf[0] & 0xc0) >> 2)) << sip_shift;
+      qinf[1] = 0;
+      if (x + 2 < w) {
+        c_q |= lsp[1] >> 7;
+        c_q |= (lsp[2] >> 5) & 4;
+        qinf[1] = HT_VLC_TABLE1[(c_q << 7) | (vlc_val & 0x7f)];
+        if (c_q == 0) {
+          run -= 2;
+          qinf[1] = run == -1 ? qinf[1] : 0;
+          if (run < 0) run = mel.get_run();
+        }
+        c_q = ((qinf[1] & 0x40) >> 5) | ((qinf[1] & 0x80) >> 6);
+        vlc_val = vlc.advance(qinf[1] & 7);
+      }
+      *sip |= ((qinf[1] & 0x30) | ((qinf[1] & 0xc0) << 2)) << (4 + sip_shift);
+      sip += x & 7 ? 1 : 0;
+      sip_shift ^= 0x10;
+      uint32_t mode = ((qinf[0] & 8) >> 3) | ((qinf[1] & 8) >> 2);
+      uint32_t used = decode_uvlc(vlc_val, mode, big_u, false);
+      vlc.advance(used);
+      if ((qinf[0] & 0xf0) & ((qinf[0] & 0xf0) - 1)) {  // gamma: kappa from the line above
+        uint32_t e = std::max<uint32_t>(ls0 & 0x7f, lsp[1] & 0x7f);
+        big_u[0] += e > 2 ? e - 2 : 0;
+      }
+      if ((qinf[1] & 0xf0) & ((qinf[1] & 0xf0) - 1)) {
+        uint32_t e = std::max<uint32_t>(lsp[1] & 0x7f, lsp[2] & 0x7f);
+        big_u[1] += e > 2 ? e - 2 : 0;
+      }
+      if (big_u[0] > zero_bplanes_p1 || big_u[1] > zero_bplanes_p1)
+        fail("Malformed HT codeblock. Decoding this codeblock is stopped. U_q is larger than bitplanes + 1");
+      ls0 = lsp[2];
+      lsp[1] = lsp[2] = 0;
+      uint32_t locs = 0xff;
+      if (x + 4 > w) locs >>= (x + 4 - w) << 1;
+      locs = y + 2 <= h ? locs : (locs & 0x55);
+      check_locs(qinf, locs);
+      magnitudes(qinf, big_u, locs, lsp, sp);
+    }
+    y += 2;
+    if (num_passes > 1 && (y & 3) == 0) {
+      if (num_passes > 2) magref_stripe(y & 4 ? sigma1 : sigma2, decoded + (y - 4) * stride);
+      if (y >= 4) stripe_mbr(y & 4 ? sigma1 : sigma2, y & 4 ? mbr1 : mbr2);
+      if (y >= 8) {
+        sigprop_stripe(y - 8, true, 0xffffffffu);
+        uint32_t* cur_sig = y & 4 ? sigma2 : sigma1;
+        memset(cur_sig, 0, size_t((((uint32_t(w) + 7u) >> 3) + 1u) << 2));
+      }
+    }
+  }
+  if (num_passes > 1) {  // the stripes the loop left
+    if (num_passes > 2 && ((h & 3) == 1 || (h & 3) == 2))
+      magref_stripe(h & 4 ? sigma2 : sigma1, decoded + (h & 0xfffffc) * stride);
+    if ((h & 3) == 1 || (h & 3) == 2) stripe_mbr(h & 4 ? sigma2 : sigma1, h & 4 ? mbr2 : mbr1);
+    int st = h - (h > 6 ? ((h + 1) & 3) + 3 : h);
+    for (int y = st; y < h; y += 4) {
+      uint32_t pattern = h - y == 3 ? 0x77777777u : h - y == 2 ? 0x33333333u : h - y == 1 ? 0x11111111u : 0xffffffffu;
+      sigprop_stripe(y, h - y > 4, pattern);
+    }
+  }
+  for (int32_t& v : out) {  // sign | magnitude to two's complement
+    int32_t mag = int32_t(uint32_t(v) & 0x7fffffffu);
+    v = (uint32_t(v) & 0x80000000u) ? -mag : mag;
+  }
+}
 
 // ---- wavelets, colour, output ----
 
@@ -1618,6 +2216,7 @@ void decode_tile(const Codestream& cs, const Tcp& tcp, int tileno, std::vector<T
   resno_decoded.assign(comps.size(), 0);
   tier2(cs, tcp, comps, t, tcp.data.data(), int64_t(tcp.data.size()), 0, packed, resno_decoded);
   T1 t1;
+  std::vector<int32_t> ht_data;
   for (size_t c = 0; c < comps.size(); c++) {
     TileComp& tc = comps[c];
     const Tccp& tccp = tcp.tccps[c];
@@ -1634,14 +2233,23 @@ void decode_tile(const Codestream& cs, const Tcp& tcp, int tileno, std::vector<T
             if (ranges)
               for (auto [off, len] : cb.chunks) ranges->push_back({off, len});
             if (cb.x1 <= cb.x0 || cb.y1 <= cb.y0) continue;
-            t1.decode(cb, band.bandno, tccp.cblksty, tccp.roishift);
+            const int w = int(cb.x1 - cb.x0), h = int(cb.y1 - cb.y0);
+            const int32_t* values;
+            if (tccp.cblksty & HT) {  // one chunk is read in place in the tile's data, several from a copy
+              int align = cb.numchunks > 1 ? 0 : int(cb.first_chunk & 3);
+              ht_decode(cb, tccp.cblksty, tccp.roishift, w, h, cb.data.data(), align, ht_data);
+              values = ht_data.data();
+            } else {
+              t1.decode(cb, band.bandno, tccp.cblksty, tccp.roishift);
+              values = t1.data.data();
+            }
             int64_t x = cb.x0 - band.x0, y = cb.y0 - band.y0;
             if (band.bandno & 1) x += tc.res[r - 1].x1 - tc.res[r - 1].x0;
             if (band.bandno & 2) y += tc.res[r - 1].y1 - tc.res[r - 1].y0;
-            for (int j = 0; j < t1.h; j++)
-              for (int i = 0; i < t1.w; i++) {
+            for (int j = 0; j < h; j++)
+              for (int i = 0; i < w; i++) {
                 Sample& s = tc.data[(y + j) * stride + x + i];
-                int32_t v = t1.data[j * t1.w + i];
+                int32_t v = values[j * w + i];
                 if (tccp.qmfbid == 1) s.i = v / 2;
                 else s.f = float(v) * step;
               }

@@ -76,7 +76,9 @@ def _cxx() -> str:
 
 def host_library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update((CSRC / f"{name}.cc").read_bytes())
+    for p in sorted(CSRC.glob("*.h")) + [CSRC / f"{name}.cc"]:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
     return BUILD_DIR / f"{name}-host-{h.hexdigest()[:16]}.so"
 
 

@@ -112,8 +112,8 @@ def open_image(path) -> Picture:
     """The `Picture` of a PNG, JPEG, BMP, TIFF, WebP, GIF, PPM / PGM / PBM
     / PFM, TGA or JPEG 2000 file, PIL's pixels and mode. JPEG (mode "L",
     "RGB" or "CMYK", and the strips and tiles of a JPEG-in-TIFF), WebP
-    ("RGB" or "RGBA") and JPEG 2000 ("L", "I;16", "LA", "RGB", "RGBA",
-    "CMYK", "P", "PA") are decoded by compiled decoders, and BMP's RLE,
+    ("RGB" or "RGBA") and JPEG 2000 (Part 1 and HTJ2K; "L", "I;16", "LA",
+    "RGB", "RGBA", "CMYK", "P", "PA") are decoded by compiled decoders, and BMP's RLE,
     TIFF's LZW and PackBits, GIF's LZW and TGA's RLE by the compiled codecs,
     each built at first use; if one cannot be built this raises."""
     with open(path, "rb") as f:

@@ -22,7 +22,10 @@ file in two steps, and this module follows both:
   compiled `csrc/jp2_decode.cc` (host C++, built at first use; no
   fallback), which also applies PIL's unpackers: every JPEG 2000 Part 1
   feature (SOP / EPH, PPM / PPT, POC, the six code-block styles, RGN,
-  subsampling, unknown markers) as OpenJPEG decodes it for PIL.
+  subsampling, unknown markers) as OpenJPEG decodes it for PIL, and HTJ2K
+  (JPEG 2000 Part 15, ITU-T T.814: the HT block coder's cleanup, SigProp
+  and MagRef passes, its CAP and CPF markers) as OpenJPEG 2.5's HT decoder
+  reads it, damaged files included.
 
 Where PIL raises, this raises a `ValueError` naming the file. Features PIL
 reads that the port does not are refused by name (`REFUSED`).
@@ -49,7 +52,7 @@ MODES = ("L", "P", "PA", "I;16", "LA", "RGB", "RGBA", "CMYK")
 # the number of components
 COLOUR_SPACES = {16: 1, 17: 2, 18: 3, 24: 4, 12: 5}
 UNSPECIFIED_SPACE = 0
-REFUSED = ("HTJ2K (Part 15)", "precision above 16 bits", "more than 4 components", "Part 2 extensions")
+REFUSED = ("precision above 16 bits", "more than 4 components", "Part 2 extensions")
 
 
 class _Boxes:
@@ -375,7 +378,7 @@ def _library(name):
 def _raise(name, what: str):
     if what.startswith("refused: "):
         raise ValueError(f"{name}: {what[len('refused: '):]} is not read by the port (JPEG 2000); the port reads "
-                         f"JPEG 2000 Part 1 files as PIL reads them and refuses: {', '.join(REFUSED)}")
+                         f"JPEG 2000 Part 1 and HTJ2K files as PIL reads them and refuses: {', '.join(REFUSED)}")
     raise ValueError(f"{name}: {what} (JPEG 2000: PIL fails on this file)")
 
 
@@ -416,8 +419,8 @@ def open_jp2(path):
 
 def segments(data: bytes) -> list[tuple[int, int]]:
     """The (offset, length) of every code-block's coded data in a raw
-    codestream, in decoding order (for tests that damage code-block
-    bodies only)."""
+    codestream (Part 1 and HT code-blocks alike), in decoding order (for
+    tests that damage code-block bodies only)."""
     lib = _library("codestream")
     count = lib.gs_jp2_segments(data, len(data), None, 0)
     if count < 0:

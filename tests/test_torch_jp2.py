@@ -6,13 +6,14 @@ Tolerances: every comparison is bit-equal. For each file the port's
 `image_io.open_image` must give PIL's mode and `np.asarray(Image.open(f))`
 (a channel axis kept) and `to_rgba` PIL's `convert("RGBA")`, or raise a
 `ValueError` naming the file where PIL raises. The features the port does
-not read (HTJ2K, Part 2, precision above 16 bits, more than 4 components)
-are refused by name (`jp2.REFUSED`), also where PIL reads the file. Files
+not read (Part 2, precision above 16 bits, more than 4 components) are
+refused by name (`jp2.REFUSED`), also where PIL reads the file. Files
 are PIL's own (every option of its writer), JP2 boxes written around PIL's
 codestreams, PIL codestreams whose markers are edited
 (`tests/torch_image_writers`), and files of the test-side encoder
 `tests/torch_j2k_writer.py` (the Part 1 features PIL's writer never sets;
-`tests/test_torch_jp2_part1.py` holds the port to PIL on each). Pictures are at most 67x45 here, made from
+`tests/test_torch_jp2_part1.py` holds the port to PIL on each, and
+`tests/test_torch_htj2k.py` on its HTJ2K files). Pictures are at most 67x45 here, made from
 `np.random.default_rng(seed)`; the committed fixtures
 (`tests/fixtures/torch_jp2`, 1080p ones included) are held to PIL's
 hashes.
@@ -260,7 +261,7 @@ def refused_views():
 
     extra = bytearray(siz[:34]) + struct.pack(">H", 5) + siz[36:] + siz[36:39] * 2
     views = {
-        "HTJ2K": (with_siz(lambda b: b.__setitem__(0, 0x40)), "HTJ2K"),
+        "HTJ2K": (with_siz(lambda b: b.__setitem__(0, 0x40)), None),
         "Part 2": (with_siz(lambda b: b.__setitem__(0, 0x80)), "Part 2"),
         "subsampling": (with_siz(lambda b: b.__setitem__(36 + 3 + 1, 2)), None),
         "precision 17": (with_siz(lambda b: b.__setitem__(36, 16)), "precision above 16 bits"),
@@ -273,24 +274,25 @@ def refused_views():
         "POC": (j2k_join(main + [(0xFF5F, b"\x00\x00\x00\x01\x02\x01\x00")], parts), None),
         "PPM": (j2k_join(main + [(0xFF60, b"\x00\x00\x00\x00\x00")], parts), None),
         "PPT": (j2k_join(main, [p[:3] + ([(0xFF61, b"\x00")] + p[3], p[4]) for p in parts]), None),
-        "CAP": (j2k_join(main + [(0xFF50, b"\x00\x02\x00\x00\x00\x00")], parts), "HTJ2K"),
+        "CAP": (j2k_join(main + [(0xFF50, b"\x00\x02\x00\x00\x00\x00")], parts), None),
         "a Part 2 marker": (j2k_join(main + [(0xFF74, b"\x00\x00")], parts), "Part 2"),
         "an unknown marker": (j2k_join(main + [(0xFF6A, b"\x00\x00")], parts), None),
         "JPX with two codestreams": (jp2_bytes(cs, 3, brand=b"jpx ") + jp2_box(b"jp2c", cs), None),
     }
     for bit, style in enumerate(("BYPASS", "RESET", "TERMALL", "VSC", "PTERM", "SEGSYM", "HT")):
-        views[f"code-block style {style}"] = (_edit_cod(cs, 8, 1 << bit), "HTJ2K" if style == "HT" else None)
+        views[f"code-block style {style}"] = (_edit_cod(cs, 8, 1 << bit), None)
     return views
 
 
 @pytest.mark.parametrize("view", list(refused_views()))
 def test_refused_features_are_named(tmp_path, cxx, view):
-    """Each feature the port does not read (HTJ2K, Part 2, precision above
-    16 bits, more than 4 components) raises a ValueError naming the file
-    and the feature, whatever PIL makes of the file. The views the port
-    once refused (a style bit, SOP / EPH, RGN, POC, PPM / PPT, an unknown
-    marker, subsampling, a second codestream: edits of a PIL file that its
-    data does not follow) give PIL's pixels, or raise where PIL raises."""
+    """Each feature the port does not read (Part 2, precision above 16
+    bits, more than 4 components) raises a ValueError naming the file and
+    the feature, whatever PIL makes of the file. The views the port once
+    refused (a style bit, HT's Rsiz bit, CAP marker and code-block style,
+    SOP / EPH, RGN, POC, PPM / PPT, an unknown marker, subsampling, a
+    second codestream: edits of a PIL file that its data does not follow)
+    give PIL's pixels, or raise where PIL raises."""
     data, match = refused_views()[view]
     suffix = ".jp2" if data.startswith(jp2.JP2_SIGNATURE) else ".j2k"
     if match is None:
@@ -303,7 +305,7 @@ def test_refused_features_are_named(tmp_path, cxx, view):
 
 # What PIL reads and the port refuses, by the words of the refusal; a
 # seeded flip that lands on one is counted here (ROADMAP.md section 1).
-STILL_REFUSED = ("HTJ2K", "Part 2", "precision above 16 bits", "more than 4 components")
+STILL_REFUSED = ("Part 2", "precision above 16 bits", "more than 4 components")
 
 # (writer, options): PIL's writer, or the test-side encoder's Part 1 forms
 DAMAGED = {

@@ -38,12 +38,15 @@ one in JP2 boxes.
 
 from __future__ import annotations
 
+import functools
+import os
 import struct
 
 import numpy as np
 
 BYPASS, RESET, TERMALL, VSC, PTERM, SEGSYM = 1, 2, 4, 8, 16, 32
 ALL_STYLES = 63
+HT, HT_MIXED = 0x40, 0x80  # T.814's code-block style bits: HT code-blocks, and HT or Part 1 by code-block
 ORDERS = {"LRCP": 0, "RLCP": 1, "RPCL": 2, "PCRL": 3, "CPRL": 4}
 GUARD_BITS = 2
 
@@ -240,10 +243,13 @@ SC = _sc_table()  # indexed by a sample's flags & 0xFFF
 class Block:
     """One code-block's coded passes: `segments` [(first pass, passes,
     bytes)], `cuts[n]` the bytes that carry the first n passes, `numbps` the
-    bit-planes the decoder counts before the ROI shift."""
+    bit-planes the decoder counts before the ROI shift; `ht_first`: an HT
+    block's passes in its cleanup segment (placeholder passes and the
+    cleanup pass), None for a Part 1 block."""
 
-    def __init__(self, numbps, passes, segments, cuts):
+    def __init__(self, numbps, passes, segments, cuts, ht_first=None):
         self.numbps, self.passes, self.segments, self.cuts = numbps, passes, segments, cuts
+        self.ht_first = ht_first
 
 
 def max_passes(style: int, previous: int | None) -> int:
@@ -412,6 +418,374 @@ def encode_block(coeffs: np.ndarray, orient: int, style: int, roishift: int, kee
     return Block(numbps, npasses, segments, cuts)
 
 
+# ---- the HT block coder (ITU-T T.814) ----
+
+HT_VLC_TABLES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "gaussian_splatting_torch",
+                             "csrc", "ht_vlc_tables.h")
+MEL_EXPONENTS = (0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 4, 5)  # T.814's MEL_E, by state
+
+
+@functools.cache
+def ht_vlc_decoding_tables() -> tuple:
+    """The port's CxtVLC decoding tables (csrc/ht_vlc_tables.h): for the
+    first line pair and the others, 1024 entries (context << 7 | 7 VLC
+    bits) of length | u_off << 3 | rho << 4 | e_1 << 8 | e_k << 12."""
+    with open(HT_VLC_TABLES) as f:
+        text = f.read()
+    tables = []
+    for name in ("HT_VLC_TABLE0", "HT_VLC_TABLE1"):
+        body = text.split(f"{name}[1024] = {{", 1)[1].split("};", 1)[0]
+        tables.append(tuple(int(v, 16) for v in body.replace(",", " ").split()))
+    return tuple(tables)
+
+
+@functools.cache
+def ht_vlc_encoding_tables() -> tuple:
+    """The inverse of the decoding tables, by enumeration: for each table,
+    {(context, rho, emb): (codeword, length, e_k)}, emb being the samples
+    whose exponent reaches the quad's bound (0: u_off 0). Among the
+    codewords a quad may take (e_1 = emb & e_k) the one with the most e_k
+    bits, as OpenJPH's encoder picks; each is checked to decode to itself."""
+    out = []
+    for table in ht_vlc_decoding_tables():
+        words = {}  # (context, rho, u_off, e_k, e_1) -> (codeword, length)
+        for cx in range(8):
+            for bits in range(128):
+                e = table[cx << 7 | bits]
+                n = e & 7
+                words.setdefault((cx, e >> 4 & 15, e >> 3 & 1, e >> 12 & 15, e >> 8 & 15), (bits & ((1 << n) - 1), n))
+        enc = {}
+        for (cx, rho, u_off, e_k, e_1), (cwd, n) in words.items():
+            for emb in range(16):
+                if emb & ~rho or (emb == 0) != (u_off == 0) or emb & e_k != e_1:
+                    continue
+                best = enc.get((cx, rho, emb))
+                if best is None or bin(e_k).count("1") >= bin(best[2]).count("1"):
+                    enc[(cx, rho, emb)] = (cwd, n, e_k)
+        for (cx, rho, emb), (cwd, n, e_k) in enc.items():
+            e = table[cx << 7 | cwd]
+            assert e & 7 == n and e >> 4 & 15 == rho and e >> 12 & 15 == e_k and e >> 8 & 15 == emb & e_k
+        assert all((cx, rho, emb) in enc for cx in range(8) for rho in range(16) for emb in range(16)
+                   if not emb & ~rho and (cx or rho)), "a quad with no codeword"
+        out.append(enc)
+    return tuple(out)
+
+
+class _Mel:
+    """The MEL coder: bits most significant first, 7 in the byte after 0xFF."""
+
+    def __init__(self):
+        self.buf, self.tmp, self.remaining, self.run, self.k = bytearray(), 0, 8, 0, 0
+
+    def bit(self, v):
+        self.tmp = self.tmp << 1 | v
+        self.remaining -= 1
+        if self.remaining == 0:
+            self.buf.append(self.tmp)
+            self.remaining = 7 if self.tmp == 0xFF else 8
+            self.tmp = 0
+
+    def event(self, v):
+        e = MEL_EXPONENTS[self.k]
+        if not v:
+            self.run += 1
+            if self.run == 1 << e:
+                self.bit(1)
+                self.run, self.k = 0, min(self.k + 1, 12)
+            return
+        self.bit(0)
+        for b in range(e - 1, -1, -1):
+            self.bit(self.run >> b & 1)
+        self.run, self.k = 0, max(self.k - 1, 0)
+
+
+class _Backward:
+    """A stream written from its end (VLC, MagRef): bits least significant
+    first; after a byte above 0x8F the next holds 7 bits where they are all
+    ones. `buf` holds the bytes last first."""
+
+    def __init__(self, first=None):
+        if first is None:  # MagRef: as if after a byte above 0x8F
+            self.buf, self.tmp, self.used, self.gt8f = bytearray(), 0, 0, True
+        else:  # VLC: the segment's last byte, and a first nibble of 0xF under the VLC's first bits
+            self.buf, self.tmp, self.used, self.gt8f = bytearray([first]), 0xF, 4, True
+
+    def put(self, cwd, n):
+        while n > 0:
+            avail = 8 - self.gt8f - self.used
+            t = min(avail, n)
+            self.tmp |= (cwd & ((1 << t) - 1)) << self.used
+            self.used, avail, n, cwd = self.used + t, avail - t, n - t, cwd >> t
+            if avail == 0:
+                if self.gt8f and self.tmp != 0x7F:
+                    self.gt8f = False  # an eighth bit
+                    continue
+                self.buf.append(self.tmp)
+                self.gt8f, self.tmp, self.used = self.tmp > 0x8F, 0, 0
+
+    def flush(self) -> bytes:
+        if self.used:
+            self.buf.append(self.tmp)
+            self.tmp = self.used = 0
+        return bytes(self.buf[::-1])
+
+
+class _Forward:
+    """A stream written from its start (MagSgn, SigProp): bits least
+    significant first, 7 in the byte after 0xFF."""
+
+    def __init__(self):
+        self.buf, self.tmp, self.used, self.max = bytearray(), 0, 0, 8
+
+    def put(self, cwd, n):
+        while n > 0:
+            t = min(self.max - self.used, n)
+            self.tmp |= (cwd & ((1 << t) - 1)) << self.used
+            self.used, cwd, n = self.used + t, cwd >> t, n - t
+            if self.used >= self.max:
+                self.buf.append(self.tmp)
+                self.max, self.tmp, self.used = 7 if self.tmp == 0xFF else 8, 0, 0
+
+    def flush(self, fill) -> bytes:
+        """The stream, its last byte's free bits set to `fill` (the decoder
+        reads 0xFF past MagSgn's end and 0 past SigProp's); a MagSgn byte
+        of 0xFF at the end is left out."""
+        if self.used:
+            self.tmp |= ((1 << (self.max - self.used)) - 1) << self.used if fill else 0
+            if not (fill and self.tmp == 0xFF):
+                self.buf.append(self.tmp)
+        elif fill and self.max == 7:
+            self.buf.pop()
+        return bytes(self.buf)
+
+
+def _uvlc(u):
+    """u's prefix (codeword, length) and suffix (value, length), T.814 Table 3."""
+    if u == 1:
+        return (1, 1), (0, 0)
+    if u == 2:
+        return (2, 2), (0, 0)
+    if u <= 4:
+        return (4, 3), (u - 3, 1)
+    if u <= 32:  # u_ext (u above 32) is not written: OpenJPEG 2.5 does not read it
+        return (0, 3), (u - 5, 5)
+    raise ValueError(f"u_q {u} needs T.814's u_ext")
+
+
+def _exponent(mu):
+    return (2 * mu - 1).bit_length() if mu else 0
+
+
+def ht_cleanup(mu: np.ndarray, neg: np.ndarray) -> bytes:
+    """The HT cleanup pass of one code-block's magnitudes `mu` at its
+    cleanup bit-plane (signs `neg`): MagSgn forward, then MEL forward and
+    VLC backward, Scup in the last 12 bits; the quads in line pairs, their
+    contexts, exponent bounds and UVLC codes by the decoder's rules."""
+    h, w = mu.shape
+    mu, neg = mu.tolist(), neg.tolist()
+    enc0, enc1 = ht_vlc_encoding_tables()
+    mel, vlc, ms = _Mel(), _Backward(0xFF), _Forward()
+    exps = [[_exponent(m) for m in row] for row in mu]
+
+    def sample(x, y):
+        return mu[y][x] if x < w and y < h else 0
+
+    def prev(x, y):  # (significance, exponent) of row y - 1's column x
+        return (mu[y - 1][x] > 0, exps[y - 1][x]) if 0 <= x < w else (False, 0)
+
+    for y in range(0, h, 2):
+        first = y == 0
+        enc, c_q = (enc0 if first else enc1), 0
+        for x in range(0, w, 4):
+            quads = []
+            for qx in (x, x + 2):
+                if qx >= w or (qx > x and x + 2 >= w):
+                    break
+                pos = [(qx, y), (qx, y + 1), (qx + 1, y), (qx + 1, y + 1)]
+                ms_ = [sample(px, py) for px, py in pos]
+                rho = sum(1 << n for n in range(4) if ms_[n])
+                if first:
+                    cx, kappa = c_q, 1
+                    c_q = (rho & 1 | rho >> 1 & 1) | (rho >> 2 & 1) << 1 | (rho >> 3 & 1) << 2
+                else:
+                    nb = [prev(qx + d, y) for d in (-1, 0, 1, 2)]
+                    cx = c_q | (nb[0][0] | nb[1][0]) | (nb[2][0] | nb[3][0]) << 2
+                    gamma = bin(rho).count("1") > 1
+                    kappa = max(1, max(e for _, e in nb) - 1) if gamma else 1
+                    c_q = (rho >> 2 & 1 | rho >> 3 & 1) << 1
+                e_n = [_exponent(m) for m in ms_]
+                big_u = max(max(e_n), kappa) if rho else 0
+                u = big_u - kappa if rho else 0
+                emb = sum(1 << n for n in range(4) if u and e_n[n] == big_u)
+                e_k = 0
+                if cx == 0:
+                    mel.event(rho != 0)
+                if cx or rho:
+                    cwd, n, e_k = enc[(cx, rho, emb)]
+                    vlc.put(cwd, n)
+                quads.append((rho, u, big_u, e_k, pos))
+            u0 = quads[0][1]
+            u1 = quads[1][1] if len(quads) > 1 else 0
+            if u0 and u1:
+                if first:
+                    both = u0 > 2 and u1 > 2
+                    mel.event(both)
+                    if both:
+                        u0, u1 = u0 - 2, u1 - 2
+                    elif u0 > 2:
+                        (p0, s0) = _uvlc(u0)
+                        vlc.put(*p0)
+                        vlc.put(u1 - 1, 1)
+                        vlc.put(*s0)
+                        u0 = u1 = 0
+                if u0:
+                    (p0, s0), (p1, s1) = _uvlc(u0), _uvlc(u1)
+                    for code in (p0, p1, s0, s1):
+                        vlc.put(*code)
+            elif u0 or u1:
+                p, s = _uvlc(u0 or u1)
+                vlc.put(*p)
+                vlc.put(*s)
+            for rho, _, big_u, e_k, pos in quads:
+                for n, (px, py) in enumerate(pos):
+                    if rho >> n & 1:
+                        m = big_u - (e_k >> n & 1)
+                        ms.put(2 * (mu[py][px] - 1) + neg[py][px], m)
+    # MEL and VLC meet in one byte where their bits do not overlap (OpenJPH's terminate_mel_vlc)
+    if mel.run:
+        mel.bit(1)
+    mel_tmp = (mel.tmp << mel.remaining) & 0xFF
+    mel_mask, vlc_mask = (0xFF << mel.remaining) & 0xFF, 0xFF >> (8 - vlc.used)
+    if mel_mask | vlc_mask:
+        fuse = mel_tmp | vlc.tmp
+        if not ((fuse ^ mel_tmp) & mel_mask | (fuse ^ vlc.tmp) & vlc_mask) and fuse != 0xFF and len(vlc.buf) > 1:
+            mel.buf.append(fuse)
+        else:
+            mel.buf.append(mel_tmp)
+            vlc.buf.append(vlc.tmp)
+    scup = len(mel.buf) + len(vlc.buf)
+    if scup > 4079:
+        raise ValueError(f"Scup {scup} above 4079")
+    out = bytearray(ms.flush(True) + bytes(mel.buf) + bytes(vlc.buf[::-1]))
+    out[-1] = scup >> 4
+    out[-2] = (out[-2] & 0xF0) | (scup & 0xF)
+    return bytes(out)
+
+
+# the significance a newly significant sample of row r (0-3) of a column
+# passes on, in 4-bit columns: below it, and rows r - 1 to r + 1 of the next
+SIGPROP_SPREAD = (0x32, 0x74, 0xE8, 0xC0)
+
+
+def ht_refinement(mag: np.ndarray, neg: np.ndarray, plane: int, passes: int, causal: bool) -> bytes:
+    """The HT refinement segment of one code-block: SigProp (forward)
+    and, with `passes` 3, MagRef (backward) at bit-plane `plane` - 1 of
+    the magnitudes `mag`, the cleanup pass having coded bit-planes from
+    `plane` up. Stripes of 4 rows, 8 columns a 32-bit word (a nibble a
+    column): the candidates, their order and the signs after each 4
+    columns as OpenJPEG's decoder walks them (VSC: `causal`)."""
+    h, w = mag.shape
+    sig = (mag >> plane) > 0
+    bit = ((mag >> (plane - 1)) & 1).astype(bool)
+    groups, stripes = (w + 7) // 8 + 1, (h + 3) // 4
+    full = 0xFFFFFFFF
+
+    def words(a, s):
+        out = [0] * (groups + 1)
+        for y in range(4 * s, min(4 * s + 4, h)):
+            for x in range(w):
+                if a[y, x]:
+                    out[x // 8] |= 1 << (4 * (x % 8) + y - 4 * s)
+        return out
+
+    sigs = [words(sig, s) for s in range(stripes)] + [[0] * (groups + 1)]
+    sp = _Forward()
+    prop = [0] * (groups + 1)  # the membership the previous stripe passes down
+    for s in range(stripes):
+        cur, nxt = sigs[s], sigs[s + 1]
+        rows = min(4, h - 4 * s)
+        pattern = (0x11111111, 0x33333333, 0x77777777, full)[rows - 1]
+        mbr, prev, nprev = [0] * (groups + 1), 0, 0
+        for g in range((w + 7) // 8):
+            t = cur[g] | prev >> 28 | (cur[g] << 4) & full | cur[g] >> 4 | (cur[g + 1] << 28) & full
+            prev = cur[g]
+            z = t | (t & 0x77777777) << 1 | (t & 0xEEEEEEEE) >> 1
+            mbr[g] = z & ~cur[g] & full | prop[g]
+            t = nxt[g] | nprev >> 28 | (nxt[g] << 4) & full | nxt[g] >> 4 | (nxt[g + 1] << 28) & full
+            nprev = nxt[g]
+            if not causal:
+                mbr[g] |= (t & 0x11111111) << 3
+            mbr[g] &= ~cur[g] & full
+        prop = [0] * (groups + 1)
+        for g in range((w + 7) // 8):
+            m, new = mbr[g] & pattern, 0
+            inv = ~cur[g] & pattern
+            if m:
+                for n in (0, 4):
+                    end = min(n + 4, w - 8 * g)
+                    for j in range(n, end):
+                        for r in range(4):
+                            mask = 1 << (4 * j + r)
+                            if m & mask:
+                                b = bool(bit[4 * s + r, 8 * g + j])
+                                sp.put(int(b), 1)
+                                if b:
+                                    new |= mask
+                                    m |= (SIGPROP_SPREAD[r] << (4 * j)) & inv
+                    for j in range(n, end):
+                        for r in range(4):
+                            if new & (1 << (4 * j + r)):
+                                sp.put(int(neg[4 * s + r, 8 * g + j]), 1)
+                    if n == 4:
+                        t = new >> 28
+                        t |= (t & 0xE) >> 1 | (t & 7) << 1
+                        mbr[g + 1] |= t & ~cur[g + 1] & full
+            new |= cur[g]
+            ux = (new & 0x88888888) >> 3
+            tx = (ux | ux << 4 | ux >> 4) & full
+            if g > 0:
+                prop[g - 1] |= (ux << 28) & ~nxt[g - 1] & full
+            prop[g] |= tx & ~nxt[g] & full
+            prop[g + 1] |= ux >> 28 & ~nxt[g + 1]
+    out = sp.flush(False)
+    if passes < 3:
+        return out
+    mr = _Backward()
+    for s in range(stripes):
+        for g in range((w + 7) // 8):
+            word = sigs[s][g]
+            for j in range(8):
+                for r in range(4):
+                    if word >> (4 * j + r) & 1:
+                        mr.put(int(bit[4 * s + r, 8 * g + j]), 1)
+    return out + mr.flush()
+
+
+def encode_ht_block(coeffs: np.ndarray, plane: int, passes: int, style: int, placeholders: int = 0) -> Block:
+    """One HT code-block of integer coefficients: the cleanup pass at
+    bit-plane `plane` and, with `passes` 2 or 3, the refinement segment
+    (SigProp, MagRef) one plane below; `numbps` such that the zero
+    bit-plane tag tree codes K - 1 - plane (OpenJPEG places the cleanup
+    there), less `placeholders`, whose three empty passes each are counted
+    before the cleanup pass. A block with nothing significant at `plane`
+    has no pass."""
+    mag = np.abs(coeffs).astype(np.int64)
+    neg = (coeffs < 0).astype(np.int64)
+    mu = mag >> plane
+    if not mu.any():
+        return Block(plane + 1, 0, [], [0])
+    cleanup = ht_cleanup(mu, neg)
+    segments = [(0, 3 * placeholders + 1, cleanup)]
+    if passes > 1:
+        if plane < 1:
+            raise ValueError("HT refinement passes need a cleanup plane above 0")
+        segments.append((3 * placeholders + 1, passes - 1,
+                         ht_refinement(mag, neg, plane, passes, bool(style & VSC))))
+    total = sum(len(s[2]) for s in segments)
+    cuts = [0] * (3 * placeholders + 1) + [len(cleanup)] + [total] * (passes - 1)
+    return Block(plane + 1 + placeholders, 3 * placeholders + passes, segments, cuts, 3 * placeholders + 1)
+
+
 # ---- the 5/3 wavelet (F.4.8.2) ----
 
 def _fwd53_1d(x: np.ndarray, i0: int):
@@ -434,15 +808,44 @@ def _fwd53_1d(x: np.ndarray, i0: int):
     return y[par == 0], y[par == 1]
 
 
-def forward_dwt(a: np.ndarray, x0: int, y0: int, levels: int):
+# OpenJPEG's inverse 9/7 constants (csrc/jp2_decode.cc): the low-pass
+# samples scaled by K, the high-pass by 2 / K, then four lifting steps
+K97, TWO_INV_K97 = 1.230174105, 1.625732422
+LIFT97 = (-0.443506852, -0.882911075, 0.052980118, 1.586134342)
+
+
+def _fwd97_1d(x: np.ndarray, i0: int):
+    """Forward 9/7 along axis 0 of `x` (first sample at absolute index
+    i0), in float64: the exact inverse of OpenJPEG's inverse transform
+    (its lifting steps undone in reverse order, its scales divided out).
+    (low-pass, high-pass) arrays."""
+    n = x.shape[0]
+    y = x.astype(np.float64).copy()
+    if n == 1:
+        return (y, y[:0]) if i0 % 2 == 0 else (y[:0], y)
+    cas = i0 % 2
+    left = [p - 1 if p > 0 else p + 1 for p in range(n)]
+    right = [p + 1 if p + 1 < n else p - 1 for p in range(n)]
+    for s in (3, 2, 1, 0):
+        for p in range(cas if s % 2 == 0 else 1 - cas, n, 2):
+            y[p] = y[p] - (y[left[p]] + y[right[p]]) * LIFT97[s]
+    low = np.arange(n) % 2 == cas
+    y[low] /= K97
+    y[~low] /= TWO_INV_K97
+    return y[low], y[~low]
+
+
+def forward_dwt(a: np.ndarray, x0: int, y0: int, levels: int, irreversible: bool = False):
     """The tile-component `a` (rows, columns; its first sample at (x0, y0))
-    in `levels` decompositions: [LL, (HL, LH, HH) of resolution 1, ...]."""
+    in `levels` decompositions (5/3 in integers, or 9/7 in float64): [LL,
+    (HL, LH, HH) of resolution 1, ...]."""
+    one = _fwd97_1d if irreversible else _fwd53_1d
     bands = []
-    cur, u0, v0 = a.astype(np.int64), x0, y0
+    cur, u0, v0 = a.astype(np.float64 if irreversible else np.int64), x0, y0
     for _ in range(levels):
-        lo_v, hi_v = _fwd53_1d(cur, v0) if cur.shape[0] else (cur, cur)
-        ll, hl = (_fwd53_1d(lo_v.T, u0) if lo_v.shape[1] else (lo_v.T, lo_v.T))
-        lh, hh = (_fwd53_1d(hi_v.T, u0) if hi_v.shape[1] else (hi_v.T, hi_v.T))
+        lo_v, hi_v = one(cur, v0) if cur.shape[0] else (cur, cur)
+        ll, hl = (one(lo_v.T, u0) if lo_v.shape[1] else (lo_v.T, lo_v.T))
+        lh, hh = (one(hi_v.T, u0) if hi_v.shape[1] else (hi_v.T, hi_v.T))
         bands.append((hl.T, lh.T, hh.T))
         cur, u0, v0 = ll.T, -(-u0 // 2), -(-v0 // 2)
     return [cur] + bands[::-1]
@@ -484,7 +887,7 @@ class Resolution:
         self.bands = []
 
 
-def tile_component(tx0, ty0, tx1, ty1, dx, dy, levels, cblk, precincts, gains_expn):
+def tile_component(tx0, ty0, tx1, ty1, dx, dy, levels, cblk, precincts, gains_expn, guard=GUARD_BITS):
     """Resolutions, bands, precincts and code-blocks of one
     tile-component: (x0, y0, x1, y1, [Resolution])."""
     tcx0, tcy0, tcx1, tcy1 = ceildiv(tx0, dx), ceildiv(ty0, dy), ceildiv(tx1, dx), ceildiv(ty1, dy)
@@ -519,7 +922,7 @@ def tile_component(tx0, ty0, tx1, ty1, dx, dy, levels, cblk, precincts, gains_ex
                 bx1 = ceilpow2(tcx1 - (xb << level), level + 1)
                 by1 = ceilpow2(tcy1 - (yb << level), level + 1)
             expn = gains_expn[bandno]
-            band = Band(bandno, bx0, by0, bx1, by1, expn + GUARD_BITS - 1)
+            band = Band(bandno, bx0, by0, bx1, by1, expn + guard - 1)
             band.step = step
             step += 1
             res.bands.append(band)
@@ -709,7 +1112,13 @@ def packet(states: list, layer: int, style: int):
             _passes_code(bits, new)
             if st.segmax[k] is None:
                 st.segmax[k] = []
-            pieces = _segments_of(style, st.sent[k], new, st.segmax[k])
+            if cb.block.ht_first is None:
+                pieces = _segments_of(style, st.sent[k], new, st.segmax[k])
+            elif st.sent[k] == 0:  # T.814: the cleanup segment, then the refinement segment
+                first = cb.block.ht_first
+                pieces = [first] + ([new - first] if new > first else [])
+            else:
+                pieces = [new]
             lengths, at = [], st.sent[k]
             for n in pieces:
                 lengths.append(cb.block.cuts[at + n] - cb.block.cuts[at])
@@ -863,9 +1272,11 @@ def components_of(pixels: np.ndarray, subsampling, offset):
 def encode(pixels, *, levels=5, cblk=(6, 6), precincts=None, layers=None, progression_order="LRCP", mct=False,
            tile=None, tile_offset=(0, 0), offset=(0, 0), tile_parts=1, style=0, sop=False, eph=False,
            headers=None, split=None, poc=None, tile_poc=None, subsampling=None, roi=None, roi_rect=None,
-           planes=None, nsop=None) -> bytes:
-    """A raw JPEG 2000 codestream of `pixels` ((h, w, c) uint8, c in 1..4;
-    subsampled components take the samples `components_of` picks).
+           planes=None, nsop=None, precision=8, irreversible=False, ht_passes=1, cap=True, placeholders=0,
+           guard=GUARD_BITS) -> bytes:
+    """A raw JPEG 2000 codestream of `pixels` ((h, w, c) uint8, or uint16
+    for `precision` above 8; c in 1..4; subsampled components take the
+    samples `components_of` picks).
 
     levels: decompositions; cblk: code-block width / height exponents;
     precincts: [(PPx, PPy)] per resolution (None: the maximum); layers:
@@ -880,7 +1291,17 @@ def encode(pixels, *, levels=5, cblk=(6, 6), precincts=None, layers=None, progre
     component; roi: {component: shift} (RGN, maxshift), scaling up the
     coefficients of `roi_rect` (x0, y0, x1, y1 on the image) or of the
     whole component; planes: the bit-plane below which passes are left out
-    (lossy); nsop: Nsop of each packet from its index (default the index).
+    (lossy); nsop: Nsop of each packet from its index (default the index);
+    precision: bits a sample; irreversible: the 9/7 wavelet (and the ICT
+    with `mct`), coefficients quantised with steps 2^-gain (guard bits
+    `guard`).
+
+    HTJ2K (ITU-T T.814): `style` with HT (0x40) codes every code-block with
+    the HT block coder (`encode_ht_block`): its cleanup pass at bit-plane
+    `planes` (default 0), with `ht_passes` 2 or 3 the SigProp and MagRef
+    passes below it, `placeholders` empty pass triples counted before the
+    cleanup pass; Rsiz bit 14 is set and, with `cap`, the CAP (Part 15
+    capabilities, MAGB) and CPF markers written.
     """
     pix = pixels[..., None] if pixels.ndim == 2 else pixels
     h, w, nc = pix.shape
@@ -898,16 +1319,21 @@ def encode(pixels, *, levels=5, cblk=(6, 6), precincts=None, layers=None, progre
     numlayers = len(layers) if layers else 1
     roi = roi or {}
     use_mct = bool(mct) and nc >= 3
-    gains = [8, 9, 9, 10]
-    prec = 8
-    siz = struct.pack(">HIIIIIIIIH", 0, x1, y1, x0, y0, tdx, tdy, tx0g, ty0g, nc)
+    prec = precision
+    gains = [prec, prec + 1, prec + 1, prec + 2]  # e_b: reversible, or 9/7 steps 2^(prec - e_b) = 2^-gain
+    ht = bool(style & HT)
+    siz = struct.pack(">HIIIIIIIIH", 0x4000 if ht else 0, x1, y1, x0, y0, tdx, tdy, tx0g, ty0g, nc)
     siz += b"".join(struct.pack(">BBB", prec - 1, dx, dy) for dx, dy in subsampling)
     scod = (1 if precincts != [(15, 15)] * numres else 0) | (2 if sop else 0) | (4 if eph else 0)
     cod = struct.pack(">BBHB", scod, ORDERS[progression_order], numlayers, int(use_mct))
-    cod += struct.pack(">BBBBB", levels, cblk[0] - 2, cblk[1] - 2, style, 1)
+    cod += struct.pack(">BBBBB", levels, cblk[0] - 2, cblk[1] - 2, style, 0 if irreversible else 1)
     if scod & 1:
         cod += bytes(ppx | ppy << 4 for ppx, ppy in precincts)
-    qcd = bytes([GUARD_BITS << 5]) + bytes(g << 3 for g in [gains[0]] + gains[1:] * levels)
+    expns = [gains[0]] + gains[1:] * levels
+    if irreversible:
+        qcd = bytes([guard << 5 | 2]) + b"".join(struct.pack(">H", g << 11) for g in expns)
+    else:
+        qcd = bytes([guard << 5]) + bytes(g << 3 for g in expns)
     room = 1 if nc <= 256 else 2
 
     def poc_body(entries):
@@ -917,7 +1343,13 @@ def encode(pixels, *, levels=5, cblk=(6, 6), precincts=None, layers=None, progre
             out += ce.to_bytes(room, "big") + struct.pack(">B", ORDERS[order] if isinstance(order, str) else order)
         return out
 
-    main = [(0xFF51, siz), (0xFF52, cod), (0xFF5C, qcd)]
+    main = [(0xFF51, siz)]
+    if ht and cap:
+        magb = max(gains) + guard - 1 - (planes or 0)
+        # Pcap: Part 15; Ccap15: HT code-blocks only, one HT set, MAGB (B = MAGB - 8 from 9 to 27)
+        main.append((0xFF50, struct.pack(">IH", 1 << 17, max(0, min(magb, 27) - 8))))
+        main.append((0xFF59, struct.pack(">H", 0)))  # CPF: Pcpf 0
+    main += [(0xFF52, cod), (0xFF5C, qcd)]
     for c, s in sorted(roi.items()):
         main.append((0xFF5E, c.to_bytes(room, "big") + bytes([0, s])))
     if poc:
@@ -925,6 +1357,7 @@ def encode(pixels, *, levels=5, cblk=(6, 6), precincts=None, layers=None, progre
 
     # components: DC shift, RCT
     samples = [p.astype(np.int64) - (1 << (prec - 1)) for p in planes_in]
+    steps = [2.0 ** -(g - prec) for g in gains]
     tiles_out = []
     for tno in range(tw * th):
         p, q = tno % tw, tno // tw
@@ -934,18 +1367,24 @@ def encode(pixels, *, levels=5, cblk=(6, 6), precincts=None, layers=None, progre
         coefs = []
         for c in range(nc):
             dx, dy = subsampling[c]
-            geo = tile_component(*t, dx, dy, levels, cblk, precincts, gains)
+            geo = tile_component(*t, dx, dy, levels, cblk, precincts, gains, guard)
             tcx0, tcy0, tcx1, tcy1, ress = geo
             cx0, cy0 = ceildiv(x0, dx), ceildiv(y0, dy)
             coefs.append(samples[c][tcy0 - cy0:tcy1 - cy0, tcx0 - cx0:tcx1 - cx0])
             comps.append((dx, dy, ress, geo))
         if use_mct and coefs[0].shape == coefs[1].shape == coefs[2].shape:  # else the flag alone
             r, g, b = coefs[0], coefs[1], coefs[2]
-            coefs[0], coefs[1], coefs[2] = np.floor_divide(r + 2 * g + b, 4), b - g, r - g
+            if irreversible:  # the ICT, in float64
+                r, g, b = r.astype(np.float64), g.astype(np.float64), b.astype(np.float64)
+                coefs[0] = 0.299 * r + 0.587 * g + 0.114 * b
+                coefs[1] = -0.16875 * r - 0.331260 * g + 0.5 * b
+                coefs[2] = 0.5 * r - 0.41869 * g - 0.08131 * b
+            else:
+                coefs[0], coefs[1], coefs[2] = np.floor_divide(r + 2 * g + b, 4), b - g, r - g
         states = {}
         for c in range(nc):
             dx, dy, ress, (tcx0, tcy0, tcx1, tcy1, _) = comps[c]
-            bands = forward_dwt(coefs[c], tcx0, tcy0, levels)
+            bands = forward_dwt(coefs[c], tcx0, tcy0, levels, irreversible)
             shift = roi.get(c, 0)
             for r, res in enumerate(ress):
                 arrays = [bands[0]] if r == 0 else list(bands[r])
@@ -953,6 +1392,8 @@ def encode(pixels, *, levels=5, cblk=(6, 6), precincts=None, layers=None, progre
                 for band, arr in zip(res.bands, arrays):
                     if band.empty():
                         continue
+                    if irreversible:  # dead-zone quantisation by the band's step
+                        arr = np.sign(arr) * np.floor(np.abs(arr) / steps[band.bandno])
                     arr = np.array(arr, np.int64)
                     if shift:
                         mask = np.ones(arr.shape, bool)
@@ -969,6 +1410,12 @@ def encode(pixels, *, levels=5, cblk=(6, 6), precincts=None, layers=None, progre
                     for pr in band.precincts:
                         for cb in pr.blocks:
                             sub = arr[cb.y0 - band.y0:cb.y1 - band.y0, cb.x0 - band.x0:cb.x1 - band.x0]
+                            if ht:
+                                cb.block = encode_ht_block(sub, planes or 0, ht_passes, style, placeholders)
+                                cb.band_numbps = band.numbps
+                                if int(np.abs(sub).max(initial=0)) >> band.numbps:
+                                    raise ValueError(f"coefficients past {band.numbps} bit-planes: more guard bits")
+                                continue
                             total = None
                             if planes is not None:
                                 k_total = int(np.abs(sub).max(initial=0)).bit_length()
@@ -1045,7 +1492,8 @@ def encode(pixels, *, levels=5, cblk=(6, 6), precincts=None, layers=None, progre
                     bodies.append(bytearray())
                 bodies[-1].append(chunk[at])
         ppm = [(0xFF60, bytes([z]) + bytes(b)) for z, b in enumerate(bodies)]
-        main = main[:3] + ppm + main[3:]
+        at = [m for m, _ in main].index(0xFF5C) + 1
+        main = main[:at] + ppm + main[at:]
     out = b"\xff\x4f" + b"".join(_segment(m, b) for m, b in main)
     for tno, k, n, markers, data in out_parts:
         hdr = b"".join(_segment(m, b) for m, b in markers)
