@@ -124,7 +124,11 @@ Phases (any failure exits non-zero; none is caught and passed over):
      1920x1080 HTJ2K codestream (tests/fixtures/torch_htj2k/
      ortho_ht_1920x1080.j2k, the test-side encoder's: RPCL, 64x64 HT
      code-blocks, cleanup passes; its own picture, PIL's committed
-     SHA-256), named so in images.bin, the 2 test views as PNG. The port's readers must give
+     SHA-256) and view_14 as a 1920x1080 JPEG 2000 Part 2 codestream of
+     20-bit RGB samples (tests/fixtures/torch_jp2_part2/
+     ortho_part2_1920x1080.j2k: 9/7 with the ICT, Rsiz bit 15, a CBD, an
+     MCT offset array through an MCC and an MCO; its own picture, PIL's
+     committed SHA-256), named so in images.bin, the 2 test views as PNG. The port's readers must give
      back every camera (R, T within 1e-12), every PNG, TIFF, BMP, WebP,
      PPM and TGA pixel and each JPEG and JPEG-in-TIFF view within 30 dB
      PSNR of its render; the two damaged views decoded by the compiled decoder (the
@@ -164,9 +168,10 @@ Phases (any failure exits non-zero; none is caught and passed over):
      tests/fixtures/torch_jp2_part1 (all six code-block styles, SOP, EPH,
      a two-entry POC, RCT, 2 layers, lossy by truncation: the form
      `opj_compress -SOP -EPH -M 63 -POC` writes) and the 1920x1080 HTJ2K
-     codestream the mode, shape and SHA-256 of PIL's pixels committed
-     beside them (sha256.json), and where this machine has PIL, PIL's own
-     decode of those five timed beside the port's (a comparison only);
+     codestream and the 1920x1080 Part 2 codestream of 20-bit samples the
+     mode, shape and SHA-256 of PIL's pixels committed beside them
+     (sha256.json), and where this machine has PIL, PIL's own decode of
+     those six timed beside the port's (a comparison only);
      every small file of tests/fixtures/torch_jp2
      (each option of PIL's JPEG 2000 writer, box-edited JP2s) and of
      tests/fixtures/torch_jp2_part1 (SOP / EPH, PPM, PPT, POC in the main
@@ -175,9 +180,13 @@ Phases (any failure exits non-zero; none is caught and passed over):
      two codestreams) and of tests/fixtures/torch_htj2k (HT cleanup,
      SigProp and MagRef passes, 5/3 and 9/7, grey, I;16, RGBA, tiles with
      precincts, RPCL and a POC, two layers, 4:2:0 sYCC, CAP / CPF edits,
-     the 800x800 RGBA HT frame) PIL's mode, pixel and RGBA SHA-256, or a
-     raise naming the file where PIL raises (MIXED code-blocks, a CAP in a
-     tile-part header); and every file of
+     the 800x800 RGBA HT frame) and of tests/fixtures/torch_jp2_part2
+     (Rsiz bit 15, MCO, MCT / MCC / MCO offset arrays in either header, a
+     CBD, NLT / ATK / 0xFF7A-0xFF7D skipped, 17- to 31-bit samples signed
+     and unsigned, 5/3 and 9/7, MQ and HT, the 800x800 RGBA Part 2 frame)
+     PIL's mode, pixel and RGBA SHA-256, or a raise naming the file where
+     PIL raises (MIXED code-blocks, a CAP in a tile-part header, a CBD or
+     MCO of a wrong length, SGcod MCT 2, five components); and every file of
      tests/fixtures/torch_images (BMP, TIFF, CMYK and YCCK JPEG, WebP lossy,
      with alpha, lossless and animated, GIF), torch_ppm_tga (PPM, PGM, PBM,
      PFM, TGA) and torch_tiff_jpeg (small JPEG-in-TIFFs, strips and tiles)
@@ -234,7 +243,10 @@ Phases (any failure exits non-zero; none is caught and passed over):
      as an RGBA JPEG 2000 (the PIL-written 800x800 9/7 frame of
      tests/fixtures/torch_jp2, whose RGBA must give PIL's committed
      SHA-256), frame 10 as an RGBA HTJ2K JP2 (the 800x800 HT frame of
-     tests/fixtures/torch_htj2k, held the same way), frame 13
+     tests/fixtures/torch_htj2k, held the same way), frame 12 as an RGBA
+     JPEG 2000 Part 2 JP2 (the 800x800 frame of
+     tests/fixtures/torch_jp2_part2: Rsiz bit 15, a CBD, an MCT / MCC /
+     MCO in its tile-part header; held the same way), frame 13
      as a 32-bit BI_BITFIELDS BMP with an alpha mask and frame 15 as an
      interlaced palette GIF (4 levels a channel, alpha below 128 the
      transparency index), each file named r_<i>.png as the transforms
@@ -454,6 +466,10 @@ CLI_JP2_VIEW = 12
 # and one in the form OpenJPH writes and archives adopt: an HTJ2K codestream
 # (the committed 1080p fixture of the test-side encoder, its own picture)
 CLI_HT_VIEW = 13
+# and one in the form of Part 2 encoders and deep scientific pipelines: a
+# JPEG 2000 Part 2 codestream of 20-bit RGB samples (the committed 1080p
+# fixture, its own picture)
+CLI_PART2_VIEW = 14
 TIFF_FORMS_FIXTURES = os.path.join(FIXTURES, "torch_tiff_forms")  # PIL-written ZSTD / LZMA, and PIL's hashes
 JP2_FIXTURES = os.path.join(FIXTURES, "torch_jp2")  # PIL-written JPEG 2000 files and PIL's hashes
 JP2_VIEW, JP2_FRAME = "ortho_97_rpcl_1920x1080.jp2", "frame_rgba_97_800x800.jp2"
@@ -464,6 +480,9 @@ JP2_PART1_LARGE = "ortho_part1_1920x1080.j2k"  # decoded and timed at full size
 # HTJ2K (JPEG 2000 Part 15) files of the test-side encoder, and PIL's readings
 HT_FIXTURES = os.path.join(FIXTURES, "torch_htj2k")
 HT_VIEW, HT_FRAME = "ortho_ht_1920x1080.j2k", "frame_rgba_ht_800x800.jp2"  # the 1080p one decoded and timed
+# JPEG 2000 Part 2 (MCT / MCC / MCO, CBD, skipped markers) and 17- to 31-bit files, and PIL's readings
+PART2_FIXTURES = os.path.join(FIXTURES, "torch_jp2_part2")
+PART2_VIEW, PART2_FRAME = "ortho_part2_1920x1080.j2k", "frame_rgba_part2_800x800.jp2"  # the 1080p one timed
 WEBP_FIXTURES = os.path.join(FIXTURES, "torch_webp")  # 1080p files and the SHA-256 of PIL's pixels
 TIFF_JPEG_FIXTURES = os.path.join(FIXTURES, "torch_tiff_jpeg")  # a PIL-written 1080p file and its SHA-256
 PPM_TGA_FIXTURES = os.path.join(FIXTURES, "torch_ppm_tga")
@@ -492,7 +511,7 @@ BLENDER_FLAGS = ["--white_background", "--eval", "--iterations", str(BLENDER_STE
 BLENDER_FORMS = {1: "16-bit RGBA", 2: "32-bit RLE TGA with alpha", 3: "palette + tRNS", 4: "16-bit P6",
                  5: "Adam7 RGBA", 6: "16-bit planar RGBA TIFF", 7: "grey + alpha", 8: "RGBA JPEG 2000",
                  9: "RGB + tRNS colour", 10: "RGBA HTJ2K",
-                 11: "CMYK JPEG",
+                 11: "CMYK JPEG", 12: "RGBA JPEG 2000 Part 2",
                  13: "32-bit BMP with alpha", 15: "palette GIF + transparency"}
 
 SUM_K = (1_900_544, 1_339_001)  # the profiler's capacity at its defaults, and an odd K
@@ -1771,9 +1790,10 @@ def train_view_files(data, cams, images, test_names):
     CLI_TGA_VIEW as a 32-bit RLE TGA (alpha 255), CLI_JPEG_TIFF_VIEW as
     a JPEG-in-TIFF, CLI_YCBCR_VIEW as a YCbCr JPEG-in-TIFF,
     CLI_PLANAR_VIEW as a planar LZMA BigTIFF, CLI_JP2_VIEW as the
-    committed 1080p JPEG 2000 fixture and CLI_HT_VIEW as the committed
-    1080p HTJ2K codestream, and images.bin to name them; the test views
-    stay PNG.
+    committed 1080p JPEG 2000 fixture, CLI_HT_VIEW as the committed
+    1080p HTJ2K codestream and CLI_PART2_VIEW as the committed 1080p Part
+    2 codestream of 20-bit samples, and images.bin to name them; the test
+    views stay PNG.
     Returns each view's file name and the JPEG encode ms."""
     images_bin = os.path.join(data, "sparse", "0", "images.bin")
     records = colmap.read_images_binary(images_bin)
@@ -1809,6 +1829,10 @@ def train_view_files(data, cams, images, test_names):
             name = f"{cam.image_name}.j2k"
             with open(os.path.join(HT_FIXTURES, HT_VIEW), "rb") as f:
                 body = f.read()
+        elif i == CLI_PART2_VIEW:
+            name = f"{cam.image_name}.j2k"
+            with open(os.path.join(PART2_FIXTURES, PART2_VIEW), "rb") as f:
+                body = f.read()
         else:
             restart = -(-W_MAIN // 16) if i == CLI_RESTART_VIEW else 0  # MCUs in a row
             t0 = time.perf_counter()
@@ -1840,7 +1864,8 @@ def pil_jp2_ms() -> str:
 
     ms = {}
     for path in [os.path.join(JP2_FIXTURES, name) for name in JP2_LARGE] + [
-            os.path.join(JP2_PART1_FIXTURES, JP2_PART1_LARGE), os.path.join(HT_FIXTURES, HT_VIEW)]:
+            os.path.join(JP2_PART1_FIXTURES, JP2_PART1_LARGE), os.path.join(HT_FIXTURES, HT_VIEW),
+            os.path.join(PART2_FIXTURES, PART2_VIEW)]:
         times = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -1863,6 +1888,14 @@ def jp2_readings() -> dict:
 def jp2_part1_readings() -> dict:
     """PIL's reading of each tests/fixtures/torch_jp2_part1 file (sha256.json)."""
     with open(os.path.join(JP2_PART1_FIXTURES, "sha256.json")) as f:
+        return json.load(f)
+
+
+@functools.cache
+def part2_readings() -> dict:
+    """PIL's reading of each tests/fixtures/torch_jp2_part2 file
+    (sha256.json; `raises` where PIL raises)."""
+    with open(os.path.join(PART2_FIXTURES, "sha256.json")) as f:
         return json.load(f)
 
 
@@ -2034,6 +2067,7 @@ def check_image_forms(tmp, px):
     readings.update({os.path.join(JP2_FIXTURES, k): jp2_readings()[k] for k in JP2_LARGE})
     readings[os.path.join(JP2_PART1_FIXTURES, JP2_PART1_LARGE)] = jp2_part1_readings()[JP2_PART1_LARGE]
     readings[os.path.join(HT_FIXTURES, HT_VIEW)] = ht_readings()[HT_VIEW]
+    readings[os.path.join(PART2_FIXTURES, PART2_VIEW)] = part2_readings()[PART2_VIEW]
     made = form_files()  # the GIS forms this script writes, PIL's reading of each committed
     for path, want in readings.items():
         name = os.path.basename(path)
@@ -2074,6 +2108,8 @@ def check_image_forms(tmp, px):
     small_jp2 += [(JP2_PART1_FIXTURES, name, jp2_part1_readings()[name])
                   for name in sorted(set(jp2_part1_readings()) - {JP2_PART1_LARGE})]
     small_jp2 += [(HT_FIXTURES, name, ht_readings()[name]) for name in sorted(set(ht_readings()) - {HT_VIEW})]
+    small_jp2 += [(PART2_FIXTURES, name, part2_readings()[name])
+                  for name in sorted(set(part2_readings()) - {PART2_VIEW})]
     for folder, name, want in small_jp2:
         if want.get("raises"):  # PIL raises: the port raises a ValueError naming the file
             try:
@@ -2095,10 +2131,12 @@ def check_image_forms(tmp, px):
           + f" dB PSNR from PIL's CMYK of the samples written and from the view (JPEG-in-TIFF bit-equal to "
           f"its strips and tiles read alone); {len(readings)} 1080p WebP, JPEG-in-TIFF, ZSTD, LZMA, planar, "
           f"BigTIFF and JPEG 2000 files (the 800x800 RGBA JPEG 2000 frame, the Part 1 codestream with "
-          f"every code-block style, SOP, EPH and a POC, and the HTJ2K codestream too) give PIL's committed "
-          f"SHA-256; {len(small_jp2)} small JPEG 2000 files of {os.path.relpath(JP2_FIXTURES, ROOT)}, "
-          f"{os.path.relpath(JP2_PART1_FIXTURES, ROOT)} and {os.path.relpath(HT_FIXTURES, ROOT)} (HTJ2K, "
-          f"the HT frame too) PIL's mode, pixels and RGBA, or a raise where PIL raises; {pil_jp2}; "
+          f"every code-block style, SOP, EPH and a POC, the HTJ2K codestream and the 20-bit Part 2 codestream "
+          f"too) give PIL's committed SHA-256; {len(small_jp2)} small JPEG 2000 files of "
+          f"{os.path.relpath(JP2_FIXTURES, ROOT)}, {os.path.relpath(JP2_PART1_FIXTURES, ROOT)}, "
+          f"{os.path.relpath(HT_FIXTURES, ROOT)} (HTJ2K, the HT frame too) and "
+          f"{os.path.relpath(PART2_FIXTURES, ROOT)} (Part 2 and 17- to 31-bit, the Part 2 frame too) PIL's mode, "
+          f"pixels and RGBA, or a raise where PIL raises; {pil_jp2}; "
           + ", ".join(f"{len(v)} {os.path.relpath(k, ROOT)}" for k, v in names.items())
           + " files give PIL's committed mode, pixels and RGBA")
 
@@ -2223,6 +2261,14 @@ def _cli_phase(dev, tmp):
                 fail(f"cli path: the HTJ2K view {got.image_path} reads as {pic.mode} {pic.pixels.shape}, "
                      f"not PIL's committed {want['mode']} {want['shape']} pixels")
             continue
+        if cam.image_name == names[CLI_PART2_VIEW]:  # the Part 2 fixture's picture: PIL's committed hash
+            pic, part2_view_ms = synced_ms(image_io.open_image, got.image_path)
+            want = part2_readings()[PART2_VIEW]
+            if (pic.mode, list(pic.pixels.shape), sha256_of(pic.pixels)) != (want["mode"], want["shape"],
+                                                                             want["sha256"]):
+                fail(f"cli path: the Part 2 view {got.image_path} reads as {pic.mode} {pic.pixels.shape}, "
+                     f"not PIL's committed {want['mode']} {want['shape']} pixels")
+            continue
         lossy = got.image_path.endswith(".jpg") or cam.image_name in (names[CLI_JPEG_TIFF_VIEW],
                                                                       names[CLI_YCBCR_VIEW])
         if not lossy:  # the TIFF (planar BigTIFF included), BMP, WebP, PPM and TGA views
@@ -2270,7 +2316,9 @@ def _cli_phase(dev, tmp):
           f"as a BigTIFF of LZMA planes, {files[names[CLI_JP2_VIEW]]} as a 9/7 tiled RPCL JPEG 2000 (PIL's "
           f"committed pixels, decode {jp2_view_ms:.1f} ms), {files[names[CLI_HT_VIEW]]} as an HTJ2K "
           f"codestream (RPCL, 64x64 HT code-blocks, cleanup passes; PIL's committed pixels, decode "
-          f"{ht_view_ms:.1f} ms), {len(decode_ms)} test views as PNG; "
+          f"{ht_view_ms:.1f} ms), {files[names[CLI_PART2_VIEW]]} as a JPEG 2000 Part 2 codestream of 20-bit RGB "
+          f"(9/7, MCT / MCC / MCO offsets, CBD; PIL's committed pixels, decode {part2_view_ms:.1f} ms), "
+          f"{len(decode_ms)} test views as PNG; "
           f"cameras within 1e-12, PNG, TIFF, BMP, WebP, PPM and TGA pixels bit-equal (decode "
           + ", ".join(f"{k} {v:.1f} ms" for k, v in lossless_ms.items())
           + f"), JPEG views {min(psnr):.2f}-{max(psnr):.2f} dB PSNR from their renders through the port's "
@@ -2324,8 +2372,9 @@ def _cli_phase(dev, tmp):
     if scene_load.s is None:
         fail("cli path: the train CLI made no Scene")
     print(f"  train CLI: {CLI_STEPS} steps, {n_train} train and {n_test} test views, wall "
-          f"{train_s:.2f} s (scene load {scene_load.s:.2f} s: {n_train - 10} JPEG, 1 TIFF, 1 BMP, 1 WebP, 1 P6, "
-          f"1 RLE TGA, 1 JPEG-in-TIFF, 1 YCbCr JPEG-in-TIFF, 1 planar LZMA BigTIFF, 1 JPEG 2000, 1 HTJ2K and "
+          f"{train_s:.2f} s (scene load {scene_load.s:.2f} s: {n_train - 11} JPEG, 1 TIFF, 1 BMP, 1 WebP, 1 P6, "
+          f"1 RLE TGA, 1 JPEG-in-TIFF, 1 YCbCr JPEG-in-TIFF, 1 planar LZMA BigTIFF, 1 JPEG 2000, 1 HTJ2K, "
+          f"1 JPEG 2000 Part 2 and "
           f"{n_test} PNG views decoded), step median {np.median(step_ms):.3f} ms, p80 "
           f"{np.percentile(step_ms, 80):.3f} ms (its iter_time_ms, host clock, deferred "
           f"maintenance excluded); loss first 20 {first20:.6f}, last 20 {last20:.6f}; "
@@ -2442,7 +2491,8 @@ def blender_frame(rgba, form, seed):
     transparency index, a TGA's BGRA, a 16-bit P6's round(v / 65535 * 255)
     (its colour, which has no alpha, opaque), a 16-bit planar RGBA TIFF's
     high bytes. An RGBA JPEG 2000 is the committed 800x800 frame, an RGBA
-    HTJ2K the committed 800x800 HT frame (each one's RGBA is held to PIL's
+    HTJ2K the committed 800x800 HT frame, an RGBA JPEG 2000 Part 2 the
+    committed 800x800 Part 2 frame (each one's RGBA is held to PIL's
     committed SHA-256: the second value is None). A CMYK JPEG (Adobe transform 0, of the
     frame composited on white, which it has no alpha for) is lossy: for it
     the second value is PIL's CMYK of the samples written (`cmyk_of`)."""
@@ -2453,6 +2503,9 @@ def blender_frame(rgba, form, seed):
             return f.read(), None
     if form == "RGBA HTJ2K":  # the committed HT frame, the same way
         with open(os.path.join(HT_FIXTURES, HT_FRAME), "rb") as f:
+            return f.read(), None
+    if form == "RGBA JPEG 2000 Part 2":  # the committed Part 2 frame, the same way
+        with open(os.path.join(PART2_FIXTURES, PART2_FRAME), "rb") as f:
             return f.read(), None
     if form == "CMYK JPEG":
         a = rgba[..., 3:].astype(np.int64)
@@ -2586,9 +2639,10 @@ def _blender_phase(dev, tmp):
                      f"written, or to_rgba is not PIL's cmyk2rgb")
             read_ms.setdefault(f"{form} ({psnr_:.2f} dB)", []).append(ms)
             continue
-        if form in ("RGBA JPEG 2000", "RGBA HTJ2K"):
+        if form in ("RGBA JPEG 2000", "RGBA HTJ2K", "RGBA JPEG 2000 Part 2"):
             got, ms = synced_ms(lambda p: image_io.to_rgba(image_io.open_image(p)), path)
-            want = jp2_readings()[JP2_FRAME] if form == "RGBA JPEG 2000" else ht_readings()[HT_FRAME]
+            want = {"RGBA JPEG 2000": jp2_readings()[JP2_FRAME], "RGBA HTJ2K": ht_readings()[HT_FRAME],
+                    "RGBA JPEG 2000 Part 2": part2_readings()[PART2_FRAME]}[form]
             if (list(got.shape), sha256_of(got)) != (want["shape"], want["rgba_sha256"]):
                 fail(f"blender path: {path} ({form}) reads otherwise than PIL's committed RGBA")
             read_ms.setdefault(form, []).append(ms)
@@ -2634,7 +2688,7 @@ def _blender_phase(dev, tmp):
     print(f"  train CLI: {BLENDER_STEPS} steps from {len(init)} random points in [-1.3, 1.3]^3, white "
           f"background {white}, wall {train_s:.2f} s (scene load {scene_load.s:.2f} s: "
           f"{BLENDER_TRAIN + BLENDER_TEST} frames decoded (PNG, a CMYK JPEG, a BMP, a GIF, a TGA, a P6, a planar "
-          f"TIFF, a JPEG 2000, an HTJ2K JP2) and "
+          f"TIFF, a JPEG 2000, an HTJ2K JP2, a Part 2 JP2) and "
           f"composited), step median "
           f"{np.median(step_ms):.3f} ms, p80 {np.percentile(step_ms, 80):.3f} ms (its iter_time_ms, "
           f"host clock); loss first 20 {first20:.6f}, last 20 {last20:.6f}; "

@@ -1,4 +1,5 @@
-// JPEG 2000 Part 1 and HTJ2K (Part 15) decoding for the dataset readers:
+// JPEG 2000 decoding for the dataset readers (Part 1, HTJ2K (Part 15) and
+// the Part 2 markers OpenJPEG reads):
 // host C++, built with the host compiler by utils/cuda_build.py at first
 // use and loaded with ctypes (utils/jp2.py parses the JP2 boxes and calls
 // it).
@@ -8,12 +9,16 @@
 // opj_decode_tile_data, so no JP2 colour box is applied), and unpacks
 // each tile with its own j2ku_* routines. This decoder follows that path:
 //
-//   - the codestream: SIZ, CAP and CPF (HTJ2K's: read and ignored, as
-//     OpenJPEG does), COD, COC, QCD, QCC, RGN, POC (a tile's entries
-//     added to the main header's, as opj_j2k_read_poc does), PPM, PPT (merged
-//     as opj_j2k_merge_ppm / _ppt do), COM, TLM, PLM, PLT, CRG (skipped),
-//     unknown main-header markers (opj_j2k_read_unk: skipped two bytes at a
-//     time to the next known marker), SOT with tile-parts, SOD, EOC, with
+//   - the codestream: SIZ (any Rsiz, 1 to 31 bits a sample), CAP and CPF
+//     (HTJ2K's: read and ignored, as OpenJPEG does), COD, COC, QCD, QCC,
+//     RGN, POC (a tile's entries added to the main header's, as
+//     opj_j2k_read_poc does), PPM, PPT (merged as opj_j2k_merge_ppm / _ppt
+//     do), COM, TLM, PLM, PLT, CRG (skipped), Part 2's MCT, MCC, MCO and CBD
+//     as OpenJPEG 2.5 reads them (`read_mct` and on: what they change is
+//     the DC level shift and, by CBD, each component's precision and sign),
+//     unknown main-header markers, the other Part 2 markers among them
+//     (opj_j2k_read_unk: skipped two bytes at a time to the next known
+//     marker), SOT with tile-parts, SOD, EOC, with
 //     OpenJPEG's checks in strict mode (a tile-part running past the file,
 //     or a stream without EOC, fails, as PIL does); tiles decoded in the
 //     order their last tile-part completes them;
@@ -42,18 +47,20 @@
 //     path's float value times 0.5 * stepsize, OpenJPEG's stepsize with no
 //     band gain), the inverse 5/3 in integers and 9/7 in float with
 //     OpenJPEG's constants, its 2/K high-pass scale and its step order, the
-//     RCT or ICT, the DC level shift with lrintf and the clamp;
+//     RCT or ICT (OpenJPEG never applies a Part 2 decorrelation matrix:
+//     its COD allows no MCT above 1), the DC level shift (1 << (prec - 1),
+//     or what an MCO sets) with lrintf and the clamp;
 //   - the inverse transforms up to the highest resolution a packet was read
 //     for (OpenJPEG's resno_decoded), opj_tcd_update_tile_data's packing (1,
-//     2 or 4 bytes a sample, each component at its own size) into PIL's
-//     buffer, zeroed for each tile, and PIL's unpackers for its modes L, P,
-//     PA, I;16, LA, RGB, RGBA and CMYK: subsampled components by PIL's
-//     strides (w / dx, h / dy), sYCC guessed where the colour space is
-//     unspecified and component 1 or 2 is subsampled.
+//     2 or 4 bytes a sample, 17 to 31 bits taking 4, each component at its
+//     own size) into PIL's buffer, zeroed for each tile, and PIL's
+//     unpackers for its modes L, P, PA, I;16, LA, RGB, RGBA and CMYK:
+//     subsampled components by PIL's strides (w / dx, h / dy), sYCC
+//     guessed where the colour space is unspecified and component 1 or 2
+//     is subsampled, samples above 8 (or 16) bits rounded and shifted down
+//     as PIL does.
 //
-// Features PIL reads that the port does not are refused by name (the
-// message starts with "refused: "): precision above 16 bits, more than 4
-// components, Part 2 extensions.
+// Where PIL fails on a file this fails too; it refuses nothing else.
 //
 // Floating-point contraction is off for this file: OpenJPEG's 9/7 and ICT
 // arithmetic rounds every multiply and add on its own.
@@ -86,7 +93,6 @@ struct Error {
 };
 
 [[noreturn]] void fail(const std::string& msg) { throw Error{msg}; }
-[[noreturn]] void refuse(const std::string& what) { throw Error{"refused: " + what}; }
 
 std::string fmt(const char* f, long long a = 0, long long b = 0, long long c = 0) {
   char buf[256];
@@ -110,12 +116,8 @@ enum Marker : uint32_t {
   SOC = 0xff4f, CAP = 0xff50, SIZ = 0xff51, COD = 0xff52, COC = 0xff53, TLM = 0xff55, PLM = 0xff57,
   PLT = 0xff58, CPF = 0xff59, QCD = 0xff5c, QCC = 0xff5d, RGN = 0xff5e, POC = 0xff5f, PPM = 0xff60,
   PPT = 0xff61, CRG = 0xff63, COM = 0xff64, SOT = 0xff90, SOP = 0xff91, EPH = 0xff92, SOD = 0xff93,
-  EOC = 0xffd9,
+  EOC = 0xffd9, MCT = 0xff74, MCC = 0xff75, MCO = 0xff77, CBD = 0xff78,
 };
-
-bool part2_marker(uint32_t m) {  // CBD, MCT, MCC, MCO, NLT, ATK, DCO, ADS...
-  return (m >= 0xff70 && m <= 0xff7f) || m == 0xff5a || m == 0xff5b;
-}
 
 // ---- headers ----
 
@@ -128,6 +130,7 @@ struct Tccp {
   int prcw[33] = {}, prch[33] = {};
   int qntsty = 0, numgbits = 0;
   StepSize steps[97];
+  int32_t dc_shift = 0;  // m_dc_level_shift: 1 << (prec - 1) for an unsigned component at SIZ, or an MCO's
 };
 
 struct Poc {
@@ -147,9 +150,24 @@ struct Packed {
   }
 };
 
+// Part 2's multiple component transform records as OpenJPEG keeps them
+// (opj_mct_data_t, opj_simple_mcc_decorrelation_data_t): an MCT's array
+// (empty where OpenJPEG holds none), an MCC's arrays by their place in the
+// MCT list (-1: none).
+struct MctRecord {
+  int index = 0, element = 0;  // Imct's low byte; element type 0 int16, 1 int32, 2 float32, 3 float64
+  std::vector<uint8_t> data;
+};
+
+struct MccRecord {
+  int index = 0, nb_comps = 0, deco = -1, offset = -1;
+};
+
 struct Tcp {
   int csty = 0, prg = 0, numlayers = 0, mct = 0;
   std::vector<Tccp> tccps;
+  std::vector<MctRecord> mcts;
+  std::vector<MccRecord> mccs;
   bool poc = false;
   std::vector<Poc> pocs;
   Packed ppt;
@@ -181,7 +199,6 @@ void read_siz(Codestream& cs, const uint8_t* s, int64_t len, int64_t ihdr_w, int
   if (len < 36) fail("Error with SIZ marker size");
   int64_t rem = len - 36;
   if (rem / 3 > 16384 || rem % 3) fail("Error with SIZ marker size");
-  uint32_t rsiz = be16(s);
   cs.x1 = be32(s + 2), cs.y1 = be32(s + 6), cs.x0 = be32(s + 10), cs.y0 = be32(s + 14);
   cs.tdx = be32(s + 18), cs.tdy = be32(s + 22), cs.tx0 = be32(s + 26), cs.ty0 = be32(s + 30);
   int64_t n = be16(s + 34);
@@ -203,10 +220,9 @@ void read_siz(Codestream& cs, const uint8_t* s, int64_t len, int64_t ihdr_w, int
   int64_t tw = ceildiv(cs.x1 - cs.tx0, cs.tdx), th = ceildiv(cs.y1 - cs.ty0, cs.tdy);
   if (tw == 0 || th == 0 || tw > 65535 / th) fail("Invalid number of tiles");
   cs.tw = int(tw), cs.th = int(th);
-  if (rsiz & 0x8000) refuse("Part 2 extensions (Rsiz bit 15)");
-  if (n > 4) refuse(fmt("more than 4 components (%lld)", n));
-  for (const Comp& c : cs.comps)
-    if (c.prec > 16) refuse(fmt("precision above 16 bits (%lld)", c.prec));
+  cs.deflt.tccps.assign(size_t(n), Tccp());
+  for (int64_t i = 0; i < n; i++)  // "set up default dc level shift"
+    if (!cs.comps[i].sgnd) cs.deflt.tccps[i].dc_shift = int32_t(1u << (cs.comps[i].prec - 1));
 }
 
 // SPcod / SPcoc into one component's parameters; returns the bytes read
@@ -337,6 +353,149 @@ void read_poc(Tcp& tcp, const uint8_t* p, int64_t len, size_t ncomp) {  // opj_j
   }
 }
 
+// ---- Part 2: MCT, MCC, MCO, CBD, as OpenJPEG 2.5 reads them ----
+//
+// OpenJPEG reads one transform stage of one collection of array
+// decorrelation (no shuffled components), and what it keeps of it is the
+// offset array, which becomes the components' DC level shift; a record it
+// cannot take is passed over with a warning (the `return`s below), a
+// malformed one fails the file (the `fail`s).
+
+// opj_j2k_read_mct
+void read_mct(Tcp& tcp, const uint8_t* p, int64_t len) {
+  if (len < 2) fail("Error reading MCT marker");
+  if (be16(p) != 0) return;  // Zmct: "Cannot take in charge mct data within multiple MCT records"
+  if (len <= 6) fail("Error reading MCT marker");
+  uint32_t imct = be16(p + 2);
+  int index = int(imct & 0xff);
+  size_t k = 0;
+  while (k < tcp.mcts.size() && tcp.mcts[k].index != index) k++;
+  if (k == tcp.mcts.size()) tcp.mcts.emplace_back();
+  MctRecord& rec = tcp.mcts[k];
+  rec.data.clear();
+  rec.index = index, rec.element = int((imct >> 10) & 3);
+  if (be16(p + 4) != 0) return;  // Ymct: "Cannot take in charge multiple MCT markers" (the record keeps no data)
+  rec.data.assign(p + 6, p + len);
+}
+
+int find_mct(const Tcp& tcp, int index) {
+  for (size_t k = 0; k < tcp.mcts.size(); k++)
+    if (tcp.mcts[k].index == index) return int(k);
+  fail("Error reading MCC marker");
+}
+
+// opj_j2k_read_mcc: a new record counts once it is read to its end; one
+// read again is changed in place as far as the read goes
+void read_mcc(Tcp& tcp, const uint8_t* p, int64_t len) {
+  if (len < 2) fail("Error reading MCC marker");
+  if (be16(p) != 0) return;  // Zmcc: "Cannot take in charge multiple data spanning"
+  if (len < 7) fail("Error reading MCC marker");
+  int index = p[2];
+  size_t k = 0;
+  while (k < tcp.mccs.size() && tcp.mccs[k].index != index) k++;
+  MccRecord fresh;
+  MccRecord& rec = k < tcp.mccs.size() ? tcp.mccs[k] : fresh;
+  rec.index = index;
+  if (be16(p + 3) != 0) return;  // Ymcc
+  uint32_t collections = be16(p + 5);
+  if (collections > 1) return;  // "Cannot take in charge multiple collections"
+  const uint8_t* q = p + 7;
+  int64_t size = len - 7;
+  auto read = [&](int bytes) {
+    uint32_t v = bytes == 1 ? q[0] : be16(q);
+    q += bytes;
+    return v;
+  };
+  for (uint32_t i = 0; i < collections; i++) {
+    if (size < 3) fail("Error reading MCC marker");
+    if (*q++ != 1) return;  // Xmcc: "Cannot take in charge collections other than array decorrelation"
+    uint32_t n = be16(q);
+    q += 2, size -= 3;
+    int bytes = 1 + int(n >> 15);
+    rec.nb_comps = int(n & 0x7fff);
+    if (size < int64_t(bytes) * rec.nb_comps + 2) fail("Error reading MCC marker");
+    size -= int64_t(bytes) * rec.nb_comps + 2;
+    for (int j = 0; j < rec.nb_comps; j++)
+      if (read(bytes) != uint32_t(j)) return;  // "Cannot take in charge collections with indix shuffle"
+    n = be16(q);
+    q += 2;
+    bytes = 1 + int(n >> 15);
+    if (int(n & 0x7fff) != rec.nb_comps) return;  // "... without same number of indixes"
+    if (size < int64_t(bytes) * rec.nb_comps + 3) fail("Error reading MCC marker");
+    size -= int64_t(bytes) * rec.nb_comps + 3;
+    for (int j = 0; j < rec.nb_comps; j++)
+      if (read(bytes) != uint32_t(j)) return;
+    uint32_t t = uint32_t(q[0]) << 16 | be16(q + 1);  // Tmcc: reversibility, offset and decorrelation records
+    q += 3;
+    rec.deco = rec.offset = -1;
+    if (t & 0xff) rec.deco = find_mct(tcp, int(t & 0xff));
+    if ((t >> 8) & 0xff) rec.offset = find_mct(tcp, int((t >> 8) & 0xff));
+  }
+  if (size != 0) fail("Error reading MCC marker");
+  if (&rec == &fresh) tcp.mccs.push_back(fresh);
+}
+
+// An element of an MCT array as int32, as OpenJPEG's j2k_mct_read_functions_to_int32 convert it on x86-64:
+// int16 is read unsigned, int32 wraps, floats truncate (outside int32, and NaN, give INT32_MIN)
+int32_t mct_element(const uint8_t* p, int element) {
+  double v;
+  if (element == 0) return int32_t(be16(p));
+  if (element == 1) return int32_t(be32(p));
+  if (element == 2) {
+    uint32_t bits = be32(p);
+    float f;
+    memcpy(&f, &bits, 4);
+    v = f;
+  } else {
+    uint64_t bits = uint64_t(be32(p)) << 32 | be32(p + 4);
+    memcpy(&v, &bits, 8);
+  }
+  return v > -2147483649.0 && v < 2147483648.0 ? int32_t(v) : INT32_MIN;
+}
+
+// opj_j2k_add_mct: the MCC named by an MCO stage. OpenJPEG's search looks
+// at the first record only (its loop never moves on), so only that one is
+// ever applied; its offset array becomes the DC level shift.
+void add_mct(Tcp& tcp, int index, size_t ncomp) {
+  static const size_t element_size[4] = {2, 4, 4, 8};
+  if (tcp.mccs.empty() || tcp.mccs[0].index != index) return;  // "element discarded"
+  const MccRecord& rec = tcp.mccs[0];
+  if (size_t(rec.nb_comps) != ncomp) return;
+  if (rec.deco >= 0) {  // read into a matrix that only an MCT of 2 in COD would use, which OpenJPEG refuses
+    const MctRecord& d = tcp.mcts[rec.deco];
+    if (d.data.size() != element_size[d.element] * ncomp * ncomp)
+      fail("Error reading MCO marker (decorrelation array)");
+  }
+  if (rec.offset >= 0) {
+    const MctRecord& o = tcp.mcts[rec.offset];
+    if (o.data.size() != element_size[o.element] * ncomp) fail("Error reading MCO marker (offset array)");
+    for (size_t c = 0; c < ncomp; c++)
+      tcp.tccps[c].dc_shift = mct_element(&o.data[c * element_size[o.element]], o.element);
+  }
+}
+
+// opj_j2k_read_mco: a stage (Nmco 0 or 1) zeroes every component's DC level shift first
+void read_mco(Tcp& tcp, const uint8_t* p, int64_t len, size_t ncomp) {
+  if (len < 1) fail("Error reading MCO marker");
+  int stages = p[0];
+  if (stages > 1) return;  // "Cannot take in charge multiple transformation stages."
+  if (len != stages + 1) fail("Error reading MCO marker");
+  for (Tccp& t : tcp.tccps) t.dc_shift = 0;
+  for (int i = 0; i < stages; i++) add_mct(tcp, p[1 + i], ncomp);
+}
+
+// opj_j2k_read_cbd: each component's precision and sign, which the clamp,
+// the 9/7 step sizes, the packing and PIL's unpackers take from here on
+// (the DC level shift stays the one SIZ set)
+void read_cbd(Codestream& cs, const uint8_t* p, int64_t len) {
+  size_t n = cs.comps.size();
+  if (len != int64_t(n) + 2 || be16(p) != n) fail("Error reading CBD marker");
+  for (size_t c = 0; c < n; c++) {
+    cs.comps[c].sgnd = p[2 + c] >> 7, cs.comps[c].prec = (p[2 + c] & 0x7f) + 1;
+    if (cs.comps[c].prec > 31) fail(fmt("Invalid values for comp = %lld : prec=%lld (CBD)", c, cs.comps[c].prec));
+  }
+}
+
 // opj_j2k_merge_ppm: the Nppm / Ippm pairs of the PPM segments in Zppm
 // order, an Ippm running on into the next segment, into one stream.
 void merge_ppm(Codestream& cs) {
@@ -364,17 +523,11 @@ bool known_marker(uint32_t m) {  // OpenJPEG's marker table (j2k_memory_marker_h
   switch (m) {
     case SOT: case COD: case COC: case RGN: case QCD: case QCC: case POC: case SIZ: case TLM: case PLM:
     case PLT: case PPM: case PPT: case SOP: case CRG: case COM: case CAP: case CPF:
-    case 0xff74: case 0xff75: case 0xff77: case 0xff78:  // MCT, MCC, MCO, CBD
+    case MCT: case MCC: case MCO: case CBD:
       return true;
     default:
       return false;
   }
-}
-
-// Markers the port refuses by name wherever they stand. (CAP and CPF, which
-// HTJ2K files carry, OpenJPEG reads and ignores in the main header.)
-void refused_marker(uint32_t m) {
-  if (part2_marker(m)) refuse(fmt("Part 2 extensions (marker 0x%04llx)", m));
 }
 
 [[noreturn]] void misplaced(uint32_t m, bool main) {
@@ -393,7 +546,6 @@ Codestream parse(const uint8_t* d, int64_t n, int64_t ihdr_w, int64_t ihdr_h) {
     uint32_t m = be16(d + pos);
     if (m < 0xff00) fail(fmt("We expected read a marker ID (0xff--) instead of %.4llx", m));
     if (m == SOT) break;
-    refused_marker(m);
     if (!known_marker(m)) {  // opj_j2k_read_unk: on to the next known marker, two bytes at a time
       for (;;) {
         pos += 2;
@@ -413,7 +565,6 @@ Codestream parse(const uint8_t* d, int64_t n, int64_t ihdr_w, int64_t ihdr_h) {
       if (has_siz) fail("Marker is not compliant with its position (a second SIZ)");
       read_siz(cs, p, len - 2, ihdr_w, ihdr_h);
       has_siz = true;
-      cs.deflt.tccps.resize(cs.comps.size());
       coc_set.assign(cs.comps.size(), 0), qcc_set.assign(cs.comps.size(), 0);
     } else if (m == COD || m == COC || m == QCD || m == QCC) {
       read_coding(m, cs.deflt, p, len - 2, cs.comps.size(), coc_set, qcc_set);
@@ -426,6 +577,14 @@ Codestream parse(const uint8_t* d, int64_t n, int64_t ihdr_w, int64_t ihdr_h) {
       if (len - 2 < 2) fail("Error reading PPM marker");
       cs.has_ppm = true;
       cs.ppm.add(p, len - 2, "Zppm %lld already read");
+    } else if (m == MCT) {
+      read_mct(cs.deflt, p, len - 2);
+    } else if (m == MCC) {
+      read_mcc(cs.deflt, p, len - 2);
+    } else if (m == MCO) {
+      read_mco(cs.deflt, p, len - 2, cs.comps.size());
+    } else if (m == CBD) {
+      read_cbd(cs, p, len - 2);
     }
     pos += 2 + len;
   }
@@ -481,7 +640,6 @@ Codestream parse(const uint8_t* d, int64_t n, int64_t ihdr_w, int64_t ihdr_h) {
       if (len < 2) fail("Inconsistent marker size");
       if (pos + 2 + len > n) fail("Stream too short");
       const uint8_t* p = d + pos + 4;
-      refused_marker(m);
       if (m == COD || m == COC || m == QCD || m == QCC) {
         read_coding(m, tcp, p, len - 2, cs.comps.size(), coc_here, qcc_here);
       } else if (m == RGN) {
@@ -494,8 +652,14 @@ Codestream parse(const uint8_t* d, int64_t n, int64_t ihdr_w, int64_t ihdr_h) {
           fail("Error reading PPT marker: packet header have been previously found in the main header (PPM marker).");
         tcp.has_ppt = true;
         tcp.ppt.add(p, len - 2, "Zppt %lld already read");
+      } else if (m == MCT) {
+        read_mct(tcp, p, len - 2);
+      } else if (m == MCC) {
+        read_mcc(tcp, p, len - 2);
+      } else if (m == MCO) {
+        read_mco(tcp, p, len - 2, cs.comps.size());
       } else if (m != COM && m != PLT) {
-        misplaced(m, false);  // OpenJPEG reads no unknown marker in a tile-part header
+        misplaced(m, false);  // OpenJPEG reads no unknown marker (nor CAP, CPF, CBD) in a tile-part header
       }
       pos += 2 + len;
     }
@@ -1920,23 +2084,42 @@ void ht_decode(const Cblk& cb, int cblksty, int roishift, int w, int h, const ui
 inline int before(int p) { return p > 0 ? p - 1 : p + 1; }
 inline int after(int p, int len) { return p + 1 < len ? p + 1 : p - 1; }
 
-void idwt53(int32_t* x, int len, int width, int cas) {
+// The 5/3 is OpenJPEG's one-pass lifting (opj_idwt53_h_cas0 / _cas1 on rows,
+// opj_idwt3_v_cas0 / _cas1 on columns, and their SSE2 forms on each whole
+// group of 8 columns), its int32 sums wrapping. The forms differ only
+// where a sum can wrap, at the ends, where a sample has one neighbour: a
+// low-pass sample there takes (d + 1) >> 1, but (d + d + 2) >> 2 in the
+// first `simd` lines (the SSE2 columns; OpenJPEG's two-sample cas 1 line
+// is scalar everywhere), and a high-pass one d + s in every form.
+void idwt53(int32_t* x, int len, int width, int cas, int simd) {
   if (len == 1) {
     if (cas)
       for (int w = 0; w < width; w++) x[w] /= 2;
     return;
   }
-  for (int p = cas; p < len; p += 2) {  // wrapping int32 sums, as OpenJPEG's
+  if (cas && len == 2) simd = 0;
+  auto wrap = [](uint32_t v) { return int32_t(v); };
+  for (int p = cas; p < len; p += 2) {
     int32_t* c = x + p * width;
     const int32_t *l = x + before(p) * width, *r = x + after(p, len) * width;
-    for (int w = 0; w < width; w++)
-      c[w] = int32_t(uint32_t(c[w]) - uint32_t(int32_t(uint32_t(l[w]) + uint32_t(r[w]) + 2u) >> 2));
+    if (l == r) {
+      for (int w = 0; w < width; w++)
+        c[w] = w < simd ? wrap(uint32_t(c[w]) - uint32_t(wrap(2u * uint32_t(l[w]) + 2u) >> 2))
+                        : wrap(uint32_t(c[w]) - uint32_t(wrap(uint32_t(l[w]) + 1u) >> 1));
+    } else {
+      for (int w = 0; w < width; w++)
+        c[w] = wrap(uint32_t(c[w]) - uint32_t(wrap(uint32_t(l[w]) + uint32_t(r[w]) + 2u) >> 2));
+    }
   }
   for (int p = 1 - cas; p < len; p += 2) {
     int32_t* c = x + p * width;
     const int32_t *l = x + before(p) * width, *r = x + after(p, len) * width;
-    for (int w = 0; w < width; w++)
-      c[w] = int32_t(uint32_t(c[w]) + uint32_t(int32_t(uint32_t(l[w]) + uint32_t(r[w])) >> 1));
+    if (l == r) {
+      for (int w = 0; w < width; w++) c[w] = wrap(uint32_t(c[w]) + uint32_t(l[w]));
+    } else {
+      for (int w = 0; w < width; w++)
+        c[w] = wrap(uint32_t(c[w]) + uint32_t(wrap(uint32_t(l[w]) + uint32_t(r[w])) >> 1));
+    }
   }
 }
 
@@ -1966,9 +2149,9 @@ void idwt(TileComp& tc, int qmfbid, int top) {
   const int64_t stride = tc.x1 - tc.x0;
   const int group = 8;
   std::vector<Sample> tmp;
-  auto lines = [&](int len, int width, int cas) {
+  auto lines = [&](int len, int width, int cas, int simd) {
     static_assert(sizeof(Sample) == 4, "a sample is one int32 or float");
-    if (qmfbid == 1) idwt53(&tmp[0].i, len, width, cas);
+    if (qmfbid == 1) idwt53(&tmp[0].i, len, width, cas, simd);
     else idwt97(&tmp[0].f, len, width, cas);
   };
   for (int r = 1; r <= top; r++) {
@@ -1983,14 +2166,14 @@ void idwt(TileComp& tc, int qmfbid, int top) {
       const int n = std::min(group, rh - j);
       for (int g = 0; g < n; g++)
         for (int k = 0; k < rw; k++) tmp[size_t(slot(k, snx, casx)) * n + g] = tc.data[(j + g) * stride + k];
-      lines(rw, n, casx);
+      lines(rw, n, casx, 0);
       for (int g = 0; g < n; g++)
         for (int k = 0; k < rw; k++) tc.data[(j + g) * stride + k] = tmp[size_t(k) * n + g];
     }
     tmp.resize(size_t(rh) * rw);
     for (int k = 0; k < rh; k++)
       std::copy_n(&tc.data[k * stride], rw, &tmp[size_t(slot(k, sny, casy)) * rw]);
-    lines(rh, rw, casy);
+    lines(rh, rw, casy, rw - rw % 8);  // the columns OpenJPEG's SSE2 form takes, 8 at a time
     for (int k = 0; k < rh; k++) std::copy_n(&tmp[size_t(k) * rw], rw, &tc.data[k * stride]);
   }
 }
@@ -2270,9 +2453,9 @@ void decode_tile(const Codestream& cs, const Tcp& tcp, int tileno, std::vector<T
     Sample *c0 = comps[0].data.data(), *c1 = comps[1].data.data(), *c2 = comps[2].data.data();
     if (tcp.tccps[0].qmfbid == 1) {
       for (int64_t i = 0; i < samples; i++) {
-        int32_t y = c0[i].i, u = c1[i].i, v = c2[i].i;
-        int32_t g = y - ((u + v) >> 2);
-        c0[i].i = v + g, c1[i].i = g, c2[i].i = u + g;
+        uint32_t y = c0[i].i, u = c1[i].i, v = c2[i].i;  // int32 sums, wrapping as opj_mct_decode's SSE2 lanes
+        uint32_t g = y - uint32_t(int32_t(u + v) >> 2);
+        c0[i].i = int32_t(v + g), c1[i].i = int32_t(g), c2[i].i = int32_t(u + g);
       }
     } else {
       for (int64_t i = 0; i < samples; i++) {
@@ -2289,12 +2472,12 @@ void decode_tile(const Codestream& cs, const Tcp& tcp, int tileno, std::vector<T
     int64_t rw = res.x1 - res.x0, rh = res.y1 - res.y0, stride = comps[c].x1 - comps[c].x0;
     int32_t lo = comp.sgnd ? -(1 << (comp.prec - 1)) : 0;
     int32_t hi = comp.sgnd ? (1 << (comp.prec - 1)) - 1 : int32_t((1u << comp.prec) - 1);
-    int32_t shift = comp.sgnd ? 0 : 1 << (comp.prec - 1);
+    int32_t shift = tcp.tccps[c].dc_shift;
     for (int64_t y = 0; y < rh; y++)
       for (int64_t x = 0; x < rw; x++) {
         Sample& s = comps[c].data[y * stride + x];
-        if (tcp.tccps[c].qmfbid == 1) {
-          s.i = int32_t(std::min<int64_t>(hi, std::max<int64_t>(lo, int64_t(s.i) + shift)));
+        if (tcp.tccps[c].qmfbid == 1) {  // the sum in int32, wrapping as OpenJPEG's does; the 9/7's in int64
+          s.i = std::min(hi, std::max(lo, int32_t(uint32_t(s.i) + uint32_t(shift))));
         } else {
           float v = s.f;
           if (std::isnan(v)) s.i = lo;

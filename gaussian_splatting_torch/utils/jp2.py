@@ -22,13 +22,18 @@ file in two steps, and this module follows both:
   compiled `csrc/jp2_decode.cc` (host C++, built at first use; no
   fallback), which also applies PIL's unpackers: every JPEG 2000 Part 1
   feature (SOP / EPH, PPM / PPT, POC, the six code-block styles, RGN,
-  subsampling, unknown markers) as OpenJPEG decodes it for PIL, and HTJ2K
+  subsampling, unknown markers) as OpenJPEG decodes it for PIL, HTJ2K
   (JPEG 2000 Part 15, ITU-T T.814: the HT block coder's cleanup, SigProp
   and MagRef passes, its CAP and CPF markers) as OpenJPEG 2.5's HT decoder
-  reads it, damaged files included.
+  reads it, and what OpenJPEG 2.5 makes of Part 2 (ITU-T T.801): Rsiz bit
+  15, the MCT / MCC / MCO records (whose offset array becomes the DC level
+  shift), CBD (each component's precision and sign), every other Part 2
+  marker skipped as an unknown one; samples of 1 to 31 bits (above 16,
+  PIL's "I;16" for grey and its 8-bit modes otherwise, rounded down as
+  its unpackers do); damaged files included.
 
-Where PIL raises, this raises a `ValueError` naming the file. Features PIL
-reads that the port does not are refused by name (`REFUSED`).
+Where PIL raises (more than 4 components among such files), this raises a
+`ValueError` naming the file; it refuses no file PIL reads.
 """
 
 from __future__ import annotations
@@ -52,7 +57,6 @@ MODES = ("L", "P", "PA", "I;16", "LA", "RGB", "RGBA", "CMYK")
 # the number of components
 COLOUR_SPACES = {16: 1, 17: 2, 18: 3, 24: 4, 12: 5}
 UNSPECIFIED_SPACE = 0
-REFUSED = ("precision above 16 bits", "more than 4 components", "Part 2 extensions")
 
 
 class _Boxes:
@@ -138,9 +142,8 @@ def _pil_header(data: bytes):
             mode = "I;16" if (struct.unpack_from(">B", siz, 38)[0] & 0x7F) + 1 > 8 else "L"
         elif 2 <= csiz <= 4:
             mode = ("LA", "RGB", "RGBA")[csiz - 2]
-        else:  # PIL: "unable to determine J2K image mode"
-            raise ValueError(f"refused: more than 4 components ({csiz})" if csiz > 4 else
-                             "unable to determine J2K image mode")
+        else:
+            raise ValueError(f"unable to determine J2K image mode ({csiz} components)")
         _pil_comments(data, 4 + len(siz))
         return (xsiz - xosiz, ysiz - yosiz), mode, None
     reader = _Boxes(data, len(JP2_SIGNATURE))
@@ -179,8 +182,8 @@ def _pil_header(data: bytes):
                 if res.next_type() == b"resc":
                     res.fields(">HHHHBB")
                     break
-    if size is None or mode is None:  # PIL: "Malformed JP2 header"
-        raise ValueError(f"refused: more than 4 components ({nc})" if nc and nc > 4 else "Malformed JP2 header")
+    if size is None or mode is None:
+        raise ValueError(f"Malformed JP2 header ({nc} components)" if nc else "Malformed JP2 header")
     at = reader.pos  # the end of the header box
     if data[at:at + 12].endswith(b"jp2c" + J2K_SIGNATURE):
         at += 12
@@ -376,9 +379,6 @@ def _library(name):
 
 
 def _raise(name, what: str):
-    if what.startswith("refused: "):
-        raise ValueError(f"{name}: {what[len('refused: '):]} is not read by the port (JPEG 2000); the port reads "
-                         f"JPEG 2000 Part 1 and HTJ2K files as PIL reads them and refuses: {', '.join(REFUSED)}")
     raise ValueError(f"{name}: {what} (JPEG 2000: PIL fails on this file)")
 
 

@@ -5,10 +5,10 @@ datasets with (PIL 12 through OpenJPEG 2.5).
 Tolerances: every comparison is bit-equal. For each file the port's
 `image_io.open_image` must give PIL's mode and `np.asarray(Image.open(f))`
 (a channel axis kept) and `to_rgba` PIL's `convert("RGBA")`, or raise a
-`ValueError` naming the file where PIL raises. The features the port does
-not read (Part 2, precision above 16 bits, more than 4 components) are
-refused by name (`jp2.REFUSED`), also where PIL reads the file. Files
-are PIL's own (every option of its writer), JP2 boxes written around PIL's
+`ValueError` naming the file where PIL raises; the port refuses no file
+PIL reads (Part 2 codestreams, precision above 16 bits and more than 4
+components included: `tests/test_torch_jp2_part2.py` holds the port to
+PIL on each). Files are PIL's own (every option of its writer), JP2 boxes written around PIL's
 codestreams, PIL codestreams whose markers are edited
 (`tests/torch_image_writers`), and files of the test-side encoder
 `tests/torch_j2k_writer.py` (the Part 1 features PIL's writer never sets;
@@ -36,7 +36,7 @@ from gaussian_splatting_tpu.scene import dataset_readers as jreaders
 from gaussian_splatting_torch.scene import dataset_readers
 from gaussian_splatting_torch.utils import cuda_build, image_io, jp2
 from test_torch_image_forms import (  # noqa: F401  (cxx: a fixture)
-    assert_follows_pil, assert_refused, cxx, smooth, write_colmap_dataset_of,
+    assert_follows_pil, cxx, smooth, write_colmap_dataset_of,
 )
 from test_torch_jpeg import fake_cxx  # noqa: F401  (a fixture)
 from test_torch_scene import assert_same_cameras
@@ -237,7 +237,7 @@ def test_codestream_structure_follows_pil(tmp_path, cxx, view):
     assert (got is None) == (view in ("no EOC", "tile-part index skipped", "Psot past the end"))
 
 
-# ---- refused by name, and the views once refused ----
+# ---- the views once refused ----
 
 def _edit_cod(cs, offset, value, mask=None):
     main, parts = j2k_markers(cs)
@@ -261,51 +261,42 @@ def refused_views():
 
     extra = bytearray(siz[:34]) + struct.pack(">H", 5) + siz[36:] + siz[36:39] * 2
     views = {
-        "HTJ2K": (with_siz(lambda b: b.__setitem__(0, 0x40)), None),
-        "Part 2": (with_siz(lambda b: b.__setitem__(0, 0x80)), "Part 2"),
-        "subsampling": (with_siz(lambda b: b.__setitem__(36 + 3 + 1, 2)), None),
-        "precision 17": (with_siz(lambda b: b.__setitem__(36, 16)), "precision above 16 bits"),
-        "five components": (j2k_join([(SIZ, bytes(extra))] + main[1:], parts), "more than 4 components"),
-        "five components, JP2": (jp2_bytes(j2k_join([(SIZ, bytes(extra))] + main[1:], parts), 5),
-                                 "more than 4 components"),
-        "SOP": (_edit_cod(cs, 0, 0, mask=2), None),
-        "EPH": (_edit_cod(cs, 0, 0, mask=4), None),
-        "RGN": (j2k_join(main + [(0xFF5E, b"\x00\x00\x02")], parts), None),
-        "POC": (j2k_join(main + [(0xFF5F, b"\x00\x00\x00\x01\x02\x01\x00")], parts), None),
-        "PPM": (j2k_join(main + [(0xFF60, b"\x00\x00\x00\x00\x00")], parts), None),
-        "PPT": (j2k_join(main, [p[:3] + ([(0xFF61, b"\x00")] + p[3], p[4]) for p in parts]), None),
-        "CAP": (j2k_join(main + [(0xFF50, b"\x00\x02\x00\x00\x00\x00")], parts), None),
-        "a Part 2 marker": (j2k_join(main + [(0xFF74, b"\x00\x00")], parts), "Part 2"),
-        "an unknown marker": (j2k_join(main + [(0xFF6A, b"\x00\x00")], parts), None),
-        "JPX with two codestreams": (jp2_bytes(cs, 3, brand=b"jpx ") + jp2_box(b"jp2c", cs), None),
+        "HTJ2K": with_siz(lambda b: b.__setitem__(0, 0x40)),
+        "Part 2": with_siz(lambda b: b.__setitem__(0, 0x80)),
+        "subsampling": with_siz(lambda b: b.__setitem__(36 + 3 + 1, 2)),
+        "precision 17": with_siz(lambda b: b.__setitem__(36, 16)),
+        "five components": j2k_join([(SIZ, bytes(extra))] + main[1:], parts),
+        "five components, JP2": jp2_bytes(j2k_join([(SIZ, bytes(extra))] + main[1:], parts), 5),
+        "SOP": _edit_cod(cs, 0, 0, mask=2),
+        "EPH": _edit_cod(cs, 0, 0, mask=4),
+        "RGN": j2k_join(main + [(0xFF5E, b"\x00\x00\x02")], parts),
+        "POC": j2k_join(main + [(0xFF5F, b"\x00\x00\x00\x01\x02\x01\x00")], parts),
+        "PPM": j2k_join(main + [(0xFF60, b"\x00\x00\x00\x00\x00")], parts),
+        "PPT": j2k_join(main, [p[:3] + ([(0xFF61, b"\x00")] + p[3], p[4]) for p in parts]),
+        "CAP": j2k_join(main + [(0xFF50, b"\x00\x02\x00\x00\x00\x00")], parts),
+        "a Part 2 marker": j2k_join(main + [(0xFF74, b"\x00\x00")], parts),
+        "an unknown marker": j2k_join(main + [(0xFF6A, b"\x00\x00")], parts),
+        "JPX with two codestreams": jp2_bytes(cs, 3, brand=b"jpx ") + jp2_box(b"jp2c", cs),
     }
     for bit, style in enumerate(("BYPASS", "RESET", "TERMALL", "VSC", "PTERM", "SEGSYM", "HT")):
-        views[f"code-block style {style}"] = (_edit_cod(cs, 8, 1 << bit), None)
+        views[f"code-block style {style}"] = _edit_cod(cs, 8, 1 << bit)
     return views
 
 
 @pytest.mark.parametrize("view", list(refused_views()))
 def test_refused_features_are_named(tmp_path, cxx, view):
-    """Each feature the port does not read (Part 2, precision above 16
-    bits, more than 4 components) raises a ValueError naming the file and
-    the feature, whatever PIL makes of the file. The views the port once
-    refused (a style bit, HT's Rsiz bit, CAP marker and code-block style,
-    SOP / EPH, RGN, POC, PPM / PPT, an unknown marker, subsampling, a
-    second codestream: edits of a PIL file that its data does not follow)
-    give PIL's pixels, or raise where PIL raises."""
-    data, match = refused_views()[view]
+    """Every view the port once refused by name (a style bit, HT's Rsiz
+    bit, CAP marker and code-block style, SOP / EPH, RGN, POC, PPM / PPT,
+    an unknown marker, subsampling, a second codestream, Part 2's Rsiz bit
+    15 and an MCT marker, a SIZ precision of 17 bits, five components in
+    a codestream and in a JP2: edits of a PIL file that its data does not
+    follow) gives PIL's pixels, or raises where PIL raises."""
+    data = refused_views()[view]
     suffix = ".jp2" if data.startswith(jp2.JP2_SIGNATURE) else ".j2k"
-    if match is None:
-        assert_follows_pil(tmp_path, data, view, suffix)
-    else:
-        assert_refused(tmp_path, data, f"(?s){match}.* is not read by the port", suffix)
+    assert_follows_pil(tmp_path, data, view, suffix)
 
 
 # ---- damaged files ----
-
-# What PIL reads and the port refuses, by the words of the refusal; a
-# seeded flip that lands on one is counted here (ROADMAP.md section 1).
-STILL_REFUSED = ("Part 2", "precision above 16 bits", "more than 4 components")
 
 # (writer, options): PIL's writer, or the test-side encoder's Part 1 forms
 DAMAGED = {
@@ -330,15 +321,13 @@ def test_damaged_files_follow_pil(tmp_path, cxx, form):
     the codestream (headers, packet headers, bodies; half of them in its
     first 200 bytes), and seeded
     truncations (which PIL's strict reader refuses). Each outcome is
-    counted; where the port refuses a file PIL reads it is by a name in
-    STILL_REFUSED. The forms are PIL's, and the test-side encoder's with
+    counted; the port refuses no file PIL reads. The forms are PIL's, and the test-side encoder's with
     SOP and EPH, BYPASS and TERMALL, PPT headers, and a POC."""
     writer, options = DAMAGED[form]
     data = writer(smooth(40, 50, 3, 40), **options)
     bodies = jp2.segments(data)
     assert sum(n for _, n in bodies) > 0.4 * len(data)
     outcomes = {"body read": 0, "read": 0, "raised": 0, "truncated": 0}
-    refused = {}
     for seed in range(160):
         rng = np.random.default_rng(seed)
         bad = bytearray(data)
@@ -350,13 +339,7 @@ def test_damaged_files_follow_pil(tmp_path, cxx, form):
         else:
             bad = bad[:int(rng.integers(1, len(bad)))]
         label = f"{form} seed {seed}"
-        try:
-            got = assert_follows_pil(tmp_path, bytes(bad), label, ".j2k")
-        except ValueError as err:
-            names = [n for n in STILL_REFUSED if n in str(err)]
-            assert names and "is not read by the port" in str(err), (label, str(err))
-            refused[names[0]] = refused.get(names[0], 0) + 1
-            continue
+        got = assert_follows_pil(tmp_path, bytes(bad), label, ".j2k")  # raises where the port refuses a file PIL reads
         if seed < 60:
             assert got is not None, label
             outcomes["body read"] += 1
@@ -367,7 +350,6 @@ def test_damaged_files_follow_pil(tmp_path, cxx, form):
             outcomes["truncated"] += 1
     assert outcomes["body read"] == 60 and outcomes["truncated"] == 30, outcomes
     assert outcomes["read"] >= 20 and outcomes["raised"] >= 3, outcomes
-    assert sum(refused.values()) <= 5, refused
 
 
 # ---- the compiled decoder, fixtures ----

@@ -30,7 +30,10 @@ port's decoder is held to:
   code-block), a file made lossy by leaving passes out;
 - tiles, tile offsets, image offsets, tile-parts;
 - SOP / EPH markers, packet headers in PPM (main header) or PPT (tile-part
-  headers) segments, split over several segments at any size.
+  headers) segments, split over several segments at any size;
+- samples of 1 to 31 bits, unsigned or signed (Ssiz's sign bit, no DC
+  level shift), and Part 2's MCT, MCC, MCO and CBD segments (ITU-T T.801)
+  for marker edits.
 
 `encode` returns a raw codestream; `torch_image_writers.jp2_bytes` puts
 one in JP2 boxes.
@@ -1273,10 +1276,12 @@ def encode(pixels, *, levels=5, cblk=(6, 6), precincts=None, layers=None, progre
            tile=None, tile_offset=(0, 0), offset=(0, 0), tile_parts=1, style=0, sop=False, eph=False,
            headers=None, split=None, poc=None, tile_poc=None, subsampling=None, roi=None, roi_rect=None,
            planes=None, nsop=None, precision=8, irreversible=False, ht_passes=1, cap=True, placeholders=0,
-           guard=GUARD_BITS) -> bytes:
-    """A raw JPEG 2000 codestream of `pixels` ((h, w, c) uint8, or uint16
-    for `precision` above 8; c in 1..4; subsampled components take the
-    samples `components_of` picks).
+           guard=GUARD_BITS, signed=False, max_expn=31) -> bytes:
+    """A raw JPEG 2000 codestream of `pixels` ((h, w, c) integers of
+    `precision` bits, 1 to 31: uint8, uint16 or uint32, or with `signed`
+    int32 samples of that range, written with Ssiz's sign bit and no DC
+    level shift; c in 1..4; subsampled components take the samples
+    `components_of` picks).
 
     levels: decompositions; cblk: code-block width / height exponents;
     precincts: [(PPx, PPy)] per resolution (None: the maximum); layers:
@@ -1294,7 +1299,10 @@ def encode(pixels, *, levels=5, cblk=(6, 6), precincts=None, layers=None, progre
     (lossy); nsop: Nsop of each packet from its index (default the index);
     precision: bits a sample; irreversible: the 9/7 wavelet (and the ICT
     with `mct`), coefficients quantised with steps 2^-gain (guard bits
-    `guard`).
+    `guard`); max_expn: the largest band exponent written (QCD holds 5
+    bits, so 31 at most: above 29 bits the high bands' exponents are cut
+    to it, their 9/7 steps growing to match; smaller values make bands
+    of fewer bit-planes, which the coefficients must fit).
 
     HTJ2K (ITU-T T.814): `style` with HT (0x40) codes every code-block with
     the HT block coder (`encode_ht_block`): its cleanup pass at bit-plane
@@ -1320,10 +1328,11 @@ def encode(pixels, *, levels=5, cblk=(6, 6), precincts=None, layers=None, progre
     roi = roi or {}
     use_mct = bool(mct) and nc >= 3
     prec = precision
-    gains = [prec, prec + 1, prec + 1, prec + 2]  # e_b: reversible, or 9/7 steps 2^(prec - e_b) = 2^-gain
+    # e_b: reversible, or 9/7 steps 2^(prec - e_b) = 2^-gain
+    gains = [min(g, max_expn) for g in (prec, prec + 1, prec + 1, prec + 2)]
     ht = bool(style & HT)
     siz = struct.pack(">HIIIIIIIIH", 0x4000 if ht else 0, x1, y1, x0, y0, tdx, tdy, tx0g, ty0g, nc)
-    siz += b"".join(struct.pack(">BBB", prec - 1, dx, dy) for dx, dy in subsampling)
+    siz += b"".join(struct.pack(">BBB", prec - 1 | (0x80 if signed else 0), dx, dy) for dx, dy in subsampling)
     scod = (1 if precincts != [(15, 15)] * numres else 0) | (2 if sop else 0) | (4 if eph else 0)
     cod = struct.pack(">BBHB", scod, ORDERS[progression_order], numlayers, int(use_mct))
     cod += struct.pack(">BBBBB", levels, cblk[0] - 2, cblk[1] - 2, style, 0 if irreversible else 1)
@@ -1356,7 +1365,7 @@ def encode(pixels, *, levels=5, cblk=(6, 6), precincts=None, layers=None, progre
         main.append((0xFF5F, poc_body(poc)))
 
     # components: DC shift, RCT
-    samples = [p.astype(np.int64) - (1 << (prec - 1)) for p in planes_in]
+    samples = [p.astype(np.int64) - (0 if signed else 1 << (prec - 1)) for p in planes_in]
     steps = [2.0 ** -(g - prec) for g in gains]
     tiles_out = []
     for tno in range(tw * th):
@@ -1500,3 +1509,69 @@ def encode(pixels, *, levels=5, cblk=(6, 6), precincts=None, layers=None, progre
         out += struct.pack(">HHHIBB", 0xFF90, 10, tno, 12 + len(hdr) + 2 + len(data), k, n)
         out += hdr + b"\xff\x93" + data
     return out + b"\xff\xd9"
+
+
+# ---- Part 2 marker segments (ITU-T T.801 Annex A) ----
+#
+# Each gives a (marker, body) pair for `torch_image_writers.j2k_join`.
+
+MCT, MCC, MCO, CBD = 0xFF74, 0xFF75, 0xFF77, 0xFF78
+
+
+def mct(index, element, values, array=2, zmct=0, ymct=0):
+    """MCT: record `index` of `values` as element type `element` (0 int16,
+    taken modulo 2^16; 1 int32; 2 float32; 3 float64), array type `array`
+    (0 dependency, 1 decorrelation, 2 offset)."""
+    if element == 0:
+        body = struct.pack(f">{len(values)}H", *(v & 0xFFFF for v in values))
+    else:
+        body = struct.pack(">" + "xifd"[element] * len(values), *values)
+    return MCT, struct.pack(">HHH", zmct, index | array << 8 | element << 10, ymct) + body
+
+
+def mcc(index, n, offset=0, deco=0, reversible=1, kind=1, collections=1, order=None):
+    """MCC: collection `index` of array decorrelation (`kind` 1) over
+    components 0..n-1 (or `order`), naming MCT records `offset` and `deco`
+    (0: none), `collections` times (Qmcc)."""
+    order = list(range(n)) if order is None else order
+    body = struct.pack(">HBHH", 0, index, 0, collections)
+    for _ in range(collections):
+        body += bytes([kind]) + struct.pack(">H", n) + bytes(order) + struct.pack(">H", n) + bytes(order)
+        body += bytes([reversible, offset, deco])
+    return MCC, body
+
+
+def mco(*stages):
+    """MCO: Nmco and the MCC index of each stage."""
+    return MCO, bytes([len(stages)]) + bytes(stages)
+
+
+def edited(cs: bytes, main_add=(), part_add=(), rsiz=None, main_edit=None) -> bytes:
+    """`cs` with (marker, body) segments added after SIZ (`main_add`) and at
+    the head of every tile-part header (`part_add`), Rsiz set, or the main
+    header's segments passed through `main_edit`."""
+    from torch_image_writers import j2k_join, j2k_markers
+
+    main, parts = j2k_markers(cs)
+    main = main[:1] + list(main_add) + main[1:]
+    if rsiz is not None:
+        main = [(m, struct.pack(">H", rsiz) + b[2:] if m == 0xFF51 else b) for m, b in main]
+    main = main_edit(main) if main_edit else main
+    return j2k_join(main, [(i, t, n, list(part_add) + s, d) for i, t, n, s, d in parts])
+
+
+def cbd(depths):
+    """CBD: Ncbd and each component's depth byte (bits - 1, bit 7 the
+    sign)."""
+    return CBD, struct.pack(">H", len(depths)) + bytes(depths)
+
+
+def deep_samples(a, bits, signed=False, seed=0, headroom=0):
+    """The 8-bit picture `a` as samples of `bits` bits: its values in the
+    top 8 bits (less `headroom`, which keeps the 5/3 coefficients of 31-bit
+    samples within OpenJPEG's 30 bit-planes), seeded noise below; uint32,
+    or int32 about 0 with `signed`."""
+    k = bits - 8 - headroom
+    rng = np.random.default_rng(seed)
+    v = ((a.astype(np.int64) - 128) << k) + rng.integers(0, 1 << k, a.shape)
+    return v.astype(np.int32) if signed else (v + (1 << (bits - 1))).astype(np.uint32)
