@@ -5,15 +5,17 @@ plain versions.
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; none is caught and passed over):
-  1. device: require CUDA; print the card's name, count, and
+  1. device: require CUDA; print the card's name, count, PIL's version
+     and its libtiff's (where the machine has PIL), and the
      `nvidia-smi --query-gpu=name,power.limit` line.
   2. build: compile every kernel under gaussian_splatting_torch/csrc with
      nvcc (one process per source, all at once) and print ptxas's
      register / shared-memory / spill report; beside them the host sources
      (csrc/jpeg_decode.cc, the JPEG decoder, JPEG-in-TIFF strips
      included, csrc/webp_decode.cc, the WebP decoder, and
-     csrc/image_codecs.cc, TIFF's LZW and PackBits, BMP's RLE, GIF's LZW
-     and TGA's RLE, and csrc/zstd_decode.cc, ZSTD-in-TIFF's Zstandard
+     csrc/image_codecs.cc, TIFF's LZW (both styles), PackBits and
+     ThunderScan, BMP's RLE, GIF's LZW and TGA's RLE, csrc/fax_decode.cc,
+     TIFF's CCITT fax, and csrc/zstd_decode.cc, ZSTD-in-TIFF's Zstandard
      frames; host C++, `c++`), with their build time.
   3. kernels vs plain: preprocess and bin a scene once, feed the same sorted
      lists to each CUDA kernel and to its plain torch version. Random scenes
@@ -128,10 +130,14 @@ Phases (any failure exits non-zero; none is caught and passed over):
      20-bit RGB samples (tests/fixtures/torch_jp2_part2/
      ortho_part2_1920x1080.j2k: 9/7 with the ICT, Rsiz bit 15, a CBD, an
      MCT offset array through an MCC and an MCO; its own picture, PIL's
-     committed SHA-256), named so in images.bin, the 2 test views as PNG. The port's readers must give
-     back every camera (R, T within 1e-12), every PNG, TIFF, BMP, WebP,
-     PPM and TGA pixel and each JPEG and JPEG-in-TIFF view within 30 dB
-     PSNR of its render; the two damaged views decoded by the compiled decoder (the
+     committed SHA-256) and view_15 as a YCbCr TIFF without JPEG (LZW
+     strips of 4:2:0 data units from this script's writer, the chroma the
+     mean of each unit), named so in images.bin, the 2 test views as PNG.
+     The port's readers must give back every camera (R, T within 1e-12),
+     every PNG, TIFF, BMP, WebP, PPM and TGA pixel, view_15 bit-equal to
+     libtiff's YCbCr -> RGB of the units written (this script's own copy
+     of TIFFYCbCrToRGBInit's tables) and within 30 dB PSNR of its render,
+     and each JPEG and JPEG-in-TIFF view within 30 dB PSNR of its render; the two damaged views decoded by the compiled decoder (the
      one the train CLI's Scene runs) bit-equal to the plain one, their
      PSNR printed; and a
      copy of the first
@@ -190,7 +196,17 @@ Phases (any failure exits non-zero; none is caught and passed over):
      tests/fixtures/torch_images (BMP, TIFF, CMYK and YCCK JPEG, WebP lossy,
      with alpha, lossless and animated, GIF), torch_ppm_tga (PPM, PGM, PBM,
      PFM, TGA) and torch_tiff_jpeg (small JPEG-in-TIFFs, strips and tiles)
-     must give PIL's mode, pixels and RGBA committed beside it. Then
+     must give PIL's mode, pixels and RGBA committed beside it. The TIFF
+     forms of fax archives, old JPEG-in-TIFF writers, YCbCr scanners,
+     float and CIELab pipelines at 1920x1080 (the PIL-written Group 4 and
+     Group 3 2-D files of tests/fixtures/torch_tiff_rest, and the forms
+     `rest_form_files` writes: old-style JPEG with its tables in tags,
+     YCbCr deflate 4:2:0, float32 deflate with Predictor 3, CIELab LZW,
+     ThunderScan), each decoded three times and, where this machine has
+     PIL, by PIL three times (medians printed side by side), must give the
+     mode, shape and SHA-256 of PIL's pixels committed in its sha256.json,
+     and its small files (fax, CIELab, float, palette + alpha, old-style
+     JPEG, ThunderScan, YCbCr) PIL's mode, pixels and RGBA. Then
      `cli.train.main`
      (-r 1 --eval, 200 iterations, reports at 100 and 200, a PLY at 100 and
      200, a checkpoint at 200, a densify every 20 steps from 40 to 140, the
@@ -247,7 +263,9 @@ Phases (any failure exits non-zero; none is caught and passed over):
      JPEG 2000 Part 2 JP2 (the 800x800 frame of
      tests/fixtures/torch_jp2_part2: Rsiz bit 15, a CBD, an MCT / MCC /
      MCO in its tile-part header; held the same way), frame 13
-     as a 32-bit BI_BITFIELDS BMP with an alpha mask and frame 15 as an
+     as a 32-bit BI_BITFIELDS BMP with an alpha mask, frame 14 as a
+     palette + alpha TIFF (PIL's mode PA: 6 levels a channel in a
+     256-entry ColorMap, the alpha its own sample, deflate) and frame 15 as an
      interlaced palette GIF (4 levels a channel, alpha below 128 the
      transparency index), each file named r_<i>.png as the transforms
      file lists it; the others 8-bit RGBA. Every lossless frame's
@@ -256,7 +274,7 @@ Phases (any failure exits non-zero; none is caught and passed over):
      tRNS alphas, grey spread, alpha 0 on the tRNS colour, a BMP's BGRA
      under its masks, a GIF's palette colours, alpha 0 on its transparency
      index, a TGA's BGRA, a 16-bit P6's rounding to 8 bits, opaque, the
-     planar TIFF's high bytes); the
+     planar TIFF's high bytes, the PA TIFF's palette colours and alpha); the
      CMYK JPEG must read as mode CMYK within 30 dB
      PSNR of the CMYK written, and its `to_rgba` be PIL's cmyk2rgb of
      those pixels; the ms per form is printed. Then `cli.train.main`
@@ -512,7 +530,7 @@ BLENDER_FORMS = {1: "16-bit RGBA", 2: "32-bit RLE TGA with alpha", 3: "palette +
                  5: "Adam7 RGBA", 6: "16-bit planar RGBA TIFF", 7: "grey + alpha", 8: "RGBA JPEG 2000",
                  9: "RGB + tRNS colour", 10: "RGBA HTJ2K",
                  11: "CMYK JPEG", 12: "RGBA JPEG 2000 Part 2",
-                 13: "32-bit BMP with alpha", 15: "palette GIF + transparency"}
+                 13: "32-bit BMP with alpha", 14: "palette + alpha TIFF", 15: "palette GIF + transparency"}
 
 SUM_K = (1_900_544, 1_339_001)  # the profiler's capacity at its defaults, and an odd K
 LAUNCH_COUNTERS = {"composite_fwd": composite_fwd, "composite_bwd": composite_bwd,
@@ -1743,6 +1761,221 @@ def form_files():
     }
 
 
+# The TIFF forms of fax archives, scanners, old JPEG-in-TIFF writers and
+# scientific pipelines: the committed PIL-written 1080p Group 4 and Group 3
+# 2-D files of the bilevel picture, and the forms this script writes itself
+# (`rest_form_files`); tests/fixtures/torch_tiff_rest/sha256.json holds
+# PIL's reading of each, and of the small files committed there.
+TIFF_REST_FIXTURES = os.path.join(FIXTURES, "torch_tiff_rest")
+REST_G4, REST_G3 = "bilevel_g4_1920x1080.tif", "bilevel_g3_2d_1920x1080.tif"
+# view 15 of phase 5c: a YCbCr TIFF (LZW, 4:2:0 data units) of this script's writer
+CLI_YCBCR_UNITS_VIEW = 15
+YCBCR_ROWS = 16
+
+
+def bilevel_picture(px=None):
+    """The 1080p bilevel picture of the fax files: the form picture's luma
+    (integer weights) over 128."""
+    px = form_picture() if px is None else px
+    return ((px.astype(np.int64) * [299, 587, 114]).sum(-1) // 1000) > 128
+
+
+def rgb_to_ycbcr(px):
+    """(H, W, 3) uint8 Y, Cb, Cr of RGB pixels in BT.601 integer weights."""
+    r, g, b = (px[..., i].astype(np.int64) for i in range(3))
+    y = (77 * r + 150 * g + 29 * b + 128) >> 8
+    cb = ((-43 * r - 85 * g + 128 * b + 128) >> 8) + 128
+    cr = ((128 * r - 107 * g - 21 * b + 128) >> 8) + 128
+    return np.clip(np.stack([y, cb, cr], -1), 0, 255).astype(np.uint8)
+
+
+def ycbcr_units(ycc, h, v):
+    """(unit rows, bytes) of TIFF's YCbCr data units of (rows, W, 3) Y, Cb,
+    Cr subsampled h x v: each unit its h * v luma samples row by row, then
+    the mean Cb and Cr of its samples (edges repeated into partial units)."""
+    rows, width = ycc.shape[:2]
+    uh, uw = -(-rows // v), -(-width // h)
+    p = np.pad(ycc.astype(np.int64), ((0, uh * v - rows), (0, uw * h - width), (0, 0)), mode="edge")
+    blocks = p.reshape(uh, v, uw, h, 3).transpose(0, 2, 1, 3, 4).reshape(uh, uw, h * v, 3)
+    chroma = (blocks[..., 1:].sum(2) + h * v // 2) // (h * v)
+    return np.concatenate([blocks[..., 0], chroma], -1).astype(np.uint8).reshape(uh, -1)
+
+
+def ycbcr_strips(px, sampling=(2, 2), rows_per_strip=YCBCR_ROWS):
+    """Each strip's data units of RGB pixels (`ycbcr_units`), and (H, W, 3)
+    Y, Cb, Cr as each pixel's unit holds them."""
+    H, W, _ = px.shape
+    h, v = sampling
+    ycc = rgb_to_ycbcr(px)
+    strips, held = [], []
+    for y in range(0, H, rows_per_strip):
+        units = ycbcr_units(ycc[y:y + rows_per_strip], h, v)
+        strips.append(units.tobytes())
+        u = units.reshape(len(units), -1, h * v + 2)
+        luma = u[..., :h * v].reshape(len(u), -1, v, h).transpose(0, 2, 1, 3).reshape(len(u) * v, -1)
+        chroma = np.repeat(np.repeat(u[..., h * v:], v, 0), h, 1)
+        held.append(np.concatenate([luma[..., None], chroma], -1)[:min(rows_per_strip, H - y), :W])
+    return strips, np.concatenate(held)
+
+
+def ycbcr_units_form(px, compression, sampling=(2, 2), rows_per_strip=YCBCR_ROWS) -> bytes:
+    """A little-endian YCbCr TIFF (photometric 6, not JPEG) of RGB pixels:
+    strips of TIFF's data units (`ycbcr_strips`), LZW (5) or deflate (8)."""
+    H, W, _ = px.shape
+    strips, _ = ycbcr_strips(px, sampling, rows_per_strip)
+    bodies = [{5: lzw_encode, 8: lambda b: zlib.compress(b, 6)}[compression](b) for b in strips]
+    tags = [(256, 4, [W]), (257, 4, [H]), (258, 3, [8] * 3), (259, 3, [compression]), (262, 3, [6]),
+            (273, 4, [0] * len(bodies)), (277, 3, [3]), (278, 3, [rows_per_strip]),
+            (279, 4, [len(b) for b in bodies]), (530, 3, list(sampling))]
+    return tiff_file(tags, bodies)
+
+
+def tiff_ycbcr_to_rgb(ycc):
+    """RGB of Y, Cb, Cr samples as libtiff's TIFFYCbCrToRGBInit /
+    TIFFYCbCrtoRGB give it at the tags' defaults (coefficients 0.299, 0.587,
+    0.114, reference black and white 0 255 128 255 128 255): 16-bit fixed
+    point from single-precision factors, clamped."""
+    f32 = np.float32
+    lr, lg, lb = f32(0.299), f32(0.587), f32(0.114)
+    fix = lambda x: int(np.float64(x) * 65536 + 0.5)
+    f1, f3 = f32(2) - f32(2) * lr, f32(2) - f32(2) * lb
+    d1, d2 = fix(f1), -fix(f32(lr * f1) / lg)
+    d3, d4 = fix(f3), -fix(f32(lb * f3) / lg)
+    x = np.arange(-128, 128)
+    c = np.trunc((x.astype(f32) * f32(127)) / f32(127)).astype(np.int64)  # Code2V at the default range
+    yt = np.trunc((np.arange(256).astype(f32) * f32(255)) / f32(255)).astype(np.int64)
+    y, cb, cr = (ycc[..., i].astype(np.int64) for i in range(3))
+    r = yt[y] + ((d1 * c[cr] + 32768) >> 16)
+    g = yt[y] + ((d4 * c[cb] + 32768 + d2 * c[cr]) >> 16)
+    b = yt[y] + ((d3 * c[cb] + 32768) >> 16)
+    return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
+
+
+def float_p3_form(values, rows_per_strip=16):
+    """A little-endian float32 grey TIFF (SampleFormat 3), deflate with
+    Predictor 3: each row's samples split into byte planes, most significant
+    first, each byte less the one before it (libtiff's fpDiff)."""
+    H, W = values.shape
+    bodies = []
+    for y in range(0, H, rows_per_strip):
+        raw = values[y:y + rows_per_strip].astype("<f4").view(np.uint8).reshape(-1, W, 4)
+        planes = raw[:, :, ::-1].transpose(0, 2, 1).reshape(len(raw), -1)
+        diff = np.concatenate([planes[:, :1], planes[:, 1:] - planes[:, :-1]], 1)
+        bodies.append(zlib.compress(diff.tobytes(), 6))
+    tags = [(256, 4, [W]), (257, 4, [H]), (258, 3, [32]), (259, 3, [8]), (262, 3, [1]),
+            (273, 4, [0] * len(bodies)), (277, 3, [1]), (278, 3, [rows_per_strip]),
+            (279, 4, [len(b) for b in bodies]), (317, 3, [3]), (339, 3, [3])]
+    return tiff_file(tags, bodies)
+
+
+def lab_form(samples, rows_per_strip=16):
+    """A little-endian 8-bit CIELab TIFF (photometric 8) of (H, W, 3)
+    samples, LZW."""
+    H, W, _ = samples.shape
+    bodies = [lzw_encode(samples[y:y + rows_per_strip].tobytes()) for y in range(0, H, rows_per_strip)]
+    tags = [(256, 4, [W]), (257, 4, [H]), (258, 3, [8] * 3), (259, 3, [5]), (262, 3, [8]),
+            (273, 4, [0] * len(bodies)), (277, 3, [3]), (278, 3, [rows_per_strip]),
+            (279, 4, [len(b) for b in bodies])]
+    return tiff_file(tags, bodies)
+
+
+def thunderscan_rows(rows) -> bytes:
+    """ThunderScan (compression 32809) of (rows, W) 4-bit samples, each row
+    on its own: a run of the last pixel (up to 63), three 2-bit or two
+    3-bit deltas where they fit, else a raw pixel."""
+    two = {0: 0, 1: 1, -1: 3}
+    three = {0: 0, 1: 1, 2: 2, 3: 3, -3: 5, -2: 6, -1: 7}
+    out = bytearray()
+    for row in rows.tolist():
+        w, x, last = len(row), 0, 0
+        while x < w:
+            run = 0
+            while x + run < w and run < 63 and row[x + run] == last:
+                run += 1
+            if run >= 2:
+                out.append(run)
+                x += run
+                continue
+            d = [v - p for p, v in zip([last] + row[x:x + 2], row[x:x + 3])]
+            if x + 3 <= w and all(k in two for k in d):
+                out.append(0x40 | two[d[0]] << 4 | two[d[1]] << 2 | two[d[2]])
+                x, last = x + 3, row[x + 2]
+            elif x + 2 <= w and all(k in three for k in d[:2]):
+                out.append(0x80 | three[d[0]] << 3 | three[d[1]])
+                x, last = x + 2, row[x + 1]
+            else:
+                out.append(0xC0 | row[x])
+                x, last = x + 1, row[x]
+    return bytes(out)
+
+
+def thunderscan_form(grey4, rows_per_strip=16):
+    H, W = grey4.shape
+    bodies = [thunderscan_rows(grey4[y:y + rows_per_strip]) for y in range(0, H, rows_per_strip)]
+    tags = [(256, 4, [W]), (257, 4, [H]), (258, 3, [4]), (259, 3, [32809]), (262, 3, [1]),
+            (273, 4, [0] * len(bodies)), (277, 3, [1]), (278, 3, [rows_per_strip]),
+            (279, 4, [len(b) for b in bodies])]
+    return tiff_file(tags, bodies)
+
+
+def ojpeg_form(rgb, quality, rows_per_strip=16):
+    """An old-style JPEG-in-TIFF (compression 6) of RGB pixels with its
+    tables in tags: `encode_jpeg`'s 4:2:0 YCbCr stream with a restart
+    marker every strip, each restart interval one strip's bytes (libtiff
+    puts the markers back), JPEGProc 1, JPEGQTables / JPEGDCTables /
+    JPEGACTables one table each a component (appended after the strips),
+    JPEGRestartInterval, YCbCrSubsampling 2x2."""
+    H, W, _ = rgb.shape
+    mcus = -(-W // 16) * (rows_per_strip // 16)
+    stream = encode_jpeg(rgb, quality, (2, 2), mcus)
+    pos, qt, huff = 2, {}, {}
+    while stream[pos + 1] != 0xDA:
+        marker, n = stream[pos + 1], struct.unpack(">H", stream[pos + 2:pos + 4])[0]
+        body, at = stream[pos + 4:pos + 2 + n], 0
+        while marker in (0xDB, 0xC4) and at < len(body):
+            if marker == 0xDB:
+                qt[body[at] & 15], at = body[at + 1:at + 65], at + 65
+            else:
+                k = 17 + sum(body[at + 1:at + 17])
+                huff[body[at]], at = body[at + 1:at + k], at + k
+        pos += 2 + n
+    n = struct.unpack(">H", stream[pos + 2:pos + 4])[0]
+    sos = stream[pos + 4:pos + 2 + n]
+    scan = [sos[2 + 2 * i] for i in range(sos[0])]  # each component's (DC << 4 | AC) tables
+    data = stream[pos + 2 + n:stream.rindex(b"\xff\xd9")]
+    bodies = []
+    at = 0
+    for k in range(-(-H // rows_per_strip)):
+        end = data.find(bytes([0xFF, 0xD0 + k % 8]), at) if k < -(-H // rows_per_strip) - 1 else len(data)
+        bodies.append(data[at:end])
+        at = end + 2
+    blobs = [qt[0], qt[1], qt[1]] + [huff[t >> 4] for t in scan] + [huff[16 | (t & 15)] for t in scan]
+    tags = lambda offsets: [  # noqa: E731
+        (256, 4, [W]), (257, 4, [H]), (258, 3, [8] * 3), (259, 3, [6]), (262, 3, [6]),
+        (273, 4, [0] * len(bodies)), (277, 3, [3]), (278, 3, [rows_per_strip]),
+        (279, 4, [len(b) for b in bodies]), (512, 3, [1]), (515, 3, [mcus]), (519, 4, offsets[:3]),
+        (520, 4, offsets[3:6]), (521, 4, offsets[6:]), (530, 3, [2, 2])]
+    end = len(tiff_file(tags([0] * 9), bodies))
+    offsets = (end + np.concatenate([[0], np.cumsum([len(b) for b in blobs])[:-1]])).tolist()
+    return tiff_file(tags(offsets), bodies) + b"".join(blobs)
+
+
+def rest_form_files():
+    """The 1080p files in the forms of fax archives, old JPEG-in-TIFF
+    writers, YCbCr scanners, float and CIELab pipelines and ThunderScan this
+    script writes itself, from the form picture (tests/fixtures/
+    torch_tiff_rest/sha256.json holds PIL's reading of each)."""
+    px = form_picture()
+    lum = (px.astype(np.int64) * [299, 587, 114]).sum(-1) // 1000
+    return {
+        "chip_smoke: old-style JPEG, tables in tags, 4:2:0 q90, strips of 16": ojpeg_form(px, 90),
+        "chip_smoke: YCbCr deflate 4:2:0, strips of 16": ycbcr_units_form(px, 8),
+        "chip_smoke: float32 grey deflate + predictor 3": float_p3_form((lum.astype(np.float32) - 127.5) / 64),
+        "chip_smoke: CIELab LZW": lab_form(px),
+        "chip_smoke: ThunderScan 4-bit": thunderscan_form((lum >> 4).astype(np.int64)),
+    }
+
+
 class PanelTimer:
     """Host time of tensorboard's `SummaryWriter.add_images` while patched
     (`with`), where tensorboard imports: the train CLI's reports log their
@@ -1789,7 +2022,8 @@ def train_view_files(data, cams, images, test_names):
     CLI_WEBP_VIEW as a lossless WebP, CLI_PPM_VIEW as a binary P6,
     CLI_TGA_VIEW as a 32-bit RLE TGA (alpha 255), CLI_JPEG_TIFF_VIEW as
     a JPEG-in-TIFF, CLI_YCBCR_VIEW as a YCbCr JPEG-in-TIFF,
-    CLI_PLANAR_VIEW as a planar LZMA BigTIFF, CLI_JP2_VIEW as the
+    CLI_PLANAR_VIEW as a planar LZMA BigTIFF, CLI_YCBCR_UNITS_VIEW as a
+    YCbCr TIFF of LZW 4:2:0 data units, CLI_JP2_VIEW as the
     committed 1080p JPEG 2000 fixture, CLI_HT_VIEW as the committed
     1080p HTJ2K codestream and CLI_PART2_VIEW as the committed 1080p Part
     2 codestream of 20-bit samples, and images.bin to name them; the test
@@ -1821,6 +2055,8 @@ def train_view_files(data, cams, images, test_names):
         elif i == CLI_PLANAR_VIEW:
             name = f"{cam.image_name}.tif"
             body = tiff_form(px, 8, 34925, None, CLI_PLANAR_ROWS, planar=True, big=True)
+        elif i == CLI_YCBCR_UNITS_VIEW:
+            name, body = f"{cam.image_name}.tif", ycbcr_units_form(px, 5)
         elif i == CLI_JP2_VIEW:
             name = f"{cam.image_name}.jp2"
             with open(os.path.join(JP2_FIXTURES, JP2_VIEW), "rb") as f:
@@ -1852,6 +2088,16 @@ def train_view_files(data, cams, images, test_names):
         rec.name = files[os.path.splitext(rec.name)[0]]
     colmap.write_images_binary(records, images_bin)
     return files, encode_ms
+
+
+def pil_versions() -> str:
+    """PIL's version and its libtiff's on this machine (the TIFF rules the
+    port follows were found against PIL 12.1.0 with libtiff 4.7.1)."""
+    if importlib.util.find_spec("PIL") is None:
+        return "PIL: not on this machine"
+    from PIL import features
+
+    return f"PIL {importlib.metadata.version('pillow')}, its libtiff {features.version('libtiff')}"
 
 
 def pil_jp2_ms() -> str:
@@ -1908,6 +2154,9 @@ def ht_readings() -> dict:
 
 
 def sha256_of(pixels) -> str:
+    """The SHA-256 of pixels' bytes (mode "1": as 0 / 1 bytes, as PIL's
+    np.asarray holds bools in other bytes)."""
+    pixels = pixels.astype(np.uint8) if pixels.dtype == bool else pixels
     return hashlib.sha256(np.ascontiguousarray(pixels).tobytes()).hexdigest()
 
 
@@ -2087,6 +2336,7 @@ def check_image_forms(tmp, px):
         if (pic.mode, list(pic.pixels.shape), digest) != (want["mode"], want["shape"], want["sha256"]):
             fail(f"cli path: {name} reads as {pic.mode} {pic.pixels.shape} with SHA-256 {digest}, not PIL's "
                  f"{want['mode']} {want['shape']} {want['sha256']}")
+    rest_ms, rest_small = check_tiff_rest_forms(tmp)
     pil_jp2 = pil_jp2_ms()
     names = {folder: sorted(f for f in os.listdir(folder) if os.path.exists(
         os.path.join(folder, os.path.splitext(f)[0] + ".npz")) and not f.endswith(".npz"))
@@ -2139,6 +2389,66 @@ def check_image_forms(tmp, px):
           f"pixels and RGBA, or a raise where PIL raises; {pil_jp2}; "
           + ", ".join(f"{len(v)} {os.path.relpath(k, ROOT)}" for k, v in names.items())
           + " files give PIL's committed mode, pixels and RGBA")
+    print(f"  TIFF forms of fax archives, old JPEG-in-TIFF writers, YCbCr scanners, float / CIELab pipelines and "
+          f"ThunderScan at {W}x{H} (SHA-256 equal to PIL's committed pixels), decode ms (median of 3, host "
+          f"clock), the port / PIL: " + ", ".join(f"{k} {a:.2f} / {b}" for k, (a, b) in rest_ms.items())
+          + f"; {rest_small} small files of {os.path.relpath(TIFF_REST_FIXTURES, ROOT)} give PIL's committed "
+          f"mode, pixels and RGBA (CIELab's through this port's copy of LittleCMS's transform)")
+
+
+def check_tiff_rest_forms(tmp):
+    """The 1080p fax (PIL-written Group 4 and Group 3 2-D, committed),
+    old-style JPEG, YCbCr deflate, float with Predictor 3, CIELab and
+    ThunderScan files (`rest_form_files`), each decoded by
+    `image_io.open_image` three times (and by PIL three times where this
+    machine has it), must give the mode, shape and SHA-256 of PIL's pixels
+    committed in tests/fixtures/torch_tiff_rest/sha256.json; the small
+    files committed there PIL's mode, pixels and RGBA. Returns {name: (the
+    port's median ms, PIL's median ms or "not measured")} and the number
+    of small files."""
+    with open(os.path.join(TIFF_REST_FIXTURES, "sha256.json")) as f:
+        readings = json.load(f)
+    made = rest_form_files()
+    have_pil = importlib.util.find_spec("PIL") is not None
+    times, small = {}, 0
+    for name, want in readings.items():
+        if name in made:
+            if "file_sha256" in want and hashlib.sha256(made[name]).hexdigest() != want["file_sha256"]:
+                fail(f"cli path: this script's writer made other bytes for '{name}' than the file PIL read "
+                     f"(tests/fixtures/torch_tiff_rest/sha256.json)")
+            path = os.path.join(tmp, "rest.tif")
+            with open(path, "wb") as f:
+                f.write(made[name])
+        else:
+            path = os.path.join(TIFF_REST_FIXTURES, name)
+        if "rgba_sha256" in want:  # a small file: its pixels and RGBA
+            pic = image_io.open_image(path)
+            got = (pic.mode, list(pic.pixels.shape), sha256_of(pic.pixels))
+            rgba_ok = sha256_of(image_io.to_rgba(pic)) == want["rgba_sha256"]
+            if got != (want["mode"], want["shape"], want["sha256"]) or not rgba_ok:
+                fail(f"cli path: TIFF fixture {name} reads as {pic.mode} {pic.pixels.shape}, not PIL's committed "
+                     f"{want['mode']} {want['shape']} pixels and RGBA")
+            small += 1
+            continue
+        ms, pil_ms = [], []
+        for _ in range(3):
+            pic, t = synced_ms(image_io.open_image, path)
+            ms.append(t)
+            if have_pil:
+                from PIL import Image
+
+                t0 = time.perf_counter()
+                with Image.open(path) as im:
+                    np.asarray(im)
+                pil_ms.append((time.perf_counter() - t0) * 1e3)
+        digest = sha256_of(pic.pixels)
+        if (pic.mode, list(pic.pixels.shape), digest) != (want["mode"], want["shape"], want["sha256"]):
+            fail(f"cli path: {name} reads as {pic.mode} {pic.pixels.shape} with SHA-256 {digest}, not PIL's "
+                 f"{want['mode']} {want['shape']} {want['sha256']}")
+        times[name] = (float(np.median(ms)), f"{np.median(pil_ms):.2f}" if pil_ms else "not measured")
+    if len(times) != 7:
+        fail(f"cli path: {len(times)} 1080p TIFF forms of tests/fixtures/torch_tiff_rest, not 7")
+    return times, small
 
 
 class SceneLoadTimer:
@@ -2269,6 +2579,15 @@ def _cli_phase(dev, tmp):
                 fail(f"cli path: the Part 2 view {got.image_path} reads as {pic.mode} {pic.pixels.shape}, "
                      f"not PIL's committed {want['mode']} {want['shape']} pixels")
             continue
+        if cam.image_name == names[CLI_YCBCR_UNITS_VIEW]:  # libtiff's YCbCr -> RGB of the units written
+            back, ycbcr_units_ms = synced_ms(image_io.read_image, got.image_path)
+            want = tiff_ycbcr_to_rgb(ycbcr_strips(px)[1])
+            mse = float(np.mean((back.astype(np.float64) - px) ** 2)) if back.shape == px.shape else math.inf
+            ycbcr_units_psnr = 10 * math.log10(255 ** 2 / max(mse, 1e-12))
+            if not np.array_equal(back, want) or not ycbcr_units_psnr >= 30.0:
+                fail(f"cli path: the YCbCr LZW view {got.image_path} reads as {back.shape}, equal to libtiff's "
+                     f"conversion of its units {np.array_equal(back, want)}, {ycbcr_units_psnr:.2f} dB PSNR")
+            continue
         lossy = got.image_path.endswith(".jpg") or cam.image_name in (names[CLI_JPEG_TIFF_VIEW],
                                                                       names[CLI_YCBCR_VIEW])
         if not lossy:  # the TIFF (planar BigTIFF included), BMP, WebP, PPM and TGA views
@@ -2313,7 +2632,9 @@ def _cli_phase(dev, tmp):
           f"JPEG-in-TIFF (q{CLI_JPEG_QUALITY}, strips of {CLI_JPEG_TIFF_ROWS} rows; {jpeg_tiff_psnr:.2f} dB "
           f"PSNR from its render, decode {jpeg_tiff_ms:.1f} ms), {files[names[CLI_YCBCR_VIEW]]} as YCbCr "
           f"JPEG-in-TIFF (4:2:0; {ycbcr_psnr:.2f} dB, decode {ycbcr_ms:.1f} ms), {files[names[CLI_PLANAR_VIEW]]} "
-          f"as a BigTIFF of LZMA planes, {files[names[CLI_JP2_VIEW]]} as a 9/7 tiled RPCL JPEG 2000 (PIL's "
+          f"as a BigTIFF of LZMA planes, {files[names[CLI_YCBCR_UNITS_VIEW]]} as a YCbCr TIFF of LZW 4:2:0 data "
+          f"units (libtiff's YCbCr -> RGB of the units bit for bit; {ycbcr_units_psnr:.2f} dB PSNR from its "
+          f"render, decode {ycbcr_units_ms:.1f} ms), {files[names[CLI_JP2_VIEW]]} as a 9/7 tiled RPCL JPEG 2000 (PIL's "
           f"committed pixels, decode {jp2_view_ms:.1f} ms), {files[names[CLI_HT_VIEW]]} as an HTJ2K "
           f"codestream (RPCL, 64x64 HT code-blocks, cleanup passes; PIL's committed pixels, decode "
           f"{ht_view_ms:.1f} ms), {files[names[CLI_PART2_VIEW]]} as a JPEG 2000 Part 2 codestream of 20-bit RGB "
@@ -2537,6 +2858,8 @@ def blender_frame(rgba, form, seed):
         return data, (q * 85).astype(np.uint8)
     if form == "Adam7 RGBA":
         return png_form(rgba, 8, 6, interlace=True), rgba
+    if form == "palette + alpha TIFF":  # 6 levels per channel in a 256-entry palette, alpha its own sample
+        return palette_alpha_tiff(rgba)
     if form == "palette GIF + transparency":  # 4 levels per channel; alpha < 128 the transparent entry 64
         q = rgba[..., :3] >> 6
         index = np.where(rgba[..., 3] >= 128, (q[..., 0] << 4) | (q[..., 1] << 2) | q[..., 2], 64)
@@ -2555,6 +2878,29 @@ def blender_frame(rgba, form, seed):
     rgb[black & (rgba[..., 3] >= 128)] = (0, 0, 1)
     alpha = np.where((rgb == 0).all(-1), 0, 255).astype(np.uint8)
     return png_form(rgb, 8, 2, trns=bytes(6)), np.concatenate([rgb, alpha[..., None]], -1)
+
+
+def palette_alpha_tiff(rgba, rows_per_strip=16):
+    """A little-endian palette + alpha TIFF (photometric 3, two 8-bit
+    samples, ExtraSamples 2, PIL's mode PA) of an RGBA frame, deflate: each
+    pixel's colour the nearest of 6 levels a channel (216 entries of a
+    256-entry ColorMap, the rest grey), its alpha as written. Returns the
+    file and the RGBA PIL's convert("RGBA") gives: the entry's colour (the
+    ColorMap's high bytes) and the alpha."""
+    H, W, _ = rgba.shape
+    q = (rgba[..., :3].astype(np.int64) + 25) // 51
+    index = q[..., 0] * 36 + q[..., 1] * 6 + q[..., 2]
+    levels = np.arange(256)
+    entries = np.where(levels[:, None] < 216, np.stack([levels // 36, levels // 6 % 6, levels % 6], -1) * 51,
+                       levels[:, None] - 216).astype(np.int64)
+    samples = np.stack([index, rgba[..., 3]], -1).astype(np.uint8)
+    bodies = [zlib.compress(samples[y:y + rows_per_strip].tobytes(), 6) for y in range(0, H, rows_per_strip)]
+    cmap = (entries.T.reshape(-1) * 257).tolist()
+    tags = [(256, 4, [W]), (257, 4, [H]), (258, 3, [8, 8]), (259, 3, [8]), (262, 3, [3]),
+            (273, 4, [0] * len(bodies)), (277, 3, [2]), (278, 3, [rows_per_strip]),
+            (279, 4, [len(b) for b in bodies]), (320, 3, cmap), (338, 3, [2])]
+    want = np.concatenate([entries[index], rgba[..., 3:]], -1).astype(np.uint8)
+    return tiff_file(tags, bodies), want
 
 
 def write_blender_dataset(data, dev):
@@ -2688,7 +3034,7 @@ def _blender_phase(dev, tmp):
     print(f"  train CLI: {BLENDER_STEPS} steps from {len(init)} random points in [-1.3, 1.3]^3, white "
           f"background {white}, wall {train_s:.2f} s (scene load {scene_load.s:.2f} s: "
           f"{BLENDER_TRAIN + BLENDER_TEST} frames decoded (PNG, a CMYK JPEG, a BMP, a GIF, a TGA, a P6, a planar "
-          f"TIFF, a JPEG 2000, an HTJ2K JP2, a Part 2 JP2) and "
+          f"TIFF, a JPEG 2000, an HTJ2K JP2, a Part 2 JP2, a palette + alpha TIFF) and "
           f"composited), step median "
           f"{np.median(step_ms):.3f} ms, p80 {np.percentile(step_ms, 80):.3f} ms (its iter_time_ms, "
           f"host clock); loss first 20 {first20:.6f}, last 20 {last20:.6f}; "
@@ -3281,6 +3627,7 @@ def main():
     if smi.returncode != 0 or not smi.stdout.strip():
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     print(f"device: {kind} (torch sees {count}); torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(pil_versions())
     print(smi.stdout.strip().splitlines()[0])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -8,10 +8,18 @@
 //
 // - gs_lzw_decode: TIFF's LZW as libtiff 4's LZWDecode reads it (new style,
 //   codes most significant bit first, 9 to 12 bits, the width growing one
-//   code early: at 511, 1023 and 2047 entries); a strip or tile into
-//   exactly `size` bytes.
+//   code early: at 511, 1023 and 2047 entries), or where the strip starts
+//   with an old-style Clear (0x00 then a byte with its low bit set) as its
+//   LZWDecodeCompat does (codes least significant bit first, the width
+//   growing at 512, 1024 and 2048, no check of a code against the table);
+//   a strip or tile into exactly `size` bytes, *produced the bytes written
+//   before a fault (libtiff's RGBA reader goes on with them).
 // - gs_packbits_decode: TIFF's PackBits as libtiff's PackBitsDecode (runs
 //   past the end cut, -128 a no-op).
+// - gs_thunderscan_decode: ThunderScan 4-bit grey as libtiff's
+//   ThunderDecodeRow (tif_thunder.c): runs of the last pixel, 2- and 3-bit
+//   deltas, raw pixels, each row on from where the last stopped; a row of
+//   more or fewer pixels than its width fails.
 // - gs_bmp_rle_decode: BMP's RLE8 and RLE4 as PIL's BmpRleDecoder
 //   (BmpImagePlugin.py) reads them, quirks included: a run in encoded mode
 //   is cut at the end of its row, an absolute run is not; an RLE4 absolute
@@ -40,8 +48,9 @@
 //
 // Interface (plain C; every entry returns 0 or 1, the message of a 1 in
 // gs_codec_error for the calling thread):
-//   gs_lzw_decode(in, n, out, size)
-//   gs_packbits_decode(in, n, out, size)
+//   gs_lzw_decode(in, n, out, size, produced)
+//   gs_packbits_decode(in, n, out, size, produced)
+//   gs_thunderscan_decode(in, n, width, rows, out)
 //   gs_bmp_rle_decode(file, file_size, start, rle4, width, want, out, produced)
 //   gs_gif_lzw_decode(in, n, chunk, min_code_size, interlace, out, stride, width, height)
 //   gs_tga_rle_decode(file, file_size, start, depth, row_bytes, rows, out)
@@ -69,15 +78,94 @@ struct Entry {
   uint8_t value, firstchar;
 };
 
+// Old-style LZW, as libtiff's LZWDecodeCompat: codes least significant bit
+// first, the width grown when the next entry passes 2^n - 1 (one entry
+// later than the new style), no check of a code against the table: an
+// entry not yet filled has length 0 and fails as libtiff fails.
+int lzw_decode_compat(const uint8_t* in, long long n, uint8_t* out, long long size, long long* produced) {
+  std::vector<Entry> table(kTableSize, Entry{-1, 0, 0, 0});
+  for (int c = 0; c < 256; ++c) table[c] = Entry{-1, 1, static_cast<uint8_t>(c), static_cast<uint8_t>(c)};
+  int nbits = kBitsMin, mask = (1 << nbits) - 1, free_ent = -1, max_ent = mask - 1;
+  int old = 0;
+  uint64_t acc = 0;
+  int have = 0;
+  int64_t left = 8 * static_cast<int64_t>(n), pos = 0;
+  long long op = 0;
+  auto next_code = [&]() {
+    if (left < nbits) return kEoi;
+    while (have < nbits) {
+      acc |= static_cast<uint64_t>(pos < n ? in[pos] : 0) << have;
+      ++pos;
+      have += 8;
+    }
+    int code = static_cast<int>(acc & mask);
+    acc >>= nbits;
+    have -= nbits;
+    left -= nbits;
+    return code;
+  };
+  auto done = [&](int rc) {
+    *produced = op;
+    return rc;
+  };
+  while (op < size) {
+    int code = next_code();
+    if (code == kEoi) break;
+    if (code == kClear) {
+      do {
+        for (int c = kFirst; c < kTableSize; ++c) table[c] = Entry{-1, 0, 0, 0};
+        free_ent = kFirst;
+        nbits = kBitsMin;
+        mask = (1 << nbits) - 1;
+        max_ent = mask;
+        code = next_code();
+      } while (code == kClear);
+      if (code == kEoi) break;
+      if (code > kClear) return done(fail("corrupt old-style LZW data (a code after Clear that is not a byte)"));
+      out[op++] = static_cast<uint8_t>(code);
+      old = code;
+      continue;
+    }
+    if (free_ent < 0 || free_ent >= kTableSize) return done(fail("corrupt old-style LZW data (the table is full)"));
+    Entry& e = table[free_ent];
+    e.next = old;
+    e.firstchar = table[old].firstchar;
+    e.length = table[old].length + 1;
+    e.value = code < free_ent ? table[code].firstchar : e.firstchar;
+    if (++free_ent > max_ent) {
+      if (++nbits > kBitsMax) nbits = kBitsMax;
+      mask = (1 << nbits) - 1;
+      max_ent = mask;
+    }
+    old = code;
+    const Entry& s = table[code];
+    if (code < 256) {
+      out[op++] = s.value;
+      continue;
+    }
+    if (s.length == 0) return done(fail("corrupt old-style LZW data (a string of length 0)"));
+    long long len = s.length, keep = len < size - op ? len : size - op;
+    int c = code;
+    for (long long i = len - 1; i >= 0; --i) {
+      if (i < keep) out[op + i] = table[c].value;
+      c = table[c].next;
+    }
+    op += keep;
+  }
+  if (op < size)
+    return done(fail("old-style LZW data ends " + std::to_string(size - op) + " bytes short of its strip or tile"));
+  return done(0);
+}
+
 }  // namespace
 
 extern "C" {
 
 const char* gs_codec_error() { return g_error.c_str(); }
 
-int gs_lzw_decode(const uint8_t* in, long long n, uint8_t* out, long long size) {
-  if (n >= 2 && in[0] == 0 && (in[1] & 1))
-    return fail("old-style LZW (codes least significant bit first)");
+// *produced: the bytes written before a fault (all `size` on success)
+int gs_lzw_decode(const uint8_t* in, long long n, uint8_t* out, long long size, long long* produced) {
+  if (n >= 2 && in[0] == 0 && (in[1] & 1)) return lzw_decode_compat(in, n, out, size, produced);
   std::vector<Entry> table(kTableSize, Entry{-1, 0, 0, 0});
   for (int c = 0; c < 256; ++c) table[c] = Entry{-1, 1, static_cast<uint8_t>(c), static_cast<uint8_t>(c)};
   // libtiff starts a strip with no table: its first code must be a Clear
@@ -87,6 +175,10 @@ int gs_lzw_decode(const uint8_t* in, long long n, uint8_t* out, long long size) 
   int64_t left = 8 * static_cast<int64_t>(n), pos = 0;
   int have = 0;
   long long op = 0;
+  auto done = [&](int rc) {
+    *produced = op;
+    return rc;
+  };
   // the next code; data that runs out reads as EOI (libtiff: a strip "not
   // terminated with EOI code")
   auto next_code = [&]() {
@@ -111,13 +203,13 @@ int gs_lzw_decode(const uint8_t* in, long long n, uint8_t* out, long long size) 
         code = next_code();
       } while (code == kClear);
       if (code == kEoi) break;
-      if (code > kClear) return fail("corrupt LZW data (a code after Clear that is not a byte)");
+      if (code > kClear) return done(fail("corrupt LZW data (a code after Clear that is not a byte)"));
       out[op++] = static_cast<uint8_t>(code);
       old = code;
       continue;
     }
-    if (free_ent < kFirst) return fail("corrupt LZW data (no Clear code before the first string)");
-    if (code > free_ent) return fail("corrupt LZW data (a code past the table)");
+    if (free_ent < kFirst) return done(fail("corrupt LZW data (no Clear code before the first string)"));
+    if (code > free_ent) return done(fail("corrupt LZW data (a code past the table)"));
     Entry& e = table[free_ent];
     e.next = old;
     e.firstchar = table[old].firstchar;
@@ -135,7 +227,7 @@ int gs_lzw_decode(const uint8_t* in, long long n, uint8_t* out, long long size) 
       out[op++] = s.value;
       continue;
     }
-    if (s.length == 0) return fail("corrupt LZW data (a string of length 0)");
+    if (s.length == 0) return done(fail("corrupt LZW data (a string of length 0)"));
     // the string from its last byte back; a string longer than the room
     // left keeps its first bytes
     long long len = s.length, keep = len < size - op ? len : size - op;
@@ -147,11 +239,11 @@ int gs_lzw_decode(const uint8_t* in, long long n, uint8_t* out, long long size) 
     op += keep;
   }
   if (op < size)
-    return fail("LZW data ends " + std::to_string(size - op) + " bytes short of its strip or tile");
-  return 0;
+    return done(fail("LZW data ends " + std::to_string(size - op) + " bytes short of its strip or tile"));
+  return done(0);
 }
 
-int gs_packbits_decode(const uint8_t* in, long long n, uint8_t* out, long long size) {
+int gs_packbits_decode(const uint8_t* in, long long n, uint8_t* out, long long size, long long* produced) {
   long long ip = 0, op = 0;
   while (ip < n && op < size) {
     int count = static_cast<int8_t>(in[ip++]);
@@ -171,8 +263,77 @@ int gs_packbits_decode(const uint8_t* in, long long n, uint8_t* out, long long s
       ip += run;
     }
   }
+  *produced = op;
   if (op < size)
     return fail("PackBits data ends " + std::to_string(size - op) + " bytes short of its strip or tile");
+  return 0;
+}
+
+// ThunderScan 4-bit grey as libtiff's ThunderDecodeRow / ThunderDecode:
+// each row of `width` pixels decoded on from where the last one stopped,
+// two pixels a byte, high nibble first; a run that would pass the row's end
+// writes nothing (libtiff counts it without writing it), more or fewer
+// pixels than the row holds fail.
+int gs_thunderscan_decode(const uint8_t* in, long long n, int width, int rows, uint8_t* out) {
+  static const int two[4] = {0, 1, 0, -1}, three[8] = {0, 1, 2, 3, 0, -3, -2, -1};
+  const long long row_bytes = (static_cast<long long>(width) + 1) / 2;
+  long long ip = 0;
+  for (int r = 0; r < rows; ++r) {
+    uint8_t* op = out + r * row_bytes;
+    uint8_t* const op0 = op;
+    unsigned last = 0;
+    long long npixels = 0;
+    const long long maxpixels = width;
+    auto set = [&](unsigned v) {
+      last = v & 0xf;
+      if (npixels < maxpixels) {
+        if (npixels++ & 1)
+          *op++ |= static_cast<uint8_t>(last);
+        else
+          op[0] = static_cast<uint8_t>(last << 4);
+      }
+    };
+    while (ip < n && npixels < maxpixels) {
+      int c = in[ip++], d;
+      switch (c & 0xc0) {
+        case 0x00: {
+          int k = c & 0x3f;
+          if (npixels & 1) {
+            op[0] |= static_cast<uint8_t>(last);
+            last = *op++;
+            ++npixels;
+            --k;
+          } else {
+            last |= last << 4;
+          }
+          npixels += k;
+          if (npixels <= maxpixels)
+            for (; k > 0; k -= 2) *op++ = static_cast<uint8_t>(last);
+          if (k == -1) *--op &= 0xf0;
+          last &= 0xf;
+          break;
+        }
+        case 0x40:
+          if ((d = (c >> 4) & 3) != 2) set(static_cast<unsigned>(static_cast<int>(last) + two[d]));
+          if ((d = (c >> 2) & 3) != 2) set(static_cast<unsigned>(static_cast<int>(last) + two[d]));
+          if ((d = c & 3) != 2) set(static_cast<unsigned>(static_cast<int>(last) + two[d]));
+          break;
+        case 0x80:
+          if ((d = (c >> 3) & 7) != 4) set(static_cast<unsigned>(static_cast<int>(last) + three[d]));
+          if ((d = c & 7) != 4) set(static_cast<unsigned>(static_cast<int>(last) + three[d]));
+          break;
+        default:
+          set(static_cast<unsigned>(c));
+      }
+    }
+    if (npixels != maxpixels) {
+      uint8_t* end = op0 + (maxpixels + 1) / 2;
+      if (op < end) std::memset(op, 0, end - op);
+      return fail(std::string(npixels < maxpixels ? "Not enough" : "Too much") + " ThunderScan data at row " +
+                  std::to_string(r) + " (" + std::to_string(npixels) + " != " + std::to_string(maxpixels) +
+                  " pixels; libtiff fails the strip)");
+    }
+  }
   return 0;
 }
 

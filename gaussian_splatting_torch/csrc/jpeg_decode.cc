@@ -45,6 +45,13 @@
 // that ends early stops at that marker (zeros for the rest of its MCU and
 // interval), a segment cut short reads those bytes, as libjpeg does.
 //
+// Old-style JPEG-in-TIFF (compression 6) libtiff decodes with libjpeg's
+// raw data output (utils/ojpeg.py builds the stream as libtiff does): the
+// components' samples at their own sampling, whole MCUs, no upsampling and
+// no colour conversion; a restart marker other than the one expected fails
+// libtiff's codec for the rest of the image (its resync_to_restart raises),
+// which gs_jpeg_decode_raw reports as the MCU rows delivered before it.
+//
 // Interface (plain C; every entry returns 0 or an error, whose message
 // gs_jpeg_error gives for the calling thread):
 //   gs_jpeg_probe(data, size, hwc)        hwc[0..2] = height, width, channels
@@ -53,6 +60,11 @@
 //                       last_strip, out)
 //                                         a JPEG-in-TIFF strip or tile, (H, W, C) uint8; ycbcr_h 0:
 //                                         no colour conversion
+//   gs_jpeg_raw_layout(data, size, layout) components, size, and each one's sampling and raw plane size
+//   gs_jpeg_decode_raw(data, size, out, cap, good_rows)
+//                                         libjpeg's raw data output: each component's samples at its
+//                                         own sampling (no upsampling, no colour conversion), for
+//                                         old-style JPEG-in-TIFF (utils/ojpeg.py)
 
 #include <algorithm>
 #include <cstdint>
@@ -467,7 +479,8 @@ struct Decoder {
   bool have_frame = false, progressive = false, jfif = false, multi = false, image_done = false;
   // a JPEG-in-TIFF stream (libtiff's reading), and the strip's or tile's
   // height, width and samples per pixel
-  bool tiff = false, tables_only = false, taller_ok = false;
+  bool tiff = false, tables_only = false, taller_ok = false, raw = false;
+  int64_t raw_fail = -1;  // raw output: the MCU at whose restart libtiff's old-style JPEG codec fails
   int want_h = 0, want_w = 0, want_c = 0, want_hs = 0, want_vs = 0;  // want_hs 0: no YCbCr conversion
   int adobe = -1;
   int width = 0, height = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0, scans = 0, last_good = 0;
@@ -590,8 +603,9 @@ struct Decoder {
         pos = sos(body, blen, pos, &marker);
         image_done = !multi;
         // libtiff reads a single-scan strip's rows and then finishes it,
-        // ignoring what jpeg_finish_decompress reports of the markers after
-        if (tiff && image_done) return;
+        // ignoring what jpeg_finish_decompress reports of the markers after;
+        // its old-style JPEG codec (raw output) stops at the rows too
+        if ((tiff || raw) && image_done) return;
         continue;
       } else if ((marker >= 0xE0 && marker <= 0xEF) || marker == M_COM || marker == M_DNL) {
         // skipped; a length below 2 skips nothing past it
@@ -811,6 +825,10 @@ struct Decoder {
       bool flag = insufficient;
       if (s) {  // process_restart: read_restart_marker, jpeg_resync_to_restart
         if (!m.found) truncated();
+        if (raw && m.code != 0xD0 + expect) {  // libtiff's OJPEG resync_to_restart fails the decoding
+          raw_fail = first;
+          break;
+        }
         int action;
         for (;;) {
           int mk = m.code;
@@ -1010,6 +1028,29 @@ struct Decoder {
     return useful;
   }
 
+  // libjpeg's raw data output (jpeg_read_raw_data): each component's
+  // samples at its own sampling, whole blocks of whole MCU rows (stride x
+  // rows blocks, 8 x 8 samples each), no upsampling and no colour
+  // conversion, one plane after another
+  void raw_planes(uint8_t* out) {
+    bool smooth_on = smoothing_ok();
+    for (const Component& c : comps) {
+      int64_t q[64];
+      for (int k = 0; k < 64; ++k) q[k] = c.latched ? i16(c.quant[k]) : 0;
+      std::vector<int16_t> smoothed;
+      const int16_t* coef = c.coef.data();
+      if (smooth_on) {
+        smoothed = smooth(c, mcuy, last_good, scans);
+        coef = smoothed.data();
+      }
+      int64_t ps = int64_t(c.stride) * 8;
+      for (int64_t by = 0; by < c.rows; ++by)
+        for (int64_t bx = 0; bx < c.stride; ++bx)
+          idct_islow(coef + (by * c.stride + bx) * 64, q, out + by * 8 * ps + bx * 8, ps);
+      out += ps * c.rows * 8;
+    }
+  }
+
   void finish(uint8_t* out) {
     int64_t npx = int64_t(width) * height;
     bool smooth_on = smoothing_ok();
@@ -1161,6 +1202,52 @@ int gs_jpeg_decode_tiff(const uint8_t* tables, long long tables_size, const uint
       d.finish(frame.data());
       std::memcpy(out, frame.data(), int64_t(width) * height * channels);
     }
+    return 0;
+  } catch (const Refused& r) {
+    return fail(r.msg);
+  } catch (const std::bad_alloc&) {
+    return fail("out of host memory");
+  }
+}
+
+// layout[0..2] = components, height, width; then per component h, v and
+// its raw plane's width and height (whole MCUs)
+int gs_jpeg_raw_layout(const uint8_t* data, long long size, int* layout) {
+  try {
+    Decoder d(data, size, true);
+    d.raw = true;
+    d.run();
+    layout[0] = static_cast<int>(d.comps.size());
+    layout[1] = d.height;
+    layout[2] = d.width;
+    for (size_t i = 0; i < d.comps.size(); ++i) {
+      layout[3 + 4 * i] = d.comps[i].h;
+      layout[4 + 4 * i] = d.comps[i].v;
+      layout[5 + 4 * i] = d.mcux * d.comps[i].h * 8;
+      layout[6 + 4 * i] = d.mcuy * d.comps[i].v * 8;
+    }
+    return 0;
+  } catch (const Refused& r) {
+    return fail(r.msg);
+  } catch (const std::bad_alloc&) {
+    return fail("out of host memory");
+  }
+}
+
+// The raw planes of gs_jpeg_raw_layout, back to back, into `out` (`capacity`
+// bytes); *good_rows: the iMCU rows libtiff's old-style JPEG codec delivers
+// before a restart marker that is not the one expected (its resync fails
+// the decoding for good).
+int gs_jpeg_decode_raw(const uint8_t* data, long long size, uint8_t* out, long long capacity, int* good_rows) {
+  try {
+    Decoder d(data, size, false);
+    d.raw = true;
+    d.run();
+    int64_t need = 0;
+    for (const Component& c : d.comps) need += int64_t(c.stride) * 8 * c.rows * 8;
+    if (need > capacity) return fail("output buffer too small");
+    d.raw_planes(out);
+    *good_rows = static_cast<int>(d.raw_fail < 0 ? d.mcuy : d.raw_fail / d.mcux);
     return 0;
   } catch (const Refused& r) {
     return fail(r.msg);

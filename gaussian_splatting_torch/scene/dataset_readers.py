@@ -183,6 +183,8 @@ _NOT_THE_PICTURE = {
     "I;16B": "a 16-bit grey image (mode I;16B), whose pixels PIL's np.asarray gives as 0..65535",
     "I": "a 32-bit integer image (mode I), whose pixels PIL's np.asarray gives as 32-bit integers",
     "F": "a floating-point image (mode F), whose pixels PIL's np.asarray gives as 32-bit floats",
+    "LAB": "a CIELab image (mode LAB), whose pixels PIL's np.asarray gives as L, a and b, which the path would "
+           "take for R, G and B",
 }
 
 

@@ -1,6 +1,6 @@
 """The compiled byte loops of the BMP, TIFF, GIF and TGA readers (`csrc/image_codecs.cc`).
 
-LZW and PackBits (TIFF), RLE8 / RLE4 (BMP), GIF's LZW and TGA's RLE run per code, packet or byte,
+LZW, PackBits and ThunderScan (TIFF), RLE8 / RLE4 (BMP), GIF's LZW and TGA's RLE run per code, packet or byte,
 so they are host C++, built by `cuda_build.build_host` at first use and
 loaded with ctypes. Nothing falls back to another implementation: if the
 library cannot be built, the read raises, naming the file.
@@ -22,9 +22,12 @@ def _library(name: str):
         raise RuntimeError(f"{name}: the image codecs (csrc/image_codecs.cc) could not be built: "
                            f"{err}") from err
     if not hasattr(lib, "_gs_typed"):
-        buf = (ctypes.c_char_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong)
+        buf = (ctypes.c_char_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p)
         for fn in (lib.gs_lzw_decode, lib.gs_packbits_decode):
             fn.argtypes, fn.restype = list(buf), ctypes.c_int
+        lib.gs_thunderscan_decode.argtypes = [ctypes.c_char_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                              ctypes.c_void_p]
+        lib.gs_thunderscan_decode.restype = ctypes.c_int
         lib.gs_bmp_rle_decode.argtypes = [ctypes.c_char_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
                                           ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
         lib.gs_bmp_rle_decode.restype = ctypes.c_int
@@ -39,24 +42,41 @@ def _library(name: str):
     return lib
 
 
-def _stream(fn_name: str, data: bytes, size: int, name: str) -> np.ndarray:
+def _stream(fn_name: str, data: bytes, size: int, name: str, partial: bool = False) -> np.ndarray:
     lib = _library(name)
-    out = np.empty(size, np.uint8)
-    if getattr(lib, fn_name)(data, len(data), out.ctypes.data, size):
+    out = np.zeros(size, np.uint8)
+    produced = ctypes.c_longlong(0)
+    if getattr(lib, fn_name)(data, len(data), out.ctypes.data, size, ctypes.addressof(produced)):
+        if partial:
+            return out[:produced.value]
         raise ValueError(f"{name}: {lib.gs_codec_error().decode()}")
     return out
 
 
-def lzw_decode(data: bytes, size: int, name: str) -> np.ndarray:
+def lzw_decode(data: bytes, size: int, name: str, partial: bool = False) -> np.ndarray:
     """The `size` bytes of one TIFF strip or tile coded in LZW (libtiff's
-    new style); raises a `ValueError` naming `name` on old-style, corrupt
-    or short data."""
-    return _stream("gs_lzw_decode", data, size, name)
+    new style, or its old style, codes least significant bit first, as its
+    LZWDecodeCompat reads it); raises a `ValueError` naming `name` on
+    corrupt or short data, or with `partial` returns the bytes decoded
+    before the fault."""
+    return _stream("gs_lzw_decode", data, size, name, partial)
 
 
-def packbits_decode(data: bytes, size: int, name: str) -> np.ndarray:
-    """The `size` bytes of one TIFF strip or tile coded in PackBits."""
-    return _stream("gs_packbits_decode", data, size, name)
+def packbits_decode(data: bytes, size: int, name: str, partial: bool = False) -> np.ndarray:
+    """The `size` bytes of one TIFF strip or tile coded in PackBits (with
+    `partial`, what short data gives)."""
+    return _stream("gs_packbits_decode", data, size, name, partial)
+
+
+def thunderscan_decode(data: bytes, width: int, rows: int, name: str) -> np.ndarray:
+    """(rows * ceil(width / 2)) bytes of 4-bit grey: one ThunderScan strip
+    or tile as libtiff's ThunderDecode reads it, rows of `width` pixels;
+    raises a `ValueError` naming `name` where libtiff reports an error."""
+    lib = _library(name)
+    out = np.zeros(rows * ((width + 1) // 2), np.uint8)
+    if lib.gs_thunderscan_decode(data, len(data), width, rows, out.ctypes.data):
+        raise ValueError(f"{name}: {lib.gs_codec_error().decode()}")
+    return out
 
 
 def bmp_rle_decode(data: bytes, start: int, rle4: bool, width: int, height: int, name: str) -> np.ndarray:

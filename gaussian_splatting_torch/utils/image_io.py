@@ -7,7 +7,9 @@ its own:
 - `open_image(path)`: the dataset readers' entry. It reads the file's
   signature: a PNG goes to `open_png`, a JPEG to the compiled JPEG
   decoder (`utils/jpeg.py`, PIL's bits: grey, RGB, and CMYK from CMYK and
-  YCCK files), a BMP to `utils/bmp.py`, a TIFF to `utils/tiff.py`, a
+  YCCK files), a BMP to `utils/bmp.py`, a TIFF to `utils/tiff.py` (every
+  TIFF PIL reads: fax, old-style JPEG, YCbCr, CIELab, 1- to 32-bit,
+  signed and float samples included), a
   WebP to `utils/webp.py` (lossy, lossless, alpha, frame 0 of an
   animation), a GIF to `utils/gif.py` (frame 0), a PPM / PGM / PBM / PFM
   (PIL's magics: P1 to P6, Pf and its extensions) to `utils/ppm.py`, and
@@ -46,7 +48,7 @@ from typing import Any, NamedTuple, Optional
 
 import numpy as np
 
-from gaussian_splatting_torch.utils import bmp, gif, jp2, jpeg, ppm, tga, tiff, webp
+from gaussian_splatting_torch.utils import bmp, gif, jp2, jpeg, lab, ppm, tga, tiff, webp
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # 8-bit channels -> PNG colour type (0 grey, 4 grey + alpha, 2 RGB, 6 RGBA),
@@ -111,11 +113,15 @@ FORMATS = "PNG, JPEG, BMP, TIFF, WebP, GIF, PPM / PGM / PBM / PFM, TGA or JPEG 2
 def open_image(path) -> Picture:
     """The `Picture` of a PNG, JPEG, BMP, TIFF, WebP, GIF, PPM / PGM / PBM
     / PFM, TGA or JPEG 2000 file, PIL's pixels and mode. JPEG (mode "L",
-    "RGB" or "CMYK", and the strips and tiles of a JPEG-in-TIFF), WebP
-    ("RGB" or "RGBA") and JPEG 2000 (Part 1 and HTJ2K; "L", "I;16", "LA",
-    "RGB", "RGBA", "CMYK", "P", "PA") are decoded by compiled decoders, and BMP's RLE,
-    TIFF's LZW and PackBits, GIF's LZW and TGA's RLE by the compiled codecs,
-    each built at first use; if one cannot be built this raises."""
+    "RGB" or "CMYK", and the strips and tiles of a JPEG-in-TIFF, old-style
+    ones too), WebP ("RGB" or "RGBA") and JPEG 2000 (Part 1, Part 2 and
+    HTJ2K; "L", "I;16", "LA", "RGB", "RGBA", "CMYK", "P", "PA") are decoded
+    by compiled decoders, TIFF's CCITT fax by its own, and BMP's RLE,
+    TIFF's LZW (both styles), PackBits and ThunderScan, GIF's LZW and TGA's
+    RLE by the compiled codecs, each built at first use; if one cannot be
+    built this raises. TIFF: every form PIL reads (`utils/tiff.py`), in
+    its modes "1", "L", "I;16", "I;16B", "I", "F", "LA", "P", "PA",
+    "RGB", "RGBA", "CMYK", "LAB"."""
     with open(path, "rb") as f:
         head = f.read(tga.HEADER)
     if head.startswith(PNG_SIGNATURE):
@@ -280,7 +286,9 @@ def to_rgba(picture: Picture) -> np.ndarray:
     so does this); a grey TGA with a colour map ("L" or "LA") takes the
     map's colours, "LA" its own alpha; "I" is clipped to 0..255; "F" is
     0 at or below 0 (and NaN), 255 at or above 255, else truncated, as
-    PIL's float-to-byte conversion. Any other mode raises, naming it."""
+    PIL's float-to-byte conversion; "LAB" is LittleCMS's Lab (D50) to sRGB
+    transform as PIL runs it (`utils/lab.py`). Any other mode raises,
+    naming it."""
     px, mode, t = picture.pixels, picture.mode, picture.transparency
     if mode == "RGBA":
         return px.copy()
@@ -288,6 +296,8 @@ def to_rgba(picture: Picture) -> np.ndarray:
         return np.concatenate([_palette_table(picture.palette)[px[..., 0], :3], px[..., 1:]], axis=2)
     if mode == "LA":
         return np.concatenate([px[..., :1].repeat(3, axis=2), px[..., 1:]], axis=2)
+    if mode == "LAB":  # LittleCMS's Lab -> sRGB transform, as PIL runs it
+        return lab.lab_to_rgba(px)
     if mode == "CMYK":
         nk = 255 - px[..., 3:].astype(np.int64)
         rgb = nk - _muldiv255(px[..., :3], nk)

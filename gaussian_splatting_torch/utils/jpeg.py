@@ -1116,6 +1116,11 @@ def _library():
                                             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                             ctypes.c_int, ctypes.c_void_p]
         lib.gs_jpeg_decode_tiff.restype = ctypes.c_int
+        lib.gs_jpeg_raw_layout.argtypes = [ctypes.c_char_p, ctypes.c_longlong, ctypes.c_void_p]
+        lib.gs_jpeg_raw_layout.restype = ctypes.c_int
+        lib.gs_jpeg_decode_raw.argtypes = [ctypes.c_char_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+                                           ctypes.c_void_p]
+        lib.gs_jpeg_decode_raw.restype = ctypes.c_int
         lib.gs_jpeg_error.argtypes = []
         lib.gs_jpeg_error.restype = ctypes.c_char_p
         lib._gs_typed = True
@@ -1152,3 +1157,29 @@ def decode_tiff_jpeg(tables: bytes, data: bytes, height: int, width: int, channe
                                out.ctypes.data):
         raise ValueError(f"{name}: {lib.gs_jpeg_error().decode()}")
     return out
+
+
+def decode_raw(data: bytes, name: str = "<bytes>"):
+    """libjpeg's raw data output of a JPEG stream, by the compiled decoder,
+    as libtiff's old-style JPEG codec takes it: ([((h, v), plane), ...],
+    good), each component's samples at its own sampling (h, v its sampling
+    factors), whole blocks of whole MCU rows (the plane padded past the
+    image as the IDCT fills it), no upsampling and no colour conversion;
+    `good` the MCU rows delivered before a restart marker other than the
+    one expected, at which libtiff's codec fails for good. Raises a
+    `ValueError` naming `name` where the decoder refuses the stream."""
+    lib = _library()
+    layout = (ctypes.c_int * 19)()
+    if lib.gs_jpeg_raw_layout(data, len(data), ctypes.addressof(layout)):
+        raise ValueError(f"{name}: {lib.gs_jpeg_error().decode()}")
+    n = layout[0]
+    shapes = [(layout[3 + 4 * i], layout[4 + 4 * i], layout[6 + 4 * i], layout[5 + 4 * i]) for i in range(n)]
+    out = np.empty(sum(ph * pw for _, _, ph, pw in shapes), np.uint8)
+    good = ctypes.c_int(0)
+    if lib.gs_jpeg_decode_raw(data, len(data), out.ctypes.data, out.nbytes, ctypes.addressof(good)):
+        raise ValueError(f"{name}: {lib.gs_jpeg_error().decode()}")
+    planes, at = [], 0
+    for h, v, ph, pw in shapes:
+        planes.append(((h, v), out[at:at + ph * pw].reshape(ph, pw)))
+        at += ph * pw
+    return planes, good.value

@@ -2,62 +2,66 @@
 
 The JAX package opens its dataset images with PIL, which reads a TIFF's
 first image (frame 0) with its TiffImagePlugin: uncompressed strips and
-tiles by its own raw decoder, everything compressed through libtiff. This
-is the port's reader of the forms photogrammetry and capture tools write,
-returning an `image_io.Picture`:
+tiles by its own raw decoder and raw modes, everything compressed through
+libtiff. This is the port's reader of every TIFF PIL 12.1.0 (libtiff
+4.7.1) reads, returning an `image_io.Picture`:
 
 - classic TIFF in either byte order ("II" and "MM") and little-endian
   BigTIFF ("II+", 20-byte IFD entries, LONG8 offsets; PIL reads a
   big-endian one's header as a classic TIFF's and finds no image), the
   first IFD, strips (the last one short) and tiles (cropped where they
   overhang);
+- every layout key of PIL's OPEN_INFO (`LAYOUTS`, `SAMPLE_LAYOUTS`): 1, 2,
+  4, 8, 12 (mode "I;16"), 16 and 32 (mode "I") bits, unsigned, signed
+  (SampleFormat 2: 8 bits "L" as stored, 16 and 32 "I") and float32
+  (SampleFormat 3: "F"); grey (2- and 4-bit scaled as PIL's unpackers
+  scale), RGB(A), palette ("P" at 1 to 8 bits, palette + alpha "PA"),
+  CMYK, YCbCr and CIELab ("LAB", the samples as stored); 16-bit RGB, RGBA
+  and CMYK as their high bytes; "MM" signed and float samples through
+  libtiff come out byte-swapped, as PIL unpacks libtiff's host-order
+  samples with the file's raw mode; layouts PIL has in "II" only
+  (`LITTLE_ENDIAN_ONLY`) refused in "MM";
+- FillOrder 2 where OPEN_INFO has the layout (`FILL_ORDER_2`): each byte's
+  bits reversed (PIL's raw modes; libtiff reverses the coded bytes), but
+  uncompressed in the four raw modes PIL has no unpacker for
+  (`FILL_ORDER_2_UNPACKED`);
 - `PlanarConfiguration` 1, and 2 (each sample's strips or tiles in turn)
-  where PIL reads the layout in planes as the picture (`PLANAR_READS`):
-  8-bit RGB, RGBA and CMYK in every coding (uncompressed, PIL's raw
-  decoder reads each plane from its own offsets), 16-bit ones and
-  associated alpha compressed (libtiff), unspecified extra samples in
-  compressed tiles;
-- compression none (1), PackBits (32773), LZW (5, libtiff's new style),
-  deflate (8, 32946), LZMA (34925: one .xz stream a strip, by the
-  standard library's liblzma, as libtiff's LZMADecode reads it), ZSTD
-  (50000: Zstandard frames as libtiff's ZSTDDecode reads them, by the
-  compiled decoder `csrc/zstd_decode.cc`, `utils/zstd.py`) and JPEG (7:
-  8-bit samples, each strip or tile a JPEG stream after the JPEGTables
-  tag's tables, decoded by the compiled JPEG decoder as libtiff decodes
-  it, `utils/jpeg.decode_tiff_jpeg`: with no colour conversion, or in
-  YCbCr (photometric 6, 3 samples) converted to RGB with libjpeg's
-  upsampling, as libtiff's JPEGCOLORMODE_RGB gives it to PIL, the
-  subsampling from the YCbCrSubsampling tag or, without it, from the
-  first strip's frame (libtiff's JPEGFixupTagsSubsampling)); `Predictor`
-  2 (horizontal differencing per sample, 8 and 16 bits, in the sample's
-  own unsigned arithmetic) under LZW, deflate, LZMA and ZSTD, where
-  libtiff applies it;
-- photometric WhiteIsZero (0: "1" and "L" inverted; 16 bits "I;16" as
-  stored, as PIL reads it), BlackIsZero (1), RGB (2), palette (3, the
-  ColorMap's high bytes), CMYK (5) and YCbCr under JPEG (6, mode "RGB");
-- 1, 8 and 16 bits a sample, in PIL's modes: "1", "L", "I;16" (little
-  endian) / "I;16B" (big endian), "LA", "RGB", "RGBA", "P", "CMYK"; 16-bit
-  RGB, RGBA and CMYK as their high bytes;
-- ExtraSamples: unassociated alpha (2) gives "RGBA" / "LA", associated
-  alpha (1) "RGBA" divided back as PIL's "RGBa" unpacker divides, an
-  unspecified sample (0) is dropped;
+  where PIL reads the layout in planes as the picture (`PLANAR_READS`),
+  YCbCr at 1x1 too;
+- compression none (1), PackBits (32773), LZW (5, new style and libtiff's
+  old style, codes least significant bit first), deflate (8, 32946), LZMA
+  (34925: one .xz stream a strip, by the standard library's liblzma, as
+  libtiff's LZMADecode reads it), ZSTD (50000: `utils/zstd.py`), JPEG (7:
+  `jpeg.decode_tiff_jpeg`, libtiff's JPEG codec; YCbCr with libjpeg's
+  conversion), old-style JPEG (6: `utils/ojpeg.py`), CCITT modified
+  Huffman (2), Group 3 (3), Group 4 (4) and 32771 (`utils/fax.py`, the
+  compiled `csrc/fax_decode.cc`), ThunderScan (32809); `Predictor` 2
+  (horizontal differencing in the sample's own unsigned arithmetic, 8, 16
+  and 32 bits) and 3 (libtiff's floating-point differencing) under LZW,
+  deflate, LZMA and ZSTD, where libtiff applies them;
+- YCbCr (photometric 6) without JPEG through libtiff's RGBA reader
+  (`utils/tiff_ycbcr.py`: data units at every subsampling it has a routine
+  for, TIFF's YCbCr -> RGB), uncompressed through PIL's raw mode RGBX (four
+  bytes a pixel); old-style JPEG the same way (PIL reads it as YCbCr);
+- ExtraSamples: unassociated alpha (2) gives "RGBA" / "LA" / "PA",
+  associated alpha (1) "RGBA" divided back as PIL's "RGBa" unpacker
+  divides, an unspecified sample (0) is dropped;
 - the Orientation tag (274) applied after decoding, as PIL's TIFF loader
   does (`ImageOps.exif_transpose`).
 
-LZW and PackBits run in compiled host C++ (`utils/image_codecs`), JPEG
-and ZSTD in their compiled decoders, deflate in zlib, LZMA in lzma, the
-rest in numpy. Everything else raises a `ValueError` naming the file and
-the feature: old-style JPEG (6), CCITT (2, 3, 4), WebP (which PIL's
-libtiff is built without) and the other compressions; old-style LZW;
-`Predictor` 3; the planar layouts PIL does not read as the picture
-(16-bit uncompressed planes, which it reads as 8-bit; grey + alpha
-planes; associated alpha or unspecified samples in uncompressed planes;
-RGBA without ExtraSamples in compressed planes, which it reads as
-associated alpha); `FillOrder` 2; signed and floating-point samples;
-YCbCr without JPEG, CIELab and other photometrics; depths other than 1,
-8 and 16; layouts PIL does not know; corrupt or truncated data (where
-libtiff reports an error, PIL raises). An image over PIL's
-decompression-bomb limit raises too.
+LZW, PackBits and ThunderScan run in compiled host C++
+(`utils/image_codecs`), CCITT in its own (`utils/fax`), JPEG and ZSTD in
+their compiled decoders, deflate in zlib, LZMA in lzma, the rest in numpy.
+Everything PIL refuses raises a `ValueError` naming the file and the
+feature: SGILog and SGILog24, WebP (which PIL's libtiff is built without),
+the photometrics and layouts PIL has no key for, 64-bit and RGB floats,
+big-endian BigTIFF, the planar layouts PIL does not read as the picture,
+corrupt or truncated data where libtiff reports an error and PIL raises.
+Two readings PIL makes of damaged fax data are refused too: a Group 4
+strip that ends before its last row (PIL's pixels there are whatever its
+strip buffer held) and a Group 3 strip that does (libtiff's recovery past
+the data's end is not followed). An image over PIL's decompression-bomb
+limit raises too.
 """
 
 from __future__ import annotations
@@ -70,13 +74,15 @@ import zlib
 
 import numpy as np
 
-from gaussian_splatting_torch.utils import image_codecs, jpeg, zstd
+from gaussian_splatting_torch.utils import fax, image_codecs, jpeg, ojpeg, tiff_ycbcr, zstd
 
 MAX_PIXELS = 2 * 89478485  # PIL raises DecompressionBombError past this
 SIGNATURES = (b"II*\x00", b"MM\x00*", b"II\x00*", b"MM*\x00", b"II+\x00", b"MM\x00+")  # PIL's prefixes
-SUPPORTED = ("the port reads classic and little-endian BigTIFF, uncompressed, PackBits, LZW, deflate, LZMA, ZSTD "
-             "or JPEG (YCbCr included), 1, 8 or 16 bits, grey, RGB(A), palette or CMYK, in planes where PIL reads "
-             "them as the picture")
+SUPPORTED = ("the port reads every TIFF PIL reads: classic and little-endian BigTIFF, uncompressed, PackBits, LZW "
+             "(old style too), deflate, LZMA, ZSTD, JPEG, old-style JPEG, CCITT (modified Huffman, Group 3, Group 4, "
+             "32771) or ThunderScan, every layout of PIL's OPEN_INFO (1 to 32 bits, signed and float samples, "
+             "FillOrder 2, grey, RGB(A), palette (+ alpha), CMYK, YCbCr, CIELab), in planes where PIL reads them as "
+             "the picture")
 
 # tags
 WIDTH, LENGTH, BITS, COMPRESSION, PHOTOMETRIC, FILL_ORDER, STRIP_OFFSETS = 256, 257, 258, 259, 262, 266, 273
@@ -85,6 +91,7 @@ COLORMAP, TILE_WIDTH, TILE_LENGTH, TILE_OFFSETS, TILE_COUNTS, EXTRA, SAMPLE_FORM
     320, 322, 323, 324, 325, 338, 339)
 OFFSET_TAGS = (STRIP_OFFSETS, STRIP_COUNTS, TILE_OFFSETS, TILE_COUNTS)
 JPEG_TABLES, YCBCR_SUBSAMPLING = 347, 530  # JPEGTables: UNDEFINED, kept as bytes
+YCBCR_COEFFICIENTS, REFERENCE_BLACK_WHITE = 529, 532  # RATIONAL, kept as float32
 # integer field types PIL keeps: byte, short, long, sbyte, sshort, slong,
 # long8; libtiff, which reads the compressed forms for PIL, also takes
 # slong8 for the strip and tile offsets and counts (not ifd8)
@@ -92,26 +99,33 @@ _INT_TYPES = {1: "u1", 3: "u2", 4: "u4", 6: "i1", 8: "i2", 9: "i4", 16: "u8"}
 _LIBTIFF_TYPES = {17: "i8"}
 
 NONE, LZW, JPEG, DEFLATE, ADOBE_DEFLATE, PACKBITS, LZMA, ZSTD = 1, 5, 7, 32946, 8, 32773, 34925, 50000
-COMPRESSIONS = (NONE, LZW, JPEG, DEFLATE, ADOBE_DEFLATE, PACKBITS, LZMA, ZSTD)
+CCITT_RLE, CCITT_G3, CCITT_G4, OJPEG, CCITT_RLEW, THUNDERSCAN = 2, 3, 4, 6, 32771, 32809
+FAX = (CCITT_RLE, CCITT_G3, CCITT_G4, CCITT_RLEW)
+COMPRESSIONS = (NONE, LZW, JPEG, DEFLATE, ADOBE_DEFLATE, PACKBITS, LZMA, ZSTD, OJPEG, THUNDERSCAN) + FAX
 REFUSED_COMPRESSION = {
-    2: "CCITT modified Huffman (compression 2)", 3: "CCITT Group 3 (compression 3)",
-    4: "CCITT Group 4 (compression 4)", 6: "old-style JPEG-in-TIFF (compression 6)",
-    32771: "16-bit padded raw data (compression 32771)",
-    32809: "ThunderScan (compression 32809)", 34676: "SGILog (compression 34676)",
-    34677: "SGILog24 (compression 34677)",
+    34676: "SGILog (compression 34676), which PIL refuses too (no layout for its LogL / LogLuv photometrics)",
+    34677: "SGILog24 (compression 34677), which PIL refuses too (no layout for its LogLuv photometric)",
     50001: "WebP (compression 50001), which PIL refuses too (its libtiff is built without WebP)",
 }
-REFUSED_PHOTOMETRIC = {4: "a transparency mask (photometric 4)", 6: "YCbCr (photometric 6)",
-                       8: "CIELab (photometric 8)", 9: "ICCLab (photometric 9)", 10: "ITULab (photometric 10)"}
+REFUSED_PHOTOMETRIC = {4: "a transparency mask (photometric 4), which PIL refuses too (no layout)",
+                       9: "ICCLab (photometric 9), which PIL refuses too (no layout)",
+                       10: "ITULab (photometric 10), which PIL refuses too (no layout)",
+                       32844: "LogL (photometric 32844), which PIL refuses too (no layout)",
+                       32845: "LogLuv (photometric 32845), which PIL refuses too (no layout)"}
 # (photometric, bits per sample, extra samples) -> (PIL's mode, how the
-# samples become it); the forms of PIL's OPEN_INFO at 1, 8 and 16 bits
-# that the port reads
+# samples become it): the keys of PIL's OPEN_INFO with SampleFormat 1
 LAYOUTS = {
     (0, (1,), ()): ("1", "invert"), (1, (1,), ()): ("1", "grey"),
+    (0, (2,), ()): ("L", "invert"), (1, (2,), ()): ("L", "scale"),
+    (0, (4,), ()): ("L", "invert"), (1, (4,), ()): ("L", "scale"),
     (0, (8,), ()): ("L", "invert"), (1, (8,), ()): ("L", "grey"),
+    (1, (12,), ()): ("I;16", "grey"),
     (0, (16,), ()): ("I;16", "grey"), (1, (16,), ()): ("I;16", "grey"),
+    (1, (32,), ()): ("I", "grey"),
     (1, (8, 8), (2,)): ("LA", "take"),
-    (3, (1,), ()): ("P", "take"), (3, (8,), ()): ("P", "take"), (3, (8, 8), (0,)): ("P", "take"),
+    (3, (1,), ()): ("P", "take"), (3, (2,), ()): ("P", "take"), (3, (4,), ()): ("P", "take"),
+    (3, (8,), ()): ("P", "take"), (3, (8, 8), (0,)): ("P", "take"), (3, (8, 8), (2,)): ("PA", "take"),
+    (6, (8,), ()): ("L", "grey"), (8, (8,) * 3, ()): ("LAB", "take"),
 }
 for _bits in (8, 16):
     LAYOUTS[(2, (_bits,) * 3, ())] = ("RGB", "take")
@@ -124,7 +138,18 @@ for _pad in (1, 2):  # 8-bit layouts with unspecified samples after the alpha
         LAYOUTS[(2, (8,) * (4 + _pad), (_first,) + (0,) * _pad)] = _layout
     LAYOUTS[(5, (8,) * (4 + _pad), (0,) * _pad)] = ("CMYK", "take")
 LAYOUTS[(2, (8,) * 4, (999,))] = ("RGBA", "take")  # Corel Draw 10's ExtraSamples, in PIL's table
-YCBCR_LAYOUT = ((6, (8,) * 3, ()), ("RGB", "take"))  # under JPEG: libtiff converts to RGB
+YCBCR_LAYOUT = ((6, (8,) * 3, ()), ("RGB", "take"))  # libtiff converts to RGB (JPEG, or its RGBA reader)
+# (photometric, SampleFormat, bits) -> PIL's mode: the signed (2) and
+# floating-point (3) keys of OPEN_INFO, one sample; signed 8-bit is "L" as
+# stored
+SAMPLE_LAYOUTS = {(1, 2, 8): "L", (1, 2, 16): "I", (1, 2, 32): "I", (1, 3, 32): "F", (0, 3, 32): "F"}
+# layouts OPEN_INFO has in "II" order only
+LITTLE_ENDIAN_ONLY = {(0, (16,), ()), (1, (12,), ()), (1, (32,), ())}
+# FillOrder 2: the keys OPEN_INFO has (PIL reads them as FillOrder 1 with
+# each byte's bits reversed), and among them those whose raw mode PIL's raw
+# decoder has no unpacker for (it reads an uncompressed one of them not)
+FILL_ORDER_2 = {(p, (b,), ()) for p in (0, 1, 3) for b in (1, 2, 4, 8)} | {(1, (16,), ()), (2, (8,) * 3, ())}
+FILL_ORDER_2_UNPACKED = {(0, (8,), ()), (3, (1,), ()), (3, (2,), ()), (3, (4,), ())}
 # PlanarConfiguration 2: where PIL reads a layout in planes as the picture,
 # uncompressed (its raw decoder, each plane by `rawmode[layer]`) or
 # compressed (libtiff and PIL's per-band unpackers), in strips or tiles;
@@ -183,6 +208,19 @@ def _tags(data: bytes, name: str):
                             n, at + count_size)
     tags, types = {}, {}
     for tag, typ, count, value in entries.tolist():
+        if tag in (YCBCR_COEFFICIENTS, REFERENCE_BLACK_WHITE) and typ in (5, 11) and count:  # libtiff's floats
+            size = count * (8 if typ == 5 else 4)
+            where = int.from_bytes(bytes(value), endian) if size > inline else None
+            raw = bytes(value)[:size] if where is None else data[where:where + size]
+            if len(raw) == size:
+                if typ == 5:
+                    nd = np.frombuffer(raw, order + "u4").astype(np.float32).reshape(-1, 2)
+                    tags[tag] = tuple(np.where(nd[:, 1] == 0, np.float32(0), nd[:, 0] / np.where(
+                        nd[:, 1] == 0, np.float32(1), nd[:, 1])).astype(np.float32).tolist())
+                else:
+                    tags[tag] = tuple(np.frombuffer(raw, order + "f4").tolist())
+                types[tag] = typ
+            continue
         if tag == JPEG_TABLES and typ == 7:  # UNDEFINED bytes
             typ = 1
         elif count == 0 or not (typ in _INT_TYPES or (typ in _LIBTIFF_TYPES and tag in OFFSET_TAGS)):
@@ -203,7 +241,7 @@ def _tags(data: bytes, name: str):
 
 def decode_tiff(data: bytes, name: str = "<bytes>"):
     """The `image_io.Picture` of the first image of TIFF bytes: PIL's pixels
-    (with a channel axis) and mode, and the palette of mode "P"."""
+    (with a channel axis) and mode, and the palette of modes "P" and "PA"."""
     from gaussian_splatting_torch.utils.image_io import Picture
 
     if not data.startswith(SIGNATURES):
@@ -224,22 +262,25 @@ def decode_tiff(data: bytes, name: str = "<bytes>"):
         for tag in OFFSET_TAGS:
             if types.get(tag) in _LIBTIFF_TYPES:
                 del tags[tag]
-    photo = one(PHOTOMETRIC, 0)
-    if (photo in REFUSED_PHOTOMETRIC and not (photo == 6 and compression == JPEG)) or photo not in (0, 1, 2, 3, 5, 6):
-        _refuse(name, REFUSED_PHOTOMETRIC.get(photo, f"photometric interpretation {photo}"))
-    if one(FILL_ORDER, 1) != 1:
-        _refuse(name, f"FillOrder {one(FILL_ORDER)} (the bits of a byte least significant first)")
+    if compression == OJPEG and one(PHOTOMETRIC, 0) not in (2, 6):
+        _refuse(name, f"old-style JPEG with photometric {one(PHOTOMETRIC, 0)} (libtiff's RGBA reader fails it: PIL "
+                      f"raises)")
+    photo = 6 if compression == OJPEG else one(PHOTOMETRIC, 0)  # PIL: old-style JPEG is YCbCr
+    if photo in REFUSED_PHOTOMETRIC or photo not in (0, 1, 2, 3, 5, 6, 8):
+        _refuse(name, REFUSED_PHOTOMETRIC.get(photo, f"photometric interpretation {photo}, which PIL refuses too "
+                                                     f"(no layout)"))
+    fill_order = one(FILL_ORDER, 1)
     if WIDTH not in tags or LENGTH not in tags:
         _refuse(name, "a TIFF without its ImageWidth or ImageLength")
     width, height = one(WIDTH), one(LENGTH)
     if width * height > MAX_PIXELS:
         _refuse(name, f"an image of more than {MAX_PIXELS} pixels (PIL's decompression bomb limit)")
     sample_format = tags.get(SAMPLE_FORMAT, (1,))
-    if set(sample_format) != {1}:
-        _refuse(name, f"SampleFormat {sample_format} (signed or floating-point samples)")
+    if len(sample_format) > 1 and set(sample_format) == {1}:
+        sample_format = (1,)  # PIL keeps one value where every sample is unsigned
     # PIL's reading of BitsPerSample against SamplesPerPixel
     bits, extra = tags.get(BITS, (1,)), tags.get(EXTRA, ())
-    spp = one(SAMPLES, 1)
+    spp = one(SAMPLES, 3 if compression == OJPEG and one(PHOTOMETRIC, 0) in (2, 6) else 1)
     if spp < len(bits):
         bits = bits[:spp]
     elif spp > len(bits) == 1:
@@ -248,58 +289,117 @@ def decode_tiff(data: bytes, name: str = "<bytes>"):
         _refuse(name, f"{len(bits)} BitsPerSample values for {spp} samples per pixel (PIL: unknown data "
                       f"organization)")
     planar = spp > 1 and one(PLANAR, 1) == 2
-    if any(b not in (1, 8, 16) for b in bits) or len(set(bits)) > 1:
-        _refuse(name, f"{'/'.join(map(str, bits))}-bit samples")
     depth = bits[0]
-    if compression == JPEG and depth != 8:
-        _refuse(name, f"JPEG-in-TIFF at {depth} bits a sample (libtiff reads 8)")
     key = (photo, bits, extra)
-    layout = YCBCR_LAYOUT[1] if key == YCBCR_LAYOUT[0] else LAYOUTS.get(key)
-    if layout is None or (depth == 16 and photo == 0 and order == ">"):
-        _refuse(name, f"photometric {photo} with {'/'.join(map(str, bits))} bits and extra samples "
-                      f"{extra} (a layout PIL does not read as the port does)")
-    if planar:
+    if sample_format == (1,):
+        layout = YCBCR_LAYOUT[1] if key == YCBCR_LAYOUT[0] else LAYOUTS.get(key)
+        if order == ">" and key in LITTLE_ENDIAN_ONLY:
+            layout = None
+    else:
+        mode = SAMPLE_LAYOUTS.get((photo, sample_format[0], depth)) if len(sample_format) == 1 else None
+        layout = (mode, "take") if mode and spp == 1 and not extra else None
+    if layout is None:
+        _refuse(name, f"photometric {photo} with {'/'.join(map(str, bits))} bits, SampleFormat {sample_format} "
+                      f"and extra samples {extra} (a layout PIL does not read: unknown pixel mode)")
+    if fill_order != 1:
+        if fill_order != 2 or sample_format != (1,) or key not in FILL_ORDER_2 or (order == ">" and depth == 16):
+            _refuse(name, f"FillOrder {fill_order} with this layout (PIL: unknown pixel mode)")
+        if compression == NONE and key in FILL_ORDER_2_UNPACKED:
+            _refuse(name, "FillOrder 2 uncompressed in a layout PIL's raw decoder has no unpacker for (PIL: unknown "
+                          "raw mode)")
+    if compression in (JPEG, OJPEG) and depth != 8:
+        _refuse(name, f"JPEG-in-TIFF at {depth} bits a sample (libtiff reads 8)")
+    if compression in FAX and depth != 1:
+        _refuse(name, f"CCITT fax at {depth} bits a sample (libtiff: Bits/sample must be 1 for Group 3/4)")
+    if compression == THUNDERSCAN and depth != 4:
+        _refuse(name, f"ThunderScan at {depth} bits a sample (libtiff: its decoder only supports 4 bits)")
+    ycbcr_planes = photo == 6 and planar and compression not in (JPEG, OJPEG) and key == YCBCR_LAYOUT[0]
+    if ycbcr_planes and compression != NONE and _subsampling(tags) != (1, 1):
+        _refuse(name, f"YCbCr in planes subsampled {_subsampling(tags)} (libtiff's RGBA reader reads planes only "
+                      f"at 1x1)")
+    if planar and not ycbcr_planes:
         coded = "uncompressed" if compression == NONE else "compressed"
         kind = "tiles" if TILE_OFFSETS in tags else "strips"
         if (coded, kind) not in PLANAR_READS.get(key, ()):
             _refuse(name, _planar_fault(key, coded, kind))
     mode, how = layout
-    if mode == "I;16" and order == ">":
+    if mode == "I;16" and order == ">" and depth == 16:
         mode = "I;16B"
     predictor = one(PREDICTOR, 1) if compression in (LZW, DEFLATE, ADOBE_DEFLATE, LZMA, ZSTD) else 1
-    if predictor == 3:
-        _refuse(name, "Predictor 3 (floating-point differencing)")
-    if predictor not in (1, 2) or (predictor == 2 and depth == 1):
+    if predictor not in (1, 2, 3) or (predictor == 2 and depth not in (8, 16, 32)):
         _refuse(name, f"Predictor {predictor} at {depth} bits (libtiff refuses it)")
+    if predictor == 3 and sample_format != (3,):
+        _refuse(name, f"Predictor 3 on SampleFormat {sample_format} (libtiff refuses floating-point differencing "
+                      f"of other samples)")
 
     chunks = _Chunks(data, name, tags, compression, width, height, spp, depth, planar)
+    orientation = one(ORIENTATION, 1)
+    if photo == 6 and compression not in (JPEG, NONE) and spp == 3 and not planar:
+        pixels = _rgba_reader(data, name, tags, chunks, compression, predictor, fill_order)
+        return Picture(np.ascontiguousarray(_orient(pixels, orientation)), mode)
+    if photo == 6 and compression == NONE and spp == 3 and not planar:
+        pixels = _raw_rgbx(data, name, chunks)
+        return Picture(np.ascontiguousarray(_orient(pixels, orientation)), mode)
+    if ycbcr_planes:  # uncompressed: PIL's raw decoder takes each plane as R, G, B; else libtiff converts
+        canvas = _samples(data, name, chunks, order, compression, predictor, None, tags, fill_order)
+        pixels = canvas.reshape(height, width, 3)
+        if compression != NONE:
+            pixels = tiff_ycbcr.to_rgb(pixels[..., 0], pixels[..., 1], pixels[..., 2], _ycbcr_tables(name, tags))
+        return Picture(np.ascontiguousarray(_orient(pixels, orientation)), mode)
+    if photo == 6 and compression not in (JPEG, NONE):
+        _refuse(name, "one-sample or planar YCbCr (libtiff's RGBA reader: can not handle the format)")
     ycbcr = _ycbcr_subsampling(data, tags, chunks) if photo == 6 else None
-    canvas = _samples(data, name, chunks, order, compression, predictor, ycbcr, tags)
-    if depth == 1:
-        samples = np.unpackbits(canvas, axis=1)[:, :width, None]
-    elif depth == 8:
-        samples = canvas[:, :width * spp].reshape(height, width, spp)
-    else:
-        samples = canvas[:, :2 * width * spp].view(order + "u2").reshape(height, width, spp)
+    canvas = _samples(data, name, chunks, order, compression, predictor, ycbcr, tags, fill_order)
+    samples = _unpack(canvas, width, height, spp, depth, order, sample_format[0])
+    if compression != NONE and order == ">" and sample_format != (1,) and depth > 8:
+        samples = samples.byteswap()  # libtiff gives host order, PIL unpacks it as the file's ("I;16BS", ...)
     palette = None
     if how == "invert":
-        pixels = 1 - samples if depth == 1 else 255 - samples
+        pixels = 1 - samples if depth == 1 else 255 - _scale(samples, depth)
+    elif how == "scale":
+        pixels = _scale(samples, depth)
     elif how == "unpremultiply":
         pixels = _unpremultiply(_high_bytes(samples[..., :4]))
+    elif mode in ("I", "F"):
+        pixels = samples.astype("<i4" if mode == "I" else "<f4")
+    elif mode.startswith("I;16"):
+        pixels = samples
     else:
-        pixels = samples if mode.startswith("I;16") else _high_bytes(samples[..., :len(mode)])
+        pixels = _high_bytes(samples[..., :len(mode)])
     if mode == "1":
         pixels = pixels != 0
     elif mode == "I;16":
         pixels = pixels.astype(np.uint16)
-    elif mode == "P":
+    elif mode in ("P", "PA"):
         if COLORMAP not in tags:
             _refuse(name, "a palette TIFF without its ColorMap")
         cmap = np.asarray(tags[COLORMAP], np.int64) // 256
         n = len(cmap) // 3
         palette = np.stack([cmap[:n], cmap[n:2 * n], cmap[2 * n:3 * n]], -1).astype(np.uint8)
-        pixels = pixels[..., :1]
-    return Picture(np.ascontiguousarray(_orient(pixels, one(ORIENTATION, 1))), mode, palette)
+        pixels = pixels[..., :len(mode)]
+    return Picture(np.ascontiguousarray(_orient(pixels, orientation)), mode, palette)
+
+
+def _scale(samples: np.ndarray, depth: int) -> np.ndarray:
+    """PIL's L;2 and L;4 unpackers: 2- and 4-bit grey spread over 0..255."""
+    return samples * (255 // ((1 << depth) - 1)) if depth in (2, 4) else samples
+
+
+def _unpack(canvas: np.ndarray, width: int, height: int, spp: int, depth: int, order: str, fmt: int) -> np.ndarray:
+    """(height, width, spp) samples of (height, row bytes) sample bytes in
+    the file's byte order: below 8 bits and at 12 packed most significant
+    bit first (uint8 / uint16), 8 bits as bytes (signed ones too, as PIL's
+    "L" keeps them), 16 and 32 bits in the byte order, unsigned, signed or
+    float by the SampleFormat."""
+    if depth == 8:
+        return canvas[:, :width * spp].reshape(height, width, spp)
+    if depth % 8:
+        bits = np.unpackbits(canvas, axis=1)[:, :width * spp * depth].reshape(height, width * spp, depth)
+        values = (bits.astype(np.uint16) << np.arange(depth - 1, -1, -1, dtype=np.uint16)).sum(-1, dtype=np.uint16)
+        return values.astype(np.uint8 if depth < 8 else np.uint16).reshape(height, width, spp)
+    kind = "f" if fmt == 3 else "i" if fmt == 2 else "u"
+    n = depth // 8
+    return canvas[:, :n * width * spp].view(f"{order}{kind}{n}").reshape(height, width, spp)
 
 
 def _planar_fault(key, coded: str, kind: str) -> str:
@@ -404,17 +504,18 @@ def _frame_subsampling(stream: bytes, spp: int):
         return h, v
 
 
-def _samples(data, name, chunks, order, compression, predictor, ycbcr, tags) -> np.ndarray:
+def _samples(data, name, chunks, order, compression, predictor, ycbcr, tags, fill_order=1) -> np.ndarray:
     """(height, row bytes) of the image's decoded sample bytes, pixel
-    interleaved: the strips or tiles decoded (and un-differenced) one by
-    one and put in place; planes (PlanarConfiguration 2) decoded each into
-    its own canvas and interleaved."""
+    interleaved, in the file's byte order: the strips or tiles decoded (and
+    un-differenced) one by one and put in place; planes
+    (PlanarConfiguration 2) decoded each into its own canvas and
+    interleaved."""
     c = chunks
     width, height, depth = c.width, c.height, c.depth
     row_bytes = (c.cw * c.spp * depth + 7) // 8
     tables = bytes(tags.get(JPEG_TABLES, ()))
     per_plane = c.across * c.down
-    planes = []
+    planes, fax_decoder = [], None
     for plane in range(c.planes):
         canvas = np.zeros((c.down * c.ch, c.across * row_bytes), np.uint8)
         for j in range(per_plane):
@@ -427,25 +528,177 @@ def _samples(data, name, chunks, order, compression, predictor, ycbcr, tags) -> 
                 chunk = np.frombuffer(data, np.uint8, min(size, max(len(data) - off, 0)), min(off, len(data)))
                 if len(chunk) < size:
                     _refuse(name, f"truncated TIFF data (strip or tile {i})")
+                if fill_order == 2:
+                    chunk = _REVERSED[chunk]
             else:
-                coded = data[off:off + c.counts[i]]
-                if len(coded) < c.counts[i]:
-                    _refuse(name, f"truncated TIFF data (strip or tile {i} lies past the end of the file)")
                 where = f"{name}: strip or tile {i}"
+                coded = _coded(data, name, c, i, fill_order if compression != JPEG else 1)
                 if compression == JPEG:
                     last = not c.tiled and j == per_plane - 1  # libtiff takes a taller frame in the last strip
                     chunk = jpeg.decode_tiff_jpeg(tables, coded, rows, c.cw, c.spp, where, ycbcr, last).reshape(-1)
+                elif compression in FAX:
+                    fax_decoder = fax_decoder or fax.Decoder(compression, tags, c.cw, name)
+                    chunk = fax_decoder.decode(coded, rows, where)
+                elif compression == THUNDERSCAN:
+                    chunk = image_codecs.thunderscan_decode(coded, c.cw, rows, where)
                 else:
                     chunk = _decompress(coded, size, compression, where)
             chunk = chunk.reshape(rows, row_bytes)
             if predictor == 2:
-                chunk = _undifference(chunk, c.cw, c.spp, order + ("u2" if depth == 16 else "u1"))
+                chunk = _undifference(chunk, c.cw, c.spp, f"{order}u{depth // 8}")
+            elif predictor == 3:
+                chunk = _float_accumulate(chunk, c.spp, depth // 8, order)
             canvas[y:y + rows, x * row_bytes:(x + 1) * row_bytes] = chunk
         planes.append(canvas[:height, :(width * c.spp * depth + 7) // 8])
     if len(planes) == 1:
         return planes[0]
     unit = np.uint16 if depth == 16 else np.uint8  # interleave whole samples, in the file's byte order
     return np.stack([p.view(unit) for p in planes], -1).view(np.uint8).reshape(height, -1)
+
+
+_REVERSED = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)  # FillOrder 2
+
+
+def _coded(data: bytes, name: str, chunks, i: int, fill_order: int) -> bytes:
+    """The coded bytes of strip or tile `i`, their bits reversed under
+    FillOrder 2 (libtiff reverses them before the codec reads them)."""
+    off, count = chunks.offsets[i], chunks.counts[i]
+    coded = data[off:off + count]
+    if len(coded) < count:
+        _refuse(name, f"truncated TIFF data (strip or tile {i} lies past the end of the file)")
+    return _REVERSED[np.frombuffer(coded, np.uint8)].tobytes() if fill_order == 2 else coded
+
+
+def _float_accumulate(chunk: np.ndarray, spp: int, bps: int, order: str) -> np.ndarray:
+    """Predictor 3 (libtiff's fpAcc) on each row: each byte plus the one
+    `spp` bytes before it, then the byte planes (most significant first)
+    put back together as samples; returned in the file's byte order."""
+    rows, n = chunk.shape
+    summed = np.empty_like(chunk)
+    for r in range(spp):
+        summed[:, r::spp] = np.cumsum(chunk[:, r::spp], axis=1, dtype=np.uint8)
+    big = summed.reshape(rows, bps, n // bps).transpose(0, 2, 1)  # each sample's bytes, big-endian
+    return np.ascontiguousarray(big if order == ">" else big[:, :, ::-1]).reshape(rows, n)
+
+
+def _rgba_reader(data, name, tags, chunks, compression, predictor, fill_order) -> np.ndarray:
+    """(height, width, 3) RGB of 8-bit YCbCr strips or tiles as libtiff's
+    RGBA reader gives it to PIL (`utils/tiff_ycbcr.py`): PIL asks for one
+    strip, or one row of tiles, a call; a strip or tile the codec cannot
+    decode keeps what it gave (the rest zero), as the reader goes on past
+    errors."""
+    c = chunks
+    ojpeg_image = ojpeg.Image(data, tags, c, name) if compression == OJPEG else None
+    h, v = ojpeg_image.subsampling if ojpeg_image else _subsampling(tags)  # OJPEG: its frame's
+    if (h, v) not in tiff_ycbcr.SUBSAMPLINGS:
+        _refuse(name, f"YCbCr subsampling {h}x{v} (libtiff's RGBA reader has no routine for it)")
+    tabs = _ycbcr_tables(name, tags)
+    width, height = c.width, c.height
+    out = np.zeros((height, width, 3), np.uint8)
+    for row in range(c.down):
+        y = row * c.ch
+        rows = min(c.ch, height - y)
+        block = np.zeros((rows, c.across * c.cw, 3), np.uint8)
+        for x in range(c.across):
+            i = row * c.across + x
+            size = tiff_ycbcr.unit_bytes(c.cw, c.ch if c.tiled else rows, h, v)
+            # a strip is read as whole unit rows of TIFFScanlineSize bytes a
+            # pixel row (the unit row's bytes over v, rounded down): at 4x4 an
+            # odd number of units a row reads short, the rest zero
+            scanline = -(-c.cw // h) * (h * v + 2) // v
+            want = size if c.tiled else min(size, -(-rows // v) * v * scanline)
+            units = np.zeros(size, np.uint8)
+            units[:want] = ojpeg_image.units_of(i, want) if ojpeg_image else \
+                _decode_units(data, name, c, i, compression, fill_order, want)
+            if predictor == 2 and scanline % 3 == 0:  # horAcc8 over each scanline, 3 bytes apart
+                units[:want] = _undifference(units[:want].reshape(-1, scanline), scanline // 3, 3, "u1").reshape(-1)
+            inside = min(c.cw, width - x * c.cw)
+            block[:, x * c.cw:x * c.cw + inside] = tiff_ycbcr.units_to_rgb(units, inside, rows, h, v, tabs,
+                                                                            c.cw - inside)
+        out[y:y + rows] = block[:, :width]
+    return out
+
+
+def _subsampling(tags) -> tuple:
+    """YCbCrSubsampling as libtiff takes it for its RGBA reader (2x2 without the tag)."""
+    return tuple(tags[YCBCR_SUBSAMPLING][:2]) if len(tags.get(YCBCR_SUBSAMPLING, ())) >= 2 else (2, 2)
+
+
+def _ycbcr_tables(name, tags):
+    """libtiff's YCbCr to RGB tables from the YCbCrCoefficients and
+    ReferenceBlackWhite tags (a tag of another count keeps its default)."""
+    luma = tags.get(YCBCR_COEFFICIENTS, ())
+    ref = tags.get(REFERENCE_BLACK_WHITE, ())
+    luma = luma if len(luma) == 3 else tiff_ycbcr.LUMA
+    ref = ref if len(ref) == 6 else tiff_ycbcr.REFERENCE_BLACK_WHITE
+    fault = tiff_ycbcr.valid_coefficients(luma, ref)
+    if fault:
+        _refuse(name, fault)
+    return tiff_ycbcr.tables(luma, ref)
+
+
+def _decode_units(data, name, chunks, i, compression, fill_order, size) -> np.ndarray:
+    """`size` bytes of YCbCr data units of strip or tile `i`: what the codec
+    gives, zero past it where it fails or the data lie past the file's end
+    (libtiff's reader goes on)."""
+    off, count = chunks.offsets[i], chunks.counts[i]
+    coded = data[off:off + count]
+    if fill_order == 2:
+        coded = _REVERSED[np.frombuffer(coded, np.uint8)].tobytes()
+    out = np.zeros(size, np.uint8)
+    got = _decompress_partial(coded, size, compression, f"{name}: strip or tile {i}")
+    out[:len(got)] = got
+    return out
+
+
+def _decompress_partial(coded: bytes, size: int, compression: int, name: str) -> np.ndarray:
+    """Up to `size` bytes of a strip or tile: all of them, or what the codec
+    wrote before it failed."""
+    if compression == LZW:
+        return image_codecs.lzw_decode(coded, size, name, partial=True)
+    if compression == PACKBITS:
+        return image_codecs.packbits_decode(coded, size, name, partial=True)
+    if compression in (DEFLATE, ADOBE_DEFLATE):
+        inflate, out = zlib.decompressobj(), b""
+        try:
+            return np.frombuffer(inflate.decompress(coded, size), np.uint8)
+        except zlib.error:
+            inflate = zlib.decompressobj()
+            for k in range(len(coded)):  # again a byte at a time: zlib drops a failing call's output
+                try:
+                    out += inflate.decompress(coded[k:k + 1], size - len(out))
+                except zlib.error:
+                    break
+            return np.frombuffer(out[:size], np.uint8)
+    try:
+        return _decompress(coded, size, compression, name)
+    except ValueError:
+        return np.zeros(0, np.uint8)
+
+
+def _raw_rgbx(data, name, chunks) -> np.ndarray:
+    """Uncompressed 3-sample YCbCr as PIL's raw decoder reads it, its raw
+    mode "RGBX": four bytes a pixel from each strip's or tile's offset (a
+    row `stride` bytes apart: the raw mode's own row, or the tile's three
+    bytes a pixel where the tile overhangs the image), the first three
+    taken as R, G and B."""
+    c = chunks
+    out = np.zeros((c.height, c.width, 3), np.uint8)
+    for i in range(c.across * c.down):
+        x0, y0 = (i % c.across) * c.cw, (i // c.across) * c.ch
+        w, rows = min(c.cw, c.width - x0), min(c.ch, c.height - y0)
+        stride = 3 * c.cw if c.tiled and x0 + c.cw > c.width else 4 * w
+        if stride < 4 * w:
+            _refuse(name, "uncompressed YCbCr tiles over the image's edge, whose row is shorter than PIL's raw mode "
+                          "RGBX reads (PIL: codec configuration error)")
+        need = stride * (rows - 1) + 4 * w
+        off = c.offsets[i]
+        if off + need > len(data):
+            _refuse(name, f"truncated TIFF data (strip or tile {i}; PIL's raw mode RGBX reads 4 bytes a pixel)")
+        rows_of = np.lib.stride_tricks.as_strided(np.frombuffer(data, np.uint8, need, off), (rows, 4 * w),
+                                                  (stride, 1))
+        out[y0:y0 + rows, x0:x0 + w] = rows_of.reshape(rows, w, 4)[..., :3]
+    return out
 
 
 def _decompress(coded: bytes, size: int, compression: int, name: str) -> np.ndarray:

@@ -378,7 +378,10 @@ def test_pil_written_tiff_gives_pils_pixels(tmp_path, cxx, mode, compression):
         assert_like_pil(tmp_path, buf.getvalue(), f"{w}x{h}", ".tif")
 
 
-LAYOUT_KEYS = sorted(tiff.LAYOUTS, key=repr)
+# the layouts of 1, 8 and 16 bits (signed, float, 2-, 4-, 12- and 32-bit,
+# palette + alpha, YCbCr and CIELab layouts: tests/test_torch_tiff_rest.py)
+LAYOUT_KEYS = sorted((k for k in tiff.LAYOUTS if k[1][0] in (1, 8, 16) and k[0] not in (6, 8)
+                      and k != (3, (8, 8), (2,))), key=repr)
 # (compression, predictor, byte order, tiles) in turn over each layout's four files
 VARIANTS = [(1, None, "<", None), (5, 2, ">", (16, 16)), (8, 2, "<", None), (32773, None, ">", (32, 16)),
             (32946, None, "<", (16, 32)), (5, None, "<", None)]
@@ -502,9 +505,9 @@ def refusal_file(case):
     big = tiff_bytes(s, 8, 2, big=True)
     return {
         "BigTIFF": (big[:24 + 20 * struct.unpack("<Q", big[16:24])[0] - 7], "a truncated BigTIFF IFD"),
-        "CCITT": (tiff_bytes(grey % 2, 1, 0, tags={259: (3, [3])}), r"CCITT Group 3"),
+        "CCITT": (tiff_bytes(grey, 8, 0, tags={259: (3, [3])}), r"CCITT fax at 8 bits"),
         "JPEG-in-TIFF": (_ycbcr_improper_sampling(s), r"libtiff: Improper JPEG sampling factors"),
-        "old JPEG": (tiff_bytes(s, 8, 2, tags={259: (3, [6])}), r"old-style JPEG-in-TIFF"),
+        "old JPEG": (tiff_bytes(s, 8, 1, tags={259: (3, [6])}), r"old-style JPEG with photometric 1"),
         "WebP": (tiff_bytes(s, 8, 2, tags={259: (3, [50001])}), r"WebP \(compression 50001\), which PIL refuses too"),
         "ZSTD": (tiff_bytes(s, 8, 2, compression=50000, encode=lambda c: b"\x28\xb5\x2f\xfd\x20\x90\x07\x00\x00"),
                  r"corrupt ZSTD data: a reserved block type"),
@@ -515,13 +518,13 @@ def refusal_file(case):
         "Predictor 3": (tiff_bytes(s, 8, 2, compression=5, tags={317: (3, [3])}), r"Predictor 3"),
         "PlanarConfiguration 2": (tiff_bytes(s[..., :2], 8, 1, extra=[2], planar=True),
                                   r"grey \+ alpha in uncompressed planes \(PlanarConfiguration 2"),
-        "YCbCr": (tiff_bytes(s, 8, 6), r"YCbCr \(photometric 6\)"),
-        "CIELab": (tiff_bytes(s, 8, 8), r"CIELab \(photometric 8\)"),
-        "4-bit": (tiff_bytes(grey % 16, 8, 1, tags={258: (3, [4])}), r"4-bit samples"),
-        "32-bit": (tiff_bytes(grey, 8, 1, tags={258: (3, [32])}), r"32-bit samples"),
-        "signed": (tiff_bytes(grey, 8, 1, tags={339: (3, [2])}), r"SampleFormat \(2,\)"),
-        "FillOrder 2": (tiff_bytes(grey, 8, 1, tags={266: (3, [2])}), r"FillOrder 2"),
-        "palette + alpha": (tiff_bytes(s[..., :2], 8, 3, extra=[2], colormap=[0] * 768), r"photometric 3 with 8/8"),
+        "YCbCr": (tiff_bytes(s, 8, 6), r"PIL's raw mode RGBX reads 4 bytes a pixel"),
+        "CIELab": (tiff_bytes(s, 16, 8), r"photometric 8 with 16/16/16 bits"),
+        "4-bit": (tiff_bytes(s % 16, 4, 2), r"photometric 2 with 4/4/4 bits"),
+        "32-bit": (tiff_bytes(grey, 32, 1, order=">"), r"photometric 1 with 32 bits"),
+        "signed": (tiff_bytes(s, 8, 2, sample_format=2), r"SampleFormat \(2, 2, 2\)"),
+        "FillOrder 2": (tiff_bytes(grey, 8, 0, fill_order=2), r"FillOrder 2 uncompressed"),
+        "palette + alpha": (tiff_bytes(s[..., :2] % 16, 4, 3, extra=[2], colormap=[0] * 48), r"photometric 3 with 4/4"),
         "16-bit WhiteIsZero big-endian": (tiff_bytes(grey, 16, 0, order=">"), r"photometric 0 with 16 bits"),
         "truncated LZW": (_replace_strips(tiff_bytes(grey, 8, 1, compression=5),
                                           [lzw_encode(bytes(range(20)))]), r"LZW data ends"),

@@ -836,12 +836,13 @@ def test_host_build_and_its_reuse(fake_cxx):
     if shutil.which("c++") is None:
         pytest.skip("no host C++ compiler (c++) on this machine")
     calls = fake_cxx(fail=False)
-    assert cuda_build.host_sources() == ["image_codecs", "jp2_decode", "jpeg_decode", "webp_decode", "zstd_decode"]
-    assert not {"image_codecs", "jp2_decode", "jpeg_decode", "webp_decode", "zstd_decode"} & set(cuda_build.sources())
+    hosts = ["fax_decode", "image_codecs", "jp2_decode", "jpeg_decode", "webp_decode", "zstd_decode"]
+    assert cuda_build.host_sources() == hosts
+    assert not set(hosts) & set(cuda_build.sources())
     cuda_build.build_host()
     path = cuda_build.host_library_path("jpeg_decode")
     assert path.exists() and path.parent == cuda_build.BUILD_DIR
     cuda_build.build_host()
     data = pil_jpeg(content(9, 13, 3, "noisy"), quality=80)
     np.testing.assert_array_equal(jpeg.decode_jpeg(data), pil_pixels(data))
-    assert calls.read_text().count("call") == 5
+    assert calls.read_text().count("call") == len(hosts)

@@ -331,7 +331,7 @@ def test_ycbcr_jpeg_tiff_rules_follow_libtiff(tmp_path, cxx):
                                         r"Improper JPEG sampling factors"),
         "a frame smaller than its strip": (ycbcr_tiff(a, (2, 2), coder=lambda c: ycbcr_coder((2, 2))(c[:8]),
                                                       rows_per_strip=16), r"smaller than the TIFF's"),
-        "YCbCr without JPEG": (tiff_bytes(a, 8, 6), r"YCbCr \(photometric 6\)"),
+        "YCbCr without JPEG": (tiff_bytes(a, 8, 6), r"PIL's raw mode RGBX reads 4 bytes a pixel"),
         "YCbCr JPEG in planes": (tiff_bytes(a, 8, 6, planar=True, compression=7, rows_per_strip=16,
                                             encode=lambda c: _grey_jpeg_coder()(c)[0]), r"YCbCr JPEG-in-TIFF in"),
     }

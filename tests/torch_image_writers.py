@@ -9,10 +9,15 @@ specifications, and PIL's read of it is the rule the port is held to.
   tiles, PlanarConfiguration 1 or 2, compression none / PackBits / LZW
   (libtiff's new style, its encoder's code-width and table-full rules) /
   deflate / LZMA (an .xz stream, as libtiff's LZMA codec writes), or each
-  strip or tile from a coder the caller gives (JPEG, ZSTD), Predictor 2,
-  any photometric, ExtraSamples, ColorMap, Orientation and raw extra
-  tags; `jpeg_tables_apart` splits a JPEG into the abbreviated stream and
-  the JPEGTables libtiff writes.
+  strip or tile from a coder the caller gives (JPEG, ZSTD), Predictor 2
+  and 3, any photometric, 1- to 32-bit, signed and float samples,
+  FillOrder 2, YCbCr data units at any subsampling, ExtraSamples,
+  ColorMap, Orientation and raw extra tags (RATIONAL ones too);
+  `jpeg_tables_apart` splits a JPEG into the abbreviated stream and the
+  JPEGTables libtiff writes; `ojpeg_tiff` builds an old-style JPEG TIFF
+  from baseline streams' pieces (tables in tags or a JPEGInterchangeFormat
+  stream); `thunderscan_encode` and `lzw_compat_encode` (old-style LZW,
+  codes least significant bit first) code strips libtiff reads.
 - `bmp_bytes`: every header size, bit count and row order, palettes of
   any length, BI_BITFIELDS masks in or after the header, and RLE8 / RLE4
   bitmaps from `rle_encode`, which uses every escape.
@@ -89,6 +94,58 @@ def lzw_encode(data: bytes) -> bytes:
     return np.packbits(bits[np.arange(12)[None, :] >= 12 - wd[:, None]].astype(np.uint8)).tobytes()
 
 
+def lzw_compat_encode(data: bytes, table_limit: int = 4000) -> bytes:
+    """Old-style LZW as libtiff's LZWDecodeCompat reads it: codes least
+    significant bit first, a Clear first, the width grown one entry later
+    than the new style (when the decoder's next entry passes 2^n - 1), a
+    Clear when the table reaches `table_limit` entries, EOI last."""
+    codes, table, free, w = [256], {}, 258, None
+    for b in data:
+        if w is None:
+            w = b
+            continue
+        c = table.get((w << 8) | b)
+        if c is not None:
+            w = c
+            continue
+        codes.append(w)
+        table[(w << 8) | b] = free
+        free += 1
+        if free == table_limit:
+            codes.append(256)
+            table, free = {}, 258
+        w = b
+    if w is not None:
+        codes.append(w)
+    return _pack_lsb(codes + [257])
+
+
+def _pack_lsb(codes) -> bytes:
+    """Codes least significant bit first at the widths LZWDecodeCompat
+    reads them: 9 bits after a Clear, one more each time its next entry
+    passes 2^n - 1."""
+    acc, have, out = 0, 0, bytearray()
+    nbits, free, first = 9, 258, True
+    for code in codes:
+        acc |= code << have
+        have += nbits
+        while have >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            have -= 8
+        if code == 256:
+            nbits, free, first = 9, 258, True
+        elif first:
+            first = False
+        else:
+            free += 1
+            if free > (1 << nbits) - 1:
+                nbits = min(nbits + 1, 12)
+    if have:
+        out.append(acc & 255)
+    return bytes(out)
+
+
 def packbits_encode(data: bytes) -> bytes:
     """PackBits with runs (2..128 equal bytes), literals (1..128 bytes) and
     a -128 no-op before each run."""
@@ -129,32 +186,80 @@ def difference(samples: np.ndarray) -> np.ndarray:
     return out
 
 
-def sample_bytes(samples: np.ndarray, depth: int, order: str) -> np.ndarray:
-    """(rows, row bytes) of (rows, width, spp) samples at `depth` bits."""
+def float_difference(row_bytes: np.ndarray, spp: int, bps: int) -> np.ndarray:
+    """Predictor 3's encoding (libtiff's fpDiff) of (rows, row bytes) of
+    samples in the host's (little-endian) order: each row's samples split
+    into byte planes, most significant first, then each byte less the one
+    `spp` bytes before it."""
+    rows = len(row_bytes)
+    planes = row_bytes.reshape(rows, -1, bps)[:, :, ::-1].transpose(0, 2, 1).reshape(rows, -1)
+    out = planes.copy()
+    out[:, spp:] = planes[:, spp:] - planes[:, :-spp]
+    return out
+
+
+def reverse_bits(data: bytes) -> bytes:
+    """Each byte's bits in the other order (FillOrder 2)."""
+    table = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
+    return data.translate(table)
+
+
+def sample_bytes(samples: np.ndarray, depth: int, order: str, sample_format: int = 1) -> np.ndarray:
+    """(rows, row bytes) of (rows, width, spp) samples at `depth` bits:
+    below 8 bits and at 12 packed most significant bit first, each row
+    padded to a byte; 8, 16 and 32 bits in the byte order; `sample_format`
+    2 signed, 3 IEEE floating point (32 bits)."""
     rows = len(samples)
-    if depth == 1:
-        return np.packbits(samples[..., 0].astype(np.uint8), axis=1)
-    dt = order + ("u2" if depth == 16 else "u1")
+    if depth % 8:
+        bits = (samples.astype(np.int64).reshape(rows, -1)[..., None] >> np.arange(depth - 1, -1, -1)) & 1
+        return np.packbits(bits.reshape(rows, -1).astype(np.uint8), axis=1)
+    kind = {1: "u", 2: "i", 3: "f"}[sample_format]
+    dt = order + kind + str(depth // 8)
     return np.ascontiguousarray(samples.astype(dt)).view(np.uint8).reshape(rows, -1)
+
+
+def ycbcr_units(samples: np.ndarray, h: int, v: int) -> np.ndarray:
+    """(unit rows, unit row bytes) of libtiff's YCbCr data units for (rows,
+    width, 3) Y, Cb, Cr samples subsampled h x v: each unit its h * v luma
+    samples row by row, then one Cb and one Cr (the unit's top-left
+    chroma); a partial unit at the right or bottom edge repeats the last
+    column or row."""
+    rows, width = samples.shape[:2]
+    uh, uw = -(-rows // v), -(-width // h)
+    padded = np.pad(samples, ((0, uh * v - rows), (0, uw * h - width), (0, 0)), mode="edge")
+    luma = padded[..., 0].reshape(uh, v, uw, h).transpose(0, 2, 1, 3).reshape(uh, uw, h * v)
+    chroma = padded[::v, ::h, 1:]
+    return np.concatenate([luma, chroma], -1).astype(np.uint8).reshape(uh, -1)
 
 
 COMPRESS = {1: lambda b: b, 5: lzw_encode, 8: lambda b: zlib.compress(b, 6), 32946: lambda b: zlib.compress(b, 1),
             32773: packbits_encode, 34925: lambda b: lzma.compress(b, lzma.FORMAT_XZ, lzma.CHECK_NONE)}
-TYPE_CODES = {1: "B", 3: "H", 4: "I", 7: "B", 16: "Q", 17: "q", 18: "Q"}  # ..., LONG8, SLONG8, IFD8
+TYPE_CODES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "I", 6: "b", 7: "B", 8: "h", 9: "i", 10: "i", 11: "f", 12: "d", 16: "Q",
+              17: "q", 18: "Q"}  # ..., LONG8, SLONG8, IFD8 (RATIONAL as num, den pairs)
+
+
+def n_values(typ: int, vals) -> int:
+    """A tag's count: RATIONAL and SRATIONAL values are given as pairs."""
+    return len(vals) // 2 if typ in (5, 10) else len(vals)
 
 
 def tiff_bytes(samples, depth, photometric, order="<", compression=1, predictor=None, rows_per_strip=None,
                tile=None, extra=None, colormap=None, orientation=None, tags=None, encode=None, planar=False,
-               big=False) -> bytes:
+               big=False, sample_format=None, fill_order=None, ycbcr=None) -> bytes:
     """A TIFF of (H, W, spp) integer `samples` at `depth` bits.
     `tile` = (width, height) writes tiles (zero-padded where they
     overhang), else strips of `rows_per_strip` rows; `planar` writes
     PlanarConfiguration 2 (each sample's strips or tiles in turn, each
     chunk one sample); `big` a BigTIFF (20-byte entries, LONG8 offsets);
     `tags` adds or replaces raw tags {tag: (type, values)} (1 BYTE, 3
-    SHORT, 4 LONG, 7 UNDEFINED, 16 LONG8, 17 SLONG8, 18 IFD8); `encode` (a strip's or tile's
+    SHORT, 4 LONG, 5 RATIONAL as (num, den) pairs, 7 UNDEFINED, 16 LONG8, 17 SLONG8, 18 IFD8); `encode` (a strip's or tile's
     samples -> its bytes) replaces the compression's own coder, as JPEG
-    (7) and ZSTD (50000) need."""
+    (7) and ZSTD (50000) need. `depth` 1, 2, 4, 8, 12, 16 or 32;
+    `sample_format` 2 (signed) or 3 (floats) writes SampleFormat;
+    `predictor` 3 libtiff's floating-point differencing; `fill_order` 2
+    writes FillOrder 2 and stores every strip's or tile's bytes (coded or
+    not) bit-reversed; `ycbcr` = (h, v) stores (H, W, 3) Y, Cb, Cr samples
+    in libtiff's data units (`ycbcr_units`) under YCbCrSubsampling (h, v)."""
     samples = np.asarray(samples)
     H, W, n = samples.shape
     planes = [samples[..., i:i + 1] for i in range(n)] if planar else [samples]
@@ -169,12 +274,23 @@ def tiff_bytes(samples, depth, photometric, order="<", compression=1, predictor=
     else:
         rps = rows_per_strip or H
         chunks = [plane[y:y + rps] for plane in planes for y in range(0, H, rps)]
-    if predictor == 2:
-        chunks = [difference(ch.astype(np.uint16 if depth == 16 else np.uint8)) for ch in chunks]
+    fmt = sample_format or 1
+    if predictor == 2 and depth % 8 == 0:  # on the samples' bits, as unsigned integers
+        kind = {1: "u", 2: "i", 3: "f"}[fmt]
+        chunks = [difference(ch.astype(f"{kind}{depth // 8}").view(f"u{depth // 8}")) for ch in chunks]
+        fmt = 1
     if encode is None:
-        bodies = [COMPRESS[compression](sample_bytes(ch, depth, order).tobytes()) for ch in chunks]
+        if ycbcr:
+            raw = [ycbcr_units(ch, *ycbcr) for ch in chunks]
+        elif predictor == 3 and depth % 8 == 0:
+            raw = [float_difference(sample_bytes(ch, depth, "<", fmt), ch.shape[2], depth // 8) for ch in chunks]
+        else:
+            raw = [sample_bytes(ch, depth, order, fmt) for ch in chunks]
+        bodies = [COMPRESS[compression](r.tobytes()) for r in raw]
     else:
         bodies = [encode(ch) for ch in chunks]
+    if fill_order == 2:
+        bodies = [reverse_bits(b) for b in bodies]
     offset_type = 16 if big else 4
     t = {256: (4, [W]), 257: (4, [H]), 258: (3, [depth] * n), 259: (3, [compression]), 262: (3, [photometric]),
          277: (3, [n])}
@@ -194,6 +310,12 @@ def tiff_bytes(samples, depth, photometric, order="<", compression=1, predictor=
         t[320] = (3, list(colormap))
     if orientation:
         t[274] = (3, [orientation])
+    if sample_format:
+        t[339] = (3, [sample_format] * n)
+    if fill_order:
+        t[266] = (3, [fill_order])
+    if ycbcr:
+        t[530] = (3, list(ycbcr))
     t.update(tags or {})
     offsets_tag = 324 if tile else 273
     # the header, the IFD, the tags' own data, then the strips or tiles
@@ -215,9 +337,10 @@ def tiff_bytes(samples, depth, photometric, order="<", compression=1, predictor=
         typ, vals = t[tag]
         raw = packed[tag]
         if len(raw) <= inline:
-            entries.append(struct.pack(order + "HH" + count, tag, typ, len(vals)) + raw.ljust(inline, b"\0"))
+            entries.append(struct.pack(order + "HH" + count, tag, typ, n_values(typ, vals)) + raw.ljust(inline, b"\0"))
         else:
-            entries.append(struct.pack(order + "HH" + count + word, tag, typ, len(vals), data_at + len(blobs)))
+            entries.append(struct.pack(order + "HH" + count + word, tag, typ, n_values(typ, vals),
+                                       data_at + len(blobs)))
             blobs += raw + b"\0" * (len(raw) % 2)
     if big:
         head = (b"II+\0" if order == "<" else b"MM\0+") + struct.pack(order + "HHQ", 8, 0, ifd_at)
@@ -237,6 +360,132 @@ def jpeg_tables_apart(stream: bytes):
         (tables if stream[pos + 1] in (0xDB, 0xC4) else rest).append(stream[pos:pos + 2 + n])
         pos += 2 + n
     return b"\xff\xd8" + b"".join(rest) + stream[pos:], b"\xff\xd8" + b"".join(tables) + b"\xff\xd9"
+
+
+def thunderscan_encode(rows: np.ndarray) -> bytes:
+    """ThunderScan (compression 32809) of (rows, width) 4-bit samples, as
+    libtiff's ThunderDecode reads it, each row on its own: a run of the
+    last pixel (code 0, up to 63), three 2-bit or two 3-bit deltas from it
+    where they fit, else a raw pixel."""
+    two = {0: 0, 1: 1, -1: 3}
+    three = {0: 0, 1: 1, 2: 2, 3: 3, -3: 5, -2: 6, -1: 7}
+    out = bytearray()
+    for row in np.asarray(rows, np.int64):
+        w, x, last = len(row), 0, 0
+        while x < w:
+            run = 0
+            while x + run < w and run < 63 and row[x + run] == last:
+                run += 1
+            if run >= 2:
+                out.append(run)
+                x += run
+                continue
+            d = [int(v) - int(p) for p, v in zip([last] + list(row[x:x + 2]), row[x:x + 3])]
+            if x + 3 <= w and all(k in two for k in d):
+                out.append(0x40 | two[d[0]] << 4 | two[d[1]] << 2 | two[d[2]])
+                x, last = x + 3, int(row[x + 2])
+            elif x + 2 <= w and all(k in three for k in d[:2]):
+                out.append(0x80 | three[d[0]] << 3 | three[d[1]])
+                x, last = x + 2, int(row[x + 1])
+            else:
+                out.append(0xC0 | int(row[x]))
+                x, last = x + 1, int(row[x])
+    return bytes(out)
+
+
+def jpeg_segments(stream: bytes):
+    """(header segments up to and including SOS as (marker, body) pairs,
+    entropy-coded data split at its RST markers) of a baseline JPEG."""
+    pos, segments = 2, []
+    while True:
+        marker = stream[pos + 1]
+        n = struct.unpack(">H", stream[pos + 2:pos + 4])[0]
+        segments.append((marker, stream[pos + 4:pos + 2 + n]))
+        pos += 2 + n
+        if marker == 0xDA:
+            break
+    end = stream.rindex(b"\xff\xd9")
+    return segments, re.split(rb"\xff[\xd0-\xd7]", stream[pos:end])
+
+
+def ojpeg_tiff(streams, width, height, spp=3, rows_per_strip=None, tile=None, jif=False, photometric=6,
+               order="<", tags=None, subsampling_tag=True) -> bytes:
+    """An old-style JPEG-in-TIFF (compression 6) from baseline JPEG streams
+    (PIL's): one stream for the image whose restart intervals are the
+    strips, each interval one strip's data (libtiff puts the RST markers
+    back between strips), or one stream a tile. The tables go into
+    JPEGQTables / JPEGDCTables / JPEGACTables (one each a component) with
+    JPEGProc 1 and JPEGRestartInterval, or with `jif` into a
+    JPEGInterchangeFormat stream that ends with the SOS (the first
+    stream's header). YCbCrSubsampling is the frame's, unless
+    `subsampling_tag` is False (no tag) or a pair to write."""
+    segments, _ = jpeg_segments(streams[0])
+    bodies = [body for s in streams for body in jpeg_segments(s)[1]]
+    sof = [b for m, b in segments if m == 0xC0][0]
+    comps = [(sof[6 + 3 * i], sof[7 + 3 * i], sof[8 + 3 * i]) for i in range(sof[5])]
+    sos = [b for m, b in segments if m == 0xDA][0]
+    scan = {sos[1 + 2 * i]: sos[2 + 2 * i] for i in range(sos[0])}
+    qt, dc, ac, dri = {}, {}, {}, 0
+    for m, b in segments:
+        if m == 0xDB:
+            at = 0
+            while at < len(b):
+                qt[b[at] & 15] = b[at + 1:at + 65]
+                at += 65
+        elif m == 0xC4:
+            at = 0
+            while at < len(b):
+                n = sum(b[at + 1:at + 17])
+                (ac if b[at] >> 4 else dc)[b[at] & 15] = b[at + 1:at + 17 + n]
+                at += 17 + n
+        elif m == 0xDD:
+            dri = struct.unpack(">H", b)[0]
+    blobs = {}
+    t = {259: (3, [6]), 277: (3, [spp])}
+    if jif:
+        header = b"\xff\xd8" + b"".join(bytes([0xFF, m]) + struct.pack(">H", len(b) + 2) + b for m, b in segments)
+        blobs[513] = [header]
+        t[514] = (4, [len(header)])
+    else:
+        blobs[519] = [qt[c[2]] for c in comps]
+        blobs[520] = [dc[scan[c[0]] >> 4] for c in comps]
+        blobs[521] = [ac[scan[c[0]] & 15] for c in comps]
+        t[512] = (3, [1])
+        t[515] = (3, [dri])
+    if subsampling_tag is True:
+        t[530] = (3, [comps[0][1] >> 4, comps[0][1] & 15])
+    elif subsampling_tag:
+        t[530] = (3, list(subsampling_tag))
+    t.update(tags or {})
+    for tag, values in blobs.items():
+        t[tag] = (4, [0] * len(values))
+    it = iter(bodies)
+    data = tiff_bytes(np.zeros((height, width, spp), np.int64), 8, photometric, order=order, compression=6,
+                      rows_per_strip=rows_per_strip, tile=tile, tags=t, encode=lambda chunk: next(it))
+    return _append_tag_blobs(data, order, blobs)
+
+
+def _append_tag_blobs(data: bytes, order: str, blobs) -> bytes:
+    """`data` (a classic TIFF) with each tag of `blobs` ({tag: [bytes, ...]})
+    pointing at its blobs, appended at the end of the file."""
+    out = bytearray(data)
+    ifd = struct.unpack(order + "I", data[4:8])[0]
+    n = struct.unpack(order + "H", data[ifd:ifd + 2])[0]
+    for k in range(n):
+        entry = ifd + 2 + 12 * k
+        tag, typ, count = struct.unpack(order + "HHI", data[entry:entry + 8])
+        if tag not in blobs:
+            continue
+        offsets = []
+        for blob in blobs[tag]:
+            offsets.append(len(out))
+            out += blob
+            if len(out) % 2:
+                out += b"\0"
+        packed = struct.pack(order + "I" * count, *offsets)
+        where = entry + 8 if count == 1 else struct.unpack(order + "I", data[entry + 8:entry + 12])[0]
+        out[where:where + len(packed)] = packed
+    return bytes(out)
 
 
 # ---- BMP ----
