@@ -298,6 +298,52 @@ Phases (any failure exits non-zero; none is caught and passed over):
      Morton KNN's ms at 100,000 points, the train CLI's wall and step
      median, the render CLI's ms per view, the metrics, the phase's peak
      device memory and wall time.
+  5g. the user's commands, in process on the card: the train CLI as a
+     user starts it (no -r, the viewer on), a resume, the render and
+     metrics CLIs. A COLMAP dataset frozen from PR to PR: 12 views of
+     trained_r5 on phase 5c's orbit at 1957x1091 (Tanks and Temples'
+     truck views in the 3DGS authors' tandt_db release), each a baseline
+     4:2:0 JPEG at q95 (encode_jpeg); no other image form enters it.
+     Run A: `cli.train.main` with -s -m --eval --port <free port>, 120
+     iterations, reports and PLYs at 60 and 120, a checkpoint at 60,
+     --random_background, --profile_iteration 30, a densify every 20 steps
+     from 40 to 80 and the reset at 80 (5c's window scaled). Every camera
+     must be 1600x891 (the default -r -1 scales views wider than 1600 px)
+     and cameras.json list the dataset's 1957x1091, as the JAX CLI and the
+     reference write it; one view's ground truth bit-equal to
+     `image_io.resize` of its decoded JPEG; the compositing counters the
+     schedule (one launch of each per step, one forward per report view
+     and per served frame); the loss finite, the 20 steps before the reset
+     below the first 20, a densify run; <A>/profile/trace_30.json naming
+     the three kernels' symbols. Meanwhile a loopback client (this
+     script's copy of the reference viewer's wire protocol) sends a
+     request with `train` (served, then training goes on), then at a
+     train view's pose the 1600x891 frame twice (equal, not black), a
+     1920x1080 frame at scaling modifier 1 and 0.5 (0.5 lights fewer
+     pixels) and with both SIBR toggles (within one uint8 level of the
+     plain one), a request with `train`, closes, and a second client sends
+     half a request and closes; the run must finish its 120 iterations,
+     and each frame's ms and the 1080p frame's entry count against the
+     trainer's capacity are printed. At run A's final state, a test view
+     at 1600x891 and the trainer's capacity, the forward, the backward and
+     the routing are held to their plain versions by phase 3's rules
+     (`check_state`; not counted). The trainer the CLI returns, served by
+     a fresh bridge on an ephemeral port: each of the four frames within
+     one uint8 level of `eval_render` on the same camera. Run B: -s -m
+     --start_checkpoint <A>/chkpnt60.pth --iterations 120 --debug_from 110
+     --detect_anomaly --disable_viewer: its iterations 61 to 120, the state
+     right after the load bit-equal on the card to the checkpoint's live
+     rows, Adam moments, step and statistics, the entry capacity probed at
+     step 61 and no step over its capacity, no anomaly raised and anomaly
+     detection off again after the CLI returns, the final PLY finite.
+     `cli.render` -m A --iteration 60 --skip_train and -m B --skip_test:
+     one forward a view, every PNG 1600x891, A's test view 0 within one
+     uint8 level of `eval_render` of point_cloud/iteration_60;
+     `cli.metrics` -m A as in 5c. Prints the dataset's build, the scene
+     loads, the JPEG decode and resize ms of one view, both runs' wall and
+     step median, the viewer's frames, the device busy share of a 1600x891
+     trainer step, the render CLI's ms per view, the metrics, the phase's
+     peak device memory and wall time.
   5d. sharded path (`parallel/sharding.py`), on the one card:
      - the kernels at a row origin: trained_r5 at 1920x1080 with 32x32
        tiles cut into 2 and into 4 strips of tile rows; each strip's
@@ -331,10 +377,11 @@ Phases (any failure exits non-zero; none is caught and passed over):
   5f. bench path: `python3 bench_torch.py` (the port's bench.py) as a
      subprocess, as a user runs it, GS_BENCH_ITERS=5: render on the
      trained model (the default scene), train on it, render on `cloud`
-     (262,144 random Gaussians, the early-exit worst case), and render on
-     the trained model with 8x8 tiles. Each must exit 0 and print a last
+     (262,144 random Gaussians, the early-exit worst case), render on
+     the trained model with 8x8 tiles, and render on `shell` (262,144
+     small opaque splats on a sphere). Each must exit 0 and print a last
      line that parses, names its metric (`render_fps_1920x1080_P122535_
-     cuda_ply`, ...) and holds a finite value > 0. The same four runs in
+     cuda_ply`, ...) and holds a finite value > 0. The same five runs in
      process (`cli.bench.main`): each kernel's counter must rise by
      exactly 4 x ITERS a run (one warm-up and three timed chains; the
      forward in both modes, the backward and the routing in train only).
@@ -360,9 +407,11 @@ Phases (any failure exits non-zero; none is caught and passed over):
   7. the kernels line, then the result line. Each kernel's `launches` is
      the sum of `launches_by_path`: each path's own count, read after its
      own reset (train, trainer, cli_train, cli_render, cli_blender (its
-     train and render CLIs together), sharded_2rank and
-     sharded_trainer (both ranks' sums), sharded_nccl1, bench (the four
-     in-process runs of 5f) for the compositing kernels and the routing,
+     train and render CLIs together), user_train (5g's runs A, its viewer
+     frames included, and B), user_render (5g's two render CLIs),
+     sharded_2rank and sharded_trainer (both ranks' sums), sharded_nccl1,
+     bench (the five in-process runs of 5f) for the compositing kernels
+     and the routing,
      profiler for the other three).
 
 Each phase's wall time is printed. Scenes are made with numpy from fixed
@@ -386,6 +435,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
@@ -421,7 +471,8 @@ from gaussian_splatting_torch.ops.relayout import (
     relayout_to_rows, relayout_to_rows_cuda, relayout_to_rows_torch,
 )
 from gaussian_splatting_torch.parallel import sharding
-from gaussian_splatting_torch.scene.cameras import orbit_camera
+from gaussian_splatting_torch import trainer as trainer_mod
+from gaussian_splatting_torch.scene.cameras import Camera, orbit_camera
 from gaussian_splatting_torch.scene.dataset_readers import (
     load_camera, read_colmap_scene, write_colmap_scene,
 )
@@ -439,6 +490,8 @@ from gaussian_splatting_torch.tools.consumers import (
 )
 from gaussian_splatting_torch.scene import colmap
 from gaussian_splatting_torch.utils import cuda_build, image_io, jpeg
+from gaussian_splatting_torch.trainer import _state_to_host
+from gaussian_splatting_torch.viewer import network_gui
 from gaussian_splatting_torch.utils.roofline import (
     OPS_PER_BLENDED_BWD, OPS_PER_PAIR, bound_ms, pair_ops,
 )
@@ -550,7 +603,8 @@ BENCH_RUNS = (("render ply", {"GS_BENCH_MODE": "render"}),
               ("train ply", {"GS_BENCH_MODE": "train"}),
               ("render cloud", {"GS_BENCH_MODE": "render", "GS_BENCH_SCENE": "cloud"}),
               ("render ply 8x8", {"GS_BENCH_MODE": "render", "GS_BENCH_TILE_W": "8",
-                                  "GS_BENCH_TILE_H": "8"}))
+                                  "GS_BENCH_TILE_H": "8"}),
+              ("render shell", {"GS_BENCH_MODE": "render", "GS_BENCH_SCENE": "shell"}))
 
 LOOSE, SHARE = 1e-2, 1e-3  # every pixel within LOOSE; at most SHARE over the tight bound
 GRAD_L2, GRAD_ROW, GRAD_SHARE = 1e-4, 1e-3, 1e-3  # backward / routing rule, see phase 3
@@ -2029,8 +2083,6 @@ def train_view_files(data, cams, images, test_names):
     2 codestream of 20-bit samples, and images.bin to name them; the test
     views stay PNG.
     Returns each view's file name and the JPEG encode ms."""
-    images_bin = os.path.join(data, "sparse", "0", "images.bin")
-    records = colmap.read_images_binary(images_bin)
     files, encode_ms = {}, []
     for i, (cam, px) in enumerate(zip(cams, images)):
         files[cam.image_name] = f"{cam.image_name}.png"
@@ -2084,10 +2136,18 @@ def train_view_files(data, cams, images, test_names):
         files[cam.image_name] = name
         with open(os.path.join(data, "images", name), "wb") as f:
             f.write(body)
+    rename_views(data, files)
+    return files, encode_ms
+
+
+def rename_views(data, files):
+    """images.bin of the COLMAP dataset in `data` names each view's file
+    `files[view name]`."""
+    images_bin = os.path.join(data, "sparse", "0", "images.bin")
+    records = colmap.read_images_binary(images_bin)
     for rec in records.values():
         rec.name = files[os.path.splitext(rec.name)[0]]
     colmap.write_images_binary(records, images_bin)
-    return files, encode_ms
 
 
 def pil_versions() -> str:
@@ -2483,6 +2543,98 @@ def in_process(main, *args, **kw):
         sys.stdout = stdout
 
 
+def dc_colors(model):
+    """The point colours of a COLMAP dataset of the model (the dict
+    `load_gaussians_ply` gives): its centres' DC colour as uint8."""
+    return (np.clip(0.5 + gsmath.SH_C0 * model["features_dc"][:, 0, :], 0.0, 1.0) * 255).astype(np.uint8)
+
+
+def orbit_dataset(n, W, H):
+    """`n` views of the trained model on phase 5c's orbit (2.5 x the 95th
+    percentile radius around its mean, fov 70 degrees across) at W x H:
+    the cameras, named view_<i>, and their `eval_render`s through the
+    kernels, quantised as the render CLI writes them."""
+    trained = params_from_ply(TRAINED_PLY)
+    xyz = trained.xyz.detach().cpu().numpy()
+    center = xyz.mean(axis=0)
+    dist = 2.5 * float(np.quantile(np.linalg.norm(xyz - center, axis=1), 0.95))
+    bg0 = torch.zeros(3, device=trained.xyz.device)
+    cams, images = [], []
+    with torch.no_grad():
+        acts = tuple(activate(trained))
+        for i in range(n):
+            cam = orbit_camera(center, dist, 2 * math.pi * i / n, W, H, 70.0, 70.0 * H / W)
+            cam.image_name = f"view_{i:02d}"
+            arr = cam.arrays(device=trained.xyz.device)
+            k = int(preprocess(*acts, 3, arr, W, H, 32, 32).tiles_touched.sum())
+            img = eval_render(trained, arr, bg0, 3, W, H,
+                              RasterizerConfig(capacity_exact=entry_bucket_capacity(k, 16, 1.2)))[0]
+            cams.append(cam)
+            images.append(quantize(img))
+    return cams, images
+
+
+def run_train_cli(argv):
+    """`cli.train.main(argv)` in process on the card; returns (scene,
+    trainer, wall s, the Scene's load s, each tensorboard panel's ms)."""
+    with PanelTimer() as panels, SceneLoadTimer() as scene_load:
+        t0 = time.perf_counter()
+        scene, tr = in_process(train_cli.main, argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if scene_load.s is None:
+        fail(f"the train CLI made no Scene ({argv})")
+    return scene, tr, wall, scene_load.s, panels.ms
+
+
+def check_trainer_state(name, tr, cam, seed):
+    """check_state at a trainer's state (its padded rows, the dead ones the
+    reset and prunes left, its entry capacity) and the Camera `cam`, at
+    the camera's size."""
+    p = tr.state.params
+    return check_state(name, p, tr.active_sh_degree, cam.arrays(device=p.xyz.device), tr.background,
+                       tr.raster_cfg.capacity(p.num_points), (tr.raster_cfg.tile_w, tr.raster_cfg.tile_h),
+                       seed, W=cam.width, H=cam.height)
+
+
+def render_cli_dir(model_dir, split, method, n):
+    """The render CLI's output directory of a split, which must hold n
+    renders and n ground truths, 00000.png on."""
+    out = os.path.join(model_dir, split, method)
+    for kind in ("renders", "gt"):
+        got = sorted(os.listdir(os.path.join(out, kind)))
+        if got != [f"{i:05d}.png" for i in range(n)]:
+            fail(f"{split}/{method}/{kind} holds {got}, not {n} PNGs")
+    return out
+
+
+def metrics_cli_line(model_dir, method, n_test, dev, where):
+    """`cli.metrics.main(["-m", model_dir])`: `method`'s SSIM, PSNR and
+    LPIPS finite, the PSNR within 1e-4 dB of a float64 one from its test
+    PNGs and the LPIPS within rel 1e-4 of `lpips` on them. Returns the
+    line to print."""
+    _, metrics_ms = synced_ms(in_process, metrics_cli.main, ["-m", model_dir])
+    with open(os.path.join(model_dir, "results.json")) as f:
+        result = json.load(f).get(method, {})
+    if not all(math.isfinite(result.get(k) or math.nan) for k in ("SSIM", "PSNR", "LPIPS")):
+        fail(f"{where}: results.json holds {result}")
+    psnrs, lpipss = [], []
+    out = os.path.join(model_dir, "test", method)
+    for i in range(n_test):
+        r = image_io.read_png(os.path.join(out, "renders", f"{i:05d}.png")).astype(np.float64) / 255
+        g = image_io.read_png(os.path.join(out, "gt", f"{i:05d}.png")).astype(np.float64) / 255
+        psnrs.append(20 * math.log10(1 / math.sqrt(float(np.mean((r - g) ** 2)))))
+        lpipss.append(float(lpips_mod.lpips(torch.tensor(r, dtype=torch.float32, device=dev),
+                                            torch.tensor(g, dtype=torch.float32, device=dev))))
+    if abs(float(np.mean(psnrs)) - result["PSNR"]) > 1e-4:
+        fail(f"{where}: PSNR {result['PSNR']} vs {np.mean(psnrs)} recomputed from the PNGs")
+    if abs(float(np.mean(lpipss)) - result["LPIPS"]) > 1e-4 * abs(float(np.mean(lpipss))):
+        fail(f"{where}: LPIPS {result['LPIPS']} vs {np.mean(lpipss)} from the PNGs")
+    return (f"  metrics CLI: {metrics_ms:.1f} ms for {n_test} views; SSIM {result['SSIM']:.6f}, PSNR "
+            f"{result['PSNR']:.6f} dB (float64 from the PNGs {np.mean(psnrs):.6f}), LPIPS (vgg, "
+            f"seeded random weights) {result['LPIPS']:.7f} (lpips on the PNGs {np.mean(lpipss):.7f})")
+
+
 def cli_phase(dev):
     """Phase 5c: the user's entry path, the train, render and metrics CLIs
     in process on a COLMAP dataset at 1920x1080. Returns the compositing
@@ -2507,29 +2659,11 @@ def _cli_phase(dev, tmp):
     # coloured by the DC term, through the port's COLMAP and PNG writers;
     # then the train views rewritten as JPEG by this script's encoder.
     model = load_gaussians_ply(TRAINED_PLY)
-    colors = (np.clip(0.5 + gsmath.SH_C0 * model["features_dc"][:, 0, :], 0.0, 1.0) * 255
-              ).astype(np.uint8)
-    trained = params_from_ply(TRAINED_PLY)
-    center = model["xyz"].mean(axis=0)
-    dist = 2.5 * float(np.quantile(np.linalg.norm(model["xyz"] - center, axis=1), 0.95))
-    cams, images = [], []
-    with torch.no_grad():
-        acts = tuple(activate(trained))
-        for i in range(CLI_VIEWS):
-            cam = orbit_camera(center, dist, 2 * math.pi * i / CLI_VIEWS, W_MAIN, H_MAIN, 70.0,
-                               70.0 * H_MAIN / W_MAIN)
-            cam.image_name = f"view_{i:02d}"
-            arr = cam.arrays()
-            n = int(preprocess(*acts, 3, arr, W_MAIN, H_MAIN, 32, 32).tiles_touched.sum())
-            img = eval_render(trained, arr, bg0, 3, W_MAIN, H_MAIN,
-                              RasterizerConfig(capacity_exact=entry_bucket_capacity(n, 16, 1.2)))[0]
-            cams.append(cam)
-            images.append(quantize(img))
-    del trained, acts
+    cams, images = orbit_dataset(CLI_VIEWS, W_MAIN, H_MAIN)
     names = sorted(c.image_name for c in cams)
     test_names = set(names[::8])  # llffhold=8: the views the train CLI holds out
     t0 = time.perf_counter()
-    write_colmap_scene(data, cams, images, model["xyz"], colors)
+    write_colmap_scene(data, cams, images, model["xyz"], dc_colors(model))
     files, jpeg_encode_ms = train_view_files(data, cams, images, test_names)
     write_ms = (time.perf_counter() - t0) * 1e3
     encode_ms = []
@@ -2676,11 +2810,7 @@ def _cli_phase(dev, tmp):
     # Train. Each step's host time is the CLI's own iter_time_ms (the step
     # ends in a copy of its metrics to the host).
     reset_launches()
-    with PanelTimer() as panels, SceneLoadTimer() as scene_load:
-        t0 = time.perf_counter()
-        scene, tr = in_process(train_cli.main, ["-s", data, "-m", model_dir, *CLI_TRAIN])
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
+    scene, tr, train_s, load_s, panel_ms = run_train_cli(["-s", data, "-m", model_dir, *CLI_TRAIN])
     step_ms = [h["iter_time_ms"] for h in tr.history]
     train_launches = {k: LAUNCH_COUNTERS[k].launches for k in ("composite_fwd", "composite_bwd",
                                                                "route_grads")}
@@ -2690,10 +2820,8 @@ def _cli_phase(dev, tmp):
             "route_grads": CLI_STEPS}
     losses_ = [h["loss"] for h in tr.history]
     first20, last20 = float(np.mean(losses_[:20])), float(np.mean(losses_[-20:]))
-    if scene_load.s is None:
-        fail("cli path: the train CLI made no Scene")
     print(f"  train CLI: {CLI_STEPS} steps, {n_train} train and {n_test} test views, wall "
-          f"{train_s:.2f} s (scene load {scene_load.s:.2f} s: {n_train - 11} JPEG, 1 TIFF, 1 BMP, 1 WebP, 1 P6, "
+          f"{train_s:.2f} s (scene load {load_s:.2f} s: {n_train - 11} JPEG, 1 TIFF, 1 BMP, 1 WebP, 1 P6, "
           f"1 RLE TGA, 1 JPEG-in-TIFF, 1 YCbCr JPEG-in-TIFF, 1 planar LZMA BigTIFF, 1 JPEG 2000, 1 HTJ2K, "
           f"1 JPEG 2000 Part 2 and "
           f"{n_test} PNG views decoded), step median {np.median(step_ms):.3f} ms, p80 "
@@ -2702,7 +2830,7 @@ def _cli_phase(dev, tmp):
           f"{len(tr.densify_history)} densifies ({[d['path'] for d in tr.densify_history]}); live "
           f"{tr.num_live}; launches {train_launches}")
     optional = {m: importlib.util.find_spec(m) is not None for m in ("tensorboard", "tqdm", "PIL")}
-    print(f"  train CLI: tensorboard image panels {sum(panels.ms):.1f} ms ({len(panels.ms)} "
+    print(f"  train CLI: tensorboard image panels {sum(panel_ms):.1f} ms ({len(panel_ms)} "
           f"add_images calls); importable here: {optional}")
     for f in ("cfg_args", "cameras.json", "input.ply", f"point_cloud/iteration_{CLI_SAVE}/point_cloud.ply",
               f"point_cloud/iteration_{CLI_STEPS}/point_cloud.ply", f"chkpnt{CLI_STEPS}.pth"):
@@ -2721,11 +2849,7 @@ def _cli_phase(dev, tmp):
     # padded rows, the dead ones the reset and prunes left, its capacity)
     # and a test camera, by phase 3's rules; their launches are not the
     # path's (the counters are reset before the render CLI).
-    p = tr.state.params
-    test_view = scene.get_test_cameras()[0]
-    errs = check_state("train CLI final state", p, tr.active_sh_degree, test_view.arrays(device=dev),
-                       tr.background, tr.raster_cfg.capacity(p.num_points),
-                       (tr.raster_cfg.tile_w, tr.raster_cfg.tile_h), 43)
+    errs = check_trainer_state("train CLI final state", tr, scene.get_test_cameras()[0], 43)
 
     # The final PLY, reloaded, renders the bits of the trainer's own state.
     ply_path = os.path.join(model_dir, f"point_cloud/iteration_{CLI_STEPS}/point_cloud.ply")
@@ -2738,7 +2862,7 @@ def _cli_phase(dev, tmp):
     back = eval_render(saved, arr, bg0, 3, W_MAIN, H_MAIN, cfg)
     if not (torch.equal(ours[0], back[0]) and torch.equal(ours[1]["final_t"], back[1]["final_t"])):
         fail("cli path: the PLY at the last iteration does not render the trainer's bits")
-    del scene, tr, p, ours, back
+    del scene, tr, ours, back
 
     # Render.
     reset_launches()
@@ -2748,10 +2872,7 @@ def _cli_phase(dev, tmp):
         fail(f"cli path: render CLI launches {render_launches} for {CLI_VIEWS} views")
     splits = {"test": names[::8], "train": [n for i, n in enumerate(names) if i % 8]}
     for split, split_names in splits.items():
-        out = os.path.join(model_dir, split, f"ours_{CLI_STEPS}")
-        for kind in ("renders", "gt"):
-            if sorted(os.listdir(os.path.join(out, kind))) != [f"{i:05d}.png" for i in range(len(split_names))]:
-                fail(f"cli path: {split}/{kind} holds {os.listdir(os.path.join(out, kind))}")
+        out = render_cli_dir(model_dir, split, f"ours_{CLI_STEPS}", len(split_names))
         for i, name in enumerate(split_names):
             gt = image_io.read_png(os.path.join(out, "gt", f"{i:05d}.png"))
             view = image_io.read_image(os.path.join(data, "images", files[name]))
@@ -2775,26 +2896,7 @@ def _cli_phase(dev, tmp):
           f"images, test view 0 bit-equal to eval_render of the reloaded PLY")
 
     # Metrics.
-    _, metrics_ms = synced_ms(in_process, metrics_cli.main, ["-m", model_dir])
-    with open(os.path.join(model_dir, "results.json")) as f:
-        result = json.load(f).get(f"ours_{CLI_STEPS}", {})
-    if not all(math.isfinite(result.get(k) or math.nan) for k in ("SSIM", "PSNR", "LPIPS")):
-        fail(f"cli path: results.json holds {result}")
-    psnrs, lpipss = [], []
-    for i in range(n_test):
-        out = os.path.join(model_dir, "test", f"ours_{CLI_STEPS}")
-        r = image_io.read_png(os.path.join(out, "renders", f"{i:05d}.png")).astype(np.float64) / 255
-        g = image_io.read_png(os.path.join(out, "gt", f"{i:05d}.png")).astype(np.float64) / 255
-        psnrs.append(20 * math.log10(1 / math.sqrt(float(np.mean((r - g) ** 2)))))
-        lpipss.append(float(lpips_mod.lpips(torch.tensor(r, dtype=torch.float32, device=dev),
-                                            torch.tensor(g, dtype=torch.float32, device=dev))))
-    if abs(float(np.mean(psnrs)) - result["PSNR"]) > 1e-4:
-        fail(f"cli path: PSNR {result['PSNR']} vs {np.mean(psnrs)} recomputed from the PNGs")
-    if abs(float(np.mean(lpipss)) - result["LPIPS"]) > 1e-4 * abs(float(np.mean(lpipss))):
-        fail(f"cli path: LPIPS {result['LPIPS']} vs {np.mean(lpipss)} from the PNGs")
-    print(f"  metrics CLI: {metrics_ms:.1f} ms for {n_test} views; SSIM {result['SSIM']:.6f}, PSNR "
-          f"{result['PSNR']:.6f} dB (float64 from the PNGs {np.mean(psnrs):.6f}), LPIPS (vgg, "
-          f"seeded random weights) {result['LPIPS']:.7f} (lpips on the PNGs {np.mean(lpipss):.7f})")
+    print(metrics_cli_line(model_dir, f"ours_{CLI_STEPS}", n_test, dev, "cli path"))
 
     print(f"  phase peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
           f"wall {time.perf_counter() - t_phase:.1f} s")
@@ -3007,11 +3109,7 @@ def _blender_phase(dev, tmp):
     os.environ.pop("GS_TPU_BLENDER_INIT_POINTS", None)
     np.random.seed(0)
     reset_launches()
-    with SceneLoadTimer() as scene_load:
-        t0 = time.perf_counter()
-        scene, tr = in_process(train_cli.main, ["-s", data, "-m", model_dir, *BLENDER_FLAGS])
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
+    scene, tr, train_s, load_s, _ = run_train_cli(["-s", data, "-m", model_dir, *BLENDER_FLAGS])
     train_launches = {k: LAUNCH_COUNTERS[k].launches for k in TRAIN_KERNELS}
     reports = len(BLENDER_REPORTS) * (BLENDER_TEST + 5)  # each report: the test views and 5 train views
     want = {"composite_fwd": BLENDER_STEPS + reports, "composite_bwd": BLENDER_STEPS,
@@ -3032,7 +3130,7 @@ def _blender_phase(dev, tmp):
     pts = torch.from_numpy(init).to(dev)
     knn_ms = cuda_time_ms(lambda: mean_knn_dist2_morton(pts), 5)
     print(f"  train CLI: {BLENDER_STEPS} steps from {len(init)} random points in [-1.3, 1.3]^3, white "
-          f"background {white}, wall {train_s:.2f} s (scene load {scene_load.s:.2f} s: "
+          f"background {white}, wall {train_s:.2f} s (scene load {load_s:.2f} s: "
           f"{BLENDER_TRAIN + BLENDER_TEST} frames decoded (PNG, a CMYK JPEG, a BMP, a GIF, a TGA, a P6, a planar "
           f"TIFF, a JPEG 2000, an HTJ2K JP2, a Part 2 JP2, a palette + alpha TIFF) and "
           f"composited), step median "
@@ -3045,14 +3143,11 @@ def _blender_phase(dev, tmp):
     # the random cloud, then pruned), a test camera at 800x800 and the white
     # background, by phase 3's rules; their launches are not the path's
     # (the counters are reset before the render CLI).
-    p = tr.state.params
     test_view = scene.get_test_cameras()[0]
     if (test_view.width, test_view.height) != (BLENDER_W, BLENDER_W):
         fail(f"blender path: a test camera of {test_view.width}x{test_view.height}")
-    errs = check_state("blender train CLI final state", p, tr.active_sh_degree,
-                       test_view.arrays(device=dev), tr.background, tr.raster_cfg.capacity(p.num_points),
-                       (tr.raster_cfg.tile_w, tr.raster_cfg.tile_h), 47, W=BLENDER_W, H=BLENDER_W)
-    del scene, tr, pts, p
+    errs = check_trainer_state("blender train CLI final state", tr, test_view, 47)
+    del scene, tr, pts
 
     # Render both splits, then the metrics.
     reset_launches()
@@ -3063,10 +3158,7 @@ def _blender_phase(dev, tmp):
         fail(f"blender path: render CLI launches {render_launches} for {views} views")
     corners = []
     for split, n in (("train", BLENDER_TRAIN), ("test", BLENDER_TEST)):
-        out = os.path.join(model_dir, split, f"ours_{BLENDER_STEPS}")
-        for kind in ("renders", "gt"):
-            if sorted(os.listdir(os.path.join(out, kind))) != [f"{i:05d}.png" for i in range(n)]:
-                fail(f"blender path: {split}/{kind} holds {os.listdir(os.path.join(out, kind))}")
+        out = render_cli_dir(model_dir, split, f"ours_{BLENDER_STEPS}", n)
         for i in range(n):
             r = image_io.read_png(os.path.join(out, "renders", f"{i:05d}.png"))
             patches = [r[:8, :8], r[:8, -8:], r[-8:, :8], r[-8:, -8:]]
@@ -3086,6 +3178,485 @@ def _blender_phase(dev, tmp):
     print(f"  phase peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
           f"wall {time.perf_counter() - t_phase:.1f} s")
     return {k: train_launches[k] + render_launches[k] for k in TRAIN_KERNELS}, errs
+
+
+# ---- phase 5g: the user's commands ------------------------------------------
+
+# A COLMAP dataset frozen from PR to PR, so that the phase's numbers compare:
+# USER_VIEWS views of trained_r5 on phase 5c's orbit at 1957x1091, the size of
+# Tanks and Temples' truck views in the 3DGS authors' tandt_db release, each
+# a baseline 4:2:0 JPEG at q95 (encode_jpeg). No other image form enters it.
+USER_VIEWS, USER_W, USER_H = 12, 1957, 1091
+USER_CAM = (1600, 891)  # the train CLI's default -r -1: a view wider than 1600 px scaled to 1600 wide
+VIEWER_WIDE = (1920, 1080)  # a viewer window larger than the training views
+USER_VIEWER_VIEW = 1  # the viewer's pose: a train view (llffhold 8 holds out views 0 and 8)
+USER_STEPS, USER_CHECKPOINT, USER_PROFILE_AT, USER_DEBUG_FROM = 120, 60, 30, 110
+# the symbols of the three train-path kernels, as a CUDA trace names them
+TRACE_KERNELS = ("composite_fwd_kernel", "composite_bwd_kernel", "route_grads_kernel")
+
+
+def user_flags():
+    """Run A's flags after -s, -m and --port: the train CLI at its defaults
+    (no -r, the viewer on) with reports, saves and a checkpoint, a random
+    background, a profiled window, and phase 5c's densify and reset window
+    (20 / 20 / 160 / 120 at 200 steps) scaled to USER_STEPS; run B's after
+    -s and -m: a resume from run A's checkpoint under anomaly detection."""
+    run_a = ["--eval", "--iterations", str(USER_STEPS),
+             "--test_iterations", str(USER_CHECKPOINT), str(USER_STEPS),
+             "--save_iterations", str(USER_CHECKPOINT), str(USER_STEPS),
+             "--checkpoint_iterations", str(USER_CHECKPOINT), "--random_background",
+             "--profile_iteration", str(USER_PROFILE_AT), "--densify_from_iter", "20",
+             "--densification_interval", "20", "--densify_until_iter", "100",
+             "--opacity_reset_interval", "80"]
+    run_b = ["--iterations", str(USER_STEPS), "--debug_from", str(USER_DEBUG_FROM),
+             "--detect_anomaly", "--disable_viewer"]
+    return run_a, run_b
+
+
+def viewer_request(cam, train=False, scaling_modifier=1.0, shs_python=False, rot_scale_python=False,
+                   keep_alive=True) -> bytes:
+    """The reference viewer's request for the Camera `cam`
+    (network_gui.py:43-55): length-prefixed JSON, its matrices in the
+    wire's transposed layout with the Y / Z flips `receive` undoes."""
+    wv = np.asarray(cam.world_view_transform, np.float32).copy()
+    wv[1:3] *= -1
+    fp = np.asarray(cam.full_proj_transform, np.float32).copy()
+    fp[1] *= -1
+    payload = json.dumps(dict(
+        resolution_x=cam.width, resolution_y=cam.height, train=train, fov_y=cam.fovy, fov_x=cam.fovx,
+        z_near=cam.znear, z_far=cam.zfar, shs_python=shs_python, rot_scale_python=rot_scale_python,
+        keep_alive=keep_alive, scaling_modifier=scaling_modifier,
+        view_matrix=wv.T.reshape(-1).tolist(), view_projection_matrix=fp.T.reshape(-1).tolist(),
+    )).encode("utf-8")
+    return len(payload).to_bytes(4, "little") + payload
+
+
+class ViewerClient:
+    """A loopback client of the reference viewer's wire protocol: this
+    script's own copy, as tests/test_viewer.py's sits under the JAX
+    package's conftest. It connects as soon as the listener on `port`
+    exists."""
+
+    def __init__(self, port, wait_s=300.0):
+        deadline = time.perf_counter() + wait_s
+        while True:
+            try:
+                self.sock = socket.create_connection(("127.0.0.1", port), timeout=wait_s)
+                return
+            except ConnectionRefusedError:
+                if time.perf_counter() > deadline:
+                    raise
+                time.sleep(0.02)
+
+    def _read(self, n):
+        buf = bytearray()
+        while len(buf) < n:
+            chunk = self.sock.recv(n - len(buf))
+            if not chunk:
+                raise ConnectionError("the viewer bridge closed the connection")
+            buf += chunk
+        return bytes(buf)
+
+    def frame(self, cam, **kw):
+        """One request and its reply: (the (H, W, 3) uint8 frame, the source
+        path, the round trip's ms on the host clock)."""
+        t0 = time.perf_counter()
+        self.sock.sendall(viewer_request(cam, **kw))
+        img = np.frombuffer(self._read(cam.width * cam.height * 3), np.uint8)
+        path = self._read(int.from_bytes(self._read(4), "little")).decode("ascii")
+        return img.reshape(cam.height, cam.width, 3), path, (time.perf_counter() - t0) * 1e3
+
+    def close(self):
+        self.sock.close()
+
+
+def viewer_session(port, small, wide, out):
+    """Run A's viewer, on a thread: a request with `train` that the loop
+    answers before step 1 and then trains on; between two steps the plain
+    `small` frame twice, the `wide` frame at scaling modifier 1 and 0.5 and
+    with both SIBR toggles, then `train` again, after which training goes
+    on; the connection closed; last a second client that sends half a
+    request and closes. Every client sends at once: a connected client that
+    sends nothing holds the loop in `receive`, in the reference too."""
+    try:
+        client = ViewerClient(port)
+        out["first"] = client.frame(small, train=True)
+        out["small"] = [client.frame(small), client.frame(small)]
+        out["wide"] = client.frame(wide)
+        out["half"] = client.frame(wide, scaling_modifier=0.5)
+        out["toggled"] = client.frame(wide, shs_python=True, rot_scale_python=True)
+        out["last"] = client.frame(small, train=True)
+        client.close()
+        client = ViewerClient(port)
+        msg = viewer_request(small)
+        client.sock.sendall(msg[:len(msg) // 2])
+        client.close()
+        out["done"] = True
+    except Exception as e:  # the main thread reads it and fails the phase
+        out["error"] = repr(e)
+
+
+class ViewerProbe:
+    """While patched (`with`): the viewer bridge that the train CLI starts
+    (`viewer/network_gui.py`) records each connection it takes and drops,
+    at the trainer's iteration, and each frame it serves: iteration, size,
+    options, entry count against the entry capacity, and `eval_render`'s
+    ms (host clock, between two device waits)."""
+
+    def __enter__(self):
+        self.cls, self.render = network_gui.NetworkGUI, network_gui.eval_render
+        self.guis, self.frames, self.events = [], [], []
+        self.iteration, self.open = None, False
+        probe = self
+
+        def render(params, cam, bg, sh, width, height, cfg, **kw):
+            (img, aux), ms = synced_ms(lambda: probe.render(params, cam, bg, sh, width, height, cfg, **kw))
+            probe.frames.append(dict(iteration=probe.iteration, size=(width, height), ms=ms,
+                                     entries=int(aux["num_entries"]),
+                                     capacity=cfg.capacity(params.num_points), **kw))
+            return img, aux
+
+        class Recording(self.cls):
+            def __init__(gui, *args, **kw):
+                super().__init__(*args, **kw)
+                probe.guis.append(gui)
+
+            def try_connect(gui):
+                super().try_connect()
+                if gui.conn is not None and not probe.open:
+                    probe.open = True
+                    probe.events.append(("taken", probe.iteration))
+
+            def poll(gui, trainer):
+                probe.iteration = trainer.iteration
+                super().poll(trainer)
+                if gui.conn is None and probe.open:
+                    probe.open = False
+                    probe.events.append(("dropped", probe.iteration))
+
+        network_gui.NetworkGUI, network_gui.eval_render = Recording, render
+        return self
+
+    def __exit__(self, *exc):
+        network_gui.NetworkGUI, network_gui.eval_render = self.cls, self.render
+        for gui in self.guis:
+            gui.listener.close()
+
+
+class TrainerProbe:
+    """While patched (`with`): each `train_step` of the trainer loop is
+    recorded as (iteration, the entry capacity it ran at, its entry count),
+    and the state a `Trainer.load_checkpoint` leaves is copied to the host
+    with its device."""
+
+    def __enter__(self):
+        self.step_fn, self.load_fn = trainer_mod.train_step, Trainer.load_checkpoint
+        self.steps, self.loaded = [], None
+        probe = self
+
+        def step(state, cam, gt, bg, it, **kw):
+            m = probe.step_fn(state, cam, gt, bg, it, **kw)
+            probe.steps.append((it, kw["raster_cfg"].capacity(state.params.num_points), m["num_entries"]))
+            return m
+
+        def load(trainer, path):
+            probe.load_fn(trainer, path)
+            probe.loaded = dict(device=trainer.state.params.xyz.device, iteration=trainer.iteration,
+                                host=_state_to_host(trainer.state))
+
+        trainer_mod.train_step, Trainer.load_checkpoint = step, load
+        return self
+
+    def __exit__(self, *exc):
+        trainer_mod.train_step, Trainer.load_checkpoint = self.step_fn, self.load_fn
+
+    def overflows(self):
+        """The recorded steps whose entry count exceeded their capacity."""
+        return [(it, cap, int(n)) for it, cap, n in self.steps if int(n) > cap]
+
+
+def lit(img):
+    return int((img.astype(np.int64).sum(-1) > 0).sum())
+
+
+def user_phase(dev):
+    """Phase 5g (module docstring). Returns the compositing kernels'
+    launches in the train CLI runs (the viewer's frames included) and in
+    the render CLI runs, and the max abs errors of the forward, the
+    backward and the routing against their plain versions at run A's final
+    state."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_user_")
+    try:
+        return _user_phase(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _user_phase(dev, tmp):
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    data, model_a, model_b = (os.path.join(tmp, d) for d in ("data", "A", "B"))
+    run_a, run_b = user_flags()
+    n_test = len(range(0, USER_VIEWS, 8))  # llffhold=8
+    bg0 = torch.zeros(3, device=dev)
+
+    # The dataset: every view a JPEG.
+    t0 = time.perf_counter()
+    model = load_gaussians_ply(TRAINED_PLY)
+    cams, images = orbit_dataset(USER_VIEWS, USER_W, USER_H)
+    write_colmap_scene(data, cams, images, model["xyz"], dc_colors(model))
+    with ThreadPoolExecutor(4) as pool:  # numpy lets go of the interpreter lock in the DCT and packing
+        bodies = list(pool.map(lambda px: encode_jpeg(px, CLI_JPEG_QUALITY, (2, 2)), images))
+    files = {cam.image_name: f"{cam.image_name}.jpg" for cam in cams}
+    for cam, body in zip(cams, bodies):
+        os.remove(os.path.join(data, "images", f"{cam.image_name}.png"))
+        with open(os.path.join(data, "images", files[cam.image_name]), "wb") as f:
+            f.write(body)
+    rename_views(data, files)
+    print(f"user path: a COLMAP dataset of {USER_VIEWS} views of trained_r5 at {USER_W}x{USER_H} (Tanks and "
+          f"Temples truck's size), each a baseline 4:2:0 JPEG q{CLI_JPEG_QUALITY}, made in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # Run A: the train CLI as a user starts it, the viewer on.
+    pose = cams[USER_VIEWER_VIEW]
+
+    def view_at(size):
+        return Camera(uid=0, colmap_id=0, R=pose.R, T=pose.T, fovx=pose.fovx, fovy=pose.fovy, image=None,
+                      image_name=pose.image_name, width=size[0], height=size[1])
+
+    small, wide = view_at(USER_CAM), view_at(VIEWER_WIDE)
+    port = free_port()
+    replies = {}
+    client = threading.Thread(target=viewer_session, args=(port, small, wide, replies), daemon=True)
+    reset_launches()
+    with ViewerProbe() as viewer, TrainerProbe() as probe_a:
+        client.start()
+        scene, tr, train_s, load_s, panel_ms = run_train_cli(["-s", data, "-m", model_a, "--port", str(port),
+                                                               *run_a])
+    launches_a = {k: LAUNCH_COUNTERS[k].launches for k in TRAIN_KERNELS}
+    client.join(timeout=60)
+    if client.is_alive() or "error" in replies or not replies.get("done"):
+        fail(f"user path: the viewer client did not finish: {replies.get('error', 'still running')}")
+    if tr.iteration != USER_STEPS or [h["iteration"] for h in tr.history] != list(range(1, USER_STEPS + 1)):
+        fail(f"user path: run A stopped at iteration {tr.iteration}")
+    views = scene.get_train_cameras() + scene.get_test_cameras()
+    sizes = sorted({(c.width, c.height) for c in views})
+    if sizes != [USER_CAM] or len(views) != USER_VIEWS or len(scene.get_test_cameras()) != n_test:
+        fail(f"user path: the train CLI's cameras are {sizes}, {len(views)} views, not {USER_VIEWS} at {USER_CAM}")
+    with open(os.path.join(model_a, "cameras.json")) as f:
+        listed = sorted({(c["width"], c["height"]) for c in json.load(f)})
+    if listed != [(USER_W, USER_H)]:  # the dataset's size, as the JAX CLI and the reference write it
+        fail(f"user path: cameras.json lists sizes {listed}, not the dataset's {USER_W}x{USER_H}")
+    view = scene.get_train_cameras()[0]
+    px, decode_ms = synced_ms(image_io.read_image, os.path.join(data, "images", files[view.image_name]))
+    small_px, resize_ms = synced_ms(image_io.resize, px, USER_CAM)
+    if not np.array_equal(view.image, np.clip(small_px.astype(np.float32) / 255.0, 0.0, 1.0).transpose(2, 0, 1)):
+        fail(f"user path: {view.image_name}'s ground truth is not image_io.resize of its JPEG")
+    reports = 2 * (n_test + 5)  # each report: the test views and 5 train views
+    want = {"composite_fwd": USER_STEPS + reports + len(viewer.frames), "composite_bwd": USER_STEPS,
+            "route_grads": USER_STEPS}
+    if launches_a != want:
+        fail(f"user path: run A launches {launches_a}, the schedule gives {want}")
+    # the opacity reset (at 80 of 120) sets the loss back: the 20 steps
+    # before it are held below the first 20
+    losses_ = [h["loss"] for h in tr.history]
+    reset_at = int(run_a[run_a.index("--opacity_reset_interval") + 1])
+    first20, before_reset, last20 = (float(np.mean(losses_[i:i + 20]))
+                                     for i in (0, reset_at - 20, len(losses_) - 20))
+    if not all(math.isfinite(x) for x in losses_) or not before_reset < first20 or not tr.densify_history:
+        fail(f"user path: run A's loss first 20 {first20}, 20 before the reset {before_reset}, "
+             f"{len(tr.densify_history)} densifies")
+    for f in ("cfg_args", "input.ply", f"chkpnt{USER_CHECKPOINT}.pth",
+              *(f"point_cloud/iteration_{i}/point_cloud.ply" for i in (USER_CHECKPOINT, USER_STEPS))):
+        if not os.path.exists(os.path.join(model_a, f)):
+            fail(f"user path: run A wrote no {f}")
+    step_a = [h["iter_time_ms"] for h in tr.history]
+    print(f"  run A (train CLI, -r -1, viewer on, --random_background, --profile_iteration {USER_PROFILE_AT}): "
+          f"{USER_STEPS} steps, {USER_VIEWS - n_test} train and {n_test} test views at "
+          f"{USER_CAM[0]}x{USER_CAM[1]} (cameras.json: the dataset's {USER_W}x{USER_H}), wall {train_s:.2f} s "
+          f"(scene load {load_s:.2f} s; tensorboard panels {sum(panel_ms):.0f} ms in {len(panel_ms)}), step "
+          f"median {np.median(step_a):.3f} ms, p80 {np.percentile(step_a, 80):.3f} ms (iter_time_ms, host "
+          f"clock); loss first 20 {first20:.6f}, 20 before the reset at {reset_at} {before_reset:.6f}, last "
+          f"20 {last20:.6f}; {len(tr.densify_history)} densifies "
+          f"({[d['path'] for d in tr.densify_history]}), live {tr.num_live}; launches {launches_a}")
+    print(f"  {view.image_name}: JPEG decode {decode_ms:.1f} ms, resize {USER_W}x{USER_H} -> "
+          f"{USER_CAM[0]}x{USER_CAM[1]} {resize_ms:.1f} ms; its ground truth bit-equal to that resize")
+    over_a = probe_a.overflows()
+    print(f"  run A: steps over their entry capacity {over_a} (the trainer grows it at once)")
+
+    # The profiler's CUDA trace of steps USER_PROFILE_AT to + 5.
+    trace = os.path.join(model_a, "profile", f"trace_{USER_PROFILE_AT}.json")
+    if not os.path.exists(trace):
+        fail(f"user path: run A wrote no {trace}")
+    with open(trace) as f:
+        text = f.read()
+    named = {k: text.count(k) for k in TRACE_KERNELS}
+    if not all(named.values()):
+        fail(f"user path: the profiler trace names the kernels {named}")
+    print(f"  torch.profiler trace of steps {USER_PROFILE_AT}-{USER_PROFILE_AT + 5}: {len(text) / 2**20:.1f} MiB, "
+          f"kernel names seen {named}")
+
+    # The viewer during run A.
+    events = viewer.events
+    if [e for e, _ in events] != ["taken", "dropped", "taken", "dropped"] or max(i for _, i in events) >= USER_STEPS:
+        fail(f"user path: the viewer's connections {events}")
+    its = [fr["iteration"] for fr in viewer.frames]
+    if len(its) != 7 or its[1:] != [its[0] + 1] * 6 or its[-1] >= USER_STEPS - 1:
+        fail(f"user path: the viewer served {[(fr['iteration'], fr['size']) for fr in viewer.frames]}")
+    (a, path, ms_a), (b, _, ms_b) = replies["small"]
+    wide_img, _, ms_wide = replies["wide"]
+    half_img, toggled = replies["half"][0], replies["toggled"][0]
+    if path != data or any(r[1] != data for r in (replies["first"], replies["last"])):
+        fail(f"user path: the viewer names the source {path!r}, not {data!r}")
+    if not np.array_equal(a, b) or lit(a) == 0:
+        fail(f"user path: two frames of one state differ or are black ({lit(a)} pixels lit)")
+    if not lit(half_img) < lit(wide_img):
+        fail(f"user path: scaling modifier 0.5 lit {lit(half_img)} pixels, 1.0 {lit(wide_img)}")
+    tog_diff = int(np.abs(toggled.astype(int) - wide_img.astype(int)).max())
+    if tog_diff > 1:
+        fail(f"user path: the SIBR toggles' frame differs from the plain one by {tog_diff} levels")
+    served = {(fr["size"], fr.get("scale_modifier", 1.0), fr.get("shs_python", False)): fr
+              for fr in viewer.frames}
+    big = served[(VIEWER_WIDE, 1.0, False)]
+    print(f"  viewer during run A: connections {events}; {len(viewer.frames)} frames served, then training "
+          f"went on to {USER_STEPS}; {USER_CAM[0]}x{USER_CAM[1]} twice bit-equal ({lit(a)} pixels lit), "
+          f"round trip {ms_a:.1f} / {ms_b:.1f} ms; {VIEWER_WIDE[0]}x{VIEWER_WIDE[1]} {ms_wide:.1f} ms "
+          f"({lit(wide_img)} lit), at scaling modifier 0.5 {lit(half_img)} lit, with both SIBR toggles "
+          f"within {tog_diff} level of the plain frame; eval_render ms: "
+          + ", ".join(f"{fr['size'][0]}x{fr['size'][1]} {fr['ms']:.1f}" for fr in viewer.frames))
+    print(f"  viewer at the trainer's raster_cfg: {VIEWER_WIDE[0]}x{VIEWER_WIDE[1]} total {big['entries']} "
+          f"entries against capacity {big['capacity']} ({'OVERFLOW: whole Gaussians dropped' if big['entries'] > big['capacity'] else 'fits'}); "
+          f"{USER_CAM[0]}x{USER_CAM[1]} {served[(USER_CAM, 1.0, False)]['entries']} entries")
+
+    # The three train-path kernels at run A's final state and a test view.
+    errs = check_trainer_state("run A final state", tr, scene.get_test_cameras()[0], 47)
+
+    # The trainer, served through a fresh bridge on an ephemeral port: each
+    # frame within one uint8 level of eval_render on the same camera.
+    gui = network_gui.NetworkGUI(port=0)
+    gui.source_path = data
+    settings = (("plain", small, {}), ("wide", wide, {}), ("half", wide, {"scaling_modifier": 0.5}),
+                ("toggled", wide, {"shs_python": True, "rot_scale_python": True}))
+    got = {}
+
+    def session():
+        try:
+            c = ViewerClient(gui.listener.getsockname()[1], wait_s=60.0)
+            for key, cam, kw in settings:
+                got[key] = c.frame(cam, **kw)
+            c.close()
+        except Exception as e:
+            got["error"] = repr(e)
+
+    thread = threading.Thread(target=session, daemon=True)
+    thread.start()
+    deadline = time.perf_counter() + 60
+    while gui.conn is None and time.perf_counter() < deadline:
+        gui.try_connect()
+        time.sleep(0.01)
+    gui.poll(tr)
+    thread.join(timeout=60)
+    gui.listener.close()
+    if thread.is_alive() or "error" in got or len(got) != len(settings):
+        fail(f"user path: the fresh viewer served {sorted(got)}: {got.get('error')}")
+    diffs = {}
+    for key, cam, kw in settings:
+        img, _ = eval_render(tr.state.params, cam.arrays(device=dev), tr.background, tr.active_sh_degree,
+                             cam.width, cam.height, tr.raster_cfg, scale_modifier=kw.get("scaling_modifier", 1.0),
+                             shs_python=kw.get("shs_python", False),
+                             rot_scale_python=kw.get("rot_scale_python", False))
+        direct = (torch.clamp(img, 0, 1) * 255).to(torch.uint8).cpu().numpy()
+        diffs[key] = int(np.abs(direct.astype(int) - got[key][0].astype(int)).max())
+    if max(diffs.values()) > 1 or any(got[k][1] != data for k in diffs):
+        fail(f"user path: the fresh viewer's frames differ from eval_render by {diffs} levels")
+    print(f"  fresh viewer on run A's trainer (iteration {tr.iteration}): frames vs eval_render on the same "
+          f"camera, max level difference {diffs}; round trip "
+          + ", ".join(f"{k} {got[k][2]:.1f} ms" for k in diffs))
+    busy = device_busy_ms(lambda: tr.step(), reps=3)
+    print_busy(*busy, float(np.median(step_a)), f"{USER_CAM[0]}x{USER_CAM[1]} trainer step")
+    del scene, tr
+
+    # Run B: a resume from run A's checkpoint under anomaly detection.
+    ckpt = os.path.join(model_a, f"chkpnt{USER_CHECKPOINT}.pth")
+    with open(ckpt, "rb") as f:
+        payload = pickle.load(f)
+    reset_launches()
+    with TrainerProbe() as probe_b:
+        scene_b, tr_b, train_b_s, load_b_s, _ = run_train_cli(["-s", data, "-m", model_b, "--start_checkpoint",
+                                                               ckpt, *run_b])
+    launches_b = {k: LAUNCH_COUNTERS[k].launches for k in TRAIN_KERNELS}
+    steps_b = USER_STEPS - USER_CHECKPOINT
+    if [h["iteration"] for h in tr_b.history] != list(range(USER_CHECKPOINT + 1, USER_STEPS + 1)):
+        fail(f"user path: run B's iterations {[h['iteration'] for h in tr_b.history][:3]}..., not "
+             f"{USER_CHECKPOINT + 1} to {USER_STEPS}")
+    loaded = probe_b.loaded
+    if loaded is None or loaded["device"].type != dev.type or loaded["iteration"] != USER_CHECKPOINT:
+        fail(f"user path: run B loaded no checkpoint onto the card ({loaded and loaded['device']})")
+    params, m, v, stats, step = loaded["host"]
+    saved = {"params": params, "adam_m": m, "adam_v": v, "stats": stats}
+    unequal = [f"{part}.{k}" for part, rows in saved.items() for k, x in rows.items()
+               if x.dtype != payload[part][k].dtype or not np.array_equal(x, payload[part][k])]
+    if unequal or step != payload["adam_step"]:
+        fail(f"user path: the state after the load differs from the checkpoint in {unequal}, step {step} "
+             f"vs {payload['adam_step']}")
+    over_b = probe_b.overflows()
+    if over_b or probe_b.steps[0][0] != USER_CHECKPOINT + 1:
+        fail(f"user path: run B's steps over their entry capacity {over_b}")
+    if torch.is_anomaly_enabled():
+        fail("user path: anomaly detection stayed on after the train CLI returned")
+    if not tr_b.debug or launches_b != {k: steps_b for k in TRAIN_KERNELS}:
+        fail(f"user path: run B's debug flag {tr_b.debug}, launches {launches_b}")
+    final_b = load_gaussians_ply(os.path.join(model_b, f"point_cloud/iteration_{USER_STEPS}/point_cloud.ply"))
+    if not all(np.isfinite(x).all() for x in final_b.values()):
+        fail("user path: run B's final PLY is not finite")
+    step_b = [h["iter_time_ms"] for h in tr_b.history]
+    print(f"  run B (--start_checkpoint chkpnt{USER_CHECKPOINT}.pth, --detect_anomaly, --debug_from "
+          f"{USER_DEBUG_FROM}): iterations {USER_CHECKPOINT + 1}-{USER_STEPS}, the loaded state ({len(params['xyz'])} "
+          f"live rows, their Adam moments, step {step}, statistics) bit-equal to the checkpoint on the card; "
+          f"capacity probed at step {USER_CHECKPOINT + 1}: {probe_b.steps[0][1]} for {int(probe_b.steps[0][2])} "
+          f"entries, no step over it; wall {train_b_s:.2f} s (scene load {load_b_s:.2f} s), step median "
+          f"{np.median(step_b):.3f} ms, p80 {np.percentile(step_b, 80):.3f} ms; no anomaly raised, anomaly "
+          f"detection off again after; final PLY ({len(final_b['xyz'])} rows) finite; launches {launches_b}")
+    del scene_b, tr_b
+
+    # The render and metrics CLIs.
+    reset_launches()
+    _, render_a_ms = synced_ms(in_process, render_cli.main, ["-m", model_a, "--iteration", str(USER_CHECKPOINT),
+                                                             "--skip_train"])
+    _, render_b_ms = synced_ms(in_process, render_cli.main, ["-m", model_b, "--skip_test"])
+    render_launches = {k: LAUNCH_COUNTERS[k].launches for k in TRAIN_KERNELS}
+    if render_launches != {"composite_fwd": n_test + USER_VIEWS, "composite_bwd": 0, "route_grads": 0}:
+        fail(f"user path: render CLI launches {render_launches}")
+    if os.path.exists(os.path.join(model_a, "train")) or os.path.exists(os.path.join(model_b, "test")):
+        fail("user path: the render CLI rendered a split it was told to skip")
+    out_a = render_cli_dir(model_a, "test", f"ours_{USER_CHECKPOINT}", n_test)
+    out_b = render_cli_dir(model_b, "train", f"ours_{USER_STEPS}", USER_VIEWS)
+    pngs = [os.path.join(o, k, f"{i:05d}.png") for o, n in ((out_a, n_test), (out_b, USER_VIEWS))
+            for k in ("renders", "gt") for i in range(n)]
+    shapes = sorted({image_io.read_png(p).shape for p in pngs})
+    if shapes != [(USER_CAM[1], USER_CAM[0], 3)]:
+        fail(f"user path: the render CLI wrote PNGs of {shapes}")
+    info = read_colmap_scene(data, None, eval_split=True)
+    test_views = [load_camera(c, -1) for c in info.test_cameras]
+    at_60 = params_from_ply(os.path.join(model_a, f"point_cloud/iteration_{USER_CHECKPOINT}/point_cloud.ply"),
+                            device=dev)
+    rcfg = RasterizerConfig(capacity_exact=render_cli.auto_capacity(at_60, test_views, RasterizerConfig(), 3))
+    want_png = quantize(eval_render(at_60, test_views[0].arrays(device=dev), bg0, 3, *USER_CAM, rcfg)[0])
+    render_diff = int(np.abs(image_io.read_png(os.path.join(out_a, "renders", "00000.png")).astype(int)
+                             - want_png.astype(int)).max())
+    if render_diff > 1:
+        fail(f"user path: the render CLI's test view 0 differs from eval_render by {render_diff} levels")
+    print(f"  render CLI: -m A --iteration {USER_CHECKPOINT} --skip_train {n_test} views in {render_a_ms:.0f} ms "
+          f"({render_a_ms / n_test:.1f} ms a view), -m B --skip_test {USER_VIEWS} views in {render_b_ms:.0f} ms "
+          f"({render_b_ms / USER_VIEWS:.1f} ms a view); every PNG {USER_CAM[0]}x{USER_CAM[1]}; test view 0 within "
+          f"{render_diff} level of eval_render of point_cloud/iteration_{USER_CHECKPOINT}; launches {render_launches}")
+    print(metrics_cli_line(model_a, f"ours_{USER_CHECKPOINT}", n_test, dev, "user path"))
+
+    train_launches = {k: launches_a[k] + launches_b[k] for k in TRAIN_KERNELS}
+    print(f"  phase peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
+          f"wall {time.perf_counter() - t_phase:.1f} s")
+    return train_launches, render_launches, errs
 
 
 # ---- phase 5d: the sharded path -------------------------------------------
@@ -3428,7 +3999,7 @@ def check_sharded_trainer(ranks, tmp, dev):
 def bench_metric(mode, env):
     """The metric bench_torch.py must name for a run of BENCH_RUNS."""
     scene = env.get("GS_BENCH_SCENE", "ply")
-    P = 262_144 if scene == "cloud" else 122_535
+    P = 122_535 if scene == "ply" else 262_144
     kind = "train_its" if mode == "train" else "render_fps"
     return f"{kind}_{W_MAIN}x{H_MAIN}_P{P}_cuda" + ("" if scene == "cloud" else f"_{scene}")
 
@@ -3909,13 +4480,17 @@ def main():
         phase_done("5c CLI path")
         # ---- 5e. Blender path (the metrics CLI's LPIPS on the same weights)
         blender_launches, blender_errs = blender_phase(dev)
+        phase_done("5e Blender path")
+        # ---- 5g. the user's commands (the metrics CLI's LPIPS on the same weights)
+        user_train_launches, user_render_launches, user_errs = user_phase(dev)
     finally:
         os.environ.pop("GS_TPU_LPIPS_WEIGHTS", None)
         lpips_mod._load_weights.cache_clear()
         shutil.rmtree(lpips_dir, ignore_errors=True)
-    for k, e in (*zip(TRAIN_KERNELS, cli_errs), *zip(TRAIN_KERNELS, blender_errs)):
+    for k, e in (*zip(TRAIN_KERNELS, cli_errs), *zip(TRAIN_KERNELS, blender_errs),
+                 *zip(TRAIN_KERNELS, user_errs)):
         max_err[k] = max(max_err[k], e)
-    phase_done("5e Blender path")
+    phase_done("5g user's commands")
 
     # ---- 5d. sharded path ---------------------------------------------
     sharded_launches, strip_errs = sharded_phase(dev, gt, center, dist, train_capacity,
@@ -3997,7 +4572,8 @@ def main():
         if name in train_launches:
             return {"train": train_launches[name], "trainer": trainer_launches[name],
                     "cli_train": cli_train_launches[name], "cli_render": cli_render_launches[name],
-                    "cli_blender": blender_launches[name],
+                    "cli_blender": blender_launches[name], "user_train": user_train_launches[name],
+                    "user_render": user_render_launches[name],
                     **{path: counts[name] for path, counts in sharded_launches.items()},
                     "bench": bench_launches[name]}
         return {"profiler": prof_launches[name]}

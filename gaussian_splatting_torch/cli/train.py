@@ -12,7 +12,7 @@ A tile (--tile_size x --tile_size_y) of more than 4096 pixels is refused
 before anything loads (`config.check_tile_flags`): the CUDA kernels take
 every smaller one.
 
-`--detect_anomaly` turns on torch's anomaly detection, and
+`--detect_anomaly` turns on torch's anomaly detection for the run, and
 `--profile_iteration N` writes a `torch.profiler` trace of the steps from
 N to N + 5 into <model>/profile. Tensorboard logging and the tqdm progress
 bar are used when those packages import, as in the JAX package.
@@ -20,6 +20,7 @@ bar are used when those packages import, as in the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import time
@@ -303,25 +304,25 @@ def main(argv=None, device="cuda"):
 
     print("Optimizing " + args.model_path)
     safe_state(args.quiet)
-    if args.detect_anomaly:
-        torch.autograd.set_detect_anomaly(True)
-
-    out = training(
-        ModelParams.extract(args),
-        OptimizationParams.extract(args),
-        PipelineParams.extract(args),
-        args.test_iterations,
-        args.save_iterations,
-        args.checkpoint_iterations,
-        args.start_checkpoint,
-        ip=args.ip,
-        port=args.port,
-        quiet=args.quiet,
-        disable_viewer=args.disable_viewer,
-        profile_iteration=args.profile_iteration,
-        debug_from=args.debug_from,
-        device=dev,
-    )
+    # Anomaly detection is a process-wide switch: on for this run only, so
+    # an in-process caller gets its own setting back.
+    with torch.autograd.detect_anomaly() if args.detect_anomaly else contextlib.nullcontext():
+        out = training(
+            ModelParams.extract(args),
+            OptimizationParams.extract(args),
+            PipelineParams.extract(args),
+            args.test_iterations,
+            args.save_iterations,
+            args.checkpoint_iterations,
+            args.start_checkpoint,
+            ip=args.ip,
+            port=args.port,
+            quiet=args.quiet,
+            disable_viewer=args.disable_viewer,
+            profile_iteration=args.profile_iteration,
+            debug_from=args.debug_from,
+            device=dev,
+        )
     print("\nTraining complete.")
     return out
 

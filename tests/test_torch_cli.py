@@ -15,14 +15,23 @@ Tolerances:
     off (the forward's rule, test_torch_render.py);
   - the port's metrics CLI on the JAX CLI's renders: results within 1e-5
     relative of the JAX CLI's.
+  - the first steps' losses of both train CLIs within rtol 1e-4
+    (test_torch_trainer.py's bound on the losses), their entry counts
+    equal.
 The init cloud is 300 points (GS_TPU_BLENDER_INIT_POINTS, read by both
-packages) to keep the plain compositing versions quick.
+packages) to keep the plain compositing versions quick. A second scene has
+views wider than 1600 px (1700x48), which the train CLIs' default
+resolution (-r -1) scales to 1600x45, as it scales every Tanks and Temples
+view.
 """
 
 import json
 import os
 import shutil
+import socket
 import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -67,15 +76,50 @@ def copy_of(src, dst):
 
 
 @pytest.fixture(scope="module")
+def wide_scene_dir(tmp_path_factory, env):
+    from make_synthetic_scene import make_blender_scene
+
+    d = str(tmp_path_factory.mktemp("cli_wide") / "scene")
+    make_blender_scene(d, width=1700, height=48, n_train=3, n_test=1)
+    return d
+
+
+# each JAX-trained model directory's history of losses and entry counts
+JAX_HISTORY = {}
+
+
+def jax_train(src, model, flags):
+    """The JAX train CLI; its trainer's history is kept in JAX_HISTORY
+    (its main returns nothing)."""
+    out = {}
+
+    def training(*args, **kw):
+        out["run"] = run(*args, **kw)
+        return out["run"]
+
+    run = jtrain.training
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jtrain, "training", training)
+        jtrain.main(["-s", src, "-m", model] + flags)
+    JAX_HISTORY[model] = out["run"][1].history
+    return model
+
+
+@pytest.fixture(scope="module")
 def jax_model(tmp_path_factory, scene_dir):
     """A model directory trained, rendered and scored by the JAX CLIs."""
     base = tmp_path_factory.mktemp("jax")
-    src = copy_of(scene_dir, base / "scene")
-    model = str(base / "model")
-    jtrain.main(["-s", src, "-m", model] + TRAIN_FLAGS)
+    model = jax_train(copy_of(scene_dir, base / "scene"), str(base / "model"), TRAIN_FLAGS)
     jrender.main(["-m", model, "--quiet"])
     jmetrics.main(["-m", model])
     return model
+
+
+@pytest.fixture(scope="module")
+def wide_jax_model(tmp_path_factory, wide_scene_dir):
+    """A model directory the JAX train CLI trained on the wide views."""
+    base = tmp_path_factory.mktemp("jax_wide")
+    return jax_train(copy_of(wide_scene_dir, base / "scene"), str(base / "model"), TRAIN_FLAGS)
 
 
 def test_train_render_metrics(scene_dir, tmp_path, env):
@@ -151,11 +195,22 @@ def assert_same_model(model, jax_model):
         assert open(os.path.join(model, f), "rb").read() == open(os.path.join(jax_model, f), "rb").read()
 
 
-def test_train_cli_matches_jax(scene_dir, jax_model, tmp_path, env):
-    src = copy_of(scene_dir, tmp_path / "scene")
+@pytest.mark.parametrize("views,size", [("scene_dir", (64, 64)), ("wide_scene_dir", (1600, 45))],
+                         ids=["64x64", "1700x48"])
+def test_train_cli_matches_jax(request, tmp_path, env, views, size):
+    """Both train CLIs at their default resolution (-r -1): 64x64 views as
+    they are, 1700x48 views scaled to 1600x45."""
+    jax_model = request.getfixturevalue("jax_model" if views == "scene_dir" else "wide_jax_model")
+    src = copy_of(request.getfixturevalue(views), tmp_path / "scene")
     model = str(tmp_path / "model")
-    train.main(["-s", src, "-m", model] + TRAIN_FLAGS, device="cpu")
+    scene, trainer = train.main(["-s", src, "-m", model] + TRAIN_FLAGS, device="cpu")
+    cams = scene.get_train_cameras() + scene.get_test_cameras()
+    assert len(cams) == 4 and {(c.width, c.height) for c in cams} == {size}
     assert_same_model(model, jax_model)
+    want = JAX_HISTORY[jax_model]
+    np.testing.assert_allclose([h["loss"] for h in trainer.history], [h["loss"] for h in want],
+                               rtol=1e-4, atol=0)
+    assert [h["num_entries"] for h in trainer.history] == [h["num_entries"] for h in want]
 
 
 @pytest.mark.parametrize("tiles,tile", [
@@ -246,6 +301,64 @@ def test_start_checkpoint_from_the_jax_cli(scene_dir, jax_model, tmp_path, env):
     assert [h["iteration"] for h in trainer.history] == [6, 7]
     assert trainer.state.adam.step == 7
     assert os.path.exists(tmp_path / "model/point_cloud/iteration_7/point_cloud.ply")
+
+
+def viewer_request(port, width, height):
+    """test_viewer.py's client request to the bridge on `port`, sent as soon
+    as the listener exists: (the frame, the source path)."""
+    from gaussian_splatting_torch.scene.cameras import Camera
+    from test_viewer import _client_request
+
+    cam = Camera(uid=0, colmap_id=0, R=np.eye(3), T=np.array([0.0, 0.0, 4.0]), fovx=np.radians(60),
+                 fovy=np.radians(60), image=None, image_name="v", width=width, height=height)
+    wv = np.asarray(cam.world_view_transform, np.float32).copy()
+    wv[1:3] *= -1
+    fp = np.asarray(cam.full_proj_transform, np.float32).copy()
+    fp[1] *= -1
+    for _ in range(3000):
+        try:
+            return _client_request(port, width, height, wv.T.reshape(-1).tolist(), fp.T.reshape(-1).tolist())
+        except ConnectionRefusedError:
+            time.sleep(0.01)
+    raise TimeoutError(f"no listener on port {port}")
+
+
+def test_train_cli_with_the_viewer_on(scene_dir, tmp_path, env):
+    """The live viewer on, as the train CLI starts it without
+    --disable_viewer: a client on a free port gets one frame during a
+    3-step run, and the run finishes all its steps."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    src = copy_of(scene_dir, tmp_path / "scene")
+    reply = {}
+    client = threading.Thread(target=lambda: reply.update(frame=viewer_request(port, 64, 64)), daemon=True)
+    client.start()
+    _, trainer = train.main(["-s", src, "-m", str(tmp_path / "model"), "--iterations", "3", "--port", str(port),
+                             "--densify_from_iter", "1000", "--quiet"], device="cpu")
+    client.join(timeout=60)
+    assert not client.is_alive() and "frame" in reply
+    assert trainer.iteration == 3 and [h["iteration"] for h in trainer.history] == [1, 2, 3]
+    img, path = reply["frame"]
+    assert img.shape == (64, 64, 3) and img.max() > 0 and path == src
+
+
+def test_detect_anomaly_is_on_for_the_run_only(scene_dir, tmp_path, env, monkeypatch):
+    """--detect_anomaly turns torch's anomaly detection on for the steps
+    and back off when main returns, so an in-process caller keeps its own
+    setting (the switch is process-wide)."""
+    from gaussian_splatting_torch.trainer import Trainer
+
+    seen = []
+    step = Trainer.step
+    monkeypatch.setattr(Trainer, "step", lambda self, **kw: seen.append(torch.is_anomaly_enabled())
+                        or step(self, **kw))
+    assert not torch.is_anomaly_enabled()
+    _, trainer = train.main(["-s", copy_of(scene_dir, tmp_path / "scene"), "-m", str(tmp_path / "model"),
+                             "--iterations", "2", "--detect_anomaly", "--debug_from", "1",
+                             "--densify_from_iter", "1000", "--disable_viewer", "--quiet"], device="cpu")
+    assert seen == [True, True] and trainer.debug
+    assert not torch.is_anomaly_enabled()
 
 
 def test_full_eval_arg_validation(monkeypatch):
