@@ -14,7 +14,8 @@ Phases (any failure exits non-zero; none is caught and passed over):
      (csrc/jpeg_decode.cc, the JPEG decoder, JPEG-in-TIFF strips
      included, csrc/webp_decode.cc, the WebP decoder, and
      csrc/image_codecs.cc, TIFF's LZW (both styles), PackBits and
-     ThunderScan, BMP's RLE, GIF's LZW and TGA's RLE, csrc/fax_decode.cc,
+     ThunderScan, BMP's RLE, GIF's LZW, TGA's RLE, QOI's ops, PCX's and
+     SGI's RLE and PSD's PackBits, csrc/fax_decode.cc,
      TIFF's CCITT fax, and csrc/zstd_decode.cc, ZSTD-in-TIFF's Zstandard
      frames; host C++, `c++`), with their build time.
   3. kernels vs plain: preprocess and bin a scene once, feed the same sorted
@@ -344,6 +345,25 @@ Phases (any failure exits non-zero; none is caught and passed over):
      step median, the viewer's frames, the device busy share of a 1600x891
      trainer step, the render CLI's ms per view, the metrics, the phase's
      peak device memory and wall time.
+  5h. the legacy forms, after 5g: (a) one seeded file of each form,
+     written by tests/torch_image_writers.py (the tests' writers, standard
+     library and numpy only) from the form picture at
+     1920x1080: a 24-bit DIB, an RGBA QOI, an RGB PCX, RLE SGI at 8 and
+     at 16 bits, an RLE PSD, a DCX; and two 256x256 ICOs, one of a PNG
+     entry and one of a 32-bit BMP entry. Each file must be the bytes PIL
+     read and `image_io.open_image` must give PIL 12.1.0's mode, shape and
+     pixels' SHA-256 (tests/fixtures/torch_legacy_forms/sha256.json,
+     written by its make_fixtures.py). Prints the port's median of 5
+     decodes (host clock) and, where this machine has PIL, PIL's median
+     of 3. (b) A COLMAP dataset of 7 views of trained_r5 on phase 5c's
+     orbit at 1920x1080, one view in each of the seven 1080p forms (QOI's
+     alpha 255), each read back as its render; `cli.train` -r 1 for 30
+     iterations (--disable_viewer): every camera 1920x1080, finite losses,
+     one launch of each compositing kernel a step; at its final state and
+     a train view the forward, the backward and the routing held to their
+     plain versions by phase 3's rules (`check_state`; not counted).
+     Prints the dataset's build, the scene load, the wall and step median,
+     the phase's peak device memory and wall time.
   5d. sharded path (`parallel/sharding.py`), on the one card:
      - the kernels at a row origin: trained_r5 at 1920x1080 with 32x32
        tiles cut into 2 and into 4 strips of tile rows; each strip's
@@ -409,6 +429,7 @@ Phases (any failure exits non-zero; none is caught and passed over):
      own reset (train, trainer, cli_train, cli_render, cli_blender (its
      train and render CLIs together), user_train (5g's runs A, its viewer
      frames included, and B), user_render (5g's two render CLIs),
+     forms_train (5h's train CLI),
      sharded_2rank and sharded_trainer (both ranks' sums), sharded_nccl1,
      bench (the five in-process runs of 5f) for the compositing kernels
      and the routing,
@@ -3659,6 +3680,176 @@ def _user_phase(dev, tmp):
     return train_launches, render_launches, errs
 
 
+# ---- phase 5h: the legacy forms ---------------------------------------------
+
+# PIL's reading of each 1080p file of `legacy_form_files` (its mode, shape,
+# pixels' SHA-256) and the file's own SHA-256, as
+# tests/fixtures/torch_legacy_forms/make_fixtures.py wrote them with PIL 12.1.0
+LEGACY_FIXTURES = os.path.join(FIXTURES, "torch_legacy_forms")
+LEGACY_STEPS = 30
+LEGACY_VIEWS = ("DIB 24-bit", "QOI RGBA", "PCX RGB", "SGI RLE RGB 8-bit", "SGI RLE RGB 16-bit", "PSD RLE RGB",
+                "DCX")
+LEGACY_EXT = {"DIB": ".dib", "QOI": ".qoi", "PCX": ".pcx", "SGI": ".sgi", "PSD": ".psd", "DCX": ".dcx"}
+
+
+def image_writers():
+    """tests/torch_image_writers.py: the tests' writers of the forms PIL
+    reads but does not write (standard library and numpy only), which the
+    card's machine can import."""
+    tests = os.path.join(ROOT, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_image_writers
+
+    return torch_image_writers
+
+
+def legacy_form_files(px=None, alpha=None, names=None):
+    """The files of phase 5h in the forms of DIB, QOI, PCX, SGI, PSD, DCX and
+    ICO, written by tests/torch_image_writers.py from `px` (default: the
+    form picture at 1920x1080) and `alpha` (QOI's and the icons'; default
+    a ramp of 128..255): {name: bytes}, of every form or of `names`.
+    The icons are 256x256, the largest an ICO holds: one PNG entry, one
+    32-bit BMP entry."""
+    w = image_writers()
+    px = form_picture() if px is None else px
+    H, W = px.shape[:2]
+    if alpha is None:
+        yy, xx = np.mgrid[0:H, 0:W]
+        alpha = (128 + (3 * xx + 5 * yy) % 128).astype(np.uint8)
+    rgba = np.concatenate([px, alpha[..., None]], -1)
+    icon = rgba[:256, :256]
+    bgra = np.ascontiguousarray(icon[..., [2, 1, 0, 3]]).reshape(256, -1)
+
+    def pcx_rgb():
+        return w.pcx_bytes(w.pcx_lines(px, 8, 3, W + W % 2), W, H, 8, 3)
+
+    writers = {
+        "DIB 24-bit": lambda: w.dib_bytes(w.padded_rows(px[..., ::-1].reshape(H, -1)), W, H, 24),
+        "QOI RGBA": lambda: w.qoi_bytes(rgba),
+        "PCX RGB": pcx_rgb,
+        "SGI RLE RGB 8-bit": lambda: w.sgi_bytes(px, 1, rle=True),
+        "SGI RLE RGB 16-bit": lambda: w.sgi_bytes(wide_samples(px).astype(np.uint16), 2, rle=True),
+        "PSD RLE RGB": lambda: w.psd_bytes(px.transpose(2, 0, 1), 3, compression=1),
+        "DCX": lambda: w.dcx_bytes([pcx_rgb()]),
+        "ICO 256x256 PNG entry": lambda: w.icon_bytes([(256, 256, 0, 32, w.png_bytes(icon))]),
+        "ICO 256x256 32-bit BMP entry": lambda: w.icon_bytes([(256, 256, 0, 32, w.icon_dib(
+            w.padded_rows(bgra), 256, 256, 32, and_mask=np.zeros((256, 256), np.uint8)))]),
+    }
+    return {name: write() for name, write in writers.items() if names is None or name in names}
+
+
+def check_legacy_forms(tmp):
+    """Phase 5h (a): each file of `legacy_form_files` the bytes PIL read
+    (its SHA-256) and, through `image_io.open_image`, PIL's mode, shape
+    and pixels' SHA-256 (tests/fixtures/torch_legacy_forms/sha256.json).
+    Returns {name: (the port's median ms of 5 decodes, PIL's median of 3 or
+    "not measured")}."""
+    with open(os.path.join(LEGACY_FIXTURES, "sha256.json")) as f:
+        readings = json.load(f)["chip_smoke"]
+    made = legacy_form_files()
+    if sorted(made) != sorted(readings):
+        fail(f"legacy forms: this script makes {sorted(made)}, the fixture holds {sorted(readings)}")
+    have_pil = importlib.util.find_spec("PIL") is not None
+    times = {}
+    for name, data in made.items():
+        want = readings[name]
+        if hashlib.sha256(data).hexdigest() != want["file_sha256"]:
+            fail(f"legacy forms: the writers made other bytes for '{name}' than the file PIL read "
+                 f"(tests/fixtures/torch_legacy_forms/sha256.json)")
+        path = os.path.join(tmp, "form" + LEGACY_EXT.get(name.split()[0], ".ico"))
+        with open(path, "wb") as f:
+            f.write(data)
+        ms, pil_ms = [], []
+        for i in range(5):
+            pic, t = synced_ms(image_io.open_image, path)
+            ms.append(t)
+            if have_pil and i < 3:  # PIL's QOI decoder is Python: seconds a 1080p file
+                from PIL import Image
+
+                t0 = time.perf_counter()
+                with Image.open(path) as im:
+                    np.asarray(im)
+                pil_ms.append((time.perf_counter() - t0) * 1e3)
+        digest = sha256_of(pic.pixels)
+        if (pic.mode, list(pic.pixels.shape), digest) != (want["mode"], want["shape"], want["sha256"]):
+            fail(f"legacy forms: {name} reads as {pic.mode} {pic.pixels.shape} with SHA-256 {digest}, not PIL's "
+                 f"{want['mode']} {want['shape']} {want['sha256']}")
+        times[name] = (float(np.median(ms)), f"{np.median(pil_ms):.2f}" if pil_ms else "not measured")
+    return times
+
+
+def legacy_phase(dev):
+    """Phase 5h (module docstring). Returns the compositing kernels'
+    launches in the train CLI run and the max abs errors of the forward,
+    the backward and the routing against their plain versions at its final
+    state."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_legacy_")
+    try:
+        return _legacy_phase(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _legacy_phase(dev, tmp):
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) The 1080p files and the icons, held to PIL's committed readings.
+    times = check_legacy_forms(tmp)
+    print(f"legacy forms: {len(times)} files of tests/torch_image_writers.py (1920x1080, the icons 256x256) "
+          f"read with PIL 12.1.0's mode, shape and pixels (tests/fixtures/torch_legacy_forms/sha256.json); "
+          f"decode ms, median of 5 (host clock), beside PIL's median of 3 on this machine ({pil_versions()}):")
+    for name, (ms, pil_ms) in times.items():
+        print(f"  {name}: {ms:.2f} ms (PIL {pil_ms})")
+
+    # (b) A COLMAP dataset of trained_r5 whose views are seven of those forms.
+    t0 = time.perf_counter()
+    data, model_dir = os.path.join(tmp, "data"), os.path.join(tmp, "model")
+    model = load_gaussians_ply(TRAINED_PLY)
+    cams, images = orbit_dataset(len(LEGACY_VIEWS), W_MAIN, H_MAIN)
+    write_colmap_scene(data, cams, images, model["xyz"], dc_colors(model))
+    files = {}
+    for cam, px, form in zip(cams, images, LEGACY_VIEWS):
+        body = legacy_form_files(px, np.full(px.shape[:2], 255, np.uint8), [form])[form]
+        files[cam.image_name] = cam.image_name + LEGACY_EXT[form.split()[0]]
+        os.remove(os.path.join(data, "images", f"{cam.image_name}.png"))
+        with open(os.path.join(data, "images", files[cam.image_name]), "wb") as f:
+            f.write(body)
+    rename_views(data, files)
+    build_s = time.perf_counter() - t0
+    info = read_colmap_scene(data, None, eval_split=False)
+    by_name = {c.image_name: c for c in info.train_cameras}
+    for cam, px in zip(cams, images):
+        pic = image_io.open_image(by_name[cam.image_name].image_path)
+        if not np.array_equal(pic.pixels[..., :3], px):
+            fail(f"legacy forms: view {files[cam.image_name]} does not read back as its render")
+    reset_launches()
+    scene, tr, train_s, load_s, _ = run_train_cli(["-s", data, "-m", model_dir, "-r", "1", "--iterations",
+                                                   str(LEGACY_STEPS), "--disable_viewer", "--quiet"])
+    launches = {k: LAUNCH_COUNTERS[k].launches for k in TRAIN_KERNELS}
+    views = scene.get_train_cameras()
+    if tr.iteration != LEGACY_STEPS or len(views) != len(LEGACY_VIEWS) or \
+            sorted({(c.width, c.height) for c in views}) != [(W_MAIN, H_MAIN)]:
+        fail(f"legacy forms: the train CLI ran {tr.iteration} steps on {len(views)} views")
+    losses_ = [h["loss"] for h in tr.history]
+    if not all(math.isfinite(x) for x in losses_):
+        fail(f"legacy forms: the loss is not finite: {losses_}")
+    if launches != {k: LEGACY_STEPS for k in TRAIN_KERNELS}:
+        fail(f"legacy forms: train CLI launches {launches}, not one of each a step")
+    step_ms = [h["iter_time_ms"] for h in tr.history]
+    errs = check_trainer_state("legacy forms train CLI final state", tr, views[0], 53)
+    print(f"  train CLI on a COLMAP dataset of {len(LEGACY_VIEWS)} views of trained_r5 at {W_MAIN}x{H_MAIN}, one "
+          f"each {', '.join(LEGACY_VIEWS)} (made in {build_s:.1f} s): -r 1, {LEGACY_STEPS} iterations in "
+          f"{train_s:.2f} s (scene load {load_s:.2f} s), step median {np.median(step_ms):.3f} ms; loss "
+          f"{losses_[0]:.6f} -> {losses_[-1]:.6f}; launches {launches}")
+    print(f"  phase peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
+          f"wall {time.perf_counter() - t_phase:.1f} s")
+    del scene, tr
+    return launches, errs
+
+
 # ---- phase 5d: the sharded path -------------------------------------------
 
 SHARD_STRIPS = (2, 4)  # strips of the in-process kernel check at an origin
@@ -4483,14 +4674,17 @@ def main():
         phase_done("5e Blender path")
         # ---- 5g. the user's commands (the metrics CLI's LPIPS on the same weights)
         user_train_launches, user_render_launches, user_errs = user_phase(dev)
+        phase_done("5g user's commands")
+        # ---- 5h. the legacy forms
+        forms_train_launches, forms_errs = legacy_phase(dev)
     finally:
         os.environ.pop("GS_TPU_LPIPS_WEIGHTS", None)
         lpips_mod._load_weights.cache_clear()
         shutil.rmtree(lpips_dir, ignore_errors=True)
     for k, e in (*zip(TRAIN_KERNELS, cli_errs), *zip(TRAIN_KERNELS, blender_errs),
-                 *zip(TRAIN_KERNELS, user_errs)):
+                 *zip(TRAIN_KERNELS, user_errs), *zip(TRAIN_KERNELS, forms_errs)):
         max_err[k] = max(max_err[k], e)
-    phase_done("5g user's commands")
+    phase_done("5h legacy forms")
 
     # ---- 5d. sharded path ---------------------------------------------
     sharded_launches, strip_errs = sharded_phase(dev, gt, center, dist, train_capacity,
@@ -4573,7 +4767,7 @@ def main():
             return {"train": train_launches[name], "trainer": trainer_launches[name],
                     "cli_train": cli_train_launches[name], "cli_render": cli_render_launches[name],
                     "cli_blender": blender_launches[name], "user_train": user_train_launches[name],
-                    "user_render": user_render_launches[name],
+                    "user_render": user_render_launches[name], "forms_train": forms_train_launches[name],
                     **{path: counts[name] for path, counts in sharded_launches.items()},
                     "bench": bench_launches[name]}
         return {"profiler": prof_launches[name]}

@@ -1,10 +1,10 @@
-// The byte loops of the BMP, TIFF, GIF and TGA readers: host C++, built with
-// the host compiler by utils/cuda_build.py at first use and loaded with
-// ctypes (utils/image_codecs.py). Each decoder runs per code, packet or
-// byte, which Python cannot do at 1080p; everything else of the four
-// formats (headers, IFDs, blocks, unpacking, the predictor, palettes) is
-// numpy and Python in utils/bmp.py, utils/tiff.py, utils/gif.py and
-// utils/tga.py.
+// The byte loops of the BMP, TIFF, GIF, TGA, QOI, PCX, SGI and PSD readers:
+// host C++, built with the host compiler by utils/cuda_build.py at first use
+// and loaded with ctypes (utils/image_codecs.py). Each decoder runs per
+// code, packet or byte, which Python cannot do at 1080p; everything else of
+// the formats (headers, IFDs, blocks, unpacking, the predictor, palettes)
+// is numpy and Python in utils/bmp.py, utils/tiff.py, utils/gif.py,
+// utils/tga.py, utils/qoi.py, utils/pcx.py, utils/sgi.py and utils/psd.py.
 //
 // - gs_lzw_decode: TIFF's LZW as libtiff 4's LZWDecode reads it (new style,
 //   codes most significant bit first, 9 to 12 bits, the width growing one
@@ -45,6 +45,29 @@
 //   rows, a run that would cross the end of its row fails (PIL: buffer
 //   overrun); decoding stops at the last row, and data that ends before it
 //   fails (PIL: image file is truncated).
+// - gs_qoi_decode: QOI as PIL's QoiDecoder (QoiImagePlugin.py, a Python
+//   decoder) reads it: every op (RGB, RGBA, INDEX, DIFF, LUMA, RUN), the
+//   index table filled by every op but RUN (a table slot never filled
+//   reads as 0, 0, 0, 0), the end marker not read; data that ends before
+//   the last pixel fails.
+// - gs_pcx_rle_decode: PCX's run-length coding as PIL's PcxDecode.c: a
+//   byte of the two top bits set is a run of its low six bits of the next
+//   byte, any other byte a literal; each line of `line_bytes` bytes (all
+//   planes) is unpacked on its own, after PIL's memmove of the planes of a
+//   padded stride together (for 1-bit planes (width + 7) / 8 bytes apart,
+//   for 8-bit ones a width apart, where the line holds more than one);
+//   a run across a line's end fails (PIL: buffer overrun), data that ends
+//   before the last line fails.
+// - gs_sgi_rle_decode: SGI's RLE as PIL's SgiRleDecode.c: the offset and
+//   length tables, each row and channel from its own offset, 8- or 16-bit
+//   atoms, a count of 0 ending the row, PIL's bounds checks (a row past
+//   the width or the buffer fails), a last chunk that is not a 0 ending
+//   the decode with the rows so far, the row buffer kept from row to row,
+//   a length of 2^31 or more (negative as PIL's int) decoding nothing.
+// - gs_pil_packbits_decode: PackBits as PIL's PackDecode.c (PSD): each
+//   row on its own, runs and literals cut at the row's end (not carried
+//   into the next row), -128 a no-op; data that ends before the last row
+//   fails.
 //
 // Interface (plain C; every entry returns 0 or 1, the message of a 1 in
 // gs_codec_error for the calling thread):
@@ -54,6 +77,10 @@
 //   gs_bmp_rle_decode(file, file_size, start, rle4, width, want, out, produced)
 //   gs_gif_lzw_decode(in, n, chunk, min_code_size, interlace, out, stride, width, height)
 //   gs_tga_rle_decode(file, file_size, start, depth, row_bytes, rows, out)
+//   gs_qoi_decode(file, file_size, start, bands, pixels, out)
+//   gs_pcx_rle_decode(file, file_size, start, line_bytes, xsize, bits, rows, out)
+//   gs_sgi_rle_decode(file, file_size, bands, xsize, ysize, bpc, out)
+//   gs_pil_packbits_decode(file, file_size, start, row_bytes, rows, out)
 
 #include <cstdint>
 #include <cstring>
@@ -540,6 +567,200 @@ int gs_tga_rle_decode(const uint8_t* in, long long n, long long start, int depth
       }
     }
   }
+}
+
+// `out` takes `pixels` pixels of `bands` (3 or 4) bytes; the stream starts
+// at `start`, after the 14-byte header.
+int gs_qoi_decode(const uint8_t* in, long long n, long long start, int bands, long long pixels, uint8_t* out) {
+  const std::string truncated = "QOI data ends before the last pixel (PIL: the stream runs out)";
+  uint8_t index[64][4] = {};  // PIL's dict: a slot never filled reads 0, 0, 0, 0
+  uint8_t px[4] = {0, 0, 0, 255};
+  long long pos = start, done = 0;
+  while (done < pixels) {
+    if (pos >= n) return fail(truncated);
+    const int b = in[pos++];
+    long long repeat = 0;  // 0: one pixel that enters the table
+    if (b == 0xFE) {  // QOI_OP_RGB
+      if (n - pos < 3) return fail(truncated);
+      std::memcpy(px, in + pos, 3);
+      pos += 3;
+    } else if (b == 0xFF) {  // QOI_OP_RGBA
+      if (n - pos < 4) return fail(truncated);
+      std::memcpy(px, in + pos, 4);
+      pos += 4;
+    } else if ((b >> 6) == 0) {  // QOI_OP_INDEX
+      std::memcpy(px, index[b & 63], 4);
+    } else if ((b >> 6) == 1) {  // QOI_OP_DIFF
+      px[0] = static_cast<uint8_t>(px[0] + ((b >> 4) & 3) - 2);
+      px[1] = static_cast<uint8_t>(px[1] + ((b >> 2) & 3) - 2);
+      px[2] = static_cast<uint8_t>(px[2] + (b & 3) - 2);
+    } else if ((b >> 6) == 2) {  // QOI_OP_LUMA
+      if (pos >= n) return fail(truncated);
+      const int b2 = in[pos++];
+      const int dg = (b & 63) - 32;
+      px[0] = static_cast<uint8_t>(px[0] + dg + ((b2 >> 4) & 15) - 8);
+      px[1] = static_cast<uint8_t>(px[1] + dg);
+      px[2] = static_cast<uint8_t>(px[2] + dg + (b2 & 15) - 8);
+    } else {  // QOI_OP_RUN: PIL does not enter the run's pixel in the table
+      repeat = (b & 63) + 1;
+    }
+    if (repeat == 0) {
+      std::memcpy(index[(px[0] * 3 + px[1] * 5 + px[2] * 7 + px[3] * 11) % 64], px, 4);
+      repeat = 1;
+    }
+    for (long long i = 0; i < repeat && done < pixels; ++i, ++done) std::memcpy(out + done * bands, px, bands);
+  }
+  return 0;
+}
+
+// `out` takes `rows` lines of `line_bytes` bytes (every plane of a row),
+// planes moved together as PIL moves them; `xsize` is the width in pixels,
+// `bits` those of PIL's raw mode (1, 2 and 4 for "1", "P;2L", "P;4L", 8
+// for "L" and "P", 24 for "RGB;L").
+int gs_pcx_rle_decode(const uint8_t* in, long long n, long long start, long long line_bytes, long long xsize,
+                      int bits, long long rows, uint8_t* out) {
+  if (line_bytes < 1 || xsize < 1 || rows < 1) return fail("a PCX image without pixels");
+  const std::string truncated = "PCX data ends before the last row (PIL: image file is truncated)";
+  long long pos = start, x = 0;
+  for (long long y = 0; y < rows;) {
+    uint8_t* line = out + y * line_bytes;
+    if (pos >= n) return fail(truncated);
+    if ((in[pos] & 0xC0) == 0xC0) {  // a run
+      if (n - pos < 2) return fail(truncated);
+      const int count = in[pos] & 0x3F;
+      if (x + count > line_bytes)
+        return fail("a PCX run that crosses the end of its row at row " + std::to_string(y) +
+                    " (PIL: buffer overrun when reading image file)");
+      std::memset(line + x, in[pos + 1], count);
+      x += count;
+      pos += 2;
+    } else {
+      line[x++] = in[pos++];
+    }
+    if (x >= line_bytes) {  // PcxDecode.c's plane shuffle: planes `plane` bytes apart
+      long long plane = xsize, bands = line_bytes / xsize, stride = 0;
+      if (bits == 2 || bits == 4) {
+        plane = (xsize + 7) / 8;
+        bands = bits;
+        stride = line_bytes / bits;
+      } else if (bands != 0) {
+        stride = line_bytes / bands;
+      }
+      if (stride > plane) {
+        for (long long i = 1; i < bands; ++i) std::memmove(line + i * plane, line + i * stride, plane);
+      }
+      x = 0;
+      ++y;
+    }
+  }
+  return 0;
+}
+
+namespace {
+
+// SgiRleDecode.c's expandrow / expandrow2: 0 a row ended by a 0 count,
+// 1 a last chunk that is not 0, -1 a bound passed.
+int sgi_row(uint8_t* dest, const uint8_t* src, long long n, int z, long long xsize, const uint8_t* end, int bpc) {
+  long long x = 0;
+  for (; n > 0; --n) {
+    if (src + (bpc - 1) > end) return -1;
+    int pixel = src[bpc - 1];
+    src += bpc;
+    if (n == 1 && pixel != 0) return 1;
+    int count = pixel & 0x7F;
+    if (!count) return 0;
+    if (x + count > xsize) return -1;
+    x += count;
+    if (pixel & 0x80) {
+      if (src + static_cast<long long>(bpc) * count > end) return -1;
+      while (count--) {
+        std::memcpy(dest, src, bpc);
+        src += bpc;
+        dest += z * bpc;
+      }
+    } else {
+      if (src + (bpc - 1) + (bpc == 2 ? 1 : 0) > end) return -1;
+      while (count--) {
+        std::memcpy(dest, src, bpc);
+        dest += z * bpc;
+      }
+      src += bpc;
+    }
+  }
+  return 0;
+}
+
+}  // namespace
+
+// `out` takes the image's `ysize` rows top-down, each `xsize` pixels of
+// `bands` interleaved channels of `bpc` bytes as the file stores them;
+// rows the decode does not reach stay as `out` holds them (zeros).
+int gs_sgi_rle_decode(const uint8_t* file, long long n, int bands, long long xsize, long long ysize, int bpc,
+                      uint8_t* out) {
+  const long long header = 512, bufsize = n - header, tablen = bands * ysize;
+  const std::string overrun = "SGI RLE data past its row or its file (PIL: buffer overrun when reading image file)";
+  if (bufsize < 8 * tablen) return fail(overrun);
+  const uint8_t* ptr = file + header;
+  const uint8_t* end = ptr + bufsize - 1;
+  auto u32 = [&](long long at) {
+    return (static_cast<uint32_t>(ptr[at]) << 24) | (static_cast<uint32_t>(ptr[at + 1]) << 16) |
+           (static_cast<uint32_t>(ptr[at + 2]) << 8) | ptr[at + 3];
+  };
+  const long long row_bytes = xsize * bands * bpc;
+  std::vector<uint8_t> buffer(static_cast<size_t>(row_bytes), 0);
+  for (long long row = 0; row < ysize; ++row) {
+    for (int c = 0; c < bands; ++c) {
+      uint32_t offset = u32(4 * (row + c * ysize));
+      const uint32_t length = u32(4 * (tablen + row + c * ysize));
+      if (offset < header) return fail(overrun);
+      offset -= header;
+      // PIL passes the length as an int: one of 2^31 or more skips the row's channel
+      const int status = sgi_row(buffer.data() + c * bpc, ptr + offset, static_cast<int32_t>(length), bands,
+                                 xsize, end, bpc);
+      if (status == -1) return fail(overrun);
+      if (status == 1) return 0;
+    }
+    std::memcpy(out + (ysize - 1 - row) * row_bytes, buffer.data(), row_bytes);  // rows bottom-up
+  }
+  return 0;
+}
+
+// `out` takes `rows` rows of `row_bytes` bytes from the stream at `start`.
+int gs_pil_packbits_decode(const uint8_t* in, long long n, long long start, long long row_bytes, long long rows,
+                           uint8_t* out) {
+  if (row_bytes < 1 || rows < 1) return fail("a PackBits image without pixels");
+  const std::string truncated = "PackBits data ends before the last row (PIL: image file is truncated)";
+  long long pos = start, x = 0;
+  for (long long y = 0; y < rows;) {
+    uint8_t* row = out + y * row_bytes;
+    if (pos >= n) return fail(truncated);
+    const int b = in[pos];
+    if (b & 0x80) {
+      if (b == 0x80) {  // a no-op
+        ++pos;
+        continue;
+      }
+      if (n - pos < 2) return fail(truncated);
+      long long count = 257 - b;
+      if (count > row_bytes - x) count = row_bytes - x;  // cut at the row's end
+      std::memset(row + x, in[pos + 1], count);
+      x += count;
+      pos += 2;
+    } else {
+      const long long size = b + 2;
+      if (n - pos < size) return fail(truncated);
+      long long count = size - 1;
+      if (count > row_bytes - x) count = row_bytes - x;
+      std::memcpy(row + x, in + pos + 1, count);
+      x += count;
+      pos += size;
+    }
+    if (x >= row_bytes) {
+      x = 0;
+      ++y;
+    }
+  }
+  return 0;
 }
 
 }  // extern "C"

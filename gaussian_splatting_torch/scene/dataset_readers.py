@@ -16,9 +16,10 @@ behaviour:
   (utils/camera_utils.py:22-39)
 
 Images are read with the port's reader (`utils/image_io.open_image`: every
-PNG and JPEG form PIL reads, BMP, TIFF (JPEG-in-TIFF included), WebP,
-GIF, PPM / PGM / PBM / PFM and TGA in the forms of their modules in
-`utils/`, PIL's pixels and mode bit for bit) and resized
+PNG and JPEG form PIL reads, BMP, DIB, TIFF (JPEG-in-TIFF included),
+WebP, GIF, PPM / PGM / PBM / PFM, TGA, JPEG 2000, QOI, PCX / DCX, SGI,
+ICO / CUR and PSD in the forms of their modules in `utils/`, PIL's pixels
+and mode bit for bit) and resized
 with its copy of PIL's default resize, so `CameraInfo.image` holds uint8
 pixels rather than a PIL image. The Blender reader takes PIL's
 `convert("RGBA")` of every mode (`image_io.to_rgba`). The COLMAP path
@@ -31,7 +32,8 @@ indices as grey), "1" (0 or 1/255), "I;16" and "I;16B" (16-bit grey over
 255, clipped to 1), "LA" (8-bit grey + alpha, a 2-channel ground truth
 that the first step's loss cannot take), "CMYK" (C, M and Y taken for
 RGB and multiplied by K as if it were alpha), "I" / "F" (32-bit
-integers or floats, from 16-bit PGM and PFM files), and a grey GIF or TGA
+integers or floats, from 16-bit PGM and PFM files), "LAB" (a CIELab TIFF's
+or PSD's L, a and b taken for RGB), and a grey GIF or TGA
 that carries a colour map (PIL holds it as "P": its indices, and PIL's
 resize raises on it). An image that
 cannot be read raises a `ValueError` naming it as the dataset lists it

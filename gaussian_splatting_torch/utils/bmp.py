@@ -1,8 +1,11 @@
-"""BMP reading that gives PIL's pixels and mode bit for bit.
+"""BMP and DIB reading that gives PIL's pixels and mode bit for bit.
 
 The JAX package opens its dataset images with PIL; this is the port's
-reader of the BMP files PIL reads (PIL 12's BmpImagePlugin), returning an
-`image_io.Picture`:
+reader of the BMP files PIL reads (PIL 12's BmpImagePlugin), and of its
+DIBs (`DibImageFile`: no file header, the info header at byte 0, the
+pixels right after the header, its masks and its colour table), returning
+an `image_io.Picture`; `bitmap` is PIL's `_bitmap`, which the icon and
+cursor readers (`utils/ico.py`) share:
 
 - headers: OS/2 1.x (12 bytes), BITMAPINFOHEADER (40), its V2 / V3 / V4 /
   V5 forms (52, 56, 108, 124) and the OS/2 2.x header (64); rows
@@ -34,6 +37,7 @@ from gaussian_splatting_torch.utils import image_codecs
 
 MAX_PIXELS = 2 * 89478485  # PIL raises DecompressionBombError past this
 RAW, RLE8, RLE4, BITFIELDS = 0, 1, 2, 3
+HEADER_SIZES = (12, 40, 52, 56, 64, 108, 124)  # the info headers PIL reads
 COMPRESSION_NAMES = {4: "BI_JPEG", 5: "BI_PNG", 6: "BI_ALPHABITFIELDS"}
 # bits -> (mode, raw mode) before the compression and palette decide
 BIT2MODE = {1: ("P", "P;1"), 4: ("P", "P;4"), 8: ("P", "P"), 16: ("RGB", "BGR;15"), 24: ("RGB", "BGR"),
@@ -77,19 +81,47 @@ def open_bmp(path):
 def decode_bmp(data: bytes, name: str = "<bytes>"):
     """The `image_io.Picture` of BMP bytes: PIL's pixels (with a channel
     axis) and mode, and the palette of mode "P"."""
-    from gaussian_splatting_torch.utils.image_io import Picture
-
     if not data.startswith(b"BM"):
         _refuse(name, "not a BMP file (no BM signature)")
     if len(data) < 18:
         _refuse(name, "a truncated BMP file header")
-    offset, header_size = _u32(data, 10), _u32(data, 14)
-    if header_size not in (12, 40, 52, 56, 64, 108, 124):
+    return bitmap(data, name, 14, _u32(data, 10))[0]
+
+
+def dib_accepts(head: bytes) -> bool:
+    """PIL's `_dib_accept`: a DIB (a BMP without its file header) starts
+    with the size of a header PIL reads."""
+    return len(head) >= 4 and _u32(head, 0) in HEADER_SIZES
+
+
+def decode_dib(data: bytes, name: str = "<bytes>"):
+    """The `image_io.Picture` of a DIB (PIL's DibImageFile): the info
+    header at byte 0 and, as PIL reads it, the pixels right after the
+    header, its BI_BITFIELDS masks and, at 1 to 8 bits, its colour table."""
+    return bitmap(data, name, 0)[0]
+
+
+def bitmap(data: bytes, name: str, pos: int, offset: int = 0, cur_alpha: bool = False, halve: bool = False):
+    """PIL's `BmpImageFile._bitmap` on `data`: the info header at `pos`,
+    the pixels at `offset` (0: where PIL's reads of the header, masks and
+    colour table end). `cur_alpha`: a 32-bit `BI_RGB` bitmap keeps its
+    fourth byte as alpha ("RGBA"), as PIL does for a cursor's bitmap at
+    byte 22; `halve`: an icon's or cursor's bitmap, whose height counts
+    the AND mask too, read at half its height. Returns the `Picture` and
+    the byte its pixels start at. Where PIL's open fails in a way that
+    passes the file on to its next format, this raises
+    `image_io.NotThisFormat`."""
+    from gaussian_splatting_torch.utils.image_io import NotThisFormat, Picture
+
+    if len(data) < pos + 4:
+        raise NotThisFormat(f"{name}: a BMP info header cut short before its size")
+    header_size = _u32(data, pos)
+    if header_size not in HEADER_SIZES:
         _refuse(name, f"a BMP header of {header_size} bytes")
-    header = data[18:14 + header_size]
+    header = data[pos + 4:pos + header_size]
     if len(header) != header_size - 4:
         _refuse(name, "a truncated BMP header")
-    pos = 14 + header_size
+    pos += header_size
     direction = -1  # rows bottom-up
     if header_size == 12:
         width, height, bits = _u16(header, 0), _u16(header, 2), _u16(header, 6)
@@ -105,9 +137,13 @@ def decode_bmp(data: bytes, name: str = "<bytes>"):
             if len(header) >= 48:  # the masks inside a V2 and later header
                 masks = [_u32(header, 36 + 4 * i) for i in range(4 if len(header) >= 52 else 3)]
             else:  # after a 40-byte header
+                if len(data) < pos + 12:
+                    raise NotThisFormat(f"{name}: BMP bitfield masks cut short")
                 masks = [_u32(data, pos + 4 * i) for i in range(3)]
                 pos += 12
             masks += [0] * (4 - len(masks))
+    if halve:
+        height //= 2
     if width * height > MAX_PIXELS:
         _refuse(name, f"an image of more than {MAX_PIXELS} pixels (PIL's decompression bomb limit)")
     colors = colors or 1 << bits
@@ -124,6 +160,8 @@ def decode_bmp(data: bytes, name: str = "<bytes>"):
         raw = MASK_MODES[key]
         if "A" in raw:
             mode = "RGBA"
+    elif compression == RAW and bits == 32 and cur_alpha:
+        mode, raw = "RGBA", "BGRA"
     elif compression not in (RAW, RLE8, RLE4):
         _refuse(name, f"BMP compression {compression}"
                       + (f" ({COMPRESSION_NAMES[compression]})" if compression in COMPRESSION_NAMES else ""))
@@ -132,7 +170,7 @@ def decode_bmp(data: bytes, name: str = "<bytes>"):
         if not 0 < colors <= 65536:
             _refuse(name, f"a BMP palette of {colors} colours")
         table = data[pos:pos + padding * colors]
-        pos += padding * colors
+        pos += len(table)
         greys = (0, 255) if colors == 2 else range(colors)
         if all(table[i * padding:i * padding + 3] == bytes([v & 255]) * 3 for i, v in enumerate(greys)):
             mode = raw = "1" if colors == 2 else "L"
@@ -141,6 +179,8 @@ def decode_bmp(data: bytes, name: str = "<bytes>"):
                 _refuse(name, f"a BMP palette of {colors} colours (PIL: invalid palette size)")
             entries = np.frombuffer(table[:len(table) // padding * padding], np.uint8).reshape(-1, padding)
             palette = np.ascontiguousarray(entries[:, 2::-1])  # BGR(X) -> RGB
+    if width <= 0 or height <= 0:
+        raise NotThisFormat(f"{name}: a BMP of {width}x{height} pixels (PIL: an empty size, passed on)")
     start = offset or pos
     if compression in (RLE8, RLE4):
         if mode not in ("P", "L"):
@@ -150,13 +190,14 @@ def decode_bmp(data: bytes, name: str = "<bytes>"):
         if raw == "L" and bits < 8:
             _refuse(name, f"a grey palette at {bits} bits, which PIL reads 8 bits a pixel")
         stride = ((width * bits + 31) >> 3) & ~3
-        if start + stride * height > len(data):
-            _refuse(name, f"truncated BMP pixel data ({len(data) - start} of {stride * height} bytes)")
-        rows = _unpack(np.frombuffer(data, np.uint8, stride * height, start).reshape(height, stride),
-                       raw, width)
+        need = stride * (height - 1) + (width * bits + 7) // 8  # PIL's raw decoder skips no last padding
+        if start + need > len(data):
+            _refuse(name, f"truncated BMP pixel data ({max(len(data) - start, 0)} of {need} bytes)")
+        body = data[start:start + stride * height].ljust(stride * height, b"\0")
+        rows = _unpack(np.frombuffer(body, np.uint8).reshape(height, stride), raw, width)
     if rows.ndim == 2:
         rows = rows[..., None]
-    return Picture(np.ascontiguousarray(rows[::-1] if direction == -1 else rows), mode, palette)
+    return Picture(np.ascontiguousarray(rows[::-1] if direction == -1 else rows), mode, palette), start
 
 
 def _unpack(rows: np.ndarray, raw: str, width: int) -> np.ndarray:

@@ -1,6 +1,7 @@
-"""The compiled byte loops of the BMP, TIFF, GIF and TGA readers (`csrc/image_codecs.cc`).
+"""The compiled byte loops of the BMP, TIFF, GIF, TGA, QOI, PCX, SGI and PSD readers (`csrc/image_codecs.cc`).
 
-LZW, PackBits and ThunderScan (TIFF), RLE8 / RLE4 (BMP), GIF's LZW and TGA's RLE run per code, packet or byte,
+LZW, PackBits and ThunderScan (TIFF), RLE8 / RLE4 (BMP), GIF's LZW, TGA's RLE, QOI's ops, PCX's and SGI's RLE
+and PIL's PackBits (PSD) run per code, packet or byte,
 so they are host C++, built by `cuda_build.build_host` at first use and
 loaded with ctypes. Nothing falls back to another implementation: if the
 library cannot be built, the read raises, naming the file.
@@ -37,6 +38,13 @@ def _library(name: str):
         lib.gs_tga_rle_decode.argtypes = [ctypes.c_char_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
                                           ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
         lib.gs_tga_rle_decode.restype = ctypes.c_int
+        L, P = ctypes.c_longlong, ctypes.c_void_p
+        typed = {"gs_qoi_decode": [ctypes.c_char_p, L, L, ctypes.c_int, L, P],
+                 "gs_pcx_rle_decode": [ctypes.c_char_p, L, L, L, L, ctypes.c_int, L, P],
+                 "gs_sgi_rle_decode": [ctypes.c_char_p, L, ctypes.c_int, L, L, ctypes.c_int, P],
+                 "gs_pil_packbits_decode": [ctypes.c_char_p, L, L, L, L, P]}
+        for fn_name, argtypes in typed.items():
+            getattr(lib, fn_name).argtypes, getattr(lib, fn_name).restype = argtypes, ctypes.c_int
         lib.gs_codec_error.argtypes, lib.gs_codec_error.restype = [], ctypes.c_char_p
         lib._gs_typed = True
     return lib
@@ -121,4 +129,51 @@ def tga_rle_decode(data: bytes, start: int, depth: int, row_bytes: int, rows: in
     out = np.empty((rows, row_bytes), np.uint8)
     if lib.gs_tga_rle_decode(data, len(data), start, depth, row_bytes, rows, out.ctypes.data):
         raise ValueError(f"{name}: {lib.gs_codec_error().decode()}")
+    return out
+
+
+def _run(name: str, fn_name: str, *args) -> None:
+    lib = _library(name)
+    if getattr(lib, fn_name)(*args):
+        raise ValueError(f"{name}: {lib.gs_codec_error().decode()}")
+
+
+def qoi_decode(data: bytes, start: int, bands: int, width: int, height: int, name: str) -> np.ndarray:
+    """(height, width, bands) uint8: the QOI stream of a file `data` from
+    byte `start`, as PIL's QoiDecoder reads it; raises a `ValueError`
+    naming `name` where the stream ends before the last pixel."""
+    out = np.empty((height, width, bands), np.uint8)
+    _run(name, "gs_qoi_decode", data, len(data), start, bands, width * height, out.ctypes.data)
+    return out
+
+
+def pcx_rle_decode(data: bytes, start: int, line_bytes: int, width: int, bits: int, rows: int,
+                   name: str) -> np.ndarray:
+    """(rows, line_bytes) uint8: the RLE lines of a PCX file `data` from
+    byte `start`, each line every plane of a row, as PIL's PcxDecode reads
+    them (the planes of a padded stride moved together; `bits` those of
+    PIL's raw mode); raises where PIL raises (a run across a line's end,
+    data that ends early)."""
+    out = np.empty((rows, line_bytes), np.uint8)
+    _run(name, "gs_pcx_rle_decode", data, len(data), start, line_bytes, width, bits, rows, out.ctypes.data)
+    return out
+
+
+def sgi_rle_decode(data: bytes, bands: int, width: int, height: int, bpc: int, name: str) -> np.ndarray:
+    """(height, width * bands * bpc) uint8 top-down: the RLE image of an SGI
+    file `data` as PIL's SgiRleDecode reads it, channels interleaved, 16-bit
+    samples big-endian; rows the decode does not reach are zero. Raises
+    where PIL raises (an offset or run out of bounds)."""
+    out = np.zeros((height, width * bands * bpc), np.uint8)
+    _run(name, "gs_sgi_rle_decode", data, len(data), bands, width, height, bpc, out.ctypes.data)
+    return out
+
+
+def pil_packbits_decode(data: bytes, start: int, row_bytes: int, rows: int, name: str) -> np.ndarray:
+    """(rows, row_bytes) uint8: PackBits rows from byte `start` of `data`
+    as PIL's PackDecode reads them, each row cut at its end (libtiff's
+    `packbits_decode` cuts only at the strip's end); raises where the data
+    ends before the last row."""
+    out = np.empty((rows, row_bytes), np.uint8)
+    _run(name, "gs_pil_packbits_decode", data, len(data), start, row_bytes, rows, out.ctypes.data)
     return out

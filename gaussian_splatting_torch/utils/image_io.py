@@ -4,20 +4,25 @@ The JAX package reads every image with PIL and writes and reads its PNGs
 with imageio. Neither is installed where the port runs, so the port keeps
 its own:
 
-- `open_image(path)`: the dataset readers' entry. It reads the file's
-  signature: a PNG goes to `open_png`, a JPEG to the compiled JPEG
-  decoder (`utils/jpeg.py`, PIL's bits: grey, RGB, and CMYK from CMYK and
-  YCCK files), a BMP to `utils/bmp.py`, a TIFF to `utils/tiff.py` (every
-  TIFF PIL reads: fax, old-style JPEG, YCbCr, CIELab, 1- to 32-bit,
-  signed and float samples included), a
-  WebP to `utils/webp.py` (lossy, lossless, alpha, frame 0 of an
-  animation), a GIF to `utils/gif.py` (frame 0), a PPM / PGM / PBM / PFM
-  (PIL's magics: P1 to P6, Pf and its extensions) to `utils/ppm.py`, and
-  last, as PIL tries it last, a file that passes TGA's header checks to
-  `utils/tga.py` (TGA has no signature; none of the formats above can pass
-  them), and a JPEG 2000 file (a JP2 / JPX file or a raw codestream) to
-  `utils/jp2.py`; anything else raises a `ValueError` naming the file and the
-  formats the port reads. It returns a `Picture`: the pixels as
+- `open_image(path)`: the dataset readers' entry. It tries the readers
+  in PIL's `Image.ID` order on the file's first bytes, as `Image.open`
+  does (`READERS`): a BMP and a DIB to `utils/bmp.py`, a GIF to
+  `utils/gif.py` (frame 0), a JPEG to the compiled JPEG decoder
+  (`utils/jpeg.py`, PIL's bits: grey, RGB, and CMYK from CMYK and YCCK
+  files), a PPM / PGM / PBM / PFM (PIL's magics: P1 to P6, Pf and its
+  extensions) to `utils/ppm.py`, a PNG to `open_png`, a CUR and an ICO to
+  `utils/ico.py`, a PCX and a DCX to `utils/pcx.py`, a JPEG 2000 file (a
+  JP2 / JPX file or a raw codestream) to `utils/jp2.py`, a TIFF to
+  `utils/tiff.py` (every TIFF PIL reads: fax, old-style JPEG, YCbCr,
+  CIELab, 1- to 32-bit, signed and float samples included), a PSD to
+  `utils/psd.py`, a QOI to `utils/qoi.py`, an SGI image to
+  `utils/sgi.py`, a file that passes TGA's header checks to
+  `utils/tga.py` (TGA has no signature; PIL tries it after all of those)
+  and a WebP to `utils/webp.py` (lossy, lossless, alpha, frame 0 of an
+  animation). A reader that gives up as PIL's plugin does
+  (`NotThisFormat`) passes the file to the next one, as PIL does; anything
+  no reader takes raises a `ValueError` naming the file and the formats
+  the port reads. It returns a `Picture`: the pixels as
   `np.asarray(Image.open(f))` gives them, with PIL's mode, palette and
   transparency, which `to_rgba` turns into PIL's `convert("RGBA")`.
   `read_image(path)` is its pixels.
@@ -48,7 +53,7 @@ from typing import Any, NamedTuple, Optional
 
 import numpy as np
 
-from gaussian_splatting_torch.utils import bmp, gif, jp2, jpeg, lab, ppm, tga, tiff, webp
+from gaussian_splatting_torch.utils import bmp, gif, ico, jp2, jpeg, lab, pcx, ppm, psd, qoi, sgi, tga, tiff, webp
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # 8-bit channels -> PNG colour type (0 grey, 4 grey + alpha, 2 RGB, 6 RGBA),
@@ -81,13 +86,17 @@ class Picture(NamedTuple):
     mode: PIL's mode.
     palette: mode "P": (N, 3) uint8, the palette's entries (PNG's PLTE,
       a BMP's colour table, a TIFF's ColorMap, a GIF's palette, a TGA's
-      colour map), or (N, 4) with each entry's alpha (a TGA's 16-bit
-      map); a GIF of mode "L" (a grey-ramp local palette) keeps its global
-      palette here, and a grey TGA ("L" or "LA") its colour map, which
-      PIL's core holds the image with (as "P" or "PA") and `convert`
-      applies.
-    transparency: PIL's `info["transparency"]`: an int for "1" (0 or
-      255), "L" and "I;16" (the tRNS value) and for "P" whose tRNS clears
+      colour map, a PCX's 16 or 256 entries, a PSD's colour mode data, of
+      no entries where PIL keeps none), or (N, 4) with each entry's alpha
+      (a TGA's 16-bit map); a GIF of mode "L" (a grey-ramp local palette)
+      keeps its global palette here, and a grey TGA ("L" or "LA") its
+      colour map, which PIL's core holds the image with (as "P" or "PA")
+      and `convert` applies.
+    transparency: for "LAB", the alpha PIL's `convert("RGBA")` gives
+      where it is not 255: 0 for a PSD's, whose bands PIL reads one by
+      one and whose fourth byte it leaves 0. Else PIL's
+      `info["transparency"]`: an int for "1" (0 or 255), "L" and "I;16"
+      (the tRNS value) and for "P" whose tRNS clears
       one entry only (its index); an (r, g, b) tuple for "RGB"; the tRNS
       bytes (alpha per palette entry) for other "P" files; None without a
       tRNS chunk.
@@ -107,43 +116,87 @@ JPEG_SIGNATURE = b"\xff\xd8\xff"  # SOI and the first marker's 0xFF, as PIL snif
 BMP_SIGNATURE = b"BM"
 
 
-FORMATS = "PNG, JPEG, BMP, TIFF, WebP, GIF, PPM / PGM / PBM / PFM, TGA or JPEG 2000"
+FORMATS = ("PNG, JPEG, BMP, DIB, TIFF, WebP, GIF, PPM / PGM / PBM / PFM, TGA, JPEG 2000, QOI, PCX / DCX, SGI, "
+           "ICO / CUR or PSD")
+
+
+class NotThisFormat(ValueError):
+    """A reader's file that PIL's plugin for the format gives up on in a
+    way that passes the file on to the next plugin (its `_open` raised
+    SyntaxError, IndexError, TypeError, KeyError, EOFError or
+    struct.error, or the size it read is empty): `open_image` tries the
+    next reader in PIL's order. Any other `ValueError` of a reader ends
+    `open_image`, as any other error ends PIL's `Image.open`."""
+
+
+def _open_jpeg(path) -> Picture:
+    pixels = jpeg.read_jpeg(path)
+    return Picture(pixels, {1: "L", 3: "RGB", 4: "CMYK"}[pixels.shape[2]])
+
+
+def _of_bytes(decode):
+    def read(path) -> Picture:
+        with open(path, "rb") as f:
+            return decode(f.read(), str(path))
+    return read
+
+
+# The readers in PIL's `Image.ID` order (the formats `Image.preinit` loads,
+# then `Image.init`'s), each with PIL's test of the file's first bytes.
+# TGA has no signature: PIL tries it after every format before it, so a
+# TGA whose first bytes a CUR, PCX, DIB or ICO reader takes reads as
+# PIL reads it, through that reader first.
+READERS = (
+    ("BMP", lambda head: head.startswith(BMP_SIGNATURE), bmp.open_bmp),
+    ("DIB", bmp.dib_accepts, _of_bytes(bmp.decode_dib)),
+    ("GIF", lambda head: head.startswith(gif.SIGNATURES), gif.open_gif),
+    ("JPEG", lambda head: head.startswith(JPEG_SIGNATURE), _open_jpeg),
+    ("PPM", lambda head: ppm.accepts(head) or ppm.refused_magic(head), ppm.open_ppm),
+    ("PNG", lambda head: head.startswith(PNG_SIGNATURE), lambda path: open_png(path)),
+    ("CUR", lambda head: head.startswith(ico.CUR_SIGNATURE), _of_bytes(ico.decode_cur)),
+    ("PCX", pcx.accepts, _of_bytes(pcx.decode_pcx)),
+    ("DCX", pcx.dcx_accepts, _of_bytes(pcx.decode_dcx)),
+    ("JPEG2000", lambda head: head.startswith(jp2.SIGNATURES), jp2.open_jp2),  # Jpeg2KImagePlugin._accept
+    ("ICO", lambda head: head.startswith(ico.ICO_SIGNATURE), _of_bytes(ico.decode_ico)),
+    ("TIFF", lambda head: head.startswith(tiff.SIGNATURES), tiff.open_tiff),
+    ("PSD", lambda head: head.startswith(psd.SIGNATURE), _of_bytes(psd.decode_psd)),
+    ("QOI", lambda head: head.startswith(qoi.SIGNATURE), _of_bytes(qoi.decode_qoi)),
+    ("SGI", lambda head: head.startswith(sgi.SIGNATURE), _of_bytes(sgi.decode_sgi)),
+    ("TGA", tga.looks_like_tga, tga.open_tga),
+    ("WEBP", lambda head: head.startswith(b"RIFF") and head[8:12] == b"WEBP", webp.open_webp),
+)
 
 
 def open_image(path) -> Picture:
-    """The `Picture` of a PNG, JPEG, BMP, TIFF, WebP, GIF, PPM / PGM / PBM
-    / PFM, TGA or JPEG 2000 file, PIL's pixels and mode. JPEG (mode "L",
-    "RGB" or "CMYK", and the strips and tiles of a JPEG-in-TIFF, old-style
-    ones too), WebP ("RGB" or "RGBA") and JPEG 2000 (Part 1, Part 2 and
-    HTJ2K; "L", "I;16", "LA", "RGB", "RGBA", "CMYK", "P", "PA") are decoded
-    by compiled decoders, TIFF's CCITT fax by its own, and BMP's RLE,
-    TIFF's LZW (both styles), PackBits and ThunderScan, GIF's LZW and TGA's
-    RLE by the compiled codecs, each built at first use; if one cannot be
-    built this raises. TIFF: every form PIL reads (`utils/tiff.py`), in
-    its modes "1", "L", "I;16", "I;16B", "I", "F", "LA", "P", "PA",
+    """The `Picture` of a PNG, JPEG, BMP, DIB, TIFF, WebP, GIF, PPM / PGM /
+    PBM / PFM, TGA, JPEG 2000, QOI, PCX / DCX, SGI, ICO / CUR or PSD file,
+    PIL's pixels and mode. The readers are tried in PIL's order (`READERS`)
+    on the file's first bytes; one that gives up as PIL's plugin gives up
+    (`NotThisFormat`) passes the file to the next, any other refusal
+    raises. JPEG (mode "L", "RGB" or "CMYK", and the strips and tiles of a
+    JPEG-in-TIFF, old-style ones too), WebP ("RGB" or "RGBA") and JPEG
+    2000 (Part 1, Part 2 and HTJ2K; "L", "I;16", "LA", "RGB", "RGBA",
+    "CMYK", "P", "PA") are decoded by compiled decoders, TIFF's CCITT fax
+    by its own, and BMP's RLE, TIFF's LZW (both styles), PackBits and
+    ThunderScan, GIF's LZW, TGA's RLE, QOI's ops, PCX's and SGI's RLE and
+    PSD's PackBits by the compiled codecs, each built at first use; if one
+    cannot be built this raises. TIFF: every form PIL reads
+    (`utils/tiff.py`), in its modes "1", "L", "I;16", "I;16B", "I", "F",
+    "LA", "P", "PA", "RGB", "RGBA", "CMYK", "LAB". QOI "RGB" / "RGBA"; PCX
+    and DCX "1", "P", "L", "RGB"; SGI "L", "RGB", "RGBA" (16-bit too);
+    ICO a PNG entry's mode or "RGBA", CUR a BMP's; PSD "1", "L", "P",
     "RGB", "RGBA", "CMYK", "LAB"."""
     with open(path, "rb") as f:
         head = f.read(tga.HEADER)
-    if head.startswith(PNG_SIGNATURE):
-        return open_png(path)
-    if head.startswith(JPEG_SIGNATURE):
-        pixels = jpeg.read_jpeg(path)
-        return Picture(pixels, {1: "L", 3: "RGB", 4: "CMYK"}[pixels.shape[2]])
-    if head.startswith(BMP_SIGNATURE):
-        return bmp.open_bmp(path)
-    if head.startswith(tiff.SIGNATURES):
-        return tiff.open_tiff(path)
-    if head.startswith(b"RIFF") and head[8:12] == b"WEBP":
-        return webp.open_webp(path)
-    if head.startswith(gif.SIGNATURES):
-        return gif.open_gif(path)
-    if head.startswith(jp2.SIGNATURES):  # PIL's Jpeg2KImagePlugin._accept
-        return jp2.open_jp2(path)
-    if ppm.accepts(head) or ppm.refused_magic(head):
-        return ppm.open_ppm(path)
-    if tga.looks_like_tga(head):  # no signature: PIL tries TGA after every format above
-        return tga.open_tga(path)
-    raise ValueError(f"{path}: not a {FORMATS} file; the port reads those image formats")
+    passed = []
+    for _, accepts, read in READERS:
+        if accepts(head):
+            try:
+                return read(path)
+            except NotThisFormat as err:
+                passed.append(str(err))
+    raise ValueError(f"{path}: not a {FORMATS} file; the port reads those image formats"
+                     + "".join(f" ({why})" for why in passed))
 
 
 def read_image(path) -> np.ndarray:
@@ -167,7 +220,12 @@ def open_png(path) -> Picture:
     """The `Picture` of a PNG file, in PIL's mode for its colour type and
     bit depth."""
     with open(path, "rb") as f:
-        data = f.read()
+        return png_picture(f.read(), path)
+
+
+def png_picture(data: bytes, path) -> Picture:
+    """The `Picture` of PNG bytes (`open_png`); what follows the IEND
+    chunk is not read. `path` names them in a refusal."""
     if not data.startswith(PNG_SIGNATURE):
         _refuse(path, _sniff(data[:8]))
     pos, header, idat, plte, trns = len(PNG_SIGNATURE), None, [], None, None
@@ -287,8 +345,8 @@ def to_rgba(picture: Picture) -> np.ndarray:
     map's colours, "LA" its own alpha; "I" is clipped to 0..255; "F" is
     0 at or below 0 (and NaN), 255 at or above 255, else truncated, as
     PIL's float-to-byte conversion; "LAB" is LittleCMS's Lab (D50) to sRGB
-    transform as PIL runs it (`utils/lab.py`). Any other mode raises,
-    naming it."""
+    transform as PIL runs it (`utils/lab.py`), its alpha 255 or the
+    transparency's. Any other mode raises, naming it."""
     px, mode, t = picture.pixels, picture.mode, picture.transparency
     if mode == "RGBA":
         return px.copy()
@@ -297,7 +355,10 @@ def to_rgba(picture: Picture) -> np.ndarray:
     if mode == "LA":
         return np.concatenate([px[..., :1].repeat(3, axis=2), px[..., 1:]], axis=2)
     if mode == "LAB":  # LittleCMS's Lab -> sRGB transform, as PIL runs it
-        return lab.lab_to_rgba(px)
+        rgba = lab.lab_to_rgba(px)
+        if t is not None:  # the fourth byte PIL's core holds, which the transform copies to alpha
+            rgba[..., 3] = t
+        return rgba
     if mode == "CMYK":
         nk = 255 - px[..., 3:].astype(np.int64)
         rgb = nk - _muldiv255(px[..., :3], nk)

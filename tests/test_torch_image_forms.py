@@ -31,7 +31,7 @@ from gaussian_splatting_tpu.scene import colmap as jcolmap
 from gaussian_splatting_tpu.scene import dataset_readers as jreaders
 from gaussian_splatting_torch.scene import dataset_readers
 from gaussian_splatting_torch.utils import bmp, cuda_build, image_io, tiff
-from test_torch_jpeg import QOI_4X4, encode_jpeg, fake_cxx, have_cxx  # noqa: F401  (fake_cxx: a fixture)
+from test_torch_jpeg import MSP_4X4, encode_jpeg, fake_cxx, have_cxx  # noqa: F401  (fake_cxx: a fixture)
 from test_torch_scene import assert_same_cameras, orbit, orbit_frames
 from torch_image_writers import bmp_bytes, lzw_encode, padded_rows, rle_encode, tiff_bytes
 
@@ -559,8 +559,8 @@ def test_to_rgba_refuses_a_mode_it_does_not_convert():
 
 def test_open_image_sniffs_each_format(tmp_path, cxx):
     """The BMP, TIFF and PPM signatures, each file named .img; a form PIL
-    reads and the port does not (QOI) refused, naming the formats the port
-    reads."""
+    reads and the port does not (MacPaint, MSP) refused, naming the
+    formats the port reads."""
     a = smooth(9, 11, 3, 0)
     buf = io.BytesIO()
     Image.fromarray(a).save(buf, "BMP")
@@ -568,7 +568,8 @@ def test_open_image_sniffs_each_format(tmp_path, cxx):
     assert got.mode == "RGB"
     for order in "<>":
         assert_like_pil(tmp_path, tiff_bytes(a, 8, 2, order=order), f"tiff{order}")
-    assert_refused(tmp_path, QOI_4X4, "not a PNG, JPEG, BMP, TIFF, WebP, GIF, PPM / PGM / PBM / PFM, TGA or JPEG 2000 file")
+    assert_refused(tmp_path, MSP_4X4, "not a PNG, JPEG, BMP, DIB, TIFF, WebP, GIF, PPM / PGM / PBM / PFM, TGA, "
+                                      "JPEG 2000, QOI, PCX / DCX, SGI, ICO / CUR or PSD file")
     got = assert_like_pil(tmp_path, b"P6\n4 4\n255\n" + bytes(48), "ppm")
     assert got.mode == "RGB" and got.pixels.shape == (4, 4, 3)
 

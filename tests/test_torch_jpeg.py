@@ -748,17 +748,19 @@ def test_fixture_pixels_are_pils(decode, name):
 
 # ---- read_image ----
 
-# a 4x4 QOI image of one colour: its header, one QOI_OP_RGB, a run of 15, the end marker
-QOI_4X4 = b"qoif" + (4).to_bytes(4, "big") * 2 + b"\x03\x00\xfe\x10\x20\x30\xce" + bytes(7) + b"\x01"
+# a 4x4 MacPaint (MSP) image, mode "1", all white, as PIL writes it: its 32-byte header, then each
+# row's bytes; PIL reads it, the port does not
+MSP_4X4 = (b"DanM\x04\x00\x04\x00\x01\x00\x01\x00\x01\x00\x01\x00\x04\x00\x04\x00\x00\x00\x00\x00*,"
+           + bytes(6) + b"\xf0" * 4)
 
 
 def test_read_image_dispatches_on_the_signature(tmp_path, compiled, monkeypatch):
     a = content(20, 30, 3, "smooth")
-    png, jpg, junk_bmp, other = (tmp_path / n for n in ("a.png", "a.jpg", "a.bmp", "a.qoi"))
+    png, jpg, junk_bmp, other = (tmp_path / n for n in ("a.png", "a.jpg", "a.bmp", "a.msp"))
     image_io.write_png(png, a)
     jpg.write_bytes(pil_jpeg(a, quality=90))
     junk_bmp.write_bytes(b"BM" + bytes(64))
-    other.write_bytes(QOI_4X4)  # PIL reads it, the port does not
+    other.write_bytes(MSP_4X4)  # PIL reads it, the port does not
 
     def no_plain(*args):
         raise AssertionError("read_image reached the plain decoder")
@@ -769,8 +771,8 @@ def test_read_image_dispatches_on_the_signature(tmp_path, compiled, monkeypatch)
     with pytest.raises(ValueError, match="a BMP header of 0 bytes") as err:
         image_io.read_image(junk_bmp)  # the BMP reader's refusal
     assert str(junk_bmp) in str(err.value)
-    with pytest.raises(ValueError, match="not a PNG, JPEG, BMP, TIFF, WebP, GIF, PPM / PGM / PBM / PFM, TGA or "
-                                         "JPEG 2000 file") as err:
+    with pytest.raises(ValueError, match="not a PNG, JPEG, BMP, DIB, TIFF, WebP, GIF, PPM / PGM / PBM / PFM, TGA, "
+                                         "JPEG 2000, QOI, PCX / DCX, SGI, ICO / CUR or PSD file") as err:
         image_io.read_image(other)
     assert str(other) in str(err.value)
     with pytest.raises(ValueError, match="JPEG"):

@@ -11,6 +11,7 @@ port's `utils/image_io.resize`), from PNG and from JPEG files (PIL's
 decoder and the port's compiled one, `utils/jpeg.py`).
 """
 
+import io
 import json
 import os
 import re
@@ -212,12 +213,14 @@ def test_unreadable_image_names_the_listing(tmp_path):
     """An image the port cannot read raises naming it as images.bin lists it."""
     src = str(tmp_path / "data")
     write_jpeg_colmap_dataset(src, n_views=2, width=32, height=16)
-    qoi = b"qoif" + (4).to_bytes(4, "big") * 2 + b"\x03\x00\xfe\x10\x20\x30\xce" + bytes(7) + b"\x01"
-    (tmp_path / "data" / "images" / "view_00.jpg").write_bytes(qoi)  # PIL reads QOI, the port does not
+    msp = io.BytesIO()
+    Image.new("1", (4, 4), 1).save(msp, "MSP")
+    (tmp_path / "data" / "images" / "view_00.jpg").write_bytes(msp.getvalue())  # PIL reads MSP, the port does not
     info = dataset_readers.read_colmap_scene(src, None, eval_split=False)
     bad = [c for c in info.train_cameras if c.image_name == "view_00"][0]
     with pytest.raises(ValueError, match=r"'view_00.jpg' in .*images\.bin: .*view_00\.jpg: not a PNG, JPEG, BMP, "
-                                         r"TIFF, WebP, GIF, PPM / PGM / PBM / PFM, TGA or JPEG 2000 file"):
+                                         r"DIB, TIFF, WebP, GIF, PPM / PGM / PBM / PFM, TGA, JPEG 2000, QOI, "
+                                         r"PCX / DCX, SGI, ICO / CUR or PSD file"):
         dataset_readers.load_camera(bad, 1)
 
 

@@ -181,7 +181,9 @@ def test_tga_refusals_name_the_file(tmp_path, cxx, case):
 def test_no_other_format_is_taken_for_a_tga(tmp_path, cxx):
     """TGA has no signature and PIL tries it after its other formats: no
     file of a format the port reads passes TGA's header checks, nor do the
-    files PIL writes in formats the port does not read (each raises)."""
+    files PIL writes in the other formats. Those the port reads (ICO, PCX,
+    SGI, QOI, DIB) read as PIL reads them; the others each raise, naming
+    the formats the port reads."""
     from test_torch_image_forms import FIXTURES
 
     folders = [FIXTURES, os.path.join(os.path.dirname(FIXTURES), "torch_webp"),
@@ -189,17 +191,20 @@ def test_no_other_format_is_taken_for_a_tga(tmp_path, cxx):
     heads = [open(os.path.join(d, f), "rb").read(18) for d in folders
              for f in os.listdir(d) if not f.endswith((".npz", ".py", ".json"))]
     a = np.random.default_rng(7).integers(0, 256, (20, 24, 3)).astype(np.uint8)
+    read = ("ICO", "PCX", "SGI", "QOI", "DIB")
     for fmt in ("PNG", "JPEG", "PPM", "ICO", "PCX", "SGI", "IM", "DDS", "QOI", "BLP", "DIB", "ICNS", "EPS", "XBM",
                 "MSP", "SPIDER"):
         im = Image.fromarray(a).convert({"XBM": "1", "MSP": "1", "BLP": "P", "SPIDER": "F"}.get(fmt, "RGB"))
         buf = io.BytesIO()
         im.save(buf, fmt)
         heads.append(buf.getvalue()[:18])
-        if fmt not in ("PNG", "JPEG", "PPM"):
+        if fmt in read:
+            assert assert_follows_pil(tmp_path, buf.getvalue(), fmt) is not None, fmt
+        elif fmt not in ("PNG", "JPEG", "PPM"):
             path = tmp_path / f"other.{fmt.lower()}"
             path.write_bytes(buf.getvalue())
-            with pytest.raises(ValueError, match="not a PNG, JPEG, BMP, TIFF, WebP, GIF, PPM / PGM / PBM / PFM, "
-                                                 "TGA or JPEG 2000 file"):
+            with pytest.raises(ValueError, match="not a PNG, JPEG, BMP, DIB, TIFF, WebP, GIF, PPM / PGM / PBM / PFM, "
+                                                 "TGA, JPEG 2000, QOI, PCX / DCX, SGI, ICO / CUR or PSD file"):
                 image_io.open_image(path)
     assert len(heads) > 30
     assert not any(tga.looks_like_tga(h) for h in heads)

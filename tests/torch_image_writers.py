@@ -1,7 +1,10 @@
-"""Writers of the BMP, TIFF, GIF, WebP, PPM and TGA forms PIL reads but
-does not write, for the tests of `utils/bmp.py`, `utils/tiff.py`,
-`utils/gif.py`, `utils/webp.py`, `utils/ppm.py` and `utils/tga.py` and for
-the fixtures' `make_fixtures.py` scripts.
+"""Writers of the BMP, TIFF, GIF, WebP, PPM, TGA, DIB, QOI, PCX / DCX, SGI,
+ICO / CUR and PSD forms PIL reads but does not write, for the tests of
+`utils/bmp.py`, `utils/tiff.py`, `utils/gif.py`, `utils/webp.py`,
+`utils/ppm.py`, `utils/tga.py`, `utils/qoi.py`, `utils/pcx.py`,
+`utils/sgi.py`, `utils/ico.py` and `utils/psd.py`, for the fixtures'
+`make_fixtures.py` scripts and for chip_smoke.py's phase 5h, which runs
+where there is no PIL.
 Imports neither JAX nor the port: each file is built from the formats'
 specifications, and PIL's read of it is the rule the port is held to.
 
@@ -46,6 +49,19 @@ specifications, and PIL's read of it is the rule the port is held to.
   `j2k_join` take a codestream apart into its marker segments and tile-part
   data and put it together again (tile-parts split, markers added or
   edited, lengths and Psot recomputed).
+- `dib_bytes`: a BMP's DIB, no file header.
+- `qoi_bytes` / `qoi_encode`: QOI with every op (RGB, RGBA, INDEX, DIFF,
+  LUMA, RUN) as the reference encoder picks them, vectorised, or raw ops.
+- `pcx_bytes` / `pcx_lines` / `pcx_rle` and `dcx_bytes`: PCX of any
+  version, bit and plane count, stride and palette (16 entries in the
+  header, 256 after the data), and DCX of PCX frames.
+- `sgi_bytes` / `sgi_rle_rows`: SGI verbatim or RLE, 8 or 16 bits.
+- `icon_bytes` / `icon_dib` / `png_bytes`: ICO and CUR of PNG and BMP
+  entries, with AND masks.
+- `psd_bytes` / `packbits_rows` / `psd_resource`: PSD's merged image, raw
+  or PackBits, any colour mode, depth and channel count, colour mode data,
+  resources and a layer section.
+`rle_chunks` is the vectorised run finder the RLE writers share.
 """
 
 import lzma
@@ -1239,3 +1255,316 @@ def j2k_split_parts(codestream: bytes, pieces: int = 2) -> bytes:
         for k in range(pieces):
             out.append((isot, k, pieces, segments if k == 0 else [], data[cuts[k]:cuts[k + 1]]))
     return j2k_join(main, out)
+
+
+# ---- DIB, QOI, PCX / DCX, SGI, ICO / CUR, PSD ----
+
+def dib_bytes(rows: bytes, width: int, height: int, bits: int, *args, **kw) -> bytes:
+    """A DIB: `bmp_bytes` without its 14-byte file header (the pixels right
+    after the header, its masks and its colour table)."""
+    return bmp_bytes(rows, width, height, bits, *args, **kw)[14:]
+
+
+def rle_chunks(atoms: np.ndarray, max_run: int, max_lit: int, min_run: int = 2):
+    """Run-length chunks of each row of (R, W) atoms: (flat start, count,
+    is_run) in stream order. Runs of `min_run` or more equal atoms become
+    run chunks of at most `max_run`; the atoms between them literal chunks
+    of at most `max_lit`, never across a row."""
+    R, W = atoms.shape
+    flat = atoms.ravel()
+    change = np.ones(R * W, bool)
+    change[1:] = flat[1:] != flat[:-1]
+    change[::W] = True
+    start = np.nonzero(change)[0]
+    length = np.diff(np.append(start, R * W))
+    is_run = length >= min_run
+    row = start // W
+    new_group = is_run.copy()
+    new_group[0] = True
+    new_group[1:] |= (row[1:] != row[:-1]) | is_run[:-1]
+    gid = np.cumsum(new_group) - 1
+    g_start, g_run = start[new_group], is_run[new_group]
+    g_len = np.bincount(gid, weights=length).astype(np.int64)
+    cap = np.where(g_run, max_run, max_lit)
+    n = -(-g_len // cap)
+    c_gid = np.repeat(np.arange(len(n)), n)
+    k = np.arange(int(n.sum())) - np.repeat(np.cumsum(n) - n, n)
+    c_start = g_start[c_gid] + k * cap[c_gid]
+    c_count = np.minimum(cap[c_gid], g_len[c_gid] - k * cap[c_gid])
+    return c_start, c_count, g_run[c_gid]
+
+
+def _emit(flat: np.ndarray, headers: np.ndarray, c_start, payload_len, copy) -> np.ndarray:
+    """The atom stream of chunks: each chunk's header atom, then its payload
+    (`payload_len` atoms of `flat` from its start where `copy`, else its
+    first atom `payload_len` times)."""
+    n = 1 + payload_len
+    total = int(n.sum())
+    cid = np.repeat(np.arange(len(n)), n)
+    k = np.arange(total) - np.repeat(np.cumsum(n) - n, n)
+    src = c_start[cid] + np.where(copy[cid], k - 1, 0)
+    out = flat[np.clip(src, 0, len(flat) - 1)].astype(flat.dtype)
+    out[k == 0] = headers
+    return out
+
+
+def qoi_encode(px: np.ndarray) -> bytes:
+    """The QOI ops of (H, W, 3 or 4) uint8 pixels, as the reference encoder
+    chooses them: RUN for a pixel equal to the one before (runs of 62 at
+    most), INDEX where the pixel is in the table, else DIFF, LUMA, RGB, or
+    RGBA where alpha changes. Vectorised: the table slot of a pixel holds
+    the last pixel before it that started something other than a run."""
+    h, w, c = px.shape
+    p = np.full((h * w, 4), 255, np.uint8)
+    p[:, :c] = px.reshape(-1, c)
+    prev = np.concatenate([np.array([[0, 0, 0, 255]], np.uint8), p[:-1]])
+    same = (p == prev).all(1)
+    new = np.nonzero(~same)[0]
+    hsh = (p[new].astype(np.int64) @ np.array([3, 5, 7, 11])) % 64
+    order = np.lexsort((new, hsh))
+    before = np.full(len(new), -1)
+    grp = hsh[order]
+    before[order[1:]] = np.where(grp[1:] == grp[:-1], new[order[:-1]], -1)
+    seen = np.where(before[:, None] >= 0, p[np.maximum(before, 0)], 0)
+    index = (seen == p[new]).all(1)
+    d = (p[new].astype(np.int16) - prev[new]).astype(np.int8).astype(np.int64)
+    dr, dg, db = d[:, 0], d[:, 1], d[:, 2]
+    same_a = p[new, 3] == prev[new, 3]
+    diff = same_a & (np.abs(d[:, :3] + 0.5) < 2).all(1)
+    gr, gb = ((dr - dg + 128) & 255) - 128, ((db - dg + 128) & 255) - 128
+    luma = same_a & ~diff & (dg >= -32) & (dg < 32) & (gr >= -8) & (gr < 8) & (gb >= -8) & (gb < 8)
+    op = np.select([index, diff, luma, same_a], [0, 1, 2, 3], 4)  # 3 RGB, 4 RGBA
+    size = np.array([1, 1, 2, 4, 5])[op]
+    # the runs: maximal stretches of `same`, cut at 62
+    s_idx = np.nonzero(same)[0]
+    starts = s_idx[np.r_[True, np.diff(s_idx) > 1]] if len(s_idx) else s_idx
+    ends = s_idx[np.r_[np.diff(s_idx) > 1, True]] + 1 if len(s_idx) else s_idx
+    run_len = ends - starts
+    n_runs = -(-run_len // 62)
+    pos = np.concatenate([new, np.repeat(starts, n_runs)])
+    rid = np.repeat(np.arange(len(starts)), n_runs)
+    k = np.arange(int(n_runs.sum())) - np.repeat(np.cumsum(n_runs) - n_runs, n_runs)
+    run_bytes = np.minimum(62, run_len[rid] - 62 * k)
+    tie = np.concatenate([np.zeros(len(new)), 1 + k])  # a run's bytes come before the next new pixel
+    nbytes = np.concatenate([size, np.ones(len(k), np.int64)])
+    order = np.lexsort((tie, pos))
+    off = np.zeros(len(order), np.int64)
+    off[order] = np.cumsum(nbytes[order]) - nbytes[order]
+    out = np.zeros(int(nbytes.sum()), np.uint8)
+    o_new, o_run = off[:len(new)], off[len(new):]
+    out[o_run] = 0xC0 | (run_bytes - 1)
+    q = p[new]
+    m = op == 0
+    out[o_new[m]] = hsh[m]
+    m = op == 1
+    out[o_new[m]] = 0x40 | (dr[m] + 2) << 4 | (dg[m] + 2) << 2 | (db[m] + 2)
+    m = op == 2
+    out[o_new[m]] = 0x80 | (dg[m] + 32)
+    out[o_new[m] + 1] = (gr[m] + 8) << 4 | (gb[m] + 8)
+    for code, width in ((3, 3), (4, 4)):
+        m = op == code
+        out[o_new[m]] = 0xFE if code == 3 else 0xFF
+        for j in range(width):
+            out[o_new[m] + 1 + j] = q[m, j]
+    return out.tobytes()
+
+
+def qoi_bytes(px: np.ndarray = None, channels: int = None, colorspace: int = 0, width: int = None,
+              height: int = None, ops: bytes = None, end: bool = True) -> bytes:
+    """A QOI file: its 14-byte header (the pixels' size and channel count
+    unless given), the ops of `px` (`qoi_encode`) or the raw `ops` given,
+    and the 8-byte end marker."""
+    if px is not None:
+        height, width = px.shape[:2] if height is None else (height, width)
+        channels = px.shape[2] if channels is None else channels
+    body = qoi_encode(px) if ops is None else ops
+    return (b"qoif" + struct.pack(">IIBB", width, height, channels, colorspace) + body
+            + (bytes(7) + b"\x01" if end else b""))
+
+
+def pcx_rle(lines: np.ndarray) -> bytes:
+    """PCX's RLE of (H, line bytes) lines: runs of up to 63 equal bytes as
+    a count byte (0xC0 | n) and the byte, a lone byte below 0xC0 as itself;
+    no run crosses a line."""
+    lines = np.ascontiguousarray(lines, np.uint8)
+    flat = lines.ravel()
+    c_start, c_count, _ = rle_chunks(lines, 63, 1, min_run=1)
+    lone = (c_count == 1) & (flat[c_start] < 0xC0)
+    n = np.where(lone, 1, 2)
+    cid = np.repeat(np.arange(len(n)), n)
+    k = np.arange(int(n.sum())) - np.repeat(np.cumsum(n) - n, n)
+    value = flat[c_start[cid]]
+    head = (k == 0) & ~lone[cid]
+    return np.where(head, 0xC0 | c_count[cid], value).astype(np.uint8).tobytes()
+
+
+def pcx_lines(pixels: np.ndarray, bits: int, planes: int, stride: int) -> np.ndarray:
+    """(H, planes * stride) PCX lines of (H, W) indices (1 bit a plane:
+    bit p of each index in plane p, most significant bit first) or of
+    (H, W, planes) bytes (8 bits: a plane a channel), each plane padded to
+    `stride` bytes."""
+    h = pixels.shape[0]
+    out = np.zeros((h, planes, stride), np.uint8)
+    for p in range(planes):
+        if bits == 1:
+            packed = np.packbits(((pixels >> p) & 1).astype(np.uint8), axis=1)
+        else:
+            packed = pixels[..., p]
+        out[:, p, :packed.shape[1]] = packed
+    return out.reshape(h, planes * stride)
+
+
+def pcx_bytes(lines: np.ndarray, width: int, height: int, bits: int, planes: int, version: int = 5,
+              stride: int = None, header_palette=None, tail_palette=None, box=None, body: bytes = None) -> bytes:
+    """A PCX file: the 128-byte header (the box from (0, 0) unless `box`,
+    a plane's `stride` as the header states it, the 16-entry palette), the
+    RLE of `lines` (or `body`), then a 12 and 256 RGB entries where
+    `tail_palette` is given."""
+    x0, y0, x1, y1 = box if box is not None else (0, 0, width - 1, height - 1)
+    if stride is None:
+        stride = lines.shape[1] // planes
+    pal16 = np.zeros(48, np.uint8) if header_palette is None else np.asarray(header_palette, np.uint8).ravel()
+    head = (struct.pack("<BBBBHHHHHH", 10, version, 1, bits, x0, y0, x1, y1, 300, 300) + pal16.tobytes()
+            + struct.pack("<BBHHHH", 0, planes, stride, 1, width, height)).ljust(128, b"\0")
+    tail = b"" if tail_palette is None else b"\x0c" + np.asarray(tail_palette, np.uint8).tobytes()
+    return head + (pcx_rle(lines) if body is None else body) + tail
+
+
+def dcx_bytes(frames) -> bytes:
+    """A DCX file: its magic, the offset of each PCX frame, a 0, the frames."""
+    offset = 4 + 4 * (len(frames) + 1)
+    table = b""
+    for frame in frames:
+        table += struct.pack("<I", offset)
+        offset += len(frame)
+    return struct.pack("<I", 0x3ADE68B1) + table + b"\0\0\0\0" + b"".join(frames)
+
+
+def sgi_rle_rows(rows: np.ndarray, bpc: int):
+    """SGI's RLE of (R, W) samples (one channel of one row each): per row
+    its stream (copy chunks 0x80 | n, then n samples; run chunks n, then
+    the sample; a 0 to end the row; each count and sample `bpc` bytes, big
+    endian) and its length in bytes."""
+    atoms = np.ascontiguousarray(rows, np.uint16 if bpc == 2 else np.uint8)
+    R, W = atoms.shape
+    flat = atoms.ravel()
+    c_start, c_count, c_run = rle_chunks(atoms, 127, 127, min_run=3)
+    row = c_start // W
+    # a terminator after each row's last chunk
+    term = np.full(R, R * W)
+    starts = np.concatenate([c_start, term])
+    rows_of = np.concatenate([row, np.arange(R)])
+    order = np.lexsort((starts, rows_of))
+    headers = np.concatenate([np.where(c_run, c_count, 0x80 | c_count), np.zeros(R, np.int64)])[order]
+    payload = np.concatenate([np.where(c_run, 1, c_count), np.zeros(R, np.int64)])[order]
+    copy = np.concatenate([~c_run, np.zeros(R, bool)])[order]
+    stream = _emit(flat, headers, starts[order], payload, copy)
+    lengths = np.bincount(rows_of[order], weights=1 + payload, minlength=R).astype(np.int64) * bpc
+    data = stream.astype(">u2").tobytes() if bpc == 2 else stream.astype(np.uint8).tobytes()
+    return data, lengths
+
+
+def sgi_bytes(px: np.ndarray, bpc: int = 1, rle: bool = False, dimension: int = None, compression: int = None,
+              name: bytes = b"view") -> bytes:
+    """An SGI image of (H, W, C) samples (uint16 where `bpc` is 2), rows
+    stored bottom-up: the 512-byte header, then each channel's plane
+    (verbatim) or the offset and length tables and each row's RLE."""
+    h, w, c = px.shape
+    if dimension is None:
+        dimension = 3 if c > 1 else 2
+    comp = int(rle) if compression is None else compression
+    head = (struct.pack(">hBBHHHHii4s80si", 474, comp, bpc, dimension, w, h, c, 0, (1 << 8 * bpc) - 1, b"",
+                        name, 0)).ljust(512, b"\0")
+    planes = np.ascontiguousarray(px[::-1].transpose(2, 0, 1))  # (C, H, W), the bottom row first
+    if not rle:
+        return head + (planes.astype(">u2").tobytes() if bpc == 2 else planes.astype(np.uint8).tobytes())
+    data, lengths = sgi_rle_rows(planes.reshape(c * h, w), bpc)
+    offsets = 512 + 8 * c * h + np.cumsum(lengths) - lengths
+    return head + offsets.astype(">u4").tobytes() + lengths.astype(">u4").tobytes() + data
+
+
+def packbits_rows(rows: np.ndarray):
+    """PackBits of each of (R, n) byte rows on its own (PSD's): literal
+    chunks (n - 1, then n bytes) and runs (257 - n, then the byte) of at
+    most 128; the bytes and each row's length."""
+    rows = np.ascontiguousarray(rows, np.uint8)
+    R, W = rows.shape
+    flat = rows.ravel()
+    c_start, c_count, c_run = rle_chunks(rows, 128, 128, min_run=3)
+    c_run = c_run & (c_count > 1)
+    headers = np.where(c_run, 257 - c_count, c_count - 1)
+    payload = np.where(c_run, 1, c_count)
+    stream = _emit(flat, headers, c_start, payload, ~c_run)
+    lengths = np.bincount(c_start // W, weights=1 + payload, minlength=R).astype(np.int64)
+    return stream.astype(np.uint8).tobytes(), lengths
+
+
+def psd_bytes(planes: np.ndarray, colour_mode: int, bits: int = 8, channels: int = None, compression: int = 0,
+              colour_data: bytes = b"", resources: bytes = b"", layers: bytes = b"", width: int = None) -> bytes:
+    """A PSD file of (C, H, row bytes) channel planes (1 bit: rows packed,
+    most significant bit first): the header (`channels` defaults to C),
+    the colour mode data, image resources and layer section as given, then
+    the merged image, raw or PackBits (the byte counts of every row of
+    every channel, then the rows)."""
+    planes = np.ascontiguousarray(planes, np.uint8)
+    c, h, row_bytes = planes.shape
+    if width is None:
+        width = row_bytes * 8 if bits == 1 else row_bytes
+    head = b"8BPS" + struct.pack(">H6xHIIHH", 1, c if channels is None else channels, h, width, bits,
+                                 colour_mode)
+    out = (head + struct.pack(">I", len(colour_data)) + colour_data + struct.pack(">I", len(resources))
+           + resources + struct.pack(">I", len(layers)) + layers + struct.pack(">H", compression))
+    if compression != 1:
+        return out + planes.tobytes()
+    data, lengths = packbits_rows(planes.reshape(c * h, row_bytes))
+    return out + lengths.astype(">u2").tobytes() + data
+
+
+def psd_resource(ident: int, data: bytes, name: bytes = b"") -> bytes:
+    """One image resource block: 8BIM, its id, its Pascal name padded to
+    even, its data padded to even."""
+    pname = bytes([len(name)]) + name
+    pname += b"\0" * (len(pname) & 1)
+    return b"8BIM" + struct.pack(">H", ident) + pname + struct.pack(">I", len(data)) + data + b"\0" * (len(data) & 1)
+
+
+def icon_bytes(entries, kind: int = 1) -> bytes:
+    """An ICO (`kind` 1) or CUR (2) file of (width, height, colours, bit
+    count, image bytes) entries in that order, each image after the
+    directory (a width or height of 256 stored as 0)."""
+    offset = 6 + 16 * len(entries)
+    head, body = struct.pack("<HHH", 0, kind, len(entries)), b""
+    for w, h, colors, bpp, data in entries:
+        head += struct.pack("<BBBBHHII", w % 256, h % 256, colors, 0, 1, bpp, len(data), offset)
+        offset += len(data)
+        body += data
+    return head + body
+
+
+def icon_dib(rows: bytes, width: int, height: int, bits: int, and_mask: np.ndarray = None, **kw) -> bytes:
+    """An icon's bitmap: a DIB whose header states twice the height (the
+    XOR bitmap's rows, then the AND mask's) and, unless None, the (H, W)
+    AND mask after it (1 transparent), rows bottom-up padded to 32 bits."""
+    dib = dib_bytes(rows, width, 2 * height, bits, **kw)
+    if and_mask is None:
+        return dib
+    stride = (width + 31) // 32 * 4
+    packed = np.zeros((height, stride), np.uint8)
+    bits_ = np.packbits(np.asarray(and_mask, np.uint8), axis=1)
+    packed[:, :bits_.shape[1]] = bits_
+    return dib + packed[::-1].tobytes()
+
+
+def png_bytes(px: np.ndarray) -> bytes:
+    """An 8-bit PNG of (H, W, C) uint8 pixels, C = 1 to 4 (grey, grey +
+    alpha, RGB, RGBA), every row with filter 0: an icon's PNG entry."""
+    h, w, c = px.shape
+    rows = np.zeros((h, 1 + w * c), np.uint8)
+    rows[:, 1:] = px.reshape(h, -1)
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    head = struct.pack(">IIBBBBB", w, h, 8, {1: 0, 2: 4, 3: 2, 4: 6}[c], 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", head) + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + chunk(b"IEND", b""))
