@@ -364,6 +364,24 @@ Phases (any failure exits non-zero; none is caught and passed over):
      plain versions by phase 3's rules (`check_state`; not counted).
      Prints the dataset's build, the scene load, the wall and step median,
      the phase's peak device memory and wall time.
+  5i. DDS, after 5h: (a) one 1080p file of each of 18 DDS forms, written
+     by tests/torch_image_writers.py from the form picture
+     (`dds_form_files`: A8R8G8B8, X8R8G8B8, R8G8B8, R5G6B5, L8, LA16, P8,
+     DXT1, DXT3, DXT5, BC4, BC5, BC5S, DX10 BC1, BC6H UF16 and SF16, BC7,
+     DX10 R8G8B8A8). Each file must be the bytes PIL read and
+     `image_io.open_image` must give PIL 12.1.0's mode, shape and pixels'
+     SHA-256 (tests/fixtures/torch_dds/sha256.json, written by its
+     make_fixtures.py). Prints the port's median of 5 decodes (host
+     clock) and, where this machine has PIL, PIL's median of 3 (of 1 for
+     A8R8G8B8 and none for the other mask forms, which PIL decodes in
+     Python at ~10 s a file). (b) A COLMAP dataset of 7 views of
+     trained_r5 on phase 5c's orbit at 1920x1080, one each DXT1, DXT5,
+     DX10 BC1, BC7, BC6H UF16, A8R8G8B8 and DX10 R8G8B8A8 (alpha 255):
+     the block-coded views must read back as their writer's own decoding
+     of its blocks (which tests/test_torch_dds.py holds bit-equal to PIL;
+     the views are renders made here, so no PIL hash of them can be
+     committed), the others as their renders; `cli.train` -r 1 for 30
+     iterations as in 5h, its checks and prints.
   5d. sharded path (`parallel/sharding.py`), on the one card:
      - the kernels at a row origin: trained_r5 at 1920x1080 with 32x32
        tiles cut into 2 and into 4 strips of tile rows; each strip's
@@ -429,7 +447,7 @@ Phases (any failure exits non-zero; none is caught and passed over):
      own reset (train, trainer, cli_train, cli_render, cli_blender (its
      train and render CLIs together), user_train (5g's runs A, its viewer
      frames included, and B), user_render (5g's two render CLIs),
-     forms_train (5h's train CLI),
+     forms_train (5h's train CLI), dds_train (5i's train CLI),
      sharded_2rank and sharded_trainer (both ranks' sums), sharded_nccl1,
      bench (the five in-process runs of 5f) for the compositing kernels
      and the routing,
@@ -3850,6 +3868,208 @@ def _legacy_phase(dev, tmp):
     return launches, errs
 
 
+# ---- phase 5i: DDS ------------------------------------------------------------
+
+# PIL's reading of each 1080p file of `dds_form_files` (its mode, shape,
+# pixels' SHA-256) and the file's own SHA-256, as
+# tests/fixtures/torch_dds/make_fixtures.py wrote them with PIL 12.1.0
+DDS_FIXTURES = os.path.join(FIXTURES, "torch_dds")
+DDS_STEPS = 30
+DDS_VIEWS = ("DXT1", "DXT5", "DX10 BC1", "BC7", "BC6H UF16", "A8R8G8B8", "DX10 R8G8B8A8")
+DDS_LOSSLESS = ("A8R8G8B8", "DX10 R8G8B8A8")
+# forms PIL decodes with its Python DdsRgbDecoder (~10 s a 1080p file on a
+# host core): PIL is timed once on the first, not on the others
+DDS_PIL_PYTHON = ("A8R8G8B8", "X8R8G8B8", "R8G8B8 24-bit", "R5G6B5")
+
+
+def dds_form_files(px=None, alpha=None, names=None, decoded=False):
+    """The files of phase 5i, one DDS of each form PIL reads, written by
+    tests/torch_image_writers.py from `px` (default: the form picture at
+    1920x1080) and `alpha` (default a ramp of 128..255): {name: bytes}, of
+    every form or of `names`; with `decoded`, {name: (bytes, the pixels the
+    writer's blocks decode to, or None for a form not block-coded)}."""
+    w = image_writers()
+    px = form_picture() if px is None else px
+    H, W = px.shape[:2]
+    if alpha is None:
+        yy, xx = np.mgrid[0:H, 0:W]
+        alpha = (128 + (3 * xx + 5 * yy) % 128).astype(np.uint8)
+    rgba = np.concatenate([px, alpha[..., None]], -1)
+    grey = ((px.astype(np.int64) * np.array([299, 587, 114])).sum(-1) // 1000).astype(np.uint8)
+    half = (np.arange(256, dtype=np.float32) / 255).astype(np.float16).view(np.uint16)[px]
+    i = np.arange(256)
+    palette = np.stack([(i >> 5) * 255 // 7, ((i >> 2) & 7) * 255 // 7, (i & 3) * 85, 128 + i // 2], -1)
+    index = (px[..., 0] >> 5) << 5 | (px[..., 1] >> 5) << 2 | px[..., 2] >> 6
+    argb, F, A = (0xFF0000, 0xFF00, 0xFF, 0xFF000000), w.DDPF_FOURCC, w.DDPF_ALPHAPIXELS
+
+    def masked(image, bits, masks, flags):
+        return w.dds_bytes(w.dds_masked(image, bits, masks), W, H, flags, bitcount=bits,
+                           masks=tuple(masks) + (0,) * (4 - len(masks))), None
+
+    def blocks(encode, image, **header):
+        body, out = encode(image, decoded=True)
+        return w.dds_bytes(body.tobytes(), W, H, F, **header), out
+
+    def plain(body, flags, bits=0, **header):
+        return w.dds_bytes(np.ascontiguousarray(body).astype(np.uint8).tobytes(), W, H, flags, bitcount=bits,
+                           **header), None
+
+    writers = {
+        "A8R8G8B8": lambda: masked(rgba, 32, argb, w.DDPF_RGB | A),
+        "X8R8G8B8": lambda: masked(px, 32, argb[:3], w.DDPF_RGB),
+        "R8G8B8 24-bit": lambda: masked(px, 24, argb[:3], w.DDPF_RGB),
+        "R5G6B5": lambda: masked(px, 16, (0xF800, 0x7E0, 0x1F), w.DDPF_RGB),
+        "L8": lambda: plain(grey, w.DDPF_LUMINANCE, 8),
+        "LA16": lambda: plain(np.stack([grey, alpha], -1), w.DDPF_LUMINANCE | A, 16),
+        "P8": lambda: (w.dds_bytes(palette.astype(np.uint8).tobytes() + index.astype(np.uint8).tobytes(), W, H,
+                                   w.DDPF_PALETTEINDEXED8, bitcount=8), None),
+        "DXT1": lambda: blocks(w.bc1_blocks, px, fourcc=b"DXT1"),
+        "DXT3": lambda: blocks(w.bc2_blocks, rgba, fourcc=b"DXT3"),
+        "DXT5": lambda: blocks(w.bc3_blocks, rgba, fourcc=b"DXT5"),
+        "BC4": lambda: blocks(w.bc4_blocks, grey, fourcc=b"BC4U"),
+        "BC5": lambda: blocks(w.bc5_blocks, px, fourcc=b"ATI2"),
+        "BC5S": lambda: blocks(functools.partial(w.bc5_blocks, signed=True), px, fourcc=b"BC5S"),
+        "DX10 BC1": lambda: blocks(w.bc1_blocks, px, dxgi=71),
+        "BC6H UF16": lambda: blocks(w.bc6h_blocks, half, dxgi=95),
+        "BC6H SF16": lambda: blocks(functools.partial(w.bc6h_blocks, signed=True), half, dxgi=96),
+        "BC7": lambda: blocks(w.bc7_blocks, rgba, dxgi=98),
+        "DX10 R8G8B8A8": lambda: plain(rgba, F, dxgi=28),
+    }
+    made = {name: write() for name, write in writers.items() if names is None or name in names}
+    return made if decoded else {name: data for name, (data, _) in made.items()}
+
+
+def pil_decode_ms(path, runs):
+    """PIL's decode of `path` on this machine, median of `runs` (host
+    clock), or why it was not measured."""
+    if importlib.util.find_spec("PIL") is None:
+        return "not measured"
+    from PIL import Image
+
+    times = []
+    try:
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            with Image.open(path) as im:
+                np.asarray(im)
+            times.append((time.perf_counter() - t0) * 1e3)
+    except Exception as err:  # noqa: BLE001  (an older PIL on this machine: reported, not a failure)
+        return f"raised {type(err).__name__}: {err}"
+    return f"{np.median(times):.2f}" + ("" if runs == 3 else f", {runs} run")
+
+
+def check_dds_forms(tmp):
+    """Phase 5i (a): each file of `dds_form_files` the bytes PIL read (its
+    SHA-256) and, through `image_io.open_image`, PIL's mode, shape and
+    pixels' SHA-256 (tests/fixtures/torch_dds/sha256.json). Returns {name:
+    (the port's median ms of 5 decodes, PIL's median of 3 (of 1 for its
+    Python decoder's first form) or why not)}."""
+    with open(os.path.join(DDS_FIXTURES, "sha256.json")) as f:
+        readings = json.load(f)["chip_smoke"]
+    made = dds_form_files()
+    if sorted(made) != sorted(readings):
+        fail(f"DDS: this script makes {sorted(made)}, the fixture holds {sorted(readings)}")
+    times = {}
+    for name, data in made.items():
+        want = readings[name]
+        if hashlib.sha256(data).hexdigest() != want["file_sha256"]:
+            fail(f"DDS: the writers made other bytes for '{name}' than the file PIL read "
+                 f"(tests/fixtures/torch_dds/sha256.json)")
+        path = os.path.join(tmp, "form.dds")
+        with open(path, "wb") as f:
+            f.write(data)
+        ms = []
+        for _ in range(5):
+            pic, t = synced_ms(image_io.open_image, path)
+            ms.append(t)
+        digest = sha256_of(pic.pixels)
+        if (pic.mode, list(pic.pixels.shape), digest) != (want["mode"], want["shape"], want["sha256"]):
+            fail(f"DDS: {name} reads as {pic.mode} {pic.pixels.shape} with SHA-256 {digest}, not PIL's "
+                 f"{want['mode']} {want['shape']} {want['sha256']}")
+        if name in DDS_PIL_PYTHON:
+            pil_ms = pil_decode_ms(path, 1) if name == DDS_PIL_PYTHON[0] else "not measured (PIL's Python decoder)"
+        else:
+            pil_ms = pil_decode_ms(path, 3)
+        times[name] = (float(np.median(ms)), pil_ms)
+    return times
+
+
+def dds_phase(dev):
+    """Phase 5i (module docstring). Returns the compositing kernels'
+    launches in the train CLI run and the max abs errors of the forward,
+    the backward and the routing against their plain versions at its final
+    state."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dds_")
+    try:
+        return _dds_phase(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _dds_phase(dev, tmp):
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) One 1080p file of each form, held to PIL's committed readings.
+    times = check_dds_forms(tmp)
+    print(f"DDS: {len(times)} files of tests/torch_image_writers.py (1920x1080) read with PIL 12.1.0's mode, "
+          f"shape and pixels (tests/fixtures/torch_dds/sha256.json); decode ms, median of 5 (host clock), beside "
+          f"PIL's median of 3 on this machine ({pil_versions()}):")
+    for name, (ms, pil_ms) in times.items():
+        print(f"  {name}: {ms:.2f} ms (PIL {pil_ms})")
+
+    # (b) A COLMAP dataset of trained_r5 whose views are seven of those forms.
+    t0 = time.perf_counter()
+    data, model_dir = os.path.join(tmp, "data"), os.path.join(tmp, "model")
+    model = load_gaussians_ply(TRAINED_PLY)
+    cams, images = orbit_dataset(len(DDS_VIEWS), W_MAIN, H_MAIN)
+    write_colmap_scene(data, cams, images, model["xyz"], dc_colors(model))
+    files, decoded = {}, {}
+    for cam, px, form in zip(cams, images, DDS_VIEWS):
+        body, decoded[cam.image_name] = dds_form_files(px, np.full(px.shape[:2], 255, np.uint8), [form],
+                                                       decoded=True)[form]
+        files[cam.image_name] = cam.image_name + ".dds"
+        os.remove(os.path.join(data, "images", f"{cam.image_name}.png"))
+        with open(os.path.join(data, "images", files[cam.image_name]), "wb") as f:
+            f.write(body)
+    rename_views(data, files)
+    build_s = time.perf_counter() - t0
+    info = read_colmap_scene(data, None, eval_split=False)
+    by_name = {c.image_name: c for c in info.train_cameras}
+    for cam, px, form in zip(cams, images, DDS_VIEWS):
+        pic = image_io.open_image(by_name[cam.image_name].image_path)
+        # the block-coded views: the pixels the writer's blocks decode to (the tests hold each writer's
+        # decoding bit-equal to PIL 12.1.0's); the others: the render, alpha 255
+        want = decoded[cam.image_name] if form not in DDS_LOSSLESS else opaque(px)
+        if not np.array_equal(pic.pixels, want):
+            fail(f"DDS: view {files[cam.image_name]} ({form}) does not read back as "
+                 f"{'its render' if form in DDS_LOSSLESS else 'its blocks decode'}")
+    reset_launches()
+    scene, tr, train_s, load_s, _ = run_train_cli(["-s", data, "-m", model_dir, "-r", "1", "--iterations",
+                                                   str(DDS_STEPS), "--disable_viewer", "--quiet"])
+    launches = {k: LAUNCH_COUNTERS[k].launches for k in TRAIN_KERNELS}
+    views = scene.get_train_cameras()
+    if tr.iteration != DDS_STEPS or len(views) != len(DDS_VIEWS) or \
+            sorted({(c.width, c.height) for c in views}) != [(W_MAIN, H_MAIN)]:
+        fail(f"DDS: the train CLI ran {tr.iteration} steps on {len(views)} views")
+    losses_ = [h["loss"] for h in tr.history]
+    if not all(math.isfinite(x) for x in losses_):
+        fail(f"DDS: the loss is not finite: {losses_}")
+    if launches != {k: DDS_STEPS for k in TRAIN_KERNELS}:
+        fail(f"DDS: train CLI launches {launches}, not one of each a step")
+    step_ms = [h["iter_time_ms"] for h in tr.history]
+    errs = check_trainer_state("DDS train CLI final state", tr, views[0], 59)
+    print(f"  train CLI on a COLMAP dataset of {len(DDS_VIEWS)} views of trained_r5 at {W_MAIN}x{H_MAIN}, one "
+          f"each {', '.join(DDS_VIEWS)} (made in {build_s:.1f} s): -r 1, {DDS_STEPS} iterations in "
+          f"{train_s:.2f} s (scene load {load_s:.2f} s), step median {np.median(step_ms):.3f} ms; loss "
+          f"{losses_[0]:.6f} -> {losses_[-1]:.6f}; launches {launches}")
+    print(f"  phase peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
+          f"wall {time.perf_counter() - t_phase:.1f} s")
+    del scene, tr
+    return launches, errs
+
+
 # ---- phase 5d: the sharded path -------------------------------------------
 
 SHARD_STRIPS = (2, 4)  # strips of the in-process kernel check at an origin
@@ -4686,6 +4906,12 @@ def main():
         max_err[k] = max(max_err[k], e)
     phase_done("5h legacy forms")
 
+    # ---- 5i. DDS --------------------------------------------------------
+    dds_train_launches, dds_errs = dds_phase(dev)
+    for k, e in zip(TRAIN_KERNELS, dds_errs):
+        max_err[k] = max(max_err[k], e)
+    phase_done("5i DDS")
+
     # ---- 5d. sharded path ---------------------------------------------
     sharded_launches, strip_errs = sharded_phase(dev, gt, center, dist, train_capacity,
                                                  single_ref, step_ms)
@@ -4768,6 +4994,7 @@ def main():
                     "cli_train": cli_train_launches[name], "cli_render": cli_render_launches[name],
                     "cli_blender": blender_launches[name], "user_train": user_train_launches[name],
                     "user_render": user_render_launches[name], "forms_train": forms_train_launches[name],
+                    "dds_train": dds_train_launches[name],
                     **{path: counts[name] for path, counts in sharded_launches.items()},
                     "bench": bench_launches[name]}
         return {"profiler": prof_launches[name]}

@@ -11,7 +11,9 @@ its own:
   (`utils/jpeg.py`, PIL's bits: grey, RGB, and CMYK from CMYK and YCCK
   files), a PPM / PGM / PBM / PFM (PIL's magics: P1 to P6, Pf and its
   extensions) to `utils/ppm.py`, a PNG to `open_png`, a CUR and an ICO to
-  `utils/ico.py`, a PCX and a DCX to `utils/pcx.py`, a JPEG 2000 file (a
+  `utils/ico.py`, a PCX and a DCX to `utils/pcx.py`, a DDS to
+  `utils/dds.py` (uncompressed, luminance, palette and BC1-BC7 surfaces,
+  the blocks by `csrc/bcn_decode.cc`), a JPEG 2000 file (a
   JP2 / JPX file or a raw codestream) to `utils/jp2.py`, a TIFF to
   `utils/tiff.py` (every TIFF PIL reads: fax, old-style JPEG, YCbCr,
   CIELab, 1- to 32-bit, signed and float samples included), a PSD to
@@ -32,8 +34,11 @@ its own:
   palette at 1, 2, 4 and 8 bits ("P"); grey + alpha at 8 bits ("LA") and
   16 bits ("RGBA", the high bytes); RGBA at 8 and 16 bits ("RGBA");
   Adam7 interlacing; a tRNS chunk kept as PIL's `info["transparency"]`.
-  All five row filters. A file that is not a PNG, or is damaged, raises a
-  `ValueError` naming the file and what is wrong.
+  All five row filters. Damaged files read as PIL reads them
+  (`png_picture`: CRCs checked only before the image data, the chunks
+  after it read as PIL's `load_end` reads them); a file that is not a
+  PNG, or that PIL refuses, raises a `ValueError` naming the file and what
+  is wrong.
 - `write_png(path, array)`: 8-bit PNGs, every row with the Sub filter.
 - `resize(array, (w, h))`: `PIL.Image.resize(size)` at its default, bit
   for bit: bicubic (a = -0.5) with its support widened by the downscale
@@ -53,7 +58,7 @@ from typing import Any, NamedTuple, Optional
 
 import numpy as np
 
-from gaussian_splatting_torch.utils import bmp, gif, ico, jp2, jpeg, lab, pcx, ppm, psd, qoi, sgi, tga, tiff, webp
+from gaussian_splatting_torch.utils import bmp, dds, gif, ico, jp2, jpeg, lab, pcx, ppm, psd, qoi, sgi, tga, tiff, webp
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # 8-bit channels -> PNG colour type (0 grey, 4 grey + alpha, 2 RGB, 6 RGBA),
@@ -88,7 +93,7 @@ class Picture(NamedTuple):
       a BMP's colour table, a TIFF's ColorMap, a GIF's palette, a TGA's
       colour map, a PCX's 16 or 256 entries, a PSD's colour mode data, of
       no entries where PIL keeps none), or (N, 4) with each entry's alpha
-      (a TGA's 16-bit map); a GIF of mode "L" (a grey-ramp local palette)
+      (a TGA's 16-bit map, a DDS's RGBA palette); a GIF of mode "L" (a grey-ramp local palette)
       keeps its global palette here, and a grey TGA ("L" or "LA") its
       colour map, which PIL's core holds the image with (as "P" or "PA")
       and `convert` applies.
@@ -117,7 +122,7 @@ BMP_SIGNATURE = b"BM"
 
 
 FORMATS = ("PNG, JPEG, BMP, DIB, TIFF, WebP, GIF, PPM / PGM / PBM / PFM, TGA, JPEG 2000, QOI, PCX / DCX, SGI, "
-           "ICO / CUR or PSD")
+           "ICO / CUR, PSD or DDS")
 
 
 class NotThisFormat(ValueError):
@@ -156,6 +161,7 @@ READERS = (
     ("CUR", lambda head: head.startswith(ico.CUR_SIGNATURE), _of_bytes(ico.decode_cur)),
     ("PCX", pcx.accepts, _of_bytes(pcx.decode_pcx)),
     ("DCX", pcx.dcx_accepts, _of_bytes(pcx.decode_dcx)),
+    ("DDS", lambda head: head.startswith(dds.SIGNATURE), _of_bytes(dds.decode_dds)),
     ("JPEG2000", lambda head: head.startswith(jp2.SIGNATURES), jp2.open_jp2),  # Jpeg2KImagePlugin._accept
     ("ICO", lambda head: head.startswith(ico.ICO_SIGNATURE), _of_bytes(ico.decode_ico)),
     ("TIFF", lambda head: head.startswith(tiff.SIGNATURES), tiff.open_tiff),
@@ -169,7 +175,7 @@ READERS = (
 
 def open_image(path) -> Picture:
     """The `Picture` of a PNG, JPEG, BMP, DIB, TIFF, WebP, GIF, PPM / PGM /
-    PBM / PFM, TGA, JPEG 2000, QOI, PCX / DCX, SGI, ICO / CUR or PSD file,
+    PBM / PFM, TGA, JPEG 2000, QOI, PCX / DCX, SGI, ICO / CUR, PSD or DDS file,
     PIL's pixels and mode. The readers are tried in PIL's order (`READERS`)
     on the file's first bytes; one that gives up as PIL's plugin gives up
     (`NotThisFormat`) passes the file to the next, any other refusal
@@ -179,13 +185,14 @@ def open_image(path) -> Picture:
     "CMYK", "P", "PA") are decoded by compiled decoders, TIFF's CCITT fax
     by its own, and BMP's RLE, TIFF's LZW (both styles), PackBits and
     ThunderScan, GIF's LZW, TGA's RLE, QOI's ops, PCX's and SGI's RLE and
-    PSD's PackBits by the compiled codecs, each built at first use; if one
+    PSD's PackBits by the compiled codecs, DDS's BC1-BC7 blocks by the
+    compiled block decoder, each built at first use; if one
     cannot be built this raises. TIFF: every form PIL reads
     (`utils/tiff.py`), in its modes "1", "L", "I;16", "I;16B", "I", "F",
     "LA", "P", "PA", "RGB", "RGBA", "CMYK", "LAB". QOI "RGB" / "RGBA"; PCX
     and DCX "1", "P", "L", "RGB"; SGI "L", "RGB", "RGBA" (16-bit too);
     ICO a PNG entry's mode or "RGBA", CUR a BMP's; PSD "1", "L", "P",
-    "RGB", "RGBA", "CMYK", "LAB"."""
+    "RGB", "RGBA", "CMYK", "LAB"; DDS "L", "LA", "P", "RGB", "RGBA"."""
     with open(path, "rb") as f:
         head = f.read(tga.HEADER)
     passed = []
@@ -223,62 +230,240 @@ def open_png(path) -> Picture:
         return png_picture(f.read(), path)
 
 
+PIL_READ = 65536  # ImageFile.MAXBLOCK: the most image data each of PIL's reads hands its decoder
+_CID = re.compile(rb"^[A-Za-z0-9_]{4}$")  # PngStream's is_cid: four word characters
+_TEXT_CHUNK = 1024 * 1024  # PngImagePlugin.MAX_TEXT_CHUNK
+
+
+class _PngStream:
+    """What PIL's PngStream keeps of the chunks it has read: the header's
+    mode, size and interlace flag, the palette (only a PLTE read while the
+    mode is "P" and before the image data), the transparency, and the
+    APNG counters its chunk checks use."""
+
+    def __init__(self):
+        self.mode, self.size, self.header, self.interlace = None, (0, 0), None, False
+        self.palette, self.transparency = None, None
+        self.seq, self.frames, self.bbox = None, None, False
+
+    def fault(self, cid: bytes, s: bytes, before_data: bool):
+        """Run PIL's handler of chunk `cid` on its body `s`: update the
+        state and return None, or return what PIL raises."""
+        if cid == b"IHDR":
+            if len(s) < 13:
+                return "Truncated IHDR chunk"
+            self.size = struct.unpack(">II", s[:8])
+            mode = PNG_MODES.get((s[8], s[9]))
+            if mode is not None:
+                self.mode, self.header = mode, struct.unpack(">IIBBBBB", s[:13])
+            self.interlace |= s[12] != 0
+            return "unknown filter category" if s[11] else None
+        if cid == b"PLTE":
+            if self.mode == "P" and before_data:  # a PLTE after the image data never reaches the image
+                self.palette = s
+        elif cid == b"tRNS":
+            need = {"1": 2, "L": 2, "I;16": 2, "RGB": 6}.get(self.mode, 0)
+            if len(s) < need:
+                return f"a tRNS chunk of {len(s)} bytes for mode {self.mode} (struct.error)"
+            if self.mode == "P":
+                if _SIMPLE_PALETTE.match(s):
+                    self.transparency = s.index(b"\x00")
+                else:
+                    self.transparency = s
+            elif self.mode == "1":
+                self.transparency = 255 if _u16(s, 0) else 0
+            elif self.mode in ("L", "I;16"):
+                self.transparency = _u16(s, 0)
+            elif self.mode == "RGB":
+                self.transparency = tuple(_u16(s, 2 * i) for i in range(3))
+        elif cid == b"gAMA" and len(s) < 4 or cid == b"cHRM" and len(s) % 4:
+            return f"a {cid.decode()} chunk of {len(s)} bytes (struct.error)"
+        elif cid == b"sRGB" and not s or cid == b"pHYs" and len(s) < 9 or cid == b"acTL" and len(s) < 8:
+            return f"a truncated {cid.decode()} chunk"
+        elif cid == b"acTL":
+            n = _u32(s, 0)
+            if self.frames is not None:
+                self.frames = None
+            elif 0 < n <= 0x80000000:
+                self.frames = n
+        elif cid == b"fcTL":
+            if len(s) < 26:
+                return "APNG contains truncated fcTL chunk"
+            seq = _u32(s, 0)
+            if seq != (0 if self.seq is None else self.seq + 1):
+                return "APNG contains frame sequence errors"
+            self.seq = seq
+            x, y = _u32(s, 12), _u32(s, 16)
+            if x + _u32(s, 4) > self.size[0] or y + _u32(s, 8) > self.size[1]:
+                return "APNG contains invalid frames"
+            self.bbox = True
+        elif cid == b"iCCP":
+            at = s.find(b"\x00") + 1
+            if at >= len(s):
+                return "an iCCP chunk cut short (IndexError)"
+            if s[at]:
+                return f"Unknown compression method {s[at]} in iCCP chunk"
+            return _inflate_text(s[at + 1:])
+        elif cid in (b"zTXt", b"iTXt"):
+            return self._text(cid, s)
+        return None
+
+    @staticmethod
+    def _text(cid: bytes, s: bytes):
+        """What PIL's text handlers raise on: a zTXt of another compression
+        method, and compressed text past PIL's limit."""
+        _, _, value = s.partition(b"\x00")
+        if cid == b"zTXt":
+            if value and value[0]:
+                return f"Unknown compression method {value[0]} in zTXt chunk"
+            return _inflate_text(value[1:])
+        if cid == b"iTXt" and len(value) >= 2 and value[0] and not value[1] and value[2:].count(b"\x00") >= 2:
+            return _inflate_text(value[2:].split(b"\x00", 2)[2])
+        return None
+
+
+def _inflate_text(data: bytes):
+    """PngImagePlugin._safe_zlib_decompress's raise: text that inflates
+    past PIL's limit (zlib's own errors PIL passes over)."""
+    d = zlib.decompressobj()
+    try:
+        d.decompress(data, _TEXT_CHUNK)
+    except zlib.error:
+        return None
+    return "Decompressed data too large for PngImagePlugin.py" if d.unconsumed_tail else None
+
+
+def _u32(data: bytes, at: int) -> int:
+    return int.from_bytes(data[at:at + 4], "big")
+
+
+def _chunk_head(data: bytes, pos: int):
+    """PngStream.read at `pos`: (chunk type, length), or None where PIL's
+    read raises (struct.error: fewer than 4 bytes; SyntaxError: a type
+    that is not four word characters)."""
+    head = data[pos:pos + 8]
+    if len(head) < 4 or not _CID.match(head[4:]):
+        return None
+    return head[4:], _u32(head, 0)
+
+
 def png_picture(data: bytes, path) -> Picture:
-    """The `Picture` of PNG bytes (`open_png`); what follows the IEND
-    chunk is not read. `path` names them in a refusal."""
+    """The `Picture` of PNG bytes (`open_png`), read as PIL 12.1.0 reads
+    them. The chunks before the image data are PIL's `_open`: each one's
+    CRC is checked and any fault refuses the file. The image data is the
+    run of IDAT chunks that starts there, with no CRC check, inflated as
+    PIL's decoder reads it (PIL_READ bytes at a time, done as soon as the
+    last row is whole). The chunks after it are PIL's `load_end`: no CRC
+    check, reading stops at IEND, at a chunk header PIL cannot read or at
+    an APNG frame; a tRNS there sets the transparency, a PLTE there does
+    nothing (a palette image with no PLTE before its data reads every
+    index as black), and a chunk that PIL's handler raises on, or whose
+    body runs past the end, refuses the file. `path` names the bytes in a
+    refusal."""
     if not data.startswith(PNG_SIGNATURE):
         _refuse(path, _sniff(data[:8]))
-    pos, header, idat, plte, trns = len(PNG_SIGNATURE), None, [], None, None
-    while pos + 8 <= len(data):
-        (n,), kind = struct.unpack(">I", data[pos:pos + 4]), data[pos + 4:pos + 8]
+    png, pos = _PngStream(), len(PNG_SIGNATURE)
+    while True:
+        head = _chunk_head(data, pos)
+        if head is None:
+            raise ValueError(f"{path}: a broken PNG chunk header at byte {pos}")
+        kind, n = head
+        if kind in (b"IDAT", b"IEND", b"fdAT"):
+            break
         body = data[pos + 8:pos + 8 + n]
-        if len(body) != n or pos + 12 + n > len(data):
+        if len(body) < n:
             raise ValueError(f"{path}: truncated PNG chunk {kind!r}")
-        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
-        if zlib.crc32(kind + body) != crc:
+        fault = png.fault(kind, body, before_data=True)
+        if fault:
+            raise ValueError(f"{path}: PNG chunk {kind!r}: {fault}")
+        crc = data[pos + 8 + n:pos + 12 + n]
+        if len(crc) < 4 or zlib.crc32(kind + body) != _u32(crc, 0):
             raise ValueError(f"{path}: bad CRC in PNG chunk {kind!r}")
         pos += 12 + n
-        if kind == b"IHDR":
-            if n != 13:
-                raise ValueError(f"{path}: a PNG header of {n} bytes")
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"PLTE":
-            plte = body
-        elif kind == b"tRNS":
-            trns = body
-        elif kind == b"IEND":
+    if kind == b"fdAT":
+        raise ValueError(f"{path}: an APNG frame chunk (fdAT) before any IDAT; the port reads a PNG's IDAT image")
+    if kind != b"IDAT" or png.header is None:
+        raise ValueError(f"{path}: PNG without IDAT, or without an IHDR of a colour type and bit depth PNG has")
+    (width, height), (_, _, depth, color, *_), mode = png.size, png.header, png.mode  # load_end cannot change them
+    if width == 0 or height == 0:
+        raise ValueError(f"{path}: a PNG header of {width}x{height} pixels")
+    spp = _SAMPLES[color]
+    passes = _passes(width, height, png.interlace)
+    need = sum(ph * (-(-(pw * spp * depth) // 8) + 1) for *_, pw, ph in passes)
+    raw, pos = _image_data(data, pos, n, need, path)
+    animated = png.frames is not None and png.frames + (not png.bbox) > 1
+    while True:  # load_end: from the CRC of the chunk where the decoder finished
+        head = _chunk_head(data, pos + 4)
+        if head is None or head[0] == b"IEND" or head[0] == b"fcTL" and animated:
             break
-    if header is None or not idat:
-        raise ValueError(f"{path}: PNG without IHDR or IDAT")
-    width, height, depth, color, _compression, _filter, interlace = header
-    mode = PNG_MODES.get((depth, color))
-    if mode is None:
-        raise ValueError(f"{path}: no PNG has colour type {color} at {depth} bits")
-    if width == 0 or height == 0 or interlace > 1:
-        raise ValueError(f"{path}: a PNG header of {width}x{height} pixels, interlace method {interlace}")
-    samples = _decode_samples(path, zlib.decompress(b"".join(idat)), width, height, depth,
-                              _SAMPLES[color], interlace)
-    return _to_mode(path, samples, depth, color, mode, plte, trns)
+        kind, n = head
+        pos += 12
+        body = data[pos:pos + n]
+        if len(body) < n:
+            raise ValueError(f"{path}: PNG chunk {kind!r} runs past the end of the file (PIL: Truncated File Read)")
+        if kind == b"fdAT":
+            fault = "APNG contains truncated fDAT chunk" if n < 4 else (
+                None if png.seq is not None and _u32(body, 0) == png.seq + 1 else "APNG contains frame sequence errors")
+            png.seq = _u32(body, 0) if fault is None else png.seq
+        else:
+            fault = None if kind == b"IDAT" else png.fault(kind, body, before_data=False)
+        if fault:
+            raise ValueError(f"{path}: PNG chunk {kind!r} after the image data: {fault}")
+        pos += n
+    samples = _decode_samples(path, raw, width, height, depth, spp, passes)
+    return _to_mode(samples, depth, color, mode, png.palette, png.transparency)
 
 
-def _decode_samples(path, raw, width, height, depth, spp, interlace) -> np.ndarray:
+def _passes(width, height, interlace):
+    """(first column, first row, column step, row step, width, height) of
+    each non-empty pass: the whole image, or Adam7's seven."""
+    out = []
+    for x0, y0, dx, dy in ADAM7 if interlace else ((0, 0, 1, 1),):
+        pw, ph = -(-(width - x0) // dx), -(-(height - y0) // dy)
+        if pw > 0 and ph > 0:
+            out.append((x0, y0, dx, dy, pw, ph))
+    return out
+
+
+def _image_data(data: bytes, pos: int, n: int, need: int, path):
+    """The `need` inflated bytes of the run of IDAT chunks whose first
+    header is at `pos` (body length `n`), fed to zlib as PIL's load_read
+    hands them to its decoder, and the offset of the end of the chunk in
+    which the last byte came: PIL's reads stop there."""
+    inflate, out, got = zlib.decompressobj(), [], 0
+    while True:
+        start = pos + 8
+        for at in range(start, start + n, PIL_READ):
+            piece = data[at:min(at + PIL_READ, start + n)]
+            if not piece:
+                raise ValueError(f"{path}: PNG image data cut short (PIL: image file is truncated)")
+            try:
+                more = inflate.decompress(piece, need - got)
+            except zlib.error as err:
+                raise ValueError(f"{path}: broken PNG image data ({err}; PIL: broken data stream)") from None
+            out.append(more)
+            got += len(more)
+            if got == need:
+                return b"".join(out), start + n
+        pos = start + n + 4
+        head = _chunk_head(data, pos)
+        if head is None or head[0] not in (b"IDAT", b"DDAT"):
+            what = "an APNG frame chunk (fdAT) inside the image data" if head and head[0] == b"fdAT" else \
+                "PNG image data cut short (PIL: image file is truncated)"
+            raise ValueError(f"{path}: {what}")
+        n = head[1]
+
+
+def _decode_samples(path, raw, width, height, depth, spp, passes) -> np.ndarray:
     """(H, W, spp) integer samples of a PNG's inflated image data: each
-    pass (the whole image, or Adam7's seven) unfiltered on its own and its
-    samples unpacked (bit depths below 8 packed most significant first,
-    16 bits big-endian)."""
+    pass (`_passes`) unfiltered on its own and its samples unpacked (bit
+    depths below 8 packed most significant first, 16 bits big-endian)."""
     out = np.zeros((height, width, spp), np.uint16 if depth == 16 else np.uint8)
     bpp = max(1, spp * depth // 8)  # the filters' byte distance to the pixel on the left
     pos = 0
-    for x0, y0, dx, dy in ADAM7 if interlace else ((0, 0, 1, 1),):
-        pw, ph = -(-(width - x0) // dx), -(-(height - y0) // dy)
-        if pw <= 0 or ph <= 0:
-            continue
+    for x0, y0, dx, dy, pw, ph in passes:
         stride = -(-(pw * spp * depth) // 8)
         size = ph * (stride + 1)
-        if len(raw) < pos + size:
-            raise ValueError(f"{path}: PNG image data too short")
         rows = np.frombuffer(raw, np.uint8, size, pos).reshape(ph, stride + 1)
         pos += size
         filters = rows[:, 0]
@@ -296,34 +481,24 @@ def _decode_samples(path, raw, width, height, depth, spp, interlace) -> np.ndarr
     return out
 
 
-def _to_mode(path, samples, depth, color, mode, plte, trns) -> Picture:
-    """A PNG's samples in PIL's mode, as its unpacker gives them."""
-    palette = transparency = None
+def _to_mode(samples, depth, color, mode, plte, transparency) -> Picture:
+    """A PNG's samples in PIL's mode, as its unpacker gives them, with the
+    palette PIL took (`plte`: a PLTE read before the image data, or None)
+    and PIL's `info["transparency"]`."""
+    palette = None
     if mode == "1":
         pixels = samples != 0
-        if trns is not None:
-            transparency = 255 if _u16(trns, 0) else 0
     elif mode == "L":
         pixels = samples * (255 // ((1 << depth) - 1))  # L;2 and L;4 scale to 0..255
-        if trns is not None:
-            transparency = _u16(trns, 0)
-    elif mode == "I;16":
+    elif mode in ("I;16", "P"):
         pixels = samples
-        if trns is not None:
-            transparency = _u16(trns, 0)
-    elif mode == "P":
-        if plte is None:
-            raise ValueError(f"{path}: a palette PNG without a PLTE chunk")
-        pixels = samples
-        palette = np.frombuffer(plte[:len(plte) // 3 * 3], np.uint8).reshape(-1, 3)
-        if trns is not None:
-            transparency = trns.index(b"\x00") if _SIMPLE_PALETTE.match(trns) else bytes(trns)
+        if mode == "P":  # no PLTE: PIL's core palette, every entry black
+            plte = plte or b""
+            palette = np.frombuffer(plte[:len(plte) // 3 * 3], np.uint8).reshape(-1, 3)
     else:
         pixels = (samples >> 8).astype(np.uint8) if depth == 16 else samples
         if color == 4 and depth == 16:  # LA;16B: PIL reads it as RGBA
             pixels = np.concatenate([pixels[..., :1].repeat(3, axis=2), pixels[..., 1:]], axis=2)
-        if mode == "RGB" and trns is not None:
-            transparency = tuple(_u16(trns, 2 * i) for i in range(3))
     return Picture(pixels, mode, palette, transparency)
 
 
@@ -376,6 +551,7 @@ def to_rgba(picture: Picture) -> np.ndarray:
             table[:len(t), 3] = np.frombuffer(t[:256], np.uint8)
         return table[px[..., 0]]
     if mode == "RGB":
+        t = (t, t, t) if isinstance(t, int) else t  # a grey tRNS read after the image data: every channel's key
         rgb, key = px, None if t is None else np.array([v & 0xFF for v in t], np.uint8)
     elif mode in ("1", "L", "I;16", "I;16B", "I", "F"):
         if mode == "1":

@@ -337,12 +337,29 @@ def test_reader_refuses_what_it_cannot_read(tmp_path, case, match):
 
 
 def test_reader_checks_crc(tmp_path):
-    path = tmp_path / "bad.png"
-    data = bytearray(png_bytes(pixels(4, 4, 3, seed=2), [1] * 4))
+    """PIL checks the CRC of the chunks before the image data only: a bad
+    one there is refused, naming the CRC; a byte flipped in the IDAT body
+    (here its zlib checksum) is refused as PIL refuses it, by the data
+    stream, not the CRC; a bad IDAT CRC alone reads as PIL reads it."""
+    good = png_bytes(pixels(4, 4, 3, seed=2), [1] * 4)
+    data = bytearray(good)
     data[-20] ^= 0xFF  # inside the IDAT body
+    path = tmp_path / "bad.png"
     path.write_bytes(bytes(data))
+    with pytest.raises(Exception):
+        np.asarray(Image.open(path))
+    with pytest.raises(ValueError, match="broken PNG image data") as err:
+        image_io.read_png(path)
+    assert str(path) in str(err.value)
+    header = bytearray(good)
+    header[8 + 8 + 13] ^= 0xFF  # IHDR's CRC
+    path.write_bytes(bytes(header))
     with pytest.raises(ValueError, match="CRC"):
         image_io.read_png(path)
+    idat_crc = bytearray(good)
+    idat_crc[-13] ^= 0xFF  # the IDAT CRC's last byte
+    path.write_bytes(bytes(idat_crc))
+    np.testing.assert_array_equal(image_io.read_png(path), pil_pixels(path))
 
 
 def test_writer_round_trip_large(tmp_path):

@@ -188,6 +188,12 @@ def sgi_cases():
     return cases
 
 
+def bad_idat_crc(png: bytes) -> bytes:
+    """A PNG whose last IDAT chunk (the one before its 12-byte IEND) has
+    a bad CRC, which PIL does not check."""
+    return png[:-13] + bytes([png[-13] ^ 0xFF]) + png[-12:]
+
+
 def icon_cases():
     a, rgba = picture(50, 32, 32), rgba_picture(51, 32, 32)
     bgr = a[..., ::-1].reshape(32, -1)
@@ -208,6 +214,10 @@ def icon_cases():
         "ICO: a P PNG entry with tRNS": icon_bytes([(32, 32, 0, 8, p_png)]),
         "ICO: an L PNG entry": icon_bytes([(32, 32, 0, 8, png_bytes(a[..., :1]))]),
         "ICO: a 256x256 PNG entry": icon_bytes([(256, 256, 0, 32, png_bytes(rgba_picture(59, 256, 256)))]),
+        "ICO: a PNG entry with a bad IDAT CRC": icon_bytes([(32, 32, 0, 32, bad_idat_crc(png_bytes(rgba)))]),
+        "ICO: a P PNG entry with a bad IDAT CRC": icon_bytes([(32, 32, 0, 8, bad_idat_crc(p_png))]),
+        "ICO: a PNG entry with bad IDAT and IEND CRCs": icon_bytes([(32, 32, 0, 24, bad_idat_crc(
+            png_bytes(a))[:-1] + b"\0")]),
         "ICO: 32-bit BMP, alpha from its fourth bytes": icon_bytes([(32, 32, 0, 32, icon_dib(
             padded_rows(bgra), 32, 32, 32, and_mask=mask))]),
         "ICO: 24-bit BMP and its AND mask": icon_bytes([(32, 32, 0, 24, icon_dib(padded_rows(bgr), 32, 32, 24,
@@ -409,7 +419,7 @@ def test_the_readers_follow_pils_order():
     assert ported == [f for f in Image.ID if f in ported]
     heads = {"BMP": b"BM", "DIB": (40).to_bytes(4, "little"), "CUR": b"\0\0\2\0", "ICO": b"\0\0\1\0",
              "PCX": b"\x0a\x05", "DCX": (0x3ADE68B1).to_bytes(4, "little"), "PSD": b"8BPS", "QOI": b"qoif",
-             "SGI": b"\x01\xda"}
+             "SGI": b"\x01\xda", "DDS": b"DDS "}
     for name, accepts, _ in image_io.READERS:
         if name in heads:
             head = heads[name].ljust(18, b"\x01")

@@ -1,10 +1,10 @@
 """Writers of the BMP, TIFF, GIF, WebP, PPM, TGA, DIB, QOI, PCX / DCX, SGI,
-ICO / CUR and PSD forms PIL reads but does not write, for the tests of
+ICO / CUR, PSD and DDS forms PIL reads but does not write, for the tests of
 `utils/bmp.py`, `utils/tiff.py`, `utils/gif.py`, `utils/webp.py`,
 `utils/ppm.py`, `utils/tga.py`, `utils/qoi.py`, `utils/pcx.py`,
-`utils/sgi.py`, `utils/ico.py` and `utils/psd.py`, for the fixtures'
-`make_fixtures.py` scripts and for chip_smoke.py's phase 5h, which runs
-where there is no PIL.
+`utils/sgi.py`, `utils/ico.py`, `utils/psd.py` and `utils/dds.py`, for
+the fixtures' `make_fixtures.py` scripts and for chip_smoke.py's phases 5h
+and 5i, which run where there is no PIL.
 Imports neither JAX nor the port: each file is built from the formats'
 specifications, and PIL's read of it is the rule the port is held to.
 
@@ -61,6 +61,13 @@ specifications, and PIL's read of it is the rule the port is held to.
 - `psd_bytes` / `packbits_rows` / `psd_resource`: PSD's merged image, raw
   or PackBits, any colour mode, depth and channel count, colour mode data,
   resources and a layer section.
+- `dds_bytes` / `dds_masked`: a DDS header of any size field, pixel
+  format flags, FourCC, bit count, masks, mipmap count and DX10 header
+  (DXGI format, array size) before any body; uncompressed pixels packed
+  through any bit masks. `bc1_blocks`, `bc2_blocks`, `bc3_blocks`,
+  `bc4_blocks` (signed too), `bc5_blocks`, `bc6h_blocks` (mode 11, UF16
+  or SF16) and `bc7_blocks` (mode 6) encode 4x4 blocks, vectorised:
+  endpoints from each block's extremes, each pixel the nearest index.
 `rle_chunks` is the vectorised run finder the RLE writers share.
 """
 
@@ -1568,3 +1575,245 @@ def png_bytes(px: np.ndarray) -> bytes:
     head = struct.pack(">IIBBBBB", w, h, 8, {1: 0, 2: 4, 3: 2, 4: 6}[c], 0, 0, 0)
     return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", head) + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
             + chunk(b"IEND", b""))
+
+
+# ---- DDS ----
+
+DDPF_ALPHAPIXELS, DDPF_FOURCC, DDPF_PALETTEINDEXED8, DDPF_RGB, DDPF_LUMINANCE = 0x1, 0x4, 0x20, 0x40, 0x20000
+
+
+def dds_bytes(body: bytes, width: int, height: int, pf_flags: int, fourcc: bytes = b"\0\0\0\0", bitcount: int = 0,
+              masks=(0, 0, 0, 0), dxgi: int = None, mipmaps: int = 0, array_size: int = 1, header_size: int = 124,
+              caps: int = 0x1000) -> bytes:
+    """A DDS file: "DDS ", the 124-byte header (its size field
+    `header_size`), a DX10 header where `dxgi` is given (FourCC "DX10"),
+    then `body`."""
+    flags = 0x1 | 0x2 | 0x4 | 0x1000 | (0x20000 if mipmaps else 0)
+    head = (b"DDS " + struct.pack("<7I", header_size, flags, height, width, 0, 0, mipmaps) + bytes(44)
+            + struct.pack("<2I", 32, pf_flags) + (b"DX10" if dxgi is not None else fourcc)
+            + struct.pack("<5I", bitcount, *masks) + struct.pack("<5I", caps, 0, 0, 0, 0))
+    if dxgi is not None:
+        head += struct.pack("<5I", dxgi, 3, 0, array_size, 0)
+    return head + body
+
+
+def dds_masked(px: np.ndarray, bitcount: int, masks) -> bytes:
+    """(H, W, C) uint8 pixels packed `bitcount // 8` bytes a pixel, little
+    endian, channel i scaled to its mask's width and shifted into it."""
+    h, w, _ = px.shape
+    value = np.zeros((h, w), np.uint64)
+    for i, mask in enumerate(masks):
+        if mask:
+            shift = (mask & -mask).bit_length() - 1
+            total = mask >> shift
+            q = (px[..., i].astype(np.uint64) * np.uint64(total) + np.uint64(127)) // np.uint64(255)
+            value |= (q << np.uint64(shift)) & np.uint64(mask)
+    step = bitcount // 8
+    return value.astype("<u8").view(np.uint8).reshape(h, w, 8)[..., :step].tobytes()
+
+
+def texel_blocks(px: np.ndarray) -> np.ndarray:
+    """(blocks, 16, C) int64: the 4x4 blocks of (H, W, C) pixels in rows of
+    blocks, the last row and column repeated to a multiple of 4."""
+    h, w, c = px.shape
+    a = np.pad(px, ((0, -h % 4), (0, -w % 4), (0, 0)), mode="edge").astype(np.int64)
+    bh, bw = a.shape[0] // 4, a.shape[1] // 4
+    return a.reshape(bh, 4, bw, 4, c).transpose(0, 2, 1, 3, 4).reshape(bh * bw, 16, c)
+
+
+def untexel(blocks: np.ndarray, h: int, w: int) -> np.ndarray:
+    """(h, w, C) uint8 of (blocks, 16, C) values: `texel_blocks` undone,
+    cropped."""
+    bh, bw = -(-h // 4), -(-w // 4)
+    c = blocks.shape[-1]
+    a = blocks.reshape(bh, bw, 4, 4, c).transpose(0, 2, 1, 3, 4).reshape(4 * bh, 4 * bw, c)
+    return np.ascontiguousarray(a[:h, :w]).astype(np.uint8)
+
+
+def _nearest(values: np.ndarray, palette: np.ndarray) -> np.ndarray:
+    """(blocks, 16) the index of the palette entry (blocks, K, C) nearest
+    each value (blocks, 16, C), squared distance, the first of ties."""
+    small = max(int(np.abs(values).max(initial=0)), int(np.abs(palette).max(initial=0))) < 4096
+    v, p = (values.astype(np.int32), palette.astype(np.int32)) if small else (values, palette)
+    d = ((v[:, :, None, :] - p[:, None, :, :]) ** 2).sum(-1)
+    return d.argmin(-1)
+
+
+def _pick(palette: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    """(blocks, 16, C): each pixel's palette entry."""
+    return np.take_along_axis(palette, idx[..., None], 1)
+
+
+def _pack_indices(idx: np.ndarray, bits: int) -> np.ndarray:
+    """(blocks, 16 * bits // 8) uint8: per-pixel indices, pixel 0 in the
+    lowest bits."""
+    word = np.zeros(len(idx), np.uint64)
+    for i in range(16):
+        word |= idx[:, i].astype(np.uint64) << np.uint64(bits * i)
+    return word.astype("<u8").view(np.uint8).reshape(-1, 8)[:, :2 * bits]
+
+
+def _widen565(c: np.ndarray) -> np.ndarray:
+    r, g, b = (c >> 11) << 3, ((c >> 5) & 63) << 2, (c & 31) << 3
+    return np.stack([r | r >> 5, g | g >> 6, b | b >> 5], -1)
+
+
+def _bc1(t: np.ndarray, always_four: bool):
+    """BC1 colour blocks of texels `t` (blocks, 16, 3+) and the colours they
+    decode to (blocks, 16, 3)."""
+    hi, lo = t[..., :3].max(1), t[..., :3].min(1)
+    c0 = (hi[:, 0] >> 3) << 11 | (hi[:, 1] >> 2) << 5 | hi[:, 2] >> 3
+    c1 = (lo[:, 0] >> 3) << 11 | (lo[:, 1] >> 2) << 5 | lo[:, 2] >> 3
+    e0, e1 = _widen565(c0), _widen565(c1)
+    palette = np.stack([e0, e1, (2 * e0 + e1) // 3, (e0 + 2 * e1) // 3], 1)
+    idx = _nearest(t[..., :3], palette)
+    if not always_four:  # equal endpoints decode as three colours and transparent black: index 0 only
+        idx[c0 == c1] = 0
+    out = np.zeros((len(t), 8), np.uint8)
+    out[:, 0:2] = c0.astype("<u2").view(np.uint8).reshape(-1, 2)
+    out[:, 2:4] = c1.astype("<u2").view(np.uint8).reshape(-1, 2)
+    out[:, 4:8] = _pack_indices(idx, 2)[:, :4]
+    return out, _pick(palette, idx)
+
+
+def _bc4(t: np.ndarray, signed: bool):
+    """BC4 blocks of values `t` (blocks, 16) and the values they decode to
+    (blocks, 16, 1)."""
+    a0, a1 = t.max(1), t.min(1)
+    pal = np.stack([a0, a1] + [((7 - i) * a0 + i * a1) // 7 for i in range(1, 7)], 1)
+    idx = _nearest(t[..., None], pal[..., None])
+    idx[a0 == a1] = 0
+    out = np.zeros((len(t), 8), np.uint8)
+    shift = 128 if signed else 0
+    out[:, 0], out[:, 1] = (a0 - shift) & 255, (a1 - shift) & 255
+    out[:, 2:8] = _pack_indices(idx, 3)[:, :6]
+    return out, _pick(pal[..., None], idx)
+
+
+def _result(blocks, decoded, px, decoded_px):
+    return (blocks, untexel(decoded_px, *px.shape[:2])) if decoded else blocks
+
+
+def bc1_blocks(px: np.ndarray, decoded: bool = False):
+    """(blocks, 8) uint8 BC1 blocks of (H, W, 3+) pixels: the block's
+    per-channel maximum and minimum as 5:6:5 endpoints (the first above
+    the second, or equal with every index 0), each pixel the nearest of the
+    four colours. With `decoded`, also the (H, W, 4) pixels they decode to."""
+    t = texel_blocks(px)
+    blocks, rgb = _bc1(t, False)
+    return _result(blocks, decoded, px, np.concatenate([rgb, np.full_like(rgb[..., :1], 255)], -1))
+
+
+def bc4_blocks(values: np.ndarray, signed: bool = False, decoded: bool = False):
+    """(blocks, 8) uint8 BC4 blocks of (H, W) or (H, W, 1) uint8 values:
+    the block's maximum and minimum as endpoints (eight interpolated
+    values; where they are equal every index 0), each pixel the nearest.
+    `signed` (BC5S) writes each endpoint as int8, value - 128. With
+    `decoded`, also the (H, W, 1) values they decode to."""
+    v = values.reshape(values.shape[0], values.shape[1], 1)
+    blocks, out = _bc4(texel_blocks(v)[..., 0], signed)
+    return _result(blocks, decoded, v, out)
+
+
+def bc2_blocks(px: np.ndarray, decoded: bool = False):
+    """(blocks, 16) uint8 BC2 (DXT3): 4-bit alpha (the top bits), then a
+    BC1 colour block (decoded as four colours) of (H, W, 4) pixels."""
+    t = texel_blocks(px)
+    a = t[..., 3] >> 4
+    colour, rgb = _bc1(t, True)
+    blocks = np.concatenate([(a[:, 0::2] | a[:, 1::2] << 4).astype(np.uint8), colour], 1)
+    return _result(blocks, decoded, px, np.concatenate([rgb, a[..., None] * 17], -1))
+
+
+def bc3_blocks(px: np.ndarray, decoded: bool = False):
+    """(blocks, 16) uint8 BC3 (DXT5): a BC4 alpha block, then a BC1 colour
+    block (decoded as four colours) of (H, W, 4) pixels."""
+    t = texel_blocks(px)
+    alpha, a = _bc4(t[..., 3], False)
+    colour, rgb = _bc1(t, True)
+    return _result(np.concatenate([alpha, colour], 1), decoded, px, np.concatenate([rgb, a], -1))
+
+
+def bc5_blocks(px: np.ndarray, signed: bool = False, decoded: bool = False):
+    """(blocks, 16) uint8 BC5: BC4 blocks of red and green (blue decodes
+    as 0, or 128 where `signed`)."""
+    t = texel_blocks(px)
+    (r, dr), (g, dg) = _bc4(t[..., 0], signed), _bc4(t[..., 1], signed)
+    return _result(np.concatenate([r, g], 1), decoded, px,
+                   np.concatenate([dr, dg, np.full_like(dr, 128 if signed else 0)], -1))
+
+
+def _bits_to_bytes(fields) -> np.ndarray:
+    """(blocks, 16) uint8 from (values (blocks,) or (blocks, k), bits) in
+    the block's order, least significant bit first."""
+    cols = []
+    for values, bits in fields:
+        v = np.asarray(values, np.int64)
+        v = v[:, None] if v.ndim == 1 else v
+        for j in range(v.shape[1]):
+            cols.append((v[:, j, None] >> np.arange(bits)) & 1)
+    bitmap = np.concatenate(cols, 1).astype(np.uint8)
+    assert bitmap.shape[1] == 128, bitmap.shape
+    return np.packbits(bitmap, axis=1, bitorder="little")
+
+
+def _index_fields(idx: np.ndarray, bits: int):
+    """Pixel 0's index, one bit short (its top bit 0), then the others."""
+    return [(idx[:, 0], bits - 1)] + [(idx[:, 1:], bits)]
+
+
+WEIGHTS4 = np.array([0, 4, 9, 13, 17, 21, 26, 30, 34, 38, 43, 47, 51, 55, 60, 64])
+
+
+def bc6h_blocks(half_bits: np.ndarray, signed: bool = False, decoded: bool = False):
+    """(blocks, 16) uint8 BC6H mode 11 (one region, 10-bit endpoints,
+    4-bit indices) of (H, W, 3) non-negative half floats (their uint16
+    bits): each value's 10-bit code (the half's bits / 31 for UF16, / 62
+    for SF16, where the decoder multiplies back), the block's minimum and
+    maximum code as endpoints, each pixel the nearest of the 16 weights in
+    unquantised space, swapped so that pixel 0's index fits its 3 bits.
+    With `decoded`, also the (H, W, 3) uint8 they decode to: the weighted
+    sum, (v * 31) / 64 (UF16) or / 32 (SF16) as a half, clamped to [0, 1]
+    and truncated to 8 bits."""
+    top = 510 if signed else 1022
+    q = np.clip(np.rint(half_bits.astype(np.float64) / (62 if signed else 31)), 0, top).astype(np.int64)
+    t = texel_blocks(q)
+    e0, e1 = t.min(1), t.max(1)
+
+    def unq(v):
+        return np.where(v == 0, 0, ((v << 15) + 0x4000) >> 9)
+
+    w0, w1 = (64 - WEIGHTS4)[None, :, None], WEIGHTS4[None, :, None]
+    pal = (unq(e0)[:, None, :] * w0 + unq(e1)[:, None, :] * w1) >> 6
+    idx = _nearest(unq(t), pal)
+    swap = idx[:, 0] >= 8
+    e0[swap], e1[swap] = e1[swap].copy(), e0[swap].copy()
+    idx[swap] = 15 - idx[swap]
+    fields = [(np.full(len(t), 0b00011), 5)] + [(e[:, c], 10) for e in (e0, e1) for c in range(3)]
+    blocks = _bits_to_bytes(fields + _index_fields(idx, 4))
+    v = _pick(pal, np.where(swap[:, None], 15 - idx, idx))
+    half = ((v * 31) >> (5 if signed else 6)).astype(np.uint16).view(np.float16).astype(np.float32)
+    out = np.where(half > 1, 255, (np.clip(half, 0, 1) * np.float32(255)).astype(np.int64))
+    return _result(blocks, decoded, half_bits, out)
+
+
+def bc7_blocks(px: np.ndarray, decoded: bool = False):
+    """(blocks, 16) uint8 BC7 mode 6 (RGBA 7-bit endpoints with a p-bit
+    each, 4-bit indices) of (H, W, 4) pixels: the block's per-channel
+    minimum and maximum as endpoints, their p-bits the low bits of the
+    block's minimum and maximum alpha, each pixel the nearest of the 16
+    weights, swapped so that pixel 0's index fits its 3 bits. With
+    `decoded`, also the (H, W, 4) pixels they decode to."""
+    t = texel_blocks(px)
+    p0, p1 = t[..., 3].min(1) & 1, t[..., 3].max(1) & 1  # alpha's low bits: a constant alpha kept exactly
+    lo, hi = t.min(1) >> 1, t.max(1) >> 1
+    d0, d1 = lo << 1 | p0[:, None], hi << 1 | p1[:, None]
+    pal = ((64 - WEIGHTS4)[None, :, None] * d0[:, None, :] + WEIGHTS4[None, :, None] * d1[:, None, :] + 32) >> 6
+    idx = _nearest(t, pal)
+    decoded_px = _pick(pal, idx)
+    swap = idx[:, 0] >= 8
+    lo[swap], hi[swap] = hi[swap].copy(), lo[swap].copy()
+    p0[swap], p1[swap] = p1[swap].copy(), p0[swap].copy()
+    idx[swap] = 15 - idx[swap]
+    fields = [(np.full(len(t), 1 << 6), 7)] + [(e[:, c], 7) for c in range(4) for e in (lo, hi)]
+    return _result(_bits_to_bytes(fields + [(p0, 1), (p1, 1)] + _index_fields(idx, 4)), decoded, px, decoded_px)
