@@ -382,6 +382,22 @@ Phases (any failure exits non-zero; none is caught and passed over):
      the views are renders made here, so no PIL hash of them can be
      committed), the others as their renders; `cli.train` -r 1 for 30
      iterations as in 5h, its checks and prints.
+  5j. AVIF, after 5i: (a) the seven committed 1080p files of
+     tests/fixtures/torch_avif (PIL 12.1.0 wrote them: 4:2:0 q75 at its
+     default speed, 4:4:4 q90, 4:0:0, RGBA, limited range, 2x2 tiles,
+     4:2:0 q50 at speed 10). Each must be the file PIL read (its SHA-256)
+     and `image_io.open_image` must give PIL's mode, shape and pixels'
+     SHA-256 (sha256.json, written by its make_fixtures.py). Prints the
+     port's median of 5 decodes (host clock) beside this machine's PIL's
+     median of 3 with its libavif and codec versions, or "no AVIF in this
+     PIL", and one decode split into the container, the AV1 symbols with
+     reconstruction, the deblocking and YUV -> RGB. (b) A COLMAP dataset
+     of 7 views of trained_r5 on phase 5c's orbit at 1920x1080: where this
+     machine's PIL writes AVIF, the renders encoded by it with the seven
+     views' options (RGBA with alpha 255; CDEF and loop restoration off,
+     `AVIF_ADVANCED`), each held to that PIL's decode; else the seven
+     fixtures, held to their committed hashes; the phase prints which.
+     `cli.train` -r 1 for 30 iterations as in 5h, its checks and prints.
   5d. sharded path (`parallel/sharding.py`), on the one card:
      - the kernels at a row origin: trained_r5 at 1920x1080 with 32x32
        tiles cut into 2 and into 4 strips of tile rows; each strip's
@@ -448,6 +464,7 @@ Phases (any failure exits non-zero; none is caught and passed over):
      train and render CLIs together), user_train (5g's runs A, its viewer
      frames included, and B), user_render (5g's two render CLIs),
      forms_train (5h's train CLI), dds_train (5i's train CLI),
+     avif_train (5j's train CLI),
      sharded_2rank and sharded_trainer (both ranks' sums), sharded_nccl1,
      bench (the five in-process runs of 5f) for the compositing kernels
      and the routing,
@@ -528,7 +545,7 @@ from gaussian_splatting_torch.tools.consumers import (
     consume_t_occupancy, consume_t_torch,
 )
 from gaussian_splatting_torch.scene import colmap
-from gaussian_splatting_torch.utils import cuda_build, image_io, jpeg
+from gaussian_splatting_torch.utils import avif, cuda_build, image_io, jpeg
 from gaussian_splatting_torch.trainer import _state_to_host
 from gaussian_splatting_torch.viewer import network_gui
 from gaussian_splatting_torch.utils.roofline import (
@@ -4070,6 +4087,171 @@ def _dds_phase(dev, tmp):
     return launches, errs
 
 
+# ---- phase 5j: AVIF -----------------------------------------------------------
+
+# PIL 12.1.0's reading of each committed AVIF fixture (its mode, shape,
+# pixels' SHA-256) and the file's own SHA-256, as
+# tests/fixtures/torch_avif/make_fixtures.py wrote them
+AVIF_FIXTURES = os.path.join(FIXTURES, "torch_avif")
+AVIF_STEPS = 30
+# the seven views: PIL's save options where this machine's PIL writes AVIF
+# (the renders, RGBA with alpha 255), else the committed 1080p fixture.
+# The card's PIL 12.2.0 (libavif 1.4.1, aom 3.13.2) turns CDEF on at its
+# default speed, which this port does not decode yet: it is asked for
+# neither CDEF nor loop restoration (AVIF_ADVANCED).
+AVIF_VIEWS = (("4:2:0 q75", {"quality": 75}, "1080p_420_q75.avif"),
+              ("4:4:4 q90", {"quality": 90, "subsampling": "4:4:4"}, "1080p_444_q90.avif"),
+              ("4:0:0 q75", {"quality": 75, "subsampling": "4:0:0"}, "1080p_400_q75.avif"),
+              ("RGBA q75", {"quality": 75}, "1080p_rgba_q75.avif"),
+              ("limited range q75", {"quality": 75, "range": "limited"}, "1080p_limited_q75.avif"),
+              ("2x2 tiles q75", {"quality": 75, "tile_rows": 1, "tile_cols": 1}, "1080p_tiles_2x2_q75.avif"),
+              ("4:2:0 q50 speed 10", {"quality": 50, "speed": 10}, "1080p_420_q50_s10.avif"))
+AVIF_ADVANCED = {"enable-cdef": "0", "enable-restoration": "0"}
+
+
+def avif_pil():
+    """This machine's PIL with AVIF support (its Image module), or None."""
+    if importlib.util.find_spec("PIL") is None:
+        return None
+    from PIL import Image, features
+
+    return Image if features.check("avif") else None
+
+
+def avif_versions() -> str:
+    """PIL's version, its libavif's and its codecs', or why there are none."""
+    if importlib.util.find_spec("PIL") is None:
+        return "PIL: not on this machine"
+    if avif_pil() is None:
+        return f"PIL {importlib.metadata.version('pillow')}: no AVIF in this PIL"
+    from PIL import _avif, features
+
+    return (f"PIL {importlib.metadata.version('pillow')}, libavif {features.version('avif')}, "
+            f"{_avif.codec_versions()}")
+
+
+def check_avif_fixtures():
+    """Phase 5j (a): each committed 1080p AVIF fixture is the file PIL read
+    (its SHA-256) and `image_io.open_image` gives PIL 12.1.0's mode, shape
+    and pixels' SHA-256 (tests/fixtures/torch_avif/sha256.json). Returns
+    {name: (the port's median ms of 5 decodes, PIL's median of 3 here or
+    why not)} and the split of one decode of the first."""
+    with open(os.path.join(AVIF_FIXTURES, "sha256.json")) as f:
+        readings = json.load(f)["files"]
+    names = sorted(n for n in readings if n.startswith("1080p"))
+    if sorted(view[2] for view in AVIF_VIEWS) != names:
+        fail(f"AVIF: the views name {sorted(v[2] for v in AVIF_VIEWS)}, the fixtures are {names}")
+    times, split = {}, {}
+    for name in names:
+        want, path = readings[name], os.path.join(AVIF_FIXTURES, name)
+        with open(path, "rb") as f:
+            data = f.read()
+        if hashlib.sha256(data).hexdigest() != want["file_sha256"]:
+            fail(f"AVIF: {name} is not the file PIL read (tests/fixtures/torch_avif/sha256.json)")
+        ms = []
+        for _ in range(5):
+            pic, t = synced_ms(image_io.open_image, path)
+            ms.append(t)
+        digest = sha256_of(pic.pixels)
+        if (pic.mode, list(pic.pixels.shape), digest) != (want["mode"], want["shape"], want["sha256"]):
+            fail(f"AVIF: {name} reads as {pic.mode} {pic.pixels.shape} with SHA-256 {digest}, not PIL's "
+                 f"{want['mode']} {want['shape']} {want['sha256']}")
+        times[name] = (float(np.median(ms)), pil_decode_ms(path, 3) if avif_pil() else "no AVIF in this PIL")
+        if not split:
+            avif.decode_avif(data, name, split=split)
+    return times, names[0], split
+
+
+def avif_phase(dev):
+    """Phase 5j (module docstring). Returns the compositing kernels'
+    launches in the train CLI run and the max abs errors of the forward,
+    the backward and the routing against their plain versions at its final
+    state."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_avif_")
+    try:
+        return _avif_phase(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _avif_phase(dev, tmp):
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) The committed 1080p files, held to PIL 12.1.0's committed readings.
+    times, first, split = check_avif_fixtures()
+    print(f"AVIF: {len(times)} committed 1080p files of tests/fixtures/torch_avif read with PIL 12.1.0's mode, "
+          f"shape and pixels (sha256.json); decode ms, median of 5 (host clock), beside PIL's median of 3 on this "
+          f"machine ({avif_versions()}):")
+    for name, (ms, pil_ms) in times.items():
+        print(f"  {name}: {ms:.2f} ms (PIL {pil_ms})")
+    print(f"  one decode of {first}, host clock: " +
+          ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in split.items()))
+
+    # (b) A COLMAP dataset of trained_r5 with seven 1080p AVIF views.
+    t0 = time.perf_counter()
+    data, model_dir = os.path.join(tmp, "data"), os.path.join(tmp, "model")
+    model = load_gaussians_ply(TRAINED_PLY)
+    cams, images = orbit_dataset(len(AVIF_VIEWS), W_MAIN, H_MAIN)
+    write_colmap_scene(data, cams, images, model["xyz"], dc_colors(model))
+    pil = avif_pil()
+    with open(os.path.join(AVIF_FIXTURES, "sha256.json")) as f:
+        readings = json.load(f)["files"]
+    files, fixture_of = {}, {}
+    for cam, px, (label, options, fixture) in zip(cams, images, AVIF_VIEWS):
+        path = os.path.join(data, "images", cam.image_name + ".avif")
+        os.remove(os.path.join(data, "images", f"{cam.image_name}.png"))
+        if pil is not None:
+            rgb = np.ascontiguousarray(px[..., :3])
+            pil.fromarray(opaque(rgb) if label.startswith("RGBA") else rgb).save(path, "AVIF", **options,
+                                                                                 advanced=AVIF_ADVANCED)
+        else:
+            shutil.copyfile(os.path.join(AVIF_FIXTURES, fixture), path)
+        files[cam.image_name], fixture_of[cam.image_name] = os.path.basename(path), fixture
+    rename_views(data, files)
+    build_s = time.perf_counter() - t0
+    info = read_colmap_scene(data, None, eval_split=False)
+    for c in info.train_cameras:
+        pic = image_io.open_image(c.image_path)
+        if pil is not None:
+            with pil.open(c.image_path) as im:
+                want = (im.mode, list(np.asarray(im).shape), sha256_of(np.asarray(im)))
+        else:
+            r = readings[fixture_of[c.image_name]]
+            want = (r["mode"], r["shape"], r["sha256"])
+        if (pic.mode, list(pic.pixels.shape), sha256_of(pic.pixels)) != want:
+            fail(f"AVIF: view {files[c.image_name]} does not read as "
+                 f"{'this machine' if pil is not None else 'PIL 12.1.0'}'s PIL reads it")
+    source = (f"the renders encoded by this machine's PIL ({avif_versions()}; advanced={AVIF_ADVANCED}) and "
+              "held to its decode"
+              if pil is not None else "the committed 1080p fixtures (this machine's PIL has no AVIF), held to "
+              "PIL 12.1.0's committed hashes")
+    reset_launches()
+    scene, tr, train_s, load_s, _ = run_train_cli(["-s", data, "-m", model_dir, "-r", "1", "--iterations",
+                                                   str(AVIF_STEPS), "--disable_viewer", "--quiet"])
+    launches = {k: LAUNCH_COUNTERS[k].launches for k in TRAIN_KERNELS}
+    views = scene.get_train_cameras()
+    if tr.iteration != AVIF_STEPS or len(views) != len(AVIF_VIEWS) or \
+            sorted({(c.width, c.height) for c in views}) != [(W_MAIN, H_MAIN)]:
+        fail(f"AVIF: the train CLI ran {tr.iteration} steps on {len(views)} views")
+    losses_ = [h["loss"] for h in tr.history]
+    if not all(math.isfinite(x) for x in losses_):
+        fail(f"AVIF: the loss is not finite: {losses_}")
+    if launches != {k: AVIF_STEPS for k in TRAIN_KERNELS}:
+        fail(f"AVIF: train CLI launches {launches}, not one of each a step")
+    step_ms = [h["iter_time_ms"] for h in tr.history]
+    errs = check_trainer_state("AVIF train CLI final state", tr, views[0], 61)
+    print(f"  train CLI on a COLMAP dataset of {len(AVIF_VIEWS)} AVIF views of trained_r5 at {W_MAIN}x{H_MAIN} "
+          f"({', '.join(v[0] for v in AVIF_VIEWS)}): {source} (made in {build_s:.1f} s); -r 1, {AVIF_STEPS} "
+          f"iterations in {train_s:.2f} s (scene load {load_s:.2f} s), step median {np.median(step_ms):.3f} ms; "
+          f"loss {losses_[0]:.6f} -> {losses_[-1]:.6f}; launches {launches}")
+    print(f"  phase peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
+          f"wall {time.perf_counter() - t_phase:.1f} s")
+    del scene, tr
+    return launches, errs
+
+
 # ---- phase 5d: the sharded path -------------------------------------------
 
 SHARD_STRIPS = (2, 4)  # strips of the in-process kernel check at an origin
@@ -4912,6 +5094,12 @@ def main():
         max_err[k] = max(max_err[k], e)
     phase_done("5i DDS")
 
+    # ---- 5j. AVIF -------------------------------------------------------
+    avif_train_launches, avif_errs = avif_phase(dev)
+    for k, e in zip(TRAIN_KERNELS, avif_errs):
+        max_err[k] = max(max_err[k], e)
+    phase_done("5j AVIF")
+
     # ---- 5d. sharded path ---------------------------------------------
     sharded_launches, strip_errs = sharded_phase(dev, gt, center, dist, train_capacity,
                                                  single_ref, step_ms)
@@ -4994,7 +5182,7 @@ def main():
                     "cli_train": cli_train_launches[name], "cli_render": cli_render_launches[name],
                     "cli_blender": blender_launches[name], "user_train": user_train_launches[name],
                     "user_render": user_render_launches[name], "forms_train": forms_train_launches[name],
-                    "dds_train": dds_train_launches[name],
+                    "dds_train": dds_train_launches[name], "avif_train": avif_train_launches[name],
                     **{path: counts[name] for path, counts in sharded_launches.items()},
                     "bench": bench_launches[name]}
         return {"profiler": prof_launches[name]}

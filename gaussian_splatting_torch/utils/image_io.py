@@ -10,7 +10,9 @@ its own:
   `utils/gif.py` (frame 0), a JPEG to the compiled JPEG decoder
   (`utils/jpeg.py`, PIL's bits: grey, RGB, and CMYK from CMYK and YCCK
   files), a PPM / PGM / PBM / PFM (PIL's magics: P1 to P6, Pf and its
-  extensions) to `utils/ppm.py`, a PNG to `open_png`, a CUR and an ICO to
+  extensions) to `utils/ppm.py`, a PNG to `open_png`, an AVIF to
+  `utils/avif.py` (the HEIF container; the AV1 intra frame, its deblocking
+  and libavif's YUV -> RGB by `csrc/av1_decode.cc`), a CUR and an ICO to
   `utils/ico.py`, a PCX and a DCX to `utils/pcx.py`, a DDS to
   `utils/dds.py` (uncompressed, luminance, palette and BC1-BC7 surfaces,
   the blocks by `csrc/bcn_decode.cc`), a JPEG 2000 file (a
@@ -58,7 +60,8 @@ from typing import Any, NamedTuple, Optional
 
 import numpy as np
 
-from gaussian_splatting_torch.utils import bmp, dds, gif, ico, jp2, jpeg, lab, pcx, ppm, psd, qoi, sgi, tga, tiff, webp
+from gaussian_splatting_torch.utils import (avif, bmp, dds, gif, ico, jp2, jpeg, lab, pcx, ppm, psd, qoi, sgi, tga,
+                                            tiff, webp)
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # 8-bit channels -> PNG colour type (0 grey, 4 grey + alpha, 2 RGB, 6 RGBA),
@@ -122,7 +125,7 @@ BMP_SIGNATURE = b"BM"
 
 
 FORMATS = ("PNG, JPEG, BMP, DIB, TIFF, WebP, GIF, PPM / PGM / PBM / PFM, TGA, JPEG 2000, QOI, PCX / DCX, SGI, "
-           "ICO / CUR, PSD or DDS")
+           "ICO / CUR, PSD, DDS or AVIF")
 
 
 class NotThisFormat(ValueError):
@@ -147,7 +150,8 @@ def _of_bytes(decode):
 
 
 # The readers in PIL's `Image.ID` order (the formats `Image.preinit` loads,
-# then `Image.init`'s), each with PIL's test of the file's first bytes.
+# then `Image.init`'s, AVIF first of those), each with PIL's test of the
+# file's first bytes.
 # TGA has no signature: PIL tries it after every format before it, so a
 # TGA whose first bytes a CUR, PCX, DIB or ICO reader takes reads as
 # PIL reads it, through that reader first.
@@ -158,6 +162,7 @@ READERS = (
     ("JPEG", lambda head: head.startswith(JPEG_SIGNATURE), _open_jpeg),
     ("PPM", lambda head: ppm.accepts(head) or ppm.refused_magic(head), ppm.open_ppm),
     ("PNG", lambda head: head.startswith(PNG_SIGNATURE), lambda path: open_png(path)),
+    ("AVIF", avif.accepts, _of_bytes(avif.decode_avif)),  # the first of Image.init's formats
     ("CUR", lambda head: head.startswith(ico.CUR_SIGNATURE), _of_bytes(ico.decode_cur)),
     ("PCX", pcx.accepts, _of_bytes(pcx.decode_pcx)),
     ("DCX", pcx.dcx_accepts, _of_bytes(pcx.decode_dcx)),
@@ -175,8 +180,8 @@ READERS = (
 
 def open_image(path) -> Picture:
     """The `Picture` of a PNG, JPEG, BMP, DIB, TIFF, WebP, GIF, PPM / PGM /
-    PBM / PFM, TGA, JPEG 2000, QOI, PCX / DCX, SGI, ICO / CUR, PSD or DDS file,
-    PIL's pixels and mode. The readers are tried in PIL's order (`READERS`)
+    PBM / PFM, TGA, JPEG 2000, QOI, PCX / DCX, SGI, ICO / CUR, PSD, DDS or
+    AVIF file, PIL's pixels and mode. The readers are tried in PIL's order (`READERS`)
     on the file's first bytes; one that gives up as PIL's plugin gives up
     (`NotThisFormat`) passes the file to the next, any other refusal
     raises. JPEG (mode "L", "RGB" or "CMYK", and the strips and tiles of a
@@ -186,7 +191,9 @@ def open_image(path) -> Picture:
     by its own, and BMP's RLE, TIFF's LZW (both styles), PackBits and
     ThunderScan, GIF's LZW, TGA's RLE, QOI's ops, PCX's and SGI's RLE and
     PSD's PackBits by the compiled codecs, DDS's BC1-BC7 blocks by the
-    compiled block decoder, each built at first use; if one
+    compiled block decoder, AVIF ("RGB" or "RGBA"; `utils/avif.py`) by the
+    compiled AV1 intra decoder and libavif's YUV -> RGB, each built at
+    first use; if one
     cannot be built this raises. TIFF: every form PIL reads
     (`utils/tiff.py`), in its modes "1", "L", "I;16", "I;16B", "I", "F",
     "LA", "P", "PA", "RGB", "RGBA", "CMYK", "LAB". QOI "RGB" / "RGBA"; PCX

@@ -1,0 +1,496 @@
+"""The port's AVIF reader (`utils/avif.py`, `csrc/av1_decode.cc`) against PIL
+12.1.0 (libavif 1.3.0, dav1d 1.5.1), and both dataset paths on AVIF views
+against the JAX package.
+
+Every file is written here by the installed PIL (12.1.0: aom 3.12.1) from seeded
+numpy pictures, or is a committed fixture of `tests/fixtures/torch_avif`;
+PIL's reading of it is the rule: `image_io.open_image` gives PIL's mode and
+pixels bit for bit. The tools this port does not decode yet are refused by
+name: each refusal is made by PIL's writer where aom can be asked for the
+tool, else (superres, 10-bit) by an edit of a PIL-written file's header
+bits, stated beside the case.
+"""
+
+import hashlib
+import io
+import json
+import os
+import shutil
+import struct
+
+import numpy as np
+import pytest
+from PIL import Image, features
+
+from gaussian_splatting_tpu.scene import dataset_readers as jreaders
+from gaussian_splatting_torch.scene import dataset_readers
+from gaussian_splatting_torch.utils import avif, cuda_build, image_io
+from test_torch_image_forms import cxx, write_colmap_dataset_of  # noqa: F401  (cxx: a fixture)
+from test_torch_jpeg import fake_cxx  # noqa: F401  (a fixture)
+from test_torch_scene import assert_same_cameras, orbit_frames
+
+# PIL writes every file of these tests but the committed fixtures, which are
+# held to sha256.json where PIL has no AVIF
+requires_avif = pytest.mark.skipif(not features.check("avif"), reason="this PIL has no AVIF support")
+
+FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures", "torch_avif")
+SIZES = [(1, 1), (7, 5), (65, 33), (130, 67), (256, 200)]  # (width, height)
+
+
+def picture(h, w, seed, kind="scene", channels=3):
+    """Seeded pictures that reach aom's intra tools: "noise"; "gradient";
+    "edges" (stripes at three angles: the directional modes and CfL);
+    "scene" (smooth shading, edges, a flat patch, a little noise)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    if kind == "noise":
+        return rng.integers(0, 256, (h, w, channels), np.uint8)
+    if kind == "gradient":
+        a = np.stack([xx * 255 / max(w - 1, 1), yy * 255 / max(h - 1, 1), (xx + yy) * 127 / max(w + h - 2, 1),
+                      255 - xx * 200 / max(w - 1, 1)][:channels], -1)
+        return a.astype(np.uint8)
+    out = []
+    for c in range(channels):
+        ang = 0.3 + 0.8 * c + rng.uniform(0, 0.2)
+        stripes = ((np.cos(ang) * xx + np.sin(ang) * yy) / (3 + 2 * c) % 2 < 1)
+        if kind == "edges":
+            out.append(np.where(stripes, 40 + 50 * c, 210 - 40 * c))
+        else:
+            out.append(120 + 70 * np.sin(xx / (9 + 3 * c) + yy / (13 + c)) + 30 * stripes)
+    a = np.stack(out, -1).astype(np.float64)
+    if kind == "scene":
+        a += rng.normal(0, 4, a.shape)
+        a[h // 3:h // 2, w // 5:w // 3] = 90
+    return np.clip(a, 0, 255).astype(np.uint8)
+
+
+def with_alpha(px, seed):
+    h, w = px.shape[:2]
+    yy, xx = np.mgrid[0:h, 0:w]
+    a = 255 * np.abs(np.sin(xx / (w / 3 + 1) + yy / (h / 2 + 1) + seed))
+    a[: h // 4] = 255
+    a[h - h // 4:, : w // 4] = 0
+    return np.concatenate([px, a.astype(np.uint8)[..., None]], -1)
+
+
+def pil_avif(px, **options) -> bytes:
+    buf = io.BytesIO()
+    Image.fromarray(px).save(buf, "AVIF", **options)
+    return buf.getvalue()
+
+
+def assert_reads_as_pil(tmp_path, data: bytes, label=""):
+    """open_image of `data` as a file: PIL's mode, shape and pixels."""
+    path = tmp_path / "view.avif"
+    path.write_bytes(data)
+    im = Image.open(path)
+    want = np.asarray(im)
+    got = image_io.open_image(path)
+    assert got.mode == im.mode, (label, got.mode, im.mode)
+    assert got.pixels.shape == want.shape and got.pixels.dtype == want.dtype, (label, got.pixels.shape, want.shape)
+    np.testing.assert_array_equal(got.pixels, want, err_msg=label)
+    return got
+
+
+def assert_refused(tmp_path, data: bytes, match: str):
+    path = tmp_path / "refused.avif"
+    path.write_bytes(data)
+    with pytest.raises(ValueError, match=match) as err:
+        image_io.open_image(path)
+    assert str(path) in str(err.value)
+
+
+# ---- the matrix: quality x speed x subsampling, every size and picture kind ----
+
+KINDS = ("noise", "gradient", "edges", "scene")
+
+
+@requires_avif
+@pytest.mark.parametrize("subsampling", ["4:2:0", "4:2:2", "4:4:4", "4:0:0"])
+@pytest.mark.parametrize("speed", [5, 6, 10])
+@pytest.mark.parametrize("quality", [0, 30, 50, 75, 90, 100])
+def test_pil_written_files_read_bit_equal(tmp_path, cxx, quality, speed, subsampling):
+    """Each PIL-written file reads as PIL reads it: two of the sizes (the
+    largest at speed 5 only at quality 50, where aom is slowest), each
+    with its own picture kind."""
+    k = (quality // 10 + speed + len(subsampling)) % len(SIZES)
+    for i, (w, h) in enumerate((SIZES[k], SIZES[(k + 2) % len(SIZES)])):
+        if (w, h) == SIZES[-1] and speed == 5 and quality != 50:
+            w, h = SIZES[2]
+        kind = KINDS[(k + i + quality) % len(KINDS)]
+        data = pil_avif(picture(h, w, quality + speed + i, kind), quality=quality, speed=speed,
+                        subsampling=subsampling)
+        assert_reads_as_pil(tmp_path, data, f"{w}x{h} {kind}")
+
+
+@requires_avif
+@pytest.mark.parametrize("subsampling", ["4:2:0", "4:2:2", "4:4:4", "4:0:0"])
+@pytest.mark.parametrize("range_", ["full", "limited"])
+def test_both_ranges_read_bit_equal(tmp_path, cxx, range_, subsampling):
+    """libyuv's limited-range constants (4:2:0, 4:2:2, 4:4:4) and libavif's
+    float path for 4:0:0 at both ranges."""
+    for i, (w, h) in enumerate(SIZES[1:4]):
+        data = pil_avif(picture(h, w, 40 + i, KINDS[i + 1]), quality=55, range=range_, subsampling=subsampling)
+        assert_reads_as_pil(tmp_path, data, f"{w}x{h}")
+
+
+@requires_avif
+@pytest.mark.parametrize("subsampling", ["4:2:0", "4:4:4", "4:0:0"])
+@pytest.mark.parametrize("premultiplied", [False, True])
+def test_rgba_reads_bit_equal(tmp_path, cxx, premultiplied, subsampling):
+    """An alpha item (its own 4:0:0 AV1 stream, `auxl`) gives PIL's "RGBA";
+    a `prem` reference un-premultiplies as libavif does (libyuv's
+    ARGBUnattenuate)."""
+    for i, (w, h) in enumerate(SIZES[1:4]):
+        for q in (30, 100):
+            data = pil_avif(with_alpha(picture(h, w, 50 + i), i), quality=q, subsampling=subsampling,
+                            alpha_premultiplied=premultiplied)
+            got = assert_reads_as_pil(tmp_path, data, f"{w}x{h} q{q}")
+            assert got.mode == "RGBA"
+    assert (avif.parse(data, "x")["premultiplied"]) == premultiplied
+
+
+@requires_avif
+def test_limited_range_alpha_is_widened_as_libavif_widens_it(tmp_path, cxx):
+    """PIL writes full-range alpha; a file whose alpha stream's sequence
+    header is edited to limited range (its color_range bit, after
+    mono_chrome and color_description_present_flag) reads as PIL reads
+    it: libavif widens the alpha, (a - 16) * 255 / 219 rounded."""
+    data = pil_avif(with_alpha(picture(64, 128, 55, "gradient"), 2), quality=90)
+    alpha = avif.parse(data, "x")["alpha"]
+    seq = frame_obu_at(alpha)[1]
+    pos = reduced_header_bits(alpha, seq) + 5  # enable_superres, cdef, restoration, high_bitdepth, mono_chrome
+    assert (alpha[seq + pos // 8] >> (7 - pos % 8)) & 1 == 0  # no colour description
+    pos += 1
+    assert (alpha[seq + pos // 8] >> (7 - pos % 8)) & 1 == 1  # full range
+    edited_alpha = set_bit(alpha, seq + pos // 8, pos % 8, 0)
+    at = data.index(alpha)
+    got = assert_reads_as_pil(tmp_path, data[:at] + edited_alpha + data[at + len(alpha):])
+    assert got.mode == "RGBA"
+
+
+@requires_avif
+@pytest.mark.parametrize("tiles", [(0, 0, True), (0, 1, False), (1, 0, False), (1, 1, False), (0, 0, False)])
+def test_tiles_read_bit_equal(tmp_path, cxx, tiles):
+    """tile_rows / tile_cols (log2) 0-1 and autotiling: each tile's symbol
+    decoder, CDFs and contexts start afresh."""
+    rows, cols, auto = tiles
+    data = pil_avif(picture(200, 256, 60 + rows + 2 * cols), quality=60, tile_rows=rows, tile_cols=cols,
+                    autotiling=auto)
+    assert_reads_as_pil(tmp_path, data, str(tiles))
+
+
+@requires_avif
+def test_exif_orientation_keeps_the_stored_pixels(tmp_path, cxx):
+    """PIL keeps an EXIF orientation of 6 in `info` and turns no pixel:
+    np.asarray is the picture as stored, and so is the port's."""
+    px = picture(33, 65, 70)
+    exif = Image.Exif()
+    exif[0x0112] = 6
+    data = pil_avif(px, quality=80, exif=exif)
+    got = assert_reads_as_pil(tmp_path, data)
+    assert got.pixels.shape == (33, 65, 3)
+
+
+@requires_avif
+@pytest.mark.parametrize("advanced", [{"deltaq-mode": "3"}, {"deltaq-mode": "1", "delta-lf-mode": "1"},
+                                      {"sharpness": "7"}, {"aq-mode": "1"}, {"reduced-tx-type-set": "1"},
+                                      {"enable-qm": "1"}, {"enable-qm": "1", "qm-min": "0", "qm-max": "15"},
+                                      {"tune-content": "screen", "enable-palette": "0"}])
+def test_encoder_options_that_use_decoded_tools_read_bit_equal(tmp_path, cxx, advanced):
+    """aom options that change what the frame uses but no refused tool:
+    delta q and delta lf, loop filter sharpness, segmentation by aq-mode,
+    the reduced transform set, quantizer matrices, screen-content tools (a
+    frame that allows IntraBC, no block using it or palette)."""
+    data = pil_avif(picture(130, 160, 81), quality=45, advanced=advanced)
+    assert_reads_as_pil(tmp_path, data, str(advanced))
+
+
+# ---- the refusals, each naming the tool and the file ----
+
+def frame_obu_at(av1: bytes):
+    """(offset of the frame OBU's payload, offset of the sequence header's
+    payload) in an AV1 item."""
+    at, found = 0, {}
+    while at < len(av1):
+        h = av1[at]
+        kind, ext = (h >> 3) & 15, (h >> 2) & 1
+        at += 1 + ext
+        size, shift = 0, 0
+        while True:
+            b = av1[at]
+            at += 1
+            size |= (b & 0x7F) << shift
+            shift += 7
+            if not b & 0x80:
+                break
+        found.setdefault(kind, at)
+        at += size
+    return found[6], found[1]
+
+
+def set_bit(data: bytes, byte: int, bit: int, value: int) -> bytes:
+    out = bytearray(data)
+    mask = 0x80 >> bit
+    out[byte] = (out[byte] | mask) if value else (out[byte] & ~mask)
+    return bytes(out)
+
+
+def edited(data: bytes, edit) -> bytes:
+    """`data` with its colour item's AV1 bytes edited in place by
+    `edit(av1, frame_at, seq_at) -> av1` (the same length)."""
+    av1 = avif.parse(data, "x")["color"]
+    at = data.index(av1)
+    frame, seq = frame_obu_at(av1)
+    new = edit(av1, frame, seq)
+    assert len(new) == len(av1)
+    return data[:at] + new + data[at + len(av1):]
+
+
+def reduced_header_bits(av1: bytes, seq: int) -> int:
+    """The bit offset of enable_superres in a reduced still-picture
+    sequence header with one operating point (PIL's): seq_profile (3),
+    still_picture, reduced_still_picture_header, seq_level_idx (5), the
+    two size widths (4 + 4) and the two sizes (n + 1 bits each), then
+    use_128x128_superblock, enable_filter_intra, enable_intra_edge_filter."""
+    def bits(pos, n):
+        v = 0
+        for i in range(n):
+            v = 2 * v + ((av1[seq + (pos + i) // 8] >> (7 - (pos + i) % 8)) & 1)
+        return v
+    wb, hb = bits(10, 4) + 1, bits(14, 4) + 1
+    return 18 + wb + hb + 3
+
+
+def superres_edit(av1, frame, seq):
+    """enable_superres := 1 in the sequence header, and the frame header's
+    third bit (after disable_cdf_update and allow_screen_content_tools,
+    where a reduced header reads use_superres once superres is enabled)
+    := 1: the frame uses superres."""
+    pos = reduced_header_bits(av1, seq)
+    av1 = set_bit(av1, seq + pos // 8, pos % 8, 1)
+    return set_bit(av1, frame, 2, 1)
+
+
+def high_bitdepth_edit(av1, frame, seq):
+    """high_bitdepth := 1 (10-bit samples): the bit after enable_superres,
+    enable_cdef and enable_restoration."""
+    pos = reduced_header_bits(av1, seq) + 3
+    return set_bit(av1, seq + pos // 8, pos % 8, 1)
+
+
+def refused_cases():
+    """name: (a function making the bytes, what the error names)."""
+    px = picture(130, 160, 90)
+    flat = np.zeros((130, 160, 3), np.uint8)
+    flat[:65] = (200, 30, 90)
+    flat[65:] = (20, 180, 60)
+    flat[:, :53] = (128, 128, 255)
+    return {
+        "speed 0 (loop restoration)": (lambda: pil_avif(px, quality=50, speed=0), "loop restoration"),
+        "speed 4 (loop restoration)": (lambda: pil_avif(px, quality=50, speed=4), "loop restoration"),
+        "enable-cdef": (lambda: pil_avif(px, quality=50, advanced={"enable-cdef": "1"}), "CDEF"),
+        "tune-content screen on flat colours (palette)": (
+            lambda: pil_avif(flat, quality=50, advanced={"tune-content": "screen"}), "palette"),
+        "film grain (denoise-noise-level)": (
+            lambda: pil_avif(px, quality=50, advanced={"denoise-noise-level": "25"}), "film grain"),
+        "superres (header bits edited)": (lambda: edited(pil_avif(px, quality=50), superres_edit), "superres"),
+        "10-bit (header bit edited)": (lambda: edited(pil_avif(px, quality=50), high_bitdepth_edit), "10-bit"),
+        "tune-content screen, palette off (IntraBC)": (
+            lambda: pil_avif(picture(130, 200, 80), quality=45,
+                             advanced={"tune-content": "screen", "enable-palette": "0"}), "IntraBC"),
+    }
+
+
+REFUSED = refused_cases()  # made in the test that reads each
+
+
+@requires_avif
+@pytest.mark.parametrize("case", list(REFUSED))
+def test_refused_tools_name_the_tool_and_the_file(tmp_path, cxx, case):
+    make, what = REFUSED[case]
+    assert_refused(tmp_path, make(), what)
+
+
+def box(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I4s", 8 + len(body), kind) + body
+
+
+def with_primary_type(data: bytes, kind: bytes) -> bytes:
+    """A PIL-written file whose primary item's `infe` type is `kind`."""
+    at = data.index(b"infe") + 4  # the box's body: version and flags, item_ID, protection index, type
+    return data[:at + 8] + kind + data[at + 12:]
+
+
+@requires_avif
+@pytest.mark.parametrize("kind", [b"grid", b"tmap"])
+def test_grid_and_tmap_items_are_refused(tmp_path, cxx, kind):
+    data = pil_avif(picture(33, 65, 95), quality=50)
+    assert avif.parse(data, "x")["color"]
+    assert_refused(tmp_path, with_primary_type(data, kind), kind.decode())
+
+
+@requires_avif
+def test_an_avis_sequence_is_refused(tmp_path, cxx):
+    """An `avis` file (a `moov` track): PIL reads frame 0; the port refuses
+    the sequence by name."""
+    data = pil_avif(picture(33, 65, 96), quality=50)
+    ftyp = box(b"ftyp", b"avis\0\0\0\0avisavifmsf1")
+    rest = data[struct.unpack(">I", data[:4])[0]:]
+    assert_refused(tmp_path, ftyp + rest + box(b"moov", box(b"mvhd", bytes(100))), "sequence")
+
+
+# ---- PIL's accept rule and the fall-through ----
+
+def test_avif_is_first_of_pils_init_formats_with_its_accept_rule():
+    """`Image.open` tries the formats `Image.preinit` loads (BMP, DIB, GIF,
+    JPEG, PPM, PNG), then `Image.init`'s, whose first is AVIF."""
+    from PIL import Image as image_module
+
+    names = [name for name, _, _ in image_io.READERS]
+    assert names[:7] == ["BMP", "DIB", "GIF", "JPEG", "PPM", "PNG", "AVIF"]
+    assert image_module._plugins[0] == "AvifImagePlugin"
+    accepts = dict((name, test) for name, test, _ in image_io.READERS)["AVIF"]
+    from PIL import AvifImagePlugin
+    for head in (b"\0\0\0\x1cftypavif", b"\0\0\0\x1cftypavis", b"\0\0\0\x1cftypmif1", b"\0\0\0\x1cftypmsf1",
+                 b"\0\0\0\x1cftypheic", b"\0\0\0\x1cftypisom", b"\0\0\0\x1cftyqavif", b"RIFF\0\0\0\0WEBP"):
+        assert bool(accepts(head.ljust(18, b"\0"))) == bool(AvifImagePlugin._accept(head.ljust(16, b"\0"))), head
+
+
+@requires_avif
+def test_other_ftyp_files_pass_on_as_pil_passes_them(tmp_path, cxx):
+    """A PPM whose comment puts "ftypavif" at offset 4: PIL's AVIF plugin
+    accepts it, libavif cannot parse it (SyntaxError) and PIL's PPM plugin
+    reads it; so does the port. A HEIF file with no avif brand: libavif's
+    INVALID_FTYP passes it on and nothing else reads it, in PIL (it
+    raises) and in the port (a ValueError naming the formats)."""
+    ppm = b"P6\n#ftypavif\n3 2\n255\n" + bytes(range(18))
+    path = tmp_path / "odd.ppm"
+    path.write_bytes(ppm)
+    assert Image.open(path).format == "PPM"
+    np.testing.assert_array_equal(image_io.open_image(path).pixels, np.asarray(Image.open(path)))
+    heif = box(b"ftyp", b"mif1\0\0\0\0mif1heic") + box(b"meta", bytes(4))
+    path = tmp_path / "other.heic"
+    path.write_bytes(heif)
+    with pytest.raises(Exception):
+        Image.open(path)
+    with pytest.raises(ValueError, match="no avif or avis brand") as err:
+        image_io.open_image(path)
+    assert str(path) in str(err.value)
+    for cut in (40, 200):
+        data = pil_avif(picture(33, 65, 97), quality=50)[:cut]
+        path.write_bytes(data)
+        with pytest.raises(Exception):
+            np.asarray(Image.open(path))
+        with pytest.raises(ValueError) as err:
+            image_io.open_image(path)
+        assert str(path) in str(err.value)
+
+
+@requires_avif
+def test_failed_av1_decoder_build_raises_naming_the_source(tmp_path, fake_cxx):
+    """AVIF cannot be read without csrc/av1_decode.cc: the read raises,
+    naming it and the file; nothing falls back to PIL."""
+    fake_cxx(fail=True)
+    path = tmp_path / "v.avif"
+    path.write_bytes(pil_avif(picture(5, 7, 98), quality=50))
+    with pytest.raises(RuntimeError, match="csrc/av1_decode.cc") as err:
+        image_io.open_image(path)
+    assert str(path) in str(err.value)
+    assert not cuda_build.host_library_path("av1_decode").exists()
+
+
+# ---- the committed fixtures ----
+
+READINGS = json.load(open(os.path.join(FIXTURES, "sha256.json")))
+
+
+def sha256_of(a) -> str:
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+@pytest.mark.parametrize("name", sorted(READINGS["files"]))
+def test_committed_fixture_reads_as_pil_and_the_json_say(tmp_path, cxx, name):
+    """Each fixture (1080p ones included) is the file whose PIL reading
+    sha256.json holds, PIL reads it so (where it has AVIF), and the port
+    reads it so."""
+    want = READINGS["files"][name]
+    path = os.path.join(FIXTURES, name)
+    assert hashlib.sha256(open(path, "rb").read()).hexdigest() == want["file_sha256"]
+    if features.check("avif"):
+        im = Image.open(path)
+        px = np.asarray(im)
+        assert (im.mode, list(px.shape), sha256_of(px)) == (want["mode"], want["shape"], want["sha256"])
+    got = image_io.open_image(path)
+    assert (got.mode, list(got.pixels.shape), sha256_of(got.pixels)) == (want["mode"], want["shape"], want["sha256"])
+
+
+def test_decode_split_names_each_step():
+    data = open(os.path.join(FIXTURES, "tiles_2x2_256x256.avif"), "rb").read()
+    split = {}
+    avif.decode_avif(data, "tiles", split=split)
+    assert sorted(split) == sorted(avif.SPLIT_KEYS) and all(v >= 0 for v in split.values())
+
+
+# ---- both dataset paths against the JAX package ----
+
+def colmap_views(w, h):
+    """AVIF views of modes RGB and RGBA (alpha 255 and not), every
+    subsampling and both ranges."""
+    a = picture(h, w, 110)
+    return {
+        "v_420.avif": pil_avif(a, quality=70),
+        "v_444.avif": pil_avif(picture(h, w, 111, "edges"), quality=90, subsampling="4:4:4"),
+        "v_422_limited.avif": pil_avif(picture(h, w, 112), quality=50, subsampling="4:2:2", range="limited"),
+        "v_400.avif": pil_avif(a, quality=75, subsampling="4:0:0"),
+        "v_rgba.avif": pil_avif(with_alpha(picture(h, w, 113), 1), quality=80),
+        "v_rgba_opaque.avif": pil_avif(np.concatenate([a, np.full((h, w, 1), 255, np.uint8)], -1), quality=80,
+                                       speed=10),
+        "v_lossless.avif": pil_avif(picture(h, w, 114, "gradient"), quality=100),
+    }
+
+
+@requires_avif
+@pytest.mark.parametrize("resolution", [1, 2])
+def test_colmap_avif_views_match_jax(tmp_path, monkeypatch, cxx, resolution):
+    """A COLMAP dataset of AVIF views: the Scene's cameras equal the JAX
+    package's, images bit for bit."""
+    from test_torch_scene import both_scenes
+
+    w, h = 45, 37
+    src = str(tmp_path / "avif")
+    views = colmap_views(w, h)
+    write_colmap_dataset_of(src, views, w, h)
+    jscene, scene = both_scenes(tmp_path, monkeypatch, src, eval_split=True, resolution=resolution)
+    assert len(scene.get_train_cameras()) + len(scene.get_test_cameras()) == len(views)
+    assert_same_cameras(scene.get_train_cameras(), jscene.get_train_cameras())
+    assert_same_cameras(scene.get_test_cameras(), jscene.get_test_cameras())
+
+
+@requires_avif
+@pytest.mark.parametrize("white_background", [False, True])
+def test_blender_avif_frames_match_jax(tmp_path, monkeypatch, cxx, white_background):
+    """read_blender_scene on AVIF frames (named .png, as the transforms file
+    names them): PIL's convert("RGBA") through the composite, bit for bit,
+    then load_camera at -r 2."""
+    w, h = 45, 37
+    frames = list(colmap_views(w, h).values())
+    d = tmp_path / "scene"
+    (d / "train").mkdir(parents=True)
+    listing = []
+    for i, data in enumerate(frames):
+        (d / "train" / f"r_{i}.png").write_bytes(data)
+        listing.append({"file_path": f"./train/r_{i}", "transform_matrix": orbit_frames(len(frames))[i]})
+    (d / "transforms_train.json").write_text(json.dumps({"camera_angle_x": 0.69, "frames": listing}))
+    monkeypatch.setenv("GS_TPU_BLENDER_INIT_POINTS", "50")
+    infos = []
+    for pkg, name in ((jreaders, "jax"), (dataset_readers, "port")):
+        shutil.copytree(d, tmp_path / name)
+        np.random.seed(3)
+        infos.append(pkg.read_blender_scene(str(tmp_path / name), white_background, eval_split=False))
+    want, got = infos
+    assert len(got.train_cameras) == len(frames)
+    for i, (g, wnt) in enumerate(zip(got.train_cameras, want.train_cameras)):
+        np.testing.assert_array_equal(g.image, np.asarray(wnt.image), err_msg=f"frame {i}")
+        assert (g.width, g.height, g.fovx, g.fovy) == (wnt.width, wnt.height, wnt.fovx, wnt.fovy)
+        assert_same_cameras([dataset_readers.load_camera(g, 2)], [jreaders.load_camera(wnt, 2)])

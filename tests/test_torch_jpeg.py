@@ -772,7 +772,7 @@ def test_read_image_dispatches_on_the_signature(tmp_path, compiled, monkeypatch)
         image_io.read_image(junk_bmp)  # the BMP reader's refusal
     assert str(junk_bmp) in str(err.value)
     with pytest.raises(ValueError, match="not a PNG, JPEG, BMP, DIB, TIFF, WebP, GIF, PPM / PGM / PBM / PFM, TGA, "
-                                         "JPEG 2000, QOI, PCX / DCX, SGI, ICO / CUR, PSD or DDS file") as err:
+                                         "JPEG 2000, QOI, PCX / DCX, SGI, ICO / CUR, PSD, DDS or AVIF file") as err:
         image_io.read_image(other)
     assert str(other) in str(err.value)
     with pytest.raises(ValueError, match="JPEG"):
@@ -838,7 +838,8 @@ def test_host_build_and_its_reuse(fake_cxx):
     if shutil.which("c++") is None:
         pytest.skip("no host C++ compiler (c++) on this machine")
     calls = fake_cxx(fail=False)
-    hosts = ["bcn_decode", "fax_decode", "image_codecs", "jp2_decode", "jpeg_decode", "webp_decode", "zstd_decode"]
+    hosts = ["av1_decode", "bcn_decode", "fax_decode", "image_codecs", "jp2_decode", "jpeg_decode", "webp_decode",
+             "zstd_decode"]
     assert cuda_build.host_sources() == hosts
     assert not set(hosts) & set(cuda_build.sources())
     cuda_build.build_host()

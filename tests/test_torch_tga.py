@@ -204,7 +204,7 @@ def test_no_other_format_is_taken_for_a_tga(tmp_path, cxx):
             path = tmp_path / f"other.{fmt.lower()}"
             path.write_bytes(buf.getvalue())
             with pytest.raises(ValueError, match="not a PNG, JPEG, BMP, DIB, TIFF, WebP, GIF, PPM / PGM / PBM / PFM, "
-                                                 "TGA, JPEG 2000, QOI, PCX / DCX, SGI, ICO / CUR, PSD or DDS file"):
+                                                 "TGA, JPEG 2000, QOI, PCX / DCX, SGI, ICO / CUR, PSD, DDS or AVIF file"):
                 image_io.open_image(path)
     assert len(heads) > 30
     assert not any(tga.looks_like_tga(h) for h in heads)
