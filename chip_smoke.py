@@ -398,6 +398,21 @@ Phases (any failure exits non-zero; none is caught and passed over):
      `AVIF_ADVANCED`), each held to that PIL's decode; else the seven
      fixtures, held to their committed hashes; the phase prints which.
      `cli.train` -r 1 for 30 iterations as in 5h, its checks and prints.
+  5k. AVIF with AV1's CDEF and loop restoration, after 5j: (a) the three
+     committed 1080p files of tests/fixtures/torch_avif that use them
+     (PIL 12.1.0 wrote them: 4:2:0 q50 at speed 2 and 4:4:4 q60 at speed
+     4 with CDEF on, 4:2:0 q50 at speed 0), held and timed as in 5j (a),
+     with the tools each used and one decode split into the container,
+     the AV1 symbols with reconstruction, the deblocking, CDEF, loop
+     restoration and YUV -> RGB. (b) A COLMAP dataset of 7 views of
+     trained_r5 on phase 5c's orbit at 1920x1080: where this machine's
+     PIL writes AVIF, the renders encoded by it with no advanced option at
+     its defaults (CDEF on there), at speed 4, at speed 2 (4:2:0, 4:4:4,
+     4:0:0), RGBA at speed 4 and 2x2 tiles at speed 4, each held to that
+     PIL's decode; else the three fixtures in turn, held to their
+     committed hashes. The views together must use CDEF and loop
+     restoration (the decoder's tools hook; each view's are printed).
+     `cli.train` -r 1 for 30 iterations as in 5h, its checks and prints.
   5d. sharded path (`parallel/sharding.py`), on the one card:
      - the kernels at a row origin: trained_r5 at 1920x1080 with 32x32
        tiles cut into 2 and into 4 strips of tile rows; each strip's
@@ -464,7 +479,7 @@ Phases (any failure exits non-zero; none is caught and passed over):
      train and render CLIs together), user_train (5g's runs A, its viewer
      frames included, and B), user_render (5g's two render CLIs),
      forms_train (5h's train CLI), dds_train (5i's train CLI),
-     avif_train (5j's train CLI),
+     avif_train (5j's train CLI), avif_filters_train (5k's train CLI),
      sharded_2rank and sharded_trainer (both ranks' sums), sharded_nccl1,
      bench (the five in-process runs of 5f) for the compositing kernels
      and the routing,
@@ -4097,8 +4112,8 @@ AVIF_STEPS = 30
 # the seven views: PIL's save options where this machine's PIL writes AVIF
 # (the renders, RGBA with alpha 255), else the committed 1080p fixture.
 # The card's PIL 12.2.0 (libavif 1.4.1, aom 3.13.2) turns CDEF on at its
-# default speed, which this port does not decode yet: it is asked for
-# neither CDEF nor loop restoration (AVIF_ADVANCED).
+# default speed; this phase's dataset stays as it was first made, without
+# CDEF and loop restoration (AVIF_ADVANCED): phase 5k's views use both.
 AVIF_VIEWS = (("4:2:0 q75", {"quality": 75}, "1080p_420_q75.avif"),
               ("4:4:4 q90", {"quality": 90, "subsampling": "4:4:4"}, "1080p_444_q90.avif"),
               ("4:0:0 q75", {"quality": 75, "subsampling": "4:0:0"}, "1080p_400_q75.avif"),
@@ -4130,17 +4145,18 @@ def avif_versions() -> str:
             f"{_avif.codec_versions()}")
 
 
-def check_avif_fixtures():
-    """Phase 5j (a): each committed 1080p AVIF fixture is the file PIL read
-    (its SHA-256) and `image_io.open_image` gives PIL 12.1.0's mode, shape
-    and pixels' SHA-256 (tests/fixtures/torch_avif/sha256.json). Returns
-    {name: (the port's median ms of 5 decodes, PIL's median of 3 here or
-    why not)} and the split of one decode of the first."""
+def check_avif_fixtures(names):
+    """Phases 5j and 5k (a): each named committed 1080p AVIF fixture is the
+    file PIL read (its SHA-256) and `image_io.open_image` gives PIL
+    12.1.0's mode, shape and pixels' SHA-256
+    (tests/fixtures/torch_avif/sha256.json). Returns {name: (the port's
+    median ms of 5 decodes, PIL's median of 3 here or why not)}, the first
+    name and the split of one decode of it."""
     with open(os.path.join(AVIF_FIXTURES, "sha256.json")) as f:
         readings = json.load(f)["files"]
-    names = sorted(n for n in readings if n.startswith("1080p"))
-    if sorted(view[2] for view in AVIF_VIEWS) != names:
-        fail(f"AVIF: the views name {sorted(v[2] for v in AVIF_VIEWS)}, the fixtures are {names}")
+    names = sorted(names)
+    if not set(names) <= set(readings):
+        fail(f"AVIF: the fixtures {sorted(set(names) - set(readings))} are not in sha256.json")
     times, split = {}, {}
     for name in names:
         want, path = readings[name], os.path.join(AVIF_FIXTURES, name)
@@ -4180,7 +4196,7 @@ def _avif_phase(dev, tmp):
     torch.cuda.reset_peak_memory_stats()
 
     # (a) The committed 1080p files, held to PIL 12.1.0's committed readings.
-    times, first, split = check_avif_fixtures()
+    times, first, split = check_avif_fixtures([view[2] for view in AVIF_VIEWS])
     print(f"AVIF: {len(times)} committed 1080p files of tests/fixtures/torch_avif read with PIL 12.1.0's mode, "
           f"shape and pixels (sha256.json); decode ms, median of 5 (host clock), beside PIL's median of 3 on this "
           f"machine ({avif_versions()}):")
@@ -4246,6 +4262,131 @@ def _avif_phase(dev, tmp):
           f"({', '.join(v[0] for v in AVIF_VIEWS)}): {source} (made in {build_s:.1f} s); -r 1, {AVIF_STEPS} "
           f"iterations in {train_s:.2f} s (scene load {load_s:.2f} s), step median {np.median(step_ms):.3f} ms; "
           f"loss {losses_[0]:.6f} -> {losses_[-1]:.6f}; launches {launches}")
+    print(f"  phase peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
+          f"wall {time.perf_counter() - t_phase:.1f} s")
+    del scene, tr
+    return launches, errs
+
+
+# ---- phase 5k: AVIF with CDEF and loop restoration ------------------------
+
+# the committed 1080p fixtures that use CDEF and loop restoration
+AVIF_FILTER_FIXTURES = ("1080p_420_q50_s2_cdef.avif", "1080p_444_q60_s4_cdef.avif", "1080p_420_q50_s0.avif")
+# the seven views: PIL's save options where this machine's PIL writes AVIF
+# (the renders, RGBA with alpha 255), no `advanced` option (at its default
+# speed the card's PIL turns CDEF on; speeds 0-4 use loop restoration);
+# else the committed fixtures in turn
+AVIF_FILTER_VIEWS = (("PIL's defaults", {}), ("speed 4", {"speed": 4}), ("speed 2", {"speed": 2}),
+                     ("speed 2 4:4:4", {"speed": 2, "subsampling": "4:4:4"}),
+                     ("speed 2 4:0:0", {"speed": 2, "subsampling": "4:0:0"}), ("RGBA speed 4", {"speed": 4}),
+                     ("2x2 tiles speed 4", {"speed": 4, "tile_rows": 1, "tile_cols": 1}))
+
+
+def avif_tools_used(path):
+    """(CDEF's 8x8 blocks, restoration units, a line saying both) of what
+    the decoder's hook saw the file's colour item use."""
+    with open(path, "rb") as f:
+        tools = {}
+        avif.av1_planes(avif.parse(f.read(), path)["color"], path, tools=tools)
+    cdef = sum(sum(k.values()) for k in tools["cdef_blocks"])
+    units = [sum(k.values()) for k in tools["lr_units"]]
+    filtered = f"CDEF (cdef_bits {tools['cdef_bits']}, {cdef} blocks)" if cdef else "no CDEF"
+    line = (f"{filtered}, restoration {'/'.join(tools['lr_types'])} ({'/'.join(map(str, units))} units)"
+            f"{', 128x128 superblocks' if tools['use_128'] else ''}")
+    return cdef, sum(units), line
+
+
+def avif_filters_phase(dev):
+    """Phase 5k (module docstring). Returns the compositing kernels'
+    launches in the train CLI run and the max abs errors of the forward,
+    the backward and the routing against their plain versions at its final
+    state."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_avif_filters_")
+    try:
+        return _avif_filters_phase(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _avif_filters_phase(dev, tmp):
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) The committed 1080p files with CDEF and loop restoration.
+    times, first, split = check_avif_fixtures(AVIF_FILTER_FIXTURES)
+    print(f"AVIF with CDEF and loop restoration: {len(times)} committed 1080p files of tests/fixtures/torch_avif "
+          f"read with PIL 12.1.0's mode, shape and pixels (sha256.json); decode ms, median of 5 (host clock), beside "
+          f"PIL's median of 3 on this machine ({avif_versions()}):")
+    for name, (ms, pil_ms) in times.items():
+        print(f"  {name}: {ms:.2f} ms (PIL {pil_ms}); {avif_tools_used(os.path.join(AVIF_FIXTURES, name))[2]}")
+    print(f"  one decode of {first}, host clock: " +
+          ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in split.items()))
+
+    # (b) A COLMAP dataset of trained_r5 with seven 1080p views that use them.
+    t0 = time.perf_counter()
+    data, model_dir = os.path.join(tmp, "data"), os.path.join(tmp, "model")
+    model = load_gaussians_ply(TRAINED_PLY)
+    cams, images = orbit_dataset(len(AVIF_FILTER_VIEWS), W_MAIN, H_MAIN)
+    write_colmap_scene(data, cams, images, model["xyz"], dc_colors(model))
+    pil = avif_pil()
+    with open(os.path.join(AVIF_FIXTURES, "sha256.json")) as f:
+        readings = json.load(f)["files"]
+    files, fixture_of, labels = {}, {}, {}
+    for i, (cam, px, (label, options)) in enumerate(zip(cams, images, AVIF_FILTER_VIEWS)):
+        path = os.path.join(data, "images", cam.image_name + ".avif")
+        os.remove(os.path.join(data, "images", f"{cam.image_name}.png"))
+        fixture = AVIF_FILTER_FIXTURES[i % len(AVIF_FILTER_FIXTURES)]
+        if pil is not None:
+            rgb = np.ascontiguousarray(px[..., :3])
+            pil.fromarray(opaque(rgb) if label.startswith("RGBA") else rgb).save(path, "AVIF", **options)
+        else:
+            shutil.copyfile(os.path.join(AVIF_FIXTURES, fixture), path)
+        files[cam.image_name], fixture_of[cam.image_name] = os.path.basename(path), fixture
+        labels[cam.image_name] = label if pil is not None else f"{label}: {fixture}"
+    rename_views(data, files)
+    build_s = time.perf_counter() - t0
+    info = read_colmap_scene(data, None, eval_split=False)
+    used = []
+    for c in info.train_cameras:
+        pic = image_io.open_image(c.image_path)
+        if pil is not None:
+            with pil.open(c.image_path) as im:
+                want = (im.mode, list(np.asarray(im).shape), sha256_of(np.asarray(im)))
+        else:
+            r = readings[fixture_of[c.image_name]]
+            want = (r["mode"], r["shape"], r["sha256"])
+        if (pic.mode, list(pic.pixels.shape), sha256_of(pic.pixels)) != want:
+            fail(f"AVIF filters: view {files[c.image_name]} does not read as "
+                 f"{'this machine' if pil is not None else 'PIL 12.1.0'}'s PIL reads it")
+        used.append((labels[c.image_name], *avif_tools_used(c.image_path)))
+    if not any(u[1] for u in used) or not any(u[2] for u in used):
+        fail(f"AVIF filters: the views do not use both CDEF and loop restoration: {used}")
+    source = (f"the renders encoded by this machine's PIL ({avif_versions()}; no advanced option) and held to its "
+              "decode" if pil is not None else "the committed 1080p fixtures with the filters in turn (this "
+              "machine's PIL has no AVIF), held to PIL 12.1.0's committed hashes")
+    print(f"  {len(used)} views, {source}, made in {build_s:.1f} s:")
+    for label, _, _, line in used:
+        print(f"    {label}: {line}")
+    reset_launches()
+    scene, tr, train_s, load_s, _ = run_train_cli(["-s", data, "-m", model_dir, "-r", "1", "--iterations",
+                                                   str(AVIF_STEPS), "--disable_viewer", "--quiet"])
+    launches = {k: LAUNCH_COUNTERS[k].launches for k in TRAIN_KERNELS}
+    views = scene.get_train_cameras()
+    if tr.iteration != AVIF_STEPS or len(views) != len(AVIF_FILTER_VIEWS) or \
+            sorted({(c.width, c.height) for c in views}) != [(W_MAIN, H_MAIN)]:
+        fail(f"AVIF filters: the train CLI ran {tr.iteration} steps on {len(views)} views")
+    losses_ = [h["loss"] for h in tr.history]
+    if not all(math.isfinite(x) for x in losses_):
+        fail(f"AVIF filters: the loss is not finite: {losses_}")
+    if launches != {k: AVIF_STEPS for k in TRAIN_KERNELS}:
+        fail(f"AVIF filters: train CLI launches {launches}, not one of each a step")
+    step_ms = [h["iter_time_ms"] for h in tr.history]
+    errs = check_trainer_state("AVIF filters train CLI final state", tr, views[0], 62)
+    print(f"  train CLI on a COLMAP dataset of {len(AVIF_FILTER_VIEWS)} AVIF views of trained_r5 at "
+          f"{W_MAIN}x{H_MAIN}: -r 1, {AVIF_STEPS} iterations in {train_s:.2f} s (scene load {load_s:.2f} s), "
+          f"step median {np.median(step_ms):.3f} ms; loss {losses_[0]:.6f} -> {losses_[-1]:.6f}; "
+          f"launches {launches}; max abs errors {dict(zip(TRAIN_KERNELS, errs))}")
     print(f"  phase peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
           f"wall {time.perf_counter() - t_phase:.1f} s")
     del scene, tr
@@ -5100,6 +5241,12 @@ def main():
         max_err[k] = max(max_err[k], e)
     phase_done("5j AVIF")
 
+    # ---- 5k. AVIF with CDEF and loop restoration ------------------------
+    avif_filters_train_launches, avif_filters_errs = avif_filters_phase(dev)
+    for k, e in zip(TRAIN_KERNELS, avif_filters_errs):
+        max_err[k] = max(max_err[k], e)
+    phase_done("5k AVIF filters")
+
     # ---- 5d. sharded path ---------------------------------------------
     sharded_launches, strip_errs = sharded_phase(dev, gt, center, dist, train_capacity,
                                                  single_ref, step_ms)
@@ -5183,6 +5330,7 @@ def main():
                     "cli_blender": blender_launches[name], "user_train": user_train_launches[name],
                     "user_render": user_render_launches[name], "forms_train": forms_train_launches[name],
                     "dds_train": dds_train_launches[name], "avif_train": avif_train_launches[name],
+                    "avif_filters_train": avif_filters_train_launches[name],
                     **{path: counts[name] for path, counts in sharded_launches.items()},
                     "bench": bench_launches[name]}
         return {"profiler": prof_launches[name]}

@@ -12,12 +12,16 @@
 //   7.12-7.13      dequantization (quantizer matrices too) and the inverse
 //                  transforms (DCT 4-64, ADST 4/8/16, identity, WHT) with
 //                  the spec's rounding;
-//   7.14           the deblocking loop filter, with delta lf and segments.
+//   7.14           the deblocking loop filter, with delta lf and segments;
+//   5.9.19, 7.15   CDEF, the constrained directional enhancement filter;
+//   5.9.20, 5.11.57-58, 7.17
+//                  loop restoration: the Wiener filter and the self-guided
+//                  filter, per restoration unit and per 64-row stripe.
 //
-// What a frame *uses* of the tools this file does not decode (loop
-// restoration, CDEF with a nonzero strength, superres, film grain, palette,
-// IntraBC, 10/12-bit samples, inter frames) ends the decode with a message
-// naming the tool. The output is 8-bit Y, U, V planes (Y alone for 4:0:0).
+// What a frame *uses* of the tools this file does not decode (superres, film
+// grain, palette, IntraBC, 10/12-bit samples, inter frames) ends the decode
+// with a message naming the tool. The output is 8-bit Y, U, V planes (Y alone
+// for 4:0:0).
 // gs_yuv_to_rgb converts them to RGB as libavif 1.3.0 does for PIL
 // (libyuv's fixed-point rows and filtered chroma upsampling, or libavif's
 // own float path where libyuv declines).
@@ -141,6 +145,24 @@ const int Mode_To_Txfm[14] = {DCT_DCT,  ADST_DCT, DCT_ADST,  DCT_DCT,  ADST_ADST
                               DCT_ADST, ADST_DCT, ADST_ADST, ADST_DCT, DCT_ADST,  ADST_ADST, DCT_DCT};
 const int Tx_Type_Intra_Inv_Set1[7] = {IDTX, DCT_DCT, V_DCT, H_DCT, ADST_ADST, ADST_DCT, DCT_ADST};
 const int Tx_Type_Intra_Inv_Set2[5] = {IDTX, DCT_DCT, ADST_ADST, ADST_DCT, DCT_ADST};
+
+// CDEF (7.15)
+const int Cdef_Uv_Dir[2][2][8] = {{{0, 1, 2, 3, 4, 5, 6, 7}, {1, 2, 2, 2, 3, 4, 6, 0}},
+                                  {{7, 0, 2, 4, 5, 6, 6, 6}, {0, 1, 2, 3, 4, 5, 6, 7}}};
+const int Cdef_Directions[8][2][2] = {{{-1, 1}, {-2, 2}}, {{0, 1}, {-1, 2}}, {{0, 1}, {0, 2}}, {{0, 1}, {1, 2}},
+                                      {{1, 1}, {2, 2}},   {{1, 0}, {2, 1}},  {{1, 0}, {2, 0}}, {{1, 0}, {2, -1}}};
+const int Cdef_Pri_Taps[2][2] = {{4, 2}, {3, 3}};
+const int Cdef_Sec_Taps[2][2] = {{2, 1}, {2, 1}};
+const int Div_Table[9] = {0, 840, 420, 280, 210, 168, 140, 120, 105};
+
+// loop restoration (5.9.20, 5.11.58, 7.17)
+enum { RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE };
+const int Remap_Lr_Type[4] = {RESTORE_NONE, RESTORE_SWITCHABLE, RESTORE_WIENER, RESTORE_SGRPROJ};
+const int Wiener_Taps_Min[3] = {-5, -23, -17}, Wiener_Taps_Max[3] = {10, 8, 46}, Wiener_Taps_K[3] = {1, 2, 3};
+const int Wiener_Taps_Mid[3] = {3, -7, 15};
+const int Sgrproj_Xqd_Min[2] = {-96, -32}, Sgrproj_Xqd_Max[2] = {31, 95}, Sgrproj_Xqd_Mid[2] = {-32, 31};
+enum { SGRPROJ_PRJ_SUBEXP_K = 4, SGRPROJ_PRJ_BITS = 7, SGRPROJ_RST_BITS = 4, SGRPROJ_MTABLE_BITS = 20,
+       SGRPROJ_RECIP_BITS = 12, SGRPROJ_SGR_BITS = 8 };
 
 const int Segmentation_Feature_Bits[8] = {8, 6, 6, 6, 6, 3, 0, 0};
 const int Segmentation_Feature_Signed[8] = {1, 1, 1, 1, 1, 0, 0, 0};
@@ -336,6 +358,7 @@ struct Cdfs {
   uint16_t delta_q[5];
   uint16_t delta_lf[5];
   uint16_t delta_lf_multi[4][5];
+  uint16_t use_wiener[3], use_sgrproj[3], restoration_type[4];
   // coefficients, for the frame's qindex context
   uint16_t txb_skip[5][13][3];
   uint16_t eob_pt_16[2][2][6];
@@ -381,6 +404,9 @@ struct Cdfs {
     memcpy(delta_q, Default_Delta_Q_Cdf, sizeof delta_q);
     memcpy(delta_lf, Default_Delta_Lf_Cdf, sizeof delta_lf);
     for (int i = 0; i < 4; i++) memcpy(delta_lf_multi[i], Default_Delta_Lf_Cdf, sizeof delta_lf);
+    memcpy(use_wiener, Default_Use_Wiener_Cdf, sizeof use_wiener);
+    memcpy(use_sgrproj, Default_Use_Sgrproj_Cdf, sizeof use_sgrproj);
+    memcpy(restoration_type, Default_Restoration_Type_Cdf, sizeof restoration_type);
     int q = base_q_idx <= 20 ? 0 : base_q_idx <= 60 ? 1 : base_q_idx <= 120 ? 2 : 3;
     memcpy(txb_skip, Default_Txb_Skip_Cdf[q], sizeof txb_skip);
     memcpy(eob_pt_16, Default_Eob_Pt_16_Cdf[q], sizeof eob_pt_16);
@@ -681,6 +707,9 @@ struct Decoder {
   int loop_filter_ref_deltas[8] = {1, 0, 0, 0, -1, 0, -1, -1}, loop_filter_mode_deltas[2] = {0, 0};
   int TxMode = 0, reduced_tx_set = 0;
   int NumPlanes = 3;
+  int CdefDamping = 3, cdef_bits = 0;
+  int cdef_y_pri[8] = {0}, cdef_y_sec[8] = {0}, cdef_uv_pri[8] = {0}, cdef_uv_sec[8] = {0};
+  int FrameRestorationType[3] = {0}, LoopRestorationSize[3] = {0}, UsesLr = 0, lr_unit_shift = 0, lr_uv_shift = 0;
   bool frame_done = false;
 
   // frame state, per 4x4 (mi) unit
@@ -701,6 +730,21 @@ struct Decoder {
   std::vector<uint8_t> AboveLevelContext[3], AboveDcContext[3], LeftLevelContext[3], LeftDcContext[3];
   std::vector<int8_t> cdef_idx;
   uint8_t BlockDecoded[3][34][34];  // [-1..32]
+  // loop restoration: each plane's units (5.11.58) and the references their
+  // coefficients are coded against (reset at each tile's start)
+  struct LrUnit {
+    int type = RESTORE_NONE, set = 0;
+    int wiener[2][3] = {{0}};  // [pass: 0 vertical, 1 horizontal][tap]
+    int xqd[2] = {0};
+  };
+  int unitRows[3] = {0}, unitCols[3] = {0};
+  std::vector<LrUnit> LrUnits[3];
+  int RefLrWiener[3][2][3], RefSgrXqd[3][2];
+  // the deblocked planes, which CDEF reads and loop restoration reads above
+  // and below each stripe
+  std::vector<uint8_t> deblocked[3];
+  // which tools the frame used (gs_av1_decode's `tools`; a test hook)
+  int tools[32] = {0};
 
   // block state
   int MiRow, MiCol, MiSize, HasChroma, AvailU, AvailL, AvailUChroma, AvailLChroma;
@@ -1020,25 +1064,50 @@ struct Decoder {
       }
     }
     // cdef_params
+    cdef_bits = 0;
+    CdefDamping = 3;
+    memset(cdef_y_pri, 0, sizeof cdef_y_pri);
+    memset(cdef_y_sec, 0, sizeof cdef_y_sec);
+    memset(cdef_uv_pri, 0, sizeof cdef_uv_pri);
+    memset(cdef_uv_sec, 0, sizeof cdef_uv_sec);
     if (!(CodedLossless || allow_intrabc || !s.enable_cdef)) {
-      b.f(2);  // cdef_damping_minus_3
-      int cdef_bits = b.f(2);
-      cdef_bits_ = cdef_bits;
+      CdefDamping = b.f(2) + 3;
+      cdef_bits = b.f(2);
       for (int i = 0; i < (1 << cdef_bits); i++) {
-        int ypri = b.f(4), ysec = b.f(2), uvpri = 0, uvsec = 0;
+        cdef_y_pri[i] = b.f(4);
+        cdef_y_sec[i] = b.f(2);
+        if (cdef_y_sec[i] == 3) cdef_y_sec[i] += 1;
         if (NumPlanes > 1) {
-          uvpri = b.f(4);
-          uvsec = b.f(2);
+          cdef_uv_pri[i] = b.f(4);
+          cdef_uv_sec[i] = b.f(2);
+          if (cdef_uv_sec[i] == 3) cdef_uv_sec[i] += 1;
         }
-        if (ypri || ysec || uvpri || uvsec) fail("CDEF (the constrained directional enhancement filter) in use");
       }
-    } else {
-      cdef_bits_ = 0;
     }
     // lr_params
+    UsesLr = 0;
+    lr_unit_shift = lr_uv_shift = 0;
+    FrameRestorationType[0] = FrameRestorationType[1] = FrameRestorationType[2] = RESTORE_NONE;
     if (!(AllLossless || allow_intrabc || !s.enable_restoration)) {
-      for (int i = 0; i < NumPlanes; i++)
-        if (b.f(2) != 0) fail("loop restoration in use");
+      int usesChromaLr = 0;
+      for (int i = 0; i < NumPlanes; i++) {
+        FrameRestorationType[i] = Remap_Lr_Type[b.f(2)];
+        if (FrameRestorationType[i] != RESTORE_NONE) {
+          UsesLr = 1;
+          if (i > 0) usesChromaLr = 1;
+        }
+      }
+      if (UsesLr) {
+        if (s.use_128) {
+          lr_unit_shift = b.f(1) + 1;
+        } else {
+          lr_unit_shift = b.f(1);
+          if (lr_unit_shift) lr_unit_shift += b.f(1);  // lr_unit_extra_shift
+        }
+        LoopRestorationSize[0] = 256 >> (2 - lr_unit_shift);  // RESTORATION_TILESIZE_MAX
+        lr_uv_shift = (s.ss_x && s.ss_y && usesChromaLr) ? (int)b.f(1) : 0;
+        LoopRestorationSize[1] = LoopRestorationSize[2] = LoopRestorationSize[0] >> lr_uv_shift;
+      }
     }
     // read_tx_mode
     if (CodedLossless) TxMode = ONLY_4X4;
@@ -1050,7 +1119,6 @@ struct Decoder {
       if (b.f(1)) fail("film grain synthesis (apply_grain)");
     }
   }
-  int cdef_bits_ = 0;
 
   void tile_info(BitReader& b) {
     int sbCols = seq.use_128 ? ((MiCols + 31) >> 5) : ((MiCols + 15) >> 4);
@@ -1146,6 +1214,16 @@ struct Decoder {
       LeftLevelContext[p].assign(MiRows + 64, 0);
       LeftDcContext[p].assign(MiRows + 64, 0);
     }
+    for (int p = 0; p < NumPlanes; p++) {
+      if (FrameRestorationType[p] == RESTORE_NONE) continue;
+      int sx = p ? seq.ss_x : 0, sy = p ? seq.ss_y : 0;
+      unitRows[p] = count_units_in_frame(LoopRestorationSize[p], round2(FrameHeight, sy));
+      unitCols[p] = count_units_in_frame(LoopRestorationSize[p], round2(FrameWidth, sx));
+      LrUnits[p].assign((size_t)unitRows[p] * unitCols[p], LrUnit());
+    }
+  }
+  static int count_units_in_frame(int unitSize, int frameSize) {
+    return std::max((frameSize + (unitSize >> 1)) / unitSize, 1);
   }
 
   // ------------------------------------------------------------ tile data
@@ -1159,6 +1237,11 @@ struct Decoder {
       std::fill(AboveDcContext[p].begin(), AboveDcContext[p].end(), 0);
     }
     for (int i = 0; i < 4; i++) DeltaLF[i] = 0;
+    for (int p = 0; p < NumPlanes; p++)
+      for (int pass = 0; pass < 2; pass++) {
+        RefSgrXqd[p][pass] = Sgrproj_Xqd_Mid[pass];
+        for (int i = 0; i < 3; i++) RefLrWiener[p][pass][i] = Wiener_Taps_Mid[i];
+      }
     int sbSize = seq.use_128 ? BLOCK_128X128 : BLOCK_64X64;
     int sbSize4 = Num_4x4_Blocks_Wide[sbSize];
     for (int r = MiRowStart; r < MiRowEnd; r += sbSize4) {
@@ -1169,9 +1252,92 @@ struct Decoder {
       for (int c = MiColStart; c < MiColEnd; c += sbSize4) {
         ReadDeltas = delta_q_present;
         clear_block_decoded_flags(r, c, sbSize4);
+        read_lr(r, c, sbSize);
         decode_partition(r, c, sbSize);
       }
     }
+  }
+
+  // 5.11.57: the restoration units whose top-left corner falls in the
+  // superblock at (r, c)
+  void read_lr(int r, int c, int bSize) {
+    if (allow_intrabc) return;
+    int w = Num_4x4_Blocks_Wide[bSize], h = Num_4x4_Blocks_High[bSize];
+    for (int p = 0; p < NumPlanes; p++) {
+      if (FrameRestorationType[p] == RESTORE_NONE) continue;
+      int sx = p ? seq.ss_x : 0, sy = p ? seq.ss_y : 0;
+      int unitSize = LoopRestorationSize[p];
+      int rowStart = (r * (4 >> sy) + unitSize - 1) / unitSize;
+      int rowEnd = std::min(unitRows[p], ((r + h) * (4 >> sy) + unitSize - 1) / unitSize);
+      int colStart = (c * (4 >> sx) + unitSize - 1) / unitSize;
+      int colEnd = std::min(unitCols[p], ((c + w) * (4 >> sx) + unitSize - 1) / unitSize);
+      for (int ur = rowStart; ur < rowEnd; ur++)
+        for (int uc = colStart; uc < colEnd; uc++) read_lr_unit(p, LrUnits[p][(size_t)ur * unitCols[p] + uc]);
+    }
+  }
+
+  // 5.11.58
+  void read_lr_unit(int p, LrUnit& u) {
+    int frameType = FrameRestorationType[p];
+    if (frameType == RESTORE_WIENER) u.type = sd.symbol(cdf.use_wiener, 2) ? RESTORE_WIENER : RESTORE_NONE;
+    else if (frameType == RESTORE_SGRPROJ) u.type = sd.symbol(cdf.use_sgrproj, 2) ? RESTORE_SGRPROJ : RESTORE_NONE;
+    else u.type = sd.symbol(cdf.restoration_type, 3);
+    if (u.type == RESTORE_WIENER) {
+      for (int pass = 0; pass < 2; pass++) {
+        int first = p ? 1 : 0;  // chroma: a 5-tap filter
+        u.wiener[pass][0] = 0;
+        for (int j = first; j < 3; j++) {
+          int v = decode_signed_subexp_with_ref_bool(Wiener_Taps_Min[j], Wiener_Taps_Max[j] + 1, Wiener_Taps_K[j],
+                                                     RefLrWiener[p][pass][j]);
+          u.wiener[pass][j] = v;
+          RefLrWiener[p][pass][j] = v;
+        }
+      }
+    } else if (u.type == RESTORE_SGRPROJ) {
+      u.set = (int)sd.literal(4);  // SGRPROJ_PARAMS_BITS
+      for (int i = 0; i < 2; i++) {
+        int radius = Sgr_Params[u.set][i * 2], lo = Sgrproj_Xqd_Min[i], hi = Sgrproj_Xqd_Max[i];
+        int v = 0;
+        if (radius)
+          v = decode_signed_subexp_with_ref_bool(lo, hi + 1, SGRPROJ_PRJ_SUBEXP_K, RefSgrXqd[p][i]);
+        else if (i == 1)
+          v = clip3(lo, hi, (1 << SGRPROJ_PRJ_BITS) - RefSgrXqd[p][0]);
+        u.xqd[i] = v;
+        RefSgrXqd[p][i] = v;
+      }
+    }
+  }
+
+  int decode_signed_subexp_with_ref_bool(int low, int high, int k, int r) {
+    return decode_unsigned_subexp_with_ref_bool(high - low, k, r - low) + low;
+  }
+  int decode_unsigned_subexp_with_ref_bool(int mx, int k, int r) {
+    int v = decode_subexp_bool(mx, k);
+    if ((r << 1) <= mx) return inverse_recenter(r, v);
+    return mx - 1 - inverse_recenter(mx - 1 - r, v);
+  }
+  int decode_subexp_bool(int numSyms, int k) {
+    int i = 0, mk = 0;
+    while (true) {
+      int b2 = i ? k + i - 1 : k;
+      int a = 1 << b2;
+      if (numSyms <= mk + 3 * a) return ns_symbols(numSyms - mk) + mk;
+      if (!sd.literal(1)) return (int)sd.literal(b2) + mk;
+      i++;
+      mk += a;
+    }
+  }
+  int ns_symbols(int n) {  // NS(n): ns(n) read with L(1)
+    int w = floor_log2((uint32_t)n) + 1;
+    int m = (1 << w) - n;
+    int v = (int)sd.literal(w - 1);
+    if (v < m) return v;
+    return (v << 1) - m + (int)sd.literal(1);
+  }
+  static int inverse_recenter(int r, int v) {
+    if (v > 2 * r) return v;
+    if (v & 1) return r - ((v + 1) >> 1);
+    return r + (v >> 1);
   }
 
   void clear_block_decoded_flags(int r, int c, int sbSize4) {
@@ -1456,7 +1622,7 @@ struct Decoder {
     if (skip || CodedLossless || !seq.enable_cdef || allow_intrabc) return;
     int r = MiRow & ~15, c = MiCol & ~15;
     if (cdef_idx[mi(r, c)] == -1) {
-      int v = (int)sd.literal(cdef_bits_);
+      int v = (int)sd.literal(cdef_bits);
       int w4 = Num_4x4_Blocks_Wide[MiSize], h4 = Num_4x4_Blocks_High[MiSize];
       for (int y = r; y < r + h4; y += 16)
         for (int x = c; x < c + w4; x += 16) cdef_idx[mi(y, x)] = (int8_t)v;
@@ -2422,6 +2588,312 @@ struct Decoder {
     }
   }
 
+  // ---------------------------------------------------------------- CDEF
+  // 7.15: every 8x8 block of a 64x64 whose cdef_idx is not -1, unless all
+  // four of its 4x4 units are skip, is filtered from the deblocked frame
+  // (`deblocked`) into `plane`, which starts as its copy.
+  void cdef() {
+    tools[1] = seq.enable_cdef && !CodedLossless && !allow_intrabc ? cdef_bits : -1;
+    for (int fbr = 0; fbr < MiRows; fbr += 16)
+      for (int fbc = 0; fbc < MiCols; fbc += 16) {
+        int idx = cdef_idx[mi(fbr, fbc)];
+        if (idx == -1) continue;
+        for (int r = fbr; r < std::min(fbr + 16, MiRows); r += 2)
+          for (int c = fbc; c < std::min(fbc + 16, MiCols); c += 2) {
+            if (Skips[mi(r, c)] && Skips[mi(r + 1, c)] && Skips[mi(r, c + 1)] && Skips[mi(r + 1, c + 1)]) continue;
+            cdef_block(r, c, idx);
+          }
+      }
+  }
+
+  void cdef_block(int r, int c, int idx) {
+    int var = 0;
+    int yDir = cdef_direction(r, c, var);
+    int priStr = cdef_y_pri[idx], secStr = cdef_y_sec[idx];
+    int dir = priStr == 0 ? 0 : yDir;
+    int varStr = (var >> 6) ? std::min(floor_log2((uint32_t)(var >> 6)), 12) : 0;
+    int adjusted = var ? (priStr * (4 + varStr) + 8) >> 4 : 0;
+    cdef_filter(0, r, c, adjusted, secStr, CdefDamping, dir);
+    count_cdef(0, priStr, secStr);
+    if (NumPlanes == 1) return;
+    priStr = cdef_uv_pri[idx];
+    secStr = cdef_uv_sec[idx];
+    dir = priStr == 0 ? 0 : Cdef_Uv_Dir[seq.ss_x][seq.ss_y][yDir];
+    for (int p = 1; p < 3; p++) {
+      cdef_filter(p, r, c, priStr, secStr, CdefDamping - 1, dir);
+      count_cdef(p, priStr, secStr);
+    }
+  }
+  // tools[7 + 3 * plane + k]: 8x8 blocks filtered with a primary strength
+  // only (k 0), a secondary only (1), or both (2), as signalled
+  void count_cdef(int p, int pri, int sec) {
+    if (pri || sec) tools[7 + 3 * p + (pri && sec ? 2 : (pri ? 0 : 1))]++;
+  }
+
+  int cdef_direction(int r, int c, int& var) {
+    int cost[8] = {0}, partial[8][15] = {{0}};
+    int x0 = c * 4, y0 = r * 4;
+    const uint8_t* src = deblocked[0].data();
+    for (int i = 0; i < 8; i++)
+      for (int j = 0; j < 8; j++) {
+        int x = src[(size_t)(y0 + i) * pw[0] + x0 + j] - 128;
+        partial[0][i + j] += x;
+        partial[1][i + j / 2] += x;
+        partial[2][i] += x;
+        partial[3][3 + i - j / 2] += x;
+        partial[4][7 + i - j] += x;
+        partial[5][3 - i / 2 + j] += x;
+        partial[6][j] += x;
+        partial[7][i / 2 + j] += x;
+      }
+    for (int i = 0; i < 8; i++) {
+      cost[2] += partial[2][i] * partial[2][i];
+      cost[6] += partial[6][i] * partial[6][i];
+    }
+    cost[2] *= Div_Table[8];
+    cost[6] *= Div_Table[8];
+    for (int i = 0; i < 7; i++) {
+      cost[0] += (partial[0][i] * partial[0][i] + partial[0][14 - i] * partial[0][14 - i]) * Div_Table[i + 1];
+      cost[4] += (partial[4][i] * partial[4][i] + partial[4][14 - i] * partial[4][14 - i]) * Div_Table[i + 1];
+    }
+    cost[0] += partial[0][7] * partial[0][7] * Div_Table[8];
+    cost[4] += partial[4][7] * partial[4][7] * Div_Table[8];
+    for (int i = 1; i < 8; i += 2) {
+      for (int j = 0; j < 5; j++) cost[i] += partial[i][3 + j] * partial[i][3 + j];
+      cost[i] *= Div_Table[8];
+      for (int j = 0; j < 3; j++)
+        cost[i] += (partial[i][j] * partial[i][j] + partial[i][10 - j] * partial[i][10 - j]) * Div_Table[2 * j + 2];
+    }
+    int bestCost = 0, yDir = 0;
+    for (int i = 0; i < 8; i++)
+      if (cost[i] > bestCost) {
+        bestCost = cost[i];
+        yDir = i;
+      }
+    var = (bestCost - cost[(yDir + 4) & 7]) >> 10;
+    return yDir;
+  }
+
+  // constrain() of 7.15.2 with its damping shift worked out once per strength
+  static int constrain(int diff, int threshold, int dampingAdj) {
+    int a = std::abs(diff);
+    int val = std::min(a, std::max(0, threshold - (a >> dampingAdj)));
+    return diff < 0 ? -val : val;
+  }
+
+  void cdef_filter(int p, int r, int c, int priStr, int secStr, int damping, int dir) {
+    int sx = p ? seq.ss_x : 0, sy = p ? seq.ss_y : 0;
+    int x0 = (c * 4) >> sx, y0 = (r * 4) >> sy, w = 8 >> sx, h = 8 >> sy;
+    // the block and the 2 samples its taps reach on each side, -1 where a
+    // sample is not available: a sample is where its 4x4 unit lies in the
+    // frame (MiRows x MiCols), the decoded padding past the picture's edge
+    // included (cdef_get_at, is_inside_filter_region)
+    int rows = (MiRows * 4) >> sy, cols = (MiCols * 4) >> sx;
+    const int S = 12;
+    int buf[S * S];
+    for (int i = -2; i < h + 2; i++)
+      for (int j = -2; j < w + 2; j++) {
+        int y = y0 + i, x = x0 + j;
+        bool ok = y >= 0 && x >= 0 && y < rows && x < cols;
+        buf[(i + 2) * S + j + 2] = ok ? deblocked[p][(size_t)y * pw[p] + x] : -1;
+      }
+    // the 12 taps: (offset, weight, strength, damping shift); a zero
+    // strength's taps add nothing but still bound the clip
+    struct Tap {
+      int off, weight, strength, adj;
+    } taps[12];
+    int nt = 0;
+    int priAdj = priStr ? std::max(0, damping - floor_log2((uint32_t)priStr)) : 0;
+    int secAdj = secStr ? std::max(0, damping - floor_log2((uint32_t)secStr)) : 0;
+    for (int k = 0; k < 2; k++)
+      for (int sign = -1; sign <= 1; sign += 2) {
+        const int* d = Cdef_Directions[dir][k];
+        taps[nt++] = {sign * (d[0] * S + d[1]), Cdef_Pri_Taps[priStr & 1][k], priStr, priAdj};
+        for (int dirOff = -2; dirOff <= 2; dirOff += 4) {
+          d = Cdef_Directions[(dir + dirOff) & 7][k];
+          taps[nt++] = {sign * (d[0] * S + d[1]), Cdef_Sec_Taps[priStr & 1][k], secStr, secAdj};
+        }
+      }
+    for (int i = 0; i < h; i++)
+      for (int j = 0; j < w; j++) {
+        const int* s0 = buf + (i + 2) * S + j + 2;
+        int x = *s0, sum = 0, mx = x, mn = x;
+        for (const Tap& t : taps) {
+          int v = s0[t.off];
+          if (v < 0) continue;
+          sum += t.weight * constrain(v - x, t.strength, t.adj);
+          mx = std::max(v, mx);
+          mn = std::min(v, mn);
+        }
+        P(p, y0 + i, x0 + j) = (uint8_t)clip3(mn, mx, x + ((8 + sum - (sum < 0)) >> 4));
+      }
+  }
+
+  // ---------------------------------------------------- loop restoration
+  // 7.17: each plane's pixels, a rectangle at a time where one restoration
+  // unit meets one stripe (64 luma rows, 8 rows up), read from the CDEF
+  // output (`plane`) inside the stripe and from the deblocked frame up to
+  // 2 rows above and below it (get_source_sample, 7.17.6), into `out`.
+  void loop_restoration() {
+    for (int p = 0; p < NumPlanes; p++) {
+      if (FrameRestorationType[p] == RESTORE_NONE) continue;
+      int sx = p ? seq.ss_x : 0, sy = p ? seq.ss_y : 0;
+      int unitSize = LoopRestorationSize[p];
+      int endX = round2(FrameWidth, sx) - 1, endY = round2(FrameHeight, sy) - 1;
+      for (const LrUnit& u : LrUnits[p])
+        if (u.type != RESTORE_NONE) tools[16 + 3 * p + lr_kind(u)]++;
+      std::vector<uint8_t> out(plane[p]);
+      // the luma 4x4 rows of the spec's walk, in runs of one stripe and
+      // one unit row
+      for (int row = 0; row * 4 < FrameHeight;) {
+        auto stripe = [](int rw) { return (rw * 4 + 8) / 64; };
+        auto unit_row = [&](int rw) { return std::min(unitRows[p] - 1, ((rw * 4 + 8) >> sy) / unitSize); };
+        int next = row + 1;
+        while (next * 4 < FrameHeight && stripe(next) == stripe(row) && unit_row(next) == unit_row(row)) next++;
+        int y0 = (row * 4) >> sy, y1 = std::min(endY, ((next * 4) >> sy) - 1);
+        int stripeStart = (-8 + stripe(row) * 64) >> sy, stripeEnd = stripeStart + (64 >> sy) - 1;
+        for (int uc = 0; uc < unitCols[p]; uc++) {
+          const LrUnit& u = LrUnits[p][(size_t)unit_row(row) * unitCols[p] + uc];
+          int x0 = uc * unitSize, x1 = uc == unitCols[p] - 1 ? endX : std::min(endX, x0 + unitSize - 1);
+          if (u.type == RESTORE_NONE || x0 > x1 || y0 > y1) continue;
+          Window win(*this, p, x0, y0, x1 - x0 + 1, y1 - y0 + 1, endX, endY, stripeStart, stripeEnd);
+          if (u.type == RESTORE_WIENER) wiener_filter(win, u, out.data(), pw[p]);
+          else self_guided_filter(win, u, out.data(), pw[p]);
+        }
+        row = next;
+      }
+      plane[p].swap(out);
+    }
+  }
+  // tools[16 + 3 * plane + k]: the plane's units filtered by Wiener (k 0),
+  // by the self-guided filter with both radii (1), or with one radius 0 (2)
+  static int lr_kind(const LrUnit& u) {
+    if (u.type == RESTORE_WIENER) return 0;
+    return Sgr_Params[u.set][0] && Sgr_Params[u.set][2] ? 1 : 2;
+  }
+
+  // The samples get_source_sample gives around a w x h rectangle at (x0,
+  // y0): 3 more on each side (the Wiener taps; the 5x5 box sums at one
+  // sample past the rectangle).
+  struct Window {
+    static const int M = 3;
+    int x0, y0, w, h, stride;
+    std::vector<int> v;
+    Window(Decoder& d, int p, int x0_, int y0_, int w_, int h_, int endX, int endY, int stripeStart, int stripeEnd)
+        : x0(x0_), y0(y0_), w(w_), h(h_), stride(w_ + 2 * M), v((size_t)(h_ + 2 * M) * (w_ + 2 * M)) {
+      for (int i = -M; i < h + M; i++) {
+        int y = clip3(0, endY, y0 + i);
+        const uint8_t* src = d.plane[p].data();
+        if (y < stripeStart) {
+          y = std::max(stripeStart - 2, y);
+          src = d.deblocked[p].data();
+        } else if (y > stripeEnd) {
+          y = std::min(stripeEnd + 2, y);
+          src = d.deblocked[p].data();
+        }
+        const uint8_t* line = src + (size_t)y * d.pw[p];
+        for (int j = -M; j < w + M; j++) at(i, j) = line[clip3(0, endX, x0 + j)];
+      }
+    }
+    int& at(int i, int j) { return v[(size_t)(i + M) * stride + j + M]; }
+  };
+
+  // 7.17.4, with 7.11.3.2's rounding for isCompound 0 at 8 bits
+  void wiener_filter(Window& win, const LrUnit& u, uint8_t* out, int stride) {
+    const int InterRound0 = 3, InterRound1 = 11, FILTER_BITS = 7, BitDepth = 8;
+    int f[2][7];  // [0] vertical, [1] horizontal
+    for (int pass = 0; pass < 2; pass++) {
+      f[pass][3] = 128;
+      for (int i = 0; i < 3; i++) {
+        int c = u.wiener[pass][i];
+        f[pass][i] = f[pass][6 - i] = c;
+        f[pass][3] -= 2 * c;
+      }
+    }
+    int offset = 1 << (BitDepth + FILTER_BITS - InterRound0 - 1);
+    int limit = (1 << (BitDepth + 1 + FILTER_BITS - InterRound0)) - 1;
+    int w = win.w, h = win.h;
+    std::vector<int> inter((size_t)(h + 6) * w);
+    for (int r = 0; r < h + 6; r++)
+      for (int c = 0; c < w; c++) {
+        int s = 0;
+        for (int t = 0; t < 7; t++) s += f[1][t] * win.at(r - 3, c + t - 3);
+        inter[(size_t)r * w + c] = clip3(-offset, limit - offset, round2(s, InterRound0));
+      }
+    for (int r = 0; r < h; r++)
+      for (int c = 0; c < w; c++) {
+        int s = 0;
+        for (int t = 0; t < 7; t++) s += f[0][t] * inter[(size_t)(r + t) * w + c];
+        out[(size_t)(win.y0 + r) * stride + win.x0 + c] = (uint8_t)clip3(0, 255, round2(s, InterRound1));
+      }
+  }
+
+  // 7.17.3's box filter of one pass (pass 0: r = 2, a and b on every other
+  // row; pass 1: r = 1) over the rectangle: F, in SGRPROJ_RST_BITS
+  void box_filter(Window& win, int set, int pass, std::vector<int>& F) {
+    int r = Sgr_Params[set][pass * 2], s = Sgr_Params[set][pass * 2 + 1];
+    int n = (2 * r + 1) * (2 * r + 1);
+    int oneOverN = ((1 << SGRPROJ_RECIP_BITS) + (n / 2)) / n;
+    int w = win.w, h = win.h, aw = w + 2;
+    std::vector<int> A((size_t)(h + 2) * aw), B((size_t)(h + 2) * aw);
+    for (int i = -1; i < h + 1; i++) {
+      if (pass == 0 && !((win.y0 + i) & 1)) continue;  // only odd rows are read
+      for (int j = -1; j < w + 1; j++) {
+        int a = 0, b = 0;
+        for (int dy = -r; dy <= r; dy++)
+          for (int dx = -r; dx <= r; dx++) {
+            int c = win.at(i + dy, j + dx);
+            a += c * c;
+            b += c;
+          }
+        int p = std::max(0, a * n - b * b);
+        int z = (int)round2((int64_t)p * s, SGRPROJ_MTABLE_BITS);
+        int a2 = z >= 255 ? 256 : (z == 0 ? 1 : ((z << SGRPROJ_SGR_BITS) + (z / 2)) / (z + 1));
+        int b2 = ((1 << SGRPROJ_SGR_BITS) - a2) * b * oneOverN;
+        A[(size_t)(i + 1) * aw + j + 1] = a2;
+        B[(size_t)(i + 1) * aw + j + 1] = round2(b2, SGRPROJ_RECIP_BITS);
+      }
+    }
+    F.assign((size_t)h * w, 0);
+    for (int i = 0; i < h; i++) {
+      int odd = (win.y0 + i) & 1;
+      int shift = pass == 0 && odd ? 4 : 5;
+      for (int j = 0; j < w; j++) {
+        int a = 0, b = 0;
+        for (int dy = -1; dy <= 1; dy++)
+          for (int dx = -1; dx <= 1; dx++) {
+            int weight;
+            if (pass == 0) weight = ((win.y0 + i + dy) & 1) ? (dx == 0 ? 6 : 5) : 0;
+            else weight = (dx == 0 || dy == 0) ? 4 : 3;
+            if (!weight) continue;
+            size_t k = (size_t)(i + dy + 1) * aw + j + dx + 1;
+            a += weight * A[k];
+            b += weight * B[k];
+          }
+        int v = a * win.at(i, j) + b;
+        F[(size_t)i * w + j] = round2(v, SGRPROJ_SGR_BITS + shift - SGRPROJ_RST_BITS);
+      }
+    }
+  }
+
+  // 7.17.3
+  void self_guided_filter(Window& win, const LrUnit& u, uint8_t* out, int stride) {
+    std::vector<int> flt0, flt1;
+    int r0 = Sgr_Params[u.set][0], r1 = Sgr_Params[u.set][2];
+    if (r0) box_filter(win, u.set, 0, flt0);
+    if (r1) box_filter(win, u.set, 1, flt1);
+    int w0 = u.xqd[0], w1 = u.xqd[1], w2 = (1 << SGRPROJ_PRJ_BITS) - w0 - w1;
+    for (int i = 0; i < win.h; i++)
+      for (int j = 0; j < win.w; j++) {
+        int uu = win.at(i, j) << SGRPROJ_RST_BITS;
+        int v = w1 * uu;
+        v += w0 * (r0 ? flt0[(size_t)i * win.w + j] : uu);
+        v += w2 * (r1 ? flt1[(size_t)i * win.w + j] : uu);
+        int s = round2(v, SGRPROJ_RST_BITS + SGRPROJ_PRJ_BITS);
+        out[(size_t)(win.y0 + i) * stride + win.x0 + j] = (uint8_t)clip3(0, 255, s);
+      }
+  }
+
   // ------------------------------------------------------------ the OBUs
   void tile_group(const uint8_t* d, size_t sz) {
     BitReader b(d, sz);
@@ -2592,11 +3064,18 @@ extern "C" {
 // Decode one AV1 image item. info (out, 16 ints): width, height, mono,
 // ss_x, ss_y, bit depth, colour primaries, transfer, matrix, full range.
 // With y == nullptr only the headers are read. The planes are written
-// with strides width and (width + ss_x) >> ss_x. times (out, 2 doubles):
-// seconds in symbol decoding with reconstruction, and in the loop filter.
+// with strides width and (width + ss_x) >> ss_x. times (out, 4 doubles):
+// seconds in symbol decoding with reconstruction, in the deblocking filter,
+// in CDEF and in loop restoration. tools (out, 32 ints, or nullptr), which
+// tools the frame used: use_128x128_superblock; cdef_bits (-1: no CDEF);
+// lr_unit_shift (-1: no loop restoration); lr_uv_shift; each plane's
+// FrameRestorationType (RESTORE_NONE, WIENER, SGRPROJ, SWITCHABLE); at 7 + 3
+// * plane + k the 8x8 blocks CDEF filtered with a primary strength only (k
+// 0), a secondary only (1), both (2); at 16 + 3 * plane + k the restoration
+// units of Wiener (k 0), of self-guided with both radii (1), with one (2).
 // Returns 0, or 1 with a message in msg.
 int gs_av1_decode(const uint8_t* data, long long size, int* info, uint8_t* y, uint8_t* u, uint8_t* v,
-                  double* times, char* msg, int msglen) {
+                  double* times, int* tools, char* msg, int msglen) {
   static thread_local Decoder* dec = nullptr;
   delete dec;
   dec = new Decoder();
@@ -2627,6 +3106,11 @@ int gs_av1_decode(const uint8_t* data, long long size, int* info, uint8_t* y, ui
     auto t1 = std::chrono::steady_clock::now();
     dec->loop_filter();
     auto t2 = std::chrono::steady_clock::now();
+    for (int p = 0; p < dec->NumPlanes; p++) dec->deblocked[p] = dec->plane[p];
+    dec->cdef();
+    auto t3 = std::chrono::steady_clock::now();
+    dec->loop_restoration();
+    auto t4 = std::chrono::steady_clock::now();
     const SeqHeader& s = dec->seq;
     int W = dec->FrameWidth, H = dec->FrameHeight;
     int vals[10] = {W, H, s.mono, s.ss_x, s.ss_y, s.bit_depth, s.cp, s.tc, s.mc, s.color_range};
@@ -2646,6 +3130,16 @@ int gs_av1_decode(const uint8_t* data, long long size, int* info, uint8_t* y, ui
     if (times) {
       times[0] = std::chrono::duration<double>(t1 - t0).count();
       times[1] = std::chrono::duration<double>(t2 - t1).count();
+      times[2] = std::chrono::duration<double>(t3 - t2).count();
+      times[3] = std::chrono::duration<double>(t4 - t3).count();
+    }
+    if (tools) {
+      int* k = dec->tools;
+      k[0] = s.use_128;
+      k[2] = dec->UsesLr ? dec->lr_unit_shift : -1;
+      k[3] = dec->lr_uv_shift;
+      for (int p = 0; p < 3; p++) k[4 + p] = dec->FrameRestorationType[p];
+      memcpy(tools, k, sizeof dec->tools);
     }
     delete dec;
     dec = nullptr;

@@ -18,7 +18,9 @@ PIL's 8-bit `avifRGBImage`. This module follows those three steps:
 - the AV1 data, decoded by `csrc/av1_decode.cc` (host C++, built by
   `cuda_build.build_host` at first use; no fallback: a failed build
   raises naming the file): a still picture's key frame or intra-only
-  frame, 8-bit, 4:2:0, 4:2:2, 4:4:4 or 4:0:0, with the deblocking filter;
+  frame, 8-bit, 4:2:0, 4:2:2, 4:4:4 or 4:0:0, with AV1's in-loop filters
+  (deblocking, CDEF, loop restoration by the Wiener and self-guided
+  filters);
 - YUV -> RGB(A) as libavif does it for PIL, in `csrc/av1_decode.cc`'s
   `gs_yuv_to_rgb`: libyuv's 8-bit fixed-point rows with its bilinear
   chroma upsampling where libavif picks libyuv (BT.601, BT.709 and
@@ -33,9 +35,9 @@ brand other than `avif`, `avis`, `mif1`, `msf1`; libavif's
 INVALID_FTYP, BMFF_PARSE_FAILED, TRUNCATED_DATA and NO_CONTENT, which
 PIL's decoder raises as SyntaxError), this raises
 `image_io.NotThisFormat`. What PIL raises otherwise, and the AV1 tools
-this port does not decode yet (loop restoration, CDEF with a nonzero
-strength, superres, film grain, palette and IntraBC, 10- and 12-bit
-samples, `grid` and `tmap` items, an `avis` image sequence), raise a
+this port does not decode yet (superres, film grain, palette and IntraBC,
+10- and 12-bit samples, `grid` and `tmap` items, an `avis` image
+sequence), raise a
 `ValueError` naming the tool and the file.
 """
 
@@ -53,7 +55,13 @@ from gaussian_splatting_torch.utils.bmp import MAX_PIXELS
 MAJOR_BRANDS = (b"avif", b"avis", b"mif1", b"msf1")  # AvifImagePlugin._accept
 ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha", b"urn:mpeg:hevc:2015:auxid:1")
 # libavif's "last split" of one decode, in seconds (see `decode_avif(..., split=...)`)
-SPLIT_KEYS = ("container", "av1_symbols_and_reconstruction", "av1_deblocking", "yuv_to_rgb")
+SPLIT_KEYS = ("container", "av1_symbols_and_reconstruction", "av1_deblocking", "av1_cdef", "av1_loop_restoration",
+              "yuv_to_rgb")
+AV1_KEYS = SPLIT_KEYS[1:5]  # the AV1 decoder's own steps, an alpha item's added in
+# which tools a frame used: `av1_planes(..., tools=...)` (gs_av1_decode's `tools`)
+RESTORATION_TYPES = ("none", "wiener", "sgrproj", "switchable")
+CDEF_KINDS = ("primary", "secondary", "both")
+LR_KINDS = ("wiener", "sgrproj_both", "sgrproj_one")
 
 
 def accepts(head: bytes) -> bool:
@@ -281,7 +289,8 @@ def _library(name: str):
         raise RuntimeError(f"{name}: the AV1 decoder (csrc/av1_decode.cc) could not be built: {err}") from err
     if not hasattr(lib, "_gs_typed"):
         P = ctypes.c_void_p
-        lib.gs_av1_decode.argtypes = [ctypes.c_char_p, ctypes.c_longlong, P, P, P, P, P, ctypes.c_char_p, ctypes.c_int]
+        lib.gs_av1_decode.argtypes = [ctypes.c_char_p, ctypes.c_longlong, P, P, P, P, P, P, ctypes.c_char_p,
+                                      ctypes.c_int]
         lib.gs_av1_decode.restype = ctypes.c_int
         i = ctypes.c_int
         lib.gs_yuv_to_rgb.argtypes = [P, P, P, P, i, i, i, i, i, i, i, i, i, P, ctypes.c_char_p, i]
@@ -305,7 +314,7 @@ def decode_avif(data: bytes, name: str = "<bytes>", split: dict | None = None):
         raise NotThisFormat(f"{name}: AVIF boxes cut short (BMFF_PARSE_FAILED; PIL: SyntaxError, passed on)") from None
     if info["ispe"] is not None and info["ispe"][0] * info["ispe"][1] > MAX_PIXELS:
         raise ValueError(f"{name}: an image of more than {MAX_PIXELS} pixels (PIL's decompression bomb limit)")
-    times = {SPLIT_KEYS[0]: time.perf_counter() - t0, SPLIT_KEYS[1]: 0.0, SPLIT_KEYS[2]: 0.0}
+    times = {SPLIT_KEYS[0]: time.perf_counter() - t0}
     y, u, v, seq = av1_planes(info["color"], name, times)
     h, w = y.shape
     if info["ispe"] is not None and info["ispe"] != (w, h):
@@ -320,8 +329,8 @@ def decode_avif(data: bytes, name: str = "<bytes>", split: dict | None = None):
         a, _, _, alpha_seq = av1_planes(info["alpha"], name, part)
         if not alpha_seq["full_range"]:  # libavif widens limited-range alpha: (a - 16) * 255 / 219, rounded
             a = np.clip(((a.astype(np.int32) - 16) * 255 + 109) // 219, 0, 255).astype(np.uint8)
-        times[SPLIT_KEYS[1]] += part[SPLIT_KEYS[1]]
-        times[SPLIT_KEYS[2]] += part[SPLIT_KEYS[2]]
+        for key in AV1_KEYS:
+            times[key] += part[key]
         if a.shape != y.shape:
             raise ValueError(f"{name}: an alpha item of {a.shape[1]}x{a.shape[0]} for a {w}x{h} image "
                              "(PIL: Failed to decode image)")
@@ -334,19 +343,26 @@ def decode_avif(data: bytes, name: str = "<bytes>", split: dict | None = None):
                          full, int(info["premultiplied"]), out.ctypes.data, msg, len(msg)):
         raise ValueError(f"{name}: {msg.value.decode()}; the port converts AVIF colour as libavif does for the "
                          "BT.601, BT.709 and BT.2020 matrices, identity, and 4:0:0")
-    times[SPLIT_KEYS[3]] = time.perf_counter() - t1
+    times[SPLIT_KEYS[-1]] = time.perf_counter() - t1
     if split is not None:
         split.update(times)
     return Picture(out, "RGBA" if a is not None else "RGB")
 
 
-def av1_planes(av1: bytes, name: str, times=None):
+def av1_planes(av1: bytes, name: str, times=None, tools=None):
     """(Y, U, V, info) of one AV1 image item: 8-bit planes (U and V None
-    for 4:0:0) and its sequence header's colour description."""
+    for 4:0:0) and its sequence header's colour description. `times`,
+    where given, receives the seconds of the decoder's steps (`AV1_KEYS`);
+    `tools` (a test hook) which tools the frame used: "use_128",
+    "cdef_bits" (-1 without CDEF), "lr_unit_shift" (-1 without loop
+    restoration), "lr_uv_shift", "lr_types" (each plane's frame restoration
+    type), "cdef_blocks" (per plane, the 8x8 blocks CDEF filtered with
+    each `CDEF_KINDS` of strengths) and "lr_units" (per plane, the units of
+    each of `LR_KINDS`)."""
     lib = _library(name)
     info = np.zeros(16, np.int32)
     msg = ctypes.create_string_buffer(512)
-    if lib.gs_av1_decode(av1, len(av1), info.ctypes.data, None, None, None, None, msg, len(msg)):
+    if lib.gs_av1_decode(av1, len(av1), info.ctypes.data, None, None, None, None, None, msg, len(msg)):
         raise ValueError(f"{name}: {msg.value.decode()}; the port reads AVIF files of 8-bit AV1 still pictures")
     w, h, mono, sx, sy = (int(v) for v in info[:5])
     if w * h > MAX_PIXELS:
@@ -357,12 +373,17 @@ def av1_planes(av1: bytes, name: str, times=None):
     u = v = None
     if not mono:
         u, v = np.empty((ch, cw), np.uint8), np.empty((ch, cw), np.uint8)
-    t = np.zeros(2, np.float64)
+    t = np.zeros(len(AV1_KEYS), np.float64)
+    used = np.zeros(32, np.int32)
     if lib.gs_av1_decode(av1, len(av1), info.ctypes.data, y.ctypes.data, None if mono else u.ctypes.data,
-                         None if mono else v.ctypes.data, t.ctypes.data, msg, len(msg)):
+                         None if mono else v.ctypes.data, t.ctypes.data, used.ctypes.data, msg, len(msg)):
         raise ValueError(f"{name}: {msg.value.decode()}; the port reads AVIF files of 8-bit AV1 still pictures")
     if times is not None:
-        times[SPLIT_KEYS[1]] = float(t[0])
-        times[SPLIT_KEYS[2]] = float(t[1])
+        times.update(zip(AV1_KEYS, t.tolist()))
+    if tools is not None:
+        tools.update(use_128=int(used[0]), cdef_bits=int(used[1]), lr_unit_shift=int(used[2]),
+                     lr_uv_shift=int(used[3]), lr_types=[RESTORATION_TYPES[int(k)] for k in used[4:7]],
+                     cdef_blocks=[dict(zip(CDEF_KINDS, used[7 + 3 * p:10 + 3 * p].tolist())) for p in range(3)],
+                     lr_units=[dict(zip(LR_KINDS, used[16 + 3 * p:19 + 3 * p].tolist())) for p in range(3)])
     return y, u, v, {"mono": mono, "ss_x": sx, "ss_y": sy, "cp": int(info[6]), "tc": int(info[7]),
                      "mc": int(info[8]), "full_range": int(info[9])}

@@ -1,20 +1,25 @@
 """Generate the fixtures of tests/test_torch_avif.py and of chip_smoke.py's
-phase 5j: AVIF files written by PIL 12.1.0 (libavif 1.3.0, aom 3.12.1)
-from seeded numpy pictures, and PIL's reading of each.
+phases 5j and 5k: AVIF files written by PIL 12.1.0 (libavif 1.3.0, aom
+3.12.1) from seeded numpy pictures, and PIL's reading of each.
 
 - Small files: RGBA with premultiplied alpha (65x33), limited-range 4:2:2
   (130x67), 4:0:0 (7x5), 2x2 tiles (256x256) and an EXIF orientation of 6
-  (1x1).
+  (1x1); and three that use AV1's CDEF and loop restoration: 4:2:2 with
+  CDEF (130x67), 4:0:0 with self-guided restoration (160x96), RGBA with
+  128x128 superblocks (130x67).
 - Seven 1920x1080 files, the views of phase 5j: 4:2:0 at quality 75 and
   PIL's default speed, 4:4:4 at quality 90, 4:0:0, RGBA, limited range,
   2x2 tiles, and 4:2:0 at quality 50 and speed 10.
+- Three 1920x1080 files of phase 5k, with CDEF and loop restoration: 4:2:0
+  at quality 50 and speed 2 with CDEF on, 4:4:4 at quality 60 and speed 4
+  with CDEF on, 4:2:0 at quality 50 and speed 0.
 - `sha256.json`: for each file, PIL's mode, the shape of
   `np.asarray(Image.open(f))`, the SHA-256 of those pixels' bytes and of
   the file itself. It holds the port to PIL where the machine's PIL has
   no AVIF.
 
 Run from the repo root:  python tests/fixtures/torch_avif/make_fixtures.py
-(about 20 s). The files are checked in; regenerate only if the cases change.
+(about 40 s). The files are checked in; regenerate only if the cases change.
 """
 
 import hashlib
@@ -26,6 +31,7 @@ import numpy as np
 from PIL import Image
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+CDEF_ON = {"enable-cdef": "1"}  # aom 3.12.1 leaves CDEF off for still pictures unless asked
 
 
 def picture(h, w, channels, seed):
@@ -68,6 +74,15 @@ def cases():
         "1080p_limited_q75.avif": (picture(1080, 1920, 3, 14), dict(quality=75, range="limited")),
         "1080p_tiles_2x2_q75.avif": (picture(1080, 1920, 3, 15), dict(quality=75, tile_rows=1, tile_cols=1)),
         "1080p_420_q50_s10.avif": (picture(1080, 1920, 3, 16), dict(quality=50, speed=10)),
+        "cdef_422_130x67.avif": (picture(67, 130, 3, 6), dict(quality=60, speed=4, subsampling="4:2:2",
+                                                               advanced=CDEF_ON)),
+        "sgrproj_400_160x96.avif": (picture(96, 160, 3, 7), dict(quality=50, speed=4, subsampling="4:0:0")),
+        "rgba_sb128_130x67.avif": (alpha_picture(67, 130, 8), dict(quality=50, speed=2,
+                                                                  advanced={**CDEF_ON, "sb-size": "128"})),
+        "1080p_420_q50_s2_cdef.avif": (picture(1080, 1920, 3, 17), dict(quality=50, speed=2, advanced=CDEF_ON)),
+        "1080p_444_q60_s4_cdef.avif": (picture(1080, 1920, 3, 18), dict(quality=60, speed=4, subsampling="4:4:4",
+                                                                        advanced=CDEF_ON)),
+        "1080p_420_q50_s0.avif": (picture(1080, 1920, 3, 19), dict(quality=50, speed=0)),
     }
 
 

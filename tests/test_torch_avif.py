@@ -5,7 +5,11 @@ against the JAX package.
 Every file is written here by the installed PIL (12.1.0: aom 3.12.1) from seeded
 numpy pictures, or is a committed fixture of `tests/fixtures/torch_avif`;
 PIL's reading of it is the rule: `image_io.open_image` gives PIL's mode and
-pixels bit for bit. The tools this port does not decode yet are refused by
+pixels bit for bit. AV1's in-loop filters after deblocking, CDEF and loop
+restoration (Wiener and self-guided), are held to PIL on files aom writes at
+speeds 0-4 or with CDEF asked for, and a test hook of the decoder
+(`avif.av1_planes(..., tools=...)`) shows that those files together used
+each of their cases. The tools this port does not decode yet are refused by
 name: each refusal is made by PIL's writer where aom can be asked for the
 tool, else (superres, 10-bit) by an edit of a PIL-written file's header
 bits, stated beside the case.
@@ -206,6 +210,191 @@ def test_encoder_options_that_use_decoded_tools_read_bit_equal(tmp_path, cxx, ad
     assert_reads_as_pil(tmp_path, data, str(advanced))
 
 
+# ---- CDEF and loop restoration (Wiener, self-guided) ----
+
+CDEF_ON = {"enable-cdef": "1"}  # aom 3.12.1 leaves CDEF off for still pictures unless asked
+QUALITIES = (20, 50, 85)
+SUBSAMPLINGS = ("4:2:0", "4:2:2", "4:4:4", "4:0:0")
+# the sizes each speed writes; speed 0 only small ones, where aom is slowest
+SPEED_SIZES = {0: [(1, 1), (7, 5), (65, 33), (130, 67)], 1: [(7, 5), (65, 33), (130, 67), (160, 130)],
+               2: [(65, 33), (130, 67), (160, 130), (7, 5)], 3: [(130, 67), (257, 131), (256, 200)],
+               4: [(257, 131), (256, 200), (130, 67)]}
+_WRITTEN = {}
+
+
+def written(size, kind, seed, alpha=False, **options):
+    """(PIL's file of a seeded picture, the tools each of its AV1 items used
+    by the decoder's test hook with the item's subsampling). Cached: the
+    coverage test reads the files the other tests wrote."""
+    key = repr((size, kind, seed, alpha, sorted(options.items())))
+    if key not in _WRITTEN:
+        w, h = size
+        px = picture(h, w, seed, kind)
+        data = pil_avif(with_alpha(px, seed) if alpha else px, **options)
+        items = avif.parse(data, "x")
+        used = []
+        for item in ("color", "alpha"):
+            if items[item] is not None:
+                tools = {}
+                seq = avif.av1_planes(items[item], "x", tools=tools)[3]
+                used.append({**tools, "item": item, "ss": (seq["mono"], seq["ss_x"], seq["ss_y"])})
+        _WRITTEN[key] = data, used
+    return _WRITTEN[key]
+
+
+def matrix_files(quality, subsampling, cdef):
+    """The matrix's two files for one quality, subsampling and CDEF setting:
+    the speeds (0-4), sizes and picture kinds turn with the case, so that
+    the 24 cases together write each speed at each of its sizes."""
+    g = QUALITIES.index(quality) * 8 + SUBSAMPLINGS.index(subsampling) * 2 + int(cdef)
+    files = []
+    for i, speed in enumerate((g % 5, (g + 2) % 5)):
+        sizes = SPEED_SIZES[speed]
+        options = dict(quality=quality, speed=speed, subsampling=subsampling)
+        if cdef:
+            options["advanced"] = CDEF_ON
+        files.append(dict(size=sizes[(g // 5 + i) % len(sizes)], kind=KINDS[(g + i) % len(KINDS)], seed=g + 7 * i,
+                          **options))
+    return files
+
+
+MATRIX = [(q, sub, cdef) for q in QUALITIES for sub in SUBSAMPLINGS for cdef in (False, True)]
+
+
+@requires_avif
+@pytest.mark.parametrize("quality, subsampling, cdef", MATRIX)
+def test_files_with_cdef_and_loop_restoration_read_bit_equal(tmp_path, cxx, quality, subsampling, cdef):
+    """Files aom writes at speeds 0-4 (loop restoration) and with CDEF on
+    read as PIL reads them; sizes that are not multiples of 8 or 64 read
+    CDEF's decoded padding past the picture's edge."""
+    for f in matrix_files(quality, subsampling, cdef):
+        assert_reads_as_pil(tmp_path, written(**f)[0], str(f))
+
+
+# files of one tool or setting each: name -> `written` arguments
+SPECIAL_FILES = {
+    "sb-size 128": dict(size=(130, 67), kind="scene", seed=120, quality=50, speed=2,
+                        advanced={**CDEF_ON, "sb-size": "128"}),
+    "sb-size 64": dict(size=(130, 67), kind="scene", seed=120, quality=50, speed=2,
+                       advanced={**CDEF_ON, "sb-size": "64"}),
+    "2x2 tiles": dict(size=(384, 384), kind="scene", seed=121, quality=60, speed=4, tile_rows=1, tile_cols=1,
+                      advanced=CDEF_ON),
+    "RGBA": dict(size=(130, 67), kind="scene", seed=122, alpha=True, quality=50, speed=3, advanced=CDEF_ON),
+    "RGBA premultiplied": dict(size=(130, 67), kind="scene", seed=123, alpha=True, quality=50, speed=2,
+                               alpha_premultiplied=True, advanced=CDEF_ON),
+    "limited range": dict(size=(160, 130), kind="scene", seed=124, quality=40, speed=4, range="limited",
+                          advanced=CDEF_ON),
+    "full range": dict(size=(160, 130), kind="edges", seed=125, quality=40, speed=4, range="full",
+                       advanced=CDEF_ON),
+    "switchable": dict(size=(257, 131), kind="gradient", seed=1, quality=85, speed=2),
+}
+
+
+@requires_avif
+@pytest.mark.parametrize("name", list(SPECIAL_FILES))
+def test_filter_settings_read_bit_equal(tmp_path, cxx, name):
+    """aom's superblock size option (libavif passes it on: use_128 follows
+    it), 2x2 tiles (the restoration references start afresh in each
+    tile), RGBA (the alpha item is a 4:0:0 AV1 that uses the tools too),
+    both ranges, a frame of RESTORE_SWITCHABLE: each reads as PIL reads it."""
+    data, used = written(**SPECIAL_FILES[name])
+    got = assert_reads_as_pil(tmp_path, data, name)
+    color = used[0]
+    assert max(color["cdef_bits"], color["lr_unit_shift"]) >= 0, color  # the file uses CDEF or restoration
+    if name.startswith("sb-size"):
+        assert color["use_128"] == (name == "sb-size 128") and color["lr_unit_shift"] >= 0
+    if name == "2x2 tiles":
+        assert sum(sum(k.values()) for k in color["lr_units"]) > 3  # units in more than one tile
+    if name.startswith("RGBA"):
+        assert got.mode == "RGBA" and used[1]["item"] == "alpha" and used[1]["cdef_bits"] >= 0
+    if name == "switchable":
+        assert "switchable" in color["lr_types"]
+
+
+@requires_avif
+@pytest.mark.parametrize("speed", [0, 2, 4])
+def test_lossless_files_skip_cdef_and_restoration(tmp_path, cxx, speed):
+    """Quality 100 is lossless (CodedLossless and AllLossless): neither
+    filter runs, CDEF asked for or not."""
+    data, used = written((65, 33) if speed == 0 else (130, 67), "scene", 126 + speed, quality=100, speed=speed,
+                         advanced=CDEF_ON)
+    assert_reads_as_pil(tmp_path, data)
+    assert (used[0]["cdef_bits"], used[0]["lr_unit_shift"]) == (-1, -1)
+
+
+def flip_to_lr_uv_shift(av1: bytes):
+    """The AV1 item with the one frame-header bit flipped that turns
+    lr_uv_shift from 0 to 1 and changes no other header field the hook
+    shows: the first such bit, found by decoding each flip."""
+    frame = frame_obu_at(av1)[0]
+    base = {}
+    avif.av1_planes(av1, "x", tools=base)
+    assert base["lr_uv_shift"] == 0 and base["lr_types"][1:] != ["none", "none"]
+    for pos in range(8 * 16):
+        byte, bit = frame + pos // 8, pos % 8
+        new = set_bit(av1, byte, bit, 1 - ((av1[byte] >> (7 - bit)) & 1))
+        tools = {}
+        try:
+            avif.av1_planes(new, "x", tools=tools)
+        except ValueError:
+            continue
+        if tools["lr_uv_shift"] == 1 and all(tools[k] == base[k] for k in ("lr_types", "lr_unit_shift", "use_128")):
+            return new, base, tools
+    raise AssertionError("no header bit turns lr_uv_shift to 1")
+
+
+@requires_avif
+def test_lr_uv_shift_read_as_pil_reads_it(tmp_path, cxx):
+    """aom 3.12.1 writes lr_uv_shift 0 (chroma units as large as luma's): a
+    4:2:0 file whose header bit is flipped to 1 (header bits edited) halves
+    the chroma units, which then take more of the tile's symbols; PIL (dav1d)
+    reads the edited file and the port reads it alike."""
+    data = pil_avif(picture(64, 400, 127, "noise"), quality=20, speed=3)
+    av1 = avif.parse(data, "x")["color"]
+    new, base, tools = flip_to_lr_uv_shift(av1)
+    chroma_units = [sum(t["lr_units"][1].values()) + sum(t["lr_units"][2].values()) for t in (base, tools)]
+    assert chroma_units[1] > chroma_units[0], chroma_units
+    at = data.index(av1)
+    assert_reads_as_pil(tmp_path, data[:at] + new + data[at + len(av1):])
+
+
+@requires_avif
+def test_the_files_together_use_each_case_of_cdef_and_restoration():
+    """Through the decoder's test hook: the matrix's and the special files
+    (written again where the tests above did not run in this process)
+    together used CDEF with cdef_bits 0 and above 0; primary-only,
+    secondary-only and both strengths on luma and on chroma; CDEF at 4:2:2;
+    Wiener on luma (7 taps) and chroma (5 taps); self-guided with both radii
+    and with one radius 0; lr_unit_shift 1 and 2; lr_uv_shift read (its value
+    1 only by the edited file above); both filters in 128x128 superblocks."""
+    used = [t for case in MATRIX for f in matrix_files(*case) for t in written(**f)[1]]
+    used += [t for f in SPECIAL_FILES.values() for t in written(**f)[1]]
+    seen = set()
+    for t in used:
+        if t["cdef_bits"] >= 0 and any(sum(k.values()) for k in t["cdef_blocks"]):
+            seen.add(f"cdef_bits {'0' if t['cdef_bits'] == 0 else '>0'}")
+            if t["ss"] == (0, 1, 0):
+                seen.add("CDEF at 4:2:2")
+            if t["use_128"]:
+                seen.add("CDEF in 128x128 superblocks")
+        for p, kinds in enumerate(t["cdef_blocks"]):
+            seen.update(f"CDEF {k} {'luma' if p == 0 else 'chroma'}" for k, n in kinds.items() if n)
+        for p, kinds in enumerate(t["lr_units"]):
+            seen.update(f"{k} {'luma' if p == 0 else 'chroma'}" for k, n in kinds.items() if n)
+            if t["use_128"] and any(kinds.values()):
+                seen.add("restoration in 128x128 superblocks")
+        if t["lr_unit_shift"] >= 0:
+            seen.add(f"lr_unit_shift {t['lr_unit_shift']}")
+            if t["ss"] == (0, 1, 1) and t["lr_types"][1:] != ["none", "none"]:
+                seen.add("lr_uv_shift read")
+    want = {"cdef_bits 0", "cdef_bits >0", "CDEF at 4:2:2", "CDEF in 128x128 superblocks",
+            "restoration in 128x128 superblocks", "wiener luma", "wiener chroma", "sgrproj_both luma",
+            "sgrproj_one luma", "sgrproj_both chroma", "sgrproj_one chroma", "lr_unit_shift 1", "lr_unit_shift 2",
+            "lr_uv_shift read"}
+    want |= {f"CDEF {k} {plane}" for k in avif.CDEF_KINDS for plane in ("luma", "chroma")}
+    assert want <= seen, sorted(want - seen)
+
+
 # ---- the refusals, each naming the tool and the file ----
 
 def frame_obu_at(av1: bytes):
@@ -287,9 +476,6 @@ def refused_cases():
     flat[65:] = (20, 180, 60)
     flat[:, :53] = (128, 128, 255)
     return {
-        "speed 0 (loop restoration)": (lambda: pil_avif(px, quality=50, speed=0), "loop restoration"),
-        "speed 4 (loop restoration)": (lambda: pil_avif(px, quality=50, speed=4), "loop restoration"),
-        "enable-cdef": (lambda: pil_avif(px, quality=50, advanced={"enable-cdef": "1"}), "CDEF"),
         "tune-content screen on flat colours (palette)": (
             lambda: pil_avif(flat, quality=50, advanced={"tune-content": "screen"}), "palette"),
         "film grain (denoise-noise-level)": (
@@ -426,40 +612,63 @@ def test_committed_fixture_reads_as_pil_and_the_json_say(tmp_path, cxx, name):
 
 
 def test_decode_split_names_each_step():
-    data = open(os.path.join(FIXTURES, "tiles_2x2_256x256.avif"), "rb").read()
-    split = {}
-    avif.decode_avif(data, "tiles", split=split)
-    assert sorted(split) == sorted(avif.SPLIT_KEYS) and all(v >= 0 for v in split.values())
+    """The split names every step, CDEF and loop restoration among them,
+    on a file that uses both (and an alpha item, whose steps are added)."""
+    assert avif.SPLIT_KEYS == ("container", "av1_symbols_and_reconstruction", "av1_deblocking", "av1_cdef",
+                               "av1_loop_restoration", "yuv_to_rgb")
+    for name in ("tiles_2x2_256x256.avif", "rgba_sb128_130x67.avif"):
+        data = open(os.path.join(FIXTURES, name), "rb").read()
+        split = {}
+        avif.decode_avif(data, name, split=split)
+        assert sorted(split) == sorted(avif.SPLIT_KEYS) and all(v >= 0 for v in split.values())
 
 
 # ---- both dataset paths against the JAX package ----
 
-def colmap_views(w, h):
+def colmap_views(w, h, filters=False):
     """AVIF views of modes RGB and RGBA (alpha 255 and not), every
-    subsampling and both ranges."""
+    subsampling and both ranges; with `filters`, all written at speed 2
+    with CDEF on (CDEF and loop restoration in use)."""
     a = picture(h, w, 110)
+    more = dict(speed=2, advanced=CDEF_ON) if filters else {}
     return {
-        "v_420.avif": pil_avif(a, quality=70),
-        "v_444.avif": pil_avif(picture(h, w, 111, "edges"), quality=90, subsampling="4:4:4"),
-        "v_422_limited.avif": pil_avif(picture(h, w, 112), quality=50, subsampling="4:2:2", range="limited"),
-        "v_400.avif": pil_avif(a, quality=75, subsampling="4:0:0"),
-        "v_rgba.avif": pil_avif(with_alpha(picture(h, w, 113), 1), quality=80),
+        "v_420.avif": pil_avif(a, quality=70, **more),
+        "v_444.avif": pil_avif(picture(h, w, 111, "edges"), quality=90, subsampling="4:4:4", **more),
+        "v_422_limited.avif": pil_avif(picture(h, w, 112), quality=50, subsampling="4:2:2", range="limited",
+                                       **more),
+        "v_400.avif": pil_avif(a, quality=75, subsampling="4:0:0", **more),
+        "v_rgba.avif": pil_avif(with_alpha(picture(h, w, 113), 1), quality=80, **more),
         "v_rgba_opaque.avif": pil_avif(np.concatenate([a, np.full((h, w, 1), 255, np.uint8)], -1), quality=80,
-                                       speed=10),
-        "v_lossless.avif": pil_avif(picture(h, w, 114, "gradient"), quality=100),
+                                       **(more or dict(speed=10))),
+        "v_lossless.avif": pil_avif(picture(h, w, 114, "gradient"), quality=100, **more),
     }
 
 
+def assert_views_use_both_filters(views):
+    """Some view's AV1 used CDEF and some used loop restoration."""
+    used = []
+    for data in views:
+        tools = {}
+        avif.av1_planes(avif.parse(data, "x")["color"], "x", tools=tools)
+        used.append(tools)
+    assert any(any(sum(k.values()) for k in t["cdef_blocks"]) for t in used)
+    assert any(t["lr_unit_shift"] >= 0 for t in used)
+
+
 @requires_avif
-@pytest.mark.parametrize("resolution", [1, 2])
-def test_colmap_avif_views_match_jax(tmp_path, monkeypatch, cxx, resolution):
+@pytest.mark.parametrize("resolution, filters", [pytest.param(1, False, id="1"), pytest.param(2, False, id="2"),
+                                                 pytest.param(1, True, id="1-speed2-cdef")])
+def test_colmap_avif_views_match_jax(tmp_path, monkeypatch, cxx, resolution, filters):
     """A COLMAP dataset of AVIF views: the Scene's cameras equal the JAX
-    package's, images bit for bit."""
+    package's, images bit for bit; also with views that use CDEF and loop
+    restoration."""
     from test_torch_scene import both_scenes
 
     w, h = 45, 37
     src = str(tmp_path / "avif")
-    views = colmap_views(w, h)
+    views = colmap_views(w, h, filters)
+    if filters:
+        assert_views_use_both_filters(views.values())
     write_colmap_dataset_of(src, views, w, h)
     jscene, scene = both_scenes(tmp_path, monkeypatch, src, eval_split=True, resolution=resolution)
     assert len(scene.get_train_cameras()) + len(scene.get_test_cameras()) == len(views)
@@ -468,13 +677,18 @@ def test_colmap_avif_views_match_jax(tmp_path, monkeypatch, cxx, resolution):
 
 
 @requires_avif
-@pytest.mark.parametrize("white_background", [False, True])
-def test_blender_avif_frames_match_jax(tmp_path, monkeypatch, cxx, white_background):
+@pytest.mark.parametrize("white_background, filters", [
+    pytest.param(False, False, id="False"), pytest.param(True, False, id="True"),
+    pytest.param(True, True, id="True-speed2-cdef")])
+def test_blender_avif_frames_match_jax(tmp_path, monkeypatch, cxx, white_background, filters):
     """read_blender_scene on AVIF frames (named .png, as the transforms file
     names them): PIL's convert("RGBA") through the composite, bit for bit,
-    then load_camera at -r 2."""
+    then load_camera at -r 2; also with frames that use CDEF and loop
+    restoration."""
     w, h = 45, 37
-    frames = list(colmap_views(w, h).values())
+    frames = list(colmap_views(w, h, filters).values())
+    if filters:
+        assert_views_use_both_filters(frames)
     d = tmp_path / "scene"
     (d / "train").mkdir(parents=True)
     listing = []
