@@ -413,6 +413,25 @@ Phases (any failure exits non-zero; none is caught and passed over):
      committed hashes. The views together must use CDEF and loop
      restoration (the decoder's tools hook; each view's are printed).
      `cli.train` -r 1 for 30 iterations as in 5h, its checks and prints.
+  5l. AVIF screen content, AV1's palette mode and IntraBC, after 5k: (a)
+     the three committed 1080p screen-content files of
+     tests/fixtures/torch_avif (PIL 12.1.0 wrote them from make_fixtures'
+     desktop-like screen_picture: 4:2:0 q60 with tune-content=screen, the
+     same with palette off, 4:4:4 q75), held and timed as in 5j (a), with
+     the palette and IntraBC blocks each used and one decode split. (b) A
+     COLMAP dataset of 7 views of trained_r5 on phase 5c's orbit at
+     1920x1080: where this machine's PIL writes AVIF, the renders encoded
+     by it with screen-content options (tune-content=screen at 4:2:0,
+     4:4:4, 4:2:2 limited range and 2x2 tiles, IntraBC alone, PIL's
+     defaults, and 4:0:0 RGBA at limited range with alpha 160 in a band,
+     the path of libyuv's I400 rows), each held to that PIL's decode; else
+     the three fixtures in turn, held to their committed hashes. The views
+     together must use Y palette, UV palette and IntraBC (the decoder's
+     tools hook; each view's are printed). A render's smooth shading need
+     not reach them: where the renders alone do not, each view is encoded
+     again with a seeded 640x360 panel of make_fixtures' screen_picture
+     pasted at a corner, and the phase prints which it took. `cli.train`
+     -r 1 for 30 iterations as in 5h, its checks and prints.
   5d. sharded path (`parallel/sharding.py`), on the one card:
      - the kernels at a row origin: trained_r5 at 1920x1080 with 32x32
        tiles cut into 2 and into 4 strips of tile rows; each strip's
@@ -480,6 +499,7 @@ Phases (any failure exits non-zero; none is caught and passed over):
      frames included, and B), user_render (5g's two render CLIs),
      forms_train (5h's train CLI), dds_train (5i's train CLI),
      avif_train (5j's train CLI), avif_filters_train (5k's train CLI),
+     avif_screen_train (5l's train CLI),
      sharded_2rank and sharded_trainer (both ranks' sums), sharded_nccl1,
      bench (the five in-process runs of 5f) for the compositing kernels
      and the routing,
@@ -2668,6 +2688,33 @@ def check_trainer_state(name, tr, cam, seed):
                        seed, W=cam.width, H=cam.height)
 
 
+def train_cli_on(tag, data, model_dir, n_views, steps, seed):
+    """Phases 5h-5l (b): `cli.train` -r 1 for `steps` iterations on the
+    COLMAP dataset at `data` of `n_views` views at W_MAIN x H_MAIN. Fails
+    unless it ran the steps on every view at full size with finite losses
+    and one launch of each train-path kernel a step; holds the kernels to
+    their plain versions at its final state. Returns (the launches, their
+    max abs errors, the run's train s, scene load s, step median ms, first
+    and last loss)."""
+    reset_launches()
+    scene, tr, train_s, load_s, _ = run_train_cli(["-s", data, "-m", model_dir, "-r", "1", "--iterations",
+                                                   str(steps), "--disable_viewer", "--quiet"])
+    launches = {k: LAUNCH_COUNTERS[k].launches for k in TRAIN_KERNELS}
+    views = scene.get_train_cameras()
+    if tr.iteration != steps or len(views) != n_views or \
+            sorted({(c.width, c.height) for c in views}) != [(W_MAIN, H_MAIN)]:
+        fail(f"{tag}: the train CLI ran {tr.iteration} steps on {len(views)} views")
+    losses_ = [h["loss"] for h in tr.history]
+    if not all(math.isfinite(x) for x in losses_):
+        fail(f"{tag}: the loss is not finite: {losses_}")
+    if launches != {k: steps for k in TRAIN_KERNELS}:
+        fail(f"{tag}: train CLI launches {launches}, not one of each a step")
+    step_ms = float(np.median([h["iter_time_ms"] for h in tr.history]))
+    errs = check_trainer_state(f"{tag} train CLI final state", tr, views[0], seed)
+    del scene, tr
+    return launches, errs, (train_s, load_s, step_ms, losses_[0], losses_[-1])
+
+
 def render_cli_dir(model_dir, split, method, n):
     """The render CLI's output directory of a split, which must hold n
     renders and n ground truths, 00000.png on."""
@@ -3875,28 +3922,14 @@ def _legacy_phase(dev, tmp):
         pic = image_io.open_image(by_name[cam.image_name].image_path)
         if not np.array_equal(pic.pixels[..., :3], px):
             fail(f"legacy forms: view {files[cam.image_name]} does not read back as its render")
-    reset_launches()
-    scene, tr, train_s, load_s, _ = run_train_cli(["-s", data, "-m", model_dir, "-r", "1", "--iterations",
-                                                   str(LEGACY_STEPS), "--disable_viewer", "--quiet"])
-    launches = {k: LAUNCH_COUNTERS[k].launches for k in TRAIN_KERNELS}
-    views = scene.get_train_cameras()
-    if tr.iteration != LEGACY_STEPS or len(views) != len(LEGACY_VIEWS) or \
-            sorted({(c.width, c.height) for c in views}) != [(W_MAIN, H_MAIN)]:
-        fail(f"legacy forms: the train CLI ran {tr.iteration} steps on {len(views)} views")
-    losses_ = [h["loss"] for h in tr.history]
-    if not all(math.isfinite(x) for x in losses_):
-        fail(f"legacy forms: the loss is not finite: {losses_}")
-    if launches != {k: LEGACY_STEPS for k in TRAIN_KERNELS}:
-        fail(f"legacy forms: train CLI launches {launches}, not one of each a step")
-    step_ms = [h["iter_time_ms"] for h in tr.history]
-    errs = check_trainer_state("legacy forms train CLI final state", tr, views[0], 53)
+    launches, errs, (train_s, load_s, step_ms, loss0, loss1) = train_cli_on(
+        "legacy forms", data, model_dir, len(LEGACY_VIEWS), LEGACY_STEPS, 53)
     print(f"  train CLI on a COLMAP dataset of {len(LEGACY_VIEWS)} views of trained_r5 at {W_MAIN}x{H_MAIN}, one "
           f"each {', '.join(LEGACY_VIEWS)} (made in {build_s:.1f} s): -r 1, {LEGACY_STEPS} iterations in "
-          f"{train_s:.2f} s (scene load {load_s:.2f} s), step median {np.median(step_ms):.3f} ms; loss "
-          f"{losses_[0]:.6f} -> {losses_[-1]:.6f}; launches {launches}")
+          f"{train_s:.2f} s (scene load {load_s:.2f} s), step median {step_ms:.3f} ms; loss "
+          f"{loss0:.6f} -> {loss1:.6f}; launches {launches}")
     print(f"  phase peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
           f"wall {time.perf_counter() - t_phase:.1f} s")
-    del scene, tr
     return launches, errs
 
 
@@ -4077,28 +4110,14 @@ def _dds_phase(dev, tmp):
         if not np.array_equal(pic.pixels, want):
             fail(f"DDS: view {files[cam.image_name]} ({form}) does not read back as "
                  f"{'its render' if form in DDS_LOSSLESS else 'its blocks decode'}")
-    reset_launches()
-    scene, tr, train_s, load_s, _ = run_train_cli(["-s", data, "-m", model_dir, "-r", "1", "--iterations",
-                                                   str(DDS_STEPS), "--disable_viewer", "--quiet"])
-    launches = {k: LAUNCH_COUNTERS[k].launches for k in TRAIN_KERNELS}
-    views = scene.get_train_cameras()
-    if tr.iteration != DDS_STEPS or len(views) != len(DDS_VIEWS) or \
-            sorted({(c.width, c.height) for c in views}) != [(W_MAIN, H_MAIN)]:
-        fail(f"DDS: the train CLI ran {tr.iteration} steps on {len(views)} views")
-    losses_ = [h["loss"] for h in tr.history]
-    if not all(math.isfinite(x) for x in losses_):
-        fail(f"DDS: the loss is not finite: {losses_}")
-    if launches != {k: DDS_STEPS for k in TRAIN_KERNELS}:
-        fail(f"DDS: train CLI launches {launches}, not one of each a step")
-    step_ms = [h["iter_time_ms"] for h in tr.history]
-    errs = check_trainer_state("DDS train CLI final state", tr, views[0], 59)
+    launches, errs, (train_s, load_s, step_ms, loss0, loss1) = train_cli_on(
+        "DDS", data, model_dir, len(DDS_VIEWS), DDS_STEPS, 59)
     print(f"  train CLI on a COLMAP dataset of {len(DDS_VIEWS)} views of trained_r5 at {W_MAIN}x{H_MAIN}, one "
           f"each {', '.join(DDS_VIEWS)} (made in {build_s:.1f} s): -r 1, {DDS_STEPS} iterations in "
-          f"{train_s:.2f} s (scene load {load_s:.2f} s), step median {np.median(step_ms):.3f} ms; loss "
-          f"{losses_[0]:.6f} -> {losses_[-1]:.6f}; launches {launches}")
+          f"{train_s:.2f} s (scene load {load_s:.2f} s), step median {step_ms:.3f} ms; loss "
+          f"{loss0:.6f} -> {loss1:.6f}; launches {launches}")
     print(f"  phase peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
           f"wall {time.perf_counter() - t_phase:.1f} s")
-    del scene, tr
     return launches, errs
 
 
@@ -4243,28 +4262,14 @@ def _avif_phase(dev, tmp):
               "held to its decode"
               if pil is not None else "the committed 1080p fixtures (this machine's PIL has no AVIF), held to "
               "PIL 12.1.0's committed hashes")
-    reset_launches()
-    scene, tr, train_s, load_s, _ = run_train_cli(["-s", data, "-m", model_dir, "-r", "1", "--iterations",
-                                                   str(AVIF_STEPS), "--disable_viewer", "--quiet"])
-    launches = {k: LAUNCH_COUNTERS[k].launches for k in TRAIN_KERNELS}
-    views = scene.get_train_cameras()
-    if tr.iteration != AVIF_STEPS or len(views) != len(AVIF_VIEWS) or \
-            sorted({(c.width, c.height) for c in views}) != [(W_MAIN, H_MAIN)]:
-        fail(f"AVIF: the train CLI ran {tr.iteration} steps on {len(views)} views")
-    losses_ = [h["loss"] for h in tr.history]
-    if not all(math.isfinite(x) for x in losses_):
-        fail(f"AVIF: the loss is not finite: {losses_}")
-    if launches != {k: AVIF_STEPS for k in TRAIN_KERNELS}:
-        fail(f"AVIF: train CLI launches {launches}, not one of each a step")
-    step_ms = [h["iter_time_ms"] for h in tr.history]
-    errs = check_trainer_state("AVIF train CLI final state", tr, views[0], 61)
+    launches, errs, (train_s, load_s, step_ms, loss0, loss1) = train_cli_on(
+        "AVIF", data, model_dir, len(AVIF_VIEWS), AVIF_STEPS, 61)
     print(f"  train CLI on a COLMAP dataset of {len(AVIF_VIEWS)} AVIF views of trained_r5 at {W_MAIN}x{H_MAIN} "
           f"({', '.join(v[0] for v in AVIF_VIEWS)}): {source} (made in {build_s:.1f} s); -r 1, {AVIF_STEPS} "
-          f"iterations in {train_s:.2f} s (scene load {load_s:.2f} s), step median {np.median(step_ms):.3f} ms; "
-          f"loss {losses_[0]:.6f} -> {losses_[-1]:.6f}; launches {launches}")
+          f"iterations in {train_s:.2f} s (scene load {load_s:.2f} s), step median {step_ms:.3f} ms; "
+          f"loss {loss0:.6f} -> {loss1:.6f}; launches {launches}")
     print(f"  phase peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
           f"wall {time.perf_counter() - t_phase:.1f} s")
-    del scene, tr
     return launches, errs
 
 
@@ -4282,12 +4287,18 @@ AVIF_FILTER_VIEWS = (("PIL's defaults", {}), ("speed 4", {"speed": 4}), ("speed 
                      ("2x2 tiles speed 4", {"speed": 4, "tile_rows": 1, "tile_cols": 1}))
 
 
-def avif_tools_used(path):
-    """(CDEF's 8x8 blocks, restoration units, a line saying both) of what
-    the decoder's hook saw the file's colour item use."""
+def avif_tools(path):
+    """What the decoder's hook saw the file's colour item use."""
     with open(path, "rb") as f:
         tools = {}
         avif.av1_planes(avif.parse(f.read(), path)["color"], path, tools=tools)
+    return tools
+
+
+def avif_tools_used(path):
+    """(CDEF's 8x8 blocks, restoration units, a line saying both) of what
+    the decoder's hook saw the file's colour item use."""
+    tools = avif_tools(path)
     cdef = sum(sum(k.values()) for k in tools["cdef_blocks"])
     units = [sum(k.values()) for k in tools["lr_units"]]
     filtered = f"CDEF (cdef_bits {tools['cdef_bits']}, {cdef} blocks)" if cdef else "no CDEF"
@@ -4368,28 +4379,162 @@ def _avif_filters_phase(dev, tmp):
     print(f"  {len(used)} views, {source}, made in {build_s:.1f} s:")
     for label, _, _, line in used:
         print(f"    {label}: {line}")
-    reset_launches()
-    scene, tr, train_s, load_s, _ = run_train_cli(["-s", data, "-m", model_dir, "-r", "1", "--iterations",
-                                                   str(AVIF_STEPS), "--disable_viewer", "--quiet"])
-    launches = {k: LAUNCH_COUNTERS[k].launches for k in TRAIN_KERNELS}
-    views = scene.get_train_cameras()
-    if tr.iteration != AVIF_STEPS or len(views) != len(AVIF_FILTER_VIEWS) or \
-            sorted({(c.width, c.height) for c in views}) != [(W_MAIN, H_MAIN)]:
-        fail(f"AVIF filters: the train CLI ran {tr.iteration} steps on {len(views)} views")
-    losses_ = [h["loss"] for h in tr.history]
-    if not all(math.isfinite(x) for x in losses_):
-        fail(f"AVIF filters: the loss is not finite: {losses_}")
-    if launches != {k: AVIF_STEPS for k in TRAIN_KERNELS}:
-        fail(f"AVIF filters: train CLI launches {launches}, not one of each a step")
-    step_ms = [h["iter_time_ms"] for h in tr.history]
-    errs = check_trainer_state("AVIF filters train CLI final state", tr, views[0], 62)
+    launches, errs, (train_s, load_s, step_ms, loss0, loss1) = train_cli_on(
+        "AVIF filters", data, model_dir, len(AVIF_FILTER_VIEWS), AVIF_STEPS, 62)
     print(f"  train CLI on a COLMAP dataset of {len(AVIF_FILTER_VIEWS)} AVIF views of trained_r5 at "
           f"{W_MAIN}x{H_MAIN}: -r 1, {AVIF_STEPS} iterations in {train_s:.2f} s (scene load {load_s:.2f} s), "
-          f"step median {np.median(step_ms):.3f} ms; loss {losses_[0]:.6f} -> {losses_[-1]:.6f}; "
+          f"step median {step_ms:.3f} ms; loss {loss0:.6f} -> {loss1:.6f}; "
           f"launches {launches}; max abs errors {dict(zip(TRAIN_KERNELS, errs))}")
     print(f"  phase peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
           f"wall {time.perf_counter() - t_phase:.1f} s")
-    del scene, tr
+    return launches, errs
+
+
+# ---- phase 5l: AVIF screen content (palette, IntraBC) ------------------------
+
+# the committed 1080p screen-content fixtures (make_fixtures.py's
+# screen_picture): palette and IntraBC together, IntraBC alone, 4:4:4
+AVIF_SCREEN_FIXTURES = ("1080p_screen_420_q60.avif", "1080p_intrabc_420_q60.avif", "1080p_screen_444_q75.avif")
+AVIF_SCREEN = {"tune-content": "screen"}
+# the seven views: PIL's save options where this machine's PIL writes AVIF
+# (the renders; "4:0:0 RGBA limited" with alpha below 255 in a band, so
+# that the file has an alpha item: libyuv's I400 rows), else the fixtures
+# in turn
+AVIF_SCREEN_VIEWS = (("screen 4:2:0", {"quality": 60, "advanced": AVIF_SCREEN}),
+                     ("screen 4:4:4", {"quality": 75, "subsampling": "4:4:4", "advanced": AVIF_SCREEN}),
+                     ("IntraBC alone", {"quality": 60, "advanced": {**AVIF_SCREEN, "enable-palette": "0"}}),
+                     ("4:0:0 RGBA limited", {"quality": 60, "subsampling": "4:0:0", "range": "limited",
+                                             "advanced": AVIF_SCREEN}),
+                     ("screen 4:2:2 limited", {"quality": 50, "subsampling": "4:2:2", "range": "limited",
+                                               "advanced": AVIF_SCREEN}),
+                     ("2x2 tiles", {"quality": 60, "tile_rows": 1, "tile_cols": 1, "advanced": AVIF_SCREEN}),
+                     ("PIL's defaults", {}))
+
+
+def avif_screen_tools(path):
+    """(Y palette blocks, UV palette blocks, IntraBC blocks, a line) of what
+    the decoder's hook saw the file's colour item use."""
+    tools = avif_tools(path)
+    y, uv, ibc = (sum(tools[k].values()) for k in ("palette_y", "palette_uv", "intrabc"))
+    line = (f"palette Y {y} / UV {uv} blocks, IntraBC {ibc} ({tools['intrabc']['default']} by the default DV), "
+            f"var-tx depths {tools['vartx_depths']}, inter tx sets {tools['inter_tx_sets']}")
+    return y, uv, ibc, line
+
+
+def screen_panel(seed):
+    """make_fixtures.py's seeded desktop-like screen_picture, a third of
+    the view each way (640x360): the panel 5l pastes into its views where
+    the renders alone do not reach palette and IntraBC."""
+    spec = importlib.util.spec_from_file_location("avif_make_fixtures",
+                                                  os.path.join(AVIF_FIXTURES, "make_fixtures.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.screen_picture(H_MAIN // 3, W_MAIN // 3, seed)
+
+
+def avif_screen_phase(dev):
+    """Phase 5l (module docstring). Returns the compositing kernels'
+    launches in the train CLI run and the max abs errors of the forward,
+    the backward and the routing against their plain versions at its final
+    state."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_avif_screen_")
+    try:
+        return _avif_screen_phase(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _avif_screen_phase(dev, tmp):
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) The committed 1080p screen-content files.
+    times, first, split = check_avif_fixtures(AVIF_SCREEN_FIXTURES)
+    print(f"AVIF screen content (palette, IntraBC): {len(times)} committed 1080p files of tests/fixtures/torch_avif "
+          f"read with PIL 12.1.0's mode, shape and pixels (sha256.json); decode ms, median of 5 (host clock), beside "
+          f"PIL's median of 3 on this machine ({avif_versions()}):")
+    for name, (ms, pil_ms) in times.items():
+        print(f"  {name}: {ms:.2f} ms (PIL {pil_ms}); {avif_screen_tools(os.path.join(AVIF_FIXTURES, name))[3]}")
+    print(f"  one decode of {first}, host clock: " +
+          ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in split.items()))
+
+    # (b) A COLMAP dataset of trained_r5 with seven 1080p screen-content views.
+    t0 = time.perf_counter()
+    data, model_dir = os.path.join(tmp, "data"), os.path.join(tmp, "model")
+    model = load_gaussians_ply(TRAINED_PLY)
+    cams, images = orbit_dataset(len(AVIF_SCREEN_VIEWS), W_MAIN, H_MAIN)
+    write_colmap_scene(data, cams, images, model["xyz"], dc_colors(model))
+    pil = avif_pil()
+    with open(os.path.join(AVIF_FIXTURES, "sha256.json")) as f:
+        readings = json.load(f)["files"]
+    alpha = np.full((H_MAIN, W_MAIN), 255, np.uint8)
+    alpha[H_MAIN // 3:H_MAIN // 3 + 96] = 160
+    files, fixture_of, labels = {}, {}, {}
+    for cam in cams:
+        files[cam.image_name] = cam.image_name + ".avif"
+        os.remove(os.path.join(data, "images", f"{cam.image_name}.png"))
+
+    def write_views(panel):
+        """Each view's file (the render, with the panel at a corner where
+        given); returns what each used."""
+        used = []
+        for i, (cam, px, (label, options)) in enumerate(zip(cams, images, AVIF_SCREEN_VIEWS)):
+            path = os.path.join(data, "images", files[cam.image_name])
+            fixture = AVIF_SCREEN_FIXTURES[i % len(AVIF_SCREEN_FIXTURES)]
+            if pil is not None:
+                rgb = np.array(px[..., :3])
+                if panel is not None:
+                    y0, x0 = (i % 2) * (H_MAIN - panel.shape[0]), ((i // 2) % 2) * (W_MAIN - panel.shape[1])
+                    rgb[y0:y0 + panel.shape[0], x0:x0 + panel.shape[1]] = panel
+                pic = np.concatenate([rgb, alpha[..., None]], -1) if "RGBA" in label else rgb
+                pil.fromarray(pic).save(path, "AVIF", **options)
+            else:
+                shutil.copyfile(os.path.join(AVIF_FIXTURES, fixture), path)
+            fixture_of[cam.image_name] = fixture
+            labels[cam.image_name] = label if pil is not None else f"{label}: {fixture}"
+            used.append(avif_screen_tools(path))
+        return used
+
+    used = write_views(None)
+    panel_needed = pil is not None and not all(any(u[k] for u in used) for k in range(3))
+    if panel_needed:
+        used = write_views(screen_panel(23))
+    if not all(any(u[k] for u in used) for k in range(3)):
+        fail(f"AVIF screen: the views do not use Y palette, UV palette and IntraBC: {[u[3] for u in used]}")
+    rename_views(data, files)
+    build_s = time.perf_counter() - t0
+    info = read_colmap_scene(data, None, eval_split=False)
+    for c in info.train_cameras:
+        pic = image_io.open_image(c.image_path)
+        if pil is not None:
+            with pil.open(c.image_path) as im:
+                want = (im.mode, list(np.asarray(im).shape), sha256_of(np.asarray(im)))
+        else:
+            r = readings[fixture_of[c.image_name]]
+            want = (r["mode"], r["shape"], r["sha256"])
+        if (pic.mode, list(pic.pixels.shape), sha256_of(pic.pixels)) != want:
+            fail(f"AVIF screen: view {files[c.image_name]} ({labels[c.image_name]}) does not read as "
+                 f"{'this machine' if pil is not None else 'PIL 12.1.0'}'s PIL reads it")
+    if pil is not None:
+        source = (f"the renders encoded by this machine's PIL ({avif_versions()}), "
+                  + ("each with a seeded 640x360 screen panel pasted at a corner (the renders alone did not use "
+                     "Y palette, UV palette and IntraBC)" if panel_needed else "the renders alone")
+                  + ", held to its decode")
+    else:
+        source = ("the committed 1080p screen-content fixtures in turn (this machine's PIL has no AVIF), held to "
+                  "PIL 12.1.0's committed hashes")
+    print(f"  {len(used)} views, {source}, made in {build_s:.1f} s:")
+    for cam, u in zip(cams, used):
+        print(f"    {labels[cam.image_name]}: {u[3]}")
+    launches, errs, (train_s, load_s, step_ms, loss0, loss1) = train_cli_on(
+        "AVIF screen", data, model_dir, len(AVIF_SCREEN_VIEWS), AVIF_STEPS, 63)
+    print(f"  train CLI on a COLMAP dataset of {len(AVIF_SCREEN_VIEWS)} AVIF views of trained_r5 at "
+          f"{W_MAIN}x{H_MAIN}: -r 1, {AVIF_STEPS} iterations in {train_s:.2f} s (scene load {load_s:.2f} s), "
+          f"step median {step_ms:.3f} ms; loss {loss0:.6f} -> {loss1:.6f}; "
+          f"launches {launches}; max abs errors {dict(zip(TRAIN_KERNELS, errs))}")
+    print(f"  phase peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
+          f"wall {time.perf_counter() - t_phase:.1f} s")
     return launches, errs
 
 
@@ -5247,6 +5392,12 @@ def main():
         max_err[k] = max(max_err[k], e)
     phase_done("5k AVIF filters")
 
+    # ---- 5l. AVIF screen content: palette and IntraBC --------------------
+    avif_screen_train_launches, avif_screen_errs = avif_screen_phase(dev)
+    for k, e in zip(TRAIN_KERNELS, avif_screen_errs):
+        max_err[k] = max(max_err[k], e)
+    phase_done("5l AVIF screen content")
+
     # ---- 5d. sharded path ---------------------------------------------
     sharded_launches, strip_errs = sharded_phase(dev, gt, center, dist, train_capacity,
                                                  single_ref, step_ms)
@@ -5331,6 +5482,7 @@ def main():
                     "user_render": user_render_launches[name], "forms_train": forms_train_launches[name],
                     "dds_train": dds_train_launches[name], "avif_train": avif_train_launches[name],
                     "avif_filters_train": avif_filters_train_launches[name],
+                    "avif_screen_train": avif_screen_train_launches[name],
                     **{path: counts[name] for path, counts in sharded_launches.items()},
                     "bench": bench_launches[name]}
         return {"profiler": prof_launches[name]}

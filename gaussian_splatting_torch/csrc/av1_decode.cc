@@ -7,8 +7,16 @@
 //                  frame, tile info, the tile group;
 //   8.2            the symbol decoder, CDF adaptation, disable_cdf_update;
 //   5.11.5-5.11.39 intra mode info, transform sizes and types, coefficients;
+//   5.11.46-50     palette mode info, the palette cache and colour tokens;
+//   5.11.23-26, 5.11.31-32, 7.10.2
+//                  IntraBC: use_intrabc, the spatial motion vector stack,
+//                  the DV's prediction and read_mv at integer precision, the
+//                  variable transform tree of an inter block and the inter
+//                  transform sets;
 //   7.11.2         intra prediction (DC, directional with edge filter and
 //                  upsampling, smooth, Paeth, CfL, recursive filter intra);
+//   7.11.3-4       IntraBC's prediction (the inter prediction process from
+//                  the current frame, bilinear), palette prediction;
 //   7.12-7.13      dequantization (quantizer matrices too) and the inverse
 //                  transforms (DCT 4-64, ADST 4/8/16, identity, WHT) with
 //                  the spec's rounding;
@@ -19,8 +27,8 @@
 //                  filter, per restoration unit and per 64-row stripe.
 //
 // What a frame *uses* of the tools this file does not decode (superres, film
-// grain, palette, IntraBC, 10/12-bit samples, inter frames) ends the decode
-// with a message naming the tool. The output is 8-bit Y, U, V planes (Y alone
+// grain, 10/12-bit samples, inter frames) ends the decode with a message
+// naming the tool. The output is 8-bit Y, U, V planes (Y alone
 // for 4:0:0).
 // gs_yuv_to_rgb converts them to RGB as libavif 1.3.0 does for PIL
 // (libyuv's fixed-point rows and filtered chroma upsampling, or libavif's
@@ -75,6 +83,10 @@ enum {
   ADST_FLIPADST, FLIPADST_ADST, IDTX, V_DCT, H_DCT, V_ADST, H_ADST, V_FLIPADST, H_FLIPADST
 };
 enum { TX_SET_DCTONLY, TX_SET_INTRA_1, TX_SET_INTRA_2 };
+enum { TX_SET_INTER_1 = 1, TX_SET_INTER_2, TX_SET_INTER_3 };
+enum { MV_JOINT_ZERO, MV_JOINT_HNZVZ, MV_JOINT_HZVNZ, MV_JOINT_HNZVNZ };
+const int MAX_VARTX_DEPTH = 2, MAX_REF_MV_STACK_SIZE = 8, REF_CAT_LEVEL = 640, MV_BORDER = 128;
+const int INTRABC_DELAY_PIXELS = 256;
 enum { TX_CLASS_2D, TX_CLASS_HORIZ, TX_CLASS_VERT };
 enum { ONLY_4X4, TX_MODE_LARGEST, TX_MODE_SELECT };
 
@@ -145,6 +157,16 @@ const int Mode_To_Txfm[14] = {DCT_DCT,  ADST_DCT, DCT_ADST,  DCT_DCT,  ADST_ADST
                               DCT_ADST, ADST_DCT, ADST_ADST, ADST_DCT, DCT_ADST,  ADST_ADST, DCT_DCT};
 const int Tx_Type_Intra_Inv_Set1[7] = {IDTX, DCT_DCT, V_DCT, H_DCT, ADST_ADST, ADST_DCT, DCT_ADST};
 const int Tx_Type_Intra_Inv_Set2[5] = {IDTX, DCT_DCT, ADST_ADST, ADST_DCT, DCT_ADST};
+const int Tx_Type_Inter_Inv_Set1[16] = {IDTX,         V_DCT,        H_DCT,     V_ADST,
+                                        H_ADST,       V_FLIPADST,   H_FLIPADST, DCT_DCT,
+                                        ADST_DCT,     DCT_ADST,     FLIPADST_DCT, DCT_FLIPADST,
+                                        ADST_ADST,    FLIPADST_FLIPADST, ADST_FLIPADST, FLIPADST_ADST};
+const int Tx_Type_Inter_Inv_Set2[12] = {IDTX,         V_DCT,        H_DCT,     DCT_DCT,
+                                        ADST_DCT,     DCT_ADST,     FLIPADST_DCT, DCT_FLIPADST,
+                                        ADST_ADST,    FLIPADST_FLIPADST, ADST_FLIPADST, FLIPADST_ADST};
+const int Tx_Type_Inter_Inv_Set3[2] = {IDTX, DCT_DCT};
+// Tx_Type_In_Set_Inter[set][type], as bit masks over the 16 types
+const int Tx_Type_In_Set_Inter[4] = {0x0001, 0xFFFF, 0x0FFF, 0x0201};
 
 // CDEF (7.15)
 const int Cdef_Uv_Dir[2][2][8] = {{{0, 1, 2, 3, 4, 5, 6, 7}, {1, 2, 2, 2, 3, 4, 6, 0}},
@@ -352,7 +374,13 @@ struct Cdfs {
   uint16_t cfl_alpha[6][17];
   uint16_t palette_y_mode[7][3][3];
   uint16_t palette_uv_mode[2][3];
+  uint16_t palette_y_size[7][8], palette_uv_size[7][8];
+  uint16_t palette_color[2][7][5][9];
   uint16_t intrabc[3];
+  uint16_t txfm_split[21][3];
+  uint16_t inter_tx_set1[2][17], inter_tx_set2[13], inter_tx_set3[4][3];
+  // MV_INTRABC_CONTEXT's motion vector CDFs ([comp]: 0 rows, 1 columns)
+  uint16_t mv_joint[5], mv_class[2][12], mv_class0_bit[2][3], mv_sign[2][3], mv_bit[2][10][3];
   uint16_t skip[3][3];
   uint16_t segment_id[3][9];
   uint16_t delta_q[5];
@@ -396,9 +424,23 @@ struct Cdfs {
     memcpy(cfl_alpha, Default_Cfl_Alpha_Cdf, sizeof cfl_alpha);
     memcpy(palette_y_mode, Default_Palette_Y_Mode_Cdf, sizeof palette_y_mode);
     memcpy(palette_uv_mode, Default_Palette_Uv_Mode_Cdf, sizeof palette_uv_mode);
+    memcpy(palette_y_size, Default_Palette_Y_Size_Cdf, sizeof palette_y_size);
+    memcpy(palette_uv_size, Default_Palette_Uv_Size_Cdf, sizeof palette_uv_size);
+    memcpy(palette_color, Default_Palette_Color_Cdf, sizeof palette_color);
     intrabc[0] = 30531;
     intrabc[1] = 32768;
     intrabc[2] = 0;
+    memcpy(txfm_split, Default_Txfm_Split_Cdf, sizeof txfm_split);
+    memcpy(inter_tx_set1, Default_Inter_Tx_Type_Set1_Cdf, sizeof inter_tx_set1);
+    memcpy(inter_tx_set2, Default_Inter_Tx_Type_Set2_Cdf, sizeof inter_tx_set2);
+    memcpy(inter_tx_set3, Default_Inter_Tx_Type_Set3_Cdf, sizeof inter_tx_set3);
+    memcpy(mv_joint, Default_Mv_Joint_Cdf, sizeof mv_joint);
+    for (int c = 0; c < 2; c++) {
+      memcpy(mv_class[c], Default_Mv_Class_Cdf, sizeof mv_class[c]);
+      memcpy(mv_class0_bit[c], Default_Mv_Class0_Bit_Cdf, sizeof mv_class0_bit[c]);
+      memcpy(mv_sign[c], Default_Mv_Sign_Cdf, sizeof mv_sign[c]);
+      memcpy(mv_bit[c], Default_Mv_Bit_Cdf, sizeof mv_bit[c]);
+    }
     memcpy(skip, Default_Skip_Cdf, sizeof skip);
     memcpy(segment_id, Default_Segment_Id_Cdf, sizeof segment_id);
     memcpy(delta_q, Default_Delta_Q_Cdf, sizeof delta_q);
@@ -714,7 +756,10 @@ struct Decoder {
 
   // frame state, per 4x4 (mi) unit
   int stride_mi = 0;
-  std::vector<uint8_t> YModes, UVModes, MiSizes, Skips, SegmentIds, TxSizes, InterTxSizes;
+  std::vector<uint8_t> YModes, UVModes, MiSizes, Skips, SegmentIds, InterTxSizes, IsInters;
+  std::vector<uint8_t> PaletteSizes[2], PaletteColors[2];  // 8 colours per mi
+  std::vector<int16_t> Mvs;  // IntraBC's DV per mi: row, column (1/8 sample)
+  std::vector<uint8_t> Decoded;  // the mi has been decoded in this frame
   std::vector<int8_t> DeltaLFs;  // 4 per mi
   std::vector<uint8_t> TxTypes;  // per luma 4x4
   std::vector<uint8_t> LfTxSizes[3];
@@ -744,13 +789,21 @@ struct Decoder {
   // and below each stripe
   std::vector<uint8_t> deblocked[3];
   // which tools the frame used (gs_av1_decode's `tools`; a test hook)
-  int tools[32] = {0};
+  int tools[64] = {0};
 
   // block state
   int MiRow, MiCol, MiSize, HasChroma, AvailU, AvailL, AvailUChroma, AvailLChroma;
   int segment_id, skip, Lossless, YMode, UVMode, AngleDeltaY, AngleDeltaUV;
   int CflAlphaU, CflAlphaV, use_filter_intra, filter_intra_mode, TxSize, ReadDeltas;
   int MaxLumaW, MaxLumaH, PlaneTxType;
+  // palette (5.11.46): sizes, colours, colour index maps ([row][column])
+  int PaletteSizeY, PaletteSizeUV;
+  int palette_colors_y[8], palette_colors_u[8], palette_colors_v[8];
+  uint8_t ColorMapY[64][64], ColorMapUV[64][64];
+  // IntraBC: is_inter (use_intrabc), its DV (row, column), the motion
+  // vector stack
+  int is_inter, Mv[2];
+  int NumMvFound, RefStackMv[MAX_REF_MV_STACK_SIZE][2], WeightStack[MAX_REF_MV_STACK_SIZE];
   int32_t Quant[1024];
   // per-decoder working buffers (a decoder is per thread): the dequantized block
   // (zeros between blocks), the coefficient levels read so far with 4
@@ -931,7 +984,9 @@ struct Decoder {
     }
     disable_cdf_update = b.f(1);
     allow_screen_content_tools = s.seq_force_screen_content_tools == 2 ? b.f(1) : s.seq_force_screen_content_tools;
-    if (allow_screen_content_tools && s.seq_force_integer_mv == 2) b.f(1);  // force_integer_mv
+    // force_integer_mv: 1 in an intra frame whatever is coded (IntraBC's DVs
+    // are whole samples)
+    if (allow_screen_content_tools && s.seq_force_integer_mv == 2) b.f(1);
     if (s.frame_id_numbers_present) b.f(idLen);  // current_frame_id
     int frame_size_override_flag = s.reduced ? 0 : b.f(1);
     b.f(s.order_hint_bits);  // order_hint
@@ -1196,8 +1251,14 @@ struct Decoder {
     MiSizes.assign(n, 0);
     Skips.assign(n, 0);
     SegmentIds.assign(n, 0);
-    TxSizes.assign(n, 0);
     InterTxSizes.assign(n, 0);
+    IsInters.assign(n, 0);
+    for (int p = 0; p < 2; p++) {
+      PaletteSizes[p].assign(n, 0);
+      PaletteColors[p].assign(n * 8, 0);
+    }
+    Mvs.assign(n * 2, 0);
+    Decoded.assign(n, 0);
     DeltaLFs.assign(n * 4, 0);
     TxTypes.assign(n, 0);
     for (int p = 0; p < 3; p++) LfTxSizes[p].assign(n, 0);
@@ -1497,6 +1558,7 @@ struct Decoder {
       AvailUChroma = AvailLChroma = 0;
     }
     intra_frame_mode_info();
+    palette_tokens();
     read_block_tx_size();
     if (skip) reset_block_context(bw4, bh4);
     for (int y = 0; y < bh4; y++) {
@@ -1507,13 +1569,20 @@ struct Decoder {
         YModes[k] = (uint8_t)YMode;
         UVModes[k] = (uint8_t)UVMode;
         Skips[k] = (uint8_t)skip;
-        TxSizes[k] = (uint8_t)TxSize;
-        InterTxSizes[k] = (uint8_t)TxSize;
         MiSizes[k] = (uint8_t)MiSize;
         SegmentIds[k] = (uint8_t)segment_id;
+        IsInters[k] = (uint8_t)is_inter;
+        Mvs[k * 2] = (int16_t)Mv[0];
+        Mvs[k * 2 + 1] = (int16_t)Mv[1];
+        PaletteSizes[0][k] = (uint8_t)PaletteSizeY;
+        PaletteSizes[1][k] = (uint8_t)PaletteSizeUV;
+        for (int i = 0; i < PaletteSizeY; i++) PaletteColors[0][k * 8 + i] = (uint8_t)palette_colors_y[i];
+        for (int i = 0; i < PaletteSizeUV; i++) PaletteColors[1][k * 8 + i] = (uint8_t)palette_colors_u[i];
+        Decoded[k] = 1;
         for (int i = 0; i < 4; i++) DeltaLFs[k * 4 + i] = (int8_t)DeltaLF[i];
       }
     }
+    if (is_inter) predict_intrabc();
     residual();
   }
 
@@ -1526,19 +1595,24 @@ struct Decoder {
     read_delta_qindex();
     read_delta_lf();
     ReadDeltas = 0;
-    if (allow_intrabc) {
-      if (sd.symbol(cdf.intrabc, 2)) fail("IntraBC (intra block copy, a screen-content tool) in use");
+    is_inter = allow_intrabc ? sd.symbol(cdf.intrabc, 2) : 0;  // use_intrabc
+    PaletteSizeY = PaletteSizeUV = 0;
+    use_filter_intra = 0;
+    AngleDeltaY = AngleDeltaUV = 0;
+    CflAlphaU = CflAlphaV = 0;
+    Mv[0] = Mv[1] = 0;
+    YMode = UVMode = DC_PRED;
+    if (is_inter) {  // DC_PRED modes, no palette, filter intra or CfL; BILINEAR
+      find_mv_stack();
+      assign_dv();
+      return;
     }
     int above = Intra_Mode_Context[AvailU ? (int)YModes[mi(MiRow - 1, MiCol)] : (int)DC_PRED];
     int left = Intra_Mode_Context[AvailL ? (int)YModes[mi(MiRow, MiCol - 1)] : (int)DC_PRED];
     YMode = sd.symbol(cdf.y_mode[above][left], 13);
-    AngleDeltaY = 0;
     int use_angle_delta = MiSize >= BLOCK_8X8;
     if (use_angle_delta && YMode >= V_PRED && YMode <= D67_PRED)
       AngleDeltaY = sd.symbol(cdf.angle_delta[YMode - V_PRED], 7) - 3;
-    UVMode = DC_PRED;
-    AngleDeltaUV = 0;
-    CflAlphaU = CflAlphaV = 0;
     if (HasChroma) {
       int cflAllowed;
       if (Lossless && get_plane_residual_size(MiSize, 1) == BLOCK_4X4) cflAllowed = 1;
@@ -1550,18 +1624,355 @@ struct Decoder {
       if (use_angle_delta && UVMode >= V_PRED && UVMode <= D67_PRED)
         AngleDeltaUV = sd.symbol(cdf.angle_delta[UVMode - V_PRED], 7) - 3;
     }
+    // MiSize >= BLOCK_8X8 in the enum's order: 4x16 and 16x4 blocks too
     if (MiSize >= BLOCK_8X8 && block_width(MiSize) <= 64 && block_height(MiSize) <= 64 &&
-        allow_screen_content_tools) {
-      int bsizeCtx = Mi_Width_Log2[MiSize] + Mi_Height_Log2[MiSize] - 2;
-      if (YMode == DC_PRED && sd.symbol(cdf.palette_y_mode[bsizeCtx][0], 2))
-        fail("palette mode (a screen-content tool) in use");
-      if (HasChroma && UVMode == DC_PRED && sd.symbol(cdf.palette_uv_mode[0], 2))
-        fail("palette mode (a screen-content tool) in use");
-    }
-    use_filter_intra = 0;
-    if (seq.enable_filter_intra && YMode == DC_PRED && std::max(block_width(MiSize), block_height(MiSize)) <= 32) {
+        allow_screen_content_tools)
+      palette_mode_info();
+    if (seq.enable_filter_intra && YMode == DC_PRED && PaletteSizeY == 0 &&
+        std::max(block_width(MiSize), block_height(MiSize)) <= 32) {
       use_filter_intra = sd.symbol(cdf.filter_intra[MiSize], 2);
       if (use_filter_intra) filter_intra_mode = sd.symbol(cdf.filter_intra_mode, 5);
+    }
+  }
+
+  // ------------------------------------------------------------ palette
+  // 5.11.46
+  void palette_mode_info() {
+    int bsizeCtx = Mi_Width_Log2[MiSize] + Mi_Height_Log2[MiSize] - 2;
+    if (YMode == DC_PRED) {
+      int ctx = (AvailU && PaletteSizes[0][mi(MiRow - 1, MiCol)] > 0) +
+                (AvailL && PaletteSizes[0][mi(MiRow, MiCol - 1)] > 0);
+      if (sd.symbol(cdf.palette_y_mode[bsizeCtx][ctx], 2)) {
+        PaletteSizeY = sd.symbol(cdf.palette_y_size[bsizeCtx], 7) + 2;
+        read_palette_colors(0, PaletteSizeY, palette_colors_y);
+        tools[32 + PaletteSizeY - 2]++;
+      }
+    }
+    if (HasChroma && UVMode == DC_PRED) {
+      if (sd.symbol(cdf.palette_uv_mode[PaletteSizeY > 0], 2)) {
+        PaletteSizeUV = sd.symbol(cdf.palette_uv_size[bsizeCtx], 7) + 2;
+        read_palette_colors(1, PaletteSizeUV, palette_colors_u);
+        if (sd.literal(1)) {  // delta_encode_palette_colors_v
+          int bits = 8 - 4 + (int)sd.literal(2);
+          palette_colors_v[0] = (int)sd.literal(8);
+          for (int idx = 1; idx < PaletteSizeUV; idx++) {
+            int delta = (int)sd.literal(bits);
+            if (delta && sd.literal(1)) delta = -delta;
+            int val = palette_colors_v[idx - 1] + delta;
+            if (val < 0) val += 256;
+            if (val >= 256) val -= 256;
+            palette_colors_v[idx] = clip3(0, 255, val);
+          }
+          tools[50]++;
+        } else {
+          for (int idx = 0; idx < PaletteSizeUV; idx++) palette_colors_v[idx] = (int)sd.literal(8);
+          tools[51]++;
+        }
+        tools[39 + PaletteSizeUV - 2]++;
+      }
+    }
+  }
+
+  // The Y (plane 0) or U (plane 1) colours: from the cache, one literal,
+  // then ascending deltas (at least 1 for Y), sorted.
+  void read_palette_colors(int plane, int n, int* colors) {
+    int cache[16];
+    int cacheN = get_palette_cache(plane, cache);
+    int idx = 0;
+    for (int i = 0; i < cacheN && idx < n; i++)
+      if (sd.literal(1)) colors[idx++] = cache[i];
+    tools[46 + plane] += idx;
+    if (idx < n) {
+      colors[idx++] = (int)sd.literal(8);
+      int paletteBits = 0;
+      if (idx < n) paletteBits = 8 - 3 + (int)sd.literal(2);
+      for (; idx < n; idx++) {
+        int delta = (int)sd.literal(paletteBits) + (plane == 0);
+        colors[idx] = std::min(255, colors[idx - 1] + delta);
+        int range = 256 - colors[idx] - (plane == 0);
+        paletteBits = std::min(paletteBits, ceil_log2(range));
+        tools[48 + plane]++;
+      }
+    }
+    std::sort(colors, colors + n);
+  }
+  static int ceil_log2(int x) {
+    if (x < 2) return 0;
+    int i = 1, p = 2;
+    while (p < x) {
+      i++;
+      p <<= 1;
+    }
+    return i;
+  }
+
+  // get_palette_cache: the above and left blocks' colours merged, ascending,
+  // without repeats; the above block only inside the same 64-row band
+  int get_palette_cache(int plane, int* cache) {
+    int aboveN = ((MiRow * 4) % 64) && AvailU ? PaletteSizes[plane][mi(MiRow - 1, MiCol)] : 0;
+    int leftN = AvailL ? PaletteSizes[plane][mi(MiRow, MiCol - 1)] : 0;
+    const uint8_t* above = aboveN ? &PaletteColors[plane][mi(MiRow - 1, MiCol) * 8] : nullptr;
+    const uint8_t* left = leftN ? &PaletteColors[plane][mi(MiRow, MiCol - 1) * 8] : nullptr;
+    int a = 0, l = 0, n = 0;
+    auto add = [&](int v) {
+      if (n == 0 || v != cache[n - 1]) cache[n++] = v;
+    };
+    while (a < aboveN && l < leftN) {
+      int aboveC = above[a], leftC = left[l];
+      if (leftC < aboveC) {
+        add(leftC);
+        l++;
+      } else {
+        add(aboveC);
+        a++;
+        if (leftC == aboveC) l++;
+      }
+    }
+    while (a < aboveN) add(above[a++]);
+    while (l < leftN) add(left[l++]);
+    return n;
+  }
+
+  // 5.11.49: each colour index map, the first index then the anti-diagonals
+  // (the wavefront) by the colour context; past the mi grid's edge the map
+  // repeats its last column and row
+  void palette_tokens() {
+    int bh = block_height(MiSize), bw = block_width(MiSize);
+    int onH = std::min(bh, (MiRows - MiRow) * 4), onW = std::min(bw, (MiCols - MiCol) * 4);
+    if (PaletteSizeY) read_color_map(0, ColorMapY, PaletteSizeY, bw, bh, onW, onH);
+    if (PaletteSizeUV) {
+      bw >>= seq.ss_x;
+      bh >>= seq.ss_y;
+      onW >>= seq.ss_x;
+      onH >>= seq.ss_y;
+      if (bw < 4) {
+        bw += 2;
+        onW += 2;
+      }
+      if (bh < 4) {
+        bh += 2;
+        onH += 2;
+      }
+      read_color_map(1, ColorMapUV, PaletteSizeUV, bw, bh, onW, onH);
+    }
+  }
+  void read_color_map(int plane, uint8_t (*map)[64], int n, int bw, int bh, int onW, int onH) {
+    map[0][0] = (uint8_t)ns_symbols(n);
+    for (int i = 1; i < onH + onW - 1; i++)
+      for (int j = std::min(i, onW - 1); j >= std::max(0, i - onH + 1); j--) {
+        int order[8];
+        int ctx = palette_color_context(map, i - j, j, n, order);
+        map[i - j][j] = (uint8_t)order[sd.symbol(cdf.palette_color[plane][n - 2][ctx], n)];
+      }
+    for (int i = 0; i < onH; i++)
+      for (int j = onW; j < bw; j++) map[i][j] = map[i][onW - 1];
+    for (int i = onH; i < bh; i++)
+      for (int j = 0; j < bw; j++) map[i][j] = map[onH - 1][j];
+  }
+  // get_palette_color_context: the colours ordered by the neighbours' scores
+  // (left 2, above-left 1, above 2); the context of the top three's hash
+  static int palette_color_context(uint8_t (*map)[64], int r, int c, int n, int* order) {
+    int scores[8] = {0};
+    for (int i = 0; i < 8; i++) order[i] = i;
+    if (c > 0) scores[map[r][c - 1]] += 2;
+    if (r > 0 && c > 0) scores[map[r - 1][c - 1]] += 1;
+    if (r > 0) scores[map[r - 1][c]] += 2;
+    for (int i = 0; i < 3; i++) {
+      int maxScore = scores[i], maxIdx = i;
+      for (int j = i + 1; j < n; j++)
+        if (scores[j] > maxScore) {
+          maxScore = scores[j];
+          maxIdx = j;
+        }
+      if (maxIdx != i) {
+        int maxOrder = order[maxIdx];
+        for (int k = maxIdx; k > i; k--) {
+          scores[k] = scores[k - 1];
+          order[k] = order[k - 1];
+        }
+        scores[i] = maxScore;
+        order[i] = maxOrder;
+      }
+    }
+    int hash = 0;
+    for (int i = 0; i < 3; i++) hash += scores[i] * Palette_Color_Hash_Multipliers[i];
+    return Palette_Color_Context[hash];
+  }
+
+  // ------------------------------------------------------------- IntraBC
+  // find_mv_stack (7.10.2) for IntraBC: only the spatial candidates (an
+  // intra frame has no temporal ones), and among them only IntraBC blocks
+  // (RefFrame INTRA_FRAME, is_inter); the global motion vector is zero
+  void find_mv_stack() {
+    int bw4 = Num_4x4_Blocks_Wide[MiSize], bh4 = Num_4x4_Blocks_High[MiSize];
+    NumMvFound = 0;
+    scan_row(-1);
+    scan_col(-1);
+    if (std::max(bw4, bh4) <= 16) scan_point(-1, bw4);
+    int numNearest = NumMvFound;
+    for (int idx = 0; idx < numNearest; idx++) WeightStack[idx] += REF_CAT_LEVEL;
+    scan_point(-1, -1);
+    scan_row(-3);
+    scan_col(-3);
+    if (bh4 > 1) scan_row(-5);
+    if (bw4 > 1) scan_col(-5);
+    sorting(0, numNearest);
+    sorting(numNearest, NumMvFound);
+    // extra_search adds no candidate in an intra frame (none has
+    // RefFrame > INTRA_FRAME): the rest of the first two are the global mv
+    for (int idx = NumMvFound; idx < 2; idx++) RefStackMv[idx][0] = RefStackMv[idx][1] = 0;
+    // context_and_clamping
+    int mbToTop = -(MiRow * 4 * 8), mbToBottom = (MiRows - bh4 - MiRow) * 4 * 8;
+    int mbToLeft = -(MiCol * 4 * 8), mbToRight = (MiCols - bw4 - MiCol) * 4 * 8;
+    for (int idx = 0; idx < NumMvFound; idx++) {
+      int br = MV_BORDER + bh4 * 4 * 8, bc = MV_BORDER + bw4 * 4 * 8;
+      RefStackMv[idx][0] = clip3(mbToTop - br, mbToBottom + br, RefStackMv[idx][0]);
+      RefStackMv[idx][1] = clip3(mbToLeft - bc, mbToRight + bc, RefStackMv[idx][1]);
+    }
+  }
+  void scan_row(int deltaRow) {
+    int bw4 = Num_4x4_Blocks_Wide[MiSize];
+    int end4 = std::min(std::min(bw4, MiCols - MiCol), 16);
+    int deltaCol = 0, useStep16 = bw4 >= 16;
+    if (std::abs(deltaRow) > 1) {
+      deltaRow += MiRow & 1;
+      deltaCol = 1 - (MiCol & 1);
+    }
+    for (int i = 0; i < end4;) {
+      int mvRow = MiRow + deltaRow, mvCol = MiCol + deltaCol + i;
+      if (!is_inside(mvRow, mvCol)) break;
+      int len = std::min(bw4, Num_4x4_Blocks_Wide[MiSizes[mi(mvRow, mvCol)]]);
+      if (std::abs(deltaRow) > 1) len = std::max(2, len);
+      if (useStep16) len = std::max(4, len);
+      add_ref_mv_candidate(mvRow, mvCol, len * 2);
+      i += len;
+    }
+  }
+  void scan_col(int deltaCol) {
+    int bh4 = Num_4x4_Blocks_High[MiSize];
+    int end4 = std::min(std::min(bh4, MiRows - MiRow), 16);
+    int deltaRow = 0, useStep16 = bh4 >= 16;
+    if (std::abs(deltaCol) > 1) {
+      deltaRow = 1 - (MiRow & 1);
+      deltaCol += MiCol & 1;
+    }
+    for (int i = 0; i < end4;) {
+      int mvRow = MiRow + deltaRow + i, mvCol = MiCol + deltaCol;
+      if (!is_inside(mvRow, mvCol)) break;
+      int len = std::min(bh4, Num_4x4_Blocks_High[MiSizes[mi(mvRow, mvCol)]]);
+      if (std::abs(deltaCol) > 1) len = std::max(2, len);
+      if (useStep16) len = std::max(4, len);
+      add_ref_mv_candidate(mvRow, mvCol, len * 2);
+      i += len;
+    }
+  }
+  // a point counts where it is inside the tile and already decoded
+  void scan_point(int deltaRow, int deltaCol) {
+    int mvRow = MiRow + deltaRow, mvCol = MiCol + deltaCol;
+    if (is_inside(mvRow, mvCol) && Decoded[mi(mvRow, mvCol)]) add_ref_mv_candidate(mvRow, mvCol, 4);
+  }
+  // add_ref_mv_candidate and search_stack: IntraBC DVs are whole samples, so
+  // lower_mv_precision leaves them as they are
+  void add_ref_mv_candidate(int mvRow, int mvCol, int weight) {
+    size_t k = mi(mvRow, mvCol);
+    if (!IsInters[k]) return;
+    int r = Mvs[k * 2], c = Mvs[k * 2 + 1];
+    int idx = 0;
+    while (idx < NumMvFound && !(RefStackMv[idx][0] == r && RefStackMv[idx][1] == c)) idx++;
+    if (idx < NumMvFound) {
+      WeightStack[idx] += weight;
+    } else if (NumMvFound < MAX_REF_MV_STACK_SIZE) {
+      RefStackMv[NumMvFound][0] = r;
+      RefStackMv[NumMvFound][1] = c;
+      WeightStack[NumMvFound] = weight;
+      NumMvFound++;
+    }
+  }
+  void sorting(int start, int end) {
+    while (end > start) {
+      int newEnd = start;
+      for (int idx = start + 1; idx < end; idx++)
+        if (WeightStack[idx - 1] < WeightStack[idx]) {
+          std::swap(WeightStack[idx - 1], WeightStack[idx]);
+          std::swap(RefStackMv[idx - 1][0], RefStackMv[idx][0]);
+          std::swap(RefStackMv[idx - 1][1], RefStackMv[idx][1]);
+          newEnd = idx;
+        }
+      end = newEnd;
+    }
+  }
+  // assign_mv for IntraBC: the first nonzero of the stack's two, else the
+  // default DV (a superblock up, or a superblock and INTRABC_DELAY_PIXELS
+  // left in the tile's first superblock row); then read_mv under
+  // MV_INTRABC_CONTEXT with force_integer_mv
+  void assign_dv() {
+    int pr = RefStackMv[0][0], pc = RefStackMv[0][1];
+    if (pr == 0 && pc == 0) {
+      pr = RefStackMv[1][0];
+      pc = RefStackMv[1][1];
+    }
+    int fromStack = pr != 0 || pc != 0;
+    if (!fromStack) {
+      int sbSize4 = seq.use_128 ? 32 : 16;
+      if (MiRow - sbSize4 < MiRowStart) {
+        pr = 0;
+        pc = -(sbSize4 * 4 + INTRABC_DELAY_PIXELS) * 8;
+      } else {
+        pr = -(sbSize4 * 4 * 8);
+        pc = 0;
+      }
+    }
+    tools[52 + !fromStack]++;
+    int joint = sd.symbol(cdf.mv_joint, 4);
+    int dr = 0, dc = 0;
+    if (joint == MV_JOINT_HZVNZ || joint == MV_JOINT_HNZVNZ) dr = read_mv_component(0);
+    if (joint == MV_JOINT_HNZVZ || joint == MV_JOINT_HNZVNZ) dc = read_mv_component(1);
+    Mv[0] = pr + dr;
+    Mv[1] = pc + dc;
+    if ((Mv[0] & 7) || (Mv[1] & 7)) fail("an IntraBC DV of a fraction of a sample (damaged AV1 data)");
+  }
+  // read_mv_component with force_integer_mv (mv_fr 3) and no high precision
+  // (mv_hp 1): magnitudes of whole samples
+  int read_mv_component(int comp) {
+    int sign = sd.symbol(cdf.mv_sign[comp], 2);
+    int mvClass = sd.symbol(cdf.mv_class[comp], 11);
+    int mag;
+    if (mvClass == 0) {
+      mag = ((sd.symbol(cdf.mv_class0_bit[comp], 2) << 3) | (3 << 1) | 1) + 1;
+    } else {
+      int d = 0;
+      for (int i = 0; i < mvClass; i++) d |= sd.symbol(cdf.mv_bit[comp][i], 2) << i;
+      mag = (2 << (mvClass + 2)) + ((d << 3) | (3 << 1) | 1) + 1;
+    }
+    return sign ? -mag : mag;
+  }
+
+  // 7.11.3 for IntraBC: each plane's whole block from the current frame
+  // (before any filter; the filters are off with allow_intrabc) at the
+  // block's DV, by the BILINEAR filter at 8 bits (InterRound0 3,
+  // InterRound1 11). The spec's someUseIntra is always 1 here (an IntraBC
+  // block's RefFrame[0] is INTRA_FRAME), so the chroma of a block below
+  // 8x8 is predicted whole from this block's DV. Samples clamp to the
+  // frame's mi grid (RefUpscaledWidth[-1] = MiCols * MI_SIZE).
+  void predict_intrabc() {
+    uint8_t out[128 * 128];
+    for (int p = 0; p < 1 + 2 * HasChroma; p++) {
+      int sx = p ? seq.ss_x : 0, sy = p ? seq.ss_y : 0;
+      int planeSz = get_plane_residual_size(MiSize, p);
+      int w = block_width(planeSz), h = block_height(planeSz);
+      int baseX = (MiCol >> sx) * 4, baseY = (MiRow >> sy) * 4;
+      int lastX = ((MiCols * 4) >> sx) - 1, lastY = ((MiRows * 4) >> sy) - 1;
+      // positions in 1/16 sample: whole part and filter index
+      int px = (baseX << 4) + ((2 * Mv[1]) >> sx), py = (baseY << 4) + ((2 * Mv[0]) >> sy);
+      int x0 = px >> 4, y0 = py >> 4, fx = px & 15, fy = py & 15;
+      if (p > 0 && (fx || fy)) tools[61]++;
+      if ((Num_4x4_Blocks_Wide[MiSize] == 1 && sx) || (Num_4x4_Blocks_High[MiSize] == 1 && sy)) tools[62]++;
+      auto ref = [&](int i, int j) { return (int)P(p, clip3(0, lastY, y0 + i), clip3(0, lastX, x0 + j)); };
+      auto horiz = [&](int i, int j) { return round2((128 - 8 * fx) * ref(i, j) + 8 * fx * ref(i, j + 1), 3); };
+      for (int i = 0; i < h; i++)
+        for (int j = 0; j < w; j++)
+          out[i * w + j] = (uint8_t)clip3(0, 255, round2((128 - 8 * fy) * horiz(i, j) + 8 * fy * horiz(i + 1, j), 11));
+      for (int i = 0; i < h; i++) memcpy(&P(p, baseY + i, baseX), out + i * w, w);
     }
   }
 
@@ -1689,16 +2100,69 @@ struct Decoder {
     return Subsampled_Size[subsize][sx][sy];
   }
 
+  // the neighbours' transform sizes; a skipped inter block counts as one
+  // transform of its block's size
   int get_above_tx_width(int row, int col) {
-    if (!AvailU) return 64;
+    if (row == MiRow) {
+      if (!AvailU) return 64;
+      if (Skips[mi(row - 1, col)] && IsInters[mi(row - 1, col)]) return block_width(MiSizes[mi(row - 1, col)]);
+    }
     return Tx_Width[InterTxSizes[mi(row - 1, col)]];
   }
   int get_left_tx_height(int row, int col) {
-    if (!AvailL) return 64;
+    if (col == MiCol) {
+      if (!AvailL) return 64;
+      if (Skips[mi(row, col - 1)] && IsInters[mi(row, col - 1)]) return block_height(MiSizes[mi(row, col - 1)]);
+    }
     return Tx_Height[InterTxSizes[mi(row, col - 1)]];
   }
 
+  // 5.11.15-17: an inter block's transform tree (var-tx), else one size
   void read_block_tx_size() {
+    int bw4 = Num_4x4_Blocks_Wide[MiSize], bh4 = Num_4x4_Blocks_High[MiSize];
+    if (TxMode == TX_MODE_SELECT && MiSize > BLOCK_4X4 && is_inter && !skip && !Lossless) {
+      int maxTxSz = Max_Tx_Size_Rect[MiSize];
+      int txW4 = Tx_Width[maxTxSz] / 4, txH4 = Tx_Height[maxTxSz] / 4;
+      for (int row = MiRow; row < MiRow + bh4; row += txH4)
+        for (int col = MiCol; col < MiCol + bw4; col += txW4) read_var_tx_size(row, col, maxTxSz, 0);
+    } else {
+      read_tx_size(!skip || !is_inter);
+      for (int row = MiRow; row < std::min(MiRows, MiRow + bh4); row++)
+        for (int col = MiCol; col < std::min(MiCols, MiCol + bw4); col++) InterTxSizes[mi(row, col)] = (uint8_t)TxSize;
+    }
+  }
+
+  void read_var_tx_size(int row, int col, int txSz, int depth) {
+    if (row >= MiRows || col >= MiCols) return;
+    int split = 0;
+    if (txSz != TX_4X4 && depth != MAX_VARTX_DEPTH) {
+      int above = get_above_tx_width(row, col) < Tx_Width[txSz];
+      int left = get_left_tx_height(row, col) < Tx_Height[txSz];
+      int size = std::min(64, std::max(block_width(MiSize), block_height(MiSize)));
+      int maxTxSz = find_tx_size(size, size);
+      int ctx = (Tx_Size_Sqr_Up[txSz] != maxTxSz) * 3 + (TX_64X64 - maxTxSz) * 6 + above + left;
+      split = sd.symbol(cdf.txfm_split[ctx], 2);
+    }
+    int w4 = Tx_Width[txSz] / 4, h4 = Tx_Height[txSz] / 4;
+    if (split) {
+      int sub = Split_Tx_Size[txSz];
+      int stepW = Tx_Width[sub] / 4, stepH = Tx_Height[sub] / 4;
+      for (int i = 0; i < h4; i += stepH)
+        for (int j = 0; j < w4; j += stepW) read_var_tx_size(row + i, col + j, sub, depth + 1);
+    } else {
+      for (int i = 0; i < h4; i++)
+        for (int j = 0; j < w4; j++) InterTxSizes[mi(row + i, col + j)] = (uint8_t)txSz;
+      TxSize = txSz;
+      tools[54 + depth]++;
+    }
+  }
+  static int find_tx_size(int w, int h) {
+    int t = 0;
+    while (Tx_Width[t] != w || Tx_Height[t] != h) t++;
+    return t;
+  }
+
+  void read_tx_size(int allowSelect) {
     if (Lossless) {
       TxSize = TX_4X4;
       return;
@@ -1706,9 +2170,17 @@ struct Decoder {
     int maxRect = Max_Tx_Size_Rect[MiSize];
     int maxDepth = Max_Tx_Depth[MiSize];
     TxSize = maxRect;
-    if (MiSize > BLOCK_4X4 && TxMode == TX_MODE_SELECT) {
-      int aboveW = AvailU ? get_above_tx_width(MiRow, MiCol) : 0;
-      int leftH = AvailL ? get_left_tx_height(MiRow, MiCol) : 0;
+    if (MiSize > BLOCK_4X4 && allowSelect && TxMode == TX_MODE_SELECT) {
+      // an inter neighbour counts with its block's size
+      int aboveW = 0, leftH = 0;
+      if (AvailU) {
+        size_t k = mi(MiRow - 1, MiCol);
+        aboveW = IsInters[k] ? block_width(MiSizes[k]) : get_above_tx_width(MiRow, MiCol);
+      }
+      if (AvailL) {
+        size_t k = mi(MiRow, MiCol - 1);
+        leftH = IsInters[k] ? block_height(MiSizes[k]) : get_left_tx_height(MiRow, MiCol);
+      }
       int ctx = (aboveW >= Tx_Width[maxRect]) + (leftH >= Tx_Height[maxRect]);
       int depth;
       if (maxDepth > 3) depth = sd.symbol(cdf.tx_64x64[ctx], 3);
@@ -1752,9 +2224,14 @@ struct Decoder {
         for (int p = 0; p < 1 + HasChroma * 2; p++) {
           int planeSz = get_plane_residual_size(MiSize, p);
           if (planeSz == BLOCK_INVALID) fail("an invalid chroma block size");
+          int num4x4W = Num_4x4_Blocks_Wide[planeSz], num4x4H = Num_4x4_Blocks_High[planeSz];
+          if (is_inter && !Lossless && p == 0) {  // the chunk's transform tree
+            transform_tree((MiCol + (chunkX << 4)) * 4, (MiRow + (chunkY << 4)) * 4, std::min(64, num4x4W * 4),
+                           std::min(64, num4x4H * 4));
+            continue;
+          }
           int txSz = Lossless ? TX_4X4 : get_tx_size(p, TxSize);
           int stepX = Tx_Width[txSz] >> 2, stepY = Tx_Height[txSz] >> 2;
-          int num4x4W = Num_4x4_Blocks_Wide[planeSz], num4x4H = Num_4x4_Blocks_High[planeSz];
           int sx = p ? seq.ss_x : 0, sy = p ? seq.ss_y : 0;
           int baseX = (MiCol >> sx) * 4, baseY = (MiRow >> sy) * 4;
           for (int y = 0; y < std::min(num4x4H, 16 >> sy); y += stepY)
@@ -1762,6 +2239,25 @@ struct Decoder {
               transform_block(p, baseX, baseY, txSz, x + ((chunkX << 4) >> sx), y + ((chunkY << 4) >> sy));
         }
       }
+  }
+
+  void transform_tree(int startX, int startY, int w, int h) {
+    if (startX >= MiCols * 4 || startY >= MiRows * 4) return;
+    int txSz = InterTxSizes[mi(startY >> 2, startX >> 2)];
+    if (w <= Tx_Width[txSz] && h <= Tx_Height[txSz]) {
+      transform_block(0, startX, startY, find_tx_size(w, h), 0, 0);
+    } else if (w > h) {
+      transform_tree(startX, startY, w / 2, h);
+      transform_tree(startX + w / 2, startY, w / 2, h);
+    } else if (w < h) {
+      transform_tree(startX, startY, w, h / 2);
+      transform_tree(startX, startY + h / 2, w, h / 2);
+    } else {
+      transform_tree(startX, startY, w / 2, h / 2);
+      transform_tree(startX + w / 2, startY, w / 2, h / 2);
+      transform_tree(startX, startY + h / 2, w / 2, h / 2);
+      transform_tree(startX + w / 2, startY + h / 2, w / 2, h / 2);
+    }
   }
 
   void transform_block(int p, int baseX, int baseY, int txSz, int x, int y) {
@@ -1773,17 +2269,23 @@ struct Decoder {
     int stepX = Tx_Width[txSz] >> 2, stepY = Tx_Height[txSz] >> 2;
     int maxX = (MiCols * 4) - 1, maxY = (MiRows * 4) - 1;
     if (startX >= (maxX >> sx) || startY >= (maxY >> sy)) return;
-    int isCfl = p > 0 && UVMode == UV_CFL_PRED;
-    int mode = p == 0 ? YMode : (isCfl ? DC_PRED : UVMode);
-    int log2W = Tx_Width_Log2[txSz], log2H = Tx_Height_Log2[txSz];
-    predict_intra(p, startX, startY, (p == 0 ? AvailL : AvailLChroma) || x > 0,
-                  (p == 0 ? AvailU : AvailUChroma) || y > 0,
-                  block_decoded(p, (subBlockMiRow >> sy) - 1, (subBlockMiCol >> sx) + stepX),
-                  block_decoded(p, (subBlockMiRow >> sy) + stepY, (subBlockMiCol >> sx) - 1), mode, log2W, log2H);
-    if (isCfl) predict_chroma_from_luma(p, startX, startY, txSz);
-    if (p == 0) {
-      MaxLumaW = startX + stepX * 4;
-      MaxLumaH = startY + stepY * 4;
+    if (!is_inter) {  // an IntraBC block was predicted whole (predict_intrabc)
+      if (p == 0 ? PaletteSizeY : PaletteSizeUV) {
+        predict_palette(p, startX, startY, x, y, txSz);
+      } else {
+        int isCfl = p > 0 && UVMode == UV_CFL_PRED;
+        int mode = p == 0 ? YMode : (isCfl ? DC_PRED : UVMode);
+        int log2W = Tx_Width_Log2[txSz], log2H = Tx_Height_Log2[txSz];
+        predict_intra(p, startX, startY, (p == 0 ? AvailL : AvailLChroma) || x > 0,
+                      (p == 0 ? AvailU : AvailUChroma) || y > 0,
+                      block_decoded(p, (subBlockMiRow >> sy) - 1, (subBlockMiCol >> sx) + stepX),
+                      block_decoded(p, (subBlockMiRow >> sy) + stepY, (subBlockMiCol >> sx) - 1), mode, log2W, log2H);
+        if (isCfl) predict_chroma_from_luma(p, startX, startY, txSz);
+      }
+      if (p == 0) {
+        MaxLumaW = startX + stepX * 4;
+        MaxLumaH = startY + stepY * 4;
+      }
     }
     if (!skip) {
       int eob = coeffs(p, startX, startY, txSz);
@@ -1798,10 +2300,25 @@ struct Decoder {
       }
   }
 
+  // 7.11.4: the block's colours by its colour index map, (x, y) the
+  // transform block's place in the map in 4-sample units
+  void predict_palette(int p, int startX, int startY, int x, int y, int txSz) {
+    const int* palette = p == 0 ? palette_colors_y : (p == 1 ? palette_colors_u : palette_colors_v);
+    uint8_t(*map)[64] = p == 0 ? ColorMapY : ColorMapUV;
+    for (int i = 0; i < Tx_Height[txSz]; i++)
+      for (int j = 0; j < Tx_Width[txSz]; j++)
+        P(p, startY + i, startX + j) = (uint8_t)palette[map[y * 4 + i][x * 4 + j]];
+  }
+
   // ------------------------------------------------------- coefficients
   int get_tx_set(int txSz) {
     int sqr = Tx_Size_Sqr[txSz], up = Tx_Size_Sqr_Up[txSz];
     if (up > TX_32X32) return TX_SET_DCTONLY;
+    if (is_inter) {
+      if (reduced_tx_set || up == TX_32X32) return TX_SET_INTER_3;
+      if (sqr == TX_16X16) return TX_SET_INTER_2;
+      return TX_SET_INTER_1;
+    }
     if (up == TX_32X32) return TX_SET_DCTONLY;
     if (reduced_tx_set) return TX_SET_INTRA_2;
     if (sqr == TX_16X16) return TX_SET_INTRA_2;
@@ -1818,9 +2335,12 @@ struct Decoder {
     if (Lossless || Tx_Size_Sqr_Up[txSz] > TX_32X32) return DCT_DCT;
     int set = get_tx_set(txSz);
     if (p == 0) return TxTypes[mi(y4, x4)];
-    int t = Mode_To_Txfm[UVMode];
+    if (is_inter) {  // the co-located luma type where the chroma set has it
+      int t = TxTypes[mi(std::max(MiRow, y4 << seq.ss_y), std::max(MiCol, x4 << seq.ss_x))];
+      return (Tx_Type_In_Set_Inter[set] >> t) & 1 ? t : DCT_DCT;
+    }
     if (set == TX_SET_DCTONLY) return DCT_DCT;
-    return t;  // every Mode_To_Txfm type is in both intra sets
+    return Mode_To_Txfm[UVMode];  // every Mode_To_Txfm type is in both intra sets
   }
 
   // scans
@@ -2043,7 +2563,15 @@ struct Decoder {
     int set = get_tx_set(txSz);
     int TxType = DCT_DCT;
     int q = segmentation_enabled ? get_qindex(1, segment_id) : base_q_idx;
-    if (set > 0 && q > 0) {
+    if (is_inter) tools[57 + (q > 0 ? set : 0)]++;
+    if (set > 0 && q > 0 && is_inter) {
+      if (set == TX_SET_INTER_1)
+        TxType = Tx_Type_Inter_Inv_Set1[sd.symbol(cdf.inter_tx_set1[Tx_Size_Sqr[txSz]], 16)];
+      else if (set == TX_SET_INTER_2)
+        TxType = Tx_Type_Inter_Inv_Set2[sd.symbol(cdf.inter_tx_set2, 12)];
+      else
+        TxType = Tx_Type_Inter_Inv_Set3[sd.symbol(cdf.inter_tx_set3[Tx_Size_Sqr[txSz]], 2)];
+    } else if (set > 0 && q > 0) {
       int intraDir = use_filter_intra ? Filter_Intra_Mode_To_Intra_Dir[filter_intra_mode] : YMode;
       if (set == TX_SET_INTRA_1)
         TxType = Tx_Type_Intra_Inv_Set1[sd.symbol(cdf.intra_tx_set1[Tx_Size_Sqr[txSz]][intraDir], 7)];
@@ -3052,7 +3580,7 @@ bool kr_kb(int mc, float& kr, float& kb) {
     case 4: kr = 0.30f; kb = 0.11f; return true;
     case 2: case 5: case 6: kr = 0.299f; kb = 0.114f; return true;
     case 7: kr = 0.212f; kb = 0.087f; return true;
-    case 9: case 10: kr = 0.2627f; kb = 0.0593f; return true;
+    case 9: kr = 0.2627f; kb = 0.0593f; return true;
     default: return false;
   }
 }
@@ -3066,13 +3594,21 @@ extern "C" {
 // With y == nullptr only the headers are read. The planes are written
 // with strides width and (width + ss_x) >> ss_x. times (out, 4 doubles):
 // seconds in symbol decoding with reconstruction, in the deblocking filter,
-// in CDEF and in loop restoration. tools (out, 32 ints, or nullptr), which
+// in CDEF and in loop restoration. tools (out, 64 ints, or nullptr), which
 // tools the frame used: use_128x128_superblock; cdef_bits (-1: no CDEF);
 // lr_unit_shift (-1: no loop restoration); lr_uv_shift; each plane's
 // FrameRestorationType (RESTORE_NONE, WIENER, SGRPROJ, SWITCHABLE); at 7 + 3
 // * plane + k the 8x8 blocks CDEF filtered with a primary strength only (k
 // 0), a secondary only (1), both (2); at 16 + 3 * plane + k the restoration
-// units of Wiener (k 0), of self-guided with both radii (1), with one (2).
+// units of Wiener (k 0), of self-guided with both radii (1), with one (2);
+// at 32 + n - 2 and 39 + n - 2 the Y and UV palette blocks of n colours; at
+// 46 and 47 the Y and U colours taken from the palette cache, at 48 and 49
+// those delta-coded; at 50 and 51 the UV palettes whose V colours are
+// delta-coded and raw; at 52 and 53 the IntraBC blocks whose DV prediction
+// came from the stack and from the default DV; at 54 + d the var-tx
+// transform blocks at depth d; at 57 + s the inter transform blocks of tx
+// set s (0: none read); at 61 the IntraBC chroma predictions at a
+// fractional position, at 62 those of blocks below 8x8 at subsampling.
 // Returns 0, or 1 with a message in msg.
 int gs_av1_decode(const uint8_t* data, long long size, int* info, uint8_t* y, uint8_t* u, uint8_t* v,
                   double* times, int* tools, char* msg, int msglen) {
@@ -3158,6 +3694,26 @@ int gs_av1_decode(const uint8_t* data, long long size, int* info, uint8_t* y, ui
 }
 
 
+// The alpha channel into RGBA (a nullptr: RGB out, nothing to do), the colour
+// un-premultiplied where it is premultiplied, as libavif does: libyuv's
+// ARGBUnattenuateRow (x86), (f * 257 * ia) >> 16 through pmulhuw, packed
+// with signed saturation.
+static int unpremultiply(const uint8_t* a, int w, int h, int premultiplied, uint8_t* out) {
+  if (!a) return 0;
+  for (size_t i = 0, n = (size_t)w * h; i < n; i++) {
+    uint8_t al = a[i];
+    uint8_t* o = out + i * 4;
+    o[3] = al;
+    if (!premultiplied || al == 255) continue;
+    uint32_t ia = al == 0 ? 0 : (al == 1 ? 0xffff : 0x10000 / al);
+    for (int c = 0; c < 3; c++) {
+      uint32_t t = ((uint32_t)o[c] * 257u * ia) >> 16;
+      o[c] = t > 32767 ? 0 : (uint8_t)(t > 255 ? 255 : t);
+    }
+  }
+  return 0;
+}
+
 // YUV (8-bit planes, chroma strides (w + ss_x) >> ss_x) to interleaved
 // RGB or RGBA as libavif 1.3.0 converts for PIL's 8-bit avifRGBImage.
 // a: the alpha plane or nullptr (RGB out); premultiplied: un-premultiply
@@ -3167,8 +3723,26 @@ int gs_yuv_to_rgb(const uint8_t* yp, const uint8_t* up, const uint8_t* vp, const
                   int mono, int ss_x, int ss_y, int mc, int cp, int full, int premultiplied, uint8_t* out,
                   char* msg, int msglen) {
   int ch = a ? 4 : 3;
+  // where libavif's conversion fails (PIL: "Reformat failed"): the
+  // matrices it has no conversion for, and identity with subsampled chroma
+  if (mc == 3 || mc == 10 || mc == 11 || mc == 13 || mc == 14 || mc > 15 || (mc == 8 && !full) ||
+      (mc == 0 && !mono && (ss_x || ss_y))) {
+    snprintf(msg, msglen, "an AVIF colour matrix (matrix_coefficients %d%s) libavif cannot convert (PIL: Reformat "
+             "failed)", mc, full ? "" : ", limited range");
+    return 1;
+  }
   const YuvConst* k = libyuv_constants(full, mc, cp);
   bool identity = mc == 0 && !mono;
+  if (mono && a) {
+    // libavif converts 4:0:0 to RGBA by libyuv's I400ToARGBMatrix where
+    // libyuv has constants (identity takes BT.601's), to RGB by its float
+    // path below
+    const YuvConst* km = libyuv_constants(full, mc == 0 ? 6 : mc, cp);
+    if (km) {
+      for (size_t i = 0, n = (size_t)w * h; i < n; i++) yuv_pixel(yp[i], 128, 128, *km, out + i * 4);
+      return unpremultiply(a, w, h, premultiplied, out);
+    }
+  }
   if (!mono && !identity && k) {
     int cw = (w + ss_x) >> ss_x;
     std::vector<uint8_t> ru(w), rv(w), ru2(w), rv2(w);
@@ -3251,22 +3825,7 @@ int gs_yuv_to_rgb(const uint8_t* yp, const uint8_t* up, const uint8_t* vp, const
       }
     }
   }
-  if (a) {
-    for (size_t i = 0, n = (size_t)w * h; i < n; i++) {
-      uint8_t al = a[i];
-      uint8_t* o = out + i * 4;
-      o[3] = al;
-      if (!premultiplied || al == 255) continue;
-      // libyuv's ARGBUnattenuateRow (x86): (f * 257 * ia) >> 16 through
-      // pmulhuw, packed with signed saturation
-      uint32_t ia = al == 0 ? 0 : (al == 1 ? 0xffff : 0x10000 / al);
-      for (int c = 0; c < 3; c++) {
-        uint32_t t = ((uint32_t)o[c] * 257u * ia) >> 16;
-        o[c] = t > 32767 ? 0 : (uint8_t)(t > 255 ? 255 : t);
-      }
-    }
-  }
-  return 0;
+  return unpremultiply(a, w, h, premultiplied, out);
 }
 
 }  // extern "C"

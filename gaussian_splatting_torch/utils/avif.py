@@ -18,14 +18,16 @@ PIL's 8-bit `avifRGBImage`. This module follows those three steps:
 - the AV1 data, decoded by `csrc/av1_decode.cc` (host C++, built by
   `cuda_build.build_host` at first use; no fallback: a failed build
   raises naming the file): a still picture's key frame or intra-only
-  frame, 8-bit, 4:2:0, 4:2:2, 4:4:4 or 4:0:0, with AV1's in-loop filters
+  frame, 8-bit, 4:2:0, 4:2:2, 4:4:4 or 4:0:0, with AV1's screen-content
+  tools (palette mode and intra block copy) and in-loop filters
   (deblocking, CDEF, loop restoration by the Wiener and self-guided
   filters);
 - YUV -> RGB(A) as libavif does it for PIL, in `csrc/av1_decode.cc`'s
   `gs_yuv_to_rgb`: libyuv's 8-bit fixed-point rows with its bilinear
   chroma upsampling where libavif picks libyuv (BT.601, BT.709 and
-  BT.2020 matrices, full or limited range), libavif's own float path
-  elsewhere (identity, 4:0:0 to RGB, other matrices); the alpha item's
+  BT.2020 matrices, full or limited range, and 4:0:0 to RGBA by its
+  I400 rows), libavif's own float path elsewhere (identity, 4:0:0 to RGB,
+  other matrices); the alpha item's
   own AV1 stream as the alpha channel (widened to full range where its
   sequence header says limited, as libavif does), un-premultiplied as
   libavif does where a `prem` reference says the colour is premultiplied.
@@ -35,9 +37,9 @@ brand other than `avif`, `avis`, `mif1`, `msf1`; libavif's
 INVALID_FTYP, BMFF_PARSE_FAILED, TRUNCATED_DATA and NO_CONTENT, which
 PIL's decoder raises as SyntaxError), this raises
 `image_io.NotThisFormat`. What PIL raises otherwise, and the AV1 tools
-this port does not decode yet (superres, film grain, palette and IntraBC,
-10- and 12-bit samples, `grid` and `tmap` items, an `avis` image
-sequence), raise a
+this port does not decode yet (superres, film grain, 10- and 12-bit
+samples, `grid` and `tmap` items, an `avis` image sequence), and the
+colour matrices libavif cannot convert, raise a
 `ValueError` naming the tool and the file.
 """
 
@@ -357,8 +359,16 @@ def av1_planes(av1: bytes, name: str, times=None, tools=None):
     "cdef_bits" (-1 without CDEF), "lr_unit_shift" (-1 without loop
     restoration), "lr_uv_shift", "lr_types" (each plane's frame restoration
     type), "cdef_blocks" (per plane, the 8x8 blocks CDEF filtered with
-    each `CDEF_KINDS` of strengths) and "lr_units" (per plane, the units of
-    each of `LR_KINDS`)."""
+    each `CDEF_KINDS` of strengths), "lr_units" (per plane, the units of
+    each of `LR_KINDS`), "palette_y" and "palette_uv" (the palette blocks of
+    each size 2-8), "palette_cache" and "palette_delta" (the Y and U colours
+    taken from the palette cache and delta-coded), "palette_v" (UV palettes
+    whose V colours are "delta"- or "raw"-coded), "intrabc" (IntraBC blocks
+    whose DV prediction came from the "stack" or the "default" DV),
+    "vartx_depths" (var-tx transform blocks at depth 0, 1, 2),
+    "inter_tx_sets" (inter transform blocks of tx set 0-3, 0 where no type
+    is read) and "intrabc_chroma" (IntraBC chroma predictions at a
+    "fractional" position, and of blocks "below_8x8")."""
     lib = _library(name)
     info = np.zeros(16, np.int32)
     msg = ctypes.create_string_buffer(512)
@@ -374,7 +384,7 @@ def av1_planes(av1: bytes, name: str, times=None, tools=None):
     if not mono:
         u, v = np.empty((ch, cw), np.uint8), np.empty((ch, cw), np.uint8)
     t = np.zeros(len(AV1_KEYS), np.float64)
-    used = np.zeros(32, np.int32)
+    used = np.zeros(64, np.int32)
     if lib.gs_av1_decode(av1, len(av1), info.ctypes.data, y.ctypes.data, None if mono else u.ctypes.data,
                          None if mono else v.ctypes.data, t.ctypes.data, used.ctypes.data, msg, len(msg)):
         raise ValueError(f"{name}: {msg.value.decode()}; the port reads AVIF files of 8-bit AV1 still pictures")
@@ -384,6 +394,13 @@ def av1_planes(av1: bytes, name: str, times=None, tools=None):
         tools.update(use_128=int(used[0]), cdef_bits=int(used[1]), lr_unit_shift=int(used[2]),
                      lr_uv_shift=int(used[3]), lr_types=[RESTORATION_TYPES[int(k)] for k in used[4:7]],
                      cdef_blocks=[dict(zip(CDEF_KINDS, used[7 + 3 * p:10 + 3 * p].tolist())) for p in range(3)],
-                     lr_units=[dict(zip(LR_KINDS, used[16 + 3 * p:19 + 3 * p].tolist())) for p in range(3)])
+                     lr_units=[dict(zip(LR_KINDS, used[16 + 3 * p:19 + 3 * p].tolist())) for p in range(3)],
+                     palette_y=dict(zip(range(2, 9), used[32:39].tolist())),
+                     palette_uv=dict(zip(range(2, 9), used[39:46].tolist())),
+                     palette_cache=used[46:48].tolist(), palette_delta=used[48:50].tolist(),
+                     palette_v=dict(delta=int(used[50]), raw=int(used[51])),
+                     intrabc=dict(stack=int(used[52]), default=int(used[53])), vartx_depths=used[54:57].tolist(),
+                     inter_tx_sets=used[57:61].tolist(),
+                     intrabc_chroma=dict(fractional=int(used[61]), below_8x8=int(used[62])))
     return y, u, v, {"mono": mono, "ss_x": sx, "ss_y": sy, "cp": int(info[6]), "tc": int(info[7]),
                      "mc": int(info[8]), "full_range": int(info[9])}

@@ -1,5 +1,5 @@
 """Generate the fixtures of tests/test_torch_avif.py and of chip_smoke.py's
-phases 5j and 5k: AVIF files written by PIL 12.1.0 (libavif 1.3.0, aom
+phases 5j, 5k and 5l: AVIF files written by PIL 12.1.0 (libavif 1.3.0, aom
 3.12.1) from seeded numpy pictures, and PIL's reading of each.
 
 - Small files: RGBA with premultiplied alpha (65x33), limited-range 4:2:2
@@ -13,13 +13,17 @@ phases 5j and 5k: AVIF files written by PIL 12.1.0 (libavif 1.3.0, aom
 - Three 1920x1080 files of phase 5k, with CDEF and loop restoration: 4:2:0
   at quality 50 and speed 2 with CDEF on, 4:4:4 at quality 60 and speed 4
   with CDEF on, 4:2:0 at quality 50 and speed 0.
+- Three 1920x1080 screen-content files of phase 5l (`screen_picture`,
+  desktop-like), with AV1's palette mode and IntraBC: 4:2:0 at quality 60
+  with `tune-content=screen` (both tools), the same with palette off
+  (IntraBC alone), 4:4:4 at quality 75 with `tune-content=screen`.
 - `sha256.json`: for each file, PIL's mode, the shape of
   `np.asarray(Image.open(f))`, the SHA-256 of those pixels' bytes and of
   the file itself. It holds the port to PIL where the machine's PIL has
   no AVIF.
 
 Run from the repo root:  python tests/fixtures/torch_avif/make_fixtures.py
-(about 40 s). The files are checked in; regenerate only if the cases change.
+(about 50 s). The files are checked in; regenerate only if the cases change.
 """
 
 import hashlib
@@ -32,6 +36,7 @@ from PIL import Image
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CDEF_ON = {"enable-cdef": "1"}  # aom 3.12.1 leaves CDEF off for still pictures unless asked
+SCREEN = {"tune-content": "screen"}
 
 
 def picture(h, w, channels, seed):
@@ -48,6 +53,35 @@ def picture(h, w, channels, seed):
     a = np.stack(out, -1) + rng.normal(0, 2.5, (h, w, channels))
     a[h // 3:h // 2, w // 5:w // 3] = 90 + 30 * np.arange(channels)
     return np.clip(a, 0, 255).astype(np.uint8)
+
+
+def screen_picture(h, w, seed):
+    """A desktop-like screen: a flat ground and six windows with title
+    bars, one holding a render-like picture, the others lines of glyphs
+    (the same 24 shapes, which IntraBC copies) and flat buttons (palette)."""
+    rng = np.random.default_rng(seed)
+    a = np.empty((h, w, 3), np.uint8)
+    a[:] = rng.integers(0, 256, 3)
+    s = max(1, h // 270)
+    shapes = rng.integers(0, 2, (24, 7, 5)).astype(bool)
+    for k in range(6):
+        wh, ww = int(rng.integers(h // 5, h // 2)), int(rng.integers(w // 6, w // 2.5))
+        y0, x0 = int(rng.integers(0, h - wh)), int(rng.integers(0, w - ww))
+        ground, ink, bar = (rng.integers(0, 256, 3) for _ in range(3))
+        a[y0:y0 + wh, x0:x0 + ww] = ground
+        a[y0:y0 + 12 * s, x0:x0 + ww] = bar
+        if k == 0:
+            a[y0 + 12 * s:y0 + wh, x0:x0 + ww] = picture(wh - 12 * s, ww, 3, seed)
+            continue
+        for y in range(y0 + 16 * s, y0 + wh - 9 * s, 10 * s):
+            for i in range(int(rng.integers(ww // (6 * s) // 3, ww // (6 * s))) - 1):
+                x = x0 + 4 * s + 6 * s * i
+                a[y:y + 7 * s, x:x + 5 * s][shapes[rng.integers(0, 24)].repeat(s, 0).repeat(s, 1)] = ink
+        for b in range(3):
+            by, bx = y0 + wh - 10 * s, x0 + ww - (b + 1) * 30 * s
+            if bx > x0:
+                a[by:by + 7 * s, bx:bx + 24 * s] = rng.integers(0, 256, 3)
+    return a
 
 
 def alpha_picture(h, w, seed):
@@ -83,6 +117,11 @@ def cases():
         "1080p_444_q60_s4_cdef.avif": (picture(1080, 1920, 3, 18), dict(quality=60, speed=4, subsampling="4:4:4",
                                                                         advanced=CDEF_ON)),
         "1080p_420_q50_s0.avif": (picture(1080, 1920, 3, 19), dict(quality=50, speed=0)),
+        "1080p_screen_420_q60.avif": (screen_picture(1080, 1920, 20), dict(quality=60, advanced=SCREEN)),
+        "1080p_intrabc_420_q60.avif": (screen_picture(1080, 1920, 21), dict(quality=60, advanced={
+            **SCREEN, "enable-palette": "0"})),
+        "1080p_screen_444_q75.avif": (screen_picture(1080, 1920, 22), dict(quality=75, subsampling="4:4:4",
+                                                                           advanced=SCREEN)),
     }
 
 

@@ -9,10 +9,12 @@ pixels bit for bit. AV1's in-loop filters after deblocking, CDEF and loop
 restoration (Wiener and self-guided), are held to PIL on files aom writes at
 speeds 0-4 or with CDEF asked for, and a test hook of the decoder
 (`avif.av1_planes(..., tools=...)`) shows that those files together used
-each of their cases. The tools this port does not decode yet are refused by
-name: each refusal is made by PIL's writer where aom can be asked for the
-tool, else (superres, 10-bit) by an edit of a PIL-written file's header
-bits, stated beside the case.
+each of their cases; so do screen content's palette mode and intra block
+copy (IntraBC) on files aom writes with `tune-content=screen` or from flat
+colours. The tools this port does not decode yet are refused by name: each
+refusal is made by PIL's writer where aom can be asked for the tool, else
+(superres, 10-bit) by an edit of a PIL-written file's header bits, stated
+beside the case.
 """
 
 import hashlib
@@ -44,7 +46,10 @@ SIZES = [(1, 1), (7, 5), (65, 33), (130, 67), (256, 200)]  # (width, height)
 def picture(h, w, seed, kind="scene", channels=3):
     """Seeded pictures that reach aom's intra tools: "noise"; "gradient";
     "edges" (stripes at three angles: the directional modes and CfL);
-    "scene" (smooth shading, edges, a flat patch, a little noise)."""
+    "scene" (smooth shading, edges, a flat patch, a little noise); and the
+    screen content of `SCREEN_PICTURES` (RGB)."""
+    if kind in SCREEN_PICTURES:
+        return SCREEN_PICTURES[kind](h, w, seed)
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
     if kind == "noise":
@@ -141,17 +146,76 @@ def test_both_ranges_read_bit_equal(tmp_path, cxx, range_, subsampling):
 @requires_avif
 @pytest.mark.parametrize("subsampling", ["4:2:0", "4:4:4", "4:0:0"])
 @pytest.mark.parametrize("premultiplied", [False, True])
-def test_rgba_reads_bit_equal(tmp_path, cxx, premultiplied, subsampling):
+@pytest.mark.parametrize("range_", ["full", "limited"])
+def test_rgba_reads_bit_equal(tmp_path, cxx, range_, premultiplied, subsampling):
     """An alpha item (its own 4:0:0 AV1 stream, `auxl`) gives PIL's "RGBA";
     a `prem` reference un-premultiplies as libavif does (libyuv's
-    ARGBUnattenuate)."""
+    ARGBUnattenuate). 4:0:0 to RGBA goes through libyuv's I400 rows (at
+    limited range they differ from the float path at ten Y codes)."""
     for i, (w, h) in enumerate(SIZES[1:4]):
         for q in (30, 100):
             data = pil_avif(with_alpha(picture(h, w, 50 + i), i), quality=q, subsampling=subsampling,
-                            alpha_premultiplied=premultiplied)
+                            alpha_premultiplied=premultiplied, range=range_)
             got = assert_reads_as_pil(tmp_path, data, f"{w}x{h} q{q}")
             assert got.mode == "RGBA"
     assert (avif.parse(data, "x")["premultiplied"]) == premultiplied
+
+
+def grey_ramp_400(alpha: bool, premultiplied=False) -> bytes:
+    """PIL's lossless full-range 4:0:0 file of every Y code (a 16x16 ramp),
+    RGBA with alpha below 255 on odd rows where `alpha`."""
+    y = np.arange(256, dtype=np.uint8).reshape(16, 16)
+    px = np.repeat(y[..., None], 3, -1)
+    if alpha:
+        a = np.full((16, 16, 1), 255, np.uint8)
+        a[1::2] = 200
+        px = np.concatenate([px, a], -1)
+    return pil_avif(px, quality=100, subsampling="4:0:0", range="full", alpha_premultiplied=premultiplied,
+                    advanced={"enable-palette": "0", "enable-intrabc": "0"})
+
+
+def with_nclx(data: bytes, mc: int, full: bool) -> bytes:
+    """`data` with its `colr` nclx box's matrix_coefficients and range set
+    (libavif converts by the container's colour description)."""
+    at = data.index(b"nclx") + 4  # colour_primaries, transfer, matrix (2 bytes each), range bit
+    out = bytearray(data)
+    out[at + 4:at + 6] = mc.to_bytes(2, "big")
+    out[at + 6] = 0x80 if full else 0
+    return bytes(out)
+
+
+@requires_avif
+@pytest.mark.parametrize("premultiplied", [False, True])
+@pytest.mark.parametrize("matrix", [pytest.param(6, id="BT.601"), pytest.param(1, id="BT.709"),
+                                    pytest.param(9, id="BT.2020"), pytest.param(0, id="identity")])
+def test_400_rgba_at_limited_range_reads_by_libyuvs_rows(tmp_path, cxx, matrix, premultiplied):
+    """Every Y code of a 4:0:0 RGBA file at limited range (the nclx box
+    edited: matrix and range): libavif converts it by libyuv's
+    I400ToARGBMatrix with the matrix's constants (identity with BT.601's),
+    ((y * 0x0101 * yg) >> 16) + ygb, >> 6, clamped. BT.2020's constants
+    give the float path's bytes at every code."""
+    data = with_nclx(grey_ramp_400(True, premultiplied), matrix, False)
+    got = assert_reads_as_pil(tmp_path, data, f"matrix {matrix}")
+    assert got.mode == "RGBA"
+
+
+@requires_avif
+@pytest.mark.parametrize("alpha", [False, True])
+@pytest.mark.parametrize("full", [False, True])
+def test_400_files_of_every_matrix_read_or_fail_as_pil(tmp_path, cxx, full, alpha):
+    """matrix_coefficients 0-20 on a 4:0:0 file, RGB and RGBA: where PIL
+    reads it the port reads it bit-equal; where libavif cannot convert it
+    (3, 10, 11, 13, 14, above 15, YCgCo at limited range) PIL raises and
+    the port raises a ValueError naming the matrix and the file."""
+    base = grey_ramp_400(alpha)
+    for mc in range(21):
+        data = with_nclx(base, mc, full)
+        try:
+            np.asarray(Image.open(io.BytesIO(data)))
+        except RuntimeError:  # PIL: "Conversion from YUV failed: Reformat failed"
+            assert_refused(tmp_path, data, f"matrix_coefficients {mc}")
+            continue
+        assert_reads_as_pil(tmp_path, data, f"matrix {mc}")
 
 
 @requires_avif
@@ -205,7 +269,7 @@ def test_encoder_options_that_use_decoded_tools_read_bit_equal(tmp_path, cxx, ad
     """aom options that change what the frame uses but no refused tool:
     delta q and delta lf, loop filter sharpness, segmentation by aq-mode,
     the reduced transform set, quantizer matrices, screen-content tools (a
-    frame that allows IntraBC, no block using it or palette)."""
+    frame that allows IntraBC)."""
     data = pil_avif(picture(130, 160, 81), quality=45, advanced=advanced)
     assert_reads_as_pil(tmp_path, data, str(advanced))
 
@@ -395,6 +459,160 @@ def test_the_files_together_use_each_case_of_cdef_and_restoration():
     assert want <= seen, sorted(want - seen)
 
 
+# ---- screen content: palette mode and intra block copy (IntraBC) ----
+# aom uses both with `tune-content=screen`, and at PIL's defaults where it
+# detects screen content (flat colours); `enable-palette=0` leaves IntraBC
+# alone.
+
+SCREEN = {"tune-content": "screen"}
+INTRABC_ONLY = {"tune-content": "screen", "enable-palette": "0"}
+
+
+def cells(h, w, seed, colours=6, cell=20):
+    """Flat cells of `colours` random colours: aom's palette."""
+    rng = np.random.default_rng(seed)
+    rgb = rng.integers(0, 256, (colours, 3))
+    idx = rng.integers(0, colours, ((h + cell - 1) // cell, (w + cell - 1) // cell))
+    return rgb[idx].repeat(cell, 0).repeat(cell, 1)[:h, :w].astype(np.uint8)
+
+
+def bands(h, w, seed, cell=4):
+    """Seven vertical bands of 4-px cells, band k of k + 2 colours: every
+    palette size 2-8."""
+    out = np.zeros((h, w, 3), np.uint8)
+    edges = np.linspace(0, w, 8).astype(int)
+    for k in range(7):
+        out[:, edges[k]:edges[k + 1]] = cells(h, edges[k + 1] - edges[k], seed + k, k + 2, cell)
+    return out
+
+
+def glyphs(h, w, seed):
+    """Text-like: six 7x5 glyphs repeated on a flat ground (IntraBC finds
+    the copies), a gradient strip and a noisy corner."""
+    rng = np.random.default_rng(seed)
+    a = np.zeros((h, w, 3), np.uint8) + rng.integers(0, 256, 3).astype(np.uint8)
+    shapes = rng.integers(0, 2, (6, 7, 5)).astype(bool)
+    ink = rng.integers(0, 256, 3).astype(np.uint8)
+    for y in range(2, h - 8, 9):
+        for x in range(3, w - 6, 6):
+            a[y:y + 7, x:x + 5][shapes[rng.integers(0, 6)]] = ink
+    a[h // 2:h // 2 + 10] = np.linspace(0, 255, w)[None, :, None].astype(np.uint8)
+    a[:h // 4, :w // 4] = rng.integers(0, 256, (h // 4, w // 4, 3))
+    return a
+
+
+def shaded_tiles(h, w, seed):
+    """A 48x32 tile of glyphs repeated under a horizontal ramp and a little
+    noise: IntraBC copies that leave a residual (var-tx trees, the inter
+    transform sets)."""
+    rng = np.random.default_rng(seed)
+    tile = glyphs(32, 48, seed).astype(np.int16)
+    a = np.tile(tile, ((h + 31) // 32, (w + 47) // 48, 1))[:h, :w] + (np.arange(w)[None, :, None] // 12)
+    return np.clip(a + rng.normal(0, 2, a.shape), 0, 255).astype(np.uint8)
+
+
+def shaded_squares(h, w, seed):
+    """A 64x64 tile of glyphs repeated under ramps both ways and a little
+    noise: at speed 0 aom splits an IntraBC block's transforms to var-tx
+    depth 2."""
+    rng = np.random.default_rng(seed)
+    tile = glyphs(64, 64, seed).astype(np.int16)
+    a = np.tile(tile, ((h + 63) // 64, (w + 63) // 64, 1))[:h, :w]
+    a = a + np.arange(w)[None, :, None] // 8 + np.arange(h)[:, None, None] // 10
+    return np.clip(a + rng.normal(0, 2, a.shape), 0, 255).astype(np.uint8)
+
+
+SCREEN_PICTURES = {"cells": cells, "bands": bands, "glyphs": glyphs, "shaded_tiles": shaded_tiles,
+                   "shaded_squares": shaded_squares}
+
+
+# name -> `written` arguments; sizes that are not multiples of 8 but the
+# tiled and 128x128-superblock ones
+SCREEN_FILES = {}
+for i, sub in enumerate(SUBSAMPLINGS):
+    SCREEN_FILES[f"cells at PIL's defaults {sub}"] = dict(size=(203, 131), kind="cells", seed=10 + i,
+                                                          subsampling=sub)
+    SCREEN_FILES[f"bands, screen, speed 2 {sub}"] = dict(size=(226, 131), kind="bands", seed=20 + i, quality=60,
+                                                        speed=2, subsampling=sub, advanced=SCREEN)
+    SCREEN_FILES[f"IntraBC alone, speed 2 {sub}"] = dict(size=(193, 129), kind="shaded_tiles", seed=30, quality=60,
+                                                        speed=2, subsampling=sub, advanced=INTRABC_ONLY)
+SCREEN_FILES.update({
+    "IntraBC alone, speed 6": dict(size=(193, 129), kind="shaded_tiles", seed=40, quality=60, speed=6,
+                                   advanced=INTRABC_ONLY),
+    "IntraBC alone, speed 0": dict(size=(256, 200), kind="shaded_squares", seed=0, quality=85, speed=0,
+                                   advanced=INTRABC_ONLY),
+    "IntraBC alone, reduced tx set": dict(size=(193, 129), kind="shaded_tiles", seed=41, quality=60, speed=4,
+                                          advanced={**INTRABC_ONLY, "reduced-tx-type-set": "1"}),
+    "glyphs, speed 10": dict(size=(226, 131), kind="glyphs", seed=42, quality=60, speed=10, advanced=SCREEN),
+    "sb-size 128": dict(size=(256, 200), kind="glyphs", seed=43, quality=50, advanced={**SCREEN, "sb-size": "128"}),
+    "sb-size 64": dict(size=(256, 200), kind="glyphs", seed=43, quality=50, advanced={**SCREEN, "sb-size": "64"}),
+    "2x2 tiles": dict(size=(256, 200), kind="glyphs", seed=44, quality=60, tile_rows=1, tile_cols=1,
+                      advanced=SCREEN),
+    # IntraBC's source must lie in its own tile, four 64x64 superblocks back
+    # in the tile's raster order: 2x2 tiles of 128x100 leave it none
+    "2x1 tiles": dict(size=(256, 200), kind="glyphs", seed=44, quality=60, tile_rows=1, advanced=SCREEN),
+    "lossless": dict(size=(150, 99), kind="glyphs", seed=45, quality=100, advanced=SCREEN),
+    "limited range": dict(size=(203, 131), kind="cells", seed=46, quality=70, range="limited", advanced=SCREEN),
+    "RGBA": dict(size=(203, 131), kind="glyphs", seed=47, alpha=True, quality=70, advanced=SCREEN),
+    "RGBA premultiplied": dict(size=(203, 131), kind="glyphs", seed=48, alpha=True, quality=70,
+                               alpha_premultiplied=True, advanced=SCREEN),
+})
+
+
+@requires_avif
+@pytest.mark.parametrize("name", list(SCREEN_FILES))
+def test_screen_content_reads_bit_equal(tmp_path, cxx, name):
+    """Each file reads as PIL reads it, and uses palette or IntraBC."""
+    data, (used, *_) = written(**SCREEN_FILES[name])
+    got = assert_reads_as_pil(tmp_path, data, name)
+    assert sum(used["palette_y"].values()) + sum(used["intrabc"].values()) > 0, used
+    if name.startswith("IntraBC alone"):
+        assert sum(used["palette_y"].values()) == 0 and sum(used["intrabc"].values()) > 0, used
+    if name.startswith("sb-size"):
+        assert used["use_128"] == (name == "sb-size 128")
+    if name.startswith("RGBA"):
+        assert got.mode == "RGBA"
+    if name == "lossless":
+        assert (used["cdef_bits"], used["lr_unit_shift"]) == (-1, -1)
+
+
+@requires_avif
+def test_the_screen_files_together_use_each_case_of_palette_and_intrabc():
+    """Through the decoder's test hook, over the files above (written again
+    where their tests did not run in this process): Y and UV palettes of
+    every size 2-8; colours from the palette cache and delta-coded on Y and
+    U; V colours delta-coded and raw; IntraBC with its DV predicted from
+    the stack and by the default DV, in 64x64 and 128x128 superblocks and
+    in tiles; chroma at a half sample and of blocks below 8x8 at 4:2:0 and
+    4:2:2; var-tx trees split once and twice (MAX_VARTX_DEPTH); the inter
+    transform sets 1-3 (aom writes each)."""
+    seen = set()
+    for name, f in SCREEN_FILES.items():
+        t = written(**f)[1][0]
+        seen.update(f"Y palette of {n}" for n, k in t["palette_y"].items() if k)
+        seen.update(f"UV palette of {n}" for n, k in t["palette_uv"].items() if k)
+        seen.update(f"{plane} colours from the cache" for plane, k in zip("YU", t["palette_cache"]) if k)
+        seen.update(f"{plane} colours delta-coded" for plane, k in zip("YU", t["palette_delta"]) if k)
+        seen.update(f"V colours {how}" for how, k in t["palette_v"].items() if k)
+        seen.update(f"IntraBC DV from the {how}" for how, k in t["intrabc"].items() if k)
+        if sum(t["intrabc"].values()):
+            seen.add(f"IntraBC in {'128x128' if t['use_128'] else '64x64'} superblocks")
+            if "tiles" in name:
+                seen.add("IntraBC in tiles")
+        for how, k in t["intrabc_chroma"].items():
+            if k and t["ss"] in ((0, 1, 1), (0, 1, 0)):
+                seen.add(f"IntraBC chroma {how} at {'4:2:0' if t['ss'][2] else '4:2:2'}")
+        seen.update(f"var-tx split to depth {d}" for d in (1, 2) if t["vartx_depths"][d])
+        seen.update(f"inter tx set {s}" for s in (1, 2, 3) if t["inter_tx_sets"][s])
+    want = {f"{p} palette of {n}" for p in ("Y", "UV") for n in range(2, 9)}
+    want |= {"Y colours from the cache", "U colours from the cache", "Y colours delta-coded", "U colours delta-coded",
+             "V colours delta", "V colours raw", "IntraBC DV from the stack", "IntraBC DV from the default",
+             "IntraBC in 64x64 superblocks", "IntraBC in 128x128 superblocks", "IntraBC in tiles",
+             "var-tx split to depth 1", "var-tx split to depth 2",
+             "inter tx set 1", "inter tx set 2", "inter tx set 3"}
+    want |= {f"IntraBC chroma {how} at {sub}" for how in ("fractional", "below_8x8") for sub in ("4:2:0", "4:2:2")}
+    assert want <= seen, sorted(want - seen)
+
 # ---- the refusals, each naming the tool and the file ----
 
 def frame_obu_at(av1: bytes):
@@ -471,20 +689,11 @@ def high_bitdepth_edit(av1, frame, seq):
 def refused_cases():
     """name: (a function making the bytes, what the error names)."""
     px = picture(130, 160, 90)
-    flat = np.zeros((130, 160, 3), np.uint8)
-    flat[:65] = (200, 30, 90)
-    flat[65:] = (20, 180, 60)
-    flat[:, :53] = (128, 128, 255)
     return {
-        "tune-content screen on flat colours (palette)": (
-            lambda: pil_avif(flat, quality=50, advanced={"tune-content": "screen"}), "palette"),
         "film grain (denoise-noise-level)": (
             lambda: pil_avif(px, quality=50, advanced={"denoise-noise-level": "25"}), "film grain"),
         "superres (header bits edited)": (lambda: edited(pil_avif(px, quality=50), superres_edit), "superres"),
         "10-bit (header bit edited)": (lambda: edited(pil_avif(px, quality=50), high_bitdepth_edit), "10-bit"),
-        "tune-content screen, palette off (IntraBC)": (
-            lambda: pil_avif(picture(130, 200, 80), quality=45,
-                             advanced={"tune-content": "screen", "enable-palette": "0"}), "IntraBC"),
     }
 
 
@@ -644,6 +853,34 @@ def colmap_views(w, h, filters=False):
     }
 
 
+def screen_views(w, h):
+    """AVIF views of screen content (palette and IntraBC): flat cells at
+    PIL's defaults, `tune-content=screen` at 4:4:4, at 4:2:2 limited range
+    and in RGBA, IntraBC alone at 4:0:0, lossless."""
+    return {
+        "s_cells.avif": pil_avif(cells(h, w, 130)),
+        "s_bands_444.avif": pil_avif(bands(h, w, 131), quality=60, subsampling="4:4:4", advanced=SCREEN),
+        "s_glyphs_422_limited.avif": pil_avif(glyphs(h, w, 132), quality=60, subsampling="4:2:2", range="limited",
+                                              advanced=SCREEN),
+        "s_tiles_400.avif": pil_avif(shaded_tiles(h, w, 133), quality=60, subsampling="4:0:0", advanced=INTRABC_ONLY),
+        "s_glyphs_rgba.avif": pil_avif(with_alpha(glyphs(h, w, 134), 2), quality=70, advanced=SCREEN),
+        "s_tiles_420.avif": pil_avif(shaded_tiles(h, w, 135), quality=60, speed=2, advanced=SCREEN),
+        "s_lossless.avif": pil_avif(glyphs(h, w, 136), quality=100, advanced=SCREEN),
+    }
+
+
+def assert_views_use_screen_tools(views):
+    """The views' AV1 used Y palettes, UV palettes and IntraBC."""
+    used = []
+    for data in views:
+        tools = {}
+        avif.av1_planes(avif.parse(data, "x")["color"], "x", tools=tools)
+        used.append(tools)
+    assert any(sum(t["palette_y"].values()) for t in used)
+    assert any(sum(t["palette_uv"].values()) for t in used)
+    assert any(sum(t["intrabc"].values()) for t in used)
+
+
 def assert_views_use_both_filters(views):
     """Some view's AV1 used CDEF and some used loop restoration."""
     used = []
@@ -657,17 +894,22 @@ def assert_views_use_both_filters(views):
 
 @requires_avif
 @pytest.mark.parametrize("resolution, filters", [pytest.param(1, False, id="1"), pytest.param(2, False, id="2"),
-                                                 pytest.param(1, True, id="1-speed2-cdef")])
+                                                 pytest.param(1, True, id="1-speed2-cdef"),
+                                                 pytest.param(1, "screen", id="1-screen")])
 def test_colmap_avif_views_match_jax(tmp_path, monkeypatch, cxx, resolution, filters):
     """A COLMAP dataset of AVIF views: the Scene's cameras equal the JAX
     package's, images bit for bit; also with views that use CDEF and loop
-    restoration."""
+    restoration, and with screen content (palette and IntraBC, 203x131)."""
     from test_torch_scene import both_scenes
 
-    w, h = 45, 37
+    w, h = (203, 131) if filters == "screen" else (45, 37)
     src = str(tmp_path / "avif")
-    views = colmap_views(w, h, filters)
-    if filters:
+    if filters == "screen":
+        views = screen_views(w, h)
+        assert_views_use_screen_tools(views.values())
+    else:
+        views = colmap_views(w, h, filters)
+    if filters is True:
         assert_views_use_both_filters(views.values())
     write_colmap_dataset_of(src, views, w, h)
     jscene, scene = both_scenes(tmp_path, monkeypatch, src, eval_split=True, resolution=resolution)
@@ -679,15 +921,18 @@ def test_colmap_avif_views_match_jax(tmp_path, monkeypatch, cxx, resolution, fil
 @requires_avif
 @pytest.mark.parametrize("white_background, filters", [
     pytest.param(False, False, id="False"), pytest.param(True, False, id="True"),
-    pytest.param(True, True, id="True-speed2-cdef")])
+    pytest.param(True, True, id="True-speed2-cdef"), pytest.param(True, "screen", id="True-screen")])
 def test_blender_avif_frames_match_jax(tmp_path, monkeypatch, cxx, white_background, filters):
     """read_blender_scene on AVIF frames (named .png, as the transforms file
     names them): PIL's convert("RGBA") through the composite, bit for bit,
     then load_camera at -r 2; also with frames that use CDEF and loop
-    restoration."""
-    w, h = 45, 37
-    frames = list(colmap_views(w, h, filters).values())
-    if filters:
+    restoration, and with screen content (palette and IntraBC)."""
+    if filters == "screen":
+        frames = list(screen_views(203, 131).values())
+        assert_views_use_screen_tools(frames)
+    else:
+        frames = list(colmap_views(45, 37, filters).values())
+    if filters is True:
         assert_views_use_both_filters(frames)
     d = tmp_path / "scene"
     (d / "train").mkdir(parents=True)
