@@ -432,6 +432,24 @@ Phases (any failure exits non-zero; none is caught and passed over):
      again with a seeded 640x360 panel of make_fixtures' screen_picture
      pasted at a corner, and the phase prints which it took. `cli.train`
      -r 1 for 30 iterations as in 5h, its checks and prints.
+  5m. AVIF film grain and image sequences, after 5l: (a) the three
+     committed 1080p files of tests/fixtures/torch_avif (PIL 12.1.0 wrote
+     them: aom's grain test vector 10 at 4:2:0, `denoise-noise-level` 20
+     of a textured picture at 4:4:4, an RGBA 3-frame `avis` sequence with
+     grain on colour and alpha), held and timed as in 5j (a), with each
+     file's film grain parameters (the decoder's tools hook) and one
+     decode split with `av1_film_grain` and its share of the decode. (b) A
+     COLMAP dataset of 7 views of trained_r5 on phase 5c's orbit at
+     1920x1080: where this machine's PIL writes AVIF, the renders encoded
+     by it with aom's grain test vectors (1 and 10 at 4:2:0, 6 at 4:2:2
+     limited range, 12 at 4:4:4, 3 at 4:0:0 RGBA with alpha 160 in a
+     band) and two views as `avis` sequences of the render and two renders
+     shifted 8 and 16 px (RGB with vector 4, premultiplied RGBA with vector
+     2), each held to that PIL's decode (frame 0 of a sequence); else the
+     three fixtures in turn, held to their committed hashes. The views
+     together must use luma and chroma grain, overlap_flag and a track of
+     an `avis` file (each view's are printed). `cli.train` -r 1 for 30
+     iterations as in 5h, its checks and prints.
   5d. sharded path (`parallel/sharding.py`), on the one card:
      - the kernels at a row origin: trained_r5 at 1920x1080 with 32x32
        tiles cut into 2 and into 4 strips of tile rows; each strip's
@@ -499,7 +517,7 @@ Phases (any failure exits non-zero; none is caught and passed over):
      frames included, and B), user_render (5g's two render CLIs),
      forms_train (5h's train CLI), dds_train (5i's train CLI),
      avif_train (5j's train CLI), avif_filters_train (5k's train CLI),
-     avif_screen_train (5l's train CLI),
+     avif_screen_train (5l's train CLI), avif_grain_train (5m's train CLI),
      sharded_2rank and sharded_trainer (both ranks' sums), sharded_nccl1,
      bench (the five in-process runs of 5f) for the compositing kernels
      and the routing,
@@ -2689,7 +2707,7 @@ def check_trainer_state(name, tr, cam, seed):
 
 
 def train_cli_on(tag, data, model_dir, n_views, steps, seed):
-    """Phases 5h-5l (b): `cli.train` -r 1 for `steps` iterations on the
+    """Phases 5h-5m (b): `cli.train` -r 1 for `steps` iterations on the
     COLMAP dataset at `data` of `n_views` views at W_MAIN x H_MAIN. Fails
     unless it ran the steps on every view at full size with finite losses
     and one launch of each train-path kernel a step; holds the kernels to
@@ -4143,6 +4161,17 @@ AVIF_VIEWS = (("4:2:0 q75", {"quality": 75}, "1080p_420_q75.avif"),
 AVIF_ADVANCED = {"enable-cdef": "0", "enable-restoration": "0"}
 
 
+@functools.cache
+def gpu_line() -> str:
+    """The card's name and power limit as `nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader` gives them; fails without them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", "0"],
+                         capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
 def avif_pil():
     """This machine's PIL with AVIF support (its Image module), or None."""
     if importlib.util.find_spec("PIL") is None:
@@ -4530,6 +4559,148 @@ def _avif_screen_phase(dev, tmp):
     launches, errs, (train_s, load_s, step_ms, loss0, loss1) = train_cli_on(
         "AVIF screen", data, model_dir, len(AVIF_SCREEN_VIEWS), AVIF_STEPS, 63)
     print(f"  train CLI on a COLMAP dataset of {len(AVIF_SCREEN_VIEWS)} AVIF views of trained_r5 at "
+          f"{W_MAIN}x{H_MAIN}: -r 1, {AVIF_STEPS} iterations in {train_s:.2f} s (scene load {load_s:.2f} s), "
+          f"step median {step_ms:.3f} ms; loss {loss0:.6f} -> {loss1:.6f}; "
+          f"launches {launches}; max abs errors {dict(zip(TRAIN_KERNELS, errs))}")
+    print(f"  phase peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
+          f"wall {time.perf_counter() - t_phase:.1f} s")
+    return launches, errs
+
+
+# ---- phase 5m: AVIF film grain and image sequences -------------------------
+
+# the committed 1080p fixtures with film grain: aom's test vector 10 at
+# 4:2:0, grain estimated from a textured picture at 4:4:4, an RGBA 3-frame
+# `avis` sequence with grain on colour and alpha
+AVIF_GRAIN_FIXTURES = ("1080p_grain_420_test10.avif", "1080p_denoise_444.avif", "1080p_grain_rgba_avis.avif")
+AVIF_GRAIN_SHIFT = 8  # pixels each later frame of a sequence view is moved right
+# the seven views: PIL's save options where this machine's PIL writes AVIF
+# (the renders, grain from aom's test vectors; the "RGBA" views with alpha
+# 160 in a band, so that the file has an alpha item; the "avis" views as
+# sequences of the render and two shifted renders), else the fixtures in turn
+AVIF_GRAIN_VIEWS = (("test vector 1, 4:2:0", {"quality": 60, "advanced": {"film-grain-test": "1"}}),
+                    ("test vector 10, 4:2:0", {"quality": 60, "advanced": {"film-grain-test": "10"}}),
+                    ("test vector 6, 4:2:2 limited", {"quality": 55, "subsampling": "4:2:2", "range": "limited",
+                                                      "advanced": {"film-grain-test": "6"}}),
+                    ("test vector 12, 4:4:4", {"quality": 75, "subsampling": "4:4:4",
+                                               "advanced": {"film-grain-test": "12"}}),
+                    ("test vector 3, 4:0:0 RGBA", {"quality": 60, "subsampling": "4:0:0",
+                                                   "advanced": {"film-grain-test": "3"}}),
+                    ("avis, test vector 4", {"quality": 60, "advanced": {"film-grain-test": "4"}}),
+                    ("avis RGBA premultiplied, test vector 2", {"quality": 60, "alpha_premultiplied": True,
+                                                               "advanced": {"film-grain-test": "2"}}))
+
+
+def avif_grain_tools(path):
+    """(the colour item's film grain parameters, the source libavif reads
+    (tracks or item), a line) of what the decoder's hook saw the file use."""
+    with open(path, "rb") as f:
+        info = avif.parse(f.read(), path)
+    grains = []
+    for item in ("color", "alpha"):
+        if info[item] is not None:
+            tools = {}
+            avif.av1_planes(info[item], path, tools=tools)
+            grains.append(tools["film_grain"])
+    g = grains[0]
+    line = (f"{info['source']}; grain " + (f"lag {g['ar_coeff_lag']}, points Y {g['num_y_points']} / Cb "
+                                           f"{g['num_cb_points']} / Cr {g['num_cr_points']}, overlap "
+                                           f"{g['overlap_flag']}, clip {g['clip_to_restricted_range']}"
+                                           if g["apply_grain"] else "none")
+            + ("" if len(grains) < 2 else f"; alpha grain {'on' if grains[1]['apply_grain'] else 'off'}"))
+    return g, info["source"], line
+
+
+def avif_grain_phase(dev):
+    """Phase 5m (module docstring). Returns the compositing kernels'
+    launches in the train CLI run and the max abs errors of the forward,
+    the backward and the routing against their plain versions at its final
+    state."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_avif_grain_")
+    try:
+        return _avif_grain_phase(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _avif_grain_phase(dev, tmp):
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) The committed 1080p files with film grain, one of them a sequence.
+    times, first, split = check_avif_fixtures(AVIF_GRAIN_FIXTURES)
+    print(f"AVIF film grain and sequences: {len(times)} committed 1080p files of tests/fixtures/torch_avif read "
+          f"with PIL 12.1.0's mode, shape and pixels (sha256.json); decode ms, median of 5 (host clock), beside "
+          f"PIL's median of 3 on this machine ({avif_versions()}) [{gpu_line()}]:")
+    for name, (ms, pil_ms) in times.items():
+        print(f"  {name}: {ms:.2f} ms (PIL {pil_ms}); {avif_grain_tools(os.path.join(AVIF_FIXTURES, name))[2]}")
+    total = sum(split.values())
+    print(f"  one decode of {first}, host clock: " + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in split.items())
+          + f"; film grain {100 * split['av1_film_grain'] / total:.1f}% of {total * 1e3:.2f} ms")
+
+    # (b) A COLMAP dataset of trained_r5 with seven 1080p views with grain.
+    t0 = time.perf_counter()
+    data, model_dir = os.path.join(tmp, "data"), os.path.join(tmp, "model")
+    model = load_gaussians_ply(TRAINED_PLY)
+    cams, images = orbit_dataset(len(AVIF_GRAIN_VIEWS), W_MAIN, H_MAIN)
+    write_colmap_scene(data, cams, images, model["xyz"], dc_colors(model))
+    pil = avif_pil()
+    with open(os.path.join(AVIF_FIXTURES, "sha256.json")) as f:
+        readings = json.load(f)["files"]
+    alpha = np.full((H_MAIN, W_MAIN, 1), 255, np.uint8)
+    alpha[H_MAIN // 3:H_MAIN // 3 + 96] = 160
+    files, fixture_of, labels, used = {}, {}, {}, []
+    for i, (cam, px, (label, options)) in enumerate(zip(cams, images, AVIF_GRAIN_VIEWS)):
+        os.remove(os.path.join(data, "images", f"{cam.image_name}.png"))
+        files[cam.image_name] = cam.image_name + ".avif"
+        path = os.path.join(data, "images", files[cam.image_name])
+        fixture = AVIF_GRAIN_FIXTURES[i % len(AVIF_GRAIN_FIXTURES)]
+        if pil is not None:
+            rgb = np.ascontiguousarray(px[..., :3])
+            pic = np.concatenate([rgb, alpha], -1) if "RGBA" in label else rgb
+            if label.startswith("avis"):
+                frames = [np.ascontiguousarray(np.roll(pic, AVIF_GRAIN_SHIFT * k, axis=1)) for k in range(3)]
+                pil.fromarray(frames[0]).save(path, "AVIF", save_all=True,
+                                              append_images=[pil.fromarray(p) for p in frames[1:]], **options)
+            else:
+                pil.fromarray(pic).save(path, "AVIF", **options)
+        else:
+            shutil.copyfile(os.path.join(AVIF_FIXTURES, fixture), path)
+        fixture_of[cam.image_name] = fixture
+        labels[cam.image_name] = label if pil is not None else f"{label}: {fixture}"
+        used.append(avif_grain_tools(path))
+    if not (any(g["apply_grain"] and g["num_y_points"] for g, _, _ in used)
+            and any(g["apply_grain"] and (g["num_cb_points"] or g["chroma_scaling_from_luma"]) for g, _, _ in used)
+            and any(g["apply_grain"] and g["overlap_flag"] for g, _, _ in used)
+            and any(source == "tracks" for _, source, _ in used)):
+        fail(f"AVIF grain: the views do not use luma and chroma grain, overlap_flag and an avis track: "
+             f"{[u[2] for u in used]}")
+    rename_views(data, files)
+    build_s = time.perf_counter() - t0
+    info = read_colmap_scene(data, None, eval_split=False)
+    for c in info.train_cameras:
+        pic = image_io.open_image(c.image_path)
+        if pil is not None:
+            with pil.open(c.image_path) as im:
+                want = (im.mode, list(np.asarray(im).shape), sha256_of(np.asarray(im)))
+        else:
+            r = readings[fixture_of[c.image_name]]
+            want = (r["mode"], r["shape"], r["sha256"])
+        if (pic.mode, list(pic.pixels.shape), sha256_of(pic.pixels)) != want:
+            fail(f"AVIF grain: view {files[c.image_name]} ({labels[c.image_name]}) does not read as "
+                 f"{'this machine' if pil is not None else 'PIL 12.1.0'}'s PIL reads it")
+    source = (f"the renders encoded by this machine's PIL ({avif_versions()}) with grain (aom's test vectors; "
+              f"the avis views as sequences of the render and two renders shifted {AVIF_GRAIN_SHIFT} and "
+              f"{2 * AVIF_GRAIN_SHIFT} px), held to its decode" if pil is not None else
+              "the committed 1080p grain fixtures in turn (this machine's PIL has no AVIF), held to PIL 12.1.0's "
+              "committed hashes")
+    print(f"  {len(used)} views, {source}, made in {build_s:.1f} s:")
+    for cam, u in zip(cams, used):
+        print(f"    {labels[cam.image_name]}: {u[2]}")
+    launches, errs, (train_s, load_s, step_ms, loss0, loss1) = train_cli_on(
+        "AVIF grain", data, model_dir, len(AVIF_GRAIN_VIEWS), AVIF_STEPS, 64)
+    print(f"  train CLI on a COLMAP dataset of {len(AVIF_GRAIN_VIEWS)} AVIF views of trained_r5 at "
           f"{W_MAIN}x{H_MAIN}: -r 1, {AVIF_STEPS} iterations in {train_s:.2f} s (scene load {load_s:.2f} s), "
           f"step median {step_ms:.3f} ms; loss {loss0:.6f} -> {loss1:.6f}; "
           f"launches {launches}; max abs errors {dict(zip(TRAIN_KERNELS, errs))}")
@@ -5070,15 +5241,9 @@ def main():
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", "0"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if smi.returncode != 0 or not smi.stdout.strip():
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     print(f"device: {kind} (torch sees {count}); torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(pil_versions())
-    print(smi.stdout.strip().splitlines()[0])
+    print(gpu_line())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_done("1 device")
@@ -5398,6 +5563,12 @@ def main():
         max_err[k] = max(max_err[k], e)
     phase_done("5l AVIF screen content")
 
+    # ---- 5m. AVIF film grain and image sequences ------------------------
+    avif_grain_train_launches, avif_grain_errs = avif_grain_phase(dev)
+    for k, e in zip(TRAIN_KERNELS, avif_grain_errs):
+        max_err[k] = max(max_err[k], e)
+    phase_done("5m AVIF film grain and sequences")
+
     # ---- 5d. sharded path ---------------------------------------------
     sharded_launches, strip_errs = sharded_phase(dev, gt, center, dist, train_capacity,
                                                  single_ref, step_ms)
@@ -5483,6 +5654,7 @@ def main():
                     "dds_train": dds_train_launches[name], "avif_train": avif_train_launches[name],
                     "avif_filters_train": avif_filters_train_launches[name],
                     "avif_screen_train": avif_screen_train_launches[name],
+                    "avif_grain_train": avif_grain_train_launches[name],
                     **{path: counts[name] for path, counts in sharded_launches.items()},
                     "bench": bench_launches[name]}
         return {"profiler": prof_launches[name]}

@@ -24,12 +24,16 @@
 //   5.9.19, 7.15   CDEF, the constrained directional enhancement filter;
 //   5.9.20, 5.11.57-58, 7.17
 //                  loop restoration: the Wiener filter and the self-guided
-//                  filter, per restoration unit and per 64-row stripe.
+//                  filter, per restoration unit and per 64-row stripe;
+//   5.9.30, 7.18.3 film grain synthesis: the grain templates with their
+//                  auto-regressive filter, the scaling lookups, the noise
+//                  stripes with their block and stripe overlaps, the blend
+//                  into the planes (dav1d applies it for PIL, bit-equal).
 //
-// What a frame *uses* of the tools this file does not decode (superres, film
-// grain, 10/12-bit samples, inter frames) ends the decode with a message
-// naming the tool. The output is 8-bit Y, U, V planes (Y alone
-// for 4:0:0).
+// What a frame *uses* of the tools this file does not decode (superres,
+// 10/12-bit samples, inter frames) ends the decode with a message naming the
+// tool; so do film grain parameters dav1d refuses. The output is 8-bit Y, U,
+// V planes (Y alone for 4:0:0).
 // gs_yuv_to_rgb converts them to RGB as libavif 1.3.0 does for PIL
 // (libyuv's fixed-point rows and filtered chroma upsampling, or libavif's
 // own float path where libyuv declines).
@@ -752,6 +756,14 @@ struct Decoder {
   int CdefDamping = 3, cdef_bits = 0;
   int cdef_y_pri[8] = {0}, cdef_y_sec[8] = {0}, cdef_uv_pri[8] = {0}, cdef_uv_sec[8] = {0};
   int FrameRestorationType[3] = {0}, LoopRestorationSize[3] = {0}, UsesLr = 0, lr_unit_shift = 0, lr_uv_shift = 0;
+  // film_grain_params (5.9.30): points[plane][i] = (value, scaling); the
+  // AR coefficients, mults and offsets as coded (plus 128, 128, 256)
+  struct FilmGrain {
+    int apply_grain = 0, grain_seed = 0, num_points[3] = {0}, points[3][16][2] = {{{0}}};
+    int chroma_scaling_from_luma = 0, grain_scaling_minus_8 = 0, ar_coeff_lag = 0;
+    int ar_coeffs[3][25] = {{0}}, ar_coeff_shift_minus_6 = 0, grain_scale_shift = 0;
+    int mult[3] = {0}, luma_mult[3] = {0}, offset[3] = {0}, overlap_flag = 0, clip_to_restricted_range = 0;
+  } fg;
   bool frame_done = false;
 
   // frame state, per 4x4 (mi) unit
@@ -789,7 +801,7 @@ struct Decoder {
   // and below each stripe
   std::vector<uint8_t> deblocked[3];
   // which tools the frame used (gs_av1_decode's `tools`; a test hook)
-  int tools[64] = {0};
+  int tools[72] = {0};
 
   // block state
   int MiRow, MiCol, MiSize, HasChroma, AvailU, AvailL, AvailUChroma, AvailLChroma;
@@ -971,11 +983,13 @@ struct Decoder {
       showable_frame = 0;
       error_resilient = 1;
     } else {
-      if (b.f(1)) fail("show_existing_frame (an AV1 sequence, not a still image)");
+      if (b.f(1)) fail("show_existing_frame (a frame shown from an AV1 sequence's references)");
       frame_type = b.f(2);
       FrameIsIntra = frame_type == INTRA_ONLY_FRAME || frame_type == KEY_FRAME;
       if (!FrameIsIntra) fail("an inter frame (AV1 inter prediction)");
       show_frame = b.f(1);
+      // the picture shown is the first frame decoded: a hidden one is not it
+      if (!show_frame) fail("a frame that is not shown (show_frame 0) first in the AV1 data");
       if (show_frame && s.decoder_model_info_present && !s.equal_picture_interval)
         b.f(s.frame_presentation_time_length);
       showable_frame = show_frame ? frame_type != KEY_FRAME : b.f(1);
@@ -1170,9 +1184,58 @@ struct Decoder {
     // frame_reference_mode, skip_mode_params: nothing for intra frames
     reduced_tx_set = b.f(1);
     // global_motion_params: nothing for intra frames
-    if (s.film_grain_params_present && (show_frame || showable_frame)) {
-      if (b.f(1)) fail("film grain synthesis (apply_grain)");
+    fg = FilmGrain();
+    if (s.film_grain_params_present && (show_frame || showable_frame)) film_grain_params(b);
+  }
+
+  // 5.9.30, with dav1d's checks of the values (each refused by name)
+  void film_grain_params(BitReader& b) {
+    const SeqHeader& s = seq;
+    fg.apply_grain = b.f(1);
+    if (!fg.apply_grain) return;
+    fg.grain_seed = b.f(16);
+    // update_grain: 1 in an intra frame
+    auto points = [&](int p, int most) {
+      fg.num_points[p] = b.f(4);
+      if (fg.num_points[p] > most)
+        fail("film grain with " + std::to_string(fg.num_points[p]) + " " + (p ? "chroma" : "luma") +
+             " scaling points (at most " + std::to_string(most) + ")");
+      for (int i = 0; i < fg.num_points[p]; i++) {
+        fg.points[p][i][0] = b.f(8);
+        fg.points[p][i][1] = b.f(8);
+        if (i && fg.points[p][i - 1][0] >= fg.points[p][i][0])
+          fail("film grain scaling points whose values do not increase");
+      }
+    };
+    points(0, 14);
+    fg.chroma_scaling_from_luma = s.mono ? 0 : b.f(1);
+    if (!(s.mono || fg.chroma_scaling_from_luma || (s.ss_x && s.ss_y && fg.num_points[0] == 0))) {
+      points(1, 10);
+      points(2, 10);
+      if (s.ss_x && s.ss_y && !fg.num_points[1] != !fg.num_points[2])
+        fail("film grain at 4:2:0 with scaling points for one chroma plane only");
     }
+    fg.grain_scaling_minus_8 = b.f(2);
+    fg.ar_coeff_lag = b.f(2);
+    int numPosLuma = 2 * fg.ar_coeff_lag * (fg.ar_coeff_lag + 1);
+    int numPosChroma = numPosLuma;
+    if (fg.num_points[0]) {
+      numPosChroma = numPosLuma + 1;
+      for (int i = 0; i < numPosLuma; i++) fg.ar_coeffs[0][i] = b.f(8);
+    }
+    for (int p = 1; p < 3; p++)
+      if (fg.chroma_scaling_from_luma || fg.num_points[p])
+        for (int i = 0; i < numPosChroma; i++) fg.ar_coeffs[p][i] = b.f(8);
+    fg.ar_coeff_shift_minus_6 = b.f(2);
+    fg.grain_scale_shift = b.f(2);
+    for (int p = 1; p < 3; p++)
+      if (fg.num_points[p]) {
+        fg.mult[p] = b.f(8);
+        fg.luma_mult[p] = b.f(8);
+        fg.offset[p] = b.f(9);
+      }
+    fg.overlap_flag = b.f(1);
+    fg.clip_to_restricted_range = b.f(1);
   }
 
   void tile_info(BitReader& b) {
@@ -3422,6 +3485,178 @@ struct Decoder {
       }
   }
 
+  // --------------------------------------------------------- film grain
+  // 7.18.3: the film grain synthesis process, on the output planes after
+  // loop restoration (8-bit: GrainMin -128, GrainMax 127). dav1d applies
+  // the same noise in 32x32 blocks; the stripes here are the spec's.
+  int RandomRegister = 0;
+  int get_random_number(int bits) {  // 7.18.3.2
+    int r = RandomRegister;
+    int bit = ((r >> 0) ^ (r >> 1) ^ (r >> 3) ^ (r >> 12)) & 1;
+    r = (r >> 1) | (bit << 15);
+    RandomRegister = r;
+    return (r >> (16 - bits)) & ((1 << bits) - 1);
+  }
+
+  void film_grain() {
+    if (!fg.apply_grain) return;
+    const int subX = seq.ss_x, subY = seq.ss_y, w = FrameWidth, h = FrameHeight;
+    const int GrainMin = -128, GrainMax = 127;
+    // 7.18.3.3: the grain templates, luma 73x82, chroma by the subsampling
+    static thread_local int16_t Grain[3][73][82];
+    int shift = 12 - 8 + fg.grain_scale_shift;
+    RandomRegister = fg.grain_seed;
+    for (int y = 0; y < 73; y++)
+      for (int x = 0; x < 82; x++)
+        Grain[0][y][x] = fg.num_points[0] ? round2(Gaussian_Sequence[get_random_number(11)], shift) : 0;
+    const int lag = fg.ar_coeff_lag, arShift = fg.ar_coeff_shift_minus_6 + 6;
+    for (int y = 3; y < 73; y++)
+      for (int x = 3; x < 82 - 3; x++) {
+        int sum = 0, pos = 0;
+        for (int dr = -lag; dr <= 0; dr++)
+          for (int dc = -lag; dc <= lag; dc++) {
+            if (dr == 0 && dc == 0) break;
+            sum += Grain[0][y + dr][x + dc] * (fg.ar_coeffs[0][pos++] - 128);
+          }
+        Grain[0][y][x] = clip3(GrainMin, GrainMax, Grain[0][y][x] + round2(sum, arShift));
+      }
+    const int chromaW = subX ? 44 : 82, chromaH = subY ? 38 : 73;
+    bool noisy[3] = {fg.num_points[0] > 0, false, false};
+    for (int p = 1; p < NumPlanes; p++) {
+      noisy[p] = fg.num_points[p] > 0 || fg.chroma_scaling_from_luma;
+      RandomRegister = fg.grain_seed ^ (p == 1 ? 0xb524 : 0x49d8);
+      for (int y = 0; y < chromaH; y++)
+        for (int x = 0; x < chromaW; x++)
+          Grain[p][y][x] = noisy[p] ? round2(Gaussian_Sequence[get_random_number(11)], shift) : 0;
+    }
+    if (NumPlanes > 1)
+      for (int y = 3; y < chromaH; y++)
+        for (int x = 3; x < chromaW - 3; x++) {
+          int sum[3] = {0, 0, 0}, pos = 0;
+          for (int dr = -lag; dr <= 0; dr++)
+            for (int dc = -lag; dc <= lag; dc++) {
+              if (dr == 0 && dc == 0) {
+                if (fg.num_points[0] > 0) {
+                  int luma = 0, lumaX = ((x - 3) << subX) + 3, lumaY = ((y - 3) << subY) + 3;
+                  for (int i = 0; i <= subY; i++)
+                    for (int j = 0; j <= subX; j++) luma += Grain[0][lumaY + i][lumaX + j];
+                  luma = round2(luma, subX + subY);
+                  for (int p = 1; p < 3; p++) sum[p] += luma * (fg.ar_coeffs[p][pos] - 128);
+                }
+                break;
+              }
+              for (int p = 1; p < 3; p++) sum[p] += (fg.ar_coeffs[p][pos] - 128) * Grain[p][y + dr][x + dc];
+              pos++;
+            }
+          for (int p = 1; p < 3; p++)
+            if (noisy[p]) Grain[p][y][x] = clip3(GrainMin, GrainMax, Grain[p][y][x] + round2(sum[p], arShift));
+        }
+    // 7.18.3.4: the scaling lookups (chroma scaled from luma takes luma's)
+    int ScalingLut[3][256];
+    for (int p = 0; p < NumPlanes; p++) {
+      int src = (p == 0 || fg.chroma_scaling_from_luma) ? 0 : p, n = fg.num_points[src];
+      const int(*pt)[2] = fg.points[src];
+      if (n == 0) {
+        for (int i = 0; i < 256; i++) ScalingLut[p][i] = 0;
+        continue;
+      }
+      for (int i = 0; i < pt[0][0]; i++) ScalingLut[p][i] = pt[0][1];
+      for (int i = 0; i < n - 1; i++) {
+        int deltaY = pt[i + 1][1] - pt[i][1], deltaX = pt[i + 1][0] - pt[i][0];
+        int delta = deltaY * ((65536 + (deltaX >> 1)) / deltaX);
+        for (int x = 0; x < deltaX; x++) ScalingLut[p][pt[i][0] + x] = pt[i][1] + ((x * delta + 32768) >> 16);
+      }
+      for (int i = pt[n - 1][0]; i < 256; i++) ScalingLut[p][i] = pt[n - 1][1];
+    }
+    // 7.18.3.5: noise stripes of 34 luma rows (32 and 2 of overlap), one
+    // random offset per 32x32 block shared by the planes, blended at the
+    // block edges where overlap_flag is set; then the noise image, blended
+    // at the stripe edges
+    int pwN[3], phN[3];
+    for (int p = 0; p < NumPlanes; p++) {
+      pwN[p] = p ? (w + subX) >> subX : w;
+      phN[p] = p ? (h + subY) >> subY : h;
+    }
+    const int sw = w + 2 * 34;  // a stripe's columns: blocks may reach past the frame's right edge
+    std::vector<int16_t> stripe[2][3], noise[3];
+    for (int k = 0; k < 2; k++)
+      for (int p = 0; p < NumPlanes; p++) stripe[k][p].assign((size_t)34 * sw, 0);
+    for (int p = 0; p < NumPlanes; p++) noise[p].assign((size_t)pwN[p] * phN[p], 0);
+    auto blend = [&](int old, int g, int w0, int w1) {
+      return clip3(GrainMin, GrainMax, round2(old * w0 + g * w1, 5));
+    };
+    int lumaNum = 0;
+    for (int y = 0; y < (h + 1) / 2; y += 16, lumaNum++) {
+      std::vector<int16_t>* cur = stripe[lumaNum & 1];
+      const std::vector<int16_t>* prev = stripe[(lumaNum + 1) & 1];
+      RandomRegister = fg.grain_seed;
+      RandomRegister ^= ((lumaNum * 37 + 178) & 255) << 8;
+      RandomRegister ^= ((lumaNum * 173 + 105) & 255);
+      for (int x = 0; x < (w + 1) / 2; x += 16) {
+        int rand = get_random_number(8), offsetX = rand >> 4, offsetY = rand & 15;
+        for (int p = 0; p < NumPlanes; p++) {
+          int sx = p ? subX : 0, sy = p ? subY : 0;
+          int ox = sx ? 6 + offsetX : 9 + offsetX * 2, oy = sy ? 6 + offsetY : 9 + offsetY * 2;
+          for (int i = 0; i < (34 >> sy); i++)
+            for (int j = 0; j < (34 >> sx); j++) {
+              int g = Grain[p][oy + i][ox + j];
+              int16_t& at = cur[p][(size_t)i * sw + (sx ? x : x * 2) + j];
+              if (!sx && j < 2 && fg.overlap_flag && x > 0) g = blend(at, g, j == 0 ? 27 : 17, j == 0 ? 17 : 27);
+              else if (sx && j == 0 && fg.overlap_flag && x > 0) g = blend(at, g, 23, 22);
+              at = (int16_t)g;
+            }
+        }
+      }
+      for (int p = 0; p < NumPlanes; p++) {
+        int sy = p ? subY : 0, rows = 32 >> sy;
+        for (int i = 0; i < rows; i++) {
+          int yy = (lumaNum << (5 - sy)) + i;
+          if (yy >= phN[p]) break;
+          for (int xx = 0; xx < pwN[p]; xx++) {
+            int g = cur[p][(size_t)i * sw + xx];
+            if (fg.overlap_flag && lumaNum > 0) {
+              int old = prev[p][(size_t)(i + rows) * sw + xx];
+              if (!sy && i < 2) g = blend(old, g, i == 0 ? 27 : 17, i == 0 ? 17 : 27);
+              else if (sy && i < 1) g = blend(old, g, 23, 22);
+            }
+            noise[p][(size_t)yy * pwN[p] + xx] = (int16_t)g;
+          }
+        }
+      }
+    }
+    // 7.18.3.5: the noise added to the planes, chroma first (it is scaled
+    // by the luma before the luma's noise)
+    int minValue = 0, maxLuma = 255, maxChroma = 255;
+    if (fg.clip_to_restricted_range) {
+      minValue = 16;
+      maxLuma = 235;
+      maxChroma = seq.mc == 0 ? maxLuma : 240;  // MC_IDENTITY
+    }
+    const int ScalingShift = fg.grain_scaling_minus_8 + 8;
+    for (int p = 1; p < NumPlanes; p++) {
+      if (!noisy[p]) continue;
+      for (int y = 0; y < phN[p]; y++)
+        for (int x = 0; x < pwN[p]; x++) {
+          int lumaX = x << subX, lumaY = y << subY, lumaNextX = std::min(lumaX + 1, w - 1);
+          int averageLuma = subX ? round2(P(0, lumaY, lumaX) + P(0, lumaY, lumaNextX), 1) : P(0, lumaY, lumaX);
+          int orig = P(p, y, x), merged = averageLuma;
+          if (!fg.chroma_scaling_from_luma) {
+            int combined = averageLuma * (fg.luma_mult[p] - 128) + orig * (fg.mult[p] - 128);
+            merged = clip3(0, 255, (combined >> 6) + (fg.offset[p] - 256));
+          }
+          int n = round2(ScalingLut[p][merged] * noise[p][(size_t)y * pwN[p] + x], ScalingShift);
+          P(p, y, x) = (uint8_t)clip3(minValue, maxChroma, orig + n);
+        }
+    }
+    if (fg.num_points[0] > 0)
+      for (int y = 0; y < h; y++)
+        for (int x = 0; x < w; x++) {
+          int orig = P(0, y, x);
+          int n = round2(ScalingLut[0][orig] * noise[0][(size_t)y * w + x], ScalingShift);
+          P(0, y, x) = (uint8_t)clip3(minValue, maxLuma, orig + n);
+        }
+  }
+
   // ------------------------------------------------------------ the OBUs
   void tile_group(const uint8_t* d, size_t sz) {
     BitReader b(d, sz);
@@ -3592,9 +3827,10 @@ extern "C" {
 // Decode one AV1 image item. info (out, 16 ints): width, height, mono,
 // ss_x, ss_y, bit depth, colour primaries, transfer, matrix, full range.
 // With y == nullptr only the headers are read. The planes are written
-// with strides width and (width + ss_x) >> ss_x. times (out, 4 doubles):
+// with strides width and (width + ss_x) >> ss_x. times (out, 5 doubles):
 // seconds in symbol decoding with reconstruction, in the deblocking filter,
-// in CDEF and in loop restoration. tools (out, 64 ints, or nullptr), which
+// in CDEF, in loop restoration and in film grain synthesis. tools (out, 72
+// ints, or nullptr), which
 // tools the frame used: use_128x128_superblock; cdef_bits (-1: no CDEF);
 // lr_unit_shift (-1: no loop restoration); lr_uv_shift; each plane's
 // FrameRestorationType (RESTORE_NONE, WIENER, SGRPROJ, SWITCHABLE); at 7 + 3
@@ -3608,7 +3844,10 @@ extern "C" {
 // came from the stack and from the default DV; at 54 + d the var-tx
 // transform blocks at depth d; at 57 + s the inter transform blocks of tx
 // set s (0: none read); at 61 the IntraBC chroma predictions at a
-// fractional position, at 62 those of blocks below 8x8 at subsampling.
+// fractional position, at 62 those of blocks below 8x8 at subsampling; at
+// 63-71 the film grain: apply_grain, ar_coeff_lag, num_y_points,
+// num_cb_points, num_cr_points, chroma_scaling_from_luma, overlap_flag,
+// clip_to_restricted_range, grain_scale_shift.
 // Returns 0, or 1 with a message in msg.
 int gs_av1_decode(const uint8_t* data, long long size, int* info, uint8_t* y, uint8_t* u, uint8_t* v,
                   double* times, int* tools, char* msg, int msglen) {
@@ -3647,6 +3886,8 @@ int gs_av1_decode(const uint8_t* data, long long size, int* info, uint8_t* y, ui
     auto t3 = std::chrono::steady_clock::now();
     dec->loop_restoration();
     auto t4 = std::chrono::steady_clock::now();
+    dec->film_grain();
+    auto t5 = std::chrono::steady_clock::now();
     const SeqHeader& s = dec->seq;
     int W = dec->FrameWidth, H = dec->FrameHeight;
     int vals[10] = {W, H, s.mono, s.ss_x, s.ss_y, s.bit_depth, s.cp, s.tc, s.mc, s.color_range};
@@ -3668,6 +3909,7 @@ int gs_av1_decode(const uint8_t* data, long long size, int* info, uint8_t* y, ui
       times[1] = std::chrono::duration<double>(t2 - t1).count();
       times[2] = std::chrono::duration<double>(t3 - t2).count();
       times[3] = std::chrono::duration<double>(t4 - t3).count();
+      times[4] = std::chrono::duration<double>(t5 - t4).count();
     }
     if (tools) {
       int* k = dec->tools;
@@ -3675,6 +3917,10 @@ int gs_av1_decode(const uint8_t* data, long long size, int* info, uint8_t* y, ui
       k[2] = dec->UsesLr ? dec->lr_unit_shift : -1;
       k[3] = dec->lr_uv_shift;
       for (int p = 0; p < 3; p++) k[4 + p] = dec->FrameRestorationType[p];
+      const auto& g = dec->fg;
+      int grain[9] = {g.apply_grain, g.ar_coeff_lag, g.num_points[0], g.num_points[1], g.num_points[2],
+                      g.chroma_scaling_from_luma, g.overlap_flag, g.clip_to_restricted_range, g.grain_scale_shift};
+      memcpy(k + 63, grain, sizeof grain);
       memcpy(tools, k, sizeof dec->tools);
     }
     delete dec;

@@ -1,5 +1,5 @@
 """Generate the fixtures of tests/test_torch_avif.py and of chip_smoke.py's
-phases 5j, 5k and 5l: AVIF files written by PIL 12.1.0 (libavif 1.3.0, aom
+phases 5j, 5k, 5l and 5m: AVIF files written by PIL 12.1.0 (libavif 1.3.0, aom
 3.12.1) from seeded numpy pictures, and PIL's reading of each.
 
 - Small files: RGBA with premultiplied alpha (65x33), limited-range 4:2:2
@@ -17,13 +17,20 @@ phases 5j, 5k and 5l: AVIF files written by PIL 12.1.0 (libavif 1.3.0, aom
   desktop-like), with AV1's palette mode and IntraBC: 4:2:0 at quality 60
   with `tune-content=screen` (both tools), the same with palette off
   (IntraBC alone), 4:4:4 at quality 75 with `tune-content=screen`.
+- Film grain and image sequences (phase 5m): three 1920x1080 files, aom's
+  grain test vector 10 at 4:2:0, grain estimated from a textured picture
+  (`denoise-noise-level` 20) at 4:4:4, and an RGBA 3-frame `avis`
+  sequence of shifted pictures with grain on colour and alpha (test
+  vector 4); and three small ones: test vector 7 at 4:2:2 limited range
+  (65x33), `denoise-noise-level` 30 at 4:0:0 (160x96), and an RGBA
+  premultiplied 3-frame sequence with grain (test vector 2, 130x67).
 - `sha256.json`: for each file, PIL's mode, the shape of
   `np.asarray(Image.open(f))`, the SHA-256 of those pixels' bytes and of
   the file itself. It holds the port to PIL where the machine's PIL has
   no AVIF.
 
 Run from the repo root:  python tests/fixtures/torch_avif/make_fixtures.py
-(about 50 s). The files are checked in; regenerate only if the cases change.
+(about 80 s). The files are checked in; regenerate only if the cases change.
 """
 
 import hashlib
@@ -84,6 +91,18 @@ def screen_picture(h, w, seed):
     return a
 
 
+def textured(h, w, seed):
+    """The render-like picture under a film-like grain (what aom's denoiser
+    estimates `denoise-noise-level`'s grain from)."""
+    rng = np.random.default_rng(seed + 1000)
+    return np.clip(picture(h, w, 3, seed) + rng.normal(0, 6, (h, w, 3)), 0, 255).astype(np.uint8)
+
+
+def shifted(px, n=3):
+    """n frames of a picture, each moved 8 pixels right of the last."""
+    return [np.ascontiguousarray(np.roll(px, 8 * i, axis=1)) for i in range(n)]
+
+
 def alpha_picture(h, w, seed):
     a = picture(h, w, 4, seed)
     yy, xx = np.mgrid[0:h, 0:w]
@@ -122,6 +141,19 @@ def cases():
             **SCREEN, "enable-palette": "0"})),
         "1080p_screen_444_q75.avif": (screen_picture(1080, 1920, 22), dict(quality=75, subsampling="4:4:4",
                                                                            advanced=SCREEN)),
+        "1080p_grain_420_test10.avif": (picture(1080, 1920, 3, 23), dict(quality=60, advanced={
+            "film-grain-test": "10"})),
+        "1080p_denoise_444.avif": (textured(1080, 1920, 24), dict(quality=60, subsampling="4:4:4", advanced={
+            "denoise-noise-level": "20"})),
+        "1080p_grain_rgba_avis.avif": (shifted(alpha_picture(1080, 1920, 25)), dict(quality=60, advanced={
+            "film-grain-test": "4"})),
+        "grain_422_limited_65x33.avif": (picture(33, 65, 3, 26), dict(quality=50, subsampling="4:2:2",
+                                                                     range="limited", advanced={
+                                                                         "film-grain-test": "7"})),
+        "denoise_400_160x96.avif": (textured(96, 160, 27), dict(quality=55, subsampling="4:0:0", advanced={
+            "denoise-noise-level": "30"})),
+        "grain_rgba_avis_130x67.avif": (shifted(alpha_picture(67, 130, 28)), dict(
+            quality=55, alpha_premultiplied=True, advanced={"film-grain-test": "2"})),
     }
 
 
@@ -133,7 +165,11 @@ def main():
     readings = {}
     for name, (px, options) in cases().items():
         buf = io.BytesIO()
-        Image.fromarray(px).save(buf, "AVIF", **options)
+        if isinstance(px, list):  # an image sequence: frame 0 is what PIL reads
+            Image.fromarray(px[0]).save(buf, "AVIF", save_all=True,
+                                        append_images=[Image.fromarray(p) for p in px[1:]], **options)
+        else:
+            Image.fromarray(px).save(buf, "AVIF", **options)
         data = buf.getvalue()
         with open(os.path.join(HERE, name), "wb") as f:
             f.write(data)

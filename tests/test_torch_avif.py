@@ -11,10 +11,15 @@ speeds 0-4 or with CDEF asked for, and a test hook of the decoder
 (`avif.av1_planes(..., tools=...)`) shows that those files together used
 each of their cases; so do screen content's palette mode and intra block
 copy (IntraBC) on files aom writes with `tune-content=screen` or from flat
-colours. The tools this port does not decode yet are refused by name: each
-refusal is made by PIL's writer where aom can be asked for the tool, else
-(superres, 10-bit) by an edit of a PIL-written file's header bits, stated
-beside the case.
+colours; and film grain synthesis on files aom writes with its 16 grain test
+vectors (`film-grain-test`), with grain estimated from the picture
+(`denoise-noise-level`) or with the parameters of a grain table this module
+writes (`film-grain-table`). Image sequences (`avis`, written by PIL's
+`save_all`) read as PIL's frame 0, and libavif's choice between their tracks
+and the primary item is held to PIL on files whose brands and boxes are
+edited (stated beside each case). The tools this port does not decode yet
+(superres, 10-bit) are refused by name, on PIL-written files whose header
+bits are edited.
 """
 
 import hashlib
@@ -46,7 +51,8 @@ SIZES = [(1, 1), (7, 5), (65, 33), (130, 67), (256, 200)]  # (width, height)
 def picture(h, w, seed, kind="scene", channels=3):
     """Seeded pictures that reach aom's intra tools: "noise"; "gradient";
     "edges" (stripes at three angles: the directional modes and CfL);
-    "scene" (smooth shading, edges, a flat patch, a little noise); and the
+    "scene" (smooth shading, edges, a flat patch, a little noise); "grainy"
+    (the scene under a film-like grain, for aom's grain estimation); and the
     screen content of `SCREEN_PICTURES` (RGB)."""
     if kind in SCREEN_PICTURES:
         return SCREEN_PICTURES[kind](h, w, seed)
@@ -67,9 +73,11 @@ def picture(h, w, seed, kind="scene", channels=3):
         else:
             out.append(120 + 70 * np.sin(xx / (9 + 3 * c) + yy / (13 + c)) + 30 * stripes)
     a = np.stack(out, -1).astype(np.float64)
-    if kind == "scene":
+    if kind in ("scene", "grainy"):
         a += rng.normal(0, 4, a.shape)
         a[h // 3:h // 2, w // 5:w // 3] = 90
+    if kind == "grainy":
+        a += rng.normal(0, 7, a.shape)
     return np.clip(a, 0, 255).astype(np.uint8)
 
 
@@ -613,6 +621,481 @@ def test_the_screen_files_together_use_each_case_of_palette_and_intrabc():
     want |= {f"IntraBC chroma {how} at {sub}" for how in ("fractional", "below_8x8") for sub in ("4:2:0", "4:2:2")}
     assert want <= seen, sorted(want - seen)
 
+# ---- film grain synthesis ----
+# aom writes its 16 grain test vectors (`film-grain-test`), grain estimated
+# from the picture (`denoise-noise-level`), and the parameters of a grain
+# table (`film-grain-table`: a file in its text form, which reaches what
+# neither of the others writes: ar_coeff_lag 0 and 1, no luma points with
+# chroma points, chroma scaling from luma at 4:4:4, damaged values)
+
+GRAIN_SIZES = [(130, 67), (65, 33), (7, 5), (1, 1), (257, 131), (33, 65), (96, 64)]
+
+
+@requires_avif
+@pytest.mark.parametrize("subsampling", SUBSAMPLINGS)
+@pytest.mark.parametrize("vector", range(1, 17))
+def test_film_grain_test_vectors_read_bit_equal(tmp_path, cxx, vector, subsampling):
+    """Each of aom's test vectors, at both ranges, on two sizes (odd ones and
+    ones of several 32x32 noise blocks and stripes) and two picture kinds,
+    reads as PIL reads it, with the grain applied."""
+    k = vector + SUBSAMPLINGS.index(subsampling)
+    for i, range_ in enumerate(("full", "limited")):
+        w, h = GRAIN_SIZES[(k + 3 * i) % len(GRAIN_SIZES)]
+        data, used = written((w, h), KINDS[(k + i) % len(KINDS)], 200 + k, quality=50, subsampling=subsampling,
+                             range=range_, advanced={"film-grain-test": str(vector)})
+        assert_reads_as_pil(tmp_path, data, f"{w}x{h} {range_}")
+        assert used[0]["film_grain"]["apply_grain"] == 1
+
+
+@requires_avif
+@pytest.mark.parametrize("subsampling", SUBSAMPLINGS)
+def test_denoise_noise_level_reads_bit_equal(tmp_path, cxx, subsampling):
+    """aom's grain estimated from a textured picture (its denoiser at noise
+    levels 10 and 40) reads as PIL reads it. At 4:2:2 aom 3.12.1's denoiser
+    gives up ("aom_wiener_denoise_2d doesn't handle different chroma
+    subsampling") and writes no grain."""
+    for level, size in (("10", (130, 67)), ("40", (257, 131))):
+        data, used = written(size, "grainy", 210, quality=60, subsampling=subsampling,
+                             advanced={"denoise-noise-level": level})
+        assert_reads_as_pil(tmp_path, data, f"level {level}")
+        assert used[0]["film_grain"]["apply_grain"] == int(subsampling != "4:2:2")
+
+
+@requires_avif
+@pytest.mark.parametrize("premultiplied", [False, True])
+@pytest.mark.parametrize("option, items", [("film-grain-test", (1, 1)), ("color:film-grain-test", (1, 0)),
+                                           ("alpha:film-grain-test", (0, 1))])
+def test_grain_on_alpha_reads_bit_equal(tmp_path, cxx, option, items, premultiplied):
+    """RGBA with grain on the colour and the alpha item, on the colour only
+    (libavif's `color:` prefix) and on the alpha only: the alpha's grain is
+    synthesised as a 4:0:0 frame's, before the alpha is widened and the
+    colour un-premultiplied."""
+    for range_ in ("full", "limited"):
+        data, used = written((130, 67), "scene", 220, alpha=True, quality=60, range=range_,
+                             alpha_premultiplied=premultiplied, advanced={option: "3"})
+        got = assert_reads_as_pil(tmp_path, data, range_)
+        assert got.mode == "RGBA"
+        assert tuple(u["film_grain"]["apply_grain"] for u in used) == items
+
+
+def grain_table(lag=1, y=((0, 20), (128, 60), (255, 40)), cb=((0, 30), (255, 50)), cr=((0, 40), (200, 30)),
+                csfl=0, overlap=1, gss=0, scaling_shift=9, ar_shift=7, seed=1234,
+                mults=(128, 192, 256, 128, 192, 256)) -> str:
+    """aom's film grain table in its text form (one entry for every
+    frame): `p` ar_coeff_lag, ar_coeff_shift, grain_scale_shift,
+    scaling_shift, chroma_scaling_from_luma, overlap_flag, the Cb and Cr
+    mult / luma mult / offset; the Y, Cb, Cr points; seeded AR
+    coefficients (the chroma ones with the luma tap)."""
+    n = 2 * lag * (lag + 1)
+    rng = np.random.default_rng(lag + seed)
+    points = lambda pts: "".join(f" {x} {s}" for x, s in pts)  # noqa: E731
+    coeffs = lambda k: "".join(f" {int(c)}" for c in rng.integers(-24, 24, k))  # noqa: E731
+    return (f"filmgrn1\nE 0 10000000000000 1 {seed} 1\n"
+            f"\tp {lag} {ar_shift} {gss} {scaling_shift} {csfl} {overlap} {' '.join(map(str, mults))}\n"
+            f"\tsY {len(y)}{points(y)}\n\tsCb {len(cb)}{points(cb)}\n\tsCr {len(cr)}{points(cr)}\n"
+            f"\tcY{coeffs(n)}\n\tcCb{coeffs(n + 1)}\n\tcCr{coeffs(n + 1)}\n")
+
+
+# name -> (grain_table arguments, save options); each reads as PIL reads it
+GRAIN_TABLES = {
+    "ar_coeff_lag 0": (dict(lag=0), {}),
+    "ar_coeff_lag 1, 4:2:2": (dict(lag=1), dict(subsampling="4:2:2")),
+    "ar_coeff_lag 2, 4:4:4": (dict(lag=2, seed=7), dict(subsampling="4:4:4")),
+    "ar_coeff_lag 3, no overlap": (dict(lag=3, overlap=0), {}),
+    "chroma scaling from luma": (dict(csfl=1), {}),
+    "chroma scaling from luma, 4:4:4": (dict(csfl=1, lag=2), dict(subsampling="4:4:4")),
+    "no luma points, 4:4:4": (dict(y=()), dict(subsampling="4:4:4")),
+    "no luma points, 4:2:2": (dict(y=(), lag=0), dict(subsampling="4:2:2")),
+    "Cb points only, 4:4:4": (dict(cr=()), dict(subsampling="4:4:4")),
+    "14 luma and 10 chroma points": (dict(y=tuple((18 * i, 10 + 9 * i) for i in range(14)),
+                                          cb=tuple((25 * i, 90 - 8 * i) for i in range(10))), {}),
+    "one luma point": (dict(y=((100, 80),)), {}),
+    "shifts at their least": (dict(gss=0, scaling_shift=8, ar_shift=6, y=((0, 255), (255, 255))), {}),
+    "shifts at their most": (dict(gss=3, scaling_shift=11, ar_shift=9), {}),
+    "negative mults": (dict(mults=(0, 0, 0, 255, 255, 511)), dict(range="limited")),
+    "seed 0, 4:0:0": (dict(seed=0, lag=0), dict(subsampling="4:0:0")),
+    "seed 65535, RGBA": (dict(seed=65535), dict(alpha=True)),
+}
+
+
+def grain_table_file(tmp_dir, name):
+    """(the file of PIL's reading, its tools) for a GRAIN_TABLES entry: the
+    table written to `tmp_dir` and given to aom."""
+    table, options = GRAIN_TABLES[name]
+    path = os.path.join(tmp_dir, f"grain_{list(GRAIN_TABLES).index(name)}.tbl")
+    with open(path, "w") as f:
+        f.write(grain_table(**table))
+    size = GRAIN_SIZES[list(GRAIN_TABLES).index(name) % len(GRAIN_SIZES)]
+    return written(size, "scene", 230, quality=55, **options, advanced={"film-grain-table": path})
+
+
+@requires_avif
+@pytest.mark.parametrize("name", list(GRAIN_TABLES))
+def test_film_grain_tables_read_bit_equal(tmp_path, cxx, name):
+    """Each grain table's file reads as PIL reads it, with the parameters
+    the table gave."""
+    data, used = grain_table_file(str(tmp_path), name)
+    assert_reads_as_pil(tmp_path, data, name)
+    table = GRAIN_TABLES[name][0]
+    grain = used[0]["film_grain"]
+    assert grain["apply_grain"] == 1
+    assert grain["ar_coeff_lag"] == table.get("lag", 1)
+    assert grain["num_y_points"] == len(table.get("y", "abc"))
+
+
+@requires_avif
+@pytest.mark.parametrize("case", ["luma points that do not increase", "two luma points of one value",
+                                  "Cb points alone at 4:2:0"])
+def test_damaged_grain_parameters_fail_as_pil(tmp_path, cxx, case):
+    """Parameters dav1d refuses (PIL: Decoding of color planes failed): the
+    port raises naming them and the file."""
+    table = {"luma points that do not increase": dict(y=((0, 20), (128, 60), (100, 40))),
+             "two luma points of one value": dict(y=((0, 20), (128, 60), (128, 40))),
+             "Cb points alone at 4:2:0": dict(cr=())}[case]
+    path = tmp_path / "grain.tbl"
+    path.write_text(grain_table(**table))
+    data = pil_avif(picture(67, 130, 240), quality=55, advanced={"film-grain-table": str(path)})
+    with pytest.raises(RuntimeError):
+        np.asarray(Image.open(io.BytesIO(data)))
+    assert_refused(tmp_path, data, "film grain")
+
+
+@requires_avif
+def test_the_grain_files_together_use_each_case_of_film_grain(tmp_path):
+    """Through the decoder's test hook, over the files above (written again
+    where their tests did not run in this process): ar_coeff_lag 0-3, no
+    luma points and some, chroma scaling from luma, chroma points, each of
+    overlap_flag and clip_to_restricted_range 0 and 1, grain_scale_shift
+    0-3, grain on a 4:0:0 alpha item."""
+    used = []
+    for vector in range(1, 17):
+        for sub in SUBSAMPLINGS:
+            k = vector + SUBSAMPLINGS.index(sub)
+            for i, range_ in enumerate(("full", "limited")):
+                used += written(GRAIN_SIZES[(k + 3 * i) % len(GRAIN_SIZES)], KINDS[(k + i) % len(KINDS)], 200 + k,
+                                quality=50, subsampling=sub, range=range_,
+                                advanced={"film-grain-test": str(vector)})[1]
+    used += [t for name in GRAIN_TABLES for t in grain_table_file(str(tmp_path), name)[1]]
+    used += written((130, 67), "scene", 220, alpha=True, quality=60, range="full", alpha_premultiplied=False,
+                    advanced={"film-grain-test": "3"})[1]
+    seen = set()
+    for t in used:
+        g = t["film_grain"]
+        if not g["apply_grain"]:
+            continue
+        seen.add(f"ar_coeff_lag {g['ar_coeff_lag']}")
+        seen.add("luma points" if g["num_y_points"] else "no luma points")
+        if g["chroma_scaling_from_luma"]:
+            seen.add("chroma scaling from luma")
+        if g["num_cb_points"] and g["num_cr_points"]:
+            seen.add("chroma points")
+        seen.add(f"overlap_flag {g['overlap_flag']}")
+        seen.add(f"clip_to_restricted_range {g['clip_to_restricted_range']}")
+        seen.add(f"grain_scale_shift {g['grain_scale_shift']}")
+        if t["item"] == "alpha":
+            seen.add("grain on alpha")
+    want = {f"ar_coeff_lag {k}" for k in range(4)} | {f"grain_scale_shift {k}" for k in range(4)}
+    want |= {"luma points", "no luma points", "chroma scaling from luma", "chroma points", "grain on alpha"}
+    want |= {f"{k} {v}" for k in ("overlap_flag", "clip_to_restricted_range") for v in (0, 1)}
+    assert want <= seen, sorted(want - seen)
+
+
+# ---- image sequences (avis): frame 0, and libavif's choice of source ----
+
+def pil_sequence(frames, **options) -> bytes:
+    """PIL's `save_all` of the frames: an `avis` file (a `moov` with a
+    colour track, and an alpha track for RGBA) whose primary item is frame
+    0 too."""
+    buf = io.BytesIO()
+    Image.fromarray(frames[0]).save(buf, "AVIF", save_all=True,
+                                    append_images=[Image.fromarray(f) for f in frames[1:]], **options)
+    return buf.getvalue()
+
+
+CONTAINER_BOXES = {b"moov": 0, b"trak": 0, b"mdia": 0, b"minf": 0, b"stbl": 0, b"dinf": 0, b"edts": 0,
+                   b"tref": 0, b"stsd": 8, b"av01": 78}  # kind -> bytes before the child boxes
+
+
+def box_tree(data: bytes, start=0, end=None) -> list:
+    """[kind, body, children or None] of each box; the boxes of
+    CONTAINER_BOXES split into the bytes before their children and the
+    children."""
+    out, at, end = [], start, len(data) if end is None else end
+    while at < end:
+        size, kind = struct.unpack(">I4s", data[at:at + 8])
+        body = data[at + 8:at + size]
+        if kind in CONTAINER_BOXES:
+            k = CONTAINER_BOXES[kind]
+            out.append([kind, body[:k], box_tree(body, k)])
+        else:
+            out.append([kind, body, None])
+        at += size
+    return out
+
+
+def box_bytes(nodes) -> bytes:
+    return b"".join(box(kind, body + (box_bytes(kids) if kids is not None else b"")) for kind, body, kids in nodes)
+
+
+def found(nodes, path: str):
+    """The first box at a path of kinds from `nodes` ("mdia/minf/stbl")."""
+    first, _, rest = path.partition("/")
+    node = next(n for n in nodes if n[0] == first.encode())
+    return found(node[2], rest) if rest else node
+
+
+def with_moov(data: bytes, edit) -> bytes:
+    """`data` with its `moov` edited by `edit(moov's boxes)` and moved to the
+    end of the file, the old one turned into a `free` box of its size (the
+    sample offsets into `mdat` stay valid whatever the edit's size)."""
+    top = box_tree(data)
+    moov = next(n for n in top if n[0] == b"moov")
+    out = box_bytes([[b"free", box_bytes(n[2]), None] if n is moov else n for n in top])
+    edit(moov[2])
+    return out + box_bytes([moov])
+
+
+def tracks(moov):
+    return [n for n in moov if n[0] == b"trak"]
+
+
+def set_field(node, at: int, fmt: str, value):
+    body = bytearray(node[1])
+    struct.pack_into(fmt, body, at, value)
+    node[1] = bytes(body)
+
+
+def renamed(node, kind=b"free"):
+    node[0] = kind
+
+
+def stsz_fixed(track, size=None, count=1):
+    """stsz's fixed-size form: every sample of `size` bytes (sample 0's
+    where None), with stsc's samples per chunk set to `count`."""
+    stbl = found(track[2], "mdia/minf/stbl")
+    stsz, stsc = found(stbl[2], "stsz"), found(stbl[2], "stsc")
+    first = struct.unpack(">I", stsz[1][12:16])[0]
+    stsz[1] = stsz[1][:4] + struct.pack(">II", first if size is None else size, count)
+    set_field(stsc, 12, ">I", count)
+
+
+def co64(track):
+    stco = found(track[2], "mdia/minf/stbl/stco")
+    count = struct.unpack(">I", stco[1][4:8])[0]
+    offsets = struct.unpack(f">{count}I", stco[1][8:8 + 4 * count])
+    stco[0], stco[1] = b"co64", stco[1][:8] + struct.pack(f">{count}Q", *offsets)
+
+
+def auxi_urn(track, urn: bytes):
+    auxi = found(track[2], "mdia/minf/stbl/stsd/av01/auxi")
+    auxi[1] = auxi[1][:4] + urn + b"\0"
+
+
+def tkhd_size(track, w, h):
+    tkhd = found(track[2], "tkhd")
+    tkhd[1] = tkhd[1][:-8] + struct.pack(">II", w << 16, h << 16)
+
+
+def stbl_box(track, kind):
+    return found(track[2], f"mdia/minf/stbl/{kind}")
+
+
+# name -> an edit of a PIL-written RGBA premultiplied 3-frame sequence's
+# moov (its colour track first, its alpha track second)
+TRACK_EDITS = {
+    "unedited": lambda m: None,
+    "colour handler vide": lambda m: set_field(found(tracks(m)[0][2], "mdia/hdlr"), 8, "4s", b"vide"),
+    "alpha handler pict": lambda m: set_field(found(tracks(m)[1][2], "mdia/hdlr"), 8, "4s", b"pict"),
+    "tracks swapped": lambda m: m.append(m.pop(m.index(tracks(m)[0]))),
+    "alpha auxi of depth": lambda m: auxi_urn(tracks(m)[1], b"urn:mpeg:mpegB:cicp:systems:auxiliary:depth"),
+    "alpha auxi of HEVC's URN": lambda m: auxi_urn(tracks(m)[1], b"urn:mpeg:hevc:2015:auxid:1"),
+    "alpha auxi removed": lambda m: renamed(found(tracks(m)[1][2], "mdia/minf/stbl/stsd/av01/auxi")),
+    "alpha auxl removed": lambda m: renamed(found(tracks(m)[1][2], "tref/auxl")),
+    "alpha track removed": lambda m: m.remove(tracks(m)[1]),
+    "alpha entry not av01": lambda m: renamed(found(tracks(m)[1][2], "mdia/minf/stbl/stsd/av01"), b"av02"),
+    "alpha av1C removed": lambda m: renamed(found(tracks(m)[1][2], "mdia/minf/stbl/stsd/av01/av1C")),
+    "prem removed": lambda m: renamed(found(tracks(m)[0][2], "tref/prem")),
+    "colour av1C removed": lambda m: renamed(found(tracks(m)[0][2], "mdia/minf/stbl/stsd/av01/av1C")),
+    "colour colr removed": lambda m: renamed(found(tracks(m)[0][2], "mdia/minf/stbl/stsd/av01/colr")),
+    "colour colr of BT.709": lambda m: set_field(found(tracks(m)[0][2], "mdia/minf/stbl/stsd/av01/colr"), 8, ">H",
+                                                 1),
+    "colour entry not av01": lambda m: renamed(found(tracks(m)[0][2], "mdia/minf/stbl/stsd/av01"), b"av02"),
+    "colour track id 0": lambda m: set_field(found(tracks(m)[0][2], "tkhd"), 12, ">I", 0),
+    "colour tkhd 0x0": lambda m: tkhd_size(tracks(m)[0], 0, 0),
+    "colour tkhd removed": lambda m: renamed(found(tracks(m)[0][2], "tkhd")),
+    "alpha tkhd larger": lambda m: tkhd_size(tracks(m)[1], 100, 70),
+    "colour timescale 0": lambda m: set_field(found(tracks(m)[0][2], "mdia/mdhd"), 20, ">I", 0),
+    "mvhd removed": lambda m: renamed(found(m, "mvhd")),
+    "no tracks": lambda m: [m.remove(t) for t in tracks(m)],
+    "stss and stts removed": lambda m: [renamed(stbl_box(tracks(m)[0], k)) for k in ("stss", "stts")],
+    "stsd removed": lambda m: renamed(stbl_box(tracks(m)[0], "stsd")),
+    "co64": lambda m: co64(tracks(m)[0]),
+    "stsz of fixed size": lambda m: [stsz_fixed(t) for t in tracks(m)],
+    "stsz of fixed size, 3 samples": lambda m: stsz_fixed(tracks(m)[0], count=3),
+    "stsz of fixed size 1, 3 samples": lambda m: stsz_fixed(tracks(m)[0], size=1, count=3),
+    "stsz counting 1 sample": lambda m: set_field(stbl_box(tracks(m)[0], "stsz"), 8, ">I", 1),
+    "stsz counting 200 samples": lambda m: set_field(stbl_box(tracks(m)[0], "stsz"), 8, ">I", 200),
+    "stsz cut": lambda m: stbl_box(tracks(m)[0], "stsz").__setitem__(1, stbl_box(tracks(m)[0], "stsz")[1][:-4]),
+    "stco counting 0 chunks": lambda m: set_field(stbl_box(tracks(m)[0], "stco"), 4, ">I", 0),
+    "stco counting 2 chunks": lambda m: set_field(stbl_box(tracks(m)[0], "stco"), 4, ">I", 2),
+    "stco cut": lambda m: stbl_box(tracks(m)[0], "stco").__setitem__(1, stbl_box(tracks(m)[0], "stco")[1][:-2]),
+    "stco past the end": lambda m: set_field(stbl_box(tracks(m)[0], "stco"), 8, ">I", 10 ** 6),
+    "stsc of 1 sample a chunk": lambda m: set_field(stbl_box(tracks(m)[0], "stsc"), 12, ">I", 1),
+    "stsc of 5 samples a chunk": lambda m: set_field(stbl_box(tracks(m)[0], "stsc"), 12, ">I", 5),
+    "stsc empty": lambda m: set_field(stbl_box(tracks(m)[0], "stsc"), 4, ">I", 0),
+    "stsc from chunk 2": lambda m: set_field(stbl_box(tracks(m)[0], "stsc"), 8, ">I", 2),
+}
+
+
+def assert_as_pil(tmp_path, data: bytes, label=""):
+    """The file reads as PIL reads it, or PIL raises (opening or loading)
+    and so does the port, a ValueError naming the file."""
+    try:
+        np.asarray(Image.open(io.BytesIO(data)))
+    except Exception:  # noqa: BLE001  (SyntaxError, RuntimeError, ZeroDivisionError: each a refusal)
+        path = tmp_path / "refused.avif"
+        path.write_bytes(data)
+        with pytest.raises(ValueError) as err:
+            image_io.open_image(path)
+        assert str(path) in str(err.value)
+        return None
+    return assert_reads_as_pil(tmp_path, data, label)
+
+
+_SEQUENCES = {}
+
+
+def sequence_of(name):
+    """PIL's sequences of seeded pictures, written once a process."""
+    if name not in _SEQUENCES:
+        rgba = [with_alpha(picture(64, 96, 250 + i, "scene"), i) for i in range(3)]
+        _SEQUENCES.update({
+            "RGBA premultiplied": pil_sequence(rgba, quality=60, alpha_premultiplied=True),
+            "mixed": mixed_sources(pil_sequence(rgba, quality=60),
+                                   pil_avif(with_alpha(picture(64, 96, 259, "gradient"), 5), quality=60)),
+        })
+    return _SEQUENCES[name]
+
+
+@requires_avif
+@pytest.mark.parametrize("edit", list(TRACK_EDITS))
+def test_sequence_tracks_read_or_fail_as_pil(tmp_path, cxx, edit):
+    """libavif's track rules on an RGBA premultiplied sequence whose `moov`
+    is edited: the colour track is the first with an id, chunks and an av01
+    entry (its av1C required) that is not an auxiliary; its handler is not
+    read; the alpha track is one whose `auxl` names it, its `auxi` (where
+    present) an alpha URN; `prem` un-premultiplies; sample 0 comes from
+    stco / co64, stsc and stsz (either form), every sample within the file.
+    Each file reads as PIL reads it, or raises where PIL raises."""
+    data = with_moov(sequence_of("RGBA premultiplied"), TRACK_EDITS[edit])
+    assert_as_pil(tmp_path, data, edit)
+
+
+def mixed_sources(seq: bytes, still: bytes) -> bytes:
+    """The sequence `seq` whose primary item (and its alpha item) is the
+    still picture's instead of frame 0, its AV1 in a `free` box at the end
+    (iloc's extents edited): the tracks and the primary item then show
+    different pictures."""
+    items = avif.parse(still, "x")
+    payload = items["color"] + items["alpha"]
+    out = bytearray(seq + box(b"free", payload))
+    at = seq.index(b"iloc") + 4
+    assert seq[at] == 0 and seq[at + 4] == 0x44  # version 0, 4-byte offsets and lengths
+    p = at + 8
+    for _ in range(struct.unpack(">H", seq[at + 6:at + 8])[0]):
+        item, _, extents = struct.unpack(">HHH", seq[p:p + 6])
+        assert extents == 1
+        start = len(seq) + 8 + (len(items["color"]) if item == 2 else 0)
+        struct.pack_into(">II", out, p + 6, start, len(items["color"] if item == 1 else items["alpha"]))
+        p += 14
+    return bytes(out)
+
+
+def with_ftyp(data: bytes, major: bytes, compatible) -> bytes:
+    """The file with its 44-byte ftyp's brands replaced (padded with iso8)."""
+    assert data[:4] == b"\0\0\0\x2c"
+    brands = list(compatible) + [b"iso8"] * (7 - len(compatible))
+    return data[:8] + major + b"\0\0\0\0" + b"".join(brands) + data[44:]
+
+
+def without(data: bytes, kind: bytes) -> bytes:
+    at = data.index(kind)
+    return data[:at] + b"free" + data[at + 4:]
+
+
+BRANDS = [(b"avis", (b"avif", b"avis", b"msf1")), (b"avif", (b"avif", b"avis", b"msf1")),
+          (b"mif1", (b"avif", b"avis", b"mif1")), (b"msf1", (b"avif", b"avis")), (b"avif", (b"avif", b"mif1")),
+          (b"avis", (b"avis", b"msf1")), (b"mif1", (b"avif", b"mif1")), (b"mif1", (b"avis", b"mif1")),
+          (b"msf1", (b"avif",)), (b"avis", (b"avif",)), (b"avif", (b"avis",))]
+
+
+@requires_avif
+@pytest.mark.parametrize("boxes", ["both", "no moov", "no meta"])
+@pytest.mark.parametrize("major, compatible", BRANDS, ids=[f"{m.decode()}-{'+'.join(c.decode() for c in cs)}"
+                                                          for m, cs in BRANDS])
+def test_libavifs_choice_of_source_on_edited_brands(tmp_path, cxx, major, compatible, boxes):
+    """A sequence whose primary item shows another picture than frame 0:
+    a major brand `avis` reads the tracks, `avif` the item, any other the
+    tracks where its moov is read; a brand `avif` needs the meta box and
+    `avis` the moov, and libavif reads no further once it has them (so a
+    file without `avis` never reads its tracks). With the moov or the meta
+    box renamed `free`, the file reads or fails as PIL's."""
+    data = with_ftyp(sequence_of("mixed"), major, compatible)
+    if boxes != "both":
+        data = without(data, b"moov" if boxes == "no moov" else b"meta")
+    got = assert_as_pil(tmp_path, data, boxes)
+    if got is not None:
+        want = "tracks" if major == b"avis" or (major != b"avif" and b"avis" in compatible) else "item"
+        assert avif.parse(data, "x")["source"] == want
+
+
+@requires_avif
+@pytest.mark.parametrize("grain", [False, True])
+@pytest.mark.parametrize("frames", [1, 3])
+@pytest.mark.parametrize("mode", ["RGB", "RGBA", "RGBA premultiplied"])
+def test_sequences_read_as_pils_frame_0(tmp_path, cxx, mode, frames, grain):
+    """PIL's sequences of shifted pictures (1 frame: the 3-frame file's
+    sample tables cut to its first sample, since PIL writes one frame as a
+    still image), with and without grain, read as PIL's frame 0 from their
+    tracks."""
+    base = picture(67, 130, 260 + frames, "scene")
+    pics = [np.roll(base, 5 * i, axis=1) for i in range(3)]
+    if mode != "RGB":
+        pics = [with_alpha(p, i) for i, p in enumerate(pics)]
+    options = dict(quality=55, alpha_premultiplied=mode.endswith("premultiplied"))
+    if grain:
+        options["advanced"] = {"film-grain-test": "4"}
+    data = pil_sequence(pics, **options)
+    if frames == 1:
+        data = with_moov(data, lambda m: [stsz_fixed(t) for t in tracks(m)])
+        assert Image.open(io.BytesIO(data)).n_frames == 1
+    got = assert_reads_as_pil(tmp_path, data, mode)
+    assert got.mode == mode[:4].strip()
+    info = avif.parse(data, "x")
+    assert info["source"] == "tracks" and info["premultiplied"] == mode.endswith("premultiplied")
+    tools = {}
+    avif.av1_planes(info["color"], "x", tools=tools)
+    assert tools["film_grain"]["apply_grain"] == int(grain)
+
+
+@requires_avif
+@pytest.mark.parametrize("header, what", [(0x00, "not shown"), (0x30, "inter frame"), (0x80, "show_existing_frame")],
+                         ids=["hidden key frame", "inter frame", "show_existing_frame"])
+def test_a_sample_0_that_is_not_a_shown_key_frame_is_refused(tmp_path, cxx, header, what):
+    """Sample 0 of a PIL-written sequence whose frame header's first byte is
+    edited (show_existing_frame, frame_type, show_frame): PIL shows no
+    frame 0 (it raises), and the port refuses the frame by name."""
+    data = pil_sequence([picture(33, 65, 270 + i) for i in range(3)], quality=60)
+    av1 = avif.parse(data, "x")["color"]
+    frame = frame_obu_at(av1)[0]
+    assert av1[frame] == 0x10  # a shown key frame
+    at = data.index(av1) + frame
+    data = data[:at] + bytes([header]) + data[at + 1:]
+    with pytest.raises(Exception):
+        np.asarray(Image.open(io.BytesIO(data)))
+    assert_refused(tmp_path, data, what)
+
+
 # ---- the refusals, each naming the tool and the file ----
 
 def frame_obu_at(av1: bytes):
@@ -690,8 +1173,6 @@ def refused_cases():
     """name: (a function making the bytes, what the error names)."""
     px = picture(130, 160, 90)
     return {
-        "film grain (denoise-noise-level)": (
-            lambda: pil_avif(px, quality=50, advanced={"denoise-noise-level": "25"}), "film grain"),
         "superres (header bits edited)": (lambda: edited(pil_avif(px, quality=50), superres_edit), "superres"),
         "10-bit (header bit edited)": (lambda: edited(pil_avif(px, quality=50), high_bitdepth_edit), "10-bit"),
     }
@@ -723,16 +1204,6 @@ def test_grid_and_tmap_items_are_refused(tmp_path, cxx, kind):
     data = pil_avif(picture(33, 65, 95), quality=50)
     assert avif.parse(data, "x")["color"]
     assert_refused(tmp_path, with_primary_type(data, kind), kind.decode())
-
-
-@requires_avif
-def test_an_avis_sequence_is_refused(tmp_path, cxx):
-    """An `avis` file (a `moov` track): PIL reads frame 0; the port refuses
-    the sequence by name."""
-    data = pil_avif(picture(33, 65, 96), quality=50)
-    ftyp = box(b"ftyp", b"avis\0\0\0\0avisavifmsf1")
-    rest = data[struct.unpack(">I", data[:4])[0]:]
-    assert_refused(tmp_path, ftyp + rest + box(b"moov", box(b"mvhd", bytes(100))), "sequence")
 
 
 # ---- PIL's accept rule and the fall-through ----
@@ -821,11 +1292,12 @@ def test_committed_fixture_reads_as_pil_and_the_json_say(tmp_path, cxx, name):
 
 
 def test_decode_split_names_each_step():
-    """The split names every step, CDEF and loop restoration among them,
-    on a file that uses both (and an alpha item, whose steps are added)."""
+    """The split names every step, CDEF, loop restoration and film grain
+    among them, on files that use them (and alpha items, whose steps are
+    added)."""
     assert avif.SPLIT_KEYS == ("container", "av1_symbols_and_reconstruction", "av1_deblocking", "av1_cdef",
-                               "av1_loop_restoration", "yuv_to_rgb")
-    for name in ("tiles_2x2_256x256.avif", "rgba_sb128_130x67.avif"):
+                               "av1_loop_restoration", "av1_film_grain", "yuv_to_rgb")
+    for name in ("tiles_2x2_256x256.avif", "rgba_sb128_130x67.avif", "grain_rgba_avis_130x67.avif"):
         data = open(os.path.join(FIXTURES, name), "rb").read()
         split = {}
         avif.decode_avif(data, name, split=split)
@@ -869,6 +1341,53 @@ def screen_views(w, h):
     }
 
 
+def grain_views(w, h):
+    """AVIF views with film grain: test vectors at 4:2:0, at 4:2:2 limited
+    range and at 4:4:4, grain estimated from the picture, RGBA 4:0:0 with
+    grain on both items, premultiplied RGBA with grain on the colour only."""
+    a = picture(h, w, 140)
+    return {
+        "g_420.avif": pil_avif(a, quality=70, advanced={"film-grain-test": "1"}),
+        "g_422_limited.avif": pil_avif(picture(h, w, 141, "edges"), quality=50, subsampling="4:2:2",
+                                       range="limited", advanced={"film-grain-test": "6"}),
+        "g_444.avif": pil_avif(picture(h, w, 142), quality=80, subsampling="4:4:4",
+                               advanced={"film-grain-test": "12"}),
+        "g_denoise.avif": pil_avif(picture(h, w, 143, "grainy"), quality=60, advanced={"denoise-noise-level": "25"}),
+        "g_400_rgba.avif": pil_avif(with_alpha(a, 3), quality=75, subsampling="4:0:0",
+                                    advanced={"film-grain-test": "3"}),
+        "g_rgba_premultiplied.avif": pil_avif(with_alpha(picture(h, w, 144), 4), quality=70, alpha_premultiplied=True,
+                                              advanced={"color:film-grain-test": "8"}),
+    }
+
+
+def avis_views(w, h):
+    """AVIF views written as 3-frame sequences of shifted pictures (RGB,
+    RGBA, premultiplied RGBA with grain on both tracks) beside a still one."""
+    def frames(seed, alpha=False):
+        px = picture(h, w, seed)
+        return [with_alpha(np.roll(px, 3 * i, axis=1), i) if alpha else np.roll(px, 3 * i, axis=1) for i in range(3)]
+    return {
+        "q_rgb.avif": pil_sequence(frames(150), quality=70),
+        "q_rgba.avif": pil_sequence(frames(151, True), quality=70, subsampling="4:4:4"),
+        "q_rgba_grain.avif": pil_sequence(frames(152, True), quality=60, alpha_premultiplied=True,
+                                          advanced={"film-grain-test": "5"}),
+        "q_still.avif": pil_avif(picture(h, w, 153), quality=70),
+    }
+
+
+def assert_views_use_grain_and_tracks(views, tracks=True):
+    """The views' AV1 used luma and chroma grain with overlap_flag, and
+    (with `tracks`) some view was read from its tracks."""
+    used, sources = [], []
+    for data in views:
+        tools, info = {}, avif.parse(data, "x")
+        avif.av1_planes(info["color"], "x", tools=tools)
+        used.append(tools["film_grain"])
+        sources.append(info["source"])
+    assert any(g["num_y_points"] and g["num_cb_points"] and g["overlap_flag"] for g in used), used
+    assert not tracks or "tracks" in sources
+
+
 def assert_views_use_screen_tools(views):
     """The views' AV1 used Y palettes, UV palettes and IntraBC."""
     used = []
@@ -895,11 +1414,14 @@ def assert_views_use_both_filters(views):
 @requires_avif
 @pytest.mark.parametrize("resolution, filters", [pytest.param(1, False, id="1"), pytest.param(2, False, id="2"),
                                                  pytest.param(1, True, id="1-speed2-cdef"),
-                                                 pytest.param(1, "screen", id="1-screen")])
+                                                 pytest.param(1, "screen", id="1-screen"),
+                                                 pytest.param(1, "grain", id="1-grain"),
+                                                 pytest.param(2, "avis", id="2-avis")])
 def test_colmap_avif_views_match_jax(tmp_path, monkeypatch, cxx, resolution, filters):
     """A COLMAP dataset of AVIF views: the Scene's cameras equal the JAX
     package's, images bit for bit; also with views that use CDEF and loop
-    restoration, and with screen content (palette and IntraBC, 203x131)."""
+    restoration, with screen content (palette and IntraBC, 203x131), with
+    film grain, and with image sequences (read as frame 0) beside grain."""
     from test_torch_scene import both_scenes
 
     w, h = (203, 131) if filters == "screen" else (45, 37)
@@ -907,6 +1429,9 @@ def test_colmap_avif_views_match_jax(tmp_path, monkeypatch, cxx, resolution, fil
     if filters == "screen":
         views = screen_views(w, h)
         assert_views_use_screen_tools(views.values())
+    elif filters in ("grain", "avis"):
+        views = grain_views(w, h) if filters == "grain" else {**avis_views(w, h), **grain_views(w, h)}
+        assert_views_use_grain_and_tracks(views.values(), tracks=filters == "avis")
     else:
         views = colmap_views(w, h, filters)
     if filters is True:
@@ -921,15 +1446,22 @@ def test_colmap_avif_views_match_jax(tmp_path, monkeypatch, cxx, resolution, fil
 @requires_avif
 @pytest.mark.parametrize("white_background, filters", [
     pytest.param(False, False, id="False"), pytest.param(True, False, id="True"),
-    pytest.param(True, True, id="True-speed2-cdef"), pytest.param(True, "screen", id="True-screen")])
+    pytest.param(True, True, id="True-speed2-cdef"), pytest.param(True, "screen", id="True-screen"),
+    pytest.param(True, "grain", id="True-grain"), pytest.param(False, "avis", id="False-avis")])
 def test_blender_avif_frames_match_jax(tmp_path, monkeypatch, cxx, white_background, filters):
     """read_blender_scene on AVIF frames (named .png, as the transforms file
     names them): PIL's convert("RGBA") through the composite, bit for bit,
     then load_camera at -r 2; also with frames that use CDEF and loop
-    restoration, and with screen content (palette and IntraBC)."""
+    restoration, with screen content (palette and IntraBC), with film
+    grain, and with image sequences beside grain."""
     if filters == "screen":
         frames = list(screen_views(203, 131).values())
         assert_views_use_screen_tools(frames)
+    elif filters in ("grain", "avis"):
+        frames = list(grain_views(45, 37).values())
+        if filters == "avis":
+            frames = list(avis_views(45, 37).values()) + frames
+        assert_views_use_grain_and_tracks(frames, tracks=filters == "avis")
     else:
         frames = list(colmap_views(45, 37, filters).values())
     if filters is True:
