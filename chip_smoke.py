@@ -209,7 +209,7 @@ Phases (any failure exits non-zero; none is caught and passed over):
      and its small files (fax, CIELab, float, palette + alpha, old-style
      JPEG, ThunderScan, YCbCr) PIL's mode, pixels and RGBA. Then
      `cli.train.main`
-     (-r 1 --eval, 200 iterations, reports at 100 and 200, a PLY at 100 and
+     (-r 1 --eval, 200 iterations, a report at 200, a PLY at 100 and
      200, a checkpoint at 200, a densify every 20 steps from 40 to 140, the
      opacity reset at 120; 14 train and 2 test views): the files must
      exist, the run reach 200, a densify run, the mean of the last 20
@@ -450,6 +450,22 @@ Phases (any failure exits non-zero; none is caught and passed over):
      together must use luma and chroma grain, overlap_flag and a track of
      an `avis` file (each view's are printed). `cli.train` -r 1 for 30
      iterations as in 5h, its checks and prints.
+  5n. JPEG arithmetic coding and lossless, after 5m: (a) the four
+     committed 1080p arithmetic-coded files of tests/fixtures/torch_jpeg_arith
+     (libjpeg-turbo's transcodes of PIL 12.1.0 JPEGs of trained_r5's
+     renders: sequential 4:2:0 q60 with restarts, progressive 4:2:0 q55,
+     4:4:4 q40 with DAC conditioning, and a 4:2:0 q95 file whose scan runs
+     past the 65536 bytes PIL has read when libjpeg decodes it), held to
+     PIL 12.1.0's committed reading and to this machine's PIL's (its
+     libjpeg-turbo version printed): pixels, or a refusal from both; each
+     read's median of 5 beside this PIL's (host clock). (b) A COLMAP
+     dataset of 7 views of trained_r5 on phase 5c's orbit at 1920x1080: the
+     three files read, then four renders coded lossless here by
+     tests/torch_image_writers.py (RGB with predictor 1; predictor 7 with
+     Pt 1; the first component sampled 2x2 with restarts and no marker;
+     grey), each held to this machine's PIL's decode (without a PIL: to
+     PIL 12.1.0's hashes and to the samples coded) and timed beside it.
+     `cli.train` -r 1 for 30 iterations as in 5h, its checks and prints.
   5d. sharded path (`parallel/sharding.py`), on the one card:
      - the kernels at a row origin: trained_r5 at 1920x1080 with 32x32
        tiles cut into 2 and into 4 strips of tile rows; each strip's
@@ -518,6 +534,7 @@ Phases (any failure exits non-zero; none is caught and passed over):
      forms_train (5h's train CLI), dds_train (5i's train CLI),
      avif_train (5j's train CLI), avif_filters_train (5k's train CLI),
      avif_screen_train (5l's train CLI), avif_grain_train (5m's train CLI),
+     jpeg_arith_train (5n's train CLI),
      sharded_2rank and sharded_trainer (both ranks' sums), sharded_nccl1,
      bench (the five in-process runs of 5f) for the compositing kernels
      and the routing,
@@ -622,7 +639,7 @@ TRAINER_STEPS, TRAINER_CAMERAS = 300, 8
 TRAINER_OPT = OptimizationConfig(densify_from_iter=5, densification_interval=5,
                                  densify_until_iter=300, opacity_reset_interval=200)
 
-CLI_VIEWS, CLI_STEPS, CLI_REPORTS, CLI_SAVE = 16, 200, (100, 200), 100
+CLI_VIEWS, CLI_STEPS, CLI_REPORTS, CLI_SAVE = 16, 200, (200,), 100  # one report: its image panels are slow
 CLI_JPEG_QUALITY, CLI_RESTART_VIEW = 95, 1  # the train view with a restart marker every MCU row
 # train views damaged where libjpeg warns and carries on: a flipped
 # entropy-coded byte in the restart view (its damage ends at the next
@@ -4709,6 +4726,165 @@ def _avif_grain_phase(dev, tmp):
     return launches, errs
 
 
+# ---- phase 5n: arithmetic-coded and lossless JPEG ---------------------------
+
+# PIL 12.1.0's reading of each committed arithmetic-coded 1080p file (its
+# mode, shape, pixels' SHA-256, or "raises") and the file's own SHA-256, as
+# tests/fixtures/torch_jpeg_arith/make_fixtures.py wrote them
+JPEG_ARITH_FIXTURES = os.path.join(FIXTURES, "torch_jpeg_arith")
+JPEG_ARITH_STEPS = 30
+# the seven views: the three committed arithmetic-coded files (PIL's JPEGs
+# of this orbit's views 0-2 from an earlier run, transcoded; at 1080p PIL
+# reads an arithmetic file only at a quality whose scans fit the 65536-byte
+# blocks PIL has read when libjpeg decodes them), then views 3-6 coded
+# lossless here by tests/torch_image_writers.py's lossless_jpeg (libjpeg-
+# turbo converts no colours in lossless mode, so PIL reads RGB and grey
+# ones, not YCbCr)
+JPEG_ARITH_VIEWS = (
+    ("arithmetic sequential 4:2:0 q60, a restart every 4 MCU rows", "1080p_seq_420_q60_rows4.jpg", None),
+    ("arithmetic progressive 4:2:0 q55", "1080p_prog_420_q55.jpg", None),
+    ("arithmetic sequential 4:4:4 q40, DAC L 1, U 3, Kx 10", "1080p_seq_444_q40_dac.jpg", None),
+    ("lossless RGB, predictor 1", None, {"psv": 1}),
+    ("lossless RGB, predictor 7, Pt 1", None, {"psv": 7, "pt": 1}),
+    ("lossless RGB sampled 2x2, 1x1, 1x1, predictor 4, a restart every 8 MCU rows, no marker", None,
+     {"sampling": [(2, 2), (1, 1), (1, 1)], "psv": 4, "restart_rows": 8, "marker": None}),
+    ("lossless grey, predictor 6, a restart every 16 rows", None, {"psv": 6, "restart_rows": 16, "grey": True}))
+
+
+def jpeg_versions() -> str:
+    """PIL's version and its libjpeg-turbo's on this machine (the rules the
+    port follows were found against PIL 12.1.0 with libjpeg-turbo 3.1.3)."""
+    if importlib.util.find_spec("PIL") is None:
+        return "PIL: not on this machine"
+    from PIL import features
+
+    return f"PIL {importlib.metadata.version('pillow')}, libjpeg-turbo {features.version('libjpeg_turbo')}"
+
+
+def pil_reading(path):
+    """(mode, shape, pixels' SHA-256) of this machine's PIL's reading of
+    `path`, "raises", or None where there is no PIL."""
+    if importlib.util.find_spec("PIL") is None:
+        return None
+    from PIL import Image
+
+    try:
+        with Image.open(path) as im:
+            a = np.asarray(im)
+            return im.mode, list(a.shape), sha256_of(a)
+    except Exception:  # noqa: BLE001  (PIL raises OSError, SyntaxError, ...: a refusal to hold the port to)
+        return "raises"
+
+
+def jpeg_arith_phase(dev):
+    """Phase 5n (module docstring). Returns the compositing kernels'
+    launches in the train CLI run and the max abs errors of the forward,
+    the backward and the routing against their plain versions at its final
+    state."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_jpeg_arith_")
+    try:
+        return _jpeg_arith_phase(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _jpeg_arith_phase(dev, tmp):
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) The committed 1080p arithmetic-coded files, one of them refused.
+    with open(os.path.join(JPEG_ARITH_FIXTURES, "sha256.json")) as f:
+        readings = json.load(f)["files"]
+    print(f"JPEG arithmetic coding and lossless: {len(readings)} committed 1080p files of "
+          f"tests/fixtures/torch_jpeg_arith held to PIL 12.1.0's reading (sha256.json) and to this machine's "
+          f"({jpeg_versions()}); decode ms, median of 5 (host clock), beside that PIL's [{gpu_line()}]:")
+    for name in sorted(readings):
+        want, path = readings[name], os.path.join(JPEG_ARITH_FIXTURES, name)
+        with open(path, "rb") as f:
+            if hashlib.sha256(f.read()).hexdigest() != want["file_sha256"]:
+                fail(f"JPEG arith: {name} is not the file PIL read (sha256.json)")
+        here = pil_reading(path)
+        if want.get("pil") == "raises":
+            try:
+                image_io.open_image(path)
+                fail(f"JPEG arith: the port reads {name}, which PIL refuses")
+            except ValueError as err:
+                if "past the bytes PIL has read" not in str(err):
+                    fail(f"JPEG arith: {name} refused for another reason: {err}")
+            if here not in (None, "raises"):
+                fail(f"JPEG arith: this machine's PIL reads {name}, which PIL 12.1.0 refuses")
+            print(f"  {name}: refused by the port (its scan runs past PIL's first 65536 bytes) and by PIL 12.1.0 "
+                  f"and this machine's PIL ({'raises' if here else 'not run'})")
+            continue
+        ms = []
+        for _ in range(5):
+            pic, t = synced_ms(image_io.open_image, path)
+            ms.append(t)
+        got = (pic.mode, list(pic.pixels.shape), sha256_of(pic.pixels))
+        if got != (want["mode"], want["shape"], want["sha256"]) or here not in (None, got):
+            fail(f"JPEG arith: {name} reads as {got}, not as PIL 12.1.0 ({want}) or this machine's PIL ({here})")
+        print(f"  {name}: {float(np.median(ms)):.2f} ms (PIL {pil_decode_ms(path, 5)})")
+
+    # (b) A COLMAP dataset of trained_r5 with seven 1080p arithmetic-coded
+    # and lossless views.
+    t0 = time.perf_counter()
+    data, model_dir = os.path.join(tmp, "data"), os.path.join(tmp, "model")
+    model = load_gaussians_ply(TRAINED_PLY)
+    cams, images = orbit_dataset(len(JPEG_ARITH_VIEWS), W_MAIN, H_MAIN)
+    write_colmap_scene(data, cams, images, model["xyz"], dc_colors(model))
+    writers = image_writers()
+    files, labels, coded = {}, {}, {}  # coded: the samples a full-size lossless view holds
+    for cam, px, (label, fixture, options) in zip(cams, images, JPEG_ARITH_VIEWS):
+        os.remove(os.path.join(data, "images", f"{cam.image_name}.png"))
+        files[cam.image_name], labels[cam.image_name] = cam.image_name + ".jpg", label
+        path = os.path.join(data, "images", files[cam.image_name])
+        if fixture is not None:
+            shutil.copyfile(os.path.join(JPEG_ARITH_FIXTURES, fixture), path)
+            continue
+        options = dict(options)
+        rgb = np.ascontiguousarray(px[..., :3])
+        pic = np.round(rgb @ np.array([0.299, 0.587, 0.114])).astype(np.uint8) if options.pop("grey", False) else rgb
+        with open(path, "wb") as f:
+            f.write(writers.lossless_jpeg(pic, **options))
+        if "sampling" not in options:
+            pt = options.get("pt", 0)
+            coded[cam.image_name] = ("L" if pic.ndim == 2 else "RGB", list(pic.shape), sha256_of((pic >> pt) << pt))
+    rename_views(data, files)
+    build_s = time.perf_counter() - t0
+    info = read_colmap_scene(data, None, eval_split=False)
+    print(f"  {len(JPEG_ARITH_VIEWS)} views of trained_r5 at {W_MAIN}x{H_MAIN}, made in {build_s:.1f} s; decode ms, "
+          f"median of 5 (host clock), beside this machine's PIL's:")
+    for c in info.train_cameras:
+        ms = []
+        for _ in range(5):
+            pic, t = synced_ms(image_io.open_image, c.image_path)
+            ms.append(t)
+        px = pic.pixels[..., 0] if pic.pixels.shape[2] == 1 else pic.pixels  # np.asarray's shape of an "L" image
+        got = (pic.mode, list(px.shape), sha256_of(px))
+        here = pil_reading(c.image_path)
+        if here is None:  # no PIL: the committed files to PIL 12.1.0's hashes, the lossless ones to their samples
+            fixture = next(fx for lb, fx, _ in JPEG_ARITH_VIEWS if lb == labels[c.image_name])
+            here = (readings[fixture]["mode"], readings[fixture]["shape"], readings[fixture]["sha256"]) \
+                if fixture else coded.get(c.image_name, got)
+        if got != here:
+            fail(f"JPEG arith: view {files[c.image_name]} ({labels[c.image_name]}) reads as {got}, "
+                 f"not as this machine's PIL reads it ({here})")
+        with open(c.image_path, "rb") as f:
+            size = len(f.read())
+        print(f"    {labels[c.image_name]}: {size} bytes, {pic.mode}, {float(np.median(ms)):.2f} ms "
+              f"(PIL {pil_decode_ms(c.image_path, 5)})")
+    launches, errs, (train_s, load_s, step_ms, loss0, loss1) = train_cli_on(
+        "JPEG arith", data, model_dir, len(JPEG_ARITH_VIEWS), JPEG_ARITH_STEPS, 65)
+    print(f"  train CLI on a COLMAP dataset of {len(JPEG_ARITH_VIEWS)} arithmetic-coded and lossless JPEG views "
+          f"of trained_r5 at {W_MAIN}x{H_MAIN}: -r 1, {JPEG_ARITH_STEPS} iterations in {train_s:.2f} s (scene load "
+          f"{load_s:.2f} s), step median {step_ms:.3f} ms; loss {loss0:.6f} -> {loss1:.6f}; "
+          f"launches {launches}; max abs errors {dict(zip(TRAIN_KERNELS, errs))}")
+    print(f"  phase peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
+          f"wall {time.perf_counter() - t_phase:.1f} s")
+    return launches, errs
+
+
 # ---- phase 5d: the sharded path -------------------------------------------
 
 SHARD_STRIPS = (2, 4)  # strips of the in-process kernel check at an origin
@@ -5569,6 +5745,12 @@ def main():
         max_err[k] = max(max_err[k], e)
     phase_done("5m AVIF film grain and sequences")
 
+    # ---- 5n. JPEG arithmetic coding and lossless ------------------------
+    jpeg_arith_train_launches, jpeg_arith_errs = jpeg_arith_phase(dev)
+    for k, e in zip(TRAIN_KERNELS, jpeg_arith_errs):
+        max_err[k] = max(max_err[k], e)
+    phase_done("5n JPEG arithmetic and lossless")
+
     # ---- 5d. sharded path ---------------------------------------------
     sharded_launches, strip_errs = sharded_phase(dev, gt, center, dist, train_capacity,
                                                  single_ref, step_ms)
@@ -5655,6 +5837,7 @@ def main():
                     "avif_filters_train": avif_filters_train_launches[name],
                     "avif_screen_train": avif_screen_train_launches[name],
                     "avif_grain_train": avif_grain_train_launches[name],
+                    "jpeg_arith_train": jpeg_arith_train_launches[name],
                     **{path: counts[name] for path, counts in sharded_launches.items()},
                     "bench": bench_launches[name]}
         return {"profiler": prof_launches[name]}

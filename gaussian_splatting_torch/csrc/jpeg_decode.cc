@@ -18,8 +18,14 @@
 // wide; jdcolor.c's fixed-point YCbCr -> RGB; for 4 components
 // jdapimin.c's rule (YCCK under an Adobe marker whose transform is not 0,
 // else CMYK as stored), jdcolor.c's ycck_cmyk_convert on the same tables,
-// and PIL's "CMYK;I" unpacking, which inverts every sample. Everything
-// else is refused by name, where PIL raises.
+// and PIL's "CMYK;I" unpacking, which inverts every sample.
+//
+// Beyond the plain version too: arithmetic coding (SOF9, SOF10 with DAC
+// conditioning) as jdarith.c decodes it, within PIL's 65536-byte blocks
+// (kPilBlock), and lossless frames (SOF3) as libjpeg-turbo 3's jddiffct.c,
+// jdlhuff.c and jdlossls.c decode them, with no colour conversion and no
+// fancy upsampling. Everything else is refused by name, where PIL raises:
+// hierarchical frames, SOF11, lossless YCbCr.
 //
 // The strips and tiles of a JPEG-in-TIFF (compression 7) are read as
 // libtiff's tif_jpeg.c reads them for PIL: the JPEGTables tag's tables-only
@@ -71,6 +77,7 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <memory>
 #include <string>
 #include <vector>
 
@@ -85,6 +92,15 @@ struct Refused {
 [[noreturn]] void refuse(const std::string& msg) { throw Refused{msg}; }
 [[noreturn]] void corrupt(const std::string& what) { throw Refused{"corrupt data: " + what}; }
 [[noreturn]] void truncated() { refuse("truncated data"); }
+
+// PIL hands libjpeg a JPEG file in blocks of ImageFile.MAXBLOCK bytes, each
+// call with the bytes read so far; a scan that libjpeg starts in a call is
+// decoded in it, and its arithmetic decoder, unlike the Huffman one, cannot
+// wait for the next block (jdarith.c's get_byte: JERR_CANT_SUSPEND).
+const int64_t kPilBlock = 65536;
+const char* const kPastRead =
+    "arithmetic-coded data past the bytes PIL has read when libjpeg decodes its scan (PIL reads a file in "
+    "65536-byte blocks and libjpeg's arithmetic decoder cannot wait for the next: broken data stream)";
 
 std::string fmt(const char* f, int a, int b = 0, int c = 0) {
   char buf[256];
@@ -108,12 +124,10 @@ const int kMaxBlocksInMcu = 10;            // D_MAX_BLOCKS_IN_MCU
 inline int16_t s16(int64_t x) { return static_cast<int16_t>(static_cast<uint16_t>(x & 0xFFFF)); }
 
 bool refusal(int sof, std::string* msg) {
-  if (sof == 3) {
-    *msg = "lossless JPEG (SOF3)";
-  } else if (sof >= 5 && sof <= 7) {
+  if ((sof >= 5 && sof <= 7) || sof >= 13) {
     *msg = fmt("hierarchical JPEG (SOF%d)", sof);
-  } else if (sof >= 9 && sof != 12) {
-    *msg = fmt("arithmetic coding (SOF%d)", sof);
+  } else if (sof == 11) {
+    *msg = "arithmetic-coded lossless JPEG (SOF11; libjpeg-turbo: arithmetic coding is not implemented for it)";
   } else {
     return false;
   }
@@ -129,7 +143,7 @@ struct HuffSpec {
   std::vector<uint8_t> symbols;
 };
 
-std::vector<uint16_t> huffman_lut(const HuffSpec& t, bool is_dc) {
+std::vector<uint16_t> huffman_lut(const HuffSpec& t, bool is_dc, bool lossless = false) {
   int total = 0;
   for (int l = 0; l < 16; ++l) total += t.counts[l];
   if (total > 256) corrupt("a Huffman table of more than 256 codes");
@@ -139,7 +153,8 @@ std::vector<uint16_t> huffman_lut(const HuffSpec& t, bool is_dc) {
   for (int length = 1; length <= 16; ++length) {
     for (int i = 0; i < t.counts[length - 1]; ++i) {
       int sym = t.symbols[p];
-      if (is_dc && sym > 15) corrupt("a DC Huffman symbol over 15");
+      if (is_dc && sym > (lossless ? 16 : 15))
+        corrupt(lossless ? "a lossless Huffman symbol over 16" : "a DC Huffman symbol over 15");
       if (code < (1u << length)) {
         int span = 16 - length;
         uint16_t e = static_cast<uint16_t>((length << 8) | sym);
@@ -193,6 +208,7 @@ struct Component {
   int bw = 0, bh = 0, nbx = 0, nby = 0, stride = 0, rows = 0;
   std::vector<int16_t> coef;  // JCOEF
   int bits[64] = {}, prev_bits[64] = {};
+  std::vector<uint8_t> plane;  // lossless: the samples (bh x bw)
 };
 
 // Bits of one stretch of entropy-coded data, most significant first, in
@@ -265,6 +281,107 @@ struct Bits {
 };
 
 inline int extend(int v, int s) { return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v; }
+
+// ---- arithmetic decoding (T.81 Annex D, as jdarith.c does it) ----
+
+// Table D.2 (jaricom.c's jpeg_aritab): Qe, the next index after an LPS and
+// after an MPS, the MPS switch; entry 113 is libjpeg's fixed 0.5 estimate.
+const uint16_t kQe[114] = {
+    0x5a1d, 0x2586, 0x1114, 0x080b, 0x03d8, 0x01da, 0x00e5, 0x006f, 0x0036, 0x001a, 0x000d, 0x0006, 0x0003,
+    0x0001, 0x5a7f, 0x3f25, 0x2cf2, 0x207c, 0x17b9, 0x1182, 0x0cef, 0x09a1, 0x072f, 0x055c, 0x0406, 0x0303,
+    0x0240, 0x01b1, 0x0144, 0x00f5, 0x00b7, 0x008a, 0x0068, 0x004e, 0x003b, 0x002c, 0x5ae1, 0x484c, 0x3a0d,
+    0x2ef1, 0x261f, 0x1f33, 0x19a8, 0x1518, 0x1177, 0x0e74, 0x0bfb, 0x09f8, 0x0861, 0x0706, 0x05cd, 0x04de,
+    0x040f, 0x0363, 0x02d4, 0x025c, 0x01f8, 0x01a4, 0x0160, 0x0125, 0x00f6, 0x00cb, 0x00ab, 0x008f, 0x5b12,
+    0x4d04, 0x412c, 0x37d8, 0x2fe8, 0x293c, 0x2379, 0x1edf, 0x1aa9, 0x174e, 0x1424, 0x119c, 0x0f6b, 0x0d51,
+    0x0bb6, 0x0a40, 0x5832, 0x4d1c, 0x438e, 0x3bdd, 0x34ee, 0x2eae, 0x299a, 0x2516, 0x5570, 0x4ca9, 0x44d9,
+    0x3e22, 0x3824, 0x32b4, 0x2e17, 0x56a8, 0x4f46, 0x47e5, 0x41cf, 0x3c3d, 0x375e, 0x5231, 0x4c0f, 0x4639,
+    0x415e, 0x5627, 0x50e7, 0x4b85, 0x5597, 0x504f, 0x5a10, 0x5522, 0x59eb, 0x5a1d};
+const uint8_t kNextLps[114] = {
+    1,  14, 16, 18, 20, 23, 25, 28,  30,  33,  35,  9,   10,  12,  15,  36,  38,  39,  40,  42,  43,  45, 46,
+    48, 49, 51, 52, 54, 56, 57, 59,  60,  62,  63,  32,  33,  37,  64,  65,  67,  68,  69,  70,  72,  73, 74,
+    75, 77, 78, 79, 48, 50, 50, 51,  52,  53,  54,  55,  56,  57,  58,  59,  61,  61,  65,  80,  81,  82, 83,
+    84, 86, 87, 87, 72, 72, 74, 74,  75,  77,  77,  80,  88,  89,  90,  91,  92,  93,  86,  88,  95,  96, 97,
+    99, 99, 93, 95, 101, 102, 103, 104, 99, 105, 106, 107, 103, 105, 108, 109, 110, 111, 110, 112, 112, 113};
+const uint8_t kNextMps[114] = {
+    1,  2,  3,  4,  5,  6,  7,  8,  9,  10, 11, 12, 13, 13, 15, 16, 17,  18,  19,  20,  21, 22, 23,
+    24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35, 9,  37, 38, 39, 40,  41,  42,  43,  44, 45, 46,
+    47, 48, 49, 50, 51, 52, 53, 54, 55, 56, 57, 58, 59, 60, 61, 62, 63,  32,  65,  66,  67, 68, 69,
+    70, 71, 72, 73, 74, 75, 76, 77, 78, 79, 48, 81, 82, 83, 84, 85, 86,  87,  71,  89,  90, 91, 92,
+    93, 94, 86, 96, 97, 98, 99, 100, 93, 102, 103, 104, 99, 106, 107, 103, 109, 107, 111, 109, 111, 113};
+const uint8_t kSwitch[114] = {1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                              0, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                              0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0,
+                              0, 1, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0, 1, 0};
+
+// jdarith.c's decoder state over the raw bytes of one restart interval: the
+// C and A registers and the bit counter CT (-16 until the first two bytes
+// are in). A byte is read only when renormalisation needs it. 0xFF 0x00 is
+// a stuffed 0xFF; at a marker the marker is kept (`marker`) and zeros are
+// read from then on. Reading at or past `limit` raises: the end of the
+// bytes PIL has handed libjpeg in the call that decodes the scan (its
+// arithmetic decoder cannot suspend for more) or of the stream.
+struct Arith {
+  const uint8_t* data;
+  int64_t pos, limit;
+  bool marker;
+  int64_t c = 0, a = 0;
+  int ct = -16;
+
+  Arith(const uint8_t* d, int64_t p, int64_t lim, bool at_marker) : data(d), pos(p), limit(lim), marker(at_marker) {}
+  int byte() {
+    if (pos >= limit) refuse(kPastRead);
+    return data[pos++];
+  }
+  // Statistics bins hold (MPS << 7) | state index, as libjpeg keeps them.
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        int d = 0;
+        if (!marker) {
+          d = byte();
+          if (d == 0xFF) {
+            do d = byte();
+            while (d == 0xFF);
+            if (d == 0) {
+              d = 0xFF;
+            } else {
+              marker = true;
+              d = 0;
+            }
+          }
+        }
+        c = (c << 8) | d;
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;
+      }
+      a <<= 1;
+    }
+    int sv = *st, i = sv & 0x7F;
+    int64_t qe = kQe[i];
+    int nl = (kSwitch[i] << 7) | kNextLps[i], nm = kNextMps[i];
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {  // conditional exchange: the MPS after all
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
 
 // ---- reconstruction ----
 
@@ -408,13 +525,15 @@ std::vector<int16_t> smooth(const Component& c, int n_imcu, int last_good, int s
 
 // libjpeg-turbo's upsampling of a component's real samples (bh x bw, row
 // stride `ps`) by (hr, vr) into a plane of H x W.
+// `fancy_ok` false: replication only (lossless frames, whose
+// min_DCT_scaled_size of 1 turns jinit_upsampler's do_fancy off).
 void upsample(const uint8_t* in, int64_t ps, int bw, int bh, int hr, int vr, uint8_t* out, int W,
-              int H) {
+              int H, bool fancy_ok = true) {
   if (hr == 1 && vr == 1) {
     for (int y = 0; y < H; ++y) std::memcpy(out + int64_t(y) * W, in + y * ps, W);
     return;
   }
-  bool fancy = (hr == 1 && vr == 2) || (((hr == 2 && vr == 1) || (hr == 2 && vr == 2)) && bw > 2);
+  bool fancy = fancy_ok && ((hr == 1 && vr == 2) || (((hr == 2 && vr == 1) || (hr == 2 && vr == 2)) && bw > 2));
   if (!fancy) {  // replication (int_upsample, h2v1_upsample, h2v2_upsample)
     for (int y = 0; y < H; ++y)
       for (int x = 0; x < W; ++x) out[int64_t(y) * W + x] = in[(y / vr) * ps + x / hr];
@@ -456,7 +575,8 @@ inline uint8_t clamp255(int64_t x) { return static_cast<uint8_t>(x < 0 ? 0 : x >
 
 // ---- the marker stream ----
 
-const int M_SOF0 = 0xC0, M_SOF1 = 0xC1, M_SOF2 = 0xC2, M_DHT = 0xC4, M_DAC = 0xCC, M_SOI = 0xD8,
+const int M_SOF0 = 0xC0, M_SOF1 = 0xC1, M_SOF2 = 0xC2, M_SOF3 = 0xC3, M_DHT = 0xC4, M_SOF9 = 0xC9, M_SOF10 = 0xCA,
+          M_DAC = 0xCC, M_SOI = 0xD8,
           M_EOI = 0xD9, M_SOS = 0xDA, M_DQT = 0xDB, M_DNL = 0xDC, M_DRI = 0xDD, M_DHP = 0xDE,
           M_EXP = 0xDF, M_APP0 = 0xE0, M_APP14 = 0xEE, M_COM = 0xFE;
 
@@ -485,8 +605,19 @@ struct Decoder {
   int adobe = -1;
   int width = 0, height = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0, scans = 0, last_good = 0;
   std::vector<Component> comps;
+  // arithmetic coding (SOF9, SOF10): each table's DAC conditioning (DC L
+  // and U, AC Kx; get_soi's defaults), and PIL's decode call (kPilBlock)
+  bool arith = false, lossless = false;
+  int dac_l[16], dac_u[16], dac_k[16];
+  int64_t pil_call = 1;
 
-  Decoder(const uint8_t* d, int64_t n, bool header) : data(d), size(n), header_only(header) {}
+  Decoder(const uint8_t* d, int64_t n, bool header) : data(d), size(n), header_only(header) { dac_defaults(); }
+
+  void dac_defaults() {
+    std::fill(dac_l, dac_l + 16, 0);
+    std::fill(dac_u, dac_u + 16, 1);
+    std::fill(dac_k, dac_k + 16, 5);
+  }
 
   // The first 0xFF run from `pos` followed by a byte that is neither 0 nor
   // 0xFF (what lies before it is skipped, as extraneous data).
@@ -520,6 +651,18 @@ struct Decoder {
     if (!m.found && multi) truncated();
     return m;
   }
+  // The bytes of the restart interval from `pos` that marker `m` ends
+  // (none found: a single-scan file whose data runs to its end), stuffing
+  // undone; none where the interval reads as data that ended (`pending`).
+  std::vector<uint8_t> interval(int64_t pos, const Marker& m, bool pending) const {
+    if (!m.found) {
+      int64_t to = size;
+      while (to > pos && data[to - 1] == 0xFF) --to;
+      return unstuff(pos, to);
+    }
+    return pending ? std::vector<uint8_t>() : unstuff(pos, m.start);
+  }
+
   // Entropy-coded bytes from `from` to `to`, stuffing (0xFF+ 0x00) undone.
   std::vector<uint8_t> unstuff(int64_t from, int64_t to) const {
     std::vector<uint8_t> seg;
@@ -569,12 +712,21 @@ struct Decoder {
       if (marker == M_SOI) corrupt("a second SOI marker");
       const uint8_t* body = nullptr;
       int blen = 0;
-      if (marker == M_SOF0 || marker == M_SOF1 || marker == M_SOF2 || marker == M_DHT || marker == M_DQT ||
-          marker == M_DRI || marker == M_SOS || marker == M_DAC) {
+      const bool frame = marker == M_SOF0 || marker == M_SOF1 || marker == M_SOF2 || marker == M_SOF3 ||
+                         marker == M_SOF9 || marker == M_SOF10;
+      // After a single-scan file's rows PIL ignores running out of data, but
+      // not a fault libjpeg finds first: get_sof's and get_sos's first
+      // checks come before they read a byte, and `partial` what they check
+      // of a segment cut short.
+      if (image_done && frame) corrupt("a second frame header");
+      if (frame || marker == M_DHT || marker == M_DQT || marker == M_DRI || marker == M_SOS || marker == M_DAC) {
         if (pos + 2 > size) truncated();
         int length = (data[pos] << 8) | data[pos + 1];
         if (length < 2) corrupt(fmt("a marker segment of length %d", length));
-        if (pos + length > size) truncated();
+        if (pos + length > size) {
+          if (image_done) partial(marker, data + pos + 2, static_cast<int>(size - pos - 2), length - 2);
+          truncated();
+        }
         body = data + pos + 2;
         blen = length - 2;
         pos += length;
@@ -583,13 +735,13 @@ struct Decoder {
       if (tables_only && (marker == M_SOS || (marker >= 0xC0 && marker <= 0xCF && marker != M_DHT && marker != M_DAC)))
         refuse(fmt("a JPEGTables stream with a frame or scan marker 0x%02x (libtiff: Bogus JPEGTables field)",
                    marker));
-      if (marker == M_SOF0 || marker == M_SOF1 || marker == M_SOF2) {
+      if (frame) {
         sof(marker, body, blen);
         if (header_only) return;
       } else if (marker >= 0xC0 && marker <= 0xCF && refusal(marker - 0xC0, &why)) {
         refuse(why);
       } else if (marker == M_DAC) {
-        refuse("arithmetic coding (a DAC marker)");
+        dac(body, blen, true);
       } else if (marker == M_DHP || marker == M_EXP) {
         refuse("hierarchical JPEG (a DHP or EXP marker)");
       } else if (marker == M_DHT) {
@@ -646,6 +798,7 @@ struct Decoder {
     restart_interval = 0;
     jfif = false;
     adobe = -1;
+    dac_defaults();
   }
 
   void sof(int marker, const uint8_t* b, int n) {
@@ -696,14 +849,25 @@ struct Decoder {
     for (const Component& c : comps)
       if (hmax % c.h || vmax % c.v)
         refuse(fmt("component %d's sampling factors %dx%d (a fractional chroma ratio)", c.index, c.h, c.v));
+    if (raw && marker != M_SOF0 && marker != M_SOF1 && marker != M_SOF2)
+      refuse(fmt("an old-style JPEG stream with a SOF%d frame (libtiff reads baseline only)", marker - 0xC0));
     have_frame = true;
-    progressive = marker == M_SOF2;
-    mcux = (width + 8 * hmax - 1) / (8 * hmax);
-    mcuy = (height + 8 * vmax - 1) / (8 * vmax);
+    progressive = marker == M_SOF2 || marker == M_SOF10;
+    arith = marker == M_SOF9 || marker == M_SOF10;
+    lossless = marker == M_SOF3;
+    const int unit = lossless ? 1 : 8;  // a lossless data unit is one sample
+    mcux = (width + unit * hmax - 1) / (unit * hmax);
+    mcuy = (height + unit * vmax - 1) / (unit * vmax);
     if (header_only) return;
     for (Component& c : comps) {
       c.bw = static_cast<int>((int64_t(width) * c.h + hmax - 1) / hmax);
       c.bh = static_cast<int>((int64_t(height) * c.v + vmax - 1) / vmax);
+      if (lossless) {
+        c.nbx = c.bw;
+        c.nby = c.bh;
+        c.plane.assign(int64_t(c.bw) * c.bh, 0);
+        continue;
+      }
       c.nbx = (c.bw + 7) / 8;
       c.nby = (c.bh + 7) / 8;
       c.stride = mcux * c.h;
@@ -732,6 +896,54 @@ struct Decoder {
     }
   }
 
+  // What jdmarker.c checks of a segment cut short (`n` of its `len` body
+  // bytes at `b`) before it runs out and PIL's source suspends: libjpeg
+  // reads a segment byte by byte, so a fault in what it has read raises.
+  void partial(int marker, const uint8_t* b, int n, int len) {
+    if (marker == M_DAC) {
+      dac(b, n & ~1, false);
+    } else if (marker == M_DRI) {
+      if (len != 2) corrupt("a DRI segment whose length is not 4");
+    } else if (marker == M_SOS && n >= 1) {
+      if (len != 4 + 2 * b[0] || b[0] < 1 || b[0] > 4) corrupt("a scan header");
+      std::vector<Component*> sc;
+      for (int i = 0; i < b[0] && 3 + 2 * i <= n; ++i) sc.push_back(scan_component(b[1 + 2 * i], i, sc));
+    } else if (marker == M_DHT) {
+      int p = 0;
+      for (; len - p > 16; p += 17) {
+        if (p + 17 > n) return;
+        int total = 0;
+        for (int l = 0; l < 16; ++l) total += b[p + 1 + l];
+        if (total > 256 || p + 17 + total > len) corrupt("a Huffman table longer than its segment");
+        if (p + 17 + total > n) return;
+        if ((b[p] >> 4) > 1 || (b[p] & 15) > 3) corrupt(fmt("a Huffman table index 0x%02x", b[p]));
+        p += total;
+      }
+      if (p != len) corrupt("a short Huffman table");
+    } else if (marker == M_DQT) {
+      for (int p = 0; p < len && p < n; p += 1 + ((b[p] >> 4) ? 128 : 64))
+        if ((b[p] & 15) > 3) corrupt("a quantisation table");
+    }
+  }
+
+  // jdmarker.c get_dac: (Tc << 4 | Tb, value) pairs; DC: L the low nibble,
+  // U the high one, L <= U; AC: Kx as it stands. `whole`: the segment's
+  // every byte is there.
+  void dac(const uint8_t* b, int n, bool whole) {
+    if (whole && n % 2) corrupt("a DAC segment of odd length");
+    for (int p = 0; p + 1 < n; p += 2) {
+      int index = b[p], val = b[p + 1];
+      if (index >= 32) corrupt(fmt("a DAC table index 0x%02x", index));
+      if (index >= 16) {
+        dac_k[index - 16] = val;
+      } else {
+        dac_l[index] = val & 15;
+        dac_u[index] = val >> 4;
+        if (dac_l[index] > dac_u[index]) corrupt(fmt("a DAC value 0x%02x (L over U)", val));
+      }
+    }
+  }
+
   void dqt(const uint8_t* b, int n) {
     int p = 0;
     while (p < n) {
@@ -755,28 +967,18 @@ struct Decoder {
     std::vector<Component*> sc;
     int td[4], ta[4];
     for (int i = 0; i < ns; ++i) {
-      int cid = b[1 + 2 * i], t = b[2 + 2 * i];
-      // get_sos's lookup: the first component with this id whose index is
-      // not below the scan slot
-      Component* match = nullptr;
-      for (Component& c : comps)
-        if (c.id == cid && c.index >= i) {
-          match = &c;
-          break;
-        }
-      if (!match || std::find(sc.begin(), sc.end(), match) != sc.end())
-        corrupt(fmt("a scan of component id %d", cid));
-      sc.push_back(match);
-      td[i] = t >> 4;
-      ta[i] = t & 15;
+      sc.push_back(scan_component(b[1 + 2 * i], i, sc));
+      td[i] = b[2 + 2 * i] >> 4;
+      ta[i] = b[2 + 2 * i] & 15;
     }
     int ss = b[1 + 2 * ns], se = b[2 + 2 * ns], ah = b[3 + 2 * ns] >> 4, al = b[3 + 2 * ns] & 15;
     if (scans == 0) {
       multi = progressive || ns < static_cast<int>(comps.size());
-      if (!progressive)
+      if (!progressive && !arith && !lossless)
         for (int kind = 0; kind < 2; ++kind)
           for (int slot = 0; slot < 2; ++slot)
             if (!huff[kind][slot].defined) std_table(kind, slot, &huff[kind][slot]);
+      if (lossless) lossless_colour();
     } else if (!multi) {
       corrupt("a second scan in a single-scan file");
     }
@@ -786,13 +988,14 @@ struct Decoder {
       if (blocks > kMaxBlocksInMcu) corrupt(fmt("an MCU of more than %d blocks", kMaxBlocksInMcu));
     }
     for (Component* c : sc) {
-      if (!c->latched) {
+      if (!c->latched && !lossless) {
         if (c->tq > 3 || !have_qt[c->tq]) corrupt(fmt("component %d has no quantisation table", c->index));
         std::copy(qt[c->tq], qt[c->tq] + 64, c->quant);
         c->latched = true;
       }
     }
     ++scans;
+    if (lossless) return lossless_scan(sc, td, ss, se, ah, al, pos, next);
     if (progressive) check_progression(sc, ss, se, ah, al);
 
     auto lut = [&](int kind, int slot) {
@@ -800,15 +1003,24 @@ struct Decoder {
       return huffman_lut(huff[kind][slot], kind == 0);
     };
     std::vector<std::vector<uint16_t>> dc, ac;
-    if (!progressive) {
+    if (!arith && !progressive) {
       for (int i = 0; i < ns; ++i) {
         dc.push_back(lut(0, td[i]));
         ac.push_back(lut(1, ta[i]));
       }
-    } else if (ss == 0 && ah == 0) {
+    } else if (!arith && ss == 0 && ah == 0) {
       for (int i = 0; i < ns; ++i) dc.push_back(lut(0, td[i]));
-    } else if (ss > 0) {
+    } else if (!arith && ss > 0) {
       ac.push_back(lut(1, ta[0]));
+    }
+    // arithmetic coding: the statistics (jdarith.c's dc_stats, ac_stats) and
+    // where reading the scan's bytes must stop
+    std::vector<uint8_t> dc_stats(16 * 64), ac_stats(16 * 256);
+    uint8_t fixed = 113;
+    int64_t limit = size;
+    if (arith && !tiff && !raw) {
+      pil_call = std::max(pil_call, (pos + kPilBlock - 1) / kPilBlock);
+      limit = std::min(size, pil_call * kPilBlock);
     }
 
     int64_t n_mcu = ns == 1 ? int64_t(sc[0]->nbx) * sc[0]->nby : int64_t(mcux) * mcuy;
@@ -829,26 +1041,7 @@ struct Decoder {
           raw_fail = first;
           break;
         }
-        int action;
-        for (;;) {
-          int mk = m.code;
-          if (mk == 0xD0 + expect) {
-            action = 1;
-          } else if (mk < 0xC0) {
-            action = 2;
-          } else if (mk < 0xD0 || mk > 0xD7) {
-            action = 3;
-          } else if (mk == 0xD0 + ((expect + 1) & 7) || mk == 0xD0 + ((expect + 2) & 7)) {
-            action = 3;
-          } else if (mk == 0xD0 + ((expect - 1) & 7) || mk == 0xD0 + ((expect - 2) & 7)) {
-            action = 2;
-          } else {
-            action = 1;
-          }
-          if (action != 2) break;
-          m = marker_at(m.end);
-        }
-        if (action == 1) {
+        if (resync(&m, expect, limit)) {
           pos = m.end;
           pending = false;
           m = stretch_end(pos);
@@ -859,25 +1052,26 @@ struct Decoder {
         expect = (expect + 1) & 7;
       }
       int64_t last = std::min(n_mcu, first + span);
-      std::vector<uint8_t> seg;
-      if (!m.found) {  // a single-scan file whose data runs to its end
-        int64_t to = size;
-        while (to > pos && data[to - 1] == 0xFF) --to;
-        seg = unstuff(pos, to);
-      } else if (!pending) {
-        seg = unstuff(pos, m.start);
-      }
+      const std::vector<uint8_t> seg = arith ? std::vector<uint8_t>() : interval(pos, m, pending);
       Bits bits(seg);
       bits.tracked = !m.found;
-      int preds[4] = {0, 0, 0, 0};
+      Arith ar(data, pos, limit, pending);
+      // jdarith.c's start_pass and process_restart: the statistics of the
+      // scan's tables and the DC predictions start again
+      for (int i = 0; i < ns && arith; ++i) {
+        if (!progressive || (ss == 0 && ah == 0)) std::fill_n(dc_stats.begin() + 64 * td[i], 64, 0);
+        if (!progressive || ss) std::fill_n(ac_stats.begin() + 256 * ta[i], 256, 0);
+      }
+      int preds[4] = {0, 0, 0, 0}, ctx[4] = {0, 0, 0, 0};
       int eobrun = 0;
+      bool failed = false;  // jdarith.c's ct == -1: a bad arithmetic code ends the interval
       int64_t done = 0;
       for (int64_t mc = first; mc < last && !insufficient; ++mc) {
-        for (int i = 0; i < ns; ++i) {
+        for (int i = 0; i < ns && !failed; ++i) {
           Component* c = sc[i];
           int bh = ns == 1 ? 1 : c->v, bwid = ns == 1 ? 1 : c->h;
-          for (int by = 0; by < bh; ++by) {
-            for (int bx = 0; bx < bwid; ++bx) {
+          for (int by = 0; by < bh && !failed; ++by) {
+            for (int bx = 0; bx < bwid && !failed; ++bx) {
               int64_t block;
               if (ns == 1) {
                 block = (mc / c->nbx) * c->stride + mc % c->nbx;
@@ -886,7 +1080,26 @@ struct Decoder {
                 block = (my * c->v + by) * c->stride + mx * c->h + bx;
               }
               int16_t* co = c->coef.data() + block * 64;
-              if (!progressive) {
+              if (arith) {
+                uint8_t* dcs = dc_stats.data() + 64 * td[i];
+                uint8_t* acs = ac_stats.data() + 256 * ta[i];
+                if (!progressive) {
+                  failed = !arith_dc(ar, dcs, td[i], &ctx[i], &preds[i]);
+                  if (!failed) {
+                    co[0] = s16(preds[i]);
+                    failed = !arith_ac(ar, acs, ta[i], co, 1, 63, 0, &fixed);
+                  }
+                } else if (ss == 0 && ah == 0) {
+                  failed = !arith_dc(ar, dcs, td[i], &ctx[i], &preds[i]);
+                  if (!failed) co[0] = s16(int64_t(preds[i]) << al);
+                } else if (ss == 0) {
+                  if (ar.decode(&fixed)) co[0] = s16(co[0] | (1 << al));
+                } else if (ah == 0) {
+                  failed = !arith_ac(ar, acs, ta[0], co, ss, se, al, &fixed);
+                } else {
+                  failed = !arith_ac_refine(ar, acs, co, ss, se, al, &fixed);
+                }
+              } else if (!progressive) {
                 sequential_block(bits, co, dc[i].data(), ac[i].data(), &preds[i]);
               } else if (ss == 0 && ah == 0) {
                 int t = bits.huff(dc[i].data());
@@ -903,7 +1116,7 @@ struct Decoder {
           }
         }
         ++done;
-        insufficient = bits.done_mcu();
+        if (!arith) insufficient = bits.done_mcu();  // the arithmetic decoder reads zeros past a marker
       }
       if (!m.found) continue;
       // consume_data sets last_good_iMCU_row before each MCU it starts with
@@ -921,6 +1134,318 @@ struct Decoder {
     }
     *next = m.code;
     return m.end;
+  }
+
+  // get_sos's lookup of scan slot `slot`'s component id: the first component
+  // with it whose index is not below the slot, and not in the scan yet.
+  Component* scan_component(int cid, int slot, const std::vector<Component*>& sc) {
+    for (Component& c : comps)
+      if (c.id == cid && c.index >= slot) {
+        if (std::find(sc.begin(), sc.end(), &c) != sc.end()) break;
+        return &c;
+      }
+    corrupt(fmt("a scan of component id %d", cid));
+  }
+
+  // process_restart's read_restart_marker, then jpeg_resync_to_restart's
+  // three actions on the marker `m` that ended an interval, RSTn with n =
+  // `expect` wanted: true where a marker is taken and the next interval's
+  // data follows it, false where it stays (the interval reads as data that
+  // ended). Reading a marker through `limit` raises (arithmetic coding).
+  bool resync(Marker* m, int expect, int64_t limit) {
+    int action;
+    for (;;) {
+      if (m->end > limit) refuse(kPastRead);
+      int mk = m->code;
+      if (mk == 0xD0 + expect) {
+        action = 1;
+      } else if (mk < 0xC0) {
+        action = 2;
+      } else if (mk < 0xD0 || mk > 0xD7) {
+        action = 3;
+      } else if (mk == 0xD0 + ((expect + 1) & 7) || mk == 0xD0 + ((expect + 2) & 7)) {
+        action = 3;
+      } else if (mk == 0xD0 + ((expect - 1) & 7) || mk == 0xD0 + ((expect - 2) & 7)) {
+        action = 2;
+      } else {
+        action = 1;
+      }
+      if (action != 2) return action == 1;
+      *m = marker_at(m->end);
+    }
+  }
+
+  // ---- arithmetic coding: jdarith.c's decode_mcu and its progressive
+  // forms, on statistics bins laid out as there (a DC table's 64: S0, SS,
+  // SP, SN of each of five contexts from 0, X1.. from 20, M2.. 14 past;
+  // an AC table's 256: SE, S0, SP..X of coefficient k from 3 (k - 1), X2..
+  // from 189 (k <= Kx) or 217). False where libjpeg finds a bad arithmetic
+  // code, a magnitude or a run that overflows: the rest of the restart
+  // interval is not decoded.
+
+  // A DC difference (F.1.4.4.1, Figures F.19 to F.24) into *pred (16 bits),
+  // the context of the next from its size against the table's L and U.
+  bool arith_dc(Arith& ar, uint8_t* stats, int tbl, int* ctx, int* pred) const {
+    uint8_t* st = stats + *ctx;
+    if (ar.decode(st) == 0) {
+      *ctx = 0;
+      return true;
+    }
+    int sign = ar.decode(st + 1);
+    st += 2 + sign;
+    int m = ar.decode(st);
+    if (m) {
+      st = stats + 20;
+      while (ar.decode(st)) {
+        if ((m <<= 1) == 0x8000) return false;
+        st += 1;
+      }
+    }
+    if (m < ((1 << dac_l[tbl]) >> 1)) {
+      *ctx = 0;
+    } else if (m > ((1 << dac_u[tbl]) >> 1)) {
+      *ctx = 12 + sign * 4;
+    } else {
+      *ctx = 4 + sign * 4;
+    }
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ar.decode(st)) v |= m;
+    v += 1;
+    *pred = (*pred + (sign ? -v : v)) & 0xFFFF;
+    return true;
+  }
+
+  // AC coefficients ss..se (F.1.4.4.2, Figure F.20), scaled by 2^al; the
+  // sign on the fixed 0.5 bin.
+  bool arith_ac(Arith& ar, uint8_t* stats, int tbl, int16_t* co, int ss, int se, int al, uint8_t* fixed) const {
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (ar.decode(st)) break;  // end of block
+      while (ar.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se) return false;
+      }
+      int sign = ar.decode(fixed);
+      st += 2;
+      int m = ar.decode(st);
+      if (m && ar.decode(st)) {
+        m <<= 1;
+        st = stats + (k <= dac_k[tbl] ? 189 : 217);
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) return false;
+          st += 1;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      co[natural(k)] = s16(int64_t(sign ? -v : v) << al);
+    }
+    return true;
+  }
+
+  // An AC refinement scan's block (G.1.3.3): a correction bit for each
+  // coefficient already nonzero (added, not or-ed, as jdarith.c does), a
+  // new one of +-2^al; the end of block is coded only past the last one
+  // that was nonzero before.
+  static bool arith_ac_refine(Arith& ar, uint8_t* stats, int16_t* co, int ss, int se, int al, uint8_t* fixed) {
+    const int p1 = 1 << al, m1 = -(1 << al);
+    int kex = se;
+    for (; kex > 0; --kex)
+      if (co[natural(kex)]) break;
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (k > kex && ar.decode(st)) break;
+      for (;;) {
+        int16_t* c = co + natural(k);
+        if (*c) {
+          if (ar.decode(st + 2)) *c = s16(*c + (*c < 0 ? m1 : p1));
+          break;
+        }
+        if (ar.decode(st + 1)) {
+          *c = static_cast<int16_t>(ar.decode(fixed) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) return false;
+      }
+    }
+    return true;
+  }
+
+  // ---- lossless (T.81 Annex H), as libjpeg-turbo 3's jddiffct.c,
+  // jdlhuff.c and jdlossls.c decode it ----
+
+  // jdapimin.c's colour space in lossless mode, where libjpeg-turbo converts
+  // no colours (jdcolor.c: "Unsupported color conversion request"): three
+  // components are RGB but under a JFIF marker or an Adobe transform other
+  // than 0 (whatever their ids), four CMYK but under an Adobe transform; a
+  // YCbCr JPEG-in-TIFF is converted to RGB, so refused too.
+  void lossless_colour() const {
+    const int nc = channels();
+    bool ycc = tiff ? want_hs != 0 : (nc == 3 && (jfif || adobe > 0)) || (nc == 4 && adobe > 0);
+    if (ycc)
+      refuse(std::string("a lossless ") + (nc == 4 ? "YCCK" : "YCbCr") +
+             " JPEG (libjpeg-turbo converts no colours in lossless mode: Unsupported color conversion request)");
+  }
+
+  // One lossless scan: Ss is the predictor, Se and Ah 0, Al the point
+  // transform Pt. Each sample is a Huffman-coded difference (category 16:
+  // 32768, no extra bits) from its prediction, mod 2^16; the first row of
+  // the scan, of each restart interval (whole MCU rows) and after the data
+  // ran out predicts from 2^(7 - Pt) then Ra, every other row's first
+  // sample from Rb. Rows are undifferenced a whole iMCU row at a time, after
+  // its MCU rows are decoded (so a restart or a reset at an MCU row inside
+  // it counts from its first row), and padding samples and rows are decoded
+  // and dropped. The samples are the low 8 bits of the values shifted left
+  // by Pt.
+  int64_t lossless_scan(const std::vector<Component*>& sc, const int* td, int psv, int se, int ah, int pt,
+                        int64_t pos, int* next) {
+    const int ns = static_cast<int>(sc.size());
+    if (psv < 1 || psv > 7 || se != 0 || ah != 0 || pt > 7)
+      corrupt(fmt("a lossless scan with predictor %d, Se %d, ", psv, se) + fmt("Ah %d, Pt %d", ah, pt));
+    const int64_t per_row = ns == 1 ? sc[0]->bw : mcux;  // MCUs in an MCU row
+    if (restart_interval % per_row)
+      refuse(fmt("a lossless restart interval of %d MCUs, not whole rows of %d (libjpeg-turbo: Invalid restart "
+                 "interval)", restart_interval, static_cast<int>(per_row)));
+    std::vector<std::vector<uint16_t>> dc;
+    for (int i = 0; i < ns; ++i) {
+      if (td[i] > 3 || !huff[0][td[i]].defined) corrupt(fmt("a scan uses an undefined Huffman table 0/%d", td[i]));
+      dc.push_back(huffman_lut(huff[0][td[i]], true, true));
+      sc[i]->latched = true;  // its samples written (libjpeg does not zero them first)
+    }
+    // each component's differences of one iMCU row, and its undifferenced
+    // rows (this one and the one above)
+    std::vector<std::vector<int32_t>> diff(ns);
+    std::vector<std::vector<uint16_t>> prev(ns), cur(ns);
+    std::vector<int64_t> dw(ns);
+    for (int i = 0; i < ns; ++i) {
+      dw[i] = ns == 1 ? sc[i]->bw : int64_t(mcux) * sc[i]->h;
+      diff[i].assign(dw[i] * sc[i]->v, 0);
+      prev[i].assign(sc[i]->bw, 0);
+      cur[i].assign(sc[i]->bw, 0);
+    }
+    bool first_row[4] = {true, true, true, true};  // by component index
+    const int64_t restart_rows = restart_interval / per_row;
+    int64_t rows_to_go = restart_rows;
+
+    Marker m = stretch_end(pos);
+    bool pending = false, insufficient = false;
+    int expect = 0;
+    struct Stream {
+      std::vector<uint8_t> seg;
+      Bits bits;
+      explicit Stream(std::vector<uint8_t> s) : seg(std::move(s)), bits(seg) {}
+    };
+    auto stream = [&]() {
+      auto st = std::make_unique<Stream>(interval(pos, m, pending));
+      st->bits.tracked = !m.found;
+      return st;
+    };
+    std::unique_ptr<Stream> in = stream();
+
+    for (int64_t r = 0; r < mcuy; ++r) {
+      const bool last_imcu = r == mcuy - 1;
+      const Component* c0 = sc[0];
+      const int mcu_rows = ns > 1 ? 1 : (last_imcu ? (c0->bh % c0->v ? c0->bh % c0->v : c0->v) : c0->v);
+      for (int y = 0; y < mcu_rows; ++y) {
+        if (restart_interval && rows_to_go == 0) {  // jddiffct.c process_restart
+          if (!m.found) truncated();
+          if (resync(&m, expect, size)) {
+            pos = m.end;
+            pending = false;
+            m = stretch_end(pos);
+            insufficient = false;
+          } else {
+            pending = true;
+          }
+          expect = (expect + 1) & 7;
+          in = stream();
+          std::fill(first_row, first_row + 4, true);
+          rows_to_go = restart_rows;
+        }
+        if (insufficient) {  // jdlhuff.c decode_mcus: zeros, and the undifferencers start again
+          for (int i = 0; i < ns; ++i) {
+            const int rows = ns > 1 ? sc[i]->v : 1;
+            std::fill_n(diff[i].begin() + (ns > 1 ? 0 : y) * dw[i], rows * dw[i], 0);
+          }
+          std::fill(first_row, first_row + 4, true);
+        } else {
+          Bits& bits = in->bits;
+          for (int64_t mc = 0; mc < per_row; ++mc) {
+            for (int i = 0; i < ns; ++i) {
+              const Component* c = sc[i];
+              const int bh = ns > 1 ? c->v : 1, bwid = ns > 1 ? c->h : 1;
+              for (int by = 0; by < bh; ++by)
+                for (int bx = 0; bx < bwid; ++bx) {
+                  int t = bits.huff(dc[i].data()), d = 0;
+                  if (t == 16) {
+                    d = 32768;
+                  } else if (t) {
+                    d = extend(bits.bits(t), t);
+                  }
+                  diff[i][((ns > 1 ? by : y)) * dw[i] + mc * bwid + bx] = d;
+                }
+            }
+          }
+          insufficient = bits.done_mcu();
+        }
+        if (restart_interval) --rows_to_go;
+      }
+      for (int i = 0; i < ns; ++i) {  // undifference and scale the iMCU row's real rows
+        Component* c = sc[i];
+        const int rows = last_imcu ? (c->bh % c->v ? c->bh % c->v : c->v) : c->v;
+        for (int row = 0; row < rows; ++row) {
+          const int64_t y = r * c->v + row;
+          if (y >= c->bh) break;
+          undifference(diff[i].data() + row * dw[i], prev[i].data(), first_row[c->index], psv, pt, c->bw,
+                       cur[i].data());
+          first_row[c->index] = false;
+          uint8_t* out = c->plane.data() + y * c->bw;
+          for (int x = 0; x < c->bw; ++x) out[x] = static_cast<uint8_t>(cur[i][x] << pt);
+          std::swap(prev[i], cur[i]);
+        }
+      }
+    }
+    if (!m.found) {
+      *next = -1;
+      return size;
+    }
+    *next = m.code;
+    return m.end;
+  }
+
+  // jdlossls.c's undifferencers on one row of `width` samples, `prev` the
+  // row above.
+  static void undifference(const int32_t* diff, const uint16_t* prev, bool first, int psv, int pt, int width,
+                           uint16_t* out) {
+    int64_t ra = ((first ? int64_t(1) << (7 - pt) : int64_t(prev[0])) + diff[0]) & 0xFFFF;
+    out[0] = static_cast<uint16_t>(ra);
+    int64_t rb = first ? 0 : prev[0];
+    for (int x = 1; x < width; ++x) {
+      int64_t p;
+      if (first) {
+        p = ra;
+      } else {
+        int64_t rc = rb;
+        rb = prev[x];
+        switch (psv) {
+          case 1: p = ra; break;
+          case 2: p = rb; break;
+          case 3: p = rc; break;
+          case 4: p = ra + rb - rc; break;
+          case 5: p = ra + ((rb - rc) >> 1); break;
+          case 6: p = rb + ((ra - rc) >> 1); break;
+          default: p = (ra + rb) >> 1; break;
+        }
+      }
+      ra = (diff[x] + p) & 0xFFFF;
+      out[x] = static_cast<uint16_t>(ra);
+    }
   }
 
   // jdphuff.c's start_pass: a bad band or successive-approximation pair is
@@ -1055,7 +1580,15 @@ struct Decoder {
     int64_t npx = int64_t(width) * height;
     bool smooth_on = smoothing_ok();
     std::vector<std::vector<uint8_t>> planes(comps.size());
-    for (size_t ci = 0; ci < comps.size(); ++ci) {
+    for (size_t ci = 0; ci < comps.size() && lossless; ++ci) {
+      const Component& c = comps[ci];
+      if (!c.latched)
+        refuse(fmt("a lossless JPEG whose component %d is in no scan (libjpeg-turbo reads samples it never wrote: "
+                   "Bogus virtual array access)", c.index));
+      planes[ci].resize(npx);
+      upsample(c.plane.data(), c.bw, c.bw, c.bh, hmax / c.h, vmax / c.v, planes[ci].data(), width, height, false);
+    }
+    for (size_t ci = 0; ci < comps.size() && !lossless; ++ci) {
       const Component& c = comps[ci];
       int64_t q[64];  // ISLOW_MULT_TYPE: the steps wrapped to 16 bits; zero where no scan latched them
       for (int k = 0; k < 64; ++k) q[k] = c.latched ? i16(c.quant[k]) : 0;
@@ -1089,7 +1622,9 @@ struct Decoder {
       return;
     }
     bool rgb;
-    if (tiff) {  // YCbCr, libtiff's JCS_YCbCr -> JCS_RGB
+    if (lossless) {  // lossless_colour refused every conversion
+      rgb = true;
+    } else if (tiff) {  // YCbCr, libtiff's JCS_YCbCr -> JCS_RGB
       rgb = false;
     } else if (comps.size() == 4) {
       rgb = false;

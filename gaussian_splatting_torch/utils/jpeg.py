@@ -12,7 +12,28 @@ runs, so the port keeps its own decoder in two forms:
 
 The compiled decoder also reads the strips and tiles of a JPEG-in-TIFF as
 libtiff reads them (`decode_tiff_jpeg`, which `utils/tiff.py` calls): the
-JPEGTables stream first, no colour conversion.
+JPEGTables stream first, no colour conversion. Beyond the plain version,
+which stays as it is and refuses these by name, it reads 4-component
+(CMYK and YCCK) files, arithmetic coding and lossless JPEG:
+
+- arithmetic-coded sequential (SOF9) and progressive (SOF10) frames, as
+  jdarith.c decodes them (T.81 Annex D's decoder with libjpeg's fixed 0.5
+  state for AC signs and refinement bits, DAC conditioning that holds
+  from where it is read until the next SOI; a bad arithmetic code leaves
+  the rest of its restart interval undecoded, blocks zero in a sequential
+  scan and as earlier scans left them in a progressive one), with the
+  smoothing and the scan-order rules of the Huffman path. PIL hands
+  libjpeg a file in 65536-byte blocks and libjpeg's arithmetic decoder
+  cannot wait for the next: a scan whose data is not in the blocks read
+  by the time it starts is refused, as PIL raises on it (in a 1080p view,
+  past about quality 60 at 4:2:0). A JPEG-in-TIFF strip has no such limit:
+  libtiff hands libjpeg the whole strip.
+- lossless frames (SOF3, T.81 Annex H) as libjpeg-turbo 3 decodes them:
+  predictors 1-7, point transforms 0-7, interleaved and one-component
+  scans, restart intervals of whole MCU rows, replicated chroma (no fancy
+  upsampling); no colour conversion, so three components are RGB unless
+  a JFIF marker or an Adobe transform other than 0 says YCbCr, which is
+  refused, as PIL raises on it.
 
 Both follow libjpeg-turbo 3's C code at PIL's defaults: Huffman-coded
 8-bit baseline, extended (SOF1) and progressive (SOF2) frames,
@@ -43,10 +64,12 @@ progressive scan out of order, or a sequential scan that does not cover
 0..63, is decoded as it stands.
 
 Every other form raises a `ValueError` naming the file and the feature,
-as PIL raises on it: arithmetic coding, lossless and hierarchical frames,
-precisions other than 8 bits, 2 or 4 components, a height set by a DNL
-marker, a fractional chroma ratio, an image over PIL's decompression-bomb
-limit, truncated or corrupt data where libjpeg stops with an error.
+as PIL raises on it: hierarchical frames (SOF5-7, SOF13-15, DHP, EXP),
+arithmetic-coded lossless ones (SOF11), precisions other than 8 bits, 2
+components, a height set by a DNL marker, a fractional chroma ratio, an
+image over PIL's decompression-bomb limit, truncated or corrupt data where
+libjpeg stops with an error (the plain decoder also refuses arithmetic
+coding, lossless frames and 4 components).
 """
 
 from __future__ import annotations
@@ -69,8 +92,8 @@ ZIGZAG = np.array([
 # run past the last coefficient lands
 _NAT = ZIGZAG.tolist() + [63] * 16
 
-SUPPORTED = ("the port reads Huffman-coded 8-bit baseline and progressive JPEGs with "
-             "1 or 3 components")
+SUPPORTED = ("the port reads the 8-bit JPEGs PIL reads: Huffman- and arithmetic-coded baseline and progressive, "
+             "and lossless, with 1, 3 or 4 components (its plain decoder: Huffman-coded, 1 or 3 components)")
 MAX_DIMENSION = 65500  # JPEG_MAX_DIMENSION
 MAX_PIXELS = 2 * 89478485  # PIL raises DecompressionBombError past this
 MAX_BLOCKS_IN_MCU = 10  # D_MAX_BLOCKS_IN_MCU

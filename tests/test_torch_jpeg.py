@@ -466,8 +466,13 @@ def refusal_cases():
     Image.fromarray(a).convert("CMYK").save(cmyk, "JPEG")
     sof = sof_at(rgb)
     return {  # name: (data, what the message names, whether PIL reads the file)
-        "arithmetic": (patched(rgb, lambda d: sof, b"\xc9"), r"arithmetic coding \(SOF9\)", False),
-        "lossless": (patched(rgb, lambda d: sof, b"\xc3"), r"lossless JPEG \(SOF3\)", False),
+        # SOF9 on Huffman data: PIL reads it, the arithmetic decoder reading
+        # Huffman bits through libjpeg's recovery rules
+        "arithmetic": (patched(rgb, lambda d: sof, b"\xc9"), None, True),
+        # SOF3 on a JFIF file: libjpeg-turbo converts no colours in lossless
+        # mode, so PIL raises, and so does the compiled decoder
+        "lossless": (patched(rgb, lambda d: sof, b"\xc3"), r"a lossless YCbCr JPEG \(libjpeg-turbo converts no "
+                     r"colours in lossless mode", False),
         "hierarchical": (patched(rgb, lambda d: sof, b"\xc5"), r"hierarchical JPEG \(SOF5\)", False),
         "12-bit": (patched(rgb, lambda d: sof + 3, b"\x0c"), r"12-bit samples", False),
         "cmyk": (cmyk.getvalue(), None, True),  # decoded now by the compiled decoder
@@ -484,20 +489,30 @@ def refusal_cases():
     }
 
 
-# The forms the compiled decoder reads and the plain one, frozen, refuses,
-# by the words of its refusal
-PLAIN_REFUSES = {"cmyk": r"4 colour components \(CMYK or YCCK\)"}
+# The forms the compiled decoder reads (or refuses as PIL does, for what
+# the file does wrong) and the plain one, frozen, refuses, by the words of
+# its refusal
+PLAIN_REFUSES = {"cmyk": r"4 colour components \(CMYK or YCCK\)", "arithmetic": r"arithmetic coding \(SOF9\)",
+                 "lossless": r"lossless JPEG \(SOF3\)"}
+# Refused where PIL raises too: hierarchical JPEG, 12-bit samples, 2
+# components, a DNL height, a fractional chroma ratio, truncated data, a
+# file that is not a JPEG.
 
 
 @pytest.mark.parametrize("case", list(refusal_cases()))
 def test_refusals_name_the_file_and_the_form(tmp_path, case):
     """Each form the decoders refuse raises, naming the file and the form;
     a case whose form is read now (no message) gives PIL's pixels (a
-    4-component file from the compiled decoder only: the plain one refuses
-    it, naming it)."""
+    4-component or arithmetic-coded file from the compiled decoder only: the
+    plain one refuses it, naming it). The SOF3 file the compiled decoder
+    refuses for its scan header, as PIL does, and the plain one as lossless
+    JPEG."""
     data, match, pil_reads = refusal_cases()[case]
     if pil_reads:
         Image.open(io.BytesIO(data)).load()
+    elif case in ("lossless", "hierarchical"):
+        with pytest.raises(OSError):
+            Image.open(io.BytesIO(data)).load()  # PIL refuses it too
     if match is None:
         for plain in (False, True) if have_cxx() else (True,):
             if plain and case in PLAIN_REFUSES:
@@ -513,19 +528,24 @@ def test_refusals_name_the_file_and_the_form(tmp_path, case):
     path.write_bytes(data)
     messages = []
     for plain in (False, True) if have_cxx() else (True,):
-        with pytest.raises(ValueError, match=match) as err:
+        own_words = plain and case in PLAIN_REFUSES
+        with pytest.raises(ValueError, match=PLAIN_REFUSES[case] if own_words else match) as err:
             jpeg.read_jpeg(path, plain=plain)
         assert str(path) in str(err.value)
-        messages.append(str(err.value))
+        if not own_words:
+            messages.append(str(err.value))
     assert len(set(messages)) == 1, messages
 
 
 # What PIL reads and the decoders still refuse, by the words of the refusal
-# (ROADMAP.md section 1); a seeded flip that lands on one is counted here.
-STILL_REFUSED = ("arithmetic coding", "lossless JPEG", "hierarchical JPEG")
-# What PIL and the compiled decoder read and the plain one, frozen,
-# refuses; a seeded flip that lands on it is counted by this name.
-PLAIN_ONLY_REFUSED = "CMYK or YCCK"
+# (ROADMAP.md section 1): nothing now. Hierarchical JPEG, which they refuse,
+# PIL raises on too.
+STILL_REFUSED = ()
+# What the compiled decoder reads (or refuses where PIL raises, by what the
+# file does wrong) and the plain one, frozen, refuses by these words; a
+# seeded flip that lands on one is counted by its words, and the compiled
+# decoder is held to PIL there.
+PLAIN_ONLY_REFUSED = ("CMYK or YCCK", "arithmetic coding", "lossless JPEG")
 
 
 def pil_or_error(data: bytes):
@@ -540,9 +560,11 @@ def test_decoders_agree_on_corrupted_files(compiled, base):
     """Seeded byte flips in a small file: the compiled decoder gives the
     plain one's pixels or its error message, whichever that is, and both
     give PIL's pixels where PIL returns an image and raise where PIL
-    raises. The only exceptions allowed are forms still refused, and
-    4-component files that only the plain decoder refuses, each counted
-    by name (none at these seeds)."""
+    raises. The only exceptions allowed are forms still refused (none
+    now), and files that only the plain decoder refuses (4-component,
+    arithmetic-coded, lossless) and the compiled one reads, each counted
+    by name (none at these seeds); where the compiled decoder raises on
+    such a file for what the file does wrong, it is held to PIL."""
     if base == "grey_restart_rows":  # flips that wipe the AC table's DHT leave libjpeg's standard one
         data = bytearray(pil_jpeg(content(21, 35, 1, "noisy", 5), quality=75, restart_marker_rows=1))
     else:
@@ -561,8 +583,10 @@ def test_decoders_agree_on_corrupted_files(compiled, base):
             except ValueError as err:
                 results.append(str(err))
         got = results[0]
-        if isinstance(got, str) and PLAIN_ONLY_REFUSED in got and not isinstance(results[1], str):
-            exceptions[PLAIN_ONLY_REFUSED] = exceptions.get(PLAIN_ONLY_REFUSED, 0) + 1
+        only = [f for f in PLAIN_ONLY_REFUSED if isinstance(got, str) and f in got and got != results[1]]
+        if only:
+            if not isinstance(results[1], str):  # read by the compiled decoder only
+                exceptions[only[0]] = exceptions.get(only[0], 0) + 1
             got = results[1]  # held to PIL below
         elif isinstance(got, str) or isinstance(results[1], str):
             assert got == results[1]
@@ -581,6 +605,47 @@ def test_decoders_agree_on_corrupted_files(compiled, base):
             outcomes["pixels"] += 1
     assert exceptions == {}
     assert min(outcomes.values()) >= 20, outcomes  # both outcomes well exercised
+
+
+# Marker segments cut short by the end of the file after a single-scan
+# image's rows: PIL ignores running out there, but libjpeg reads a segment
+# byte by byte and raises on a fault in what it has read first. name: (the
+# bytes after the scan, the compiled decoder's words, or None: PIL's pixels)
+AFTER_THE_ROWS = {
+    "second SOF": (b"\xff\xc1\x00\x11\x08\x00", r"a second frame header"),
+    "second SOF, no length": (b"\xff\xc0", r"a second frame header"),
+    "DHT count over its segment": (b"\xff\xc4\x00\x20\x00" + bytes([0, 0, 200] + [0] * 13),
+                                   r"a Huffman table longer than its segment"),
+    "DHT index 0x25": (b"\xff\xc4\x00\x40\x25" + bytes([0, 1] + [0] * 14) + b"\x00", r"a Huffman table index 0x25"),
+    "DHT short table": (b"\xff\xc4\x00\x0a\x00\x01", r"a short Huffman table"),
+    "DQT index 5": (b"\xff\xdb\x00\x43\x05\x01\x02", r"a quantisation table"),
+    "DRI length 5": (b"\xff\xdd\x00\x05\x00", r"a DRI segment whose length is not 4"),
+    "SOS length": (b"\xff\xda\x00\x20\x01", r"a scan header"),
+    "SOS component id": (b"\xff\xda\x00\x08\x01\x07\x00", r"a scan of component id 7"),
+    "DAC index": (b"\xff\xcc\x00\x10\x40\x10", r"a DAC table index 0x40"),
+    "APP1 cut short": (b"\xff\xe1\x00\x40Exif\x00\x00", None),
+    "DHT cut short, sound so far": (b"\xff\xc4\x00\x40\x00" + bytes([0, 1] + [0] * 14), None),
+    "COM cut short": (b"\xff\xfe\x00\x30abc", None),
+}
+
+
+@pytest.mark.parametrize("case", list(AFTER_THE_ROWS))
+def test_segments_cut_short_after_the_rows_read_or_fail_as_pil(compiled, case):
+    """A baseline file whose EOI is replaced by a marker segment cut short:
+    where what libjpeg reads of it first is a fault (a second frame
+    header, before its length; a Huffman table's counts or index; a DQT
+    index; a DRI or SOS length; a scan's component id; a DAC index), PIL
+    raises and so does the compiled decoder; else both give the pixels.
+    (The plain decoder, frozen, reads them all.)"""
+    tail, words = AFTER_THE_ROWS[case]
+    data = pil_jpeg(content(24, 40, 3, "smooth"), quality=90)[:-2] + tail
+    if words is None:
+        np.testing.assert_array_equal(compiled(data), pil_pixels(data))
+        return
+    with pytest.raises(OSError):
+        Image.open(io.BytesIO(data)).load()
+    with pytest.raises(ValueError, match=words):
+        compiled(data)
 
 
 # ---- libjpeg's recovery, case by case ----

@@ -68,6 +68,12 @@ specifications, and PIL's read of it is the rule the port is held to.
   `bc4_blocks` (signed too), `bc5_blocks`, `bc6h_blocks` (mode 11, UF16
   or SF16) and `bc7_blocks` (mode 6) encode 4x4 blocks, vectorised:
   endpoints from each block's extremes, each pixel the nearest index.
+- `lossless_jpeg`: lossless JPEG (SOF3, T.81 Annex H) of any predictor
+  1-7 and point transform, with any sampling factors (which libjpeg-turbo's
+  encoder resets to 1x1), restart intervals of whole MCU rows, interleaved
+  or one-component scans (a predictor each), under an Adobe, JFIF or no
+  marker; each Huffman table optimal for its component's differences
+  (libjpeg's jpeg_gen_optimal_table).
 `rle_chunks` is the vectorised run finder the RLE writers share.
 """
 
@@ -1817,3 +1823,200 @@ def bc7_blocks(px: np.ndarray, decoded: bool = False):
     idx[swap] = 15 - idx[swap]
     fields = [(np.full(len(t), 1 << 6), 7)] + [(e[:, c], 7) for c in range(4) for e in (lo, hi)]
     return _result(_bits_to_bytes(fields + [(p0, 1), (p1, 1)] + _index_fields(idx, 4)), decoded, px, decoded_px)
+
+
+
+# ---- lossless JPEG ----
+
+def _optimal_huffman(freq):
+    """libjpeg's jpeg_gen_optimal_table (JPEG Annex K.2): (counts of code
+    lengths 1..16, symbols in code order) for the frequencies `freq` of
+    symbols 0..len(freq) - 1, one code point kept free (no all-ones code)."""
+    freq = [int(f) for f in freq] + [0] * (256 - len(freq)) + [1]
+    codesize, others = [0] * 257, [-1] * 257
+    while True:
+        c1 = c2 = -1
+        for i in range(257):  # the least frequency, the highest symbol of a tie
+            if freq[i] and (c1 < 0 or freq[i] <= freq[c1]):
+                c1 = i
+        for i in range(257):
+            if freq[i] and i != c1 and (c2 < 0 or freq[i] <= freq[c2]):
+                c2 = i
+        if c2 < 0:
+            break
+        freq[c1] += freq[c2]
+        freq[c2] = 0
+        for c in (c1, c2):
+            codesize[c] += 1
+            while others[c] >= 0:
+                c = others[c]
+                codesize[c] += 1
+        tail = c1
+        while others[tail] >= 0:
+            tail = others[tail]
+        others[tail] = c2
+    bits = [0] * 33
+    for i in range(257):
+        if codesize[i]:
+            bits[codesize[i]] += 1
+    for i in range(32, 16, -1):  # lengths over 16 moved up the tree
+        while bits[i] > 0:
+            j = i - 2
+            while bits[j] == 0:
+                j -= 1
+            bits[i] -= 2
+            bits[i - 1] += 1
+            bits[j + 1] += 2
+            bits[j] -= 1
+    i = 16
+    while bits[i] == 0:
+        i -= 1
+    bits[i] -= 1  # the reserved symbol's code
+    order = sorted((c, j) for j, c in enumerate(codesize[:256]) if c)
+    return bits[1:17], [j for _, j in order]
+
+
+def _canonical(counts, symbols):
+    """Code and length of each symbol (arrays over 0..255) of a JPEG table."""
+    code, length = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    c, p = 0, 0
+    for n in range(1, 17):
+        for _ in range(counts[n - 1]):
+            code[symbols[p]], length[symbols[p]] = c, n
+            c, p = c + 1, p + 1
+        c <<= 1
+    return code, length
+
+
+def pack_msb(values: np.ndarray, lengths: np.ndarray) -> bytes:
+    """Each value's `length` low bits (every length <= 32), most significant
+    first, as bytes: the last byte padded with ones, each 0xFF followed by a
+    stuffed 0x00 (JPEG's entropy-coded data)."""
+    values, lengths = np.asarray(values, np.uint64), np.asarray(lengths, np.int64)
+    ends = np.cumsum(lengths)
+    starts = ends - lengths
+    nbits = int(ends[-1]) if len(ends) else 0
+    word, off = starts // 32, starts % 32
+    window = values << (64 - off - lengths).astype(np.uint64)
+    hi = (window >> np.uint64(32)).astype(np.float64)
+    lo = (window & np.uint64(0xFFFFFFFF)).astype(np.float64)
+    n_words = nbits // 32 + 2
+    words = (np.bincount(word, hi, n_words) + np.bincount(word + 1, lo, n_words)).astype(np.uint64)
+    data = bytearray(words.astype(">u4").tobytes()[:(nbits + 7) // 8])
+    if nbits % 8:
+        data[-1] |= (1 << (8 - nbits % 8)) - 1
+    return bytes(data).replace(b"\xff", b"\xff\x00")
+
+
+def _lossless_differences(x: np.ndarray, psv: int, pt: int, first_rows) -> np.ndarray:
+    """The differences (int64) of samples `x` (already shifted right by
+    `pt`) from their predictions (T.81 H.1.2.1): Ra, Rb, Rc as predictor
+    `psv` combines them; each row's first sample from Rb; the rows in
+    `first_rows` (the first of the scan and of each restart interval) from
+    2^(7 - pt), then Ra."""
+    x = x.astype(np.int64)
+    ra, rb, rc = np.zeros_like(x), np.zeros_like(x), np.zeros_like(x)
+    ra[:, 1:], rb[1:, :], rc[1:, 1:] = x[:, :-1], x[:-1, :], x[:-1, :-1]
+    pred = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc, 5: ra + ((rb - rc) >> 1), 6: rb + ((ra - rc) >> 1),
+            7: (ra + rb) >> 1}[psv].copy()
+    pred[:, 0] = rb[:, 0]
+    for r in first_rows:
+        pred[r, 0] = 1 << (7 - pt)
+        pred[r, 1:] = x[r, :-1]
+    return x - pred
+
+
+def lossless_jpeg(pixels, sampling=None, psv=1, pt=0, restart_rows=0, one_component_scans=False, psvs=None,
+                  marker="adobe", ids=None) -> bytes:
+    """Lossless JPEG (SOF3) bytes of (H, W, C) or (H, W) uint8 `pixels`,
+    the channels as components, each coded with its own Huffman table (up
+    to 4). `sampling`: each component's (h, v) (default 1x1); a subsampled
+    component is the block means of its channel (rounded half up, the
+    image's edge repeated). `psv` / `pt`: the predictor and point
+    transform; `psvs`: each scan's predictor. `restart_rows`: MCU rows per
+    restart interval (0: none); with `one_component_scans`, each scan has
+    its own DRI, and a component sampled v rows high restarts where
+    libjpeg-turbo's decoder does, at the first row of the v that hold the
+    restart. `marker`: "adobe" (transform 0), "adobe1" (transform 1),
+    "jfif" or None; `ids`: the component ids (default 1, 2, ...)."""
+    a = np.asarray(pixels)
+    a = a[..., None] if a.ndim == 2 else a
+    H, W, C = a.shape
+    sampling = sampling or [(1, 1)] * C
+    hmax, vmax = max(h for h, _ in sampling), max(v for _, v in sampling)
+    ids = ids or list(range(1, C + 1))
+    mcux, mcuy = -(-W // hmax), -(-H // vmax)
+    planes = []
+    for i, (h, v) in enumerate(sampling):
+        fx, fy = hmax // h, vmax // v
+        bw, bh = -(-W * h // hmax), -(-H * v // vmax)
+        p = np.pad(a[..., i].astype(np.int64), ((0, bh * fy - H), (0, bw * fx - W)), mode="edge")
+        planes.append((p.reshape(bh, fy, bw, fx).sum(axis=(1, 3)) * 2 + fx * fy) // (2 * fx * fy))
+    scans = [[i] for i in range(C)] if one_component_scans else [list(range(C))]
+    psvs = psvs or [psv] * len(scans)
+
+    diffs = []
+    for i, p in enumerate(planes):
+        scan = next(k for k, sc in enumerate(scans) if i in sc)
+        v = sampling[i][1]
+        rows = restart_rows * (v if len(scans[scan]) > 1 else 1)
+        first = sorted({0} | ({(r // v) * v for r in range(rows, p.shape[0], rows)} if rows else set()))
+        diffs.append(_lossless_differences(p.astype(np.int64) >> pt, psvs[scan], pt, first))
+
+    def category(d):
+        s = np.zeros(d.shape, np.int64)
+        for k in range(1, 17):
+            s[np.abs(d) >= (1 << (k - 1))] = k
+        return s
+
+    tables = []
+    for i, d in enumerate(diffs):
+        counts, symbols = _optimal_huffman(np.bincount(category(d).ravel(), minlength=17))
+        tables.append((counts, symbols, _canonical(counts, symbols)))
+
+    def segment(code, body):
+        return bytes([0xFF, code]) + struct.pack(">H", len(body) + 2) + body
+
+    out = b"\xff\xd8"
+    if marker == "jfif":
+        out += segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    elif marker in ("adobe", "adobe1"):
+        out += segment(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, 1 if marker == "adobe1" else 0))
+    out += segment(0xC3, struct.pack(">BHHB", 8, H, W, C) + b"".join(
+        bytes([ids[i], h << 4 | v, 0]) for i, (h, v) in enumerate(sampling)))
+    out += segment(0xC4, b"".join(bytes([i]) + bytes(t[0]) + bytes(t[1]) for i, t in enumerate(tables)))
+    for k, sc in enumerate(scans):
+        if len(sc) > 1:  # MCUs of h x v samples of each component, in order
+            per_row = mcux
+            parts, comp = [], []
+            for i in sc:
+                h, v = sampling[i]
+                d = np.pad(diffs[i], ((0, mcuy * v - diffs[i].shape[0]), (0, mcux * h - diffs[i].shape[1])))
+                parts.append(d.reshape(mcuy, v, mcux, h).transpose(0, 2, 1, 3).reshape(mcuy, mcux, v * h))
+                comp += [i] * (v * h)
+            stream = np.concatenate(parts, axis=2).reshape(mcuy, -1)
+            comp = np.tile(np.array(comp), mcux)
+        else:
+            per_row = diffs[sc[0]].shape[1]
+            stream, comp = diffs[sc[0]], np.full(per_row, sc[0])
+        cats = category(stream)
+        codes = np.zeros(stream.shape, np.int64)
+        lens = np.zeros(stream.shape, np.int64)
+        for i in sc:
+            sel = np.broadcast_to(comp == i, stream.shape)
+            code, length = tables[i][2]
+            codes[sel], lens[sel] = code[cats[sel]], length[cats[sel]]
+        extra = np.where(stream > 0, stream, stream + (1 << cats) - 1)
+        extra = np.where(cats == 16, 0, extra)
+        values = (codes << np.where(cats == 16, 0, cats)) | extra
+        lengths = lens + np.where(cats == 16, 0, cats)
+        step = restart_rows or stream.shape[0]
+        pieces = [pack_msb(values[r:r + step].ravel(), lengths[r:r + step].ravel())
+                  for r in range(0, stream.shape[0], step)]
+        if restart_rows:
+            out += segment(0xDD, struct.pack(">H", restart_rows * per_row))
+        out += segment(0xDA, bytes([len(sc)]) + b"".join(bytes([ids[i], i << 4]) for i in sc)
+                       + bytes([psvs[k], 0, pt]))
+        out += b"".join(piece + (bytes([0xFF, 0xD0 + n % 8]) if n < len(pieces) - 1 else b"")
+                        for n, piece in enumerate(pieces))
+    return out + b"\xff\xd9"
