@@ -466,6 +466,26 @@ Phases (any failure exits non-zero; none is caught and passed over):
      grey), each held to this machine's PIL's decode (without a PIL: to
      PIL 12.1.0's hashes and to the samples coded) and timed beside it.
      `cli.train` -r 1 for 30 iterations as in 5h, its checks and prints.
+  5o. BLP, FTEX, GBR, FITS, FLI / FLC and ICNS, and EPS and PIL's stubs,
+     after 5n: (a) one 1080p file of each form tests/torch_image_writers.py
+     writes (`rare_form_files`: BLP1 of a lossless JPEG, BLP1 and BLP2
+     palette, BLP2 DXT1, DXT3 and DXT5, FTEX DXT1 and raw, GBR v1 grey and
+     v2 RGBA, FITS 8-bit, 16-bit and gzip table, FLC of a BRUN frame 0, and
+     a 128x128 it32 + t8mk icon) and the two committed 1024x1024 icns files
+     of tests/fixtures/torch_rare_forms (PIL's own icns writer's, read
+     through its ic10 PNG, and an ic10 JPEG 2000 codestream PIL wrote),
+     each the bytes PIL 12.1.0 read (their SHA-256) and read with its mode,
+     shape and pixels' SHA-256 (sha256.json) and as this machine's PIL
+     reads it; each read's median of 5 beside this PIL's median of 3 (of 1
+     where PIL decodes in Python). BUFR, GRIB and HDF5 raise in the port
+     and in this PIL; an EPS file is drawn as this PIL draws it where the
+     machine has `gs` (printed), else both raise naming Ghostscript. (b) A
+     COLMAP dataset of 7 views of trained_r5 on phase 5c's orbit at
+     1920x1080: BLP1 JPEG, BLP2 DXT1, BLP2 DXT5 (alpha 255), BLP2 palette,
+     FTEX DXT1, GBR v2 RGBA and FITS 8-bit grey, each held to this
+     machine's PIL's reading (without a PIL: to the picture PIL's rules
+     give of the writers' values) and timed beside it. `cli.train` -r 1
+     for 30 iterations as in 5h, its checks and prints.
   5d. sharded path (`parallel/sharding.py`), on the one card:
      - the kernels at a row origin: trained_r5 at 1920x1080 with 32x32
        tiles cut into 2 and into 4 strips of tile rows; each strip's
@@ -535,6 +555,7 @@ Phases (any failure exits non-zero; none is caught and passed over):
      avif_train (5j's train CLI), avif_filters_train (5k's train CLI),
      avif_screen_train (5l's train CLI), avif_grain_train (5m's train CLI),
      jpeg_arith_train (5n's train CLI),
+     rare_forms_train (5o's train CLI),
      sharded_2rank and sharded_trainer (both ranks' sums), sharded_nccl1,
      bench (the five in-process runs of 5f) for the compositing kernels
      and the routing,
@@ -4770,6 +4791,7 @@ def pil_reading(path):
 
     try:
         with Image.open(path) as im:
+            im.load()  # an icns image packs its pixels otherwise before it loads (PIL's tobytes)
             a = np.asarray(im)
             return im.mode, list(a.shape), sha256_of(a)
     except Exception:  # noqa: BLE001  (PIL raises OSError, SyntaxError, ...: a refusal to hold the port to)
@@ -4880,6 +4902,294 @@ def _jpeg_arith_phase(dev, tmp):
           f"of trained_r5 at {W_MAIN}x{H_MAIN}: -r 1, {JPEG_ARITH_STEPS} iterations in {train_s:.2f} s (scene load "
           f"{load_s:.2f} s), step median {step_ms:.3f} ms; loss {loss0:.6f} -> {loss1:.6f}; "
           f"launches {launches}; max abs errors {dict(zip(TRAIN_KERNELS, errs))}")
+    print(f"  phase peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
+          f"wall {time.perf_counter() - t_phase:.1f} s")
+    return launches, errs
+
+
+# ---- phase 5o: BLP, FTEX, GBR, FITS, FLI, ICNS, EPS and the stubs ----------
+
+# PIL's reading of each 1080p file of `rare_form_files` and of the committed
+# icns files (its mode, shape, pixels' SHA-256) and each file's own SHA-256,
+# as tests/fixtures/torch_rare_forms/make_fixtures.py wrote them with PIL 12.1.0
+RARE_FIXTURES = os.path.join(FIXTURES, "torch_rare_forms")
+RARE_STEPS = 30
+RARE_VIEWS = ("BLP1 JPEG", "BLP2 DXT1", "BLP2 DXT5", "BLP2 palette", "FTEX DXT1", "GBR v2 RGBA", "FITS 8-bit")
+RARE_EXT = {"BLP1": ".blp", "BLP2": ".blp", "FTEX": ".ftc", "GBR": ".gbr", "FITS": ".fits", "FLC": ".flc",
+            "ICNS": ".icns"}
+# forms PIL decodes in Python (its BLP palette lookup and DXT decoders,
+# FitsGzipDecoder): 0.7-3 s a 1080p file, so 5o times PIL on them once
+RARE_PIL_PYTHON = ("BLP1 palette", "BLP2 palette", "BLP2 DXT1", "BLP2 DXT3", "BLP2 DXT5", "FITS gzip")
+RARE_STUBS = {"BUFR": b"BUFR" + bytes(60), "GRIB": b"GRIB\0\0\0\1" + bytes(60),
+              "HDF5": b"\x89HDF\r\n\x1a\n" + bytes(60)}
+
+
+def cube_palette(px):
+    """(indices (H, W) uint8, palette (256, 4) BGRA uint8): each pixel's
+    cell of a 6 x 7 x 6 colour cube, integers only."""
+    r, g, b = (px[..., 0].astype(np.int64) * 6 >> 8, px[..., 1].astype(np.int64) * 7 >> 8,
+               px[..., 2].astype(np.int64) * 6 >> 8)
+    idx = (r * 42 + g * 6 + b).astype(np.uint8)
+    cells = np.arange(252)
+    palette = np.zeros((256, 4), np.uint8)
+    palette[:252] = np.stack([(cells % 6) * 255 // 5, (cells // 6 % 7) * 255 // 6, (cells // 42) * 255 // 5,
+                              np.full(252, 255)], -1)
+    return idx, palette
+
+
+def pil_timed_reading(path, runs):
+    """This machine's PIL's reading of `path` ((mode, shape, pixels'
+    SHA-256) of the loaded image, or "raises") and its decode time, median
+    of `runs` (host clock); (None, "not measured") without a PIL."""
+    if importlib.util.find_spec("PIL") is None:
+        return None, "not measured"
+    from PIL import Image
+
+    times = []
+    try:
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            with Image.open(path) as im:
+                im.load()  # an icns image packs its pixels otherwise before it loads (PIL's tobytes)
+                a = np.asarray(im)
+            times.append((time.perf_counter() - t0) * 1e3)
+    except Exception as err:  # noqa: BLE001  (PIL refuses the file: a reading to hold the port to)
+        return "raises", f"raised {type(err).__name__}"
+    return (im.mode, list(a.shape), sha256_of(a)), f"{np.median(times):.2f}" + ("" if runs == 3 else f", {runs} run")
+
+
+def rare_form_files(px=None, alpha=None, names=None):
+    """The files of phase 5o in the forms of BLP, FTEX, GBR, FITS, FLI and
+    ICNS, written by tests/torch_image_writers.py from `px` (default: the
+    form picture at 1920x1080) and `alpha` (default a ramp of 128..255):
+    {name: bytes}, of every form or of `names`. The BLP1's JPEG is
+    lossless (integers only, so the same bytes on every machine); the icon
+    is 128x128 (it32 and t8mk)."""
+    w = image_writers()
+    px = form_picture() if px is None else px
+    H, W = px.shape[:2]
+    if alpha is None:
+        yy, xx = np.mgrid[0:H, 0:W]
+        alpha = (128 + (3 * xx + 5 * yy) % 128).astype(np.uint8)
+    rgba = np.concatenate([px, alpha[..., None]], -1)
+    grey = ((px.astype(np.int64) @ np.array([299, 587, 114])) // 1000).astype(np.uint8)
+    idx, palette = cube_palette(px)
+    flc_palette = palette[:, [2, 1, 0]]
+
+    def fits16():
+        return w.fits_bytes(grey.astype(np.int64) * 257 - 32768, 16)
+
+    writers = {
+        "BLP1 JPEG": lambda: w.blp1_bytes(W, H, 0, jpeg=w.lossless_jpeg(px)),
+        "BLP1 palette": lambda: w.blp1_bytes(W, H, 1, palette=palette, indices=idx.tobytes()),
+        "BLP2 palette": lambda: w.blp2_bytes(W, H, idx.tobytes(), alpha_depth=8, palette=palette),
+        "BLP2 DXT1": lambda: w.blp2_bytes(W, H, w.bc1_blocks(px).tobytes(), encoding=2),
+        "BLP2 DXT3": lambda: w.blp2_bytes(W, H, w.bc2_blocks(rgba).tobytes(), encoding=2, alpha_depth=8,
+                                          alpha_encoding=1),
+        "BLP2 DXT5": lambda: w.blp2_bytes(W, H, w.bc3_blocks(rgba).tobytes(), encoding=2, alpha_depth=8,
+                                          alpha_encoding=7),
+        "FTEX DXT1": lambda: w.ftex_bytes(W, H, w.bc1_blocks(px).tobytes(), fmt=0),
+        "FTEX raw": lambda: w.ftex_bytes(W, H, np.ascontiguousarray(px).tobytes()),
+        "GBR v1 L": lambda: w.gbr_bytes(grey[..., None], version=1),
+        "GBR v2 RGBA": lambda: w.gbr_bytes(rgba),
+        "FITS 8-bit": lambda: w.fits_bytes(grey, 8),
+        "FITS 16-bit": fits16,
+        "FITS gzip": lambda: w.fits_gzip_bytes(grey, 8),
+        "FLC BRUN": lambda: w.fli_bytes(W, H, [w.fli_frame([w.fli_palette(flc_palette), w.fli_brun(idx)])]),
+        "ICNS 128 it32 + t8mk": lambda: w.icns_bytes([(b"it32", w.icns_rgb(px[:128, :128], it32=True)),
+                                                      (b"t8mk", alpha[:128, :128].tobytes())]),
+    }
+    return {name: write() for name, write in writers.items() if names is None or name in names}
+
+
+def check_rare_forms(tmp):
+    """Phase 5o (a): each file of `rare_form_files` and each committed icns
+    file the bytes PIL read (its SHA-256) and, through
+    `image_io.open_image`, PIL 12.1.0's mode, shape and pixels' SHA-256
+    (tests/fixtures/torch_rare_forms/sha256.json), and this machine's PIL's
+    reading where it has one. Returns {name: (the port's median ms of 5
+    decodes, PIL's median of 3 (of 1 for PIL's Python decoders) or why
+    not)}."""
+    with open(os.path.join(RARE_FIXTURES, "sha256.json")) as f:
+        fixture = json.load(f)
+    readings, committed = fixture["chip_smoke"], fixture["files"]
+    made = rare_form_files()
+    if sorted(made) != sorted(readings):
+        fail(f"rare forms: this script makes {sorted(made)}, the fixture holds {sorted(readings)}")
+    paths = {}
+    for name, data in made.items():
+        if hashlib.sha256(data).hexdigest() != readings[name]["file_sha256"]:
+            fail(f"rare forms: the writers made other bytes for '{name}' than the file PIL read "
+                 f"(tests/fixtures/torch_rare_forms/sha256.json)")
+        paths[name] = os.path.join(tmp, f"form_{len(paths)}" + RARE_EXT[name.split()[0]])
+        with open(paths[name], "wb") as f:
+            f.write(data)
+    for name in sorted(committed):
+        if name.startswith("icns_1024"):
+            paths[name] = os.path.join(RARE_FIXTURES, name)
+            readings[name] = committed[name]
+            with open(paths[name], "rb") as f:
+                if hashlib.sha256(f.read()).hexdigest() != committed[name]["file_sha256"]:
+                    fail(f"rare forms: {name} is not the file PIL read (sha256.json)")
+    times = {}
+    for name, path in paths.items():
+        want = readings[name]
+        ms = []
+        for _ in range(5):
+            pic, t = synced_ms(image_io.open_image, path)
+            ms.append(t)
+        got = (pic.mode, list(pic.pixels.shape), sha256_of(pic.pixels))
+        if got != (want["mode"], want["shape"], want["sha256"]):
+            fail(f"rare forms: {name} reads as {got}, not as PIL 12.1.0 ({want})")
+        here, pil_ms = pil_timed_reading(path, 1 if name in RARE_PIL_PYTHON else 3)
+        if here not in (None, (got[0], got[1] if got[1][2] > 1 else got[1][:2], got[2])):
+            fail(f"rare forms: {name} reads as {got}, not as this machine's PIL ({here})")
+        times[name] = (float(np.median(ms)), pil_ms)
+    if len(times) != len(made) + 2:
+        fail(f"rare forms: {len(times)} files read, not the {len(made)} written and the 2 committed icns files")
+    return times
+
+
+def check_rare_refusals(tmp):
+    """Phase 5o (a): BUFR, GRIB and HDF5 raise, naming the format, in the
+    port and in this machine's PIL; EPS: where this machine has `gs`, the
+    port's pixels are its PIL's, else both raise naming Ghostscript.
+    Returns what it found of Ghostscript."""
+    from gaussian_splatting_torch.utils import eps
+
+    w = image_writers()
+    for fmt, data in RARE_STUBS.items():
+        path = os.path.join(tmp, "stub." + fmt.lower())
+        with open(path, "wb") as f:
+            f.write(data)
+        try:
+            image_io.open_image(path)
+            fail(f"rare forms: the port reads a {fmt} stub file")
+        except ValueError as err:
+            if f"a {fmt} file" not in str(err):
+                fail(f"rare forms: the {fmt} stub refused for another reason: {err}")
+        if pil_reading(path) not in (None, "raises"):
+            fail(f"rare forms: this machine's PIL reads the {fmt} stub file")
+    path = os.path.join(tmp, "view.eps")
+    with open(path, "wb") as f:
+        f.write(w.eps_bytes(bbox=(0, 0, 640, 360), body=b"0.2 setgray 0 0 640 360 rectfill\n1 0 0 setrgbcolor "
+                                                          b"100 100 200 120 rectfill\nshowpage\n"))
+    gs = eps.has_ghostscript()
+    here = pil_reading(path)
+    try:
+        pic = image_io.open_image(path)
+        got = (pic.mode, list(pic.pixels.shape) if pic.pixels.shape[2] > 1 else list(pic.pixels.shape[:2]),
+               sha256_of(pic.pixels))
+    except ValueError as err:
+        if gs or "Ghostscript" not in str(err):
+            fail(f"rare forms: the port refuses the EPS file ({err}) with gs {gs}")
+        got = "raises"
+    if here is not None and here != got:
+        fail(f"rare forms: the EPS file reads as {got} in the port and {here} in this machine's PIL")
+    return f"gs {'on PATH' if gs else 'not on this machine'}: EPS {got if got == 'raises' else got[:2]}"
+
+
+def rare_plain_reading(form, px):
+    """(mode, pixels as np.asarray gives them) of the 5o view `form` made
+    from the opaque render `px`, by PIL's rules from the writers' own
+    values, for a machine without PIL: BLP1's lossless JPEG set as raw
+    BGR, BLP2's DXT blocks through PIL's Python decoders' rules
+    (`blp.blp_dxt_decode`'s plain version, held to PIL by
+    tests/test_torch_rare_forms.py), the palette looked up, FTEX's DXT1
+    as the writer decodes its blocks, GBR and FITS raw."""
+    from gaussian_splatting_torch.utils import blp
+
+    w = image_writers()
+    H, W = px.shape[:2]
+    rgba = np.concatenate([px, np.full((H, W, 1), 255, np.uint8)], -1)
+    if form == "BLP1 JPEG":
+        return "RGB", px[..., ::-1]
+    if form in ("BLP2 DXT1", "BLP2 DXT5"):
+        kind, c = (1, 3) if form == "BLP2 DXT1" else (5, 4)
+        blocks = (w.bc1_blocks(px) if kind == 1 else w.bc3_blocks(rgba)).tobytes()
+        stream = blp.blp_dxt_decode(blocks, kind, kind == 5, W, H, form, plain=True)
+        return ("RGB" if c == 3 else "RGBA"), stream[:H * W * c].reshape(H, W, c)
+    if form == "BLP2 palette":
+        idx, palette = cube_palette(px)
+        return "RGBA", palette[:, [2, 1, 0, 3]][idx]
+    if form == "FTEX DXT1":
+        return "RGBA", w.bc1_blocks(px, decoded=True)[1]
+    if form == "GBR v2 RGBA":
+        return "RGBA", rgba
+    return "L", ((px.astype(np.int64) @ np.array([299, 587, 114])) // 1000).astype(np.uint8)
+
+
+def rare_forms_phase(dev):
+    """Phase 5o (module docstring). Returns the compositing kernels'
+    launches in the train CLI run and the max abs errors of the forward,
+    the backward and the routing against their plain versions at its final
+    state."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rare_")
+    try:
+        return _rare_forms_phase(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _rare_forms_phase(dev, tmp):
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) The 1080p files and the icons, held to PIL's committed readings;
+    # the stubs and EPS refused or drawn as this machine's PIL does.
+    times = check_rare_forms(tmp)
+    print(f"rare forms: {len(times)} files (tests/torch_image_writers.py's at 1920x1080, an it32 icon at "
+          f"128x128, the committed 1024x1024 icns files) read with PIL 12.1.0's mode, shape and pixels "
+          f"(tests/fixtures/torch_rare_forms/sha256.json); decode ms, median of 5 (host clock), beside this "
+          f"machine's PIL ({jpeg_versions()}; median of 3, of 1 for PIL's Python decoders) [{gpu_line()}]:")
+    for name, (ms, pil_ms) in times.items():
+        print(f"  {name}: {ms:.2f} ms (PIL {pil_ms})")
+    print(f"  BUFR, GRIB and HDF5 refused by the port and this machine's PIL; {check_rare_refusals(tmp)}")
+
+    # (b) A COLMAP dataset of trained_r5 whose views are seven of those forms.
+    t0 = time.perf_counter()
+    data, model_dir = os.path.join(tmp, "data"), os.path.join(tmp, "model")
+    model = load_gaussians_ply(TRAINED_PLY)
+    cams, images = orbit_dataset(len(RARE_VIEWS), W_MAIN, H_MAIN)
+    write_colmap_scene(data, cams, images, model["xyz"], dc_colors(model))
+    files, labels, plain = {}, {}, {}
+    for cam, px, form in zip(cams, images, RARE_VIEWS):
+        px = np.ascontiguousarray(px[..., :3])
+        opaque_ = np.full(px.shape[:2], 255, np.uint8)
+        body = rare_form_files(px, opaque_, [form])[form]
+        files[cam.image_name], labels[cam.image_name] = cam.image_name + RARE_EXT[form.split()[0]], form
+        os.remove(os.path.join(data, "images", f"{cam.image_name}.png"))
+        with open(os.path.join(data, "images", files[cam.image_name]), "wb") as f:
+            f.write(body)
+        plain[cam.image_name] = px
+    rename_views(data, files)
+    build_s = time.perf_counter() - t0
+    info = read_colmap_scene(data, None, eval_split=False)
+    print(f"  {len(RARE_VIEWS)} views of trained_r5 at {W_MAIN}x{H_MAIN}, made in {build_s:.1f} s; decode ms, "
+          f"median of 5 (host clock), beside this machine's PIL's:")
+    for c in info.train_cameras:
+        ms = []
+        for _ in range(5):
+            pic, t = synced_ms(image_io.open_image, c.image_path)
+            ms.append(t)
+        px = pic.pixels[..., 0] if pic.pixels.shape[2] == 1 else pic.pixels  # np.asarray's shape of an "L" image
+        got = (pic.mode, list(px.shape), sha256_of(px))
+        form = labels[c.image_name]
+        here, pil_ms = pil_timed_reading(c.image_path, 1 if form in RARE_PIL_PYTHON else 3)
+        if here is None:
+            mode, want = rare_plain_reading(form, plain[c.image_name])
+            here = (mode, list(want.shape), sha256_of(want))
+        if got != here:
+            fail(f"rare forms: view {files[c.image_name]} ({labels[c.image_name]}) reads as {got}, not as PIL's "
+                 f"rules give it ({here})")
+        print(f"    {form}: {pic.mode}, {float(np.median(ms)):.2f} ms (PIL {pil_ms})")
+    launches, errs, (train_s, load_s, step_ms, loss0, loss1) = train_cli_on(
+        "rare forms", data, model_dir, len(RARE_VIEWS), RARE_STEPS, 67)
+    print(f"  train CLI on a COLMAP dataset of {len(RARE_VIEWS)} views of trained_r5 at {W_MAIN}x{H_MAIN}, one "
+          f"each {', '.join(RARE_VIEWS)}: -r 1, {RARE_STEPS} iterations in {train_s:.2f} s (scene load "
+          f"{load_s:.2f} s), step median {step_ms:.3f} ms; loss {loss0:.6f} -> {loss1:.6f}; launches {launches}; "
+          f"max abs errors {dict(zip(TRAIN_KERNELS, errs))}")
     print(f"  phase peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
           f"wall {time.perf_counter() - t_phase:.1f} s")
     return launches, errs
@@ -5751,6 +6061,12 @@ def main():
         max_err[k] = max(max_err[k], e)
     phase_done("5n JPEG arithmetic and lossless")
 
+    # ---- 5o. BLP, FTEX, GBR, FITS, FLI, ICNS, EPS and the stubs --------
+    rare_forms_train_launches, rare_forms_errs = rare_forms_phase(dev)
+    for k, e in zip(TRAIN_KERNELS, rare_forms_errs):
+        max_err[k] = max(max_err[k], e)
+    phase_done("5o BLP, FTEX, GBR, FITS, FLI, ICNS")
+
     # ---- 5d. sharded path ---------------------------------------------
     sharded_launches, strip_errs = sharded_phase(dev, gt, center, dist, train_capacity,
                                                  single_ref, step_ms)
@@ -5838,6 +6154,7 @@ def main():
                     "avif_screen_train": avif_screen_train_launches[name],
                     "avif_grain_train": avif_grain_train_launches[name],
                     "jpeg_arith_train": jpeg_arith_train_launches[name],
+                    "rare_forms_train": rare_forms_train_launches[name],
                     **{path: counts[name] for path, counts in sharded_launches.items()},
                     "bench": bench_launches[name]}
         return {"profiler": prof_launches[name]}

@@ -34,6 +34,17 @@
 //
 // It returns 0, or 1 where `size` holds fewer than the blocks the image
 // needs (PIL: image file is truncated).
+//
+// gs_blp_dxt_decode decodes a BLP2 file's DXT1, DXT3 or DXT5 blocks as
+// PIL's own Python decoders in BlpImagePlugin.py do, which differ from its
+// bcn decoder above: the 5:6:5 colours are shifted up without repeating
+// their top bits, DXT3 and DXT5 always take the thirds, DXT1's fourth
+// colour is transparent black only where the first is not above the
+// second, and the pixels are written as PIL's decoders yield them: every
+// row of four pixels of every block, in rows of blocks (an image
+// 4 * ceil(h / 4) rows by 4 * ceil(w / 4) pixels), RGB for DXT1 without
+// alpha, else RGBA. utils/blp.py lays that stream out at the image's width,
+// as PIL's raw decoder does.
 
 #include <cstdint>
 #include <cstring>
@@ -415,6 +426,67 @@ extern "C" int gs_bcn_decode(const uint8_t* data, long long size, int n, int sig
             if (channels == 4) dst[3] = p.a;
           }
         }
+      }
+    }
+  }
+  return 0;
+}
+
+namespace {
+
+void blp_565(unsigned c, int* rgb) {
+  rgb[0] = int((c >> 11) & 0x1F) << 3;
+  rgb[1] = int((c >> 5) & 0x3F) << 2;
+  rgb[2] = int(c & 0x1F) << 3;
+}
+
+}  // namespace
+
+// `kind` 1 (DXT1), 3 (DXT3) or 5 (DXT5); `alpha` DXT1's four channels;
+// `out` takes (4 * ceil(height / 4), 4 * ceil(width / 4), 3 or 4) bytes.
+extern "C" int gs_blp_dxt_decode(const uint8_t* data, long long size, int kind, int alpha, long long width,
+                                 long long height, uint8_t* out) {
+  const long long bw = (width + 3) / 4, bh = (height + 3) / 4, bs = kind == 1 ? 8 : 16;
+  if (size < bw * bh * bs) return 1;
+  const int channels = (kind == 1 && !alpha) ? 3 : 4;
+  const long long row = 4 * bw * channels;
+  for (long long by = 0; by < bh; ++by) {
+    for (long long bx = 0; bx < bw; ++bx, data += bs) {
+      const uint8_t* colour = kind == 1 ? data : data + 8;
+      const unsigned c0 = colour[0] | colour[1] << 8, c1 = colour[2] | colour[3] << 8;
+      const uint32_t code = uint32_t(colour[4]) | uint32_t(colour[5]) << 8 | uint32_t(colour[6]) << 16 |
+                            uint32_t(colour[7]) << 24;
+      int e0[3], e1[3];
+      blp_565(c0, e0);
+      blp_565(c1, e1);
+      const bool four = kind != 1 || c0 > c1;
+      uint64_t alpha_bits = 0;
+      for (int k = 0; k < 6; ++k) alpha_bits |= uint64_t(data[2 + k]) << (8 * k);
+      for (int p = 0; p < 16; ++p) {
+        const int ctl = (code >> (2 * p)) & 3;
+        int rgb[3], a = 255;
+        for (int c = 0; c < 3; ++c) {
+          if (ctl == 0) rgb[c] = e0[c];
+          else if (ctl == 1) rgb[c] = e1[c];
+          else if (ctl == 2) rgb[c] = four ? (2 * e0[c] + e1[c]) / 3 : (e0[c] + e1[c]) / 2;
+          else rgb[c] = four ? (2 * e1[c] + e0[c]) / 3 : 0;
+        }
+        if (kind == 1) {
+          if (ctl == 3 && !four) a = 0;
+        } else if (kind == 3) {
+          a = ((data[p / 2] >> (4 * (p & 1))) & 0xF) * 17;
+        } else {
+          const int a0 = data[0], a1 = data[1], ac = int((alpha_bits >> (3 * p)) & 7);
+          if (ac == 0) a = a0;
+          else if (ac == 1) a = a1;
+          else if (a0 > a1) a = ((8 - ac) * a0 + (ac - 1) * a1) / 7;
+          else if (ac == 6) a = 0;
+          else if (ac == 7) a = 255;
+          else a = ((6 - ac) * a0 + (ac - 1) * a1) / 5;
+        }
+        uint8_t* dst = out + (4 * by + p / 4) * row + (4 * bx + p % 4) * channels;
+        dst[0] = uint8_t(rgb[0]), dst[1] = uint8_t(rgb[1]), dst[2] = uint8_t(rgb[2]);
+        if (channels == 4) dst[3] = uint8_t(a);
       }
     }
   }

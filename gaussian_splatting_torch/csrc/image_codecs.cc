@@ -1,10 +1,12 @@
-// The byte loops of the BMP, TIFF, GIF, TGA, QOI, PCX, SGI and PSD readers:
+// The byte loops of the BMP, TIFF, GIF, TGA, QOI, PCX, SGI, PSD, FLI and ICNS readers:
 // host C++, built with the host compiler by utils/cuda_build.py at first use
 // and loaded with ctypes (utils/image_codecs.py). Each decoder runs per
 // code, packet or byte, which Python cannot do at 1080p; everything else of
 // the formats (headers, IFDs, blocks, unpacking, the predictor, palettes)
 // is numpy and Python in utils/bmp.py, utils/tiff.py, utils/gif.py,
-// utils/tga.py, utils/qoi.py, utils/pcx.py, utils/sgi.py and utils/psd.py.
+// utils/tga.py, utils/qoi.py, utils/pcx.py, utils/sgi.py, utils/psd.py,
+// utils/fli.py and utils/icns.py (each of those two also holds a plain
+// Python version of its loop, which the tests hold this one to).
 //
 // - gs_lzw_decode: TIFF's LZW as libtiff 4's LZWDecode reads it (new style,
 //   codes most significant bit first, 9 to 12 bits, the width growing one
@@ -81,7 +83,26 @@
 //   gs_pcx_rle_decode(file, file_size, start, line_bytes, xsize, bits, rows, out)
 //   gs_sgi_rle_decode(file, file_size, bands, xsize, ysize, bpc, out)
 //   gs_pil_packbits_decode(file, file_size, start, row_bytes, rows, out)
+// - gs_fli_decode: one call of PIL's FliDecode.c on the bytes PIL's load
+//   loop has read of frame 0 (utils/fli.py runs that loop): nothing until
+//   the frame chunk's size is there (one pad byte allowed), a chunk that is
+//   not 0xF1FA fails (unrecognized data), then its subchunks into the
+//   image: the palette chunks (4, 11) and PSTAMP (18) skipped, SS2 (7,
+//   word deltas with line-skip and last-byte flag words), LC (12, byte
+//   deltas from a first line), BLACK (13), BRUN (15, a packet count byte
+//   ignored, positive counts runs, negative literals; a row not filled
+//   exactly fails) and COPY (16; where the chunk holds fewer bytes than the
+//   image it returns the bytes before the subchunk as consumed); a packet
+//   past a row's end ends the chunk's lines, which then fail; data past
+//   the subchunk fails (buffer overrun), an unknown subchunk or a size of 0
+//   fails.
+// - gs_icns_rle_decode: one band of an icns 32-bit icon as PIL's read_32
+//   (IcnsImagePlugin.py) reads it: a byte with its top bit set is a run of
+//   (byte - 125) copies of the next byte, else a literal of byte + 1 bytes,
+//   until the band's pixels are counted off; runs and literals cut by the
+//   file's end add fewer bytes than they count.
 
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
 #include <string>
@@ -761,6 +782,195 @@ int gs_pil_packbits_decode(const uint8_t* in, long long n, long long start, long
     }
   }
   return 0;
+}
+
+// PIL's FliDecode.c. `status` and `errcode` as PIL's decoder returns them:
+// the bytes consumed (>= 0, more input wanted) or -1 (done; `errcode` 0, or
+// -1 overrun, -2 broken, -3 unknown data).
+long long gs_fli_decode(const uint8_t* buf, long long bytes, uint8_t* im, long long xsize, long long ysize,
+                  int* errcode) {
+  auto i16 = [](const uint8_t* p) { return int(p[0]) | int(p[1]) << 8; };
+  auto i32 = [](const uint8_t* p) {
+    return int32_t(uint32_t(p[0]) | uint32_t(p[1]) << 8 | uint32_t(p[2]) << 16 | uint32_t(p[3]) << 24);
+  };
+  *errcode = 0;
+  if (bytes < 4) return 0;
+  const uint8_t* ptr = buf;
+  const long long framesize = uint32_t(i32(ptr));  // compared unsigned, as PIL's build does
+  if (bytes + (bytes % 2) < framesize) return 0;  // one pad byte allowed
+  if (bytes < 8) return *errcode = -1, -1;
+  if (i16(ptr + 4) != 0xF1FA) return *errcode = -3, -1;
+  const int chunks = i16(ptr + 6);
+  ptr += 16;
+  bytes -= 16;
+  for (int c = 0; c < chunks; ++c) {
+    if (bytes < 10) return *errcode = -1, -1;
+    const uint8_t* data = ptr + 6;
+    auto oob = [&](long long off) { return data + off > ptr + bytes; };
+    long long x = 0, y = 0, i = 0;
+    switch (i16(ptr + 4)) {
+      case 4:
+      case 11:
+      case 18:
+        break;
+      case 7: {  // SS2
+        const int lines = i16(data);
+        data += 2;
+        int l = 0;
+        for (l = 0, y = 0; l < lines && y < ysize; ++l, ++y) {
+          uint8_t* out = im + y * xsize;
+          if (oob(2)) return *errcode = -1, -1;
+          int packets = i16(data);
+          data += 2;
+          while (packets & 0x8000) {
+            if (packets & 0x4000) {
+              y += 65536 - packets;
+              if (y >= ysize) return *errcode = -1, -1;
+              out = im + y * xsize;
+            } else {
+              out[xsize - 1] = uint8_t(packets);
+            }
+            if (oob(2)) return *errcode = -1, -1;
+            packets = i16(data);
+            data += 2;
+          }
+          int p = 0;
+          for (p = 0, x = 0; p < packets; ++p) {
+            if (oob(2)) return *errcode = -1, -1;
+            x += data[0];
+            if (data[1] >= 128) {
+              if (oob(4)) return *errcode = -1, -1;
+              i = 256 - data[1];
+              if (x + i + i > xsize) break;
+              for (long long j = 0; j < i; ++j) {
+                out[x++] = data[2];
+                out[x++] = data[3];
+              }
+              data += 4;
+            } else {
+              i = 2 * static_cast<long long>(data[1]);
+              if (x + i > xsize) break;
+              if (oob(2 + i)) return *errcode = -1, -1;
+              std::memcpy(out + x, data + 2, i);
+              data += 2 + i;
+              x += i;
+            }
+          }
+          if (p < packets) break;
+        }
+        if (l < lines) return *errcode = -1, -1;
+        break;
+      }
+      case 12: {  // LC
+        y = i16(data);
+        const long long ymax = y + i16(data + 2);
+        data += 4;
+        for (; y < ymax && y < ysize; ++y) {
+          uint8_t* out = im + y * xsize;
+          if (oob(1)) return *errcode = -1, -1;
+          const int packets = *data++;
+          int p = 0;
+          for (p = 0, x = 0; p < packets; ++p, x += i) {
+            if (oob(2)) return *errcode = -1, -1;
+            x += data[0];
+            if (data[1] & 0x80) {
+              i = 256 - data[1];
+              if (x + i > xsize) break;
+              if (oob(3)) return *errcode = -1, -1;
+              std::memset(out + x, data[2], i);
+              data += 3;
+            } else {
+              i = data[1];
+              if (x + i > xsize) break;
+              if (oob(2 + i)) return *errcode = -1, -1;
+              std::memcpy(out + x, data + 2, i);
+              data += i + 2;
+            }
+          }
+          if (p < packets) break;
+        }
+        if (y < ymax) return *errcode = -1, -1;
+        break;
+      }
+      case 13:  // BLACK
+        std::memset(im, 0, xsize * ysize);
+        break;
+      case 15:  // BRUN
+        for (y = 0; y < ysize; ++y) {
+          uint8_t* out = im + y * xsize;
+          data += 1;  // the packet count, ignored
+          for (x = 0; x < xsize; x += i) {
+            if (oob(2)) return *errcode = -1, -1;
+            if (data[0] & 0x80) {
+              i = 256 - data[0];
+              if (x + i > xsize) break;
+              if (oob(i + 1)) return *errcode = -1, -1;
+              std::memcpy(out + x, data + 1, i);
+              data += i + 1;
+            } else {
+              i = data[0];
+              if (x + i > xsize) break;
+              std::memset(out + x, data[1], i);
+              data += 2;
+            }
+          }
+          if (x != xsize) return *errcode = -1, -1;
+        }
+        break;
+      case 16:  // COPY
+        if (INT32_MAX / xsize < ysize) return *errcode = -1, -1;
+        if (data + xsize * ysize > ptr + bytes) return ptr - buf;
+        for (y = 0; y < ysize; ++y) {
+          std::memcpy(im + y * xsize, data, xsize);
+          data += xsize;
+        }
+        break;
+      default:
+        return *errcode = -3, -1;
+    }
+    const long long advance = i32(ptr);
+    if (advance == 0) return *errcode = -2, -1;
+    if (advance < 0 || advance > bytes) return *errcode = -1, -1;
+    ptr += advance;
+    bytes -= advance;
+  }
+  return -1;
+}
+
+// One band of `size` bytes from `start`: *end the offset after the last
+// byte read; returns what is left of the band's count (0: whole; negative:
+// a packet past its end; positive: the file ended), and *got the bytes the
+// band took (fewer than `size` where runs or literals were cut short).
+long long gs_icns_rle_decode(const uint8_t* in, long long n, long long start, long long size, uint8_t* out,
+                             long long* got, long long* end) {
+  long long pos = start, left = size, at = 0;
+  auto put = [&](const uint8_t* src, long long count) {
+    const long long room = size - at;  // bytes past the band's pixels are dropped: PIL's band keeps the first ones
+    if (count > room) count = room;
+    if (count > 0) std::memcpy(out + at, src, count);
+    at += count > 0 ? count : 0;
+  };
+  while (left > 0) {
+    if (pos >= n) break;
+    const int b = in[pos++];
+    long long block;
+    if (b & 0x80) {
+      block = b - 125;
+      if (pos < n) {
+        const uint8_t v = in[pos++];
+        for (long long k = 0; k < block; ++k) put(&v, 1);
+      }
+    } else {
+      block = b + 1;
+      const long long have = std::min(block, n - pos);
+      put(in + pos, have);
+      pos += have;
+    }
+    left -= block;
+  }
+  *got = at;
+  *end = pos;
+  return left;
 }
 
 }  // extern "C"

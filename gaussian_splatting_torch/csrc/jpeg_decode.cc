@@ -60,8 +60,10 @@
 //
 // Interface (plain C; every entry returns 0 or an error, whose message
 // gs_jpeg_error gives for the calling thread):
-//   gs_jpeg_probe(data, size, hwc)        hwc[0..2] = height, width, channels
-//   gs_jpeg_decode(data, size, out, cap)  (H, W, C) uint8 into out (cap bytes)
+//   gs_jpeg_decode(data, size, out, cap, hwc, as_cmyk)
+//                                         hwc[0..2] = height, width, channels, then (out not null)
+//                                         (H, W, C) uint8 into out (cap bytes); as_cmyk: a
+//                                         4-component frame as stored (PIL's jpegmode "CMYK")
 //   gs_jpeg_decode_tiff(tables, tables_size, data, size, height, width, channels, ycbcr_h, ycbcr_v,
 //                       last_strip, out)
 //                                         a JPEG-in-TIFF strip or tile, (H, W, C) uint8; ycbcr_h 0:
@@ -603,6 +605,7 @@ struct Decoder {
   int64_t raw_fail = -1;  // raw output: the MCU at whose restart libtiff's old-style JPEG codec fails
   int want_h = 0, want_w = 0, want_c = 0, want_hs = 0, want_vs = 0;  // want_hs 0: no YCbCr conversion
   int adobe = -1;
+  bool as_cmyk = false;  // a BLP1's JPEG: PIL sets libjpeg's jpeg_color_space to JCS_CMYK, so YCCK is not converted
   int width = 0, height = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0, scans = 0, last_good = 0;
   std::vector<Component> comps;
   // arithmetic coding (SOF9, SOF10): each table's DAC conditioning (DC L
@@ -1287,7 +1290,7 @@ struct Decoder {
   // YCbCr JPEG-in-TIFF is converted to RGB, so refused too.
   void lossless_colour() const {
     const int nc = channels();
-    bool ycc = tiff ? want_hs != 0 : (nc == 3 && (jfif || adobe > 0)) || (nc == 4 && adobe > 0);
+    bool ycc = tiff ? want_hs != 0 : (nc == 3 && (jfif || adobe > 0)) || (nc == 4 && adobe > 0 && !as_cmyk);
     if (ycc)
       refuse(std::string("a lossless ") + (nc == 4 ? "YCCK" : "YCbCr") +
              " JPEG (libjpeg-turbo converts no colours in lossless mode: Unsupported color conversion request)");
@@ -1616,7 +1619,7 @@ struct Decoder {
         for (int64_t k = 0; k < nc; ++k) out[nc * i + k] = planes[k][i];
       return;
     }
-    if (comps.size() == 4 && adobe <= 0) {  // CMYK as stored, inverted as PIL's "CMYK;I" unpacks it
+    if (comps.size() == 4 && (adobe <= 0 || as_cmyk)) {  // CMYK as stored, inverted as PIL's "CMYK;I" unpacks it
       for (int64_t i = 0; i < npx; ++i)
         for (int k = 0; k < 4; ++k) out[4 * i + k] = static_cast<uint8_t>(255 - planes[k][i]);
       return;
@@ -1673,25 +1676,19 @@ int fail(const std::string& msg) {
 
 extern "C" {
 
-int gs_jpeg_probe(const uint8_t* data, long long size, int* hwc) {
+// The frame's (height, width, channels) into `hwc`, then where `out` is not
+// null its pixels; `as_cmyk`: a 4-component frame read as CMYK whatever its
+// Adobe transform (PIL's jpegmode "CMYK", which a BLP1's JPEG is read with).
+int gs_jpeg_decode(const uint8_t* data, long long size, uint8_t* out, long long capacity, int* hwc,
+                   int as_cmyk) {
   try {
-    Decoder d(data, size, true);
+    Decoder d(data, size, out == nullptr);
+    d.as_cmyk = as_cmyk != 0;
     d.run();
     hwc[0] = d.height;
     hwc[1] = d.width;
     hwc[2] = d.channels();
-    return 0;
-  } catch (const Refused& r) {
-    return fail(r.msg);
-  } catch (const std::bad_alloc&) {
-    return fail("out of host memory");
-  }
-}
-
-int gs_jpeg_decode(const uint8_t* data, long long size, uint8_t* out, long long capacity) {
-  try {
-    Decoder d(data, size, false);
-    d.run();
+    if (out == nullptr) return 0;
     if (int64_t(d.width) * d.height * d.channels() > capacity) return fail("output buffer too small");
     d.finish(out);
     return 0;

@@ -149,11 +149,12 @@ def _library(name: str):
     try:
         lib = cuda_build.load_host("bcn_decode")
     except RuntimeError as err:
-        raise RuntimeError(f"{name}: the DDS block decoder (csrc/bcn_decode.cc) could not be built: {err}") from err
+        raise RuntimeError(f"{name}: the block decoder (csrc/bcn_decode.cc) could not be built: {err}") from err
     if not hasattr(lib, "_gs_typed"):
         L = ctypes.c_longlong
-        lib.gs_bcn_decode.argtypes = [ctypes.c_char_p, L, ctypes.c_int, ctypes.c_int, L, L, ctypes.c_void_p]
-        lib.gs_bcn_decode.restype = ctypes.c_int
+        for fn in (lib.gs_bcn_decode, lib.gs_blp_dxt_decode):
+            fn.argtypes = [ctypes.c_char_p, L, ctypes.c_int, ctypes.c_int, L, L, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         lib._gs_typed = True
     return lib
 

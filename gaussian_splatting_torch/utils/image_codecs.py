@@ -1,7 +1,8 @@
-"""The compiled byte loops of the BMP, TIFF, GIF, TGA, QOI, PCX, SGI and PSD readers (`csrc/image_codecs.cc`).
+"""The compiled byte loops of the BMP, TIFF, GIF, TGA, QOI, PCX, SGI, PSD, FLI and ICNS readers
+(`csrc/image_codecs.cc`).
 
-LZW, PackBits and ThunderScan (TIFF), RLE8 / RLE4 (BMP), GIF's LZW, TGA's RLE, QOI's ops, PCX's and SGI's RLE
-and PIL's PackBits (PSD) run per code, packet or byte,
+LZW, PackBits and ThunderScan (TIFF), RLE8 / RLE4 (BMP), GIF's LZW, TGA's RLE, QOI's ops, PCX's and SGI's RLE,
+PIL's PackBits (PSD), PIL's FliDecode (FLI) and an icns band's runs run per code, packet or byte,
 so they are host C++, built by `cuda_build.build_host` at first use and
 loaded with ctypes. Nothing falls back to another implementation: if the
 library cannot be built, the read raises, naming the file.
@@ -45,6 +46,8 @@ def _library(name: str):
                  "gs_pil_packbits_decode": [ctypes.c_char_p, L, L, L, L, P]}
         for fn_name, argtypes in typed.items():
             getattr(lib, fn_name).argtypes, getattr(lib, fn_name).restype = argtypes, ctypes.c_int
+        lib.gs_fli_decode.argtypes, lib.gs_fli_decode.restype = [ctypes.c_char_p, L, P, L, L, P], L
+        lib.gs_icns_rle_decode.argtypes, lib.gs_icns_rle_decode.restype = [ctypes.c_char_p, L, L, L, P, P, P], L
         lib.gs_codec_error.argtypes, lib.gs_codec_error.restype = [], ctypes.c_char_p
         lib._gs_typed = True
     return lib
@@ -177,3 +180,25 @@ def pil_packbits_decode(data: bytes, start: int, row_bytes: int, rows: int, name
     out = np.empty((rows, row_bytes), np.uint8)
     _run(name, "gs_pil_packbits_decode", data, len(data), start, row_bytes, rows, out.ctypes.data)
     return out
+
+
+def fli_decode(buf: bytes, im: np.ndarray, name: str):
+    """One call of PIL's FliDecode on `buf` into the (H, W) uint8 frame
+    `im`: (bytes consumed, 0) where it wants more input, (-1, error code)
+    where it ends (0 done, -1 overrun, -2 broken, -3 unknown data)."""
+    lib = _library(name)
+    err = ctypes.c_int(0)
+    n = lib.gs_fli_decode(buf, len(buf), im.ctypes.data, im.shape[1], im.shape[0], ctypes.addressof(err))
+    return n, err.value
+
+
+def icns_rle_decode(data: bytes, start: int, n: int, name: str):
+    """One icns band of `n` pixels from byte `start` of `data` as PIL's
+    read_32 reads it: (its bytes, what is left of its count (0: whole,
+    negative: a run past the band), the offset after it)."""
+    lib = _library(name)
+    out = np.empty(n, np.uint8)
+    got, end = ctypes.c_longlong(0), ctypes.c_longlong(0)
+    left = lib.gs_icns_rle_decode(data, len(data), start, n, out.ctypes.data, ctypes.addressof(got),
+                                  ctypes.addressof(end))
+    return out[:got.value], left, end.value

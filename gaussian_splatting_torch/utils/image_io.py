@@ -23,7 +23,13 @@ its own:
   `utils/sgi.py`, a file that passes TGA's header checks to
   `utils/tga.py` (TGA has no signature; PIL tries it after all of those)
   and a WebP to `utils/webp.py` (lossy, lossless, alpha, frame 0 of an
-  animation). A reader that gives up as PIL's plugin does
+  animation), a BLP to `utils/blp.py`, an EPS to
+  `utils/eps.py` (PIL's parse, then Ghostscript where `gs` runs, as PIL
+  does), a FITS to `utils/fits.py`, an FLI / FLC to `utils/fli.py`
+  (frame 0), an FTEX to `utils/ftex.py`, a GIMP brush to `utils/gbr.py`
+  and an icns to `utils/icns.py`; BUFR, GRIB and HDF5, which PIL opens as
+  stubs it cannot load, raise naming the format. The pixels are those of
+  PIL's loaded image, which both dataset paths read. A reader that gives up as PIL's plugin does
   (`NotThisFormat`) passes the file to the next one, as PIL does; anything
   no reader takes raises a `ValueError` naming the file and the formats
   the port reads. It returns a `Picture`: the pixels as
@@ -60,8 +66,8 @@ from typing import Any, NamedTuple, Optional
 
 import numpy as np
 
-from gaussian_splatting_torch.utils import (avif, bmp, dds, gif, ico, jp2, jpeg, lab, pcx, ppm, psd, qoi, sgi, tga,
-                                            tiff, webp)
+from gaussian_splatting_torch.utils import (avif, blp, bmp, dds, eps, fits, fli, ftex, gbr, gif, icns, ico, jp2, jpeg,
+                                            lab, pcx, ppm, psd, qoi, sgi, tga, tiff, webp)
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # 8-bit channels -> PNG colour type (0 grey, 4 grey + alpha, 2 RGB, 6 RGBA),
@@ -125,7 +131,7 @@ BMP_SIGNATURE = b"BM"
 
 
 FORMATS = ("PNG, JPEG, BMP, DIB, TIFF, WebP, GIF, PPM / PGM / PBM / PFM, TGA, JPEG 2000, QOI, PCX / DCX, SGI, "
-           "ICO / CUR, PSD, DDS or AVIF")
+           "ICO / CUR, PSD, DDS, AVIF, BLP, FITS, FLI / FLC, FTEX, GBR, ICNS or EPS")
 
 
 class NotThisFormat(ValueError):
@@ -140,6 +146,15 @@ class NotThisFormat(ValueError):
 def _open_jpeg(path) -> Picture:
     pixels = jpeg.read_jpeg(path)
     return Picture(pixels, {1: "L", 3: "RGB", 4: "CMYK"}[pixels.shape[2]])
+
+
+def _stub(fmt: str):
+    """PIL's stub plugins (BUFR, GRIB, HDF5): the file opens as a 1x1 "F"
+    image, and its load raises, as no handler is installed."""
+    def read(path) -> Picture:
+        raise ValueError(f"{path}: a {fmt} file, which PIL opens as a stub and cannot load (PIL: cannot find "
+                         f"loader for this {fmt} file)")
+    return read
 
 
 def _of_bytes(decode):
@@ -163,11 +178,21 @@ READERS = (
     ("PPM", lambda head: ppm.accepts(head) or ppm.refused_magic(head), ppm.open_ppm),
     ("PNG", lambda head: head.startswith(PNG_SIGNATURE), lambda path: open_png(path)),
     ("AVIF", avif.accepts, _of_bytes(avif.decode_avif)),  # the first of Image.init's formats
+    ("BLP", blp.accepts, _of_bytes(blp.decode_blp)),
+    ("BUFR", lambda head: head.startswith((b"BUFR", b"ZCZC")), _stub("BUFR")),
     ("CUR", lambda head: head.startswith(ico.CUR_SIGNATURE), _of_bytes(ico.decode_cur)),
     ("PCX", pcx.accepts, _of_bytes(pcx.decode_pcx)),
     ("DCX", pcx.dcx_accepts, _of_bytes(pcx.decode_dcx)),
     ("DDS", lambda head: head.startswith(dds.SIGNATURE), _of_bytes(dds.decode_dds)),
+    ("EPS", eps.accepts, eps.open_eps),
+    ("FITS", lambda head: head.startswith(fits.SIGNATURE), _of_bytes(fits.decode_fits)),
+    ("FLI", fli.accepts, _of_bytes(fli.decode_fli)),
+    ("FTEX", lambda head: head.startswith(ftex.SIGNATURE), _of_bytes(ftex.decode_ftex)),
+    ("GBR", gbr.accepts, _of_bytes(gbr.decode_gbr)),
+    ("GRIB", lambda head: len(head) >= 8 and head.startswith(b"GRIB") and head[7] == 1, _stub("GRIB")),
+    ("HDF5", lambda head: head.startswith(b"\x89HDF\r\n\x1a\n"), _stub("HDF5")),
     ("JPEG2000", lambda head: head.startswith(jp2.SIGNATURES), jp2.open_jp2),  # Jpeg2KImagePlugin._accept
+    ("ICNS", lambda head: head.startswith(icns.SIGNATURE), _of_bytes(icns.decode_icns)),
     ("ICO", lambda head: head.startswith(ico.ICO_SIGNATURE), _of_bytes(ico.decode_ico)),
     ("TIFF", lambda head: head.startswith(tiff.SIGNATURES), tiff.open_tiff),
     ("PSD", lambda head: head.startswith(psd.SIGNATURE), _of_bytes(psd.decode_psd)),
@@ -180,8 +205,9 @@ READERS = (
 
 def open_image(path) -> Picture:
     """The `Picture` of a PNG, JPEG, BMP, DIB, TIFF, WebP, GIF, PPM / PGM /
-    PBM / PFM, TGA, JPEG 2000, QOI, PCX / DCX, SGI, ICO / CUR, PSD, DDS or
-    AVIF file, PIL's pixels and mode. The readers are tried in PIL's order (`READERS`)
+    PBM / PFM, TGA, JPEG 2000, QOI, PCX / DCX, SGI, ICO / CUR, PSD, DDS,
+    AVIF, BLP, FITS, FLI / FLC, FTEX, GBR, ICNS or EPS file, PIL's pixels
+    and mode (of the loaded image). The readers are tried in PIL's order (`READERS`)
     on the file's first bytes; one that gives up as PIL's plugin gives up
     (`NotThisFormat`) passes the file to the next, any other refusal
     raises. JPEG (mode "L", "RGB" or "CMYK", and the strips and tiles of a
@@ -199,7 +225,14 @@ def open_image(path) -> Picture:
     "LA", "P", "PA", "RGB", "RGBA", "CMYK", "LAB". QOI "RGB" / "RGBA"; PCX
     and DCX "1", "P", "L", "RGB"; SGI "L", "RGB", "RGBA" (16-bit too);
     ICO a PNG entry's mode or "RGBA", CUR a BMP's; PSD "1", "L", "P",
-    "RGB", "RGBA", "CMYK", "LAB"; DDS "L", "LA", "P", "RGB", "RGBA"."""
+    "RGB", "RGBA", "CMYK", "LAB"; DDS "L", "LA", "P", "RGB", "RGBA"; BLP
+    "RGB" / "RGBA" (BLP2's DXT blocks by the compiled block decoder, a
+    BLP1's JPEG by the JPEG decoder); FITS "L", "I;16", "I", "F"; FLI / FLC
+    "P" (frame 0 by the compiled FLI decoder); FTEX "RGB" / "RGBA"; GBR
+    "L" / "RGBA"; ICNS "RGB" / "RGBA" or a PNG entry's mode (its runs by
+    the compiled codecs); EPS the mode of the PNM Ghostscript draws, where
+    `gs` runs (else it raises, as PIL does). BUFR, GRIB and HDF5, which PIL
+    opens as stubs and cannot load, raise naming the format."""
     with open(path, "rb") as f:
         head = f.read(tga.HEADER)
     passed = []

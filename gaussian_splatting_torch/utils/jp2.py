@@ -385,10 +385,14 @@ def _raise(name, what: str):
 def open_jp2(path):
     """The `image_io.Picture` of a JP2 / JPX file or a raw JPEG 2000
     codestream, with PIL's mode, pixels and palette."""
+    with open(path, "rb") as f:
+        return decode_jp2(f.read(), path)
+
+
+def decode_jp2(data: bytes, path="<bytes>"):
+    """`open_jp2` of JPEG 2000 bytes; `path` names them in a refusal."""
     from gaussian_splatting_torch.utils.image_io import Picture
 
-    with open(path, "rb") as f:
-        data = f.read()
     try:
         (width, height), mode, palette = _pil_header(data)
         if data.startswith(J2K_SIGNATURE):

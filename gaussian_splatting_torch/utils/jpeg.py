@@ -1130,10 +1130,8 @@ def read_jpeg(path, plain: bool = False) -> np.ndarray:
 def _library():
     lib = cuda_build.load_host("jpeg_decode")
     if not hasattr(lib, "_gs_typed"):
-        lib.gs_jpeg_probe.argtypes = [ctypes.c_char_p, ctypes.c_longlong, ctypes.c_void_p]
-        lib.gs_jpeg_probe.restype = ctypes.c_int
-        lib.gs_jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_longlong, ctypes.c_void_p,
-                                       ctypes.c_longlong]
+        lib.gs_jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+                                       ctypes.c_void_p, ctypes.c_int]
         lib.gs_jpeg_decode.restype = ctypes.c_int
         lib.gs_jpeg_decode_tiff.argtypes = [ctypes.c_char_p, ctypes.c_longlong, ctypes.c_char_p, ctypes.c_longlong,
                                             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -1150,13 +1148,16 @@ def _library():
     return lib
 
 
-def _decode_compiled(data: bytes, name: str) -> np.ndarray:
+def _decode_compiled(data: bytes, name: str, as_cmyk: bool = False) -> np.ndarray:
+    """The compiled decoder's pixels; `as_cmyk`: a 4-component frame's
+    samples as stored (inverted as PIL's "CMYK;I"), whatever its Adobe
+    transform, as PIL reads a JPEG with jpegmode "CMYK" (a BLP1's)."""
     lib = _library()
     shape = (ctypes.c_int * 3)()
-    if lib.gs_jpeg_probe(data, len(data), ctypes.addressof(shape)):
+    if lib.gs_jpeg_decode(data, len(data), None, 0, ctypes.addressof(shape), int(as_cmyk)):
         raise ValueError(f"{name}: {lib.gs_jpeg_error().decode()}; {SUPPORTED}")
     out = np.empty(tuple(shape), np.uint8)
-    if lib.gs_jpeg_decode(data, len(data), out.ctypes.data, out.nbytes):
+    if lib.gs_jpeg_decode(data, len(data), out.ctypes.data, out.nbytes, ctypes.addressof(shape), int(as_cmyk)):
         raise ValueError(f"{name}: {lib.gs_jpeg_error().decode()}; {SUPPORTED}")
     return out
 

@@ -569,7 +569,8 @@ def test_open_image_sniffs_each_format(tmp_path, cxx):
     for order in "<>":
         assert_like_pil(tmp_path, tiff_bytes(a, 8, 2, order=order), f"tiff{order}")
     assert_refused(tmp_path, MSP_4X4, "not a PNG, JPEG, BMP, DIB, TIFF, WebP, GIF, PPM / PGM / PBM / PFM, TGA, "
-                                      "JPEG 2000, QOI, PCX / DCX, SGI, ICO / CUR, PSD, DDS or AVIF file")
+                                      "JPEG 2000, QOI, PCX / DCX, SGI, ICO / CUR, PSD, DDS, AVIF, BLP, FITS, FLI / FLC, "
+                                      "FTEX, GBR, ICNS or EPS file")
     got = assert_like_pil(tmp_path, b"P6\n4 4\n255\n" + bytes(48), "ppm")
     assert got.mode == "RGB" and got.pixels.shape == (4, 4, 3)
 

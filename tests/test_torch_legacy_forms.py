@@ -15,6 +15,7 @@ import io
 import json
 import os
 import shutil
+import subprocess
 import sys
 
 import numpy as np
@@ -411,15 +412,30 @@ def test_crafted_heads_read_as_pil_reads_them(tmp_path, cxx, case):
         assert Image.open(io.BytesIO(data)).format == fmt and got is not None, case
 
 
+def pils_order() -> list:
+    """PIL's `Image.ID` as a fresh interpreter builds it (`Image.preinit()`,
+    then `Image.init()`): the order `Image.open` tries the formats in when
+    nothing else has imported a plugin. In a process that has imported
+    plugins already (another test file's), `Image.ID` holds them in the
+    order they were imported, which is not the order to hold the port to."""
+    probe = "import json; from PIL import Image; Image.preinit(); Image.init(); print(json.dumps(Image.ID))"
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True, timeout=120, check=True)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
 def test_the_readers_follow_pils_order():
     """`image_io.READERS` is PIL 12.1.0's `Image.ID` order of the formats the
-    port reads, and each reader's test of the first bytes is PIL's."""
+    port reads (from a fresh interpreter, so whichever test ran before in
+    this process), and each reader's test of the first bytes is PIL's."""
     Image.init()
     ported = [name for name, _, _ in image_io.READERS]
-    assert ported == [f for f in Image.ID if f in ported]
+    assert ported == [f for f in pils_order() if f in ported]
     heads = {"BMP": b"BM", "DIB": (40).to_bytes(4, "little"), "CUR": b"\0\0\2\0", "ICO": b"\0\0\1\0",
              "PCX": b"\x0a\x05", "DCX": (0x3ADE68B1).to_bytes(4, "little"), "PSD": b"8BPS", "QOI": b"qoif",
-             "SGI": b"\x01\xda", "DDS": b"DDS "}
+             "SGI": b"\x01\xda", "DDS": b"DDS ", "BLP": b"BLP2", "BUFR": b"ZCZC", "EPS": b"%!PS-Adobe",
+             "FITS": b"SIMPLE  =", "FLI": bytes(4) + b"\x12\xaf" + bytes(10), "FTEX": b"FTEX",
+             "GBR": (28).to_bytes(4, "big") + (2).to_bytes(4, "big"), "GRIB": b"GRIB\0\0\0\1",
+             "HDF5": b"\x89HDF\r\n\x1a\n", "ICNS": b"icns"}
     for name, accepts, _ in image_io.READERS:
         if name in heads:
             head = heads[name].ljust(18, b"\x01")

@@ -220,7 +220,8 @@ def test_unreadable_image_names_the_listing(tmp_path):
     bad = [c for c in info.train_cameras if c.image_name == "view_00"][0]
     with pytest.raises(ValueError, match=r"'view_00.jpg' in .*images\.bin: .*view_00\.jpg: not a PNG, JPEG, BMP, "
                                          r"DIB, TIFF, WebP, GIF, PPM / PGM / PBM / PFM, TGA, JPEG 2000, QOI, "
-                                         r"PCX / DCX, SGI, ICO / CUR, PSD, DDS or AVIF file"):
+                                         r"PCX / DCX, SGI, ICO / CUR, PSD, DDS, AVIF, BLP, FITS, FLI / FLC, FTEX, "
+                                         r"GBR, ICNS or EPS file"):
         dataset_readers.load_camera(bad, 1)
 
 

@@ -24,7 +24,7 @@ from PIL import Image
 
 from gaussian_splatting_tpu.scene import dataset_readers as jreaders
 from gaussian_splatting_torch.scene import dataset_readers
-from gaussian_splatting_torch.utils import cuda_build, image_io, tga
+from gaussian_splatting_torch.utils import cuda_build, eps, image_io, tga
 from test_torch_image_forms import assert_follows_pil, cxx, write_colmap_dataset_of  # noqa: F401  (cxx)
 from test_torch_jpeg import fake_cxx  # noqa: F401  (a fixture)
 from test_torch_scene import assert_same_cameras, orbit_frames
@@ -182,8 +182,9 @@ def test_no_other_format_is_taken_for_a_tga(tmp_path, cxx):
     """TGA has no signature and PIL tries it after its other formats: no
     file of a format the port reads passes TGA's header checks, nor do the
     files PIL writes in the other formats. Those the port reads (ICO, PCX,
-    SGI, QOI, DIB, DDS) read as PIL reads them; the others each raise,
-    naming the formats the port reads."""
+    SGI, QOI, DIB, DDS, BLP, ICNS) read as PIL reads them; EPS raises
+    naming Ghostscript where there is none, as PIL does; the others each
+    raise, naming the formats the port reads."""
     from test_torch_image_forms import FIXTURES
 
     folders = [FIXTURES, os.path.join(os.path.dirname(FIXTURES), "torch_webp"),
@@ -191,20 +192,27 @@ def test_no_other_format_is_taken_for_a_tga(tmp_path, cxx):
     heads = [open(os.path.join(d, f), "rb").read(18) for d in folders
              for f in os.listdir(d) if not f.endswith((".npz", ".py", ".json"))]
     a = np.random.default_rng(7).integers(0, 256, (20, 24, 3)).astype(np.uint8)
-    read = ("ICO", "PCX", "SGI", "QOI", "DIB", "DDS")
+    read = ("ICO", "PCX", "SGI", "QOI", "DIB", "DDS", "BLP", "ICNS")
     for fmt in ("PNG", "JPEG", "PPM", "ICO", "PCX", "SGI", "IM", "DDS", "QOI", "BLP", "DIB", "ICNS", "EPS", "XBM",
                 "MSP", "SPIDER"):
-        im = Image.fromarray(a).convert({"XBM": "1", "MSP": "1", "BLP": "P", "SPIDER": "F"}.get(fmt, "RGB"))
+        im = Image.fromarray(a).convert({"XBM": "1", "MSP": "1", "BLP": "P", "SPIDER": "F", "ICNS": "RGBA"}
+                                        .get(fmt, "RGB"))
         buf = io.BytesIO()
         im.save(buf, fmt)
         heads.append(buf.getvalue()[:18])
         if fmt in read:
             assert assert_follows_pil(tmp_path, buf.getvalue(), fmt) is not None, fmt
-        elif fmt not in ("PNG", "JPEG", "PPM"):
+        elif fmt == "EPS" and not eps.has_ghostscript():
+            path = tmp_path / "other.eps"
+            path.write_bytes(buf.getvalue())
+            with pytest.raises(ValueError, match="Ghostscript"):
+                image_io.open_image(path)
+        elif fmt not in ("PNG", "JPEG", "PPM", "EPS"):
             path = tmp_path / f"other.{fmt.lower()}"
             path.write_bytes(buf.getvalue())
             with pytest.raises(ValueError, match="not a PNG, JPEG, BMP, DIB, TIFF, WebP, GIF, PPM / PGM / PBM / PFM, "
-                                                 "TGA, JPEG 2000, QOI, PCX / DCX, SGI, ICO / CUR, PSD, DDS or AVIF file"):
+                                                 "TGA, JPEG 2000, QOI, PCX / DCX, SGI, ICO / CUR, PSD, DDS, AVIF, BLP, "
+                                                 "FITS, FLI / FLC, FTEX, GBR, ICNS or EPS file"):
                 image_io.open_image(path)
     assert len(heads) > 30
     assert not any(tga.looks_like_tga(h) for h in heads)

@@ -1,10 +1,12 @@
 """Writers of the BMP, TIFF, GIF, WebP, PPM, TGA, DIB, QOI, PCX / DCX, SGI,
-ICO / CUR, PSD and DDS forms PIL reads but does not write, for the tests of
+ICO / CUR, PSD, DDS, BLP, FTEX, GBR, FITS, FLI / FLC, ICNS and EPS forms
+PIL reads but does not write (or writes only some of), for the tests of
 `utils/bmp.py`, `utils/tiff.py`, `utils/gif.py`, `utils/webp.py`,
 `utils/ppm.py`, `utils/tga.py`, `utils/qoi.py`, `utils/pcx.py`,
-`utils/sgi.py`, `utils/ico.py`, `utils/psd.py` and `utils/dds.py`, for
-the fixtures' `make_fixtures.py` scripts and for chip_smoke.py's phases 5h
-and 5i, which run where there is no PIL.
+`utils/sgi.py`, `utils/ico.py`, `utils/psd.py`, `utils/dds.py` and the
+readers of the forms after them, for the fixtures' `make_fixtures.py`
+scripts and for chip_smoke.py's phases 5h, 5i, 5n and 5o, which run where
+there is no PIL.
 Imports neither JAX nor the port: each file is built from the formats'
 specifications, and PIL's read of it is the rule the port is held to.
 
@@ -74,6 +76,16 @@ specifications, and PIL's read of it is the rule the port is held to.
   or one-component scans (a predictor each), under an Adobe, JFIF or no
   marker; each Huffman table optimal for its component's differences
   (libjpeg's jpeg_gen_optimal_table).
+- `blp1_bytes` / `blp2_bytes`: BLP1 (a JPEG split into the shared header
+  and mipmap 0, or a BGRA palette and indices) and BLP2 (palette or DXT
+  blocks from `bc1_blocks` / `bc2_blocks` / `bc3_blocks`), any header
+  field, offsets and lengths; `ftex_bytes`: FTEX of DXT1 or raw RGB;
+  `gbr_bytes`: GIMP brushes v1 / v2; `fits_bytes` / `fits_gzip_bytes` /
+  `fits_unit` / `fits_card`: FITS at each BITPIX, IMAGE extensions and
+  GZIP_1 tile tables; `fli_bytes` / `fli_frame` / `fli_chunk` and the
+  chunk writers `fli_palette`, `fli_brun`, `fli_lc`, `fli_ss2`; `icns_bytes`
+  / `icns_rgb` / `icns_rle`: icns blocks, Apple's RLE bands; `eps_bytes`:
+  EPS text or a DOS EPS binary header.
 `rle_chunks` is the vectorised run finder the RLE writers share.
 """
 
@@ -2020,3 +2032,248 @@ def lossless_jpeg(pixels, sampling=None, psv=1, pt=0, restart_rows=0, one_compon
         out += b"".join(piece + (bytes([0xFF, 0xD0 + n % 8]) if n < len(pieces) - 1 else b"")
                         for n, piece in enumerate(pieces))
     return out + b"\xff\xd9"
+
+
+# ---- BLP, FTEX, GBR, FITS, FLI / FLC, ICNS, EPS and the stubs ----
+
+def blp1_bytes(width: int, height: int, compression: int = 1, alpha: int = 0, encoding: int = 5, subtype: int = 0,
+               palette=None, indices: bytes = b"", jpeg: bytes = b"", header_size: int = None, offsets=None,
+               lengths=None) -> bytes:
+    """A BLP1 file: "BLP1", compression (0 JPEG, 1 palette), the alpha
+    field, the size, encoding, subtype, 16 mipmap offsets and lengths,
+    then for a palette file 256 BGRA entries (`palette` (N, 4) in B, G, R,
+    A order, zero-padded to 256) and the indices, for a JPEG file the
+    shared header's length and its first `header_size` bytes of `jpeg`
+    (default: up to its first SOS segment's end), mipmap 0 the rest.
+    `offsets` / `lengths` override mipmap 0's (and the others')."""
+    head = b"BLP1" + struct.pack("<iIIIii", compression, alpha, width, height, encoding, subtype)
+    if compression == 0:
+        if header_size is None:
+            sos = jpeg.index(b"\xff\xda")
+            header_size = sos + 2 + int.from_bytes(jpeg[sos + 2:sos + 4], "big")
+        shared, body = jpeg[:header_size], jpeg[header_size:]
+        start = len(head) + 128 + 4 + len(shared)
+        tail = struct.pack("<I", len(shared)) + shared + body
+    else:
+        pal = np.zeros((256, 4), np.uint8) if palette is None else np.asarray(palette, np.uint8)
+        pal = np.pad(pal, ((0, 256 - len(pal)), (0, 0)))
+        start, body = len(head) + 128 + 1024, indices
+        tail = pal.tobytes() + indices
+    offs = list(offsets) if offsets is not None else [start] + [0] * 15
+    lens = list(lengths) if lengths is not None else [len(body)] + [0] * 15
+    return head + struct.pack("<16I16I", *offs, *lens) + tail
+
+
+def blp2_bytes(width: int, height: int, body: bytes, compression: int = 1, encoding: int = 1, alpha_depth: int = 0,
+               alpha_encoding: int = 0, palette=None, offsets=None, lengths=None, mips: int = 0) -> bytes:
+    """A BLP2 file: "BLP2", the compression field (1: palette or DXT),
+    encoding (1 palette, 2 DXT, 3 raw BGRA), alpha depth, alpha encoding
+    (0 DXT1, 1 DXT3, 7 DXT5), the mipmap flag, the size, 16 mipmap
+    offsets and lengths, 256 BGRA palette entries, then mipmap 0 `body`."""
+    head = b"BLP2" + struct.pack("<i4bII", compression, encoding, alpha_depth, alpha_encoding, mips, width, height)
+    pal = np.zeros((256, 4), np.uint8) if palette is None else np.asarray(palette, np.uint8)
+    pal = np.pad(pal, ((0, 256 - len(pal)), (0, 0)))
+    start = len(head) + 128 + 1024
+    offs = list(offsets) if offsets is not None else [start] + [0] * 15
+    lens = list(lengths) if lengths is not None else [len(body)] + [0] * 15
+    return head + struct.pack("<16I16I", *offs, *lens) + pal.tobytes() + body
+
+
+def ftex_bytes(width: int, height: int, body: bytes, fmt: int = 1, mipmaps: int = 1, format_count: int = 1,
+               where: int = None, mipmap_size: int = None, version: int = 1) -> bytes:
+    """An FTEX file (.ftc / .ftu): "FTEX", version, size, mipmap and
+    format counts, one format entry (0 DXT1, 1 raw RGB) pointing at
+    `where` (default: right after it), there mipmap 0's size and `body`."""
+    where = 32 if where is None else where
+    head = b"FTEX" + struct.pack("<7i", version, width, height, mipmaps, format_count, fmt, where)
+    head = head.ljust(where, b"\0")
+    return head + struct.pack("<i", len(body) if mipmap_size is None else mipmap_size) + body
+
+
+def gbr_bytes(px: np.ndarray, version: int = 2, comment: bytes = b"brush\0", spacing: int = 10,
+              header_size: int = None, magic: bytes = b"GIMP") -> bytes:
+    """A GIMP brush: big-endian header size, version (1 or 2), width,
+    height and colour depth (1 grey, 4 RGBA), for version 2 "GIMP" and the
+    spacing, the comment, then the (H, W, 1 or 4) uint8 pixels raw."""
+    h, w, c = px.shape
+    fixed = 20 if version == 1 else 28
+    size = fixed + len(comment) if header_size is None else header_size
+    head = struct.pack(">5I", size, version, w, h, c)
+    if version != 1:
+        head += magic + struct.pack(">I", spacing)
+    return head + comment + np.ascontiguousarray(px).tobytes()
+
+
+def fits_card(key: str, value: str = None) -> bytes:
+    """One 80-byte FITS header card: the keyword, and "= " and the value
+    right-aligned in column 30 (strings as given, quoted)."""
+    card = key.ljust(8)
+    if value is not None:
+        card += "= " + value.rjust(20)
+    return card.ljust(80).encode()
+
+
+def fits_unit(cards, data: bytes = b"", pad: bool = True) -> bytes:
+    """A header unit of `cards` ((key, value) pairs) and END, padded to
+    2880 bytes, then `data` padded to 2880 (with `pad`)."""
+    head = b"".join(fits_card(k, v) for k, v in cards) + fits_card("END")
+    head = head.ljust(-(-len(head) // 2880) * 2880, b" ")
+    return head + (data.ljust(-(-len(data) // 2880) * 2880, b"\0") if pad else data)
+
+
+FITS_DTYPES = {8: ">u1", 16: ">i2", 32: ">i4", -32: ">f4", -64: ">f8"}
+
+
+def fits_bytes(samples: np.ndarray, bitpix: int, cards=(), empty_primary: bool = False, pad: bool = True) -> bytes:
+    """A FITS file of (H, W) `samples` at BITPIX `bitpix` (8, 16, 32, -32,
+    -64), big-endian, rows bottom-up as FITS stores them (the first row
+    of `samples` last); `empty_primary`: the image in an IMAGE extension
+    after a primary HDU of NAXIS 0. `cards`: more (key, value) cards."""
+    h, w = samples.shape
+    data = np.ascontiguousarray(samples[::-1]).astype(FITS_DTYPES[bitpix]).tobytes()
+    axes = [("BITPIX", str(bitpix)), ("NAXIS", "2"), ("NAXIS1", str(w)), ("NAXIS2", str(h))]
+    if not empty_primary:
+        return fits_unit([("SIMPLE", "T")] + axes + list(cards), data, pad)
+    primary = fits_unit([("SIMPLE", "T"), ("BITPIX", "8"), ("NAXIS", "0")])
+    return primary + fits_unit([("XTENSION", "'IMAGE   '")] + axes + [("PCOUNT", "0"), ("GCOUNT", "1")]
+                               + list(cards), data, pad)
+
+
+def fits_gzip_bytes(samples: np.ndarray, zbitpix: int = 8, members: int = 1, pad: bool = False, cards=()) -> bytes:
+    """A tile-compressed FITS (a BINTABLE extension with ZIMAGE = T and
+    ZCMPTYPE 'GZIP_1  ') of (H, W) integer `samples`: a primary HDU of
+    NAXIS 0, then the table (one 8-byte descriptor a row), the heap after
+    it the samples as 4-byte big-endian words, bottom row first, gzipped
+    in `members` gzip members (one a tile of rows). `pad`: the heap padded
+    to 2880 bytes as FITS pads a data unit (PIL's gzip read then fails)."""
+    import gzip
+
+    h, w = samples.shape
+    words = np.ascontiguousarray(samples[::-1]).astype(">u4").tobytes()
+    step = -(-h // members) * w * 4
+    heap = b"".join(gzip.compress(words[i:i + step], mtime=0) for i in range(0, len(words), step))
+    table = struct.pack(">II", len(heap), 0)
+    cards_ = [("XTENSION", "'BINTABLE'"), ("BITPIX", "8"), ("NAXIS", "2"), ("NAXIS1", "8"), ("NAXIS2", "1"),
+              ("PCOUNT", str(len(heap))), ("GCOUNT", "1"), ("TFIELDS", "1"), ("TFORM1", "'1PB     '"),
+              ("ZIMAGE", "T"), ("ZBITPIX", str(zbitpix)), ("ZNAXIS", "2"), ("ZNAXIS1", str(w)),
+              ("ZNAXIS2", str(h)), ("ZCMPTYPE", "'GZIP_1  '")] + list(cards)
+    return fits_unit([("SIMPLE", "T"), ("BITPIX", "8"), ("NAXIS", "0")]) + fits_unit(cards_, table + heap, pad)
+
+
+def fli_chunk(kind: int, body: bytes) -> bytes:
+    """An FLI subchunk: size (6 + body, padded to even), type, body."""
+    body += b"\0" * (len(body) % 2)
+    return struct.pack("<IH", 6 + len(body), kind) + body
+
+
+def fli_frame(chunks, kind: int = 0xF1FA) -> bytes:
+    """An FLI frame chunk (0xF1FA) of its subchunks."""
+    body = b"".join(chunks)
+    return struct.pack("<IHH8x", 16 + len(body), kind, len(chunks)) + body
+
+
+def fli_bytes(width: int, height: int, frames, magic: int = 0xAF12, flags: int = 3, speed: int = 70,
+              prefix: bytes = None, header=None) -> bytes:
+    """An FLI (magic 0xAF11) or FLC (0xAF12) file: the 128-byte header
+    (`header`: {offset: bytes} written over it), a 0xF100 prefix chunk
+    where `prefix` is given, then the frame chunks."""
+    body = (struct.pack("<IH", 6 + len(prefix), 0xF100) + prefix if prefix is not None else b"") + b"".join(frames)
+    head = bytearray(struct.pack("<IHHHHHHI", 128 + len(body), magic, len(frames), width, height, 8, flags, speed)
+                     .ljust(128, b"\0"))
+    head[80:84] = struct.pack("<I", 128)
+    for at, b in (header or {}).items():
+        head[at:at + len(b)] = b
+    return bytes(head) + body
+
+
+def fli_palette(palette: np.ndarray, kind: int = 4, start: int = 0) -> bytes:
+    """A COLOR_256 (4) or COLOR_64 (11) subchunk of one packet setting
+    entries from `start`: (N, 3) uint8 (N 256 written as count 0)."""
+    n = len(palette)
+    return fli_chunk(kind, struct.pack("<HBB", 1, start, n % 256) + np.asarray(palette, np.uint8).tobytes())
+
+
+def fli_brun(indices: np.ndarray) -> bytes:
+    """A BRUN (15) subchunk of (H, W) uint8 indices: per row a packet
+    count byte, then runs (a positive count, one byte) of 3 or more equal
+    bytes and literals (a negative count) of the rest, at most 127 a
+    packet (vectorised)."""
+    rows = np.ascontiguousarray(indices, np.uint8)
+    h, w = rows.shape
+    flat = rows.ravel()
+    c_start, c_count, is_run = rle_chunks(rows, 127, 127, min_run=3)
+    headers = np.where(is_run, c_count, 256 - c_count).astype(np.uint8)
+    stream = _emit(flat, headers, c_start, np.where(is_run, 1, c_count), ~is_run)
+    row = c_start // w
+    first = np.ones(len(row), bool)
+    first[1:] = row[1:] != row[:-1]
+    at = (np.cumsum(1 + np.where(is_run, 1, c_count)) - (1 + np.where(is_run, 1, c_count)))[first]
+    counts = (np.bincount(row, minlength=h) & 255).astype(np.uint8)
+    return fli_chunk(15, np.insert(stream, at, counts).tobytes())
+
+
+def fli_lc(first: int, lines) -> bytes:
+    """An LC (12) subchunk: the first line, the line count, then per line
+    its packets, each (skip, literal bytes) or (skip, (count, value)) for
+    a run."""
+    out = struct.pack("<HH", first, len(lines))
+    for packets in lines:
+        out += bytes([len(packets)])
+        for skip, p in packets:
+            out += bytes([skip]) + (bytes([256 - p[0], p[1]]) if isinstance(p, tuple) else bytes([len(p)]) + p)
+    return fli_chunk(12, out)
+
+
+def fli_ss2(lines) -> bytes:
+    """An SS2 (7) subchunk: per line its flag words (0xC000 | skip lines
+    as 65536 - n, or 0x8000 | the last byte), then its packets, each
+    (skip, literal words as bytes) or (skip, (count, 2 bytes)) for a run."""
+    out = struct.pack("<H", len(lines))
+    for flags, packets in lines:
+        for f in flags:
+            out += struct.pack("<H", f)
+        out += struct.pack("<H", len(packets))
+        for skip, p in packets:
+            out += bytes([skip]) + (bytes([256 - p[0]]) + p[1] if isinstance(p, tuple) else bytes([len(p) // 2]) + p)
+    return fli_chunk(7, out)
+
+
+def icns_rle(band: np.ndarray) -> bytes:
+    """One band of an icns 32-bit icon in Apple's RLE: runs of 3 to 130
+    equal bytes as (count + 125, byte), literals of 1 to 128 bytes as
+    (count - 1, bytes) (vectorised)."""
+    b = np.ascontiguousarray(band, np.uint8).reshape(1, -1)
+    c_start, c_count, is_run = rle_chunks(b, 130, 128, min_run=3)
+    headers = np.where(is_run, c_count + 125, c_count - 1).astype(np.uint8)
+    return _emit(b.ravel(), headers, c_start, np.where(is_run, 1, c_count), ~is_run).tobytes()
+
+
+def icns_bytes(entries, size: int = None) -> bytes:
+    """An icns file: "icns", the file size (or `size`), then each (type,
+    body) block with its 8-byte header."""
+    body = b"".join(struct.pack(">4sI", kind, 8 + len(data)) + data for kind, data in entries)
+    return b"icns" + struct.pack(">I", 8 + len(body) if size is None else size) + body
+
+
+def icns_rgb(px: np.ndarray, rle: bool = True, it32: bool = False) -> bytes:
+    """An it32 / ih32 / il32 / is32 body of (H, W, 3) uint8: each band in
+    Apple's RLE (or the pixels raw, interleaved), it32's four zero bytes
+    first."""
+    if rle:
+        body = b"".join(icns_rle(px[..., k]) for k in range(3))
+    else:
+        body = np.ascontiguousarray(px[..., :3]).tobytes()
+    return (b"\0\0\0\0" if it32 else b"") + body
+
+
+def eps_bytes(bbox=(0, 0, 64, 48), lines=(), adobe: bytes = b"%!PS-Adobe-3.0 EPSF-3.0",
+              dos: bool = False, body: bytes = b"0 0 moveto 10 10 lineto stroke\nshowpage\n") -> bytes:
+    """An EPS file: the "%!PS-Adobe" line, a %%BoundingBox, `lines` of more
+    header comments (bytes), %%EndComments, then `body`; `dos` puts it in
+    a DOS EPS binary header (0xC6D3D0C5, the PostScript's offset and
+    length, no preview)."""
+    text = b"\n".join([adobe] + ([b"%%%%BoundingBox: %d %d %d %d" % tuple(bbox)] if bbox else [])
+                      + list(lines) + [b"%%EndComments", body])
+    if not dos:
+        return text
+    return struct.pack("<IIIIIIIH", 0xC6D3D0C5, 30, len(text), 0, 0, 0, 0, 0xFFFF) + text
