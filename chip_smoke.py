@@ -15,7 +15,9 @@ Phases (any failure exits non-zero; none is caught and passed over):
      included, csrc/webp_decode.cc, the WebP decoder, and
      csrc/image_codecs.cc, TIFF's LZW (both styles), PackBits and
      ThunderScan, BMP's RLE, GIF's LZW, TGA's RLE, QOI's ops, PCX's and
-     SGI's RLE and PSD's PackBits, csrc/fax_decode.cc,
+     SGI's RLE, PSD's PackBits, FLI's and icns's runs, Sun raster's RLE,
+     MSP's runs, XBM's hex text, PhotoCD's YCC rows and IM's bit-packed
+     floats, csrc/fax_decode.cc,
      TIFF's CCITT fax, and csrc/zstd_decode.cc, ZSTD-in-TIFF's Zstandard
      frames; host C++, `c++`), with their build time.
   3. kernels vs plain: preprocess and bin a scene once, feed the same sorted
@@ -486,6 +488,24 @@ Phases (any failure exits non-zero; none is caught and passed over):
      machine's PIL's reading (without a PIL: to the picture PIL's rules
      give of the writers' values) and timed beside it. `cli.train` -r 1
      for 30 iterations as in 5h, its checks and prints.
+  5p. IM, IMT, IPTC, McIDAS, MSP, PCD, PIXAR, SPIDER, SUN, XBM, XPM and XV
+     thumbnails, and MPEG and WMF / EMF refused, after 5o: (a) one file of
+     each form tests/torch_image_writers.py writes (`pil_rest_files`, at
+     1920x1080: IM RGB, YCbCr and P of a colour LUT, IMT, McIDAS 8- and
+     16-bit, PIXAR, SPIDER, SUN raw BGR and RLE BGR, MSP v2, XBM, XPM of
+     252 colours, an XV thumbnail; PhotoCD at 768x512 and turned to
+     512x768; IPTC of raw grey), each the bytes PIL 12.1.0 read (their
+     SHA-256) and read with its mode, shape and pixels' SHA-256
+     (tests/fixtures/torch_pil_rest/sha256.json) and as this machine's PIL
+     reads it; each read's median of 5 beside this PIL's median of 3 (of 1
+     for MSP v2 and XPM, which PIL decodes in Python). MPEG, a placeable
+     WMF and an EMF raise in the port, naming the format, and in this PIL.
+     (b) A COLMAP dataset of 7 views of trained_r5 on phase 5c's orbit at
+     1920x1080: IM RGB, SUN raw BGR, SUN RLE BGR, PIXAR, IMT grey, McIDAS
+     8-bit grey and IPTC raw grey, each held to this machine's PIL's
+     reading (without a PIL: to the render or its grey, the writers'
+     values) and timed beside it. `cli.train` -r 1 for 30 iterations as in
+     5h, its checks and prints.
   5d. sharded path (`parallel/sharding.py`), on the one card:
      - the kernels at a row origin: trained_r5 at 1920x1080 with 32x32
        tiles cut into 2 and into 4 strips of tile rows; each strip's
@@ -555,7 +575,7 @@ Phases (any failure exits non-zero; none is caught and passed over):
      avif_train (5j's train CLI), avif_filters_train (5k's train CLI),
      avif_screen_train (5l's train CLI), avif_grain_train (5m's train CLI),
      jpeg_arith_train (5n's train CLI),
-     rare_forms_train (5o's train CLI),
+     rare_forms_train (5o's train CLI), pil_rest_train (5p's train CLI),
      sharded_2rank and sharded_trainer (both ranks' sums), sharded_nccl1,
      bench (the five in-process runs of 5f) for the compositing kernels
      and the routing,
@@ -5195,6 +5215,211 @@ def _rare_forms_phase(dev, tmp):
     return launches, errs
 
 
+# ---- phase 5p: IM, IMT, IPTC, McIDAS, MSP, PCD, PIXAR, SPIDER, SUN, XBM, XPM, XV -----
+
+# PIL's reading of each file of `pil_rest_files` (its mode, shape, pixels'
+# SHA-256) and each file's own SHA-256, as
+# tests/fixtures/torch_pil_rest/make_fixtures.py wrote them with PIL 12.1.0
+PIL_REST_FIXTURES = os.path.join(FIXTURES, "torch_pil_rest")
+PIL_REST_STEPS = 30
+PIL_REST_VIEWS = ("IM RGB", "SUN raw BGR", "SUN RLE BGR", "PIXAR", "IMT", "McIDAS 8-bit", "IPTC raw L")
+PIL_REST_EXT = {"IM": ".im", "IMT": ".imt", "McIDAS": ".area", "PIXAR": ".pxr", "SPIDER": ".spi", "SUN": ".ras",
+                "MSP": ".msp", "XBM": ".xbm", "XPM": ".xpm", "XV": ".xv", "PCD": ".pcd", "IPTC": ".iim"}
+# forms PIL decodes in Python (its MspDecoder and XpmDecoder): 5p times PIL on them once
+PIL_REST_PIL_PYTHON = ("MSP v2", "XPM")
+
+
+def pil_rest_refused():
+    """MPEG, a placeable WMF and an EMF: {format: bytes}."""
+    w = image_writers()
+    return {"MPEG": w.mpeg_bytes(1920, 1080), "WMF": w.wmf_bytes(), "EMF": w.emf_bytes()}
+
+
+def pil_rest_files(px=None, names=None):
+    """The files of phase 5p in the forms of IM, IMT, McIDAS, PIXAR,
+    SPIDER, SUN, MSP, XBM, XPM, XV thumbnails, PhotoCD and IPTC, written by
+    tests/torch_image_writers.py from `px` (default: the form picture at
+    1920x1080; the PhotoCD files from its 768x512 corner): {name: bytes},
+    of every form or of `names`. Integers only: the same bytes on every
+    machine."""
+    w = image_writers()
+    px = form_picture() if px is None else px
+    H, W = px.shape[:2]
+    p = px.astype(np.int64)
+    grey = ((p @ np.array([299, 587, 114])) // 1000).astype(np.uint8)
+    ycc = np.stack([(p @ np.array([299, 587, 114])) // 1000,
+                    np.clip(128 + (p @ np.array([-169, -331, 500])) // 1000, 0, 255),
+                    np.clip(128 + (p @ np.array([500, -419, -81])) // 1000, 0, 255)], -1).astype(np.uint8)
+    idx, palette = cube_palette(px)
+    xv = ((p[..., 0] >> 5) << 5 | (p[..., 1] >> 5) << 2 | p[..., 2] >> 6).astype(np.uint8)
+    bits = grey > 128
+
+    def im(image_type, body, **kw):
+        return lambda: w.im_bytes(image_type, W, H, body(), **kw)
+
+    def pcd(orientation):
+        return lambda: w.pcd_bytes(*w.pcd_ycc(px[:512, :768]), orientation=orientation)
+
+    writers = {
+        "IM RGB": im("RGB image", lambda: w.pack_raw(px, "RGB;L", True)),
+        "IM YCbCr": im("YCC image", lambda: w.pack_raw(ycc, "YCbCr;L", True)),
+        "IM P": im("Greyscale image", lambda: w.pack_raw(idx, "L", True), lut=palette[:, [2, 1, 0]]),
+        "IMT": lambda: w.imt_bytes(grey),
+        "McIDAS 8-bit": lambda: w.mcidas_bytes(grey, 1),
+        "McIDAS 16-bit": lambda: w.mcidas_bytes(grey.astype(np.int64) * 257, 2),
+        "PIXAR": lambda: w.pixar_bytes(px),
+        "SPIDER": lambda: w.spider_bytes(grey.astype(np.float32) / 4),
+        "SUN raw BGR": lambda: w.sun_bytes(W, H, 24, w.pack_raw(px, "BGR"), 1),
+        "SUN RLE BGR": lambda: w.sun_bytes(W, H, 24, w.pack_raw(px, "BGR"), 2),
+        "MSP v2": lambda: w.msp_bytes(bits),
+        "XBM": lambda: w.xbm_bytes(bits),
+        "XPM": lambda: w.xpm_bytes(idx, palette[:252, [2, 1, 0]]),
+        "XV": lambda: w.xv_bytes(xv),
+        "PCD": pcd(0),
+        "PCD rotated": pcd(1),
+        "IPTC raw L": lambda: w.iptc_bytes(W, H, grey.tobytes()),
+    }
+    return {name: write() for name, write in writers.items() if names is None or name in names}
+
+
+def check_pil_rest_forms(tmp):
+    """Phase 5p (a): each file of `pil_rest_files` the bytes PIL read (its
+    SHA-256) and, through `image_io.open_image`, PIL 12.1.0's mode, shape
+    and pixels' SHA-256 (tests/fixtures/torch_pil_rest/sha256.json), and
+    this machine's PIL's reading where it has one. Returns {name: (the
+    port's median ms of 5 decodes, PIL's median of 3 (of 1 for PIL's
+    Python decoders) or why not)}."""
+    with open(os.path.join(PIL_REST_FIXTURES, "sha256.json")) as f:
+        readings = json.load(f)["chip_smoke"]
+    made = pil_rest_files()
+    if sorted(made) != sorted(readings):
+        fail(f"PIL's other forms: this script makes {sorted(made)}, the fixture holds {sorted(readings)}")
+    times = {}
+    for name, data in made.items():
+        want = readings[name]
+        if hashlib.sha256(data).hexdigest() != want["file_sha256"]:
+            fail(f"PIL's other forms: the writers made other bytes for '{name}' than the file PIL read "
+                 f"(tests/fixtures/torch_pil_rest/sha256.json)")
+        path = os.path.join(tmp, f"form_{len(times)}" + PIL_REST_EXT[name.split()[0]])
+        with open(path, "wb") as f:
+            f.write(data)
+        ms = []
+        for _ in range(5):
+            pic, t = synced_ms(image_io.open_image, path)
+            ms.append(t)
+        got = (pic.mode, list(pic.pixels.shape), sha256_of(pic.pixels))
+        if got != (want["mode"], want["shape"], want["sha256"]):
+            fail(f"PIL's other forms: {name} reads as {got}, not as PIL 12.1.0 ({want})")
+        here, pil_ms = pil_timed_reading(path, 1 if name in PIL_REST_PIL_PYTHON else 3)
+        if here not in (None, (got[0], got[1] if got[1][2] > 1 else got[1][:2], got[2])):
+            fail(f"PIL's other forms: {name} reads as {got}, not as this machine's PIL ({here})")
+        times[name] = (float(np.median(ms)), pil_ms, got[0], got[1])
+        os.remove(path)
+    return times
+
+
+def check_pil_rest_refusals(tmp):
+    """Phase 5p (a): MPEG, a placeable WMF and an EMF raise, naming the
+    format, in the port and in this machine's PIL."""
+    for fmt, data in pil_rest_refused().items():
+        path = os.path.join(tmp, "refused." + fmt.lower())
+        with open(path, "wb") as f:
+            f.write(data)
+        try:
+            image_io.open_image(path)
+            fail(f"PIL's other forms: the port reads the {fmt} file")
+        except ValueError as err:
+            if f"{fmt} file" not in str(err):
+                fail(f"PIL's other forms: the {fmt} file refused for another reason: {err}")
+        if pil_reading(path) not in (None, "raises"):
+            fail(f"PIL's other forms: this machine's PIL reads the {fmt} file")
+
+
+def pil_rest_plain_reading(form, px):
+    """(mode, pixels as np.asarray gives them) of the 5p view `form` made
+    from the opaque render `px`, by the writers' own values, for a machine
+    without PIL: the RGB forms the render, the grey ones its grey."""
+    if form in ("IM RGB", "SUN raw BGR", "SUN RLE BGR", "PIXAR"):
+        return "RGB", px
+    return "L", ((px.astype(np.int64) @ np.array([299, 587, 114])) // 1000).astype(np.uint8)
+
+
+def pil_rest_phase(dev):
+    """Phase 5p (module docstring). Returns the compositing kernels'
+    launches in the train CLI run and the max abs errors of the forward,
+    the backward and the routing against their plain versions at its final
+    state."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pil_rest_")
+    try:
+        return _pil_rest_phase(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _pil_rest_phase(dev, tmp):
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) The files, held to PIL's committed readings; MPEG and WMF / EMF
+    # refused as this machine's PIL refuses them.
+    times = check_pil_rest_forms(tmp)
+    print(f"PIL's other forms: {len(times)} files (tests/torch_image_writers.py's at {W_MAIN}x{H_MAIN}, PhotoCD at "
+          f"768x512) read with PIL 12.1.0's mode, shape and pixels (tests/fixtures/torch_pil_rest/sha256.json); "
+          f"decode ms, median of 5 (host clock), beside this machine's PIL ({jpeg_versions()}; median of 3, of 1 "
+          f"for PIL's Python decoders) [{gpu_line()}]:")
+    for name, (ms, pil_ms, mode, shape) in times.items():
+        print(f"  {name}: {mode} {shape}, {ms:.2f} ms (PIL {pil_ms})")
+    check_pil_rest_refusals(tmp)
+    print("  MPEG, a placeable WMF and an EMF refused by the port and this machine's PIL")
+
+    # (b) A COLMAP dataset of trained_r5 whose views are seven of those forms.
+    t0 = time.perf_counter()
+    data, model_dir = os.path.join(tmp, "data"), os.path.join(tmp, "model")
+    model = load_gaussians_ply(TRAINED_PLY)
+    cams, images = orbit_dataset(len(PIL_REST_VIEWS), W_MAIN, H_MAIN)
+    write_colmap_scene(data, cams, images, model["xyz"], dc_colors(model))
+    files, labels, plain = {}, {}, {}
+    for cam, px, form in zip(cams, images, PIL_REST_VIEWS):
+        px = np.ascontiguousarray(px[..., :3])
+        body = pil_rest_files(px, [form])[form]
+        files[cam.image_name], labels[cam.image_name] = cam.image_name + PIL_REST_EXT[form.split()[0]], form
+        os.remove(os.path.join(data, "images", f"{cam.image_name}.png"))
+        with open(os.path.join(data, "images", files[cam.image_name]), "wb") as f:
+            f.write(body)
+        plain[cam.image_name] = px
+    rename_views(data, files)
+    build_s = time.perf_counter() - t0
+    info = read_colmap_scene(data, None, eval_split=False)
+    print(f"  {len(PIL_REST_VIEWS)} views of trained_r5 at {W_MAIN}x{H_MAIN}, made in {build_s:.1f} s; decode ms, "
+          f"median of 5 (host clock), beside this machine's PIL's:")
+    for c in info.train_cameras:
+        ms = []
+        for _ in range(5):
+            pic, t = synced_ms(image_io.open_image, c.image_path)
+            ms.append(t)
+        px = pic.pixels[..., 0] if pic.pixels.shape[2] == 1 else pic.pixels  # np.asarray's shape of an "L" image
+        got = (pic.mode, list(px.shape), sha256_of(px))
+        form = labels[c.image_name]
+        here, pil_ms = pil_timed_reading(c.image_path, 3)
+        if here is None:
+            mode, want = pil_rest_plain_reading(form, plain[c.image_name])
+            here = (mode, list(want.shape), sha256_of(want))
+        if got != here:
+            fail(f"PIL's other forms: view {files[c.image_name]} ({form}) reads as {got}, not as PIL's rules give "
+                 f"it ({here})")
+        print(f"    {form}: {pic.mode}, {float(np.median(ms)):.2f} ms (PIL {pil_ms})")
+    launches, errs, (train_s, load_s, step_ms, loss0, loss1) = train_cli_on(
+        "PIL's other forms", data, model_dir, len(PIL_REST_VIEWS), PIL_REST_STEPS, 71)
+    print(f"  train CLI on a COLMAP dataset of {len(PIL_REST_VIEWS)} views of trained_r5 at {W_MAIN}x{H_MAIN}, one "
+          f"each {', '.join(PIL_REST_VIEWS)}: -r 1, {PIL_REST_STEPS} iterations in {train_s:.2f} s (scene load "
+          f"{load_s:.2f} s), step median {step_ms:.3f} ms; loss {loss0:.6f} -> {loss1:.6f}; launches {launches}; "
+          f"max abs errors {dict(zip(TRAIN_KERNELS, errs))}")
+    print(f"  phase peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
+          f"wall {time.perf_counter() - t_phase:.1f} s")
+    return launches, errs
+
+
 # ---- phase 5d: the sharded path -------------------------------------------
 
 SHARD_STRIPS = (2, 4)  # strips of the in-process kernel check at an origin
@@ -6067,6 +6292,12 @@ def main():
         max_err[k] = max(max_err[k], e)
     phase_done("5o BLP, FTEX, GBR, FITS, FLI, ICNS")
 
+    # ---- 5p. IM, IMT, IPTC, McIDAS, MSP, PCD, PIXAR, SPIDER, SUN, XBM, XPM, XV
+    pil_rest_train_launches, pil_rest_errs = pil_rest_phase(dev)
+    for k, e in zip(TRAIN_KERNELS, pil_rest_errs):
+        max_err[k] = max(max_err[k], e)
+    phase_done("5p IM, IMT, IPTC, McIDAS, MSP, PCD, PIXAR, SPIDER, SUN, XBM, XPM, XV")
+
     # ---- 5d. sharded path ---------------------------------------------
     sharded_launches, strip_errs = sharded_phase(dev, gt, center, dist, train_capacity,
                                                  single_ref, step_ms)
@@ -6155,6 +6386,7 @@ def main():
                     "avif_grain_train": avif_grain_train_launches[name],
                     "jpeg_arith_train": jpeg_arith_train_launches[name],
                     "rare_forms_train": rare_forms_train_launches[name],
+                    "pil_rest_train": pil_rest_train_launches[name],
                     **{path: counts[name] for path, counts in sharded_launches.items()},
                     "bench": bench_launches[name]}
         return {"profiler": prof_launches[name]}

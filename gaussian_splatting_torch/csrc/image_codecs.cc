@@ -1,12 +1,14 @@
-// The byte loops of the BMP, TIFF, GIF, TGA, QOI, PCX, SGI, PSD, FLI and ICNS readers:
+// The byte loops of the BMP, TIFF, GIF, TGA, QOI, PCX, SGI, PSD, FLI, ICNS, SUN, MSP,
+// XBM, PCD and IM readers:
 // host C++, built with the host compiler by utils/cuda_build.py at first use
 // and loaded with ctypes (utils/image_codecs.py). Each decoder runs per
 // code, packet or byte, which Python cannot do at 1080p; everything else of
 // the formats (headers, IFDs, blocks, unpacking, the predictor, palettes)
 // is numpy and Python in utils/bmp.py, utils/tiff.py, utils/gif.py,
 // utils/tga.py, utils/qoi.py, utils/pcx.py, utils/sgi.py, utils/psd.py,
-// utils/fli.py and utils/icns.py (each of those two also holds a plain
-// Python version of its loop, which the tests hold this one to).
+// utils/fli.py, utils/icns.py, utils/sun.py, utils/msp.py, utils/xbm.py,
+// utils/pcd.py and utils/im.py (each of those also holds a plain Python
+// version of its loop, which the tests hold this one to).
 //
 // - gs_lzw_decode: TIFF's LZW as libtiff 4's LZWDecode reads it (new style,
 //   codes most significant bit first, 9 to 12 bits, the width growing one
@@ -83,6 +85,11 @@
 //   gs_pcx_rle_decode(file, file_size, start, line_bytes, xsize, bits, rows, out)
 //   gs_sgi_rle_decode(file, file_size, bands, xsize, ysize, bpc, out)
 //   gs_pil_packbits_decode(file, file_size, start, row_bytes, rows, out)
+//   gs_sun_rle_decode(file, file_size, start, row_bytes, rows, out)
+//   gs_msp_decode(file, file_size, ysize, blank, out, cap, produced)
+//   gs_xbm_decode(text, n, size, out)
+//   gs_pcd_decode(blocks, xsize, ysize, L, CB, GB, CR, GR, out)
+//   gs_im_bit_decode(in, n, bits, xsize, ysize, out)
 // - gs_fli_decode: one call of PIL's FliDecode.c on the bytes PIL's load
 //   loop has read of frame 0 (utils/fli.py runs that loop): nothing until
 //   the frame chunk's size is there (one pad byte allowed), a chunk that is
@@ -101,6 +108,30 @@
 //   (byte - 125) copies of the next byte, else a literal of byte + 1 bytes,
 //   until the band's pixels are counted off; runs and literals cut by the
 //   file's end add fewer bytes than they count.
+// - gs_sun_rle_decode: Sun raster RLE as PIL's SunRleDecode.c: 0x80 0x00
+//   a literal 0x80, 0x80 n v a run of n + 1 bytes v (the part past a row's
+//   end carried into the next rows), any other byte a literal; rows of
+//   `row_bytes` bytes, not padded. Fails where the data ends before the
+//   last row.
+// - gs_msp_decode: MSP version 2 as PIL's Python MspDecoder: the row map
+//   of `ysize` 16-bit lengths at byte 32, each row's runs (type 0: a count
+//   and a byte repeated; else that many bytes copied, fewer where the row
+//   ends), a row of length 0 a white row of `blank` 0xFF bytes; the rows'
+//   bytes one stream, of which the first `cap` are written and *produced
+//   counts all. Fails (PIL: OSError) at a row map or row cut short or a
+//   run cut short, wherever in the file.
+// - gs_xbm_decode: the hex text of an XBM as PIL's XbmDecode.c: each byte
+//   the two characters after the next 'x' (a character that is not a hex
+//   digit counts 0). Fails where the text ends before the last row.
+// - gs_pcd_decode: PhotoCD's base image as PIL's PcdDecode.c: each block
+//   of 3 x xsize bytes two luma rows and their shared chroma, pixel x
+//   taking chroma (x + 4 xsize) / 2 and (x + 5 xsize) / 2 of the block,
+//   then PIL's "YCC;P" unpacker through the tables the caller passes
+//   (utils/pcd.py: L, CB, GB, CR, GR), clipped to 0..255.
+// - gs_im_bit_decode: PIL's Bit.c with an IM file's arguments (pad 8,
+//   fill 3: each byte put above the bits held, each sample the low
+//   `bits`; a new row sets the count to 0 and keeps the bits; no sign;
+//   bottom-up) into float32 samples; the caller passes every row's bytes.
 
 #include <algorithm>
 #include <cstdint>
@@ -971,6 +1002,143 @@ long long gs_icns_rle_decode(const uint8_t* in, long long n, long long start, lo
   *got = at;
   *end = pos;
   return left;
+}
+
+int gs_sun_rle_decode(const uint8_t* in, long long n, long long start, long long row_bytes, long long rows,
+                      uint8_t* out) {
+  long long pos = start, x = 0, y = 0;
+  for (;;) {
+    long long count, extra = 0;
+    uint8_t value;
+    if (pos >= n) return fail("Sun raster RLE data that ends before the last row");
+    if (in[pos] == 0x80) {
+      if (n - pos < 2) return fail("Sun raster RLE data that ends before the last row");
+      count = in[pos + 1];
+      if (count == 0) {
+        count = 1, value = 0x80, pos += 2;
+      } else {
+        if (n - pos < 3) return fail("Sun raster RLE data that ends before the last row");
+        count += 1, value = in[pos + 2];
+        if (x + count > row_bytes) extra = count - (row_bytes - x), count = row_bytes - x;
+        pos += 3;
+      }
+    } else {
+      count = 1, value = in[pos], pos += 1;
+    }
+    std::memset(out + y * row_bytes + x, value, count);
+    for (;;) {
+      x += count;
+      if (x >= row_bytes) {
+        x = 0;
+        if (++y >= rows) return 0;
+      }
+      if (extra == 0) break;
+      count = std::min(extra, row_bytes);
+      std::memset(out + y * row_bytes, value, count);
+      extra -= count;
+    }
+  }
+}
+
+int gs_msp_decode(const uint8_t* in, long long n, long long ysize, long long blank, uint8_t* out, long long cap,
+                  long long* produced) {
+  long long at = 0;
+  auto put = [&](const uint8_t* src, long long count, bool repeat) {
+    for (long long k = 0; k < count; ++k, ++at)
+      if (at < cap) out[at] = repeat ? *src : src[k];
+  };
+  if (n < 32 + 2 * ysize) return fail("an MSP row map cut short (PIL: Truncated MSP file in row map)");
+  long long pos = 32 + 2 * ysize;
+  const uint8_t white = 0xFF;
+  for (long long y = 0; y < ysize; ++y) {
+    const long long rowlen = in[32 + 2 * y] | in[33 + 2 * y] << 8;
+    if (rowlen == 0) {
+      put(&white, blank, true);
+      continue;
+    }
+    if (n - pos < rowlen)
+      return fail("MSP row " + std::to_string(y) + " cut short (PIL: Truncated MSP file)");
+    const uint8_t* row = in + pos;
+    pos += rowlen;
+    long long i = 0;
+    while (i < rowlen) {
+      const int kind = row[i++];
+      if (kind == 0) {
+        if (rowlen - i < 2) return fail("an MSP run cut short in row " + std::to_string(y) +
+                                        " (PIL: Corrupted MSP file)");
+        put(row + i + 1, row[i], true);
+        i += 2;
+      } else {
+        put(row + i, std::min<long long>(kind, rowlen - i), false);
+        i += kind;
+      }
+    }
+  }
+  *produced = at;
+  return 0;
+}
+
+static inline int hex_value(uint8_t c) {
+  if (c >= '0' && c <= '9') return c - '0';
+  if (c >= 'a' && c <= 'f') return c - 'a' + 10;
+  if (c >= 'A' && c <= 'F') return c - 'A' + 10;
+  return 0;
+}
+
+int gs_xbm_decode(const uint8_t* in, long long n, long long size, uint8_t* out) {
+  long long pos = 0;
+  for (long long i = 0; i < size; ++i) {
+    const void* hit = pos < n ? std::memchr(in + pos, 'x', n - pos) : nullptr;
+    if (!hit) return fail("XBM data that ends before the last row");
+    pos = static_cast<const uint8_t*>(hit) - in;
+    if (n - pos < 3) return fail("XBM data that ends before the last row");
+    out[i] = static_cast<uint8_t>(hex_value(in[pos + 1]) << 4 | hex_value(in[pos + 2]));
+    pos += 3;
+  }
+  return 0;
+}
+
+int gs_pcd_decode(const uint8_t* in, long long xsize, long long ysize, const int16_t* lum, const int16_t* cb,
+                  const int16_t* gb, const int16_t* cr, const int16_t* gr, uint8_t* out) {
+  auto clip = [](int v) { return static_cast<uint8_t>(v <= 0 ? 0 : v >= 255 ? 255 : v); };
+  for (long long y = 0; y < ysize; ++y) {
+    const uint8_t* block = in + (y / 2) * 3 * xsize;
+    const uint8_t* luma = block + (y % 2) * xsize;
+    uint8_t* o = out + y * xsize * 3;
+    for (long long x = 0; x < xsize; ++x, o += 3) {
+      const int l = lum[luma[x]], c1 = block[(x + 4 * xsize) / 2], c2 = block[(x + 5 * xsize) / 2];
+      o[0] = clip(l + cr[c2]);
+      o[1] = clip(l + gr[c2] + gb[c1]);
+      o[2] = clip(l + cb[c1]);
+    }
+  }
+  return 0;
+}
+
+int gs_im_bit_decode(const uint8_t* in, long long n, int bits, long long xsize, long long ysize, float* out) {
+  const unsigned long long mask = (1ull << bits) - 1;
+  unsigned long long buffer = 0;
+  long long count = 0, x = 0, y = ysize - 1;
+  for (long long k = 0; k < n; ++k) {
+    const uint8_t byte = in[k];
+    buffer |= static_cast<unsigned long long>(byte) << count;
+    count += 8;
+    while (count >= bits) {
+      const unsigned long long value = buffer & mask;
+      if (count > 32) {
+        buffer = byte >> (8 - (count - bits));
+      } else {
+        buffer >>= bits;
+      }
+      count -= bits;
+      out[y * xsize + x] = static_cast<float>(value);
+      if (++x >= xsize) {
+        if (--y < 0) return 0;
+        x = 0, count = 0;
+      }
+    }
+  }
+  return fail("IM image data that ends before the last row");
 }
 
 }  // extern "C"

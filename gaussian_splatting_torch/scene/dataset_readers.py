@@ -187,6 +187,9 @@ _NOT_THE_PICTURE = {
     "F": "a floating-point image (mode F), whose pixels PIL's np.asarray gives as 32-bit floats",
     "LAB": "a CIELab image (mode LAB), whose pixels PIL's np.asarray gives as L, a and b, which the path would "
            "take for R, G and B",
+    "YCbCr": "a YCbCr image (mode YCbCr), whose pixels PIL's np.asarray gives as Y, Cb and Cr, which the path "
+             "would take for R, G and B",
+    "I;16L": "a 16-bit grey image (mode I;16L), whose pixels PIL's np.asarray gives as 0..65535",
 }
 
 

@@ -1,8 +1,9 @@
-"""The compiled byte loops of the BMP, TIFF, GIF, TGA, QOI, PCX, SGI, PSD, FLI and ICNS readers
-(`csrc/image_codecs.cc`).
+"""The compiled byte loops of the BMP, TIFF, GIF, TGA, QOI, PCX, SGI, PSD, FLI, ICNS, SUN, MSP, XBM, PCD and IM
+readers (`csrc/image_codecs.cc`).
 
 LZW, PackBits and ThunderScan (TIFF), RLE8 / RLE4 (BMP), GIF's LZW, TGA's RLE, QOI's ops, PCX's and SGI's RLE,
-PIL's PackBits (PSD), PIL's FliDecode (FLI) and an icns band's runs run per code, packet or byte,
+PIL's PackBits (PSD), PIL's FliDecode (FLI), an icns band's runs, Sun raster's RLE, MSP's runs, XBM's hex text,
+PhotoCD's YCC rows and IM's bit-packed floats run per code, packet, byte or sample,
 so they are host C++, built by `cuda_build.build_host` at first use and
 loaded with ctypes. Nothing falls back to another implementation: if the
 library cannot be built, the read raises, naming the file.
@@ -48,6 +49,13 @@ def _library(name: str):
             getattr(lib, fn_name).argtypes, getattr(lib, fn_name).restype = argtypes, ctypes.c_int
         lib.gs_fli_decode.argtypes, lib.gs_fli_decode.restype = [ctypes.c_char_p, L, P, L, L, P], L
         lib.gs_icns_rle_decode.argtypes, lib.gs_icns_rle_decode.restype = [ctypes.c_char_p, L, L, L, P, P, P], L
+        more = {"gs_sun_rle_decode": [ctypes.c_char_p, L, L, L, L, P],
+                "gs_msp_decode": [ctypes.c_char_p, L, L, L, P, L, P],
+                "gs_xbm_decode": [ctypes.c_char_p, L, L, P],
+                "gs_pcd_decode": [ctypes.c_char_p, L, L, P, P, P, P, P, P],
+                "gs_im_bit_decode": [ctypes.c_char_p, L, ctypes.c_int, L, L, P]}
+        for fn_name, argtypes in more.items():
+            getattr(lib, fn_name).argtypes, getattr(lib, fn_name).restype = argtypes, ctypes.c_int
         lib.gs_codec_error.argtypes, lib.gs_codec_error.restype = [], ctypes.c_char_p
         lib._gs_typed = True
     return lib
@@ -202,3 +210,57 @@ def icns_rle_decode(data: bytes, start: int, n: int, name: str):
     left = lib.gs_icns_rle_decode(data, len(data), start, n, out.ctypes.data, ctypes.addressof(got),
                                   ctypes.addressof(end))
     return out[:got.value], left, end.value
+
+
+def sun_rle_decode(data: bytes, start: int, row_bytes: int, rows: int, name: str):
+    """(rows, row_bytes) uint8: the RLE rows of a Sun raster file `data`
+    from byte `start` as PIL's SunRleDecode reads them, or None where the
+    data ends before the last row."""
+    lib = _library(name)
+    out = np.zeros((rows, row_bytes), np.uint8)
+    if lib.gs_sun_rle_decode(data, len(data), start, row_bytes, rows, out.ctypes.data):
+        return None
+    return out
+
+
+def msp_decode(data: bytes, rows: int, need: int, width: int, name: str) -> bytes:
+    """The first `need` bytes (or all there are) of the stream PIL's
+    MspDecoder makes of a version 2 MSP file `data` of `rows` rows and
+    `width` pixels; raises a `ValueError` naming `name` where it raises."""
+    lib = _library(name)
+    out = np.zeros(need, np.uint8)
+    produced = ctypes.c_longlong(0)
+    if lib.gs_msp_decode(data, len(data), rows, (width + 7) // 8, out.ctypes.data, need,
+                         ctypes.addressof(produced)):
+        raise ValueError(f"{name}: {lib.gs_codec_error().decode()}")
+    return out[:min(produced.value, need)].tobytes()
+
+
+def xbm_decode(text: bytes, row_bytes: int, rows: int, name: str):
+    """(rows, row_bytes) uint8 of PIL's XbmDecode on the text after an
+    XBM header, or None where it ends before the last row."""
+    lib = _library(name)
+    out = np.zeros((rows, row_bytes), np.uint8)
+    if lib.gs_xbm_decode(text, len(text), out.size, out.ctypes.data):
+        return None
+    return out
+
+
+def pcd_decode(body: bytes, width: int, height: int, name: str) -> np.ndarray:
+    """(height, width, 3) uint8: PIL's PcdDecode and "YCC;P" unpacker on a
+    PhotoCD base image's bytes (every block there)."""
+    from gaussian_splatting_torch.utils import pcd
+
+    lib = _library(name)
+    out = np.empty((height, width, 3), np.uint8)
+    tables = [np.ascontiguousarray(t, np.int16) for t in (pcd.L, pcd.CB, pcd.GB, pcd.CR, pcd.GR)]
+    _run(name, "gs_pcd_decode", body, width, height, *(t.ctypes.data for t in tables), out.ctypes.data)
+    return out
+
+
+def im_bit_decode(data: bytes, bits: int, width: int, height: int, name: str) -> np.ndarray:
+    """(height, width) float32: PIL's Bit.c with an IM file's arguments on
+    `data`, which holds every row."""
+    out = np.zeros((height, width), np.float32)
+    _run(name, "gs_im_bit_decode", data, len(data), bits, width, height, out.ctypes.data)
+    return out

@@ -27,8 +27,17 @@ its own:
   `utils/eps.py` (PIL's parse, then Ghostscript where `gs` runs, as PIL
   does), a FITS to `utils/fits.py`, an FLI / FLC to `utils/fli.py`
   (frame 0), an FTEX to `utils/ftex.py`, a GIMP brush to `utils/gbr.py`
-  and an icns to `utils/icns.py`; BUFR, GRIB and HDF5, which PIL opens as
-  stubs it cannot load, raise naming the format. The pixels are those of
+  and an icns to `utils/icns.py`; an IM file to `utils/im.py`, an IM
+  Tools file to `utils/imt.py`, an IPTC/NAA file to `utils/iptc.py` (its
+  image data opened again through these readers), a McIDAS area to
+  `utils/mcidas.py`, an MSP to `utils/msp.py`, a PhotoCD to
+  `utils/pcd.py`, a PIXAR raster to `utils/pixar.py`, a SPIDER image to
+  `utils/spider.py`, a Sun raster to `utils/sun.py`, an XBM to
+  `utils/xbm.py`, an XPM to `utils/xpm.py` and an XV thumbnail to
+  `utils/xvthumb.py` (IM, IMT, IPTC, PCD and SPIDER test no first bytes
+  in PIL: every file that reaches them goes through their rules); BUFR,
+  GRIB and HDF5, which PIL opens as stubs it cannot load, and MPEG and
+  WMF / EMF, whose load PIL cannot run, raise naming the format. The pixels are those of
   PIL's loaded image, which both dataset paths read. A reader that gives up as PIL's plugin does
   (`NotThisFormat`) passes the file to the next one, as PIL does; anything
   no reader takes raises a `ValueError` naming the file and the formats
@@ -66,8 +75,9 @@ from typing import Any, NamedTuple, Optional
 
 import numpy as np
 
-from gaussian_splatting_torch.utils import (avif, blp, bmp, dds, eps, fits, fli, ftex, gbr, gif, icns, ico, jp2, jpeg,
-                                            lab, pcx, ppm, psd, qoi, sgi, tga, tiff, webp)
+from gaussian_splatting_torch.utils import (avif, blp, bmp, dds, eps, fits, fli, ftex, gbr, gif, icns, ico, im, imt,
+                                            iptc, jp2, jpeg, lab, mcidas, mpeg, msp, pcd, pcx, pixar, ppm, psd, qoi,
+                                            sgi, spider, sun, tga, tiff, webp, wmf, xbm, xpm, xvthumb, ycbcr)
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # 8-bit channels -> PNG colour type (0 grey, 4 grey + alpha, 2 RGB, 6 RGBA),
@@ -94,9 +104,10 @@ class Picture(NamedTuple):
     pixels: (H, W, C) as `np.asarray(Image.open(f))` gives them, with a
       channel axis kept for one channel: uint8 for "L", "LA", "RGB",
       "RGBA", "CMYK" (PIL's inverted CMYK JPEG samples, a TIFF's as
-      stored) and "P" (palette indices), bool for "1", uint16 for "I;16"
-      (little endian) and "I;16B" (big endian, as PIL's array), int32 for
-      "I" and float32 for "F" (little endian).
+      stored), "YCbCr" (Y, Cb, Cr), "P" and "PA" (palette indices), bool
+      for "1", uint16 for "I;16" and "I;16L" (little endian) and "I;16B"
+      (big endian, as PIL's array), int32 for "I" and float32 for "F"
+      (little endian).
     mode: PIL's mode.
     palette: mode "P": (N, 3) uint8, the palette's entries (PNG's PLTE,
       a BMP's colour table, a TIFF's ColorMap, a GIF's palette, a TGA's
@@ -131,7 +142,8 @@ BMP_SIGNATURE = b"BM"
 
 
 FORMATS = ("PNG, JPEG, BMP, DIB, TIFF, WebP, GIF, PPM / PGM / PBM / PFM, TGA, JPEG 2000, QOI, PCX / DCX, SGI, "
-           "ICO / CUR, PSD, DDS, AVIF, BLP, FITS, FLI / FLC, FTEX, GBR, ICNS or EPS")
+           "ICO / CUR, PSD, DDS, AVIF, BLP, FITS, FLI / FLC, FTEX, GBR, ICNS, EPS, IM, IM Tools, IPTC, McIDAS, MSP, "
+           "PhotoCD, PIXAR, SPIDER, Sun raster, XBM, XPM or XV thumbnail")
 
 
 class NotThisFormat(ValueError):
@@ -164,12 +176,35 @@ def _of_bytes(decode):
     return read
 
 
+def _sniffed(passes_on, n: int, decode):
+    """A reader PIL tries on every file that reaches it: the first `n`
+    bytes decide the files its `_open` passes on at once (`passes_on`),
+    without reading the rest."""
+    def read(path) -> Picture:
+        with open(path, "rb") as f:
+            why = passes_on(f.read(n))
+            if why:
+                raise NotThisFormat(f"{path}: {why} (PIL: passed on)")
+            f.seek(0)
+            return decode(f.read(), str(path))
+    return read
+
+
+def _always(head: bytes) -> bool:
+    """No first-bytes test: PIL registers no `_accept` for the format."""
+    return True
+
+
 # The readers in PIL's `Image.ID` order (the formats `Image.preinit` loads,
 # then `Image.init`'s, AVIF first of those), each with PIL's test of the
 # file's first bytes.
 # TGA has no signature: PIL tries it after every format before it, so a
 # TGA whose first bytes a CUR, PCX, DIB or ICO reader takes reads as
-# PIL reads it, through that reader first.
+# PIL reads it, through that reader first. IM, IMT, IPTC, PCD and SPIDER
+# have none either: every file that reaches them goes through their
+# `_open`, which passes it on or reads it, as in PIL. PIL tests the first
+# 16 bytes (XBM's test, which strips blanks first, is the one that sees
+# the difference).
 READERS = (
     ("BMP", lambda head: head.startswith(BMP_SIGNATURE), bmp.open_bmp),
     ("DIB", bmp.dib_accepts, _of_bytes(bmp.decode_dib)),
@@ -194,20 +229,35 @@ READERS = (
     ("JPEG2000", lambda head: head.startswith(jp2.SIGNATURES), jp2.open_jp2),  # Jpeg2KImagePlugin._accept
     ("ICNS", lambda head: head.startswith(icns.SIGNATURE), _of_bytes(icns.decode_icns)),
     ("ICO", lambda head: head.startswith(ico.ICO_SIGNATURE), _of_bytes(ico.decode_ico)),
+    ("IM", _always, _sniffed(im.passes_on, 100, im.decode_im)),
+    ("IMT", _always, _sniffed(imt.passes_on, 100, imt.decode_imt)),
+    ("IPTC", _always, _sniffed(iptc.passes_on, 5, iptc.decode_iptc)),
+    ("MCIDAS", mcidas.accepts, _of_bytes(mcidas.decode_mcidas)),
+    ("MPEG", mpeg.accepts, _of_bytes(mpeg.decode_mpeg)),
     ("TIFF", lambda head: head.startswith(tiff.SIGNATURES), tiff.open_tiff),
+    ("MSP", msp.accepts, _of_bytes(msp.decode_msp)),
+    ("PCD", _always, _sniffed(pcd.passes_on, 2048 + 1539, pcd.decode_pcd)),
+    ("PIXAR", pixar.accepts, _of_bytes(pixar.decode_pixar)),
     ("PSD", lambda head: head.startswith(psd.SIGNATURE), _of_bytes(psd.decode_psd)),
     ("QOI", lambda head: head.startswith(qoi.SIGNATURE), _of_bytes(qoi.decode_qoi)),
     ("SGI", lambda head: head.startswith(sgi.SIGNATURE), _of_bytes(sgi.decode_sgi)),
+    ("SPIDER", _always, _sniffed(spider.passes_on, 108, spider.decode_spider)),
+    ("SUN", sun.accepts, _of_bytes(sun.decode_sun)),
     ("TGA", tga.looks_like_tga, tga.open_tga),
     ("WEBP", lambda head: head.startswith(b"RIFF") and head[8:12] == b"WEBP", webp.open_webp),
+    ("WMF", wmf.accepts, _of_bytes(wmf.decode_wmf)),
+    ("XBM", xbm.accepts, _of_bytes(xbm.decode_xbm)),
+    ("XPM", xpm.accepts, _of_bytes(xpm.decode_xpm)),
+    ("XVTHUMB", xvthumb.accepts, _of_bytes(xvthumb.decode_xvthumb)),
 )
 
 
 def open_image(path) -> Picture:
     """The `Picture` of a PNG, JPEG, BMP, DIB, TIFF, WebP, GIF, PPM / PGM /
     PBM / PFM, TGA, JPEG 2000, QOI, PCX / DCX, SGI, ICO / CUR, PSD, DDS,
-    AVIF, BLP, FITS, FLI / FLC, FTEX, GBR, ICNS or EPS file, PIL's pixels
-    and mode (of the loaded image). The readers are tried in PIL's order (`READERS`)
+    AVIF, BLP, FITS, FLI / FLC, FTEX, GBR, ICNS, EPS, IM, IM Tools, IPTC,
+    McIDAS, MSP, PhotoCD, PIXAR, SPIDER, Sun raster, XBM, XPM or XV
+    thumbnail file, PIL's pixels and mode (of the loaded image). The readers are tried in PIL's order (`READERS`)
     on the file's first bytes; one that gives up as PIL's plugin gives up
     (`NotThisFormat`) passes the file to the next, any other refusal
     raises. JPEG (mode "L", "RGB" or "CMYK", and the strips and tiles of a
@@ -231,8 +281,16 @@ def open_image(path) -> Picture:
     "P" (frame 0 by the compiled FLI decoder); FTEX "RGB" / "RGBA"; GBR
     "L" / "RGBA"; ICNS "RGB" / "RGBA" or a PNG entry's mode (its runs by
     the compiled codecs); EPS the mode of the PNM Ghostscript draws, where
-    `gs` runs (else it raises, as PIL does). BUFR, GRIB and HDF5, which PIL
-    opens as stubs and cannot load, raise naming the format."""
+    `gs` runs (else it raises, as PIL does); IM "1", "L", "P", "PA", "LA",
+    "RGB", "RGBA", "CMYK", "YCbCr", "I", "I;16", "I;16L", "I;16B", "F"
+    (its bit-packed floats by the compiled codecs); IM Tools "L"; IPTC
+    "L", or "RGB" / "CMYK" of one band; McIDAS "L", "I;16B", "I"; MSP and
+    XBM "1" (MSP's runs and XBM's hex text by the compiled codecs);
+    PhotoCD "RGB" (its YCC rows by the compiled codecs); PIXAR "RGB";
+    SPIDER "F"; Sun raster "1", "L", "P", "RGB" (its RLE by the compiled
+    codecs); XPM "P" or "RGB"; XV thumbnails "P". BUFR, GRIB and HDF5,
+    which PIL opens as stubs and cannot load, and MPEG and WMF / EMF,
+    whose load raises in PIL, raise naming the format."""
     with open(path, "rb") as f:
         head = f.read(tga.HEADER)
     passed = []
@@ -561,7 +619,9 @@ def to_rgba(picture: Picture) -> np.ndarray:
     0 at or below 0 (and NaN), 255 at or above 255, else truncated, as
     PIL's float-to-byte conversion; "LAB" is LittleCMS's Lab (D50) to sRGB
     transform as PIL runs it (`utils/lab.py`), its alpha 255 or the
-    transparency's. Any other mode raises, naming it."""
+    transparency's; "YCbCr" is PIL's fixed-point YCbCr -> RGB
+    (`utils/ycbcr.py`), alpha 255; "I;16L" is clipped as "I;16". Any other
+    mode raises, naming it."""
     px, mode, t = picture.pixels, picture.mode, picture.transparency
     if mode == "RGBA":
         return px.copy()
@@ -590,10 +650,15 @@ def to_rgba(picture: Picture) -> np.ndarray:
         elif t is not None:
             table[:len(t), 3] = np.frombuffer(t[:256], np.uint8)
         return table[px[..., 0]]
+    if mode == "YCbCr":  # PIL's ConvertYCbCr.c
+        return np.concatenate([ycbcr.ycbcr_to_rgb(px), np.full(px.shape[:2] + (1,), 255, np.uint8)], axis=2)
+    if mode == "RGB" and isinstance(t, bytes):  # an XPM colour of None read as "RGB": PIL's convert fails on its key
+        raise ValueError("to_rgba: an RGB image whose transparency is a pixel key (PIL: TypeError, 'bytes' "
+                         "object cannot be interpreted as an integer)")
     if mode == "RGB":
         t = (t, t, t) if isinstance(t, int) else t  # a grey tRNS read after the image data: every channel's key
         rgb, key = px, None if t is None else np.array([v & 0xFF for v in t], np.uint8)
-    elif mode in ("1", "L", "I;16", "I;16B", "I", "F"):
+    elif mode in ("1", "L", "I;16", "I;16L", "I;16B", "I", "F"):
         if mode == "1":
             grey = np.where(px, 255, 0).astype(np.uint8)
         elif mode.startswith("I"):

@@ -28,8 +28,10 @@ reader of the files PIL 12's PpmImagePlugin reads, returning an
 
 Everything else raises a `ValueError` naming the file: data that ends
 early (PIL: image file is truncated, or not enough image data), a bad
-header, a size over PIL's decompression-bomb limit, and the magics PIL 12
-does not read: PF (colour PFM) and P7 (PAM).
+header, a size over PIL's decompression-bomb limit. The magics PIL's PPM
+plugin does not take, PF (colour PFM) and P7 (PAM), raise
+`image_io.NotThisFormat` with that reason: the file goes on to the later
+readers, as in PIL (a `P7 332` file is an XV thumbnail).
 """
 
 from __future__ import annotations
@@ -128,11 +130,11 @@ def _number(cast, token: bytes, name, what: str):
 def decode_ppm(data: bytes, name: str = "<bytes>"):
     """The `image_io.Picture` of PPM / PGM / PBM / PFM bytes: PIL's pixels
     (with a channel axis) and mode."""
-    from gaussian_splatting_torch.utils.image_io import Picture
+    from gaussian_splatting_torch.utils.image_io import NotThisFormat, Picture
 
     why = refused_magic(data)
-    if why:
-        _refuse(name, why)
+    if why:  # PIL's PPM plugin does not take these magics: the file goes on through the order (P7 332: XV)
+        raise NotThisFormat(f"{name}: {why}; {SUPPORTED}")
     if not accepts(data[:2]):
         _refuse(name, "not a PPM, PGM, PBM or PFM file")
     r = _Reader(data)

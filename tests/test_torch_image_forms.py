@@ -31,7 +31,7 @@ from gaussian_splatting_tpu.scene import colmap as jcolmap
 from gaussian_splatting_tpu.scene import dataset_readers as jreaders
 from gaussian_splatting_torch.scene import dataset_readers
 from gaussian_splatting_torch.utils import bmp, cuda_build, image_io, tiff
-from test_torch_jpeg import MSP_4X4, encode_jpeg, fake_cxx, have_cxx  # noqa: F401  (fake_cxx: a fixture)
+from test_torch_jpeg import MSP_4X4, NO_FORMAT, encode_jpeg, fake_cxx, have_cxx  # noqa: F401  (fake_cxx: a fixture)
 from test_torch_scene import assert_same_cameras, orbit, orbit_frames
 from torch_image_writers import bmp_bytes, lzw_encode, padded_rows, rle_encode, tiff_bytes
 
@@ -553,13 +553,13 @@ def test_tiff_refusals_name_the_file_and_the_feature(tmp_path, cxx, case):
 
 
 def test_to_rgba_refuses_a_mode_it_does_not_convert():
-    with pytest.raises(ValueError, match="mode 'YCbCr'"):
-        image_io.to_rgba(image_io.Picture(np.zeros((2, 2, 3), np.uint8), "YCbCr"))
+    with pytest.raises(ValueError, match="mode 'HSV'"):  # "YCbCr" converts since the IM reader brings it
+        image_io.to_rgba(image_io.Picture(np.zeros((2, 2, 3), np.uint8), "HSV"))
 
 
 def test_open_image_sniffs_each_format(tmp_path, cxx):
-    """The BMP, TIFF and PPM signatures, each file named .img; a form PIL
-    reads and the port does not (MacPaint, MSP) refused, naming the
+    """The BMP, TIFF and PPM signatures, each file named .img; PIL's MSP
+    read as PIL reads it, and a file of no format refused, naming the
     formats the port reads."""
     a = smooth(9, 11, 3, 0)
     buf = io.BytesIO()
@@ -568,9 +568,11 @@ def test_open_image_sniffs_each_format(tmp_path, cxx):
     assert got.mode == "RGB"
     for order in "<>":
         assert_like_pil(tmp_path, tiff_bytes(a, 8, 2, order=order), f"tiff{order}")
-    assert_refused(tmp_path, MSP_4X4, "not a PNG, JPEG, BMP, DIB, TIFF, WebP, GIF, PPM / PGM / PBM / PFM, TGA, "
-                                      "JPEG 2000, QOI, PCX / DCX, SGI, ICO / CUR, PSD, DDS, AVIF, BLP, FITS, FLI / FLC, "
-                                      "FTEX, GBR, ICNS or EPS file")
+    assert assert_like_pil(tmp_path, MSP_4X4, "msp").mode == "1"  # PIL's MSP: the port reads it too
+    assert_refused(tmp_path, NO_FORMAT, "not a PNG, JPEG, BMP, DIB, TIFF, WebP, GIF, PPM / PGM / PBM / PFM, "
+                                        "TGA, JPEG 2000, QOI, PCX / DCX, SGI, ICO / CUR, PSD, DDS, AVIF, BLP, FITS, "
+                                        "FLI / FLC, FTEX, GBR, ICNS, EPS, IM, IM Tools, IPTC, McIDAS, MSP, PhotoCD, "
+                                        "PIXAR, SPIDER, Sun raster, XBM, XPM or XV thumbnail file")
     got = assert_like_pil(tmp_path, b"P6\n4 4\n255\n" + bytes(48), "ppm")
     assert got.mode == "RGB" and got.pixels.shape == (4, 4, 3)
 

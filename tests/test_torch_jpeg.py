@@ -813,10 +813,11 @@ def test_fixture_pixels_are_pils(decode, name):
 
 # ---- read_image ----
 
-# a 4x4 MacPaint (MSP) image, mode "1", all white, as PIL writes it: its 32-byte header, then each
-# row's bytes; PIL reads it, the port does not
+# a 4x4 Windows Paint (MSP) image, mode "1", all white, as PIL writes it: its 32-byte header, then
+# each row's bytes; PIL and the port read it
 MSP_4X4 = (b"DanM\x04\x00\x04\x00\x01\x00\x01\x00\x01\x00\x01\x00\x04\x00\x04\x00\x00\x00\x00\x00*,"
            + bytes(6) + b"\xf0" * 4)
+NO_FORMAT = b"JUNK" + bytes(60)  # no reader of the port (nor a plugin of PIL) takes it
 
 
 def test_read_image_dispatches_on_the_signature(tmp_path, compiled, monkeypatch):
@@ -825,7 +826,7 @@ def test_read_image_dispatches_on_the_signature(tmp_path, compiled, monkeypatch)
     image_io.write_png(png, a)
     jpg.write_bytes(pil_jpeg(a, quality=90))
     junk_bmp.write_bytes(b"BM" + bytes(64))
-    other.write_bytes(MSP_4X4)  # PIL reads it, the port does not
+    other.write_bytes(NO_FORMAT)  # no reader takes it
 
     def no_plain(*args):
         raise AssertionError("read_image reached the plain decoder")
@@ -838,7 +839,8 @@ def test_read_image_dispatches_on_the_signature(tmp_path, compiled, monkeypatch)
     assert str(junk_bmp) in str(err.value)
     with pytest.raises(ValueError, match="not a PNG, JPEG, BMP, DIB, TIFF, WebP, GIF, PPM / PGM / PBM / PFM, TGA, "
                                          "JPEG 2000, QOI, PCX / DCX, SGI, ICO / CUR, PSD, DDS, AVIF, BLP, FITS, "
-                                         "FLI / FLC, FTEX, GBR, ICNS or EPS file") as err:
+                                         "FLI / FLC, FTEX, GBR, ICNS, EPS, IM, IM Tools, IPTC, McIDAS, MSP, PhotoCD, "
+                                         "PIXAR, SPIDER, Sun raster, XBM, XPM or XV thumbnail file") as err:
         image_io.read_image(other)
     assert str(other) in str(err.value)
     with pytest.raises(ValueError, match="JPEG"):

@@ -426,7 +426,9 @@ def pils_order() -> list:
 def test_the_readers_follow_pils_order():
     """`image_io.READERS` is PIL 12.1.0's `Image.ID` order of the formats the
     port reads (from a fresh interpreter, so whichever test ran before in
-    this process), and each reader's test of the first bytes is PIL's."""
+    this process), and each reader's test of the first bytes is PIL's; a
+    format PIL registers without one (`Image.OPEN[name][1]` None: IM, IMT,
+    IPTC, PCD, SPIDER) is tried on every file, as the port's is."""
     Image.init()
     ported = [name for name, _, _ in image_io.READERS]
     assert ported == [f for f in pils_order() if f in ported]
@@ -435,14 +437,22 @@ def test_the_readers_follow_pils_order():
              "SGI": b"\x01\xda", "DDS": b"DDS ", "BLP": b"BLP2", "BUFR": b"ZCZC", "EPS": b"%!PS-Adobe",
              "FITS": b"SIMPLE  =", "FLI": bytes(4) + b"\x12\xaf" + bytes(10), "FTEX": b"FTEX",
              "GBR": (28).to_bytes(4, "big") + (2).to_bytes(4, "big"), "GRIB": b"GRIB\0\0\0\1",
-             "HDF5": b"\x89HDF\r\n\x1a\n", "ICNS": b"icns"}
+             "HDF5": b"\x89HDF\r\n\x1a\n", "ICNS": b"icns", "MCIDAS": bytes(7) + b"\4", "MPEG": b"\0\0\1\xb3",
+             "MSP": b"LinS", "PIXAR": b"\x80\xe8\0\0", "SUN": b"\x59\xa6\x6a\x95", "WMF": b"\xd7\xcd\xc6\x9a\0\0",
+             "XBM": b" #define", "XPM": b"/* XPM */", "XVTHUMB": b"P7 332", "IM": b"Image type:", "IMT": b"width",
+             "IPTC": b"\x1c\x02\0", "PCD": bytes(16), "SPIDER": bytes(16)}
+    always = {"IM", "IMT", "IPTC", "PCD", "SPIDER"}
+    # TGA registers none either: the port's test of its first bytes is its `_open`'s checks of the header
+    assert always | {"TGA"} == {name for name, _, _ in image_io.READERS if Image.OPEN[name][1] is None}
+    xbm_blanks = b" " * 10 + b"#define"  # past the 16 bytes PIL tests
     for name, accepts, _ in image_io.READERS:
+        pil_accepts = Image.OPEN[name][1] or (lambda prefix: True)
         if name in heads:
             head = heads[name].ljust(18, b"\x01")
-            assert accepts(head) and Image.OPEN[name][1](head[:16]), name
-            for other, h in heads.items():
+            assert accepts(head) and pil_accepts(head[:16]), name
+            for other, h in [*heads.items(), ("XBM past 16 bytes", xbm_blanks)]:
                 if other != name:
-                    assert bool(accepts(h.ljust(18, b"\x01"))) == bool(Image.OPEN[name][1](h.ljust(16, b"\x01"))), \
+                    assert bool(accepts(h.ljust(18, b"\x01"))) == bool(pil_accepts(h.ljust(18, b"\x01")[:16])), \
                         (name, other)
 
 

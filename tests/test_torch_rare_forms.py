@@ -666,16 +666,17 @@ def earlier_fixtures(folder):
     return out
 
 
-EARLIER = sorted(f for f in os.listdir(ROOT_FIXTURES)
-                 if f.startswith("torch_") and f != "torch_rare_forms" and earlier_fixtures(f))
+EARLIER = sorted(f for f in os.listdir(ROOT_FIXTURES) if f.startswith("torch_") and earlier_fixtures(f))
 
 
 @pytest.mark.parametrize("folder", EARLIER)
 def test_earlier_fixtures_read_as_before_through_the_longer_order(cxx, folder):
     """GBR's and FLI's loose first-bytes tests, FITS's, EPS's and the
-    stubs' sit before TIFF, ICO and TGA now: every small committed fixture
-    of the earlier forms still reads as PIL's committed reading of it
-    (its sha256.json, or the .npz beside it) says."""
+    stubs' sit before TIFF, ICO and TGA, and IM, IMT, IPTC, PCD and
+    SPIDER, which test no first bytes, before TIFF, PSD, QOI, SGI, TGA and
+    WebP: every small committed fixture of the earlier forms (this file's
+    own included) still reads as PIL's committed reading of it (its
+    sha256.json, or the .npz beside it) says."""
     for name, want, npz in earlier_fixtures(folder):
         path = os.path.join(ROOT_FIXTURES, folder, name)
         if npz is None:

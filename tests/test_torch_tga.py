@@ -182,9 +182,10 @@ def test_no_other_format_is_taken_for_a_tga(tmp_path, cxx):
     """TGA has no signature and PIL tries it after its other formats: no
     file of a format the port reads passes TGA's header checks, nor do the
     files PIL writes in the other formats. Those the port reads (ICO, PCX,
-    SGI, QOI, DIB, DDS, BLP, ICNS) read as PIL reads them; EPS raises
-    naming Ghostscript where there is none, as PIL does; the others each
-    raise, naming the formats the port reads."""
+    SGI, QOI, DIB, DDS, BLP, ICNS, IM, XBM, MSP, SPIDER: every format PIL
+    writes) read as PIL reads them; EPS raises naming Ghostscript where
+    there is none, as PIL does; a file of no format raises, naming the
+    formats the port reads."""
     from test_torch_image_forms import FIXTURES
 
     folders = [FIXTURES, os.path.join(os.path.dirname(FIXTURES), "torch_webp"),
@@ -192,7 +193,7 @@ def test_no_other_format_is_taken_for_a_tga(tmp_path, cxx):
     heads = [open(os.path.join(d, f), "rb").read(18) for d in folders
              for f in os.listdir(d) if not f.endswith((".npz", ".py", ".json"))]
     a = np.random.default_rng(7).integers(0, 256, (20, 24, 3)).astype(np.uint8)
-    read = ("ICO", "PCX", "SGI", "QOI", "DIB", "DDS", "BLP", "ICNS")
+    read = ("ICO", "PCX", "SGI", "QOI", "DIB", "DDS", "BLP", "ICNS", "IM", "XBM", "MSP", "SPIDER")
     for fmt in ("PNG", "JPEG", "PPM", "ICO", "PCX", "SGI", "IM", "DDS", "QOI", "BLP", "DIB", "ICNS", "EPS", "XBM",
                 "MSP", "SPIDER"):
         im = Image.fromarray(a).convert({"XBM": "1", "MSP": "1", "BLP": "P", "SPIDER": "F", "ICNS": "RGBA"}
@@ -207,13 +208,15 @@ def test_no_other_format_is_taken_for_a_tga(tmp_path, cxx):
             path.write_bytes(buf.getvalue())
             with pytest.raises(ValueError, match="Ghostscript"):
                 image_io.open_image(path)
-        elif fmt not in ("PNG", "JPEG", "PPM", "EPS"):
-            path = tmp_path / f"other.{fmt.lower()}"
-            path.write_bytes(buf.getvalue())
-            with pytest.raises(ValueError, match="not a PNG, JPEG, BMP, DIB, TIFF, WebP, GIF, PPM / PGM / PBM / PFM, "
-                                                 "TGA, JPEG 2000, QOI, PCX / DCX, SGI, ICO / CUR, PSD, DDS, AVIF, BLP, "
-                                                 "FITS, FLI / FLC, FTEX, GBR, ICNS or EPS file"):
-                image_io.open_image(path)
+        else:
+            assert fmt in ("PNG", "JPEG", "PPM", "EPS"), fmt
+    path = tmp_path / "other.img"
+    path.write_bytes(b"JUNK" + bytes(60))
+    with pytest.raises(ValueError, match="not a PNG, JPEG, BMP, DIB, TIFF, WebP, GIF, PPM / PGM / PBM / PFM, "
+                                         "TGA, JPEG 2000, QOI, PCX / DCX, SGI, ICO / CUR, PSD, DDS, AVIF, BLP, "
+                                         "FITS, FLI / FLC, FTEX, GBR, ICNS, EPS, IM, IM Tools, IPTC, McIDAS, MSP, "
+                                         "PhotoCD, PIXAR, SPIDER, Sun raster, XBM, XPM or XV thumbnail file"):
+        image_io.open_image(path)
     assert len(heads) > 30
     assert not any(tga.looks_like_tga(h) for h in heads)
 

@@ -1,12 +1,14 @@
 """Writers of the BMP, TIFF, GIF, WebP, PPM, TGA, DIB, QOI, PCX / DCX, SGI,
-ICO / CUR, PSD, DDS, BLP, FTEX, GBR, FITS, FLI / FLC, ICNS and EPS forms
-PIL reads but does not write (or writes only some of), for the tests of
+ICO / CUR, PSD, DDS, BLP, FTEX, GBR, FITS, FLI / FLC, ICNS, EPS, IM, IM
+Tools, McIDAS, PIXAR, SPIDER, Sun raster, MSP, XBM, XPM, XV thumbnail,
+PhotoCD, IPTC, MPEG and WMF / EMF forms PIL reads but does not write (or
+writes only some of), for the tests of
 `utils/bmp.py`, `utils/tiff.py`, `utils/gif.py`, `utils/webp.py`,
 `utils/ppm.py`, `utils/tga.py`, `utils/qoi.py`, `utils/pcx.py`,
 `utils/sgi.py`, `utils/ico.py`, `utils/psd.py`, `utils/dds.py` and the
 readers of the forms after them, for the fixtures' `make_fixtures.py`
-scripts and for chip_smoke.py's phases 5h, 5i, 5n and 5o, which run where
-there is no PIL.
+scripts and for chip_smoke.py's phases 5h, 5i, 5n, 5o and 5p, which run
+where there is no PIL.
 Imports neither JAX nor the port: each file is built from the formats'
 specifications, and PIL's read of it is the rule the port is held to.
 
@@ -86,6 +88,14 @@ specifications, and PIL's read of it is the rule the port is held to.
   chunk writers `fli_palette`, `fli_brun`, `fli_lc`, `fli_ss2`; `icns_bytes`
   / `icns_rgb` / `icns_rle`: icns blocks, Apple's RLE bands; `eps_bytes`:
   EPS text or a DOS EPS binary header.
+- `pack_raw`: rows in PIL's raw modes; `im_bytes` / `im_bits`: IM files as
+  PIL writes them, any image type, LUT and header lines, and "L*n"
+  bit-packed floats; `imt_bytes`, `mcidas_bytes`, `pixar_bytes`,
+  `spider_bytes` (PIL's header, stacks, either byte order), `sun_bytes` /
+  `sun_rle`, `msp_bytes` / `msp_rle_row` (version 1 as PIL writes it, 2),
+  `xbm_bytes` (as PIL writes it), `xpm_bytes` / `xpm_keys`, `xv_bytes`,
+  `pcd_bytes` / `pcd_ycc`, `iptc_bytes` / `iptc_field`, `mpeg_bytes`,
+  `wmf_bytes` and `emf_bytes`: the forms of PIL's other plugins.
 `rle_chunks` is the vectorised run finder the RLE writers share.
 """
 
@@ -2277,3 +2287,368 @@ def eps_bytes(bbox=(0, 0, 64, 48), lines=(), adobe: bytes = b"%!PS-Adobe-3.0 EPS
     if not dos:
         return text
     return struct.pack("<IIIIIIIH", 0xC6D3D0C5, 30, len(text), 0, 0, 0, 0, 0xFFFF) + text
+
+
+# ---- IM, IMT, IPTC, McIDAS, MPEG, MSP, PCD, PIXAR, SPIDER, SUN, WMF, XBM, XPM, XV ----
+
+def pack_raw(px: np.ndarray, rawmode: str, bottom_up: bool = False) -> bytes:
+    """The rows of `px` ((H, W, C) or (H, W)) as PIL's unpacker `rawmode`
+    reads them: "1" (True a set bit, MSB first), "P;2" / "P;4" (MSB
+    first), "L" / "P", interleaved "RGB" / "BGR" / "RGBX" / "BGRX" (X
+    255), line-interleaved "<bands>;L", "I;16" / "I;16B" / "I;32S" /
+    "I;32B", "F;8" ... "F;32BF"; the last row first with `bottom_up`."""
+    px = np.asarray(px)
+    if px.ndim == 2:
+        px = px[..., None]
+    px = px[::-1] if bottom_up else px
+    h, w, c = px.shape
+    if rawmode in ("1", "P;2", "P;4"):
+        bits = {"1": 1, "P;2": 2, "P;4": 4}[rawmode]
+        per = 8 // bits
+        v = px[..., 0].astype(np.uint8)
+        v = np.pad(v, ((0, 0), (0, -w % per)))
+        shifts = np.arange(8 - bits, -1, -bits, dtype=np.uint8)
+        return (v.reshape(h, -1, per) << shifts).sum(-1).astype(np.uint8).tobytes()
+    if rawmode in ("L", "P", "RGB"):
+        return np.ascontiguousarray(px, np.uint8).tobytes()
+    if rawmode in ("BGR", "RGBX", "BGRX"):
+        rgb = px[..., ::-1] if rawmode.startswith("B") else px
+        if rawmode.endswith("X"):
+            rgb = np.concatenate([rgb, np.full((h, w, 1), 255, np.uint8)], -1)
+        return np.ascontiguousarray(rgb, np.uint8).tobytes()
+    if rawmode.endswith(";L"):
+        if rawmode == "RGBX;L":
+            px = np.concatenate([px, np.full((h, w, 1), 255, np.uint8)], -1)
+        return np.ascontiguousarray(px.transpose(0, 2, 1), np.uint8).tobytes()
+    kind = {"I;16": "<u2", "I;16L": "<u2", "I;16B": ">u2", "I;32": "<i4", "I;32S": "<i4", "I;32B": ">i4",
+            "F;8": "u1", "F;8S": "i1", "F;16": "<u2", "F;16S": "<i2", "F;32": "<u4", "F;32F": "<f4",
+            "F;32BF": ">f4"}[rawmode]
+    return np.ascontiguousarray(px[..., 0]).astype(kind).tobytes()
+
+
+def im_bytes(image_type: str, width: int, height: int, body: bytes, lut=None, lines=(), frames=1,
+             pad: bool = True) -> bytes:
+    """An IFUNC Image Memory (IM) file as PIL writes one: "Image type:
+    <image_type>", "Image size (x*y)", "File size (no of images)", any
+    further `lines` ("Key: value"), "Lut: 1" with a `lut` ((256, 3) uint8,
+    written as its red, green and blue runs), NULs to byte 511 (or none),
+    0x1A, the LUT, then `body` (bottom-up rows: `pack_raw(...,
+    bottom_up=True)`)."""
+    head = [f"Image type: {image_type}", f"Image size (x*y): {width}*{height}", f"File size (no of images): {frames}",
+            *lines] + (["Lut: 1"] if lut is not None else [])
+    text = "".join(line + "\r\n" for line in head).encode("latin-1")
+    text = text + b"\0" * (511 - len(text)) if pad else text
+    tail = b"" if lut is None else np.ascontiguousarray(np.asarray(lut, np.uint8).T).tobytes()
+    return text + b"\x1a" + tail + body
+
+
+def im_bits(px: np.ndarray, bits: int) -> bytes:
+    """IM "L*<bits>" samples as PIL's bit decoder reads them: each row
+    bottom-up, its samples' bits packed least significant first, the row
+    padded to a byte with zeros."""
+    px = np.asarray(px, np.int64)[::-1]
+    out = bytearray()
+    for row in px:
+        acc, n = 0, 0
+        for v in row:
+            acc |= (int(v) & ((1 << bits) - 1)) << n
+            n += bits
+        out += acc.to_bytes((n + 7) // 8, "little")
+    return bytes(out)
+
+
+def imt_bytes(px: np.ndarray, lines=None) -> bytes:
+    """An IM Tools file: `width`, `height` and `pixel n8` lines (or
+    `lines`), a form feed, then the (H, W) uint8 pixels raw."""
+    h, w = px.shape[:2]
+    lines = [b"width %d" % w, b"height %d" % h, b"pixel n8"] if lines is None else lines
+    return b"".join(line + b"\n" for line in lines) + b"\x0c" + np.ascontiguousarray(px, np.uint8).tobytes()
+
+
+def mcidas_bytes(px: np.ndarray, depth: int = 1, prefix: int = 0, offset: int = 256, words=None) -> bytes:
+    """A McIDAS area file: 64 big-endian words (word 2 = 4, the area
+    directory's version; 9 and 10 the height and width, 11 the bytes a
+    sample, 14 the bands (1), 15 the bytes before each row, 34 the data's
+    offset; `words` {number: value} overrides any), then from `offset`
+    each row: `prefix` zero bytes and the samples big-endian."""
+    h, w = px.shape[:2]
+    word = [0] * 65
+    word[2], word[9], word[10], word[11], word[14], word[15], word[34] = 4, h, w, depth, 1, prefix, offset
+    for k, v in (words or {}).items():
+        word[k] = v
+    head = struct.pack(">64i", *word[1:]).ljust(offset, b"\0")
+    kind = {1: "u1", 2: ">u2", 4: ">i4"}[depth]
+    rows = np.asarray(px).reshape(h, w).astype(kind).view(np.uint8).reshape(h, -1)
+    rows = np.concatenate([np.zeros((h, prefix), np.uint8), rows], 1)
+    return head + rows.tobytes()
+
+
+def pixar_bytes(px: np.ndarray, channels: int = 14, depth: int = 2) -> bytes:
+    """A PIXAR raster: the magic, a 1024-byte header (little-endian height
+    at byte 416, width at 418, channels and depth at 424 and 426), then the
+    (H, W, 3) uint8 pixels raw."""
+    h, w = px.shape[:2]
+    head = bytearray(1024)
+    head[:4] = b"\x80\xe8\x00\x00"
+    struct.pack_into("<6H", head, 416, h, w, 0, 0, channels, depth)
+    return bytes(head) + np.ascontiguousarray(px, np.uint8).tobytes()
+
+
+def spider_bytes(px: np.ndarray, big: bool = False, stack: int = 0, values=None) -> bytes:
+    """A SPIDER 2-D image as PIL writes one (its makeSpiderHeader: header
+    records of the row's length, at least 1024 bytes) of float32 `px`,
+    little- or big-endian; with `stack` images a stack header (istack 2,
+    `stack` images) whose first image follows its own header. `values`
+    {index: float} overrides header entries (PIL's numbering from 1)."""
+    h, w = px.shape[:2]
+    lenbyt = w * 4
+    labrec = -(-1024 // lenbyt)
+    labbyt = labrec * lenbyt
+    hdr = [0.0] * (labbyt // 4 + 1)
+    hdr[1], hdr[2], hdr[3], hdr[5], hdr[12], hdr[13], hdr[22], hdr[23] = 1, h, h, 1, w, labrec, labbyt, lenbyt
+    if stack:
+        hdr[24], hdr[26] = 2, stack
+    for k, v in (values or {}).items():
+        hdr[k] = v
+    order = ">" if big else "<"
+    head = struct.pack(f"{order}{len(hdr) - 1}f", *hdr[1:])
+    data = np.asarray(px, np.float32).astype(order + "f4").tobytes()
+    if stack:
+        image_hdr = list(hdr)
+        image_hdr[24], image_hdr[27] = 0, 1
+        data = struct.pack(f"{order}{len(hdr) - 1}f", *image_hdr[1:]) + data
+    return head + data
+
+
+def sun_rle(data: bytes) -> bytes:
+    """Sun raster RLE of a byte stream, in numpy: each run of 3 or more
+    equal bytes as 0x80, count - 1, byte triplets of up to 256, the last
+    2 or fewer left over as literals; a literal 0x80 as 0x80 0x00."""
+    a = np.frombuffer(data, np.uint8)
+    if a.size == 0:
+        return b""
+    starts = np.flatnonzero(np.r_[True, a[1:] != a[:-1]])
+    lens = np.diff(np.r_[starts, a.size])
+    vals = a[starts]
+    long_run = lens >= 3
+    rest = np.where(long_run, lens % 256, lens)
+    trips = np.where(long_run, lens // 256 + (rest >= 3), 0)
+    lits = np.where(long_run & (rest >= 3), 0, rest)
+    width = np.where(vals == 0x80, 2, 1)
+    size = 3 * trips + lits * width
+    at = np.r_[0, np.cumsum(size)[:-1]]
+    out = np.zeros(int(size.sum()), np.uint8)
+    run = np.repeat(np.arange(len(lens)), trips)
+    j = np.arange(run.size) - np.repeat(np.cumsum(trips) - trips, trips)
+    pos = at[run] + 3 * j
+    out[pos], out[pos + 2] = 0x80, vals[run]
+    out[pos + 1] = np.where(j < lens[run] // 256, 255, rest[run] - 1)
+    run = np.repeat(np.arange(len(lens)), lits)
+    j = np.arange(run.size) - np.repeat(np.cumsum(lits) - lits, lits)
+    out[at[run] + 3 * trips[run] + j * width[run]] = vals[run]  # a 0x80's second byte stays 0
+    return out.tobytes()
+
+
+def sun_bytes(width: int, height: int, depth: int, rows: np.ndarray, file_type: int = 1, palette=None,
+              palette_type: int = 1) -> bytes:
+    """A Sun raster file: the 32-byte big-endian header, a colour map
+    (`palette` (N, 3), written as its red, green and blue runs), then
+    `rows` ((H, row bytes) uint8 or bytes, of the raw mode): each padded to
+    16 bits for the raw types, the stream unpadded and `sun_rle`-coded for
+    type 2."""
+    rows = (np.frombuffer(rows, np.uint8) if isinstance(rows, bytes) else np.asarray(rows, np.uint8))
+    rows = rows.reshape(height, -1)
+    if file_type == 2:
+        body = sun_rle(rows.tobytes())
+    else:
+        stride = (width * depth + 15) // 16 * 2
+        body = np.pad(rows, ((0, 0), (0, stride - rows.shape[1]))).tobytes()
+    pal = b"" if palette is None else np.ascontiguousarray(np.asarray(palette, np.uint8).T).tobytes()
+    head = struct.pack(">8I", 0x59A66A95, width, height, depth, len(body), file_type,
+                       palette_type if pal else 0, len(pal))
+    return head + pal + body
+
+
+def msp_rle_row(row: bytes) -> bytes:
+    """One MSP version 2 row: runs of 3 or more (up to 255) as 0, count,
+    byte; other bytes in literal runs of up to 255."""
+    out, lit, i, n = bytearray(), bytearray(), 0, len(row)
+    while i < n:
+        j = i
+        while j < n and j - i < 255 and row[j] == row[i]:
+            j += 1
+        if j - i >= 3 or len(lit) == 255:
+            if lit:
+                out += bytes((len(lit),)) + lit
+                lit = bytearray()
+            if j - i >= 3:
+                out += bytes((0, j - i, row[i]))
+                i = j
+                continue
+        lit.append(row[i])
+        i += 1
+    if lit:
+        out += bytes((len(lit),)) + lit
+    return bytes(out)
+
+
+def msp_bytes(bits: np.ndarray, version: int = 2, rows=None) -> bytes:
+    """An MSP file of (H, W) bool `bits` (True white): version 1 ("DanM",
+    as PIL writes it) raw, version 2 ("LinS") a row map and `msp_rle_row`
+    rows, or the given coded `rows`; the header's words XOR to 0."""
+    h, w = bits.shape[:2]
+    words = [0] * 16
+    words[0], words[1] = struct.unpack("<2H", b"DanM" if version == 1 else b"LinS")
+    words[2], words[3], words[4:8], words[8], words[9] = w, h, [1, 1, 1, 1], w, h
+    chk = 0
+    for v in words:
+        chk ^= v
+    words[12] = chk
+    head = struct.pack("<16H", *words)
+    raw = pack_raw(bits, "1")
+    if version == 1:
+        return head + raw
+    n = (w + 7) // 8
+    rows = [msp_rle_row(raw[y * n:(y + 1) * n]) for y in range(h)] if rows is None else rows
+    return head + struct.pack(f"<{h}H", *(len(r) for r in rows)) + b"".join(rows)
+
+
+def xbm_bytes(bits: np.ndarray, hotspot=None, name: bytes = b"im", per_line: int = 15) -> bytes:
+    """An X11 bitmap as PIL writes one: the width and height defines, a
+    hotspot pair, then `static char <name>_bits[] = {` and each byte
+    (bits least significant first, True set) as 0xNN, `per_line` to a
+    line."""
+    h, w = bits.shape[:2]
+    rows = np.pad(np.asarray(bits, np.uint8), ((0, 0), (0, -w % 8))).reshape(h, -1, 8)
+    data = (rows << np.arange(8, dtype=np.uint8)).sum(-1).astype(np.uint8).ravel()
+    text = b"#define %s_width %d\n#define %s_height %d\n" % (name, w, name, h)
+    if hotspot:
+        text += b"#define %s_x_hot %d\n#define %s_y_hot %d\n" % (name, hotspot[0], name, hotspot[1])
+    items = [b"0x%02x" % v for v in data]
+    lines = [b",".join(items[i:i + per_line]) for i in range(0, len(items), per_line)]
+    return text + b"static char %s_bits[] = {\n" % name + b",\n".join(lines) + b"\n};\n"
+
+
+def xpm_keys(n: int, bpp: int):
+    """`n` distinct pixel keys of `bpp` printable characters (no quote)."""
+    chars = [bytes((c,)) for c in range(35, 127) if c != 92]
+    keys = [b""]
+    for _ in range(bpp):
+        keys = [k + c for k in keys for c in chars]
+    return keys[:n]
+
+
+def xpm_bytes(indices: np.ndarray, palette: np.ndarray, bpp: int = None, none_key: bytes = None,
+              pixels_comment: bool = True, colour_lines=None) -> bytes:
+    """An X11 pixmap: the header line ("w h colours chars"), one `c
+    #rrggbb` line a palette entry (and `c None` for `none_key`), a `/*
+    pixels */` line, then each row of (H, W) `indices` as keys."""
+    h, w = indices.shape[:2]
+    n = len(palette) + (none_key is not None)
+    bpp = bpp or (1 if n <= 90 else 2)
+    keys = xpm_keys(len(palette), bpp)
+    lines = [b"/* XPM */", b"static char *image[] = {", b'"%d %d %d %d",' % (w, h, n, bpp)]
+    if colour_lines is None:
+        colour_lines = [b'"%s c #%02x%02x%02x",' % (k, *map(int, c)) for k, c in zip(keys, palette)]
+        if none_key is not None:
+            colour_lines.append(b'"%s c None",' % none_key)
+    lines += colour_lines
+    if pixels_comment:
+        lines.append(b"/* pixels */")
+    table = np.array(keys, dtype=f"S{bpp}")
+    for row in np.asarray(indices).reshape(h, w):
+        lines.append(b'"' + b"".join(table[row]) + b'",')
+    return b"\n".join(lines) + b"\n};\n"
+
+
+def xv_bytes(indices: np.ndarray, comments=(b"#XVVERSION:Version 2.28  Rev: 9/26/92", b"#END_OF_COMMENTS"),
+             size_line=None) -> bytes:
+    """An XV thumbnail: `P7 332`, comment lines, the size line ("w h
+    255"), then the (H, W) uint8 3-3-2 colour indices raw."""
+    h, w = indices.shape[:2]
+    size_line = b"%d %d 255" % (w, h) if size_line is None else size_line
+    return b"P7 332\n" + b"".join(c + b"\n" for c in comments) + size_line + b"\n" + \
+        np.ascontiguousarray(indices, np.uint8).tobytes()
+
+
+def pcd_ycc(rgb: np.ndarray):
+    """(Y (512, 768), C1 (256, 384), C2 (256, 384)) uint8 of an RGB
+    picture in PhotoYCC (luma scaled by 1 / 1.3584, chroma about 156 and
+    137, each 2x2 block's mean), integers only."""
+    r, g, b = (rgb[..., k].astype(np.int64) for k in range(3))
+    y = (299 * r + 587 * g + 114 * b) * 10000 // (1000 * 13584)
+    c1 = np.clip(156 + (b * 1000 - (299 * r + 587 * g + 114 * b)) * 10000 // (1000 * 22179), 0, 255)
+    c2 = np.clip(137 + (r * 1000 - (299 * r + 587 * g + 114 * b)) * 10000 // (1000 * 18215), 0, 255)
+
+    def half(c):
+        return ((c[0::2, 0::2] + c[1::2, 0::2] + c[0::2, 1::2] + c[1::2, 1::2]) // 4).astype(np.uint8)
+
+    return y.astype(np.uint8), half(c1), half(c2)
+
+
+def pcd_bytes(y: np.ndarray, c1: np.ndarray, c2: np.ndarray, orientation: int = 0, cut: int = None) -> bytes:
+    """A Kodak PhotoCD file's header and base image: `PCD_` at byte 2048,
+    the orientation at byte 3586, then from byte 96 x 2048 each pair of
+    luma rows and their chroma rows (768 + 768 + 384 + 384 bytes)."""
+    head = bytearray(96 * 2048)
+    head[2048:2052] = b"PCD_"
+    head[2048 + 1538] = orientation
+    blocks = np.concatenate([y.reshape(256, 2 * 768), c1, c2], 1)
+    data = bytes(head) + blocks.astype(np.uint8).tobytes()
+    return data if cut is None else data[:cut]
+
+
+def iptc_field(record: int, dataset: int, data: bytes, extended: bool = False) -> bytes:
+    """One IPTC/NAA field: 0x1C, the record and dataset numbers, the
+    length (two bytes, or with `extended` as PIL reads a long one: 0x84,
+    a byte PIL skips, four bytes), the data."""
+    if extended or len(data) > 0x7FFF:
+        return bytes((0x1C, record, dataset, 0x84, 0)) + struct.pack(">I", len(data)) + data
+    return bytes((0x1C, record, dataset)) + struct.pack(">H", len(data)) + data
+
+
+def iptc_bytes(width: int, height: int, body: bytes, layers: int = 1, component: int = 0, compression: int = 1,
+               band=None, fields=(), pieces: int = 1) -> bytes:
+    """An IPTC/NAA image file: (2, 0) record version, (3, 60) layers and
+    component flag, (3, 20) / (3, 30) the size, (3, 120) the compression
+    (1 raw, 5 JPEG), (3, 65) `band` (1-based), any `fields`, then `body`
+    in `pieces` (8, 10) image data fields."""
+    out = iptc_field(2, 0, b"\0\2") + iptc_field(3, 60, bytes((layers, component)))
+    out += iptc_field(3, 20, struct.pack(">H", width)) + iptc_field(3, 30, struct.pack(">H", height))
+    out += iptc_field(3, 120, bytes((compression,)))
+    if band is not None:
+        out += iptc_field(3, 65, bytes((band,)))
+    out += b"".join(fields)
+    step = -(-len(body) // pieces) if body else 1
+    for i in range(pieces):
+        out += iptc_field(8, 10, body[i * step:(i + 1) * step])
+    return out
+
+
+def mpeg_bytes(width: int, height: int) -> bytes:
+    """An MPEG-1 sequence header: 00 00 01 B3, the 12-bit width and
+    height, aspect ratio and frame rate, bit rate, then a GOP start."""
+    return b"\x00\x00\x01\xb3" + bytes((width >> 4, (width & 15) << 4 | height >> 8, height & 255, 0x13)) + \
+        b"\xff\xff\xe0\x18" + b"\x00\x00\x01\xb8" + bytes(8)
+
+
+def wmf_bytes(bbox=(0, 0, 1440, 720), inch: int = 1440, standard: bool = True) -> bytes:
+    """A placeable Windows metafile: the placeable header (its key, the
+    bounding box, units per inch, its checksum), then a standard metafile
+    header and an end record."""
+    head = struct.pack("<IH4hHI", 0x9AC6CDD7, 0, *bbox, inch, 0)
+    words = struct.unpack("<10H", head)
+    chk = 0
+    for v in words:
+        chk ^= v
+    head += struct.pack("<H", chk)
+    meta = struct.pack("<HHHIHIH", 1, 9, 0x300, 12, 0, 3, 0) if standard else bytes(18)
+    return head + meta + struct.pack("<IH", 3, 0)
+
+
+def emf_bytes(bounds=(0, 0, 99, 49), frame=(0, 0, 2645, 1322)) -> bytes:
+    """An enhanced metafile: its EMR_HEADER record (bounds in pixels,
+    frame in 0.01 mm, the " EMF" signature at byte 40), then EMR_EOF."""
+    head = struct.pack("<II4i4i", 1, 108, *bounds, *frame) + b" EMF" + struct.pack("<IIIHH", 0x10000, 128, 2, 1, 0)
+    head = head.ljust(108, b"\0")
+    return head + struct.pack("<IIIII", 14, 20, 0, 16, 20)
