@@ -506,6 +506,25 @@ Phases (any failure exits non-zero; none is caught and passed over):
      reading (without a PIL: to the render or its grey, the writers'
      values) and timed beside it. `cli.train` -r 1 for 30 iterations as in
      5h, its checks and prints.
+  5q. AVIF grid images (libavif's tiled `grid` items), after 5p: (a) the
+     committed files of tests/fixtures/torch_avif_grid (grids of 64x64
+     cells at 4:2:0, 4:2:2, 4:4:4 and 4:0:0, cropped edges, RGBA with an
+     alpha grid, premultiplied, limited range, 3x1, 1x3, chroma that jumps
+     at every seam; a 1920x1080 grid of 2x2 cells of 960x540; a file with
+     a gain map, read through its base item), held and timed as in 5j (a),
+     with one decode of the 1080p grid split, the cells' copies among the
+     steps; then an 8192x4608 grid (2x2 cells of 4096x2304, past AV1's
+     baseline cap of 8192x4352 a frame) written by this machine's PIL's
+     libavif (tests/torch_image_writers.py's avif_grid_bytes), read once
+     beside that PIL and held to its reading, with the split. (b) A COLMAP
+     dataset of 7 views of trained_r5 on phase 5c's orbit at 1920x1080
+     (`form_dataset`), written as grids by that libavif: 2x2 of 960x540 at
+     4:2:0, 2x1 of 1024x1080 with the right column cropped to 896, 3x2 of
+     640x540 at 4:4:4, 4:0:0, RGBA with an alpha grid (alpha 160 in a
+     band), limited range, 1x2 of 1920x540 (columns x rows); each held to
+     that PIL's reading (without its libavif: the committed 1080p grid for
+     each, held to PIL 12.1.0's hash) and timed beside it. `cli.train` -r
+     1 for 30 iterations as in 5h, its checks and prints.
   5d. sharded path (`parallel/sharding.py`), on the one card:
      - the kernels at a row origin: trained_r5 at 1920x1080 with 32x32
        tiles cut into 2 and into 4 strips of tile rows; each strip's
@@ -576,6 +595,7 @@ Phases (any failure exits non-zero; none is caught and passed over):
      avif_screen_train (5l's train CLI), avif_grain_train (5m's train CLI),
      jpeg_arith_train (5n's train CLI),
      rare_forms_train (5o's train CLI), pil_rest_train (5p's train CLI),
+     avif_grid_train (5q's train CLI),
      sharded_2rank and sharded_trainer (both ranks' sums), sharded_nccl1,
      bench (the five in-process runs of 5f) for the compositing kernels
      and the routing,
@@ -604,6 +624,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 
@@ -2765,7 +2786,7 @@ def check_trainer_state(name, tr, cam, seed):
 
 
 def train_cli_on(tag, data, model_dir, n_views, steps, seed):
-    """Phases 5h-5m (b): `cli.train` -r 1 for `steps` iterations on the
+    """Phases 5h-5q (b): `cli.train` -r 1 for `steps` iterations on the
     COLMAP dataset at `data` of `n_views` views at W_MAIN x H_MAIN. Fails
     unless it ran the steps on every view at full size with finite losses
     and one launch of each train-path kernel a step; holds the kernels to
@@ -2789,6 +2810,36 @@ def train_cli_on(tag, data, model_dir, n_views, steps, seed):
     errs = check_trainer_state(f"{tag} train CLI final state", tr, views[0], seed)
     del scene, tr
     return launches, errs, (train_s, load_s, step_ms, losses_[0], losses_[-1])
+
+
+def form_dataset(tmp, views, write):
+    """Phases 5h-5q (b): a COLMAP dataset in `tmp`/data of trained_r5 on
+    phase 5c's orbit at W_MAIN x H_MAIN, one view for each of `views`,
+    each view's PNG replaced by the file `write(i, cam, render, view,
+    stem)` writes (`stem`: images/<view name>, no extension; it returns the
+    file's name within images/). Returns a namespace: data, model_dir,
+    cams, images (the renders), files ({view name: file name}), cameras
+    (the train cameras `read_colmap_scene` reads back) and build_s (the
+    seconds from the renders to the renamed views)."""
+    t0 = time.perf_counter()
+    data = os.path.join(tmp, "data")
+    model = load_gaussians_ply(TRAINED_PLY)
+    cams, images = orbit_dataset(len(views), W_MAIN, H_MAIN)
+    write_colmap_scene(data, cams, images, model["xyz"], dc_colors(model))
+    files = {}
+    for i, (cam, px, view) in enumerate(zip(cams, images, views)):
+        os.remove(os.path.join(data, "images", f"{cam.image_name}.png"))
+        files[cam.image_name] = write(i, cam, px, view, os.path.join(data, "images", cam.image_name))
+    rename_views(data, files)
+    build_s = time.perf_counter() - t0
+    return types.SimpleNamespace(data=data, model_dir=os.path.join(tmp, "model"), cams=cams, images=images,
+                                 files=files, build_s=build_s,
+                                 cameras=read_colmap_scene(data, None, eval_split=False).train_cameras)
+
+
+def write_file(path, body: bytes):
+    with open(path, "wb") as f:
+        f.write(body)
 
 
 def render_cli_dir(model_dir, split, method, n):
@@ -3978,30 +4029,21 @@ def _legacy_phase(dev, tmp):
         print(f"  {name}: {ms:.2f} ms (PIL {pil_ms})")
 
     # (b) A COLMAP dataset of trained_r5 whose views are seven of those forms.
-    t0 = time.perf_counter()
-    data, model_dir = os.path.join(tmp, "data"), os.path.join(tmp, "model")
-    model = load_gaussians_ply(TRAINED_PLY)
-    cams, images = orbit_dataset(len(LEGACY_VIEWS), W_MAIN, H_MAIN)
-    write_colmap_scene(data, cams, images, model["xyz"], dc_colors(model))
-    files = {}
-    for cam, px, form in zip(cams, images, LEGACY_VIEWS):
-        body = legacy_form_files(px, np.full(px.shape[:2], 255, np.uint8), [form])[form]
-        files[cam.image_name] = cam.image_name + LEGACY_EXT[form.split()[0]]
-        os.remove(os.path.join(data, "images", f"{cam.image_name}.png"))
-        with open(os.path.join(data, "images", files[cam.image_name]), "wb") as f:
-            f.write(body)
-    rename_views(data, files)
-    build_s = time.perf_counter() - t0
-    info = read_colmap_scene(data, None, eval_split=False)
-    by_name = {c.image_name: c for c in info.train_cameras}
-    for cam, px in zip(cams, images):
+    def write(i, cam, px, form, stem):
+        write_file(stem + LEGACY_EXT[form.split()[0]],
+                   legacy_form_files(px, np.full(px.shape[:2], 255, np.uint8), [form])[form])
+        return os.path.basename(stem) + LEGACY_EXT[form.split()[0]]
+
+    ds = form_dataset(tmp, LEGACY_VIEWS, write)
+    by_name = {c.image_name: c for c in ds.cameras}
+    for cam, px in zip(ds.cams, ds.images):
         pic = image_io.open_image(by_name[cam.image_name].image_path)
         if not np.array_equal(pic.pixels[..., :3], px):
-            fail(f"legacy forms: view {files[cam.image_name]} does not read back as its render")
+            fail(f"legacy forms: view {ds.files[cam.image_name]} does not read back as its render")
     launches, errs, (train_s, load_s, step_ms, loss0, loss1) = train_cli_on(
-        "legacy forms", data, model_dir, len(LEGACY_VIEWS), LEGACY_STEPS, 53)
+        "legacy forms", ds.data, ds.model_dir, len(LEGACY_VIEWS), LEGACY_STEPS, 53)
     print(f"  train CLI on a COLMAP dataset of {len(LEGACY_VIEWS)} views of trained_r5 at {W_MAIN}x{H_MAIN}, one "
-          f"each {', '.join(LEGACY_VIEWS)} (made in {build_s:.1f} s): -r 1, {LEGACY_STEPS} iterations in "
+          f"each {', '.join(LEGACY_VIEWS)} (made in {ds.build_s:.1f} s): -r 1, {LEGACY_STEPS} iterations in "
           f"{train_s:.2f} s (scene load {load_s:.2f} s), step median {step_ms:.3f} ms; loss "
           f"{loss0:.6f} -> {loss1:.6f}; launches {launches}")
     print(f"  phase peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
@@ -4161,24 +4203,18 @@ def _dds_phase(dev, tmp):
         print(f"  {name}: {ms:.2f} ms (PIL {pil_ms})")
 
     # (b) A COLMAP dataset of trained_r5 whose views are seven of those forms.
-    t0 = time.perf_counter()
-    data, model_dir = os.path.join(tmp, "data"), os.path.join(tmp, "model")
-    model = load_gaussians_ply(TRAINED_PLY)
-    cams, images = orbit_dataset(len(DDS_VIEWS), W_MAIN, H_MAIN)
-    write_colmap_scene(data, cams, images, model["xyz"], dc_colors(model))
-    files, decoded = {}, {}
-    for cam, px, form in zip(cams, images, DDS_VIEWS):
+    decoded = {}
+
+    def write(i, cam, px, form, stem):
         body, decoded[cam.image_name] = dds_form_files(px, np.full(px.shape[:2], 255, np.uint8), [form],
                                                        decoded=True)[form]
-        files[cam.image_name] = cam.image_name + ".dds"
-        os.remove(os.path.join(data, "images", f"{cam.image_name}.png"))
-        with open(os.path.join(data, "images", files[cam.image_name]), "wb") as f:
-            f.write(body)
-    rename_views(data, files)
-    build_s = time.perf_counter() - t0
-    info = read_colmap_scene(data, None, eval_split=False)
-    by_name = {c.image_name: c for c in info.train_cameras}
-    for cam, px, form in zip(cams, images, DDS_VIEWS):
+        write_file(stem + ".dds", body)
+        return os.path.basename(stem) + ".dds"
+
+    ds = form_dataset(tmp, DDS_VIEWS, write)
+    files = ds.files
+    by_name = {c.image_name: c for c in ds.cameras}
+    for cam, px, form in zip(ds.cams, ds.images, DDS_VIEWS):
         pic = image_io.open_image(by_name[cam.image_name].image_path)
         # the block-coded views: the pixels the writer's blocks decode to (the tests hold each writer's
         # decoding bit-equal to PIL 12.1.0's); the others: the render, alpha 255
@@ -4187,9 +4223,9 @@ def _dds_phase(dev, tmp):
             fail(f"DDS: view {files[cam.image_name]} ({form}) does not read back as "
                  f"{'its render' if form in DDS_LOSSLESS else 'its blocks decode'}")
     launches, errs, (train_s, load_s, step_ms, loss0, loss1) = train_cli_on(
-        "DDS", data, model_dir, len(DDS_VIEWS), DDS_STEPS, 59)
+        "DDS", ds.data, ds.model_dir, len(DDS_VIEWS), DDS_STEPS, 59)
     print(f"  train CLI on a COLMAP dataset of {len(DDS_VIEWS)} views of trained_r5 at {W_MAIN}x{H_MAIN}, one "
-          f"each {', '.join(DDS_VIEWS)} (made in {build_s:.1f} s): -r 1, {DDS_STEPS} iterations in "
+          f"each {', '.join(DDS_VIEWS)} (made in {ds.build_s:.1f} s): -r 1, {DDS_STEPS} iterations in "
           f"{train_s:.2f} s (scene load {load_s:.2f} s), step median {step_ms:.3f} ms; loss "
           f"{loss0:.6f} -> {loss1:.6f}; launches {launches}")
     print(f"  phase peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
@@ -4251,25 +4287,25 @@ def avif_versions() -> str:
             f"{_avif.codec_versions()}")
 
 
-def check_avif_fixtures(names):
-    """Phases 5j and 5k (a): each named committed 1080p AVIF fixture is the
-    file PIL read (its SHA-256) and `image_io.open_image` gives PIL
-    12.1.0's mode, shape and pixels' SHA-256
-    (tests/fixtures/torch_avif/sha256.json). Returns {name: (the port's
-    median ms of 5 decodes, PIL's median of 3 here or why not)}, the first
-    name and the split of one decode of it."""
-    with open(os.path.join(AVIF_FIXTURES, "sha256.json")) as f:
+def check_avif_fixtures(names, directory=AVIF_FIXTURES):
+    """Phases 5j-5m and 5q (a): each named committed AVIF fixture of
+    `directory` is the file PIL read (its SHA-256) and
+    `image_io.open_image` gives PIL 12.1.0's mode, shape and pixels'
+    SHA-256 (its sha256.json). Returns {name: (the port's median ms of 5
+    decodes, PIL's median of 3 here or why not)}, the first name and the
+    split of one decode of it."""
+    with open(os.path.join(directory, "sha256.json")) as f:
         readings = json.load(f)["files"]
     names = sorted(names)
     if not set(names) <= set(readings):
         fail(f"AVIF: the fixtures {sorted(set(names) - set(readings))} are not in sha256.json")
     times, split = {}, {}
     for name in names:
-        want, path = readings[name], os.path.join(AVIF_FIXTURES, name)
+        want, path = readings[name], os.path.join(directory, name)
         with open(path, "rb") as f:
             data = f.read()
         if hashlib.sha256(data).hexdigest() != want["file_sha256"]:
-            fail(f"AVIF: {name} is not the file PIL read (tests/fixtures/torch_avif/sha256.json)")
+            fail(f"AVIF: {name} is not the file PIL read ({os.path.relpath(directory, ROOT)}/sha256.json)")
         ms = []
         for _ in range(5):
             pic, t = synced_ms(image_io.open_image, path)
@@ -4312,29 +4348,25 @@ def _avif_phase(dev, tmp):
           ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in split.items()))
 
     # (b) A COLMAP dataset of trained_r5 with seven 1080p AVIF views.
-    t0 = time.perf_counter()
-    data, model_dir = os.path.join(tmp, "data"), os.path.join(tmp, "model")
-    model = load_gaussians_ply(TRAINED_PLY)
-    cams, images = orbit_dataset(len(AVIF_VIEWS), W_MAIN, H_MAIN)
-    write_colmap_scene(data, cams, images, model["xyz"], dc_colors(model))
     pil = avif_pil()
     with open(os.path.join(AVIF_FIXTURES, "sha256.json")) as f:
         readings = json.load(f)["files"]
-    files, fixture_of = {}, {}
-    for cam, px, (label, options, fixture) in zip(cams, images, AVIF_VIEWS):
-        path = os.path.join(data, "images", cam.image_name + ".avif")
-        os.remove(os.path.join(data, "images", f"{cam.image_name}.png"))
+    fixture_of = {}
+
+    def write(i, cam, px, view, stem):
+        label, options, fixture = view
         if pil is not None:
             rgb = np.ascontiguousarray(px[..., :3])
-            pil.fromarray(opaque(rgb) if label.startswith("RGBA") else rgb).save(path, "AVIF", **options,
+            pil.fromarray(opaque(rgb) if label.startswith("RGBA") else rgb).save(stem + ".avif", "AVIF", **options,
                                                                                  advanced=AVIF_ADVANCED)
         else:
-            shutil.copyfile(os.path.join(AVIF_FIXTURES, fixture), path)
-        files[cam.image_name], fixture_of[cam.image_name] = os.path.basename(path), fixture
-    rename_views(data, files)
-    build_s = time.perf_counter() - t0
-    info = read_colmap_scene(data, None, eval_split=False)
-    for c in info.train_cameras:
+            shutil.copyfile(os.path.join(AVIF_FIXTURES, fixture), stem + ".avif")
+        fixture_of[cam.image_name] = fixture
+        return os.path.basename(stem) + ".avif"
+
+    ds = form_dataset(tmp, AVIF_VIEWS, write)
+    files = ds.files
+    for c in ds.cameras:
         pic = image_io.open_image(c.image_path)
         if pil is not None:
             with pil.open(c.image_path) as im:
@@ -4350,9 +4382,9 @@ def _avif_phase(dev, tmp):
               if pil is not None else "the committed 1080p fixtures (this machine's PIL has no AVIF), held to "
               "PIL 12.1.0's committed hashes")
     launches, errs, (train_s, load_s, step_ms, loss0, loss1) = train_cli_on(
-        "AVIF", data, model_dir, len(AVIF_VIEWS), AVIF_STEPS, 61)
+        "AVIF", ds.data, ds.model_dir, len(AVIF_VIEWS), AVIF_STEPS, 61)
     print(f"  train CLI on a COLMAP dataset of {len(AVIF_VIEWS)} AVIF views of trained_r5 at {W_MAIN}x{H_MAIN} "
-          f"({', '.join(v[0] for v in AVIF_VIEWS)}): {source} (made in {build_s:.1f} s); -r 1, {AVIF_STEPS} "
+          f"({', '.join(v[0] for v in AVIF_VIEWS)}): {source} (made in {ds.build_s:.1f} s); -r 1, {AVIF_STEPS} "
           f"iterations in {train_s:.2f} s (scene load {load_s:.2f} s), step median {step_ms:.3f} ms; "
           f"loss {loss0:.6f} -> {loss1:.6f}; launches {launches}")
     print(f"  phase peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
@@ -4422,31 +4454,27 @@ def _avif_filters_phase(dev, tmp):
           ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in split.items()))
 
     # (b) A COLMAP dataset of trained_r5 with seven 1080p views that use them.
-    t0 = time.perf_counter()
-    data, model_dir = os.path.join(tmp, "data"), os.path.join(tmp, "model")
-    model = load_gaussians_ply(TRAINED_PLY)
-    cams, images = orbit_dataset(len(AVIF_FILTER_VIEWS), W_MAIN, H_MAIN)
-    write_colmap_scene(data, cams, images, model["xyz"], dc_colors(model))
     pil = avif_pil()
     with open(os.path.join(AVIF_FIXTURES, "sha256.json")) as f:
         readings = json.load(f)["files"]
-    files, fixture_of, labels = {}, {}, {}
-    for i, (cam, px, (label, options)) in enumerate(zip(cams, images, AVIF_FILTER_VIEWS)):
-        path = os.path.join(data, "images", cam.image_name + ".avif")
-        os.remove(os.path.join(data, "images", f"{cam.image_name}.png"))
+    fixture_of, labels = {}, {}
+
+    def write(i, cam, px, view, stem):
+        label, options = view
         fixture = AVIF_FILTER_FIXTURES[i % len(AVIF_FILTER_FIXTURES)]
         if pil is not None:
             rgb = np.ascontiguousarray(px[..., :3])
-            pil.fromarray(opaque(rgb) if label.startswith("RGBA") else rgb).save(path, "AVIF", **options)
+            pil.fromarray(opaque(rgb) if label.startswith("RGBA") else rgb).save(stem + ".avif", "AVIF", **options)
         else:
-            shutil.copyfile(os.path.join(AVIF_FIXTURES, fixture), path)
-        files[cam.image_name], fixture_of[cam.image_name] = os.path.basename(path), fixture
+            shutil.copyfile(os.path.join(AVIF_FIXTURES, fixture), stem + ".avif")
+        fixture_of[cam.image_name] = fixture
         labels[cam.image_name] = label if pil is not None else f"{label}: {fixture}"
-    rename_views(data, files)
-    build_s = time.perf_counter() - t0
-    info = read_colmap_scene(data, None, eval_split=False)
+        return os.path.basename(stem) + ".avif"
+
+    ds = form_dataset(tmp, AVIF_FILTER_VIEWS, write)
+    files, build_s = ds.files, ds.build_s
     used = []
-    for c in info.train_cameras:
+    for c in ds.cameras:
         pic = image_io.open_image(c.image_path)
         if pil is not None:
             with pil.open(c.image_path) as im:
@@ -4467,7 +4495,7 @@ def _avif_filters_phase(dev, tmp):
     for label, _, _, line in used:
         print(f"    {label}: {line}")
     launches, errs, (train_s, load_s, step_ms, loss0, loss1) = train_cli_on(
-        "AVIF filters", data, model_dir, len(AVIF_FILTER_VIEWS), AVIF_STEPS, 62)
+        "AVIF filters", ds.data, ds.model_dir, len(AVIF_FILTER_VIEWS), AVIF_STEPS, 62)
     print(f"  train CLI on a COLMAP dataset of {len(AVIF_FILTER_VIEWS)} AVIF views of trained_r5 at "
           f"{W_MAIN}x{H_MAIN}: -r 1, {AVIF_STEPS} iterations in {train_s:.2f} s (scene load {load_s:.2f} s), "
           f"step median {step_ms:.3f} ms; loss {loss0:.6f} -> {loss1:.6f}; "
@@ -4547,52 +4575,45 @@ def _avif_screen_phase(dev, tmp):
           ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in split.items()))
 
     # (b) A COLMAP dataset of trained_r5 with seven 1080p screen-content views.
-    t0 = time.perf_counter()
-    data, model_dir = os.path.join(tmp, "data"), os.path.join(tmp, "model")
-    model = load_gaussians_ply(TRAINED_PLY)
-    cams, images = orbit_dataset(len(AVIF_SCREEN_VIEWS), W_MAIN, H_MAIN)
-    write_colmap_scene(data, cams, images, model["xyz"], dc_colors(model))
     pil = avif_pil()
     with open(os.path.join(AVIF_FIXTURES, "sha256.json")) as f:
         readings = json.load(f)["files"]
     alpha = np.full((H_MAIN, W_MAIN), 255, np.uint8)
     alpha[H_MAIN // 3:H_MAIN // 3 + 96] = 160
-    files, fixture_of, labels = {}, {}, {}
-    for cam in cams:
-        files[cam.image_name] = cam.image_name + ".avif"
-        os.remove(os.path.join(data, "images", f"{cam.image_name}.png"))
+    fixture_of, labels, used = {}, {}, [None] * len(AVIF_SCREEN_VIEWS)
+    panel = None
 
-    def write_views(panel):
-        """Each view's file (the render, with the panel at a corner where
-        given); returns what each used."""
-        used = []
-        for i, (cam, px, (label, options)) in enumerate(zip(cams, images, AVIF_SCREEN_VIEWS)):
-            path = os.path.join(data, "images", files[cam.image_name])
-            fixture = AVIF_SCREEN_FIXTURES[i % len(AVIF_SCREEN_FIXTURES)]
-            if pil is not None:
-                rgb = np.array(px[..., :3])
-                if panel is not None:
-                    y0, x0 = (i % 2) * (H_MAIN - panel.shape[0]), ((i // 2) % 2) * (W_MAIN - panel.shape[1])
-                    rgb[y0:y0 + panel.shape[0], x0:x0 + panel.shape[1]] = panel
-                pic = np.concatenate([rgb, alpha[..., None]], -1) if "RGBA" in label else rgb
-                pil.fromarray(pic).save(path, "AVIF", **options)
-            else:
-                shutil.copyfile(os.path.join(AVIF_FIXTURES, fixture), path)
-            fixture_of[cam.image_name] = fixture
-            labels[cam.image_name] = label if pil is not None else f"{label}: {fixture}"
-            used.append(avif_screen_tools(path))
-        return used
+    def write(i, cam, px, view, stem):
+        """The view's file (the render, with `panel` at a corner where
+        given); `used[i]`: what it used."""
+        label, options = view
+        fixture = AVIF_SCREEN_FIXTURES[i % len(AVIF_SCREEN_FIXTURES)]
+        if pil is not None:
+            rgb = np.array(px[..., :3])
+            if panel is not None:
+                y0, x0 = (i % 2) * (H_MAIN - panel.shape[0]), ((i // 2) % 2) * (W_MAIN - panel.shape[1])
+                rgb[y0:y0 + panel.shape[0], x0:x0 + panel.shape[1]] = panel
+            pic = np.concatenate([rgb, alpha[..., None]], -1) if "RGBA" in label else rgb
+            pil.fromarray(pic).save(stem + ".avif", "AVIF", **options)
+        else:
+            shutil.copyfile(os.path.join(AVIF_FIXTURES, fixture), stem + ".avif")
+        fixture_of[cam.image_name] = fixture
+        labels[cam.image_name] = label if pil is not None else f"{label}: {fixture}"
+        used[i] = avif_screen_tools(stem + ".avif")
+        return os.path.basename(stem) + ".avif"
 
-    used = write_views(None)
+    ds = form_dataset(tmp, AVIF_SCREEN_VIEWS, write)
+    files, cams, build_s = ds.files, ds.cams, ds.build_s
     panel_needed = pil is not None and not all(any(u[k] for u in used) for k in range(3))
-    if panel_needed:
-        used = write_views(screen_panel(23))
+    if panel_needed:  # the same files again, each render with a panel
+        t0 = time.perf_counter()
+        panel = screen_panel(23)
+        for i, (cam, px, view) in enumerate(zip(cams, ds.images, AVIF_SCREEN_VIEWS)):
+            write(i, cam, px, view, os.path.join(ds.data, "images", cam.image_name))
+        build_s += time.perf_counter() - t0
     if not all(any(u[k] for u in used) for k in range(3)):
         fail(f"AVIF screen: the views do not use Y palette, UV palette and IntraBC: {[u[3] for u in used]}")
-    rename_views(data, files)
-    build_s = time.perf_counter() - t0
-    info = read_colmap_scene(data, None, eval_split=False)
-    for c in info.train_cameras:
+    for c in ds.cameras:
         pic = image_io.open_image(c.image_path)
         if pil is not None:
             with pil.open(c.image_path) as im:
@@ -4615,7 +4636,7 @@ def _avif_screen_phase(dev, tmp):
     for cam, u in zip(cams, used):
         print(f"    {labels[cam.image_name]}: {u[3]}")
     launches, errs, (train_s, load_s, step_ms, loss0, loss1) = train_cli_on(
-        "AVIF screen", data, model_dir, len(AVIF_SCREEN_VIEWS), AVIF_STEPS, 63)
+        "AVIF screen", ds.data, ds.model_dir, len(AVIF_SCREEN_VIEWS), AVIF_STEPS, 63)
     print(f"  train CLI on a COLMAP dataset of {len(AVIF_SCREEN_VIEWS)} AVIF views of trained_r5 at "
           f"{W_MAIN}x{H_MAIN}: -r 1, {AVIF_STEPS} iterations in {train_s:.2f} s (scene load {load_s:.2f} s), "
           f"step median {step_ms:.3f} ms; loss {loss0:.6f} -> {loss1:.6f}; "
@@ -4698,21 +4719,16 @@ def _avif_grain_phase(dev, tmp):
           + f"; film grain {100 * split['av1_film_grain'] / total:.1f}% of {total * 1e3:.2f} ms")
 
     # (b) A COLMAP dataset of trained_r5 with seven 1080p views with grain.
-    t0 = time.perf_counter()
-    data, model_dir = os.path.join(tmp, "data"), os.path.join(tmp, "model")
-    model = load_gaussians_ply(TRAINED_PLY)
-    cams, images = orbit_dataset(len(AVIF_GRAIN_VIEWS), W_MAIN, H_MAIN)
-    write_colmap_scene(data, cams, images, model["xyz"], dc_colors(model))
     pil = avif_pil()
     with open(os.path.join(AVIF_FIXTURES, "sha256.json")) as f:
         readings = json.load(f)["files"]
     alpha = np.full((H_MAIN, W_MAIN, 1), 255, np.uint8)
     alpha[H_MAIN // 3:H_MAIN // 3 + 96] = 160
-    files, fixture_of, labels, used = {}, {}, {}, []
-    for i, (cam, px, (label, options)) in enumerate(zip(cams, images, AVIF_GRAIN_VIEWS)):
-        os.remove(os.path.join(data, "images", f"{cam.image_name}.png"))
-        files[cam.image_name] = cam.image_name + ".avif"
-        path = os.path.join(data, "images", files[cam.image_name])
+    fixture_of, labels, used = {}, {}, []
+
+    def write(i, cam, px, view, stem):
+        label, options = view
+        path = stem + ".avif"
         fixture = AVIF_GRAIN_FIXTURES[i % len(AVIF_GRAIN_FIXTURES)]
         if pil is not None:
             rgb = np.ascontiguousarray(px[..., :3])
@@ -4728,16 +4744,17 @@ def _avif_grain_phase(dev, tmp):
         fixture_of[cam.image_name] = fixture
         labels[cam.image_name] = label if pil is not None else f"{label}: {fixture}"
         used.append(avif_grain_tools(path))
+        return os.path.basename(path)
+
+    ds = form_dataset(tmp, AVIF_GRAIN_VIEWS, write)
+    files, cams, build_s = ds.files, ds.cams, ds.build_s
     if not (any(g["apply_grain"] and g["num_y_points"] for g, _, _ in used)
             and any(g["apply_grain"] and (g["num_cb_points"] or g["chroma_scaling_from_luma"]) for g, _, _ in used)
             and any(g["apply_grain"] and g["overlap_flag"] for g, _, _ in used)
             and any(source == "tracks" for _, source, _ in used)):
         fail(f"AVIF grain: the views do not use luma and chroma grain, overlap_flag and an avis track: "
              f"{[u[2] for u in used]}")
-    rename_views(data, files)
-    build_s = time.perf_counter() - t0
-    info = read_colmap_scene(data, None, eval_split=False)
-    for c in info.train_cameras:
+    for c in ds.cameras:
         pic = image_io.open_image(c.image_path)
         if pil is not None:
             with pil.open(c.image_path) as im:
@@ -4757,7 +4774,7 @@ def _avif_grain_phase(dev, tmp):
     for cam, u in zip(cams, used):
         print(f"    {labels[cam.image_name]}: {u[2]}")
     launches, errs, (train_s, load_s, step_ms, loss0, loss1) = train_cli_on(
-        "AVIF grain", data, model_dir, len(AVIF_GRAIN_VIEWS), AVIF_STEPS, 64)
+        "AVIF grain", ds.data, ds.model_dir, len(AVIF_GRAIN_VIEWS), AVIF_STEPS, 64)
     print(f"  train CLI on a COLMAP dataset of {len(AVIF_GRAIN_VIEWS)} AVIF views of trained_r5 at "
           f"{W_MAIN}x{H_MAIN}: -r 1, {AVIF_STEPS} iterations in {train_s:.2f} s (scene load {load_s:.2f} s), "
           f"step median {step_ms:.3f} ms; loss {loss0:.6f} -> {loss1:.6f}; "
@@ -4870,34 +4887,29 @@ def _jpeg_arith_phase(dev, tmp):
 
     # (b) A COLMAP dataset of trained_r5 with seven 1080p arithmetic-coded
     # and lossless views.
-    t0 = time.perf_counter()
-    data, model_dir = os.path.join(tmp, "data"), os.path.join(tmp, "model")
-    model = load_gaussians_ply(TRAINED_PLY)
-    cams, images = orbit_dataset(len(JPEG_ARITH_VIEWS), W_MAIN, H_MAIN)
-    write_colmap_scene(data, cams, images, model["xyz"], dc_colors(model))
     writers = image_writers()
-    files, labels, coded = {}, {}, {}  # coded: the samples a full-size lossless view holds
-    for cam, px, (label, fixture, options) in zip(cams, images, JPEG_ARITH_VIEWS):
-        os.remove(os.path.join(data, "images", f"{cam.image_name}.png"))
-        files[cam.image_name], labels[cam.image_name] = cam.image_name + ".jpg", label
-        path = os.path.join(data, "images", files[cam.image_name])
+    labels, coded = {}, {}  # coded: the samples a full-size lossless view holds
+
+    def write(i, cam, px, view, stem):
+        label, fixture, options = view
+        labels[cam.image_name], path = label, stem + ".jpg"
         if fixture is not None:
             shutil.copyfile(os.path.join(JPEG_ARITH_FIXTURES, fixture), path)
-            continue
+            return os.path.basename(path)
         options = dict(options)
         rgb = np.ascontiguousarray(px[..., :3])
         pic = np.round(rgb @ np.array([0.299, 0.587, 0.114])).astype(np.uint8) if options.pop("grey", False) else rgb
-        with open(path, "wb") as f:
-            f.write(writers.lossless_jpeg(pic, **options))
+        write_file(path, writers.lossless_jpeg(pic, **options))
         if "sampling" not in options:
             pt = options.get("pt", 0)
             coded[cam.image_name] = ("L" if pic.ndim == 2 else "RGB", list(pic.shape), sha256_of((pic >> pt) << pt))
-    rename_views(data, files)
-    build_s = time.perf_counter() - t0
-    info = read_colmap_scene(data, None, eval_split=False)
-    print(f"  {len(JPEG_ARITH_VIEWS)} views of trained_r5 at {W_MAIN}x{H_MAIN}, made in {build_s:.1f} s; decode ms, "
-          f"median of 5 (host clock), beside this machine's PIL's:")
-    for c in info.train_cameras:
+        return os.path.basename(path)
+
+    ds = form_dataset(tmp, JPEG_ARITH_VIEWS, write)
+    files = ds.files
+    print(f"  {len(JPEG_ARITH_VIEWS)} views of trained_r5 at {W_MAIN}x{H_MAIN}, made in {ds.build_s:.1f} s; decode "
+          f"ms, median of 5 (host clock), beside this machine's PIL's:")
+    for c in ds.cameras:
         ms = []
         for _ in range(5):
             pic, t = synced_ms(image_io.open_image, c.image_path)
@@ -4917,7 +4929,7 @@ def _jpeg_arith_phase(dev, tmp):
         print(f"    {labels[c.image_name]}: {size} bytes, {pic.mode}, {float(np.median(ms)):.2f} ms "
               f"(PIL {pil_decode_ms(c.image_path, 5)})")
     launches, errs, (train_s, load_s, step_ms, loss0, loss1) = train_cli_on(
-        "JPEG arith", data, model_dir, len(JPEG_ARITH_VIEWS), JPEG_ARITH_STEPS, 65)
+        "JPEG arith", ds.data, ds.model_dir, len(JPEG_ARITH_VIEWS), JPEG_ARITH_STEPS, 65)
     print(f"  train CLI on a COLMAP dataset of {len(JPEG_ARITH_VIEWS)} arithmetic-coded and lossless JPEG views "
           f"of trained_r5 at {W_MAIN}x{H_MAIN}: -r 1, {JPEG_ARITH_STEPS} iterations in {train_s:.2f} s (scene load "
           f"{load_s:.2f} s), step median {step_ms:.3f} ms; loss {loss0:.6f} -> {loss1:.6f}; "
@@ -5168,27 +5180,20 @@ def _rare_forms_phase(dev, tmp):
     print(f"  BUFR, GRIB and HDF5 refused by the port and this machine's PIL; {check_rare_refusals(tmp)}")
 
     # (b) A COLMAP dataset of trained_r5 whose views are seven of those forms.
-    t0 = time.perf_counter()
-    data, model_dir = os.path.join(tmp, "data"), os.path.join(tmp, "model")
-    model = load_gaussians_ply(TRAINED_PLY)
-    cams, images = orbit_dataset(len(RARE_VIEWS), W_MAIN, H_MAIN)
-    write_colmap_scene(data, cams, images, model["xyz"], dc_colors(model))
-    files, labels, plain = {}, {}, {}
-    for cam, px, form in zip(cams, images, RARE_VIEWS):
+    labels, plain = {}, {}
+
+    def write(i, cam, px, form, stem):
         px = np.ascontiguousarray(px[..., :3])
-        opaque_ = np.full(px.shape[:2], 255, np.uint8)
-        body = rare_form_files(px, opaque_, [form])[form]
-        files[cam.image_name], labels[cam.image_name] = cam.image_name + RARE_EXT[form.split()[0]], form
-        os.remove(os.path.join(data, "images", f"{cam.image_name}.png"))
-        with open(os.path.join(data, "images", files[cam.image_name]), "wb") as f:
-            f.write(body)
-        plain[cam.image_name] = px
-    rename_views(data, files)
-    build_s = time.perf_counter() - t0
-    info = read_colmap_scene(data, None, eval_split=False)
-    print(f"  {len(RARE_VIEWS)} views of trained_r5 at {W_MAIN}x{H_MAIN}, made in {build_s:.1f} s; decode ms, "
+        write_file(stem + RARE_EXT[form.split()[0]],
+                   rare_form_files(px, np.full(px.shape[:2], 255, np.uint8), [form])[form])
+        labels[cam.image_name], plain[cam.image_name] = form, px
+        return os.path.basename(stem) + RARE_EXT[form.split()[0]]
+
+    ds = form_dataset(tmp, RARE_VIEWS, write)
+    files = ds.files
+    print(f"  {len(RARE_VIEWS)} views of trained_r5 at {W_MAIN}x{H_MAIN}, made in {ds.build_s:.1f} s; decode ms, "
           f"median of 5 (host clock), beside this machine's PIL's:")
-    for c in info.train_cameras:
+    for c in ds.cameras:
         ms = []
         for _ in range(5):
             pic, t = synced_ms(image_io.open_image, c.image_path)
@@ -5205,7 +5210,7 @@ def _rare_forms_phase(dev, tmp):
                  f"rules give it ({here})")
         print(f"    {form}: {pic.mode}, {float(np.median(ms)):.2f} ms (PIL {pil_ms})")
     launches, errs, (train_s, load_s, step_ms, loss0, loss1) = train_cli_on(
-        "rare forms", data, model_dir, len(RARE_VIEWS), RARE_STEPS, 67)
+        "rare forms", ds.data, ds.model_dir, len(RARE_VIEWS), RARE_STEPS, 67)
     print(f"  train CLI on a COLMAP dataset of {len(RARE_VIEWS)} views of trained_r5 at {W_MAIN}x{H_MAIN}, one "
           f"each {', '.join(RARE_VIEWS)}: -r 1, {RARE_STEPS} iterations in {train_s:.2f} s (scene load "
           f"{load_s:.2f} s), step median {step_ms:.3f} ms; loss {loss0:.6f} -> {loss1:.6f}; launches {launches}; "
@@ -5374,26 +5379,19 @@ def _pil_rest_phase(dev, tmp):
     print("  MPEG, a placeable WMF and an EMF refused by the port and this machine's PIL")
 
     # (b) A COLMAP dataset of trained_r5 whose views are seven of those forms.
-    t0 = time.perf_counter()
-    data, model_dir = os.path.join(tmp, "data"), os.path.join(tmp, "model")
-    model = load_gaussians_ply(TRAINED_PLY)
-    cams, images = orbit_dataset(len(PIL_REST_VIEWS), W_MAIN, H_MAIN)
-    write_colmap_scene(data, cams, images, model["xyz"], dc_colors(model))
-    files, labels, plain = {}, {}, {}
-    for cam, px, form in zip(cams, images, PIL_REST_VIEWS):
+    labels, plain = {}, {}
+
+    def write(i, cam, px, form, stem):
         px = np.ascontiguousarray(px[..., :3])
-        body = pil_rest_files(px, [form])[form]
-        files[cam.image_name], labels[cam.image_name] = cam.image_name + PIL_REST_EXT[form.split()[0]], form
-        os.remove(os.path.join(data, "images", f"{cam.image_name}.png"))
-        with open(os.path.join(data, "images", files[cam.image_name]), "wb") as f:
-            f.write(body)
-        plain[cam.image_name] = px
-    rename_views(data, files)
-    build_s = time.perf_counter() - t0
-    info = read_colmap_scene(data, None, eval_split=False)
-    print(f"  {len(PIL_REST_VIEWS)} views of trained_r5 at {W_MAIN}x{H_MAIN}, made in {build_s:.1f} s; decode ms, "
-          f"median of 5 (host clock), beside this machine's PIL's:")
-    for c in info.train_cameras:
+        write_file(stem + PIL_REST_EXT[form.split()[0]], pil_rest_files(px, [form])[form])
+        labels[cam.image_name], plain[cam.image_name] = form, px
+        return os.path.basename(stem) + PIL_REST_EXT[form.split()[0]]
+
+    ds = form_dataset(tmp, PIL_REST_VIEWS, write)
+    files = ds.files
+    print(f"  {len(PIL_REST_VIEWS)} views of trained_r5 at {W_MAIN}x{H_MAIN}, made in {ds.build_s:.1f} s; decode "
+          f"ms, median of 5 (host clock), beside this machine's PIL's:")
+    for c in ds.cameras:
         ms = []
         for _ in range(5):
             pic, t = synced_ms(image_io.open_image, c.image_path)
@@ -5410,10 +5408,142 @@ def _pil_rest_phase(dev, tmp):
                  f"it ({here})")
         print(f"    {form}: {pic.mode}, {float(np.median(ms)):.2f} ms (PIL {pil_ms})")
     launches, errs, (train_s, load_s, step_ms, loss0, loss1) = train_cli_on(
-        "PIL's other forms", data, model_dir, len(PIL_REST_VIEWS), PIL_REST_STEPS, 71)
+        "PIL's other forms", ds.data, ds.model_dir, len(PIL_REST_VIEWS), PIL_REST_STEPS, 71)
     print(f"  train CLI on a COLMAP dataset of {len(PIL_REST_VIEWS)} views of trained_r5 at {W_MAIN}x{H_MAIN}, one "
           f"each {', '.join(PIL_REST_VIEWS)}: -r 1, {PIL_REST_STEPS} iterations in {train_s:.2f} s (scene load "
           f"{load_s:.2f} s), step median {step_ms:.3f} ms; loss {loss0:.6f} -> {loss1:.6f}; launches {launches}; "
+          f"max abs errors {dict(zip(TRAIN_KERNELS, errs))}")
+    print(f"  phase peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
+          f"wall {time.perf_counter() - t_phase:.1f} s")
+    return launches, errs
+
+
+# ---- phase 5q: AVIF grid images ------------------------------------------------
+
+# PIL 12.1.0's reading of each committed grid fixture (its mode, shape,
+# pixels' SHA-256) and the file's own SHA-256, as
+# tests/fixtures/torch_avif_grid/make_fixtures.py wrote them
+AVIF_GRID_FIXTURES = os.path.join(FIXTURES, "torch_avif_grid")
+AVIF_GRID_STEPS = 30
+# one grid past AV1's baseline cap of 8192x4352 a frame: 2x2 cells of 4096x2304
+AVIF_GRID_BIG = (8192, 4608, (4096, 2304))
+# the seven views, written by this machine's PIL's libavif: (label, cell
+# width and height, subsampling, full range, an alpha grid). libavif writes
+# no alpha for an opaque picture, so the RGBA view has alpha 160 in a band
+# (as 5m's)
+AVIF_GRID_VIEWS = (("2x2 of 960x540, 4:2:0", (960, 540), "4:2:0", True, False),
+                   ("2x1 of 1024x1080, the right column cropped to 896", (1024, 1080), "4:2:0", True, False),
+                   ("3x2 of 640x540, 4:4:4", (640, 540), "4:4:4", True, False),
+                   ("2x2 of 960x540, 4:0:0", (960, 540), "4:0:0", True, False),
+                   ("2x2 of 960x540, RGBA with an alpha grid", (960, 540), "4:2:0", True, True),
+                   ("2x2 of 960x540, limited range", (960, 540), "4:2:0", False, False),
+                   ("1x2 of 1920x540", (1920, 540), "4:2:0", True, False))
+
+
+def avif_grid_file(w, px, cell, subsampling="4:2:0", full_range=True, alpha=False):
+    """The bytes of an RGB picture as a grid of `cell`s written by this
+    machine's PIL's libavif (tests/torch_image_writers.py's
+    avif_grid_bytes, quality 60, speed 8, every core), with `alpha` an
+    alpha grid of 255 but 160 in a band; None without that libavif."""
+    if alpha:
+        alpha = np.full(px.shape[:2], 255, np.uint8)
+        alpha[H_MAIN // 3:H_MAIN // 3 + 96] = 160
+    else:
+        alpha = None
+    return w.avif_grid_bytes(w.yuv_planes(px[..., :3], subsampling, full_range), cell, subsampling, full_range,
+                             alpha=alpha, quality=60, speed=8, threads=os.cpu_count() or 1)
+
+
+def avif_grid_phase(dev):
+    """Phase 5q (module docstring). Returns the compositing kernels'
+    launches in the train CLI run and the max abs errors of the forward,
+    the backward and the routing against their plain versions at its final
+    state."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_avif_grid_")
+    try:
+        return _avif_grid_phase(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _avif_grid_phase(dev, tmp):
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    w = image_writers()
+    writes = w.avif_library() is not None and avif_pil() is not None
+
+    # (a) The committed grids, held to PIL 12.1.0's committed readings, and
+    # one grid past the baseline cap, written and read here.
+    with open(os.path.join(AVIF_GRID_FIXTURES, "sha256.json")) as f:
+        readings = json.load(f)["files"]
+    times, first, split = check_avif_fixtures(list(readings), AVIF_GRID_FIXTURES)
+    print(f"AVIF grids: {len(times)} committed files of tests/fixtures/torch_avif_grid read with PIL 12.1.0's "
+          f"mode, shape and pixels (sha256.json); decode ms, median of 5 (host clock), beside PIL's median of 3 on "
+          f"this machine ({avif_versions()}) [{gpu_line()}]:")
+    for name, (ms, pil_ms) in times.items():
+        print(f"  {name}: {ms:.2f} ms (PIL {pil_ms})")
+    total = sum(split.values())
+    print(f"  one decode of {first}, host clock: " + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in split.items())
+          + f"; the cells' copies {100 * split[avif.GRID_KEY] / total:.2f}% of {total * 1e3:.2f} ms")
+    W, H, cell = AVIF_GRID_BIG
+    if writes:
+        big = np.ascontiguousarray(np.tile(form_picture(), (-(-H // H_MAIN), -(-W // W_MAIN), 1))[:H, :W])
+        t0 = time.perf_counter()
+        data = avif_grid_file(w, big, cell)
+        encode_s = time.perf_counter() - t0
+        path = os.path.join(tmp, "big_grid.avif")
+        write_file(path, data)
+        big_split = {}
+        pic, ms = synced_ms(lambda: avif.decode_avif(data, path, split=big_split))
+        got = (pic.mode, list(pic.pixels.shape), sha256_of(pic.pixels))
+        here, pil_ms = pil_timed_reading(path, 1)
+        if got != here:
+            fail(f"AVIF grid: the {W}x{H} grid reads as {got}, not as this machine's PIL reads it ({here})")
+        print(f"  a {W}x{H} grid of 2x2 cells of {cell[0]}x{cell[1]} at 4:2:0 ({len(data)} bytes, written by this "
+              f"machine's libavif in {encode_s:.1f} s): {ms:.2f} ms, once (PIL {pil_ms}); "
+              + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in big_split.items()))
+    else:
+        print(f"  the {W}x{H} grid: not written (no libavif in this machine's PIL)")
+
+    # (b) A COLMAP dataset of trained_r5 with seven 1080p grid views.
+    fixture = "1080p_grid_420_2x2.avif"
+
+    def write(i, cam, px, view, stem):
+        label, cell_, subsampling, full_range, alpha = view
+        if writes:
+            write_file(stem + ".avif", avif_grid_file(w, px, cell_, subsampling, full_range, alpha))
+        else:
+            shutil.copyfile(os.path.join(AVIF_GRID_FIXTURES, fixture), stem + ".avif")
+        return os.path.basename(stem) + ".avif"
+
+    ds = form_dataset(tmp, AVIF_GRID_VIEWS, write)
+    source = (f"the renders written as grids by this machine's libavif ({avif_versions()}) and held to its PIL's "
+              "reading" if writes else f"the committed {fixture} for each (this machine's PIL ships no libavif), "
+              "held to PIL 12.1.0's committed hash")
+    print(f"  {len(AVIF_GRID_VIEWS)} views of trained_r5 at {W_MAIN}x{H_MAIN}, {source}, made in {ds.build_s:.1f} s; "
+          f"decode ms, median of 5 (host clock), beside this machine's PIL's:")
+    labels = {cam.image_name: view[0] for cam, view in zip(ds.cams, AVIF_GRID_VIEWS)}
+    for c in ds.cameras:
+        ms = []
+        for _ in range(5):
+            pic, t = synced_ms(image_io.open_image, c.image_path)
+            ms.append(t)
+        got = (pic.mode, list(pic.pixels.shape), sha256_of(pic.pixels))
+        here, pil_ms = pil_timed_reading(c.image_path, 3)
+        if not writes:
+            here = tuple(readings[fixture][k] for k in ("mode", "shape", "sha256"))
+        g = avif.parse(open(c.image_path, "rb").read(), c.image_path)["color"]
+        if got != here or not isinstance(g, avif._Grid):
+            fail(f"AVIF grid: view {ds.files[c.image_name]} ({labels[c.image_name]}) reads as {got}, not as PIL "
+                 f"reads it ({here}), or is no grid")
+        print(f"    {labels[c.image_name]}: {g.cols}x{g.rows} cells of {g.sizes[0][0]}x{g.sizes[0][1]}, {pic.mode}, "
+              f"{float(np.median(ms)):.2f} ms (PIL {pil_ms})")
+    launches, errs, (train_s, load_s, step_ms, loss0, loss1) = train_cli_on(
+        "AVIF grid", ds.data, ds.model_dir, len(AVIF_GRID_VIEWS), AVIF_GRID_STEPS, 73)
+    print(f"  train CLI on a COLMAP dataset of {len(AVIF_GRID_VIEWS)} AVIF grid views of trained_r5 at "
+          f"{W_MAIN}x{H_MAIN}: -r 1, {AVIF_GRID_STEPS} iterations in {train_s:.2f} s (scene load {load_s:.2f} s), "
+          f"step median {step_ms:.3f} ms; loss {loss0:.6f} -> {loss1:.6f}; launches {launches}; "
           f"max abs errors {dict(zip(TRAIN_KERNELS, errs))}")
     print(f"  phase peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
           f"wall {time.perf_counter() - t_phase:.1f} s")
@@ -6298,6 +6428,12 @@ def main():
         max_err[k] = max(max_err[k], e)
     phase_done("5p IM, IMT, IPTC, McIDAS, MSP, PCD, PIXAR, SPIDER, SUN, XBM, XPM, XV")
 
+    # ---- 5q. AVIF grid images -------------------------------------------
+    avif_grid_train_launches, avif_grid_errs = avif_grid_phase(dev)
+    for k, e in zip(TRAIN_KERNELS, avif_grid_errs):
+        max_err[k] = max(max_err[k], e)
+    phase_done("5q AVIF grids")
+
     # ---- 5d. sharded path ---------------------------------------------
     sharded_launches, strip_errs = sharded_phase(dev, gt, center, dist, train_capacity,
                                                  single_ref, step_ms)
@@ -6387,6 +6523,7 @@ def main():
                     "jpeg_arith_train": jpeg_arith_train_launches[name],
                     "rare_forms_train": rare_forms_train_launches[name],
                     "pil_rest_train": pil_rest_train_launches[name],
+                    "avif_grid_train": avif_grid_train_launches[name],
                     **{path: counts[name] for path, counts in sharded_launches.items()},
                     "bench": bench_launches[name]}
         return {"profiler": prof_launches[name]}

@@ -9,8 +9,13 @@ PIL's 8-bit `avifRGBImage`. This module follows those three steps:
   compatible brand `avif`, or `avis`), then `meta` (`hdlr` "pict" first,
   `pitm`, `iloc` versions 0-2 with construction methods 0 (file) and 1
   (`idat`), `iinf` / `infe` versions 2-3, `iprp` / `ipco` / `ipma`, `iref`
-  `auxl` and `prem`) and the properties `av1C`, `ispe`, `pixi`, `colr`
-  (`nclx`, ICC), `auxC` (the alpha URNs), `irot`, `imir`, `clap`; or,
+  `auxl`, `prem` and `dimg`) and the properties `av1C`, `ispe`, `pixi`,
+  `colr` (`nclx`, ICC), `auxC` (the alpha URNs), `irot`, `imir`, `clap`;
+  a `grid` primary item (a tiled image: its ImageGrid body, its `av01`
+  cells in `dimg` order, its alpha grid or an alpha item for each cell)
+  with libavif's grid rules, each cell decoded on its own and the cells
+  copied into whole planes, cropped to the output size, before one
+  conversion; or,
   where libavif picks the tracks of an image sequence (`avis`), the
   `moov` box's colour and alpha tracks (`tkhd`, `mdhd`, `tref` `auxl` and
   `prem`, the `av01` sample entry's `av1C`, `colr` and `auxi`) and their
@@ -42,8 +47,9 @@ INVALID_FTYP, BMFF_PARSE_FAILED, TRUNCATED_DATA and NO_CONTENT, which
 PIL's decoder raises as SyntaxError, for the track boxes too), this
 raises `image_io.NotThisFormat`. What PIL raises otherwise, and the AV1
 tools this port does not decode yet (superres, 10- and 12-bit samples,
-`grid` and `tmap` items), and the colour matrices libavif cannot
-convert, raise a `ValueError` naming the tool and the file.
+`tmap` primary items, items whose AV1 frame libavif scales to their
+`ispe`), and the colour matrices libavif cannot convert, raise a
+`ValueError` naming the tool and the file.
 """
 
 from __future__ import annotations
@@ -63,6 +69,7 @@ ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha", b"urn:mpeg:hevc:20
 SPLIT_KEYS = ("container", "av1_symbols_and_reconstruction", "av1_deblocking", "av1_cdef", "av1_loop_restoration",
               "av1_film_grain", "yuv_to_rgb")
 AV1_KEYS = SPLIT_KEYS[1:6]  # the AV1 decoder's own steps, an alpha item's added in
+GRID_KEY = "grid_copies"  # a grid's copies of its cells into the whole planes (a grid's split only)
 # which tools a frame used: `av1_planes(..., tools=...)` (gs_av1_decode's `tools`)
 RESTORATION_TYPES = ("none", "wiener", "sgrproj", "switchable")
 CDEF_KINDS = ("primary", "secondary", "both")
@@ -126,6 +133,9 @@ class _Item:
         self.method = 0
         self.props = []  # (kind, body)
         self.refs = {}  # kind -> [to ids]
+        self.unknown_essential = False  # an essential property of a kind libavif does not know
+        self.aux_for = 0  # libavif's auxForID: the last item this item's `auxl` names
+        self.dimg_for, self.dimg_index = 0, 0  # the last `dimg` reference to this item: its grid, its place
 
 
 def _top_level(data: bytes):
@@ -264,12 +274,12 @@ def _meta_items(data: bytes, meta):
                         q += 1
                         for _ in range(n):
                             if f2 & 1:
-                                index = _uint(data, q, 2) & 0x7FFF
+                                index, essential = _uint(data, q, 2) & 0x7FFF, data[q] >> 7
                                 q += 2
                             else:
-                                index = data[q] & 0x7F
+                                index, essential = data[q] & 0x7F, data[q] >> 7
                                 q += 1
-                            it.props.append(index)
+                            it.props.append((index, essential))
         elif kind == b"iref":
             v, _, p = _full(data, bs)
             n = 2 if v == 0 else 4
@@ -279,9 +289,19 @@ def _meta_items(data: bytes, meta):
                 q += n
                 count = _uint(data, q, 2)
                 q += 2
-                src.refs.setdefault(k2, []).extend(_uint(data, q + n * i, n) for i in range(count))
+                to = [_uint(data, q + n * i, n) for i in range(count)]
+                src.refs.setdefault(k2, []).extend(to)
+                if k2 == b"auxl" and to:
+                    src.aux_for = to[-1]
+                elif k2 == b"dimg":  # derived images refer the other way: each cell names its grid
+                    if b"dimg" in src.refs and len(src.refs[b"dimg"]) > len(to):
+                        raise _Passed(f"a second dimg box from item {src.id} (BMFF_PARSE_FAILED)")
+                    for i, cell in enumerate(to):
+                        item(cell).dimg_for, item(cell).dimg_index = src.id, i
     for it in items.values():
-        it.props = [props[i - 1] for i in it.props if 0 < i <= len(props)]
+        it.unknown_essential = any(essential and props[i - 1][0] not in KNOWN_PROPERTIES
+                                   for i, essential in it.props if 0 < i <= len(props))
+        it.props = [props[i - 1] for i, _ in it.props if 0 < i <= len(props)]
     return items, primary, idat
 
 
@@ -295,50 +315,192 @@ def _colour(info: dict, props) -> dict:
     return info
 
 
+class _Grid:
+    """A `grid` item as libavif lays it out: its ImageGrid body (rows and
+    columns, the output size) and its cells in `dimg` order (each cell's AV1
+    data and `ispe` size)."""
+
+    def __init__(self, rows, cols, width, height, cells, sizes):
+        self.rows, self.cols, self.width, self.height = rows, cols, width, height
+        self.cells, self.sizes = cells, sizes
+
+
+# the item properties libavif knows (read.c's supportedTypes): an essential
+# property of another kind makes it skip the item, and refuse it as a cell
+KNOWN_PROPERTIES = (b"ispe", b"auxC", b"colr", b"av1C", b"pasp", b"clap", b"irot", b"imir", b"pixi", b"a1op",
+                    b"lsel", b"a1lx", b"clli")
+IMAGE_SIZE_LIMIT, IMAGE_DIMENSION_LIMIT = 16384 * 16384, 32768  # libavif's defaults, which PIL keeps
+
+
+def _too_large(w: int, h: int) -> bool:
+    """libavif's avifDimensionsTooLarge at its default limits."""
+    return w > IMAGE_SIZE_LIMIT // h or w > IMAGE_DIMENSION_LIMIT or h > IMAGE_DIMENSION_LIMIT
+
+
+def _payload(data: bytes, idat: bytes, it) -> bytes:
+    out = bytearray()
+    for off, length in it.extents:
+        src = idat if it.method == 1 else data
+        if off + length > len(src):
+            raise _Passed("an item's data past the end of the file (TRUNCATED_DATA)")
+        out += src[off:off + length]
+    return bytes(out)
+
+
+def _prop(it, kind: bytes):
+    return next((body for k, body in it.props if k == kind), None)
+
+
+def _check_items(items: dict):
+    """libavif's check of every image item (`av01` or `grid`) it does not
+    skip for an unknown essential property: an `ispe` of a size other than
+    0 and within its limits (BMFF_PARSE_FAILED)."""
+    for it in items.values():
+        if it.unknown_essential or it.type not in (b"av01", b"grid"):
+            continue
+        ispe = _prop(it, b"ispe")
+        if ispe is None:
+            raise _Passed(f"an item of type {it.type.decode()} without its ispe property (BMFF_PARSE_FAILED)")
+        w, h = struct.unpack(">II", ispe[4:12])
+        if w == 0 or h == 0 or _too_large(w, h):
+            raise _Passed(f"an item of size {w}x{h} (ispe; BMFF_PARSE_FAILED)")
+
+
+def _grid_error(name: str, rule: str) -> ValueError:
+    return ValueError(f"{name}: an AVIF grid item {rule} (libavif: INVALID_IMAGE_GRID; PIL: Failed to decode image)")
+
+
+def _grid(data: bytes, items: dict, grid, idat: bytes, name: str) -> _Grid:
+    """A `grid` item's ImageGrid body and cells, with libavif's rules
+    (avifParseImageGridBox, avifFillDimgIdxToItemIdxArray). What libavif
+    fails as INVALID_IMAGE_GRID (PIL: Failed to decode image) raises a
+    ValueError naming the rule; its parse failures (PIL: SyntaxError)
+    raise `_Passed`."""
+    body = _payload(data, idat, grid)
+    if not body or body[0] != 0:
+        raise _grid_error(name, f"of ImageGrid version {body[0]}" if body else "with an empty ImageGrid body")
+    field = 4 if len(body) > 1 and body[1] & 1 else 2
+    if len(body) < 4 + 2 * field:
+        raise _grid_error(name, f"whose ImageGrid body is cut short ({len(body)} bytes)")
+    if len(body) > 4 + 2 * field:
+        raise _grid_error(name, f"whose ImageGrid body has {len(body) - 4 - 2 * field} bytes after the output size")
+    rows, cols = body[2] + 1, body[3] + 1
+    width, height = _uint(body, 4, field), _uint(body, 4 + field, field)
+    if width == 0 or height == 0 or _too_large(width, height):
+        raise _grid_error(name, f"of output size {width}x{height}")
+    cells = [it for it in items.values() if it.dimg_for == grid.id]
+    if len(cells) != rows * cols:
+        raise _grid_error(name, f"of {rows}x{cols} cells with {len(cells)} dimg references")
+    order = [None] * len(cells)
+    for it in cells:
+        if it.dimg_index >= len(cells) or order[it.dimg_index] is not None:
+            raise _grid_error(name, f"whose dimg references name a cell twice (item {it.id})")
+        order[it.dimg_index] = it
+    out = _grid_cells(data, idat, rows, cols, width, height, order, name)
+    _check_pixi(grid, _prop(order[0], b"av1C"))
+    return out
+
+
+def _grid_cells(data: bytes, idat: bytes, rows, cols, width, height, order, name: str) -> _Grid:
+    """The cells of a grid in `dimg` order, with libavif's rules
+    (avifDecoderGenerateImageGridTiles, avifDecoderItemValidateProperties):
+    each an `av01` item of no unknown essential property, with data; the
+    first with an `av1C`, the others with one equal in every field."""
+    for it in order:
+        if it.type != b"av01":
+            raise _grid_error(name, f"with a cell (item {it.id}) of type {it.type!r}")
+        if it.unknown_essential:
+            raise _grid_error(name, f"with a cell (item {it.id}) of an unknown essential property")
+        if sum(n for _, n in it.extents) == 0:
+            raise _Passed(f"a grid cell (item {it.id}) with no data")
+    first = _prop(order[0], b"av1C")
+    if first is None:
+        raise _grid_error(name, "whose first cell has no av1C property")
+    for it in order[1:]:
+        config = _prop(it, b"av1C")
+        if config is None:
+            raise _Passed(f"a grid cell (item {it.id}) without its av1C property (BMFF_PARSE_FAILED)")
+        if config[1:3] != first[1:3]:
+            raise _Passed(f"a grid cell (item {it.id}) whose av1C differs from the first cell's (BMFF_PARSE_FAILED)")
+    sizes = [struct.unpack(">II", _prop(it, b"ispe")[4:12]) for it in order]
+    return _Grid(rows, cols, width, height, [_payload(data, idat, it) for it in order], sizes)
+
+
+def _check_pixi(it, config: bytes):
+    """libavif: each plane depth of a `pixi` property is the av1C's depth
+    (BMFF_PARSE_FAILED)."""
+    pixi = _prop(it, b"pixi")
+    if pixi is None or len(config) < 3:
+        return
+    depth = 12 if config[2] & 0x60 == 0x60 else 10 if config[2] & 0x40 else 8
+    if any(d != depth for d in pixi[5:5 + pixi[4]]):
+        raise _Passed(f"an item whose pixi depths {list(pixi[5:5 + pixi[4]])} are not its av1C's {depth} "
+                      "(BMFF_PARSE_FAILED)")
+
+
+def _alpha_urn(it) -> bool:
+    auxc = _prop(it, b"auxC")
+    return auxc is not None and auxc[4:].split(b"\0")[0] in ALPHA_URNS
+
+
+def _alpha_item(items: dict, colour, name: str):
+    """libavif's avifMetaFindAlphaItem: the first `av01` or `grid` item with
+    data and no unknown essential property whose `auxl` names the colour
+    and whose `auxC` is an alpha URN. Else, for a grid, the one such item
+    whose `auxl` names each cell (in item order), as a list: libavif lays
+    them out as the colour's grid; None where a cell has none."""
+    for it in items.values():
+        if sum(n for _, n in it.extents) and not it.unknown_essential and it.type in (b"av01", b"grid") \
+                and it.aux_for == colour.id and _alpha_urn(it):
+            return it
+    if colour.type != b"grid":
+        return None
+    per_cell = []
+    for cell in items.values():
+        if cell.dimg_for != colour.id:
+            continue
+        aux = [it for it in items.values() if it.aux_for == cell.id and _alpha_urn(it)]
+        if not aux:
+            return None
+        if len(aux) > 1 or aux[0].dimg_for:
+            raise _grid_error(name, f"whose cell {cell.id} has {len(aux)} alpha items, or one that is a grid's cell")
+        per_cell.append(aux[0])
+    return per_cell
+
+
 def _from_items(data: bytes, items: dict, primary, idat: bytes, name: str) -> dict:
-    """The primary item and its alpha item (libavif's item source)."""
+    """The primary item and its alpha item (libavif's item source). A
+    `grid` item's "color" (or "alpha") is a `_Grid`, else the AV1 bytes."""
     if primary is None or primary not in items:
         raise _Passed("no primary item (NO_CONTENT)")
     colour = items[primary]
-    if colour.type in (b"grid", b"tmap"):
-        what = "tiled image" if colour.type == b"grid" else "tone-mapped image"
-        raise ValueError(f"{name}: a {colour.type.decode()} primary item (an AVIF {what}); the port reads "
-                         "single-image AVIF files")
-    if colour.type != b"av01":
+    if colour.type == b"tmap":
+        raise ValueError(f"{name}: a tmap primary item (an AVIF tone-mapped image); the port reads AVIF files of "
+                         "av01 and grid items")
+    if colour.type not in (b"av01", b"grid"):
         raise ValueError(f"{name}: a primary item of type {colour.type!r} (PIL: Failed to decode image)")
-    alpha = None
-    for it in items.values():
-        if it is colour or it.type != b"av01" or primary not in it.refs.get(b"auxl", []):
-            continue
-        for kind, body in it.props:
-            if kind == b"auxC" and body[4:].split(b"\0")[0] in ALPHA_URNS:
-                alpha = it
-                break
-        if alpha is not None:
-            break
-    premultiplied = alpha is not None and alpha.id in colour.refs.get(b"prem", [])
+    if colour.unknown_essential or not sum(n for _, n in colour.extents):
+        raise ValueError(f"{name}: a primary item with no data or an unknown essential property (libavif: "
+                         "MISSING_IMAGE_ITEM; PIL: Failed to decode image)")
+    _check_items(items)
+    alpha = _alpha_item(items, colour, name)
 
-    def payload(it):
-        out = bytearray()
-        for off, length in it.extents:
-            src = idat if it.method == 1 else data
-            if off + length > len(src):
-                raise _Passed("an item's data past the end of the file (TRUNCATED_DATA)")
-            out += src[off:off + length]
-        return bytes(out)
+    def source(it):
+        if it.type == b"grid":
+            return _grid(data, items, it, idat, name)
+        if _prop(it, b"av1C") is None:
+            raise _Passed("an av01 item without its av1C property (BMFF_PARSE_FAILED)")
+        _check_pixi(it, _prop(it, b"av1C"))
+        return _payload(data, idat, it)
 
-    for it in (colour, alpha):
-        if it is None:
-            continue
-        kinds = [kind for kind, _ in it.props]
-        if b"av1C" not in kinds or b"ispe" not in kinds:
-            raise _Passed(f"an av01 item without its {'av1C' if b'av1C' not in kinds else 'ispe'} property "
-                          "(BMFF_PARSE_FAILED)")
-    info = {"color": payload(colour), "alpha": payload(alpha) if alpha is not None else None,
-            "premultiplied": premultiplied, "nclx": None, "size": None, "source": "item"}
-    for kind, body in colour.props:
-        if kind == b"ispe" and info["size"] is None:
-            info["size"] = struct.unpack(">II", body[4:12])
+    info = {"color": source(colour), "alpha": None, "nclx": None, "source": "item",
+            "premultiplied": isinstance(alpha, _Item) and alpha.id in colour.refs.get(b"prem", []),
+            "size": struct.unpack(">II", _prop(colour, b"ispe")[4:12])}
+    if isinstance(alpha, list):  # an alpha item for each cell of the colour grid
+        g = info["color"]
+        info["alpha"] = _grid_cells(data, idat, g.rows, g.cols, g.width, g.height, alpha, name)
+    elif alpha is not None:
+        info["alpha"] = source(alpha)
     return _colour(info, colour.props)
 
 
@@ -521,7 +683,8 @@ def _library(name: str):
 def decode_avif(data: bytes, name: str = "<bytes>", split: dict | None = None):
     """The `image_io.Picture` of AVIF bytes: PIL's mode ("RGB", or "RGBA"
     with an alpha item) and pixels. `split`, where given, receives the
-    seconds of each step (`SPLIT_KEYS`)."""
+    seconds of each step (`SPLIT_KEYS`, the AV1 steps summed over a grid's
+    cells, and `GRID_KEY` for a grid)."""
     from gaussian_splatting_torch.utils.image_io import NotThisFormat, Picture
 
     t0 = time.perf_counter()
@@ -533,10 +696,10 @@ def decode_avif(data: bytes, name: str = "<bytes>", split: dict | None = None):
         raise NotThisFormat(f"{name}: AVIF boxes cut short (BMFF_PARSE_FAILED; PIL: SyntaxError, passed on)") from None
     if info["size"] is not None and info["size"][0] * info["size"][1] > MAX_PIXELS:
         raise ValueError(f"{name}: an image of more than {MAX_PIXELS} pixels (PIL's decompression bomb limit)")
-    times = {SPLIT_KEYS[0]: time.perf_counter() - t0}
-    y, u, v, seq = av1_planes(info["color"], name, times)
+    times = {SPLIT_KEYS[0]: time.perf_counter() - t0, **dict.fromkeys(AV1_KEYS, 0.0)}
+    y, u, v, seq = _planes(info["color"], name, times, "colour")
     h, w = y.shape
-    if info["size"] is not None and info["size"] != (w, h):
+    if not isinstance(info["color"], _Grid) and info["size"] is not None and info["size"] != (w, h):
         iw, ih = info["size"]
         where = "an item whose ispe" if info["source"] == "item" else "a track whose tkhd"
         raise ValueError(f"{name}: an AV1 frame of {w}x{h} in {where} says {iw}x{ih}")
@@ -545,14 +708,10 @@ def decode_avif(data: bytes, name: str = "<bytes>", split: dict | None = None):
         cp, _, mc, full = info["nclx"]
     a = None
     if info["alpha"] is not None:
-        part = {}
-        a, _, _, alpha_seq = av1_planes(info["alpha"], name, part)
-        if not alpha_seq["full_range"]:  # libavif widens limited-range alpha: (a - 16) * 255 / 219, rounded
-            a = np.clip(((a.astype(np.int32) - 16) * 255 + 109) // 219, 0, 255).astype(np.uint8)
-        for key in AV1_KEYS:
-            times[key] += part[key]
+        a, _, _, _ = _planes(info["alpha"], name, times, "alpha")
         if a.shape != y.shape:
-            raise ValueError(f"{name}: an alpha item of {a.shape[1]}x{a.shape[0]} for a {w}x{h} image "
+            what = "an alpha grid" if isinstance(info["alpha"], _Grid) else "an alpha item"
+            raise ValueError(f"{name}: {what} of {a.shape[1]}x{a.shape[0]} for a {w}x{h} image "
                              "(PIL: Failed to decode image)")
     t1 = time.perf_counter()
     out = np.empty((h, w, 4 if a is not None else 3), np.uint8)
@@ -564,9 +723,93 @@ def decode_avif(data: bytes, name: str = "<bytes>", split: dict | None = None):
         raise ValueError(f"{name}: {msg.value.decode()}; the port converts AVIF colour as libavif does for the "
                          "BT.601, BT.709 and BT.2020 matrices, identity, and 4:0:0")
     times[SPLIT_KEYS[-1]] = time.perf_counter() - t1
+    if isinstance(info["color"], _Grid) and info["size"] != (w, h):
+        out = _as_pil_sizes(out, info["size"], name)
     if split is not None:
         split.update(times)
     return Picture(out, "RGBA" if a is not None else "RGB")
+
+
+def _as_pil_sizes(out, size, name):
+    """PIL's picture where a grid's output size is not its `ispe`: PIL's
+    size is the `ispe`, and its raw decoder reads that many rows of that
+    many pixels from the front of libavif's RGB(A) buffer of the output
+    size; where the buffer is too short, PIL's load raises."""
+    iw, ih = size
+    c = out.shape[2]
+    flat = out.reshape(-1)
+    if flat.size < iw * ih * c:
+        raise ValueError(f"{name}: an AVIF grid of output {out.shape[1]}x{out.shape[0]} under an ispe of {iw}x{ih} "
+                         "(PIL: image file is truncated)")
+    return np.ascontiguousarray(flat[:iw * ih * c].reshape(ih, iw, c))
+
+
+def _planes(item, name, times, what):
+    """(Y, U, V, sequence info) of one AV1 item, or of a `_Grid`'s cells
+    laid out as libavif's avifDecoderDataCopyTileToImage lays them out:
+    each cell at (column x cell width, row x cell height), the right column
+    and the bottom row cut to the output size (chroma to
+    `(w + ss_x) >> ss_x`), with libavif's checks of the cells
+    (INVALID_IMAGE_GRID). An alpha item's Y is widened to full range where
+    its sequence header says limited, as libavif does, a grid's cell by
+    cell. Adds the AV1 steps' seconds to `times`; a grid's copies under
+    `GRID_KEY`."""
+    def one(av1):
+        part = {}
+        y, u, v, seq = av1_planes(av1, name, part)
+        for key in AV1_KEYS:
+            times[key] += part[key]
+        if what == "alpha" and not seq["full_range"]:  # libavif: (a - 16) * 255 / 219, rounded
+            y = np.clip(((y.astype(np.int32) - 16) * 255 + 109) // 219, 0, 255).astype(np.uint8)
+        return y, u, v, seq
+
+    if not isinstance(item, _Grid):
+        return one(item)
+
+    def bad(rule):
+        return ValueError(f"{name}: an AVIF {what} grid {rule} (libavif: INVALID_IMAGE_GRID; PIL: Failed to decode "
+                          "image)")
+
+    g, W, H = item, item.width, item.height
+    keys = ("mono", "ss_x", "ss_y", "full_range", "cp", "tc", "mc") if what == "colour" else ()
+    copy_s = 0.0
+    for k, (av1, size) in enumerate(zip(g.cells, g.sizes)):
+        y, u, v, seq = one(av1)
+        ch, cw = y.shape
+        if (cw, ch) != size:
+            raise ValueError(f"{name}: a grid cell whose AV1 frame is {cw}x{ch} and its ispe {size[0]}x{size[1]} "
+                             "(libavif scales it; the port reads cells of their ispe's size)")
+        if k == 0:
+            first, first_seq = (cw, ch), seq
+            if cw * g.cols < W or ch * g.rows < H:
+                raise bad(f"whose {g.rows}x{g.cols} cells of {cw}x{ch} do not cover its {W}x{H}")
+            if cw * (g.cols - 1) >= W or ch * (g.rows - 1) >= H:
+                raise bad(f"whose last row or column of {cw}x{ch} cells lies outside its {W}x{H}")
+            if cw < 64 or ch < 64:
+                raise bad(f"of {cw}x{ch} cells (libavif: at least 64x64)")
+            odd = (seq["ss_x"] and (W % 2 or cw % 2)) or (seq["ss_y"] and (H % 2 or ch % 2))
+            if what == "colour" and not seq["mono"] and odd:
+                raise bad(f"of {cw}x{ch} cells in {W}x{H}, odd where the chroma is subsampled")
+            sx, sy = seq["ss_x"], seq["ss_y"]
+            Y = np.empty((H, W), np.uint8)
+            U = V = None
+            if u is not None:
+                U, V = (np.empty(((H + sy) >> sy, (W + sx) >> sx), np.uint8) for _ in range(2))
+        elif (cw, ch) != first or any(seq[key] != first_seq[key] for key in keys):
+            raise bad(f"whose cell {k} differs from its first cell in size, subsampling, range or colour "
+                      "description (mismatched tiles)")
+        t = time.perf_counter()
+        r, c = divmod(k, g.cols)
+        x0, y0 = c * cw, r * ch
+        w, h = min(cw, W - x0), min(ch, H - y0)
+        Y[y0:y0 + h, x0:x0 + w] = y[:h, :w]
+        if U is not None:
+            cx, cy, cwc, chc = x0 >> sx, y0 >> sy, (w + sx) >> sx, (h + sy) >> sy
+            U[cy:cy + chc, cx:cx + cwc] = u[:chc, :cwc]
+            V[cy:cy + chc, cx:cx + cwc] = v[:chc, :cwc]
+        copy_s += time.perf_counter() - t
+    times[GRID_KEY] = times.get(GRID_KEY, 0.0) + copy_s
+    return Y, U, V, first_seq
 
 
 def av1_planes(av1: bytes, name: str, times=None, tools=None):

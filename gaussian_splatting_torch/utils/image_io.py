@@ -11,8 +11,9 @@ its own:
   (`utils/jpeg.py`, PIL's bits: grey, RGB, and CMYK from CMYK and YCCK
   files), a PPM / PGM / PBM / PFM (PIL's magics: P1 to P6, Pf and its
   extensions) to `utils/ppm.py`, a PNG to `open_png`, an AVIF to
-  `utils/avif.py` (the HEIF container; the AV1 intra frame, its deblocking
-  and libavif's YUV -> RGB by `csrc/av1_decode.cc`), a CUR and an ICO to
+  `utils/avif.py` (the HEIF container, grid images too; the AV1 intra
+  frame, its deblocking and libavif's YUV -> RGB by
+  `csrc/av1_decode.cc`), a CUR and an ICO to
   `utils/ico.py`, a PCX and a DCX to `utils/pcx.py`, a DDS to
   `utils/dds.py` (uncompressed, luminance, palette and BC1-BC7 surfaces,
   the blocks by `csrc/bcn_decode.cc`), a JPEG 2000 file (a

@@ -19,7 +19,7 @@ writes (`film-grain-table`). Image sequences (`avis`, written by PIL's
 and the primary item is held to PIL on files whose brands and boxes are
 edited (stated beside each case). The tools this port does not decode yet
 (superres, 10-bit) are refused by name, on PIL-written files whose header
-bits are edited.
+bits are edited. Grid images are held to PIL in `test_torch_avif_grid.py`.
 """
 
 import hashlib
@@ -1201,9 +1201,17 @@ def with_primary_type(data: bytes, kind: bytes) -> bytes:
 @requires_avif
 @pytest.mark.parametrize("kind", [b"grid", b"tmap"])
 def test_grid_and_tmap_items_are_refused(tmp_path, cxx, kind):
+    """A PIL-written file whose `av01` primary item is relabelled: as a
+    `grid`, its AV1 data is read as an ImageGrid body whose version is not
+    0, which PIL refuses (libavif: INVALID_IMAGE_GRID) and so does the
+    port, naming the rule; a `tmap` primary item is refused by name."""
     data = pil_avif(picture(33, 65, 95), quality=50)
     assert avif.parse(data, "x")["color"]
-    assert_refused(tmp_path, with_primary_type(data, kind), kind.decode())
+    relabelled = with_primary_type(data, kind)
+    if kind == b"grid":
+        with pytest.raises(RuntimeError, match="Invalid image grid"):
+            np.asarray(Image.open(io.BytesIO(relabelled)))
+    assert_refused(tmp_path, relabelled, "grid item of ImageGrid version" if kind == b"grid" else "tmap")
 
 
 # ---- PIL's accept rule and the fall-through ----

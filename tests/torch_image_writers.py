@@ -2652,3 +2652,199 @@ def emf_bytes(bounds=(0, 0, 99, 49), frame=(0, 0, 2645, 1322)) -> bytes:
     head = struct.pack("<II4i4i", 1, 108, *bounds, *frame) + b" EMF" + struct.pack("<IIIHH", 0x10000, 128, 2, 1, 0)
     head = head.ljust(108, b"\0")
     return head + struct.pack("<IIIII", 14, 20, 0, 16, 20)
+
+
+# ---- AVIF grids and gain maps (libavif's encoder, where PIL ships it) ----
+
+AVIF_FORMATS = {"4:4:4": 1, "4:2:2": 2, "4:2:0": 3, "4:0:0": 4}  # avifPixelFormat
+AVIF_SUBSAMPLING = {"4:4:4": (0, 0), "4:2:2": (1, 0), "4:2:0": (1, 1), "4:0:0": None}
+# byte offsets in libavif 1.x's avifImage (its ABI within soname 16) and avifEncoder
+_IMAGE_AT = {"range": 16, "planes": 24, "row_bytes": 48, "alpha": 64, "alpha_row_bytes": 72, "premultiplied": 80,
+             "cicp": 104, "properties": 200, "gain_map": 216}
+_ENCODER_AT = {"threads": 4, "speed": 8, "quality": 32, "quality_alpha": 36}
+
+
+def avif_library():
+    """PIL's bundled libavif (`pillow.libs/libavif-*.so*`) through ctypes,
+    with the signatures the writers call, or None where PIL ships none or
+    its major version is not 1."""
+    import ctypes
+    import glob
+    import importlib.util
+
+    spec = importlib.util.find_spec("PIL")
+    if spec is None or spec.origin is None:
+        return None
+    found = sorted(glob.glob(os.path.join(os.path.dirname(os.path.dirname(spec.origin)), "pillow.libs",
+                                          "libavif-*.so*")))
+    if not found:
+        return None
+    lib = ctypes.CDLL(found[0])
+    lib.avifVersion.restype = ctypes.c_char_p
+    if not lib.avifVersion().startswith(b"1."):
+        return None
+    P, u32 = ctypes.c_void_p, ctypes.c_uint32
+    for fn, res, args in (("avifImageCreate", P, [u32, u32, u32, ctypes.c_int]),
+                          ("avifImageAllocatePlanes", ctypes.c_int, [P, ctypes.c_int]),
+                          ("avifImageDestroy", None, [P]), ("avifEncoderCreate", P, []),
+                          ("avifEncoderAddImageGrid", ctypes.c_int, [P, u32, u32, ctypes.POINTER(P), ctypes.c_int]),
+                          ("avifEncoderAddImage", ctypes.c_int, [P, P, ctypes.c_uint64, ctypes.c_int]),
+                          ("avifEncoderFinish", ctypes.c_int, [P, P]), ("avifEncoderDestroy", None, [P]),
+                          ("avifRWDataFree", None, [P]), ("avifGainMapCreate", P, []),
+                          ("avifImageComputeGainMap", ctypes.c_int, [P, P, P, P]),
+                          ("avifImageAddOpaqueProperty", ctypes.c_int, [P, ctypes.c_char_p, P, ctypes.c_size_t])):
+        getattr(lib, fn).restype, getattr(lib, fn).argtypes = res, args
+    return lib
+
+
+def yuv_planes(rgb: np.ndarray, subsampling: str = "4:2:0", full_range: bool = True):
+    """(Y, U, V) of an RGB picture by the BT.601 matrix, full or limited
+    range, the chroma averaged over each subsampled block (U and V None
+    for 4:0:0)."""
+    f = rgb[..., :3].astype(np.float64)
+    y = 0.299 * f[..., 0] + 0.587 * f[..., 1] + 0.114 * f[..., 2]
+    u, v = (f[..., 2] - y) / 1.772 + 128, (f[..., 0] - y) / 1.402 + 128
+    if not full_range:
+        y, u, v = 16 + y * 219 / 255, 128 + (u - 128) * 224 / 255, 128 + (v - 128) * 224 / 255
+    ss = AVIF_SUBSAMPLING[subsampling]
+    Y = np.clip(np.rint(y), 0, 255).astype(np.uint8)
+    if ss is None:
+        return Y, None, None
+    h, w = Y.shape
+    sx, sy = ss
+    out = []
+    for c in (u, v):
+        c = np.pad(c, ((0, (-h) % (1 << sy)), (0, (-w) % (1 << sx))), mode="edge")
+        c = c.reshape(c.shape[0] >> sy, 1 << sy, c.shape[1] >> sx, 1 << sx).mean(axis=(1, 3))
+        out.append(np.clip(np.rint(c), 0, 255).astype(np.uint8))
+    return Y, out[0], out[1]
+
+
+def _avif_image(lib, planes, subsampling, full_range, cicp, alpha=None, premultiplied=False):
+    """An avifImage of 8-bit planes (Y, U, V) and alpha, or None."""
+    import ctypes
+
+    y, u, v = planes
+    h, w = y.shape
+    im = lib.avifImageCreate(w, h, 8, AVIF_FORMATS[subsampling])
+    ctypes.c_int.from_address(im + _IMAGE_AT["range"]).value = int(full_range)
+    ctypes.c_int.from_address(im + _IMAGE_AT["premultiplied"]).value = int(premultiplied)
+    for k, value in enumerate(cicp):
+        ctypes.c_uint16.from_address(im + _IMAGE_AT["cicp"] + 2 * k).value = value
+    if lib.avifImageAllocatePlanes(im, 1 | (2 if alpha is not None else 0)):
+        lib.avifImageDestroy(im)
+        raise ValueError("libavif could not allocate the planes")
+
+    def put(ptr_at, rb_at, plane):
+        ptr = ctypes.c_void_p.from_address(im + ptr_at).value
+        rb = ctypes.c_uint32.from_address(im + rb_at).value
+        plane = np.ascontiguousarray(plane)
+        for r in range(plane.shape[0]):
+            ctypes.memmove(ptr + r * rb, plane[r].ctypes.data, plane.shape[1])
+
+    for k, plane in enumerate((y, u, v)):
+        if plane is not None:
+            put(_IMAGE_AT["planes"] + 8 * k, _IMAGE_AT["row_bytes"] + 4 * k, plane)
+    if alpha is not None:
+        put(_IMAGE_AT["alpha"], _IMAGE_AT["alpha_row_bytes"], alpha)
+    return im
+
+
+def _avif_encode(lib, add, quality, speed, threads):
+    """The bytes libavif's encoder writes after `add(encoder)` adds the
+    images (each call returning libavif's result)."""
+    import ctypes
+
+    enc = lib.avifEncoderCreate()
+    try:
+        for key, value in (("threads", threads), ("speed", speed), ("quality", quality), ("quality_alpha", quality)):
+            ctypes.c_int.from_address(enc + _ENCODER_AT[key]).value = value
+        result = add(enc)
+        out = (ctypes.c_uint8 * 16)()  # avifRWData
+        if result == 0:
+            result = lib.avifEncoderFinish(enc, ctypes.addressof(out))
+        if result:
+            raise ValueError(f"libavif's encoder failed (avifResult {result})")
+        ptr, size = struct.unpack("<QQ", bytes(out))
+        data = ctypes.string_at(ptr, size)
+        lib.avifRWDataFree(ctypes.addressof(out))
+        return data
+    finally:
+        lib.avifEncoderDestroy(enc)
+
+
+def avif_grid_bytes(planes, cell, subsampling: str = "4:2:0", full_range: bool = True, alpha=None,
+                    premultiplied: bool = False, quality: int = 60, speed: int = 6, threads: int = 1,
+                    cicp=(1, 13, 6)):
+    """An AVIF grid image as libavif's avifEncoderAddImageGrid writes it,
+    or None where PIL ships no libavif: the whole-picture planes (Y, U, V;
+    U and V None for 4:0:0) and `alpha` cut into cells of `cell` = (width,
+    height) pixels, the right column and the bottom row narrower where the
+    picture is (libavif pads them and writes the picture's size as the
+    grid's output); a grid `Color` item of `av01` cells and, with alpha, a
+    grid `Alpha` item of its own cells. `cicp`: the colour primaries,
+    transfer and matrix of the `colr` box (PIL's defaults). libavif refuses
+    cells under 64 pixels and odd cells under chroma subsampling."""
+    import ctypes
+
+    lib = avif_library()
+    if lib is None:
+        return None
+    y = planes[0]
+    h, w = y.shape
+    cw, ch = cell
+    ss = AVIF_SUBSAMPLING[subsampling]
+    sx, sy = ss or (0, 0)
+    images = []
+    try:
+        for y0 in range(0, h, ch):
+            for x0 in range(0, w, cw):
+                part = [y[y0:y0 + ch, x0:x0 + cw]]
+                part += [None if p is None else p[y0 >> sy:(y0 + ch) >> sy, x0 >> sx:(x0 + cw) >> sx]
+                         for p in planes[1:]]
+                a = None if alpha is None else alpha[y0:y0 + ch, x0:x0 + cw]
+                images.append(_avif_image(lib, part, subsampling, full_range, cicp, a, premultiplied))
+        cells = (ctypes.c_void_p * len(images))(*images)
+        cols = -(-w // cw)
+        return _avif_encode(lib, lambda enc: lib.avifEncoderAddImageGrid(enc, cols, len(images) // cols, cells, 2),
+                            quality, speed, threads)
+    finally:
+        for im in images:
+            lib.avifImageDestroy(im)
+
+
+def avif_gain_map_bytes(base_planes, alt_planes, gain_map_size, quality: int = 60, speed: int = 6):
+    """An AVIF with a gain map as libavif writes one, or None where PIL
+    ships no libavif (or a libavif whose avifImage is not laid out as
+    1.1-1.4's): 4:4:4 planes of an SDR base (BT.709 primaries and matrix,
+    sRGB transfer) and an HDR alternate (PQ transfer), the gain map
+    computed by avifImageComputeGainMap at `gain_map_size` (4:0:0) and
+    written by avifEncoderAddImage beside the base: an `av01` base item,
+    a `tmap` item and the gain map's `av01` item."""
+    import ctypes
+
+    lib = avif_library()
+    if lib is None:
+        return None
+    probe = lib.avifImageCreate(1, 1, 8, 1)
+    tag = ctypes.create_string_buffer(b"abcd")
+    lib.avifImageAddOpaqueProperty(probe, b"abcd", tag, 4)
+    laid_out = ctypes.c_size_t.from_address(probe + _IMAGE_AT["properties"] + 8).value == 1 and \
+        ctypes.c_void_p.from_address(probe + _IMAGE_AT["gain_map"]).value is None
+    lib.avifImageDestroy(probe)
+    if not laid_out:
+        return None
+    base = _avif_image(lib, base_planes, "4:4:4", True, (1, 13, 1))
+    alt = _avif_image(lib, alt_planes, "4:4:4", True, (1, 16, 1))
+    try:
+        gain_map = lib.avifGainMapCreate()
+        ctypes.c_void_p.from_address(gain_map).value = lib.avifImageCreate(*gain_map_size, 8, 4)  # its `image`
+        ctypes.c_void_p.from_address(base + _IMAGE_AT["gain_map"]).value = gain_map  # freed with the base
+        diag = ctypes.create_string_buffer(512)
+        result = lib.avifImageComputeGainMap(base, alt, gain_map, diag)
+        if result:
+            raise ValueError(f"libavif could not compute the gain map (avifResult {result}: {diag.value!r})")
+        return _avif_encode(lib, lambda enc: lib.avifEncoderAddImage(enc, base, 1, 2), quality, speed, 1)
+    finally:
+        lib.avifImageDestroy(base)
+        lib.avifImageDestroy(alt)
