@@ -525,6 +525,27 @@ Phases (any failure exits non-zero; none is caught and passed over):
      that PIL's reading (without its libavif: the committed 1080p grid for
      each, held to PIL 12.1.0's hash) and timed beside it. `cli.train` -r
      1 for 30 iterations as in 5h, its checks and prints.
+  5r. AVIF at 10 and 12 bits (AV1 high bit depth), after 5q: (a) the
+     committed files of tests/fixtures/torch_avif_hbd (4:2:2 at 10 bits,
+     12 bits at 4:2:0, 4:4:4 and 4:0:0, RGBA, premultiplied, restoration
+     with CDEF, grids of 10- and 12-bit cells) and four 1080p fixtures of
+     tests/fixtures/torch_avif relabelled here to 10 or 12 bits
+     (tests/torch_image_writers.py's avif_high_depth: CDEF with
+     restoration, 4:4:4 CDEF at 12 bits, film grain, IntraBC at 12 bits),
+     each the bytes PIL 12.1.0 read and read with its mode, shape and
+     pixels' SHA-256 (the fixtures' sha256.json), timed as in 5j (a)
+     beside this machine's PIL, whose reading is printed beside the
+     committed one where it differs (the port stays held to the hash);
+     one decode of the relabelled 1080p CDEF file split. (b) A COLMAP
+     dataset of 7 views of trained_r5 on phase 5c's orbit at 1920x1080
+     (`form_dataset`), written at 8 bits by this machine's PIL and
+     relabelled: 10-bit 4:2:0, 10-bit 4:4:4 (profile 1), 10-bit 4:2:2
+     (profile 2), 12-bit 4:2:0 (profile 2), 10-bit 4:0:0, 10-bit RGBA
+     (alpha 160 in a band), 10-bit limited range under a BT.709 `colr`;
+     each held to that PIL's reading (without a PIL that writes AVIF: the
+     committed 1080p fixtures relabelled, held to PIL 12.1.0's hashes) and
+     timed beside it. `cli.train` -r 1 for 30 iterations as in 5h, its
+     checks and prints.
   5d. sharded path (`parallel/sharding.py`), on the one card:
      - the kernels at a row origin: trained_r5 at 1920x1080 with 32x32
        tiles cut into 2 and into 4 strips of tile rows; each strip's
@@ -595,7 +616,7 @@ Phases (any failure exits non-zero; none is caught and passed over):
      avif_screen_train (5l's train CLI), avif_grain_train (5m's train CLI),
      jpeg_arith_train (5n's train CLI),
      rare_forms_train (5o's train CLI), pil_rest_train (5p's train CLI),
-     avif_grid_train (5q's train CLI),
+     avif_grid_train (5q's train CLI), avif_hbd_train (5r's train CLI),
      sharded_2rank and sharded_trainer (both ranks' sums), sharded_nccl1,
      bench (the five in-process runs of 5f) for the compositing kernels
      and the routing,
@@ -2786,7 +2807,7 @@ def check_trainer_state(name, tr, cam, seed):
 
 
 def train_cli_on(tag, data, model_dir, n_views, steps, seed):
-    """Phases 5h-5q (b): `cli.train` -r 1 for `steps` iterations on the
+    """Phases 5h-5r (b): `cli.train` -r 1 for `steps` iterations on the
     COLMAP dataset at `data` of `n_views` views at W_MAIN x H_MAIN. Fails
     unless it ran the steps on every view at full size with finite losses
     and one launch of each train-path kernel a step; holds the kernels to
@@ -2813,7 +2834,7 @@ def train_cli_on(tag, data, model_dir, n_views, steps, seed):
 
 
 def form_dataset(tmp, views, write):
-    """Phases 5h-5q (b): a COLMAP dataset in `tmp`/data of trained_r5 on
+    """Phases 5h-5r (b): a COLMAP dataset in `tmp`/data of trained_r5 on
     phase 5c's orbit at W_MAIN x H_MAIN, one view for each of `views`,
     each view's PNG replaced by the file `write(i, cam, render, view,
     stem)` writes (`stem`: images/<view name>, no extension; it returns the
@@ -5550,6 +5571,160 @@ def _avif_grid_phase(dev, tmp):
     return launches, errs
 
 
+# ---- phase 5r: AVIF at 10 and 12 bits ------------------------------------------
+
+# PIL 12.1.0's reading of each committed high-depth file and of the
+# relabelled 8-bit fixtures ("<name>@<depth>"), as
+# tests/fixtures/torch_avif_hbd/make_fixtures.py wrote them
+AVIF_HBD_FIXTURES = os.path.join(FIXTURES, "torch_avif_hbd")
+AVIF_HBD_STEPS = 30
+# the 1080p fixtures of tests/fixtures/torch_avif relabelled in (a); the
+# first one's decode is split
+AVIF_HBD_RELABELLED = ("1080p_420_q50_s2_cdef.avif@10", "1080p_444_q60_s4_cdef.avif@12",
+                       "1080p_grain_420_test10.avif@10", "1080p_intrabc_420_q60.avif@12")
+# the seven views: (label, PIL's save options, depth, the nclx matrix
+# written over PIL's or None, the relabelled fixture read where this
+# machine's PIL writes no AVIF). The RGBA view has alpha 160 in a band.
+AVIF_HBD_VIEWS = (("10-bit 4:2:0", {"quality": 75}, 10, None, "1080p_420_q75.avif@10"),
+                  ("10-bit 4:4:4 (profile 1)", {"quality": 75, "subsampling": "4:4:4"}, 10, None,
+                   "1080p_444_q90.avif@10"),
+                  ("10-bit 4:2:2 (profile 2)", {"quality": 75, "subsampling": "4:2:2"}, 10, None,
+                   "1080p_420_q50_s10.avif@10"),
+                  ("12-bit 4:2:0 (profile 2)", {"quality": 75}, 12, None, "1080p_420_q75.avif@12"),
+                  ("10-bit 4:0:0", {"quality": 75, "subsampling": "4:0:0"}, 10, None, "1080p_400_q75.avif@10"),
+                  ("10-bit RGBA", {"quality": 75}, 10, None, "1080p_rgba_q75.avif@10"),
+                  ("10-bit limited range, BT.709", {"quality": 75, "range": "limited"}, 10, 1,
+                   "1080p_limited_q75.avif@10"))
+
+
+def avif_hbd_file(w, key):
+    """A committed 8-bit fixture relabelled: key "<name>@<depth>"."""
+    name, depth = key.split("@")
+    with open(os.path.join(AVIF_FIXTURES, name), "rb") as f:
+        return w.avif_high_depth(f.read(), int(depth))
+
+
+def with_nclx_matrix(data: bytes, mc: int) -> bytes:
+    """PIL's file with its `colr` nclx box's matrix_coefficients set."""
+    at = data.index(b"colrnclx") + 8  # primaries, transfer, matrix (16 bits each), full range
+    return data[:at + 4] + mc.to_bytes(2, "big") + data[at + 6:]
+
+
+def colour_av1(info) -> bytes:
+    """The AV1 data of a parsed file's colour item (a grid's first cell)."""
+    return info["color"].cells[0] if isinstance(info["color"], avif._Grid) else info["color"]
+
+
+def avif_hbd_phase(dev):
+    """Phase 5r (module docstring). Returns the compositing kernels'
+    launches in the train CLI run and the max abs errors of the forward,
+    the backward and the routing against their plain versions at its final
+    state."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_avif_hbd_")
+    try:
+        return _avif_hbd_phase(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _avif_hbd_phase(dev, tmp):
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    w = image_writers()
+    pil = avif_pil()
+
+    # (a) The committed high-depth files and four relabelled 1080p fixtures,
+    # held to PIL 12.1.0's committed readings.
+    with open(os.path.join(AVIF_HBD_FIXTURES, "sha256.json")) as f:
+        readings = json.load(f)
+    files = [(name, readings["files"][name], os.path.join(AVIF_HBD_FIXTURES, name), None)
+             for name in sorted(readings["files"])]
+    for key in AVIF_HBD_RELABELLED:
+        path = os.path.join(tmp, key.replace("@", "_") + ".avif")
+        write_file(path, avif_hbd_file(w, key))
+        files.append((key, readings["relabelled"][key], path, key))
+    print(f"AVIF at 10 and 12 bits: {len(files)} files (tests/fixtures/torch_avif_hbd, and 1080p fixtures of "
+          f"tests/fixtures/torch_avif relabelled) read with PIL 12.1.0's mode, shape and pixels (sha256.json); "
+          f"decode ms, median of 5 (host clock), beside PIL's median of 3 on this machine ({avif_versions()}) "
+          f"[{gpu_line()}]:")
+    split = {}
+    for name, want, path, key in files:
+        with open(path, "rb") as f:
+            data = f.read()
+        if hashlib.sha256(data).hexdigest() != want["file_sha256"]:
+            fail(f"AVIF at high depth: {name} is not the file PIL 12.1.0 read (tests/fixtures/torch_avif_hbd/"
+                 "sha256.json)")
+        ms = []
+        for _ in range(5):
+            pic, t = synced_ms(image_io.open_image, path)
+            ms.append(t)
+        got = (pic.mode, list(pic.pixels.shape), sha256_of(pic.pixels))
+        committed = (want["mode"], want["shape"], want["sha256"])
+        if got != committed:
+            fail(f"AVIF at high depth: {name} reads as {got}, not as PIL 12.1.0 reads it {committed}")
+        here, pil_ms = pil_timed_reading(path, 3) if pil is not None else (None, "no AVIF in this PIL")
+        depth = w.av1_color_config(w.av1_sequence_header(colour_av1(avif.parse(data, name))))["depth"]
+        differs = "" if here in (None, committed) else f"; this machine's PIL reads {here}, not the committed " \
+                                                       f"{committed}"
+        print(f"  {name} ({depth}-bit {pic.mode} {pic.pixels.shape[1]}x{pic.pixels.shape[0]}): "
+              f"{float(np.median(ms)):.2f} ms (PIL {pil_ms}){differs}")
+        if key == AVIF_HBD_RELABELLED[0]:
+            avif.decode_avif(data, name, split=split)
+    print(f"  one decode of {AVIF_HBD_RELABELLED[0]}, host clock: " +
+          ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in split.items()))
+
+    # (b) A COLMAP dataset of trained_r5 with seven 1080p views at 10 and 12 bits.
+    alpha = np.full((H_MAIN, W_MAIN, 1), 255, np.uint8)
+    alpha[H_MAIN // 3:H_MAIN // 3 + 96] = 160
+
+    def write(i, cam, px, view, stem):
+        label, options, depth, mc, fixture = view
+        if pil is not None:
+            rgb = np.ascontiguousarray(px[..., :3])
+            buf = io.BytesIO()
+            pil.fromarray(np.concatenate([rgb, alpha], -1) if label.endswith("RGBA") else rgb).save(
+                buf, "AVIF", **options)
+            data = w.avif_high_depth(buf.getvalue(), depth)
+            write_file(stem + ".avif", data if mc is None else with_nclx_matrix(data, mc))
+        else:
+            write_file(stem + ".avif", avif_hbd_file(w, fixture))
+        return os.path.basename(stem) + ".avif"
+
+    ds = form_dataset(tmp, AVIF_HBD_VIEWS, write)
+    source = (f"the renders encoded by this machine's PIL ({avif_versions()}), relabelled, and held to its "
+              "decode" if pil is not None else "the committed 1080p fixtures relabelled (this machine's PIL has "
+              "no AVIF), held to PIL 12.1.0's committed hashes")
+    print(f"  {len(AVIF_HBD_VIEWS)} views of trained_r5 at {W_MAIN}x{H_MAIN}, {source}, made in {ds.build_s:.1f} s; "
+          f"decode ms, median of 5 (host clock), beside this machine's PIL's:")
+    views = {cam.image_name: view for cam, view in zip(ds.cams, AVIF_HBD_VIEWS)}
+    for c in ds.cameras:
+        label, _, depth, _, fixture = views[c.image_name]
+        ms = []
+        for _ in range(5):
+            pic, t = synced_ms(image_io.open_image, c.image_path)
+            ms.append(t)
+        got = (pic.mode, list(pic.pixels.shape), sha256_of(pic.pixels))
+        here, pil_ms = pil_timed_reading(c.image_path, 3)
+        if pil is None:
+            here = tuple(readings["relabelled"][fixture][k] for k in ("mode", "shape", "sha256"))
+        with open(c.image_path, "rb") as f:
+            said = w.av1_color_config(w.av1_sequence_header(colour_av1(avif.parse(f.read(), c.image_path))))
+        if got != here or said["depth"] != depth:
+            fail(f"AVIF at high depth: view {ds.files[c.image_name]} ({label}) reads as {got}, not as PIL reads it "
+                 f"({here}), or is not of {depth} bits ({said['depth']})")
+        print(f"    {label}: profile {said['profile']}, {pic.mode}, {float(np.median(ms)):.2f} ms (PIL {pil_ms})")
+    launches, errs, (train_s, load_s, step_ms, loss0, loss1) = train_cli_on(
+        "AVIF at high depth", ds.data, ds.model_dir, len(AVIF_HBD_VIEWS), AVIF_HBD_STEPS, 79)
+    print(f"  train CLI on a COLMAP dataset of {len(AVIF_HBD_VIEWS)} 10- and 12-bit AVIF views of trained_r5 at "
+          f"{W_MAIN}x{H_MAIN}: -r 1, {AVIF_HBD_STEPS} iterations in {train_s:.2f} s (scene load {load_s:.2f} s), "
+          f"step median {step_ms:.3f} ms; loss {loss0:.6f} -> {loss1:.6f}; launches {launches}; "
+          f"max abs errors {dict(zip(TRAIN_KERNELS, errs))}")
+    print(f"  phase peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
+          f"wall {time.perf_counter() - t_phase:.1f} s")
+    return launches, errs
+
+
 # ---- phase 5d: the sharded path -------------------------------------------
 
 SHARD_STRIPS = (2, 4)  # strips of the in-process kernel check at an origin
@@ -6434,6 +6609,12 @@ def main():
         max_err[k] = max(max_err[k], e)
     phase_done("5q AVIF grids")
 
+    # ---- 5r. AVIF at 10 and 12 bits ---------------------------------------
+    avif_hbd_train_launches, avif_hbd_errs = avif_hbd_phase(dev)
+    for k, e in zip(TRAIN_KERNELS, avif_hbd_errs):
+        max_err[k] = max(max_err[k], e)
+    phase_done("5r AVIF at 10 and 12 bits")
+
     # ---- 5d. sharded path ---------------------------------------------
     sharded_launches, strip_errs = sharded_phase(dev, gt, center, dist, train_capacity,
                                                  single_ref, step_ms)
@@ -6524,6 +6705,7 @@ def main():
                     "rare_forms_train": rare_forms_train_launches[name],
                     "pil_rest_train": pil_rest_train_launches[name],
                     "avif_grid_train": avif_grid_train_launches[name],
+                    "avif_hbd_train": avif_hbd_train_launches[name],
                     **{path: counts[name] for path, counts in sharded_launches.items()},
                     "bench": bench_launches[name]}
         return {"profiler": prof_launches[name]}

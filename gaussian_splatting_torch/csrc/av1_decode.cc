@@ -30,13 +30,20 @@
 //                  stripes with their block and stripe overlaps, the blend
 //                  into the planes (dav1d applies it for PIL, bit-equal).
 //
+// Samples are 8, 10 or 12 bits (BitDepth): the decoder is a template on its
+// sample type, uint8_t at 8 bits and uint16_t above, and every step takes
+// the specification's BitDepth form (the quantizer lookups, the transforms'
+// clamps, the clips, the prediction bases, the IntraBC and Wiener rounding,
+// the loop filter's limits, CDEF's strengths and damping, the self-guided
+// filter's shifts, the film grain's shift, scaling and ranges).
 // What a frame *uses* of the tools this file does not decode (superres,
-// 10/12-bit samples, inter frames) ends the decode with a message naming the
-// tool; so do film grain parameters dav1d refuses. The output is 8-bit Y, U,
-// V planes (Y alone for 4:0:0).
-// gs_yuv_to_rgb converts them to RGB as libavif 1.3.0 does for PIL
-// (libyuv's fixed-point rows and filtered chroma upsampling, or libavif's
-// own float path where libyuv declines).
+// palette colours above 8 bits, inter frames) ends the decode with a
+// message naming the tool; so do film grain parameters dav1d refuses. The
+// output is Y, U, V planes of the stream's depth (Y alone for 4:0:0).
+// gs_yuv_to_rgb converts them to 8-bit RGB as libavif 1.3.0 does for PIL
+// (libyuv's fixed-point rows and filtered chroma upsampling, its 10- and
+// 12-bit rows, a downshift to 8 bits first, or libavif's own float path
+// where libyuv declines).
 #include <algorithm>
 #include <chrono>
 #include <cmath>
@@ -45,6 +52,7 @@
 #include <cstdlib>
 #include <cstring>
 #include <exception>
+#include <memory>
 #include <string>
 #include <vector>
 
@@ -735,8 +743,10 @@ struct SeqHeader {
   bool seen = false;
 };
 
+template <typename Pixel>
 struct Decoder {
   SeqHeader seq;
+  int BitDepth = 8, PixelMax = 255;  // from the sequence header
   // frame header
   int frame_type = 0, show_frame = 1, showable_frame = 0, error_resilient = 0, disable_cdf_update = 0;
   int allow_screen_content_tools = 0, allow_intrabc = 0, FrameIsIntra = 1;
@@ -777,7 +787,7 @@ struct Decoder {
   std::vector<uint8_t> LfTxSizes[3];
   // planes (with room for whole superblocks past the frame's edge)
   int pw[3] = {0}, ph[3] = {0};
-  std::vector<uint8_t> plane[3];
+  std::vector<Pixel> plane[3];
 
   // tile state
   int MiRowStart, MiRowEnd, MiColStart, MiColEnd, CurrentQIndex;
@@ -799,7 +809,7 @@ struct Decoder {
   int RefLrWiener[3][2][3], RefSgrXqd[3][2];
   // the deblocked planes, which CDEF reads and loop restoration reads above
   // and below each stripe
-  std::vector<uint8_t> deblocked[3];
+  std::vector<Pixel> deblocked[3];
   // which tools the frame used (gs_av1_decode's `tools`; a test hook)
   int tools[72] = {0};
 
@@ -826,7 +836,8 @@ struct Decoder {
   const int16_t* cur_scan = nullptr;  // the last coeffs() call's scan and eob, for reconstruct()
   int cur_eob = 0;
 
-  uint8_t& P(int p, int y, int x) { return plane[p][(size_t)y * pw[p] + x]; }
+  Pixel& P(int p, int y, int x) { return plane[p][(size_t)y * pw[p] + x]; }
+  int clip1(int v) const { return clip3(0, PixelMax, v); }
   size_t mi(int r, int c) const { return (size_t)r * stride_mi + c; }
 
   // -------------------------------------------------------------- headers
@@ -950,7 +961,8 @@ struct Decoder {
       s.separate_uv_delta_q = b.f(1);
     }
     s.film_grain_params_present = b.f(1);
-    if (s.bit_depth != 8) fail(std::to_string(s.bit_depth) + "-bit samples (AV1 high bit depth)");
+    BitDepth = s.bit_depth;
+    PixelMax = (1 << BitDepth) - 1;
   }
 
   int read_delta_q(BitReader& b) { return b.f(1) ? b.su(7) : 0; }
@@ -1306,6 +1318,7 @@ struct Decoder {
 
   // ------------------------------------------------------------ allocation
   void alloc_frame() {
+    if ((BitDepth > 8) != (sizeof(Pixel) > 1)) fail("a sequence header of another bit depth than the first");
     NumPlanes = seq.mono ? 1 : 3;
     stride_mi = MiCols + 32;
     size_t n = (size_t)stride_mi * (MiRows + 32);
@@ -1699,6 +1712,13 @@ struct Decoder {
   }
 
   // ------------------------------------------------------------ palette
+  // Palette colours are coded with BitDepth bits; above 8 bits the port
+  // reads no palette block (no writer makes one to hold it to).
+  void refuse_high_depth_palette() {
+    if (BitDepth > 8)
+      fail("palette colours at " + std::to_string(BitDepth) + "-bit (AV1 palette mode at high bit depth)");
+  }
+
   // 5.11.46
   void palette_mode_info() {
     int bsizeCtx = Mi_Width_Log2[MiSize] + Mi_Height_Log2[MiSize] - 2;
@@ -1706,6 +1726,7 @@ struct Decoder {
       int ctx = (AvailU && PaletteSizes[0][mi(MiRow - 1, MiCol)] > 0) +
                 (AvailL && PaletteSizes[0][mi(MiRow, MiCol - 1)] > 0);
       if (sd.symbol(cdf.palette_y_mode[bsizeCtx][ctx], 2)) {
+        refuse_high_depth_palette();
         PaletteSizeY = sd.symbol(cdf.palette_y_size[bsizeCtx], 7) + 2;
         read_palette_colors(0, PaletteSizeY, palette_colors_y);
         tools[32 + PaletteSizeY - 2]++;
@@ -1713,6 +1734,7 @@ struct Decoder {
     }
     if (HasChroma && UVMode == DC_PRED) {
       if (sd.symbol(cdf.palette_uv_mode[PaletteSizeY > 0], 2)) {
+        refuse_high_depth_palette();
         PaletteSizeUV = sd.symbol(cdf.palette_uv_size[bsizeCtx], 7) + 2;
         read_palette_colors(1, PaletteSizeUV, palette_colors_u);
         if (sd.literal(1)) {  // delta_encode_palette_colors_v
@@ -2012,13 +2034,15 @@ struct Decoder {
 
   // 7.11.3 for IntraBC: each plane's whole block from the current frame
   // (before any filter; the filters are off with allow_intrabc) at the
-  // block's DV, by the BILINEAR filter at 8 bits (InterRound0 3,
-  // InterRound1 11). The spec's someUseIntra is always 1 here (an IntraBC
-  // block's RefFrame[0] is INTRA_FRAME), so the chroma of a block below
-  // 8x8 is predicted whole from this block's DV. Samples clamp to the
-  // frame's mi grid (RefUpscaledWidth[-1] = MiCols * MI_SIZE).
+  // block's DV, by the BILINEAR filter (7.11.3.2's rounding for isCompound
+  // 0: InterRound0 3 and InterRound1 11, 5 and 9 at 12 bits). The spec's
+  // someUseIntra is always 1 here (an IntraBC block's RefFrame[0] is
+  // INTRA_FRAME), so the chroma of a block below 8x8 is predicted whole
+  // from this block's DV. Samples clamp to the frame's mi grid
+  // (RefUpscaledWidth[-1] = MiCols * MI_SIZE).
   void predict_intrabc() {
-    uint8_t out[128 * 128];
+    Pixel out[128 * 128];
+    const int InterRound0 = BitDepth == 12 ? 5 : 3, InterRound1 = BitDepth == 12 ? 9 : 11;
     for (int p = 0; p < 1 + 2 * HasChroma; p++) {
       int sx = p ? seq.ss_x : 0, sy = p ? seq.ss_y : 0;
       int planeSz = get_plane_residual_size(MiSize, p);
@@ -2031,11 +2055,13 @@ struct Decoder {
       if (p > 0 && (fx || fy)) tools[61]++;
       if ((Num_4x4_Blocks_Wide[MiSize] == 1 && sx) || (Num_4x4_Blocks_High[MiSize] == 1 && sy)) tools[62]++;
       auto ref = [&](int i, int j) { return (int)P(p, clip3(0, lastY, y0 + i), clip3(0, lastX, x0 + j)); };
-      auto horiz = [&](int i, int j) { return round2((128 - 8 * fx) * ref(i, j) + 8 * fx * ref(i, j + 1), 3); };
+      auto horiz = [&](int i, int j) {
+        return round2((128 - 8 * fx) * ref(i, j) + 8 * fx * ref(i, j + 1), InterRound0);
+      };
       for (int i = 0; i < h; i++)
         for (int j = 0; j < w; j++)
-          out[i * w + j] = (uint8_t)clip3(0, 255, round2((128 - 8 * fy) * horiz(i, j) + 8 * fy * horiz(i + 1, j), 11));
-      for (int i = 0; i < h; i++) memcpy(&P(p, baseY + i, baseX), out + i * w, w);
+          out[i * w + j] = (Pixel)clip1(round2((128 - 8 * fy) * horiz(i, j) + 8 * fy * horiz(i + 1, j), InterRound1));
+      for (int i = 0; i < h; i++) memcpy(&P(p, baseY + i, baseX), out + i * w, w * sizeof(Pixel));
     }
   }
 
@@ -2370,7 +2396,7 @@ struct Decoder {
     uint8_t(*map)[64] = p == 0 ? ColorMapY : ColorMapUV;
     for (int i = 0; i < Tx_Height[txSz]; i++)
       for (int j = 0; j < Tx_Width[txSz]; j++)
-        P(p, startY + i, startX + j) = (uint8_t)palette[map[y * 4 + i][x * 4 + j]];
+        P(p, startY + i, startX + j) = (Pixel)palette[map[y * 4 + i][x * 4 + j]];
   }
 
   // ------------------------------------------------------- coefficients
@@ -2646,8 +2672,8 @@ struct Decoder {
   }
 
   // ----------------------------------------------------- reconstruction
-  int dc_q(int b) { return Dc_Qlookup[clip3(0, 255, b)]; }
-  int ac_q(int b) { return Ac_Qlookup[clip3(0, 255, b)]; }
+  int dc_q(int b) { return Dc_Qlookup[(BitDepth - 8) >> 1][clip3(0, 255, b)]; }
+  int ac_q(int b) { return Ac_Qlookup[(BitDepth - 8) >> 1][clip3(0, 255, b)]; }
 
   int32_t Residual[64][64];
 
@@ -2690,7 +2716,7 @@ struct Decoder {
       int64_t dq = ((int64_t)std::abs(qv) * q) & 0xFFFFFF;
       dq >>= dqShift;
       if (qv < 0) dq = -dq;
-      D[i][j] = clip3(-(1 << 15), (1 << 15) - 1, (int)dq);
+      D[i][j] = clip3(-(1 << (7 + BitDepth)), (1 << (7 + BitDepth)) - 1, (int)dq);
       rows = std::max(rows, i + 1);
     }
     inverse_transform_2d(D, txSz, log2W, log2H, rows);
@@ -2698,8 +2724,8 @@ struct Decoder {
     for (int i = 0; i < h; i++)
       for (int j = 0; j < w; j++) {
         int xx = flipLR ? (w - j - 1) : j, yy = flipUD ? (h - i - 1) : i;
-        uint8_t& px = P(p, y + yy, x + xx);
-        px = (uint8_t)clip3(0, 255, px + Residual[i][j]);
+        Pixel& px = P(p, y + yy, x + xx);
+        px = (Pixel)clip1(px + Residual[i][j]);
       }
   }
 
@@ -2723,9 +2749,12 @@ struct Decoder {
       case V_ADST: case V_FLIPADST: rowType = 2; colType = 1; break;
       default: rowType = 1; colType = 2; break;  // H_ADST, H_FLIPADST
     }
+    // the clamps of 7.13.3: the row transform's input and steps at BitDepth +
+    // 8 bits, the column transform's at Max(BitDepth + 6, 16)
+    const int rowMax = (1 << (BitDepth + 7)) - 1, colMax = (1 << (std::max(BitDepth + 6, 16) - 1)) - 1;
     Tx1D tx;
-    tx.lo = -(1 << 15);
-    tx.hi = (1 << 15) - 1;
+    tx.lo = -rowMax - 1;
+    tx.hi = rowMax;
     // a row of zero coefficients transforms to zeros (every 1-D transform
     // here is linear with Round2(0) = 0): only the `rows` up to the last
     // nonzero one are computed
@@ -2740,7 +2769,7 @@ struct Decoder {
       if (Lossless) {
         tx.wht(2);
       } else {
-        for (int j = 0; j < w; j++) tx.T[j] = clip3(-(1 << 15), (1 << 15) - 1, tx.T[j]);
+        for (int j = 0; j < w; j++) tx.T[j] = clip3(-rowMax - 1, rowMax, tx.T[j]);
         if (rowType == 0) tx.dct(log2W);
         else if (rowType == 1) {
           if (log2W == 2) tx.adst4();
@@ -2754,7 +2783,9 @@ struct Decoder {
     }
     if (!Lossless)
       for (int i = 0; i < h; i++)
-        for (int j = 0; j < w; j++) Residual[i][j] = clip3(-(1 << 15), (1 << 15) - 1, Residual[i][j]);
+        for (int j = 0; j < w; j++) Residual[i][j] = clip3(-colMax - 1, colMax, Residual[i][j]);
+    tx.lo = -colMax - 1;
+    tx.hi = colMax;
     for (int j = 0; j < w; j++) {
       for (int i = 0; i < h; i++) tx.T[i] = Residual[i][j];
       if (Lossless) {
@@ -2776,7 +2807,7 @@ struct Decoder {
   int AboveRowBuf[64 * 2 + 64 + 32], LeftColBuf[64 * 2 + 64 + 32];
   int* AboveRow = AboveRowBuf + 16;
   int* LeftCol = LeftColBuf + 16;
-  uint8_t pred[64][64];
+  Pixel pred[64][64];
 
   int is_smooth(int row, int col, int p) {
     int mode = p == 0 ? YModes[mi(row, col)] : UVModes[mi(row, col)];
@@ -2845,7 +2876,7 @@ struct Decoder {
     buf[-2] = dup[0];
     for (int i = 0; i < numPx; i++) {
       int s = -dup[i] + 9 * dup[i + 1] + 9 * dup[i + 2] - dup[i + 3];
-      s = clip3(0, 255, round2(s, 4));
+      s = clip1(round2(s, 4));
       buf[2 * i - 1] = s;
       buf[2 * i] = dup[i + 2];
     }
@@ -2856,10 +2887,11 @@ struct Decoder {
     int w = 1 << log2W, h = 1 << log2H;
     int sx = p ? seq.ss_x : 0, sy = p ? seq.ss_y : 0;
     int maxX = ((MiCols * 4) >> sx) - 1, maxY = ((MiRows * 4) >> sy) - 1;
+    const int half = 1 << (BitDepth - 1);  // the missing edges' value
     if (haveAbove == 0 && haveLeft == 1) {
       for (int i = -1; i < w + h; i++) AboveRow[i] = P(p, y, x - 1);
     } else if (haveAbove == 0 && haveLeft == 0) {
-      for (int i = -1; i < w + h; i++) AboveRow[i] = 127;
+      for (int i = -1; i < w + h; i++) AboveRow[i] = half - 1;
     } else {
       int aboveLimit = std::min(maxX, x + (haveAboveRight ? 2 * w : w) - 1);
       for (int i = 0; i < w + h; i++) AboveRow[i] = P(p, y - 1, std::min(aboveLimit, x + i));
@@ -2867,7 +2899,7 @@ struct Decoder {
     if (haveLeft == 0 && haveAbove == 1) {
       for (int i = -1; i < w + h; i++) LeftCol[i] = P(p, y - 1, x);
     } else if (haveLeft == 0 && haveAbove == 0) {
-      for (int i = -1; i < w + h; i++) LeftCol[i] = 129;
+      for (int i = -1; i < w + h; i++) LeftCol[i] = half + 1;
     } else {
       int leftLimit = std::min(maxY, y + (haveBelowLeft ? 2 * h : h) - 1);
       for (int i = 0; i < w + h; i++) LeftCol[i] = P(p, std::min(leftLimit, y + i), x - 1);
@@ -2876,7 +2908,7 @@ struct Decoder {
     if (haveAbove && haveLeft) corner = P(p, y - 1, x - 1);
     else if (haveAbove) corner = P(p, y - 1, x);
     else if (haveLeft) corner = P(p, y, x - 1);
-    else corner = 128;
+    else corner = half;
     AboveRow[-1] = corner;
     LeftCol[-1] = corner;
 
@@ -2898,7 +2930,7 @@ struct Decoder {
           for (int i = 0; i < 8; i++) {
             int pr = 0;
             for (int j = 0; j < 7; j++) pr += Filter_Intra_Taps[filter_intra_mode][i][j] * pv[j];
-            pred[(i2 << 1) + (i >> 2)][(j4 << 2) + (i & 3)] = (uint8_t)clip3(0, 255, round2signed(pr, 4));
+            pred[(i2 << 1) + (i >> 2)][(j4 << 2) + (i & 3)] = (Pixel)clip1(round2signed(pr, 4));
           }
         }
     } else if (mode >= V_PRED && mode <= D67_PRED) {
@@ -2968,7 +3000,7 @@ struct Decoder {
           } else {
             v = LeftCol[i];
           }
-          pred[i][j] = (uint8_t)v;
+          pred[i][j] = (Pixel)v;
         }
     } else if (mode == SMOOTH_PRED) {
       const uint8_t* wX = Sm_Weights + (w - 4);
@@ -2977,18 +3009,18 @@ struct Decoder {
         for (int j = 0; j < w; j++) {
           int s = wY[i] * AboveRow[j] + (256 - wY[i]) * LeftCol[h - 1] + wX[j] * LeftCol[i] +
                   (256 - wX[j]) * AboveRow[w - 1];
-          pred[i][j] = (uint8_t)round2(s, 9);
+          pred[i][j] = (Pixel)round2(s, 9);
         }
     } else if (mode == SMOOTH_V_PRED) {
       const uint8_t* wY = Sm_Weights + (h - 4);
       for (int i = 0; i < h; i++)
         for (int j = 0; j < w; j++)
-          pred[i][j] = (uint8_t)round2(wY[i] * AboveRow[j] + (256 - wY[i]) * LeftCol[h - 1], 8);
+          pred[i][j] = (Pixel)round2(wY[i] * AboveRow[j] + (256 - wY[i]) * LeftCol[h - 1], 8);
     } else if (mode == SMOOTH_H_PRED) {
       const uint8_t* wX = Sm_Weights + (w - 4);
       for (int i = 0; i < h; i++)
         for (int j = 0; j < w; j++)
-          pred[i][j] = (uint8_t)round2(wX[j] * LeftCol[i] + (256 - wX[j]) * AboveRow[w - 1], 8);
+          pred[i][j] = (Pixel)round2(wX[j] * LeftCol[i] + (256 - wX[j]) * AboveRow[w - 1], 8);
     } else if (mode == DC_PRED) {
       int avg;
       if (haveLeft && haveAbove) {
@@ -3005,9 +3037,9 @@ struct Decoder {
         for (int k = 0; k < w; k++) sum += AboveRow[k];
         avg = (sum + (w >> 1)) >> log2W;
       } else {
-        avg = 128;
+        avg = half;
       }
-      for (int i = 0; i < h; i++) memset(pred[i], avg, w);
+      for (int i = 0; i < h; i++) std::fill(pred[i], pred[i] + w, (Pixel)avg);
     } else {  // PAETH
       for (int i = 0; i < h; i++)
         for (int j = 0; j < w; j++) {
@@ -3018,10 +3050,10 @@ struct Decoder {
           if (pLeft <= pTop && pLeft <= pTopLeft) v = LeftCol[i];
           else if (pTop <= pTopLeft) v = AboveRow[j];
           else v = AboveRow[-1];
-          pred[i][j] = (uint8_t)v;
+          pred[i][j] = (Pixel)v;
         }
     }
-    for (int i = 0; i < h; i++) memcpy(&P(p, y + i, x), pred[i], w);
+    for (int i = 0; i < h; i++) memcpy(&P(p, y + i, x), pred[i], w * sizeof(Pixel));
   }
 
   void predict_chroma_from_luma(int p, int startX, int startY, int txSz) {
@@ -3044,9 +3076,9 @@ struct Decoder {
     int avg = round2(lumaAvg, Tx_Width_Log2[txSz] + Tx_Height_Log2[txSz]);
     for (int i = 0; i < h; i++)
       for (int j = 0; j < w; j++) {
-        uint8_t& px = P(p, startY + i, startX + j);
+        Pixel& px = P(p, startY + i, startX + j);
         int scaled = round2signed((int64_t)alpha * (L[i][j] - avg), 6);
-        px = (uint8_t)clip3(0, 255, px + scaled);
+        px = (Pixel)clip1(px + scaled);
       }
   }
 
@@ -3116,10 +3148,16 @@ struct Decoder {
       sample_filtering(xP + dy * i, yP + dx * i, p, limit, blimit, thresh, dy, filterSize);
   }
 
+  // 7.14.6.2-4, the limits and the narrow filter's range shifted by
+  // BitDepth - 8
   void sample_filtering(int x, int y, int p, int limit, int blimit, int thresh, int dy, int filterSize) {
-    uint8_t* q = &P(p, y, x);
+    Pixel* q = &P(p, y, x);
     const int step = dy ? pw[p] : 1;
-    auto F = [q, step](int k) -> uint8_t& { return q[k * step]; };
+    auto F = [q, step](int k) -> Pixel& { return q[k * step]; };
+    const int bd = BitDepth - 8, one = 1 << bd;
+    limit <<= bd;
+    blimit <<= bd;
+    thresh <<= bd;
     int q0 = F(0), q1 = F(1), q2 = F(2), q3 = F(3);
     int p0 = F(-1), p1 = F(-2), p2 = F(-3), p3 = F(-4);
     int hevMask = std::abs(p1 - p0) > thresh || std::abs(q1 - q0) > thresh;
@@ -3136,29 +3174,31 @@ struct Decoder {
     int flatMask = 0, flatMask2 = 0;
     if (filterSize >= 8) {
       if (filterLen == 6)
-        flatMask = std::abs(p1 - p0) <= 1 && std::abs(q1 - q0) <= 1 && std::abs(p2 - p0) <= 1 && std::abs(q2 - q0) <= 1;
+        flatMask = std::abs(p1 - p0) <= one && std::abs(q1 - q0) <= one && std::abs(p2 - p0) <= one &&
+                   std::abs(q2 - q0) <= one;
       else
-        flatMask = std::abs(p1 - p0) <= 1 && std::abs(q1 - q0) <= 1 && std::abs(p2 - p0) <= 1 &&
-                   std::abs(q2 - q0) <= 1 && std::abs(p3 - p0) <= 1 && std::abs(q3 - q0) <= 1;
+        flatMask = std::abs(p1 - p0) <= one && std::abs(q1 - q0) <= one && std::abs(p2 - p0) <= one &&
+                   std::abs(q2 - q0) <= one && std::abs(p3 - p0) <= one && std::abs(q3 - q0) <= one;
     }
     if (filterSize >= 16) {
       int q4 = F(4), q5 = F(5), q6 = F(6), p4 = F(-5), p5 = F(-6), p6 = F(-7);
-      flatMask2 = std::abs(p6 - p0) <= 1 && std::abs(q6 - q0) <= 1 && std::abs(p5 - p0) <= 1 &&
-                  std::abs(q5 - q0) <= 1 && std::abs(p4 - p0) <= 1 && std::abs(q4 - q0) <= 1;
+      flatMask2 = std::abs(p6 - p0) <= one && std::abs(q6 - q0) <= one && std::abs(p5 - p0) <= one &&
+                  std::abs(q5 - q0) <= one && std::abs(p4 - p0) <= one && std::abs(q4 - q0) <= one;
     }
     if (filterSize == 4 || !flatMask) {
-      auto c4 = [](int v) { return clip3(-128, 127, v); };
-      int ps1 = p1 - 128, ps0 = p0 - 128, qs0 = q0 - 128, qs1 = q1 - 128;
+      const int lo = -(1 << (BitDepth - 1)), hi = (1 << (BitDepth - 1)) - 1, mid = 0x80 << bd;
+      auto c4 = [lo, hi](int v) { return clip3(lo, hi, v); };
+      int ps1 = p1 - mid, ps0 = p0 - mid, qs0 = q0 - mid, qs1 = q1 - mid;
       int filter = hevMask ? c4(ps1 - qs1) : 0;
       filter = c4(filter + 3 * (qs0 - ps0));
       int filter1 = c4(filter + 4) >> 3;
       int filter2 = c4(filter + 3) >> 3;
-      F(0) = (uint8_t)(c4(qs0 - filter1) + 128);
-      F(-1) = (uint8_t)(c4(ps0 + filter2) + 128);
+      F(0) = (Pixel)(c4(qs0 - filter1) + mid);
+      F(-1) = (Pixel)(c4(ps0 + filter2) + mid);
       if (!hevMask) {
         filter = round2(filter1, 1);
-        F(1) = (uint8_t)(c4(qs1 - filter) + 128);
-        F(-2) = (uint8_t)(c4(ps1 + filter) + 128);
+        F(1) = (Pixel)(c4(qs1 - filter) + mid);
+        F(-2) = (Pixel)(c4(ps1 + filter) + mid);
       }
     } else {
       int log2Size = (filterSize == 8 || !flatMask2) ? 3 : 4;
@@ -3175,7 +3215,7 @@ struct Decoder {
         }
         out[i + 8] = round2(t, log2Size);
       }
-      for (int i = -n; i < n; i++) F(i) = (uint8_t)out[i + 8];
+      for (int i = -n; i < n; i++) F(i) = (Pixel)out[i + 8];
     }
   }
 
@@ -3197,21 +3237,23 @@ struct Decoder {
       }
   }
 
+  // the strengths and the damping shifted by coeffShift = BitDepth - 8
   void cdef_block(int r, int c, int idx) {
+    const int coeffShift = BitDepth - 8;
     int var = 0;
     int yDir = cdef_direction(r, c, var);
-    int priStr = cdef_y_pri[idx], secStr = cdef_y_sec[idx];
+    int priStr = cdef_y_pri[idx] << coeffShift, secStr = cdef_y_sec[idx] << coeffShift;
     int dir = priStr == 0 ? 0 : yDir;
     int varStr = (var >> 6) ? std::min(floor_log2((uint32_t)(var >> 6)), 12) : 0;
     int adjusted = var ? (priStr * (4 + varStr) + 8) >> 4 : 0;
-    cdef_filter(0, r, c, adjusted, secStr, CdefDamping, dir);
+    cdef_filter(0, r, c, adjusted, secStr, CdefDamping + coeffShift, dir);
     count_cdef(0, priStr, secStr);
     if (NumPlanes == 1) return;
-    priStr = cdef_uv_pri[idx];
-    secStr = cdef_uv_sec[idx];
+    priStr = cdef_uv_pri[idx] << coeffShift;
+    secStr = cdef_uv_sec[idx] << coeffShift;
     dir = priStr == 0 ? 0 : Cdef_Uv_Dir[seq.ss_x][seq.ss_y][yDir];
     for (int p = 1; p < 3; p++) {
-      cdef_filter(p, r, c, priStr, secStr, CdefDamping - 1, dir);
+      cdef_filter(p, r, c, priStr, secStr, CdefDamping - 1 + coeffShift, dir);
       count_cdef(p, priStr, secStr);
     }
   }
@@ -3224,10 +3266,10 @@ struct Decoder {
   int cdef_direction(int r, int c, int& var) {
     int cost[8] = {0}, partial[8][15] = {{0}};
     int x0 = c * 4, y0 = r * 4;
-    const uint8_t* src = deblocked[0].data();
+    const Pixel* src = deblocked[0].data();
     for (int i = 0; i < 8; i++)
       for (int j = 0; j < 8; j++) {
-        int x = src[(size_t)(y0 + i) * pw[0] + x0 + j] - 128;
+        int x = (src[(size_t)(y0 + i) * pw[0] + x0 + j] >> (BitDepth - 8)) - 128;
         partial[0][i + j] += x;
         partial[1][i + j / 2] += x;
         partial[2][i] += x;
@@ -3296,13 +3338,14 @@ struct Decoder {
     int nt = 0;
     int priAdj = priStr ? std::max(0, damping - floor_log2((uint32_t)priStr)) : 0;
     int secAdj = secStr ? std::max(0, damping - floor_log2((uint32_t)secStr)) : 0;
+    const int odd = (priStr >> (BitDepth - 8)) & 1;
     for (int k = 0; k < 2; k++)
       for (int sign = -1; sign <= 1; sign += 2) {
         const int* d = Cdef_Directions[dir][k];
-        taps[nt++] = {sign * (d[0] * S + d[1]), Cdef_Pri_Taps[priStr & 1][k], priStr, priAdj};
+        taps[nt++] = {sign * (d[0] * S + d[1]), Cdef_Pri_Taps[odd][k], priStr, priAdj};
         for (int dirOff = -2; dirOff <= 2; dirOff += 4) {
           d = Cdef_Directions[(dir + dirOff) & 7][k];
-          taps[nt++] = {sign * (d[0] * S + d[1]), Cdef_Sec_Taps[priStr & 1][k], secStr, secAdj};
+          taps[nt++] = {sign * (d[0] * S + d[1]), Cdef_Sec_Taps[odd][k], secStr, secAdj};
         }
       }
     for (int i = 0; i < h; i++)
@@ -3316,7 +3359,7 @@ struct Decoder {
           mx = std::max(v, mx);
           mn = std::min(v, mn);
         }
-        P(p, y0 + i, x0 + j) = (uint8_t)clip3(mn, mx, x + ((8 + sum - (sum < 0)) >> 4));
+        P(p, y0 + i, x0 + j) = (Pixel)clip3(mn, mx, x + ((8 + sum - (sum < 0)) >> 4));
       }
   }
 
@@ -3333,7 +3376,7 @@ struct Decoder {
       int endX = round2(FrameWidth, sx) - 1, endY = round2(FrameHeight, sy) - 1;
       for (const LrUnit& u : LrUnits[p])
         if (u.type != RESTORE_NONE) tools[16 + 3 * p + lr_kind(u)]++;
-      std::vector<uint8_t> out(plane[p]);
+      std::vector<Pixel> out(plane[p]);
       // the luma 4x4 rows of the spec's walk, in runs of one stripe and
       // one unit row
       for (int row = 0; row * 4 < FrameHeight;) {
@@ -3374,7 +3417,7 @@ struct Decoder {
         : x0(x0_), y0(y0_), w(w_), h(h_), stride(w_ + 2 * M), v((size_t)(h_ + 2 * M) * (w_ + 2 * M)) {
       for (int i = -M; i < h + M; i++) {
         int y = clip3(0, endY, y0 + i);
-        const uint8_t* src = d.plane[p].data();
+        const Pixel* src = d.plane[p].data();
         if (y < stripeStart) {
           y = std::max(stripeStart - 2, y);
           src = d.deblocked[p].data();
@@ -3382,16 +3425,17 @@ struct Decoder {
           y = std::min(stripeEnd + 2, y);
           src = d.deblocked[p].data();
         }
-        const uint8_t* line = src + (size_t)y * d.pw[p];
+        const Pixel* line = src + (size_t)y * d.pw[p];
         for (int j = -M; j < w + M; j++) at(i, j) = line[clip3(0, endX, x0 + j)];
       }
     }
     int& at(int i, int j) { return v[(size_t)(i + M) * stride + j + M]; }
   };
 
-  // 7.17.4, with 7.11.3.2's rounding for isCompound 0 at 8 bits
-  void wiener_filter(Window& win, const LrUnit& u, uint8_t* out, int stride) {
-    const int InterRound0 = 3, InterRound1 = 11, FILTER_BITS = 7, BitDepth = 8;
+  // 7.17.4, with 7.11.3.2's rounding for isCompound 0 (InterRound0 3 and
+  // InterRound1 11, 5 and 9 at 12 bits)
+  void wiener_filter(Window& win, const LrUnit& u, Pixel* out, int stride) {
+    const int InterRound0 = BitDepth == 12 ? 5 : 3, InterRound1 = BitDepth == 12 ? 9 : 11, FILTER_BITS = 7;
     int f[2][7];  // [0] vertical, [1] horizontal
     for (int pass = 0; pass < 2; pass++) {
       f[pass][3] = 128;
@@ -3415,12 +3459,14 @@ struct Decoder {
       for (int c = 0; c < w; c++) {
         int s = 0;
         for (int t = 0; t < 7; t++) s += f[0][t] * inter[(size_t)(r + t) * w + c];
-        out[(size_t)(win.y0 + r) * stride + win.x0 + c] = (uint8_t)clip3(0, 255, round2(s, InterRound1));
+        out[(size_t)(win.y0 + r) * stride + win.x0 + c] = (Pixel)clip1(round2(s, InterRound1));
       }
   }
 
   // 7.17.3's box filter of one pass (pass 0: r = 2, a and b on every other
-  // row; pass 1: r = 1) over the rectangle: F, in SGRPROJ_RST_BITS
+  // row; pass 1: r = 1) over the rectangle: F, in SGRPROJ_RST_BITS; the
+  // variance from sums brought to 8 bits (Round2 by 2 * (BitDepth - 8) and
+  // BitDepth - 8)
   void box_filter(Window& win, int set, int pass, std::vector<int>& F) {
     int r = Sgr_Params[set][pass * 2], s = Sgr_Params[set][pass * 2 + 1];
     int n = (2 * r + 1) * (2 * r + 1);
@@ -3437,10 +3483,11 @@ struct Decoder {
             a += c * c;
             b += c;
           }
-        int p = std::max(0, a * n - b * b);
+        int a8 = round2(a, 2 * (BitDepth - 8)), b8 = round2(b, BitDepth - 8);
+        int p = std::max(0, a8 * n - b8 * b8);
         int z = (int)round2((int64_t)p * s, SGRPROJ_MTABLE_BITS);
         int a2 = z >= 255 ? 256 : (z == 0 ? 1 : ((z << SGRPROJ_SGR_BITS) + (z / 2)) / (z + 1));
-        int b2 = ((1 << SGRPROJ_SGR_BITS) - a2) * b * oneOverN;
+        int64_t b2 = (int64_t)((1 << SGRPROJ_SGR_BITS) - a2) * b * oneOverN;
         A[(size_t)(i + 1) * aw + j + 1] = a2;
         B[(size_t)(i + 1) * aw + j + 1] = round2(b2, SGRPROJ_RECIP_BITS);
       }
@@ -3468,7 +3515,7 @@ struct Decoder {
   }
 
   // 7.17.3
-  void self_guided_filter(Window& win, const LrUnit& u, uint8_t* out, int stride) {
+  void self_guided_filter(Window& win, const LrUnit& u, Pixel* out, int stride) {
     std::vector<int> flt0, flt1;
     int r0 = Sgr_Params[u.set][0], r1 = Sgr_Params[u.set][2];
     if (r0) box_filter(win, u.set, 0, flt0);
@@ -3481,14 +3528,15 @@ struct Decoder {
         v += w0 * (r0 ? flt0[(size_t)i * win.w + j] : uu);
         v += w2 * (r1 ? flt1[(size_t)i * win.w + j] : uu);
         int s = round2(v, SGRPROJ_RST_BITS + SGRPROJ_PRJ_BITS);
-        out[(size_t)(win.y0 + i) * stride + win.x0 + j] = (uint8_t)clip3(0, 255, s);
+        out[(size_t)(win.y0 + i) * stride + win.x0 + j] = (Pixel)clip1(s);
       }
   }
 
   // --------------------------------------------------------- film grain
   // 7.18.3: the film grain synthesis process, on the output planes after
-  // loop restoration (8-bit: GrainMin -128, GrainMax 127). dav1d applies
-  // the same noise in 32x32 blocks; the stripes here are the spec's.
+  // loop restoration (GrainMin -128 << (BitDepth - 8), GrainMax 127 at 8
+  // bits, 511 at 10, 2047 at 12). dav1d applies the same noise in 32x32
+  // blocks; the stripes here are the spec's.
   int RandomRegister = 0;
   int get_random_number(int bits) {  // 7.18.3.2
     int r = RandomRegister;
@@ -3501,10 +3549,11 @@ struct Decoder {
   void film_grain() {
     if (!fg.apply_grain) return;
     const int subX = seq.ss_x, subY = seq.ss_y, w = FrameWidth, h = FrameHeight;
-    const int GrainMin = -128, GrainMax = 127;
+    const int bd = BitDepth - 8, GrainCenter = 128 << bd, GrainMin = -GrainCenter;
+    const int GrainMax = (256 << bd) - 1 - GrainCenter;
     // 7.18.3.3: the grain templates, luma 73x82, chroma by the subsampling
     static thread_local int16_t Grain[3][73][82];
-    int shift = 12 - 8 + fg.grain_scale_shift;
+    int shift = 12 - BitDepth + fg.grain_scale_shift;
     RandomRegister = fg.grain_seed;
     for (int y = 0; y < 73; y++)
       for (int x = 0; x < 82; x++)
@@ -3551,7 +3600,8 @@ struct Decoder {
           for (int p = 1; p < 3; p++)
             if (noisy[p]) Grain[p][y][x] = clip3(GrainMin, GrainMax, Grain[p][y][x] + round2(sum[p], arShift));
         }
-    // 7.18.3.4: the scaling lookups (chroma scaled from luma takes luma's)
+    // 7.18.3.4: the scaling lookups (chroma scaled from luma takes luma's),
+    // read through scale_lut, which interpolates between entries above 8 bits
     int ScalingLut[3][256];
     for (int p = 0; p < NumPlanes; p++) {
       int src = (p == 0 || fg.chroma_scaling_from_luma) ? 0 : p, n = fg.num_points[src];
@@ -3624,13 +3674,19 @@ struct Decoder {
         }
       }
     }
+    auto scale_lut = [&](int p, int index) {
+      int x = index >> bd, rem = index - (x << bd);
+      if (bd == 0 || x == 255) return ScalingLut[p][x];
+      int start = ScalingLut[p][x], end = ScalingLut[p][x + 1];
+      return start + round2((end - start) * rem, bd);
+    };
     // 7.18.3.5: the noise added to the planes, chroma first (it is scaled
     // by the luma before the luma's noise)
-    int minValue = 0, maxLuma = 255, maxChroma = 255;
+    int minValue = 0, maxLuma = PixelMax, maxChroma = PixelMax;
     if (fg.clip_to_restricted_range) {
-      minValue = 16;
-      maxLuma = 235;
-      maxChroma = seq.mc == 0 ? maxLuma : 240;  // MC_IDENTITY
+      minValue = 16 << bd;
+      maxLuma = 235 << bd;
+      maxChroma = seq.mc == 0 ? maxLuma : 240 << bd;  // MC_IDENTITY
     }
     const int ScalingShift = fg.grain_scaling_minus_8 + 8;
     for (int p = 1; p < NumPlanes; p++) {
@@ -3642,18 +3698,18 @@ struct Decoder {
           int orig = P(p, y, x), merged = averageLuma;
           if (!fg.chroma_scaling_from_luma) {
             int combined = averageLuma * (fg.luma_mult[p] - 128) + orig * (fg.mult[p] - 128);
-            merged = clip3(0, 255, (combined >> 6) + (fg.offset[p] - 256));
+            merged = clip1((combined >> 6) + (fg.offset[p] - 256) * (1 << bd));
           }
-          int n = round2(ScalingLut[p][merged] * noise[p][(size_t)y * pwN[p] + x], ScalingShift);
-          P(p, y, x) = (uint8_t)clip3(minValue, maxChroma, orig + n);
+          int n = round2(scale_lut(p, merged) * noise[p][(size_t)y * pwN[p] + x], ScalingShift);
+          P(p, y, x) = (Pixel)clip3(minValue, maxChroma, orig + n);
         }
     }
     if (fg.num_points[0] > 0)
       for (int y = 0; y < h; y++)
         for (int x = 0; x < w; x++) {
           int orig = P(0, y, x);
-          int n = round2(ScalingLut[0][orig] * noise[0][(size_t)y * w + x], ScalingShift);
-          P(0, y, x) = (uint8_t)clip3(minValue, maxLuma, orig + n);
+          int n = round2(scale_lut(0, orig) * noise[0][(size_t)y * w + x], ScalingShift);
+          P(0, y, x) = (Pixel)clip3(minValue, maxLuma, orig + n);
         }
   }
 
@@ -3771,40 +3827,106 @@ const YuvConst* libyuv_constants(int full, int mc, int cp) {
 
 inline uint8_t clamp255(int v) { return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v)); }
 
-inline void yuv_pixel(int y, int u, int v, const YuvConst& k, uint8_t* rgb) {
-  int y1 = (int)(((uint32_t)y * 0x0101u * (uint32_t)k.yg) >> 16) + k.yb;
+// y16: Y widened to 16 bits as libyuv's rows widen it (y * 0x0101 from 8
+// bits, (y << 6) | (y >> 4) from 10, (y << 4) | (y >> 8) from 12); u, v:
+// chroma at 8 bits
+inline void yuv_pixel(int y16, int u, int v, const YuvConst& k, uint8_t* rgb) {
+  int y1 = (int)(((uint32_t)y16 * (uint32_t)k.yg) >> 16) + k.yb;
   int ui = u - 128, vi = v - 128;
   rgb[0] = clamp255((y1 + vi * k.vr) >> 6);
   rgb[1] = clamp255((y1 - (ui * k.ug + vi * k.vg)) >> 6);
   rgb[2] = clamp255((y1 + ui * k.ub) >> 6);
 }
 
-// libyuv's ScaleRowUp2_Linear_Any: a half-width row to dst_width samples.
-void up2_linear(const uint8_t* s, uint8_t* d, int dst_width) {
+inline int widen_y(int y, int depth) {
+  return depth == 8 ? y * 0x0101 : (y << (16 - depth)) | (y >> (2 * depth - 16));
+}
+
+// libyuv's ScaleRowUp2_Linear_Any (and its _16 form): a half-width row to
+// dst_width samples.
+template <typename T>
+void up2_linear(const T* s, T* d, int dst_width) {
   int work = (dst_width - 1) & ~1;
   d[0] = s[0];
   for (int x = 0; x < work / 2; x++) {
-    d[1 + 2 * x] = (uint8_t)((s[x] * 3 + s[x + 1] + 2) >> 2);
-    d[2 + 2 * x] = (uint8_t)((s[x] + s[x + 1] * 3 + 2) >> 2);
+    d[1 + 2 * x] = (T)((s[x] * 3 + s[x + 1] + 2) >> 2);
+    d[2 + 2 * x] = (T)((s[x] + s[x + 1] * 3 + 2) >> 2);
   }
   d[dst_width - 1] = s[(dst_width - 1) / 2];
 }
 
-// libyuv's ScaleRowUp2_Bilinear_Any: rows sa (near) and sb to two rows.
-void up2_bilinear(const uint8_t* sa, const uint8_t* sb, uint8_t* da, uint8_t* db, int dst_width) {
+// libyuv's ScaleRowUp2_Bilinear_Any (and its _16 form): rows sa (near) and
+// sb to two rows.
+template <typename T>
+void up2_bilinear(const T* sa, const T* sb, T* da, T* db, int dst_width) {
   int work = (dst_width - 1) & ~1;
-  da[0] = (uint8_t)((3 * sa[0] + sb[0] + 2) >> 2);
-  db[0] = (uint8_t)((sa[0] + 3 * sb[0] + 2) >> 2);
+  da[0] = (T)((3 * sa[0] + sb[0] + 2) >> 2);
+  db[0] = (T)((sa[0] + 3 * sb[0] + 2) >> 2);
   for (int x = 0; x < work / 2; x++) {
-    const uint8_t *s = sa + x, *t = sb + x;
-    da[1 + 2 * x] = (uint8_t)((s[0] * 9 + s[1] * 3 + t[0] * 3 + t[1] + 8) >> 4);
-    da[2 + 2 * x] = (uint8_t)((s[0] * 3 + s[1] * 9 + t[0] + t[1] * 3 + 8) >> 4);
-    db[1 + 2 * x] = (uint8_t)((s[0] * 3 + s[1] + t[0] * 9 + t[1] * 3 + 8) >> 4);
-    db[2 + 2 * x] = (uint8_t)((s[0] + s[1] * 3 + t[0] * 3 + t[1] * 9 + 8) >> 4);
+    const T *s = sa + x, *t = sb + x;
+    da[1 + 2 * x] = (T)((s[0] * 9 + s[1] * 3 + t[0] * 3 + t[1] + 8) >> 4);
+    da[2 + 2 * x] = (T)((s[0] * 3 + s[1] * 9 + t[0] + t[1] * 3 + 8) >> 4);
+    db[1 + 2 * x] = (T)((s[0] * 3 + s[1] + t[0] * 9 + t[1] * 3 + 8) >> 4);
+    db[2 + 2 * x] = (T)((s[0] + s[1] * 3 + t[0] * 3 + t[1] * 9 + 8) >> 4);
   }
   int l = (dst_width - 1) / 2;
-  da[dst_width - 1] = (uint8_t)((3 * sa[l] + sb[l] + 2) >> 2);
-  db[dst_width - 1] = (uint8_t)((sa[l] + 3 * sb[l] + 2) >> 2);
+  da[dst_width - 1] = (T)((3 * sa[l] + sb[l] + 2) >> 2);
+  db[dst_width - 1] = (T)((sa[l] + 3 * sb[l] + 2) >> 2);
+}
+
+// libyuv's YUV -> ARGB rows over planes of `depth`-bit samples (chroma
+// strides (w + ss_x) >> ss_x) into out (ch bytes a pixel): the chroma
+// upsampled at its own depth, bilinear at 4:2:0 (I420ToARGBMatrixBilinear:
+// row 0 from chroma row 0, then pairs of rows between chroma rows k and k +
+// 1, an even height's last row from the last chroma row) and linear at
+// 4:2:2, or `nearest` (I012ToARGBMatrix), then brought to 8 bits by
+// clamp255(c >> (depth - 8)).
+template <typename T>
+void libyuv_rows(const T* yp, const T* up, const T* vp, int w, int h, int depth, int ss_x, int ss_y, bool nearest,
+                 int ch, const YuvConst& k, uint8_t* out) {
+  int cw = (w + ss_x) >> ss_x, cs = depth - 8;
+  std::vector<T> ru(w), rv(w), ru2(w), rv2(w);
+  auto emit = [&](int j, const T* U, const T* V) {
+    const T* Y = yp + (size_t)j * w;
+    uint8_t* o = out + (size_t)j * w * ch;
+    for (int i = 0; i < w; i++)
+      yuv_pixel(widen_y(Y[i], depth), std::min(255, U[i] >> cs), std::min(255, V[i] >> cs), k, o + i * ch);
+  };
+  if (!ss_x && !ss_y) {
+    for (int j = 0; j < h; j++) emit(j, up + (size_t)j * w, vp + (size_t)j * w);
+  } else if (nearest) {
+    for (int j = 0; j < h; j++) {
+      const T *u0 = up + (size_t)(j >> ss_y) * cw, *v0 = vp + (size_t)(j >> ss_y) * cw;
+      for (int i = 0; i < w; i++) {
+        ru[i] = u0[i >> ss_x];
+        rv[i] = v0[i >> ss_x];
+      }
+      emit(j, ru.data(), rv.data());
+    }
+  } else if (!ss_y) {
+    for (int j = 0; j < h; j++) {
+      up2_linear(up + (size_t)j * cw, ru.data(), w);
+      up2_linear(vp + (size_t)j * cw, rv.data(), w);
+      emit(j, ru.data(), rv.data());
+    }
+  } else {
+    up2_linear(up, ru.data(), w);
+    up2_linear(vp, rv.data(), w);
+    emit(0, ru.data(), rv.data());
+    int kk = 0, j = 1;
+    for (int y = 0; y < h - 2; y += 2, kk++) {
+      const T *u0 = up + (size_t)kk * cw, *v0 = vp + (size_t)kk * cw;
+      up2_bilinear(u0, u0 + cw, ru.data(), ru2.data(), w);
+      up2_bilinear(v0, v0 + cw, rv.data(), rv2.data(), w);
+      emit(j++, ru.data(), rv.data());
+      emit(j++, ru2.data(), rv2.data());
+    }
+    if (!(h & 1) && h > 1) {
+      up2_linear(up + (size_t)kk * cw, ru.data(), w);
+      up2_linear(vp + (size_t)kk * cw, rv.data(), w);
+      emit(j, ru.data(), rv.data());
+    }
+  }
 }
 
 // libavif's Kr / Kb of a matrix (avifCalcYUVCoefficients), for its own
@@ -3820,14 +3942,163 @@ bool kr_kb(int mc, float& kr, float& kb) {
   }
 }
 
+
+// The stream's sequence header (the last one before its end), read alone.
+SeqHeader read_sequence_header(const uint8_t* data, size_t n) {
+  Decoder<uint8_t> dec;
+  size_t at = 0;
+  while (at < n) {
+    uint8_t h = data[at++];
+    int type = (h >> 3) & 15, ext = (h >> 2) & 1, has_size = (h >> 1) & 1;
+    if (ext) at++;
+    size_t sz = has_size ? (size_t)leb128(data, n, at) : n - at;
+    if (sz > n - at) fail("an OBU longer than its data");
+    if (type == 1) {
+      BitReader b(data + at, sz);
+      dec.sequence_header(b);
+    }
+    at += sz;
+  }
+  if (!dec.seq.seen) fail("no AV1 sequence header");
+  return dec.seq;
+}
+
+// gs_av1_decode's decode of a frame of Pixel samples (see below).
+template <typename Pixel>
+int decode_frame(const uint8_t* data, size_t size, int* info, void* yv, void* uv, void* vv, double* times, int* tools,
+                 char* msg, int msglen) {
+  std::unique_ptr<Decoder<Pixel>> dec(new Decoder<Pixel>());
+  auto t0 = std::chrono::steady_clock::now();
+  dec->decode(data, size);
+  auto t1 = std::chrono::steady_clock::now();
+  dec->loop_filter();
+  auto t2 = std::chrono::steady_clock::now();
+  for (int p = 0; p < dec->NumPlanes; p++) dec->deblocked[p] = dec->plane[p];
+  dec->cdef();
+  auto t3 = std::chrono::steady_clock::now();
+  dec->loop_restoration();
+  auto t4 = std::chrono::steady_clock::now();
+  dec->film_grain();
+  auto t5 = std::chrono::steady_clock::now();
+  const SeqHeader& s = dec->seq;
+  int W = dec->FrameWidth, H = dec->FrameHeight;
+  int vals[10] = {W, H, s.mono, s.ss_x, s.ss_y, s.bit_depth, s.cp, s.tc, s.mc, s.color_range};
+  memcpy(info, vals, sizeof vals);
+  if (W != info[10] || H != info[11]) {
+    snprintf(msg, msglen, "an AV1 frame of %dx%d where the item's size is %dx%d", W, H, info[10], info[11]);
+    return 1;
+  }
+  Pixel *y = (Pixel*)yv, *u = (Pixel*)uv, *v = (Pixel*)vv;
+  for (int r = 0; r < H; r++) memcpy(y + (size_t)r * W, &dec->P(0, r, 0), W * sizeof(Pixel));
+  if (!s.mono) {
+    int cw = (W + s.ss_x) >> s.ss_x, ch = (H + s.ss_y) >> s.ss_y;
+    for (int r = 0; r < ch; r++) {
+      memcpy(u + (size_t)r * cw, &dec->P(1, r, 0), cw * sizeof(Pixel));
+      memcpy(v + (size_t)r * cw, &dec->P(2, r, 0), cw * sizeof(Pixel));
+    }
+  }
+  if (times) {
+    times[0] = std::chrono::duration<double>(t1 - t0).count();
+    times[1] = std::chrono::duration<double>(t2 - t1).count();
+    times[2] = std::chrono::duration<double>(t3 - t2).count();
+    times[3] = std::chrono::duration<double>(t4 - t3).count();
+    times[4] = std::chrono::duration<double>(t5 - t4).count();
+  }
+  if (tools) {
+    int* k = dec->tools;
+    k[0] = s.use_128;
+    k[2] = dec->UsesLr ? dec->lr_unit_shift : -1;
+    k[3] = dec->lr_uv_shift;
+    for (int p = 0; p < 3; p++) k[4 + p] = dec->FrameRestorationType[p];
+    const auto& g = dec->fg;
+    int grain[9] = {g.apply_grain, g.ar_coeff_lag, g.num_points[0], g.num_points[1], g.num_points[2],
+                    g.chroma_scaling_from_luma, g.overlap_flag, g.clip_to_restricted_range, g.grain_scale_shift};
+    memcpy(k + 63, grain, sizeof grain);
+    memcpy(tools, k, sizeof dec->tools);
+  }
+  return 0;
+}
+
+// The alpha channel (8-bit) into RGBA (a nullptr: RGB out, nothing to do),
+// the colour un-premultiplied where it is premultiplied, as libavif does:
+// libyuv's ARGBUnattenuateRow (x86), (f * 257 * ia) >> 16 through pmulhuw,
+// packed with signed saturation.
+int unpremultiply(const uint8_t* a, int w, int h, int premultiplied, uint8_t* out) {
+  if (!a) return 0;
+  for (size_t i = 0, n = (size_t)w * h; i < n; i++) {
+    uint8_t al = a[i];
+    uint8_t* o = out + i * 4;
+    o[3] = al;
+    if (!premultiplied || al == 255) continue;
+    uint32_t ia = al == 0 ? 0 : (al == 1 ? 0xffff : 0x10000 / al);
+    for (int c = 0; c < 3; c++) {
+      uint32_t t = ((uint32_t)o[c] * 257u * ia) >> 16;
+      o[c] = t > 32767 ? 0 : (uint8_t)(t > 255 ? 255 : t);
+    }
+  }
+  return 0;
+}
+
+// libavif's own float path (unorm tables of the samples' depth, then 0.5 +
+// clamped * 255), for identity, 4:0:0 to RGB and the matrices libyuv has no
+// constants for, at 4:4:4. `unmultiply`: libavif's slow path, which
+// un-premultiplies each pixel in float by its alpha (a, of `depth` bits)
+// before the 8-bit store.
+template <typename T>
+void float_path(const T* yp, const T* up, const T* vp, const T* a, int w, int h, int depth, int mono,
+                       bool identity, float kr, float kb, int full, bool unmultiply, int ch, uint8_t* out) {
+  const int n = 1 << depth, s = depth - 8, mx = n - 1;
+  float kg = 1.0f - kr - kb;
+  std::vector<float> tY(n), tUV(n);
+  for (int i = 0; i < n; i++) {
+    tY[i] = full ? (float)i / (float)mx : (float)(i - (16 << s)) / (float)(219 << s);
+    tUV[i] = identity ? tY[i] : (full ? (float)(i - (n >> 1)) / (float)mx : (float)(i - (n >> 1)) / (float)(224 << s));
+  }
+  auto u8 = [](float v) { return (uint8_t)(0.5f + v * 255.0f); };
+  auto c01 = [](float v) { return v < 0.0f ? 0.0f : (v > 1.0f ? 1.0f : v); };
+  for (int j = 0; j < h; j++) {
+    uint8_t* o = out + (size_t)j * w * ch;
+    for (int i = 0; i < w; i++) {
+      float Y = tY[yp[(size_t)j * w + i]], R = Y, G = Y, B = Y;
+      if (!mono) {
+        float Cb = tUV[up[(size_t)j * w + i]], Cr = tUV[vp[(size_t)j * w + i]];
+        if (identity) {
+          R = Cr;
+          G = Y;
+          B = Cb;
+        } else {
+          R = Y + (2 * (1 - kr)) * Cr;
+          B = Y + (2 * (1 - kb)) * Cb;
+          G = Y - ((2 * ((kr * (1 - kr) * Cr) + (kb * (1 - kb) * Cb))) / kg);
+        }
+      }
+      float rgb[3] = {c01(R), c01(G), c01(B)};
+      if (unmultiply) {
+        float A = c01((float)a[(size_t)j * w + i] / (float)mx);
+        for (float& c : rgb) c = A == 0.0f ? 0.0f : (A < 1.0f ? std::min(c / A, 1.0f) : c);
+      }
+      for (int c = 0; c < 3; c++) o[i * ch + c] = u8(rgb[c]);
+    }
+  }
+}
+
+// libyuv's Convert16To8Plane at libavif's scale: clamp255(v >> (depth - 8)).
+std::vector<uint8_t> downshift(const uint16_t* p, size_t n, int depth) {
+  std::vector<uint8_t> out(n);
+  for (size_t i = 0; i < n; i++) out[i] = (uint8_t)std::min(255, p[i] >> (depth - 8));
+  return out;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Decode one AV1 image item. info (out, 16 ints): width, height, mono,
-// ss_x, ss_y, bit depth, colour primaries, transfer, matrix, full range.
-// With y == nullptr only the headers are read. The planes are written
-// with strides width and (width + ss_x) >> ss_x. times (out, 5 doubles):
+// ss_x, ss_y, bit depth, colour primaries, transfer, matrix, full range;
+// (in) at 10-12 the width, height and bit depth the caller expects. With
+// y == nullptr only the headers are read. The planes are written with
+// strides width and (width + ss_x) >> ss_x, of uint8_t samples at 8 bits
+// and uint16_t above. times (out, 5 doubles):
 // seconds in symbol decoding with reconstruction, in the deblocking filter,
 // in CDEF, in loop restoration and in film grain synthesis. tools (out, 72
 // ints, or nullptr), which
@@ -3849,126 +4120,52 @@ extern "C" {
 // num_cb_points, num_cr_points, chroma_scaling_from_luma, overlap_flag,
 // clip_to_restricted_range, grain_scale_shift.
 // Returns 0, or 1 with a message in msg.
-int gs_av1_decode(const uint8_t* data, long long size, int* info, uint8_t* y, uint8_t* u, uint8_t* v,
-                  double* times, int* tools, char* msg, int msglen) {
-  static thread_local Decoder* dec = nullptr;
-  delete dec;
-  dec = new Decoder();
+int gs_av1_decode(const uint8_t* data, long long size, int* info, void* y, void* u, void* v, double* times,
+                  int* tools, char* msg, int msglen) {
   try {
-    auto t0 = std::chrono::steady_clock::now();
+    SeqHeader s = read_sequence_header(data, (size_t)size);
     if (y == nullptr) {
-      // headers only: the sequence header and the frame size
-      size_t at = 0, n = (size_t)size;
-      while (at < n) {
-        uint8_t h = data[at++];
-        int type = (h >> 3) & 15, ext = (h >> 2) & 1, has_size = (h >> 1) & 1;
-        if (ext) at++;
-        size_t sz = has_size ? (size_t)leb128(data, n, at) : n - at;
-        if (sz > n - at) fail("an OBU longer than its data");
-        if (type == 1) {
-          BitReader b(data + at, sz);
-          dec->sequence_header(b);
-        }
-        at += sz;
-      }
-      if (!dec->seq.seen) fail("no AV1 sequence header");
-      const SeqHeader& s = dec->seq;
       int vals[10] = {s.max_w, s.max_h, s.mono, s.ss_x, s.ss_y, s.bit_depth, s.cp, s.tc, s.mc, s.color_range};
       memcpy(info, vals, sizeof vals);
       return 0;
     }
-    dec->decode(data, (size_t)size);
-    auto t1 = std::chrono::steady_clock::now();
-    dec->loop_filter();
-    auto t2 = std::chrono::steady_clock::now();
-    for (int p = 0; p < dec->NumPlanes; p++) dec->deblocked[p] = dec->plane[p];
-    dec->cdef();
-    auto t3 = std::chrono::steady_clock::now();
-    dec->loop_restoration();
-    auto t4 = std::chrono::steady_clock::now();
-    dec->film_grain();
-    auto t5 = std::chrono::steady_clock::now();
-    const SeqHeader& s = dec->seq;
-    int W = dec->FrameWidth, H = dec->FrameHeight;
-    int vals[10] = {W, H, s.mono, s.ss_x, s.ss_y, s.bit_depth, s.cp, s.tc, s.mc, s.color_range};
-    memcpy(info, vals, sizeof vals);
-    if (W != info[10] || H != info[11]) {
-      snprintf(msg, msglen, "an AV1 frame of %dx%d where the item's size is %dx%d", W, H, info[10], info[11]);
-      return 1;
-    }
-    for (int r = 0; r < H; r++) memcpy(y + (size_t)r * W, &dec->P(0, r, 0), W);
-    if (!s.mono) {
-      int cw = (W + s.ss_x) >> s.ss_x, ch = (H + s.ss_y) >> s.ss_y;
-      for (int r = 0; r < ch; r++) {
-        memcpy(u + (size_t)r * cw, &dec->P(1, r, 0), cw);
-        memcpy(v + (size_t)r * cw, &dec->P(2, r, 0), cw);
-      }
-    }
-    if (times) {
-      times[0] = std::chrono::duration<double>(t1 - t0).count();
-      times[1] = std::chrono::duration<double>(t2 - t1).count();
-      times[2] = std::chrono::duration<double>(t3 - t2).count();
-      times[3] = std::chrono::duration<double>(t4 - t3).count();
-      times[4] = std::chrono::duration<double>(t5 - t4).count();
-    }
-    if (tools) {
-      int* k = dec->tools;
-      k[0] = s.use_128;
-      k[2] = dec->UsesLr ? dec->lr_unit_shift : -1;
-      k[3] = dec->lr_uv_shift;
-      for (int p = 0; p < 3; p++) k[4 + p] = dec->FrameRestorationType[p];
-      const auto& g = dec->fg;
-      int grain[9] = {g.apply_grain, g.ar_coeff_lag, g.num_points[0], g.num_points[1], g.num_points[2],
-                      g.chroma_scaling_from_luma, g.overlap_flag, g.clip_to_restricted_range, g.grain_scale_shift};
-      memcpy(k + 63, grain, sizeof grain);
-      memcpy(tools, k, sizeof dec->tools);
-    }
-    delete dec;
-    dec = nullptr;
-    return 0;
+    if (s.bit_depth != info[12]) fail("an AV1 stream of " + std::to_string(s.bit_depth) + "-bit samples where " +
+                                      std::to_string(info[12]) + " were expected");
+    if (s.bit_depth == 8) return decode_frame<uint8_t>(data, (size_t)size, info, y, u, v, times, tools, msg, msglen);
+    return decode_frame<uint16_t>(data, (size_t)size, info, y, u, v, times, tools, msg, msglen);
   } catch (const Refused& r) {
     snprintf(msg, msglen, "%s", r.what.c_str());
-    delete dec;
-    dec = nullptr;
     return 1;
   } catch (const std::exception& e) {
     snprintf(msg, msglen, "the AV1 decoder failed (%s)", e.what());
-    delete dec;
-    dec = nullptr;
     return 1;
   }
 }
 
 
-// The alpha channel into RGBA (a nullptr: RGB out, nothing to do), the colour
-// un-premultiplied where it is premultiplied, as libavif does: libyuv's
-// ARGBUnattenuateRow (x86), (f * 257 * ia) >> 16 through pmulhuw, packed
-// with signed saturation.
-static int unpremultiply(const uint8_t* a, int w, int h, int premultiplied, uint8_t* out) {
-  if (!a) return 0;
-  for (size_t i = 0, n = (size_t)w * h; i < n; i++) {
-    uint8_t al = a[i];
-    uint8_t* o = out + i * 4;
-    o[3] = al;
-    if (!premultiplied || al == 255) continue;
-    uint32_t ia = al == 0 ? 0 : (al == 1 ? 0xffff : 0x10000 / al);
-    for (int c = 0; c < 3; c++) {
-      uint32_t t = ((uint32_t)o[c] * 257u * ia) >> 16;
-      o[c] = t > 32767 ? 0 : (uint8_t)(t > 255 ? 255 : t);
-    }
-  }
-  return 0;
-}
-
-// YUV (8-bit planes, chroma strides (w + ss_x) >> ss_x) to interleaved
-// RGB or RGBA as libavif 1.3.0 converts for PIL's 8-bit avifRGBImage.
-// a: the alpha plane or nullptr (RGB out); premultiplied: un-premultiply
-// as libavif does (libyuv's ARGBUnattenuate, its x86 rows). Returns 0, or
-// 1 with a message where the port does not follow libavif's conversion.
-int gs_yuv_to_rgb(const uint8_t* yp, const uint8_t* up, const uint8_t* vp, const uint8_t* a, int w, int h,
-                  int mono, int ss_x, int ss_y, int mc, int cp, int full, int premultiplied, uint8_t* out,
-                  char* msg, int msglen) {
-  int ch = a ? 4 : 3;
+// YUV planes of `depth` bits (uint8_t samples at 8, uint16_t above; chroma
+// strides (w + ss_x) >> ss_x) to interleaved 8-bit RGB or RGBA as libavif
+// 1.3.0 converts for PIL's 8-bit avifRGBImage. a: the alpha plane or
+// nullptr (RGB out); premultiplied: un-premultiply as libavif does. Above 8
+// bits libavif (probed through avifImageYUVToRGB) picks:
+// - libyuv's matrices, RGB out: every plane downshifted to 8 bits, then the
+//   8-bit rows;
+// - libyuv's matrices, RGBA out: at 10 bits the 10-bit rows with alpha
+//   (I010 / I210 / I410AlphaToARGBMatrixFilter: chroma upsampled at 10
+//   bits, alpha >> 2); at 12 bits and 4:2:0 I012ToARGBMatrix (nearest
+//   chroma), alpha by libavif's float rounding; at 12 bits and 4:2:2 or
+//   4:4:4 every plane (alpha too) downshifted, then the 8-bit rows;
+// - 4:0:0 to RGBA by libyuv's I400 rows: Y downshifted, alpha by libavif's
+//   float rounding (0.5 + a / (2^depth - 1) * 255);
+// - the float path at the samples' depth, alpha by the float rounding.
+// The colour is un-premultiplied after the conversion (libyuv's rows),
+// except in libavif's slow path (identity, but for 8-bit full range, and
+// YCgCo), which un-premultiplies in float. Returns 0, or 1 with a message where the port
+// does not follow libavif's conversion.
+int gs_yuv_to_rgb(const void* yv, const void* uv, const void* vv, const void* av, int w, int h, int depth, int mono,
+                  int ss_x, int ss_y, int mc, int cp, int full, int premultiplied, uint8_t* out, char* msg,
+                  int msglen) {
+  int ch = av ? 4 : 3;
   // where libavif's conversion fails (PIL: "Reformat failed"): the
   // matrices it has no conversion for, and identity with subsampled chroma
   if (mc == 3 || mc == 10 || mc == 11 || mc == 13 || mc == 14 || mc > 15 || (mc == 8 && !full) ||
@@ -3978,100 +4175,59 @@ int gs_yuv_to_rgb(const uint8_t* yp, const uint8_t* up, const uint8_t* vp, const
     return 1;
   }
   const YuvConst* k = libyuv_constants(full, mc, cp);
+  const YuvConst* km = mono && av ? libyuv_constants(full, mc == 0 ? 6 : mc, cp) : nullptr;
   bool identity = mc == 0 && !mono;
-  if (mono && a) {
-    // libavif converts 4:0:0 to RGBA by libyuv's I400ToARGBMatrix where
-    // libyuv has constants (identity takes BT.601's), to RGB by its float
-    // path below
-    const YuvConst* km = libyuv_constants(full, mc == 0 ? 6 : mc, cp);
+  float kr = 0, kb = 0;
+  bool floating = !(km || (!mono && !identity && k));
+  if (floating && !mono && !identity && !kr_kb(mc, kr, kb)) {
+    snprintf(msg, msglen, "an AVIF colour matrix (matrix_coefficients %d) libavif converts by a path the port does not follow", mc);
+    return 1;
+  }
+  if (floating && !mono && !identity && (ss_x || ss_y)) {
+    snprintf(msg, msglen, "chroma subsampling with a colour matrix (matrix_coefficients %d) libyuv does not cover", mc);
+    return 1;
+  }
+  size_t n = (size_t)w * h, cn = mono ? 0 : (size_t)((w + ss_x) >> ss_x) * ((h + ss_y) >> ss_y);
+  // libavif's slow path: the float path of the identity and YCgCo modes (4:0:0 by its matrix too), but for
+  // its 8-bit full-range identity rows
+  bool slow_unmultiply = floating && (mc == 0 || mc == 8) && premultiplied && av && !(depth == 8 && full && identity);
+  if (depth == 8) {
+    const uint8_t *yp = (const uint8_t*)yv, *up = (const uint8_t*)uv, *vp = (const uint8_t*)vv;
+    const uint8_t* a = (const uint8_t*)av;
     if (km) {
-      for (size_t i = 0, n = (size_t)w * h; i < n; i++) yuv_pixel(yp[i], 128, 128, *km, out + i * 4);
-      return unpremultiply(a, w, h, premultiplied, out);
-    }
-  }
-  if (!mono && !identity && k) {
-    int cw = (w + ss_x) >> ss_x;
-    std::vector<uint8_t> ru(w), rv(w), ru2(w), rv2(w);
-    auto emit = [&](int j, const uint8_t* U, const uint8_t* V) {
-      const uint8_t* Y = yp + (size_t)j * w;
-      uint8_t* o = out + (size_t)j * w * ch;
-      for (int i = 0; i < w; i++) yuv_pixel(Y[i], U[i], V[i], *k, o + i * ch);
-    };
-    if (!ss_x && !ss_y) {
-      for (int j = 0; j < h; j++) emit(j, up + (size_t)j * w, vp + (size_t)j * w);
-    } else if (!ss_y) {
-      for (int j = 0; j < h; j++) {
-        up2_linear(up + (size_t)j * cw, ru.data(), w);
-        up2_linear(vp + (size_t)j * cw, rv.data(), w);
-        emit(j, ru.data(), rv.data());
-      }
+      // libavif converts 4:0:0 to RGBA by libyuv's I400ToARGBMatrix where
+      // libyuv has constants (identity takes BT.601's)
+      for (size_t i = 0; i < n; i++) yuv_pixel(widen_y(yp[i], 8), 128, 128, *km, out + i * 4);
+    } else if (!floating) {
+      libyuv_rows(yp, up, vp, w, h, 8, ss_x, ss_y, false, ch, *k, out);
     } else {
-      // libyuv's I420ToARGBMatrixBilinear: row 0 from chroma row 0, then
-      // pairs of rows between chroma rows k and k + 1, an even height's
-      // last row from the last chroma row
-      up2_linear(up, ru.data(), w);
-      up2_linear(vp, rv.data(), w);
-      emit(0, ru.data(), rv.data());
-      int kk = 0, j = 1;
-      for (int y = 0; y < h - 2; y += 2, kk++) {
-        const uint8_t *u0 = up + (size_t)kk * cw, *v0 = vp + (size_t)kk * cw;
-        up2_bilinear(u0, u0 + cw, ru.data(), ru2.data(), w);
-        up2_bilinear(v0, v0 + cw, rv.data(), rv2.data(), w);
-        emit(j++, ru.data(), rv.data());
-        emit(j++, ru2.data(), rv2.data());
-      }
-      if (!(h & 1) && h > 1) {
-        up2_linear(up + (size_t)kk * cw, ru.data(), w);
-        up2_linear(vp + (size_t)kk * cw, rv.data(), w);
-        emit(j, ru.data(), rv.data());
-      }
+      float_path(yp, up, vp, a, w, h, 8, mono, identity, kr, kb, full, slow_unmultiply, ch, out);
     }
-  } else {
-    // libavif's own float path: unorm tables, then 0.5 + clamped * 255
-    float kr = 0, kb = 0;
-    if (!mono && !identity && !kr_kb(mc, kr, kb)) {
-      snprintf(msg, msglen, "an AVIF colour matrix (matrix_coefficients %d) libavif converts by a path the port does not follow", mc);
-      return 1;
-    }
-    if (!mono && !identity && (ss_x || ss_y)) {
-      snprintf(msg, msglen, "chroma subsampling with a colour matrix (matrix_coefficients %d) libyuv does not cover", mc);
-      return 1;
-    }
-    float kg = 1.0f - kr - kb;
-    float tY[256], tUV[256];
-    for (int i = 0; i < 256; i++) {
-      tY[i] = full ? (float)i / 255.0f : (float)(i - 16) / 219.0f;
-      tUV[i] = identity ? tY[i] : (full ? (float)(i - 128) / 255.0f : (float)(i - 128) / 224.0f);
-    }
-    int cw = (w + ss_x) >> ss_x;
-    auto u8 = [](float v) { return (uint8_t)(0.5f + (v < 0.0f ? 0.0f : (v > 1.0f ? 1.0f : v)) * 255.0f); };
-    for (int j = 0; j < h; j++) {
-      uint8_t* o = out + (size_t)j * w * ch;
-      for (int i = 0; i < w; i++) {
-        float Y = tY[yp[(size_t)j * w + i]];
-        if (mono) {
-          o[i * ch] = o[i * ch + 1] = o[i * ch + 2] = u8(Y);
-          continue;
-        }
-        float Cb = tUV[up[(size_t)(j >> ss_y) * cw + (i >> ss_x)]];
-        float Cr = tUV[vp[(size_t)(j >> ss_y) * cw + (i >> ss_x)]];
-        float R, G, B;
-        if (identity) {
-          R = Cr;
-          G = Y;
-          B = Cb;
-        } else {
-          R = Y + (2 * (1 - kr)) * Cr;
-          B = Y + (2 * (1 - kb)) * Cb;
-          G = Y - ((2 * ((kr * (1 - kr) * Cr) + (kb * (1 - kb) * Cb))) / kg);
-        }
-        o[i * ch] = u8(R);
-        o[i * ch + 1] = u8(G);
-        o[i * ch + 2] = u8(B);
-      }
-    }
+    return unpremultiply(a, w, h, premultiplied && !slow_unmultiply, out);
   }
-  return unpremultiply(a, w, h, premultiplied, out);
+  const uint16_t *yp = (const uint16_t*)yv, *up = (const uint16_t*)uv, *vp = (const uint16_t*)vv;
+  const uint16_t* a = (const uint16_t*)av;
+  std::vector<uint8_t> a8;
+  if (a) {
+    // libavif's avifReformatAlpha, where libyuv's rows do not carry it
+    a8.resize(n);
+    float mx = (float)((1 << depth) - 1);
+    for (size_t i = 0; i < n; i++) a8[i] = (uint8_t)std::min(255, (int)(0.5f + ((float)a[i] / mx) * 255.0f));
+  }
+  if (km) {
+    std::vector<uint8_t> y8 = downshift(yp, n, depth);
+    for (size_t i = 0; i < n; i++) yuv_pixel(widen_y(y8[i], 8), 128, 128, *km, out + i * 4);
+  } else if (!floating && (!a || (depth == 12 && !(ss_x && ss_y)))) {
+    std::vector<uint8_t> y8 = downshift(yp, n, depth), u8 = downshift(up, cn, depth), v8 = downshift(vp, cn, depth);
+    libyuv_rows(y8.data(), u8.data(), v8.data(), w, h, 8, ss_x, ss_y, false, ch, *k, out);
+    if (a) a8 = downshift(a, n, depth);
+  } else if (!floating) {
+    libyuv_rows(yp, up, vp, w, h, depth, ss_x, ss_y, depth == 12, ch, *k, out);
+    if (depth == 10) a8 = downshift(a, n, depth);
+  } else {
+    float_path(yp, up, vp, a, w, h, depth, mono, identity, kr, kb, full, slow_unmultiply, ch, out);
+  }
+  return unpremultiply(a ? a8.data() : nullptr, w, h, premultiplied && !slow_unmultiply, out);
 }
 
 }  // extern "C"

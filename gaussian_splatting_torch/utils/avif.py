@@ -26,30 +26,33 @@ PIL's 8-bit `avifRGBImage`. This module follows those three steps:
   decoded picture as it is stored), so neither does this reader;
 - the AV1 data, decoded by `csrc/av1_decode.cc` (host C++, built by
   `cuda_build.build_host` at first use; no fallback: a failed build
-  raises naming the file): a key frame or intra-only frame, 8-bit,
-  4:2:0, 4:2:2, 4:4:4 or 4:0:0, with AV1's screen-content tools (palette
-  mode and intra block copy), in-loop filters (deblocking, CDEF, loop
-  restoration by the Wiener and self-guided filters) and film grain
-  synthesis, which dav1d applies for PIL (on an alpha item too);
+  raises naming the file): a key frame or intra-only frame of 8-, 10- or
+  12-bit samples (profiles 0, 1 and 2), 4:2:0, 4:2:2, 4:4:4 or 4:0:0,
+  with AV1's screen-content tools (palette mode at 8 bits, intra block
+  copy), in-loop filters (deblocking, CDEF, loop restoration by the
+  Wiener and self-guided filters) and film grain synthesis, which dav1d
+  applies for PIL (on an alpha item too);
 - YUV -> RGB(A) as libavif does it for PIL, in `csrc/av1_decode.cc`'s
-  `gs_yuv_to_rgb`: libyuv's 8-bit fixed-point rows with its bilinear
-  chroma upsampling where libavif picks libyuv (BT.601, BT.709 and
-  BT.2020 matrices, full or limited range, and 4:0:0 to RGBA by its
-  I400 rows), libavif's own float path elsewhere (identity, 4:0:0 to RGB,
-  other matrices); the alpha item's
-  own AV1 stream as the alpha channel (widened to full range where its
-  sequence header says limited, as libavif does), un-premultiplied as
-  libavif does where a `prem` reference says the colour is premultiplied.
+  `gs_yuv_to_rgb`: libyuv's fixed-point rows with its bilinear chroma
+  upsampling where libavif picks libyuv (BT.601, BT.709 and BT.2020
+  matrices, full or limited range, and 4:0:0 to RGBA by its I400 rows;
+  above 8 bits its 10- and 12-bit rows, or the planes downshifted to 8
+  bits first, as libavif picks them), libavif's own float path elsewhere
+  (identity, 4:0:0 to RGB, other matrices); the alpha item's own AV1
+  stream as the alpha channel (widened to full range where its sequence
+  header says limited, as libavif does; brought to 8 bits as libavif
+  brings it), un-premultiplied as libavif does where a `prem` reference
+  says the colour is premultiplied.
 
 Where PIL's plugin passes a file on (no `ftyp` at offset 4 or a major
 brand other than `avif`, `avis`, `mif1`, `msf1`; libavif's
 INVALID_FTYP, BMFF_PARSE_FAILED, TRUNCATED_DATA and NO_CONTENT, which
 PIL's decoder raises as SyntaxError, for the track boxes too), this
 raises `image_io.NotThisFormat`. What PIL raises otherwise, and the AV1
-tools this port does not decode yet (superres, 10- and 12-bit samples,
-`tmap` primary items, items whose AV1 frame libavif scales to their
-`ispe`), and the colour matrices libavif cannot convert, raise a
-`ValueError` naming the tool and the file.
+tools this port does not decode yet (superres, palette colours at 10
+and 12 bits, `tmap` primary items, items whose AV1 frame libavif scales
+to their `ispe`), and the colour matrices libavif cannot convert, raise
+a `ValueError` naming the tool and the file.
 """
 
 from __future__ import annotations
@@ -70,6 +73,9 @@ SPLIT_KEYS = ("container", "av1_symbols_and_reconstruction", "av1_deblocking", "
               "av1_film_grain", "yuv_to_rgb")
 AV1_KEYS = SPLIT_KEYS[1:6]  # the AV1 decoder's own steps, an alpha item's added in
 GRID_KEY = "grid_copies"  # a grid's copies of its cells into the whole planes (a grid's split only)
+# what the AV1 decoder reads, named where it refuses a stream
+READS = ("the port reads AVIF files of 8-, 10- and 12-bit AV1 key frames, without superres or palette colours "
+         "above 8 bits")
 # which tools a frame used: `av1_planes(..., tools=...)` (gs_av1_decode's `tools`)
 RESTORATION_TYPES = ("none", "wiener", "sgrproj", "switchable")
 CDEF_KINDS = ("primary", "secondary", "both")
@@ -674,7 +680,7 @@ def _library(name: str):
                                       ctypes.c_int]
         lib.gs_av1_decode.restype = ctypes.c_int
         i = ctypes.c_int
-        lib.gs_yuv_to_rgb.argtypes = [P, P, P, P, i, i, i, i, i, i, i, i, i, P, ctypes.c_char_p, i]
+        lib.gs_yuv_to_rgb.argtypes = [P, P, P, P, i, i, i, i, i, i, i, i, i, i, P, ctypes.c_char_p, i]
         lib.gs_yuv_to_rgb.restype = ctypes.c_int
         lib._gs_typed = True
     return lib
@@ -708,18 +714,21 @@ def decode_avif(data: bytes, name: str = "<bytes>", split: dict | None = None):
         cp, _, mc, full = info["nclx"]
     a = None
     if info["alpha"] is not None:
-        a, _, _, _ = _planes(info["alpha"], name, times, "alpha")
+        a, _, _, alpha_seq = _planes(info["alpha"], name, times, "alpha")
+        what = "an alpha grid" if isinstance(info["alpha"], _Grid) else "an alpha item"
         if a.shape != y.shape:
-            what = "an alpha grid" if isinstance(info["alpha"], _Grid) else "an alpha item"
             raise ValueError(f"{name}: {what} of {a.shape[1]}x{a.shape[0]} for a {w}x{h} image "
                              "(PIL: Failed to decode image)")
+        if alpha_seq["depth"] != seq["depth"]:
+            raise ValueError(f"{name}: {what} of {alpha_seq['depth']}-bit samples for a {seq['depth']}-bit image "
+                             "(libavif: the alpha plane's depth is the colour's; PIL: Decoding of alpha plane failed)")
     t1 = time.perf_counter()
     out = np.empty((h, w, 4 if a is not None else 3), np.uint8)
     msg = ctypes.create_string_buffer(512)
     lib = _library(name)
     ptr = (lambda x: None if x is None else x.ctypes.data)
-    if lib.gs_yuv_to_rgb(y.ctypes.data, ptr(u), ptr(v), ptr(a), w, h, seq["mono"], seq["ss_x"], seq["ss_y"], mc, cp,
-                         full, int(info["premultiplied"]), out.ctypes.data, msg, len(msg)):
+    if lib.gs_yuv_to_rgb(y.ctypes.data, ptr(u), ptr(v), ptr(a), w, h, seq["depth"], seq["mono"], seq["ss_x"],
+                         seq["ss_y"], mc, cp, full, int(info["premultiplied"]), out.ctypes.data, msg, len(msg)):
         raise ValueError(f"{name}: {msg.value.decode()}; the port converts AVIF colour as libavif does for the "
                          "BT.601, BT.709 and BT.2020 matrices, identity, and 4:0:0")
     times[SPLIT_KEYS[-1]] = time.perf_counter() - t1
@@ -759,8 +768,12 @@ def _planes(item, name, times, what):
         y, u, v, seq = av1_planes(av1, name, part)
         for key in AV1_KEYS:
             times[key] += part[key]
-        if what == "alpha" and not seq["full_range"]:  # libavif: (a - 16) * 255 / 219, rounded
-            y = np.clip(((y.astype(np.int32) - 16) * 255 + 109) // 219, 0, 255).astype(np.uint8)
+        if what == "alpha" and not seq["full_range"]:
+            # libavif's avifLimitedToFullY: (a - 16) * 255 / 219 rounded at 8 bits, (a - 64) * 1023 / 876 at
+            # 10, (a - 256) * 4095 / 3504 at 12
+            s = seq["depth"] - 8
+            lo, span, top = 16 << s, 219 << s, (1 << seq["depth"]) - 1
+            y = np.clip(((y.astype(np.int32) - lo) * top + span // 2) // span, 0, top).astype(y.dtype)
         return y, u, v, seq
 
     if not isinstance(item, _Grid):
@@ -771,7 +784,7 @@ def _planes(item, name, times, what):
                           "image)")
 
     g, W, H = item, item.width, item.height
-    keys = ("mono", "ss_x", "ss_y", "full_range", "cp", "tc", "mc") if what == "colour" else ()
+    keys = ("mono", "ss_x", "ss_y", "full_range", "cp", "tc", "mc", "depth") if what == "colour" else ("depth",)
     copy_s = 0.0
     for k, (av1, size) in enumerate(zip(g.cells, g.sizes)):
         y, u, v, seq = one(av1)
@@ -791,13 +804,13 @@ def _planes(item, name, times, what):
             if what == "colour" and not seq["mono"] and odd:
                 raise bad(f"of {cw}x{ch} cells in {W}x{H}, odd where the chroma is subsampled")
             sx, sy = seq["ss_x"], seq["ss_y"]
-            Y = np.empty((H, W), np.uint8)
+            Y = np.empty((H, W), y.dtype)
             U = V = None
             if u is not None:
-                U, V = (np.empty(((H + sy) >> sy, (W + sx) >> sx), np.uint8) for _ in range(2))
+                U, V = (np.empty(((H + sy) >> sy, (W + sx) >> sx), y.dtype) for _ in range(2))
         elif (cw, ch) != first or any(seq[key] != first_seq[key] for key in keys):
-            raise bad(f"whose cell {k} differs from its first cell in size, subsampling, range or colour "
-                      "description (mismatched tiles)")
+            raise bad(f"whose cell {k} differs from its first cell in size, subsampling, range, colour "
+                      "description or bit depth (mismatched tiles)")
         t = time.perf_counter()
         r, c = divmod(k, g.cols)
         x0, y0 = c * cw, r * ch
@@ -813,8 +826,9 @@ def _planes(item, name, times, what):
 
 
 def av1_planes(av1: bytes, name: str, times=None, tools=None):
-    """(Y, U, V, info) of one AV1 image item: 8-bit planes (U and V None
-    for 4:0:0) and its sequence header's colour description. `times`,
+    """(Y, U, V, info) of one AV1 image item: its planes (U and V None for
+    4:0:0), uint8 at 8 bits and uint16 at 10 and 12, and its sequence
+    header's colour description and bit depth ("depth"). `times`,
     where given, receives the seconds of the decoder's steps (`AV1_KEYS`);
     `tools` (a test hook) which tools the frame used: "use_128",
     "cdef_bits" (-1 without CDEF), "lr_unit_shift" (-1 without loop
@@ -836,21 +850,22 @@ def av1_planes(av1: bytes, name: str, times=None, tools=None):
     info = np.zeros(16, np.int32)
     msg = ctypes.create_string_buffer(512)
     if lib.gs_av1_decode(av1, len(av1), info.ctypes.data, None, None, None, None, None, msg, len(msg)):
-        raise ValueError(f"{name}: {msg.value.decode()}; the port reads AVIF files of 8-bit AV1 pictures")
-    w, h, mono, sx, sy = (int(v) for v in info[:5])
+        raise ValueError(f"{name}: {msg.value.decode()}; {READS}")
+    w, h, mono, sx, sy, depth = (int(v) for v in info[:6])
     if w * h > MAX_PIXELS:
         raise ValueError(f"{name}: an image of more than {MAX_PIXELS} pixels (PIL's decompression bomb limit)")
-    info[10], info[11] = w, h
-    y = np.empty((h, w), np.uint8)
+    info[10], info[11], info[12] = w, h, depth
+    dtype = np.uint8 if depth == 8 else np.uint16
+    y = np.empty((h, w), dtype)
     cw, ch = (w + sx) >> sx, (h + sy) >> sy
     u = v = None
     if not mono:
-        u, v = np.empty((ch, cw), np.uint8), np.empty((ch, cw), np.uint8)
+        u, v = np.empty((ch, cw), dtype), np.empty((ch, cw), dtype)
     t = np.zeros(len(AV1_KEYS), np.float64)
     used = np.zeros(72, np.int32)
     if lib.gs_av1_decode(av1, len(av1), info.ctypes.data, y.ctypes.data, None if mono else u.ctypes.data,
                          None if mono else v.ctypes.data, t.ctypes.data, used.ctypes.data, msg, len(msg)):
-        raise ValueError(f"{name}: {msg.value.decode()}; the port reads AVIF files of 8-bit AV1 pictures")
+        raise ValueError(f"{name}: {msg.value.decode()}; {READS}")
     if times is not None:
         times.update(zip(AV1_KEYS, t.tolist()))
     if tools is not None:
@@ -867,4 +882,4 @@ def av1_planes(av1: bytes, name: str, times=None, tools=None):
                      intrabc_chroma=dict(fractional=int(used[61]), below_8x8=int(used[62])),
                      film_grain=dict(zip(FILM_GRAIN_KEYS, used[63:72].tolist())))
     return y, u, v, {"mono": mono, "ss_x": sx, "ss_y": sy, "cp": int(info[6]), "tc": int(info[7]),
-                     "mc": int(info[8]), "full_range": int(info[9])}
+                     "mc": int(info[8]), "full_range": int(info[9]), "depth": depth}

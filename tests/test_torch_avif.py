@@ -17,9 +17,11 @@ vectors (`film-grain-test`), with grain estimated from the picture
 writes (`film-grain-table`). Image sequences (`avis`, written by PIL's
 `save_all`) read as PIL's frame 0, and libavif's choice between their tracks
 and the primary item is held to PIL on files whose brands and boxes are
-edited (stated beside each case). The tools this port does not decode yet
-(superres, 10-bit) are refused by name, on PIL-written files whose header
-bits are edited. Grid images are held to PIL in `test_torch_avif_grid.py`.
+edited (stated beside each case). Superres, which this port does not decode
+yet, is refused by name on a PIL-written file whose header bits are edited;
+the same file with its high_bitdepth bit set reads as PIL reads it (10- and
+12-bit files in full: `test_torch_avif_hbd.py`). Grid images are held to PIL
+in `test_torch_avif_grid.py`.
 """
 
 import hashlib
@@ -1174,7 +1176,6 @@ def refused_cases():
     px = picture(130, 160, 90)
     return {
         "superres (header bits edited)": (lambda: edited(pil_avif(px, quality=50), superres_edit), "superres"),
-        "10-bit (header bit edited)": (lambda: edited(pil_avif(px, quality=50), high_bitdepth_edit), "10-bit"),
     }
 
 
@@ -1186,6 +1187,16 @@ REFUSED = refused_cases()  # made in the test that reads each
 def test_refused_tools_name_the_tool_and_the_file(tmp_path, cxx, case):
     make, what = REFUSED[case]
     assert_refused(tmp_path, make(), what)
+
+
+@requires_avif
+def test_a_file_whose_high_bitdepth_bit_is_set_reads_as_pil(tmp_path, cxx):
+    """The one-bit edit that made a 10-bit file (high_bitdepth := 1 in the
+    sequence header, av1C and pixi still saying 8 bits) reads as PIL reads
+    it: AV1's syntax below the sequence header is the same at 10 bits."""
+    data = edited(pil_avif(picture(130, 160, 90), quality=50), high_bitdepth_edit)
+    assert avif.av1_planes(avif.parse(data, "x")["color"], "x")[3]["depth"] == 10
+    assert_reads_as_pil(tmp_path, data)
 
 
 def box(kind: bytes, body: bytes) -> bytes:

@@ -32,6 +32,7 @@ from gaussian_splatting_torch.scene import dataset_readers
 from gaussian_splatting_torch.utils import avif, image_io
 from test_torch_image_forms import cxx, write_colmap_dataset_of  # noqa: F401  (cxx: a fixture)
 from test_torch_scene import assert_same_cameras, orbit_frames
+from torch_image_writers import heif_file, heif_model, heif_parts
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures", "torch_avif_grid")
 READINGS = json.load(open(os.path.join(FIXTURES, "sha256.json")))
@@ -143,20 +144,6 @@ def test_fixtures_are_grids_of_their_layouts():
     assert crop.sizes[0] == (64, 64) and 3 * 64 > crop.width and 2 * 64 > crop.height
 
 
-def heif_parts(data: bytes):
-    """(ftyp body, the meta box's parts) of the file: items, properties,
-    associations, references."""
-    def kids(s, e):
-        while s < e:
-            n, k = struct.unpack(">I4s", data[s:s + 8])
-            yield k, s + 8, s + n
-            s += n
-
-    top = {k: (s, e) for k, s, e in kids(0, len(data))}
-    meta = {k: data[s:e] for k, s, e in kids(top[b"meta"][0] + 4, top[b"meta"][1])}
-    return data[slice(*top[b"ftyp"])], meta
-
-
 def test_gain_map_file_keeps_its_base_as_the_primary_item():
     """libavif's gain-map file (avifImageComputeGainMap, written beside
     its base): `pitm` names the `av01` base, which PIL shows; the `tmap`
@@ -220,8 +207,8 @@ def test_the_seams_match_pil_only_when_converted_once(cxx):
             h, w = y.shape
             out = np.empty((h, w, 3), np.uint8)
             msg = ctypes.create_string_buffer(256)
-            assert not lib.gs_yuv_to_rgb(y.ctypes.data, u.ctypes.data, v.ctypes.data, None, w, h, 0, seq["ss_x"],
-                                         seq["ss_y"], 6, 1, 1, 0, out.ctypes.data, msg, len(msg))
+            assert not lib.gs_yuv_to_rgb(y.ctypes.data, u.ctypes.data, v.ctypes.data, None, w, h, 8, 0,
+                                         seq["ss_x"], seq["ss_y"], 6, 1, 1, 0, out.ctypes.data, msg, len(msg))
             r, c = divmod(k, g.cols)
             apart[r * h:(r + 1) * h, c * w:(c + 1) * w] = out
         off = np.any(apart != whole, axis=2)
@@ -234,102 +221,6 @@ def test_the_seams_match_pil_only_when_converted_once(cxx):
 
 
 # ---- libavif's rules, on edited files ----
-
-def heif_model(data: bytes) -> dict:
-    """The items of a one-`meta` AVIF file, to edit: "primary", "items"
-    ([{id, type, name, flags, method, payload}] in `iinf` order), "props"
-    ([kind, body] in `ipco` order), "assoc" ({id: [[index, essential]]}),
-    "refs" ([[kind, from, [to ids]]] in `iref` order), "ftyp", "hdlr"."""
-    ftyp, meta = heif_parts(data)
-    m = {"ftyp": ftyp, "hdlr": meta[b"hdlr"], "items": [], "props": [], "assoc": {}, "refs": []}
-    m["primary"] = struct.unpack(">H", meta[b"pitm"][4:6])[0]
-    idat = meta.get(b"idat", b"")
-
-    def kids(b, s):
-        while s < len(b):
-            n, k = struct.unpack(">I4s", b[s:s + 8])
-            yield k, b[s + 8:s + n]
-            s += n
-
-    b = meta[b"iinf"]
-    for _, infe in kids(b, 6 if b[0] == 0 else 8):
-        m["items"].append({"id": struct.unpack(">H", infe[4:6])[0], "type": infe[8:12], "name": infe[12:],
-                           "flags": int.from_bytes(infe[1:4], "big"), "method": 0, "payload": None})
-    by_id = {it["id"]: it for it in m["items"]}
-    b = meta[b"iloc"]
-    v, p = b[0], 4
-    off_size, len_size, base_size = b[p] >> 4, b[p] & 15, b[p + 1] >> 4
-    index_size = (b[p + 1] & 15) if v else 0
-    count, p = struct.unpack(">H", b[p + 2:p + 4])[0], p + 4
-    for _ in range(count):
-        it = by_id[struct.unpack(">H", b[p:p + 2])[0]]
-        p += 2
-        if v:
-            it["method"], p = b[p + 1] & 15, p + 2
-        base = int.from_bytes(b[p + 2:p + 2 + base_size], "big")
-        p += 2 + base_size
-        n, p = struct.unpack(">H", b[p:p + 2])[0], p + 2
-        parts = []
-        for _ in range(n):
-            p += index_size
-            off, length = (int.from_bytes(b[p:p + off_size], "big"),
-                           int.from_bytes(b[p + off_size:p + off_size + len_size], "big"))
-            p += off_size + len_size
-            src = idat if it["method"] == 1 else data
-            parts.append(src[base + off:base + off + length])
-        it["payload"] = b"".join(parts)
-    for kind, ref in kids(meta.get(b"iref", bytes(4)), 4):
-        frm, n = struct.unpack(">HH", ref[:4])
-        m["refs"].append([kind, frm, list(struct.unpack(f">{n}H", ref[4:4 + 2 * n]))])
-    iprp = dict(kids(meta[b"iprp"], 0))
-    m["props"] = [[k, body] for k, body in kids(iprp[b"ipco"], 0)]
-    b, q = iprp[b"ipma"], 8
-    for _ in range(struct.unpack(">I", b[4:8])[0]):
-        iid, n = struct.unpack(">HB", b[q:q + 3])
-        m["assoc"][iid] = [[x & 0x7F, bool(x & 0x80)] for x in b[q + 3:q + 3 + n]]
-        q += 3 + n
-    return m
-
-
-def heif_file(m: dict) -> bytes:
-    """The file of a `heif_model`: ftyp, meta (hdlr, pitm, iloc version 1
-    with 4-byte offsets and lengths, iinf of infe version 2, iref, iprp,
-    idat where an item's construction method is 1), mdat."""
-    def box(kind, body):
-        return struct.pack(">I4s", 8 + len(body), kind) + body
-
-    def full(kind, body, version=0, flags=0):
-        return box(kind, bytes([version]) + flags.to_bytes(3, "big") + body)
-
-    located = [it for it in m["items"] if it["payload"] is not None]
-
-    def meta(offsets):
-        iloc = bytes([0x44, 0]) + struct.pack(">H", len(located)) + b"".join(
-            struct.pack(">HHHHII", it["id"], it["method"], 0, 1, offsets.get(it["id"], 0), len(it["payload"]))
-            for it in located)
-        iinf = struct.pack(">H", len(m["items"])) + b"".join(
-            full(b"infe", struct.pack(">HH", it["id"], 0) + it["type"] + it["name"], 2, it["flags"])
-            for it in m["items"])
-        iref = b"".join(box(k, struct.pack(">HH", frm, len(to)) + struct.pack(f">{len(to)}H", *to))
-                        for k, frm, to in m["refs"])
-        ipma = struct.pack(">I", len(m["assoc"])) + b"".join(
-            struct.pack(">HB", iid, len(a)) + bytes(i | (0x80 if ess else 0) for i, ess in a)
-            for iid, a in m["assoc"].items())
-        idat = b"".join(it["payload"] for it in located if it["method"] == 1)
-        return full(b"meta", box(b"hdlr", m["hdlr"]) + full(b"pitm", struct.pack(">H", m["primary"]))
-                    + full(b"iloc", iloc, 1) + full(b"iinf", iinf) + (full(b"iref", iref) if m["refs"] else b"")
-                    + box(b"iprp", box(b"ipco", b"".join(box(k, body) for k, body in m["props"]))
-                          + full(b"ipma", ipma)) + (box(b"idat", idat) if idat else b""))
-
-    at = 8 + len(m["ftyp"]) + len(meta({})) + 8
-    offsets, mdat, in_idat = {}, b"", 0
-    for it in located:
-        if it["method"] == 1:
-            offsets[it["id"]], in_idat = in_idat, in_idat + len(it["payload"])
-        else:
-            offsets[it["id"]], mdat = at + len(mdat), mdat + it["payload"]
-    return box(b"ftyp", m["ftyp"]) + meta(offsets) + box(b"mdat", mdat)
-
 
 def item(m, iid):
     return next(it for it in m["items"] if it["id"] == iid)

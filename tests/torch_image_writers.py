@@ -96,6 +96,12 @@ specifications, and PIL's read of it is the rule the port is held to.
   `xbm_bytes` (as PIL writes it), `xpm_bytes` / `xpm_keys`, `xv_bytes`,
   `pcd_bytes` / `pcd_ycc`, `iptc_bytes` / `iptc_field`, `mpeg_bytes`,
   `wmf_bytes` and `emf_bytes`: the forms of PIL's other plugins.
+- `avif_grid_bytes` / `avif_gain_map_bytes`: AVIF grids and gain maps by
+  the libavif PIL ships (`avif_library`, ctypes); `heif_model` /
+  `heif_file`: an AVIF file's items to edit and to lay out again;
+  `avif_high_depth`: a PIL- or libavif-written AVIF relabelled to 10 or 12
+  bits (`relabel_av1`, `av1_color_config`, `av1_sequence_header` read and
+  write AV1's sequence headers).
 `rle_chunks` is the vectorised run finder the RLE writers share.
 """
 
@@ -2848,3 +2854,498 @@ def avif_gain_map_bytes(base_planes, alt_planes, gain_map_size, quality: int = 6
     finally:
         lib.avifImageDestroy(base)
         lib.avifImageDestroy(alt)
+
+
+# ---- AVIF files rebuilt: their items (heif_model / heif_file), their AV1 depth ----
+
+def heif_parts(data: bytes):
+    """(ftyp body, the meta box's parts) of the file: items, properties,
+    associations, references."""
+    def kids(s, e):
+        while s < e:
+            n, k = struct.unpack(">I4s", data[s:s + 8])
+            yield k, s + 8, s + n
+            s += n
+
+    top = {k: (s, e) for k, s, e in kids(0, len(data))}
+    meta = {k: data[s:e] for k, s, e in kids(top[b"meta"][0] + 4, top[b"meta"][1])}
+    return data[slice(*top[b"ftyp"])], meta
+
+
+def heif_model(data: bytes) -> dict:
+    """The items of a one-`meta` AVIF file, to edit: "primary", "items"
+    ([{id, type, name, flags, method, payload}] in `iinf` order), "props"
+    ([kind, body] in `ipco` order), "assoc" ({id: [[index, essential]]}),
+    "refs" ([[kind, from, [to ids]]] in `iref` order), "ftyp", "hdlr"."""
+    ftyp, meta = heif_parts(data)
+    m = {"ftyp": ftyp, "hdlr": meta[b"hdlr"], "items": [], "props": [], "assoc": {}, "refs": []}
+    m["primary"] = struct.unpack(">H", meta[b"pitm"][4:6])[0]
+    idat = meta.get(b"idat", b"")
+
+    def kids(b, s):
+        while s < len(b):
+            n, k = struct.unpack(">I4s", b[s:s + 8])
+            yield k, b[s + 8:s + n]
+            s += n
+
+    b = meta[b"iinf"]
+    for _, infe in kids(b, 6 if b[0] == 0 else 8):
+        m["items"].append({"id": struct.unpack(">H", infe[4:6])[0], "type": infe[8:12], "name": infe[12:],
+                           "flags": int.from_bytes(infe[1:4], "big"), "method": 0, "payload": None})
+    by_id = {it["id"]: it for it in m["items"]}
+    b = meta[b"iloc"]
+    v, p = b[0], 4
+    off_size, len_size, base_size = b[p] >> 4, b[p] & 15, b[p + 1] >> 4
+    index_size = (b[p + 1] & 15) if v else 0
+    count, p = struct.unpack(">H", b[p + 2:p + 4])[0], p + 4
+    for _ in range(count):
+        it = by_id[struct.unpack(">H", b[p:p + 2])[0]]
+        p += 2
+        if v:
+            it["method"], p = b[p + 1] & 15, p + 2
+        base = int.from_bytes(b[p + 2:p + 2 + base_size], "big")
+        p += 2 + base_size
+        n, p = struct.unpack(">H", b[p:p + 2])[0], p + 2
+        parts = []
+        for _ in range(n):
+            p += index_size
+            off, length = (int.from_bytes(b[p:p + off_size], "big"),
+                           int.from_bytes(b[p + off_size:p + off_size + len_size], "big"))
+            p += off_size + len_size
+            src = idat if it["method"] == 1 else data
+            parts.append(src[base + off:base + off + length])
+        it["payload"] = b"".join(parts)
+    for kind, ref in kids(meta.get(b"iref", bytes(4)), 4):
+        frm, n = struct.unpack(">HH", ref[:4])
+        m["refs"].append([kind, frm, list(struct.unpack(f">{n}H", ref[4:4 + 2 * n]))])
+    iprp = dict(kids(meta[b"iprp"], 0))
+    m["props"] = [[k, body] for k, body in kids(iprp[b"ipco"], 0)]
+    b, q = iprp[b"ipma"], 8
+    for _ in range(struct.unpack(">I", b[4:8])[0]):
+        iid, n = struct.unpack(">HB", b[q:q + 3])
+        m["assoc"][iid] = [[x & 0x7F, bool(x & 0x80)] for x in b[q + 3:q + 3 + n]]
+        q += 3 + n
+    return m
+
+
+def heif_file(m: dict) -> bytes:
+    """The file of a `heif_model`: ftyp, meta (hdlr, pitm, iloc version 1
+    with 4-byte offsets and lengths, iinf of infe version 2, iref, iprp,
+    idat where an item's construction method is 1), mdat."""
+    def box(kind, body):
+        return struct.pack(">I4s", 8 + len(body), kind) + body
+
+    def full(kind, body, version=0, flags=0):
+        return box(kind, bytes([version]) + flags.to_bytes(3, "big") + body)
+
+    located = [it for it in m["items"] if it["payload"] is not None]
+
+    def meta(offsets):
+        iloc = bytes([0x44, 0]) + struct.pack(">H", len(located)) + b"".join(
+            struct.pack(">HHHHII", it["id"], it["method"], 0, 1, offsets.get(it["id"], 0), len(it["payload"]))
+            for it in located)
+        iinf = struct.pack(">H", len(m["items"])) + b"".join(
+            full(b"infe", struct.pack(">HH", it["id"], 0) + it["type"] + it["name"], 2, it["flags"])
+            for it in m["items"])
+        iref = b"".join(box(k, struct.pack(">HH", frm, len(to)) + struct.pack(f">{len(to)}H", *to))
+                        for k, frm, to in m["refs"])
+        ipma = struct.pack(">I", len(m["assoc"])) + b"".join(
+            struct.pack(">HB", iid, len(a)) + bytes(i | (0x80 if ess else 0) for i, ess in a)
+            for iid, a in m["assoc"].items())
+        idat = b"".join(it["payload"] for it in located if it["method"] == 1)
+        return full(b"meta", box(b"hdlr", m["hdlr"]) + full(b"pitm", struct.pack(">H", m["primary"]))
+                    + full(b"iloc", iloc, 1) + full(b"iinf", iinf) + (full(b"iref", iref) if m["refs"] else b"")
+                    + box(b"iprp", box(b"ipco", b"".join(box(k, body) for k, body in m["props"]))
+                          + full(b"ipma", ipma)) + (box(b"idat", idat) if idat else b""))
+
+    at = 8 + len(m["ftyp"]) + len(meta({})) + 8
+    offsets, mdat, in_idat = {}, b"", 0
+    for it in located:
+        if it["method"] == 1:
+            offsets[it["id"]], in_idat = in_idat, in_idat + len(it["payload"])
+        else:
+            offsets[it["id"]], mdat = at + len(mdat), mdat + it["payload"]
+    return box(b"ftyp", m["ftyp"]) + meta(offsets) + box(b"mdat", mdat)
+
+
+class _BitReader:
+    def __init__(self, data: bytes):
+        self.data, self.pos = data, 0
+
+    def f(self, n: int) -> int:
+        v = 0
+        for _ in range(n):
+            v = 2 * v + ((self.data[self.pos >> 3] >> (7 - (self.pos & 7))) & 1)
+            self.pos += 1
+        return v
+
+    def uvlc(self):
+        zeros = 0
+        while not self.f(1):
+            zeros += 1
+        self.f(zeros)
+
+
+def av1_color_config(seq: bytes) -> dict:
+    """The fields of an AV1 sequence header OBU's payload (5.5) that the
+    depth depends on: "profile", "at" (the bit of high_bitdepth), "depth",
+    "mono", "colour" (color_description_present_flag and its three codes),
+    "range" (and "range_at", its bit where coded), "ss" (subsampling x,
+    y), "csp" (chroma_sample_position, None
+    where not coded), "uv_delta" (separate_uv_delta_q), "grain"
+    (film_grain_params_present)."""
+    b = _BitReader(seq)
+    profile, _, reduced = b.f(3), b.f(1), b.f(1)
+    if reduced:
+        b.f(5)
+    else:
+        timing = b.f(1)
+        buffer_delay_length, decoder_model = 0, 0
+        if timing:
+            b.f(64)
+            if b.f(1):
+                b.uvlc()
+            decoder_model = b.f(1)
+            if decoder_model:
+                buffer_delay_length = b.f(5) + 1
+                b.f(32 + 10)
+        initial_delay = b.f(1)
+        for _ in range(b.f(5) + 1):
+            b.f(12)
+            if b.f(5) > 7:
+                b.f(1)
+            if decoder_model and b.f(1):
+                b.f(2 * buffer_delay_length + 1)
+            if initial_delay and b.f(1):
+                b.f(4)
+    wb, hb = b.f(4) + 1, b.f(4) + 1
+    b.f(wb + hb)
+    if not reduced and b.f(1):  # frame_id_numbers_present_flag
+        b.f(7)
+    b.f(3)  # use_128x128_superblock, enable_filter_intra, enable_intra_edge_filter
+    if not reduced:
+        b.f(4)  # enable_interintra_compound, masked_compound, warped_motion, dual_filter
+        order_hint = b.f(1)
+        if order_hint:
+            b.f(2)
+        force_screen = 2 if b.f(1) else b.f(1)
+        if force_screen > 0 and not b.f(1):
+            b.f(1)
+        if order_hint:
+            b.f(3)
+    b.f(3)  # enable_superres, enable_cdef, enable_restoration
+    c = {"profile": profile, "at": b.pos}
+    high = b.f(1)
+    c["depth"] = (12 if b.f(1) else 10) if profile == 2 and high else (10 if high else 8)
+    c["mono"] = 0 if profile == 1 else b.f(1)
+    c["colour"] = (b.f(8), b.f(8), b.f(8)) if b.f(1) else None
+    c["csp"], c["range_at"] = None, b.pos
+    if c["mono"]:
+        c["range"], c["ss"] = b.f(1), (1, 1)
+    elif c["colour"] == (1, 13, 0):
+        c["range"], c["ss"] = 1, (0, 0)
+    else:
+        c["range"] = b.f(1)
+        if profile == 0:
+            c["ss"] = (1, 1)
+        elif profile == 1:
+            c["ss"] = (0, 0)
+        elif c["depth"] == 12:
+            sx = b.f(1)
+            c["ss"] = (sx, b.f(1) if sx else 0)
+        else:
+            c["ss"] = (1, 0)
+        if c["ss"] == (1, 1):
+            c["csp"] = b.f(2)
+    c["uv_delta"] = 0 if c["mono"] else b.f(1)
+    c["grain"] = b.f(1)
+    return c
+
+
+def _depth_profile(c: dict, depth: int) -> int:
+    """The AV1 profile of the sequence header's sampling at `depth`: 2 for
+    12 bits and for 4:2:2, else 1 for 4:4:4 and 0 for 4:2:0 and 4:0:0."""
+    if depth == 12 or (not c["mono"] and c["ss"] == (1, 0)):
+        return 2
+    return 1 if not c["mono"] and c["ss"] == (0, 0) else 0
+
+
+def _relabelled_sequence(seq: bytes, depth: int) -> bytes:
+    """An AV1 sequence header payload at `depth` bits: seq_profile,
+    high_bitdepth and twelve_bit set, mono_chrome and the profile-2
+    subsampling bits written where the new profile codes them, the rest
+    kept, then trailing bits."""
+    c = av1_color_config(seq)
+    profile = _depth_profile(c, depth)
+    bits = [(seq[i >> 3] >> (7 - (i & 7))) & 1 for i in range(c["at"])]
+    bits[0:3] = [(profile >> 2) & 1, (profile >> 1) & 1, profile & 1]
+
+    def put(v, n):
+        bits.extend((v >> (n - 1 - i)) & 1 for i in range(n))
+
+    put(int(depth > 8), 1)
+    if profile == 2 and depth > 8:
+        put(int(depth == 12), 1)
+    if profile != 1:
+        put(c["mono"], 1)
+    put(c["colour"] is not None, 1)
+    for code in c["colour"] or ():
+        put(code, 8)
+    if c["mono"]:
+        put(c["range"], 1)
+    elif c["colour"] != (1, 13, 0):
+        put(c["range"], 1)
+        if profile == 2 and depth == 12:
+            put(c["ss"][0], 1)
+            if c["ss"][0]:
+                put(c["ss"][1], 1)
+        if c["ss"] == (1, 1):
+            put(c["csp"] or 0, 2)
+    if not c["mono"]:
+        put(c["uv_delta"], 1)
+    put(c["grain"], 1)
+    bits.append(1)  # trailing bits
+    bits.extend([0] * (-len(bits) % 8))
+    return bytes(int("".join(map(str, bits[i:i + 8])), 2) for i in range(0, len(bits), 8))
+
+
+def _leb128(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        out.append((n & 0x7F) | (0x80 if n > 0x7F else 0))
+        n >>= 7
+        if not n:
+            return bytes(out)
+
+
+def av1_obus(av1: bytes):
+    """(OBU type, header bytes, has_size, payload start, payload end) of
+    each OBU of AV1 data (5.3)."""
+    at = 0
+    while at < len(av1):
+        h = av1[at]
+        p = at + 1 + ((h >> 2) & 1)
+        head = av1[at:p]
+        if (h >> 1) & 1:
+            size, shift = 0, 0
+            while True:
+                byte = av1[p]
+                size, p, shift = size | (byte & 0x7F) << shift, p + 1, shift + 7
+                if not byte & 0x80:
+                    break
+        else:
+            size = len(av1) - p
+        yield (h >> 3) & 15, head, (h >> 1) & 1, p, p + size
+        at = p + size
+
+
+def av1_sequence_header(av1: bytes) -> bytes:
+    """The payload of the first sequence header OBU of AV1 data."""
+    return next(av1[s:e] for kind, _, _, s, e in av1_obus(av1) if kind == 1)
+
+
+def relabel_av1(av1: bytes, depth: int) -> bytes:
+    """AV1 OBUs with every sequence header relabelled to `depth` bits (10
+    or 12; 8 keeps the sampling's 8-bit profile)."""
+    out = bytearray()
+    for kind, head, has_size, s, e in av1_obus(av1):
+        body = _relabelled_sequence(av1[s:e], depth) if kind == 1 else av1[s:e]
+        out += head + (_leb128(len(body)) if has_size else b"") + body
+    return bytes(out)
+
+
+def _relabelled_av1c(body: bytes, depth: int) -> bytes:
+    """An av1C body whose seq_profile, high_bitdepth and twelve_bit say
+    `depth` bits (its configOBUs relabelled too)."""
+    mono, sx, sy = (body[2] >> 4) & 1, (body[2] >> 3) & 1, (body[2] >> 2) & 1
+    profile = _depth_profile({"mono": mono, "ss": (sx, sy)}, depth)
+    b1 = (profile << 5) | (body[1] & 0x1F)
+    b2 = (body[2] & 0x9F) | (0x40 if depth > 8 else 0) | (0x20 if depth == 12 else 0)
+    return bytes([body[0], b1, b2]) + body[3:4] + (relabel_av1(body[4:], depth) if len(body) > 4 else b"")
+
+
+# the boxes whose children avif_high_depth reads, and the bytes before the first child
+_CONTAINERS = {b"meta": 4, b"iprp": 0, b"ipco": 0, b"moov": 0, b"trak": 0, b"mdia": 0, b"minf": 0, b"stbl": 0,
+               b"stsd": 8, b"av01": 78}
+
+
+def _box_tree(data: bytes) -> list:
+    """(kind, start, end, body start) of every box of the file and of the
+    containers avif_high_depth reads, in file order."""
+    out = []
+
+    def walk(s, e):
+        while s < e:
+            n, kind = struct.unpack(">I4s", data[s:s + 8])
+            head = 8
+            if n == 1:
+                n, head = struct.unpack(">Q", data[s + 8:s + 16])[0], 16
+            elif n == 0:
+                n = e - s
+            out.append((kind, s, s + n, s + head))
+            if kind in _CONTAINERS:
+                walk(s + head + _CONTAINERS[kind], s + n)
+            elif kind == b"iinf":  # a full box, then a 16- or 32-bit entry count
+                walk(s + head + (6 if data[s + head] == 0 else 8), s + n)
+            s += n
+
+    walk(0, len(data))
+    return out
+
+
+def _uint(data: bytes, at: int, n: int) -> int:
+    return int.from_bytes(data[at:at + n], "big")
+
+
+def _item_extents(data: bytes, tree: list):
+    """({item id: [(start, end)] of its data in the file}, the iloc fields
+    as (field start, width, value from `moved`, the new offset of an old
+    one)) of the file's `iloc` box (versions 0-2, construction methods 0
+    and 1, the latter in `idat`)."""
+    body = {kind: bs for kind, _, _, bs in tree}
+    extents, fields = {}, []
+    if b"iloc" not in body:
+        return extents, fields
+    p = body[b"iloc"]
+    v = data[p]
+    off_size, len_size, base_size = data[p + 4] >> 4, data[p + 4] & 15, data[p + 5] >> 4
+    index_size = (data[p + 5] & 15) if v else 0
+    count, p = _uint(data, p + 6, 2), p + 8
+    for _ in range(count):
+        iid, p = _uint(data, p, 2), p + 2
+        method = 0
+        if v:
+            method, p = data[p + 1] & 15, p + 2
+        base = _uint(data, p + 2, base_size)
+        origin = body[b"idat"] if method == 1 else 0
+        n, p = _uint(data, p + 2 + base_size, 2), p + 4 + base_size
+        for _ in range(n):
+            p += index_size
+            start = origin + base + _uint(data, p, off_size)
+            end = start + _uint(data, p + off_size, len_size)
+            extents.setdefault(iid, []).append((start, end))
+            fields.append((p, off_size, lambda m, s=start, o=origin, b=base: m(s) - (m(o) if o else 0) - b))
+            fields.append((p + off_size, len_size, lambda m, s=start, e=end: m(e) - m(s)))
+            p += off_size + len_size
+    return extents, fields
+
+
+def _item_properties(data: bytes, tree: list) -> dict:
+    """{item id: the starts of its properties' boxes} by `ipma` and `ipco`."""
+    body = {kind: (bs, e) for kind, _, e, bs in tree}
+    if b"ipma" not in body:
+        return {}
+    ipco = [s for _, s, _, _ in tree if body[b"ipco"][0] <= s < body[b"ipco"][1]]
+    p = body[b"ipma"][0]
+    idw, width = (4 if data[p] else 2), (2 if data[p + 3] & 1 else 1)
+    out = {}
+    count, p = _uint(data, p + 4, 4), p + 8
+    for _ in range(count):
+        iid, n = _uint(data, p, idw), data[p + idw]
+        p += idw + 1
+        indices = [_uint(data, p + width * i, width) & ((1 << (8 * width - 1)) - 1) for i in range(n)]
+        out[iid] = [ipco[i - 1] for i in indices if 0 < i <= len(ipco)]
+        p += width * n
+    return out
+
+
+def _track_samples(data: bytes, tree: list, trak: tuple):
+    """([(start, end)] of each sample of the track, the stco / co64 and
+    stsz fields as in `_item_extents`), by stco / co64, stsc and stsz."""
+    inside = [(k, bs) for k, s, _, bs in tree if trak[1] < s < trak[2]]
+    chunks, to_chunk, sizes = [], [], []
+    for kind, bs in inside:
+        count = _uint(data, bs + 4, 4)
+        if kind in (b"stco", b"co64"):
+            w = 8 if kind == b"co64" else 4
+            chunks = [(bs + 8 + w * i, w) for i in range(count)]
+        elif kind == b"stsc":
+            to_chunk = [struct.unpack(">II", data[bs + 8 + 12 * i:bs + 16 + 12 * i]) for i in range(count)]
+        elif kind == b"stsz":
+            if count:
+                raise ValueError("a track of one fixed sample size (stsz) cannot take a grown sequence header")
+            sizes = [bs + 12 + 4 * i for i in range(_uint(data, bs + 8, 4))]
+    samples, fields = [], []
+    for ci, (field, w) in enumerate(chunks):
+        offset = _uint(data, field, w)
+        fields.append((field, w, lambda m, o=offset: m(o)))
+        for _ in range(next(n for first, n in reversed(to_chunk) if first <= ci + 1)):
+            at = sizes[len(samples)]
+            end = offset + _uint(data, at, 4)
+            samples.append((offset, end))
+            fields.append((at, 4, lambda m, s=offset, e=end: m(e) - m(s)))
+            offset = end
+    return samples, fields
+
+
+def avif_high_depth(data: bytes, depth: int, boxes: bool = True, items=None) -> bytes:
+    """A PIL- or libavif-written AVIF file relabelled to `depth` (10 or 12)
+    bits: every AV1 sequence header of its `av01` items' payloads and of
+    its tracks' samples gets the seq_profile, high_bitdepth and twelve_bit
+    of that depth (the profile-2 subsampling bits and mono_chrome inserted
+    where the new profile codes them); AV1's syntax below the sequence
+    header is the same at every depth but for palette colours, so the
+    frames decode at the new depth. With `boxes`, each `av1C` (of the items
+    and of the `av01` sample entries) and `pixi` says the new depth too;
+    without, only the AV1 data changes. `items`, where given, limits the
+    edits to those items (their data and, with `boxes`, their `av1C` and
+    `pixi`; no track). Where a sequence header grows, the file is laid out
+    again: box sizes, `iloc` offsets and lengths, `stco` / `co64` offsets
+    and `stsz` sizes follow."""
+    tree = _box_tree(data)
+    types = {_uint(data, bs + 4, 2): data[bs + 8:bs + 12] for kind, _, _, bs in tree if kind == b"infe"}
+    extents, fields = _item_extents(data, tree)
+    named = set(types) if items is None else set(items)
+    ranges = [r for iid in named if types.get(iid) == b"av01" for r in extents.get(iid, [])]
+    if items is None:
+        for trak in (t for t in tree if t[0] == b"trak"):
+            if any(k == b"av01" and trak[1] < s < trak[2] for k, s, _, _ in tree):
+                samples, more = _track_samples(data, tree, trak)
+                ranges += samples
+                fields += more
+    edits = {(s, e): relabel_av1(data[s:e], depth) for s, e in ranges}
+    if boxes:
+        props = _item_properties(data, tree)
+        owned = {start for iid in named for start in props.get(iid, [])}
+        in_ipco = {start for starts in props.values() for start in starts}
+        for kind, s, e, bs in tree:
+            if kind in (b"av1C", b"pixi") and (s in owned if s in in_ipco else items is None):
+                edits[(s, e)] = (_box(b"av1C", _relabelled_av1c(data[bs:e], depth)) if kind == b"av1C"
+                                 else data[s:bs + 5] + bytes([depth]) * data[bs + 4])
+    return _apply_edits(data, edits, tree, fields)
+
+
+def _box(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I4s", 8 + len(body), kind) + body
+
+
+def _apply_edits(data: bytes, edits: dict, tree: list, fields: list) -> bytes:
+    """The file with each byte range of `edits` replaced, the sizes of the
+    boxes around them and the location `fields` ((start, width, value from
+    `moved`)) following the moves."""
+    spans = sorted(edits)
+    if any(s1 < e0 for (_, e0), (s1, _) in zip(spans, spans[1:])):
+        raise ValueError("overlapping AVIF edits")
+
+    def moved(x):
+        """Where an offset lands (not one inside an edit): past every edit
+        that ends at or before it, grown or shrunk as they were."""
+        if any(s < x < e for s, e in spans):
+            raise ValueError("an AVIF location inside an edited range")
+        return x + sum(len(edits[(s, e)]) - (e - s) for s, e in spans if e <= x)
+
+    out, at = bytearray(), 0
+    for s, e in spans:
+        out += data[at:s] + edits[(s, e)]
+        at = e
+    out += data[at:]
+    for kind, s, e, bs in tree:
+        if (s, e) in edits or data[s:s + 4] == bytes(4) or not any(s <= es and ee <= e for es, ee in spans):
+            continue
+        if data[s:s + 4] == b"\0\0\0\1":  # a 64-bit size
+            out[moved(s) + 8:moved(s) + 16] = struct.pack(">Q", moved(e) - moved(s))
+        else:
+            out[moved(s):moved(s) + 4] = struct.pack(">I", moved(e) - moved(s))
+    for at, width, value in fields:
+        out[moved(at):moved(at) + width] = value(moved).to_bytes(width, "big")
+    return bytes(out)
